@@ -1,0 +1,1 @@
+"""apps layer of the PyTorch/CUDA port (see wave_fenics_tpu.apps)."""

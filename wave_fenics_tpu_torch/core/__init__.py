@@ -1,0 +1,1 @@
+"""core layer of the PyTorch/CUDA port (see wave_fenics_tpu.core)."""

@@ -1,0 +1,1 @@
+"""ops layer of the PyTorch/CUDA port (see wave_fenics_tpu.ops)."""

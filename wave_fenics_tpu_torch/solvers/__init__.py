@@ -1,0 +1,1 @@
+"""solvers layer of the PyTorch/CUDA port (see wave_fenics_tpu.solvers)."""

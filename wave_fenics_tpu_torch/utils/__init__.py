@@ -1,0 +1,1 @@
+"""utils layer of the PyTorch/CUDA port (see wave_fenics_tpu.utils)."""
