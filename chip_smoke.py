@@ -15,20 +15,31 @@ never prints its last line:
    f32 at the headline size (64x32x32 cells, p=4, tile 48), with times;
 4. kernel A (lean RK4 step) against the plain lean step: f64 at (4,2,2),
    p in {2, 4}, 25 steps; f32 at the headline size, 50 steps; with times;
-5. physics: the f64 analytic plane wave (16x2x2 cells, 6 mm) through
-   solve_step_n on the kernel;
-6. the main path: the app's full headline solve (4,276,737 dofs, 1,489
-   steps) through kernel A. Both launch counts are reset just before the
-   app's run and read just after it: kernel A must have run every step,
-   kernel B not at all (the step path does not use it). Then kernel B's
-   own path, the f1-path RK4 (PaddedLinearWave.solve_n), for two steps on
-   the same model against the step path, with its own count; then a
-   two-point rate of solve_step_n.
+5. kernels C (full-tableau RK4 step), D (fused RK4 stage), H (leapfrog
+   step) and I (two leapfrog steps) against their plain versions, each
+   through its model solver: f64 at (4,2,2) cells, tile 16, p in {2, 4}
+   (and 8 for D and H), 25 steps, limit 1e-12 relative (C also against
+   kernel A, 1e-13); f32 at the full width of its app path, 50 steps,
+   limit 1e-4 max|v|; with times per kernel call at that width;
+6. physics: the f64 analytic plane wave (16x2x2 cells, 6 mm) through
+   solve_step_n on kernel A; the leapfrog's 2nd order through kernel H
+   (f64, (4,2,2), p=4: the error against a fine RK4 reference shrinks
+   2.8-5.5x when dt halves); an odd step count through solve_lf2_n
+   launches kernel H for the last step;
+7. the app paths at 4,276,737 dofs, through ``planar3d_app.run`` with the
+   full step counts: P1 RK4 (kernel A, p=4), P2 leapfrog (kernel I, p=4),
+   P3 leapfrog (kernel H, p=8), P4 RK4 (kernel D, p=8), P5 RK4 with the
+   full tableau (kernel C, p=4). Every launch count is set to 0 just before
+   each run and read just after it; each path must have launched its
+   kernels once per kernel launch of (its steps + one warm-up call) and no
+   other kernel. Then kernel B's own path, the f1-path RK4
+   (PaddedLinearWave.solve_n), for two steps against the step path, with
+   its own count; then a two-point rate of solve_step_n.
 
-It prints one JSON line of per-kernel results ("kernels": the main path's,
-with the app run's launch counts; "off_path_kernels": kernel B) and, last,
-one JSON line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
-outside a checkout of the repository, it exits non-zero and prints no
+It prints one JSON line of per-kernel results ("kernels": the app paths'
+kernels, with each path's launch counts; "off_path_kernels": kernel B) and,
+last, one JSON line ``{"ok": true, "device": {...}}``. Without a CUDA card,
+or outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
 
@@ -43,6 +54,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HEADLINE = dict(cells=(64, 32, 32), degree=4)
+HEADLINE_P8 = dict(cells=(32, 16, 16), degree=8)  # the same 4,276,737 dofs
+NDOFS = 4_276_737
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOPS_PER_S = 67e12    # f32 outside the tensor cores (the same sheet)
+RK_A = (0.0, 0.5, 0.5, 1.0)
+RK_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+RK_C = (0.0, 0.5, 0.5, 1.0)
 
 
 def phase(msg: str) -> None:
@@ -76,6 +94,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     from wave_fenics_tpu_torch.apps import planar3d_app
     from wave_fenics_tpu_torch.core.basis import gll_points_weights
@@ -86,8 +105,22 @@ def main() -> None:
         analytic_plane_wave,
         planar3d_case,
     )
-    from wave_fenics_tpu_torch.ops import _cuda, rk4step, wave
+    from wave_fenics_tpu_torch.ops import _cuda, lf2step, lfstep, rk4step, wave
     from wave_fenics_tpu_torch.utils.timing import Timer, timeit
+
+    # the launch counters, one per kernel
+    counters = {
+        "A": rk4step.rk4_step_lean_cuda, "B": wave.apply_flat_cuda,
+        "C": rk4step.rk4_step_full_cuda, "D": wave.rk_stage_cuda,
+        "H": lfstep.lf_step_cuda, "I": lf2step.lf2_step_cuda,
+    }
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counters.items()}
 
     # -- 2. build -----------------------------------------------------------
     phase("build")
@@ -99,27 +132,89 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
-    def small_model(p, dtype=torch.float64):
+    def small_model(p, dtype=torch.float64, lean=True):
         mesh = box_mesh((4, 2, 2), (0.01, 0.005, 0.005),
                         facet_tags=FacetTags({1: (0,), 2: (1,)}))
         return PaddedLinearWave(LinearWave(mesh, p=p, dtype=dtype, device=dev),
-                                tile_x=16)
+                                tile_x=16, lean=lean)
 
     def random_padded(layout, seed, dtype):
         x = np.zeros(layout.padded_shape)
         x[layout.interior] = np.random.default_rng(seed).standard_normal(layout.shape)
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
-    def plain_solve(pm, dt, nsteps):
-        """solve_step_n's loop on the plain lean step (same device)."""
+    def plain_solve(pm, kind, dt, nsteps):
+        """The model solver of ``kind`` ('lean', 'full', 'fused', 'lf',
+        'lf2') on the plain versions, on the card, from the zero state."""
         u, v = pm.zero_state()
         t, b = 0.0, pm.base
-        for _ in range(nsteps):
-            gs = [b.g_amplitude(t + c * dt) for c in (0.0, 0.5, 0.5, 1.0)]
-            u, v = rk4step.rk4_step_lean_plain(u, v, dt, gs, pm.layout, b.c0,
-                                               pm.step_tables)
-            t = t + dt
+        g, lay, c0 = b.g_amplitude, pm.layout, b.c0
+        n = nsteps // 2 if kind == "lf2" else nsteps
+        for _ in range(n):
+            if kind in ("lean", "full"):
+                step = (rk4step.rk4_step_lean_plain if kind == "lean"
+                        else rk4step.rk4_step_full_plain)
+                u, v = step(u, v, dt, [g(t + c * dt) for c in RK_C], lay, c0,
+                            pm.step_tables)
+            elif kind == "fused":
+                ku, kv, ua, va = u, v, u, v
+                for j in range(4):
+                    ku, kv, ua, va = wave.rk_stage_plain(
+                        u, ku, v, kv, ua, va, dt * RK_A[j], dt * RK_B[j],
+                        g(t + RK_C[j] * dt), lay, c0, pm.flat_tables,
+                        pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+                u, v = ua, va
+            elif kind == "lf":
+                u, v = lfstep.lf_step_plain(u, v, dt, g(t), g(t + dt), lay, c0,
+                                            pm.lf_tables)
+            else:
+                u, v = lf2step.lf2_step_plain(u, v, dt, g(t), g(t + dt),
+                                              g(t + 2 * dt), lay, c0,
+                                              pm.lf2_tables)
+            t = t + 2 * dt if kind == "lf2" else t + dt
+        if kind == "lf2" and nsteps % 2:
+            u, v = lfstep.lf_step_plain(u, v, dt, g(t), g(t + dt), lay, c0,
+                                        pm.lf_tables)
         return u, v
+
+    def kernel_solve(pm, kind, dt, nsteps):
+        solve = {"lean": pm.solve_step_n, "full": pm.solve_step_n,
+                 "fused": pm.solve_fused_n, "lf": pm.solve_lf_n,
+                 "lf2": pm.solve_lf2_n}[kind]
+        u, v, _ = solve(0.0, dt, nsteps)
+        return u, v
+
+    def field_bytes(pm):
+        return math.prod(pm.layout.padded_shape) * torch.finfo(pm.base.dtype).bits // 8
+
+    def table_bytes(pm):
+        """Bytes of the stencil tables and facet planes the kernels read."""
+        return sum(t.numel() * t.element_size()
+                   for t in (*pm.stencil, pm.face_w1, pm.face_w2))
+
+    def bound(pm, fields, applies, pointwise_flops):
+        """(bound_ms, bound_by): the larger of the compulsory bytes (each
+        state field in or out once, plus the tables) over the HBM rate and
+        the flops on the interior points over the f32 peak. One stencil
+        apply is 6K + 2 flops a point (K = 2p + 1; csrc/stencil.cuh: K x
+        taps, 2K - 1 y/z taps, 2 FMA flops each, the merged shift-0 tap's
+        add and the two line products and their sum)."""
+        K = 2 * pm.layout.p + 1
+        nbytes = fields * field_bytes(pm) + table_bytes(pm)
+        flops = math.prod(pm.layout.shape) * (applies * (6 * K + 2) + pointwise_flops)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def rel_state_err(uk, vk, up, vp):
+        vmax = float(vp.abs().max())
+        err = max(float((uk - up).abs().max()), float((vk - vp).abs().max()))
+        return vmax, err
+
+    def padding_zero(pm, *xs):
+        for x in xs:
+            outside = x.clone()
+            outside[pm.layout.interior] = 0.0
+            check(float(outside.abs().max()) == 0.0, "the padding stays zero")
 
     # -- 3. kernel B --------------------------------------------------------
     phase("kernel B (apply_flat) against apply_flat_plain")
@@ -133,6 +228,7 @@ def main() -> None:
     check(rel <= 1e-12, "kernel B f64 agreement")
 
     case, hpm = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda")
+    n_rk4 = case.nsteps
     print(f"headline: {case.model.ops.ndofs} dofs, padded "
           f"{hpm.layout.padded_shape}, tile_x {hpm.layout.tile_x}, "
           f"{case.nsteps} steps")
@@ -145,53 +241,152 @@ def main() -> None:
     print(f"f32 headline: max|err| = {b_err:.6e}, max|err|/max|ref| = "
           f"{rel:.3e} (limit 1e-5)")
     check(rel <= 1e-5, "kernel B f32 agreement")
-    outside = yk.clone()
-    outside[hpm.layout.interior] = 0.0
-    check(float(outside.abs().max()) == 0.0, "kernel B keeps the padding zero")
+    padding_zero(hpm, yk)
     out_b = torch.empty_like(x)
     b_ms = 1e3 * timeit(lambda: wave.apply_flat_cuda(x, hpm.layout, hpm.stencil, out=out_b))
     b_plain_ms = 1e3 * timeit(
         lambda: wave.apply_flat_plain(x, hpm.layout, hpm.flat_tables), reps=5)
+    b_bound = bound(hpm, 2, 1, 0)
     print(f"f32 headline: kernel {b_ms:.4f} ms/apply, plain {b_plain_ms:.4f} "
-          f"ms/apply [{smi}]")
+          f"ms/apply, bound {b_bound[0]:.4f} ms ({b_bound[1]}) [{smi}]")
+    del x, yk, yp, out_b
 
     # -- 4. kernel A --------------------------------------------------------
     phase("kernel A (rk4 stage kernels) against rk4_step_lean_plain")
     for p in (2, 4):
         spm = small_model(p)
-        uk, vk, _ = spm.solve_step_n(0.0, 1e-9, 25)
-        up, vp = plain_solve(spm, 1e-9, 25)
+        uk, vk = kernel_solve(spm, "lean", 1e-9, 25)
+        up, vp = plain_solve(spm, "lean", 1e-9, 25)
         torch.cuda.synchronize()
-        vmax = float(vp.abs().max())
-        eu = float((uk - up).abs().max()) / max(vmax, 1.0)
-        ev = float((vk - vp).abs().max()) / vmax
-        print(f"f64 (4,2,2) p={p}, 25 steps: u err/max|v| = {eu:.3e}, "
-              f"v err/max|v| = {ev:.3e} (limit 1e-12)")
-        check(vmax > 0 and eu <= 1e-12 and ev <= 1e-12, f"kernel A f64 p={p}")
+        vmax, err = rel_state_err(uk, vk, up, vp)
+        print(f"f64 (4,2,2) p={p}, 25 steps: max|err|/max|v| = {err / vmax:.3e} "
+              "(limit 1e-12)")
+        check(vmax > 0 and err <= 1e-12 * vmax, f"kernel A f64 p={p}")
 
-    uk, vk, _ = hpm.solve_step_n(case.t0, case.dt, 50)
-    up, vp = plain_solve(hpm, case.dt, 50)
+    uk, vk = kernel_solve(hpm, "lean", case.dt, 50)
+    up, vp = plain_solve(hpm, "lean", case.dt, 50)
     torch.cuda.synchronize()
-    vmax = float(vp.abs().max())
-    a_err = max(float((uk - up).abs().max()), float((vk - vp).abs().max()))
-    rel = a_err / vmax
+    vmax, a_err = rel_state_err(uk, vk, up, vp)
     print(f"f32 headline, 50 steps: max|err| = {a_err:.6e}, max|err|/max|v| = "
-          f"{rel:.3e} (limit 1e-4)")
-    check(vmax > 0 and rel <= 1e-4, "kernel A f32 agreement")
-    gs = [hpm.base.g_amplitude(c * case.dt) for c in (0.0, 0.5, 0.5, 1.0)]
+          f"{a_err / vmax:.3e} (limit 1e-4)")
+    check(vmax > 0 and a_err <= 1e-4 * vmax, "kernel A f32 agreement")
+    gs = [hpm.base.g_amplitude(c * case.dt) for c in RK_C]
     bufs = [torch.empty_like(uk) for _ in range(5)]
     a_ms = 1e3 * timeit(lambda: rk4step.rk4_step_lean_cuda(
         uk, vk, case.dt, gs, hpm.layout, hpm.base.c0, hpm.stencil,
-        hpm.step_tables.W1, hpm.step_tables.W2, hpm.src_x, hpm.abc_x,
+        hpm.face_w1, hpm.face_w2, hpm.src_x, hpm.abc_x,
         out=tuple(bufs[:2]), scratch=tuple(bufs[2:])))
     a_plain_ms = 1e3 * timeit(lambda: rk4step.rk4_step_lean_plain(
         uk, vk, case.dt, gs, hpm.layout, hpm.base.c0, hpm.step_tables), reps=5)
+    # u0, v0 in and u1, v1 out once; four stencil applies and ~20 point-wise
+    # flops a point
+    a_bound = bound(hpm, 4, 4, 20)
     print(f"f32 headline: kernel {a_ms:.4f} ms/step "
           f"({rk4step.LAUNCHES_PER_STEP} launches), plain {a_plain_ms:.4f} "
-          f"ms/step [{smi}]")
-    del uk, vk, up, vp, bufs, x, yk, yp, outside, out_b
+          f"ms/step, bound {a_bound[0]:.4f} ms ({a_bound[1]}) [{smi}]")
+    del uk, vk, up, vp, bufs, hpm
 
-    # -- 5. physics ---------------------------------------------------------
+    # -- 5. kernels C, D, H, I ----------------------------------------------
+    results = {}  # kernel -> (max_abs_err, ms, plain_ms, (bound_ms, bound_by))
+
+    def check_small(name, kind, ps, tol=1e-12, **model_kw):
+        for p in ps:
+            spm = small_model(p, **model_kw)
+            uk, vk = kernel_solve(spm, kind, 1e-9, 25)
+            up, vp = plain_solve(spm, kind, 1e-9, 25)
+            torch.cuda.synchronize()
+            vmax, err = rel_state_err(uk, vk, up, vp)
+            print(f"kernel {name} f64 (4,2,2) p={p}, 25 steps: max|err|/max|v| "
+                  f"= {err / vmax:.3e} (limit {tol:.0e})")
+            check(vmax > 0 and err <= tol * vmax, f"kernel {name} f64 p={p}")
+            padding_zero(spm, uk, vk)
+            if name == "C":  # the same step in the lean algebra (kernel A)
+                ul, vl = kernel_solve(small_model(p), "lean", 1e-9, 25)
+                vmax, err = rel_state_err(uk, vk, ul, vl)
+                print(f"kernel C vs kernel A f64 p={p}: max|err|/max|v| = "
+                      f"{err / vmax:.3e} (limit 1e-13)")
+                check(err <= 1e-13 * vmax, f"kernel C vs kernel A p={p}")
+
+    def check_full_width(name, kind, pm, dt):
+        uk, vk = kernel_solve(pm, kind, dt, 50)
+        up, vp = plain_solve(pm, kind, dt, 50)
+        torch.cuda.synchronize()
+        vmax, err = rel_state_err(uk, vk, up, vp)
+        print(f"kernel {name} f32 {pm.layout.padded_shape} p={pm.layout.p}, 50 "
+              f"steps: max|err| = {err:.6e}, max|err|/max|v| = {err / vmax:.3e} "
+              "(limit 1e-4)")
+        check(vmax > 0 and err <= 1e-4 * vmax, f"kernel {name} f32 agreement")
+        padding_zero(pm, uk, vk)
+        return err, uk, vk
+
+    phase("kernel C (full-tableau rk4 stage kernels) against rk4_step_full_plain")
+    check_small("C", "full", (2, 4), lean=False)
+    case, cpm = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda", lean=False)
+    c_err, uk, vk = check_full_width("C", "full", cpm, case.dt)
+    gs = [cpm.base.g_amplitude(c * case.dt) for c in RK_C]
+    bufs = [torch.empty_like(uk) for _ in range(5)]
+    c_ms = 1e3 * timeit(lambda: rk4step.rk4_step_full_cuda(
+        uk, vk, case.dt, gs, cpm.layout, cpm.base.c0, cpm.stencil,
+        cpm.face_w1, cpm.face_w2, cpm.src_x, cpm.abc_x,
+        out=tuple(bufs[:2]), scratch=tuple(bufs[2:])))
+    c_plain_ms = 1e3 * timeit(lambda: rk4step.rk4_step_full_plain(
+        uk, vk, case.dt, gs, cpm.layout, cpm.base.c0, cpm.step_tables), reps=5)
+    results["C"] = (c_err, c_ms, c_plain_ms, bound(cpm, 4, 4, 30))
+    del uk, vk, bufs, cpm
+
+    phase("kernel D (fused rk stage) against rk_stage_plain")
+    check_small("D", "fused", (2, 4, 8))
+    case8, dpm = planar3d_app.build(**HEADLINE_P8, dtype="f32", device="cuda")
+    print(f"p=8: {case8.model.ops.ndofs} dofs, padded {dpm.layout.padded_shape}, "
+          f"tile_x {dpm.layout.tile_x}, {case8.nsteps} RK4 steps; step kernel: "
+          f"{dpm.step_unavailable}")
+    d_err, uk, vk = check_full_width("D", "fused", dpm, case8.dt)
+    ins = (uk, uk, vk, vk, uk, vk)
+    dargs = (0.5 * case8.dt, case8.dt / 3.0, 1.0, dpm.layout, dpm.base.c0)
+    face = (dpm.face_w1, dpm.face_w2, dpm.src_x, dpm.abc_x)
+    bufs = tuple(torch.empty_like(uk) for _ in range(4))
+    d_ms = 1e3 * timeit(lambda: wave.rk_stage_cuda(
+        *ins, *dargs, dpm.stencil, *face, out=bufs))
+    d_plain_ms = 1e3 * timeit(lambda: wave.rk_stage_plain(
+        *ins, *dargs, dpm.flat_tables, *face), reps=5)
+    # u0, ku, v0, kv, ua, va in and vn, kv', ua', va' out; one apply
+    results["D"] = (d_err, d_ms, d_plain_ms, bound(dpm, 10, 1, 8))
+    del uk, vk, ins, bufs, dpm
+
+    phase("kernel H (leapfrog step) against lf_step_plain")
+    check_small("H", "lf", (2, 4, 8))
+    _, lpm = planar3d_app.build(**HEADLINE_P8, dtype="f32", device="cuda")
+    h_err, uk, vk = check_full_width("H", "lf", lpm, case8.dt * 0.71)
+    bufs = [torch.empty_like(uk) for _ in range(3)]
+    largs = (case8.dt * 0.71, 1.0, 0.5, lpm.layout, lpm.base.c0)
+    h_ms = 1e3 * timeit(lambda: lfstep.lf_step_cuda(
+        uk, vk, *largs, lpm.stencil, lpm.face_w1, lpm.face_w2, lpm.src_x,
+        lpm.abc_x, out=tuple(bufs[:2]), scratch=bufs[2]))
+    h_plain_ms = 1e3 * timeit(lambda: lfstep.lf_step_plain(
+        uk, vk, *largs, lpm.lf_tables), reps=5)
+    results["H"] = (h_err, h_ms, h_plain_ms, bound(lpm, 4, 2, 12))
+    del uk, vk, bufs, lpm
+
+    phase("kernel I (two leapfrog steps) against lf2_step_plain")
+    check_small("I", "lf2", (2, 4))
+    case, ipm = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda")
+    i_err, uk, vk = check_full_width("I", "lf2", ipm, case.dt * 0.71)
+    bufs = [torch.empty_like(uk) for _ in range(5)]
+    iargs = (case.dt * 0.71, 1.0, 0.5, 0.2, ipm.layout, ipm.base.c0)
+    i_ms = 1e3 * timeit(lambda: lf2step.lf2_step_cuda(
+        uk, vk, *iargs, ipm.stencil, ipm.face_w1, ipm.face_w2, ipm.src_x,
+        ipm.abc_x, out=tuple(bufs[:2]), scratch=tuple(bufs[2:])))
+    i_plain_ms = 1e3 * timeit(lambda: lf2step.lf2_step_plain(
+        uk, vk, *iargs, ipm.lf2_tables), reps=5)
+    results["I"] = (i_err, i_ms, i_plain_ms, bound(ipm, 4, 3, 24))
+    del uk, vk, bufs, ipm
+    for k, unit in (("C", "step"), ("D", "stage launch"), ("H", "step"),
+                    ("I", "call of 2 steps")):
+        err, ms, plain_ms, (bms, by) = results[k]
+        print(f"kernel {k}: {ms:.4f} ms/{unit}, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}) [{smi}]")
+
+    # -- 6. physics ---------------------------------------------------------
     phase("physics: f64 analytic plane wave through solve_step_n")
     pcase = planar3d_case(ncells=(16, 2, 2), domain_length=6.0e-3,
                           dtype=torch.float64, device=dev)
@@ -211,32 +406,85 @@ def main() -> None:
           f"spread/max|u| = {spread:.3e} (limit 1e-6)")
     check(rel_l2 < 1e-5 and spread < 1e-6, "analytic plane wave")
 
-    # -- 6. the main path ---------------------------------------------------
-    phase("main path: planar3d_app.run() at the headline size")
-    rk4step.rk4_step_lean_cuda.launches = 0
-    wave.apply_flat_cuda.launches = 0
-    out = planar3d_app.run(**HEADLINE, dtype="f32", device="cuda")
-    a_launches = rk4step.rk4_step_lean_cuda.launches
-    b_launches = wave.apply_flat_cuda.launches
-    print(json.dumps(out))
-    check(out["ndofs"] == 4_276_737 and out["nsteps"] == case.nsteps,
-          "headline size and full step count")
-    # the app runs one warm-up step before the timed solve
-    want = rk4step.LAUNCHES_PER_STEP * (out["nsteps"] + 1)
-    print(f"main path launches: kernel A {a_launches} = "
-          f"{rk4step.LAUNCHES_PER_STEP} x ({out['nsteps']} solve steps + 1 "
-          f"warm-up step); kernel B {b_launches} (not on the step path)")
-    check(a_launches == want, f"kernel A launched {a_launches} times, want {want}")
-    check(b_launches == 0, f"the step path launched kernel B {b_launches} times")
-    check(math.isfinite(out["u_norm"]) and out["u_norm"] > 0, "finite, nonzero u")
+    phase("physics: leapfrog order through kernel H (f64, (4,2,2), p=4)")
+    spm = small_model(4)
+    dt = 4e-9
+    u_ref, _, _ = spm.solve_step_n(0.0, dt / 4, 256)
+    scale = float(u_ref.abs().max())
+    e1 = float((spm.solve_lf_n(0.0, dt / 2, 128)[0] - u_ref).abs().max()) / scale
+    e2 = float((spm.solve_lf_n(0.0, dt / 4, 256)[0] - u_ref).abs().max()) / scale
+    print(f"error vs RK4 at dt/4: dt/2 {e1:.4e}, dt/4 {e2:.4e}, ratio "
+          f"{e1 / e2:.4f} (limits: e2 < 0.02, ratio 2.8-5.5)")
+    check(e2 < 0.02 and 2.8 < e1 / e2 < 5.5, "leapfrog 2nd order")
+    zero_counts()
+    u2, v2, _ = spm.solve_lf2_n(0.0, 1e-9, 25)
+    odd = read_counts()
+    u1, v1, _ = spm.solve_lf_n(0.0, 1e-9, 25)
+    vmax, err = rel_state_err(u2, v2, u1, v1)
+    print(f"solve_lf2_n, 25 steps: kernel I {odd['I']} launches, kernel H "
+          f"{odd['H']}; against solve_lf_n max|err|/max|v| = {err / vmax:.3e} "
+          "(limit 1e-13)")
+    check(odd["I"] == 36 and odd["H"] == 2, f"odd-count launches {odd}")
+    check(err <= 1e-13 * vmax, "solve_lf2_n against solve_lf_n")
+
+    # -- 7. the app paths -----------------------------------------------------
+    # (label, run kwargs, kernel, launches per kernel call, steps per call,
+    #  what solver_path must name)
+    paths = [
+        ("P1 RK4, kernel A", dict(**HEADLINE), "A", 4, 1, "step kernel A"),
+        ("P2 leapfrog, kernel I", dict(**HEADLINE, integrator="leapfrog"),
+         "I", 3, 2, "kernel I"),
+        ("P3 leapfrog p=8, kernel H", dict(**HEADLINE_P8, integrator="leapfrog"),
+         "H", 2, 1, "kernel H"),
+        ("P4 RK4 p=8, kernel D", dict(**HEADLINE_P8), "D", 4, 1, "kernel D"),
+        ("P5 RK4 full tableau, kernel C", dict(**HEADLINE, lean=False), "C", 4, 1,
+         "kernel C"),
+    ]
+    launches = {}
+    apps = {}
+    for label, kw, kernel, per_call, steps_per_call, name in paths:
+        phase(f"app path {label}: planar3d_app.run() at {NDOFS:,} dofs")
+        zero_counts()
+        out = planar3d_app.run(**kw, dtype="f32", device="cuda")
+        counts = read_counts()
+        print(json.dumps(out))
+        launches[kernel] = counts[kernel]
+        apps[label] = out
+        check(out["ndofs"] == NDOFS, f"{label}: ndofs")
+        check(name in out["solver_path"], f"{label}: solver_path names {name}")
+        check(math.isfinite(out["u_norm"]) and out["u_norm"] > 0,
+              f"{label}: finite, nonzero u")
+        # one warm-up kernel call before the timed solve
+        calls = out["nsteps"] // steps_per_call + 1
+        want = per_call * calls
+        print(f"{label}: {out['nsteps']} steps, kernel {kernel} launches "
+              f"{counts[kernel]} = {per_call} x ({out['nsteps'] // steps_per_call}"
+              f" calls + 1 warm-up call); all counts {counts}")
+        check(counts[kernel] == want, f"{label}: kernel {kernel} launched "
+              f"{counts[kernel]} times, want {want}")
+        others = {k: n for k, n in counts.items() if k != kernel and n}
+        check(not others, f"{label}: other kernels launched {others}")
+    n_rk4_p8 = case8.nsteps
+    check(apps["P1 RK4, kernel A"]["nsteps"] == n_rk4 == 1489, "P1 steps")
+    check(apps["P2 leapfrog, kernel I"]["nsteps"] == math.ceil(n_rk4 / 0.71) == 2098,
+          "P2 steps")
+    check(apps["P3 leapfrog p=8, kernel H"]["nsteps"]
+          == math.ceil(n_rk4_p8 / 0.71) == 4134, "P3 steps")
+    check(apps["P4 RK4 p=8, kernel D"]["nsteps"] == n_rk4_p8 == 2935, "P4 steps")
+    check(apps["P5 RK4 full tableau, kernel C"]["nsteps"] == 1489, "P5 steps")
+    p1, p5 = apps["P1 RK4, kernel A"], apps["P5 RK4 full tableau, kernel C"]
+    rel = abs(p5["u_norm"] - p1["u_norm"]) / p1["u_norm"]
+    print(f"P5 against P1 (the same RK4, two stage algebras): |u| relative "
+          f"difference {rel:.3e} (limit 1e-4)")
+    check(rel <= 1e-4, "full tableau agrees with the lean step")
 
     # kernel B's own path: the f1-path RK4 (PaddedLinearWave.solve_n) on the
-    # same full-width model, two steps, against the step path from the same
-    # initial state; counted apart from the main path
+    # headline model, two steps, against the step path from the same initial
+    # state; counted apart from the app paths
     case, hpm = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda")
-    wave.apply_flat_cuda.launches = 0
+    zero_counts()
     uf, vf = hpm.solve_n(case.t0, case.dt, 2)
-    f1_launches = wave.apply_flat_cuda.launches
+    f1_launches = read_counts()["B"]
     us, vs, _ = hpm.solve_step_n(case.t0, case.dt, 2)
     torch.cuda.synchronize()
     vmax = float(vs.abs().max())
@@ -254,32 +502,49 @@ def main() -> None:
     per_step = (tm.seconds(f"n{n_hi}") - tm.seconds(f"n{n_lo}")) / (n_hi - n_lo)
     check(per_step > 0, "two-point rate")
     print(f"two-point rate ({n_hi}-{n_lo} steps): {per_step * 1e3:.4f} ms/step, "
-          f"{out['ndofs'] / per_step / 1e9:.4f} GDoF*steps/s [{smi}]")
+          f"{NDOFS / per_step / 1e9:.4f} GDoF*steps/s [{smi}]")
 
-    # "kernels": the main path's kernels, with the launches of the app run;
-    # "off_path_kernels": ported kernels the app's step path does not run,
-    # with their launches in that run (0) and in their own path's check
-    kernels = [{
-        "name": "rk4_stage_kernel (kernel A: lean RK4 step, 4 stage launches)",
-        "route": "cuda",
-        "source": "wave_fenics_tpu_torch/csrc/wave_kernels.cu",
-        "replaces": "wave_fenics_tpu/ops/pallas_rk4step.py:201",
-        "launches": a_launches,
-        "max_abs_err": a_err,
-        "ms": a_ms,
-        "plain_ms": a_plain_ms,
-    }]
+    # "kernels": the app paths' kernels, each with the launches of its
+    # path's run; "off_path_kernels": kernel B, which no app path launches
+    src = "wave_fenics_tpu_torch/csrc/wave_kernels.cu"
+    results["A"] = (a_err, a_ms, a_plain_ms, a_bound)
+    meta = {
+        "A": ("rk4_stage_kernel<T, J, true> (kernel A: lean RK4 step, 4 stage "
+              "launches; ms per step)", "wave_fenics_tpu/ops/pallas_rk4step.py:201"),
+        "C": ("rk4_stage_kernel<T, J, false> (kernel C: full-tableau RK4 step, 4 "
+              "stage launches; ms per step)", "wave_fenics_tpu/ops/pallas_rk4step.py:67"),
+        "D": ("rk_stage_kernel (kernel D: one fused RK4 stage, p=8; ms per "
+              "stage launch)", "wave_fenics_tpu/ops/pallas_wave.py:573"),
+        "H": ("lf_phase_kernel OPEN+CLOSE (kernel H: one leapfrog step, p=8; ms "
+              "per step)", "wave_fenics_tpu/ops/pallas_lfstep.py:62"),
+        "I": ("lf_phase_kernel OPEN+MID+CLOSE (kernel I: two leapfrog steps, "
+              "p=4; ms per call)", "wave_fenics_tpu/ops/pallas_lf2step.py:70"),
+    }
+    kernels = []
+    for k, (name, replaces) in meta.items():
+        err, ms, plain_ms, (bms, by) = results[k]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[k], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+        })
     off_path = [{
         "name": "apply_flat_kernel (kernel B: stiffness/m on the flat layout)",
         "route": "cuda",
-        "source": "wave_fenics_tpu_torch/csrc/wave_kernels.cu",
+        "source": src,
         "replaces": "wave_fenics_tpu/ops/pallas_wave.py:336",
-        "launches": b_launches,
+        "launches": 0,
         "f1_check_launches": f1_launches,
         "max_abs_err": b_err,
         "ms": b_ms,
         "plain_ms": b_plain_ms,
+        "bound_ms": b_bound[0],
+        "bound_by": b_bound[1],
+        "library_ms": None,
     }]
+    print(f"total {time.perf_counter() - t_start:.1f} s after the device check")
+    print(smi)
     print(json.dumps({"kernels": kernels, "off_path_kernels": off_path}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain versions (float64).
+"""The hand-written CUDA kernels (A, B, C, D, H, I) against their plain
+versions (float64).
 
 Every test here needs a CUDA card and skips without one. The file imports
 only torch and the port, so it runs on a machine without JAX:
@@ -13,7 +14,7 @@ import torch
 from wave_fenics_tpu_torch.core.mesh import FacetTags, box_mesh
 from wave_fenics_tpu_torch.models.linear_wave import LinearWave
 from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
-from wave_fenics_tpu_torch.ops import rk4step, wave
+from wave_fenics_tpu_torch.ops import lf2step, lfstep, rk4step, wave
 
 pytestmark = pytest.mark.gpu
 
@@ -49,6 +50,20 @@ def _random_padded(layout, seed, device, scale=1.0):
 
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+def _assert_state_close(u, v, u_ref, v_ref, tol=TOL):
+    vmax = float(v_ref.abs().max())
+    assert vmax > 0.0
+    assert float((u - u_ref).abs().max()) <= tol * max(vmax, 1.0)
+    assert float((v - v_ref).abs().max()) <= tol * vmax
+
+
+def _padding_zero(pm, *fields):
+    for x in fields:
+        outside = x.clone()
+        outside[pm.layout.interior] = 0.0
+        assert float(outside.abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("p", [2, 4])
@@ -114,3 +129,117 @@ def test_cuda_step_rejects_aliasing(cuda):
             pm.step_tables.W1, pm.step_tables.W2, pm.src_x, pm.abc_x,
             out=(u0, v0),
         )
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_cuda_full_step_matches_plain_and_lean(cuda, p):
+    """Kernel C against its plain version (1e-12) and against kernel A (the
+    same step in the lean algebra, 1e-13)."""
+    pm = _model(p, cuda)
+    u0 = _random_padded(pm.layout, 35, cuda)
+    v0 = _random_padded(pm.layout, 36, cuda, scale=1e3)
+    args = (DT, GS, pm.layout, pm.base.c0)
+    n0 = rk4step.rk4_step_full_cuda.launches
+    uk, vk = rk4step.rk4_step_full(u0, v0, *args, pm.step_tables, pm.stencil,
+                                   pm.src_x, pm.abc_x)
+    torch.cuda.synchronize()
+    assert rk4step.rk4_step_full_cuda.launches == n0 + rk4step.LAUNCHES_PER_STEP
+    up, vp = rk4step.rk4_step_full_plain(u0, v0, *args, pm.step_tables)
+    _assert_state_close(uk, vk, up, vp)
+    ul, vl = rk4step.rk4_step_lean(u0, v0, *args, pm.step_tables, pm.stencil,
+                                   pm.src_x, pm.abc_x)
+    _assert_state_close(uk, vk, ul, vl, 1e-13)
+    _padding_zero(pm, uk, vk)
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_cuda_rk_stage_matches_plain(cuda, p):
+    """Kernel D, one stage from random inputs (p=8: 17 taps per axis)."""
+    pm = _model(p, cuda)
+    ins = [_random_padded(pm.layout, 70 + i, cuda, scale=s)
+           for i, s in enumerate((1.0, 1e3, 1e3, 1e9, 1.0, 1e3))]
+    sargs = (0.5 * DT, DT / 3.0, 0.7, pm.layout, pm.base.c0)
+    face = (pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+    n0 = wave.rk_stage_cuda.launches
+    got = wave.rk_stage(*ins, *sargs, pm.flat_tables, pm.stencil, *face)
+    torch.cuda.synchronize()
+    assert wave.rk_stage_cuda.launches == n0 + 1
+    want = wave.rk_stage_plain(*ins, *sargs, pm.flat_tables, *face)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= TOL
+    _padding_zero(pm, got[1])
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_cuda_solve_fused_n_matches_cpu(cuda, p):
+    u_c, v_c, _ = _model(p, "cpu").solve_fused_n(0.0, DT, 10)
+    pm = _model(p, cuda)
+    n0 = wave.rk_stage_cuda.launches
+    u_g, v_g, _ = pm.solve_fused_n(0.0, DT, 10)
+    assert wave.rk_stage_cuda.launches == n0 + 40
+    _assert_state_close(u_g.cpu(), v_g.cpu(), u_c, v_c)
+    _padding_zero(pm, u_g, v_g)
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_cuda_lf_step_matches_plain(cuda, p):
+    """Kernel H, one step from a random state (p=8: lf applies at tile 16)."""
+    pm = _model(p, cuda)
+    u0 = _random_padded(pm.layout, 37, cuda)
+    v0 = _random_padded(pm.layout, 38, cuda, scale=1e3)
+    args = (DT, 1.0, 0.6, pm.layout, pm.base.c0)
+    n0 = lfstep.lf_step_cuda.launches
+    uk, vk = lfstep.lf_step(u0, v0, *args, pm.lf_tables, pm.stencil, pm.src_x,
+                            pm.abc_x)
+    torch.cuda.synchronize()
+    assert lfstep.lf_step_cuda.launches == n0 + lfstep.LAUNCHES_PER_STEP
+    up, vp = lfstep.lf_step_plain(u0, v0, *args, pm.lf_tables)
+    _assert_state_close(uk, vk, up, vp)
+    _padding_zero(pm, uk, vk)
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_cuda_lf2_step_matches_plain(cuda, p):
+    pm = _model(p, cuda)
+    u0 = _random_padded(pm.layout, 39, cuda)
+    v0 = _random_padded(pm.layout, 40, cuda, scale=1e3)
+    args = (DT, 1.0, 0.6, 0.2, pm.layout, pm.base.c0)
+    n0 = lf2step.lf2_step_cuda.launches
+    uk, vk = lf2step.lf2_step(u0, v0, *args, pm.lf2_tables, pm.stencil,
+                              pm.src_x, pm.abc_x)
+    torch.cuda.synchronize()
+    assert lf2step.lf2_step_cuda.launches == n0 + lf2step.LAUNCHES_PER_CALL
+    up, vp = lf2step.lf2_step_plain(u0, v0, *args, pm.lf2_tables)
+    _assert_state_close(uk, vk, up, vp)
+    _padding_zero(pm, uk, vk)
+
+
+@pytest.mark.parametrize("nsteps", [24, 25])
+def test_cuda_solve_lf2_n_matches_cpu(cuda, nsteps):
+    """Kernel I in the solver, an odd last step through kernel H."""
+    u_c, v_c, _ = _model(4, "cpu").solve_lf2_n(0.0, DT, nsteps)
+    n2, n1 = lf2step.lf2_step_cuda.launches, lfstep.lf_step_cuda.launches
+    u_g, v_g, _ = _model(4, cuda).solve_lf2_n(0.0, DT, nsteps)
+    assert lf2step.lf2_step_cuda.launches == n2 + 3 * (nsteps // 2)
+    assert lfstep.lf_step_cuda.launches == n1 + 2 * (nsteps % 2)
+    _assert_state_close(u_g.cpu(), v_g.cpu(), u_c, v_c)
+
+
+def test_cuda_new_kernels_reject_aliasing(cuda):
+    pm = _model(2, cuda)
+    u0 = _random_padded(pm.layout, 45, cuda)
+    v0 = _random_padded(pm.layout, 46, cuda)
+    with pytest.raises(ValueError, match="alias"):
+        lfstep.lf_step_cuda(u0, v0, DT, 1.0, 0.5, pm.layout, pm.base.c0,
+                            pm.stencil, pm.face_w1, pm.face_w2, pm.src_x,
+                            pm.abc_x, out=(u0, torch.empty_like(v0)))
+    with pytest.raises(ValueError, match="alias"):
+        lf2step.lf2_step_cuda(u0, v0, DT, 1.0, 0.5, 0.2, pm.layout, pm.base.c0,
+                              pm.stencil, pm.face_w1, pm.face_w2, pm.src_x,
+                              pm.abc_x, scratch=(v0, u0, u0))
+    with pytest.raises(ValueError, match="alias"):
+        wave.rk_stage_cuda(u0, u0, v0, v0, u0, v0, 0.0, DT, 1.0, pm.layout,
+                           pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2,
+                           pm.src_x, pm.abc_x,
+                           out=(u0, torch.empty_like(u0), torch.empty_like(u0),
+                                torch.empty_like(u0)))

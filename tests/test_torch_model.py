@@ -48,7 +48,7 @@ def test_source_amplitude_matches_jax():
 ])
 def test_planar3d_case_constants(kw):
     jc = j_planar3d_case(**kw, dtype=jnp.float64)
-    c = planar3d_case(**kw, dtype=torch.float64)
+    c = planar3d_case(**kw, dtype=torch.float64, device="cpu")
     assert c.dt == jc.dt
     assert c.steps_per_period == jc.steps_per_period
     assert c.nsteps == jc.nsteps
@@ -108,13 +108,17 @@ def test_app_cpu_run_matches_model(capsys):
 
 
 def test_port_never_imports_jax():
-    """Importing the port, the app included, loads neither JAX nor the JAX
-    package (run in a fresh interpreter: this test process has both)."""
+    """Importing the port, the app and the leapfrog and fused-stage modules
+    included, loads neither JAX nor the JAX package (run in a fresh
+    interpreter: this test process has both)."""
     code = (
         "import sys\n"
         "import wave_fenics_tpu_torch.apps.planar3d_app\n"
         "import wave_fenics_tpu_torch.apps.profile_step\n"
         "import wave_fenics_tpu_torch.convert\n"
+        "import wave_fenics_tpu_torch.ops.lfstep\n"
+        "import wave_fenics_tpu_torch.ops.lf2step\n"
+        "import wave_fenics_tpu_torch.solvers.leapfrog\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'wave_fenics_tpu')]\n"
         "print(bad)\n"

@@ -1,32 +1,41 @@
-// Hand-written Hopper kernels of the planar3d RK4 path (sm_90a).
+// Hand-written Hopper kernels of the planar3d solver paths (sm_90a).
 //
-// Two entry points share the stencil of stencil.cuh:
+// Five entry points share the stencil of stencil.cuh:
 //
 // * apply_flat_kernel (kernel B) replaces the TPU kernel
 //   wave_fenics_tpu/ops/pallas_wave.py::_kernel_flat: y = A x on the flat
 //   padded layout.
-// * rk4_stage_kernel<J> (kernel A) replaces
+// * rk4_stage_kernel<J, Lean = true> (kernel A) replaces
 //   wave_fenics_tpu/ops/pallas_rk4step.py::_kernel_rk4_step_lean: one
 //   classic RK4 step as four launches, one per stage J = 0..3, with the
 //   collapsed (lean) stage algebra of that kernel.
+// * rk4_stage_kernel<J, Lean = false> (kernel C) replaces
+//   pallas_rk4step.py::_kernel_rk4_step: the same step with the full
+//   Butcher tableau (nested stage inputs, b_j-weighted accumulators).
+// * rk_stage_kernel (kernel D) replaces pallas_wave.py::_kernel_rk_stage:
+//   one RK4 stage of the fused-stage path, with its running accumulators.
+// * lf_phase_kernel<Phase> (kernels H and I) replaces
+//   pallas_lfstep.py::_kernel_lf_step (OPEN + CLOSE: one leapfrog step) and
+//   pallas_lf2step.py::_kernel_lf2_step (OPEN + MID + CLOSE: two leapfrog
+//   steps, the step-boundary force computed once).
 //
 // What bounds them on this card: a stencil of 3 * (2p + 1) taps per point
 // with one multiply-add per tap is far below the H100's flop rate, so the
-// cost is memory traffic. Each point reads its 27 taps (p = 4) from L1/L2,
-// and each stage streams its inputs and output through HBM once: a state
-// field at the headline size is 31.9 MB in f32 and the five fields of a
-// step (u0, v0, kv0..kv2) do not fit the 50 MB L2 together.
+// cost is memory traffic. Each point reads its taps (27 at p = 4, 51 at
+// p = 8) from L1/L2, and each launch streams its inputs and outputs through
+// HBM once: a state field at the headline size is 31.9 MB in f32, and the
+// fields of a step do not fit the 50 MB L2 together.
 //
 // What the design does about it, in this first form: one thread per
 // padded point, neighbouring threads on neighbouring f, so every tap row
 // is a coalesced load and the x taps of a warp hit the same L2 lines that
-// the neighbouring blocks read; the stage inputs (un_J) are formed at each
-// tap from the fields in memory instead of being written out; padding
-// points write zeros without reading anything. The TPU kernel's one-pass
-// halo recompute is not carried over: one padded row of F is 83 KB in f32,
-// so an (x-tile + 6p halo) x F slab does not fit the 227 KB of shared
-// memory. Fusing the four stages into one pass over 3D bricks is the first
-// performance step (ROADMAP.md).
+// the neighbouring blocks read; a stage input (un_J, or u0 + ca ku) is
+// formed at each tap from the fields in memory instead of being written
+// out; padding points write zeros without reading any tap. The TPU
+// kernels' one-pass halo recompute is not carried over: one padded row of
+// F is 83 KB in f32, so an (x-tile + halo) x F slab does not fit the
+// 227 KB of shared memory. Fusing launches into one pass over 3D bricks is
+// the first performance step (ROADMAP.md).
 //
 // Each extern "C" launcher returns cudaGetLastError() after its launch, so
 // the caller sees a launch the runtime refused.
@@ -64,19 +73,26 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Kernel A: one RK4 stage. With kv_J = A un_J + face terms and
+// Kernels A and C: one RK4 stage. With kv_J = A un_J + face terms and
+// a = dt/2,
 //
-//   un0 = u0                      vn0 = v0
-//   un1 = u0 + dt/2 v0            vn1 = v0 + dt/2 kv0
-//   un2 = un1 + dt^2/4 kv0        vn2 = v0 + dt/2 kv1
-//   un3 = (u0 + dt v0) + dt^2/2 kv1   vn3 = v0 + dt kv2
+//   lean (A)                          full tableau (C)
+//   un0 = u0                          un0 = u0
+//   un1 = u0 + a v0                   un1 = u0 + a v0
+//   un2 = un1 + dt^2/4 kv0            un2 = u0 + a (v0 + a kv0)
+//   un3 = (u0 + dt v0) + dt^2/2 kv1   un3 = u0 + dt (v0 + a kv1)
 //
-// stages 0..2 write kv_J; stage 3 writes
-//   u1 = (u0 + dt v0) + dt^2/6 (kv0 + kv1 + kv2)
-//   v1 = v0 + dt/6 (kv0 + 2 kv1 + 2 kv2 + kv3).
-// The face terms act on rows src_x and abc_x only, in the TPU kernel's
-// order: the stencil, then the source c0^2 g_J W1, then the absorbing
-// term -c0 W2 vn_J.
+// and vn0 = v0, vn1 = v0 + a kv0, vn2 = v0 + a kv1, vn3 = v0 + dt kv2 in
+// both. Stages 0..2 write kv_J; stage 3 writes (u1, v1):
+//
+//   lean: u1 = (u0 + dt v0) + dt^2/6 (kv0 + kv1 + kv2)
+//         v1 = v0 + dt/6 (kv0 + 2 kv1 + 2 kv2 + kv3)
+//   full: u1 = u0 + dt (((b0 v0 + b1 vn1) + b2 vn2) + b3 vn3)
+//         v1 = v0 + dt (((b0 kv0 + b1 kv1) + b2 kv2) + b3 kv3)
+//
+// each in its TPU kernel's association order. The face terms act on rows
+// src_x and abc_x only, in the TPU kernels' order: the stencil, then the
+// source c0^2 g_J W1, then the absorbing term -c0 W2 vn_J.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -95,7 +111,7 @@ struct StageArgs {
   T dt, g, c0sq, mc0;
 };
 
-template <typename T, int J>
+template <typename T, int J, bool Lean>
 __global__ void __launch_bounds__(kThreads)
     rk4_stage_kernel(Stencil<T> s, StageArgs<T> a) {
   const int F = s.F();
@@ -111,9 +127,17 @@ __global__ void __launch_bounds__(kThreads)
     } else if constexpr (J == 1) {
       return a.u0[j] + (half * dt) * a.v0[j];
     } else if constexpr (J == 2) {
-      return (a.u0[j] + (half * dt) * a.v0[j]) + (T(0.25) * dt2) * a.kv0[j];
+      if constexpr (Lean) {
+        return (a.u0[j] + (half * dt) * a.v0[j]) + (T(0.25) * dt2) * a.kv0[j];
+      } else {
+        return a.u0[j] + (half * dt) * (a.v0[j] + (half * dt) * a.kv0[j]);
+      }
     } else {
-      return (a.u0[j] + dt * a.v0[j]) + (half * dt2) * a.kv1[j];
+      if constexpr (Lean) {
+        return (a.u0[j] + dt * a.v0[j]) + (half * dt2) * a.kv1[j];
+      } else {
+        return a.u0[j] + dt * (a.v0[j] + (half * dt) * a.kv1[j]);
+      }
     }
   };
 
@@ -147,12 +171,157 @@ __global__ void __launch_bounds__(kThreads)
     }
     if constexpr (J < 3) {
       a.kv_out[i] = kv;
-    } else {
+    } else if constexpr (Lean) {
       const T k1 = a.kv1[i];
       const T k2 = a.kv2[i];
       const T s2 = (a.kv0[i] + k1) + k2;
       a.u1[i] = (a.u0[i] + dt * a.v0[i]) + (dt2 / T(6)) * s2;
       a.v1[i] = a.v0[i] + (dt / T(6)) * (((s2 + k1) + k2) + kv);
+    } else {
+      const T b0 = T(1.0 / 6.0);
+      const T b1 = T(1.0 / 3.0);
+      const T v0 = a.v0[i];
+      const T k0 = a.kv0[i];
+      const T k1 = a.kv1[i];
+      const T k2 = a.kv2[i];
+      const T vn1 = v0 + (half * dt) * k0;
+      const T vn2 = v0 + (half * dt) * k1;
+      const T vn3 = v0 + dt * k2;
+      const T accu = ((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3;
+      const T accv = ((b0 * k0 + b1 * k1) + b1 * k2) + b0 * kv;
+      a.u1[i] = a.u0[i] + dt * accu;
+      a.v1[i] = v0 + dt * accv;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel D: one stage of the fused-stage RK4 path,
+//
+//   un  = u0 + ca ku   (at every tap)     vn  = v0 + ca kv
+//   kv' = A un + c0^2 g W1 - c0 W2 vn     (the face terms on their rows)
+//   ua' = ua + cb vn                      va' = va + cb kv'
+//
+// vn and ua' are written everywhere; in the padding kv' = 0 and va' = va,
+// as on the TPU kernel's all-pad tiles. ua'/va' are point-wise updates, so
+// they may overwrite ua/va in place; vn_out (the next stage's ku, read at
+// the taps) may alias nothing.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct RkStageArgs {
+  const T* u0;
+  const T* ku;
+  const T* v0;
+  const T* kv;
+  const T* ua;
+  const T* va;
+  T* vn_out;
+  T* kv_out;
+  T* ua_out;
+  T* va_out;
+  const T* w1;
+  const T* w2;
+  int src_x, abc_x;
+  T ca, cb, g, c0sq, mc0;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rk_stage_kernel(Stencil<T> s, RkStageArgs<T> a) {
+  const int F = s.F();
+  const long long n = (long long)s.Lx * F;
+  const T ca = a.ca;
+  auto load = [&a, F, ca](int g, int f) -> T {
+    const long long j = (long long)g * F + f;
+    return a.u0[j] + ca * a.ku[j];
+  };
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const T vn = a.v0[i] + ca * a.kv[i];
+    a.vn_out[i] = vn;
+    a.ua_out[i] = a.ua[i] + a.cb * vn;
+    const int g = (int)(i / F);
+    const int f = (int)(i - (long long)g * F);
+    if (!s.interior(g, f)) {
+      a.kv_out[i] = T(0);
+      a.va_out[i] = a.va[i];
+      continue;
+    }
+    T kv = apply_stencil(s, load, g, f);
+    if (g == a.src_x) kv += (a.c0sq * a.g) * a.w1[f];
+    if (g == a.abc_x) kv += (a.mc0 * a.w2[f]) * vn;
+    a.kv_out[i] = kv;
+    a.va_out[i] = a.va[i] + a.cb * kv;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernels H and I: the phases of kick-drift-kick leapfrog. With
+// F(u) = A u + c0^2 g W1 (source row), D = c0 W2 (absorbing row) and
+// h = dt/2:
+//
+//   OPEN  (u0, v0):  v+ = (v0 + h F(u0)) / (1 + h D),  u1 = u0 + dt v+
+//   MID   (u1, v+):  v1 = (1 - h D) v+ + h F(u1),
+//                    v+' = (v1 + h F(u1)) / (1 + h D),  u2 = u1 + dt v+'
+//   CLOSE (u1, v+):  v1 = (1 - h D) v+ + h F(u1)
+//
+// One step (kernel H) is OPEN then CLOSE: two stencil applies, F recomputed
+// from u0 as the TPU kernel does. Two steps (kernel I) are OPEN, MID,
+// CLOSE: the step-boundary force is applied once and serves both steps.
+// `u` is read at the taps, so u_out must not alias it; CLOSE writes v_out
+// only (u1 stays where OPEN or MID wrote it).
+// ---------------------------------------------------------------------------
+
+enum LfPhase { kLfOpen = 0, kLfMid = 1, kLfClose = 2 };
+
+template <typename T>
+struct LfArgs {
+  const T* u;  // u0 (OPEN) or u1 (MID, CLOSE), read at the taps
+  const T* v;  // v0 (OPEN) or v+ (MID, CLOSE)
+  T* u_out;    // OPEN: u1; MID: u2
+  T* v_out;    // OPEN: v+; MID: v+'; CLOSE: v1
+  const T* w1;
+  const T* w2;
+  int src_x, abc_x;
+  T dt, g, c0sq, c0;
+};
+
+template <typename T, int Phase>
+__global__ void __launch_bounds__(kThreads)
+    lf_phase_kernel(Stencil<T> s, LfArgs<T> a) {
+  const int F = s.F();
+  const long long n = (long long)s.Lx * F;
+  const T dt = a.dt;
+  const T h = dt * T(0.5);
+  const T one = T(1);
+  auto load = [&a, F](int g, int f) { return a.u[(long long)g * F + f]; };
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int g = (int)(i / F);
+    const int f = (int)(i - (long long)g * F);
+    if (!s.interior(g, f)) {
+      if constexpr (Phase != kLfClose) a.u_out[i] = T(0);
+      a.v_out[i] = T(0);
+      continue;
+    }
+    T force = apply_stencil(s, load, g, f);
+    if (g == a.src_x) force += (a.c0sq * a.g) * a.w1[f];
+    const T d = g == a.abc_x ? a.c0 * a.w2[f] : T(0);
+    const T vin = a.v[i];
+    if constexpr (Phase == kLfOpen) {
+      const T vplus = (vin + h * force) / (one + h * d);
+      a.v_out[i] = vplus;
+      a.u_out[i] = a.u[i] + dt * vplus;
+    } else {
+      const T v1 = (one - h * d) * vin + h * force;
+      if constexpr (Phase == kLfClose) {
+        a.v_out[i] = v1;
+      } else {
+        const T vplus = (v1 + h * force) / (one + h * d);
+        a.v_out[i] = vplus;
+        a.u_out[i] = a.u[i] + dt * vplus;
+      }
     }
   }
 }
@@ -165,22 +334,44 @@ Stencil<T> make_stencil(const T* cvx, const T* sx, const T* fx, const T* cvy,
 }
 
 template <typename T>
+unsigned blocks_of(const Stencil<T>& s) {
+  return num_blocks((long long)s.Lx * s.Ly * s.Lz);
+}
+
+template <typename T>
 int launch_apply_flat(const T* x, T* y, Stencil<T> s, cudaStream_t stream) {
-  const long long n = (long long)s.Lx * s.Ly * s.Lz;
-  apply_flat_kernel<T><<<num_blocks(n), kThreads, 0, stream>>>(x, y, s);
+  apply_flat_kernel<T><<<blocks_of(s), kThreads, 0, stream>>>(x, y, s);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool Lean>
+int launch_rk4_stage(int stage, Stencil<T> s, StageArgs<T> a,
+                     cudaStream_t stream) {
+  const unsigned nb = blocks_of(s);
+  switch (stage) {
+    case 0: rk4_stage_kernel<T, 0, Lean><<<nb, kThreads, 0, stream>>>(s, a); break;
+    case 1: rk4_stage_kernel<T, 1, Lean><<<nb, kThreads, 0, stream>>>(s, a); break;
+    case 2: rk4_stage_kernel<T, 2, Lean><<<nb, kThreads, 0, stream>>>(s, a); break;
+    case 3: rk4_stage_kernel<T, 3, Lean><<<nb, kThreads, 0, stream>>>(s, a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_rk4_stage(int stage, Stencil<T> s, StageArgs<T> a,
-                     cudaStream_t stream) {
-  const long long n = (long long)s.Lx * s.Ly * s.Lz;
-  const unsigned nb = num_blocks(n);
-  switch (stage) {
-    case 0: rk4_stage_kernel<T, 0><<<nb, kThreads, 0, stream>>>(s, a); break;
-    case 1: rk4_stage_kernel<T, 1><<<nb, kThreads, 0, stream>>>(s, a); break;
-    case 2: rk4_stage_kernel<T, 2><<<nb, kThreads, 0, stream>>>(s, a); break;
-    case 3: rk4_stage_kernel<T, 3><<<nb, kThreads, 0, stream>>>(s, a); break;
+int launch_rk_stage(Stencil<T> s, RkStageArgs<T> a, cudaStream_t stream) {
+  rk_stage_kernel<T><<<blocks_of(s), kThreads, 0, stream>>>(s, a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_lf_phase(int phase, Stencil<T> s, LfArgs<T> a,
+                    cudaStream_t stream) {
+  const unsigned nb = blocks_of(s);
+  switch (phase) {
+    case kLfOpen: lf_phase_kernel<T, kLfOpen><<<nb, kThreads, 0, stream>>>(s, a); break;
+    case kLfMid: lf_phase_kernel<T, kLfMid><<<nb, kThreads, 0, stream>>>(s, a); break;
+    case kLfClose: lf_phase_kernel<T, kLfClose><<<nb, kThreads, 0, stream>>>(s, a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -197,6 +388,18 @@ int launch_rk4_stage(int stage, Stencil<T> s, StageArgs<T> a,
       int Lx, int Ly, int Lz, int x0, int nx, int h, int ny, int nz
 #define WAVE_STENCIL_ARGS cvx, sx, fx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz
 
+#define WAVE_DEFINE_RK4_STAGE(T, SUFFIX, NAME, LEAN)                          \
+  extern "C" int NAME##_##SUFFIX(                                             \
+      int stage, const T* u0, const T* v0, const T* kv0, const T* kv1,        \
+      const T* kv2, T* kv_out, T* u1, T* v1, const T* w1, const T* w2,        \
+      int src_x, int abc_x, double dt, double g, double c0,                   \
+      WAVE_STENCIL_PARAMS(T), cudaStream_t stream) {                          \
+    wave::StageArgs<T> a{u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,       \
+                         src_x, abc_x, (T)dt, (T)g, (T)(c0 * c0), (T)(-c0)};  \
+    return wave::launch_rk4_stage<T, LEAN>(                                   \
+        stage, wave::make_stencil<T>(WAVE_STENCIL_ARGS), a, stream);          \
+  }
+
 #define WAVE_DEFINE_LAUNCHERS(T, SUFFIX)                                      \
   extern "C" int wave_apply_flat_##SUFFIX(const T* x, T* y,                   \
                                           WAVE_STENCIL_PARAMS(T),             \
@@ -204,15 +407,27 @@ int launch_rk4_stage(int stage, Stencil<T> s, StageArgs<T> a,
     return wave::launch_apply_flat<T>(                                        \
         x, y, wave::make_stencil<T>(WAVE_STENCIL_ARGS), stream);              \
   }                                                                           \
-  extern "C" int wave_rk4_stage_##SUFFIX(                                     \
-      int stage, const T* u0, const T* v0, const T* kv0, const T* kv1,        \
-      const T* kv2, T* kv_out, T* u1, T* v1, const T* w1, const T* w2,        \
-      int src_x, int abc_x, double dt, double g, double c0,                   \
+  WAVE_DEFINE_RK4_STAGE(T, SUFFIX, wave_rk4_stage, true)                      \
+  WAVE_DEFINE_RK4_STAGE(T, SUFFIX, wave_rk4_full_stage, false)                \
+  extern "C" int wave_rk_stage_##SUFFIX(                                      \
+      const T* u0, const T* ku, const T* v0, const T* kv, const T* ua,        \
+      const T* va, T* vn_out, T* kv_out, T* ua_out, T* va_out, const T* w1,   \
+      const T* w2, int src_x, int abc_x, double ca, double cb, double g,      \
+      double c0, WAVE_STENCIL_PARAMS(T), cudaStream_t stream) {               \
+    wave::RkStageArgs<T> a{u0, ku, v0, kv, ua, va, vn_out, kv_out, ua_out,    \
+                           va_out, w1, w2, src_x, abc_x, (T)ca, (T)cb, (T)g,  \
+                           (T)(c0 * c0), (T)(-c0)};                           \
+    return wave::launch_rk_stage<T>(                                          \
+        wave::make_stencil<T>(WAVE_STENCIL_ARGS), a, stream);                 \
+  }                                                                           \
+  extern "C" int wave_lf_phase_##SUFFIX(                                      \
+      int phase, const T* u, const T* v, T* u_out, T* v_out, const T* w1,     \
+      const T* w2, int src_x, int abc_x, double dt, double g, double c0,      \
       WAVE_STENCIL_PARAMS(T), cudaStream_t stream) {                          \
-    wave::StageArgs<T> a{u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,       \
-                         src_x, abc_x, (T)dt, (T)g, (T)(c0 * c0), (T)(-c0)};  \
-    return wave::launch_rk4_stage<T>(                                         \
-        stage, wave::make_stencil<T>(WAVE_STENCIL_ARGS), a, stream);          \
+    wave::LfArgs<T> a{u, v, u_out, v_out, w1, w2, src_x, abc_x, (T)dt, (T)g,  \
+                      (T)(c0 * c0), (T)c0};                                   \
+    return wave::launch_lf_phase<T>(                                          \
+        phase, wave::make_stencil<T>(WAVE_STENCIL_ARGS), a, stream);          \
   }
 
 WAVE_DEFINE_LAUNCHERS(float, f32)

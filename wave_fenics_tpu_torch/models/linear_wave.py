@@ -63,7 +63,8 @@ class LinearWave(nn.Module):
     (common/LinearGLL.hpp:69-128): basis degree, speed of sound, source
     frequency, pressure amplitude; plus boundary tags resolved through the
     mesh's facet_tags (source tag 1, absorbing tag 2, forms.ufl:21-24).
-    ``inv_m``, ``W1`` and ``W2`` are buffers on ``device``.
+    ``inv_m``, ``W1`` and ``W2`` are buffers on ``device`` (the card unless
+    the caller asks for the CPU).
     """
 
     def __init__(
@@ -77,7 +78,7 @@ class LinearWave(nn.Module):
         source_tag: int = 1,
         abc_tag: int = 2,
         dtype: torch.dtype = torch.float32,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         super().__init__()
         self.mesh = mesh
@@ -137,6 +138,19 @@ class LinearWave(nn.Module):
         g = torch.tensor(self.c0**2 * self.g_amplitude(t), dtype=self.dtype)
         b = b + g * self.W1 - self.c0 * (self.W2 * v)
         return b * self.inv_m
+
+    # -- leapfrog decomposition: f1 = force(t, u) - damping * v ----------
+    def force(self, t, u):
+        """Mass-normalised v-independent acceleration (stiffness + source)
+        of the leapfrog integrator (solvers/leapfrog.py)."""
+        b = self.ops.stiffness(u, self.c0)
+        g = torch.tensor(self.c0**2 * self.g_amplitude(t), dtype=self.dtype)
+        return (b + g * self.W1) * self.inv_m
+
+    @property
+    def damping(self) -> torch.Tensor:
+        """Diagonal absorbing-boundary damping grid D = c0 W2 / m."""
+        return self.c0 * self.W2 * self.inv_m
 
     # -- time stepping ----------------------------------------------------
     def zero_state(self) -> tuple[torch.Tensor, torch.Tensor]:

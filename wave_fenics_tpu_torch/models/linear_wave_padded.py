@@ -1,18 +1,30 @@
 """Padded-layout wave model: the port's hot path.
 
 Port of ``wave_fenics_tpu.models.linear_wave_padded.PaddedLinearWave``
-(flat layout) with the RK4 step path of its ``_StepMixin``. Same physics as
+(flat layout) with the solver paths of its ``_StepMixin``, ``_FusedMixin``,
+``_LFStepMixin`` and ``_LF2StepMixin``. Same physics as
 :class:`models.linear_wave.LinearWave`, with the state kept permanently in
 the padded layout of ``ops.wave``:
 
 - ``f1``/``solve``/``solve_n``: RK4 on ``f1`` = kernel B (stiffness/m)
-  plus the source/ABC contributions as single-plane updates;
-- ``solve_step_n``: one RK4 step per call of kernel A (four stage
-  launches on the card), for x-face source/ABC problems.
+  plus the source/ABC contributions as single-plane updates; ``force`` and
+  ``damping`` split ``f1`` for ``solvers/leapfrog.py``;
+- ``solve_step_n``: one RK4 step per call of kernel A (lean, the default)
+  or kernel C (``lean=False``, the full Butcher tableau), four stage
+  launches each on the card;
+- ``solve_fused_n``: RK4 with one call of the stage kernel D per stage;
+- ``solve_lf_n``: leapfrog, one step per call of kernel H (two launches);
+- ``solve_lf2_n``: leapfrog, two steps per call of kernel I (three
+  launches), an odd last step through kernel H.
 
-Dispatch follows the state's device: CPU tensors run the plain versions,
-CUDA tensors the hand-written kernels. Nothing falls back: where the step
-path does not apply, ``solve_step_n`` raises.
+Each kernel path needs one source and one absorbing plane, both on x-faces,
+and the step paths a tile that holds their TPU kernel's slab halo (the JAX
+package's conditions, kept so both packages take the same path on the same
+configuration). Dispatch follows the state's device: CPU tensors run the
+plain versions, CUDA tensors the hand-written kernels. Nothing falls back:
+where a path does not apply, its solver raises a ValueError that names the
+unmet condition (``step_unavailable``, ``stage_unavailable``,
+``lf_unavailable``, ``lf2_unavailable``).
 
 Time is a Python float accumulated ``t += dt`` as the JAX package does it,
 and g(t) is evaluated on the host in float64. The JAX package carries t in
@@ -20,9 +32,9 @@ the state dtype, so in float32 its source phase drifts from this one; in
 float64 the two agree.
 
 Not ported yet (ROADMAP.md): the 3D-slab kernel the JAX package takes for
-p > 8 or ``kernel='3d'``, the fused per-stage, leapfrog and 2-step RK4
-mixins, and ``solve_step_dyn`` (a traced step count has no use in eager
-PyTorch: ``solve_step_n`` takes any count).
+p > 8 or ``kernel='3d'``, the 2-step RK4 mixin, and the ``*_dyn`` solvers (a
+traced step count has no use in eager PyTorch: the ``*_n`` solvers take any
+count).
 """
 
 from __future__ import annotations
@@ -34,10 +46,14 @@ from torch import nn
 from ..convert import numpy_dtype
 from ..core.basis import lumped_weight_line
 from ..core.mesh import BOX_FACETS
+from ..ops import lf2step, lfstep
+from ..ops.lf2step import LF2Tables, build_lf2_tables, lf2_step
+from ..ops.lfstep import LFTables, build_lf_tables, lf_step
 from ..ops.rk4step import (
     StepTables,
     _off0,
     build_step_tables,
+    rk4_step_full,
     rk4_step_lean,
 )
 from ..ops.separable import grid_lines, separable_stiffness_tables
@@ -47,6 +63,7 @@ from ..ops.wave import (
     StencilTables,
     apply_flat,
     build_tables_flat,
+    rk_stage,
     stencil_tables,
 )
 from ..solvers.rk4 import rk4_solve, rk4_solve_n
@@ -54,7 +71,10 @@ from .linear_wave import LinearWave, lumped_boundary_weights
 
 __all__ = ["PaddedLinearWave"]
 
+_RK_A = (0.0, 0.5, 0.5, 1.0)
+_RK_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
 _RK_C = (0.0, 0.5, 0.5, 1.0)
+_NO_X_FACES = "needs exactly one source and one absorbing plane, both on x-faces"
 
 
 def _flat_tile_x(p: int, want: int = 16) -> int:
@@ -67,9 +87,11 @@ def _flat_tile_x(p: int, want: int = 16) -> int:
 
 class PaddedLinearWave(nn.Module):
     """``base`` in the padded flat layout; tables are buffers on the base
-    model's device."""
+    model's device. ``lean`` selects the RK4 step kernel of
+    ``solve_step_n``: the collapsed stage algebra (kernel A, the default)
+    or the full Butcher tableau (kernel C)."""
 
-    def __init__(self, base: LinearWave, tile_x: int = 16):
+    def __init__(self, base: LinearWave, tile_x: int = 16, lean: bool = True):
         super().__init__()
         b = base
         if b.p > 8:
@@ -101,24 +123,38 @@ class PaddedLinearWave(nn.Module):
             self._planes.append((axis, pidx, attr))
             self.register_buffer(f"plane_{i}", self._tensor(plane))
 
-        # the step path: x-face source/ABC planes and a tile that holds the
-        # 3p slab halo (the JAX package's conditions, kept so both packages
-        # take the step path on the same configurations)
-        self.step_unavailable = None
+        # the kernel paths: x-face source/ABC planes, and for the step
+        # kernels a tile that holds their slab halo (the JAX package's
+        # conditions, kept so both packages take the same path)
+        self.lean = lean
         planes = _x_face_planes(self)
-        if self.layout.tile_x < _off0(b.p):
-            self.step_unavailable = (
-                f"tile_x = {self.layout.tile_x} < the 3p slab halo {_off0(b.p)}")
-        elif planes is None:
-            self.step_unavailable = (
-                "needs exactly one source and one absorbing plane, both on "
-                "x-faces")
-        else:
+        self.stage_unavailable = None if planes is not None else _NO_X_FACES
+        self.step_unavailable = self._unavailable(planes, _off0(b.p), "3p")
+        self.lf_unavailable = self._unavailable(planes, lfstep._off0(b.p), "2p")
+        self.lf2_unavailable = self._unavailable(planes, lf2step._off0(b.p), "3p")
+        if planes is not None:
             w1, w2, self.src_x, self.abc_x = planes
-            self._register("step", StepTables, build_step_tables(
-                self.layout, A, lines, coeff, self._m_lines,
-                w1, w2, self.src_x, self.abc_x, dtype=b.dtype))
+            F = w1.size
+            self.register_buffer("face_w1", self._tensor(w1.reshape(1, F)))
+            self.register_buffer("face_w2", self._tensor(w2.reshape(1, F)))
+            args = (self.layout, A, lines, coeff, self._m_lines,
+                    w1, w2, self.src_x, self.abc_x)
+            for prefix, kind, build, unavailable in (
+                ("step", StepTables, build_step_tables, self.step_unavailable),
+                ("lf", LFTables, build_lf_tables, self.lf_unavailable),
+                ("lf2", LF2Tables, build_lf2_tables, self.lf2_unavailable),
+            ):
+                if unavailable is None:
+                    self._register(prefix, kind, build(*args, dtype=b.dtype))
         self._work = None
+
+    def _unavailable(self, planes, off0: int, halo: str) -> str | None:
+        """Why a step kernel with slab halo ``off0`` does not apply, or None."""
+        if self.layout.tile_x < off0:
+            return f"tile_x = {self.layout.tile_x} < the {halo} slab halo {off0}"
+        if planes is None:
+            return _NO_X_FACES
+        return None
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.base.device)
@@ -143,6 +179,18 @@ class PaddedLinearWave(nn.Module):
         if self.step_unavailable is not None:
             return None
         return self._tables("step", StepTables)
+
+    @property
+    def lf_tables(self) -> LFTables | None:
+        if self.lf_unavailable is not None:
+            return None
+        return self._tables("lf", LFTables)
+
+    @property
+    def lf2_tables(self) -> LF2Tables | None:
+        if self.lf2_unavailable is not None:
+            return None
+        return self._tables("lf2", LF2Tables)
 
     def _build_boundary_planes(self):
         """[(axis, padded index, 'w1'|'w2', plane)] with the 2D planes
@@ -199,6 +247,27 @@ class PaddedLinearWave(nn.Module):
     def f0(self, t, u, v):
         return v
 
+    # -- leapfrog decomposition: f1 = force(t, u) - damping * v ---------
+    def force(self, t, u):
+        """v-independent part of f1 (solvers/leapfrog.py split)."""
+        b = self.base
+        kv = self._apply(u)
+        for axis, pidx, attr, plane in self._boundary_planes:
+            if attr == "w1":
+                g = torch.tensor(b.c0**2 * b.g_amplitude(t), dtype=b.dtype)
+                kv[pidx] += g * plane
+        return kv
+
+    @property
+    def damping(self) -> torch.Tensor:
+        """Diagonal ABC damping D = c0 W2/m as a padded state."""
+        damp = torch.zeros(self.layout.padded_shape, dtype=self.base.dtype,
+                           device=self.base.device)
+        for axis, pidx, attr, plane in self._boundary_planes:
+            if attr == "w2":
+                damp[pidx] += self.base.c0 * plane
+        return damp
+
     # -- time stepping ---------------------------------------------------
     def zero_state(self):
         z = torch.zeros(self.layout.padded_shape, dtype=self.base.dtype,
@@ -222,46 +291,150 @@ class PaddedLinearWave(nn.Module):
         return self.layout.pad(x)
 
     def _workspace(self):
-        """Kernel A's buffers, allocated once per model: two ping-pong
-        (u, v) pairs and the stage scratch (kv0, kv1, kv2)."""
+        """The kernels' buffers, allocated once per model: two ping-pong
+        state pairs and four state-sized scratch fields (kernel A: kv0..kv2;
+        H: v+; I: u1, v+1, v+2; D: two vn and two kv)."""
         if self._work is None:
             e = lambda: torch.empty(  # noqa: E731
                 self.layout.padded_shape, dtype=self.base.dtype,
                 device=self.base.device)
-            self._work = ((e(), e()), (e(), e())), (e(), e(), e())
+            self._work = ((e(), e()), (e(), e())), (e(), e(), e(), e())
         return self._work
 
+    def _kernel_buffers(self, u):
+        """(pairs, scratch) for a solve from state ``u``: the workspace on
+        the card, Nones on the CPU (the plain versions allocate)."""
+        if u.device.type == "cuda":
+            return self._workspace()
+        return (None, None), (None,) * 4
+
+    @staticmethod
+    def _handout(u, v):
+        """Copies of a solve's result that the next solve will not
+        overwrite (CUDA results live in the workspace)."""
+        if u.device.type == "cuda":
+            return u.clone(), v.clone()
+        return u, v
+
+    def _require(self, unavailable: str | None, what: str) -> None:
+        if unavailable is not None:
+            raise ValueError(f"{what} unavailable for this config ({unavailable})")
+
     def solve_step_n(self, t0, dt, nsteps, u0=None, v0=None):
-        """RK4 with one step-kernel call per timestep; returns (u, v, nsteps).
+        """RK4 with one step-kernel call per timestep (kernel A, or C with
+        ``lean=False``); returns (u, v, nsteps).
 
         Raises ValueError when the step path does not apply to this
         configuration (no fallback to another solver)."""
+        self._require(self.step_unavailable, "fused RK4 step kernel")
         tables = self.step_tables
-        if tables is None:
-            raise ValueError(
-                "fused RK4 step kernel unavailable for this config "
-                f"({self.step_unavailable})"
-            )
         if u0 is None:
             u0, v0 = self.zero_state()
         b = self.base
         dtf = float(dt)
         t = float(t0)
-        cuda = u0.device.type == "cuda"
-        pairs, scratch = self._workspace() if cuda else ((None, None), None)
+        pairs, scratch = self._kernel_buffers(u0)
+        step = rk4_step_lean if self.lean else rk4_step_full
         stencil = self.stencil
         u, v = u0, v0
         for i in range(nsteps):
             gs = [b.g_amplitude(t + c * dtf) for c in _RK_C]
             # ping-pong: a step never writes the pair it reads
-            u, v = rk4_step_lean(
+            u, v = step(
                 u, v, dtf, gs, self.layout, b.c0, tables, stencil,
-                self.src_x, self.abc_x, out=pairs[i % 2], scratch=scratch,
+                self.src_x, self.abc_x, out=pairs[i % 2], scratch=scratch[:3],
             )
             t = t + dtf
-        if cuda:  # hand out tensors the next solve will not overwrite
-            u, v = u.clone(), v.clone()
-        return u, v, nsteps
+        return (*self._handout(u, v), nsteps)
+
+    def solve_fused_n(self, t0, dt, nsteps, u0=None, v0=None):
+        """RK4 with one fused stage-kernel call per stage (kernel D: the
+        stiffness, the stage axpys and the x-face planes in one pass);
+        returns (u, v, nsteps). Raises ValueError when the stage path does
+        not apply."""
+        self._require(self.stage_unavailable, "fused RK4 stage kernel")
+        if u0 is None:
+            u0, v0 = self.zero_state()
+        b = self.base
+        dtf = float(dt)
+        t = float(t0)
+        pairs, scratch = self._kernel_buffers(u0)
+        flat, stencil = self.flat_tables, self.stencil
+        u, v = u0, v0
+        for i in range(nsteps):
+            # the carry of the JAX package's solve_fused_n: stage 0 starts
+            # from ku, kv = u, v with ca = 0; the step accumulates into the
+            # pair it does not read, and vn/kv' ping-pong in the scratch
+            ku, kv = u, v
+            ua, va = u, v
+            for j in range(4):
+                out = None
+                if scratch[0] is not None:
+                    out = (scratch[j % 2], scratch[2 + j % 2], *pairs[i % 2])
+                vn, kv, ua, va = rk_stage(
+                    u, ku, v, kv, ua, va, dtf * _RK_A[j], dtf * _RK_B[j],
+                    b.g_amplitude(t + _RK_C[j] * dtf), self.layout, b.c0,
+                    flat, stencil, self.face_w1, self.face_w2, self.src_x,
+                    self.abc_x, out=out,
+                )
+                ku = vn
+            u, v = ua, va
+            t = t + dtf
+        return (*self._handout(u, v), nsteps)
+
+    def solve_lf_n(self, t0, dt, nsteps, u0=None, v0=None):
+        """Leapfrog with one step-kernel call per step (kernel H:
+        kick-drift-kick, semi-implicit ABC damping, solvers/leapfrog.py
+        semantics); dt must satisfy the leapfrog CFL (about 0.71x the RK4
+        step). Returns (u, v, nsteps); raises ValueError when the path does
+        not apply."""
+        self._require(self.lf_unavailable, "fused leapfrog step kernel")
+        if u0 is None:
+            u0, v0 = self.zero_state()
+        dtf = float(dt)
+        pairs, scratch = self._kernel_buffers(u0)
+        u, v = self._lf_steps(u0, v0, float(t0), dtf, nsteps, pairs, scratch)
+        return (*self._handout(u, v), nsteps)
+
+    def _lf_steps(self, u, v, t, dtf, nsteps, pairs, scratch, first=0):
+        """``nsteps`` kernel-H steps from (u, v) at time t; step i writes
+        ``pairs[i % 2]`` for i from ``first`` on."""
+        b, tables, stencil = self.base, self.lf_tables, self.stencil
+        for i in range(first, first + nsteps):
+            u, v = lf_step(
+                u, v, dtf, b.g_amplitude(t), b.g_amplitude(t + dtf),
+                self.layout, b.c0, tables, stencil, self.src_x, self.abc_x,
+                out=pairs[i % 2], scratch=scratch[0],
+            )
+            t = t + dtf
+        return u, v
+
+    def solve_lf2_n(self, t0, dt, nsteps, u0=None, v0=None):
+        """Leapfrog with two steps per kernel call (kernel I; same scheme
+        and CFL as :meth:`solve_lf_n`); an odd last step runs through kernel
+        H. Returns (u, v, nsteps); raises ValueError when the path does not
+        apply."""
+        self._require(self.lf2_unavailable, "fused 2-step leapfrog kernel")
+        if u0 is None:
+            u0, v0 = self.zero_state()
+        b = self.base
+        dtf = float(dt)
+        t = float(t0)
+        pairs, scratch = self._kernel_buffers(u0)
+        tables, stencil = self.lf2_tables, self.stencil
+        u, v = u0, v0
+        for i in range(nsteps // 2):
+            u, v = lf2_step(
+                u, v, dtf, b.g_amplitude(t), b.g_amplitude(t + dtf),
+                b.g_amplitude(t + 2 * dtf), self.layout, b.c0, tables,
+                stencil, self.src_x, self.abc_x, out=pairs[i % 2],
+                scratch=scratch[:3],
+            )
+            t = t + 2 * dtf
+        if nsteps % 2:
+            u, v = self._lf_steps(u, v, t, dtf, 1, pairs, scratch,
+                                  first=nsteps // 2)
+        return (*self._handout(u, v), nsteps)
 
 
 def _x_face_planes(pm: PaddedLinearWave):

@@ -25,7 +25,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KernelLibrary", "library", "launch", "check_operands", "nvcc"]
+__all__ = ["KernelLibrary", "library", "launch", "check_operands",
+           "check_no_alias", "nvcc"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -42,8 +43,15 @@ _SIGNATURES = {
     # x, y, <stencil>, stream
     "wave_apply_flat": [_P, _P] + _STENCIL + [_P],
     # stage, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2, src_x, abc_x,
-    # dt, g, c0, <stencil>, stream
+    # dt, g, c0, <stencil>, stream (lean: kernel A; full tableau: kernel C)
     "wave_rk4_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
+    "wave_rk4_full_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
+    # u0, ku, v0, kv, ua, va, vn_out, kv_out, ua_out, va_out, w1, w2,
+    # src_x, abc_x, ca, cb, g, c0, <stencil>, stream (kernel D)
+    "wave_rk_stage": [_P] * 12 + [_I, _I, _D, _D, _D, _D] + _STENCIL + [_P],
+    # phase, u, v, u_out, v_out, w1, w2, src_x, abc_x, dt, g, c0, <stencil>,
+    # stream (kernels H and I)
+    "wave_lf_phase": [_I] + [_P] * 6 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -115,6 +123,15 @@ def library() -> KernelLibrary:
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib=lib, path=so, build_log=text, build_seconds=seconds)
+
+
+def check_no_alias(written, read=()) -> None:
+    """Raise unless the tensors in ``written`` are pairwise distinct and
+    none of them is one of the tensors in ``read``."""
+    w = [t.data_ptr() for t in written]
+    if len(set(w)) != len(w) or set(w) & {t.data_ptr() for t in read}:
+        raise ValueError("the outputs and the scratch must not alias each "
+                         "other or the inputs")
 
 
 def check_operands(device: torch.device, dtype: torch.dtype, **operands) -> None:

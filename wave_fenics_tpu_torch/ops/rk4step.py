@@ -18,14 +18,13 @@ Implementations:
   by tile (3p-deep slab windows shrinking by p per stage, band-matrix x
   term, rolled y/z taps with the merged shift-0 tap, the same tables);
 - :func:`rk4_step_full_plain`: the full-tableau step of the TPU kernel
-  ``_kernel_rk4_step`` (kernel C), kept as a test oracle of the lean
-  algebra;
-- :func:`rk4_step_lean_cuda`: the hand-written CUDA kernel
-  (``csrc/wave_kernels.cu::rk4_stage_kernel``), four launches per step,
-  one per stage.
+  ``_kernel_rk4_step`` (kernel C), mirrored the same way;
+- :func:`rk4_step_lean_cuda` / :func:`rk4_step_full_cuda`: the hand-written
+  CUDA kernels A and C (``csrc/wave_kernels.cu::rk4_stage_kernel`` with
+  its ``Lean`` flag set or clear), four launches per step, one per stage.
 
-:func:`rk4_step_lean` dispatches on the tensor's device: CPU -> plain,
-CUDA -> kernel (or raise).
+:func:`rk4_step_lean` and :func:`rk4_step_full` dispatch on the tensor's
+device: CPU -> plain, CUDA -> kernel (or raise).
 """
 
 from __future__ import annotations
@@ -54,6 +53,8 @@ __all__ = [
     "rk4_step_lean_plain",
     "rk4_step_full_plain",
     "rk4_step_lean_cuda",
+    "rk4_step_full_cuda",
+    "rk4_step_full",
 ]
 
 _RK_A = (0.0, 0.5, 0.5, 1.0)
@@ -182,18 +183,21 @@ def _check_step_layout(layout: PaddedLayout) -> None:
 
 
 class _TileStep:
-    """Shared per-tile machinery of the two plain step versions."""
+    """Per-tile machinery of the plain versions of the step kernels (RK4
+    here, leapfrog in ``lfstep``/``lf2step``): the x-tiles' slab windows of
+    depth ``off0``, the tables ``tb`` and the stencil apply."""
 
-    def __init__(self, u0, v0, dt, gs, layout, c0, tables):
+    def __init__(self, u0, v0, dt, gs, layout, c0, tb, off0):
         _check_no_tf32(u0)
-        _check_step_layout(layout)
-        self.tb = StepTables(*tables)
+        self.tb = tb
+        self.off0 = off0
         self.layout = layout
         self.p = layout.p
         Lx, Ly, Lz = layout.padded_shape
         self.Lz, self.F = Lz, Ly * Lz
         dev, dtype = u0.device, u0.dtype
         sc = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+        self.sc = sc
         # scalars in the state dtype, formed as the TPU kernel forms them
         self.dt = sc(dt)
         self.g = [sc(g) for g in gs]
@@ -205,14 +209,16 @@ class _TileStep:
         self.v = v0.reshape(Lx, self.F)
 
     def tiles(self):
-        Tx, off0 = self.layout.tile_x, _off0(self.p)
+        Tx, off0 = self.layout.tile_x, self.off0
         S0 = Tx + 2 * off0
         for t in range(1, self.layout.padded_shape[0] // Tx - 1):
             s = t * Tx - off0
             yield t, self.u[s : s + S0], self.v[s : s + S0]
 
-    def apply_A(self, t, xin, wx, o, nrows, lean):
-        """A x on slab rows [o, o+nrows); xin = x on [o-p, o+nrows+p)."""
+    def apply_A(self, t, xin, wx, o, nrows, lean, chunk=1):
+        """A x on slab rows [o, o+nrows); xin = x on [o-p, o+nrows+p).
+        ``lean``: the two shift-0 taps merged; otherwise all 2K y/z taps,
+        summed in chunks of ``chunk`` (the TPU kernel's ``yz_chunk``)."""
         p, tb, F, Lz = self.p, self.tb, self.F, self.Lz
         K = 2 * p + 1
         xc = xin[p : p + nrows]
@@ -234,10 +240,13 @@ class _TileStep:
             terms = [(tb.CVY, k, ((p - k) * Lz) % F) for k in range(K)]
             terms += [(tb.CVZ, k, (p - k) % F) for k in range(K)]
             acc = None
-            for ref, k, sh in terms:
-                xs = xc if sh == 0 else torch.roll(xc, sh, 1)
-                tk = ref[k][None, :] * xs
-                acc = tk if acc is None else acc + tk
+            for i in range(0, len(terms), chunk):
+                e = None
+                for ref, k, sh in terms[i : i + chunk]:
+                    xs = xc if sh == 0 else torch.roll(xc, sh, 1)
+                    tk = ref[k][None, :] * xs
+                    e = tk if e is None else e + tk
+                acc = e if acc is None else acc + e
         return out + acc * sx
 
     def new_state(self):
@@ -263,7 +272,8 @@ def rk4_step_lean_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One lean RK4 step on padded [Lx, Ly, Lz] states, mirroring
     ``_kernel_rk4_step_lean`` tile by tile; the all-pad tiles are zeros."""
-    ts = _TileStep(u0, v0, dt, gs, layout, c0, tables)
+    _check_step_layout(layout)
+    ts = _TileStep(u0, v0, dt, gs, layout, c0, StepTables(*tables), _off0(layout.p))
     tb, p, Tx = ts.tb, ts.p, layout.tile_x
     off0 = _off0(p)
     o3, o2, o1, o0 = off0 - 3 * p, off0 - 2 * p, off0 - p, off0
@@ -329,9 +339,10 @@ def rk4_step_full_plain(
     tables: StepTables,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One RK4 step with the full Butcher tableau and running b_j-weighted
-    accumulators, mirroring ``_kernel_rk4_step`` (kernel C): the oracle the
-    lean algebra is tested against."""
-    ts = _TileStep(u0, v0, dt, gs, layout, c0, tables)
+    accumulators, mirroring ``_kernel_rk4_step`` (kernel C) tile by tile;
+    also the oracle the lean algebra is tested against."""
+    _check_step_layout(layout)
+    ts = _TileStep(u0, v0, dt, gs, layout, c0, StepTables(*tables), _off0(layout.p))
     tb, p, Tx = ts.tb, ts.p, layout.tile_x
     off0 = _off0(p)
     o3, o2, o1, o0 = off0 - 3 * p, off0 - 2 * p, off0 - p, off0
@@ -379,6 +390,41 @@ def rk4_step_full_plain(
     return ts.finish(u1, v1)
 
 
+def _rk4_step_cuda(
+    kernel, launcher, u0, v0, dt, gs, layout, c0, st, w1, w2, src_x, abc_x,
+    out, scratch,
+):
+    """Four stage launches of ``launcher`` (kernel A or C); each adds one to
+    ``kernel.launches``."""
+    _check_step_layout(layout)
+    shape = layout.padded_shape
+    F = shape[1] * shape[2]
+    dev, dtype = u0.device, u0.dtype
+    if out is None:
+        out = (torch.empty_like(u0), torch.empty_like(v0))
+    if scratch is None:
+        scratch = tuple(torch.empty_like(u0) for _ in range(3))
+    u1, v1 = out
+    kv0, kv1, kv2 = scratch
+    _cuda.check_operands(
+        dev, dtype,
+        u0=(u0, shape), v0=(v0, shape), u1=(u1, shape), v1=(v1, shape),
+        kv0=(kv0, shape), kv1=(kv1, shape), kv2=(kv2, shape),
+        w1=(w1, (1, F)), w2=(w2, (1, F)),
+    )
+    check_stencil(layout, st, dev, dtype)
+    _cuda.check_no_alias((u1, v1, kv0, kv1, kv2), (u0, v0))
+    for j in range(4):
+        kv_out = scratch[j] if j < 3 else kv2  # stage 3 writes u1, v1
+        _cuda.launch(
+            launcher, dtype, dev, j, u0, v0, kv0, kv1, kv2, kv_out,
+            u1, v1, w1, w2, int(src_x), int(abc_x), float(dt), float(gs[j]),
+            float(c0), *stencil_args(layout, st),
+        )
+        kernel.launches += 1
+    return u1, v1
+
+
 def rk4_step_lean_cuda(
     u0: torch.Tensor,
     v0: torch.Tensor,
@@ -400,41 +446,37 @@ def rk4_step_lean_cuda(
     ``scratch`` = (kv0, kv1, kv2) are reused when given (the caller
     allocates them once); ``out`` must not alias (u0, v0), because stage 3
     reads the neighbours of u0 while it writes u1."""
-    _check_step_layout(layout)
-    shape = layout.padded_shape
-    F = shape[1] * shape[2]
-    dev, dtype = u0.device, u0.dtype
-    if out is None:
-        out = (torch.empty_like(u0), torch.empty_like(v0))
-    if scratch is None:
-        scratch = tuple(torch.empty_like(u0) for _ in range(3))
-    u1, v1 = out
-    kv0, kv1, kv2 = scratch
-    _cuda.check_operands(
-        dev, dtype,
-        u0=(u0, shape), v0=(v0, shape), u1=(u1, shape), v1=(v1, shape),
-        kv0=(kv0, shape), kv1=(kv1, shape), kv2=(kv2, shape),
-        w1=(w1, (1, F)), w2=(w2, (1, F)),
-    )
-    check_stencil(layout, st, dev, dtype)
-    written = [t.data_ptr() for t in (u1, v1, kv0, kv1, kv2)]
-    if len(set(written)) != 5 or {u0.data_ptr(), v0.data_ptr()} & set(written):
-        raise ValueError("the outputs and the scratch must not alias each "
-                         "other or the inputs")
-    for j in range(4):
-        kv_out = scratch[j] if j < 3 else kv2  # stage 3 writes u1, v1
-        _cuda.launch(
-            "wave_rk4_stage", dtype, dev, j, u0, v0, kv0, kv1, kv2, kv_out,
-            u1, v1, w1, w2, int(src_x), int(abc_x), float(dt), float(gs[j]),
-            float(c0), *stencil_args(layout, st),
-        )
-        rk4_step_lean_cuda.launches += 1
-    return u1, v1
+    return _rk4_step_cuda(rk4_step_lean_cuda, "wave_rk4_stage", u0, v0, dt,
+                          gs, layout, c0, st, w1, w2, src_x, abc_x, out,
+                          scratch)
 
 
-#: process-wide count of kernel A launches (four per step; diagnostics:
-#: shows that a run went through the kernel)
+def rk4_step_full_cuda(
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    dt: float,
+    gs: tuple[float, float, float, float],
+    layout: PaddedLayout,
+    c0: float,
+    st: StencilTables,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    src_x: int,
+    abc_x: int,
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
+    scratch: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One full-tableau RK4 step with the CUDA kernel C: four launches, one
+    per stage; arguments as :func:`rk4_step_lean_cuda`."""
+    return _rk4_step_cuda(rk4_step_full_cuda, "wave_rk4_full_stage", u0, v0,
+                          dt, gs, layout, c0, st, w1, w2, src_x, abc_x, out,
+                          scratch)
+
+
+#: process-wide counts of kernel A and kernel C launches (four per step;
+#: diagnostics: show that a run went through the kernel)
 rk4_step_lean_cuda.launches = 0
+rk4_step_full_cuda.launches = 0
 LAUNCHES_PER_STEP = 4
 
 
@@ -461,3 +503,28 @@ def rk4_step_lean(
                                   tables.W1, tables.W2, src_x, abc_x,
                                   out=out, scratch=scratch)
     raise ValueError(f"no implementation of rk4_step_lean for device {u0.device}")
+
+
+def rk4_step_full(
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    dt: float,
+    gs: tuple[float, float, float, float],
+    layout: PaddedLayout,
+    c0: float,
+    tables: StepTables,
+    st: StencilTables,
+    src_x: int,
+    abc_x: int,
+    out=None,
+    scratch=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One full-tableau RK4 step: plain version for CPU tensors, kernel C
+    for CUDA ones."""
+    if u0.device.type == "cpu":
+        return rk4_step_full_plain(u0, v0, dt, gs, layout, c0, tables)
+    if u0.device.type == "cuda":
+        return rk4_step_full_cuda(u0, v0, dt, gs, layout, c0, st,
+                                  tables.W1, tables.W2, src_x, abc_x,
+                                  out=out, scratch=scratch)
+    raise ValueError(f"no implementation of rk4_step_full for device {u0.device}")

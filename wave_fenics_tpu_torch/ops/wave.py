@@ -17,8 +17,12 @@ Two implementations of ``y = A x`` (kernel B):
   x coefficients ``cvx`` directly instead of a band matrix
   (:func:`stencil_tables`).
 
-:func:`apply_flat` dispatches on the tensor's device: CPU -> plain, CUDA ->
-kernel (or raise). There is no fallback between them.
+and of one stage of the fused-stage RK4 path (kernel D, the TPU kernel
+``_kernel_rk_stage``): :func:`rk_stage_plain` and :func:`rk_stage_cuda`
+(``csrc/wave_kernels.cu::rk_stage_kernel``).
+
+:func:`apply_flat` and :func:`rk_stage` dispatch on the tensor's device:
+CPU -> plain, CUDA -> kernel (or raise). There is no fallback between them.
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ __all__ = [
     "apply_flat",
     "apply_flat_plain",
     "apply_flat_cuda",
+    "rk_stage",
+    "rk_stage_plain",
+    "rk_stage_cuda",
 ]
 
 
@@ -363,3 +370,109 @@ def apply_flat(
     if xp.device.type == "cuda":
         return apply_flat_cuda(xp, layout, st)
     raise ValueError(f"no implementation of apply_flat for device {xp.device}")
+
+
+def rk_stage_plain(
+    u0: torch.Tensor,
+    ku: torch.Tensor,
+    v0: torch.Tensor,
+    kv: torch.Tensor,
+    ua: torch.Tensor,
+    va: torch.Tensor,
+    ca: float,
+    cb: float,
+    g: float,
+    layout: PaddedLayout,
+    c0: float,
+    flat: FlatTables,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    src_x: int,
+    abc_x: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One stage of the fused-stage RK4 path, mirroring ``_kernel_rk_stage``:
+    un = u0 + ca ku, vn = v0 + ca kv, kv' = A un (the tile-by-tile apply of
+    ``_kernel_flat``, which the stage kernel repeats on un) plus the source
+    row c0^2 g W1 and the absorbing row -c0 W2 vn, ua' = ua + cb vn,
+    va' = va + cb kv'. ``w1``/``w2`` are the [1, F] facet planes. Returns
+    (vn, kv', ua', va')."""
+    Lx = layout.padded_shape[0]
+    sc = lambda x: torch.tensor(x, dtype=u0.dtype, device=u0.device)  # noqa: E731
+    ca_, cb_ = sc(ca), sc(cb)
+    vn = v0 + ca_ * kv
+    kvp = apply_flat_plain(u0 + ca_ * ku, layout, flat)
+    k2, vn2 = kvp.view(Lx, -1), vn.view(Lx, -1)
+    k2[src_x] += (sc(c0 * c0) * sc(g)) * w1[0]
+    k2[abc_x] += sc(-c0) * w2[0] * vn2[abc_x]
+    return vn, kvp, ua + cb_ * vn, va + cb_ * kvp
+
+
+def rk_stage_cuda(
+    u0: torch.Tensor,
+    ku: torch.Tensor,
+    v0: torch.Tensor,
+    kv: torch.Tensor,
+    ua: torch.Tensor,
+    va: torch.Tensor,
+    ca: float,
+    cb: float,
+    g: float,
+    layout: PaddedLayout,
+    c0: float,
+    st: StencilTables,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    src_x: int,
+    abc_x: int,
+    out: tuple[torch.Tensor, ...] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One RK4 stage with the CUDA kernel D (one launch). ``out`` =
+    (vn, kv', ua', va') is reused when given. ua' and va' are point-wise
+    updates and may be ``ua``/``va`` themselves; vn (read at the taps as the
+    next stage's ``ku``) and kv' may alias nothing."""
+    layout.check_flat()
+    shape = layout.padded_shape
+    F = shape[1] * shape[2]
+    dev, dtype = u0.device, u0.dtype
+    if out is None:
+        out = tuple(torch.empty_like(u0) for _ in range(4))
+    vn, kvp, uap, vap = out
+    _cuda.check_operands(
+        dev, dtype,
+        u0=(u0, shape), ku=(ku, shape), v0=(v0, shape), kv=(kv, shape),
+        ua=(ua, shape), va=(va, shape), vn=(vn, shape), kv_out=(kvp, shape),
+        ua_out=(uap, shape), va_out=(vap, shape),
+        w1=(w1, (1, F)), w2=(w2, (1, F)),
+    )
+    check_stencil(layout, st, dev, dtype)
+    _cuda.check_no_alias((vn, kvp, uap, vap), (u0, ku, v0, kv))
+    _cuda.check_no_alias((vn, kvp, uap), (va,))
+    _cuda.check_no_alias((vn, kvp, vap), (ua,))
+    _cuda.launch(
+        "wave_rk_stage", dtype, dev, u0, ku, v0, kv, ua, va, vn, kvp, uap, vap,
+        w1, w2, int(src_x), int(abc_x), float(ca), float(cb), float(g),
+        float(c0), *stencil_args(layout, st),
+    )
+    rk_stage_cuda.launches += 1
+    return vn, kvp, uap, vap
+
+
+#: process-wide count of kernel D launches (four per step; diagnostics:
+#: shows that a run went through the kernel)
+rk_stage_cuda.launches = 0
+
+
+def rk_stage(
+    u0, ku, v0, kv, ua, va, ca: float, cb: float, g: float,
+    layout: PaddedLayout, c0: float, flat: FlatTables, st: StencilTables,
+    w1: torch.Tensor, w2: torch.Tensor, src_x: int, abc_x: int, out=None,
+):
+    """One fused RK4 stage: plain version for CPU tensors, kernel D for CUDA
+    ones (``out`` is the kernel's reusable buffers)."""
+    if u0.device.type == "cpu":
+        return rk_stage_plain(u0, ku, v0, kv, ua, va, ca, cb, g, layout, c0,
+                              flat, w1, w2, src_x, abc_x)
+    if u0.device.type == "cuda":
+        return rk_stage_cuda(u0, ku, v0, kv, ua, va, ca, cb, g, layout, c0,
+                             st, w1, w2, src_x, abc_x, out=out)
+    raise ValueError(f"no implementation of rk_stage for device {u0.device}")
