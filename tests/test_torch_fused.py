@@ -22,7 +22,7 @@ from wave_fenics_tpu.ops.separable import grid_lines as j_grid_lines
 from wave_fenics_tpu.ops.separable import (
     separable_stiffness_tables as j_sep_tables,
 )
-from wave_fenics_tpu_torch.apps import planar3d_app
+from wave_fenics_tpu_torch.apps import planar3d_app, profile_step
 from wave_fenics_tpu_torch.convert import state_from_numpy, tables_from_numpy
 from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
 from wave_fenics_tpu_torch.ops import rk4step, wave
@@ -175,6 +175,30 @@ def test_app_f1_path_without_x_faces():
     assert "leapfrog on force" in name
     with pytest.raises(ValueError, match="integrator"):
         planar3d_app.solver_path(pm, "euler")
+
+
+_J = {f"rk4 stage J={j}": 5 for j in range(4)}
+
+
+@pytest.mark.parametrize("kw,integrator,path,want", [
+    (dict(), "rk4", "lean RK4 step", _J),
+    (dict(lean=False), "rk4", "full-tableau RK4 step", _J),
+    (dict(degree=8), "rk4", "fused RK4 stage", {"rk stage (D)": 20}),
+    (dict(), "leapfrog", "2-step leapfrog",
+     {"lf OPEN": 3, "lf MID": 2, "lf CLOSE": 3}),
+    (dict(degree=8), "leapfrog", "leapfrog step", {"lf OPEN": 5, "lf CLOSE": 5}),
+    (dict(y_faces=True), "rk4", "RK4 on f1", {"apply_flat (B)": 20}),
+    (dict(y_faces=True), "leapfrog", "leapfrog on force", {"apply_flat (B)": 6}),
+])
+def test_profile_expected_launches_follow_the_app_path(kw, integrator, path, want):
+    """profile_step's expected launches per kernel (5 steps) are those of the
+    path the app picks for the same model."""
+    if kw.get("y_faces"):
+        pm = PaddedLinearWave(torch_model(p=2, tags={1: (2,), 2: (3,)}), tile_x=16)
+    else:
+        _, pm = planar3d_app.build(cells=(4, 2, 2), dtype="f64", device="cpu", **kw)
+    assert path in planar3d_app.solver_path(pm, integrator)[0]
+    assert profile_step.expected_launches(pm, integrator, 5) == want
 
 
 def test_app_cli_full_tableau(capsys):

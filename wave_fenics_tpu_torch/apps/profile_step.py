@@ -58,6 +58,24 @@ KERNELS = [
 _KERNEL_RES = [(re.compile(pat), label, fields) for pat, label, fields in KERNELS]
 
 
+def expected_launches(pm, integrator: str, steps: int) -> dict[str, int]:
+    """Launches per kernel label that ``steps`` steps of the path
+    ``planar3d_app.solver_path(pm, integrator)`` make, decided by the same
+    applicability checks in the same order."""
+    if integrator == "leapfrog":
+        if pm.lf2_unavailable is None:  # I; an odd last step through H
+            half, odd = divmod(steps, 2)
+            return {"lf OPEN": half + odd, "lf MID": half, "lf CLOSE": half + odd}
+        if pm.lf_unavailable is None:  # H
+            return {"lf OPEN": steps, "lf CLOSE": steps}
+        return {"apply_flat (B)": steps + 1}  # one force per step, and F(t0)
+    if pm.step_unavailable is None:  # A or C
+        return {f"rk4 stage J={j}": steps for j in range(4)}
+    if pm.stage_unavailable is None:  # D
+        return {"rk stage (D)": 4 * steps}
+    return {"apply_flat (B)": 4 * steps}  # RK4 on f1
+
+
 def card_line() -> str:
     """``name, power limit`` of card 0 as nvidia-smi prints them."""
     return subprocess.run(
@@ -116,6 +134,12 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
             f"the profiler saw {busy_us} us of device time and kernel launches "
             f"{n}: it does not trace this card; time with CUDA events instead "
             "(utils.timing.timeit)")
+    seen = {label: k for label, k in n.items() if k}
+    want = expected_launches(pm, integrator, steps)
+    if seen != want:
+        raise RuntimeError(
+            f"{path}: the profiler saw kernel launches {seen}, the path makes "
+            f"{want} in {steps} steps")
 
     kernels = []
     for _, label, nf in _KERNEL_RES:
