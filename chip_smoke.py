@@ -25,12 +25,20 @@ never prints its last line:
    Every check of phases 4 and 5 starts from a random state with zero
    padding, so the absorbing row carries O(max|v|) values; the relative
    error is the larger of |du|/max|u_ref| and |dv|/max|v_ref|;
-6. physics: the f64 analytic plane wave (16x2x2 cells, 6 mm) through
+6. kernels F (the separable stiffness on the unpadded grid) and G (the
+   BP1 consistent mass on the padded layout) against their plain versions:
+   f64 small (F: (4,2,2) and (4,2,3) cells, p in {2, 4}, Nx = 17 at p=4;
+   G: (3,2,2) cells, p in {1, 2, 4, 8}), limit 1e-12 relative; f32 at the
+   reference's BP1 size (64^3 cells, p=4, 16,974,593 dofs), limit 1e-5 of
+   max|ref|, G's padding exactly 0; with times against each bound;
+7. physics: the f64 analytic plane wave (16x2x2 cells, 6 mm) through
    solve_step_n on kernel A; the leapfrog's 2nd order through kernel H
    (f64, (4,2,2), p=4: the error against a fine RK4 reference shrinks
    2.8-5.5x when dt halves); an odd step count through solve_lf2_n
-   launches kernel H for the last step;
-7. the app paths at 4,276,737 dofs, through ``planar3d_app.run`` with the
+   launches kernel H for the last step; LinearWave.solve on the card (the
+   unpadded eager model, kernel F in f1: f64 (4,2,2), p=4, 25 steps)
+   against solve_step_n (kernel A), limit 1e-12 relative;
+8. the app paths at 4,276,737 dofs, through ``planar3d_app.run`` with the
    full step counts: P1 RK4 (kernel A, p=4), P2 leapfrog (kernel I, p=4),
    P3 leapfrog (kernel H, p=8), P4 RK4 (kernel D, p=8), P5 RK4 with the
    full tableau (kernel C, p=4). Every launch count is set to 0 just before
@@ -38,9 +46,17 @@ never prints its last line:
    kernels once per kernel launch of (its steps + one warm-up call) and no
    other kernel. Then kernel B's own path, the f1-path RK4
    (PaddedLinearWave.solve_n), for two steps against the step path, with
-   its own count; then a two-point rate of solve_step_n.
+   its own count; then a two-point rate of solve_step_n;
+9. the operator benchmark paths at 16,974,593 dofs (64^3 cells, p=4, f32),
+   each with its own counts: P6 ``cg_bench.run`` BP1 (kmax 50, rtol 1e-4):
+   kernel G launched solves x (1 + iterations) times and no other kernel;
+   then CG on kernel G against CG on the plain matvec from the same b
+   (iterations within 1, solutions within 1e-3 relative); P7
+   ``operators_bench.run`` stiffness (kernel F) and bp1-mass (kernel G)
+   with ``check``: one launch per apply, error against the f64 oracle
+   within 1e-5.
 
-It prints one JSON line of per-kernel results ("kernels": the app paths'
+It prints one JSON line of per-kernel results ("kernels": the paths'
 kernels, with each path's launch counts; "off_path_kernels": kernel B,
 with its launches summed over the five app runs) and,
 last, one JSON line ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -61,6 +77,8 @@ ROOT = Path(__file__).resolve().parent
 HEADLINE = dict(cells=(64, 32, 32), degree=4)
 HEADLINE_P8 = dict(cells=(32, 16, 16), degree=8)  # the same 4,276,737 dofs
 NDOFS = 4_276_737
+BP1 = dict(size=64, degree=4)  # the reference's documented BP1 size
+BP1_DOFS = 16_974_593
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12    # f32 outside the tensor cores (the same sheet)
 RK_A = (0.0, 0.5, 0.5, 1.0)
@@ -102,6 +120,8 @@ def main() -> None:
     t_start = time.perf_counter()
 
     from wave_fenics_tpu_torch.apps import planar3d_app
+    from wave_fenics_tpu_torch.benchmarks import cg_bench, operators_bench
+    from wave_fenics_tpu_torch.convert import tables_from_numpy
     from wave_fenics_tpu_torch.core.basis import gll_points_weights
     from wave_fenics_tpu_torch.core.mesh import FacetTags, box_mesh
     from wave_fenics_tpu_torch.models.linear_wave import LinearWave
@@ -110,7 +130,17 @@ def main() -> None:
         analytic_plane_wave,
         planar3d_case,
     )
-    from wave_fenics_tpu_torch.ops import _cuda, lf2step, lfstep, rk4step, wave
+    from wave_fenics_tpu_torch.ops import (
+        _cuda,
+        lf2step,
+        lfstep,
+        mass,
+        rk4step,
+        stiffness,
+        wave,
+    )
+    from wave_fenics_tpu_torch.ops.operators import StructuredOperators
+    from wave_fenics_tpu_torch.solvers.cg import cg
     from wave_fenics_tpu_torch.utils.timing import Timer, timeit
 
     # the launch counters, one per kernel
@@ -118,6 +148,7 @@ def main() -> None:
         "A": rk4step.rk4_step_lean_cuda, "B": wave.apply_flat_cuda,
         "C": rk4step.rk4_step_full_cuda, "D": wave.rk_stage_cuda,
         "H": lfstep.lf_step_cuda, "I": lf2step.lf2_step_cuda,
+        "F": stiffness.stiffness_grid_cuda, "G": mass.mass_apply_cuda,
     }
 
     def zero_counts():
@@ -229,10 +260,10 @@ def main() -> None:
         dv = float((vk - vp).abs().max())
         return max(du, dv), max(du / umax, dv / vmax)
 
-    def padding_zero(pm, *xs):
+    def padding_zero(layout, *xs):
         for x in xs:
             outside = x.clone()
-            outside[pm.layout.interior] = 0.0
+            outside[layout.interior] = 0.0
             check(float(outside.abs().max()) == 0.0, "the padding stays zero")
 
     # -- 3. kernel B --------------------------------------------------------
@@ -260,7 +291,7 @@ def main() -> None:
     print(f"f32 headline: max|err| = {b_err:.6e}, max|err|/max|ref| = "
           f"{rel:.3e} (limit 1e-5)")
     check(rel <= 1e-5, "kernel B f32 agreement")
-    padding_zero(hpm, yk)
+    padding_zero(hpm.layout, yk)
     out_b = torch.empty_like(x)
     b_ms = 1e3 * timeit(lambda: wave.apply_flat_cuda(x, hpm.layout, hpm.stencil, out=out_b))
     b_plain_ms = 1e3 * timeit(
@@ -324,7 +355,7 @@ def main() -> None:
             print(f"kernel {name} f64 (4,2,2) p={p}, 25 steps from a random "
                   f"state: relative error {rel:.3e} (limit {tol:.0e})")
             check(rel <= tol, f"kernel {name} f64 p={p}")
-            padding_zero(spm, uk, vk)
+            padding_zero(spm.layout, uk, vk)
             if name == "C":  # the same step in the lean algebra (kernel A)
                 ul, vl = kernel_solve(small_model(p), "lean", 1e-9, 25, u0, v0)
                 _, rel = state_err(uk, vk, ul, vl)
@@ -342,7 +373,7 @@ def main() -> None:
               f"steps from a random state: max|err| = {err:.6e}, relative "
               f"{rel:.3e} (limit 1e-4)")
         check(rel <= 1e-4, f"kernel {name} f32 agreement")
-        padding_zero(pm, uk, vk)
+        padding_zero(pm.layout, uk, vk)
         return err, uk, vk
 
     phase("kernel C (full-tableau rk4 stage kernels) against rk4_step_full_plain")
@@ -415,7 +446,104 @@ def main() -> None:
         print(f"kernel {k}: {ms:.4f} ms/{unit}, plain {plain_ms:.4f} ms, bound "
               f"{bms:.4f} ms ({by}) [{smi}]")
 
-    # -- 6. physics ---------------------------------------------------------
+    # -- 6. kernels F and G -------------------------------------------------
+    def op_bound(nbytes, flops):
+        """(bound_ms, bound_by): the bytes over the HBM rate against the
+        flops over the f32 peak."""
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def rel_err(yk, yp):
+        err = float((yk - yp).abs().max())
+        return err, err / float(yp.abs().max())
+
+    def grid_tables(ops):
+        return stiffness.GridStiffnessTables(*tables_from_numpy(
+            stiffness.stiffness_grid_tables(ops._sepA, ops._seplines,
+                                            ops.grid_shape, ops.p, -1500.0**2,
+                                            ops.dtype), dev, ops.dtype))
+
+    def random_grid(shape, seed, dtype):
+        return torch.as_tensor(np.random.default_rng(seed).standard_normal(shape),
+                               dtype=dtype, device=dev)
+
+    phase("kernel F (stiffness_grid) against stiffness_grid_plain")
+    for p, cells in ((2, (4, 2, 3)), (4, (4, 2, 2))):
+        ops = StructuredOperators(box_mesh(cells, (1.0, 0.8, 1.2)), p,
+                                  dtype=torch.float64)
+        tabs = grid_tables(ops)
+        x = random_grid(ops.grid_shape, 20 + p, torch.float64)
+        yk = stiffness.stiffness_grid_cuda(x, tabs, p)
+        yp = stiffness.stiffness_grid_plain(x, tabs, p)
+        torch.cuda.synchronize()
+        _, rel = rel_err(yk, yp)
+        print(f"f64 {cells} p={p}, grid {ops.grid_shape}: max|err|/max|ref| = "
+              f"{rel:.3e} (limit 1e-12)")
+        check(rel <= 1e-12 and tuple(yk.shape) == ops.grid_shape,
+              f"kernel F f64 p={p}")
+    fops = StructuredOperators(box_mesh((BP1["size"],) * 3, (1.0, 1.0, 1.0)),
+                               BP1["degree"], dtype=torch.float32)
+    check(fops.ndofs == BP1_DOFS, "the BP1 size")
+    ftabs = grid_tables(fops)
+    x = random_grid(fops.grid_shape, 21, torch.float32)
+    yk = stiffness.stiffness_grid_cuda(x, ftabs, fops.p)
+    yp = stiffness.stiffness_grid_plain(x, ftabs, fops.p)
+    torch.cuda.synchronize()
+    f_err, rel = rel_err(yk, yp)
+    print(f"f32 {fops.grid_shape} p=4: max|err| = {f_err:.6e}, max|err|/max|ref| "
+          f"= {rel:.3e} (limit 1e-5)")
+    check(rel <= 1e-5, "kernel F f32 agreement")
+    out_f = torch.empty_like(x)
+    f_ms = 1e3 * timeit(lambda: stiffness.stiffness_grid_cuda(x, ftabs, fops.p, out=out_f))
+    f_plain_ms = 1e3 * timeit(lambda: stiffness.stiffness_grid_plain(x, ftabs, fops.p),
+                              reps=5)
+    # x in, y out; 3(2p+1) taps at 2 flops, 3 line products, 3 products, 2 adds
+    results["F"] = (f_err, f_ms, f_plain_ms,
+                    op_bound(2 * nbytes(x) + nbytes(*ftabs), x.numel() * (6 * 9 + 8)))
+    del x, yk, yp, out_f
+
+    phase("kernel G (mass_apply) against mass_apply_plain")
+    for p in (1, 2, 4, 8):
+        lay, tabs, _ = cg_bench.bp1_setup(box_mesh((3, 2, 2), (1.0, 0.8, 1.2)), p,
+                                          torch.float64, dev)
+        x = random_padded(lay, 30 + p, torch.float64)
+        yk = mass.mass_apply_cuda(x, lay, tabs)
+        yp = mass.mass_apply_plain(x, lay, tabs)
+        torch.cuda.synchronize()
+        _, rel = rel_err(yk, yp)
+        print(f"f64 (3,2,2) p={p}, padded {lay.padded_shape}: max|err|/max|ref| = "
+              f"{rel:.3e} (limit 1e-12)")
+        check(rel <= 1e-12, f"kernel G f64 p={p}")
+        padding_zero(lay, yk)
+    mesh64 = box_mesh((BP1["size"],) * 3, (1.0, 1.0, 1.0))
+    glay, gtabs, _ = cg_bench.bp1_setup(mesh64, BP1["degree"], torch.float32, dev)
+    x = random_padded(glay, 31, torch.float32)
+    yk = mass.mass_apply_cuda(x, glay, gtabs)
+    yp = mass.mass_apply_plain(x, glay, gtabs)
+    torch.cuda.synchronize()
+    g_err, rel = rel_err(yk, yp)
+    print(f"f32 padded {glay.padded_shape} p=4 ({nbytes(x) / 1e6:.1f} MB/field): "
+          f"max|err| = {g_err:.6e}, max|err|/max|ref| = {rel:.3e} (limit 1e-5)")
+    check(rel <= 1e-5, "kernel G f32 agreement")
+    padding_zero(glay, yk)
+    out_g = torch.empty_like(x)
+    g_ms = 1e3 * timeit(lambda: mass.mass_apply_cuda(x, glay, gtabs, out=out_g))
+    g_plain_ms = 1e3 * timeit(lambda: mass.mass_apply_plain(x, glay, gtabs), reps=5)
+    # the padded x in, y out; three banded contractions of 2(2p+1) flops
+    # on each interior point
+    results["G"] = (g_err, g_ms, g_plain_ms,
+                    op_bound(2 * nbytes(x) + nbytes(*gtabs),
+                             math.prod(glay.shape) * 6 * 9))
+    del x, yk, yp, out_g
+    for k in ("F", "G"):
+        err, ms, plain_ms, (bms, by) = results[k]
+        print(f"kernel {k}: {ms:.4f} ms/apply, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}) [{smi}]")
+
+    # -- 7. physics ---------------------------------------------------------
     phase("physics: f64 analytic plane wave through solve_step_n")
     pcase = planar3d_case(ncells=(16, 2, 2), domain_length=6.0e-3,
                           dtype=torch.float64, device=dev)
@@ -457,7 +585,21 @@ def main() -> None:
     check(odd["I"] == 36 and odd["H"] == 2, f"odd-count launches {odd}")
     check(rel <= 1e-13, "solve_lf2_n against solve_lf_n")
 
-    # -- 7. the app paths -----------------------------------------------------
+    phase("physics: LinearWave.solve on the card (kernel F) against solve_step_n")
+    spm = small_model(4)
+    zero_counts()
+    u_lw, v_lw, n_lw = spm.base.solve(0.0, 25 * 1e-9, 1e-9)
+    lw = read_counts()
+    u_st, v_st, _ = spm.solve_step_n(0.0, 1e-9, 25)
+    _, rel = state_err(u_lw, v_lw, spm.to_grid(u_st), spm.to_grid(v_st))
+    print(f"f64 (4,2,2) p=4, {n_lw} steps: relative error {rel:.3e} (limit "
+          f"1e-12); launches {lw}")
+    check(n_lw == 25 and lw["F"] == 4 * 25
+          and not {k: n for k, n in lw.items() if k != "F" and n},
+          f"LinearWave.solve launched {lw}, want F 100 only")
+    check(rel <= 1e-12, "LinearWave.solve (kernel F) against solve_step_n")
+
+    # -- 8. the app paths -----------------------------------------------------
     # (label, run kwargs, kernel, launches per kernel call, steps per call,
     #  what solver_path must name)
     paths = [
@@ -536,9 +678,59 @@ def main() -> None:
     print(f"two-point rate ({n_hi}-{n_lo} steps): {per_step * 1e3:.4f} ms/step, "
           f"{NDOFS / per_step / 1e9:.4f} GDoF*steps/s [{smi}]")
 
-    # "kernels": the app paths' kernels, each with the launches of its
-    # path's run; "off_path_kernels": kernel B, which no app path launches
+    # -- 9. the operator benchmark paths -----------------------------------
+    def only(counts, kernel, label):
+        others = {k: n for k, n in counts.items() if k != kernel and n}
+        check(not others, f"{label}: other kernels launched {others}")
+
+    phase(f"P6 cg_bench BP1 at {BP1_DOFS:,} dofs: kernel G")
+    zero_counts()
+    p6 = cg_bench.run(op="bp1", **BP1, dtype="f32", device="cuda", kmax=50, rtol=1e-4)
+    counts = read_counts()
+    print(json.dumps(p6))
+    check(p6["ndofs"] == BP1_DOFS, "P6 ndofs")
+    want = p6["solves"] * (1 + p6["iters"])
+    print(f"P6: {p6['iters']} iterations, {p6['solves']} solves; kernel G "
+          f"launches {counts['G']} = {p6['solves']} x (1 + {p6['iters']}); all "
+          f"counts {counts}; {p6['ms_total']:.4f} ms/solve, "
+          f"{p6['gdofs_iter_per_s']:.4f} GDoF*iterations/s [{smi}]")
+    check(counts["G"] == want, f"P6: kernel G launched {counts['G']}, want {want}")
+    only(counts, "G", "P6")
+    launches["G"] = counts["G"]
+    b = glay.pad(random_grid(glay.shape, 0, torch.float32))  # the bench's b
+    xk, kk, _ = cg(lambda v: mass.mass_apply_cuda(v, glay, gtabs), b, kmax=50, rtol=1e-4)
+    xp, kp, _ = cg(lambda v: mass.mass_apply_plain(v, glay, gtabs), b, kmax=50, rtol=1e-4)
+    _, rel = rel_err(xk, xp)
+    print(f"CG on kernel G: {kk} iterations; on the plain matvec: {kp}; "
+          f"solutions max|dx|/max|x| = {rel:.3e} (limit 1e-3)")
+    check(kk == p6["iters"] and abs(kk - kp) <= 1 and rel <= 1e-3,
+          "CG on kernel G against CG on the plain matvec")
+    del b, xk, xp
+
+    p7 = {}
+    for op, kernel in (("stiffness", "F"), ("bp1-mass", "G")):
+        phase(f"P7 operators_bench {op} at {BP1_DOFS:,} dofs: kernel {kernel}")
+        zero_counts()
+        out = operators_bench.run(op=op, **BP1, check=True, dtype="f32", device="cuda")
+        counts = read_counts()
+        print(json.dumps(out))
+        print(f"P7 {op}: kernel {kernel} launches {counts[kernel]} = "
+              f"{out['applies']} applies; {out['ms_per_apply']:.4f} ms/apply; "
+              f"error vs the f64 oracle {out['max_rel_err_vs_f64_oracle']:.3e} "
+              f"(limit 1e-5) [{smi}]")
+        check(out["ndofs"] == BP1_DOFS, f"P7 {op} ndofs")
+        check(counts[kernel] == out["applies"], f"P7 {op}: kernel {kernel} "
+              f"launched {counts[kernel]}, want {out['applies']}")
+        only(counts, kernel, f"P7 {op}")
+        check(out["max_rel_err_vs_f64_oracle"] <= 1e-5, f"P7 {op} against f64")
+        p7[op] = counts[kernel]
+    launches["F"] = p7["stiffness"]
+
+    # "kernels": the paths' kernels, each with the launches of its path's
+    # run (G: P6, F: P7 stiffness); "off_path_kernels": kernel B, which no
+    # app path launches
     src = "wave_fenics_tpu_torch/csrc/wave_kernels.cu"
+    src_ops = "wave_fenics_tpu_torch/csrc/operator_kernels.cu"
     results["A"] = (a_err, a_ms, a_plain_ms, a_bound)
     meta = {
         "A": ("rk4_stage_kernel<T, J, true> (kernel A: lean RK4 step, 4 stage "
@@ -551,12 +743,19 @@ def main() -> None:
               "per step)", "wave_fenics_tpu/ops/pallas_lfstep.py:62"),
         "I": ("lf_phase_kernel OPEN+MID+CLOSE (kernel I: two leapfrog steps, "
               "p=4; ms per call)", "wave_fenics_tpu/ops/pallas_lf2step.py:70"),
+        "F": ("stiffness_grid_kernel (kernel F: separable stiffness on the "
+              "unpadded grid, 64^3 cells, p=4; ms per apply)",
+              "wave_fenics_tpu/ops/pallas_stiffness.py:146"),
+        "G": ("mass_apply_kernel (kernel G: BP1 consistent Gauss mass on the "
+              "padded layout, 64^3 cells, p=4; ms per apply)",
+              "wave_fenics_tpu/ops/pallas_mass.py:45"),
     }
     kernels = []
     for k, (name, replaces) in meta.items():
         err, ms, plain_ms, (bms, by) = results[k]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "name": name, "route": "cuda",
+            "source": src_ops if k in ("F", "G") else src, "replaces": replaces,
             "launches": launches[k], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None,

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (A, B, C, D, H, I) against their plain
+"""The hand-written CUDA kernels (A, B, C, D, F, G, H, I) against their plain
 versions (float64).
 
 Every test here needs a CUDA card and skips without one. The file imports
@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from wave_fenics_tpu_torch.benchmarks.cg_bench import bp1_setup
 from wave_fenics_tpu_torch.core.mesh import FacetTags, box_mesh
 from wave_fenics_tpu_torch.models.linear_wave import LinearWave
 from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
-from wave_fenics_tpu_torch.ops import lf2step, lfstep, rk4step, wave
+from wave_fenics_tpu_torch.ops import lf2step, lfstep, mass, rk4step, stiffness, wave
+from wave_fenics_tpu_torch.ops.operators import StructuredOperators
+from wave_fenics_tpu_torch.solvers.cg import cg
 
 pytestmark = pytest.mark.gpu
 
@@ -243,3 +246,105 @@ def test_cuda_new_kernels_reject_aliasing(cuda):
                            pm.src_x, pm.abc_x,
                            out=(u0, torch.empty_like(u0), torch.empty_like(u0),
                                 torch.empty_like(u0)))
+
+
+def _grid(shape, seed, device):
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(shape),
+                           device=device)
+
+
+@pytest.mark.parametrize("p,cells", [(2, (4, 2, 3)), (4, (4, 2, 2)), (4, (3, 3, 2))])
+def test_cuda_stiffness_grid_matches_plain(cuda, p, cells):
+    """Kernel F through StructuredOperators.stiffness (p=4 on 4 cells: the
+    ragged Nx = 17 of the JAX tests) against its plain version on the same
+    tables and against the CPU separable stiffness."""
+    ops = StructuredOperators(box_mesh(cells, (1.0, 0.8, 1.2)), p, dtype=F64)
+    x = _grid(ops.grid_shape, 50 + p, cuda)
+    n0 = stiffness.stiffness_grid_cuda.launches
+    y = ops.stiffness(x, 1500.0)
+    torch.cuda.synchronize()
+    assert stiffness.stiffness_grid_cuda.launches == n0 + 1
+    assert tuple(y.shape) == ops.grid_shape
+    tables = stiffness.GridStiffnessTables(*(torch.as_tensor(t, device=cuda) for t in
+                                             stiffness.stiffness_grid_tables(
+        ops._sepA, ops._seplines, ops.grid_shape, p, -1500.0**2, F64)))
+    assert _rel(y, stiffness.stiffness_grid_plain(x, tables, p)) <= TOL
+    assert _rel(y.cpu(), ops.stiffness(x.cpu(), 1500.0)) <= TOL
+    # a 0-d tensor c0 is read with float()
+    y0 = ops.stiffness(x, torch.tensor(1500.0, dtype=F64, device=cuda))
+    assert _rel(y0, y) == 0.0
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+def test_cuda_mass_apply_matches_plain(cuda, p):
+    """Kernel G (p=8 in f64: 105 KB of dynamic shared memory) against its
+    plain version; the padding of y exactly zero."""
+    layout, tables, _ = bp1_setup(box_mesh((3, 2, 2), (1.0, 0.8, 1.2)), p, F64, cuda)
+    x = _random_padded(layout, 60 + p, cuda)
+    n0 = mass.mass_apply_cuda.launches
+    y = mass.mass_apply(x, layout, tables)
+    torch.cuda.synchronize()
+    assert mass.mass_apply_cuda.launches == n0 + 1
+    assert _rel(y, mass.mass_apply_plain(x, layout, tables)) <= TOL
+    outside = y.clone()
+    outside[layout.interior] = 0.0
+    assert float(outside.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_cuda_mass_gauss_matches_cpu(cuda, p):
+    ops = StructuredOperators(box_mesh((3, 2, 2), (1.0, 0.8, 1.2)), p, dtype=F64)
+    x = _grid(ops.grid_shape, 70 + p, "cpu")
+    n0 = mass.mass_apply_cuda.launches
+    y = ops.mass_gauss(x.to(cuda))
+    torch.cuda.synchronize()
+    assert mass.mass_apply_cuda.launches == n0 + 1
+    assert _rel(y.cpu(), ops.mass_gauss(x)) <= TOL
+
+
+@pytest.mark.parametrize("precond", [False, True])
+def test_cuda_bp1_cg_matches_plain_matvec(cuda, precond):
+    """CG on kernel G against CG on the plain matvec: the same iteration
+    count (f64), solutions to 1e-10, one launch per matvec."""
+    layout, tables, pre = bp1_setup(box_mesh((4, 4, 3), (1.0, 1.0, 1.0)), 2, F64,
+                                    cuda, precond=precond)
+    b = layout.pad(_grid(layout.shape, 80, cuda))
+    n0 = mass.mass_apply_cuda.launches
+    xk, kk, _ = cg(lambda v: mass.mass_apply_cuda(v, layout, tables), b,
+                   kmax=400, rtol=1e-8, precond=pre)
+    assert mass.mass_apply_cuda.launches == n0 + 1 + kk
+    xp, kp, _ = cg(lambda v: mass.mass_apply_plain(v, layout, tables), b,
+                   kmax=400, rtol=1e-8, precond=pre)
+    assert 0 < kk < 400 and kk == kp
+    assert _rel(xk, xp) <= 1e-10
+
+
+def test_cuda_linear_wave_solve_matches_cpu(cuda):
+    """The unpadded eager model on the card: kernel F in f1, four launches
+    per RK4 step, the same state as on the CPU."""
+    mesh = box_mesh((4, 2, 2), (0.01, 0.005, 0.005),
+                    facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    u_c, v_c, n = LinearWave(mesh, p=4, dtype=F64, device="cpu").solve(0.0, 25 * DT, DT)
+    n0 = stiffness.stiffness_grid_cuda.launches
+    u_g, v_g, n_g = LinearWave(mesh, p=4, dtype=F64, device=cuda).solve(0.0, 25 * DT, DT)
+    assert n_g == n == 25
+    assert stiffness.stiffness_grid_cuda.launches == n0 + 4 * n
+    _assert_state_close(u_g.cpu(), v_g.cpu(), u_c, v_c)
+
+
+def test_cuda_operator_kernels_reject_bad_operands(cuda):
+    layout, tables, _ = bp1_setup(box_mesh((2, 2, 2), (1.0, 1.0, 1.0)), 2, F64, cuda)
+    x = torch.zeros(layout.padded_shape, dtype=F64, device=cuda)
+    with pytest.raises(TypeError):
+        mass.mass_apply_cuda(x.float(), layout, tables)
+    with pytest.raises(ValueError, match="alias"):
+        mass.mass_apply_cuda(x, layout, tables, out=x)
+    ops = StructuredOperators(box_mesh((2, 2, 2), (1.0, 1.0, 1.0)), 2, dtype=F64)
+    g = torch.zeros(ops.grid_shape, dtype=F64, device=cuda)
+    gt = stiffness.GridStiffnessTables(*(torch.as_tensor(t, device=cuda) for t in
+                                         stiffness.stiffness_grid_tables(
+        ops._sepA, ops._seplines, ops.grid_shape, 2, -1.0, F64)))
+    with pytest.raises(ValueError):
+        stiffness.stiffness_grid_cuda(g[:, :, :-1], gt, 2)
+    with pytest.raises(ValueError, match="alias"):
+        stiffness.stiffness_grid_cuda(g, gt, 2, out=g)

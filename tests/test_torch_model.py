@@ -108,9 +108,9 @@ def test_app_cpu_run_matches_model(capsys):
 
 
 def test_port_never_imports_jax():
-    """Importing the port, the app and the leapfrog and fused-stage modules
-    included, loads neither JAX nor the JAX package (run in a fresh
-    interpreter: this test process has both)."""
+    """Importing the port, the app, the leapfrog and fused-stage modules
+    and the benchmarks included, loads neither JAX nor the JAX package (run
+    in a fresh interpreter: this test process has both)."""
     code = (
         "import sys\n"
         "import wave_fenics_tpu_torch.apps.planar3d_app\n"
@@ -119,6 +119,10 @@ def test_port_never_imports_jax():
         "import wave_fenics_tpu_torch.ops.lfstep\n"
         "import wave_fenics_tpu_torch.ops.lf2step\n"
         "import wave_fenics_tpu_torch.solvers.leapfrog\n"
+        "import wave_fenics_tpu_torch.benchmarks.cg_bench\n"
+        "import wave_fenics_tpu_torch.benchmarks.operators_bench\n"
+        "import wave_fenics_tpu_torch.core.geometry\n"
+        "import wave_fenics_tpu_torch.ops.la\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'wave_fenics_tpu')]\n"
         "print(bad)\n"

@@ -74,11 +74,25 @@ def test_padded_apply_matches_unpadded_and_keeps_zero_padding(p):
 
 
 def test_non_cpu_tensors_do_not_take_the_plain_path():
-    """Dispatch by device: a non-CPU tensor never runs the plain version."""
+    """Dispatch by device: a tensor neither on the CPU nor on a card never
+    runs the plain version (a CUDA one runs kernel B or F)."""
     _, pm = padded_pair(p=2)
     meta = torch.empty(pm.layout.padded_shape, dtype=F64, device="meta")
     with pytest.raises(ValueError, match="no implementation"):
         pm._apply(meta)
     grid = torch.empty(pm.base.ops.grid_shape, dtype=F64, device="meta")
-    with pytest.raises(NotImplementedError, match="kernel F"):
+    with pytest.raises(ValueError, match="no implementation"):
         pm.base.ops.stiffness(grid, 1500.0)
+
+
+@pytest.mark.parametrize("p,shape", [(3, (3, 2, 2)), (4, (2, 2, 2))])
+def test_linear_wave_solve_on_cpu_matches_jax(p, shape):
+    """The unpadded model on the CPU after the stiffness dispatch change:
+    f1 still takes the plain separable stiffness and agrees with JAX."""
+    jm, tm = jax_model(shape=shape, p=p), torch_model(shape=shape, p=p)
+    dt = 1e-9
+    ju, jv, jn = jm.solve(0.0, 20 * dt, dt)
+    u, v, n = tm.solve(0.0, 20 * dt, dt)
+    assert n == jn == 20
+    assert max_rel(u, np.asarray(ju)) <= TOL
+    assert max_rel(v, np.asarray(jv)) <= TOL

@@ -14,11 +14,20 @@ twice:
 - without it: the host's enqueue time per step (until the solve returns,
   before the card has finished) and the synced time per step.
 
+With ``--bp1`` it profiles one BP1 CG solve instead (``cg_bench``'s
+problem on a unit box of ``--cells``, kmax 50, rtol 1e-4, the reference's
+settings): the device time of kernel G (the matvec, one launch per
+iteration and one for r0), the device time of every other kernel (the
+vector operations: axpys, dots, the scalar updates), and the rest of the
+wall time, which is the host: enqueueing, and the one scalar read per
+iteration that CG's stopping test waits for.
+
 Run from the repository root on a machine with a CUDA card:
 
     python -m wave_fenics_tpu_torch.apps.profile_step [--cells 64 32 32]
            [--degree 4] [--dtype f32|f64] [--tile-x 48] [--steps 100]
            [--integrator rk4|leapfrog] [--full-tableau]
+    python -m wave_fenics_tpu_torch.apps.profile_step --bp1 --cells 64 64 64
 
 It prints the card's name and power limit (nvidia-smi), one line per kernel
 instance, and last one JSON dict of every number.
@@ -33,8 +42,14 @@ import re
 import subprocess
 import time
 
+import numpy as np
 import torch
 
+from ..benchmarks.cg_bench import bp1_setup
+from ..benchmarks.common import DTYPES
+from ..core.mesh import box_mesh
+from ..ops.mass import mass_apply
+from ..solvers.cg import cg
 from ..utils.timing import sync
 from . import planar3d_app
 
@@ -169,6 +184,74 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
     }
 
 
+def _device_events(prof):
+    """(name, device microseconds) of every kernel the profiler saw."""
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_bp1(cells=(64, 64, 64), degree=4, dtype="f32", kmax=50,
+                rtol=1e-4) -> dict:
+    """Where one BP1 CG solve's time goes (see the module docstring)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA card")
+    dev = torch.device("cuda")
+    dt = DTYPES[dtype]
+    layout, tables, _ = bp1_setup(box_mesh(tuple(cells), (1.0, 1.0, 1.0)), degree,
+                                  dt, dev)
+    b = layout.pad(torch.as_tensor(
+        np.random.default_rng(0).standard_normal(layout.shape), dtype=dt, device=dev))
+
+    def solve():
+        return cg(lambda v: mass_apply(v, layout, tables), b, kmax=kmax, rtol=rtol)
+
+    solve()
+    sync(dev)
+    t0 = time.perf_counter()
+    _, iters, _ = solve()
+    sync(dev)
+    synced_ms = (time.perf_counter() - t0) * 1e3
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        sync(dev)
+        w0 = time.perf_counter()
+        solve()
+        sync(dev)
+        wall_us = (time.perf_counter() - w0) * 1e6
+    events = _device_events(prof)
+    g_us = [us for name, us in events if "mass_apply_kernel" in name]
+    other_us = sum(us for name, us in events if "mass_apply_kernel" not in name)
+    if len(g_us) != 1 + iters:
+        raise RuntimeError(f"the profiler saw {len(g_us)} kernel G launches, "
+                           f"the solve makes {1 + iters}: it does not trace "
+                           "this card; time with CUDA events instead")
+    busy_us = sum(g_us) + other_us
+    return {
+        "card": card_line(),
+        "cells": list(cells), "degree": degree, "dtype": dtype,
+        "ndofs": int(np.prod(layout.shape)),
+        "padded_shape": list(layout.padded_shape),
+        "iters": iters, "kmax": kmax, "rtol": rtol,
+        "synced_ms_per_solve": synced_ms,
+        "profiled_wall_ms_per_solve": wall_us / 1e3,
+        "matvec_launches": len(g_us),
+        "matvec_us_per_launch": sum(g_us) / len(g_us),
+        "matvec_ms_per_solve": sum(g_us) / 1e3,
+        "vector_kernel_launches": len(events) - len(g_us),
+        "vector_ms_per_solve": other_us / 1e3,
+        "host_ms_per_solve": (wall_us - busy_us) / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "per_iteration_ms": {
+            "matvec": sum(g_us) / 1e3 / iters,
+            "vector_ops": other_us / 1e3 / iters,
+            "host_and_sync": (wall_us - busy_us) / 1e3 / iters,
+        },
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cells", type=int, nargs=3, default=(64, 32, 32))
@@ -178,7 +261,22 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--integrator", choices=("rk4", "leapfrog"), default="rk4")
     ap.add_argument("--full-tableau", action="store_true")
+    ap.add_argument("--bp1", action="store_true",
+                    help="profile one BP1 CG solve (kernel G) on a unit box "
+                         "of --cells")
     args = ap.parse_args(argv)
+    if args.bp1:
+        out = profile_bp1(args.cells, args.degree, args.dtype)
+        print(out["card"])
+        print(f"BP1 CG, {out['ndofs']} dofs, {out['iters']} iterations: "
+              f"matvec {out['matvec_ms_per_solve']:.3f} ms ({out['matvec_launches']} "
+              f"x {out['matvec_us_per_launch']:.2f} us), vector ops "
+              f"{out['vector_ms_per_solve']:.3f} ms ({out['vector_kernel_launches']} "
+              f"launches), host {out['host_ms_per_solve']:.3f} ms; busy share "
+              f"{out['device_busy_share']:.4f}; synced {out['synced_ms_per_solve']:.3f} "
+              "ms/solve without the profiler")
+        print(json.dumps(out))
+        return
     out = profile(args.cells, args.degree, args.dtype, args.tile_x, args.steps,
                   integrator=args.integrator, lean=not args.full_tableau)
     print(out["card"])

@@ -1,0 +1,9 @@
+"""Benchmark CLIs of the reference demo apps, on one device.
+
+Each module is runnable as ``python -m wave_fenics_tpu_torch.benchmarks.<name>``,
+has ``run(**kw) -> dict`` and prints one JSON result line:
+
+- ``operators_bench``: matvec DOF/s of the structured operators
+  (gpu_operator_monolithic, gpu_spectral_mass; BP1 mass; stiffness);
+- ``cg_bench``: CG Dofs*iteration/s (gpu_cg / CEED BP1).
+"""

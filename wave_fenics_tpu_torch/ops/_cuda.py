@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels of ``csrc/`` and bind them with ctypes.
 
-At first use, ``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, under ``_build/<hash>/`` (the hash covers
-the sources and the flags, so an edited source builds anew), and ctypes
+At first use, ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together) and links the objects into a
+shared library with a plain C interface, under ``_build/<hash>/`` (the hash
+covers the sources and the flags, so an edited source builds anew); ctypes
 loads it. Nothing here runs when the module is imported, so the package
 imports and its CPU tests run on a machine without ``nvcc`` or a card.
 
@@ -33,7 +34,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -52,6 +53,10 @@ _SIGNATURES = {
     # phase, u, v, u_out, v_out, w1, w2, src_x, abc_x, dt, g, c0, <stencil>,
     # stream (kernels H and I)
     "wave_lf_phase": [_I] + [_P] * 6 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
+    # x, y, cvx, cvy, cvz, lx, ly, lz, p, Nx, Ny, Nz, stream (kernel F)
+    "wave_stiffness_grid": [_P] * 8 + [_I] * 4 + [_P],
+    # x, y, cvx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz, stream (kernel G)
+    "wave_mass_apply": [_P] * 5 + [_I] * 9 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -91,15 +96,27 @@ def _build(sources: list[Path], out_dir: Path) -> tuple[Path, str, float]:
     if so.is_file():
         return so, log.read_text() if log.is_file() else "", 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libwave_kernels.{os.getpid()}.so"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources if s.suffix == ".cu"]]
+    tag = os.getpid()
+    tmp = out_dir / f"libwave_kernels.{tag}.so"
+    exe = nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all at once; then one link
+    cmds = [[exe, *NVCC_FLAGS, "-c", "-o", str(out_dir / f"{s.stem}.{tag}.o"),
+             str(s)] for s in sources if s.suffix == ".cu"]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    cmds.append([exe, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                 *(c[c.index("-o") + 1] for c in cmds)])
+    text = "".join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
+    failed = [proc.returncode for proc in procs if proc.returncode != 0]
+    if not failed:
+        res = subprocess.run(cmds[-1], capture_output=True, text=True)
+        text += f"$ {' '.join(cmds[-1])}\n{res.stdout}{res.stderr}"
+        failed = [res.returncode] if res.returncode != 0 else []
     seconds = time.perf_counter() - t0
-    text = f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n{text}")
+    if failed:
+        raise RuntimeError(f"nvcc failed with exit code {failed[0]}:\n{text}")
     log.write_text(text)
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so, text, seconds

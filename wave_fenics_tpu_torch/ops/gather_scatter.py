@@ -1,17 +1,19 @@
-"""Structured 1D gather/scatter between grid axes and cell-node axes.
+"""Structured gather/scatter between dof grids and element tensors.
 
 Port of the structured overlap path of ``wave_fenics_tpu.ops.gather_scatter``
-(``gather_1d``, ``scatter_1d``): on a structured GLL dof grid (N = n*p + 1
-per axis) element tensors overlap the grid in a regular stride-p pattern,
-so gather is m strided slices and scatter-add is a 1D overlap-add. No
-indexed scatter, no atomics, deterministic.
+(``gather_1d``, ``scatter_1d``, ``gather_grid``, ``scatter_grid``): on a
+structured GLL dof grid (N = n*p + 1 per axis) element tensors overlap the
+grid in a regular stride-p pattern, so gather is m strided slices and
+scatter-add is a 1D overlap-add per axis. No indexed scatter, no atomics,
+deterministic. The explicit-dofmap (indexed, ELL) functions belong to the
+general-mesh slice and are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gather_1d", "scatter_1d"]
+__all__ = ["gather_1d", "scatter_1d", "gather_grid", "scatter_grid"]
 
 
 def _along(axis: int, s: slice) -> tuple:
@@ -58,3 +60,29 @@ def scatter_1d(ye: torch.Tensor, p: int, axis: int) -> torch.Tensor:
     out[_along(axis, slice(0, n * p))] = lo
     out[_along(axis, slice(p, N, p))] += hi
     return out
+
+
+def gather_grid(grid: torch.Tensor, p: int) -> torch.Tensor:
+    """Grid [Nx, Ny, Nz] -> element tensors [ncells, m, m, m], cells in
+    C order over (cx, cy, cz) (the dofmap gather of
+    common/cuda/scatter.cu:47-55 on a structured mesh)."""
+    a = gather_1d(grid, p, 0)  # [nx, m, Ny, Nz]
+    a = gather_1d(a, p, 2)  # [nx, m, ny, m, Nz]
+    a = gather_1d(a, p, 4)  # [nx, m, ny, m, nz, m]
+    a = a.permute(0, 2, 4, 1, 3, 5)  # [nx, ny, nz, m, m, m]
+    nx, ny, nz, m, _, _ = a.shape
+    return a.reshape(nx * ny * nz, m, m, m)
+
+
+def scatter_grid(
+    ye: torch.Tensor, p: int, cells_shape: tuple[int, int, int]
+) -> torch.Tensor:
+    """Element tensors [ncells, m, m, m] -> grid [Nx, Ny, Nz] with
+    overlap-add (the atomicAdd scatter of common/cuda/scatter.cu:57-65,
+    deterministic here)."""
+    nx, ny, nz = cells_shape
+    m = ye.shape[-1]
+    a = ye.reshape(nx, ny, nz, m, m, m).permute(0, 3, 1, 4, 2, 5)
+    a = scatter_1d(a, p, 4)  # [nx, m, ny, m, Nz]
+    a = scatter_1d(a, p, 2)  # [nx, m, Ny, Nz]
+    return scatter_1d(a, p, 0)  # [Nx, Ny, Nz]

@@ -11,7 +11,12 @@ B_d(A) is the cell-blockwise application of A along axis d with
 overlap-add, and L_d is the overlap-added lumped GLL weight line of axis d
 (dimensionless; the h scalings are folded into A_d).
 
-This is the port's CPU oracle of the stiffness; the tables are host NumPy.
+The consistent (Gauss-quadrature) mass of CEED BP1 is an exact Kronecker
+product of three assembled 1D mass matrices on such a box, so its matvec
+is three sequential banded contractions (``mass_separable``).
+
+These are the port's CPU oracles of the stiffness and of the BP1 mass; the
+tables are host NumPy.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ from .gather_scatter import gather_1d, scatter_1d
 
 __all__ = [
     "separable_stiffness_tables",
+    "separable_mass_tables",
     "apply_block_axis",
     "stiffness_separable",
+    "mass_separable",
     "grid_lines",
 ]
 
@@ -75,6 +82,35 @@ def stiffness_separable(
     ty = apply_block_axis(x, A[1], p, 1) * (Lx[:, None, None] * Lz[None, None, :])
     tz = apply_block_axis(x, A[2], p, 2) * (Lx[:, None, None] * Ly[None, :, None])
     return coeff * (tx + ty + tz)
+
+
+def separable_mass_tables(
+    p: int, h: tuple[float, float, float], dtype, q: int | None = None,
+    rule: str = "gauss",
+) -> list[np.ndarray]:
+    """Per-axis 1D cell mass blocks ``M1_d = h_d B^T diag(w_q) B`` (NumPy).
+
+    Default quadrature: the CEED BP1 definition of p+2 Gauss points per
+    direction (exactness degree q = 2p+3). A literal reading of
+    ``dx(degree=p+2)`` (demo/gpu_cg/bp1.ufl:20-21) gives ceil((p+3)/2)
+    points, fewer than the p+1 nodes for p >= 3: a singular mass.
+    """
+    if q is None:
+        q = 2 * p + 3
+    tab = tabulate_1d(p, q, rule)
+    M1 = tab.B.T @ (tab.qwts[:, None] * tab.B)
+    npdt = numpy_dtype(dtype)
+    return [(h[d] * M1).astype(npdt) for d in range(3)]
+
+
+def mass_separable(
+    x: torch.Tensor, M1: list[torch.Tensor], p: int
+) -> torch.Tensor:
+    """y = (Mx (x) My (x) Mz) x: the per-axis banded applications, x then
+    y then z."""
+    for d in range(3):
+        x = apply_block_axis(x, M1[d], p, d)
+    return x
 
 
 def grid_lines(
