@@ -76,3 +76,13 @@ def test_decompose3d_matches_jax(n):
     assert common.decompose3d(n) == j_decompose3d(n)
     assert common.cells_from_args(4, None) == (4, 4, 4)
     assert np.prod(common.cells_from_args(4, int(np.log2(8)))) == 8
+
+
+@pytest.mark.parametrize("reps,label,calls", [(2, "single-window", 1 + 3 * 2),
+                                              (8, "two-point", 1 + 3 * (8 + 2))])
+def test_two_point_time_counts_its_calls(reps, label, calls):
+    made = []
+    t, got_label, got_calls = common.two_point_time(lambda: made.append(1), reps,
+                                                    torch.device("cpu"))
+    assert (got_label, got_calls, len(made)) == (label, calls, calls)
+    assert t > 0

@@ -14,10 +14,9 @@ from wave_fenics_tpu.core.mesh import box_mesh as jbox_mesh
 from wave_fenics_tpu.ops import la as jla
 from wave_fenics_tpu.ops.operators import StructuredOperators as JOps
 from wave_fenics_tpu.solvers.cg import cg as jcg
-from wave_fenics_tpu_torch.benchmarks.cg_bench import bp1_setup
 from wave_fenics_tpu_torch.core.mesh import box_mesh
 from wave_fenics_tpu_torch.ops import la
-from wave_fenics_tpu_torch.ops.mass import mass_apply
+from wave_fenics_tpu_torch.ops.mass import bp1_setup, mass_apply
 from wave_fenics_tpu_torch.ops.operators import StructuredOperators
 from wave_fenics_tpu_torch.solvers.cg import cg
 
@@ -25,25 +24,37 @@ F64 = torch.float64
 CPU = torch.device("cpu")
 
 
-@pytest.mark.parametrize("fn,nargs,weighted", [
-    ("copy", 1, False), ("axpy", 2, False), ("scale", 1, False),
-    ("inner_product", 2, False), ("squared_norm", 1, False), ("norm", 1, False),
-    ("pointwise_divide", 2, False), ("pointwise_multiply", 2, False),
-    ("inner_product", 2, True), ("squared_norm", 1, True), ("norm", 1, True),
+@pytest.mark.parametrize("shape,same", [
+    ((5, 4, 3), False), ((40,), False), ((7, 1, 9), False), ((5, 4, 3), True),
 ])
-def test_la_matches_jax(fn, nargs, weighted):
+def test_inner_product_matches_jax(shape, same):
+    """<a, b> over all entries as a 0-d tensor; with a = b, JAX's
+    squared_norm."""
     rng = np.random.default_rng(1)
-    vecs = [rng.standard_normal((5, 4, 3)) + 2.0 for _ in range(nargs)]
-    scalar = fn in ("axpy", "scale")
-    kw = {"weights": rng.random((5, 4, 3))} if weighted else {}
-    jargs = ([0.7] if scalar else []) + [jnp.asarray(v) for v in vecs]
-    targs = ([0.7] if scalar else []) + [torch.as_tensor(v) for v in vecs]
-    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
-    tkw = {k: torch.as_tensor(v) for k, v in kw.items()}
-    want = np.asarray(getattr(jla, fn)(*jargs, **jkw))
-    got = getattr(la, fn)(*targs, **tkw)
-    assert tuple(got.shape) == want.shape
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-14, atol=0)
+    a = rng.standard_normal(shape) + 2.0
+    b = a if same else rng.standard_normal(shape) + 2.0
+    want = jla.squared_norm(jnp.asarray(a)) if same else jla.inner_product(
+        jnp.asarray(a), jnp.asarray(b))
+    got = la.inner_product(torch.as_tensor(a), torch.as_tensor(b))
+    assert got.shape == ()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-14, atol=0)
+
+
+@pytest.mark.parametrize("p,q", [(1, None), (2, None), (4, None), (8, None), (2, 9)])
+def test_bp1_setup_matches_jax(p, q):
+    """The BP1 layout (tile 32 at p = 1, else 16; z_align 16) and the
+    Kronecker-diagonal Jacobi map equal the JAX bench's."""
+    cells = (3, 2, 2)
+    jlay, _, jpre = j_bp1_setup(jbox_mesh(cells, (1.0, 0.8, 1.2)), p, jnp.float64,
+                                True, q=q)
+    lay, _, tpre = bp1_setup(box_mesh(cells, (1.0, 0.8, 1.2)), p, F64, CPU,
+                             precond=True, q=q)
+    assert (lay.shape, lay.padded_shape, lay.tile_x, lay.z_align) == (
+        jlay.shape, jlay.padded_shape, jlay.tile_x, jlay.z_align)
+    r = np.random.default_rng(5).standard_normal(lay.padded_shape)
+    np.testing.assert_array_equal(tpre(torch.as_tensor(r)).numpy(),
+                                  np.asarray(jpre(jnp.asarray(r))))
+    assert bp1_setup(box_mesh(cells, (1.0, 0.8, 1.2)), p, F64, CPU)[2] is None
 
 
 def _both(jmatvec, tmatvec, b, jpre=None, tpre=None, **kw):

@@ -122,8 +122,7 @@ def test_mass_fused_raises_above_degree_8():
 def test_kernel_g_wrapper_refuses_cpu_tensors():
     """The kernel wrapper itself never runs the plain version: on a CPU
     tensor it raises before anything is built."""
-    lay = mass.mass_layout((5, 5, 5), 2)
     M1 = separable_mass_tables(2, (1.0, 1.0, 1.0), np.float64)
-    tables = mass.MassTables(*tables_from_numpy(mass.mass_tables(lay, M1, F64), "cpu", F64))
+    lay, tables = mass.mass_operator((5, 5, 5), 2, M1, F64, torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA kernel called with a tensor on cpu"):
         mass.mass_apply_cuda(torch.zeros(lay.padded_shape, dtype=F64), lay, tables)

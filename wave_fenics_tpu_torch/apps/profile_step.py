@@ -45,10 +45,9 @@ import time
 import numpy as np
 import torch
 
-from ..benchmarks.cg_bench import bp1_setup
 from ..benchmarks.common import DTYPES
 from ..core.mesh import box_mesh
-from ..ops.mass import mass_apply
+from ..ops.mass import bp1_setup, mass_apply
 from ..solvers.cg import cg
 from ..utils.timing import sync
 from . import planar3d_app

@@ -34,9 +34,8 @@ import torch
 
 from ..convert import tables_from_numpy
 from ..core.mesh import box_mesh
-from ..ops.mass import MassTables, mass_apply, mass_layout, mass_tables
+from ..ops.mass import bp1_setup, mass_apply
 from ..ops.operators import StructuredOperators
-from ..ops.separable import separable_mass_tables
 from ..solvers.cg import cg
 from .common import (DTYPES, cells_from_args, device_name, make_parser,
                      report, resolve_device, two_point_time)
@@ -45,33 +44,6 @@ GENERAL_SLICE = ("needs the general-mesh slice (explicit dofmap, kernel K; "
                  "ROADMAP Queue 1 item 8), not ported yet")
 SHARDED_SLICE = ("--ndev > 1 needs the distribution slice (ROADMAP Queue 1 "
                  "item 10), not ported yet")
-
-
-def bp1_setup(mesh, p: int, dtype: torch.dtype, device: torch.device,
-              precond: bool = False, q: int | None = None):
-    """(layout, tables, precond) of the BP1 mass in the padded layout:
-    tile 32 at p = 1, else 16, z_align 16 (the JAX bench's ``_bp1_setup``);
-    ``precond`` is the Jacobi map r -> r / diag(M) or None."""
-    grid = tuple(n * p + 1 for n in mesh.shape)
-    layout = mass_layout(grid, p, tile_x=32 if p == 1 else 16)
-    M1 = separable_mass_tables(p, mesh.h, dtype, q=q)
-    tables = MassTables(*tables_from_numpy(mass_tables(layout, M1, dtype),
-                                           device, dtype))
-    pre = None
-    if precond:
-        # Kronecker diagonal: product of the assembled 1D mass diagonals
-        lines = []
-        for d in range(3):
-            n = mesh.shape[d]
-            diag = np.zeros(n * p + 1)
-            dA = np.diag(np.asarray(M1[d], np.float64))
-            for c in range(n):
-                diag[c * p : c * p + p + 1] += dA
-            lines.append(layout.padded_line(1.0 / diag, d))
-        (inv_diag,) = tables_from_numpy(
-            (np.einsum("i,j,k->ijk", *lines),), device, dtype)
-        pre = lambda r: inv_diag * r  # noqa: E731
-    return layout, tables, pre
 
 
 def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,

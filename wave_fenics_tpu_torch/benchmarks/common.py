@@ -117,27 +117,30 @@ def _window(fn, n: int, device: torch.device) -> float:
     return time.perf_counter() - t0
 
 
-def two_point_time(fn, reps: int, device: torch.device, *, windows: int = 3,
-                   warmup: int = 1) -> tuple[float, str, int]:
+#: timed windows per count (their median is taken) and untimed calls first
+WINDOWS, WARMUP = 3, 1
+
+
+def two_point_time(fn, reps: int, device: torch.device) -> tuple[float, str, int]:
     """(seconds per call of ``fn``, timing label, calls made).
 
     ``reps`` and ``reps // 4`` back-to-back calls, each window timed
-    ``windows`` times (median), differenced and divided by the difference of
+    ``WINDOWS`` times (median), differenced and divided by the difference of
     the counts: a fixed cost per window (the first launch, the final sync)
     cancels. Below 8 reps the two counts are too close to difference, so one
     window of ``reps`` calls is divided by ``reps`` and the label says
     ``single-window`` (the JAX bench labelled that case two-point too,
     ``bench.py:330``)."""
-    for _ in range(warmup):
+    for _ in range(WARMUP):
         fn()
     if reps >= 8:
         r_lo = reps // 4
-        t_hi = statistics.median(_window(fn, reps, device) for _ in range(windows))
-        t_lo = statistics.median(_window(fn, r_lo, device) for _ in range(windows))
-        calls = warmup + windows * (reps + r_lo)
+        t_hi = statistics.median(_window(fn, reps, device) for _ in range(WINDOWS))
+        t_lo = statistics.median(_window(fn, r_lo, device) for _ in range(WINDOWS))
+        calls = WARMUP + WINDOWS * (reps + r_lo)
         return max(t_hi - t_lo, 1e-9) / (reps - r_lo), "two-point", calls
-    t = statistics.median(_window(fn, reps, device) for _ in range(windows))
-    return t / reps, "single-window", warmup + windows * reps
+    t = statistics.median(_window(fn, reps, device) for _ in range(WINDOWS))
+    return t / reps, "single-window", WARMUP + WINDOWS * reps
 
 
 def streaming_fields(nbytes_per_apply: float, t_seconds: float) -> dict:

@@ -30,10 +30,10 @@ import torch
 from ..core.mesh import box_mesh
 from ..models.linear_wave import LinearWave
 from ..models.linear_wave_padded import PaddedLinearWave
-from ..ops.mass import mass_apply
+from ..ops.mass import bp1_setup, mass_apply
 from ..ops.operators import StructuredOperators
 from ..ops.separable import mass_separable, separable_mass_tables
-from .cg_bench import GENERAL_SLICE, bp1_setup
+from .cg_bench import GENERAL_SLICE
 from .common import (DTYPES, cells_from_args, device_name, make_parser,
                      report, resolve_device, streaming_fields, two_point_time)
 

@@ -7,8 +7,9 @@ direction, O(m^4) per cell instead of the reference's full nd x nq table
 
 Element tensors: ``u[c, i, j, k]`` with i -> x, j -> y, k -> z (C order, z
 fastest). Tables: ``B[q, i]`` (values), ``D[q, i]`` (derivatives) from
-``core.basis``. The full-G stiffness (``stiffness_element_full``, imported
-meshes) belongs to the general-mesh slice and is not ported yet.
+``core.basis``. The full-G stiffness (``stiffness_element_full``) and the
+interpolating kernels (``interp3``, ``interp3_t``, ``mass_element``) serve
+imported meshes and wait for the general-mesh slice.
 """
 
 from __future__ import annotations
@@ -17,9 +18,6 @@ import torch
 
 __all__ = [
     "apply_axis",
-    "interp3",
-    "interp3_t",
-    "mass_element",
     "spectral_mass_element",
     "stiffness_element_diag",
 ]
@@ -33,33 +31,10 @@ def apply_axis(u: torch.Tensor, M: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.einsum(_AXIS_SPECS[axis], M, u)
 
 
-def interp3(u: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Nodal tensor -> quadrature tensor: B on all three axes (the two
-    back-to-back Dgemms of demo/gpu_operator/main.cpp:149-155,
-    sum-factorized)."""
-    u = apply_axis(u, B, 1)
-    u = apply_axis(u, B, 2)
-    return apply_axis(u, B, 3)
-
-
-def interp3_t(u: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Transpose (projection) of :func:`interp3`: B^T on all three axes."""
-    Bt = B.T
-    u = apply_axis(u, Bt, 1)
-    u = apply_axis(u, Bt, 2)
-    return apply_axis(u, Bt, 3)
-
-
 def spectral_mass_element(u: torch.Tensor, detJw: torch.Tensor) -> torch.Tensor:
     """Collocated (diagonal) mass y_e = detJw .* x_e
     (common/cuda/transform.cu:5-20)."""
     return u * detJw
-
-
-def mass_element(u: torch.Tensor, B: torch.Tensor, detJw: torch.Tensor) -> torch.Tensor:
-    """y_e = B^T diag(detJw) B x_e, sum-factorized (``mass_apply``,
-    common/cuda/mass_kernel.cu:4-46). ``detJw`` broadcasts over cells."""
-    return interp3_t(interp3(u, B) * detJw, B)
 
 
 def stiffness_element_diag(

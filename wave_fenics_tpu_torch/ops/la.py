@@ -1,59 +1,18 @@
-"""Dense vector linear algebra on dof grids and vectors (plain torch).
+"""Vector algebra on dof grids and vectors (plain torch).
 
-Port of ``wave_fenics_tpu.ops.la``: the cuBLAS wrapper layer of the
-reference (``linalg::copy/axpy/inner_product/squared_norm/scale``,
-common/cuda/la.hpp:19-139, and its fork
-demo/gpu_cg/CUDA/streaming.hpp:18-138) as named torch expressions, so call
-sites read like the reference. Single-device tensors have no ghosts;
-``weights`` weights duplicated entries of a distributed layout.
+Port of the part of ``wave_fenics_tpu.ops.la`` that CG calls: the
+reference's ``linalg::inner_product`` (common/cuda/la.hpp:19-139 and its
+fork demo/gpu_cg/CUDA/streaming.hpp:18-138). Single-device tensors have no
+ghosts, so no multiplicity weights.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = [
-    "copy", "axpy", "scale", "inner_product", "squared_norm", "norm",
-    "pointwise_divide", "pointwise_multiply",
-]
+__all__ = ["inner_product"]
 
 
-def copy(x: torch.Tensor) -> torch.Tensor:
-    """out = x, a new tensor (la.hpp copy)."""
-    return x.clone()
-
-
-def axpy(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """y + alpha x (la.hpp axpy / LinearGLL kernels::axpy)."""
-    return alpha * x + y
-
-
-def scale(alpha, x: torch.Tensor) -> torch.Tensor:
-    return alpha * x
-
-
-def inner_product(a: torch.Tensor, b: torch.Tensor, weights=None) -> torch.Tensor:
-    """<a, b> over all entries, a 0-d tensor on the inputs' device;
-    optional multiplicity weights for duplicated-entry layouts."""
-    if weights is not None:
-        a = a * weights
+def inner_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """<a, b> over all entries, a 0-d tensor on the inputs' device."""
     return torch.dot(a.reshape(-1), b.reshape(-1))
-
-
-def squared_norm(a: torch.Tensor, weights=None) -> torch.Tensor:
-    return inner_product(a, a, weights)
-
-
-def norm(a: torch.Tensor, weights=None) -> torch.Tensor:
-    return torch.sqrt(squared_norm(a, weights))
-
-
-def pointwise_divide(b: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """out = b / m elementwise (the mass solve, LinearGLL.hpp:187-191)."""
-    return b / m
-
-
-def pointwise_multiply(b: torch.Tensor, inv_m: torch.Tensor) -> torch.Tensor:
-    """out = b * inv_m, the precomputed-reciprocal form (the TODO at
-    LinearGLL.hpp:179-181, implemented)."""
-    return b * inv_m

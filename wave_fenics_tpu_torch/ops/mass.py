@@ -22,6 +22,8 @@ torch, three 1D passes over the whole state) and :func:`mass_apply_cuda`
 (``csrc/operator_kernels.cu::mass_apply_kernel``: one launch, each block
 contracting a brick with its halo in shared memory). :func:`mass_apply`
 dispatches on the tensor's device: CPU -> plain, CUDA -> kernel.
+:func:`mass_operator` builds a layout and its tables on a device;
+:func:`bp1_setup` adds the BP1 problem's Jacobi map for CG.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch.nn.functional as nnf
 
 from ..convert import numpy_dtype, tables_from_numpy
 from . import _cuda
+from .separable import separable_mass_tables
 from .stiffness import banded_1d_coeffs
 from .wave import PaddedLayout
 
@@ -41,6 +44,8 @@ __all__ = [
     "MassTables",
     "mass_tables",
     "mass_layout",
+    "mass_operator",
+    "bp1_setup",
     "mass_apply",
     "mass_apply_plain",
     "mass_apply_cuda",
@@ -50,6 +55,8 @@ __all__ = [
 #: p above which the JAX package's fused mass kernel refuses (its 8-deep
 #: halo window, ``pallas_mass.py:169-170``); the port keeps the same domain
 MAX_DEGREE = 8
+#: x-tile of ``mass_fused``'s layout (the JAX package's, ``pallas_mass.py:235``)
+FUSED_TILE_X = 16
 
 
 class MassTables(NamedTuple):
@@ -61,7 +68,7 @@ class MassTables(NamedTuple):
     cvz: torch.Tensor
 
 
-def mass_layout(shape: tuple[int, int, int], p: int, tile_x: int = 16) -> PaddedLayout:
+def mass_layout(shape: tuple[int, int, int], p: int, tile_x: int) -> PaddedLayout:
     """The padded layout of the BP1 mass (z_align 16, as ``mass_fused`` and
     ``cg_bench`` of the JAX package build it); raises where p > 8."""
     if p > MAX_DEGREE:
@@ -84,6 +91,45 @@ def mass_tables(
         out.append(np.stack([layout.padded_line(body[k], d)
                              for k in range(K)]).astype(npdt))
     return tuple(out)
+
+
+def mass_operator(
+    grid: tuple[int, int, int], p: int, M1: list[np.ndarray], dtype: torch.dtype,
+    device: torch.device, tile_x: int = FUSED_TILE_X,
+) -> tuple[PaddedLayout, MassTables]:
+    """(layout, tables on ``device``) of the mass with 1D cell blocks ``M1``
+    on a dof grid of shape ``grid``."""
+    layout = mass_layout(tuple(grid), p, tile_x)
+    tables = MassTables(*tables_from_numpy(mass_tables(layout, M1, dtype),
+                                           device, dtype))
+    return layout, tables
+
+
+def bp1_setup(mesh, p: int, dtype: torch.dtype, device: torch.device,
+              precond: bool = False, q: int | None = None):
+    """(layout, tables, precond) of the BP1 mass on a structured box mesh
+    in the padded layout: tile 32 at p = 1, else 16, z_align 16 (the JAX
+    bench's ``_bp1_setup``); ``q`` is the quadrature exactness degree
+    (default 2p+3); ``precond`` is the Jacobi map r -> r / diag(M) or
+    None."""
+    grid = tuple(n * p + 1 for n in mesh.shape)
+    M1 = separable_mass_tables(p, mesh.h, dtype, q=q)
+    layout, tables = mass_operator(grid, p, M1, dtype, device,
+                                   tile_x=32 if p == 1 else 16)
+    if not precond:
+        return layout, tables, None
+    # Kronecker diagonal: product of the assembled 1D mass diagonals
+    lines = []
+    for d in range(3):
+        n = mesh.shape[d]
+        diag = np.zeros(n * p + 1)
+        dA = np.diag(np.asarray(M1[d], np.float64))
+        for c in range(n):
+            diag[c * p : c * p + p + 1] += dA
+        lines.append(layout.padded_line(1.0 / diag, d))
+    (inv_diag,) = tables_from_numpy(
+        (np.einsum("i,j,k->ijk", *lines),), device, dtype)
+    return layout, tables, lambda r: inv_diag * r
 
 
 def _band(x: torch.Tensor, cv: torch.Tensor, p: int, axis: int) -> torch.Tensor:
@@ -161,22 +207,18 @@ _FUSED_CACHE: dict = {}
 _FUSED_CACHE_MAX = 16  # each entry pins device tables; evict the oldest
 
 
-def mass_fused(
-    x: torch.Tensor, M1: list[np.ndarray], p: int, tile_x: int = 16
-) -> torch.Tensor:
+def mass_fused(x: torch.Tensor, M1: list[np.ndarray], p: int) -> torch.Tensor:
     """One BP1 mass apply on an unpadded grid: pad, apply, unpad.
 
     The layout and the tables on ``x``'s device are cached per (shape, p,
-    tile, dtype, device, table bytes), so eager per-iteration callers do not
+    dtype, device, table bytes), so eager per-iteration callers do not
     rebuild and copy them per matvec; the cache is bounded (least recently
     used out first), as the JAX package's."""
-    key = (tuple(x.shape), p, tile_x, x.dtype, x.device,
+    key = (tuple(x.shape), p, x.dtype, x.device,
            tuple(np.asarray(m).tobytes() for m in M1))
     hit = _FUSED_CACHE.pop(key, None)
     if hit is None:
-        layout = mass_layout(tuple(x.shape), p, tile_x)
-        hit = (layout, MassTables(*tables_from_numpy(
-            mass_tables(layout, M1, x.dtype), x.device, x.dtype)))
+        hit = mass_operator(tuple(x.shape), p, M1, x.dtype, x.device)
     _FUSED_CACHE[key] = hit  # re-insert: dict order == recency
     while len(_FUSED_CACHE) > _FUSED_CACHE_MAX:
         _FUSED_CACHE.pop(next(iter(_FUSED_CACHE)))

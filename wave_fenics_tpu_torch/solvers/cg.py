@@ -31,38 +31,34 @@ def cg(
     x0: torch.Tensor | None = None,
     kmax: int = 50,
     rtol: float = 1e-8,
-    dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
     precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ):
     """Solve A x = b with (preconditioned) CG. Returns (x, k, rnorm2): the
     solution, the iterations taken (a Python int) and the last squared
     residual norm (a 0-d tensor).
 
-    ``dot`` replaces the inner product (a distributed caller's reduced
-    dot); ``precond`` is an SPD preconditioner z = M^-1 r (e.g. Jacobi).
-    The stopping rule stays on the true residual norm, as cg.hpp:110.
+    ``precond`` is an SPD preconditioner z = M^-1 r (e.g. Jacobi). The
+    stopping rule stays on the true residual norm, as cg.hpp:110.
     """
-    if dot is None:
-        dot = inner_product
     x = torch.zeros_like(b) if x0 is None else x0
     M = precond if precond is not None else (lambda r: r)
 
     r = b - matvec(x)
     z = M(r)
     p = z
-    rnorm0 = dot(r, r)
-    rz = dot(r, z)
+    rnorm0 = inner_product(r, r)
+    rz = inner_product(r, z)
     rnorm = rnorm0
     rtol2 = torch.tensor(rtol, dtype=rnorm0.dtype) ** 2
     k = 0
     while k < kmax and bool(rnorm / rnorm0 >= rtol2):
         y = matvec(p)
-        alpha = rz / dot(p, y)
+        alpha = rz / inner_product(p, y)
         x = x + alpha * p
         r = r - alpha * y
         z = M(r)
-        rnorm = dot(r, r)
-        rz_new = dot(r, z)
+        rnorm = inner_product(r, r)
+        rz_new = inner_product(r, z)
         beta = rz_new / rz
         rz = rz_new
         p = z + beta * p
