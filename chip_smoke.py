@@ -54,7 +54,27 @@ never prints its last line:
    (iterations within 1, solutions within 1e-3 relative); P7
    ``operators_bench.run`` stiffness (kernel F) and bp1-mass (kernel G)
    with ``check``: one launch per apply, error against the f64 oracle
-   within 1e-5.
+   within 1e-5;
+10. kernel K (the explicit-dofmap matvec) against its plain version:
+    f64 on small perturbed meshes ((5,4,3) cells at p <= 2, (4,3,3) at
+    p = 4, (2,2,2) at p = 6), every mode (collocated mass and stiffness at
+    p in {1, 2, 4, 6}, mass_gauss and stiffness_gauss at p in {1, 2, 4}),
+    limit 1e-12 relative, and the affine (rank-1) geometry on a box; f32 at
+    the P8 size (the perturbed 64x32x32-cell box, p=4, 4,276,737 dofs; the
+    model built once, its host setup seconds printed) in the stiffness and
+    mass modes, limit 1e-5 of max|ref|; two applies bitwise equal; with
+    times against the bound;
+11. the general-mesh paths, each counted alone: P8 ``general_solve.run``
+    RK4 (200 steps) and P9 leapfrog on that model: kernel K launched
+    solves x applies per solve (4 per RK4 step; one per leapfrog step and
+    one at t0) and no other kernel, |v| finite and below 1e15; P10
+    ``operators_bench.run`` at s=16 (box) for stiffness-general (affine),
+    mass-general, stiffness-gauss and mass with ``check``: one launch per
+    apply, error against the f64 oracle within 1e-5; P11 ``cg_bench.run``
+    general (the Gauss mass, Jacobi): kernel K launched solves x (1 +
+    iterations) times; then the assembled CSR SpMV (``torch.sparse.mm``)
+    against kernel K's stiffness on the perturbed 16^3-cell box (274,625
+    dofs), both times.
 
 It prints one JSON line of per-kernel results ("kernels": the paths'
 kernels, with each path's launch counts; "off_path_kernels": kernel B,
@@ -120,10 +140,11 @@ def main() -> None:
     t_start = time.perf_counter()
 
     from wave_fenics_tpu_torch.apps import planar3d_app
-    from wave_fenics_tpu_torch.benchmarks import cg_bench, operators_bench
+    from wave_fenics_tpu_torch.benchmarks import cg_bench, general_solve, operators_bench
     from wave_fenics_tpu_torch.convert import tables_from_numpy
     from wave_fenics_tpu_torch.core.basis import gll_points_weights
-    from wave_fenics_tpu_torch.core.mesh import FacetTags, box_mesh
+    from wave_fenics_tpu_torch.core.dofmap import build_dofmap
+    from wave_fenics_tpu_torch.core.mesh import FacetTags, HexMesh, box_mesh
     from wave_fenics_tpu_torch.models.linear_wave import LinearWave
     from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
     from wave_fenics_tpu_torch.models.planar3d import (
@@ -132,6 +153,7 @@ def main() -> None:
     )
     from wave_fenics_tpu_torch.ops import (
         _cuda,
+        general,
         lf2step,
         lfstep,
         mass,
@@ -139,7 +161,12 @@ def main() -> None:
         stiffness,
         wave,
     )
-    from wave_fenics_tpu_torch.ops.operators import StructuredOperators
+    from wave_fenics_tpu_torch.ops.assembled import (
+        assemble_csr,
+        assemble_element_tensors,
+        csr_tensor,
+    )
+    from wave_fenics_tpu_torch.ops.operators import GeneralOperators, StructuredOperators
     from wave_fenics_tpu_torch.solvers.cg import cg
     from wave_fenics_tpu_torch.utils.timing import Timer, timeit
 
@@ -149,6 +176,7 @@ def main() -> None:
         "C": rk4step.rk4_step_full_cuda, "D": wave.rk_stage_cuda,
         "H": lfstep.lf_step_cuda, "I": lf2step.lf2_step_cuda,
         "F": stiffness.stiffness_grid_cuda, "G": mass.mass_apply_cuda,
+        "K": general.general_apply_cuda,
     }
 
     def zero_counts():
@@ -728,40 +756,241 @@ def main() -> None:
         p7[op] = counts[kernel]
     launches["F"] = p7["stiffness"]
 
+    # -- 10. kernel K -------------------------------------------------------
+    C0SQ = 1500.0**2
+
+    def k_bound(t, itemsize):
+        """(bound_ms, bound_by) of one kernel K apply: x and y once, the
+        dofmap and the geometry (per node, or per cell and w) over the HBM
+        rate, against the element contractions' and the scatter's flops
+        over the f32 peak. The scatter lists and the workspace are the
+        design's own traffic and are not counted."""
+        m, nq, nc, nd = t.m, t.nq, t.ncells, t.m**3
+        nb = 2 * t.ndofs * itemsize + nbytes(t.dofmap, t.geo) + (nbytes(t.w) if t.affine else 0)
+        fwd = 2 * m * (nq * m * m + nq * nq * m + nq**3)  # m^3 -> nq^3 points
+        bwd = 2 * nq * (m * nq * nq + m * m * nq + m**3)  # and back
+        per_cell = {"mass": 2 * nd, "stiffness": nd * (12 * m + 16),
+                    "mass_gauss": fwd + nq**3 + bwd + nd,
+                    "stiffness_gauss": 3 * fwd + 15 * nq**3 + 3 * bwd + nd}[t.mode]
+        return op_bound(nb, nc * (per_cell + nd))
+
+    def random_dofs(n, seed, dtype):
+        return torch.as_tensor(np.random.default_rng(seed).standard_normal(n),
+                               dtype=dtype, device=dev)
+
+    def k_check(ops, mode, seed, coeff):
+        """(tables, x, max|err|, relative error, two applies bitwise equal)
+        of kernel K against its plain version on ``ops``' tables."""
+        t = ops.tables(mode, dev)
+        x = random_dofs(ops.ndofs, seed, ops.dtype)
+        yk = general.general_apply_cuda(x, t, coeff)
+        yk2 = general.general_apply_cuda(x, t, coeff)
+        yp = general.general_apply_plain(x, t, coeff)
+        torch.cuda.synchronize()
+        err, rel = rel_err(yk, yp)
+        return t, x, err, rel, bool(torch.equal(yk, yk2))
+
+    def perturbed(cells, seed):
+        """The JAX tests' perturbed mesh (interior vertices jittered by 0.02)."""
+        ext = np.array([1.0, 0.8, 0.9])
+        hm = box_mesh(cells, tuple(ext)).to_hex_mesh()
+        pts = hm.points.copy()
+        inner = np.all((pts > 1e-9) & (pts < ext - 1e-9), axis=1)
+        pts[inner] += 0.02 * np.random.default_rng(seed).standard_normal(pts[inner].shape)
+        return HexMesh(points=pts, cells=hm.cells)
+
+    phase("kernel K (general_apply) against general_apply_plain")
+    for rule, ps in (("gll", (1, 2, 4, 6)), ("gauss", (1, 2, 4))):
+        for p in ps:
+            cells = (2, 2, 2) if p >= 6 else (4, 3, 3) if p >= 3 else (5, 4, 3)
+            hm = perturbed(cells, p)
+            ops = GeneralOperators(hm, build_dofmap(hm, p), dtype=torch.float64, rule=rule)
+            for op, coeff in (("mass", 1.0), ("stiffness", -C0SQ)):
+                mode = op if rule == "gll" else f"{op}_gauss"
+                _, _, _, rel, bitwise = k_check(ops, mode, 40 + p, coeff)
+                print(f"f64 {mode} p={p} {cells}: max|err|/max|ref| = {rel:.3e} "
+                      f"(limit 1e-12); two applies bitwise equal: {bitwise}")
+                check(rel <= 1e-12 and bitwise, f"kernel K f64 {mode} p={p}")
+    for p in (2, 4):  # affine cells: the rank-1 geometry
+        hm = box_mesh((4, 3, 2), (1.0, 0.8, 0.9)).to_hex_mesh()
+        ops = GeneralOperators(hm, build_dofmap(hm, p), dtype=torch.float64)
+        check(ops.affine, "a box has affine cells")
+        for op, coeff in (("mass", 1.0), ("stiffness", -C0SQ)):
+            t, x, _, rel, bitwise = k_check(ops, op, 60 + p, coeff)
+            oracle = (ops.stiffness_indexed(x, 1500.0) if op == "stiffness"
+                      else ops.spectral_mass_roundtrip(x))
+            _, rel_o = rel_err(general.general_apply_cuda(x, t, coeff), oracle)
+            print(f"f64 affine {op} p={p}: against plain {rel:.3e}, against the "
+                  f"per-node indexed oracle {rel_o:.3e} (limit 1e-12)")
+            check(t.affine and rel <= 1e-12 and rel_o <= 1e-12 and bitwise,
+                  f"kernel K affine {op} p={p}")
+
+    gmodel, gsetup = general_solve.build(HEADLINE["cells"], degree=4, dtype="f32")
+    print(f"P8 model: perturbed {gmodel.mesh.ncells} cells, p=4, {gmodel.ndofs} dofs, "
+          f"affine {gmodel.ops.affine}; host setup {gsetup:.2f} s (mesh, dofmap, "
+          "geometry, boundary weights)")
+    check(gmodel.ndofs == NDOFS and not gmodel.ops.affine, "the P8 model")
+    k_modes = {}
+    for mode, coeff in (("stiffness", -C0SQ), ("mass", 1.0)):
+        t0 = time.perf_counter()
+        t, x, err, rel, bitwise = k_check(gmodel.ops, mode, 70, coeff)
+        print(f"f32 P8 {mode}: max|err| = {err:.6e}, max|err|/max|ref| = {rel:.3e} "
+              f"(limit 1e-5); two applies bitwise equal: {bitwise} (tables and "
+              f"check {time.perf_counter() - t0:.1f} s)")
+        check(rel <= 1e-5 and bitwise, f"kernel K f32 {mode} at the P8 size")
+        out_k = torch.empty_like(x)
+        ms = 1e3 * timeit(lambda: general.general_apply_cuda(x, t, coeff, out=out_k))
+        plain_ms = 1e3 * timeit(lambda: general.general_apply_plain(x, t, coeff),
+                                reps=3, warmup=1)
+        k_modes[mode] = (err, ms, plain_ms, k_bound(t, 4))
+        print(f"kernel K {mode}: {ms:.4f} ms/apply, plain {plain_ms:.4f} ms, bound "
+              f"{k_modes[mode][3][0]:.4f} ms ({k_modes[mode][3][1]}) [{smi}]")
+        del x, out_k
+    results["K"] = k_modes["stiffness"]
+
+    # -- 11. the general-mesh paths ----------------------------------------
+    k_paths = {}
+    for label, integrator in (("P8", "rk4"), ("P9", "leapfrog")):
+        phase(f"{label} general_solve {integrator} at {NDOFS:,} dofs: kernel K")
+        zero_counts()
+        out = general_solve.run(s=16, degree=4, steps=200, integrator=integrator,
+                                model=gmodel)
+        counts = read_counts()
+        print(json.dumps(out))
+        want = out["solves"] * out["applies_per_solve"]
+        print(f"{label}: {out['steps']} steps x {out['solves']} solves; kernel K "
+              f"launches {counts['K']} = {out['solves']} x {out['applies_per_solve']}; "
+              f"{out['ms_per_step']:.4f} ms/step, {out['gdof_steps_per_s']:.4f} "
+              f"GDoF*steps/s, vmax {out['vmax']:.4e} [{smi}]")
+        check(out["ndofs"] == NDOFS and math.isfinite(out["vmax"]), f"{label} record")
+        check(counts["K"] == want, f"{label}: kernel K launched {counts['K']}, want {want}")
+        only(counts, "K", label)
+        k_paths[label] = counts["K"]
+    del gmodel
+
+    for op in ("stiffness-general", "mass-general", "stiffness-gauss", "mass"):
+        phase(f"P10 operators_bench {op} at {NDOFS:,} dofs: kernel K")
+        zero_counts()
+        t0 = time.perf_counter()
+        out = operators_bench.run(op=op, s=16, degree=4, check=True, dtype="f32",
+                                  device="cuda")
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        print(json.dumps(out))
+        print(f"P10 {op}: kernel K launches {counts['K']} = {out['applies']} applies; "
+              f"{out['ms_per_apply']:.4f} ms/apply; error vs the f64 oracle "
+              f"{out['max_rel_err_vs_f64_oracle']:.3e} (limit 1e-5); host setup "
+              f"{out['setup_s']:.2f} s, {wall:.1f} s in all with the f64 oracle [{smi}]")
+        check(out["ndofs"] == NDOFS, f"P10 {op} ndofs")
+        check(counts["K"] == out["applies"], f"P10 {op}: kernel K launched "
+              f"{counts['K']}, want {out['applies']}")
+        only(counts, "K", f"P10 {op}")
+        check(out["max_rel_err_vs_f64_oracle"] <= 1e-5, f"P10 {op} against f64")
+        k_paths[f"P10 {op}"] = counts["K"]
+        k_modes[f"P10 {op}"] = out["ms_per_apply"]
+
+    phase(f"P11 cg_bench general at {NDOFS:,} dofs: kernel K (mass_gauss)")
+    zero_counts()
+    t0 = time.perf_counter()
+    p11 = cg_bench.run(op="general", s=16, degree=4, precond=True, dtype="f32",
+                       device="cuda", kmax=50, rtol=1e-4)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(json.dumps(p11))
+    want = p11["solves"] * (1 + p11["iters"])
+    print(f"P11: {p11['iters']} iterations, {p11['solves']} solves; kernel K launches "
+          f"{counts['K']} = {p11['solves']} x (1 + {p11['iters']}); "
+          f"{p11['ms_total']:.4f} ms/solve, {p11['gdofs_iter_per_s']:.4f} "
+          f"GDoF*iterations/s; host setup {p11['setup_s']:.2f} s, {wall:.1f} s in all "
+          f"[{smi}]")
+    check(p11["ndofs"] == NDOFS, "P11 ndofs")
+    check(counts["K"] == want, f"P11: kernel K launched {counts['K']}, want {want}")
+    only(counts, "K", "P11")
+    k_paths["P11"] = counts["K"]
+
+    phase("the assembled CSR SpMV against kernel K at 16^3 cells, p=4")
+    t0 = time.perf_counter()
+    hm16, _ = general_solve.perturbed_box((16, 16, 16))
+    ops16 = GeneralOperators(hm16, build_dofmap(hm16, 4), dtype=torch.float32)
+    t1 = time.perf_counter()
+    A = assemble_csr(ops16.dofs, assemble_element_tensors(
+        hm16, 4, kind="stiffness", coeff=-C0SQ, clamp=True))
+    A16 = csr_tensor(A, dev, torch.float32)
+    print(f"{ops16.ndofs} dofs: host setup {t1 - t0:.2f} s; CSR with {A.nnz} "
+          f"entries, host assembly {time.perf_counter() - t1:.1f} s")
+    del A
+    t16, x, err16, rel, bitwise = k_check(ops16, "stiffness", 80, -C0SQ)
+    check(rel <= 1e-5 and bitwise, "kernel K f32 stiffness at 16^3 cells")
+    y_csr = torch.sparse.mm(A16, x[:, None])[:, 0]
+    _, rel_csr = rel_err(general.general_apply_cuda(x, t16, -C0SQ), y_csr)
+    out_k = torch.empty_like(x)
+    ms16 = 1e3 * timeit(lambda: general.general_apply_cuda(x, t16, -C0SQ, out=out_k))
+    csr_ms = 1e3 * timeit(lambda: torch.sparse.mm(A16, x[:, None]))
+    plain16 = 1e3 * timeit(lambda: general.general_apply_plain(x, t16, -C0SQ),
+                           reps=3, warmup=1)
+    bound16 = k_bound(t16, 4)
+    print(f"kernel K {ms16:.4f} ms/apply, CSR SpMV {csr_ms:.4f} ms, plain "
+          f"{plain16:.4f} ms, bound {bound16[0]:.4f} ms ({bound16[1]}); K against "
+          f"the CSR SpMV: max|err|/max|ref| = {rel_csr:.3e} (limit 1e-5) [{smi}]")
+    check(rel_csr <= 1e-5, "kernel K against the assembled CSR SpMV")
+    del A16, x, out_k, y_csr
+
     # "kernels": the paths' kernels, each with the launches of its path's
-    # run (G: P6, F: P7 stiffness); "off_path_kernels": kernel B, which no
-    # app path launches
+    # run (G: P6, F: P7 stiffness, K: P8); "off_path_kernels": kernel B,
+    # which no app path launches
     src = "wave_fenics_tpu_torch/csrc/wave_kernels.cu"
     src_ops = "wave_fenics_tpu_torch/csrc/operator_kernels.cu"
+    src_gen = "wave_fenics_tpu_torch/csrc/general_kernels.cu"
     results["A"] = (a_err, a_ms, a_plain_ms, a_bound)
+    launches["K"] = k_paths["P8"]
     meta = {
         "A": ("rk4_stage_kernel<T, J, true> (kernel A: lean RK4 step, 4 stage "
-              "launches; ms per step)", "wave_fenics_tpu/ops/pallas_rk4step.py:201"),
+              "launches; ms per step)", "wave_fenics_tpu/ops/pallas_rk4step.py:201", src),
         "C": ("rk4_stage_kernel<T, J, false> (kernel C: full-tableau RK4 step, 4 "
-              "stage launches; ms per step)", "wave_fenics_tpu/ops/pallas_rk4step.py:67"),
+              "stage launches; ms per step)", "wave_fenics_tpu/ops/pallas_rk4step.py:67", src),
         "D": ("rk_stage_kernel (kernel D: one fused RK4 stage, p=8; ms per "
-              "stage launch)", "wave_fenics_tpu/ops/pallas_wave.py:573"),
+              "stage launch)", "wave_fenics_tpu/ops/pallas_wave.py:573", src),
         "H": ("lf_phase_kernel OPEN+CLOSE (kernel H: one leapfrog step, p=8; ms "
-              "per step)", "wave_fenics_tpu/ops/pallas_lfstep.py:62"),
+              "per step)", "wave_fenics_tpu/ops/pallas_lfstep.py:62", src),
         "I": ("lf_phase_kernel OPEN+MID+CLOSE (kernel I: two leapfrog steps, "
-              "p=4; ms per call)", "wave_fenics_tpu/ops/pallas_lf2step.py:70"),
+              "p=4; ms per call)", "wave_fenics_tpu/ops/pallas_lf2step.py:70", src),
         "F": ("stiffness_grid_kernel (kernel F: separable stiffness on the "
               "unpadded grid, 64^3 cells, p=4; ms per apply)",
-              "wave_fenics_tpu/ops/pallas_stiffness.py:146"),
+              "wave_fenics_tpu/ops/pallas_stiffness.py:146", src_ops),
         "G": ("mass_apply_kernel (kernel G: BP1 consistent Gauss mass on the "
               "padded layout, 64^3 cells, p=4; ms per apply)",
-              "wave_fenics_tpu/ops/pallas_mass.py:45"),
+              "wave_fenics_tpu/ops/pallas_mass.py:45", src_ops),
+        "K": ("general_element_kernel + general_scatter_kernel (kernel K: "
+              "explicit-dofmap matvec, stiffness with per-node G on the perturbed "
+              "64x32x32-cell box, p=4; ms per apply)",
+              "wave_fenics_tpu/ops/pallas_general.py:185", src_gen),
     }
     kernels = []
-    for k, (name, replaces) in meta.items():
+    for k, (name, replaces, source) in meta.items():
         err, ms, plain_ms, (bms, by) = results[k]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": src_ops if k in ("F", "G") else src, "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
         })
+    kernels[-1]["launches_per_path"] = k_paths
+    kernels[-1]["ms_per_mode"] = {"P8 mass": k_modes["mass"][1], **{
+        k: v for k, v in k_modes.items() if k.startswith("P10")}}
+    # the same kernel at 16^3 cells, beside the one PyTorch call that computes
+    # its function there (the assembled matrix at the P8 size would not fit
+    # a host assembly)
+    kernels.append({
+        "name": "general_element_kernel + general_scatter_kernel (kernel K: "
+                "stiffness with per-node G on the perturbed 16^3-cell box, p=4, "
+                f"{ops16.ndofs} dofs; ms per apply; library: torch.sparse.mm of "
+                "the assembled CSR matrix)",
+        "route": "cuda", "source": src_gen,
+        "replaces": "wave_fenics_tpu/ops/pallas_general.py:185",
+        "launches": launches["K"], "max_abs_err": err16, "ms": ms16,
+        "plain_ms": plain16, "bound_ms": bound16[0], "bound_by": bound16[1],
+        "library_ms": csr_ms,
+    })
     off_path = [{
         "name": "apply_flat_kernel (kernel B: stiffness/m on the flat layout)",
         "route": "cuda",

@@ -1,5 +1,5 @@
 """The port's benchmark CLIs on the CPU at a tiny size (the plain versions):
-the JSON record's fields, the f64 checks, and the raises of what waits for
+the JSON record's fields, the f64 checks, and the raise of what waits for
 a later slice."""
 
 import json
@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from wave_fenics_tpu_torch.benchmarks import cg_bench, common, operators_bench
+from wave_fenics_tpu_torch.benchmarks import cg_bench, common, general_solve, operators_bench
 
 
 def _main(module, argv, capsys):
@@ -21,7 +21,7 @@ def test_operators_cli_checks_against_f64(op, capsys):
     r = _main(operators_bench, ["--op", op, "--size", "3", "--degree", "2",
                                 "--reps", "2", "--check", "--dtype", "f64"], capsys)
     for key in ("metric", "degree", "ndofs", "dtype", "device", "ms_per_apply",
-                "gdofs_per_s", "timing", "effective_gbps"):
+                "gdofs_per_s", "timing", "effective_gbps", "setup_s"):
         assert key in r
     assert r["ndofs"] == 7**3 and r["device"] == "cpu"
     assert r["timing"] == "single-window"
@@ -36,9 +36,13 @@ def test_operators_cli_f32_two_point(capsys):
 
 
 @pytest.mark.parametrize("op", list(operators_bench.GENERAL_OPS))
-def test_operators_cli_general_ops_raise(op):
-    with pytest.raises(NotImplementedError, match="kernel K"):
-        operators_bench.run(op=op, size=2, degree=2, device="cpu")
+def test_operators_cli_general_ops_check_against_f64(op, capsys):
+    """The explicit-dofmap ops (kernel K's plain version on the CPU, and the
+    indexed path) against the f64 oracle of a second operator set."""
+    r = _main(operators_bench, ["--op", op, "--size", "3", "--degree", "2",
+                                "--reps", "2", "--check", "--dtype", "f64"], capsys)
+    assert r["ndofs"] == 7**3 and r["applies"] == 1 + 3 * 2 + 1
+    assert r["max_rel_err_vs_f64_oracle"] <= 1e-12
 
 
 @pytest.mark.parametrize("op,precond", [("bp1", False), ("bp1", True),
@@ -48,15 +52,36 @@ def test_cg_cli(op, precond, capsys):
             "--dtype", "f64"] + (["--precond"] if precond else [])
     r = _main(cg_bench, argv, capsys)
     for key in ("metric", "degree", "ndofs", "iters", "dtype", "precond",
-                "device", "ms_total", "timing", "solves", "dofs_iter_per_s"):
+                "device", "ms_total", "timing", "solves", "dofs_iter_per_s", "setup_s"):
         assert key in r
     assert r["ndofs"] == 7**3 and 1 <= r["iters"] <= 50
     assert r["solves"] == 1 + 1 + 3 * 2  # first solve, warm-up, 3 windows of 2
     assert r["rnorm2"] >= 0.0
 
 
-@pytest.mark.parametrize("kw,match", [(dict(op="general"), "general-mesh slice"),
-                                      (dict(ndev=4), "distribution slice")])
+@pytest.mark.parametrize("precond", [False, True])
+def test_cg_cli_general(precond, capsys):
+    """CG on the explicit-dofmap Gauss mass (kernel K's mass_gauss mode on a
+    card; its plain version here)."""
+    argv = ["--op", "general", "--size", "3", "--degree", "2", "--reps", "2",
+            "--dtype", "f64"] + (["--precond"] if precond else [])
+    r = _main(cg_bench, argv, capsys)
+    assert r["ndofs"] == 7**3 and 1 <= r["iters"] <= 50 and r["solves"] == 8
+    assert r["rnorm2"] >= 0.0
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "leapfrog"])
+def test_general_solve_cli(integrator, capsys):
+    r = _main(general_solve, ["--size", "2", "--degree", "2", "--steps", "3",
+                              "--reps", "2", "--dtype", "f64", "--integrator",
+                              integrator], capsys)
+    assert r["ndofs"] == 5**3 and r["steps"] == 3 and r["timing"] == "single-window"
+    assert r["solves"] == 1 + 3 * 2 + 1
+    assert r["applies_per_solve"] == (12 if integrator == "rk4" else 4)
+    assert 0.0 < r["vmax"] < 1e15 and r["gdof_steps_per_s"] > 0
+
+
+@pytest.mark.parametrize("kw,match", [(dict(ndev=4), "distribution slice")])
 def test_cg_cli_later_slices_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         cg_bench.run(size=2, degree=2, device="cpu", **kw)

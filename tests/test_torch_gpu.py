@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (A, B, C, D, F, G, H, I) against their plain
-versions (float64).
+"""The hand-written CUDA kernels (A, B, C, D, F, G, H, I, K) against their
+plain versions (float64).
 
 Every test here needs a CUDA card and skips without one. The file imports
 only torch and the port, so it runs on a machine without JAX:
@@ -11,11 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from wave_fenics_tpu_torch.benchmarks.general_solve import LEAPFROG_DT, min_edge, perturbed_box
+from wave_fenics_tpu_torch.core.dofmap import build_dofmap
 from wave_fenics_tpu_torch.core.mesh import FacetTags, box_mesh
+from wave_fenics_tpu_torch.models.general_wave import GeneralLinearWave
 from wave_fenics_tpu_torch.models.linear_wave import LinearWave
 from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
-from wave_fenics_tpu_torch.ops import lf2step, lfstep, mass, rk4step, stiffness, wave
-from wave_fenics_tpu_torch.ops.operators import StructuredOperators
+from wave_fenics_tpu_torch.ops import general, lf2step, lfstep, mass, rk4step, stiffness, wave
+from wave_fenics_tpu_torch.ops.operators import GeneralOperators, StructuredOperators
 from wave_fenics_tpu_torch.solvers.cg import cg
 
 pytestmark = pytest.mark.gpu
@@ -357,3 +360,80 @@ def test_cuda_operator_kernels_reject_bad_operands(cuda):
         stiffness.stiffness_grid_cuda(g[:, :, :-1], gt, 2)
     with pytest.raises(ValueError, match="alias"):
         stiffness.stiffness_grid_cuda(g, gt, 2, out=g)
+
+
+def _general_ops(p, rule="gll", cells=None):
+    """GeneralOperators (f64) on a perturbed box of the JAX tests' sizes."""
+    cells = cells or ((2, 2, 2) if p >= 6 else (3, 2, 2) if p >= 5
+                      else (4, 3, 3) if p >= 3 else (5, 4, 3))
+    mesh, _ = perturbed_box(cells, h=0.25)
+    return GeneralOperators(mesh, build_dofmap(mesh, p), dtype=F64, rule=rule)
+
+
+@pytest.mark.parametrize("rule,p", [("gll", 1), ("gll", 2), ("gll", 4), ("gll", 6),
+                                    ("gauss", 1), ("gauss", 2), ("gauss", 4)])
+def test_cuda_general_modes_match_plain(cuda, rule, p):
+    """Kernel K through GeneralOperators.mass/stiffness (collocated: mass,
+    stiffness; Gauss: mass_gauss, stiffness_gauss) against its plain version
+    on the same tables and against the CPU dispatch; one count per apply."""
+    ops = _general_ops(p, rule)
+    x = _grid((ops.ndofs,), 90 + p, cuda)
+    for op, coeff in (("mass", 1.0), ("stiffness", -1500.0**2)):
+        mode = op if rule == "gll" else f"{op}_gauss"
+        n0 = general.general_apply_cuda.launches
+        y = ops.mass(x) if op == "mass" else ops.stiffness(x, 1500.0)
+        torch.cuda.synchronize()
+        assert general.general_apply_cuda.launches == n0 + 1
+        assert _rel(y, general.general_apply_plain(x, ops.tables(mode, cuda), coeff)) <= TOL
+        y_cpu = ops.mass(x.cpu()) if op == "mass" else ops.stiffness(x.cpu(), 1500.0)
+        assert _rel(y.cpu(), y_cpu) <= TOL
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_cuda_general_affine_matches_indexed(cuda, p):
+    """Affine cells (a box): K's rank-1 geometry against the per-node
+    indexed oracle."""
+    mesh = box_mesh((4, 3, 2), (1.0, 0.8, 0.9)).to_hex_mesh()
+    ops = GeneralOperators(mesh, build_dofmap(mesh, p), dtype=F64)
+    assert ops.affine and ops.tables("stiffness", cuda).affine
+    x = _grid((ops.ndofs,), 95 + p, cuda)
+    assert _rel(ops.stiffness(x, 3.0), ops.stiffness_indexed(x, 3.0)) <= TOL
+    assert _rel(ops.mass(x), ops.spectral_mass_roundtrip(x)) <= TOL
+
+
+def test_cuda_general_apply_is_bitwise_deterministic(cuda):
+    """No atomics: two applies of every mode agree bit for bit."""
+    for rule in ("gll", "gauss"):
+        ops = _general_ops(4, rule)
+        x = _grid((ops.ndofs,), 97, cuda)
+        for op in ("mass", "stiffness"):
+            t = ops.tables(op if rule == "gll" else f"{op}_gauss", cuda)
+            assert torch.equal(general.general_apply_cuda(x, t, -2.0),
+                               general.general_apply_cuda(x, t, -2.0))
+
+
+def test_cuda_general_raises_above_p6(cuda):
+    """Kernel K takes p <= 6: a CUDA tensor at p = 7 raises and never runs
+    the plain version; the CPU dispatch still runs it."""
+    ops = _general_ops(7, cells=(1, 1, 2))
+    x = _grid((ops.ndofs,), 98, "cpu")
+    n0 = general.general_apply_cuda.launches
+    with pytest.raises(ValueError, match="p <= 6"):
+        ops.stiffness(x.to(cuda), 1500.0)
+    with pytest.raises(ValueError, match="p <= 6"):
+        ops.mass(x.to(cuda))
+    assert general.general_apply_cuda.launches == n0
+    assert torch.isfinite(ops.stiffness(x, 1500.0)).all()
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "leapfrog"])
+def test_cuda_general_wave_solve_n_matches_cpu(cuda, integrator):
+    mesh, tags = perturbed_box((4, 3, 2))
+    dt = 0.5 * min_edge(mesh) / (1500.0 * 4) * (LEAPFROG_DT if integrator == "leapfrog" else 1.0)
+    u_c, v_c = GeneralLinearWave(mesh, 2, tags, dtype=F64, device="cpu").solve_n(
+        0.0, dt, 10, integrator=integrator)
+    n0 = general.general_apply_cuda.launches
+    u_g, v_g = GeneralLinearWave(mesh, 2, tags, dtype=F64, device=cuda).solve_n(
+        0.0, dt, 10, integrator=integrator)
+    assert general.general_apply_cuda.launches == n0 + (40 if integrator == "rk4" else 11)
+    _assert_state_close(u_g.cpu(), v_g.cpu(), u_c, v_c)

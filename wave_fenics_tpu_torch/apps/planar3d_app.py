@@ -25,7 +25,8 @@ Run:
 
 ``--device cuda`` needs a card and raises without one; ``--device cpu``
 runs the plain versions (small grids only). Config files, checkpoints,
-XDMF output, sharding and imported meshes are not ported yet.
+XDMF output, sharding and the app's imported-mesh branch (``--mesh``) are
+not ported yet; imported meshes run through ``models.general_wave``.
 """
 
 from __future__ import annotations

@@ -22,12 +22,20 @@ vector operations: axpys, dots, the scalar updates), and the rest of the
 wall time, which is the host: enqueueing, and the one scalar read per
 iteration that CG's stopping test waits for.
 
+With ``--general`` it profiles RK4 steps of the explicit-dofmap model
+(``general_solve``'s perturbed box of ``--cells``, 4,276,737 dofs at the
+default 64x32x32 cells and p=4): kernel K's two phases (the element kernel
+and the scatter kernel, four applies per step), the plain-torch vector
+algebra of the RK4 stages, and the host's share of the wall time. It
+raises unless kernel K ran four applies per step.
+
 Run from the repository root on a machine with a CUDA card:
 
     python -m wave_fenics_tpu_torch.apps.profile_step [--cells 64 32 32]
            [--degree 4] [--dtype f32|f64] [--tile-x 48] [--steps 100]
            [--integrator rk4|leapfrog] [--full-tableau]
     python -m wave_fenics_tpu_torch.apps.profile_step --bp1 --cells 64 64 64
+    python -m wave_fenics_tpu_torch.apps.profile_step --general [--steps 20]
 
 It prints the card's name and power limit (nvidia-smi), one line per kernel
 instance, and last one JSON dict of every number.
@@ -45,8 +53,10 @@ import time
 import numpy as np
 import torch
 
+from ..benchmarks import general_solve
 from ..benchmarks.common import DTYPES
 from ..core.mesh import box_mesh
+from ..ops.general import general_apply_cuda
 from ..ops.mass import bp1_setup, mass_apply
 from ..solvers.cg import cg
 from ..utils.timing import sync
@@ -251,6 +261,64 @@ def profile_bp1(cells=(64, 64, 64), degree=4, dtype="f32", kmax=50,
     }
 
 
+def profile_general(cells=(64, 32, 32), degree=4, dtype="f32", steps=20,
+                    warmup=2) -> dict:
+    """Where RK4 steps of the explicit-dofmap model spend their time (see
+    the module docstring)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA card")
+    md, setup_s = general_solve.build(cells, degree, dtype)
+    dev = md.device
+    dt = 0.5 * general_solve.min_edge(md.mesh) / (md.c0 * degree * degree)
+    md.solve_n(0.0, dt, warmup)
+    sync(dev)
+    t0 = time.perf_counter()
+    md.solve_n(0.0, dt, steps)
+    t1 = time.perf_counter()
+    sync(dev)
+    t2 = time.perf_counter()
+    n0 = general_apply_cuda.launches
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        sync(dev)
+        w0 = time.perf_counter()
+        md.solve_n(0.0, dt, steps)
+        sync(dev)
+        wall_us = (time.perf_counter() - w0) * 1e6
+    applies = general_apply_cuda.launches - n0
+    events = _device_events(prof)
+    el = [us for name, us in events if "general_element_kernel" in name]
+    sc = [us for name, us in events if "general_scatter_kernel" in name]
+    other_us = sum(us for name, us in events
+                   if "general_element_kernel" not in name
+                   and "general_scatter_kernel" not in name)
+    if applies != 4 * steps or len(el) != applies or len(sc) != applies:
+        raise RuntimeError(
+            f"{steps} RK4 steps make {4 * steps} applies of kernel K; counted "
+            f"{applies}, the profiler saw {len(el)} element and {len(sc)} "
+            "scatter launches (no device time: time with CUDA events instead)")
+    busy_us = sum(el) + sum(sc) + other_us
+    return {
+        "card": card_line(),
+        "cells": list(cells), "degree": degree, "dtype": dtype,
+        "ndofs": md.ndofs, "affine": md.ops.affine, "setup_s": setup_s,
+        "steps": steps, "k_applies": applies,
+        "element_us_per_launch": sum(el) / len(el),
+        "scatter_us_per_launch": sum(sc) / len(sc),
+        "k_ms_per_step": (sum(el) + sum(sc)) / 1e3 / steps,
+        "vector_kernel_launches_per_step": (len(events) - 2 * applies) / steps,
+        "vector_ms_per_step": other_us / 1e3 / steps,
+        "host_ms_per_step": (wall_us - busy_us) / 1e3 / steps,
+        "profiled_wall_ms_per_step": wall_us / 1e3 / steps,
+        "device_busy_share": busy_us / wall_us,
+        "enqueue_ms_per_step": (t1 - t0) / steps * 1e3,
+        "synced_ms_per_step": (t2 - t0) / steps * 1e3,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cells", type=int, nargs=3, default=(64, 32, 32))
@@ -263,7 +331,23 @@ def main(argv=None):
     ap.add_argument("--bp1", action="store_true",
                     help="profile one BP1 CG solve (kernel G) on a unit box "
                          "of --cells")
+    ap.add_argument("--general", action="store_true",
+                    help="profile RK4 steps of the explicit-dofmap model "
+                         "(kernel K) on the perturbed box of --cells")
     args = ap.parse_args(argv)
+    if args.general:
+        out = profile_general(args.cells, args.degree, args.dtype, args.steps)
+        print(out["card"])
+        print(f"general RK4, {out['ndofs']} dofs, {out['steps']} steps: kernel K "
+              f"{out['k_ms_per_step']:.4f} ms/step (element "
+              f"{out['element_us_per_launch']:.2f} us + scatter "
+              f"{out['scatter_us_per_launch']:.2f} us per apply, 4 applies), "
+              f"vector ops {out['vector_ms_per_step']:.4f} ms/step, host "
+              f"{out['host_ms_per_step']:.4f} ms/step; busy share "
+              f"{out['device_busy_share']:.4f}; synced {out['synced_ms_per_step']:.4f} "
+              "ms/step without the profiler")
+        print(json.dumps(out))
+        return
     if args.bp1:
         out = profile_bp1(args.cells, args.degree, args.dtype)
         print(out["card"])

@@ -3,7 +3,10 @@
 Each module is runnable as ``python -m wave_fenics_tpu_torch.benchmarks.<name>``,
 has ``run(**kw) -> dict`` and prints one JSON result line:
 
-- ``operators_bench``: matvec DOF/s of the structured operators
-  (gpu_operator_monolithic, gpu_spectral_mass; BP1 mass; stiffness);
-- ``cg_bench``: CG Dofs*iteration/s (gpu_cg / CEED BP1).
+- ``operators_bench``: matvec DOF/s of the structured and the
+  explicit-dofmap operators (gpu_operator, gpu_operator_monolithic,
+  gpu_spectral_mass; BP1 mass; stiffness);
+- ``cg_bench``: CG Dofs*iteration/s (gpu_cg / CEED BP1; the general mass);
+- ``general_solve``: the RK4 or leapfrog solve rate on a perturbed
+  (unstructured) hex box, GDoF*steps/s.
 """

@@ -13,11 +13,16 @@ Operators:
   layout: the padding of every matvec is exactly zero, so axpy and dot run
   on padded vectors.
 - ``--op spectral``: the diagonal (GLL-collocated) mass.
+- ``--op general``: the reference's gpu_cg operator is the explicit-dofmap
+  MassOperator (gather -> element kernel -> scatter-add,
+  common/cuda/mass.hpp:74-95): the Gauss-rule mass of ``GeneralOperators``
+  on the box as a ``HexMesh`` (``--q`` as for bp1, default 2p: p+1
+  points), one apply of kernel K in its ``mass_gauss`` mode per matvec on a
+  card.
 
 ``--precond``: Jacobi (bp1: the Kronecker product of the assembled 1D mass
-diagonals; spectral: the inverse lumped mass). Not ported yet: ``--op
-general`` (the explicit-dofmap mass, the general-mesh slice with kernel K)
-and ``--ndev > 1`` (the distribution slice); both raise.
+diagonals; spectral and general: the inverse lumped mass). Not ported yet:
+``--ndev > 1`` (the distribution slice) raises.
 
 Timing: ``reps`` and ``reps // 4`` back-to-back solves of the same b,
 differenced (``common.two_point_time``; CUDA events on a card). The JAX
@@ -29,19 +34,20 @@ Run: python -m wave_fenics_tpu_torch.benchmarks.cg_bench --size 64 --p 4
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..convert import tables_from_numpy
+from ..core.dofmap import build_dofmap
 from ..core.mesh import box_mesh
 from ..ops.mass import bp1_setup, mass_apply
-from ..ops.operators import StructuredOperators
+from ..ops.operators import GeneralOperators, StructuredOperators
 from ..solvers.cg import cg
 from .common import (DTYPES, cells_from_args, device_name, make_parser,
                      report, resolve_device, two_point_time)
 
-GENERAL_SLICE = ("needs the general-mesh slice (explicit dofmap, kernel K; "
-                 "ROADMAP Queue 1 item 8), not ported yet")
 SHARDED_SLICE = ("--ndev > 1 needs the distribution slice (ROADMAP Queue 1 "
                  "item 10), not ported yet")
 
@@ -51,34 +57,44 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
         kmax: int = 50, rtol: float = 1e-4, ndev: int = 1,
         q: int | None = None, precond: bool = False) -> dict:
     """One CG benchmark record (the keys of the JAX bench's, plus
-    ``device``, ``timing`` and ``solves``: the number of solves run, each
-    of 1 + iters matvecs)."""
+    ``device``, ``timing``, ``solves``: the number of solves run, each of
+    1 + iters matvecs, and ``setup_s``: the host seconds that built the
+    operator and b, before the first solve)."""
     if ndev != 1:
         raise NotImplementedError(SHARDED_SLICE)
-    if op == "general":
-        raise NotImplementedError(f"--op general {GENERAL_SLICE}")
-    if op not in ("bp1", "spectral"):
+    if op not in ("bp1", "spectral", "general"):
         raise ValueError(f"--op {op!r}: bp1, spectral or general")
     dev = resolve_device(device)
     dt = DTYPES[dtype]
+    t0 = time.perf_counter()
     mesh = box_mesh(cells_from_args(size, s), (1.0, 1.0, 1.0))
     p = degree
     rng = np.random.default_rng(0)
     grid = tuple(n * p + 1 for n in mesh.shape)
     ndofs = int(np.prod(grid))
-    b0 = torch.as_tensor(rng.standard_normal(grid), dtype=dt, device=dev)
     pre = None
-    if op == "bp1":
+    if op == "general":
+        hm = mesh.to_hex_mesh()
+        gops = GeneralOperators(hm, build_dofmap(hm, p), dtype=dt, rule="gauss", q=q)
+        b = torch.as_tensor(rng.standard_normal(gops.ndofs), dtype=dt, device=dev)
+        matvec = gops.mass
+        if precond:
+            (inv_m,) = tables_from_numpy((1.0 / gops.lumped_mass,), dev, dt)
+            pre = lambda r: inv_m * r  # noqa: E731
+    elif op == "bp1":
+        b0 = torch.as_tensor(rng.standard_normal(grid), dtype=dt, device=dev)
         layout, tables, pre = bp1_setup(mesh, p, dt, dev, precond, q)
         b = layout.pad(b0)
         matvec = lambda v: mass_apply(v, layout, tables)  # noqa: E731
     else:
         ops = StructuredOperators(mesh, p, dtype=dt)
-        b = b0
+        b = torch.as_tensor(rng.standard_normal(grid), dtype=dt, device=dev)
         matvec = ops.spectral_mass
         if precond:
             (inv_diag,) = tables_from_numpy((1.0 / ops.lumped_mass,), dev, dt)
             pre = lambda r: inv_diag * r  # noqa: E731
+
+    setup_s = time.perf_counter() - t0
 
     def solve():
         return cg(matvec, b, kmax=kmax, rtol=rtol, precond=pre)
@@ -90,7 +106,7 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
         s=s, degree=p, ndofs=ndofs, iters=iters, ndev=ndev, dtype=dtype,
         precond=bool(precond), q=q, device=device_name(dev),
         rnorm2=float(rnorm),
-        ms_total=t * 1e3, timing=timing, solves=1 + calls,
+        ms_total=t * 1e3, timing=timing, solves=1 + calls, setup_s=setup_s,
         dofs_iter_per_s=ndofs * iters / t,
         gdofs_iter_per_s=ndofs * iters / t / 1e9,
     )

@@ -12,11 +12,18 @@ Port of ``wave_fenics_tpu.benchmarks.operators_bench`` on one device:
   ``spectral-roundtrip``: the same via gather -> detJw -> scatter
   (demo/gpu_spectral_mass/main.cpp:73-80); ``--check`` against f64;
 - ``stiffness-padded``: the padded stiffness/m of the solver, kernel B,
-  ``--check`` against the f64 per-cell stiffness over the lumped mass.
+  ``--check`` against the f64 per-cell stiffness over the lumped mass;
+- the explicit-dofmap family on the box as a ``HexMesh``
+  (``GeneralOperators``, kernel K on a card): ``mass`` (the decomposed B^T
+  D B pipeline at Gauss points, demo/gpu_operator/main.cpp:139-172; K's
+  ``mass_gauss``), ``mass-general`` (collocated GLL; K's ``mass``),
+  ``stiffness-general`` (K's ``stiffness``, affine cells on the box),
+  ``stiffness-gauss`` (K's ``stiffness_gauss``) and
+  ``stiffness-general-xla`` (the plain indexed path, no kernel); ``--check``
+  against the f64 indexed path of a second operator set on the same mesh
+  and dofmap.
 
-The explicit-dofmap ops (``mass``, ``mass-general``, ``stiffness-general``,
-``stiffness-general-xla``, ``stiffness-gauss``) need the general-mesh slice
-(kernel K) and raise. The f64 oracle runs on the same device as the op.
+The f64 oracle runs on the same device as the op.
 
 Run: python -m wave_fenics_tpu_torch.benchmarks.operators_bench --op stiffness --size 32
 Metric: DOF/s (size_local / t of the reference).
@@ -24,16 +31,18 @@ Metric: DOF/s (size_local / t of the reference).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from ..core.dofmap import build_dofmap
 from ..core.mesh import box_mesh
 from ..models.linear_wave import LinearWave
 from ..models.linear_wave_padded import PaddedLinearWave
 from ..ops.mass import bp1_setup, mass_apply
-from ..ops.operators import StructuredOperators
+from ..ops.operators import GeneralOperators, StructuredOperators
 from ..ops.separable import mass_separable, separable_mass_tables
-from .cg_bench import GENERAL_SLICE
 from .common import (DTYPES, cells_from_args, device_name, make_parser,
                      report, resolve_device, streaming_fields, two_point_time)
 
@@ -66,25 +75,53 @@ def _oracle(op: str, mesh, p: int, x: torch.Tensor, layout=None) -> torch.Tensor
     }[op](x64)
 
 
+def _general(op: str, mesh, p: int, dt: torch.dtype, dev: torch.device):
+    """(x, the op's apply, a maker of its f64 oracle) of an explicit-dofmap
+    op on the box as a HexMesh; the oracle shares the mesh and the dofmap."""
+    hexm = mesh.to_hex_mesh()
+    dofs = build_dofmap(hexm, p)
+    rule = "gauss" if op in ("mass", "stiffness-gauss") else "gll"
+    gops = GeneralOperators(hexm, dofs, dtype=dt, rule=rule)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(gops.ndofs),
+                        dtype=dt, device=dev)
+    f = {
+        "mass": gops.mass,
+        "mass-general": gops.mass,
+        "stiffness-general": lambda a: gops.stiffness(a, C0),
+        "stiffness-gauss": lambda a: gops.stiffness(a, C0),
+        "stiffness-general-xla": lambda a: gops.stiffness_indexed(a, C0),
+    }[op]
+
+    def oracle():
+        ops64 = GeneralOperators(hexm, dofs, dtype=torch.float64, rule=rule)
+        return (ops64.spectral_mass_roundtrip if op == "mass-general"
+                else ops64.mass_indexed if op == "mass"
+                else lambda a: ops64.stiffness_indexed(a, C0))
+
+    return x, lambda: f(x), oracle
+
+
 def run(op: str = "stiffness", size: int = 32, degree: int = 4,
         s: int | None = None, reps: int = 50, check: bool = False,
         dtype: str = "f32", device: str = "cuda") -> dict:
     """One matvec benchmark record (the JAX bench's keys, plus ``device``,
-    ``timing`` and ``applies``: the number of applies run)."""
-    if op in GENERAL_OPS:
-        raise NotImplementedError(f"--op {op} {GENERAL_SLICE}")
-    if op not in STRUCTURED_OPS:
+    ``timing``, ``applies``: the number of applies run, and ``setup_s``: the
+    host seconds that built the op, before its first apply)."""
+    if op not in STRUCTURED_OPS + GENERAL_OPS:
         raise ValueError(f"--op {op!r}: one of {STRUCTURED_OPS + GENERAL_OPS}")
     dev = resolve_device(device)
     dt = DTYPES[dtype]
+    t0 = time.perf_counter()
     mesh = box_mesh(cells_from_args(size, s), (1.0, 1.0, 1.0))
     p = degree
     grid = tuple(n * p + 1 for n in mesh.shape)
     ndofs = int(np.prod(grid))
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(grid),
                         dtype=dt, device=dev)
-    layout = None
-    if op == "stiffness-padded":
+    layout = oracle = None
+    if op in GENERAL_OPS:
+        x, f, oracle = _general(op, mesh, p, dt, dev)
+    elif op == "stiffness-padded":
         pm = PaddedLinearWave(LinearWave(mesh, p=p, c0=C0, dtype=dt, device=dev))
         layout = pm.layout
         x = pm.from_grid(x)
@@ -102,18 +139,20 @@ def run(op: str = "stiffness", size: int = 32, degree: int = 4,
             "spectral-roundtrip": ops.spectral_mass_roundtrip,
         }[op]
         f = lambda: g(x)  # noqa: E731
+    setup_s = time.perf_counter() - t0
 
     t, timing, calls = two_point_time(f, reps, dev)
     out = {"metric": f"{op} matvec", "degree": p, "ndofs": ndofs,
            "dtype": dtype, "device": device_name(dev), "ms_per_apply": t * 1e3,
            "gdofs_per_s": ndofs / t / 1e9, "timing": timing,
-           "applies": calls + int(check)}
+           "applies": calls + int(check), "setup_s": setup_s}
     out.update(streaming_fields(
         _TRAFFIC_PASSES.get(op, 2) * ndofs * torch.finfo(dt).bits // 8, t))
     if check:
         y = f()
         y = (layout.unpad(y) if layout is not None else y).to(torch.float64)
-        ref = _oracle(op, mesh, p, x, layout)
+        ref = (oracle()(x.to(torch.float64)) if oracle is not None
+               else _oracle(op, mesh, p, x, layout))
         out["max_rel_err_vs_f64_oracle"] = float(
             (y - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
     return out

@@ -3,7 +3,10 @@
 The JAX package's table functions and solvers hand out NumPy arrays (or
 ``np.asarray`` of a device array); these helpers turn them into the
 port's tensors on an explicit device and dtype, so the same tables and
-the same padded state can drive both implementations.
+the same padded state can drive both implementations. A general hex mesh
+and its facet tags come across as NumPy arrays
+(:func:`general_mesh_from_numpy`): they are the general-mesh path's input,
+from which the port builds its own dofmap, geometry and tables.
 """
 
 from __future__ import annotations
@@ -11,11 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.mesh import HexMesh
+
 __all__ = [
     "numpy_dtype",
     "torch_dtype",
     "tables_from_numpy",
     "state_from_numpy",
+    "general_mesh_from_numpy",
 ]
 
 _TORCH_TO_NUMPY = {
@@ -57,3 +63,14 @@ def state_from_numpy(u, v, device, dtype) -> tuple[torch.Tensor, torch.Tensor]:
     """A padded state (u, v) as NumPy arrays -> two contiguous tensors."""
     u_t, v_t = tables_from_numpy((u, v), device, dtype)
     return u_t, v_t
+
+
+def general_mesh_from_numpy(points, cells, facet_tags=None) -> tuple[HexMesh, dict]:
+    """A hex mesh as arrays (``points`` [n, 3], ``cells`` [nc, 8] in basix
+    vertex order, e.g. a JAX package ``HexMesh``'s) and its facet tags
+    (tag -> [n, 4] facet vertex ids) -> (the port's ``HexMesh``, a dict of
+    int64 facet arrays), copied."""
+    mesh = HexMesh(points=np.array(points, dtype=np.float64),
+                   cells=np.array(cells, dtype=np.int64))
+    tags = {int(t): np.array(f, dtype=np.int64) for t, f in (facet_tags or {}).items()}
+    return mesh, tags

@@ -1,0 +1,112 @@
+"""Continuous-Galerkin dof numbering on general hex meshes (host-side NumPy).
+
+A copy of the general part of ``wave_fenics_tpu.core.dofmap``
+(``GeneralDofMap``, ``build_dofmap``, ``morton_cell_order``), the NumPy
+``np.unique`` route only (the JAX package's own fallback where its native
+library is absent). It replaces the DOLFINx dofmap the reference leans on
+(``V->dofmap()->list()``, common/operators.hpp:56): an explicit
+``dofmap[nc, (p+1)^3]`` built by geometric dedup of the element nodes.
+
+Element-local tensors use axes [c, i, j, k] with i -> x, j -> y, k -> z and
+C-order flattening (z fastest), matching ``geometry.quadrature_points_3d``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from .basis import gll_points_weights
+from .geometry import trilinear_tabulate
+from .mesh import HexMesh
+
+__all__ = ["GeneralDofMap", "build_dofmap", "morton_cell_order"]
+
+
+@dataclass(frozen=True)
+class GeneralDofMap:
+    """Explicit dofmap of a general hex mesh (geometric dedup numbering)."""
+
+    dofmap: np.ndarray  # [nc, (p+1)^3] int32
+    ndofs: int
+    dof_coords: np.ndarray  # [ndofs, 3]
+    p: int
+    #: cell permutation applied before numbering (reorder='morton'); apply
+    #: the same order to any per-cell data (mesh.cells[cell_order])
+    cell_order: np.ndarray | None = None
+
+    @property
+    def ncells(self) -> int:
+        return self.dofmap.shape[0]
+
+
+def morton_cell_order(mesh: HexMesh, bits: int = 10) -> np.ndarray:
+    """Cell permutation by the Morton (Z-order) code of the cell centroids:
+    neighbouring cells, and so their shared dofs, come close together."""
+    c = mesh.cell_coords().mean(axis=1)
+    lo = c.min(axis=0)
+    span = np.maximum(c.max(axis=0) - lo, 1e-300)
+    q = np.clip(((c - lo) / span * (2**bits - 1)).astype(np.uint64), 0, 2**bits - 1)
+
+    def spread(v):
+        out = np.zeros_like(v)
+        for b in range(bits):
+            out |= ((v >> np.uint64(b)) & np.uint64(1)) << np.uint64(3 * b)
+        return out
+
+    code = (spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1))
+            | (spread(q[:, 2]) << np.uint64(2)))
+    return np.argsort(code, kind="stable")
+
+
+def build_dofmap(
+    mesh: HexMesh, p: int, tol: float = 1e-9, reorder: str | None = "appearance",
+) -> GeneralDofMap:
+    """CG dof numbering by geometric dedup of the trilinear-mapped GLL nodes.
+
+    Nodes on shared faces and edges coincide exactly under the trilinear map
+    (a face restriction depends only on the face's vertices), so dedup of
+    the coordinates rounded at relative tolerance ``tol`` is exact for
+    non-degenerate meshes.
+
+    ``reorder='appearance'`` (default) keeps the cell order and numbers dofs
+    by first appearance in the cell-major traversal, so consecutive cells
+    touch a narrow id range; ``'morton'`` first reorders the cells along a
+    Z-order curve (callers then apply ``cell_order`` to per-cell data);
+    ``None`` numbers dofs by sorted geometric key.
+    """
+    cell_order = None
+    if reorder == "morton":
+        cell_order = morton_cell_order(mesh)
+        mesh = HexMesh(points=mesh.points, cells=mesh.cells[cell_order])
+    nodes, _ = gll_points_weights(p + 1)
+    m = p + 1
+    X, Y, Z = np.meshgrid(nodes, nodes, nodes, indexing="ij")
+    ref_pts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=-1)
+    phi, _ = trilinear_tabulate(ref_pts)  # [nd, 8]
+    coords = np.matmul(phi, mesh.cell_coords())  # [nc, nd, 3]
+
+    scale = max(np.abs(mesh.points).max(), 1.0)
+    # quantize in place: fresh temporaries of this size page-fault at scale
+    flat = coords.reshape(-1, 3)
+    buf = np.empty_like(flat)
+    np.multiply(flat, 1.0 / (scale * tol), out=buf)
+    np.rint(buf, out=buf)
+    key = buf.astype(np.int64)
+
+    uniq, inv = np.unique(key, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    ndofs = uniq.shape[0]
+    if reorder in ("morton", "appearance"):
+        # renumber by first appearance in the cell-major traversal
+        _, first = np.unique(inv, return_index=True)
+        order = np.argsort(first, kind="stable")  # old ids by appearance
+        new_of_old = np.empty(ndofs, dtype=np.int64)
+        new_of_old[order] = np.arange(ndofs)
+        inv = new_of_old[inv]
+    dofmap = inv.reshape(coords.shape[0], m * m * m).astype(np.int32)
+    dof_coords = np.zeros((ndofs, 3))
+    dof_coords[dofmap.ravel()] = coords.reshape(-1, 3)
+    return GeneralDofMap(dofmap=dofmap, ndofs=ndofs, dof_coords=dof_coords, p=p,
+                         cell_order=cell_order)

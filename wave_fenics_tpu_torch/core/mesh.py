@@ -1,16 +1,19 @@
-"""Structured hexahedral box meshes (host-side NumPy).
+"""Hexahedral meshes (host-side NumPy): structured boxes and general hex meshes.
 
-A copy of the structured-box part of ``wave_fenics_tpu.core.mesh``
-(``BOX_FACETS``, ``FacetTags``, ``StructuredBoxMesh``, ``box_mesh``).
-General imported hex meshes (``HexMesh``) are not ported yet.
+A copy of ``wave_fenics_tpu.core.mesh`` (``BOX_FACETS``, ``FacetTags``,
+``StructuredBoxMesh``, ``box_mesh``, ``HexMesh``). Reading XDMF files
+(``core/io.py``) is not ported yet; a mesh comes from ``to_hex_mesh`` or as
+NumPy arrays (``convert.general_mesh_from_numpy``).
 
 Replaces the DOLFINx mesh layer consumed by the reference:
 - ``mesh::create_box`` (demo/gpu_operator/main.cpp:60-72, etc.)
 - cell-size query ``mesh::h`` (demo/cpu_planar3d/main.cpp:52-58)
 
-The solver's hot path never touches mesh topology: for structured boxes,
+The structured solver's hot path never touches mesh topology: for boxes,
 dof gather/scatter is pure reshape/overlap-add (ops.gather_scatter) and
-geometry factors are closed-form.
+geometry factors are closed-form. ``HexMesh`` carries imported or
+unstructured hex meshes as explicit vertices and cells, for the
+explicit-dofmap path (``core.dofmap``, ``ops.general``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["BOX_FACETS", "FacetTags", "StructuredBoxMesh", "box_mesh"]
+__all__ = ["BOX_FACETS", "FacetTags", "StructuredBoxMesh", "HexMesh", "box_mesh"]
+
+# Basix/DOLFINx hexahedron vertex order: the local vertex v has reference
+# coordinates (v&1, (v>>1)&1, (v>>2)&1).
+_VERTEX_COORDS = np.array(
+    [[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0],
+     [0, 0, 1], [1, 0, 1], [0, 1, 1], [1, 1, 1]],
+    dtype=np.float64,
+)
 
 # Facet id convention for structured boxes: (axis, side) pairs.
 # 0: x=lo, 1: x=hi, 2: y=lo, 3: y=hi, 4: z=lo, 5: z=hi
@@ -72,6 +83,24 @@ class StructuredBoxMesh:
         (demo/cpu_planar3d/main.cpp:52-58). Uniform cells -> all equal."""
         return float(np.sqrt(sum(h * h for h in self.h)))
 
+    def vertices_grid(self) -> np.ndarray:
+        """Vertex coordinates as a grid [nx+1, ny+1, nz+1, 3]."""
+        axes = [o + h * np.arange(n + 1)
+                for o, h, n in zip(self.origin, self.h, self.shape)]
+        return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+
+    def to_hex_mesh(self) -> "HexMesh":
+        """Explicit vertex/cell representation (the general-geometry path and
+        its oracles): vertices in C order of the vertex grid, cells in C
+        order over (cx, cy, cz), each cell's vertices in basix order."""
+        nx, ny, nz = self.shape
+        i, j, k = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                              indexing="ij")
+        off = _VERTEX_COORDS.astype(np.int64)
+        vid = ((i.reshape(-1, 1) + off[:, 0]) * (ny + 1)
+               + j.reshape(-1, 1) + off[:, 1]) * (nz + 1) + k.reshape(-1, 1) + off[:, 2]
+        return HexMesh(points=self.vertices_grid().reshape(-1, 3), cells=vid)
+
 
 def box_mesh(
     shape: tuple[int, int, int],
@@ -86,3 +115,29 @@ def box_mesh(
         origin=tuple(origin),
         facet_tags=facet_tags or FacetTags(),
     )
+
+
+@dataclass(frozen=True)
+class HexMesh:
+    """General (possibly unstructured) trilinear hex mesh.
+
+    points: [n_points, 3] vertex coordinates
+    cells:  [n_cells, 8] vertex ids in basix hexahedron order
+    """
+
+    points: np.ndarray
+    cells: np.ndarray
+
+    @property
+    def ncells(self) -> int:
+        return self.cells.shape[0]
+
+    def cell_coords(self) -> np.ndarray:
+        """Per-cell vertex coordinates, [n_cells, 8, 3]."""
+        return self.points[self.cells]
+
+    def hmin(self) -> float:
+        """Smallest cell diameter (max pairwise vertex distance per cell)."""
+        cc = self.cell_coords()
+        d = np.linalg.norm(cc[:, :, None, :] - cc[:, None, :, :], axis=-1)
+        return float(d.max(axis=(1, 2)).min())

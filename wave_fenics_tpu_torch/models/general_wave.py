@@ -1,0 +1,192 @@
+"""Linear wave model on general (imported or unstructured) hex meshes.
+
+Port of ``wave_fenics_tpu.models.general_wave`` (``GeneralLinearWave``,
+``facet_lumped_weights``): the LinearGLL physics of ``models.linear_wave``
+on any ``core.mesh.HexMesh`` with tagged exterior quad facets, through the
+explicit-dofmap operators (``ops.operators.GeneralOperators``; kernel K on
+a card). It completes the reference's mesh-agnostic driver
+(demo/cpu_planar3d/main.cpp reads an arbitrary XDMF hex mesh and its facet
+tags; reading XDMF is not ported yet, ``convert.general_mesh_from_numpy``
+carries a mesh across).
+
+Boundary facet integrals are assembled once at setup by GLL facet
+quadrature on each tagged bilinear facet: with collocation the integral is
+diagonal, so each facet contributes w_i w_j |J_s(x_ij)| to the dof at its
+(i, j) facet node, |J_s| = |dx/du x dx/dv| the surface element. Facet nodes
+are matched to volume dofs by the dofmap's quantized geometric key (exact
+for trilinear cells). Time is a Python float, as in ``LinearWave``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..convert import numpy_dtype
+from ..core.basis import gll_points_weights, tabulate_1d
+from ..core.dofmap import GeneralDofMap, build_dofmap
+from ..core.mesh import HexMesh
+from ..ops.operators import GeneralOperators
+from ..solvers.leapfrog import leapfrog_solve_n
+from ..solvers.rk4 import rk4_solve_n
+from .linear_wave import WavePhysics
+
+__all__ = ["GeneralLinearWave", "facet_lumped_weights"]
+
+
+def facet_lumped_weights(
+    mesh: HexMesh,
+    dofs: GeneralDofMap,
+    facets: np.ndarray,
+    p: int,
+    tol: float = 1e-9,
+    rule: str = "gll",
+    qdeg: int | None = None,
+) -> np.ndarray:
+    """Lumped facet-mass vector W[ndofs]: over the given facets [n, 4] (basix
+    quad vertex order), W_i = the integral of phi_i |J_s| over the facet,
+    accumulated at the matching volume dofs.
+
+    ``rule='gll'`` (default, the reference's): diagonal GLL facet quadrature,
+    W at facet node (i, j) is w_i w_j |J_s(x_ij)|. ``rule='gauss'``: |J_s|
+    at tensor Gauss points, row-sum lumped, W[i, j] = sum_ab qw_a qw_b
+    B[a, i] B[b, j] |J_s(u_a, v_b)| (the companion of the Gauss-rule volume
+    operators)."""
+    nodes, w1d = gll_points_weights(p + 1)
+    U, V = np.meshgrid(nodes, nodes, indexing="ij")
+    u = U.ravel()
+    v = V.ravel()
+
+    scale = max(np.abs(mesh.points).max(), 1.0)
+    q = scale * tol
+    keys = np.round(dofs.dof_coords / q).astype(np.int64)
+
+    fa = np.asarray(facets)
+    fc = mesh.points[fa]  # [nf, 4, 3]
+    v0, v1, v2, v3 = (fc[:, i, None, :] for i in range(4))
+
+    def surf(uu, vv):
+        """Bilinear facet map and surface element at parameter points."""
+        x = ((1 - uu) * (1 - vv) * v0 + uu * (1 - vv) * v1
+             + (1 - uu) * vv * v2 + uu * vv * v3)  # [nf, npt, 3]
+        xu = (1 - vv) * (v1 - v0) + vv * (v3 - v2)
+        xv = (1 - uu) * (v2 - v0) + uu * (v3 - v1)
+        return x, np.linalg.norm(np.cross(xu, xv), axis=-1)
+
+    x, Js = surf(u[None, :, None], v[None, :, None])
+    if rule == "gll":
+        Wf = np.outer(w1d, w1d).ravel()[None, :] * Js  # [nf, nd2]
+    elif rule == "gauss":
+        tab = tabulate_1d(p, qdeg, "gauss")
+        Uq, Vq = np.meshgrid(tab.qpts, tab.qpts, indexing="ij")
+        _, Jg = surf(Uq.ravel()[None, :, None], Vq.ravel()[None, :, None])
+        Jg = Jg.reshape(len(fa), tab.nq, tab.nq)
+        Wf = np.einsum("ai,bj,a,b,fab->fij", tab.B, tab.B, tab.qwts, tab.qwts,
+                       Jg).reshape(len(fa), -1)
+    else:
+        raise ValueError(f"unknown quadrature rule {rule!r}")
+    fkeys = np.round(x.reshape(-1, 3) / q).astype(np.int64)
+    # match facet keys to dof keys: sort the dof keys as records, search
+    kv = np.ascontiguousarray(keys).view([("", np.int64)] * 3).reshape(-1)
+    order = np.argsort(kv)
+    sk = kv[order]
+    fv = np.ascontiguousarray(fkeys).view([("", np.int64)] * 3).reshape(-1)
+    pos = np.searchsorted(sk, fv)
+    ok = (pos < len(sk)) & (sk[np.minimum(pos, len(sk) - 1)] == fv)
+    ids = order[np.minimum(pos, len(sk) - 1)]
+    if not ok.all():
+        raise ValueError("facet node does not coincide with a volume dof: facet "
+                         "vertex ordering or mesh/tag mismatch")
+    W = np.zeros(dofs.ndofs)
+    np.add.at(W, ids, Wf.ravel())
+    return W
+
+
+class GeneralLinearWave(WavePhysics):
+    """LinearGLL physics on a general hex mesh (flat dof vectors).
+
+    ``facet_tags``: dict tag -> facet vertex array [n, 4]; tag 1 = source,
+    tag 2 = absorbing (forms.ufl:21-24), overridable. ``c0_cells``
+    (optional, [ncells]) is a per-cell sound speed; ``c0`` stays the
+    reference speed of the source and absorbing terms. ``quadrature``:
+    'gll' (the reference's: collocated quadrature and lumped mass) or
+    'gauss' (Gauss-rule stiffness, row-sum-lumped Gauss mass and Gauss facet
+    weights), with ``quadrature_degree`` (None -> 2p: p+1 points). ``m``,
+    ``inv_m``, ``W1`` and ``W2`` are buffers on ``device`` (the card unless
+    the caller asks for the CPU).
+    """
+
+    def __init__(
+        self,
+        mesh: HexMesh,
+        p: int,
+        facet_tags: dict,
+        c0: float = 1500.0,
+        freq0: float = 0.5e6,
+        p0: float = 60000.0,
+        alpha: float = 4.0,
+        source_tag: int = 1,
+        abc_tag: int = 2,
+        dtype: torch.dtype = torch.float32,
+        device: torch.device | str = "cuda",
+        c0_cells=None,
+        quadrature: str = "gll",
+        quadrature_degree: int | None = None,
+    ):
+        super().__init__()
+        self.mesh = mesh
+        self.p = p
+        self.facet_tags = facet_tags
+        self.c0 = c0
+        self.freq0 = freq0
+        self.p0 = p0
+        self.alpha = alpha
+        self.source_tag = source_tag
+        self.abc_tag = abc_tag
+        self.dtype = dtype
+        self.c0_cells = c0_cells
+        self.quadrature = quadrature
+        self.quadrature_degree = quadrature_degree
+        self.dofs = build_dofmap(mesh, p)
+        coeff = None if c0_cells is None else (np.asarray(c0_cells) / c0) ** 2
+        self.ops = GeneralOperators(mesh, self.dofs, dtype=dtype, coeff_cells=coeff,
+                                    rule=quadrature, q=quadrature_degree)
+        npdt = numpy_dtype(dtype)
+        m = self.ops.lumped_mass
+
+        def buf(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+        self.register_buffer("m", buf(m))
+        self.register_buffer("inv_m", buf((1.0 / m).astype(npdt)))
+        self.register_buffer("W1", buf(self._tag_weights(source_tag).astype(npdt)))
+        self.register_buffer("W2", buf(self._tag_weights(abc_tag).astype(npdt)))
+
+    @property
+    def ndofs(self) -> int:
+        return self.dofs.ndofs
+
+    def _tag_weights(self, tag: int) -> np.ndarray:
+        facets = self.facet_tags.get(tag)
+        if facets is None or len(facets) == 0:
+            return np.zeros(self.ndofs)
+        return facet_lumped_weights(self.mesh, self.dofs, facets, self.p,
+                                    rule=self.quadrature, qdeg=self.quadrature_degree)
+
+    def zero_state(self) -> tuple[torch.Tensor, torch.Tensor]:
+        z = torch.zeros(self.ndofs, dtype=self.dtype, device=self.device)
+        return z, z
+
+    def solve_n(self, t0: float, dt: float, nsteps: int, u0=None, v0=None,
+                integrator: str = "rk4"):
+        """Exactly ``nsteps`` fixed steps; returns (u, v). ``integrator``:
+        'rk4' (the reference's: 4 stiffness applies per step) or 'leapfrog'
+        (2nd order, one apply per step and one at t0; needs dt up to about
+        0.71x the RK4 CFL step, solvers/leapfrog.py)."""
+        if u0 is None:
+            u0, v0 = self.zero_state()
+        if integrator == "leapfrog":
+            return leapfrog_solve_n(self.force, self.damping, u0, v0, t0, dt, nsteps)
+        if integrator == "rk4":
+            return rk4_solve_n(self.f0, self.f1, u0, v0, t0, dt, nsteps)
+        raise ValueError(f"unknown integrator: {integrator!r}")

@@ -31,7 +31,7 @@ from ..core.mesh import BOX_FACETS, StructuredBoxMesh
 from ..ops.operators import StructuredOperators
 from ..solvers.rk4 import rk4_solve
 
-__all__ = ["LinearWave", "lumped_boundary_weights"]
+__all__ = ["WavePhysics", "LinearWave", "lumped_boundary_weights"]
 
 
 def lumped_boundary_weights(
@@ -56,7 +56,68 @@ def lumped_boundary_weights(
     return W
 
 
-class LinearWave(nn.Module):
+class WavePhysics(nn.Module):
+    """The LinearGLL physics (common/LinearGLL.hpp:141-192) on any operator
+    set: a subclass sets ``ops`` (with ``stiffness(u, c0)``), the source
+    parameters and the buffers ``inv_m``, ``W1`` and ``W2``, and defines
+    ``zero_state``."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.W1.device
+
+    @property
+    def w0(self) -> float:
+        return 2.0 * np.pi * self.freq0
+
+    @property
+    def period(self) -> float:
+        return 1.0 / self.freq0
+
+    # -- physics --------------------------------------------------------
+    def window(self, t: float) -> float:
+        """Source ramp over the first alpha periods (LinearGLL.hpp:154-159)."""
+        Talpha = self.period * self.alpha
+        ramp = 0.5 * (1.0 - math.cos(self.freq0 * math.pi * t / self.alpha))
+        return ramp if t < Talpha else 1.0
+
+    def g_amplitude(self, t: float) -> float:
+        """Uniform source value g(t) (LinearGLL.hpp:162), float64."""
+        return self.window(t) * self.p0 * self.w0 / self.c0 * math.cos(self.w0 * t)
+
+    def f0(self, t, u, v):
+        """du/dt = v (LinearGLL.hpp:141-144)."""
+        return v
+
+    def f1(self, t, u, v):
+        """dv/dt = (stiffness + boundary) / m (LinearGLL.hpp:151-192)."""
+        b = self.ops.stiffness(u, self.c0)
+        g = torch.tensor(self.c0**2 * self.g_amplitude(t), dtype=self.dtype)
+        b = b + g * self.W1 - self.c0 * (self.W2 * v)
+        return b * self.inv_m
+
+    # -- leapfrog decomposition: f1 = force(t, u) - damping * v ----------
+    def force(self, t, u):
+        """Mass-normalised v-independent acceleration (stiffness + source)
+        of the leapfrog integrator (solvers/leapfrog.py)."""
+        b = self.ops.stiffness(u, self.c0)
+        g = torch.tensor(self.c0**2 * self.g_amplitude(t), dtype=self.dtype)
+        return (b + g * self.W1) * self.inv_m
+
+    @property
+    def damping(self) -> torch.Tensor:
+        """Diagonal absorbing-boundary damping D = c0 W2 / m."""
+        return self.c0 * self.W2 * self.inv_m
+
+    # -- time stepping ----------------------------------------------------
+    def solve(self, t0: float, tf: float, dt: float, u0=None, v0=None):
+        """RK4 from t0 to tf; returns (u, v, nsteps)."""
+        if u0 is None:
+            u0, v0 = self.zero_state()
+        return rk4_solve(self.f0, self.f1, u0, v0, t0, tf, dt)
+
+
+class LinearWave(WavePhysics):
     """The wave model on a structured box: operators + physics + integrator.
 
     Parameters mirror LinearGLLOpt's constructor
@@ -105,61 +166,7 @@ class LinearWave(nn.Module):
         self.register_buffer("W2", buf(lumped_boundary_weights(
             mesh, p, tags.facets_of(abc_tag)).astype(npdt)))
 
-    @property
-    def device(self) -> torch.device:
-        return self.W1.device
-
-    @property
-    def w0(self) -> float:
-        return 2.0 * np.pi * self.freq0
-
-    @property
-    def period(self) -> float:
-        return 1.0 / self.freq0
-
-    # -- physics --------------------------------------------------------
-    def window(self, t: float) -> float:
-        """Source ramp over the first alpha periods (LinearGLL.hpp:154-159)."""
-        Talpha = self.period * self.alpha
-        ramp = 0.5 * (1.0 - math.cos(self.freq0 * math.pi * t / self.alpha))
-        return ramp if t < Talpha else 1.0
-
-    def g_amplitude(self, t: float) -> float:
-        """Uniform source value g(t) (LinearGLL.hpp:162), float64."""
-        return self.window(t) * self.p0 * self.w0 / self.c0 * math.cos(self.w0 * t)
-
-    def f0(self, t, u, v):
-        """du/dt = v (LinearGLL.hpp:141-144)."""
-        return v
-
-    def f1(self, t, u, v):
-        """dv/dt = (stiffness + boundary) / m (LinearGLL.hpp:151-192)."""
-        b = self.ops.stiffness(u, self.c0)
-        g = torch.tensor(self.c0**2 * self.g_amplitude(t), dtype=self.dtype)
-        b = b + g * self.W1 - self.c0 * (self.W2 * v)
-        return b * self.inv_m
-
-    # -- leapfrog decomposition: f1 = force(t, u) - damping * v ----------
-    def force(self, t, u):
-        """Mass-normalised v-independent acceleration (stiffness + source)
-        of the leapfrog integrator (solvers/leapfrog.py)."""
-        b = self.ops.stiffness(u, self.c0)
-        g = torch.tensor(self.c0**2 * self.g_amplitude(t), dtype=self.dtype)
-        return (b + g * self.W1) * self.inv_m
-
-    @property
-    def damping(self) -> torch.Tensor:
-        """Diagonal absorbing-boundary damping grid D = c0 W2 / m."""
-        return self.c0 * self.W2 * self.inv_m
-
-    # -- time stepping ----------------------------------------------------
     def zero_state(self) -> tuple[torch.Tensor, torch.Tensor]:
         """u_0 = v_0 = 0 (LinearGLL.hpp:131-134)."""
         z = torch.zeros(self.ops.grid_shape, dtype=self.dtype, device=self.device)
         return z, z
-
-    def solve(self, t0: float, tf: float, dt: float, u0=None, v0=None):
-        """RK4 from t0 to tf; returns (u, v, nsteps)."""
-        if u0 is None:
-            u0, v0 = self.zero_state()
-        return rk4_solve(self.f0, self.f1, u0, v0, t0, tf, dt)

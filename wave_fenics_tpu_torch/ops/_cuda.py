@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["KernelLibrary", "library", "launch", "check_operands",
-           "check_no_alias", "nvcc"]
+           "check_index_operands", "check_no_alias", "nvcc"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -57,6 +57,9 @@ _SIGNATURES = {
     "wave_stiffness_grid": [_P] * 8 + [_I] * 4 + [_P],
     # x, y, cvx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz, stream (kernel G)
     "wave_mass_apply": [_P] * 5 + [_I] * 9 + [_P],
+    # x, y, ye, dofmap, order, starts, B, D, geo, w, mode, affine, m, nq, nc,
+    # ndofs, cpb, stride, smem, coeff, stream (kernel K)
+    "wave_general_apply": [_P] * 10 + [_I] * 9 + [_D, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -158,6 +161,16 @@ def check_operands(device: torch.device, dtype: torch.dtype, **operands) -> None
         raise ValueError(f"CUDA kernel called with a tensor on {device}")
     if dtype not in _SUFFIX:
         raise TypeError(f"CUDA kernels take float32 or float64, not {dtype}")
+    _check_tensors(device, dtype, operands)
+
+
+def check_index_operands(device: torch.device, **operands) -> None:
+    """Raise unless every ``name=(tensor, shape)`` is a contiguous int32
+    tensor of ``shape`` on ``device`` (index tables)."""
+    _check_tensors(device, torch.int32, operands)
+
+
+def _check_tensors(device, dtype, operands) -> None:
     for name, (t, shape) in operands.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")

@@ -1,19 +1,30 @@
-"""Structured gather/scatter between dof grids and element tensors.
+"""Gather/scatter between dof vectors and element tensors.
 
-Port of the structured overlap path of ``wave_fenics_tpu.ops.gather_scatter``
-(``gather_1d``, ``scatter_1d``, ``gather_grid``, ``scatter_grid``): on a
-structured GLL dof grid (N = n*p + 1 per axis) element tensors overlap the
-grid in a regular stride-p pattern, so gather is m strided slices and
-scatter-add is a 1D overlap-add per axis. No indexed scatter, no atomics,
-deterministic. The explicit-dofmap (indexed, ELL) functions belong to the
-general-mesh slice and are not ported yet.
+Port of ``wave_fenics_tpu.ops.gather_scatter``:
+
+- the structured overlap path (``gather_1d``, ``scatter_1d``,
+  ``gather_grid``, ``scatter_grid``): on a structured GLL dof grid
+  (N = n*p + 1 per axis) element tensors overlap the grid in a regular
+  stride-p pattern, so gather is m strided slices and scatter-add is a 1D
+  overlap-add per axis; no indexed scatter, deterministic;
+- the explicit-dofmap path: ``gather_indexed`` (x[dofmap]),
+  ``scatter_indexed`` (an indexed add, the oracles' scatter) and the
+  transpose tables of ``build_ell_scatter`` in CSR form
+  (:func:`build_scatter_csr`): per dof, the flat element entries that add
+  into it, in increasing order. :func:`scatter_csr` sums them in that fixed
+  order, as kernel K's scatter phase does (``ops.general``), so the
+  scatter-add needs no atomics and its result does not depend on the run.
+  The JAX package's multiplicity buckets (``EllScatter``) are a TPU layout
+  of the same table and are not ported.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["gather_1d", "scatter_1d", "gather_grid", "scatter_grid"]
+__all__ = ["gather_1d", "scatter_1d", "gather_grid", "scatter_grid",
+           "gather_indexed", "scatter_indexed", "build_scatter_csr", "scatter_csr"]
 
 
 def _along(axis: int, s: slice) -> tuple:
@@ -86,3 +97,45 @@ def scatter_grid(
     a = scatter_1d(a, p, 4)  # [nx, m, ny, m, Nz]
     a = scatter_1d(a, p, 2)  # [nx, m, Ny, Nz]
     return scatter_1d(a, p, 0)  # [Nx, Ny, Nz]
+
+
+def gather_indexed(x: torch.Tensor, dofmap: torch.Tensor) -> torch.Tensor:
+    """xe[c, n] = x[dofmap[c, n]] on a flat dof vector."""
+    return x[dofmap.long()]
+
+
+def scatter_indexed(ye: torch.Tensor, dofmap: torch.Tensor, ndofs: int) -> torch.Tensor:
+    """y[dofmap[c, n]] += ye[c, n] (``index_add_``: on a card its atomics
+    add in no fixed order)."""
+    return ye.new_zeros(ndofs).index_add_(0, dofmap.reshape(-1).long(), ye.reshape(-1))
+
+
+def build_scatter_csr(dofmap: np.ndarray, ndofs: int) -> tuple[np.ndarray, np.ndarray]:
+    """(order int32 [nc*nd], starts int32 [ndofs + 1]): the flat element
+    entries ``order[starts[d]:starts[d+1]]`` add into dof d, in increasing
+    entry order (the transpose tables of the JAX package's
+    ``build_ell_scatter``; host, once)."""
+    flat = np.asarray(dofmap).ravel()
+    if flat.size >= 2**31:
+        raise ValueError(f"{flat.size} element entries do not fit int32 tables")
+    order = np.argsort(flat, kind="stable").astype(np.int32)
+    counts = np.bincount(flat, minlength=ndofs)
+    if counts.size != ndofs or counts.min() < 1:
+        raise ValueError("every dof must appear in the dofmap, and only dofs < ndofs")
+    starts = np.zeros(ndofs + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    return order, starts.astype(np.int32)
+
+
+def scatter_csr(ye: torch.Tensor, order: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """y[d] = sum over k in [starts[d], starts[d+1]) of ye.ravel()[order[k]],
+    summed in that order: ((0 + s0) + s1) + ..., as kernel K's scatter phase
+    sums (plain torch, one masked pass per multiplicity)."""
+    vals = ye.reshape(-1)[order.long()]
+    lo = starts[:-1].long()
+    counts = starts[1:].long() - lo
+    y = ye.new_zeros(counts.numel())
+    for j in range(int(counts.max())):
+        live = counts > j
+        y[live] += vals[lo[live] + j]
+    return y

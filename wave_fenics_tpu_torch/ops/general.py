@@ -1,0 +1,201 @@
+"""Explicit-dofmap operator matvec (kernel K) and its plain version.
+
+Port of ``wave_fenics_tpu.ops.pallas_general``: one operator apply on an
+explicit dofmap (imported or unstructured hex meshes),
+
+    y = coeff S(E(x_e)),   x_e[c, n] = x[dofmap[c, n]],
+
+with S the scatter-add over the dofmap and E the element operator of one of
+four modes (the TPU kernel's, ``pallas_general.py:401-529``):
+
+- ``mass``: detJw .* x_e at the collocated GLL points;
+- ``stiffness``: sum_{d,d'} D_d^T (G_dd' .* D_d' x_e) with the six symmetric
+  G entries per node, or G = g6[c] w_q for affine (parallelepiped) cells;
+- ``mass_gauss``: B^T diag(detJw_q) B x_e at non-collocated points;
+- ``stiffness_gauss``: the full-G stiffness at non-collocated points.
+
+:class:`GeneralTables` holds what both implementations read on a device:
+the dofmap, the scatter lists (``gather_scatter.build_scatter_csr``), the 1D
+tables B and D, and the geometry per node (or per cell and w for affine
+cells). :func:`general_apply_plain` is plain torch: gather ->
+``element_kernels`` -> the same fixed-order scatter (``scatter_csr``).
+:func:`general_apply_cuda` launches kernel K
+(``csrc/general_kernels.cu``: an element phase and a scatter phase, no
+atomics, so two applies agree bit for bit). :func:`general_apply`
+dispatches on the tensor's device: CPU -> plain, CUDA -> kernel K.
+
+The TPU kernel's window and chain tables (``ops/general_tables.py``), gather
+overflow, scatter merge, spill path, coarsening and resident mode exist
+because Mosaic has no scattered loads; Hopper gathers natively, so none of
+them is ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import _cuda
+from . import element_kernels as ek
+from . import gather_scatter as gs
+
+__all__ = [
+    "MODES",
+    "MAX_DEGREE",
+    "GeneralTables",
+    "launch_shape",
+    "general_apply",
+    "general_apply_plain",
+    "general_apply_cuda",
+]
+
+MODES = ("mass", "stiffness", "mass_gauss", "stiffness_gauss")
+#: highest degree kernel K takes (nd = 343 nodes per cell); the JAX package
+#: leaves p > 6 to XLA (``operators.py:405-411``)
+MAX_DEGREE = 6
+#: threads of an element-phase block, and the shared memory one may use
+#: (H100: 227 KB)
+THREADS = 128
+SMEM_LIMIT = 232_448
+#: the symmetric G entries in table order
+SYM = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+@dataclass(frozen=True)
+class GeneralTables:
+    """The device tables of one operator mode.
+
+    dofmap [nc, m^3] int32; order [nc m^3] and starts [ndofs + 1] int32 (the
+    scatter lists); B, D [nq, m]; geo [ngeo, nc, npts] per point, or
+    [ngeo, nc] with w [npts] for affine cells (ngeo = 1 for the masses, 6
+    for the stiffnesses; npts = m^3 collocated, nq^3 otherwise)."""
+
+    mode: str
+    dofmap: torch.Tensor
+    order: torch.Tensor
+    starts: torch.Tensor
+    B: torch.Tensor
+    D: torch.Tensor
+    geo: torch.Tensor
+    w: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"mode {self.mode!r}: one of {MODES}")
+        if self.affine and self.mode.endswith("_gauss"):
+            raise ValueError("affine geometry serves the collocated modes only")
+
+    @property
+    def affine(self) -> bool:
+        return self.w is not None
+
+    @property
+    def ndofs(self) -> int:
+        return self.starts.numel() - 1
+
+    @property
+    def ncells(self) -> int:
+        return self.dofmap.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.B.shape[1]
+
+    @property
+    def nq(self) -> int:
+        return self.B.shape[0]
+
+    @property
+    def npts(self) -> int:
+        return self.nq**3
+
+    def geometry(self) -> torch.Tensor:
+        """The geometry per point, [ngeo, nc, npts] (affine: g6[c] w_q)."""
+        if self.affine:
+            return self.geo[..., None] * self.w
+        return self.geo
+
+
+def launch_shape(mode: str, m: int, nq: int, itemsize: int) -> tuple[int, int, int]:
+    """(cells per block, shared-memory elements per cell, shared-memory
+    bytes) of kernel K's element phase; raises a ValueError where p > 6 or
+    the cell's buffers do not fit the card's shared memory."""
+    if m - 1 > MAX_DEGREE:
+        raise ValueError(f"kernel K takes p <= {MAX_DEGREE}, not p = {m - 1}")
+    Q = max(m, nq)
+    if mode == "mass":
+        points, stride = m**3, 0
+    elif mode == "stiffness":
+        points, stride = m**3, 4 * m**3  # x_e and w_0..w_2
+    else:  # x_e; the three gradients and two temporaries at max(m, nq)^3
+        points, stride = Q**3, m**3 + 5 * Q**3
+    cpb = max(1, THREADS // points)
+    smem = 0 if mode == "mass" else (cpb * stride + 2 * nq * m) * itemsize
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"kernel K's {mode} at p = {m - 1} with {nq} points per "
+                         f"axis needs {smem} bytes of shared memory, above "
+                         f"{SMEM_LIMIT}")
+    return cpb, stride, smem
+
+
+def general_apply_plain(x: torch.Tensor, t: GeneralTables, coeff=1.0) -> torch.Tensor:
+    """y = coeff S(E(x_e)) in plain torch: gather, the element kernel of
+    ``t.mode``, the fixed-order scatter of kernel K."""
+    m, nq, nc = t.m, t.nq, t.ncells
+    xe = gs.gather_indexed(x, t.dofmap).reshape(nc, m, m, m)
+    geo = t.geometry().reshape(-1, nc, nq, nq, nq)
+    if t.mode == "mass":
+        ye = coeff * ek.spectral_mass_element(xe, geo[0])
+    elif t.mode == "mass_gauss":
+        ye = coeff * ek.mass_element(xe, t.B, geo[0])
+    else:
+        G = torch.stack([torch.stack([geo[SYM.index(tuple(sorted((a, b))))]
+                                      for b in range(3)], dim=-1)
+                         for a in range(3)], dim=-2)  # [nc, q, q, q, 3, 3]
+        ye = ek.stiffness_element_full(xe, t.B, t.D, G, coeff)
+    return gs.scatter_csr(ye, t.order, t.starts)
+
+
+def general_apply_cuda(
+    x: torch.Tensor, t: GeneralTables, coeff=1.0, out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """y = coeff S(E(x_e)) with kernel K (an element launch and a scatter
+    launch; one count). ``coeff`` is a number or a 0-d tensor; ``out``
+    (optional) must not alias ``x``."""
+    m, nq, nc, nd = t.m, t.nq, t.ncells, t.m**3
+    cpb, stride, smem = launch_shape(t.mode, m, nq, x.element_size())
+    if out is None:
+        out = torch.empty_like(x)
+    ngeo = 1 if t.mode.startswith("mass") else 6
+    geo_shape = (ngeo, nc) if t.affine else (ngeo, nc, t.npts)
+    floats = dict(x=(x, (t.ndofs,)), y=(out, (t.ndofs,)), B=(t.B, (nq, m)),
+                  D=(t.D, (nq, m)), geo=(t.geo, geo_shape))
+    if t.affine:
+        floats["w"] = (t.w, (t.npts,))
+    _cuda.check_operands(x.device, x.dtype, **floats)
+    _cuda.check_index_operands(x.device, dofmap=(t.dofmap, (nc, nd)),
+                               order=(t.order, (nc * nd,)),
+                               starts=(t.starts, (t.ndofs + 1,)))
+    _cuda.check_no_alias((out,), (x,))
+    ye = torch.empty((nc, nd), dtype=x.dtype, device=x.device)
+    _cuda.launch("wave_general_apply", x.dtype, x.device, x, out, ye, t.dofmap,
+                 t.order, t.starts, t.B, t.D, t.geo, t.w, MODES.index(t.mode),
+                 int(t.affine), m, nq, nc, t.ndofs, cpb, stride, smem, float(coeff))
+    general_apply_cuda.launches += 1
+    return out
+
+
+#: process-wide count of kernel K applies (diagnostics: shows that a run went
+#: through the kernel)
+general_apply_cuda.launches = 0
+
+
+def general_apply(x: torch.Tensor, t: GeneralTables, coeff=1.0) -> torch.Tensor:
+    """y = coeff S(E(x_e)): plain version for a CPU tensor, kernel K for a
+    CUDA one."""
+    if x.device.type == "cpu":
+        return general_apply_plain(x, t, coeff)
+    if x.device.type == "cuda":
+        return general_apply_cuda(x, t, coeff)
+    raise ValueError(f"no implementation of general_apply for device {x.device}")

@@ -1,10 +1,12 @@
-"""Matrix-free operators on a structured GLL dof grid.
+"""Matrix-free operators: on a structured GLL dof grid, and on an explicit
+dofmap.
 
-Port of ``wave_fenics_tpu.ops.operators.StructuredOperators`` (grid-level
+Port of ``wave_fenics_tpu.ops.operators``: ``StructuredOperators`` (grid-level
 equivalents of the reference's MassOperator, SpectralMassOperator and
 StiffnessOperator, common/cuda/mass.hpp:17-107,
 common/cuda/spectral_mass.hpp:23-100, common/operators.hpp:43-201, with c0
-as a runtime parameter).
+as a runtime parameter) and ``GeneralOperators`` (the same operators over
+an explicit dofmap, for imported or unstructured hex meshes).
 
 Dispatch follows the tensor's device, as the JAX package's follows the
 backend. A CPU tensor takes the plain formulations (``ops.separable``); a
@@ -15,8 +17,13 @@ Any other device raises. The diagonal masses, the gather/scatter roundtrip
 and the per-cell stiffness are plain torch on every device, as the JAX
 package computes them outside any Pallas kernel.
 
-The explicit-dofmap family (``GeneralOperators``, imported meshes) belongs
-to the general-mesh slice and is not ported yet.
+``GeneralOperators`` dispatches the same way: a CUDA tensor takes kernel K
+(``ops.general``) for ``mass`` and ``stiffness`` in the mode the JAX
+package's TPU dispatch picks (collocated: ``mass``/``stiffness``; Gauss:
+``mass_gauss``/``stiffness_gauss``), and raises where K does not apply
+(p > 6, or a Gauss rule whose cell buffers exceed the shared memory); a CPU
+tensor takes K's plain version on the same tables. ``*_indexed`` and
+``spectral_mass_roundtrip`` are plain torch on every device: the oracles.
 """
 
 from __future__ import annotations
@@ -30,9 +37,11 @@ import torch
 from ..convert import numpy_dtype, tables_from_numpy, torch_dtype
 from ..core import geometry
 from ..core.basis import lumped_weight_line, tabulate_1d
-from ..core.mesh import StructuredBoxMesh
+from ..core.dofmap import GeneralDofMap
+from ..core.mesh import HexMesh, StructuredBoxMesh
 from . import element_kernels as ek
 from . import gather_scatter as gs
+from .general import SYM, GeneralTables, general_apply
 from .mass import mass_fused
 from .separable import (
     grid_lines,
@@ -43,7 +52,7 @@ from .separable import (
 )
 from .stiffness import GridStiffnessTables, stiffness_grid, stiffness_grid_tables
 
-__all__ = ["StructuredOperators"]
+__all__ = ["StructuredOperators", "GeneralOperators"]
 
 
 @dataclass(frozen=True)
@@ -184,3 +193,179 @@ class StructuredOperators:
         coeff = -torch.as_tensor(c0, dtype=torch_dtype(self.dtype)) ** 2
         ye = ek.stiffness_element_diag(self.gather(x), D, Gdiag, coeff)
         return self.scatter(ye)
+
+
+@dataclass(frozen=True)
+class GeneralOperators:
+    """Matrix-free operators over an explicit dofmap (imported hex meshes).
+
+    Supports non-collocated quadrature (``rule='gauss'``, the decomposed
+    B^T D B pipeline of demo/gpu_operator) and full 3x3 geometric factors.
+    Vectors are flat ``[ndofs]`` tensors. ``coeff_cells`` (optional, shape
+    [ncells]) is a per-cell stiffness coefficient, folded into G at setup.
+    Host tables are built once; their device copies once per (table,
+    device).
+    """
+
+    mesh: HexMesh
+    dofs: GeneralDofMap
+    dtype: torch.dtype = torch.float32
+    q: int | None = None
+    rule: str = "gll"
+    coeff_cells: object = None
+
+    def __post_init__(self):
+        p = self.dofs.p
+        tab = tabulate_1d(p, self.q, self.rule)
+        G, detJw = geometry.precompute_geometric_data(self.mesh, p, self.q, self.rule)
+        if self.coeff_cells is not None:
+            G = G * np.asarray(self.coeff_cells, dtype=G.dtype)[:, None, None, None]
+        nq, nc = tab.nq, self.mesh.ncells
+        npdt = numpy_dtype(self.dtype)
+        setattr_ = object.__setattr__
+        setattr_(self, "_tab", tab)
+        setattr_(self, "_B", tab.B.astype(npdt))
+        setattr_(self, "_D", tab.D.astype(npdt))
+        setattr_(self, "_detJw", detJw.reshape(nc, nq, nq, nq).astype(npdt))
+        # affine (parallelepiped) cells, detected on the float64 factors:
+        # G[c, q] = g6[c] w_q and detJw[c, q] = |det J[c]| w_q exactly
+        affine = None
+        if tab.collocated:
+            w3 = geometry.quadrature_weights_3d(tab)
+            Gs = np.stack([G[:, :, a, b] for a, b in SYM]).reshape(6, nc, -1)
+            g6 = Gs[:, :, :1] / w3[0]
+            dJ = detJw.reshape(nc, -1)[:, :1] / w3[0]
+            gs_scale = max(float(np.abs(Gs).max()), 1e-300)
+            dj_scale = max(float(np.abs(detJw).max()), 1e-300)
+            if (np.abs(Gs - g6 * w3).max() <= 1e-12 * gs_scale
+                    and np.abs(detJw.reshape(nc, -1) - dJ * w3).max() <= 1e-12 * dj_scale):
+                affine = {"g6": g6[..., 0], "dJ": dJ[:, 0], "w": w3}
+        setattr_(self, "_affine", affine)
+        setattr_(self, "_G", G.reshape(nc, nq, nq, nq, 3, 3).astype(npdt))
+        setattr_(self, "_dofmap", self.dofs.dofmap)
+        setattr_(self, "_on_device", {})
+
+    def _tensors(self, key, device: torch.device, make, dtype=None) -> tuple[torch.Tensor, ...]:
+        """The tables ``make()`` (NumPy) as tensors of ``dtype`` (default:
+        the operator's) on ``device``, built and copied once per (key,
+        device)."""
+        k = (key, device)
+        if k not in self._on_device:
+            self._on_device[k] = tables_from_numpy(make(), device, dtype or self.dtype)
+        return self._on_device[k]
+
+    @property
+    def ndofs(self) -> int:
+        return self.dofs.ndofs
+
+    @property
+    def affine(self) -> bool:
+        """Whether every cell is a parallelepiped (rank-1 geometry)."""
+        return self._affine is not None
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.dofs.p + 1
+        (dofmap,) = self._tensors("dofmap", x.device, lambda: (self._dofmap,),
+                                  torch.int32)
+        return gs.gather_indexed(x, dofmap).reshape(-1, m, m, m)
+
+    def scatter(self, ye: torch.Tensor) -> torch.Tensor:
+        """Element -> dof scatter-add (an indexed add; the oracles' scatter)."""
+        (dofmap,) = self._tensors("dofmap", ye.device, lambda: (self._dofmap,),
+                                  torch.int32)
+        return gs.scatter_indexed(ye.reshape(self.mesh.ncells, -1), dofmap, self.ndofs)
+
+    # -- kernel K's tables --------------------------------------------------
+    def tables(self, mode: str, device: torch.device) -> GeneralTables:
+        """Kernel K's tables of ``mode`` on ``device`` (built once each)."""
+        (dofmap,) = self._tensors("dofmap", device, lambda: (self._dofmap,), torch.int32)
+        order, starts = self._tensors(
+            "csr", device, lambda: gs.build_scatter_csr(self._dofmap, self.ndofs),
+            torch.int32)
+        B, D = self._tensors("BD", device, lambda: (self._B, self._D))
+        af = self._affine if mode in ("mass", "stiffness") else None
+        nc = self.mesh.ncells
+
+        def make():
+            if af is not None:
+                geo = af["dJ"][None] if mode == "mass" else af["g6"]
+                return geo, af["w"]
+            if mode.startswith("mass"):
+                return (self._detJw.reshape(1, nc, -1),)
+            G = self._G.reshape(nc, -1, 3, 3)
+            return (np.stack([G[:, :, a, b] for a, b in SYM]),)
+
+        geo = self._tensors(("geo", mode), device, make)
+        return GeneralTables(mode, dofmap, order, starts, B, D, *geo)
+
+    def _apply(self, op: str, x: torch.Tensor, coeff) -> torch.Tensor:
+        if x.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"no implementation of {op} for device {x.device}")
+        mode = op if self._tab.collocated else f"{op}_gauss"
+        return general_apply(x, self.tables(mode, x.device), coeff)
+
+    # -- operators --------------------------------------------------------
+    def mass(self, x: torch.Tensor) -> torch.Tensor:
+        """y = M x, the general sum-factorized B^T diag(detJw) B per element
+        (mass_apply semantics, common/cuda/mass_kernel.cu:4-46): kernel K on
+        a card, its plain version on the CPU; collocated quadrature makes B
+        the identity (K's ``mass`` mode)."""
+        return self._apply("mass", x, 1.0)
+
+    def mass_indexed(self, x: torch.Tensor) -> torch.Tensor:
+        """The oracle of :meth:`mass`: gather -> per-element B^T diag(detJw)
+        B -> indexed scatter, plain torch, any rule."""
+        B, detJw = self._tensors("mass_indexed", x.device, lambda: (self._B, self._detJw))
+        return self.scatter(ek.mass_element(self.gather(x), B, detJw))
+
+    def spectral_mass(self, x: torch.Tensor) -> torch.Tensor:
+        """y = M x for the collocated (diagonal) mass: one multiply by the
+        assembled diagonal."""
+        if not self._tab.collocated:
+            raise ValueError("spectral_mass needs collocated (GLL) quadrature")
+        (m,) = self._tensors("lumped_mass", x.device, lambda: (self.lumped_mass,))
+        return m * x
+
+    def spectral_mass_roundtrip(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference-shaped gather -> detJw -> scatter path
+        (spectral_mass.hpp:84-89); collocated quadrature only."""
+        if not self._tab.collocated:
+            raise ValueError("spectral_mass_roundtrip needs collocated (GLL) quadrature")
+        (detJw,) = self._tensors("detJw", x.device, lambda: (self._detJw,))
+        return self.scatter(ek.spectral_mass_element(self.gather(x), detJw))
+
+    @cached_property
+    def lumped_mass(self) -> np.ndarray:
+        """m = M @ 1 (NumPy, host, once)."""
+        m1 = self.dofs.p + 1
+        nc = self.mesh.ncells
+        ones = np.ones((nc, m1, m1, m1), dtype=numpy_dtype(self.dtype))
+        uq = np.einsum("qi,cijk->cqjk", self._B, ones)
+        uq = np.einsum("qj,cijk->ciqk", self._B, uq)
+        uq = np.einsum("qk,cijk->cijq", self._B, uq) * self._detJw
+        ye = np.einsum("qi,cqjk->cijk", self._B, uq)
+        ye = np.einsum("qj,ciqk->cijk", self._B, ye)
+        ye = np.einsum("qk,cijq->cijk", self._B, ye)
+        out = np.zeros((self.ndofs,), dtype=numpy_dtype(self.dtype))
+        np.add.at(out, self._dofmap.ravel(), ye.reshape(nc, -1).ravel())
+        return out
+
+    def _coeff(self, x: torch.Tensor, c0):
+        """-c0^2: a float for kernel K, a 0-d tensor for the plain versions."""
+        if x.device.type == "cuda":
+            return -float(c0) ** 2
+        return -torch.as_tensor(c0, dtype=torch_dtype(self.dtype)) ** 2
+
+    def stiffness(self, x: torch.Tensor, c0=1.0) -> torch.Tensor:
+        """y = -c0^2 K x with the full G (skernel semantics,
+        common/operators.hpp:112-133): kernel K on a card, its plain version
+        on the CPU. ``c0`` is a number or a 0-d tensor."""
+        return self._apply("stiffness", x, self._coeff(x, c0))
+
+    def stiffness_indexed(self, x: torch.Tensor, c0=1.0) -> torch.Tensor:
+        """The oracle of :meth:`stiffness`: gather -> per-element full-G
+        contraction -> indexed scatter, plain torch on every device."""
+        B, D, G = self._tensors("stiffness_indexed", x.device,
+                                lambda: (self._B, self._D, self._G))
+        coeff = -torch.as_tensor(c0, dtype=torch_dtype(self.dtype), device=x.device) ** 2
+        return self.scatter(ek.stiffness_element_full(self.gather(x), B, D, G, coeff))
