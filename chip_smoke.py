@@ -5,8 +5,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises, so the script exits non-zero and
-never prints its last line:
+Phases (numbered in the order they were added; 12 and 13 run after 6, 14
+after 8); any failure raises, so the script exits non-zero and never prints
+its last line:
 
 1. device: a CUDA card, its name and power limit (nvidia-smi), TF32 off
    for the plain versions;
@@ -74,22 +75,42 @@ never prints its last line:
     general (the Gauss mass, Jacobi): kernel K launched solves x (1 +
     iterations) times; then the assembled CSR SpMV (``torch.sparse.mm``)
     against kernel K's stiffness on the perturbed 16^3-cell box (274,625
-    dofs), both times.
+    dofs), both times;
+12. kernel E (the 3D-slab stiffness/m, p > 8 or kernel='3d') against its
+    plain version: f64 at p in {9, 10} on small grids and kernel='3d' at
+    p = 4, limit 1e-12 relative; f32, one apply at the P12 size (planar3d
+    p = 10, 26x13x13 cells, 4,479,021 dofs, padded (304, 152, 256)), limit
+    1e-5 of max|ref|; the padding exactly 0; with its time against the
+    bound;
+13. kernel J (two full-tableau RK4 steps, 7 launches) against its plain
+    version (f64, (4,2,2) cells, tile 24, p in {2, 4}, 25 steps, the odd
+    last step on kernel C; limit 1e-12 relative) and against kernel C's
+    steps (1e-13); f32 at the P1 width, 50 steps, limit 1e-4; with its time
+    per two steps against two kernel-C steps and the bound;
+14. the new app paths, each counted alone (warm-up call included): P12 RK4
+    p = 10 on kernel E (4 x (3,762 + 1) launches), P13 leapfrog p = 10 on
+    kernel E ((5,299 + 1) + 2), P14 ``--two-step`` at the P1 configuration
+    (kernel J 7 x (744 + 1) = 5,215, kernel A 4 for the odd last step), and
+    P15: the P1 configuration through ``--config`` and ``--checkpoint-dir``,
+    300 steps in chunks of 100, snapshots at steps 100 and 200, then a
+    second call that resumes from step 200; each call's final state within
+    1e-5 relative of one unchunked 300-step run.
 
-It prints one JSON line of per-kernel results ("kernels": the paths'
-kernels, with each path's launch counts; "off_path_kernels": kernel B,
-with its launches summed over the five app runs) and,
-last, one JSON line ``{"ok": true, "device": {...}}``. Without a CUDA card,
-or outside a checkout of the repository, it exits non-zero and prints no
-result.
+It prints one JSON line of per-kernel results ("kernels": all eleven
+kernels, each with the launches of its path's run; kernel B's path is the
+f1-path RK4 check) and, last, one JSON line ``{"ok": true, "device":
+{...}}``. Without a CUDA card, or outside a checkout of the repository, it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -97,6 +118,8 @@ ROOT = Path(__file__).resolve().parent
 HEADLINE = dict(cells=(64, 32, 32), degree=4)
 HEADLINE_P8 = dict(cells=(32, 16, 16), degree=8)  # the same 4,276,737 dofs
 NDOFS = 4_276_737
+P12 = dict(cells=(26, 13, 13), degree=10)  # the 3D-slab layout, kernel E
+P12_DOFS = 4_479_021
 BP1 = dict(size=64, degree=4)  # the reference's documented BP1 size
 BP1_DOFS = 16_974_593
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -158,6 +181,7 @@ def main() -> None:
         lfstep,
         mass,
         rk4step,
+        rk42step,
         stiffness,
         wave,
     )
@@ -168,6 +192,7 @@ def main() -> None:
     )
     from wave_fenics_tpu_torch.ops.operators import GeneralOperators, StructuredOperators
     from wave_fenics_tpu_torch.solvers.cg import cg
+    from wave_fenics_tpu_torch.utils.config import SimulationConfig
     from wave_fenics_tpu_torch.utils.timing import Timer, timeit
 
     # the launch counters, one per kernel
@@ -176,7 +201,8 @@ def main() -> None:
         "C": rk4step.rk4_step_full_cuda, "D": wave.rk_stage_cuda,
         "H": lfstep.lf_step_cuda, "I": lf2step.lf2_step_cuda,
         "F": stiffness.stiffness_grid_cuda, "G": mass.mass_apply_cuda,
-        "K": general.general_apply_cuda,
+        "K": general.general_apply_cuda, "E": wave.apply_slab_cuda,
+        "J": rk42step.rk42_step_cuda,
     }
 
     def zero_counts():
@@ -196,11 +222,12 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
-    def small_model(p, dtype=torch.float64, lean=True):
-        mesh = box_mesh((4, 2, 2), (0.01, 0.005, 0.005),
+    def small_model(p, dtype=torch.float64, lean=True, tile_x=16, cells=(4, 2, 2),
+                    kernel="flat"):
+        mesh = box_mesh(cells, (0.01, 0.005, 0.005),
                         facet_tags=FacetTags({1: (0,), 2: (1,)}))
         return PaddedLinearWave(LinearWave(mesh, p=p, dtype=dtype, device=dev),
-                                tile_x=16, lean=lean)
+                                tile_x=tile_x, lean=lean, kernel=kernel)
 
     def random_padded(layout, seed, dtype, scale=1.0):
         x = np.zeros(layout.padded_shape)
@@ -219,10 +246,22 @@ def main() -> None:
 
     def plain_solve(pm, kind, dt, nsteps, u0, v0):
         """The model solver of ``kind`` ('lean', 'full', 'fused', 'lf',
-        'lf2') on the plain versions, on the card, from (u0, v0)."""
+        'lf2', 'rk42') on the plain versions, on the card, from (u0, v0)."""
         u, v = u0, v0
         t, b = 0.0, pm.base
         g, lay, c0 = b.g_amplitude, pm.layout, b.c0
+        if kind == "rk42":
+            for _ in range(nsteps // 2):
+                u, v = rk42step.rk42_step_plain(
+                    u, v, dt, [g(t + j * 0.5 * dt) for j in range(5)], lay, c0,
+                    pm.stencil, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+                t = t + 2 * dt
+            if nsteps % 2:
+                step = (rk4step.rk4_step_lean_plain if pm.lean
+                        else rk4step.rk4_step_full_plain)
+                u, v = step(u, v, dt, [g(t + c * dt) for c in RK_C], lay, c0,
+                            pm.step_tables)
+            return u, v
         n = nsteps // 2 if kind == "lf2" else nsteps
         for _ in range(n):
             if kind in ("lean", "full"):
@@ -254,7 +293,7 @@ def main() -> None:
     def kernel_solve(pm, kind, dt, nsteps, u0, v0):
         solve = {"lean": pm.solve_step_n, "full": pm.solve_step_n,
                  "fused": pm.solve_fused_n, "lf": pm.solve_lf_n,
-                 "lf2": pm.solve_lf2_n}[kind]
+                 "lf2": pm.solve_lf2_n, "rk42": pm.solve_step2_n}[kind]
         u, v, _ = solve(0.0, dt, nsteps, u0, v0)
         return u, v
 
@@ -390,6 +429,13 @@ def main() -> None:
                 print(f"kernel C vs kernel A f64 p={p}: relative error "
                       f"{rel:.3e} (limit 1e-13)")
                 check(rel <= 1e-13, f"kernel C vs kernel A p={p}")
+            if name == "J":  # the same steps, one step per call of kernel C
+                uc, vc = kernel_solve(small_model(p, **model_kw), "full", 1e-9, 25,
+                                      u0, v0)
+                _, rel = state_err(uk, vk, uc, vc)
+                print(f"kernel J vs kernel C f64 p={p}: relative error "
+                      f"{rel:.3e} (limit 1e-13)")
+                check(rel <= 1e-13, f"kernel J vs kernel C p={p}")
 
     def check_full_width(name, kind, pm, dt):
         u0, v0 = random_state(pm, 5)
@@ -573,6 +619,83 @@ def main() -> None:
         print(f"kernel {k}: {ms:.4f} ms/apply, plain {plain_ms:.4f} ms, bound "
               f"{bms:.4f} ms ({by}) [{smi}]")
 
+    # -- 12. kernel E -------------------------------------------------------
+    phase("kernel E (apply_slab) against apply_slab_plain")
+    for p, cells, kernel in ((9, (2, 1, 1), "flat"), (10, (2, 1, 1), "flat"),
+                             (10, (3, 2, 1), "flat"), (4, (4, 2, 2), "3d")):
+        spm = small_model(p, cells=cells, kernel=kernel)
+        check(spm.kernel == "3d", f"p={p} {kernel}: the 3D-slab layout")
+        x = random_padded(spm.layout, 90 + p, torch.float64)
+        yk = wave.apply_slab_cuda(x, spm.layout, spm.slab_tables)
+        yp = wave.apply_slab_plain(x, spm.layout, spm.slab_tables)
+        torch.cuda.synchronize()
+        _, rel = rel_err(yk, yp)
+        print(f"f64 {cells} p={p} kernel={kernel!r}, padded {spm.layout.padded_shape}: "
+              f"max|err|/max|ref| = {rel:.3e} (limit 1e-12)")
+        check(rel <= 1e-12, f"kernel E f64 p={p} {kernel}")
+        padding_zero(spm.layout, yk)
+    case12, epm = planar3d_app.build(**P12, dtype="f32", device="cuda")
+    print(f"P12 size: {case12.model.ops.ndofs} dofs, padded {epm.layout.padded_shape}, "
+          f"tile_x {epm.layout.tile_x}, {case12.nsteps} RK4 steps")
+    check(case12.model.ops.ndofs == P12_DOFS and epm.kernel == "3d"
+          and epm.layout.padded_shape == (304, 152, 256), "the P12 model")
+    x = random_padded(epm.layout, 93, torch.float32)
+    yk = wave.apply_slab_cuda(x, epm.layout, epm.slab_tables)
+    yp = wave.apply_slab_plain(x, epm.layout, epm.slab_tables)
+    torch.cuda.synchronize()
+    e_err, rel = rel_err(yk, yp)
+    print(f"f32 P12 size ({nbytes(x) / 1e6:.1f} MB/field): max|err| = {e_err:.6e}, "
+          f"max|err|/max|ref| = {rel:.3e} (limit 1e-5)")
+    check(rel <= 1e-5, "kernel E f32 agreement")
+    padding_zero(epm.layout, yk)
+    out_e = torch.empty_like(x)
+    e_ms = 1e3 * timeit(lambda: wave.apply_slab_cuda(x, epm.layout, epm.slab_tables,
+                                                     out=out_e))
+    e_plain_ms = 1e3 * timeit(lambda: wave.apply_slab_plain(x, epm.layout,
+                                                            epm.slab_tables), reps=5)
+    # x's interior in once, the padded y out once, the tables; 3(2p+1) taps
+    # at 2 flops, 3 line products and 2 adds on each interior point
+    K10 = 2 * 10 + 1
+    results["E"] = (e_err, e_ms, e_plain_ms,
+                    op_bound(math.prod(epm.layout.shape) * x.element_size()
+                             + nbytes(out_e, *epm.slab_tables),
+                             math.prod(epm.layout.shape) * (6 * K10 + 5)))
+    del x, yk, yp, out_e, epm
+
+    # -- 13. kernel J -------------------------------------------------------
+    phase("kernel J (2-step RK4, 7 launches) against rk42_step_plain")
+    # tile 24 holds the 6p halo at p=4; lean=False puts the odd 25th step on
+    # kernel C, so the comparison with kernel C's steps is like for like
+    check_small("J", "rk42", (2, 4), tile_x=24, lean=False)
+    case, jpm = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda")
+    j_err, uk, vk = check_full_width("J", "rk42", jpm, case.dt)
+    gs5 = [jpm.base.g_amplitude(j * 0.5 * case.dt) for j in range(5)]
+    face = (jpm.layout, jpm.base.c0, jpm.stencil, jpm.face_w1, jpm.face_w2,
+            jpm.src_x, jpm.abc_x)
+    bufs = [torch.empty_like(uk) for _ in range(10)]
+    j_ms = 1e3 * timeit(lambda: rk42step.rk42_step_cuda(
+        uk, vk, case.dt, gs5, *face, out=tuple(bufs[:2]), scratch=tuple(bufs[2:8])))
+
+    def two_c_steps():
+        a = rk4step.rk4_step_full_cuda(uk, vk, case.dt, gs5[0:2] + gs5[1:3], *face,
+                                       out=tuple(bufs[:2]), scratch=tuple(bufs[2:5]))
+        rk4step.rk4_step_full_cuda(*a, case.dt, gs5[2:4] + gs5[3:5], *face,
+                                   out=tuple(bufs[8:10]), scratch=tuple(bufs[2:5]))
+
+    c2_ms = 1e3 * timeit(two_c_steps)
+    j_plain_ms = 1e3 * timeit(lambda: rk42step.rk42_step_plain(uk, vk, case.dt, gs5,
+                                                               *face), reps=5)
+    # u0, v0 in and u2, v2 out once; eight stencil applies (the boundary
+    # launch makes two) and ~60 point-wise flops a point
+    results["J"] = (j_err, j_ms, j_plain_ms, bound(jpm, 4, 8, 60))
+    print(f"kernel J: {j_ms:.4f} ms per 2 steps ({rk42step.LAUNCHES_PER_CALL} "
+          f"launches), two kernel-C steps {c2_ms:.4f} ms (8 launches), plain "
+          f"{j_plain_ms:.4f} ms, bound {results['J'][3][0]:.4f} ms "
+          f"({results['J'][3][1]}) [{smi}]")
+    print(f"kernel E: {e_ms:.4f} ms/apply, plain {e_plain_ms:.4f} ms, bound "
+          f"{results['E'][3][0]:.4f} ms ({results['E'][3][1]}) [{smi}]")
+    del uk, vk, bufs, jpm
+
     # -- 7. physics ---------------------------------------------------------
     phase("physics: f64 analytic plane wave through solve_step_n")
     pcase = planar3d_case(ncells=(16, 2, 2), domain_length=6.0e-3,
@@ -707,6 +830,83 @@ def main() -> None:
     check(per_step > 0, "two-point rate")
     print(f"two-point rate ({n_hi}-{n_lo} steps): {per_step * 1e3:.4f} ms/step, "
           f"{NDOFS / per_step / 1e9:.4f} GDoF*steps/s [{smi}]")
+
+    # -- 14. the new app paths: kernel E at p = 10, kernel J, checkpoints -----
+    # (label, run kwargs, expected launches per kernel from the step count,
+    #  what solver_path must name)
+    new_paths = [
+        ("P12 RK4 p=10, kernel E", dict(**P12), {"E": lambda n: 4 * (n + 1)},
+         "kernel E"),
+        ("P13 leapfrog p=10, kernel E", dict(**P12, integrator="leapfrog"),
+         {"E": lambda n: (n + 1) + 2}, "kernel E"),
+        ("P14 RK4 two-step, kernel J", dict(**HEADLINE, two_step=True),
+         {"J": lambda n: 7 * (n // 2 + 1), "A": lambda n: 4 * (n % 2)}, "kernel J"),
+    ]
+    path_counts = {}
+    for label, kw, want_of, name in new_paths:
+        phase(f"app path {label}: planar3d_app.run()")
+        zero_counts()
+        out = planar3d_app.run(**kw, dtype="f32", device="cuda")
+        counts = read_counts()
+        print(json.dumps(out))
+        apps[label] = out
+        want = {k: f(out["nsteps"]) for k, f in want_of.items()}
+        print(f"{label}: {out['nsteps']} steps, launches {counts}, want {want}; "
+              f"{out['solve_seconds']:.4f} s, {out['gdof_steps_per_s']:.4f} "
+              f"GDoF*steps/s [{smi}]")
+        check(name in out["solver_path"], f"{label}: solver_path names {name}")
+        check(math.isfinite(out["u_norm"]) and out["u_norm"] > 0,
+              f"{label}: finite, nonzero u")
+        for k, n in want.items():
+            check(counts[k] == n, f"{label}: kernel {k} launched {counts[k]}, want {n}")
+        others = {k: n for k, n in counts.items() if k not in want and n}
+        check(not others, f"{label}: other kernels launched {others}")
+        path_counts[label] = counts
+    p12, p13, p14 = (apps[label] for label, *_ in new_paths)
+    launches["E"] = path_counts["P12 RK4 p=10, kernel E"]["E"]
+    launches["J"] = path_counts["P14 RK4 two-step, kernel J"]["J"]
+    check(p12["ndofs"] == p13["ndofs"] == P12_DOFS and p14["ndofs"] == NDOFS, "ndofs")
+    check(p12["nsteps"] == case12.nsteps == 3762, "P12 steps")
+    check(p13["nsteps"] == math.ceil(case12.nsteps / 0.71) == 5299, "P13 steps")
+    check(p14["nsteps"] == 1489 and launches["J"] == 5215, "P14 steps and launches")
+    rel = abs(p14["u_norm"] - p1["u_norm"]) / p1["u_norm"]
+    print(f"P14 against P1 (the same RK4, two steps per call): |u| relative "
+          f"difference {rel:.3e} (limit 1e-4)")
+    check(rel <= 1e-4, "the two-step path agrees with the step path")
+
+    phase("P15 the P1 configuration through --config and --checkpoint-dir")
+    with tempfile.TemporaryDirectory(prefix="_p15_", dir=ROOT) as tmp:
+        cfg = SimulationConfig()
+        cfg.run.checkpoint_every_steps = 100
+        cfg_path = os.path.join(tmp, "p1.json")
+        Path(cfg_path).write_text(cfg.to_json())
+        ckpt = os.path.join(tmp, "ckpt")
+        argv = ["--config", cfg_path, "--checkpoint-dir", ckpt, "--steps", "300"]
+        p15 = []
+        for call in (1, 2):
+            cfg_c, kw = planar3d_app.parse_args(argv)
+            zero_counts()
+            out, u, v = planar3d_app.run(cfg_c, **kw, return_state=True)
+            counts = read_counts()
+            print(json.dumps(out))
+            ran = out["nsteps"] - out["resumed_from_step"]
+            print(f"P15 call {call}: resumed from step {out['resumed_from_step']}, "
+                  f"{ran} steps, snapshots {sorted(os.listdir(ckpt))}, launches {counts}")
+            check(out["nsteps"] == 300 and out["resumed_from_step"] == (0, 200)[call - 1],
+                  f"P15 call {call}: resumed from {out['resumed_from_step']}")
+            check(sorted(os.listdir(ckpt)) == ["step_000000100.npz", "step_000000200.npz"],
+                  f"P15 call {call}: snapshots at 100 and 200")
+            check(counts["A"] == 4 * (ran + 1)
+                  and not {k: n for k, n in counts.items() if k != "A" and n},
+                  f"P15 call {call}: launches {counts}")
+            p15.append((u, v))
+        _, ur, vr = planar3d_app.run(SimulationConfig(), steps=300, return_state=True)
+        for call, (u, v) in enumerate(p15, 1):
+            _, rel = state_err(u, v, ur, vr)
+            print(f"P15 call {call} against one unchunked 300-step run: relative "
+                  f"error {rel:.3e} (limit 1e-5)")
+            check(rel <= 1e-5, f"P15 call {call} against the unchunked run")
+    del p15, ur, vr
 
     # -- 9. the operator benchmark paths -----------------------------------
     def only(counts, kernel, label):
@@ -935,17 +1135,23 @@ def main() -> None:
     check(rel_csr <= 1e-5, "kernel K against the assembled CSR SpMV")
     del A16, x, out_k, y_csr
 
-    # "kernels": the paths' kernels, each with the launches of its path's
-    # run (G: P6, F: P7 stiffness, K: P8); "off_path_kernels": kernel B,
-    # which no app path launches
+    # "kernels": all eleven, each with the launches of its path's run (G:
+    # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
+    # since no app path at p <= 8 launches it)
     src = "wave_fenics_tpu_torch/csrc/wave_kernels.cu"
+    src_slab = "wave_fenics_tpu_torch/csrc/slab_kernels.cu"
     src_ops = "wave_fenics_tpu_torch/csrc/operator_kernels.cu"
     src_gen = "wave_fenics_tpu_torch/csrc/general_kernels.cu"
     results["A"] = (a_err, a_ms, a_plain_ms, a_bound)
+    results["B"] = (b_err, b_ms, b_plain_ms, b_bound)
     launches["K"] = k_paths["P8"]
+    launches["B"] = f1_launches
     meta = {
         "A": ("rk4_stage_kernel<T, J, true> (kernel A: lean RK4 step, 4 stage "
               "launches; ms per step)", "wave_fenics_tpu/ops/pallas_rk4step.py:201", src),
+        "B": ("apply_flat_kernel (kernel B: stiffness/m on the flat layout, p=4; ms "
+              "per apply; launches: the f1-path RK4, 2 steps)",
+              "wave_fenics_tpu/ops/pallas_wave.py:336", src),
         "C": ("rk4_stage_kernel<T, J, false> (kernel C: full-tableau RK4 step, 4 "
               "stage launches; ms per step)", "wave_fenics_tpu/ops/pallas_rk4step.py:67", src),
         "D": ("rk_stage_kernel (kernel D: one fused RK4 stage, p=8; ms per "
@@ -964,6 +1170,12 @@ def main() -> None:
               "explicit-dofmap matvec, stiffness with per-node G on the perturbed "
               "64x32x32-cell box, p=4; ms per apply)",
               "wave_fenics_tpu/ops/pallas_general.py:185", src_gen),
+        "E": ("apply_slab_kernel (kernel E: stiffness/m on the 3D-slab layout, "
+              "p=10, 26x13x13 cells; ms per apply)",
+              "wave_fenics_tpu/ops/pallas_wave.py:128", src_slab),
+        "J": ("rk4_stage_kernel<T, J, false> x 6 + rk42_boundary_kernel (kernel J: "
+              "two full-tableau RK4 steps, 7 launches, p=4; ms per call of 2 steps)",
+              "wave_fenics_tpu/ops/pallas_rk42step.py:97", src),
     }
     kernels = []
     for k, (name, replaces, source) in meta.items():
@@ -974,9 +1186,15 @@ def main() -> None:
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
         })
-    kernels[-1]["launches_per_path"] = k_paths
-    kernels[-1]["ms_per_mode"] = {"P8 mass": k_modes["mass"][1], **{
+    by_name = {k: entry for k, entry in zip(meta, kernels)}
+    by_name["K"]["launches_per_path"] = k_paths
+    by_name["K"]["ms_per_mode"] = {"P8 mass": k_modes["mass"][1], **{
         k: v for k, v in k_modes.items() if k.startswith("P10")}}
+    by_name["B"]["app_path_launches"] = b_on_paths
+    by_name["E"]["launches_per_path"] = {
+        label: path_counts[label]["E"] for label in path_counts if "kernel E" in label}
+    by_name["J"]["two_c_steps_ms"] = c2_ms
+    by_name["J"]["odd_step_launches_A"] = path_counts["P14 RK4 two-step, kernel J"]["A"]
     # the same kernel at 16^3 cells, beside the one PyTorch call that computes
     # its function there (the assembled matrix at the P8 size would not fit
     # a host assembly)
@@ -991,23 +1209,9 @@ def main() -> None:
         "plain_ms": plain16, "bound_ms": bound16[0], "bound_by": bound16[1],
         "library_ms": csr_ms,
     })
-    off_path = [{
-        "name": "apply_flat_kernel (kernel B: stiffness/m on the flat layout)",
-        "route": "cuda",
-        "source": src,
-        "replaces": "wave_fenics_tpu/ops/pallas_wave.py:336",
-        "launches": b_on_paths,
-        "f1_check_launches": f1_launches,
-        "max_abs_err": b_err,
-        "ms": b_ms,
-        "plain_ms": b_plain_ms,
-        "bound_ms": b_bound[0],
-        "bound_by": b_bound[1],
-        "library_ms": None,
-    }]
     print(f"total {time.perf_counter() - t_start:.1f} s after the device check")
     print(smi)
-    print(json.dumps({"kernels": kernels, "off_path_kernels": off_path}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,12 @@ from wave_fenics_tpu_torch.core.mesh import FacetTags, box_mesh
 from wave_fenics_tpu_torch.models.linear_wave import LinearWave
 from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
 
+# The suite runs in several worker processes at once. torch's intra-op
+# thread pool, sized to all cores in each of them, oversubscribes the
+# machine, and its spinning threads slow these small-tensor tests down by
+# a factor of 50 or more; one thread per process runs them at full speed.
+torch.set_num_threads(1)
+
 EXTENT = (0.01, 0.005, 0.005)
 X_FACES = {1: (0,), 2: (1,)}
 

@@ -1,0 +1,196 @@
+"""The app's entry point: the port's SimulationConfig against the JAX
+package's (the same JSON, the same case), the fields the port cannot honour
+yet, snapshots in the JAX package's .npz format both ways, and the chunked,
+checkpointed and resumed runs against one unchunked run (CPU, f64)."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_cases  # noqa: F401  (one torch thread per test process)
+from wave_fenics_tpu.utils import checkpoint as jcheckpoint
+from wave_fenics_tpu.utils.config import SimulationConfig as JSimulationConfig
+from wave_fenics_tpu_torch.apps import planar3d_app
+from wave_fenics_tpu_torch.utils import checkpoint
+from wave_fenics_tpu_torch.utils.config import SimulationConfig
+
+TOL = 1e-12
+
+
+def _jax_config_json():
+    cfg = JSimulationConfig()
+    cfg.domain.ncells = (6, 2, 2)
+    cfg.domain.degree = 3
+    cfg.physics.source_frequency = 0.6e6
+    cfg.time.cfl = 0.4
+    cfg.time.n_tail_periods = 3.0
+    cfg.run.dtype = "f64"
+    cfg.run.checkpoint_every_steps = 7
+    return cfg, cfg.to_json()
+
+
+def test_jax_config_file_loads_and_builds_the_same_case():
+    jcfg, text = _jax_config_json()
+    cfg = SimulationConfig.from_json(text)
+    assert json.loads(cfg.to_json()) == json.loads(text)
+    jc, c = jcfg.build_case(), cfg.build_case(device="cpu")
+    assert (c.dt, c.nsteps, c.steps_per_period) == (jc.dt, jc.nsteps, jc.steps_per_period)
+    assert c.model.ops.ndofs == jc.model.ops.ndofs
+    assert c.model.dtype == torch.float64 and c.model.p == 3
+
+
+@pytest.mark.parametrize("section,name,value,item", [
+    ("domain", "mesh_path", "mesh.xdmf", "item 8"),
+    ("domain", "meshtags_path", "tags.xdmf", "item 8"),
+    ("run", "ndev", 2, "item 10"),
+    ("run", "dtype", "bf16", "item 9"),
+    ("run", "output_path", "out.xdmf", "item 4"),
+])
+def test_unsupported_fields_raise(section, name, value, item):
+    cfg = SimulationConfig()
+    setattr(getattr(cfg, section), name, value)
+    with pytest.raises(ValueError, match=item):
+        cfg.build_case(device="cpu")
+
+
+def test_force_padded_is_accepted():
+    cfg = SimulationConfig()
+    cfg.domain.ncells = (4, 2, 2)
+    cfg.run.force_padded = True
+    assert cfg.build_case(device="cpu").model.ops.ndofs > 0
+
+
+def test_snapshots_cross_between_packages(tmp_path):
+    rng = np.random.default_rng(0)
+    u, v = rng.standard_normal((3, 4, 5)), rng.standard_normal((3, 4, 5))
+    jcheckpoint.save_state(str(tmp_path / "x.npz"), u, v, 1.25e-6, {"step": 7})
+    lu, lv, t, meta = checkpoint.load_state(str(tmp_path / "x.npz"))
+    np.testing.assert_array_equal(lu, u)
+    np.testing.assert_array_equal(lv, v)
+    assert (t, meta) == (1.25e-6, {"step": 7})
+    checkpoint.save_state(str(tmp_path / "y"), torch.as_tensor(u), torch.as_tensor(v),
+                          2.5e-6, {"step": 9})
+    ju, jv, jt, jmeta = jcheckpoint.load_state(str(tmp_path / "y.npz"))
+    np.testing.assert_array_equal(ju, u)
+    np.testing.assert_array_equal(jv, v)
+    assert (jt, jmeta) == (2.5e-6, {"step": 9})
+
+
+def test_checkpoint_manager_keeps_the_newest(tmp_path):
+    cm = checkpoint.CheckpointManager(str(tmp_path / "ck"), every_steps=2, keep=2)
+    assert cm.restore() is None
+    for step in (2, 4, 6):
+        cm.save(step, np.full(3, step), np.zeros(3), step * 0.5)
+    assert sorted(os.listdir(tmp_path / "ck")) == ["step_000000004.npz",
+                                                  "step_000000006.npz"]
+    step, u, _, t, _ = cm.restore()
+    assert step == 6 and t == 3.0 and u[0] == 6
+
+
+# (integrator, two_step, tile_x, chunk): the two-step path with an odd
+# chunk, whose every chunk ends on the lean step kernel
+PATHS = [("rk4", False, None, 4), ("leapfrog", False, None, 4), ("rk4", True, 24, 3)]
+
+
+def _config(integrator, chunk):
+    cfg = SimulationConfig()
+    cfg.domain.ncells = (4, 2, 2)
+    cfg.run.dtype = "f64"
+    cfg.time.integrator = integrator
+    cfg.run.checkpoint_every_steps = chunk
+    return cfg
+
+
+def _run(cfg, two_step, tile_x, steps, checkpoint_dir=None):
+    return planar3d_app.run(cfg, device="cpu", steps=steps, tile_x=tile_x,
+                            two_step=two_step, checkpoint_dir=checkpoint_dir,
+                            return_state=True)
+
+
+def _assert_close(u, v, u_ref, v_ref):
+    vmax = float(v_ref.abs().max())
+    assert vmax > 0.0
+    assert float((u - u_ref).abs().max()) <= TOL * max(vmax, 1.0)
+    assert float((v - v_ref).abs().max()) <= TOL * vmax
+
+
+@pytest.mark.parametrize("integrator,two_step,tile_x,chunk", PATHS)
+def test_chunked_run_matches_unchunked(tmp_path, integrator, two_step, tile_x, chunk):
+    """11 steps in chunks with a snapshot after each chunk but the last:
+    the state of one unchunked run."""
+    _, u0, v0 = _run(_config(integrator, chunk), two_step, tile_x, 11)
+    ck = tmp_path / "ck"
+    out, u, v = _run(_config(integrator, chunk), two_step, tile_x, 11, str(ck))
+    _assert_close(u, v, u0, v0)
+    saved = list(range(chunk, 11, chunk))
+    assert sorted(os.listdir(ck)) == [f"step_{s:09d}.npz" for s in saved[-3:]]
+    assert out["resumed_from_step"] == 0 and out["nsteps"] == 11
+    _, lu, _, t, _ = checkpoint.CheckpointManager(str(ck)).restore()
+    assert lu.shape == tuple(u.shape)
+    assert t == pytest.approx(saved[-1] * out["dt"], rel=1e-14)
+
+
+@pytest.mark.parametrize("integrator,two_step,tile_x,chunk", PATHS)
+def test_resumed_run_matches_uninterrupted(tmp_path, integrator, two_step, tile_x,
+                                           chunk):
+    """A run stopped after 5 steps and restarted for 11 resumes from its
+    last snapshot and ends on the uninterrupted run's state."""
+    _, u0, v0 = _run(_config(integrator, chunk), two_step, tile_x, 11)
+    ck = str(tmp_path / "ck")
+    _run(_config(integrator, chunk), two_step, tile_x, 5, ck)
+    out, u, v = _run(_config(integrator, chunk), two_step, tile_x, 11, ck)
+    assert out["resumed_from_step"] == chunk
+    _assert_close(u, v, u0, v0)
+
+
+def test_main_with_config_file_and_checkpoint_dir(tmp_path, capsys):
+    """The command line: a config file the JAX package wrote, a checkpoint
+    directory, a resumed second call; flags override the file."""
+    cfg = JSimulationConfig()
+    cfg.domain.ncells = (4, 2, 2)
+    cfg.domain.degree = 2
+    cfg.run.dtype = "f64"
+    cfg.run.checkpoint_every_steps = 3
+    path = tmp_path / "cfg.json"
+    path.write_text(cfg.to_json())
+    argv = ["--config", str(path), "--checkpoint-dir", str(tmp_path / "ck"),
+            "--device", "cpu", "--steps", "7", "--degree", "4"]
+    planar3d_app.main(argv)
+    first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    planar3d_app.main(argv)
+    second = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ("ndofs", "nsteps", "steps_per_period", "solve_seconds",
+                "gdof_steps_per_s", "u_norm", "solver_path", "compile_seconds",
+                "warmup_seconds"):
+        assert key in first
+    assert first["ndofs"] == 17 * 9 * 9  # degree 4 from the flag
+    assert (first["resumed_from_step"], second["resumed_from_step"]) == (0, 6)
+    assert second["u_norm"] == pytest.approx(first["u_norm"], rel=1e-12)
+
+
+def test_two_step_raises_where_kernel_j_does_not_apply():
+    """No fallback: --two-step at tile 16 and p = 4 (below the 6p slab
+    halo), at p > 8 (the 3D-slab layout), and with leapfrog."""
+    with pytest.raises(ValueError, match="6p slab halo"):
+        planar3d_app.run(cells=(4, 2, 2), device="cpu", steps=2, tile_x=16,
+                         two_step=True)
+    with pytest.raises(ValueError, match="needs the flat layout"):
+        planar3d_app.run(cells=(2, 1, 1), degree=9, device="cpu", steps=2,
+                         two_step=True)
+    with pytest.raises(ValueError, match="kernel I"):
+        planar3d_app.run(cells=(4, 2, 2), device="cpu", steps=2,
+                         integrator="leapfrog", two_step=True)
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "leapfrog"])
+def test_high_degree_app_path_is_kernel_e(integrator):
+    """p = 9: the app's RK4 on f1 and leapfrog on force run kernel E's
+    plain version on the CPU, as the JAX app's padded XLA paths do."""
+    out, u, _ = planar3d_app.run(cells=(2, 1, 1), degree=9, dtype="f64", device="cpu",
+                                 steps=3, integrator=integrator, return_state=True)
+    assert out["solver_path"] == ("plain torch RK4 on f1 (CPU)" if integrator == "rk4"
+                                  else "plain torch leapfrog on force (CPU)")
+    assert out["u_norm"] > 0.0 and tuple(u.shape) == (64, 32, 128)

@@ -189,16 +189,25 @@ _J = {f"rk4 stage J={j}": 5 for j in range(4)}
     (dict(degree=8), "leapfrog", "leapfrog step", {"lf OPEN": 5, "lf CLOSE": 5}),
     (dict(y_faces=True), "rk4", "RK4 on f1", {"apply_flat (B)": 20}),
     (dict(y_faces=True), "leapfrog", "leapfrog on force", {"apply_flat (B)": 6}),
+    (dict(two_step=True), "rk4", "2-step RK4",
+     {"rk4 stage J=0": 3, "rk4 stage J=1": 5, "rk4 stage J=2": 5, "rk4 stage J=3": 3,
+      "rk42 boundary (J)": 2}),
+    (dict(degree=9, cells=(2, 1, 1)), "rk4", "RK4 on f1", {"apply_slab (E)": 20}),
+    (dict(degree=9, cells=(2, 1, 1)), "leapfrog", "leapfrog on force",
+     {"apply_slab (E)": 6}),
 ])
 def test_profile_expected_launches_follow_the_app_path(kw, integrator, path, want):
     """profile_step's expected launches per kernel (5 steps) are those of the
     path the app picks for the same model."""
-    if kw.get("y_faces"):
+    kw = dict(kw)
+    two_step = kw.pop("two_step", False)
+    if kw.pop("y_faces", False):
         pm = PaddedLinearWave(torch_model(p=2, tags={1: (2,), 2: (3,)}), tile_x=16)
     else:
-        _, pm = planar3d_app.build(cells=(4, 2, 2), dtype="f64", device="cpu", **kw)
-    assert path in planar3d_app.solver_path(pm, integrator)[0]
-    assert profile_step.expected_launches(pm, integrator, 5) == want
+        kw.setdefault("cells", (4, 2, 2))
+        _, pm = planar3d_app.build(dtype="f64", device="cpu", **kw)
+    assert path in planar3d_app.solver_path(pm, integrator, two_step)[0]
+    assert profile_step.expected_launches(pm, integrator, 5, two_step) == want
 
 
 def test_app_cli_full_tableau(capsys):

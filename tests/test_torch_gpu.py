@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (A, B, C, D, F, G, H, I, K) against their
-plain versions (float64).
+"""The hand-written CUDA kernels (A to K) against their plain versions
+(float64; kernel E also in float32).
 
 Every test here needs a CUDA card and skips without one. The file imports
 only torch and the port, so it runs on a machine without JAX:
@@ -11,13 +11,23 @@ import numpy as np
 import pytest
 import torch
 
+from wave_fenics_tpu_torch.apps import planar3d_app
 from wave_fenics_tpu_torch.benchmarks.general_solve import LEAPFROG_DT, min_edge, perturbed_box
 from wave_fenics_tpu_torch.core.dofmap import build_dofmap
 from wave_fenics_tpu_torch.core.mesh import FacetTags, box_mesh
 from wave_fenics_tpu_torch.models.general_wave import GeneralLinearWave
 from wave_fenics_tpu_torch.models.linear_wave import LinearWave
 from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
-from wave_fenics_tpu_torch.ops import general, lf2step, lfstep, mass, rk4step, stiffness, wave
+from wave_fenics_tpu_torch.ops import (
+    general,
+    lf2step,
+    lfstep,
+    mass,
+    rk4step,
+    rk42step,
+    stiffness,
+    wave,
+)
 from wave_fenics_tpu_torch.ops.operators import GeneralOperators, StructuredOperators
 from wave_fenics_tpu_torch.solvers.cg import cg
 
@@ -437,3 +447,109 @@ def test_cuda_general_wave_solve_n_matches_cpu(cuda, integrator):
         0.0, dt, 10, integrator=integrator)
     assert general.general_apply_cuda.launches == n0 + (40 if integrator == "rk4" else 11)
     _assert_state_close(u_g.cpu(), v_g.cpu(), u_c, v_c)
+
+
+def _slab_model(p, device, shape=(2, 1, 1), dtype=F64, kernel="flat"):
+    mesh = box_mesh(shape, (0.01, 0.005, 0.005),
+                    facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    return PaddedLinearWave(LinearWave(mesh, p=p, dtype=dtype, device=device),
+                            tile_x=16, kernel=kernel)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("p,shape,kernel", [(9, (2, 1, 1), "flat"), (10, (2, 1, 1), "flat"),
+                                            (10, (3, 2, 1), "flat"), (4, (4, 2, 2), "3d")])
+def test_cuda_apply_slab_matches_plain(cuda, p, shape, kernel, dtype):
+    """Kernel E (p > 8, or kernel='3d') through the model's _apply against
+    its plain version; every padded cell exactly 0."""
+    pm = _slab_model(p, cuda, shape, dtype, kernel)
+    assert pm.kernel == "3d"
+    x = _random_padded(pm.layout, 110 + p, cuda).to(dtype)
+    n0 = wave.apply_slab_cuda.launches
+    y = pm._apply(x)
+    torch.cuda.synchronize()
+    assert wave.apply_slab_cuda.launches == n0 + 1
+    ref = wave.apply_slab_plain(x, pm.layout, pm.slab_tables)
+    assert _rel(y, ref) <= (TOL if dtype == F64 else 1e-5)
+    _padding_zero(pm, y)
+
+
+def test_cuda_slab_solve_n_matches_cpu(cuda):
+    """RK4 on f1 at p = 9: four kernel-E launches per step, the CPU state."""
+    u_c, v_c = _slab_model(9, "cpu").solve_n(0.0, DT, 5)
+    pm = _slab_model(9, cuda)
+    n0 = wave.apply_slab_cuda.launches
+    u_g, v_g = pm.solve_n(0.0, DT, 5)
+    assert wave.apply_slab_cuda.launches == n0 + 20
+    _assert_state_close(u_g.cpu(), v_g.cpu(), u_c, v_c)
+
+
+RK42_GS = (1.0, 0.8, 0.55, 0.3, 0.1)
+
+
+def _rk42_model(p, device, lean=True):
+    mesh = box_mesh((4, 2, 2), (0.01, 0.005, 0.005),
+                    facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    return PaddedLinearWave(LinearWave(mesh, p=p, dtype=F64, device=device),
+                            tile_x=24, lean=lean)
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_cuda_rk42_step_matches_plain_and_two_c_steps(cuda, p):
+    """Kernel J (7 launches) against its plain version (1e-12) and against
+    two kernel-C steps (1e-13), from a random state."""
+    pm = _rk42_model(p, cuda)
+    u0 = _random_padded(pm.layout, 120 + p, cuda)
+    v0 = _random_padded(pm.layout, 121 + p, cuda, scale=1e3)
+    face = (pm.layout, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2,
+            pm.src_x, pm.abc_x)
+    n0, c0 = rk42step.rk42_step_cuda.launches, rk4step.rk4_step_full_cuda.launches
+    uk, vk = rk42step.rk42_step(u0, v0, DT, RK42_GS, *face)
+    torch.cuda.synchronize()
+    assert rk42step.rk42_step_cuda.launches == n0 + rk42step.LAUNCHES_PER_CALL
+    assert rk4step.rk4_step_full_cuda.launches == c0
+    up, vp = rk42step.rk42_step_plain(u0, v0, DT, RK42_GS, *face)
+    _assert_state_close(uk, vk, up, vp)
+    g = RK42_GS
+    uc, vc = rk4step.rk4_step_full_cuda(u0, v0, DT, (g[0], g[1], g[1], g[2]), *face)
+    uc, vc = rk4step.rk4_step_full_cuda(uc, vc, DT, (g[2], g[3], g[3], g[4]), *face)
+    _assert_state_close(uk, vk, uc, vc, 1e-13)
+    _padding_zero(pm, uk, vk)
+
+
+@pytest.mark.parametrize("lean", [True, False])
+@pytest.mark.parametrize("nsteps", [12, 13])
+def test_cuda_solve_step2_n_launches_and_cpu(cuda, nsteps, lean):
+    """solve_step2_n: 7 kernel-J launches per 2 steps; an odd last step
+    through kernel A (lean) or C; the CPU state."""
+    u_c, v_c, _ = _rk42_model(4, "cpu", lean).solve_step2_n(0.0, DT, nsteps)
+    step = rk4step.rk4_step_lean_cuda if lean else rk4step.rk4_step_full_cuda
+    nj, ns = rk42step.rk42_step_cuda.launches, step.launches
+    u_g, v_g, _ = _rk42_model(4, cuda, lean).solve_step2_n(0.0, DT, nsteps)
+    assert rk42step.rk42_step_cuda.launches == nj + 7 * (nsteps // 2)
+    assert step.launches == ns + 4 * (nsteps % 2)
+    _assert_state_close(u_g.cpu(), v_g.cpu(), u_c, v_c)
+
+
+def test_cuda_rk42_rejects_aliasing(cuda):
+    pm = _rk42_model(2, cuda)
+    u0 = _random_padded(pm.layout, 130, cuda)
+    v0 = _random_padded(pm.layout, 131, cuda)
+    with pytest.raises(ValueError, match="alias"):
+        rk42step.rk42_step_cuda(u0, v0, DT, RK42_GS, pm.layout, pm.base.c0,
+                                pm.stencil, pm.face_w1, pm.face_w2, pm.src_x,
+                                pm.abc_x, out=(u0, torch.empty_like(v0)))
+
+
+@pytest.mark.parametrize("integrator,per_step,extra", [("rk4", 4, 0), ("leapfrog", 1, 1)])
+def test_cuda_slab_app_paths(cuda, integrator, per_step, extra):
+    """The app at p = 10 on a small grid: the f1/force paths on kernel E,
+    with the warm-up call's launches (RK4: 4 per step; leapfrog: one per
+    step and one at t0, per solve)."""
+    wave.apply_slab_cuda.launches = 0
+    out = planar3d_app.run(cells=(3, 2, 2), degree=10, dtype="f64", device="cuda",
+                           steps=6, integrator=integrator)
+    n = out["nsteps"]
+    assert n == 6 and "kernel E" in out["solver_path"]
+    assert wave.apply_slab_cuda.launches == per_step * (n + 1) + 2 * extra
+    assert np.isfinite(out["u_norm"]) and out["u_norm"] > 0.0

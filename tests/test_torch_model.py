@@ -77,9 +77,15 @@ def test_solve_step_n_raises_when_tile_below_halo():
 
 
 def test_high_degree_raises():
-    """p > 8 needs the 3D-slab kernel, which is not ported: raise."""
-    with pytest.raises(ValueError, match="kernel E"):
-        PaddedLinearWave(torch_model(shape=(2, 1, 1), p=9))
+    """p = 9 resolves to the 3D-slab layout (kernel E), as the JAX model
+    does, and what raises there are the fused solvers, which need the flat
+    layout."""
+    pm = PaddedLinearWave(torch_model(shape=(2, 1, 1), p=9))
+    assert pm.kernel == "3d" and pm.layout.z_align == 128
+    with pytest.raises(ValueError, match="needs the flat layout"):
+        pm.solve_step_n(0.0, 1e-9, 1)
+    u, v = pm.solve_n(0.0, 1e-9, 1)
+    assert float(v.abs().max()) > 0.0
 
 
 def test_app_device_cuda_raises_without_card():
@@ -108,8 +114,9 @@ def test_app_cpu_run_matches_model(capsys):
 
 
 def test_port_never_imports_jax():
-    """Importing the port, the app, the leapfrog and fused-stage modules
-    and the benchmarks included, loads neither JAX nor the JAX package (run
+    """Importing the port, the app, its config and checkpoints, the
+    leapfrog, fused-stage and 2-step modules and the benchmarks included,
+    loads neither JAX nor the JAX package (run
     in a fresh interpreter: this test process has both)."""
     code = (
         "import sys\n"
@@ -123,6 +130,9 @@ def test_port_never_imports_jax():
         "import wave_fenics_tpu_torch.benchmarks.operators_bench\n"
         "import wave_fenics_tpu_torch.core.geometry\n"
         "import wave_fenics_tpu_torch.ops.la\n"
+        "import wave_fenics_tpu_torch.ops.rk42step\n"
+        "import wave_fenics_tpu_torch.utils.config\n"
+        "import wave_fenics_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'wave_fenics_tpu')]\n"
         "print(bad)\n"

@@ -2,31 +2,40 @@
 
 Port of the single-device structured branch of
 ``wave_fenics_tpu.apps.planar3d_app`` (demo/cpu_planar3d/main.cpp:14-98):
-build the planar3d case, put it in the padded layout, run the whole solve
-through the fastest solver path that applies, and print one JSON dict with
-the JAX app's keys plus ``integrator``, the ``dt`` it stepped with,
-``build_seconds`` (the kernel build) and ``warmup_seconds`` (one kernel
-call from the initial state), the last two outside the solve timer.
+build the planar3d case from a ``SimulationConfig`` (``utils/config.py``;
+a JSON file with ``--config``, the JAX package's format), put it in the
+padded layout, run the solve through the fastest solver path that applies,
+in chunks of ``run.checkpoint_every_steps`` with a snapshot after each
+chunk but the last when ``--checkpoint-dir`` is given (a later run resumes
+from the latest snapshot, ``utils/checkpoint.py``), and print one JSON dict
+with the JAX app's keys plus ``integrator``, the ``dt`` it stepped with,
+``build_seconds`` (the kernel build, also ``compile_seconds``),
+``warmup_seconds`` (one kernel call from the initial state; the last two
+outside the solve timer) and ``resumed_from_step``.
 
 The path is chosen by applicability, in the JAX app's order, never by
 catching a failure:
 
-- RK4: the step kernel (A, or C with ``--full-tableau``) where its slab
-  halo fits the tile; else the stage kernel D where the x-face planes
-  exist; else RK4 on ``f1`` (kernel B);
+- RK4: ``--two-step``: the 2-step kernel J (raises where it does not
+  apply); else the step kernel (A, or C with ``--full-tableau``) where its
+  slab halo fits the tile; else the stage kernel D where the x-face planes
+  exist; else RK4 on ``f1`` (kernel B, or kernel E on the 3D-slab layout
+  the model takes for p > 8);
 - leapfrog (dt x 0.71, ceil(nsteps / 0.71) steps): the 2-step kernel I
   (kernel H for an odd last step); else the step kernel H; else
-  ``solvers/leapfrog.py`` on ``force`` (kernel B).
+  ``solvers/leapfrog.py`` on ``force`` (kernel B, or E).
 
 Run:
-  python -m wave_fenics_tpu_torch.apps.planar3d_app [--cells 64 32 32]
-         [--degree 4] [--dtype f32|f64] [--tile-x 48] [--device cuda]
-         [--steps N] [--integrator rk4|leapfrog] [--full-tableau]
+  python -m wave_fenics_tpu_torch.apps.planar3d_app [--config cfg.json]
+         [--checkpoint-dir ckpt] [--cells 64 32 32] [--degree 4]
+         [--dtype f32|f64] [--tile-x 48] [--device cuda] [--steps N]
+         [--integrator rk4|leapfrog] [--full-tableau] [--two-step]
 
-``--device cuda`` needs a card and raises without one; ``--device cpu``
-runs the plain versions (small grids only). Config files, checkpoints,
-XDMF output, sharding and the app's imported-mesh branch (``--mesh``) are
-not ported yet; imported meshes run through ``models.general_wave``.
+Flags given on the command line override the config file. ``--device cuda``
+needs a card and raises without one; ``--device cpu`` runs the plain
+versions (small grids only). XDMF output, sharding and the app's
+imported-mesh branch are not ported yet (their config fields raise);
+imported meshes run through ``models.general_wave``.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import argparse
 import json
 import math
 import time
+from pathlib import Path
 
 import torch
 
@@ -42,12 +52,27 @@ from ..models.linear_wave_padded import PaddedLinearWave
 from ..models.planar3d import Planar3DCase, planar3d_case
 from ..ops import _cuda
 from ..solvers.leapfrog import leapfrog_solve_n
+from ..utils.checkpoint import CheckpointManager
+from ..utils.config import DTYPES, SimulationConfig
 from ..utils.logging import device_info, get_logger, progress
 from ..utils.timing import Timer, sync
 
 log = get_logger("planar3d")
 
-_DTYPES = {"f32": torch.float32, "f64": torch.float64}
+
+def _device(device: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {device}: no CUDA card is available")
+    return dev
+
+
+def padded_model(case: Planar3DCase, tile_x: int | None = None,
+                 lean: bool = True) -> PaddedLinearWave:
+    """The case's model in the padded layout: tile 48 at p=4, as the JAX
+    app, else 16; the port keeps the layout unchanged."""
+    tx = tile_x if tile_x is not None else (48 if case.model.p == 4 else 16)
+    return PaddedLinearWave(case.model, tile_x=tx, lean=lean)
 
 
 def build(
@@ -59,43 +84,56 @@ def build(
     lean: bool = True,
 ) -> tuple[Planar3DCase, PaddedLinearWave]:
     """The planar3d case and its padded model on ``device``."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {device}: no CUDA card is available")
     case = planar3d_case(
         ncells=tuple(cells), domain_length=0.1, degree=degree,
-        dtype=_DTYPES[dtype], device=dev,
+        dtype=DTYPES[dtype], device=_device(device),
     )
-    # tile 48 at p=4, as the JAX app; the port keeps its layout unchanged
-    tx = tile_x if tile_x is not None else (48 if degree == 4 else 16)
-    return case, PaddedLinearWave(case.model, tile_x=tx, lean=lean)
+    return case, padded_model(case, tile_x, lean)
 
 
-def solver_path(pm: PaddedLinearWave, integrator: str = "rk4"):
+def solver_path(pm: PaddedLinearWave, integrator: str = "rk4",
+                two_step: bool = False):
     """(name, solve, warm-up steps) of the fastest path that applies to
-    ``pm``: ``solve(t0, dt, n) -> (u, v)``. The name says which kernel
-    runs (or that the plain versions run, on the CPU)."""
+    ``pm``: ``solve(t0, dt, n, u0=None, v0=None) -> (u, v)`` from (u0, v0),
+    or from the zero state. The name says which kernel runs (or that the
+    plain versions run, on the CPU). ``two_step`` asks for kernel J and
+    raises where it does not apply."""
     cuda = pm.base.device.type == "cuda"
+    stiffness = "kernel E" if pm.kernel == "3d" else "kernel B"
 
     def named(kernel: str, plain: str) -> str:
-        return (f"CUDA {kernel} (csrc/wave_kernels.cu)" if cuda
+        src = "slab_kernels.cu" if "kernel E" in kernel else "wave_kernels.cu"
+        return (f"CUDA {kernel} (csrc/{src})" if cuda
                 else f"plain torch {plain} (CPU)")
 
-    def first2(solve):
-        return lambda t0, dt, n: solve(t0, dt, n)[:2]
+    def kernel_solve(solve):
+        return lambda t0, dt, n, u0=None, v0=None: solve(t0, dt, n, u0, v0)[:2]
 
+    def state(u0, v0):
+        return pm.zero_state() if u0 is None else (u0, v0)
+
+    if two_step:
+        if integrator != "rk4":
+            raise ValueError(
+                "--two-step selects the 2-step RK4 kernel J; leapfrog already "
+                "runs two steps per call of kernel I")
+        pm._require(pm.rk42_unavailable, "--two-step: fused 2-step RK4 kernel")
+        tail = "A" if pm.lean else "C"
+        return (named(f"2-step RK4 kernel J, 7 launches per 2 steps; kernel "
+                      f"{tail} for an odd last step", "2-step RK4"),
+                kernel_solve(pm.solve_step2_n), 2)
     if integrator == "leapfrog":
         if pm.lf2_unavailable is None:
             return (named("2-step leapfrog kernel I, 3 launches per 2 steps; "
                           "kernel H for an odd last step",
-                          "2-step leapfrog"), first2(pm.solve_lf2_n), 2)
+                          "2-step leapfrog"), kernel_solve(pm.solve_lf2_n), 2)
         if pm.lf_unavailable is None:
             return (named("leapfrog step kernel H, 2 launches/step",
-                          "leapfrog step"), first2(pm.solve_lf_n), 1)
-        return (named("leapfrog on force = stiffness kernel B",
+                          "leapfrog step"), kernel_solve(pm.solve_lf_n), 1)
+        return (named(f"leapfrog on force = stiffness {stiffness}",
                       "leapfrog on force"),
-                lambda t0, dt, n: leapfrog_solve_n(
-                    pm.force, pm.damping, *pm.zero_state(), t0, dt, n), 1)
+                lambda t0, dt, n, u0=None, v0=None: leapfrog_solve_n(
+                    pm.force, pm.damping, *state(u0, v0), t0, dt, n), 1)
     if integrator != "rk4":
         raise ValueError(f"integrator {integrator!r}: rk4 or leapfrog")
     if pm.step_unavailable is None:
@@ -105,26 +143,49 @@ def solver_path(pm: PaddedLinearWave, integrator: str = "rk4"):
         else:
             name = named("full-tableau RK4 step kernel C, 4 stage launches/step",
                          "full-tableau RK4 step")
-        return name, first2(pm.solve_step_n), 1
+        return name, kernel_solve(pm.solve_step_n), 1
     if pm.stage_unavailable is None:
         return (named("RK4 stage kernel D, 4 launches/step", "fused RK4 stage"),
-                first2(pm.solve_fused_n), 1)
-    return (named("RK4 on f1 = stiffness kernel B, 4 launches/step",
-                  "RK4 on f1"), pm.solve_n, 1)
+                kernel_solve(pm.solve_fused_n), 1)
+    return (named(f"RK4 on f1 = stiffness {stiffness}, 4 launches/step",
+                  "RK4 on f1"),
+            lambda t0, dt, n, u0=None, v0=None: pm.solve_n(
+                t0, dt, n, *state(u0, v0)), 1)
 
 
 def run(
-    cells=(64, 32, 32),
-    degree: int = 4,
-    dtype: str = "f32",
+    cfg: SimulationConfig | None = None,
+    *,
+    cells=None,
+    degree: int | None = None,
+    dtype: str | None = None,
+    integrator: str | None = None,
+    checkpoint_dir: str | None = None,
     tile_x: int | None = None,
     device: str = "cuda",
     steps: int | None = None,
-    integrator: str = "rk4",
     lean: bool = True,
-) -> dict:
-    case, pm = build(cells, degree, dtype, tile_x, device, lean)
+    two_step: bool = False,
+    return_state: bool = False,
+):
+    """Run the planar3d app on ``cfg`` (default ``SimulationConfig()``);
+    the keywords ``cells``, ``degree``, ``dtype``, ``integrator`` and
+    ``checkpoint_dir`` override its fields, as the command-line flags do.
+    ``steps`` caps the step count. Returns the JSON dict, or (dict, u, v)
+    with the final padded state when ``return_state``."""
+    cfg = cfg if cfg is not None else SimulationConfig()
+    for value, section, name in ((cells, cfg.domain, "ncells"),
+                                 (degree, cfg.domain, "degree"),
+                                 (dtype, cfg.run, "dtype"),
+                                 (integrator, cfg.time, "integrator"),
+                                 (checkpoint_dir, cfg.run, "checkpoint_dir")):
+        if value is not None:
+            setattr(section, name, tuple(value) if name == "ncells" else value)
+    case = cfg.build_case(device=_device(device))
+    pm = padded_model(case, tile_x, lean)
     m = case.model
+    dev = m.device
+    integrator = cfg.time.integrator
     dt = case.dt
     nstep = case.nsteps
     if integrator == "leapfrog":
@@ -135,7 +196,6 @@ def run(
         log.info("integrator: leapfrog (1 stiffness apply/step, dt*0.71)")
     if steps is not None:
         nstep = min(steps, nstep)
-    dev = m.device
 
     log.info("devices:\n%s", device_info())
     log.info("Number of steps per period: %d", case.steps_per_period)
@@ -149,8 +209,25 @@ def run(
         _cuda.library()
         build_s = time.perf_counter() - tb
         log.info("kernel build: %.3f s (excluded from solve time)", build_s)
-    path, solve, warm_steps = solver_path(pm, integrator)
+    path, solve, warm_steps = solver_path(pm, integrator, two_step)
     log.info("solver path: %s", path)
+
+    cm = (CheckpointManager(cfg.run.checkpoint_dir, cfg.run.checkpoint_every_steps)
+          if cfg.run.checkpoint_dir else None)
+    t = case.t0
+    step0 = 0
+    u = v = None
+    if cm is not None:
+        snap = cm.restore()
+        if snap is not None:
+            step0, u_np, v_np, t, _ = snap
+            u = torch.as_tensor(u_np, dtype=m.dtype, device=dev)
+            v = torch.as_tensor(v_np, dtype=m.dtype, device=dev)
+            if tuple(u.shape) != pm.layout.padded_shape:
+                # a snapshot on the unpadded grid
+                u, v = pm.from_grid(u), pm.from_grid(v)
+            log.info("resumed from step %d (t=%.6e)", step0, t)
+    chunk = cfg.run.checkpoint_every_steps if cm is not None else max(nstep, 1)
 
     # one kernel call from the initial state, discarded: allocates the
     # kernel's buffers and pays first-launch costs outside the solve timer
@@ -161,47 +238,79 @@ def run(
     log.info("warmup: %.3f s (excluded from solve time)", warmup_s)
 
     tm = Timer(dev)
+    step = step0
     with tm("solve"):
-        u, v = solve(case.t0, dt, nstep)
+        while step < nstep:
+            n = min(chunk, nstep - step)
+            u, v = solve(t, dt, n, u, v)
+            step += n
+            t = t + n * dt
+            progress(step, nstep, t, every=1)
+            if cm is not None and step < nstep:
+                cm.save(step, u, v, t)
     solve_s = tm.seconds("solve")
-    progress(nstep, nstep, case.t0 + nstep * dt, every=1)
     log.info("Solve time: %.3f s", solve_s)
-    return {
+    if u is None:  # nothing to run: the initial state
+        u, v = pm.zero_state()
+    out = {
         "ndofs": int(m.ops.ndofs),
         "nsteps": nstep,
         "steps_per_period": case.steps_per_period,
         "solve_seconds": solve_s,
-        "gdof_steps_per_s": m.ops.ndofs * nstep / solve_s / 1e9,
+        "gdof_steps_per_s": (m.ops.ndofs * (nstep - step0) / solve_s / 1e9
+                             if solve_s > 0 else 0.0),
         "u_norm": float(torch.linalg.norm(u.float())),
         "solver_path": path,
+        "compile_seconds": build_s,
+        "warmup_seconds": warmup_s,
         "integrator": integrator,
         "dt": dt,
         "build_seconds": build_s,
-        "warmup_seconds": warmup_s,
+        "resumed_from_step": step0,
     }
+    return (out, u, v) if return_state else out
 
 
-def main(argv=None):
+def parse_args(argv=None) -> tuple[SimulationConfig, dict]:
+    """(config, keyword arguments of :func:`run`) from the command line."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cells", type=int, nargs=3, default=(64, 32, 32))
-    ap.add_argument("--degree", type=int, default=4)
-    ap.add_argument("--dtype", choices=sorted(_DTYPES), default="f32")
+    ap.add_argument("--config", type=str, default=None,
+                    help="a SimulationConfig JSON file (the JAX package's format)")
+    ap.add_argument("--checkpoint-dir", type=str, default=None,
+                    help="snapshot after each chunk of run.checkpoint_every_steps "
+                         "steps; resume from the latest snapshot there")
+    ap.add_argument("--cells", type=int, nargs=3, default=None)
+    ap.add_argument("--degree", type=int, default=None)
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default=None)
     ap.add_argument("--tile-x", type=int, default=None,
                     help="padded-layout x tile (default 48 at p=4, else 16)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=None,
                     help="cap on the number of steps (default: the case's "
                          "full nsteps)")
-    ap.add_argument("--integrator", choices=("rk4", "leapfrog"), default="rk4",
+    ap.add_argument("--integrator", choices=("rk4", "leapfrog"), default=None,
                     help="leapfrog: 1 stiffness apply/step, 2nd order, dt "
                          "scaled by 0.71")
     ap.add_argument("--full-tableau", action="store_true",
                     help="RK4 step kernel with the full Butcher tableau "
                          "(kernel C) instead of the lean stage algebra")
+    ap.add_argument("--two-step", action="store_true",
+                    help="RK4 with two steps per call of kernel J (raises "
+                         "where it does not apply)")
     args = ap.parse_args(argv)
-    out = run(args.cells, args.degree, args.dtype, args.tile_x, args.device,
-              args.steps, args.integrator, not args.full_tableau)
-    print(json.dumps(out))
+    cfg = (SimulationConfig.from_json(Path(args.config).read_text())
+           if args.config else SimulationConfig())
+    return cfg, dict(
+        cells=args.cells, degree=args.degree, dtype=args.dtype,
+        integrator=args.integrator, checkpoint_dir=args.checkpoint_dir,
+        tile_x=args.tile_x, device=args.device, steps=args.steps,
+        lean=not args.full_tableau, two_step=args.two_step,
+    )
+
+
+def main(argv=None):
+    cfg, kw = parse_args(argv)
+    print(json.dumps(run(cfg, **kw)))
 
 
 if __name__ == "__main__":

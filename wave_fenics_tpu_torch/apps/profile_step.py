@@ -2,11 +2,13 @@
 
 Builds the planar3d case as the app does (``planar3d_app.build``), takes the
 solver path the app would take (``planar3d_app.solver_path``: RK4 through
-kernel A, C or D, or leapfrog through kernel I or H), warms up, and runs it
-twice:
+kernel A, C, D or, with ``--two-step``, J, or RK4 on ``f1`` through kernel
+E at p > 8; leapfrog through kernel I or H, or on ``force`` through kernel
+E at p > 8), warms up, and runs it twice:
 
 - under ``torch.profiler``: per kernel instance (each stage of kernels A
-  and C, kernel D, each phase of kernels H and I) the launches and the
+  and C, which kernel J also launches, J's step-boundary kernel, kernel D,
+  each phase of kernels H and I, kernel E) the launches and the
   device microseconds per launch, the bandwidth those times imply for the
   state fields each launch has to move (a model of the traffic, not a
   count), and the device's busy share (device time of all kernels / wall
@@ -33,7 +35,9 @@ Run from the repository root on a machine with a CUDA card:
 
     python -m wave_fenics_tpu_torch.apps.profile_step [--cells 64 32 32]
            [--degree 4] [--dtype f32|f64] [--tile-x 48] [--steps 100]
-           [--integrator rk4|leapfrog] [--full-tableau]
+           [--integrator rk4|leapfrog] [--full-tableau] [--two-step]
+    python -m wave_fenics_tpu_torch.apps.profile_step --degree 10 \
+           --cells 26 13 13 [--integrator leapfrog]    # kernel E
     python -m wave_fenics_tpu_torch.apps.profile_step --bp1 --cells 64 64 64
     python -m wave_fenics_tpu_torch.apps.profile_step --general [--steps 20]
 
@@ -66,38 +70,48 @@ from . import planar3d_app
 #: fields it reads or writes in full; point-wise reads on the source/ABC
 #: rows only are not counted). Kernels A/C stage J: J=0 u0 -> kv0; J=1 u0,
 #: v0 -> kv1; J=2 u0, v0, kv0 -> kv2; J=3 u0, v0, kv0, kv1, kv2 -> u1, v1.
-#: D: u0, ku, v0, kv, ua, va -> vn, kv', ua', va'. H/I: OPEN u0, v0 -> u1,
-#: v+; MID u1, v+ -> u2, v+'; CLOSE u1, v+ -> v1.
+#: Kernel J's boundary: u0, v0, kv0, kv1, kv2 -> u1, v1, kv0'. D: u0, ku,
+#: v0, kv, ua, va -> vn, kv', ua', va'. H/I: OPEN u0, v0 -> u1, v+; MID u1,
+#: v+ -> u2, v+'; CLOSE u1, v+ -> v1. E: x -> y.
 KERNELS = [
     (r"rk4_stage_kernel<[^,<>]+,\s*0,", "rk4 stage J=0", 2),
     (r"rk4_stage_kernel<[^,<>]+,\s*1,", "rk4 stage J=1", 3),
     (r"rk4_stage_kernel<[^,<>]+,\s*2,", "rk4 stage J=2", 4),
     (r"rk4_stage_kernel<[^,<>]+,\s*3,", "rk4 stage J=3", 7),
+    (r"rk42_boundary_kernel<", "rk42 boundary (J)", 8),
     (r"rk_stage_kernel<", "rk stage (D)", 10),
     (r"lf_phase_kernel<[^,<>]+,\s*0>", "lf OPEN", 4),
     (r"lf_phase_kernel<[^,<>]+,\s*1>", "lf MID", 4),
     (r"lf_phase_kernel<[^,<>]+,\s*2>", "lf CLOSE", 3),
     (r"apply_flat_kernel<", "apply_flat (B)", 2),
+    (r"apply_slab_kernel<", "apply_slab (E)", 2),
 ]
 _KERNEL_RES = [(re.compile(pat), label, fields) for pat, label, fields in KERNELS]
 
 
-def expected_launches(pm, integrator: str, steps: int) -> dict[str, int]:
+def expected_launches(pm, integrator: str, steps: int,
+                      two_step: bool = False) -> dict[str, int]:
     """Launches per kernel label that ``steps`` steps of the path
-    ``planar3d_app.solver_path(pm, integrator)`` make, decided by the same
-    applicability checks in the same order."""
+    ``planar3d_app.solver_path(pm, integrator, two_step)`` make, decided by
+    the same applicability checks in the same order."""
+    stiffness = "apply_slab (E)" if pm.kernel == "3d" else "apply_flat (B)"
+    if two_step:  # J: C's stages 0, 1, 2, boundary, 1, 2, 3; odd step: A/C
+        half, odd = divmod(steps, 2)
+        return {"rk4 stage J=0": half + odd, "rk4 stage J=1": 2 * half + odd,
+                "rk4 stage J=2": 2 * half + odd, "rk4 stage J=3": half + odd,
+                "rk42 boundary (J)": half}
     if integrator == "leapfrog":
         if pm.lf2_unavailable is None:  # I; an odd last step through H
             half, odd = divmod(steps, 2)
             return {"lf OPEN": half + odd, "lf MID": half, "lf CLOSE": half + odd}
         if pm.lf_unavailable is None:  # H
             return {"lf OPEN": steps, "lf CLOSE": steps}
-        return {"apply_flat (B)": steps + 1}  # one force per step, and F(t0)
+        return {stiffness: steps + 1}  # one force per step, and F(t0)
     if pm.step_unavailable is None:  # A or C
         return {f"rk4 stage J={j}": steps for j in range(4)}
     if pm.stage_unavailable is None:  # D
         return {"rk stage (D)": 4 * steps}
-    return {"apply_flat (B)": 4 * steps}  # RK4 on f1
+    return {stiffness: 4 * steps}  # RK4 on f1
 
 
 def card_line() -> str:
@@ -109,7 +123,8 @@ def card_line() -> str:
 
 
 def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
-            steps=100, warmup=6, integrator="rk4", lean=True) -> dict:
+            steps=100, warmup=6, integrator="rk4", lean=True,
+            two_step=False) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -119,7 +134,7 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
     torch.backends.cudnn.allow_tf32 = False
     case, pm = planar3d_app.build(cells, degree, dtype, tile_x, "cuda", lean)
     dt = case.dt * (0.71 if integrator == "leapfrog" else 1.0)
-    path, solve, _ = planar3d_app.solver_path(pm, integrator)
+    path, solve, _ = planar3d_app.solver_path(pm, integrator, two_step)
     dev = pm.base.device
     field_bytes = math.prod(pm.layout.padded_shape) \
         * torch.finfo(pm.base.dtype).bits // 8
@@ -159,7 +174,7 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
             f"{n}: it does not trace this card; time with CUDA events instead "
             "(utils.timing.timeit)")
     seen = {label: k for label, k in n.items() if k}
-    want = expected_launches(pm, integrator, steps)
+    want = expected_launches(pm, integrator, steps, two_step)
     if seen != want:
         raise RuntimeError(
             f"{path}: the profiler saw kernel launches {seen}, the path makes "
@@ -178,13 +193,16 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
     return {
         "card": card_line(),
         "cells": list(cells), "degree": degree, "dtype": dtype,
-        "integrator": integrator, "lean": lean, "solver_path": path,
+        "integrator": integrator, "lean": lean, "two_step": two_step,
+        "solver_path": path,
         "ndofs": int(case.model.ops.ndofs),
         "padded_shape": list(pm.layout.padded_shape),
         "field_bytes": field_bytes,
         "steps": steps,
         "kernels": kernels,
         "kernel_us_per_step": kernel_us / steps,
+        # the plain-torch vector kernels of the f1/force paths (E, B)
+        "other_device_us_per_step": (busy_us - kernel_us) / steps,
         "model_gbps": moved / (kernel_us * 1e-6) / 1e9,
         "profiled_wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_share": busy_us / wall_us,
@@ -328,6 +346,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--integrator", choices=("rk4", "leapfrog"), default="rk4")
     ap.add_argument("--full-tableau", action="store_true")
+    ap.add_argument("--two-step", action="store_true",
+                    help="RK4 through the 2-step kernel J")
     ap.add_argument("--bp1", action="store_true",
                     help="profile one BP1 CG solve (kernel G) on a unit box "
                          "of --cells")
@@ -361,14 +381,16 @@ def main(argv=None):
         print(json.dumps(out))
         return
     out = profile(args.cells, args.degree, args.dtype, args.tile_x, args.steps,
-                  integrator=args.integrator, lean=not args.full_tableau)
+                  integrator=args.integrator, lean=not args.full_tableau,
+                  two_step=args.two_step)
     print(out["card"])
     print(out["solver_path"])
     for k in out["kernels"]:
         print(f"{k['kernel']}: {k['us_per_launch']:.2f} us/launch "
               f"x {k['launches']}, {k['fields']} fields, "
               f"{k['model_gbps']:.1f} GB/s (model)")
-    print(f"kernels {out['kernel_us_per_step']:.1f} us/step; busy share "
+    print(f"kernels {out['kernel_us_per_step']:.1f} us/step, other device "
+          f"kernels {out['other_device_us_per_step']:.1f} us/step; busy share "
           f"{out['device_busy_share']:.4f} under the profiler; enqueue "
           f"{out['enqueue_ms_per_step']:.4f} ms/step, synced "
           f"{out['synced_ms_per_step']:.4f} ms/step without it")

@@ -74,4 +74,59 @@ __device__ __forceinline__ T apply_stencil(const Stencil<T>& s,
   return tx * s.fx[f] + yz * s.sx[g];
 }
 
+// The same A on the 3D-slab layout [Lx, Ly, Lz] (z aligned to 128; kernel
+// E), with the TPU kernel's tables as they are: the banded coefficients
+// cvx [K, Lx], cvy [K, Ly], cvz [K, Lz] and the three 2D line tables
+// lyz [Ly, Lz], lxz [Lx, Lz], lxy [Lx, Ly] (two scaled lumped lines each,
+// 1/m folded in; ops/wave.py::build_tables). At an interior point
+//
+//   (A x)[x, y, z] = lyz[y, z] * sum_k cvx[k, x] * x[x + k - p, y, z]
+//                  + lxz[x, z] * sum_k cvy[k, y] * x[x, y + k - p, z]
+//                  + lxy[x, y] * sum_k cvz[k, z] * x[x, y, z + k - p],
+//
+// the y and z sums starting from their shift-0 tap, as the TPU kernel's.
+// The caller guarantees a padding at least p deep on every side, so no
+// tap of an interior point leaves the state and none is masked.
+template <typename T>
+struct SlabStencil {
+  const T* lyz;
+  const T* lxz;
+  const T* lxy;
+  const T* cvx;
+  const T* cvy;
+  const T* cvz;
+  int p, Lx, Ly, Lz;
+  int x0, nx, h, ny, nz;
+
+  __device__ __forceinline__ bool interior(int gx, int gy, int gz) const {
+    return gx >= x0 && gx < x0 + nx && gy >= h && gy < h + ny && gz >= h &&
+           gz < h + nz;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T apply_slab_stencil(const SlabStencil<T>& s,
+                                                const T* __restrict__ x,
+                                                int gx, int gy, int gz) {
+  const int p = s.p;
+  const int K = 2 * p + 1;
+  const long long plane = (long long)s.Ly * s.Lz;
+  const long long i = gx * plane + (long long)gy * s.Lz + gz;
+
+  T tx = T(0);
+  for (int k = 0; k < K; ++k) tx += s.cvx[k * s.Lx + gx] * x[i + (k - p) * plane];
+  T ty = s.cvy[p * s.Ly + gy] * x[i];
+  T tz = s.cvz[p * s.Lz + gz] * x[i];
+  for (int k = 0; k < K; ++k) {
+    if (k == p) continue;
+    ty += s.cvy[k * s.Ly + gy] * x[i + (k - p) * s.Lz];
+  }
+  for (int k = 0; k < K; ++k) {
+    if (k == p) continue;
+    tz += s.cvz[k * s.Lz + gz] * x[i + (k - p)];
+  }
+  return (tx * s.lyz[gy * s.Lz + gz] + ty * s.lxz[(long long)gx * s.Lz + gz]) +
+         tz * s.lxy[(long long)gx * s.Ly + gy];
+}
+
 }  // namespace wave

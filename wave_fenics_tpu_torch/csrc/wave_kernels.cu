@@ -1,6 +1,6 @@
 // Hand-written Hopper kernels of the planar3d solver paths (sm_90a).
 //
-// Five entry points share the stencil of stencil.cuh:
+// Six entry points share the stencil of stencil.cuh:
 //
 // * apply_flat_kernel (kernel B) replaces the TPU kernel
 //   wave_fenics_tpu/ops/pallas_wave.py::_kernel_flat: y = A x on the flat
@@ -12,6 +12,12 @@
 // * rk4_stage_kernel<J, Lean = false> (kernel C) replaces
 //   pallas_rk4step.py::_kernel_rk4_step: the same step with the full
 //   Butcher tableau (nested stage inputs, b_j-weighted accumulators).
+// * rk42_boundary_kernel with six kernel-C stages (kernel J) replaces
+//   pallas_rk42step.py::_kernel_rk42_step: two full-tableau RK4 steps in
+//   seven launches, the step boundary (step 1's stage 3 and step 2's stage
+//   0) fused into one. The TPU kernel's 6p wedge and its six shrinking
+//   stage windows keep a slab in VMEM; a launch here covers the whole grid,
+//   so they have no counterpart.
 // * rk_stage_kernel (kernel D) replaces pallas_wave.py::_kernel_rk_stage:
 //   one RK4 stage of the fused-stage path, with its running accumulators.
 // * lf_phase_kernel<Phase> (kernels H and I) replaces
@@ -196,6 +202,95 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// Kernel J: two full-tableau RK4 steps in seven launches instead of kernel
+// C's eight. Stages 0..2 of step 1 and stages 1..3 of step 2 are kernel C's
+// rk4_stage_kernel<T, J, false>; the step boundary is one launch of
+// rk42_boundary_kernel, which at each point computes, with a = dt/2 and
+// g = g(t + dt) (the time of step 1's stage 3 and of step 2's stage 0),
+//
+//   kv3  = A un3 + c0^2 g W1 - c0 W2 vn3,    un3 = u0 + dt (v0 + a kv1)
+//   u1   = u0 + dt (((b0 v0 + b1 vn1) + b2 vn2) + b3 vn3)
+//   v1   = v0 + dt (((b0 kv0 + b1 kv1) + b2 kv2) + b3 kv3)
+//   kv0' = A u1 + c0^2 g W1 - c0 W2 v1       (step 2's stage 0)
+//
+// u1 does not depend on kv3, so A u1 forms u1 at each of its taps from
+// (u0, v0, kv0, kv1, kv2) with the expression stage 3 of kernel C writes;
+// only v1, read at the point itself, needs kv3. u1, v1 and kv0' are
+// written for step 2's stages; none of them may alias an input.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct BoundaryArgs {
+  const T* u0;
+  const T* v0;
+  const T* kv0;
+  const T* kv1;
+  const T* kv2;
+  T* u1;
+  T* v1;
+  T* kv0_out;
+  const T* w1;
+  const T* w2;
+  int src_x, abc_x;
+  T dt, g, c0sq, mc0;
+};
+
+template <typename T>
+__device__ __forceinline__ T full_tableau_u1(const BoundaryArgs<T>& a,
+                                             long long j, T dt) {
+  const T half = T(0.5);
+  const T b0 = T(1.0 / 6.0);
+  const T b1 = T(1.0 / 3.0);
+  const T v0 = a.v0[j];
+  const T vn1 = v0 + (half * dt) * a.kv0[j];
+  const T vn2 = v0 + (half * dt) * a.kv1[j];
+  const T vn3 = v0 + dt * a.kv2[j];
+  return a.u0[j] + dt * (((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rk42_boundary_kernel(Stencil<T> s, BoundaryArgs<T> a) {
+  const int F = s.F();
+  const long long n = (long long)s.Lx * F;
+  const T dt = a.dt;
+  const T half = T(0.5);
+  const T b0 = T(1.0 / 6.0);
+  const T b1 = T(1.0 / 3.0);
+  auto un3 = [&a, F, dt, half](int g, int f) -> T {
+    const long long j = (long long)g * F + f;
+    return a.u0[j] + dt * (a.v0[j] + (half * dt) * a.kv1[j]);
+  };
+  auto u1 = [&a, F, dt](int g, int f) -> T {
+    return full_tableau_u1(a, (long long)g * F + f, dt);
+  };
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int g = (int)(i / F);
+    const int f = (int)(i - (long long)g * F);
+    if (!s.interior(g, f)) {
+      a.u1[i] = T(0);
+      a.v1[i] = T(0);
+      a.kv0_out[i] = T(0);
+      continue;
+    }
+    const T v0 = a.v0[i];
+    const T k2 = a.kv2[i];
+    T kv3 = apply_stencil(s, un3, g, f);
+    if (g == a.src_x) kv3 += (a.c0sq * a.g) * a.w1[f];
+    if (g == a.abc_x) kv3 += (a.mc0 * a.w2[f]) * (v0 + dt * k2);
+    const T accv = ((b0 * a.kv0[i] + b1 * a.kv1[i]) + b1 * k2) + b0 * kv3;
+    const T v1 = v0 + dt * accv;
+    T kv = apply_stencil(s, u1, g, f);
+    if (g == a.src_x) kv += (a.c0sq * a.g) * a.w1[f];
+    if (g == a.abc_x) kv += (a.mc0 * a.w2[f]) * v1;
+    a.u1[i] = u1(g, f);
+    a.v1[i] = v1;
+    a.kv0_out[i] = kv;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Kernel D: one stage of the fused-stage RK4 path,
 //
 //   un  = u0 + ca ku   (at every tap)     vn  = v0 + ca kv
@@ -359,6 +454,12 @@ int launch_rk4_stage(int stage, Stencil<T> s, StageArgs<T> a,
 }
 
 template <typename T>
+int launch_rk42_boundary(Stencil<T> s, BoundaryArgs<T> a, cudaStream_t stream) {
+  rk42_boundary_kernel<T><<<blocks_of(s), kThreads, 0, stream>>>(s, a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_rk_stage(Stencil<T> s, RkStageArgs<T> a, cudaStream_t stream) {
   rk_stage_kernel<T><<<blocks_of(s), kThreads, 0, stream>>>(s, a);
   return (int)cudaGetLastError();
@@ -409,6 +510,17 @@ int launch_lf_phase(int phase, Stencil<T> s, LfArgs<T> a,
   }                                                                           \
   WAVE_DEFINE_RK4_STAGE(T, SUFFIX, wave_rk4_stage, true)                      \
   WAVE_DEFINE_RK4_STAGE(T, SUFFIX, wave_rk4_full_stage, false)                \
+  extern "C" int wave_rk42_boundary_##SUFFIX(                                 \
+      const T* u0, const T* v0, const T* kv0, const T* kv1, const T* kv2,     \
+      T* u1, T* v1, T* kv0_out, const T* w1, const T* w2, int src_x,          \
+      int abc_x, double dt, double g, double c0, WAVE_STENCIL_PARAMS(T),      \
+      cudaStream_t stream) {                                                  \
+    wave::BoundaryArgs<T> a{u0, v0, kv0, kv1, kv2, u1, v1, kv0_out, w1, w2,  \
+                            src_x, abc_x, (T)dt, (T)g, (T)(c0 * c0),          \
+                            (T)(-c0)};                                        \
+    return wave::launch_rk42_boundary<T>(                                     \
+        wave::make_stencil<T>(WAVE_STENCIL_ARGS), a, stream);                 \
+  }                                                                           \
   extern "C" int wave_rk_stage_##SUFFIX(                                      \
       const T* u0, const T* ku, const T* v0, const T* kv, const T* ua,        \
       const T* va, T* vn_out, T* kv_out, T* ua_out, T* va_out, const T* w1,   \

@@ -1,40 +1,46 @@
 """Padded-layout wave model: the port's hot path.
 
 Port of ``wave_fenics_tpu.models.linear_wave_padded.PaddedLinearWave``
-(flat layout) with the solver paths of its ``_StepMixin``, ``_FusedMixin``,
-``_LFStepMixin`` and ``_LF2StepMixin``. Same physics as
+with the solver paths of its ``_StepMixin``, ``_FusedMixin``,
+``_LFStepMixin``, ``_LF2StepMixin`` and ``_RK42StepMixin``. Same physics as
 :class:`models.linear_wave.LinearWave`, with the state kept permanently in
-the padded layout of ``ops.wave``:
+the padded layout of ``ops.wave``: the flat layout (z aligned to 16), or,
+for ``kernel='3d'`` and for p > 8 (the flat layout's 8-deep halo window
+holds p <= 8), the 3D-slab layout (z aligned to 128), as the JAX model
+resolves it.
 
-- ``f1``/``solve``/``solve_n``: RK4 on ``f1`` = kernel B (stiffness/m)
-  plus the source/ABC contributions as single-plane updates; ``force`` and
-  ``damping`` split ``f1`` for ``solvers/leapfrog.py``;
+- ``f1``/``solve``/``solve_n``: RK4 on ``f1`` = the stiffness/m (kernel B
+  on the flat layout, kernel E on the 3D-slab layout) plus the source/ABC
+  contributions as single-plane updates; ``force`` and ``damping`` split
+  ``f1`` for ``solvers/leapfrog.py``;
 - ``solve_step_n``: one RK4 step per call of kernel A (lean, the default)
   or kernel C (``lean=False``, the full Butcher tableau), four stage
   launches each on the card;
 - ``solve_fused_n``: RK4 with one call of the stage kernel D per stage;
 - ``solve_lf_n``: leapfrog, one step per call of kernel H (two launches);
 - ``solve_lf2_n``: leapfrog, two steps per call of kernel I (three
-  launches), an odd last step through kernel H.
+  launches), an odd last step through kernel H;
+- ``solve_step2_n``: RK4, two full-tableau steps per call of kernel J
+  (seven launches), an odd last step through the step kernel ``lean``
+  selects (A, or C).
 
-Each kernel path needs one source and one absorbing plane, both on x-faces,
-and the step paths a tile that holds their TPU kernel's slab halo (the JAX
-package's conditions, kept so both packages take the same path on the same
-configuration). Dispatch follows the state's device: CPU tensors run the
-plain versions, CUDA tensors the hand-written kernels. Nothing falls back:
-where a path does not apply, its solver raises a ValueError that names the
-unmet condition (``step_unavailable``, ``stage_unavailable``,
-``lf_unavailable``, ``lf2_unavailable``).
+Each kernel path needs the flat layout, one source and one absorbing plane,
+both on x-faces, and the step paths a tile that holds their TPU kernel's
+slab halo (the JAX package's conditions, kept so both packages take the
+same path on the same configuration). Dispatch follows the state's device:
+CPU tensors run the plain versions, CUDA tensors the hand-written kernels.
+Nothing falls back: where a path does not apply, its solver raises a
+ValueError that names the unmet condition (``step_unavailable``,
+``stage_unavailable``, ``lf_unavailable``, ``lf2_unavailable``,
+``rk42_unavailable``).
 
 Time is a Python float accumulated ``t += dt`` as the JAX package does it,
 and g(t) is evaluated on the host in float64. The JAX package carries t in
 the state dtype, so in float32 its source phase drifts from this one; in
 float64 the two agree.
 
-Not ported yet (ROADMAP.md): the 3D-slab kernel the JAX package takes for
-p > 8 or ``kernel='3d'``, the 2-step RK4 mixin, and the ``*_dyn`` solvers (a
-traced step count has no use in eager PyTorch: the ``*_n`` solvers take any
-count).
+Not ported (ROADMAP.md): the ``*_dyn`` solvers (a traced step count has no
+use in eager PyTorch: the ``*_n`` solvers take any count).
 """
 
 from __future__ import annotations
@@ -46,9 +52,10 @@ from torch import nn
 from ..convert import numpy_dtype
 from ..core.basis import lumped_weight_line
 from ..core.mesh import BOX_FACETS
-from ..ops import lf2step, lfstep
+from ..ops import lf2step, lfstep, rk42step
 from ..ops.lf2step import LF2Tables, build_lf2_tables, lf2_step
 from ..ops.lfstep import LFTables, build_lf_tables, lf_step
+from ..ops.rk42step import rk42_step
 from ..ops.rk4step import (
     StepTables,
     _off0,
@@ -60,9 +67,13 @@ from ..ops.separable import grid_lines, separable_stiffness_tables
 from ..ops.wave import (
     FlatTables,
     PaddedLayout,
+    SlabTables,
     StencilTables,
     apply_flat,
+    apply_slab,
+    build_tables,
     build_tables_flat,
+    check_slab,
     rk_stage,
     stencil_tables,
 )
@@ -75,6 +86,7 @@ _RK_A = (0.0, 0.5, 0.5, 1.0)
 _RK_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
 _RK_C = (0.0, 0.5, 0.5, 1.0)
 _NO_X_FACES = "needs exactly one source and one absorbing plane, both on x-faces"
+_NEEDS_FLAT = "needs the flat layout (kernel='3d' or p > 8)"
 
 
 def _flat_tile_x(p: int, want: int = 16) -> int:
@@ -86,26 +98,32 @@ def _flat_tile_x(p: int, want: int = 16) -> int:
 
 
 class PaddedLinearWave(nn.Module):
-    """``base`` in the padded flat layout; tables are buffers on the base
-    model's device. ``lean`` selects the RK4 step kernel of
-    ``solve_step_n``: the collapsed stage algebra (kernel A, the default)
-    or the full Butcher tableau (kernel C)."""
+    """``base`` in a padded layout; tables are buffers on the base model's
+    device. ``kernel`` is the JAX model's: 'flat' (z aligned to 16, tile
+    rounded to a multiple of p and 8) or '3d' (the 3D-slab layout, z
+    aligned to 128, the tile as given); 'flat' at p > 8 resolves to '3d'
+    (``self.kernel`` holds the resolved name). ``lean`` selects the RK4 step
+    kernel of ``solve_step_n`` and of ``solve_step2_n``'s odd last step: the
+    collapsed stage algebra (kernel A, the default) or the full Butcher
+    tableau (kernel C)."""
 
-    def __init__(self, base: LinearWave, tile_x: int = 16, lean: bool = True):
+    def __init__(self, base: LinearWave, tile_x: int = 16, lean: bool = True,
+                 kernel: str = "flat"):
         super().__init__()
         b = base
-        if b.p > 8:
-            raise ValueError(
-                f"p = {b.p}: the flat padded layout supports p <= 8; the "
-                "3D-slab kernel the JAX package uses beyond that "
-                "(ops/pallas_wave.py::_kernel, kernel E) is not ported yet"
-            )
+        if kernel not in ("flat", "3d"):
+            raise ValueError(f"kernel = {kernel!r}: 'flat' or '3d'")
         self.base = b
+        self.kernel = "3d" if kernel == "3d" or b.p > 8 else "flat"
         shape = tuple(n * b.p + 1 for n in b.mesh.shape)
-        self.layout = PaddedLayout(
-            shape=shape, p=b.p, tile_x=_flat_tile_x(b.p, tile_x), z_align=16
-        )
-        self.layout.check_flat()
+        if self.kernel == "flat":
+            self.layout = PaddedLayout(
+                shape=shape, p=b.p, tile_x=_flat_tile_x(b.p, tile_x), z_align=16
+            )
+            self.layout.check_flat()
+        else:
+            self.layout = PaddedLayout(shape=shape, p=b.p, tile_x=tile_x)
+            check_slab(self.layout)
         self._m_lines = [
             lumped_weight_line(b.mesh.shape[d], b.p, b.mesh.h[d])
             for d in range(3)
@@ -113,25 +131,36 @@ class PaddedLinearWave(nn.Module):
         A, _ = separable_stiffness_tables(b.p, b.mesh.h, b.dtype)
         lines = grid_lines(b.mesh.shape, b.p, b.dtype)
         coeff = -float(b.c0) ** 2
-        self._register("flat", FlatTables, build_tables_flat(
-            self.layout, A, lines, coeff, self._m_lines, b.dtype))
-        self._register("stencil", StencilTables, stencil_tables(
-            self.layout, A, lines, coeff, self._m_lines, b.dtype))
+        if self.kernel == "flat":
+            self._register("flat", FlatTables, build_tables_flat(
+                self.layout, A, lines, coeff, self._m_lines, b.dtype))
+            self._register("stencil", StencilTables, stencil_tables(
+                self.layout, A, lines, coeff, self._m_lines, b.dtype))
+        else:
+            self._register("slab", SlabTables, build_tables(
+                self.layout, A, lines, coeff, self._m_lines, b.dtype))
 
         self._planes = []  # (axis, padded index, 'w1'|'w2')
         for i, (axis, pidx, attr, plane) in enumerate(self._build_boundary_planes()):
             self._planes.append((axis, pidx, attr))
             self.register_buffer(f"plane_{i}", self._tensor(plane))
 
-        # the kernel paths: x-face source/ABC planes, and for the step
-        # kernels a tile that holds their slab halo (the JAX package's
-        # conditions, kept so both packages take the same path)
+        # the kernel paths: the flat layout, x-face source/ABC planes, and
+        # for the step kernels a tile that holds their slab halo (the JAX
+        # package's conditions, kept so both packages take the same path)
         self.lean = lean
+        self._work = None
+        if self.kernel != "flat":
+            self.stage_unavailable = self.step_unavailable = _NEEDS_FLAT
+            self.lf_unavailable = self.lf2_unavailable = _NEEDS_FLAT
+            self.rk42_unavailable = _NEEDS_FLAT
+            return
         planes = _x_face_planes(self)
         self.stage_unavailable = None if planes is not None else _NO_X_FACES
         self.step_unavailable = self._unavailable(planes, _off0(b.p), "3p")
         self.lf_unavailable = self._unavailable(planes, lfstep._off0(b.p), "2p")
         self.lf2_unavailable = self._unavailable(planes, lf2step._off0(b.p), "3p")
+        self.rk42_unavailable = self._unavailable(planes, rk42step._off0(b.p), "6p")
         if planes is not None:
             w1, w2, self.src_x, self.abc_x = planes
             F = w1.size
@@ -146,7 +175,6 @@ class PaddedLinearWave(nn.Module):
             ):
                 if unavailable is None:
                     self._register(prefix, kind, build(*args, dtype=b.dtype))
-        self._work = None
 
     def _unavailable(self, planes, off0: int, halo: str) -> str | None:
         """Why a step kernel with slab halo ``off0`` does not apply, or None."""
@@ -167,12 +195,16 @@ class PaddedLinearWave(nn.Module):
         return kind(*(getattr(self, f"{prefix}_{n}") for n in kind._fields))
 
     @property
-    def flat_tables(self) -> FlatTables:
-        return self._tables("flat", FlatTables)
+    def flat_tables(self) -> FlatTables | None:
+        return self._tables("flat", FlatTables) if self.kernel == "flat" else None
 
     @property
-    def stencil(self) -> StencilTables:
-        return self._tables("stencil", StencilTables)
+    def stencil(self) -> StencilTables | None:
+        return self._tables("stencil", StencilTables) if self.kernel == "flat" else None
+
+    @property
+    def slab_tables(self) -> SlabTables | None:
+        return self._tables("slab", SlabTables) if self.kernel == "3d" else None
 
     @property
     def step_tables(self) -> StepTables | None:
@@ -230,7 +262,10 @@ class PaddedLinearWave(nn.Module):
 
     # -- physics --------------------------------------------------------
     def _apply(self, u: torch.Tensor) -> torch.Tensor:
-        """-c0^2 (K u)/m on the padded state (kernel B on a CUDA tensor)."""
+        """-c0^2 (K u)/m on the padded state (on a CUDA tensor kernel B, or
+        kernel E on the 3D-slab layout)."""
+        if self.kernel == "3d":
+            return apply_slab(u, self.layout, self.slab_tables)
         return apply_flat(u, self.layout, self.flat_tables, self.stencil)
 
     def f1(self, t, u, v):
@@ -292,13 +327,14 @@ class PaddedLinearWave(nn.Module):
 
     def _workspace(self):
         """The kernels' buffers, allocated once per model: two ping-pong
-        state pairs and four state-sized scratch fields (kernel A: kv0..kv2;
-        H: v+; I: u1, v+1, v+2; D: two vn and two kv)."""
+        state pairs and six state-sized scratch fields (kernel A: kv0..kv2;
+        H: v+; I: u1, v+1, v+2; D: two vn and two kv; J: kv0..kv2, u1, v1,
+        kv0')."""
         if self._work is None:
             e = lambda: torch.empty(  # noqa: E731
                 self.layout.padded_shape, dtype=self.base.dtype,
                 device=self.base.device)
-            self._work = ((e(), e()), (e(), e())), (e(), e(), e(), e())
+            self._work = ((e(), e()), (e(), e())), tuple(e() for _ in range(6))
         return self._work
 
     def _kernel_buffers(self, u):
@@ -306,7 +342,7 @@ class PaddedLinearWave(nn.Module):
         the card, Nones on the CPU (the plain versions allocate)."""
         if u.device.type == "cuda":
             return self._workspace()
-        return (None, None), (None,) * 4
+        return (None, None), (None,) * 6
 
     @staticmethod
     def _handout(u, v):
@@ -327,24 +363,55 @@ class PaddedLinearWave(nn.Module):
         Raises ValueError when the step path does not apply to this
         configuration (no fallback to another solver)."""
         self._require(self.step_unavailable, "fused RK4 step kernel")
-        tables = self.step_tables
+        if u0 is None:
+            u0, v0 = self.zero_state()
+        pairs, scratch = self._kernel_buffers(u0)
+        u, v = self._rk4_steps(u0, v0, float(t0), float(dt), nsteps, pairs,
+                               scratch)
+        return (*self._handout(u, v), nsteps)
+
+    def _rk4_steps(self, u, v, t, dtf, nsteps, pairs, scratch, first=0):
+        """``nsteps`` step-kernel steps (A, or C with ``lean=False``) from
+        (u, v) at time t; step i writes ``pairs[i % 2]`` for i from
+        ``first`` on (ping-pong: a step never writes the pair it reads)."""
+        b = self.base
+        step = rk4_step_lean if self.lean else rk4_step_full
+        tables, stencil = self.step_tables, self.stencil
+        for i in range(first, first + nsteps):
+            gs = [b.g_amplitude(t + c * dtf) for c in _RK_C]
+            u, v = step(
+                u, v, dtf, gs, self.layout, b.c0, tables, stencil,
+                self.src_x, self.abc_x, out=pairs[i % 2], scratch=scratch[:3],
+            )
+            t = t + dtf
+        return u, v
+
+    def solve_step2_n(self, t0, dt, nsteps, u0=None, v0=None):
+        """RK4 with two full-tableau steps per kernel call (kernel J, seven
+        launches per call; the same scheme as :meth:`solve_step_n`); an odd
+        last step runs through the step kernel ``lean`` selects (A, or C).
+        Returns (u, v, nsteps); raises ValueError when the path does not
+        apply."""
+        self._require(self.rk42_unavailable, "fused 2-step RK4 kernel")
         if u0 is None:
             u0, v0 = self.zero_state()
         b = self.base
         dtf = float(dt)
         t = float(t0)
         pairs, scratch = self._kernel_buffers(u0)
-        step = rk4_step_lean if self.lean else rk4_step_full
         stencil = self.stencil
         u, v = u0, v0
-        for i in range(nsteps):
-            gs = [b.g_amplitude(t + c * dtf) for c in _RK_C]
-            # ping-pong: a step never writes the pair it reads
-            u, v = step(
-                u, v, dtf, gs, self.layout, b.c0, tables, stencil,
-                self.src_x, self.abc_x, out=pairs[i % 2], scratch=scratch[:3],
+        for i in range(nsteps // 2):
+            gs = [b.g_amplitude(t + j * 0.5 * dtf) for j in range(5)]
+            u, v = rk42_step(
+                u, v, dtf, gs, self.layout, b.c0, stencil, self.face_w1,
+                self.face_w2, self.src_x, self.abc_x, out=pairs[i % 2],
+                scratch=scratch,
             )
-            t = t + dtf
+            t = t + 2 * dtf
+        if nsteps % 2:
+            u, v = self._rk4_steps(u, v, t, dtf, 1, pairs, scratch,
+                                   first=nsteps // 2)
         return (*self._handout(u, v), nsteps)
 
     def solve_fused_n(self, t0, dt, nsteps, u0=None, v0=None):

@@ -47,6 +47,12 @@ _SIGNATURES = {
     # dt, g, c0, <stencil>, stream (lean: kernel A; full tableau: kernel C)
     "wave_rk4_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
     "wave_rk4_full_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
+    # u0, v0, kv0, kv1, kv2, u1, v1, kv0_out, w1, w2, src_x, abc_x, dt, g,
+    # c0, <stencil>, stream (kernel J's step boundary)
+    "wave_rk42_boundary": [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
+    # x, y, lyz, lxz, lxy, cvx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz,
+    # stream (kernel E)
+    "wave_apply_slab": [_P] * 8 + [_I] * 9 + [_P],
     # u0, ku, v0, kv, ua, va, vn_out, kv_out, ua_out, va_out, w1, w2,
     # src_x, abc_x, ca, cb, g, c0, <stencil>, stream (kernel D)
     "wave_rk_stage": [_P] * 12 + [_I, _I, _D, _D, _D, _D] + _STENCIL + [_P],

@@ -1,0 +1,207 @@
+"""Two full-tableau RK4 steps per call of the padded wave system (kernel J).
+
+Port of ``wave_fenics_tpu.ops.pallas_rk42step``: two classic RK4 steps with
+the full Butcher tableau (``substep`` twice, ``pallas_rk42step.py:192-246``),
+stage times t + {0, 1/2, 1/2, 1} dt and then t + {1, 3/2, 3/2, 2} dt, so the
+source is sampled at the five times t + {0, 1/2, 1, 3/2, 2} dt (``gs``).
+
+The TPU kernel keeps an x-slab with a 6p halo in VMEM and evaluates step 1
+on a superset window, through six shrinking stage windows; those windows
+and their band tables are a TPU device and are not ported. Here a launch
+covers the whole grid, and two steps take seven launches instead of kernel
+C's eight (``csrc/wave_kernels.cu``):
+
+1-3. stages 0..2 of step 1 (kernel C's stage kernel): kv0, kv1, kv2;
+4.   the step boundary (``rk42_boundary_kernel``): kv3 of step 1, the
+     full-tableau (u1, v1), and step 2's stage 0, kv0' = A u1 + faces at
+     t + dt, with u1 formed at each tap (it does not depend on kv3);
+5-7. stages 1..3 of step 2 from (u1, v1, kv0'): (u2, v2).
+
+Implementations: :func:`rk42_step_plain` (plain torch, the same seven
+phases on the stencil tables, ``ops.wave.apply_stencil_plain``) and
+:func:`rk42_step_cuda` (the kernels, with ``.launches``); :func:`rk42_step`
+dispatches on the tensor's device: CPU -> plain, CUDA -> kernel (or raise).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .wave import (
+    PaddedLayout,
+    StencilTables,
+    apply_stencil_plain,
+    check_stencil,
+    stencil_args,
+)
+
+__all__ = ["rk42_step", "rk42_step_plain", "rk42_step_cuda", "LAUNCHES_PER_CALL"]
+
+_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+
+
+def _off0(p: int) -> int:
+    """Slab x-halo depth of the TPU kernel: >= 6p (two chained 3p stage
+    recursions), 8-aligned. Kept as the JAX package's applicability rule,
+    so both packages take the 2-step path on the same configurations."""
+    return -(-6 * p // 8) * 8
+
+
+def _check_layout(layout: PaddedLayout) -> None:
+    layout.check_flat()
+    if layout.tile_x < _off0(layout.p):
+        raise ValueError(
+            f"tile_x = {layout.tile_x} < the 6p slab halo {_off0(layout.p)}")
+
+
+def rk42_step_plain(
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    dt: float,
+    gs: tuple[float, float, float, float, float],
+    layout: PaddedLayout,
+    c0: float,
+    st: StencilTables,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    src_x: int,
+    abc_x: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two full-tableau RK4 steps on padded [Lx, Ly, Lz] states, as the
+    seven phases of :func:`rk42_step_cuda`; ``w1``/``w2`` are the [1, F]
+    facet planes, ``src_x``/``abc_x`` their padded x rows."""
+    _check_layout(layout)
+    shape = layout.padded_shape
+    Lx = shape[0]
+    sc = lambda x: torch.tensor(x, dtype=u0.dtype, device=u0.device)  # noqa: E731
+    dt_ = sc(dt)
+    a = sc(0.5) * dt_
+    c0sq, mc0 = sc(c0 * c0), sc(-c0)
+    b0, b1 = sc(_B[0]), sc(_B[1])
+
+    def kv_of(un, vn, g):
+        """A un + c0^2 g W1 - c0 W2 vn (the face terms on their rows)."""
+        kv = apply_stencil_plain(un, layout, st)
+        k2, vn2 = kv.view(Lx, -1), vn.reshape(Lx, -1)
+        k2[src_x] += (c0sq * sc(g)) * w1[0]
+        k2[abc_x] += (mc0 * w2[0]) * vn2[abc_x]
+        return kv
+
+    def stage(j, u, v, k0, k1, k2, g):
+        """Kernel C's stage j from (u, v) and the earlier stages' kv."""
+        if j == 1:
+            return kv_of(u + a * v, v + a * k0, g)
+        if j == 2:
+            return kv_of(u + a * (v + a * k0), v + a * k1, g)
+        return kv_of(u + dt_ * (v + a * k1), v + dt_ * k2, g)
+
+    def combine(u, v, k0, k1, k2, k3):
+        vn1, vn2, vn3 = v + a * k0, v + a * k1, v + dt_ * k2
+        accu = ((b0 * v + b1 * vn1) + b1 * vn2) + b0 * vn3
+        accv = ((b0 * k0 + b1 * k1) + b1 * k2) + b0 * k3
+        return u + dt_ * accu, v + dt_ * accv
+
+    # step 1: stages 0..2, then the boundary: kv3, (u1, v1) and step 2's kv0
+    kv0 = kv_of(u0, v0, gs[0])
+    kv1 = stage(1, u0, v0, kv0, None, None, gs[1])
+    kv2 = stage(2, u0, v0, kv0, kv1, None, gs[1])
+    kv3 = stage(3, u0, v0, kv0, kv1, kv2, gs[2])
+    u1, v1 = combine(u0, v0, kv0, kv1, kv2, kv3)
+    kv0 = kv_of(u1, v1, gs[2])
+    # step 2: stages 1..3
+    kv1 = stage(1, u1, v1, kv0, None, None, gs[3])
+    kv2 = stage(2, u1, v1, kv0, kv1, None, gs[3])
+    kv3 = stage(3, u1, v1, kv0, kv1, kv2, gs[4])
+    return combine(u1, v1, kv0, kv1, kv2, kv3)
+
+
+def rk42_step_cuda(
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    dt: float,
+    gs: tuple[float, float, float, float, float],
+    layout: PaddedLayout,
+    c0: float,
+    st: StencilTables,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    src_x: int,
+    abc_x: int,
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
+    scratch: tuple[torch.Tensor, ...] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two full-tableau RK4 steps with the CUDA kernel J: seven launches,
+    each adding one to ``rk42_step_cuda.launches`` (kernel C's count does
+    not move). ``out`` = (u2, v2) and ``scratch`` = (kv0, kv1, kv2, u1, v1,
+    kv0') are reused when given; none of them may alias (u0, v0) or each
+    other."""
+    _check_layout(layout)
+    shape = layout.padded_shape
+    F = shape[1] * shape[2]
+    dev, dtype = u0.device, u0.dtype
+    if out is None:
+        out = (torch.empty_like(u0), torch.empty_like(v0))
+    if scratch is None:
+        scratch = tuple(torch.empty_like(u0) for _ in range(6))
+    u2, v2 = out
+    kv0, kv1, kv2, u1, v1, kv0n = scratch
+    _cuda.check_operands(
+        dev, dtype,
+        u0=(u0, shape), v0=(v0, shape), u2=(u2, shape), v2=(v2, shape),
+        kv0=(kv0, shape), kv1=(kv1, shape), kv2=(kv2, shape), u1=(u1, shape),
+        v1=(v1, shape), kv0n=(kv0n, shape), w1=(w1, (1, F)), w2=(w2, (1, F)),
+    )
+    check_stencil(layout, st, dev, dtype)
+    _cuda.check_no_alias((u2, v2, *scratch), (u0, v0))
+    sargs = stencil_args(layout, st)
+    face = (w1, w2, int(src_x), int(abc_x), float(dt))
+
+    def stage(j, u, v, k0, k_out, g):
+        # kernel C's stage j; stages 0..2 write k_out, stage 3 writes (u2, v2)
+        _cuda.launch("wave_rk4_full_stage", dtype, dev, j, u, v, k0, kv1, kv2,
+                     k_out, u2, v2, *face, float(g), float(c0), *sargs)
+        rk42_step_cuda.launches += 1
+
+    stage(0, u0, v0, kv0, kv0, gs[0])
+    stage(1, u0, v0, kv0, kv1, gs[1])
+    stage(2, u0, v0, kv0, kv2, gs[1])
+    _cuda.launch("wave_rk42_boundary", dtype, dev, u0, v0, kv0, kv1, kv2, u1,
+                 v1, kv0n, *face, float(gs[2]), float(c0), *sargs)
+    rk42_step_cuda.launches += 1
+    stage(1, u1, v1, kv0n, kv1, gs[3])
+    stage(2, u1, v1, kv0n, kv2, gs[3])
+    stage(3, u1, v1, kv0n, kv2, gs[4])
+    return u2, v2
+
+
+#: process-wide count of kernel J launches (seven per call of two steps;
+#: diagnostics: shows that a run went through the kernel)
+rk42_step_cuda.launches = 0
+LAUNCHES_PER_CALL = 7
+
+
+def rk42_step(
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    dt: float,
+    gs: tuple[float, float, float, float, float],
+    layout: PaddedLayout,
+    c0: float,
+    st: StencilTables,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    src_x: int,
+    abc_x: int,
+    out=None,
+    scratch=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two full-tableau RK4 steps: plain version for CPU tensors, kernel J
+    for CUDA ones (``out``/``scratch`` are the kernel's reusable buffers)."""
+    if u0.device.type == "cpu":
+        return rk42_step_plain(u0, v0, dt, gs, layout, c0, st, w1, w2,
+                               src_x, abc_x)
+    if u0.device.type == "cuda":
+        return rk42_step_cuda(u0, v0, dt, gs, layout, c0, st, w1, w2, src_x,
+                              abc_x, out=out, scratch=scratch)
+    raise ValueError(f"no implementation of rk42_step for device {u0.device}")

@@ -21,8 +21,18 @@ and of one stage of the fused-stage RK4 path (kernel D, the TPU kernel
 ``_kernel_rk_stage``): :func:`rk_stage_plain` and :func:`rk_stage_cuda`
 (``csrc/wave_kernels.cu::rk_stage_kernel``).
 
-:func:`apply_flat` and :func:`rk_stage` dispatch on the tensor's device:
-CPU -> plain, CUDA -> kernel (or raise). There is no fallback between them.
+The same ``y = A x`` on the 3D-slab layout (z aligned to 128; the layout
+the JAX package takes for p > 8 or ``kernel='3d'``), kernel E, the TPU
+kernel ``_kernel``: :func:`build_tables` (its tables, tap form),
+:func:`apply_slab_plain` (plain torch, mirroring ``_kernel`` tile by tile)
+and :func:`apply_slab_cuda` (``csrc/slab_kernels.cu::apply_slab_kernel``).
+
+:func:`apply_stencil_plain` is the plain version of ``csrc/stencil.cuh``
+on the whole padded state, the stencil the flat-layout CUDA kernels share.
+
+:func:`apply_flat`, :func:`apply_slab` and :func:`rk_stage` dispatch on the
+tensor's device: CPU -> plain, CUDA -> kernel (or raise). There is no
+fallback between them.
 """
 
 from __future__ import annotations
@@ -40,13 +50,19 @@ from .stiffness import banded_1d_coeffs
 __all__ = [
     "PaddedLayout",
     "FlatTables",
+    "SlabTables",
     "StencilTables",
     "axis_cv_tables",
+    "build_tables",
     "build_tables_flat",
     "stencil_tables",
     "apply_flat",
     "apply_flat_plain",
     "apply_flat_cuda",
+    "apply_slab",
+    "apply_slab_plain",
+    "apply_slab_cuda",
+    "apply_stencil_plain",
     "rk_stage",
     "rk_stage_plain",
     "rk_stage_cuda",
@@ -170,6 +186,40 @@ def axis_cv_tables(
     return cvx, cvy, cvz, pl_(sLx, 0), pl_(sLy, 1), pl_(sLz, 2)
 
 
+def build_tables(
+    layout: PaddedLayout,
+    A: list[np.ndarray],
+    lines: list[np.ndarray],
+    coeff: float,
+    inv_m_lines: list[np.ndarray] | None = None,
+    dtype=np.float32,
+) -> tuple[np.ndarray, ...]:
+    """(LYZ, LXZ, LXY, CVX, CVY, CVZ) of the TPU 3D-slab kernel (kernel E)
+    in its tap form: the three 2D line tables (the products of two scaled
+    lumped lines, 1/m folded in) and the banded coefficients of each axis,
+    shaped to broadcast against [Lx, Ly, Lz]. The JAX function's
+    ``yz_matmul`` band matrices feed the TPU's matrix unit and are not
+    copied; the taps compute the same terms."""
+    p = layout.p
+    Lx, Ly, Lz = layout.padded_shape
+    K = 2 * p + 1
+    npdt = numpy_dtype(dtype)
+    cvx, cvy, cvz, pLx, pLy, pLz = axis_cv_tables(
+        layout, A, lines, coeff, inv_m_lines
+    )
+    lyz = np.outer(pLy, pLz)
+    lxz = np.einsum("x,z->xz", pLx, pLz)
+    lxy = np.einsum("x,y->xy", pLx, pLy)
+    return (
+        lyz[None].astype(npdt),
+        lxz[:, None, :].astype(npdt),
+        lxy[:, :, None].astype(npdt),
+        cvx.reshape(K, Lx, 1, 1).astype(npdt),
+        cvy.reshape(K, 1, Ly, 1).astype(npdt),
+        cvz.reshape(K, 1, 1, Lz).astype(npdt),
+    )
+
+
 def build_tables_flat(
     layout: PaddedLayout,
     A: list[np.ndarray],
@@ -252,6 +302,17 @@ class FlatTables(NamedTuple):
     GZ: torch.Tensor
     GY: torch.Tensor
     SX: torch.Tensor
+
+
+class SlabTables(NamedTuple):
+    """Tensors of :func:`build_tables` (kernel E and its plain version)."""
+
+    LYZ: torch.Tensor  # [1, Ly, Lz]
+    LXZ: torch.Tensor  # [Lx, 1, Lz]
+    LXY: torch.Tensor  # [Lx, Ly, 1]
+    CVX: torch.Tensor  # [K, Lx, 1, 1]
+    CVY: torch.Tensor  # [K, 1, Ly, 1]
+    CVZ: torch.Tensor  # [K, 1, 1, Lz]
 
 
 class StencilTables(NamedTuple):
@@ -370,6 +431,128 @@ def apply_flat(
     if xp.device.type == "cuda":
         return apply_flat_cuda(xp, layout, st)
     raise ValueError(f"no implementation of apply_flat for device {xp.device}")
+
+
+def apply_stencil_plain(
+    xp: torch.Tensor, layout: PaddedLayout, st: StencilTables
+) -> torch.Tensor:
+    """y = A x on the whole padded state with the stencil tables, as
+    ``csrc/stencil.cuh::apply_stencil`` computes it at each point (the x
+    band, then the merged shift-0 y/z tap, the other y taps and the other z
+    taps, in that order); exactly 0 outside the interior."""
+    p = layout.p
+    Lx, Ly, Lz = layout.padded_shape
+    F = Ly * Lz
+    x2 = xp.reshape(Lx, F)
+    tx = torch.zeros_like(x2)
+    for k in range(2 * p + 1):
+        # row g reads row g + k - p; rolls wrap only onto padding outputs
+        tx = tx + st.cvx[k][:, None] * torch.roll(x2, p - k, 0)
+    yz = (st.cvy[p] + st.cvz[p]) * x2
+    for k in range(2 * p + 1):
+        if k != p:
+            yz = yz + st.cvy[k] * torch.roll(x2, (p - k) * Lz, 1)
+    for k in range(2 * p + 1):
+        if k != p:
+            yz = yz + st.cvz[k] * torch.roll(x2, p - k, 1)
+    y = tx * st.fx + yz * st.sx[:, None]
+    inside = torch.zeros(layout.padded_shape, dtype=torch.bool, device=xp.device)
+    inside[layout.interior] = True
+    return torch.where(inside.reshape(Lx, F), y, torch.zeros_like(y)).reshape(
+        Lx, Ly, Lz)
+
+
+def check_slab(layout: PaddedLayout) -> None:
+    """Raise unless kernel E can run on this layout: every tap of an
+    interior point must fall inside the padded state."""
+    if layout.x0 < layout.p or layout.h < layout.p:
+        raise ValueError(
+            f"tile_x = {layout.tile_x} and the y/z padding {layout.h} must "
+            f"be >= p = {layout.p} (the x-slab halo of the 3D-slab kernel)")
+
+
+def apply_slab_plain(
+    xp: torch.Tensor, layout: PaddedLayout, tables: SlabTables
+) -> torch.Tensor:
+    """y = A x on a padded [Lx, Ly, Lz] state of the 3D-slab layout,
+    mirroring ``_kernel`` (tap form) tile by tile: the all-pad x-tiles are
+    zeros; on each interior tile the x term sum_k CVX[k] U[x + k - p] times
+    LYZ, then the y and z tap sums (cyclic rolls, which wrap only onto
+    zero-coefficient padding outputs) times LXZ and LXY."""
+    check_slab(layout)
+    LYZ, LXZ, LXY, CVX, CVY, CVZ = tables
+    p = layout.p
+    Tx = layout.tile_x
+    Lx, Ly, Lz = layout.padded_shape
+    K = 2 * p + 1
+    out = torch.zeros_like(xp)
+    for t in range(1, Lx // Tx - 1):
+        rows = slice(t * Tx, (t + 1) * Tx)
+        U = xp[t * Tx - p : t * Tx + Tx + p]
+        acc = CVX[0, rows] * U[0:Tx]
+        for k in range(1, K):
+            acc = acc + CVX[k, rows] * U[k : k + Tx]
+        o = acc * LYZ
+        Uc = U[p : p + Tx]
+        acc = CVY[p] * Uc
+        for k in range(K):
+            if k != p:
+                acc = acc + CVY[k] * torch.roll(Uc, (p - k) % Ly, 1)
+        o = o + acc * LXZ[rows]
+        acc = CVZ[p] * Uc
+        for k in range(K):
+            if k != p:
+                acc = acc + CVZ[k] * torch.roll(Uc, (p - k) % Lz, 2)
+        out[rows] = o + acc * LXY[rows]
+    return out
+
+
+def apply_slab_cuda(
+    xp: torch.Tensor,
+    layout: PaddedLayout,
+    tables: SlabTables,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """y = A x with the CUDA kernel E (one launch): every padded point
+    written, 0 outside the interior. ``out`` (optional) must not alias
+    ``xp``."""
+    check_slab(layout)
+    shape = layout.padded_shape
+    Lx, Ly, Lz = shape
+    K = 2 * layout.p + 1
+    if out is None:
+        out = torch.empty_like(xp)
+    t = SlabTables(*tables)
+    _cuda.check_operands(
+        xp.device, xp.dtype, x=(xp, shape), y=(out, shape),
+        LYZ=(t.LYZ, (1, Ly, Lz)), LXZ=(t.LXZ, (Lx, 1, Lz)),
+        LXY=(t.LXY, (Lx, Ly, 1)), CVX=(t.CVX, (K, Lx, 1, 1)),
+        CVY=(t.CVY, (K, 1, Ly, 1)), CVZ=(t.CVZ, (K, 1, 1, Lz)),
+    )
+    if out.data_ptr() == xp.data_ptr():
+        raise ValueError("out must not alias the input")
+    Nx, Ny, Nz = layout.shape
+    _cuda.launch("wave_apply_slab", xp.dtype, xp.device, xp, out, *t,
+                 layout.p, Lx, Ly, Lz, layout.x0, Nx, layout.h, Ny, Nz)
+    apply_slab_cuda.launches += 1
+    return out
+
+
+#: process-wide count of kernel E launches (diagnostics: shows that a run
+#: went through the kernel)
+apply_slab_cuda.launches = 0
+
+
+def apply_slab(
+    xp: torch.Tensor, layout: PaddedLayout, tables: SlabTables
+) -> torch.Tensor:
+    """y = A x on the 3D-slab layout: plain version for a CPU tensor,
+    kernel E for a CUDA one."""
+    if xp.device.type == "cpu":
+        return apply_slab_plain(xp, layout, tables)
+    if xp.device.type == "cuda":
+        return apply_slab_cuda(xp, layout, tables)
+    raise ValueError(f"no implementation of apply_slab for device {xp.device}")
 
 
 def rk_stage_plain(

@@ -1,0 +1,81 @@
+"""Checkpoint and resume of the time-stepping state (u, v, t).
+
+Port of ``wave_fenics_tpu.utils.checkpoint`` in the JAX package's ``.npz``
+format: keys ``u`` and ``v`` (host arrays) and ``meta`` (a JSON string
+holding ``t`` and any caller metadata), so either package reads the other's
+snapshots. ``CheckpointManager`` keeps the JAX package's ``step_{:09d}``
+naming and its ``keep`` garbage collection; its snapshots are
+``step_{:09d}.npz`` files.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+__all__ = ["save_state", "load_state", "CheckpointManager"]
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _npz(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def save_state(path: str, u, v, t: float, meta: dict | None = None) -> None:
+    """Write one snapshot to ``path`` (``.npz`` appended if missing)."""
+    meta = dict(meta or {}, t=float(t))
+    np.savez(_npz(path), u=_host(u), v=_host(v), meta=json.dumps(meta))
+
+
+def load_state(path: str):
+    """(u, v, t, meta) of a snapshot, u and v as host NumPy arrays."""
+    data = np.load(_npz(path), allow_pickle=False)
+    meta = json.loads(str(data["meta"]))
+    return data["u"], data["v"], meta.pop("t"), meta
+
+
+@dataclass
+class CheckpointManager:
+    """Periodic snapshots of a chunked run in ``directory``; ``restore``
+    returns the latest, and ``save`` keeps the ``keep`` newest."""
+
+    directory: str
+    every_steps: int = 1000
+    keep: int = 3
+
+    def _path(self, step: int) -> str:
+        return os.path.join(os.path.abspath(self.directory), f"step_{step:09d}.npz")
+
+    def _steps(self) -> list[int]:
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(
+            int(d[len("step_"):-len(".npz")])
+            for d in os.listdir(self.directory)
+            if d.startswith("step_") and d.endswith(".npz")
+        )
+
+    def latest_step(self) -> int | None:
+        steps = self._steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, u, v, t: float, meta: dict | None = None) -> None:
+        os.makedirs(self.directory, exist_ok=True)
+        save_state(self._path(step), u, v, t, meta)
+        for s in self._steps()[: -self.keep]:
+            os.remove(self._path(s))
+
+    def restore(self):
+        """(step, u, v, t, meta) of the latest snapshot, or None."""
+        step = self.latest_step()
+        if step is None:
+            return None
+        u, v, t, meta = load_state(self._path(step))
+        return step, u, v, t, meta

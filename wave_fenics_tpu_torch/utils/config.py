@@ -1,0 +1,139 @@
+"""Typed configuration of a planar3d run.
+
+Port of ``wave_fenics_tpu.utils.config``: the same dataclasses, field names
+and defaults, and the same JSON form, so a config file written by the JAX
+package loads here unchanged. ``build_case`` builds the box case through
+the port's ``planar3d_case`` on a device (the card unless the caller asks
+for the CPU).
+
+Fields the port cannot honour yet raise a ValueError naming their ROADMAP
+item, and are never silently ignored: ``domain.mesh_path`` and
+``domain.meshtags_path`` (item 8, ``core/io.py``), ``run.ndev > 1`` (item
+10), ``run.dtype == 'bf16'`` (item 9) and ``run.output_path`` (item 4,
+XDMF output). ``run.force_padded`` is accepted and has no effect: the
+port's app always runs the padded solvers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+
+import torch
+
+__all__ = ["PhysicsConfig", "DomainConfig", "TimeConfig", "RunConfig",
+           "SimulationConfig", "DTYPES"]
+
+#: the state dtypes the port runs (``run.dtype``)
+DTYPES = {"f32": torch.float32, "f64": torch.float64}
+
+
+@dataclass
+class PhysicsConfig:
+    speed_of_sound: float = 1500.0       # c0 (m/s)
+    source_frequency: float = 0.5e6      # f0 (Hz)
+    pressure_amplitude: float = 60000.0  # p0 (Pa)
+    window_periods: float = 4.0          # source ramp length (alpha)
+
+
+@dataclass
+class DomainConfig:
+    ncells: tuple[int, int, int] = (64, 32, 32)
+    domain_length: float = 0.1           # L (m)
+    width: float | None = None           # transverse width (defaults cubic cells)
+    degree: int = 4                      # basis degree p
+    source_tag: int = 1
+    abc_tag: int = 2
+    #: imported-mesh mode (an XDMF mesh and its facet meshtags): not ported
+    #: yet, raises
+    mesh_path: str | None = None
+    meshtags_path: str | None = None
+
+
+@dataclass
+class TimeConfig:
+    cfl: float = 0.5
+    n_tail_periods: float = 8.0
+    t0: float = 0.0
+    #: 'rk4' or 'leapfrog' (2nd order, one stiffness apply per step; dt
+    #: scaled by 0.71 in the app)
+    integrator: str = "rk4"
+
+
+@dataclass
+class RunConfig:
+    dtype: str = "f32"                   # f32 | f64 (bf16 raises)
+    ndev: int = 1                        # > 1 raises
+    checkpoint_dir: str | None = None
+    checkpoint_every_steps: int = 1000
+    log_every_steps: int = 50
+    #: XDMF output of the final state: not ported yet, raises
+    output_path: str | None = None
+    #: accepted, no effect: the port's app always runs the padded solvers
+    force_padded: bool = False
+
+
+@dataclass
+class SimulationConfig:
+    physics: PhysicsConfig = field(default_factory=PhysicsConfig)
+    domain: DomainConfig = field(default_factory=DomainConfig)
+    time: TimeConfig = field(default_factory=TimeConfig)
+    run: RunConfig = field(default_factory=RunConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "SimulationConfig":
+        d = json.loads(s)
+        return cls(
+            physics=PhysicsConfig(**d.get("physics", {})),
+            domain=DomainConfig(**{
+                **d.get("domain", {}),
+                "ncells": tuple(d.get("domain", {}).get("ncells", (64, 32, 32))),
+            }),
+            time=TimeConfig(**d.get("time", {})),
+            run=RunConfig(**d.get("run", {})),
+        )
+
+    def check_supported(self) -> None:
+        """Raise a ValueError for the first field the port cannot honour."""
+        d, r = self.domain, self.run
+        if d.mesh_path is not None or d.meshtags_path is not None:
+            raise ValueError(
+                "domain.mesh_path/meshtags_path: imported XDMF meshes are not "
+                "ported yet (ROADMAP Queue 1 item 8, core/io.py)")
+        if r.ndev > 1:
+            raise ValueError(f"run.ndev = {r.ndev}: distribution is not ported "
+                             "yet (ROADMAP Queue 1 item 10)")
+        if r.dtype == "bf16":
+            raise ValueError("run.dtype = 'bf16': bf16 state is not ported yet "
+                             "(ROADMAP Queue 1 item 9)")
+        if r.dtype not in DTYPES:
+            raise ValueError(f"run.dtype = {r.dtype!r}: f32 or f64")
+        if r.output_path is not None:
+            raise ValueError("run.output_path: XDMF output is not ported yet "
+                             "(ROADMAP Queue 1 item 4)")
+        if self.time.integrator not in ("rk4", "leapfrog"):
+            raise ValueError(f"time.integrator = {self.time.integrator!r}: "
+                             "rk4 or leapfrog")
+
+    def build_case(self, device: torch.device | str = "cuda"):
+        """The Planar3DCase of this config, its model on ``device``."""
+        from ..models.planar3d import planar3d_case
+
+        self.check_supported()
+        return planar3d_case(
+            ncells=tuple(self.domain.ncells),
+            domain_length=self.domain.domain_length,
+            width=self.domain.width,
+            degree=self.domain.degree,
+            speed_of_sound=self.physics.speed_of_sound,
+            source_frequency=self.physics.source_frequency,
+            pressure_amplitude=self.physics.pressure_amplitude,
+            cfl=self.time.cfl,
+            n_tail_periods=self.time.n_tail_periods,
+            dtype=DTYPES[self.run.dtype],
+            device=device,
+        )
