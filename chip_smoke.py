@@ -14,8 +14,13 @@ its last line:
 2. build: nvcc compiles csrc/*.cu for sm_90a (ops/_cuda.py);
 3. kernel B (stiffness/m) against its plain version: f64 at (4,2,2) cells,
    f32 at the headline size (64x32x32 cells, p=4, tile 48), with times;
-4. kernel A (lean RK4 step) against the plain lean step: f64 at (4,2,2),
-   p in {2, 4}, 25 steps; f32 at the headline size, 50 steps; with times;
+4. kernel A (lean RK4 step, csrc/rk4_tiled.cu) against the plain lean
+   step: f64 at (4,2,2) cells for p in {1, 2, 3, 4} and at p=4 on (9,4,8)
+   cells, whose 37x17x33 interior is no multiple of the tiling's CX, TY
+   or TZ, 25 steps, limit 1e-12 relative; f32 at the headline size, 50
+   steps, limit 1e-4; each run from output and scratch buffers full of
+   NaN, then the padding exactly 0 and no NaN; with the time of each
+   stage launch and of a step against the bound and the 4-launch floor;
 5. kernels C (full-tableau RK4 step), D (fused RK4 stage), H (leapfrog
    step) and I (two leapfrog steps) against their plain versions, each
    through its model solver: f64 at (4,2,2) cells, tile 16, p in {2, 4}
@@ -25,7 +30,8 @@ its last line:
    D on six distinct state fields, as stages 1-3 of the path give it).
    Every check of phases 4 and 5 starts from a random state with zero
    padding, so the absorbing row carries O(max|v|) values; the relative
-   error is the larger of |du|/max|u_ref| and |dv|/max|v_ref|;
+   error is the larger of |du|/max|u_ref| and |dv|/max|v_ref|; kernel C,
+   like A, runs from NaN-filled buffers and is timed stage by stage;
 6. kernels F (the separable stiffness on the unpadded grid) and G (the
    BP1 consistent mass on the padded layout) against their plain versions:
    f64 small (F: (4,2,2) and (4,2,3) cells, p in {2, 4}, Nx = 17 at p=4;
@@ -333,6 +339,37 @@ def main() -> None:
             outside[layout.interior] = 0.0
             check(float(outside.abs().max()) == 0.0, "the padding stays zero")
 
+    def nan_workspace(pm):
+        """Fill the model's kernel buffers (the ping-pong state pairs and
+        the scratch) with NaN, so a step kernel that leaves a point
+        unwritten shows it."""
+        pairs, scratch = pm._workspace()
+        for x in (*pairs[0], *pairs[1], *scratch):
+            x.fill_(float("nan"))
+
+    def workspace_clean(pm, nscratch=3):
+        """The state pairs and the first ``nscratch`` scratch fields a step
+        kernel wrote: exactly zero padding and no NaN."""
+        pairs, scratch = pm._workspace()
+        xs = (*pairs[0], *pairs[1], *scratch[:nscratch])
+        padding_zero(pm.layout, *xs)
+        check(all(bool(torch.isfinite(x).all()) for x in xs), "no NaN left")
+
+    def stage_us(launcher, pm, u, v, dt, gs, bufs):
+        """Microseconds of each of the four stage launches of kernel A or C
+        (``launcher``) at ``pm``'s size: CUDA events over back-to-back
+        launches with their arguments converted once, so the host's
+        per-call checks do not pace them."""
+        out = []
+        for j in range(4):
+            args = rk4step.stage_launch_args(
+                j, u, v, *bufs[2:], bufs[2 + j] if j < 3 else bufs[4], *bufs[:2],
+                pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x, dt, gs[j], pm.base.c0,
+                pm.layout, pm.stencil)
+            out.append(1e6 * timeit(_cuda.launcher(_cuda.library(), launcher, u.dtype,
+                                                   dev, *args), reps=200))
+        return out
+
     # -- 3. kernel B --------------------------------------------------------
     phase("kernel B (apply_flat) against apply_flat_plain")
     pm = small_model(4)
@@ -369,43 +406,59 @@ def main() -> None:
     del x, yk, yp, out_b
 
     # -- 4. kernel A --------------------------------------------------------
-    phase("kernel A (rk4 stage kernels) against rk4_step_lean_plain")
+    phase("kernel A (tiled rk4 stage kernel) against rk4_step_lean_plain")
     # every kernel-versus-plain check starts from a random state (see
-    # random_state); the relative error is per field: |du|/max|u_ref| and
-    # |dv|/max|v_ref|, the larger of the two
-    for p in (2, 4):
-        spm = small_model(p)
+    # random_state) and from NaN in every kernel buffer; the relative error
+    # is per field: |du|/max|u_ref| and |dv|/max|v_ref|, the larger of the two
+    for p, cells in ((1, (4, 2, 2)), (2, (4, 2, 2)), (3, (4, 2, 2)), (4, (4, 2, 2)),
+                     (4, (9, 4, 8))):
+        spm = small_model(p, cells=cells, tile_x=max(16, rk4step._off0(p)))
+        grid, ty, tz, cx, _ = rk4step.tiled_geometry(spm.layout, 8)
+        nan_workspace(spm)
         u0, v0 = random_state(spm, 10 * p)
         uk, vk = kernel_solve(spm, "lean", 1e-9, 25, u0, v0)
         up, vp = plain_solve(spm, "lean", 1e-9, 25, u0, v0)
         torch.cuda.synchronize()
         _, rel = state_err(uk, vk, up, vp)
-        print(f"f64 (4,2,2) p={p}, 25 steps from a random state: relative "
-              f"error {rel:.3e} (limit 1e-12)")
-        check(rel <= 1e-12, f"kernel A f64 p={p}")
+        print(f"f64 {cells} p={p} (interior {spm.layout.shape}, tiles {ty}x{tz}, "
+              f"x-chunks of {cx}, grid {grid}), 25 steps from a random state and "
+              f"NaN buffers: relative error {rel:.3e} (limit 1e-12)")
+        check(rel <= 1e-12, f"kernel A f64 p={p} {cells}")
+        workspace_clean(spm)
 
+    nan_workspace(hpm)
     u0, v0 = random_state(hpm, 3)
     uk, vk = kernel_solve(hpm, "lean", case.dt, 50, u0, v0)
     up, vp = plain_solve(hpm, "lean", case.dt, 50, u0, v0)
     torch.cuda.synchronize()
     a_err, rel = state_err(uk, vk, up, vp)
-    print(f"f32 headline, 50 steps from a random state: max|err| = {a_err:.6e}, "
-          f"relative {rel:.3e} (limit 1e-4)")
+    print(f"f32 headline, 50 steps from a random state and NaN buffers: max|err| "
+          f"= {a_err:.6e}, relative {rel:.3e} (limit 1e-4)")
     check(rel <= 1e-4, "kernel A f32 agreement")
+    workspace_clean(hpm)
     gs = [hpm.base.g_amplitude(c * case.dt) for c in RK_C]
     bufs = [torch.empty_like(uk) for _ in range(5)]
     a_ms = 1e3 * timeit(lambda: rk4step.rk4_step_lean_cuda(
         uk, vk, case.dt, gs, hpm.layout, hpm.base.c0, hpm.stencil,
         hpm.face_w1, hpm.face_w2, hpm.src_x, hpm.abc_x,
         out=tuple(bufs[:2]), scratch=tuple(bufs[2:])))
+    a_stage_us = stage_us("wave_rk4_stage", hpm, uk, vk, case.dt, gs, bufs)
     a_plain_ms = 1e3 * timeit(lambda: rk4step.rk4_step_lean_plain(
         uk, vk, case.dt, gs, hpm.layout, hpm.base.c0, hpm.step_tables), reps=5)
     # u0, v0 in and u1, v1 out once; four stencil applies and ~20 point-wise
     # flops a point
     a_bound = bound(hpm, 4, 4, 20)
-    print(f"f32 headline: kernel {a_ms:.4f} ms/step "
-          f"({rk4step.LAUNCHES_PER_STEP} launches), plain {a_plain_ms:.4f} "
-          f"ms/step, bound {a_bound[0]:.4f} ms ({a_bound[1]}) [{smi}]")
+    # what four launches must move: J0 u0 -> kv0, J1 u0, v0 -> kv1, J2 u0,
+    # v0, kv0 -> kv2, J3 u0, v0, kv0, kv1, kv2 -> u1, v1: 16 field passes
+    floor_ms = 1e3 * 16 * field_bytes(hpm) / HBM_BYTES_PER_S
+    grid, ty, tz, cx, smem = rk4step.tiled_geometry(hpm.layout, 4)
+    print(f"f32 headline (tiles {ty}x{tz}, x-chunks of {cx}, grid {grid}, "
+          f"{smem} B shared): kernel {sum(a_stage_us) / 1e3:.4f} ms/step "
+          f"({rk4step.LAUNCHES_PER_STEP} launches: stages "
+          f"{', '.join(f'{t:.2f}' for t in a_stage_us)} us; through the wrapper "
+          f"{a_ms:.4f} ms/step), plain {a_plain_ms:.4f} "
+          f"ms/step, bound {a_bound[0]:.4f} ms ({a_bound[1]}), 4-launch floor "
+          f"{floor_ms:.4f} ms (16 field passes) [{smi}]")
     del u0, v0, uk, vk, up, vp, bufs, hpm
 
     # -- 5. kernels C, D, H, I ----------------------------------------------
@@ -414,6 +467,8 @@ def main() -> None:
     def check_small(name, kind, ps, tol=1e-12, **model_kw):
         for p in ps:
             spm = small_model(p, **model_kw)
+            if kind == "full":  # kernel C from NaN in every buffer, as A
+                nan_workspace(spm)
             u0, v0 = random_state(spm, 10 * p)
             uk, vk = kernel_solve(spm, kind, 1e-9, 25, u0, v0)
             up, vp = plain_solve(spm, kind, 1e-9, 25, u0, v0)
@@ -423,6 +478,8 @@ def main() -> None:
                   f"state: relative error {rel:.3e} (limit {tol:.0e})")
             check(rel <= tol, f"kernel {name} f64 p={p}")
             padding_zero(spm.layout, uk, vk)
+            if kind == "full":
+                workspace_clean(spm)
             if name == "C":  # the same step in the lean algebra (kernel A)
                 ul, vl = kernel_solve(small_model(p), "lean", 1e-9, 25, u0, v0)
                 _, rel = state_err(uk, vk, ul, vl)
@@ -450,19 +507,27 @@ def main() -> None:
         padding_zero(pm.layout, uk, vk)
         return err, uk, vk
 
-    phase("kernel C (full-tableau rk4 stage kernels) against rk4_step_full_plain")
+    phase("kernel C (full-tableau tiled rk4 stage kernel) against rk4_step_full_plain")
     check_small("C", "full", (2, 4), lean=False)
     case, cpm = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda", lean=False)
+    nan_workspace(cpm)
     c_err, uk, vk = check_full_width("C", "full", cpm, case.dt)
+    workspace_clean(cpm)
     gs = [cpm.base.g_amplitude(c * case.dt) for c in RK_C]
     bufs = [torch.empty_like(uk) for _ in range(5)]
     c_ms = 1e3 * timeit(lambda: rk4step.rk4_step_full_cuda(
         uk, vk, case.dt, gs, cpm.layout, cpm.base.c0, cpm.stencil,
         cpm.face_w1, cpm.face_w2, cpm.src_x, cpm.abc_x,
         out=tuple(bufs[:2]), scratch=tuple(bufs[2:])))
+    c_stage_us = stage_us("wave_rk4_full_stage", cpm, uk, vk, case.dt, gs, bufs)
+    print(f"kernel C f32 headline: stages {', '.join(f'{t:.2f}' for t in c_stage_us)} "
+          f"us, {sum(c_stage_us) / 1e3:.4f} ms/step against kernel A "
+          f"{sum(a_stage_us) / 1e3:.4f} (through the wrappers {c_ms:.4f} and "
+          f"{a_ms:.4f}) [{smi}]")
     c_plain_ms = 1e3 * timeit(lambda: rk4step.rk4_step_full_plain(
         uk, vk, case.dt, gs, cpm.layout, cpm.base.c0, cpm.step_tables), reps=5)
-    results["C"] = (c_err, c_ms, c_plain_ms, bound(cpm, 4, 4, 30))
+    # the kernel's time per step: its four stage launches back to back
+    results["C"] = (c_err, sum(c_stage_us) / 1e3, c_plain_ms, bound(cpm, 4, 4, 30))
     del uk, vk, bufs, cpm
 
     phase("kernel D (fused rk stage) against rk_stage_plain")
@@ -1139,21 +1204,24 @@ def main() -> None:
     # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
     # since no app path at p <= 8 launches it)
     src = "wave_fenics_tpu_torch/csrc/wave_kernels.cu"
+    src_rk4 = "wave_fenics_tpu_torch/csrc/rk4_tiled.cu"
     src_slab = "wave_fenics_tpu_torch/csrc/slab_kernels.cu"
     src_ops = "wave_fenics_tpu_torch/csrc/operator_kernels.cu"
     src_gen = "wave_fenics_tpu_torch/csrc/general_kernels.cu"
-    results["A"] = (a_err, a_ms, a_plain_ms, a_bound)
+    results["A"] = (a_err, sum(a_stage_us) / 1e3, a_plain_ms, a_bound)
     results["B"] = (b_err, b_ms, b_plain_ms, b_bound)
     launches["K"] = k_paths["P8"]
     launches["B"] = f1_launches
     meta = {
-        "A": ("rk4_stage_kernel<T, J, true> (kernel A: lean RK4 step, 4 stage "
-              "launches; ms per step)", "wave_fenics_tpu/ops/pallas_rk4step.py:201", src),
+        "A": ("rk4_tiled_kernel<T, P, J>, lean (kernel A: lean RK4 step, 4 stage "
+              "launches on the 2.5D tiled stencil; ms per step)",
+              "wave_fenics_tpu/ops/pallas_rk4step.py:201", src_rk4),
         "B": ("apply_flat_kernel (kernel B: stiffness/m on the flat layout, p=4; ms "
               "per apply; launches: the f1-path RK4, 2 steps)",
               "wave_fenics_tpu/ops/pallas_wave.py:336", src),
-        "C": ("rk4_stage_kernel<T, J, false> (kernel C: full-tableau RK4 step, 4 "
-              "stage launches; ms per step)", "wave_fenics_tpu/ops/pallas_rk4step.py:67", src),
+        "C": ("rk4_tiled_kernel<T, P, J>, full tableau (kernel C: full-tableau "
+              "RK4 step, 4 stage launches on the 2.5D tiled stencil; ms per step)",
+              "wave_fenics_tpu/ops/pallas_rk4step.py:67", src_rk4),
         "D": ("rk_stage_kernel (kernel D: one fused RK4 stage, p=8; ms per "
               "stage launch)", "wave_fenics_tpu/ops/pallas_wave.py:573", src),
         "H": ("lf_phase_kernel OPEN+CLOSE (kernel H: one leapfrog step, p=8; ms "
@@ -1173,8 +1241,9 @@ def main() -> None:
         "E": ("apply_slab_kernel (kernel E: stiffness/m on the 3D-slab layout, "
               "p=10, 26x13x13 cells; ms per apply)",
               "wave_fenics_tpu/ops/pallas_wave.py:128", src_slab),
-        "J": ("rk4_stage_kernel<T, J, false> x 6 + rk42_boundary_kernel (kernel J: "
-              "two full-tableau RK4 steps, 7 launches, p=4; ms per call of 2 steps)",
+        "J": ("rk42_boundary_kernel + 6 stages of kernel C's rk4_tiled_kernel<T, "
+              "P, J> (csrc/rk4_tiled.cu) (kernel J: two full-tableau RK4 steps, 7 "
+              "launches, p=4; ms per call of 2 steps)",
               "wave_fenics_tpu/ops/pallas_rk42step.py:97", src),
     }
     kernels = []
@@ -1193,6 +1262,12 @@ def main() -> None:
     by_name["B"]["app_path_launches"] = b_on_paths
     by_name["E"]["launches_per_path"] = {
         label: path_counts[label]["E"] for label in path_counts if "kernel E" in label}
+    # "ms" of A and C: the four stage launches; wrapper_ms_per_step: one
+    # call of the wrapper per step, its operand checks included
+    by_name["A"]["stage_us"] = a_stage_us
+    by_name["A"]["wrapper_ms_per_step"] = a_ms
+    by_name["C"]["stage_us"] = c_stage_us
+    by_name["C"]["wrapper_ms_per_step"] = c_ms
     by_name["J"]["two_c_steps_ms"] = c2_ms
     by_name["J"]["odd_step_launches_A"] = path_counts["P14 RK4 two-step, kernel J"]["A"]
     # the same kernel at 16^3 cells, beside the one PyTorch call that computes

@@ -56,6 +56,38 @@ def test_unsupported_fields_raise(section, name, value, item):
         cfg.build_case(device="cpu")
 
 
+@pytest.mark.parametrize("section,name,value", [
+    ("physics", "window_periods", 3.0),
+    ("time", "t0", 1e-6),
+    ("domain", "source_tag", 3),
+    ("domain", "abc_tag", 4),
+    ("run", "log_every_steps", 10),
+])
+def test_fields_the_reference_ignores_raise(section, name, value):
+    """The JAX package's build_case drops these fields; the port raises on
+    a value other than the default and names the field."""
+    cfg = SimulationConfig()
+    setattr(getattr(cfg, section), name, value)
+    with pytest.raises(ValueError, match=f"{section}.{name}"):
+        cfg.build_case(device="cpu")
+
+
+def test_jax_default_config_loads_and_builds():
+    text = JSimulationConfig().to_json()
+    cfg = SimulationConfig.from_json(text)
+    assert json.loads(cfg.to_json()) == json.loads(text)
+    case = cfg.build_case(device="cpu")
+    assert case.model.ops.ndofs == 4_276_737 and case.nsteps == 1489
+
+
+def test_run_leaves_the_callers_config_unchanged():
+    cfg = SimulationConfig()
+    out = planar3d_app.run(cfg, cells=(4, 2, 2), degree=2, dtype="f64",
+                           integrator="leapfrog", steps=1, device="cpu")
+    assert out["nsteps"] == 1 and out["integrator"] == "leapfrog"
+    assert cfg == SimulationConfig()
+
+
 def test_force_padded_is_accepted():
     cfg = SimulationConfig()
     cfg.domain.ncells = (4, 2, 2)
@@ -77,6 +109,20 @@ def test_snapshots_cross_between_packages(tmp_path):
     np.testing.assert_array_equal(ju, u)
     np.testing.assert_array_equal(jv, v)
     assert (jt, jmeta) == (2.5e-6, {"step": 9})
+
+
+def test_orbax_manager_directory_raises(tmp_path):
+    """A directory of the JAX package's manager (orbax snapshots) is not
+    read as an empty one: the port's manager raises and names orbax."""
+    ck = str(tmp_path / "ck")
+    jcheckpoint.CheckpointManager(ck, every_steps=2).save(
+        2, np.ones(3), np.zeros(3), 1e-6)
+    assert jcheckpoint._HAVE_ORBAX and os.listdir(ck) == ["step_000000002"]
+    cm = checkpoint.CheckpointManager(ck)
+    with pytest.raises(ValueError, match="orbax"):
+        cm.restore()
+    with pytest.raises(ValueError, match="orbax"):
+        cm.latest_step()
 
 
 def test_checkpoint_manager_keeps_the_newest(tmp_path):

@@ -3,6 +3,7 @@ the JSON record's fields, the f64 checks, and the raise of what waits for
 a later slice."""
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -107,7 +108,21 @@ def test_decompose3d_matches_jax(n):
                                               (8, "two-point", 1 + 3 * (8 + 2))])
 def test_two_point_time_counts_its_calls(reps, label, calls):
     made = []
-    t, got_label, got_calls = common.two_point_time(lambda: made.append(1), reps,
-                                                    torch.device("cpu"))
+
+    def fn():  # long enough that the 8-call window is slower than the 2-call one
+        made.append(1)
+        time.sleep(1e-4)
+
+    t, got_label, got_calls = common.two_point_time(fn, reps, torch.device("cpu"))
     assert (got_label, got_calls, len(made)) == (label, calls, calls)
     assert t > 0
+
+
+def test_two_point_time_falls_back_when_the_long_window_is_faster(monkeypatch):
+    """Noise that makes the long window faster than the short one gives the
+    long window's single-window rate, labelled so, not a clamped difference."""
+    monkeypatch.setattr(common, "_window",
+                        lambda fn, n, device: 0.010 if n == 40 else 0.012)
+    t, label, calls = common.two_point_time(lambda: None, 40, torch.device("cpu"))
+    assert (label, calls) == ("single-window", 1 + 3 * (40 + 10))
+    assert t == 0.010 / 40

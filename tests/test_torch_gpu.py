@@ -50,11 +50,23 @@ def cuda():
     return torch.device("cuda")
 
 
-def _model(p, device, shape=(4, 2, 2)):
+def _model(p, device, shape=(4, 2, 2), tile_x=16):
     mesh = box_mesh(shape, (0.01, 0.005, 0.005),
                     facet_tags=FacetTags({1: (0,), 2: (1,)}))
     return PaddedLinearWave(
-        LinearWave(mesh, p=p, dtype=F64, device=device), tile_x=16)
+        LinearWave(mesh, p=p, dtype=F64, device=device), tile_x=tile_x)
+
+
+# the step kernels (A, C) at every p they take, on the smallest tile the
+# step path allows, and on grids whose interior is no multiple of the
+# tiling's CX, TY or TZ ((5,3,3) cells at p=4: 21 x 13 x 13 points in
+# x-chunks of 11; (9,4,8) cells: 37 x 17 x 33 points in chunks of 13 and
+# tiles of 9 x 17, ragged along each axis; tests/test_torch_tiling.py)
+STEP_CASES = [(p, (4, 2, 2)) for p in range(1, 9)] + [(4, (5, 3, 3)), (4, (9, 4, 8))]
+
+
+def _step_model(p, shape, device):
+    return _model(p, device, shape, tile_x=max(16, rk4step._off0(p)))
 
 
 def _random_padded(layout, seed, device, scale=1.0):
@@ -107,9 +119,9 @@ def test_apply_flat_cuda_rejects_bad_operands(cuda):
         wave.apply_flat_cuda(x.transpose(1, 2), pm.layout, pm.stencil)
 
 
-@pytest.mark.parametrize("p", [2, 4])
-def test_cuda_step_matches_plain(cuda, p):
-    pm = _model(p, cuda)
+@pytest.mark.parametrize("p,shape", STEP_CASES)
+def test_cuda_step_matches_plain(cuda, p, shape):
+    pm = _step_model(p, shape, cuda)
     u0 = _random_padded(pm.layout, 31, cuda)
     v0 = _random_padded(pm.layout, 32, cuda, scale=1e3)
     args = (DT, GS, pm.layout, pm.base.c0)
@@ -146,11 +158,11 @@ def test_cuda_step_rejects_aliasing(cuda):
         )
 
 
-@pytest.mark.parametrize("p", [2, 4])
-def test_cuda_full_step_matches_plain_and_lean(cuda, p):
+@pytest.mark.parametrize("p,shape", STEP_CASES)
+def test_cuda_full_step_matches_plain_and_lean(cuda, p, shape):
     """Kernel C against its plain version (1e-12) and against kernel A (the
     same step in the lean algebra, 1e-13)."""
-    pm = _model(p, cuda)
+    pm = _step_model(p, shape, cuda)
     u0 = _random_padded(pm.layout, 35, cuda)
     v0 = _random_padded(pm.layout, 36, cuda, scale=1e3)
     args = (DT, GS, pm.layout, pm.base.c0)
@@ -165,6 +177,28 @@ def test_cuda_full_step_matches_plain_and_lean(cuda, p):
                                    pm.src_x, pm.abc_x)
     _assert_state_close(uk, vk, ul, vl, 1e-13)
     _padding_zero(pm, uk, vk)
+
+
+@pytest.mark.parametrize("lean", [True, False])
+@pytest.mark.parametrize("p,shape", [(1, (4, 2, 2)), (4, (9, 4, 8)), (8, (4, 2, 2))])
+def test_cuda_step_writes_zero_padding_over_nan(cuda, p, shape, lean):
+    """Kernels A and C write every point of their outputs and scratch: from
+    buffers full of NaN the step ends with exactly zero padding, finite
+    interiors and the values of a step from zeroed buffers."""
+    pm = _step_model(p, shape, cuda)
+    u0 = _random_padded(pm.layout, 37, cuda)
+    v0 = _random_padded(pm.layout, 38, cuda, scale=1e3)
+    step = rk4step.rk4_step_lean_cuda if lean else rk4step.rk4_step_full_cuda
+    args = (u0, v0, DT, GS, pm.layout, pm.base.c0, pm.stencil, pm.step_tables.W1,
+            pm.step_tables.W2, pm.src_x, pm.abc_x)
+    bufs = [torch.full_like(u0, float("nan")) for _ in range(5)]
+    uk, vk = step(*args, out=tuple(bufs[:2]), scratch=tuple(bufs[2:]))
+    torch.cuda.synchronize()
+    _padding_zero(pm, uk, vk, *bufs[2:])
+    assert bool(torch.isfinite(uk).all() and torch.isfinite(vk).all())
+    zeros = [torch.zeros_like(u0) for _ in range(5)]
+    uz, vz = step(*args, out=tuple(zeros[:2]), scratch=tuple(zeros[2:]))
+    assert torch.equal(uk, uz) and torch.equal(vk, vz)
 
 
 @pytest.mark.parametrize("p", [2, 4, 8])

@@ -41,6 +41,7 @@ imported meshes run through ``models.general_wave``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import time
@@ -102,8 +103,11 @@ def solver_path(pm: PaddedLinearWave, integrator: str = "rk4",
     stiffness = "kernel E" if pm.kernel == "3d" else "kernel B"
 
     def named(kernel: str, plain: str) -> str:
-        src = "slab_kernels.cu" if "kernel E" in kernel else "wave_kernels.cu"
-        return (f"CUDA {kernel} (csrc/{src})" if cuda
+        src = ("csrc/slab_kernels.cu" if "kernel E" in kernel
+               else "csrc/rk4_tiled.cu, csrc/wave_kernels.cu" if "kernel J" in kernel
+               else "csrc/rk4_tiled.cu" if "kernel A" in kernel or "kernel C" in kernel
+               else "csrc/wave_kernels.cu")
+        return (f"CUDA {kernel} ({src})" if cuda
                 else f"plain torch {plain} (CPU)")
 
     def kernel_solve(solve):
@@ -171,9 +175,14 @@ def run(
     """Run the planar3d app on ``cfg`` (default ``SimulationConfig()``);
     the keywords ``cells``, ``degree``, ``dtype``, ``integrator`` and
     ``checkpoint_dir`` override its fields, as the command-line flags do.
-    ``steps`` caps the step count. Returns the JSON dict, or (dict, u, v)
-    with the final padded state when ``return_state``."""
+    ``steps`` caps the step count. The caller's ``cfg`` is not changed.
+    Returns the JSON dict, or (dict, u, v) with the final padded state when
+    ``return_state``."""
     cfg = cfg if cfg is not None else SimulationConfig()
+    cfg = dataclasses.replace(
+        cfg, physics=dataclasses.replace(cfg.physics),
+        domain=dataclasses.replace(cfg.domain), time=dataclasses.replace(cfg.time),
+        run=dataclasses.replace(cfg.run))
     for value, section, name in ((cells, cfg.domain, "ncells"),
                                  (degree, cfg.domain, "degree"),
                                  (dtype, cfg.run, "dtype"),

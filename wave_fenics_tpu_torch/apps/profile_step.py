@@ -40,6 +40,15 @@ Run from the repository root on a machine with a CUDA card:
            --cells 26 13 13 [--integrator leapfrog]    # kernel E
     python -m wave_fenics_tpu_torch.apps.profile_step --bp1 --cells 64 64 64
     python -m wave_fenics_tpu_torch.apps.profile_step --general [--steps 20]
+    python -m wave_fenics_tpu_torch.apps.profile_step --sweep-tiling [--full-tableau]
+    python -m wave_fenics_tpu_torch.apps.profile_step --ablate [--full-tableau]
+
+With ``--sweep-tiling`` it times each stage launch of kernel A (or C)
+at every tiling of ``TILINGS`` (the tile and x-chunk limits of
+``ops/rk4step.py::tiled_geometry``), the default first; with ``--ablate``
+it times them as built and with the stencil replaced by the point value
+(``POINT_ONLY``: a patched copy of ``csrc/``, built under ``_build/``),
+beside one field copy.
 
 It prints the card's name and power limit (nvidia-smi), one line per kernel
 instance, and last one JSON dict of every number.
@@ -51,6 +60,7 @@ import argparse
 import json
 import math
 import re
+import shutil
 import subprocess
 import time
 
@@ -60,24 +70,26 @@ import torch
 from ..benchmarks import general_solve
 from ..benchmarks.common import DTYPES
 from ..core.mesh import box_mesh
+from ..ops import _cuda, rk4step
 from ..ops.general import general_apply_cuda
 from ..ops.mass import bp1_setup, mass_apply
 from ..solvers.cg import cg
-from ..utils.timing import sync
+from ..utils.timing import sync, timeit
 from . import planar3d_app
 
 #: (pattern of the demangled kernel name, its label, the padded state
 #: fields it reads or writes in full; point-wise reads on the source/ABC
-#: rows only are not counted). Kernels A/C stage J: J=0 u0 -> kv0; J=1 u0,
+#: rows only are not counted). Kernels A/C stage J (rk4_tiled_kernel<T, P,
+#: J>, which kernel J also launches): J=0 u0 -> kv0; J=1 u0,
 #: v0 -> kv1; J=2 u0, v0, kv0 -> kv2; J=3 u0, v0, kv0, kv1, kv2 -> u1, v1.
 #: Kernel J's boundary: u0, v0, kv0, kv1, kv2 -> u1, v1, kv0'. D: u0, ku,
 #: v0, kv, ua, va -> vn, kv', ua', va'. H/I: OPEN u0, v0 -> u1, v+; MID u1,
 #: v+ -> u2, v+'; CLOSE u1, v+ -> v1. E: x -> y.
 KERNELS = [
-    (r"rk4_stage_kernel<[^,<>]+,\s*0,", "rk4 stage J=0", 2),
-    (r"rk4_stage_kernel<[^,<>]+,\s*1,", "rk4 stage J=1", 3),
-    (r"rk4_stage_kernel<[^,<>]+,\s*2,", "rk4 stage J=2", 4),
-    (r"rk4_stage_kernel<[^,<>]+,\s*3,", "rk4 stage J=3", 7),
+    (r"rk4_tiled_kernel<[^,<>]+,\s*\d+,\s*0>", "rk4 stage J=0", 2),
+    (r"rk4_tiled_kernel<[^,<>]+,\s*\d+,\s*1>", "rk4 stage J=1", 3),
+    (r"rk4_tiled_kernel<[^,<>]+,\s*\d+,\s*2>", "rk4 stage J=2", 4),
+    (r"rk4_tiled_kernel<[^,<>]+,\s*\d+,\s*3>", "rk4 stage J=3", 7),
     (r"rk42_boundary_kernel<", "rk42 boundary (J)", 8),
     (r"rk_stage_kernel<", "rk stage (D)", 10),
     (r"lf_phase_kernel<[^,<>]+,\s*0>", "lf OPEN", 4),
@@ -209,6 +221,109 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
         "enqueue_ms_per_step": (t1 - t0) / steps * 1e3,
         "synced_ms_per_step": (t2 - t0) / steps * 1e3,
     }
+
+
+#: (tile_z, tile_threads, chunk_x) limits of ops/rk4step.py::tiled_geometry
+#: that --sweep-tiling times, the default first
+TILINGS = [(32, 256, (16, 64)), (32, 256, (16, 16)), (32, 256, (32, 32)),
+           (32, 256, (64, 64)), (32, 128, (16, 64)), (16, 256, (16, 64)),
+           (16, 128, (16, 64))]
+#: the ablation of --ablate: the line of csrc/rk4_tiled.cu that applies the
+#: stencil, and the point value that takes its place in a patched copy of
+#: the sources (the same fetches, stage inputs and stores, no taps)
+POINT_ONLY = ("T kv = x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);",
+              "T kv = q[P];")
+
+
+def point_only_library() -> _cuda.KernelLibrary:
+    """The kernel library built from a copy of ``csrc/`` in which kernels A
+    and C take the point value in place of the stencil (POINT_ONLY)."""
+    src = _cuda.BUILD_DIR / "point_only_src"
+    shutil.rmtree(src, ignore_errors=True)
+    src.mkdir(parents=True)
+    for f in [*_cuda.CSRC.glob("*.cu"), *_cuda.CSRC.glob("*.cuh")]:
+        text = f.read_text()
+        if f.name == "rk4_tiled.cu":
+            if text.count(POINT_ONLY[0]) != 1:
+                raise RuntimeError("csrc/rk4_tiled.cu does not hold the stencil "
+                                   "line POINT_ONLY replaces exactly once")
+            text = text.replace(*POINT_ONLY)
+        (src / f.name).write_text(text)
+    return _cuda.load(src)
+
+
+class _StageTimer:
+    """Device microseconds of each stage launch of kernel A (C with
+    ``lean=False``) on the planar3d case: CUDA events over back-to-back
+    launches with their arguments converted once, so the host's per-call
+    checks do not pace them."""
+
+    def __init__(self, cells, degree, dtype, tile_x, lean):
+        if not torch.cuda.is_available():
+            raise RuntimeError("profile_step needs a CUDA card")
+        self.case, self.pm = planar3d_app.build(cells, degree, dtype, tile_x,
+                                                "cuda", lean)
+        pm = self.pm
+        self.u, self.v = (torch.randn(pm.layout.padded_shape, dtype=pm.base.dtype,
+                                      device=pm.base.device) for _ in range(2))
+        self.bufs = [torch.zeros_like(self.u) for _ in range(5)]
+        self.name = "wave_rk4_stage" if lean else "wave_rk4_full_stage"
+
+    def stage_us(self, kl, geometry=None, reps=200) -> list[float]:
+        """Each stage's µs with library ``kl`` on ``geometry`` (a result of
+        ``tiled_geometry``; its default when None)."""
+        pm, case, b = self.pm, self.case, self.bufs
+        out = []
+        for j in range(4):
+            g = pm.base.g_amplitude((0.0, 0.5, 0.5, 1.0)[j] * case.dt)
+            args = rk4step.stage_launch_args(
+                j, self.u, self.v, *b[2:], b[2 + j] if j < 3 else b[4], *b[:2],
+                pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x, case.dt, g, pm.base.c0,
+                pm.layout, pm.stencil, geometry=geometry)
+            out.append(1e6 * timeit(_cuda.launcher(kl, self.name, self.u.dtype,
+                                                   pm.base.device, *args), reps=reps))
+        return out
+
+
+def sweep_tiling(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
+                 lean=True) -> dict:
+    """Each stage's device time at every tiling of TILINGS."""
+    st = _StageTimer(cells, degree, dtype, tile_x, lean)
+    sms = rk4step.sm_count(st.u.device.index)
+    rows = []
+    for tile_z, tile_threads, chunk_x in TILINGS:
+        geometry = rk4step.tiled_geometry(
+            st.pm.layout, st.u.element_size(), sms, tile_z=tile_z,
+            tile_threads=tile_threads, chunk_x=chunk_x)
+        us = st.stage_us(_cuda.library(), geometry)
+        grid, ty, tz, cx, smem = geometry
+        rows.append({"tiling": [tile_z, tile_threads, list(chunk_x)],
+                     "grid": list(grid), "tile": [ty, tz], "chunk": cx,
+                     "smem": smem, "stage_us": us, "ms_per_step": sum(us) / 1e3})
+    return {"card": card_line(), "cells": list(cells), "degree": degree,
+            "dtype": dtype, "lean": lean,
+            "padded_shape": list(st.pm.layout.padded_shape), "sweep": rows}
+
+
+def ablate(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
+           lean=True) -> dict:
+    """What holds kernel A (or C) back: each stage's device time as built,
+    and with the stencil replaced by the point value (POINT_ONLY); and the
+    copy rate of one state field (``Tensor.copy_``, a measuring stick
+    only), the HBM rate a streaming kernel can reach on this card."""
+    st = _StageTimer(cells, degree, dtype, tile_x, lean)
+    full, point = st.stage_us(_cuda.library()), st.stage_us(point_only_library())
+    nbytes = st.u.numel() * st.u.element_size()
+    dst = torch.empty_like(st.u)
+    copy_s = timeit(lambda: dst.copy_(st.u), reps=200)
+    return {"card": card_line(), "cells": list(cells), "degree": degree,
+            "dtype": dtype, "lean": lean,
+            "padded_shape": list(st.pm.layout.padded_shape),
+            "stage_us": full, "point_only_stage_us": point,
+            "ms_per_step": sum(full) / 1e3,
+            "point_only_ms_per_step": sum(point) / 1e3,
+            "field_bytes": nbytes, "copy_us": copy_s * 1e6,
+            "copy_gbps": 2 * nbytes / copy_s / 1e9}
 
 
 def _device_events(prof):
@@ -354,7 +469,35 @@ def main(argv=None):
     ap.add_argument("--general", action="store_true",
                     help="profile RK4 steps of the explicit-dofmap model "
                          "(kernel K) on the perturbed box of --cells")
+    ap.add_argument("--sweep-tiling", action="store_true",
+                    help="time each stage of kernel A (C with --full-tableau) "
+                         "at every tiling of TILINGS")
+    ap.add_argument("--ablate", action="store_true",
+                    help="time each stage of kernel A (C with --full-tableau) "
+                         "as built and with the stencil replaced by the point "
+                         "value, and one field copy")
     args = ap.parse_args(argv)
+    if args.ablate:
+        out = ablate(args.cells, args.degree, args.dtype, args.tile_x,
+                     lean=not args.full_tableau)
+        print(out["card"])
+        print(f"stages {', '.join(f'{t:.2f}' for t in out['stage_us'])} us "
+              f"({out['ms_per_step']:.4f} ms/step); stencil replaced by the point "
+              f"value: {', '.join(f'{t:.2f}' for t in out['point_only_stage_us'])} us "
+              f"({out['point_only_ms_per_step']:.4f} ms/step); one field copy "
+              f"{out['copy_us']:.2f} us, {out['copy_gbps']:.1f} GB/s")
+        print(json.dumps(out))
+        return
+    if args.sweep_tiling:
+        out = sweep_tiling(args.cells, args.degree, args.dtype, args.tile_x,
+                           lean=not args.full_tableau)
+        print(out["card"])
+        for r in out["sweep"]:
+            print(f"tiling {r['tiling']}: tile {r['tile']}, chunk {r['chunk']}, grid "
+                  f"{r['grid']}: stages {', '.join(f'{t:.2f}' for t in r['stage_us'])} "
+                  f"us, {r['ms_per_step']:.4f} ms/step")
+        print(json.dumps(out))
+        return
     if args.general:
         out = profile_general(args.cells, args.degree, args.dtype, args.steps)
         print(out["card"])

@@ -127,10 +127,11 @@ def two_point_time(fn, reps: int, device: torch.device) -> tuple[float, str, int
     ``reps`` and ``reps // 4`` back-to-back calls, each window timed
     ``WINDOWS`` times (median), differenced and divided by the difference of
     the counts: a fixed cost per window (the first launch, the final sync)
-    cancels. Below 8 reps the two counts are too close to difference, so one
-    window of ``reps`` calls is divided by ``reps`` and the label says
-    ``single-window`` (the JAX bench labelled that case two-point too,
-    ``bench.py:330``)."""
+    cancels. Below 8 reps the two counts are too close to difference, and
+    where the long window was not slower than the short one (noise) the
+    difference means nothing: then one window of ``reps`` calls is divided
+    by ``reps`` and the label says ``single-window`` (the JAX bench labelled
+    that case two-point too, ``bench.py:330``)."""
     for _ in range(WARMUP):
         fn()
     if reps >= 8:
@@ -138,7 +139,9 @@ def two_point_time(fn, reps: int, device: torch.device) -> tuple[float, str, int
         t_hi = statistics.median(_window(fn, reps, device) for _ in range(WINDOWS))
         t_lo = statistics.median(_window(fn, r_lo, device) for _ in range(WINDOWS))
         calls = WARMUP + WINDOWS * (reps + r_lo)
-        return max(t_hi - t_lo, 1e-9) / (reps - r_lo), "two-point", calls
+        if t_hi <= t_lo:
+            return t_hi / reps, "single-window", calls
+        return (t_hi - t_lo) / (reps - r_lo), "two-point", calls
     t = statistics.median(_window(fn, reps, device) for _ in range(WINDOWS))
     return t / reps, "single-window", WARMUP + WINDOWS * reps
 

@@ -1,0 +1,307 @@
+// Kernels A and C on Hopper (sm_90a): one classic RK4 step as four launches
+// of rk4_tiled_kernel<T, P, J>, one per stage J = 0..3, on the 2.5D tiled
+// stencil of stencil_tiled.cuh.
+//
+// * The lean stage algebra (kernel A) replaces
+//   wave_fenics_tpu/ops/pallas_rk4step.py::_kernel_rk4_step_lean.
+// * The full Butcher tableau (kernel C, the argument lean = 0) replaces
+//   pallas_rk4step.py::_kernel_rk4_step; kernel J (wave_kernels.cu) runs
+//   six of its stages.
+//
+// What bounds them on this card: with one multiply-add per tap the flops
+// are far below the H100's rate; the compulsory traffic of a step is 16
+// state-field passes (stage J reads its inputs, 1 to 5 fields, and writes
+// kv_J, or u1 and v1), about 0.15 ms at 3.35 TB/s in f32 at 4.28 M dofs.
+// The earlier per-point form loaded every tap from L1/L2 and formed the
+// stage input from two or three fields at each of the 3(2p + 1) taps: it
+// was bound by load issue at 19x the bound.
+//
+// The design: a block streams one x-chunk of a ty x tz tile of interior
+// columns (stencil_tiled.cuh). Each x plane of the fields the stage input
+// needs is fetched once, by cp.async into a ring of kPipe planes, up to
+// kPipe - 1 planes ahead of the one being computed; the stage input un_J is
+// formed once per point in shared memory, by the thread that copied the
+// point, before the plane's one barrier (0 outside the interior, exactly
+// what the zero padding gave); the y/z taps are read from shared memory, the x taps
+// from a register queue of 2p + 1 values, and the column's y/z tables sit
+// in registers. The y/z sum of a plane waits p planes in a second register
+// queue until its x taps have arrived. P is a template parameter (p = 1..8)
+// so both queues are registers. The blocks also write the zero padding of
+// every output, whatever it held before. No tensor cores: the tap
+// coefficients change per point, and TF32 would break the f32 gates.
+//
+// With kv_J = A un_J + face terms and a = dt/2,
+//
+//   lean (A)                          full tableau (C)
+//   un0 = u0                          un0 = u0
+//   un1 = u0 + a v0                   un1 = u0 + a v0
+//   un2 = un1 + dt^2/4 kv0            un2 = u0 + a (v0 + a kv0)
+//   un3 = (u0 + dt v0) + dt^2/2 kv1   un3 = u0 + dt (v0 + a kv1)
+//
+// and vn0 = v0, vn1 = v0 + a kv0, vn2 = v0 + a kv1, vn3 = v0 + dt kv2 in
+// both. Stages 0..2 write kv_J; stage 3 writes (u1, v1):
+//
+//   lean: u1 = (u0 + dt v0) + dt^2/6 (kv0 + kv1 + kv2)
+//         v1 = v0 + dt/6 (kv0 + 2 kv1 + 2 kv2 + kv3)
+//   full: u1 = u0 + dt (((b0 v0 + b1 vn1) + b2 vn2) + b3 vn3)
+//         v1 = v0 + dt (((b0 kv0 + b1 kv1) + b2 kv2) + b3 kv3)
+//
+// each in its TPU kernel's association order. The face terms act on rows
+// src_x and abc_x only, in the TPU kernels' order: the stencil, then the
+// source c0^2 g_J W1, then the absorbing term -c0 W2 vn_J. Stage 3 reads
+// u0's neighbours while it writes u1, so no output may alias an input.
+//
+// Each extern "C" launcher returns cudaGetLastError() after its launch (or
+// cudaErrorInvalidValue for a tiling that does not fit the layout).
+
+#include <cuda_runtime.h>
+
+#include "stencil_tiled.cuh"
+
+namespace wave {
+
+template <typename T>
+struct StageArgs {
+  const T* u0;
+  const T* v0;
+  const T* kv0;
+  const T* kv1;
+  const T* kv2;
+  T* kv_out;  // stages 0..2
+  T* u1;      // stage 3
+  T* v1;      // stage 3
+  const T* w1;  // [F] source facet weights / m
+  const T* w2;  // [F] absorbing facet weights / m
+  int src_x, abc_x;
+  int lean;  // 1: kernel A's stage algebra; 0: kernel C's
+  T dt, g, c0sq, mc0;
+};
+
+// Fields whose plane values form the stage input: u0, v0 and kv0 (J = 2)
+// or kv1 (J = 3).
+template <int J>
+__host__ __device__ constexpr int stage_fields() {
+  return J == 0 ? 1 : J == 1 ? 2 : 3;
+}
+
+template <typename T, int J>
+__device__ __forceinline__ T stage_input(T u0, T v0, T k, bool lean, T dt) {
+  const T half = T(0.5);
+  if constexpr (J == 1) {
+    return u0 + (half * dt) * v0;
+  } else if constexpr (J == 2) {
+    return lean ? (u0 + (half * dt) * v0) + (T(0.25) * (dt * dt)) * k
+                : u0 + (half * dt) * (v0 + (half * dt) * k);
+  } else {
+    return lean ? (u0 + dt * v0) + (half * (dt * dt)) * k
+                : u0 + dt * (v0 + (half * dt) * k);
+  }
+}
+
+// Blocks per SM the register budget must allow: four at p <= 4 in f32
+// (64 registers a thread), else what the compiler needs.
+template <typename T, int P>
+__host__ __device__ constexpr int min_blocks() {
+  return sizeof(T) == 4 && P <= 4 ? 4 : 1;
+}
+
+template <typename T, int P, int J>
+__global__ void __launch_bounds__(kTileThreads, (min_blocks<T, P>()))
+    rk4_tiled_kernel(Stencil<T> s, StageArgs<T> a, Tiling t) {
+  constexpr int K = 2 * P + 1;
+  constexpr int NF = stage_fields<J>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+
+  const TileCoords<T> c(s, t);
+  const int plane = (t.ty + 2 * P) * (t.tz + 2 * P);
+  const Window<P> w(s, c, t, reinterpret_cast<int*>(smem + kPipe * NF * plane));
+  const int W = w.W;
+  const int F = s.F();
+  const T dt = a.dt;
+  const T half = T(0.5);
+  const bool lean = a.lean != 0;
+  const T* kin = J == 2 ? a.kv0 : a.kv1;
+
+  ColumnTables<T, P> tab;
+  tab.load(s, c.f, c.active);
+  T q[K];  // q[k] = un_J at row gi - 2P + k after plane gi
+#pragma unroll
+  for (int k = 0; k < K; ++k) q[k] = T(0);
+  T yzq[P];  // yzq[j] = the y/z sum at row gi - P + 1 + j after plane gi
+#pragma unroll
+  for (int j = 0; j < P; ++j) yzq[j] = T(0);
+
+  const int iters = c.xe - c.xs + 2 * P;  // planes xs - P .. xe + P - 1
+#pragma unroll
+  for (int i = 0; i < kPipe - 1; ++i) {
+    if (i < iters) {
+      fetch_plane<T, P, NF>(smem + i * NF * plane, a.u0, a.v0, kin, s, w,
+                            c.xs - P + i);
+    }
+    cp_async_commit();
+  }
+  if constexpr (J < 3) {  // while the first planes are in flight
+    zero_padding<T>(s, t, a.kv_out, nullptr);
+  } else {
+    zero_padding<T>(s, t, a.u1, a.v1);
+  }
+
+  for (int i = 0; i < iters; ++i) {
+    const int gi = c.xs - P + i;
+    T* buf = smem + (i % kPipe) * NF * plane;
+    cp_async_wait<kPipe - 2>();  // this thread's copies of plane gi landed
+    if constexpr (J > 0) {  // un_J once per point, in place of u0, by the
+                            // thread that copied the point
+      for (int e = (int)threadIdx.x; e < plane; e += w.nt) {
+        buf[e] = stage_input<T, J>(buf[e], buf[plane + e],
+                                   NF > 2 ? buf[2 * plane + e] : T(0), lean, dt);
+      }
+    }
+    __syncthreads();  // plane gi is complete; slot (i - 1) % kPipe is free
+    const int ip = i + kPipe - 1;
+    if (ip < iters) {
+      fetch_plane<T, P, NF>(smem + (ip % kPipe) * NF * plane, a.u0, a.v0, kin,
+                            s, w, c.xs - P + ip);
+    }
+    cp_async_commit();
+
+    const T* ctr = buf + (c.ly + P) * W + (c.lz + P);
+#pragma unroll
+    for (int k = 0; k < K - 1; ++k) q[k] = q[k + 1];
+    q[K - 1] = ctr[0];
+    const T yz_new = gi >= c.xs && gi < c.xe ? tab.yz(ctr, W) : T(0);
+    const T yz = yzq[0];
+#pragma unroll
+    for (int j = 0; j < P - 1; ++j) yzq[j] = yzq[j + 1];
+    yzq[P - 1] = yz_new;
+
+    if (i < 2 * P || !c.active) continue;
+    const int g = gi - P;  // the output row
+    const long long idx = (long long)g * F + c.f;
+    T kv = x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);
+    if (g == a.src_x) kv += (a.c0sq * a.g) * a.w1[c.f];
+    if (g == a.abc_x) {
+      T vn;
+      if constexpr (J == 0) {
+        vn = a.v0[idx];
+      } else if constexpr (J == 1) {
+        vn = a.v0[idx] + (half * dt) * a.kv0[idx];
+      } else if constexpr (J == 2) {
+        vn = a.v0[idx] + (half * dt) * a.kv1[idx];
+      } else {
+        vn = a.v0[idx] + dt * a.kv2[idx];
+      }
+      kv += (a.mc0 * a.w2[c.f]) * vn;
+    }
+    if constexpr (J < 3) {
+      a.kv_out[idx] = kv;
+    } else if (lean) {
+      const T dt2 = dt * dt;
+      const T k1 = a.kv1[idx];
+      const T k2 = a.kv2[idx];
+      const T s2 = (a.kv0[idx] + k1) + k2;
+      a.u1[idx] = (a.u0[idx] + dt * a.v0[idx]) + (dt2 / T(6)) * s2;
+      a.v1[idx] = a.v0[idx] + (dt / T(6)) * (((s2 + k1) + k2) + kv);
+    } else {
+      const T b0 = T(1.0 / 6.0);
+      const T b1 = T(1.0 / 3.0);
+      const T v0 = a.v0[idx];
+      const T k0 = a.kv0[idx];
+      const T k1 = a.kv1[idx];
+      const T k2 = a.kv2[idx];
+      const T vn1 = v0 + (half * dt) * k0;
+      const T vn2 = v0 + (half * dt) * k1;
+      const T vn3 = v0 + dt * k2;
+      const T accu = ((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3;
+      const T accv = ((b0 * k0 + b1 * k1) + b1 * k2) + b0 * kv;
+      a.u1[idx] = a.u0[idx] + dt * accu;
+      a.v1[idx] = v0 + dt * accv;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T, int P, int J>
+int launch_stage(Stencil<T> s, StageArgs<T> a, Tiling t, dim3 grid, int smem,
+                 cudaStream_t stream) {
+  if (smem < tiled_smem_bytes<T, P>(t, stage_fields<J>())) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = rk4_tiled_kernel<T, P, J>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, t.ty * t.tz, smem, stream>>>(s, a, t);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int P>
+int launch_stage_p(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
+                   dim3 grid, int smem, cudaStream_t stream) {
+  switch (stage) {
+    case 0: return launch_stage<T, P, 0>(s, a, t, grid, smem, stream);
+    case 1: return launch_stage<T, P, 1>(s, a, t, grid, smem, stream);
+    case 2: return launch_stage<T, P, 2>(s, a, t, grid, smem, stream);
+    case 3: return launch_stage<T, P, 3>(s, a, t, grid, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tiling must cover the interior exactly: one block per tile and
+// x-chunk.
+inline bool tiling_fits(const Tiling& t, dim3 grid, int nx, int ny, int nz) {
+  const auto cdiv = [](int n, int d) { return (n + d - 1) / d; };
+  return t.ty > 0 && t.tz > 0 && t.cx > 0 && t.ty * t.tz <= kTileThreads &&
+         (int)grid.x == cdiv(nz, t.tz) && (int)grid.y == cdiv(ny, t.ty) &&
+         (int)grid.z == cdiv(nx, t.cx);
+}
+
+template <typename T>
+int launch_rk4_tiled(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
+                     dim3 grid, int smem, cudaStream_t stream) {
+  if (!tiling_fits(t, grid, s.nx, s.ny, s.nz)) return (int)cudaErrorInvalidValue;
+  switch (s.p) {
+    case 1: return launch_stage_p<T, 1>(stage, s, a, t, grid, smem, stream);
+    case 2: return launch_stage_p<T, 2>(stage, s, a, t, grid, smem, stream);
+    case 3: return launch_stage_p<T, 3>(stage, s, a, t, grid, smem, stream);
+    case 4: return launch_stage_p<T, 4>(stage, s, a, t, grid, smem, stream);
+    case 5: return launch_stage_p<T, 5>(stage, s, a, t, grid, smem, stream);
+    case 6: return launch_stage_p<T, 6>(stage, s, a, t, grid, smem, stream);
+    case 7: return launch_stage_p<T, 7>(stage, s, a, t, grid, smem, stream);
+    case 8: return launch_stage_p<T, 8>(stage, s, a, t, grid, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wave
+
+// ---------------------------------------------------------------------------
+// Plain C interface (bound with ctypes by ops/_cuda.py). The last seven
+// ints are ops/rk4step.py::tiled_geometry's tiling: ty, tz, cx, the grid
+// (gx, gy, gz) and the dynamic shared memory in bytes.
+// ---------------------------------------------------------------------------
+
+#define WAVE_DEFINE_RK4_STAGE(T, SUFFIX, NAME, LEAN)                          \
+  extern "C" int NAME##_##SUFFIX(                                             \
+      int stage, const T* u0, const T* v0, const T* kv0, const T* kv1,        \
+      const T* kv2, T* kv_out, T* u1, T* v1, const T* w1, const T* w2,        \
+      int src_x, int abc_x, double dt, double g, double c0, const T* cvx,     \
+      const T* sx, const T* fx, const T* cvy, const T* cvz, int p, int Lx,    \
+      int Ly, int Lz, int x0, int nx, int h, int ny, int nz, int ty, int tz,  \
+      int cx, int gx, int gy, int gz, int smem, cudaStream_t stream) {        \
+    wave::StageArgs<T> a{u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,       \
+                         src_x, abc_x, LEAN, (T)dt, (T)g, (T)(c0 * c0),       \
+                         (T)(-c0)};                                           \
+    wave::Stencil<T> s{cvx, sx, fx, cvy, cvz, p, Lx, Ly, Lz,                  \
+                       x0, nx, h, ny, nz};                                    \
+    return wave::launch_rk4_tiled<T>(stage, s, a, wave::Tiling{ty, tz, cx},   \
+                                     dim3(gx, gy, gz), smem, stream);         \
+  }
+
+WAVE_DEFINE_RK4_STAGE(float, f32, wave_rk4_stage, 1)
+WAVE_DEFINE_RK4_STAGE(double, f64, wave_rk4_stage, 1)
+WAVE_DEFINE_RK4_STAGE(float, f32, wave_rk4_full_stage, 0)
+WAVE_DEFINE_RK4_STAGE(double, f64, wave_rk4_full_stage, 0)

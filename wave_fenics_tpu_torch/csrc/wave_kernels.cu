@@ -1,17 +1,11 @@
 // Hand-written Hopper kernels of the planar3d solver paths (sm_90a).
 //
-// Six entry points share the stencil of stencil.cuh:
+// Four entry points share the stencil of stencil.cuh (kernels A and C, the
+// RK4 step, are in rk4_tiled.cu on the tiled stencil of stencil_tiled.cuh):
 //
 // * apply_flat_kernel (kernel B) replaces the TPU kernel
 //   wave_fenics_tpu/ops/pallas_wave.py::_kernel_flat: y = A x on the flat
 //   padded layout.
-// * rk4_stage_kernel<J, Lean = true> (kernel A) replaces
-//   wave_fenics_tpu/ops/pallas_rk4step.py::_kernel_rk4_step_lean: one
-//   classic RK4 step as four launches, one per stage J = 0..3, with the
-//   collapsed (lean) stage algebra of that kernel.
-// * rk4_stage_kernel<J, Lean = false> (kernel C) replaces
-//   pallas_rk4step.py::_kernel_rk4_step: the same step with the full
-//   Butcher tableau (nested stage inputs, b_j-weighted accumulators).
 // * rk42_boundary_kernel with six kernel-C stages (kernel J) replaces
 //   pallas_rk42step.py::_kernel_rk42_step: two full-tableau RK4 steps in
 //   seven launches, the step boundary (step 1's stage 3 and step 2's stage
@@ -35,13 +29,11 @@
 // What the design does about it, in this first form: one thread per
 // padded point, neighbouring threads on neighbouring f, so every tap row
 // is a coalesced load and the x taps of a warp hit the same L2 lines that
-// the neighbouring blocks read; a stage input (un_J, or u0 + ca ku) is
+// the neighbouring blocks read; a stage input (un3, u1, or u0 + ca ku) is
 // formed at each tap from the fields in memory instead of being written
-// out; padding points write zeros without reading any tap. The TPU
-// kernels' one-pass halo recompute is not carried over: one padded row of
-// F is 83 KB in f32, so an (x-tile + halo) x F slab does not fit the
-// 227 KB of shared memory. Fusing launches into one pass over 3D bricks is
-// the first performance step (ROADMAP.md).
+// out; padding points write zeros without reading any tap. Moving them
+// onto the tiled stencil of stencil_tiled.cuh, as kernels A and C did, is
+// the next performance step (ROADMAP.md).
 //
 // Each extern "C" launcher returns cudaGetLastError() after its launch, so
 // the caller sees a launch the runtime refused.
@@ -79,132 +71,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Kernels A and C: one RK4 stage. With kv_J = A un_J + face terms and
-// a = dt/2,
-//
-//   lean (A)                          full tableau (C)
-//   un0 = u0                          un0 = u0
-//   un1 = u0 + a v0                   un1 = u0 + a v0
-//   un2 = un1 + dt^2/4 kv0            un2 = u0 + a (v0 + a kv0)
-//   un3 = (u0 + dt v0) + dt^2/2 kv1   un3 = u0 + dt (v0 + a kv1)
-//
-// and vn0 = v0, vn1 = v0 + a kv0, vn2 = v0 + a kv1, vn3 = v0 + dt kv2 in
-// both. Stages 0..2 write kv_J; stage 3 writes (u1, v1):
-//
-//   lean: u1 = (u0 + dt v0) + dt^2/6 (kv0 + kv1 + kv2)
-//         v1 = v0 + dt/6 (kv0 + 2 kv1 + 2 kv2 + kv3)
-//   full: u1 = u0 + dt (((b0 v0 + b1 vn1) + b2 vn2) + b3 vn3)
-//         v1 = v0 + dt (((b0 kv0 + b1 kv1) + b2 kv2) + b3 kv3)
-//
-// each in its TPU kernel's association order. The face terms act on rows
-// src_x and abc_x only, in the TPU kernels' order: the stencil, then the
-// source c0^2 g_J W1, then the absorbing term -c0 W2 vn_J.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct StageArgs {
-  const T* u0;
-  const T* v0;
-  const T* kv0;
-  const T* kv1;
-  const T* kv2;
-  T* kv_out;  // stages 0..2
-  T* u1;      // stage 3
-  T* v1;      // stage 3
-  const T* w1;  // [F] source facet weights / m
-  const T* w2;  // [F] absorbing facet weights / m
-  int src_x, abc_x;
-  T dt, g, c0sq, mc0;
-};
-
-template <typename T, int J, bool Lean>
-__global__ void __launch_bounds__(kThreads)
-    rk4_stage_kernel(Stencil<T> s, StageArgs<T> a) {
-  const int F = s.F();
-  const long long n = (long long)s.Lx * F;
-  const T dt = a.dt;
-  const T dt2 = dt * dt;
-  const T half = T(0.5);
-
-  auto load = [&a, F, dt, dt2, half](int g, int f) -> T {
-    const long long j = (long long)g * F + f;
-    if constexpr (J == 0) {
-      return a.u0[j];
-    } else if constexpr (J == 1) {
-      return a.u0[j] + (half * dt) * a.v0[j];
-    } else if constexpr (J == 2) {
-      if constexpr (Lean) {
-        return (a.u0[j] + (half * dt) * a.v0[j]) + (T(0.25) * dt2) * a.kv0[j];
-      } else {
-        return a.u0[j] + (half * dt) * (a.v0[j] + (half * dt) * a.kv0[j]);
-      }
-    } else {
-      if constexpr (Lean) {
-        return (a.u0[j] + dt * a.v0[j]) + (half * dt2) * a.kv1[j];
-      } else {
-        return a.u0[j] + dt * (a.v0[j] + (half * dt) * a.kv1[j]);
-      }
-    }
-  };
-
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int g = (int)(i / F);
-    const int f = (int)(i - (long long)g * F);
-    if (!s.interior(g, f)) {
-      if constexpr (J < 3) {
-        a.kv_out[i] = T(0);
-      } else {
-        a.u1[i] = T(0);
-        a.v1[i] = T(0);
-      }
-      continue;
-    }
-    T kv = apply_stencil(s, load, g, f);
-    if (g == a.src_x) kv += (a.c0sq * a.g) * a.w1[f];
-    if (g == a.abc_x) {
-      T vn;
-      if constexpr (J == 0) {
-        vn = a.v0[i];
-      } else if constexpr (J == 1) {
-        vn = a.v0[i] + (half * dt) * a.kv0[i];
-      } else if constexpr (J == 2) {
-        vn = a.v0[i] + (half * dt) * a.kv1[i];
-      } else {
-        vn = a.v0[i] + dt * a.kv2[i];
-      }
-      kv += (a.mc0 * a.w2[f]) * vn;
-    }
-    if constexpr (J < 3) {
-      a.kv_out[i] = kv;
-    } else if constexpr (Lean) {
-      const T k1 = a.kv1[i];
-      const T k2 = a.kv2[i];
-      const T s2 = (a.kv0[i] + k1) + k2;
-      a.u1[i] = (a.u0[i] + dt * a.v0[i]) + (dt2 / T(6)) * s2;
-      a.v1[i] = a.v0[i] + (dt / T(6)) * (((s2 + k1) + k2) + kv);
-    } else {
-      const T b0 = T(1.0 / 6.0);
-      const T b1 = T(1.0 / 3.0);
-      const T v0 = a.v0[i];
-      const T k0 = a.kv0[i];
-      const T k1 = a.kv1[i];
-      const T k2 = a.kv2[i];
-      const T vn1 = v0 + (half * dt) * k0;
-      const T vn2 = v0 + (half * dt) * k1;
-      const T vn3 = v0 + dt * k2;
-      const T accu = ((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3;
-      const T accv = ((b0 * k0 + b1 * k1) + b1 * k2) + b0 * kv;
-      a.u1[i] = a.u0[i] + dt * accu;
-      a.v1[i] = v0 + dt * accv;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Kernel J: two full-tableau RK4 steps in seven launches instead of kernel
 // C's eight. Stages 0..2 of step 1 and stages 1..3 of step 2 are kernel C's
-// rk4_stage_kernel<T, J, false>; the step boundary is one launch of
+// stages (rk4_tiled.cu, lean = 0); the step boundary is one launch of
 // rk42_boundary_kernel, which at each point computes, with a = dt/2 and
 // g = g(t + dt) (the time of step 1's stage 3 and of step 2's stage 0),
 //
@@ -439,20 +308,6 @@ int launch_apply_flat(const T* x, T* y, Stencil<T> s, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool Lean>
-int launch_rk4_stage(int stage, Stencil<T> s, StageArgs<T> a,
-                     cudaStream_t stream) {
-  const unsigned nb = blocks_of(s);
-  switch (stage) {
-    case 0: rk4_stage_kernel<T, 0, Lean><<<nb, kThreads, 0, stream>>>(s, a); break;
-    case 1: rk4_stage_kernel<T, 1, Lean><<<nb, kThreads, 0, stream>>>(s, a); break;
-    case 2: rk4_stage_kernel<T, 2, Lean><<<nb, kThreads, 0, stream>>>(s, a); break;
-    case 3: rk4_stage_kernel<T, 3, Lean><<<nb, kThreads, 0, stream>>>(s, a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int launch_rk42_boundary(Stencil<T> s, BoundaryArgs<T> a, cudaStream_t stream) {
   rk42_boundary_kernel<T><<<blocks_of(s), kThreads, 0, stream>>>(s, a);
@@ -489,18 +344,6 @@ int launch_lf_phase(int phase, Stencil<T> s, LfArgs<T> a,
       int Lx, int Ly, int Lz, int x0, int nx, int h, int ny, int nz
 #define WAVE_STENCIL_ARGS cvx, sx, fx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz
 
-#define WAVE_DEFINE_RK4_STAGE(T, SUFFIX, NAME, LEAN)                          \
-  extern "C" int NAME##_##SUFFIX(                                             \
-      int stage, const T* u0, const T* v0, const T* kv0, const T* kv1,        \
-      const T* kv2, T* kv_out, T* u1, T* v1, const T* w1, const T* w2,        \
-      int src_x, int abc_x, double dt, double g, double c0,                   \
-      WAVE_STENCIL_PARAMS(T), cudaStream_t stream) {                          \
-    wave::StageArgs<T> a{u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,       \
-                         src_x, abc_x, (T)dt, (T)g, (T)(c0 * c0), (T)(-c0)};  \
-    return wave::launch_rk4_stage<T, LEAN>(                                   \
-        stage, wave::make_stencil<T>(WAVE_STENCIL_ARGS), a, stream);          \
-  }
-
 #define WAVE_DEFINE_LAUNCHERS(T, SUFFIX)                                      \
   extern "C" int wave_apply_flat_##SUFFIX(const T* x, T* y,                   \
                                           WAVE_STENCIL_PARAMS(T),             \
@@ -508,8 +351,6 @@ int launch_lf_phase(int phase, Stencil<T> s, LfArgs<T> a,
     return wave::launch_apply_flat<T>(                                        \
         x, y, wave::make_stencil<T>(WAVE_STENCIL_ARGS), stream);              \
   }                                                                           \
-  WAVE_DEFINE_RK4_STAGE(T, SUFFIX, wave_rk4_stage, true)                      \
-  WAVE_DEFINE_RK4_STAGE(T, SUFFIX, wave_rk4_full_stage, false)                \
   extern "C" int wave_rk42_boundary_##SUFFIX(                                 \
       const T* u0, const T* v0, const T* kv0, const T* kv1, const T* kv2,     \
       T* u1, T* v1, T* kv0_out, const T* w1, const T* w2, int src_x,          \

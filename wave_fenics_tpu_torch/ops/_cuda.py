@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KernelLibrary", "library", "launch", "check_operands",
+__all__ = ["KernelLibrary", "library", "load", "launch", "launcher", "check_operands",
            "check_index_operands", "check_no_alias", "nvcc"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -44,9 +44,11 @@ _SIGNATURES = {
     # x, y, <stencil>, stream
     "wave_apply_flat": [_P, _P] + _STENCIL + [_P],
     # stage, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2, src_x, abc_x,
-    # dt, g, c0, <stencil>, stream (lean: kernel A; full tableau: kernel C)
-    "wave_rk4_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
-    "wave_rk4_full_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
+    # dt, g, c0, <stencil>, ty, tz, cx, gx, gy, gz, smem, stream (lean:
+    # kernel A; full tableau: kernel C; the tiling of
+    # ops/rk4step.py::tiled_geometry)
+    "wave_rk4_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_I] * 7 + [_P],
+    "wave_rk4_full_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_I] * 7 + [_P],
     # u0, v0, kv0, kv1, kv2, u1, v1, kv0_out, w1, w2, src_x, abc_x, dt, g,
     # c0, <stencil>, stream (kernel J's step boundary)
     "wave_rk42_boundary": [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
@@ -133,8 +135,14 @@ def _build(sources: list[Path], out_dir: Path) -> tuple[Path, str, float]:
 
 @functools.cache
 def library() -> KernelLibrary:
-    """Build (once per source hash) and load the kernel library."""
-    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    """Build (once per source hash) and load the kernel library of ``csrc/``."""
+    return load(CSRC)
+
+
+def load(csrc: Path) -> KernelLibrary:
+    """Build (once per source hash, under ``_build/``) and load the kernel
+    library of the ``*.cu`` and ``*.cuh`` sources in directory ``csrc``."""
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
         h.update(s.name.encode())
@@ -193,12 +201,24 @@ def _check_tensors(device, dtype, operands) -> None:
 def launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
     """Call launcher ``name`` (f32/f64 by ``dtype``) on ``device``'s current
     stream; tensors among ``args`` pass as their data pointers."""
-    kl = library()
+    launcher(library(), name, dtype, device, *args)()
+
+
+def launcher(kl: KernelLibrary, name: str, dtype: torch.dtype,
+             device: torch.device, *args):
+    """A callable that launches ``name`` of library ``kl`` on ``args`` as
+    :func:`launch` does, with the arguments and the stream converted once:
+    it costs the host little more than the ctypes call, so back-to-back
+    calls time the kernel itself."""
     fn = getattr(kl.lib, f"{name}_{_SUFFIX[dtype]}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*conv, stream)
-    if rc != 0:
-        msg = kl.lib.wave_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def call() -> None:
+        with torch.cuda.device(device):
+            rc = fn(*conv, stream)
+        if rc != 0:
+            msg = kl.lib.wave_error_string(rc).decode()
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+    return call

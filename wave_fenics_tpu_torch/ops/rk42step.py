@@ -9,12 +9,14 @@ The TPU kernel keeps an x-slab with a 6p halo in VMEM and evaluates step 1
 on a superset window, through six shrinking stage windows; those windows
 and their band tables are a TPU device and are not ported. Here a launch
 covers the whole grid, and two steps take seven launches instead of kernel
-C's eight (``csrc/wave_kernels.cu``):
+C's eight:
 
-1-3. stages 0..2 of step 1 (kernel C's stage kernel): kv0, kv1, kv2;
-4.   the step boundary (``rk42_boundary_kernel``): kv3 of step 1, the
-     full-tableau (u1, v1), and step 2's stage 0, kv0' = A u1 + faces at
-     t + dt, with u1 formed at each tap (it does not depend on kv3);
+1-3. stages 0..2 of step 1 (kernel C's stage kernel,
+     ``csrc/rk4_tiled.cu``): kv0, kv1, kv2;
+4.   the step boundary (``csrc/wave_kernels.cu::rk42_boundary_kernel``):
+     kv3 of step 1, the full-tableau (u1, v1), and step 2's stage 0,
+     kv0' = A u1 + faces at t + dt, with u1 formed at each tap (it does
+     not depend on kv3);
 5-7. stages 1..3 of step 2 from (u1, v1, kv0'): (u2, v2).
 
 Implementations: :func:`rk42_step_plain` (plain torch, the same seven
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .rk4step import stage_launch_args
 from .wave import (
     PaddedLayout,
     StencilTables,
@@ -159,8 +162,8 @@ def rk42_step_cuda(
 
     def stage(j, u, v, k0, k_out, g):
         # kernel C's stage j; stages 0..2 write k_out, stage 3 writes (u2, v2)
-        _cuda.launch("wave_rk4_full_stage", dtype, dev, j, u, v, k0, kv1, kv2,
-                     k_out, u2, v2, *face, float(g), float(c0), *sargs)
+        _cuda.launch("wave_rk4_full_stage", dtype, dev, *stage_launch_args(
+            j, u, v, k0, kv1, kv2, k_out, u2, v2, *face, g, c0, layout, st))
         rk42_step_cuda.launches += 1
 
     stage(0, u0, v0, kv0, kv0, gs[0])

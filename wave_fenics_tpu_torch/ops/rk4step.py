@@ -20,8 +20,9 @@ Implementations:
 - :func:`rk4_step_full_plain`: the full-tableau step of the TPU kernel
   ``_kernel_rk4_step`` (kernel C), mirrored the same way;
 - :func:`rk4_step_lean_cuda` / :func:`rk4_step_full_cuda`: the hand-written
-  CUDA kernels A and C (``csrc/wave_kernels.cu::rk4_stage_kernel`` with
-  its ``Lean`` flag set or clear), four launches per step, one per stage.
+  CUDA kernels A and C (``csrc/rk4_tiled.cu::rk4_tiled_kernel`` with its
+  ``lean`` argument set or clear), four launches per step, one per stage,
+  on the tiling of :func:`tiled_geometry`.
 
 :func:`rk4_step_lean` and :func:`rk4_step_full` dispatch on the tensor's
 device: CPU -> plain, CUDA -> kernel (or raise).
@@ -29,6 +30,7 @@ device: CPU -> plain, CUDA -> kernel (or raise).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -55,6 +57,10 @@ __all__ = [
     "rk4_step_lean_cuda",
     "rk4_step_full_cuda",
     "rk4_step_full",
+    "blocks_per_sm",
+    "tiled_geometry",
+    "sm_count",
+    "stage_launch_args",
 ]
 
 _RK_A = (0.0, 0.5, 0.5, 1.0)
@@ -390,6 +396,94 @@ def rk4_step_full_plain(
     return ts.finish(u1, v1)
 
 
+#: the tiling limits of :func:`tiled_geometry`: threads of a tile block at
+#: most (csrc/stencil_tiled.cuh kTileThreads), tile width along z (the fast
+#: lanes) at most, the least and the most x-chunk rows
+TILE_THREADS = 256
+TILE_Z = 32
+CHUNK_X = (16, 64)
+#: x planes in the kernel's cp.async ring (stencil_tiled.cuh kPipe) and
+#: state fields a plane holds at most (rk4_tiled.cu stage_fields)
+PIPE = 4
+PLANE_FIELDS = 3
+#: tile blocks an SM holds at once at p <= 4 in f32 (see blocks_per_sm);
+#: the SMs of an H100 SXM
+BLOCKS_PER_SM = 4
+H100_SMS = 132
+
+
+def blocks_per_sm(itemsize: int, p: int) -> int:
+    """Tile blocks an SM holds at once: the launch bounds of
+    ``csrc/rk4_tiled.cu::min_blocks<T, P>``."""
+    return BLOCKS_PER_SM if itemsize == 4 and p <= 4 else 1
+
+
+def tiled_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
+                   tile_z: int = TILE_Z, tile_threads: int = TILE_THREADS,
+                   chunk_x: tuple[int, int] = CHUNK_X):
+    """(grid, TY, TZ, CX, smem_bytes) of the stage kernel on ``layout``.
+
+    A block owns TY x TZ interior (y, z) columns and CX interior x rows;
+    the tiles are as even as the interior allows (at most ``tile_z`` along
+    z, at most ``tile_threads`` points), so a ragged last tile loses little.
+    ``grid`` = (z tiles, y tiles, x chunks). The number of x-chunks (CX
+    between ``chunk_x``'s bounds) fills the block slots of the card's
+    ``sms`` SMs in as few waves as it can, weighed against the 2p warm-up
+    planes each chunk reads: a block streams its chunk from start to end,
+    so a last wave that is a fraction full costs as much as a full one.
+    ``smem_bytes`` holds PIPE planes of PLANE_FIELDS fields over the tile
+    and its p-deep y/z halo, in ``itemsize``-byte values, and the window's
+    table of int32 offsets. Computed once per set of arguments: every
+    stage launch asks for it."""
+    return _tiled_geometry(tuple(layout.shape), layout.p, itemsize, sms,
+                           tile_z, tile_threads, tuple(chunk_x))
+
+
+@functools.cache
+def _tiled_geometry(shape, p, itemsize, sms, tile_z, tile_threads, chunk_x):
+    Nx, Ny, Nz = shape
+    nz_tiles = -(-Nz // tile_z)
+    tz = -(-Nz // nz_tiles)
+    ny_tiles = -(-Ny // (tile_threads // tz))
+    ty = -(-Ny // ny_tiles)
+    tiles = nz_tiles * ny_tiles
+    slots = sms * blocks_per_sm(itemsize, p)
+
+    def score(n):
+        cx = -(-Nx // n)
+        blocks = tiles * n
+        return blocks / (-(-blocks // slots) * slots) * cx / (cx + 2 * p)
+
+    chunks = max(range(-(-Nx // chunk_x[1]), -(-Nx // chunk_x[0]) + 1), key=score)
+    cx = -(-Nx // chunks)
+    window = (ty + 2 * p) * (tz + 2 * p)
+    smem = PIPE * PLANE_FIELDS * window * itemsize + 4 * window
+    return (nz_tiles, ny_tiles, -(-Nx // cx)), ty, tz, cx, smem
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def stage_launch_args(stage, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,
+                      src_x, abc_x, dt, g, c0, layout, st, geometry=None) -> tuple:
+    """The arguments of the C launchers ``wave_rk4_stage``/
+    ``wave_rk4_full_stage`` (kernels A and C, and kernel J's stages) for
+    stage ``stage``, up to the stream: the fields, the face rows and
+    scalars, the stencil, then the tiling: ``geometry`` (a result of
+    :func:`tiled_geometry`, as a tiling sweep passes it) or else
+    :func:`tiled_geometry` at its default limits on this card."""
+    if geometry is None:
+        sms = sm_count(u0.device.index) if u0.is_cuda else H100_SMS
+        geometry = tiled_geometry(layout, u0.element_size(), sms)
+    grid, ty, tz, cx, smem = geometry
+    return (int(stage), u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,
+            int(src_x), int(abc_x), float(dt), float(g), float(c0),
+            *stencil_args(layout, st), ty, tz, cx, *grid, smem)
+
+
 def _rk4_step_cuda(
     kernel, launcher, u0, v0, dt, gs, layout, c0, st, w1, w2, src_x, abc_x,
     out, scratch,
@@ -416,11 +510,9 @@ def _rk4_step_cuda(
     _cuda.check_no_alias((u1, v1, kv0, kv1, kv2), (u0, v0))
     for j in range(4):
         kv_out = scratch[j] if j < 3 else kv2  # stage 3 writes u1, v1
-        _cuda.launch(
-            launcher, dtype, dev, j, u0, v0, kv0, kv1, kv2, kv_out,
-            u1, v1, w1, w2, int(src_x), int(abc_x), float(dt), float(gs[j]),
-            float(c0), *stencil_args(layout, st),
-        )
+        _cuda.launch(launcher, dtype, dev, *stage_launch_args(
+            j, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2, src_x, abc_x,
+            dt, gs[j], c0, layout, st))
         kernel.launches += 1
     return u1, v1
 

@@ -2,10 +2,13 @@
 
 Port of ``wave_fenics_tpu.utils.checkpoint`` in the JAX package's ``.npz``
 format: keys ``u`` and ``v`` (host arrays) and ``meta`` (a JSON string
-holding ``t`` and any caller metadata), so either package reads the other's
-snapshots. ``CheckpointManager`` keeps the JAX package's ``step_{:09d}``
-naming and its ``keep`` garbage collection; its snapshots are
-``step_{:09d}.npz`` files.
+holding ``t`` and any caller metadata), so ``save_state``/``load_state``
+files cross between the packages both ways. ``CheckpointManager`` keeps the
+JAX package's ``step_{:09d}`` naming and its ``keep`` garbage collection;
+its snapshots are ``step_{:09d}.npz`` files. The JAX package's manager
+writes orbax directories where orbax is installed; the port carries no
+orbax, so its manager raises on a directory that holds them instead of
+starting again from step 0.
 """
 
 from __future__ import annotations
@@ -56,11 +59,14 @@ class CheckpointManager:
     def _steps(self) -> list[int]:
         if not os.path.isdir(self.directory):
             return []
-        return sorted(
-            int(d[len("step_"):-len(".npz")])
-            for d in os.listdir(self.directory)
-            if d.startswith("step_") and d.endswith(".npz")
-        )
+        names = [d for d in os.listdir(self.directory) if d.startswith("step_")]
+        foreign = sorted(d for d in names if not d.endswith(".npz"))
+        if foreign:
+            raise ValueError(
+                f"{self.directory} holds snapshots that are not .npz files "
+                f"({', '.join(foreign)}): orbax checkpoints of the JAX package's "
+                "CheckpointManager; the port reads only save_state .npz snapshots")
+        return sorted(int(d[len("step_"):-len(".npz")]) for d in names)
 
     def latest_step(self) -> int | None:
         steps = self._steps()

@@ -12,6 +12,12 @@ item, and are never silently ignored: ``domain.mesh_path`` and
 10), ``run.dtype == 'bf16'`` (item 9) and ``run.output_path`` (item 4,
 XDMF output). ``run.force_padded`` is accepted and has no effect: the
 port's app always runs the padded solvers.
+
+The JAX package's ``build_case`` ignores ``physics.window_periods``,
+``time.t0``, ``domain.source_tag``, ``domain.abc_tag`` and
+``run.log_every_steps``; honouring them would make the port disagree with
+the reference on the same file, so a value other than the default raises
+a ValueError that names the field.
 """
 
 from __future__ import annotations
@@ -100,6 +106,17 @@ class SimulationConfig:
     def check_supported(self) -> None:
         """Raise a ValueError for the first field the port cannot honour."""
         d, r = self.domain, self.run
+        for name, value, default in (
+                ("physics.window_periods", self.physics.window_periods, 4.0),
+                ("time.t0", self.time.t0, 0.0),
+                ("domain.source_tag", d.source_tag, 1),
+                ("domain.abc_tag", d.abc_tag, 2),
+                ("run.log_every_steps", r.log_every_steps, 50)):
+            if value != default:
+                raise ValueError(
+                    f"{name} = {value!r}: the case is built with its default "
+                    f"{default!r}, as the JAX package builds it; other values "
+                    "are not supported")
         if d.mesh_path is not None or d.meshtags_path is not None:
             raise ValueError(
                 "domain.mesh_path/meshtags_path: imported XDMF meshes are not "
