@@ -21,13 +21,18 @@ its last line:
    steps, limit 1e-4; each run from output and scratch buffers full of
    NaN, then the padding exactly 0 and no NaN; with the time of each
    stage launch and of a step against the bound and the 4-launch floor;
-5. kernels C (full-tableau RK4 step), D (fused RK4 stage), H (leapfrog
-   step) and I (two leapfrog steps) against their plain versions, each
-   through its model solver: f64 at (4,2,2) cells, tile 16, p in {2, 4}
-   (and 8 for D and H), 25 steps, limit 1e-12 relative (C also against
-   kernel A, 1e-13); f32 at the full width of its app path, 50 steps,
-   limit 1e-4 relative; with times per kernel call at that width (kernel
-   D on six distinct state fields, as stages 1-3 of the path give it).
+5. kernels C (full-tableau RK4 step), D (fused RK4 stage, csrc/
+   rk_stage_tiled.cu), H (leapfrog step) and I (two leapfrog steps)
+   against their plain versions, each through its model solver: f64 at
+   (4,2,2) cells, tile 16, p in {2, 4} (and 8 for D and H), 25 steps,
+   limit 1e-12 relative (C also against kernel A, 1e-13); f32 at the full
+   width of its app path, 50 steps, limit 1e-4 relative; with times per
+   kernel call at that width (kernel D on six distinct state fields, as
+   stages 1-3 of the path give it). Kernel D also one stage in f64 on
+   (5,3,3) cells, p in {2, 4, 8}, from inputs random in the padding and
+   outputs full of NaN, out of place and with ua/va in place: limit 1e-12
+   relative, kv' exactly 0 and va' exactly va in the padding; its f32
+   run from NaN-filled buffers.
    Every check of phases 4 and 5 starts from a random state with zero
    padding, so the absorbing row carries O(max|v|) values; the relative
    error is the larger of |du|/max|u_ref| and |dv|/max|v_ref|; kernel C,
@@ -82,12 +87,13 @@ its last line:
     iterations) times; then the assembled CSR SpMV (``torch.sparse.mm``)
     against kernel K's stiffness on the perturbed 16^3-cell box (274,625
     dofs), both times;
-12. kernel E (the 3D-slab stiffness/m, p > 8 or kernel='3d') against its
-    plain version: f64 at p in {9, 10} on small grids and kernel='3d' at
-    p = 4, limit 1e-12 relative; f32, one apply at the P12 size (planar3d
-    p = 10, 26x13x13 cells, 4,479,021 dofs, padded (304, 152, 256)), limit
-    1e-5 of max|ref|; the padding exactly 0; with its time against the
-    bound;
+12. kernel E (the 3D-slab stiffness/m, p > 8 or kernel='3d'; csrc/
+    slab_tiled.cu) against its plain version: f64 at every p = 1..10 on
+    (3,2,3) cells with kernel='3d', at p in {9, 10} on small grids and at
+    p = 4 on (4,2,2), limit 1e-12 relative; f32, one apply at the P12 size
+    (planar3d p = 10, 26x13x13 cells, 4,479,021 dofs, padded (304, 152,
+    256)), limit 1e-5 of max|ref|; each from an output buffer full of NaN,
+    the padding then exactly 0; with its time against the bound;
 13. kernel J (two full-tableau RK4 steps, 7 launches) against its plain
     version (f64, (4,2,2) cells, tile 24, p in {2, 4}, 25 steps, the odd
     last step on kernel C; limit 1e-12 relative) and against kernel C's
@@ -189,6 +195,7 @@ def main() -> None:
         rk4step,
         rk42step,
         stiffness,
+        tiling,
         wave,
     )
     from wave_fenics_tpu_torch.ops.assembled import (
@@ -413,7 +420,7 @@ def main() -> None:
     for p, cells in ((1, (4, 2, 2)), (2, (4, 2, 2)), (3, (4, 2, 2)), (4, (4, 2, 2)),
                      (4, (9, 4, 8))):
         spm = small_model(p, cells=cells, tile_x=max(16, rk4step._off0(p)))
-        grid, ty, tz, cx, _ = rk4step.tiled_geometry(spm.layout, 8)
+        grid, ty, tz, cx, _ = tiling.tiled_geometry(spm.layout, 8)
         nan_workspace(spm)
         u0, v0 = random_state(spm, 10 * p)
         uk, vk = kernel_solve(spm, "lean", 1e-9, 25, u0, v0)
@@ -451,7 +458,7 @@ def main() -> None:
     # what four launches must move: J0 u0 -> kv0, J1 u0, v0 -> kv1, J2 u0,
     # v0, kv0 -> kv2, J3 u0, v0, kv0, kv1, kv2 -> u1, v1: 16 field passes
     floor_ms = 1e3 * 16 * field_bytes(hpm) / HBM_BYTES_PER_S
-    grid, ty, tz, cx, smem = rk4step.tiled_geometry(hpm.layout, 4)
+    grid, ty, tz, cx, smem = tiling.tiled_geometry(hpm.layout, 4)
     print(f"f32 headline (tiles {ty}x{tz}, x-chunks of {cx}, grid {grid}, "
           f"{smem} B shared): kernel {sum(a_stage_us) / 1e3:.4f} ms/step "
           f"({rk4step.LAUNCHES_PER_STEP} launches: stages "
@@ -530,13 +537,46 @@ def main() -> None:
     results["C"] = (c_err, sum(c_stage_us) / 1e3, c_plain_ms, bound(cpm, 4, 4, 30))
     del uk, vk, bufs, cpm
 
-    phase("kernel D (fused rk stage) against rk_stage_plain")
+    phase("kernel D (tiled TMA rk stage kernel) against rk_stage_plain")
     check_small("D", "fused", (2, 4, 8))
+    # one stage on (5,3,3) cells (ragged against the tiling), from inputs
+    # random in the padding too and outputs full of NaN, out of place and
+    # with ua'/va' written over ua/va as solve_fused_n does: kv' exactly 0
+    # and va' exactly va in the padding
+    for p in (2, 4, 8):
+        spm = small_model(p, cells=(5, 3, 3))
+        rng = np.random.default_rng(60 + p)
+        ins = [torch.as_tensor(sc * rng.standard_normal(spm.layout.padded_shape),
+                               device=dev) for sc in (1.0, 1e3, 1e3, 1e9, 1.0, 1e3)]
+        sargs = (0.5e-9, 1e-9 / 3.0, 0.7, spm.layout, spm.base.c0)
+        sface = (spm.face_w1, spm.face_w2, spm.src_x, spm.abc_x)
+        want = wave.rk_stage_plain(*ins, *sargs, spm.flat_tables, *sface)
+        pad = torch.ones(spm.layout.padded_shape, dtype=torch.bool, device=dev)
+        pad[spm.layout.interior] = False
+        for in_place in (False, True):
+            ua, va = ins[4].clone(), ins[5].clone()
+            nan = [torch.full_like(ua, float("nan")) for _ in range(4)]
+            out = (*nan[:2], ua, va) if in_place else tuple(nan)
+            got = wave.rk_stage_cuda(*ins[:4], ua, va, *sargs, spm.stencil, *sface,
+                                     out=out)
+            torch.cuda.synchronize()
+            rel = max(float((g - w).abs().max() / w.abs().max())
+                      for g, w in zip(got, want))
+            print(f"kernel D f64 (5,3,3) p={p}, one stage from NaN buffers"
+                  f"{', ua/va in place' if in_place else ''}: relative error "
+                  f"{rel:.3e} (limit 1e-12)")
+            check(rel <= 1e-12 and all(bool(torch.isfinite(g).all()) for g in got),
+                  f"kernel D f64 p={p} in_place={in_place}")
+            check(float(got[1][pad].abs().max()) == 0.0
+                  and torch.equal(got[3][pad], ins[5][pad]),
+                  f"kernel D padding p={p}: kv' = 0 and va' = va")
     case8, dpm = planar3d_app.build(**HEADLINE_P8, dtype="f32", device="cuda")
     print(f"p=8: {case8.model.ops.ndofs} dofs, padded {dpm.layout.padded_shape}, "
           f"tile_x {dpm.layout.tile_x}, {case8.nsteps} RK4 steps; step kernel: "
           f"{dpm.step_unavailable}")
+    nan_workspace(dpm)
     d_err, uk, vk = check_full_width("D", "fused", dpm, case8.dt)
+    workspace_clean(dpm, nscratch=4)
     # six distinct inputs, as stages 1-3 of solve_fused_n give them
     # (u0, ku = the last stage's vn, v0, kv, ua, va), so that the 10-field
     # bound counts only bytes this call must move
@@ -544,10 +584,16 @@ def main() -> None:
     dargs = (0.5 * case8.dt, case8.dt / 3.0, 1.0, dpm.layout, dpm.base.c0)
     face = (dpm.face_w1, dpm.face_w2, dpm.src_x, dpm.abc_x)
     bufs = tuple(torch.empty_like(uk) for _ in range(4))
-    d_ms = 1e3 * timeit(lambda: wave.rk_stage_cuda(
+    d_wrapper_ms = 1e3 * timeit(lambda: wave.rk_stage_cuda(
         *ins, *dargs, dpm.stencil, *face, out=bufs))
+    d_args = wave.rk_stage_launch_args(*ins, *bufs, *dargs, dpm.stencil, *face)
+    d_ms = 1e3 * timeit(_cuda.launcher(_cuda.library(), "wave_rk_stage_tiled",
+                                       uk.dtype, dev, *d_args), reps=200)
     d_plain_ms = 1e3 * timeit(lambda: wave.rk_stage_plain(
         *ins, *dargs, dpm.flat_tables, *face), reps=5)
+    print(f"kernel D f32 P4 (tiles {d_args[-7]}x{d_args[-6]}, x-chunks of "
+          f"{d_args[-5]}, grid {tuple(d_args[-4:-1])}, {d_args[-1]} B shared): "
+          f"{d_ms:.4f} ms/launch (through the wrapper {d_wrapper_ms:.4f}) [{smi}]")
     # u0, ku, v0, kv, ua, va in and vn, kv', ua', va' out; one apply
     results["D"] = (d_err, d_ms, d_plain_ms, bound(dpm, 10, 1, 8))
     del uk, vk, ins, bufs, dpm
@@ -685,18 +731,23 @@ def main() -> None:
               f"{bms:.4f} ms ({by}) [{smi}]")
 
     # -- 12. kernel E -------------------------------------------------------
-    phase("kernel E (apply_slab) against apply_slab_plain")
-    for p, cells, kernel in ((9, (2, 1, 1), "flat"), (10, (2, 1, 1), "flat"),
-                             (10, (3, 2, 1), "flat"), (4, (4, 2, 2), "3d")):
+    phase("kernel E (tiled TMA apply_slab) against apply_slab_plain")
+    # every p the kernel takes, on (3,2,3) cells (ragged against the tiling
+    # at p = 4, 9, 10), and the earlier small grids; each from an output
+    # buffer full of NaN
+    for p, cells, kernel in ([(p, (3, 2, 3), "3d") for p in range(1, 11)]
+                             + [(9, (2, 1, 1), "flat"), (10, (2, 1, 1), "flat"),
+                                (10, (3, 2, 1), "flat"), (4, (4, 2, 2), "3d")]):
         spm = small_model(p, cells=cells, kernel=kernel)
         check(spm.kernel == "3d", f"p={p} {kernel}: the 3D-slab layout")
         x = random_padded(spm.layout, 90 + p, torch.float64)
-        yk = wave.apply_slab_cuda(x, spm.layout, spm.slab_tables)
+        yk = wave.apply_slab_cuda(x, spm.layout, spm.slab_tables,
+                                  out=torch.full_like(x, float("nan")))
         yp = wave.apply_slab_plain(x, spm.layout, spm.slab_tables)
         torch.cuda.synchronize()
         _, rel = rel_err(yk, yp)
-        print(f"f64 {cells} p={p} kernel={kernel!r}, padded {spm.layout.padded_shape}: "
-              f"max|err|/max|ref| = {rel:.3e} (limit 1e-12)")
+        print(f"f64 {cells} p={p} kernel={kernel!r}, padded {spm.layout.padded_shape}, "
+              f"from NaN: max|err|/max|ref| = {rel:.3e} (limit 1e-12)")
         check(rel <= 1e-12, f"kernel E f64 p={p} {kernel}")
         padding_zero(spm.layout, yk)
     case12, epm = planar3d_app.build(**P12, dtype="f32", device="cuda")
@@ -705,7 +756,8 @@ def main() -> None:
     check(case12.model.ops.ndofs == P12_DOFS and epm.kernel == "3d"
           and epm.layout.padded_shape == (304, 152, 256), "the P12 model")
     x = random_padded(epm.layout, 93, torch.float32)
-    yk = wave.apply_slab_cuda(x, epm.layout, epm.slab_tables)
+    yk = wave.apply_slab_cuda(x, epm.layout, epm.slab_tables,
+                              out=torch.full_like(x, float("nan")))
     yp = wave.apply_slab_plain(x, epm.layout, epm.slab_tables)
     torch.cuda.synchronize()
     e_err, rel = rel_err(yk, yp)
@@ -714,8 +766,14 @@ def main() -> None:
     check(rel <= 1e-5, "kernel E f32 agreement")
     padding_zero(epm.layout, yk)
     out_e = torch.empty_like(x)
-    e_ms = 1e3 * timeit(lambda: wave.apply_slab_cuda(x, epm.layout, epm.slab_tables,
-                                                     out=out_e))
+    e_wrapper_ms = 1e3 * timeit(lambda: wave.apply_slab_cuda(
+        x, epm.layout, epm.slab_tables, out=out_e))
+    e_args = wave.slab_launch_args(x, out_e, epm.layout, epm.slab_tables)
+    e_ms = 1e3 * timeit(_cuda.launcher(_cuda.library(), "wave_apply_slab_tiled",
+                                       x.dtype, dev, *e_args), reps=200)
+    print(f"kernel E f32 P12 (tiles {e_args[-7]}x{e_args[-6]}, x-chunks of "
+          f"{e_args[-5]}, grid {tuple(e_args[-4:-1])}, {e_args[-1]} B shared): "
+          f"{e_ms:.4f} ms/apply (through the wrapper {e_wrapper_ms:.4f}) [{smi}]")
     e_plain_ms = 1e3 * timeit(lambda: wave.apply_slab_plain(x, epm.layout,
                                                             epm.slab_tables), reps=5)
     # x's interior in once, the padded y out once, the tables; 3(2p+1) taps
@@ -1205,7 +1263,8 @@ def main() -> None:
     # since no app path at p <= 8 launches it)
     src = "wave_fenics_tpu_torch/csrc/wave_kernels.cu"
     src_rk4 = "wave_fenics_tpu_torch/csrc/rk4_tiled.cu"
-    src_slab = "wave_fenics_tpu_torch/csrc/slab_kernels.cu"
+    src_slab = "wave_fenics_tpu_torch/csrc/slab_tiled.cu"
+    src_stage = "wave_fenics_tpu_torch/csrc/rk_stage_tiled.cu"
     src_ops = "wave_fenics_tpu_torch/csrc/operator_kernels.cu"
     src_gen = "wave_fenics_tpu_torch/csrc/general_kernels.cu"
     results["A"] = (a_err, sum(a_stage_us) / 1e3, a_plain_ms, a_bound)
@@ -1222,8 +1281,9 @@ def main() -> None:
         "C": ("rk4_tiled_kernel<T, P, J>, full tableau (kernel C: full-tableau "
               "RK4 step, 4 stage launches on the 2.5D tiled stencil; ms per step)",
               "wave_fenics_tpu/ops/pallas_rk4step.py:67", src_rk4),
-        "D": ("rk_stage_kernel (kernel D: one fused RK4 stage, p=8; ms per "
-              "stage launch)", "wave_fenics_tpu/ops/pallas_wave.py:573", src),
+        "D": ("rk_stage_tiled_kernel<T, P> (kernel D: one fused RK4 stage on the "
+              "2.5D tiled stencil with TMA plane loads, p=8; ms per stage launch)",
+              "wave_fenics_tpu/ops/pallas_wave.py:573", src_stage),
         "H": ("lf_phase_kernel OPEN+CLOSE (kernel H: one leapfrog step, p=8; ms "
               "per step)", "wave_fenics_tpu/ops/pallas_lfstep.py:62", src),
         "I": ("lf_phase_kernel OPEN+MID+CLOSE (kernel I: two leapfrog steps, "
@@ -1238,8 +1298,9 @@ def main() -> None:
               "explicit-dofmap matvec, stiffness with per-node G on the perturbed "
               "64x32x32-cell box, p=4; ms per apply)",
               "wave_fenics_tpu/ops/pallas_general.py:185", src_gen),
-        "E": ("apply_slab_kernel (kernel E: stiffness/m on the 3D-slab layout, "
-              "p=10, 26x13x13 cells; ms per apply)",
+        "E": ("apply_slab_tiled_kernel<T, P> (kernel E: stiffness/m on the 3D-slab "
+              "layout, 2.5D tiled stencil with TMA plane loads, p=10, 26x13x13 "
+              "cells; ms per apply)",
               "wave_fenics_tpu/ops/pallas_wave.py:128", src_slab),
         "J": ("rk42_boundary_kernel + 6 stages of kernel C's rk4_tiled_kernel<T, "
               "P, J> (csrc/rk4_tiled.cu) (kernel J: two full-tableau RK4 steps, 7 "
@@ -1269,6 +1330,10 @@ def main() -> None:
     by_name["C"]["stage_us"] = c_stage_us
     by_name["C"]["wrapper_ms_per_step"] = c_ms
     by_name["J"]["two_c_steps_ms"] = c2_ms
+    # "ms" of D and E: back-to-back launches; wrapper_ms: through the
+    # wrapper, its operand checks included
+    by_name["D"]["wrapper_ms"] = d_wrapper_ms
+    by_name["E"]["wrapper_ms"] = e_wrapper_ms
     by_name["J"]["odd_step_launches_A"] = path_counts["P14 RK4 two-step, kernel J"]["A"]
     # the same kernel at 16^3 cells, beside the one PyTorch call that computes
     # its function there (the assembled matrix at the P8 size would not fit

@@ -55,7 +55,7 @@ def test_solve_fused_n_matches_jax(p):
     _assert_close(u, v, ju, jv)
 
 
-@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("p", [2, 4, 8])
 def test_rk_stage_matches_jax_kernel_on_random_state(p):
     """One stage from random inputs with nonzero ca, cb and g: all four
     outputs of the plain version against the JAX stage kernel."""

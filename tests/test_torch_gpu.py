@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (A to K) against their plain versions
-(float64; kernel E also in float32).
+(float64; kernel E also in float32), kernels A, C, D and E also from output
+buffers full of NaN.
 
 Every test here needs a CUDA card and skips without one. The file imports
 only torch and the port, so it runs on a machine without JAX:
@@ -217,6 +218,41 @@ def test_cuda_rk_stage_matches_plain(cuda, p):
     for g, w in zip(got, want):
         assert _rel(g, w) <= TOL
     _padding_zero(pm, got[1])
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_cuda_rk_stage_over_nan_and_in_place(cuda, p, in_place):
+    """Kernel D (the tiled TMA kernel) on (5,3,3) cells, ragged against its
+    tiling, from inputs that are random in the padding too and output
+    buffers full of NaN, out of place and with ua'/va' written over ua/va
+    as solve_fused_n does: within 1e-12 of the plain version in f64; in the
+    padding kv' exactly 0 and va' exactly va, vn and ua' their point-wise
+    values."""
+    pm = _model(p, cuda, shape=(5, 3, 3))
+    rng = np.random.default_rng(80 + p)
+    ins = [torch.as_tensor(s * rng.standard_normal(pm.layout.padded_shape), device=cuda)
+           for s in (1.0, 1e3, 1e3, 1e9, 1.0, 1e3)]
+    sargs = (0.5 * DT, DT / 3.0, 0.7, pm.layout, pm.base.c0)
+    face = (pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+    want = wave.rk_stage_plain(*ins, *sargs, pm.flat_tables, *face)
+    ua, va = ins[4].clone(), ins[5].clone()
+    nan = lambda: torch.full_like(ua, float("nan"))  # noqa: E731
+    out = (nan(), nan(), ua, va) if in_place else (nan(), nan(), nan(), nan())
+    got = wave.rk_stage_cuda(*ins[:4], ua, va, *sargs, pm.stencil, *face, out=out)
+    torch.cuda.synchronize()
+    if in_place:
+        assert got[2] is ua and got[3] is va
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= TOL
+    pad = torch.ones(pm.layout.padded_shape, dtype=torch.bool, device=cuda)
+    pad[pm.layout.interior] = False
+    assert float(got[1][pad].abs().max()) == 0.0
+    assert torch.equal(got[3][pad], ins[5][pad])
+    vn = ins[2] + (0.5 * DT) * ins[3]
+    assert _rel(got[0][pad], vn[pad]) <= TOL
+    assert _rel(got[2][pad], ins[4][pad] + (DT / 3.0) * vn[pad]) <= TOL
 
 
 @pytest.mark.parametrize("p", [2, 4, 8])
@@ -505,6 +541,24 @@ def test_cuda_apply_slab_matches_plain(cuda, p, shape, kernel, dtype):
     assert wave.apply_slab_cuda.launches == n0 + 1
     ref = wave.apply_slab_plain(x, pm.layout, pm.slab_tables)
     assert _rel(y, ref) <= (TOL if dtype == F64 else 1e-5)
+    _padding_zero(pm, y)
+
+
+@pytest.mark.parametrize("p", range(1, 11))
+def test_cuda_apply_slab_every_p_over_nan(cuda, p):
+    """Kernel E (the tiled TMA kernel) at every p it takes, on the 3D-slab
+    layout of (3,2,3) cells, whose interior is no multiple of the tiling's
+    TY or TZ at p = 4, 9 and 10, from an output buffer full of NaN: within
+    1e-12 of the plain version in f64, and every padded cell exactly 0."""
+    pm = _slab_model(p, cuda, (3, 2, 3), kernel="3d")
+    x = _random_padded(pm.layout, 130 + p, cuda)
+    y = torch.full_like(x, float("nan"))
+    n0 = wave.apply_slab_cuda.launches
+    wave.apply_slab_cuda(x, pm.layout, pm.slab_tables, out=y)
+    torch.cuda.synchronize()
+    assert wave.apply_slab_cuda.launches == n0 + 1
+    assert bool(torch.isfinite(y).all())
+    assert _rel(y, wave.apply_slab_plain(x, pm.layout, pm.slab_tables)) <= TOL
     _padding_zero(pm, y)
 
 

@@ -69,7 +69,7 @@ def test_slab_tables_equal(cells, p, tile_x):
 
 @pytest.mark.parametrize("yz_matmul", [True, False])
 @pytest.mark.parametrize("cells,p,tile_x", [((3, 2, 1), 2, 16), ((2, 1, 1), 9, 16),
-                                            ((2, 1, 1), 10, 16)])
+                                            ((2, 1, 1), 10, 16), ((3, 2, 3), 4, 16)])
 def test_apply_slab_plain_matches_jax(cells, p, tile_x, yz_matmul):
     """One apply from a random state against the JAX TPU kernel in interpret
     mode, in the band-matrix form the JAX model runs (yz_matmul) and in the

@@ -1,8 +1,9 @@
-"""The tiling of the RK4 stage kernel (kernels A and C, and kernel J's
-stages; csrc/rk4_tiled.cu) on the layouts the app and chip_smoke.py build
-for the step path, and the C launcher's argument list. CPU only: the
-geometry is plain Python, so it is checked here for every p the kernel
-takes (1..8)."""
+"""The tilings of the tiled stencil kernels on the layouts the app and
+chip_smoke.py build, and the C launchers' argument lists: the RK4 stage
+kernel (kernels A and C, and kernel J's stages; csrc/rk4_tiled.cu) at every
+p it takes (1..8), and the TMA kernels D (csrc/rk_stage_tiled.cu, p = 1..8)
+and E (csrc/slab_tiled.cu, p = 1..10). CPU only: the geometry is plain
+Python, so it is checked here."""
 
 import ctypes
 import re
@@ -12,11 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from wave_fenics_tpu_torch.ops import _cuda, rk4step
-from wave_fenics_tpu_torch.ops.rk4step import _off0, stage_launch_args, tiled_geometry
+from wave_fenics_tpu_torch.models.linear_wave_padded import _flat_tile_x
+from wave_fenics_tpu_torch.ops import _cuda, tiling, wave
+from wave_fenics_tpu_torch.ops.rk4step import _off0, stage_launch_args
+from wave_fenics_tpu_torch.ops.tiling import tiled_geometry
 from wave_fenics_tpu_torch.ops.wave import PaddedLayout
 
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on an H100
+SM_SMEM = 233_472  # bytes of shared memory an H100 SM holds (228 KB)
+SM_RESERVED = 1_024  # bytes the runtime reserves per resident block
 MIN_BLOCKS_P1 = 2 * 132  # two tile blocks per SM at the headline size
 
 # (cells, tile_x or None for the step path's smallest tile): the headline
@@ -47,10 +52,10 @@ def test_tiles_cover_the_interior_once(p, cells, tile_x):
     Lx, Ly, Lz = lay.padded_shape
     for itemsize in (4, 8):
         grid, ty, tz, cx, smem = tiled_geometry(lay, itemsize)
-        assert ty * tz <= rk4step.TILE_THREADS and tz <= rk4step.TILE_Z
-        assert cx <= rk4step.CHUNK_X[1] and smem <= SMEM_LIMIT
+        assert ty * tz <= tiling.TILE_THREADS and tz <= tiling.TILE_Z
+        assert cx <= tiling.CHUNK_X[1] and smem <= SMEM_LIMIT
         window = (ty + 2 * p) * (tz + 2 * p)
-        assert smem == rk4step.PIPE * 3 * window * itemsize + 4 * window
+        assert smem == tiling.PIPE * 3 * window * itemsize + 4 * window
     ranges = [
         _axis_ranges(lay.x0, Nx, cx, grid[2]),
         _axis_ranges(lay.h, Ny, ty, grid[1]),
@@ -83,12 +88,12 @@ def test_headline_grid_fills_the_card():
     blocks = grid[0] * grid[1] * grid[2]
     assert blocks >= MIN_BLOCKS_P1
     # one wave of the 4 x 132 block slots, nearly full: 75 tiles x 7 chunks
-    assert 0.95 * rk4step.BLOCKS_PER_SM * 132 <= blocks <= rk4step.BLOCKS_PER_SM * 132
+    assert 0.95 * tiling.BLOCKS_PER_SM * 132 <= blocks <= tiling.BLOCKS_PER_SM * 132
     # a ragged last tile wastes under a tenth of the threads along y and z
     assert ty * grid[1] <= 1.1 * 129 and tz * grid[0] <= 1.1 * 129
     # a card with fewer SMs gets fewer blocks per wave, not a ragged wave
     grid, *_ = tiled_geometry(lay, sms=114)
-    assert grid[0] * grid[1] * grid[2] <= rk4step.BLOCKS_PER_SM * 114
+    assert grid[0] * grid[1] * grid[2] <= tiling.BLOCKS_PER_SM * 114
 
 
 def test_ragged_card_test_grid_is_ragged():
@@ -118,31 +123,149 @@ def _c_source(name):
 
 
 def test_python_tiling_policy_matches_the_c_kernel():
-    """The constants tiled_geometry sizes the launch with are the kernel's
-    own: the block's thread limit, the cp.async ring, the fields a plane
-    holds at most, and the blocks an SM must hold (the launch bounds)."""
+    """The constants tiled_geometry and tma_geometry size the launches with
+    are the kernels' own: the block's thread limit, the cp.async ring, the
+    fields a plane holds at most, the TMA ring and box limit, and the
+    blocks an SM must hold (the launch bounds of kernels A/C, D and E)."""
     hdr = _c_source("stencil_tiled.cuh")
     src = _c_source("rk4_tiled.cu")
     c_int = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", hdr).group(1))  # noqa: E731
-    assert c_int("kTileThreads") == rk4step.TILE_THREADS
-    assert c_int("kPipe") == rk4step.PIPE
+    assert c_int("kTileThreads") == tiling.TILE_THREADS
+    assert c_int("kPipe") == tiling.PIPE
+    assert c_int("kRing") == tiling.RING
+    assert c_int("kBoxMax") == tiling.BOX_MAX
+    layers = re.search(r"return grid.z >= (\d+) && tiling_fits\(t, dim3\(grid.x, grid.y, "
+                       r"grid.z - (\d+)\)", hdr)
+    assert int(layers.group(1)) - 1 == int(layers.group(2)) == tiling.PADDING_LAYERS
     fields = re.search(r"return J == 0 \? (\d+) : J == 1 \? (\d+) : (\d+);", src)
-    assert max(int(n) for n in fields.groups()) == rk4step.PLANE_FIELDS
+    assert max(int(n) for n in fields.groups()) == tiling.PLANE_FIELDS
     rule = re.search(r"min_blocks\(\) \{\s*return sizeof\(T\) == (\d+) && P <= (\d+) "
                      r"\? (\d+) : (\d+);", src)
     size, pmax, many, one = (int(n) for n in rule.groups())
     for itemsize in (4, 8):
         for p in range(1, 9):
             want = many if itemsize == size and p <= pmax else one
-            assert rk4step.blocks_per_sm(itemsize, p) == want
+            assert tiling.blocks_per_sm(itemsize, p) == want
+    # kernels D and E: launch bounds of tma_min_blocks<T>
+    rule = re.search(r"tma_min_blocks\(\) \{\s*return sizeof\(T\) == (\d+) \? (\d+) : (\d+);",
+                     hdr)
+    size, many, one = (int(n) for n in rule.groups())
+    for itemsize in (4, 8):
+        assert tiling.tma_blocks_per_sm(itemsize) == (many if itemsize == size else one)
+    for name in ("slab_tiled.cu", "rk_stage_tiled.cu"):
+        assert "__launch_bounds__(kTileThreads, (tma_min_blocks<T>()))" in _c_source(name)
 
 
 def test_point_only_ablation_patches_one_line():
-    """profile_step --ablate replaces the stencil line of kernels A and C by
-    the point value in a copy of the sources; the line is there once."""
-    from wave_fenics_tpu_torch.apps.profile_step import POINT_ONLY
+    """profile_step --ablate replaces the stencil line of kernels A and C
+    (rk4_tiled.cu), D (rk_stage_tiled.cu) and E (slab_tiled.cu) by the
+    point value in a copy of the sources, and takes D's and E's other parts
+    out the same way; each line it replaces is there once."""
+    from wave_fenics_tpu_torch.apps.profile_step import ABLATIONS, POINT_ONLY
 
-    assert _c_source("rk4_tiled.cu").count(POINT_ONLY[0]) == 1
+    assert sorted(POINT_ONLY) == ["rk4_tiled.cu", "rk_stage_tiled.cu", "slab_tiled.cu"]
+    for patches in ABLATIONS.values():
+        for name, (line, patch) in patches.items():
+            assert _c_source(name).count(line) == 1 and line != patch
+
+
+# The TMA kernels' layouts: E on the 3D slab (z aligned to 128, tile 16),
+# D on the flat layout (z aligned to 16, the step path's tile), each at the
+# cells of P12 (26x13x13: (304, 152, 256) at p = 10), of P4 (32x16x16:
+# (304, 152, 160) at p = 8) and of a ragged (5,3,3) grid.
+TMA_CELLS = [(26, 13, 13), (32, 16, 16), (5, 3, 3)]
+
+
+def _tma_layout(kernel, cells, p):
+    shape = tuple(c * p + 1 for c in cells)
+    if kernel == "E":
+        return PaddedLayout(shape, p, tile_x=16)
+    return PaddedLayout(shape, p, tile_x=_flat_tile_x(p, 16), z_align=16)
+
+
+def _tma_geometry(kernel, lay, itemsize):
+    nf, extra = (1, 0) if kernel == "E" else (2, 2)
+    return tiling.tma_geometry(lay, itemsize, fields=nf, extra=extra), nf, extra
+
+
+def _padding_count(lay):
+    """How often csrc/stencil_tiled.cuh::for_each_padding visits each point:
+    every point of an (x, y) row outside the interior rows, else the z
+    points before h and from h + nz on."""
+    Lx, Ly, _ = lay.padded_shape
+    (x0, x1), (y0, y1), (z0, z1) = ((r.start, r.stop) for r in lay.interior)
+    g, y = np.arange(Lx)[:, None], np.arange(Ly)[None, :]
+    full = (g < x0) | (g >= x1) | (y < y0) | (y >= y1)
+    count = np.zeros(lay.padded_shape, dtype=int)
+    count[full] += 1
+    count[~full, :z0] += 1
+    count[~full, z1:] += 1
+    return count
+
+
+@pytest.mark.parametrize("cells", TMA_CELLS)
+@pytest.mark.parametrize("kernel,p", [("E", p) for p in range(1, 11)]
+                         + [("D", p) for p in range(1, 9)])
+def test_tma_tiles_cover_the_interior_once(kernel, p, cells):
+    """Kernel E's and D's tiling: the tiles and x-chunks cover the interior
+    exactly once and the padding pass the rest; every box starts 16-byte
+    aligned along z, holds the tile's p-deep halo and stays within the TMA's
+    256-point extents; the shared memory of a block stays within an H100's
+    227 KB, and that of the blocks the launch bounds ask for within an SM's
+    228 KB, in f32 and f64."""
+    lay = _tma_layout(kernel, cells, p)
+    Nx, Ny, Nz = lay.shape
+    Lx, Ly, Lz = lay.padded_shape
+    for itemsize in (4, 8):
+        (gz, gy, gx), ty, tz, cx, smem = geo = _tma_geometry(kernel, lay, itemsize)[0]
+        W, BY, oz, box = tiling.tma_window(lay.h, p, ty, tz, itemsize)
+        unit = 16 // itemsize
+        assert ty * tz <= tiling.TILE_THREADS and tz <= tiling.TILE_Z and tz % unit == 0
+        assert cx <= tiling.CHUNK_X_TMA[1] and W <= tiling.BOX_MAX and BY <= tiling.BOX_MAX
+        assert W % unit == 0 and oz + tz + 2 * p <= W and BY == ty + 2 * p
+        assert (W - tz) % 32 == 0  # a warp's taps in 32 distinct banks
+        assert (Lz * itemsize) % 16 == 0
+        for bz in range(gz):  # every tile's box starts on a 16-byte unit
+            z_start = lay.h + bz * tz - p - oz
+            assert z_start >= 0 and (z_start * itemsize) % 16 == 0
+        assert smem <= SMEM_LIMIT
+        assert tiling.tma_blocks_per_sm(itemsize) * (smem + SM_RESERVED) <= SM_SMEM
+        # one layer of padding blocks beyond the x-chunks
+        assert (gz, gy, gx) == (-(-Nz // tz), -(-Ny // ty), -(-Nx // cx) + 1)
+        assert geo == _tma_geometry(kernel, lay, itemsize)[0]
+    (gz, gy, gx), ty, tz, cx, _ = _tma_geometry(kernel, lay, 4)[0]
+    ranges = [_axis_ranges(lay.x0, Nx, cx, gx - tiling.PADDING_LAYERS),
+              _axis_ranges(lay.h, Ny, ty, gy), _axis_ranges(lay.h, Nz, tz, gz)]
+    for (start, n, L), rs in zip(((lay.x0, Nx, Lx), (lay.h, Ny, Ly), (lay.h, Nz, Lz)),
+                                 ranges):
+        hits = np.zeros(L, dtype=int)
+        for lo, hi in rs:
+            assert lo < hi  # no empty tile
+            hits[lo:hi] += 1
+        assert (hits[start:start + n] == 1).all() and hits.sum() == n
+        # the x taps and the y/z halo of every tile stay inside the state
+        assert rs[0][0] - p >= 0 and rs[-1][1] + p <= L
+    if np.prod(lay.padded_shape) <= 4_000_000:  # every point written once
+        count = _padding_count(lay)
+        for x in ranges[0]:
+            for y in ranges[1]:
+                for z in ranges[2]:
+                    count[x[0]:x[1], y[0]:y[1], z[0]:z[1]] += 1
+        assert (count == 1).all()
+
+
+def test_tma_geometry_on_the_app_layouts():
+    """P12 (kernel E, p = 10) and P4 (kernel D, p = 8) in f32: 28-wide z
+    tiles (a multiple of the 16-byte unit) of 9 rows, 60-point box rows
+    (28 + 32, for the banks), one wave of tile blocks at most two an SM."""
+    e = _tma_layout("E", (26, 13, 13), 10)
+    d = _tma_layout("D", (32, 16, 16), 8)
+    assert e.padded_shape == (304, 152, 256) and d.padded_shape == (304, 152, 160)
+    for lay, nf, W in ((e, "E", 60), (d, "D", 60)):
+        (grid, ty, tz, cx, smem), *_ = _tma_geometry(nf, lay, 4)
+        assert (ty, tz) == (9, 28) and tiling.tma_window(lay.h, lay.p, ty, tz, 4)[0] == W
+        tiles = grid[0] * grid[1] * (grid[2] - tiling.PADDING_LAYERS)
+        assert tiles <= tiling.tma_blocks_per_sm(4) * tiling.H100_SMS
 
 
 def _tensor(n=1):
@@ -168,3 +291,52 @@ def test_launch_args_match_the_c_signature(name):
     proto = re.search(r'extern "C" int NAME##_##SUFFIX\((.*?)\)\s*\{', src, re.S)
     params = [q for q in proto.group(1).replace("\\", " ").split(",") if q.strip()]
     assert len(params) == len(sig)
+
+
+@pytest.mark.parametrize("name", ["wave_apply_slab_tiled", "wave_rk_stage_tiled"])
+def test_tma_launch_args_match_the_c_signature(name):
+    """Kernels E's and D's wrappers build argument lists whose types are the
+    ones ctypes declares for the launcher, ending in the tiling of
+    tma_geometry, and the launcher's C prototype has as many parameters."""
+    p = 4
+    if name == "wave_apply_slab_tiled":
+        lay = _tma_layout("E", (4, 2, 2), p)
+        args = wave.slab_launch_args(_tensor(), _tensor(), lay,
+                                     tuple(_tensor() for _ in range(6)))
+        geo, src = _tma_geometry("E", lay, 4)[0], "slab_tiled.cu"
+    else:
+        lay = _tma_layout("D", (4, 2, 2), p)
+        args = wave.rk_stage_launch_args(
+            *(_tensor() for _ in range(10)), 1e-9, 5e-10, 0.5, lay, 1500.0,
+            tuple(_tensor() for _ in range(5)), _tensor(), _tensor(), 17, -1)
+        geo, src = _tma_geometry("D", lay, 4)[0], "rk_stage_tiled.cu"
+    sig = _cuda._SIGNATURES[name]
+    kinds = {ctypes.c_void_p: torch.Tensor, ctypes.c_int: int, ctypes.c_double: float}
+    assert len(args) + 1 == len(sig) and sig[-1] is ctypes.c_void_p  # + stream
+    for a, t in zip(args, sig):
+        assert type(a) is kinds[t] or isinstance(a, kinds[t])
+    grid, ty, tz, cx, smem = geo
+    assert args[-7:] == (ty, tz, cx, *grid, smem)
+    proto = re.search(r'extern "C" int wave_\w+##SUFFIX\((.*?)\)\s*\{', _c_source(src), re.S)
+    params = [q for q in proto.group(1).replace("\\", " ").split(",") if q.strip()]
+    assert len(params) == len(sig)
+
+
+@pytest.mark.parametrize("call", ["slab", "stage"])
+def test_tma_wrappers_raise_on_cpu_tensors(call):
+    """The CUDA wrappers of kernels D and E take CUDA tensors only: a CPU
+    tensor raises (the dispatchers send it to the plain version)."""
+    lay = _tma_layout("E" if call == "slab" else "D", (2, 1, 1), 2)
+    x = torch.zeros(lay.padded_shape, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA kernel called with a tensor on cpu"):
+        if call == "slab":
+            K, (Lx, Ly, Lz) = 5, lay.padded_shape
+            tabs = (torch.zeros(1, Ly, Lz), torch.zeros(Lx, 1, Lz), torch.zeros(Lx, Ly, 1),
+                    torch.zeros(K, Lx, 1, 1), torch.zeros(K, 1, Ly, 1),
+                    torch.zeros(K, 1, 1, Lz))
+            wave.apply_slab_cuda(x, lay, tabs)
+        else:
+            F = lay.padded_shape[1] * lay.padded_shape[2]
+            wave.rk_stage_cuda(x, x, x, x, x, x, 0.0, 1e-9, 1.0, lay, 1500.0,
+                               tuple(torch.zeros(1) for _ in range(5)),
+                               torch.zeros(1, F), torch.zeros(1, F), 3, -1)

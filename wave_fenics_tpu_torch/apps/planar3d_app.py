@@ -103,9 +103,10 @@ def solver_path(pm: PaddedLinearWave, integrator: str = "rk4",
     stiffness = "kernel E" if pm.kernel == "3d" else "kernel B"
 
     def named(kernel: str, plain: str) -> str:
-        src = ("csrc/slab_kernels.cu" if "kernel E" in kernel
+        src = ("csrc/slab_tiled.cu" if "kernel E" in kernel
                else "csrc/rk4_tiled.cu, csrc/wave_kernels.cu" if "kernel J" in kernel
                else "csrc/rk4_tiled.cu" if "kernel A" in kernel or "kernel C" in kernel
+               else "csrc/rk_stage_tiled.cu" if "kernel D" in kernel
                else "csrc/wave_kernels.cu")
         return (f"CUDA {kernel} ({src})" if cuda
                 else f"plain torch {plain} (CPU)")

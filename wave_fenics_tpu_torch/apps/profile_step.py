@@ -42,13 +42,18 @@ Run from the repository root on a machine with a CUDA card:
     python -m wave_fenics_tpu_torch.apps.profile_step --general [--steps 20]
     python -m wave_fenics_tpu_torch.apps.profile_step --sweep-tiling [--full-tableau]
     python -m wave_fenics_tpu_torch.apps.profile_step --ablate [--full-tableau]
+    python -m wave_fenics_tpu_torch.apps.profile_step --ablate --degree 8 \
+           --cells 32 16 16          # kernel D (the path's RK4 stage kernel)
+    python -m wave_fenics_tpu_torch.apps.profile_step --ablate --degree 10 \
+           --cells 26 13 13          # kernel E
 
 With ``--sweep-tiling`` it times each stage launch of kernel A (or C)
 at every tiling of ``TILINGS`` (the tile and x-chunk limits of
-``ops/rk4step.py::tiled_geometry``), the default first; with ``--ablate``
-it times them as built and with the stencil replaced by the point value
-(``POINT_ONLY``: a patched copy of ``csrc/``, built under ``_build/``),
-beside one field copy.
+``ops/tiling.py::tiled_geometry``), the default first; with ``--ablate``
+it times the kernel of the path's RK4 (each stage of A or C, or one launch
+of D or E) as built and with the stencil replaced by the point value (a
+patched copy of ``csrc/``, built under ``_build/``; D and E also without
+each of the parts ``ABLATIONS`` takes out), beside one field copy.
 
 It prints the card's name and power limit (nvidia-smi), one line per kernel
 instance, and last one JSON dict of every number.
@@ -57,6 +62,7 @@ instance, and last one JSON dict of every number.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import re
@@ -70,7 +76,7 @@ import torch
 from ..benchmarks import general_solve
 from ..benchmarks.common import DTYPES
 from ..core.mesh import box_mesh
-from ..ops import _cuda, rk4step
+from ..ops import _cuda, rk4step, tiling, wave
 from ..ops.general import general_apply_cuda
 from ..ops.mass import bp1_setup, mass_apply
 from ..solvers.cg import cg
@@ -91,12 +97,12 @@ KERNELS = [
     (r"rk4_tiled_kernel<[^,<>]+,\s*\d+,\s*2>", "rk4 stage J=2", 4),
     (r"rk4_tiled_kernel<[^,<>]+,\s*\d+,\s*3>", "rk4 stage J=3", 7),
     (r"rk42_boundary_kernel<", "rk42 boundary (J)", 8),
-    (r"rk_stage_kernel<", "rk stage (D)", 10),
+    (r"rk_stage_tiled_kernel<", "rk stage (D)", 10),
     (r"lf_phase_kernel<[^,<>]+,\s*0>", "lf OPEN", 4),
     (r"lf_phase_kernel<[^,<>]+,\s*1>", "lf MID", 4),
     (r"lf_phase_kernel<[^,<>]+,\s*2>", "lf CLOSE", 3),
     (r"apply_flat_kernel<", "apply_flat (B)", 2),
-    (r"apply_slab_kernel<", "apply_slab (E)", 2),
+    (r"apply_slab_tiled_kernel<", "apply_slab (E)", 2),
 ]
 _KERNEL_RES = [(re.compile(pat), label, fields) for pat, label, fields in KERNELS]
 
@@ -228,26 +234,60 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
 TILINGS = [(32, 256, (16, 64)), (32, 256, (16, 16)), (32, 256, (32, 32)),
            (32, 256, (64, 64)), (32, 128, (16, 64)), (16, 256, (16, 64)),
            (16, 128, (16, 64))]
-#: the ablation of --ablate: the line of csrc/rk4_tiled.cu that applies the
-#: stencil, and the point value that takes its place in a patched copy of
-#: the sources (the same fetches, stage inputs and stores, no taps)
-POINT_ONLY = ("T kv = x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);",
-              "T kv = q[P];")
+#: the ablations of --ablate: patched copies of the sources, each a set of
+#: (file: the line it replaces exactly once, the replacement). "point
+#: value" replaces the line that applies the stencil of kernels A and C
+#: (rk4_tiled.cu), D (rk_stage_tiled.cu) and E (slab_tiled.cu) by the point
+#: value (the same fetches, stage inputs and stores, no taps); the others
+#: take one part out of D or E: its padding pass (the padding blocks
+#: return at once), D's point-wise loads of
+#: v0, kv, ua, va (a value from the index instead), or D's stage input
+#: (u0's window read in its place).
+_D_POINT_LOADS = """      pn[0] = a.v0[nidx];
+      pn[1] = a.kv[nidx];
+      pn[2] = a.ua[nidx];
+      pn[3] = a.va[nidx];"""
+ABLATIONS = {
+    "point value": {
+        "rk4_tiled.cu": ("T kv = x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);",
+                         "T kv = q[P];"),
+        "rk_stage_tiled.cu": ("T kv = tx * tab.fx + yz * __ldg(&s.sx[g]);", "T kv = q[P];"),
+        "slab_tiled.cu": ("y[(long long)g * F + c.f] = (tx * lyz + ay) + az;",
+                          "y[(long long)g * F + c.f] = q[P];"),
+    },
+    "no padding pass": {
+        "rk_stage_tiled.cu": ("    for_each_padding<8>(s, t, pb, npb,",
+                              "    if (false) for_each_padding<8>(s, t, pb, npb,"),
+        "slab_tiled.cu": ("    for_each_padding<1>(s, t, pb, npb,",
+                          "    if (false) for_each_padding<1>(s, t, pb, npb,"),
+    },
+    "no point-wise loads": {
+        "rk_stage_tiled.cu": (_D_POINT_LOADS,
+                              "      pn[0] = pn[1] = pn[2] = pn[3] = T(nidx & 1);"),
+    },
+    "u0 as the stage input": {
+        "rk_stage_tiled.cu": ("for (int e = (int)threadIdx.x; e < npt; e += nt) "
+                              "un[e] = ub[e] + ca * kb[e];", "un = const_cast<T*>(ub);"),
+    },
+}
+POINT_ONLY = ABLATIONS["point value"]
 
 
-def point_only_library() -> _cuda.KernelLibrary:
-    """The kernel library built from a copy of ``csrc/`` in which kernels A
-    and C take the point value in place of the stencil (POINT_ONLY)."""
-    src = _cuda.BUILD_DIR / "point_only_src"
+@functools.cache
+def patched_library(name: str) -> _cuda.KernelLibrary:
+    """The kernel library built from a copy of ``csrc/`` with the patches of
+    ``ABLATIONS[name]``."""
+    src = _cuda.BUILD_DIR / ("ablation_" + re.sub(r"\W+", "_", name))
     shutil.rmtree(src, ignore_errors=True)
     src.mkdir(parents=True)
     for f in [*_cuda.CSRC.glob("*.cu"), *_cuda.CSRC.glob("*.cuh")]:
         text = f.read_text()
-        if f.name == "rk4_tiled.cu":
-            if text.count(POINT_ONLY[0]) != 1:
-                raise RuntimeError("csrc/rk4_tiled.cu does not hold the stencil "
-                                   "line POINT_ONLY replaces exactly once")
-            text = text.replace(*POINT_ONLY)
+        if f.name in ABLATIONS[name]:
+            line, patch = ABLATIONS[name][f.name]
+            if text.count(line) != 1:
+                raise RuntimeError(f"csrc/{f.name} does not hold the line the "
+                                   f"ablation {name!r} replaces exactly once")
+            text = text.replace(line, patch)
         (src / f.name).write_text(text)
     return _cuda.load(src)
 
@@ -258,12 +298,8 @@ class _StageTimer:
     launches with their arguments converted once, so the host's per-call
     checks do not pace them."""
 
-    def __init__(self, cells, degree, dtype, tile_x, lean):
-        if not torch.cuda.is_available():
-            raise RuntimeError("profile_step needs a CUDA card")
-        self.case, self.pm = planar3d_app.build(cells, degree, dtype, tile_x,
-                                                "cuda", lean)
-        pm = self.pm
+    def __init__(self, case, pm, lean):
+        self.case, self.pm = case, pm
         self.u, self.v = (torch.randn(pm.layout.padded_shape, dtype=pm.base.dtype,
                                       device=pm.base.device) for _ in range(2))
         self.bufs = [torch.zeros_like(self.u) for _ in range(5)]
@@ -288,11 +324,14 @@ class _StageTimer:
 def sweep_tiling(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
                  lean=True) -> dict:
     """Each stage's device time at every tiling of TILINGS."""
-    st = _StageTimer(cells, degree, dtype, tile_x, lean)
-    sms = rk4step.sm_count(st.u.device.index)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA card")
+    st = _StageTimer(*planar3d_app.build(cells, degree, dtype, tile_x, "cuda", lean),
+                     lean)
+    sms = tiling.sm_count(st.u.device.index)
     rows = []
     for tile_z, tile_threads, chunk_x in TILINGS:
-        geometry = rk4step.tiled_geometry(
+        geometry = tiling.tiled_geometry(
             st.pm.layout, st.u.element_size(), sms, tile_z=tile_z,
             tile_threads=tile_threads, chunk_x=chunk_x)
         us = st.stage_us(_cuda.library(), geometry)
@@ -305,20 +344,66 @@ def sweep_tiling(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
             "padded_shape": list(st.pm.layout.padded_shape), "sweep": rows}
 
 
+def _copy_rate(u: torch.Tensor) -> tuple[int, float]:
+    """(bytes of one field, seconds of one ``Tensor.copy_`` of it)."""
+    dst = torch.empty_like(u)
+    return u.numel() * u.element_size(), timeit(lambda: dst.copy_(u), reps=200)
+
+
+def _launch_us(kl, name, x, args, reps=200) -> float:
+    return 1e6 * timeit(_cuda.launcher(kl, name, x.dtype, x.device, *args), reps=reps)
+
+
+def _ablate_tma(pm, case) -> dict:
+    """Kernel D or E (the path's RK4 kernel on ``pm``), one launch as built
+    and with each ablation that patches its source, on random fields of the
+    padded shape."""
+    dev, dtype = pm.base.device, pm.base.dtype
+    rand = lambda: torch.randn(pm.layout.padded_shape, dtype=dtype, device=dev)  # noqa: E731
+    if pm.kernel == "3d":
+        x, y = rand(), rand()
+        name, label, src = "wave_apply_slab_tiled", "E", "slab_tiled.cu"
+        args = wave.slab_launch_args(x, y, pm.layout, pm.slab_tables)
+    else:
+        x = rand()
+        ins = (x, *(rand() for _ in range(5)))
+        outs = tuple(rand() for _ in range(4))
+        name, label, src = "wave_rk_stage_tiled", "D", "rk_stage_tiled.cu"
+        args = wave.rk_stage_launch_args(
+            *ins, *outs, 0.5 * case.dt, case.dt / 3.0, 1.0, pm.layout, pm.base.c0,
+            pm.stencil, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+    ablated = {a: _launch_us(patched_library(a), name, x, args)
+               for a, patches in ABLATIONS.items() if src in patches}
+    nbytes, copy_s = _copy_rate(x)
+    return {"kernel": label, "us_per_launch": _launch_us(_cuda.library(), name, x, args),
+            "ablated_us_per_launch": ablated,
+            "point_only_us_per_launch": ablated["point value"],
+            "geometry": list(args[-7:]), "field_bytes": nbytes,
+            "copy_us": copy_s * 1e6, "copy_gbps": 2 * nbytes / copy_s / 1e9}
+
+
 def ablate(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
            lean=True) -> dict:
-    """What holds kernel A (or C) back: each stage's device time as built,
-    and with the stencil replaced by the point value (POINT_ONLY); and the
-    copy rate of one state field (``Tensor.copy_``, a measuring stick
-    only), the HBM rate a streaming kernel can reach on this card."""
-    st = _StageTimer(cells, degree, dtype, tile_x, lean)
-    full, point = st.stage_us(_cuda.library()), st.stage_us(point_only_library())
-    nbytes = st.u.numel() * st.u.element_size()
-    dst = torch.empty_like(st.u)
-    copy_s = timeit(lambda: dst.copy_(st.u), reps=200)
-    return {"card": card_line(), "cells": list(cells), "degree": degree,
+    """What holds the path's RK4 kernel back: kernel A (or C) stage by stage,
+    or kernel D or E per launch (the path at p > 8, or where the step
+    kernel does not apply), as built and with the stencil replaced by the
+    point value (D and E also without each part of ABLATIONS that patches
+    their source); and the copy rate of one state field (``Tensor.copy_``,
+    a measuring stick only), the HBM rate a streaming kernel can reach on
+    this card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA card")
+    case, pm = planar3d_app.build(cells, degree, dtype, tile_x, "cuda", lean)
+    head = {"card": card_line(), "cells": list(cells), "degree": degree,
             "dtype": dtype, "lean": lean,
-            "padded_shape": list(st.pm.layout.padded_shape),
+            "padded_shape": list(pm.layout.padded_shape)}
+    if pm.kernel == "3d" or pm.step_unavailable is not None:
+        return {**head, **_ablate_tma(pm, case)}
+    st = _StageTimer(case, pm, lean)
+    full = st.stage_us(_cuda.library())
+    point = st.stage_us(patched_library("point value"))
+    nbytes, copy_s = _copy_rate(st.u)
+    return {**head, "kernel": "C" if not lean else "A",
             "stage_us": full, "point_only_stage_us": point,
             "ms_per_step": sum(full) / 1e3,
             "point_only_ms_per_step": sum(point) / 1e3,
@@ -473,19 +558,28 @@ def main(argv=None):
                     help="time each stage of kernel A (C with --full-tableau) "
                          "at every tiling of TILINGS")
     ap.add_argument("--ablate", action="store_true",
-                    help="time each stage of kernel A (C with --full-tableau) "
-                         "as built and with the stencil replaced by the point "
-                         "value, and one field copy")
+                    help="time the path's RK4 kernel (each stage of A, or C "
+                         "with --full-tableau; D or E where the path takes "
+                         "them) as built and with the stencil replaced by the "
+                         "point value, and one field copy")
     args = ap.parse_args(argv)
     if args.ablate:
         out = ablate(args.cells, args.degree, args.dtype, args.tile_x,
                      lean=not args.full_tableau)
         print(out["card"])
-        print(f"stages {', '.join(f'{t:.2f}' for t in out['stage_us'])} us "
-              f"({out['ms_per_step']:.4f} ms/step); stencil replaced by the point "
-              f"value: {', '.join(f'{t:.2f}' for t in out['point_only_stage_us'])} us "
-              f"({out['point_only_ms_per_step']:.4f} ms/step); one field copy "
-              f"{out['copy_us']:.2f} us, {out['copy_gbps']:.1f} GB/s")
+        if "stage_us" in out:
+            print(f"kernel {out['kernel']}: stages "
+                  f"{', '.join(f'{t:.2f}' for t in out['stage_us'])} us "
+                  f"({out['ms_per_step']:.4f} ms/step); stencil replaced by the point "
+                  f"value: {', '.join(f'{t:.2f}' for t in out['point_only_stage_us'])} "
+                  f"us ({out['point_only_ms_per_step']:.4f} ms/step)", end="")
+        else:
+            print(f"kernel {out['kernel']} (tiling {out['geometry']}): "
+                  f"{out['us_per_launch']:.2f} us/launch; "
+                  + "; ".join(f"{a}: {us:.2f}"
+                              for a, us in out["ablated_us_per_launch"].items()),
+                  end="")
+        print(f"; one field copy {out['copy_us']:.2f} us, {out['copy_gbps']:.1f} GB/s")
         print(json.dumps(out))
         return
     if args.sweep_tiling:

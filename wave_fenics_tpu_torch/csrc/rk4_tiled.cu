@@ -113,7 +113,7 @@ __global__ void __launch_bounds__(kTileThreads, (min_blocks<T, P>()))
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
-  const TileCoords<T> c(s, t);
+  const TileCoords c(s, t);
   const int plane = (t.ty + 2 * P) * (t.tz + 2 * P);
   const Window<P> w(s, c, t, reinterpret_cast<int*>(smem + kPipe * NF * plane));
   const int W = w.W;
@@ -250,19 +250,12 @@ int launch_stage_p(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
   }
 }
 
-// The tiling must cover the interior exactly: one block per tile and
-// x-chunk.
-inline bool tiling_fits(const Tiling& t, dim3 grid, int nx, int ny, int nz) {
-  const auto cdiv = [](int n, int d) { return (n + d - 1) / d; };
-  return t.ty > 0 && t.tz > 0 && t.cx > 0 && t.ty * t.tz <= kTileThreads &&
-         (int)grid.x == cdiv(nz, t.tz) && (int)grid.y == cdiv(ny, t.ty) &&
-         (int)grid.z == cdiv(nx, t.cx);
-}
-
 template <typename T>
 int launch_rk4_tiled(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
                      dim3 grid, int smem, cudaStream_t stream) {
-  if (!tiling_fits(t, grid, s.nx, s.ny, s.nz)) return (int)cudaErrorInvalidValue;
+  if (!tiling_fits(t, grid, s.nx, s.ny, s.nz) || !box_fits_int(s)) {
+    return (int)cudaErrorInvalidValue;
+  }
   switch (s.p) {
     case 1: return launch_stage_p<T, 1>(stage, s, a, t, grid, smem, stream);
     case 2: return launch_stage_p<T, 2>(stage, s, a, t, grid, smem, stream);

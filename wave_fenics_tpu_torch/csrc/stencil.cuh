@@ -26,17 +26,30 @@
 
 namespace wave {
 
+// The geometry of a padded layout, without its tables: the padded extents
+// and the interior box. The tiled kernels (stencil_tiled.cuh) need only
+// this, so both layouts' stencils provide it.
+struct PaddedBox {
+  int p, Lx, Ly, Lz;
+  int x0, nx, h, ny, nz;
+
+  __host__ __device__ __forceinline__ int F() const { return Ly * Lz; }
+};
+
 template <typename T>
-struct Stencil {
+struct Stencil : PaddedBox {
   const T* cvx;  // [K, Lx]
   const T* sx;   // [Lx]
   const T* fx;   // [F]
   const T* cvy;  // [K, F]
   const T* cvz;  // [K, F]
-  int p, Lx, Ly, Lz;
-  int x0, nx, h, ny, nz;
 
-  __device__ __forceinline__ int F() const { return Ly * Lz; }
+  __host__ __device__ Stencil(const T* cvx_, const T* sx_, const T* fx_,
+                              const T* cvy_, const T* cvz_, int p_, int Lx_,
+                              int Ly_, int Lz_, int x0_, int nx_, int h_,
+                              int ny_, int nz_)
+      : PaddedBox{p_, Lx_, Ly_, Lz_, x0_, nx_, h_, ny_, nz_},
+        cvx(cvx_), sx(sx_), fx(fx_), cvy(cvy_), cvz(cvz_) {}
 
   __device__ __forceinline__ bool interior(int g, int f) const {
     const int y = f / Lz;
@@ -75,7 +88,7 @@ __device__ __forceinline__ T apply_stencil(const Stencil<T>& s,
 }
 
 // The same A on the 3D-slab layout [Lx, Ly, Lz] (z aligned to 128; kernel
-// E), with the TPU kernel's tables as they are: the banded coefficients
+// E, slab_tiled.cu), with the TPU kernel's tables as they are: the banded coefficients
 // cvx [K, Lx], cvy [K, Ly], cvz [K, Lz] and the three 2D line tables
 // lyz [Ly, Lz], lxz [Lx, Lz], lxy [Lx, Ly] (two scaled lumped lines each,
 // 1/m folded in; ops/wave.py::build_tables). At an interior point
@@ -88,45 +101,20 @@ __device__ __forceinline__ T apply_stencil(const Stencil<T>& s,
 // The caller guarantees a padding at least p deep on every side, so no
 // tap of an interior point leaves the state and none is masked.
 template <typename T>
-struct SlabStencil {
+struct SlabStencil : PaddedBox {
   const T* lyz;
   const T* lxz;
   const T* lxy;
   const T* cvx;
   const T* cvy;
   const T* cvz;
-  int p, Lx, Ly, Lz;
-  int x0, nx, h, ny, nz;
 
-  __device__ __forceinline__ bool interior(int gx, int gy, int gz) const {
-    return gx >= x0 && gx < x0 + nx && gy >= h && gy < h + ny && gz >= h &&
-           gz < h + nz;
-  }
+  __host__ __device__ SlabStencil(const T* lyz_, const T* lxz_, const T* lxy_,
+                                  const T* cvx_, const T* cvy_, const T* cvz_,
+                                  int p_, int Lx_, int Ly_, int Lz_, int x0_,
+                                  int nx_, int h_, int ny_, int nz_)
+      : PaddedBox{p_, Lx_, Ly_, Lz_, x0_, nx_, h_, ny_, nz_},
+        lyz(lyz_), lxz(lxz_), lxy(lxy_), cvx(cvx_), cvy(cvy_), cvz(cvz_) {}
 };
-
-template <typename T>
-__device__ __forceinline__ T apply_slab_stencil(const SlabStencil<T>& s,
-                                                const T* __restrict__ x,
-                                                int gx, int gy, int gz) {
-  const int p = s.p;
-  const int K = 2 * p + 1;
-  const long long plane = (long long)s.Ly * s.Lz;
-  const long long i = gx * plane + (long long)gy * s.Lz + gz;
-
-  T tx = T(0);
-  for (int k = 0; k < K; ++k) tx += s.cvx[k * s.Lx + gx] * x[i + (k - p) * plane];
-  T ty = s.cvy[p * s.Ly + gy] * x[i];
-  T tz = s.cvz[p * s.Lz + gz] * x[i];
-  for (int k = 0; k < K; ++k) {
-    if (k == p) continue;
-    ty += s.cvy[k * s.Ly + gy] * x[i + (k - p) * s.Lz];
-  }
-  for (int k = 0; k < K; ++k) {
-    if (k == p) continue;
-    tz += s.cvz[k * s.Lz + gz] * x[i + (k - p)];
-  }
-  return (tx * s.lyz[gy * s.Lz + gz] + ty * s.lxz[(long long)gx * s.Lz + gz]) +
-         tz * s.lxy[(long long)gx * s.Ly + gy];
-}
 
 }  // namespace wave

@@ -15,9 +15,20 @@
 // from the caller (ops/rk4step.py::tiled_geometry). Each block also writes
 // zeros to its share of the outputs' padding rows, while its first planes
 // are in flight.
+//
+// The geometry helpers take the table-free PaddedBox, which both layouts'
+// stencils provide: kernels A and C (rk4_tiled.cu) on the flat layout,
+// kernel D (rk_stage_tiled.cu) on the flat layout and kernel E
+// (slab_tiled.cu) on the 3D slab. A and C copy their planes element by
+// element with cp.async (fetch_plane); D and E take each plane window with
+// one TMA request into a ring of kRing planes (PlaneRing, the end of this
+// file), so no thread spends instructions on the copy.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "stencil.cuh"
 
@@ -52,12 +63,11 @@ __device__ __forceinline__ void cp_async_or_zero(T* dst, const T* src,
 
 // Where a tile block sits: its first interior y and z, its x rows
 // [xs, xe), its thread's column (y, z) and flat column index f.
-template <typename T>
 struct TileCoords {
   int y0, z0, xs, xe, ly, lz, y, z, f;
   bool active;  // the thread's column is an interior column
 
-  __device__ TileCoords(const Stencil<T>& s, const Tiling& t) {
+  __device__ TileCoords(const PaddedBox& s, const Tiling& t) {
     ly = (int)threadIdx.x / t.tz;
     lz = (int)threadIdx.x - ly * t.tz;
     y0 = s.h + (int)blockIdx.y * t.ty;
@@ -81,9 +91,8 @@ struct Window {
   int W, n, nt;  // pitch, window points, threads
   int* off;
 
-  template <typename T>
-  __device__ Window(const Stencil<T>& s, const TileCoords<T>& c,
-                    const Tiling& t, int* table)
+  __device__ Window(const PaddedBox& s, const TileCoords& c, const Tiling& t,
+                    int* table)
       : W(t.tz + 2 * P), n((t.ty + 2 * P) * (t.tz + 2 * P)), nt(t.ty * t.tz),
         off(table) {
     for (int e = (int)threadIdx.x; e < n; e += nt) {
@@ -102,7 +111,7 @@ struct Window {
 // load. Each thread copies its own elements of the window.
 template <typename T, int P, int NF>
 __device__ __forceinline__ void fetch_plane(T* dst, const T* f0, const T* f1,
-                                            const T* f2, const Stencil<T>& s,
+                                            const T* f2, const PaddedBox& s,
                                             const Window<P>& w, int g) {
   const bool gx = g >= s.x0 && g < s.x0 + s.nx;
   const long long row = (long long)g * s.F();
@@ -149,22 +158,29 @@ struct ColumnTables {
   }
 };
 
-// The x sum of row g from the column's queue q[k] = x[g + k - P].
-template <typename T, int P>
-__device__ __forceinline__ T x_taps(const Stencil<T>& s, const T (&q)[2 * P + 1],
-                                    int g) {
+// The x sum of row g from the column's queue q[k] = x[g + k - P]; cvx is
+// [K, Lx] in both layouts' tables (Stencil, SlabStencil).
+template <typename T, int P, typename S>
+__device__ __forceinline__ T x_taps(const S& s, const T (&q)[2 * P + 1], int g) {
   T tx = T(0);
 #pragma unroll
   for (int k = 0; k < 2 * P + 1; ++k) tx += __ldg(&s.cvx[k * s.Lx + g]) * q[k];
   return tx;
 }
 
-// This block's share of writing 0 to every padding point of o0 (and of o1
-// when it is not null): one (x, y) row of Lz points per group of up to 32
-// threads, the rows dealt round-robin over all the grid's groups.
-template <typename T>
-__device__ void zero_padding(const Stencil<T>& s, const Tiling& t, T* o0,
-                             T* o1) {
+// The share of the padding points of the state that block `block` of the
+// `blocks` blocks sharing them takes: one (x, y) row of Lz points per
+// group of gs = min(32, threads) threads, the rows dealt round-robin over
+// all those blocks' groups, a row's padding points (all Lz of a row
+// outside the interior rows, else the z points outside [h, h + nz)) dealt
+// over the group's lanes. fn(idx, n) takes a thread's points U at a time
+// (flat indices idx[0..n), n < U only for the last; the launchers check
+// that they fit an int), so that a pass which reads fields can issue the
+// loads of U points before their stores.
+template <int U, typename Fn>
+__device__ void for_each_padding(const PaddedBox& s, const Tiling& t,
+                                 long long block, long long blocks,
+                                 const Fn& fn) {
   const int nt = t.ty * t.tz;
   const int gs = nt < 32 ? nt : 32;
   const int groups = nt / gs;
@@ -172,25 +188,43 @@ __device__ void zero_padding(const Stencil<T>& s, const Tiling& t, T* o0,
   const int lane = (int)threadIdx.x - grp * gs;
   if (grp >= groups) return;
   const long long rows = (long long)s.Lx * s.Ly;
-  const long long block =
-      ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  const long long step = (long long)gridDim.x * gridDim.y * gridDim.z * groups;
+  const long long step = blocks * groups;
+  int idx[U];
+  int n = 0;
   for (long long row = block * groups + grp; row < rows; row += step) {
     const int g = (int)(row / s.Ly);
     const int y = (int)(row - (long long)g * s.Ly);
-    const long long base = row * s.Lz;
+    const int base = (int)row * s.Lz;
     const bool full = g < s.x0 || g >= s.x0 + s.nx || y < s.h || y >= s.h + s.ny;
-    const int z1 = full ? s.Lz : s.h;  // [0, z1) and [z2, Lz) are padding
-    const int z2 = full ? s.Lz : s.h + s.nz;
-    for (int z = lane; z < z1; z += gs) {
-      o0[base + z] = T(0);
-      if (o1) o1[base + z] = T(0);
-    }
-    for (int z = z2 + lane; z < s.Lz; z += gs) {
-      o0[base + z] = T(0);
-      if (o1) o1[base + z] = T(0);
+    const int z1 = full ? s.Lz : s.h;  // [0, z1) and [z1 + gap, Lz) are padding
+    const int gap = full ? 0 : s.nz;
+    for (int k = lane; k < s.Lz - gap; k += gs) {
+      const int i = base + (k < z1 ? k : k + gap);
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        if (j == n) idx[j] = i;
+      }
+      if (++n == U) {
+        fn(idx, U);
+        n = 0;
+      }
     }
   }
+  if (n > 0) fn(idx, n);
+}
+
+// Write 0 to this block's share of the padding points of o0 (and of o1
+// when it is not null); all the grid's blocks share them.
+template <typename T>
+__device__ void zero_padding(const PaddedBox& s, const Tiling& t, T* o0,
+                             T* o1) {
+  const long long block =
+      ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  for_each_padding<1>(s, t, block, (long long)gridDim.x * gridDim.y * gridDim.z,
+                      [o0, o1](const int (&i)[1], int) {
+                        o0[i[0]] = T(0);
+                        if (o1) o1[i[0]] = T(0);
+                      });
 }
 
 // Bytes of dynamic shared memory a tile block of NF fields needs: the ring
@@ -200,5 +234,211 @@ inline int tiled_smem_bytes(const Tiling& t, int nf) {
   const int n = (t.ty + 2 * P) * (t.tz + 2 * P);
   return kPipe * nf * n * (int)sizeof(T) + n * (int)sizeof(int);
 }
+
+// The padded state's flat indices must fit an int (for_each_padding).
+inline bool box_fits_int(const PaddedBox& s) {
+  return (long long)s.Lx * s.Ly * s.Lz < 2147483647LL;
+}
+
+// The tiling must cover the interior exactly: one block per tile and
+// x-chunk.
+inline bool tiling_fits(const Tiling& t, dim3 grid, int nx, int ny, int nz) {
+  const auto cdiv = [](int n, int d) { return (n + d - 1) / d; };
+  return t.ty > 0 && t.tz > 0 && t.cx > 0 && t.ty * t.tz <= kTileThreads &&
+         (int)grid.x == cdiv(nz, t.tz) && (int)grid.y == cdiv(ny, t.ty) &&
+         (int)grid.z == cdiv(nx, t.cx);
+}
+
+// ---------------------------------------------------------------------------
+// The TMA plane ring of kernels D and E (sm_90).
+//
+// Thread 0 asks the Tensor Memory Accelerator for the whole window of plane
+// g, the box {W, ty + 2P, 1} of a 3D tensor map over the padded state
+// [Lx, Ly, Lz], and the copy reports its bytes to the slot's mbarrier.
+// Every thread waits on that barrier (the parity of the slot's use), then
+// one __syncthreads per plane says that every thread is past the previous
+// plane, whose slot thread 0 then refills kRing - 1 planes ahead. The
+// window is read as it is in memory: the state's padding as it holds it,
+// zeros beyond the tensor's ends.
+//
+// A box's z start must be 16-byte aligned (a z start that is not is an
+// illegal instruction on the H100), so the box starts oz = (h - P) mod A
+// points before the tile's halo, A = 16 / sizeof(T), and tz is a multiple
+// of A, which gives every tile the same oz. Its z extent, the window's
+// pitch W, is tz plus a multiple of 32 (so a multiple of A, as the box's
+// inner extent must be a multiple of 16 bytes): thread (ly, lz) then reads
+// its taps at ly W + lz + const, the same bank as its thread index, and no
+// warp's shared-memory tap load has a bank conflict.
+// ---------------------------------------------------------------------------
+
+constexpr int kRing = 6;      // plane windows in the TMA ring
+constexpr int kBoxMax = 256;  // a TMA box's extent along any axis at most
+
+// Tile blocks per SM the register budget must allow for the TMA kernels:
+// two in f32 (128 registers a thread), one in f64.
+template <typename T>
+__host__ __device__ constexpr int tma_min_blocks() {
+  return sizeof(T) == 4 ? 2 : 1;
+}
+
+// z points of one 16-byte unit of T
+template <typename T>
+__host__ __device__ constexpr int tma_align() {
+  return 16 / (int)sizeof(T);
+}
+
+// The window a TMA block fetches for a plane: pitch W (the box's z extent,
+// tz plus a multiple of 32), BY = ty + 2P rows, the halo's offset oz in
+// the box's rows, and box, the
+// elements a box takes in shared memory (its bytes rounded up to 128, so
+// every box starts 128-byte aligned).
+struct TmaWindow {
+  int W, BY, oz, box;
+};
+
+template <typename T>
+__host__ __device__ inline TmaWindow tma_window(const PaddedBox& s,
+                                                const Tiling& t, int P) {
+  constexpr int A = tma_align<T>();
+  const int oz = ((s.h - P) % A + A) % A;
+  const int W = t.tz + (oz + 2 * P + 31) / 32 * 32;
+  const int BY = t.ty + 2 * P;
+  const int bytes = (W * BY * (int)sizeof(T) + 127) / 128 * 128;
+  return TmaWindow{W, BY, oz, bytes / (int)sizeof(T)};
+}
+
+// Dynamic shared memory of a TMA tile block: 128 bytes to align the base,
+// kRing slots of nf boxes and `extra` boxes, then the kRing mbarriers.
+template <typename T>
+inline int tma_smem_bytes(const TmaWindow& w, int nf, int extra) {
+  return 128 + (kRing * nf + extra) * w.box * (int)sizeof(T) +
+         kRing * (int)sizeof(uint64_t);
+}
+
+// The TMA kernels' grid has one more layer of x-chunks than the tiling
+// needs: its blocks write the outputs' padding (padding_block) while the
+// tile blocks stream their chunks, in the block slots the tiles leave
+// free, instead of every tile block passing over its share first.
+inline bool tma_tiling_fits(const Tiling& t, dim3 grid, int nx, int ny,
+                            int nz) {
+  return grid.z >= 2 && tiling_fits(t, dim3(grid.x, grid.y, grid.z - 1), nx, ny, nz);
+}
+
+// Whether this block is one of the padding layer's; if so, its index
+// `block` among the layer's `blocks` blocks.
+__device__ __forceinline__ bool padding_block(const PaddedBox& s,
+                                              const Tiling& t, long long& block,
+                                              long long& blocks) {
+  const int chunks = (s.nx + t.cx - 1) / t.cx;
+  if ((int)blockIdx.z < chunks) return false;
+  block = ((long long)(blockIdx.z - chunks) * gridDim.y + blockIdx.y) * gridDim.x +
+          blockIdx.x;
+  blocks = (long long)(gridDim.z - chunks) * gridDim.y * gridDim.x;
+  return true;
+}
+
+// The TMA kernels' conditions on the layout and the tiling beyond
+// tma_tiling_fits: tz a multiple of A, the box within kBoxMax, and the
+// state's rows and base 16-byte aligned (the tensor map's rules).
+template <typename T>
+inline bool tma_fits(const PaddedBox& s, const Tiling& t, const TmaWindow& w,
+                     const void* base) {
+  return t.tz % tma_align<T>() == 0 && w.W <= kBoxMax && w.BY <= kBoxMax &&
+         (s.Lz * sizeof(T)) % 16 == 0 && (uintptr_t)base % 16 == 0;
+}
+
+// The 3D tensor map of a padded state [Lx, Ly, Lz] with the box of `w`.
+// Returns 0, or cudaErrorInvalidValue when the driver refuses the map.
+template <typename T>
+inline int encode_plane_map(CUtensorMap* map, const T* base, const PaddedBox& s,
+                            const TmaWindow& w) {
+  const cuuint64_t dims[3] = {(cuuint64_t)s.Lz, (cuuint64_t)s.Ly,
+                              (cuuint64_t)s.Lx};
+  const cuuint64_t strides[2] = {(cuuint64_t)s.Lz * sizeof(T),
+                                 (cuuint64_t)s.Ly * s.Lz * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)w.W, (cuuint32_t)w.BY, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
+      3, const_cast<T*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The ring in dynamic shared memory: kRing slots of nf boxes, `extra`
+// boxes, then one mbarrier per slot (initialised here: every thread of the
+// block constructs it, and the constructor ends in a __syncthreads).
+template <typename T>
+struct PlaneRing {
+  T* buf;
+  uint64_t* full;
+  int box, nf;
+  unsigned tx_bytes;  // what one plane's copies deliver: nf boxes of W x BY
+
+  __device__ PlaneRing(unsigned char* raw, const TmaWindow& w, int nf_,
+                       int extra)
+      : box(w.box), nf(nf_),
+        tx_bytes((unsigned)(nf_ * w.W * w.BY * (int)sizeof(T))) {
+    unsigned char* base = raw + ((128u - (smem_addr(raw) & 127u)) & 127u);
+    buf = reinterpret_cast<T*>(base);
+    full = reinterpret_cast<uint64_t*>(buf + (kRing * nf + extra) * box);
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kRing; ++i) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                         smem_addr(full + i))
+                     : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  // the nf boxes of plane use i (field-major)
+  __device__ __forceinline__ T* slot(int i) const {
+    return buf + (i % kRing) * nf * box;
+  }
+  __device__ __forceinline__ T* extra(int j) const {
+    return buf + (kRing * nf + j) * box;
+  }
+
+  // Thread 0 only: start the copies of plane g, the box at (zs, ys), of the
+  // nf maps into the slot of use i.
+  __device__ __forceinline__ void fetch(int i, const CUtensorMap* m0,
+                                        const CUtensorMap* m1, int zs, int ys,
+                                        int g) const {
+    const unsigned bar = smem_addr(full + i % kRing);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     bar),
+                 "r"(tx_bytes)
+                 : "memory");
+    const CUtensorMap* maps[2] = {m0, m1};
+    for (int f = 0; f < nf; ++f) {
+      asm volatile(
+          "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+          "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+              smem_addr(slot(i) + f * box)),
+          "l"(maps[f]), "r"(bar), "r"(zs), "r"(ys), "r"(g)
+          : "memory");
+    }
+  }
+
+  // Wait until the copies of use i have landed.
+  __device__ __forceinline__ void wait(int i) const {
+    const unsigned bar = smem_addr(full + i % kRing);
+    const unsigned parity = (unsigned)(i / kRing) & 1u;
+    asm volatile(
+        "{\n .reg .pred P1;\n WAIT:\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        " @!P1 bra WAIT;\n}\n" ::"r"(bar),
+        "r"(parity)
+        : "memory");
+  }
+};
 
 }  // namespace wave

@@ -1,7 +1,8 @@
 // Hand-written Hopper kernels of the planar3d solver paths (sm_90a).
 //
-// Four entry points share the stencil of stencil.cuh (kernels A and C, the
-// RK4 step, are in rk4_tiled.cu on the tiled stencil of stencil_tiled.cuh):
+// Three entry points share the stencil of stencil.cuh (kernels A and C, the
+// RK4 step, are in rk4_tiled.cu, and kernel D, the fused RK4 stage, in
+// rk_stage_tiled.cu, on the tiled stencil of stencil_tiled.cuh):
 //
 // * apply_flat_kernel (kernel B) replaces the TPU kernel
 //   wave_fenics_tpu/ops/pallas_wave.py::_kernel_flat: y = A x on the flat
@@ -12,8 +13,6 @@
 //   0) fused into one. The TPU kernel's 6p wedge and its six shrinking
 //   stage windows keep a slab in VMEM; a launch here covers the whole grid,
 //   so they have no counterpart.
-// * rk_stage_kernel (kernel D) replaces pallas_wave.py::_kernel_rk_stage:
-//   one RK4 stage of the fused-stage path, with its running accumulators.
 // * lf_phase_kernel<Phase> (kernels H and I) replaces
 //   pallas_lfstep.py::_kernel_lf_step (OPEN + CLOSE: one leapfrog step) and
 //   pallas_lf2step.py::_kernel_lf2_step (OPEN + MID + CLOSE: two leapfrog
@@ -29,11 +28,11 @@
 // What the design does about it, in this first form: one thread per
 // padded point, neighbouring threads on neighbouring f, so every tap row
 // is a coalesced load and the x taps of a warp hit the same L2 lines that
-// the neighbouring blocks read; a stage input (un3, u1, or u0 + ca ku) is
-// formed at each tap from the fields in memory instead of being written
-// out; padding points write zeros without reading any tap. Moving them
-// onto the tiled stencil of stencil_tiled.cuh, as kernels A and C did, is
-// the next performance step (ROADMAP.md).
+// the neighbouring blocks read; a stage input (un3 or u1) is formed at
+// each tap from the fields in memory instead of being written out; padding
+// points write zeros without reading any tap. Moving them onto the tiled
+// stencil of stencil_tiled.cuh, as kernels A, C and D did, is the next
+// performance step (ROADMAP.md).
 //
 // Each extern "C" launcher returns cudaGetLastError() after its launch, so
 // the caller sees a launch the runtime refused.
@@ -160,67 +159,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Kernel D: one stage of the fused-stage RK4 path,
-//
-//   un  = u0 + ca ku   (at every tap)     vn  = v0 + ca kv
-//   kv' = A un + c0^2 g W1 - c0 W2 vn     (the face terms on their rows)
-//   ua' = ua + cb vn                      va' = va + cb kv'
-//
-// vn and ua' are written everywhere; in the padding kv' = 0 and va' = va,
-// as on the TPU kernel's all-pad tiles. ua'/va' are point-wise updates, so
-// they may overwrite ua/va in place; vn_out (the next stage's ku, read at
-// the taps) may alias nothing.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct RkStageArgs {
-  const T* u0;
-  const T* ku;
-  const T* v0;
-  const T* kv;
-  const T* ua;
-  const T* va;
-  T* vn_out;
-  T* kv_out;
-  T* ua_out;
-  T* va_out;
-  const T* w1;
-  const T* w2;
-  int src_x, abc_x;
-  T ca, cb, g, c0sq, mc0;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    rk_stage_kernel(Stencil<T> s, RkStageArgs<T> a) {
-  const int F = s.F();
-  const long long n = (long long)s.Lx * F;
-  const T ca = a.ca;
-  auto load = [&a, F, ca](int g, int f) -> T {
-    const long long j = (long long)g * F + f;
-    return a.u0[j] + ca * a.ku[j];
-  };
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const T vn = a.v0[i] + ca * a.kv[i];
-    a.vn_out[i] = vn;
-    a.ua_out[i] = a.ua[i] + a.cb * vn;
-    const int g = (int)(i / F);
-    const int f = (int)(i - (long long)g * F);
-    if (!s.interior(g, f)) {
-      a.kv_out[i] = T(0);
-      a.va_out[i] = a.va[i];
-      continue;
-    }
-    T kv = apply_stencil(s, load, g, f);
-    if (g == a.src_x) kv += (a.c0sq * a.g) * a.w1[f];
-    if (g == a.abc_x) kv += (a.mc0 * a.w2[f]) * vn;
-    a.kv_out[i] = kv;
-    a.va_out[i] = a.va[i] + a.cb * kv;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Kernels H and I: the phases of kick-drift-kick leapfrog. With
 // F(u) = A u + c0^2 g W1 (source row), D = c0 W2 (absorbing row) and
 // h = dt/2:
@@ -315,12 +253,6 @@ int launch_rk42_boundary(Stencil<T> s, BoundaryArgs<T> a, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_rk_stage(Stencil<T> s, RkStageArgs<T> a, cudaStream_t stream) {
-  rk_stage_kernel<T><<<blocks_of(s), kThreads, 0, stream>>>(s, a);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_lf_phase(int phase, Stencil<T> s, LfArgs<T> a,
                     cudaStream_t stream) {
   const unsigned nb = blocks_of(s);
@@ -360,17 +292,6 @@ int launch_lf_phase(int phase, Stencil<T> s, LfArgs<T> a,
                             src_x, abc_x, (T)dt, (T)g, (T)(c0 * c0),          \
                             (T)(-c0)};                                        \
     return wave::launch_rk42_boundary<T>(                                     \
-        wave::make_stencil<T>(WAVE_STENCIL_ARGS), a, stream);                 \
-  }                                                                           \
-  extern "C" int wave_rk_stage_##SUFFIX(                                      \
-      const T* u0, const T* ku, const T* v0, const T* kv, const T* ua,        \
-      const T* va, T* vn_out, T* kv_out, T* ua_out, T* va_out, const T* w1,   \
-      const T* w2, int src_x, int abc_x, double ca, double cb, double g,      \
-      double c0, WAVE_STENCIL_PARAMS(T), cudaStream_t stream) {               \
-    wave::RkStageArgs<T> a{u0, ku, v0, kv, ua, va, vn_out, kv_out, ua_out,    \
-                           va_out, w1, w2, src_x, abc_x, (T)ca, (T)cb, (T)g,  \
-                           (T)(c0 * c0), (T)(-c0)};                           \
-    return wave::launch_rk_stage<T>(                                          \
         wave::make_stencil<T>(WAVE_STENCIL_ARGS), a, stream);                 \
   }                                                                           \
   extern "C" int wave_lf_phase_##SUFFIX(                                      \

@@ -53,11 +53,14 @@ _SIGNATURES = {
     # c0, <stencil>, stream (kernel J's step boundary)
     "wave_rk42_boundary": [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
     # x, y, lyz, lxz, lxy, cvx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz,
-    # stream (kernel E)
-    "wave_apply_slab": [_P] * 8 + [_I] * 9 + [_P],
+    # ty, tz, cx, gx, gy, gz, smem, stream (kernel E; the tiling of
+    # ops/tiling.py::tma_geometry)
+    "wave_apply_slab_tiled": [_P] * 8 + [_I] * 9 + [_I] * 7 + [_P],
     # u0, ku, v0, kv, ua, va, vn_out, kv_out, ua_out, va_out, w1, w2,
-    # src_x, abc_x, ca, cb, g, c0, <stencil>, stream (kernel D)
-    "wave_rk_stage": [_P] * 12 + [_I, _I, _D, _D, _D, _D] + _STENCIL + [_P],
+    # src_x, abc_x, ca, cb, g, c0, <stencil>, ty, tz, cx, gx, gy, gz, smem,
+    # stream (kernel D)
+    "wave_rk_stage_tiled": [_P] * 12 + [_I, _I, _D, _D, _D, _D] + _STENCIL
+    + [_I] * 7 + [_P],
     # phase, u, v, u_out, v_out, w1, w2, src_x, abc_x, dt, g, c0, <stencil>,
     # stream (kernels H and I)
     "wave_lf_phase": [_I] + [_P] * 6 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
@@ -101,6 +104,14 @@ def nvcc() -> str:
     )
 
 
+def _driver_link_flags(exe: str) -> list[str]:
+    """Link flags for the CUDA driver library (the TMA kernels build their
+    tensor maps with ``cuTensorMapEncodeTiled``): ``-lcuda``, with the
+    toolkit's stub directory searched first where it has one."""
+    stubs = Path(exe).resolve().parent.parent / "lib64" / "stubs"
+    return ([f"-L{stubs}"] if stubs.is_dir() else []) + ["-lcuda"]
+
+
 def _build(sources: list[Path], out_dir: Path) -> tuple[Path, str, float]:
     so = out_dir / "libwave_kernels.so"
     log = out_dir / "build.log"
@@ -118,7 +129,7 @@ def _build(sources: list[Path], out_dir: Path) -> tuple[Path, str, float]:
                               text=True) for c in cmds]
     outs = [proc.communicate()[0] for proc in procs]
     cmds.append([exe, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
-                 *(c[c.index("-o") + 1] for c in cmds)])
+                 *(c[c.index("-o") + 1] for c in cmds), *_driver_link_flags(exe)])
     text = "".join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
     failed = [proc.returncode for proc in procs if proc.returncode != 0]
     if not failed:

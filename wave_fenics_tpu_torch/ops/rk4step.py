@@ -22,7 +22,7 @@ Implementations:
 - :func:`rk4_step_lean_cuda` / :func:`rk4_step_full_cuda`: the hand-written
   CUDA kernels A and C (``csrc/rk4_tiled.cu::rk4_tiled_kernel`` with its
   ``lean`` argument set or clear), four launches per step, one per stage,
-  on the tiling of :func:`tiled_geometry`.
+  on the tiling of :func:`tiling.tiled_geometry`.
 
 :func:`rk4_step_lean` and :func:`rk4_step_full` dispatch on the tensor's
 device: CPU -> plain, CUDA -> kernel (or raise).
@@ -30,7 +30,6 @@ device: CPU -> plain, CUDA -> kernel (or raise).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -38,6 +37,7 @@ import torch
 
 from ..convert import numpy_dtype
 from . import _cuda
+from .tiling import H100_SMS, sm_count, tiled_geometry
 from .wave import (
     PaddedLayout,
     StencilTables,
@@ -57,9 +57,6 @@ __all__ = [
     "rk4_step_lean_cuda",
     "rk4_step_full_cuda",
     "rk4_step_full",
-    "blocks_per_sm",
-    "tiled_geometry",
-    "sm_count",
     "stage_launch_args",
 ]
 
@@ -394,77 +391,6 @@ def rk4_step_full_plain(
         u1[rows] = U0[o0 : o0 + n0] + dt_ * accu
         v1[rows] = V0[o0 : o0 + n0] + dt_ * accv
     return ts.finish(u1, v1)
-
-
-#: the tiling limits of :func:`tiled_geometry`: threads of a tile block at
-#: most (csrc/stencil_tiled.cuh kTileThreads), tile width along z (the fast
-#: lanes) at most, the least and the most x-chunk rows
-TILE_THREADS = 256
-TILE_Z = 32
-CHUNK_X = (16, 64)
-#: x planes in the kernel's cp.async ring (stencil_tiled.cuh kPipe) and
-#: state fields a plane holds at most (rk4_tiled.cu stage_fields)
-PIPE = 4
-PLANE_FIELDS = 3
-#: tile blocks an SM holds at once at p <= 4 in f32 (see blocks_per_sm);
-#: the SMs of an H100 SXM
-BLOCKS_PER_SM = 4
-H100_SMS = 132
-
-
-def blocks_per_sm(itemsize: int, p: int) -> int:
-    """Tile blocks an SM holds at once: the launch bounds of
-    ``csrc/rk4_tiled.cu::min_blocks<T, P>``."""
-    return BLOCKS_PER_SM if itemsize == 4 and p <= 4 else 1
-
-
-def tiled_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
-                   tile_z: int = TILE_Z, tile_threads: int = TILE_THREADS,
-                   chunk_x: tuple[int, int] = CHUNK_X):
-    """(grid, TY, TZ, CX, smem_bytes) of the stage kernel on ``layout``.
-
-    A block owns TY x TZ interior (y, z) columns and CX interior x rows;
-    the tiles are as even as the interior allows (at most ``tile_z`` along
-    z, at most ``tile_threads`` points), so a ragged last tile loses little.
-    ``grid`` = (z tiles, y tiles, x chunks). The number of x-chunks (CX
-    between ``chunk_x``'s bounds) fills the block slots of the card's
-    ``sms`` SMs in as few waves as it can, weighed against the 2p warm-up
-    planes each chunk reads: a block streams its chunk from start to end,
-    so a last wave that is a fraction full costs as much as a full one.
-    ``smem_bytes`` holds PIPE planes of PLANE_FIELDS fields over the tile
-    and its p-deep y/z halo, in ``itemsize``-byte values, and the window's
-    table of int32 offsets. Computed once per set of arguments: every
-    stage launch asks for it."""
-    return _tiled_geometry(tuple(layout.shape), layout.p, itemsize, sms,
-                           tile_z, tile_threads, tuple(chunk_x))
-
-
-@functools.cache
-def _tiled_geometry(shape, p, itemsize, sms, tile_z, tile_threads, chunk_x):
-    Nx, Ny, Nz = shape
-    nz_tiles = -(-Nz // tile_z)
-    tz = -(-Nz // nz_tiles)
-    ny_tiles = -(-Ny // (tile_threads // tz))
-    ty = -(-Ny // ny_tiles)
-    tiles = nz_tiles * ny_tiles
-    slots = sms * blocks_per_sm(itemsize, p)
-
-    def score(n):
-        cx = -(-Nx // n)
-        blocks = tiles * n
-        return blocks / (-(-blocks // slots) * slots) * cx / (cx + 2 * p)
-
-    chunks = max(range(-(-Nx // chunk_x[1]), -(-Nx // chunk_x[0]) + 1), key=score)
-    cx = -(-Nx // chunks)
-    window = (ty + 2 * p) * (tz + 2 * p)
-    smem = PIPE * PLANE_FIELDS * window * itemsize + 4 * window
-    return (nz_tiles, ny_tiles, -(-Nx // cx)), ty, tz, cx, smem
-
-
-@functools.cache
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA card ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stage_launch_args(stage, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,

@@ -1,0 +1,185 @@
+"""The launch tilings of the tiled stencil kernels (csrc/stencil_tiled.cuh).
+
+A tile block owns TY x TZ interior (y, z) columns, one thread each, and
+streams CX interior x rows plus p warm-up planes on each side; the grid is
+(z tiles, y tiles, x-chunks). Two families share the policy:
+
+- :func:`tiled_geometry`: kernels A and C and kernel J's stages
+  (``csrc/rk4_tiled.cu``), whose planes arrive by ``cp.async`` into a ring
+  of PIPE planes of up to PLANE_FIELDS fields;
+- :func:`tma_geometry`: kernels D (``csrc/rk_stage_tiled.cu``) and E
+  (``csrc/slab_tiled.cu``), whose plane windows arrive by TMA into a ring
+  of RING planes: TZ a multiple of one 16-byte unit, so every box's z start
+  is 16-byte aligned, and the box within BOX_MAX along each axis; one more
+  layer of blocks writes the outputs' padding.
+
+Each result is computed once per set of arguments (every launch asks for
+it). The constants are the kernels' own; ``tests/test_torch_tiling.py``
+reads them back from the sources.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import TYPE_CHECKING
+
+import torch
+
+if TYPE_CHECKING:
+    from .wave import PaddedLayout
+
+__all__ = [
+    "TILE_THREADS", "TILE_Z", "CHUNK_X", "PIPE", "PLANE_FIELDS", "BLOCKS_PER_SM",
+    "H100_SMS", "RING", "BOX_MAX", "CHUNK_X_TMA", "PADDING_LAYERS", "blocks_per_sm",
+    "tma_blocks_per_sm", "tiled_geometry", "tma_window", "tma_smem_bytes",
+    "tma_geometry", "sm_count",
+]
+
+#: the tiling limits: threads of a tile block at most (stencil_tiled.cuh
+#: kTileThreads), tile width along z (the fast lanes) at most, the least and
+#: the most x-chunk rows of kernels A and C
+TILE_THREADS = 256
+TILE_Z = 32
+CHUNK_X = (16, 64)
+#: x planes in kernel A's cp.async ring (stencil_tiled.cuh kPipe) and state
+#: fields a plane holds at most (rk4_tiled.cu stage_fields)
+PIPE = 4
+PLANE_FIELDS = 3
+#: tile blocks an SM holds at once for kernel A at p <= 4 in f32 (see
+#: blocks_per_sm); the SMs of an H100 SXM
+BLOCKS_PER_SM = 4
+H100_SMS = 132
+#: plane windows in the TMA ring (stencil_tiled.cuh kRing), a TMA box's
+#: extent along any axis at most (kBoxMax), and the x-chunk rows of kernels
+#: D and E: longer chunks than A's, since at p = 8-10 each chunk streams 2p
+#: warm-up planes
+RING = 6
+BOX_MAX = 256
+CHUNK_X_TMA = (16, 128)
+#: layers of padding blocks at the end of a TMA kernel's grid
+#: (stencil_tiled.cuh::tma_tiling_fits)
+PADDING_LAYERS = 1
+
+
+def blocks_per_sm(itemsize: int, p: int) -> int:
+    """Tile blocks an SM holds at once: the launch bounds of
+    ``csrc/rk4_tiled.cu::min_blocks<T, P>``."""
+    return BLOCKS_PER_SM if itemsize == 4 and p <= 4 else 1
+
+
+def tma_blocks_per_sm(itemsize: int) -> int:
+    """Tile blocks an SM holds at once for kernels D and E: the launch
+    bounds of ``csrc/stencil_tiled.cuh::tma_min_blocks<T>``."""
+    return 2 if itemsize == 4 else 1
+
+
+def _cdiv(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+def _tiles(Ny, Nz, tz_max, tile_threads, tz_unit=1, ty_max=None):
+    """(z tiles, TZ, y tiles, TY): tiles as even as the interior allows, TZ
+    a multiple of ``tz_unit``, at most ``tile_threads`` points a tile."""
+    nz_tiles = _cdiv(Nz, tz_max)
+    tz = _cdiv(_cdiv(Nz, nz_tiles), tz_unit) * tz_unit
+    nz_tiles = _cdiv(Nz, tz)
+    ty_cap = tile_threads // tz if ty_max is None else min(tile_threads // tz, ty_max)
+    ny_tiles = _cdiv(Ny, ty_cap)
+    return nz_tiles, tz, ny_tiles, _cdiv(Ny, ny_tiles)
+
+
+def _chunks(Nx, p, tiles, slots, chunk_x):
+    """The x-chunk count that fills the ``slots`` block slots of the card in
+    as few waves as it can, weighed against the 2p warm-up planes each
+    chunk reads: a block streams its chunk from start to end, so a last
+    wave that is a fraction full costs as much as a full one."""
+
+    def score(n):
+        cx = _cdiv(Nx, n)
+        blocks = tiles * n
+        return blocks / (_cdiv(blocks, slots) * slots) * cx / (cx + 2 * p)
+
+    return max(range(_cdiv(Nx, chunk_x[1]), _cdiv(Nx, chunk_x[0]) + 1), key=score)
+
+
+def tiled_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
+                   tile_z: int = TILE_Z, tile_threads: int = TILE_THREADS,
+                   chunk_x: tuple[int, int] = CHUNK_X):
+    """(grid, TY, TZ, CX, smem_bytes) of kernel A's stage kernel on
+    ``layout``.
+
+    The tiles are as even as the interior allows (at most ``tile_z`` along
+    z, at most ``tile_threads`` points), so a ragged last tile loses little.
+    The number of x-chunks (CX between ``chunk_x``'s bounds) fills the
+    block slots of the card's ``sms`` SMs in as few waves as it can.
+    ``smem_bytes`` holds PIPE planes of PLANE_FIELDS fields over the tile
+    and its p-deep y/z halo, in ``itemsize``-byte values, and the window's
+    table of int32 offsets."""
+    return _tiled_geometry(tuple(layout.shape), layout.p, itemsize, sms,
+                           tile_z, tile_threads, tuple(chunk_x))
+
+
+@functools.cache
+def _tiled_geometry(shape, p, itemsize, sms, tile_z, tile_threads, chunk_x):
+    Nx, Ny, Nz = shape
+    nz_tiles, tz, ny_tiles, ty = _tiles(Ny, Nz, tile_z, tile_threads)
+    chunks = _chunks(Nx, p, nz_tiles * ny_tiles, sms * blocks_per_sm(itemsize, p),
+                     chunk_x)
+    cx = _cdiv(Nx, chunks)
+    window = (ty + 2 * p) * (tz + 2 * p)
+    smem = PIPE * PLANE_FIELDS * window * itemsize + 4 * window
+    return (nz_tiles, ny_tiles, _cdiv(Nx, cx)), ty, tz, cx, smem
+
+
+def tma_window(h: int, p: int, ty: int, tz: int, itemsize: int):
+    """(W, BY, oz, box) of ``csrc/stencil_tiled.cuh::tma_window``: the box's
+    z extent W (TZ plus a multiple of 32, so that a warp's tap loads from
+    the window fall in 32 distinct banks), its y extent BY = TY + 2p, the
+    halo's offset oz = (h - p) mod A in the box (A = 16 / itemsize, the
+    points of a 16-byte unit), and the elements a box takes in shared
+    memory (bytes rounded up to 128)."""
+    oz = (h - p) % (16 // itemsize)
+    W = tz + _cdiv(oz + 2 * p, 32) * 32
+    BY = ty + 2 * p
+    return W, BY, oz, _cdiv(W * BY * itemsize, 128) * 128 // itemsize
+
+
+def tma_smem_bytes(window, itemsize: int, fields: int, extra: int) -> int:
+    """Dynamic shared memory of a TMA tile block
+    (``stencil_tiled.cuh::tma_smem_bytes``): 128 bytes to align the base,
+    RING slots of ``fields`` boxes and ``extra`` boxes, RING mbarriers."""
+    box = window[3]
+    return 128 + (RING * fields + extra) * box * itemsize + RING * 8
+
+
+def tma_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
+                 fields: int = 1, extra: int = 0):
+    """(grid, TY, TZ, CX, smem_bytes) of a TMA tile kernel on ``layout``:
+    kernel E takes one field a plane (``fields=1, extra=0``), kernel D two
+    (u0, ku) and two stage-input planes (``fields=2, extra=2``). As
+    :func:`tiled_geometry`, with TZ a multiple of the 16-byte unit and the
+    box within BOX_MAX; the chunks fill tma_blocks_per_sm blocks an SM. The
+    grid has PADDING_LAYERS more layers of x-chunks than the tiling needs:
+    their blocks write the outputs' padding while the tile blocks stream
+    (``stencil_tiled.cuh::padding_block``)."""
+    return _tma_geometry(tuple(layout.shape), layout.p, layout.h, itemsize, sms,
+                         fields, extra)
+
+
+@functools.cache
+def _tma_geometry(shape, p, h, itemsize, sms, fields, extra):
+    Nx, Ny, Nz = shape
+    nz_tiles, tz, ny_tiles, ty = _tiles(Ny, Nz, TILE_Z, TILE_THREADS,
+                                        tz_unit=16 // itemsize,
+                                        ty_max=BOX_MAX - 2 * p)
+    chunks = _chunks(Nx, p, nz_tiles * ny_tiles, sms * tma_blocks_per_sm(itemsize),
+                     CHUNK_X_TMA)
+    cx = _cdiv(Nx, chunks)
+    smem = tma_smem_bytes(tma_window(h, p, ty, tz, itemsize), itemsize, fields, extra)
+    return (nz_tiles, ny_tiles, _cdiv(Nx, cx) + PADDING_LAYERS), ty, tz, cx, smem
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -19,13 +19,15 @@ Two implementations of ``y = A x`` (kernel B):
 
 and of one stage of the fused-stage RK4 path (kernel D, the TPU kernel
 ``_kernel_rk_stage``): :func:`rk_stage_plain` and :func:`rk_stage_cuda`
-(``csrc/wave_kernels.cu::rk_stage_kernel``).
+(``csrc/rk_stage_tiled.cu::rk_stage_tiled_kernel``, on the TMA tiling of
+``tiling.tma_geometry``).
 
 The same ``y = A x`` on the 3D-slab layout (z aligned to 128; the layout
 the JAX package takes for p > 8 or ``kernel='3d'``), kernel E, the TPU
 kernel ``_kernel``: :func:`build_tables` (its tables, tap form),
 :func:`apply_slab_plain` (plain torch, mirroring ``_kernel`` tile by tile)
-and :func:`apply_slab_cuda` (``csrc/slab_kernels.cu::apply_slab_kernel``).
+and :func:`apply_slab_cuda` (``csrc/slab_tiled.cu::apply_slab_tiled_kernel``,
+on the TMA tiling of ``tiling.tma_geometry``).
 
 :func:`apply_stencil_plain` is the plain version of ``csrc/stencil.cuh``
 on the whole padded state, the stencil the flat-layout CUDA kernels share.
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from ..convert import numpy_dtype
-from . import _cuda
+from . import _cuda, tiling
 from .stiffness import banded_1d_coeffs
 
 __all__ = [
@@ -62,10 +64,12 @@ __all__ = [
     "apply_slab",
     "apply_slab_plain",
     "apply_slab_cuda",
+    "slab_launch_args",
     "apply_stencil_plain",
     "rk_stage",
     "rk_stage_plain",
     "rk_stage_cuda",
+    "rk_stage_launch_args",
 ]
 
 
@@ -507,6 +511,22 @@ def apply_slab_plain(
     return out
 
 
+def _geometry(x: torch.Tensor, layout: PaddedLayout, fields: int, extra: int):
+    sms = tiling.sm_count(x.device.index) if x.is_cuda else tiling.H100_SMS
+    return tiling.tma_geometry(layout, x.element_size(), sms, fields, extra)
+
+
+def slab_launch_args(xp, out, layout: PaddedLayout, tables) -> tuple:
+    """The arguments of the C launcher ``wave_apply_slab_tiled`` (kernel E)
+    up to the stream: x, y, the six tables, the layout, then the tiling of
+    ``tiling.tma_geometry`` on this card."""
+    grid, ty, tz, cx, smem = _geometry(xp, layout, 1, 0)
+    Lx, Ly, Lz = layout.padded_shape
+    Nx, Ny, Nz = layout.shape
+    return (xp, out, *tables, layout.p, Lx, Ly, Lz, layout.x0, Nx, layout.h, Ny,
+            Nz, ty, tz, cx, *grid, smem)
+
+
 def apply_slab_cuda(
     xp: torch.Tensor,
     layout: PaddedLayout,
@@ -514,8 +534,8 @@ def apply_slab_cuda(
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """y = A x with the CUDA kernel E (one launch): every padded point
-    written, 0 outside the interior. ``out`` (optional) must not alias
-    ``xp``."""
+    written, 0 outside the interior, whatever ``out`` held. ``out``
+    (optional) must not alias ``xp``."""
     check_slab(layout)
     shape = layout.padded_shape
     Lx, Ly, Lz = shape
@@ -531,9 +551,8 @@ def apply_slab_cuda(
     )
     if out.data_ptr() == xp.data_ptr():
         raise ValueError("out must not alias the input")
-    Nx, Ny, Nz = layout.shape
-    _cuda.launch("wave_apply_slab", xp.dtype, xp.device, xp, out, *t,
-                 layout.p, Lx, Ly, Lz, layout.x0, Nx, layout.h, Ny, Nz)
+    _cuda.launch("wave_apply_slab_tiled", xp.dtype, xp.device,
+                 *slab_launch_args(xp, out, layout, t))
     apply_slab_cuda.launches += 1
     return out
 
@@ -590,6 +609,19 @@ def rk_stage_plain(
     return vn, kvp, ua + cb_ * vn, va + cb_ * kvp
 
 
+def rk_stage_launch_args(u0, ku, v0, kv, ua, va, vn, kvp, uap, vap, ca, cb, g,
+                         layout: PaddedLayout, c0, st: StencilTables, w1, w2,
+                         src_x, abc_x) -> tuple:
+    """The arguments of the C launcher ``wave_rk_stage_tiled`` (kernel D)
+    up to the stream: the fields, the face planes and rows, the scalars,
+    the stencil, then the tiling of ``tiling.tma_geometry`` (``fields=2,
+    extra=2``) on this card."""
+    grid, ty, tz, cx, smem = _geometry(u0, layout, 2, 2)
+    return (u0, ku, v0, kv, ua, va, vn, kvp, uap, vap, w1, w2, int(src_x),
+            int(abc_x), float(ca), float(cb), float(g), float(c0),
+            *stencil_args(layout, st), ty, tz, cx, *grid, smem)
+
+
 def rk_stage_cuda(
     u0: torch.Tensor,
     ku: torch.Tensor,
@@ -610,9 +642,10 @@ def rk_stage_cuda(
     out: tuple[torch.Tensor, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One RK4 stage with the CUDA kernel D (one launch). ``out`` =
-    (vn, kv', ua', va') is reused when given. ua' and va' are point-wise
-    updates and may be ``ua``/``va`` themselves; vn (read at the taps as the
-    next stage's ``ku``) and kv' may alias nothing."""
+    (vn, kv', ua', va') is reused when given; every padded point of each is
+    written, whatever it held. ua' and va' are point-wise updates and may be
+    ``ua``/``va`` themselves; vn (read at the taps as the next stage's
+    ``ku``) and kv' may alias nothing."""
     layout.check_flat()
     shape = layout.padded_shape
     F = shape[1] * shape[2]
@@ -631,11 +664,9 @@ def rk_stage_cuda(
     _cuda.check_no_alias((vn, kvp, uap, vap), (u0, ku, v0, kv))
     _cuda.check_no_alias((vn, kvp, uap), (va,))
     _cuda.check_no_alias((vn, kvp, vap), (ua,))
-    _cuda.launch(
-        "wave_rk_stage", dtype, dev, u0, ku, v0, kv, ua, va, vn, kvp, uap, vap,
-        w1, w2, int(src_x), int(abc_x), float(ca), float(cb), float(g),
-        float(c0), *stencil_args(layout, st),
-    )
+    _cuda.launch("wave_rk_stage_tiled", dtype, dev, *rk_stage_launch_args(
+        u0, ku, v0, kv, ua, va, vn, kvp, uap, vap, ca, cb, g, layout, c0, st,
+        w1, w2, src_x, abc_x))
     rk_stage_cuda.launches += 1
     return vn, kvp, uap, vap
 
