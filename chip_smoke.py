@@ -22,13 +22,15 @@ its last line:
    NaN, then the padding exactly 0 and no NaN; with the time of each
    stage launch and of a step against the bound and the 4-launch floor;
 5. kernels C (full-tableau RK4 step), D (fused RK4 stage, csrc/
-   rk_stage_tiled.cu), H (leapfrog step) and I (two leapfrog steps)
-   against their plain versions, each through its model solver: f64 at
-   (4,2,2) cells, tile 16, p in {2, 4} (and 8 for D and H), 25 steps,
+   rk_stage_tiled.cu), H (leapfrog step) and I (two leapfrog steps; both
+   csrc/lf_tiled.cu) against their plain versions, each through its model
+   solver: f64 at (4,2,2) cells, tile 16, p in {2, 4} (and 8 for D; H and
+   I at every p = 1..8, tile 24 where I's 3p halo needs it), 25 steps,
    limit 1e-12 relative (C also against kernel A, 1e-13); f32 at the full
-   width of its app path, 50 steps, limit 1e-4 relative; with times per
-   kernel call at that width (kernel D on six distinct state fields, as
-   stages 1-3 of the path give it). Kernel D also one stage in f64 on
+   width of its app path, 50 steps, limit 1e-4 relative; C, H and I from
+   NaN-filled kernel buffers, whose padding then holds exactly 0; with
+   times per kernel call at that width (kernel D on six distinct state
+   fields, as stages 1-3 of the path give it; H and I phase by phase). Kernel D also one stage in f64 on
    (5,3,3) cells, p in {2, 4, 8}, from inputs random in the padding and
    outputs full of NaN, out of place and with ua/va in place: limit 1e-12
    relative, kv' exactly 0 and va' exactly va in the padding; its f32
@@ -42,7 +44,10 @@ its last line:
    f64 small (F: (4,2,2) and (4,2,3) cells, p in {2, 4}, Nx = 17 at p=4;
    G: (3,2,2) cells, p in {1, 2, 4, 8}), limit 1e-12 relative; f32 at the
    reference's BP1 size (64^3 cells, p=4, 16,974,593 dofs), limit 1e-5 of
-   max|ref|, G's padding exactly 0; with times against each bound;
+   max|ref|, G's padding exactly 0; with times against each bound, and G
+   beside the one PyTorch call that computes its function (torch.einsum
+   of the three assembled 1D mass matrices, dense, with the grid; TF32
+   off), which must agree to 1e-5 of max|ref|;
 7. physics: the f64 analytic plane wave (16x2x2 cells, 6 mm) through
    solve_step_n on kernel A; the leapfrog's 2nd order through kernel H
    (f64, (4,2,2), p=4: the error against a fine RK4 reference shrinks
@@ -75,7 +80,8 @@ its last line:
     the P8 size (the perturbed 64x32x32-cell box, p=4, 4,276,737 dofs; the
     model built once, its host setup seconds printed) in the stiffness and
     mass modes, limit 1e-5 of max|ref|; two applies bitwise equal; with
-    times against the bound;
+    times against the bound (back-to-back applies: y = 0 and one launch
+    per colour, the colours overlapping);
 11. the general-mesh paths, each counted alone: P8 ``general_solve.run``
     RK4 (200 steps) and P9 leapfrog on that model: kernel K launched
     solves x applies per solve (4 per RK4 step; one per leapfrog step and
@@ -204,6 +210,7 @@ def main() -> None:
         csr_tensor,
     )
     from wave_fenics_tpu_torch.ops.operators import GeneralOperators, StructuredOperators
+    from wave_fenics_tpu_torch.ops.separable import separable_mass_tables
     from wave_fenics_tpu_torch.solvers.cg import cg
     from wave_fenics_tpu_torch.utils.config import SimulationConfig
     from wave_fenics_tpu_torch.utils.timing import Timer, timeit
@@ -471,10 +478,16 @@ def main() -> None:
     # -- 5. kernels C, D, H, I ----------------------------------------------
     results = {}  # kernel -> (max_abs_err, ms, plain_ms, (bound_ms, bound_by))
 
+    # the kernel buffers each solver writes: (pairs, first scratch fields)
+    nscratch = {"full": 3, "lf": 1, "lf2": 3}
+
     def check_small(name, kind, ps, tol=1e-12, **model_kw):
         for p in ps:
-            spm = small_model(p, **model_kw)
-            if kind == "full":  # kernel C from NaN in every buffer, as A
+            kw = dict(model_kw)
+            if kind in ("lf", "lf2"):  # kernel I's 3p-deep halo: tile 24 from p = 6
+                kw.setdefault("tile_x", max(16, lf2step._off0(p)))
+            spm = small_model(p, **kw)
+            if kind in nscratch:  # kernels C, H, I from NaN in every buffer, as A
                 nan_workspace(spm)
             u0, v0 = random_state(spm, 10 * p)
             uk, vk = kernel_solve(spm, kind, 1e-9, 25, u0, v0)
@@ -485,8 +498,8 @@ def main() -> None:
                   f"state: relative error {rel:.3e} (limit {tol:.0e})")
             check(rel <= tol, f"kernel {name} f64 p={p}")
             padding_zero(spm.layout, uk, vk)
-            if kind == "full":
-                workspace_clean(spm)
+            if kind in nscratch:
+                workspace_clean(spm, nscratch[kind])
             if name == "C":  # the same step in the lean algebra (kernel A)
                 ul, vl = kernel_solve(small_model(p), "lean", 1e-9, 25, u0, v0)
                 _, rel = state_err(uk, vk, ul, vl)
@@ -598,32 +611,62 @@ def main() -> None:
     results["D"] = (d_err, d_ms, d_plain_ms, bound(dpm, 10, 1, 8))
     del uk, vk, ins, bufs, dpm
 
-    phase("kernel H (leapfrog step) against lf_step_plain")
-    check_small("H", "lf", (2, 4, 8))
+    def phase_us(pm, phases, u, v, bufs, dt, gs):
+        """Microseconds of each leapfrog phase launch (kernels H and I) at
+        ``pm``'s size: CUDA events over back-to-back launches with their
+        arguments converted once; u_out (not in CLOSE) and v_out distinct
+        buffers."""
+        out = {}
+        for (name, ph), g in zip(phases, gs):
+            args = lfstep.lf_launch_args(
+                ph, u, v, None if ph == lfstep.LF_CLOSE else bufs[0], bufs[1], dt, g,
+                pm.layout, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2, pm.src_x,
+                pm.abc_x)
+            out[name] = 1e6 * timeit(_cuda.launcher(_cuda.library(), "wave_lf_phase_tiled",
+                                                    u.dtype, dev, *args), reps=200)
+        return out
+
+    phase("kernel H (tiled TMA leapfrog phases OPEN, CLOSE) against lf_step_plain")
+    check_small("H", "lf", range(1, 9))
     _, lpm = planar3d_app.build(**HEADLINE_P8, dtype="f32", device="cuda")
+    nan_workspace(lpm)
     h_err, uk, vk = check_full_width("H", "lf", lpm, case8.dt * 0.71)
+    workspace_clean(lpm, nscratch["lf"])
     bufs = [torch.empty_like(uk) for _ in range(3)]
     largs = (case8.dt * 0.71, 1.0, 0.5, lpm.layout, lpm.base.c0)
-    h_ms = 1e3 * timeit(lambda: lfstep.lf_step_cuda(
+    h_wrapper_ms = 1e3 * timeit(lambda: lfstep.lf_step_cuda(
         uk, vk, *largs, lpm.stencil, lpm.face_w1, lpm.face_w2, lpm.src_x,
         lpm.abc_x, out=tuple(bufs[:2]), scratch=bufs[2]))
+    h_phase_us = phase_us(lpm, (("OPEN", lfstep.LF_OPEN), ("CLOSE", lfstep.LF_CLOSE)),
+                          uk, vk, bufs, case8.dt * 0.71, (1.0, 0.5))
     h_plain_ms = 1e3 * timeit(lambda: lfstep.lf_step_plain(
         uk, vk, *largs, lpm.lf_tables), reps=5)
-    results["H"] = (h_err, h_ms, h_plain_ms, bound(lpm, 4, 2, 12))
+    print(f"kernel H f32 P3: phases {h_phase_us} us, {sum(h_phase_us.values()) / 1e3:.4f} "
+          f"ms/step (through the wrapper {h_wrapper_ms:.4f}) [{smi}]")
+    results["H"] = (h_err, sum(h_phase_us.values()) / 1e3, h_plain_ms,
+                    bound(lpm, 4, 2, 12))
     del uk, vk, bufs, lpm
 
-    phase("kernel I (two leapfrog steps) against lf2_step_plain")
-    check_small("I", "lf2", (2, 4))
+    phase("kernel I (tiled TMA leapfrog phases OPEN, MID, CLOSE) against lf2_step_plain")
+    check_small("I", "lf2", range(1, 9))
     case, ipm = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda")
+    nan_workspace(ipm)
     i_err, uk, vk = check_full_width("I", "lf2", ipm, case.dt * 0.71)
+    workspace_clean(ipm, nscratch["lf2"])
     bufs = [torch.empty_like(uk) for _ in range(5)]
     iargs = (case.dt * 0.71, 1.0, 0.5, 0.2, ipm.layout, ipm.base.c0)
-    i_ms = 1e3 * timeit(lambda: lf2step.lf2_step_cuda(
+    i_wrapper_ms = 1e3 * timeit(lambda: lf2step.lf2_step_cuda(
         uk, vk, *iargs, ipm.stencil, ipm.face_w1, ipm.face_w2, ipm.src_x,
         ipm.abc_x, out=tuple(bufs[:2]), scratch=tuple(bufs[2:])))
+    i_phase_us = phase_us(ipm, (("OPEN", lfstep.LF_OPEN), ("MID", lfstep.LF_MID),
+                                ("CLOSE", lfstep.LF_CLOSE)),
+                          uk, vk, bufs, case.dt * 0.71, (1.0, 0.5, 0.2))
     i_plain_ms = 1e3 * timeit(lambda: lf2step.lf2_step_plain(
         uk, vk, *iargs, ipm.lf2_tables), reps=5)
-    results["I"] = (i_err, i_ms, i_plain_ms, bound(ipm, 4, 3, 24))
+    print(f"kernel I f32 P2: phases {i_phase_us} us, {sum(i_phase_us.values()) / 1e3:.4f} "
+          f"ms per 2 steps (through the wrapper {i_wrapper_ms:.4f}) [{smi}]")
+    results["I"] = (i_err, sum(i_phase_us.values()) / 1e3, i_plain_ms,
+                    bound(ipm, 4, 3, 24))
     del uk, vk, bufs, ipm
     for k, unit in (("C", "step"), ("D", "stage launch"), ("H", "step"),
                     ("I", "call of 2 steps")):
@@ -724,7 +767,29 @@ def main() -> None:
                     op_bound(math.prod(glay.shape) * x.element_size()
                              + nbytes(out_g, *gtabs),
                              math.prod(glay.shape) * 6 * 9))
-    del x, yk, yp, out_g
+    # the one PyTorch call that computes G's function on the P7 grid: the
+    # three assembled 1D mass matrices (dense, assembled in f64 from the
+    # cell blocks kernel G's tables come from) contracted with the grid by
+    # torch.einsum, TF32 off; timed here, never called by the port
+    M1 = separable_mass_tables(BP1["degree"], mesh64.h, np.float64)
+    mats = []
+    for d, n in enumerate(mesh64.shape):
+        pg = BP1["degree"]
+        A1 = np.zeros((n * pg + 1, n * pg + 1))
+        for c in range(n):
+            A1[c * pg:c * pg + pg + 1, c * pg:c * pg + pg + 1] += M1[d]
+        mats.append(torch.as_tensor(A1, dtype=torch.float32, device=dev))
+    xg = x[glay.interior].contiguous()
+    y_lib = torch.einsum("ijk,ai,bj,ck->abc", xg, *mats)
+    torch.cuda.synchronize()
+    _, rel = rel_err(yk[glay.interior], y_lib)
+    g_lib_ms = 1e3 * timeit(lambda: torch.einsum("ijk,ai,bj,ck->abc", xg, *mats))
+    print(f"kernel G against torch.einsum of the assembled 1D masses on {tuple(xg.shape)}: "
+          f"max|err|/max|ref| = {rel:.3e} (limit 1e-5); einsum {g_lib_ms:.4f} ms, "
+          f"kernel G {g_ms:.4f} ms [{smi}]")
+    check(rel <= 1e-5, "kernel G against the einsum of the assembled 1D masses")
+    library = {"G": g_lib_ms}
+    del x, yk, yp, out_g, xg, y_lib, mats
     for k in ("F", "G"):
         err, ms, plain_ms, (bms, by) = results[k]
         print(f"kernel {k}: {ms:.4f} ms/apply, plain {plain_ms:.4f} ms, bound "
@@ -1086,8 +1151,8 @@ def main() -> None:
         """(bound_ms, bound_by) of one kernel K apply: x and y once, the
         dofmap and the geometry (per node, or per cell and w) over the HBM
         rate, against the element contractions' and the scatter's flops
-        over the f32 peak. The scatter lists and the workspace are the
-        design's own traffic and are not counted."""
+        over the f32 peak. The design's own traffic (the pass that sets y
+        to 0, the colours' reads of y, the colour lists) is not counted."""
         m, nq, nc, nd = t.m, t.nq, t.ncells, t.m**3
         nb = 2 * t.ndofs * itemsize + nbytes(t.dofmap, t.geo) + (nbytes(t.w) if t.affine else 0)
         fwd = 2 * m * (nq * m * m + nq * nq * m + nq**3)  # m^3 -> nq^3 points
@@ -1152,8 +1217,13 @@ def main() -> None:
     print(f"P8 model: perturbed {gmodel.mesh.ncells} cells, p=4, {gmodel.ndofs} dofs, "
           f"affine {gmodel.ops.affine}; host setup {gsetup:.2f} s (mesh, dofmap, "
           "geometry, boundary weights)")
+    t0 = time.perf_counter()
+    k_colours = np.diff(gmodel.ops.colouring[1]).tolist()
+    print(f"P8 colouring: {len(k_colours)} colours of {k_colours} cells "
+          f"({time.perf_counter() - t0:.2f} s)")
+    check(len(k_colours) == 8, "the perturbed box takes the parity 8-colouring")
     check(gmodel.ndofs == NDOFS and not gmodel.ops.affine, "the P8 model")
-    k_modes = {}
+    k_modes, k_wrapper_ms = {}, {}
     for mode, coeff in (("stiffness", -C0SQ), ("mass", 1.0)):
         t0 = time.perf_counter()
         t, x, err, rel, bitwise = k_check(gmodel.ops, mode, 70, coeff)
@@ -1162,11 +1232,17 @@ def main() -> None:
               f"check {time.perf_counter() - t0:.1f} s)")
         check(rel <= 1e-5 and bitwise, f"kernel K f32 {mode} at the P8 size")
         out_k = torch.empty_like(x)
-        ms = 1e3 * timeit(lambda: general.general_apply_cuda(x, t, coeff, out=out_k))
+        wrapper_ms = 1e3 * timeit(lambda: general.general_apply_cuda(x, t, coeff,
+                                                                     out=out_k))
+        ms = 1e3 * timeit(_cuda.launcher(_cuda.library(), "wave_general_apply", x.dtype,
+                                         dev, *general.launch_args(x, out_k, t, coeff)),
+                          reps=200)
         plain_ms = 1e3 * timeit(lambda: general.general_apply_plain(x, t, coeff),
                                 reps=3, warmup=1)
         k_modes[mode] = (err, ms, plain_ms, k_bound(t, 4))
-        print(f"kernel K {mode}: {ms:.4f} ms/apply, plain {plain_ms:.4f} ms, bound "
+        k_wrapper_ms[mode] = wrapper_ms
+        print(f"kernel K {mode}: {ms:.4f} ms/apply (through the wrapper "
+              f"{wrapper_ms:.4f}), plain {plain_ms:.4f} ms, bound "
               f"{k_modes[mode][3][0]:.4f} ms ({k_modes[mode][3][1]}) [{smi}]")
         del x, out_k
     results["K"] = k_modes["stiffness"]
@@ -1247,7 +1323,9 @@ def main() -> None:
     y_csr = torch.sparse.mm(A16, x[:, None])[:, 0]
     _, rel_csr = rel_err(general.general_apply_cuda(x, t16, -C0SQ), y_csr)
     out_k = torch.empty_like(x)
-    ms16 = 1e3 * timeit(lambda: general.general_apply_cuda(x, t16, -C0SQ, out=out_k))
+    ms16 = 1e3 * timeit(_cuda.launcher(_cuda.library(), "wave_general_apply", x.dtype, dev,
+                                       *general.launch_args(x, out_k, t16, -C0SQ)),
+                        reps=200)
     csr_ms = 1e3 * timeit(lambda: torch.sparse.mm(A16, x[:, None]))
     plain16 = 1e3 * timeit(lambda: general.general_apply_plain(x, t16, -C0SQ),
                            reps=3, warmup=1)
@@ -1262,6 +1340,7 @@ def main() -> None:
     # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
     # since no app path at p <= 8 launches it)
     src = "wave_fenics_tpu_torch/csrc/wave_kernels.cu"
+    src_lf = "wave_fenics_tpu_torch/csrc/lf_tiled.cu"
     src_rk4 = "wave_fenics_tpu_torch/csrc/rk4_tiled.cu"
     src_slab = "wave_fenics_tpu_torch/csrc/slab_tiled.cu"
     src_stage = "wave_fenics_tpu_torch/csrc/rk_stage_tiled.cu"
@@ -1284,19 +1363,24 @@ def main() -> None:
         "D": ("rk_stage_tiled_kernel<T, P> (kernel D: one fused RK4 stage on the "
               "2.5D tiled stencil with TMA plane loads, p=8; ms per stage launch)",
               "wave_fenics_tpu/ops/pallas_wave.py:573", src_stage),
-        "H": ("lf_phase_kernel OPEN+CLOSE (kernel H: one leapfrog step, p=8; ms "
-              "per step)", "wave_fenics_tpu/ops/pallas_lfstep.py:62", src),
-        "I": ("lf_phase_kernel OPEN+MID+CLOSE (kernel I: two leapfrog steps, "
-              "p=4; ms per call)", "wave_fenics_tpu/ops/pallas_lf2step.py:70", src),
+        "H": ("lf_phase_tiled_kernel<T, P, Phase> OPEN+CLOSE (kernel H: one leapfrog "
+              "step on the 2.5D tiled stencil with TMA plane loads, p=8; ms per step, "
+              "the phase launches back to back)",
+              "wave_fenics_tpu/ops/pallas_lfstep.py:62", src_lf),
+        "I": ("lf_phase_tiled_kernel<T, P, Phase> OPEN+MID+CLOSE (kernel I: two "
+              "leapfrog steps on the 2.5D tiled stencil with TMA plane loads, p=4; ms "
+              "per call, the phase launches back to back)",
+              "wave_fenics_tpu/ops/pallas_lf2step.py:70", src_lf),
         "F": ("stiffness_grid_kernel (kernel F: separable stiffness on the "
               "unpadded grid, 64^3 cells, p=4; ms per apply)",
               "wave_fenics_tpu/ops/pallas_stiffness.py:146", src_ops),
         "G": ("mass_apply_kernel (kernel G: BP1 consistent Gauss mass on the "
               "padded layout, 64^3 cells, p=4; ms per apply)",
               "wave_fenics_tpu/ops/pallas_mass.py:45", src_ops),
-        "K": ("general_element_kernel + general_scatter_kernel (kernel K: "
-              "explicit-dofmap matvec, stiffness with per-node G on the perturbed "
-              "64x32x32-cell box, p=4; ms per apply)",
+        "K": ("general_zero_kernel + general_stiffness_kernel<T, M, Affine> per "
+              "colour (kernel K: explicit-dofmap matvec, stiffness with per-node G "
+              "on the perturbed 64x32x32-cell box, p=4, 8 colour launches; ms per "
+              "apply)",
               "wave_fenics_tpu/ops/pallas_general.py:185", src_gen),
         "E": ("apply_slab_tiled_kernel<T, P> (kernel E: stiffness/m on the 3D-slab "
               "layout, 2.5D tiled stencil with TMA plane loads, p=10, 26x13x13 "
@@ -1314,7 +1398,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
+            "library_ms": library.get(k),
         })
     by_name = {k: entry for k, entry in zip(meta, kernels)}
     by_name["K"]["launches_per_path"] = k_paths
@@ -1334,15 +1418,23 @@ def main() -> None:
     # wrapper, its operand checks included
     by_name["D"]["wrapper_ms"] = d_wrapper_ms
     by_name["E"]["wrapper_ms"] = e_wrapper_ms
+    # "ms" of H and I: their phase launches back to back; of K: back-to-back
+    # applies (launcher with its arguments converted once)
+    by_name["H"]["phase_us"] = h_phase_us
+    by_name["H"]["wrapper_ms"] = h_wrapper_ms
+    by_name["I"]["phase_us"] = i_phase_us
+    by_name["I"]["wrapper_ms"] = i_wrapper_ms
+    by_name["K"]["wrapper_ms"] = k_wrapper_ms["stiffness"]
+    by_name["K"]["colours"] = k_colours
     by_name["J"]["odd_step_launches_A"] = path_counts["P14 RK4 two-step, kernel J"]["A"]
     # the same kernel at 16^3 cells, beside the one PyTorch call that computes
     # its function there (the assembled matrix at the P8 size would not fit
     # a host assembly)
     kernels.append({
-        "name": "general_element_kernel + general_scatter_kernel (kernel K: "
-                "stiffness with per-node G on the perturbed 16^3-cell box, p=4, "
-                f"{ops16.ndofs} dofs; ms per apply; library: torch.sparse.mm of "
-                "the assembled CSR matrix)",
+        "name": "general_zero_kernel + general_stiffness_kernel<T, M, Affine> per "
+                "colour (kernel K: stiffness with per-node G on the perturbed "
+                f"16^3-cell box, p=4, {ops16.ndofs} dofs; ms per apply; library: "
+                "torch.sparse.mm of the assembled CSR matrix)",
         "route": "cuda", "source": src_gen,
         "replaces": "wave_fenics_tpu/ops/pallas_general.py:185",
         "launches": launches["K"], "max_abs_err": err16, "ms": ms16,

@@ -11,6 +11,8 @@ indexed path and against the JAX TPU kernel in Pallas interpret mode, and
 the CUDA kernel against the plain version in test_torch_gpu.py."""
 
 import functools
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +28,6 @@ from wave_fenics_tpu.core.mesh import box_mesh as jbox_mesh
 from wave_fenics_tpu.models.general_wave import GeneralLinearWave as JGeneralLinearWave
 from wave_fenics_tpu.models.general_wave import facet_lumped_weights as jfacet_weights
 from wave_fenics_tpu.ops import assembled as jassembled
-from wave_fenics_tpu.ops.gather_scatter import build_ell_scatter
 from wave_fenics_tpu.ops.operators import GeneralOperators as JGeneralOperators
 from wave_fenics_tpu_torch.benchmarks import general_solve
 from wave_fenics_tpu_torch.convert import general_mesh_from_numpy
@@ -201,25 +202,6 @@ def test_plain_matches_jax_fused_kernel_interpret(op):
     assert max_rel(got, want) <= TOL
 
 
-def test_scatter_tables_match_jax_ell():
-    """The CSR scatter lists hold, per dof, the same sources as the JAX
-    package's ELL buckets, in increasing order; scatter_csr sums them to
-    the indexed add."""
-    _, to = _ops_pair("perturbed", 2, "gll")
-    order, starts = gs.build_scatter_csr(to._dofmap, to.ndofs)
-    ell = build_ell_scatter(to._dofmap, to.ndofs)
-    for dofs, src in ell.buckets:
-        for d, row in zip(dofs, src):
-            np.testing.assert_array_equal(order[starts[d]:starts[d + 1]],
-                                          row[row < ell.nsrc])
-    ye = torch.as_tensor(_x(to._dofmap.shape, 14))
-    dm = torch.as_tensor(to._dofmap)
-    y = gs.scatter_csr(ye, torch.as_tensor(order), torch.as_tensor(starts))
-    assert max_rel(y, gs.scatter_indexed(ye, dm, to.ndofs)) <= 1e-15
-    np.testing.assert_array_equal(gs.gather_indexed(torch.as_tensor(_x(to.ndofs, 15)), dm)
-                                  .numpy(), _x(to.ndofs, 15)[to._dofmap])
-
-
 @pytest.mark.parametrize("integrator", ["rk4", "leapfrog"])
 @pytest.mark.parametrize("quadrature", ["gll", "gauss"])
 def test_general_wave_solve_n_matches_jax(quadrature, integrator):
@@ -290,3 +272,130 @@ def test_kernel_k_wrapper_refuses_cpu_tensors_and_its_limits():
     with pytest.raises(ValueError, match="shared memory"):
         general.launch_shape("stiffness_gauss", 7, 20, 8)
     assert general.launch_shape("stiffness_gauss", 7, 7, 8)[2] <= general.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("p", range(1, 7))
+def test_kernel_k_column_launch_shape(p):
+    """The collocated stiffness runs one thread per (j, k) column of a cell,
+    csrc/general_kernels.cu's kColumnThreads // m^2 cells a block (10 at
+    p = 4); its x_e, w_1, w_2 and D fit the 48 KB of static shared memory
+    in f64, far under an H100 block's 232,448 bytes."""
+    m = p + 1
+    src = (Path(general._cuda.CSRC) / "general_kernels.cu").read_text()
+    threads = int(re.search(r"constexpr int kColumnThreads = (\d+);", src).group(1))
+    assert threads == general.COLUMN_THREADS
+    for itemsize in (4, 8):
+        cpb, stride, smem = general.launch_shape("stiffness", m, m, itemsize)
+        assert cpb == max(1, threads // m**2) and stride == 3 * m**3
+        assert m * m <= cpb * m * m <= threads
+        assert smem == (cpb * 3 * m**3 + m * m) * itemsize
+        assert smem <= 48 * 1024 <= general.SMEM_LIMIT
+    assert general.launch_shape("stiffness", 5, 5, 4)[0] == 10
+
+
+@pytest.mark.parametrize("mode", general.MODES)
+def test_kernel_k_raises_at_p7(mode):
+    """Kernel K takes p <= 6 in every mode: p = 7 raises before a launch."""
+    with pytest.raises(ValueError, match="p <= 6"):
+        general.launch_shape(mode, 8, 8 if mode.endswith("_gauss") else 8, 8)
+
+
+def _shuffled(jm, seed):
+    perm = np.random.default_rng(seed).permutation(jm.cells.shape[0])
+    return JHexMesh(points=jm.points, cells=jm.cells[perm])
+
+
+@pytest.mark.parametrize("kind", ["perturbed", "shuffled"])
+def test_colouring_is_conflict_free_and_covers_every_cell_once(kind):
+    """No two cells of one colour share a dof, and every cell has exactly
+    one colour; on the box's C-ordered cells the greedy colouring is the
+    parity colouring (8 colours); on shuffled cells it still holds."""
+    jm = _jax_mesh("perturbed", (5, 4, 3), seed=1)
+    if kind == "shuffled":
+        jm = _shuffled(jm, 2)
+    m = _port_mesh(jm)
+    p = 2
+    dm = build_dofmap(m, p).dofmap
+    cells, starts = gs.colour_cells(dm, p + 1)
+    nc = dm.shape[0]
+    assert cells.dtype == starts.dtype == np.int32
+    assert starts[0] == 0 and starts[-1] == nc and (np.diff(starts) > 0).all()
+    np.testing.assert_array_equal(np.sort(cells), np.arange(nc))
+    for lo, hi in zip(starts[:-1], starts[1:]):
+        assert (np.diff(cells[lo:hi]) > 0).all()  # increasing within a colour
+        dofs = dm[cells[lo:hi]].ravel()
+        assert np.unique(dofs).size == dofs.size
+    if kind == "perturbed":
+        i, j, k = np.meshgrid(*(np.arange(n) for n in (5, 4, 3)), indexing="ij")
+        parity = ((i % 2) * 4 + (j % 2) * 2 + k % 2).ravel()
+        colour = np.empty(nc, dtype=int)
+        for c, (lo, hi) in enumerate(zip(starts[:-1], starts[1:])):
+            colour[cells[lo:hi]] = c
+        np.testing.assert_array_equal(colour, parity)
+
+
+def test_colouring_is_the_same_on_every_build():
+    """Two builds of the same operator give the same colouring, so the sum
+    order of kernel K's scatter, and its result, do not depend on the run."""
+    jm = _shuffled(_jax_mesh("perturbed", (4, 3, 2), seed=3), 4)
+    m = _port_mesh(jm)
+    a = GeneralOperators(m, build_dofmap(m, 2), dtype=F64).colouring
+    b = GeneralOperators(m, build_dofmap(m, 2), dtype=F64).colouring
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    t = GeneralOperators(m, build_dofmap(m, 2), dtype=F64).tables("stiffness", "cpu")
+    np.testing.assert_array_equal(t.cells.numpy(), a[0])
+    np.testing.assert_array_equal(t.colour_starts.numpy(), a[1])
+    assert t.colour_starts.device.type == "cpu" and t.ncolours == a[1].size - 1
+
+
+@pytest.mark.parametrize("mode", general.MODES)
+def test_general_apply_plain_in_colour_order_matches_jax(mode):
+    """general_apply_plain (the element kernel, then the scatter in kernel
+    K's colour order) in each of the four modes against the JAX package's
+    indexed general apply, f64, on a perturbed mesh at p = 3."""
+    rule = "gauss" if mode.endswith("_gauss") else "gll"
+    jo, to = _ops_pair("perturbed", 3, rule)
+    x = _x(to.ndofs, 18)
+    coeff = -1500.0**2 if mode.startswith("stiffness") else 1.0
+    got = general.general_apply_plain(torch.as_tensor(x), to.tables(mode, "cpu"), coeff)
+    want = (jo.stiffness_indexed(jnp.asarray(x), 1500.0) if mode.startswith("stiffness")
+            else jo.mass_indexed(jnp.asarray(x)))
+    assert max_rel(got, want) <= TOL
+
+
+def test_scatter_coloured_matches_the_indexed_add():
+    """The coloured scatter sums every element entry into its dof once:
+    the indexed add's result to rounding; the gather reads x[dofmap]."""
+    _, to = _ops_pair("perturbed", 2, "gll")
+    t = to.tables("mass", "cpu")
+    ye = torch.as_tensor(_x(to._dofmap.shape, 19))
+    y = gs.scatter_coloured(ye, t.dofmap, t.cells, t.colour_starts, to.ndofs)
+    assert max_rel(y, gs.scatter_indexed(ye, t.dofmap, to.ndofs)) <= 1e-15
+    np.testing.assert_array_equal(gs.gather_indexed(torch.as_tensor(_x(to.ndofs, 15)),
+                                                    t.dofmap).numpy(),
+                                  _x(to.ndofs, 15)[to._dofmap])
+
+
+def test_kernel_k_launch_args_match_the_c_signature():
+    """general.launch_args builds the argument list whose types ctypes
+    declares for ``wave_general_apply`` (the host colour_starts as a
+    pointer), with as many entries as the C prototype has parameters."""
+    import ctypes
+
+    _, to = _ops_pair("perturbed", 2, "gll")
+    t = to.tables("stiffness", "cpu")
+    x = torch.zeros(to.ndofs, dtype=F64)
+    args = general.launch_args(x, torch.empty_like(x), t, -2.0)
+    sig = general._cuda._SIGNATURES["wave_general_apply"]
+    kinds = {ctypes.c_void_p: (torch.Tensor, type(None)), ctypes.c_int: int,
+             ctypes.c_double: float}
+    assert len(args) + 1 == len(sig) and sig[-1] is ctypes.c_void_p  # + stream
+    for a, k in zip(args, sig):
+        assert isinstance(a, kinds[k])
+    assert args[4] is t.colour_starts and args[5] == t.ncolours
+    assert args[-4:-1] == general.launch_shape("stiffness", 3, 3, 8)
+    src = (Path(general._cuda.CSRC) / "general_kernels.cu").read_text()
+    proto = re.search(r'extern "C" int wave_general_apply_##SUFFIX\((.*?)\)\s*\{', src, re.S)
+    params = [q for q in proto.group(1).replace("\\", " ").split(",") if q.strip()]
+    assert len(params) == len(sig)

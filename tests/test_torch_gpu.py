@@ -266,10 +266,17 @@ def test_cuda_solve_fused_n_matches_cpu(cuda, p):
     _padding_zero(pm, u_g, v_g)
 
 
-@pytest.mark.parametrize("p", [2, 4, 8])
+def _lf_model(p, device):
+    """The smallest model on which both leapfrog kernels apply at ``p``
+    (kernel I's 3p-deep slab halo needs tile 24 from p = 6)."""
+    return _model(p, device, tile_x=max(16, lf2step._off0(p)))
+
+
+@pytest.mark.parametrize("p", range(1, 9))
 def test_cuda_lf_step_matches_plain(cuda, p):
-    """Kernel H, one step from a random state (p=8: lf applies at tile 16)."""
-    pm = _model(p, cuda)
+    """Kernel H (OPEN, CLOSE on the tiled TMA kernel), one step from a
+    random state, at every p it takes."""
+    pm = _lf_model(p, cuda)
     u0 = _random_padded(pm.layout, 37, cuda)
     v0 = _random_padded(pm.layout, 38, cuda, scale=1e3)
     args = (DT, 1.0, 0.6, pm.layout, pm.base.c0)
@@ -283,9 +290,11 @@ def test_cuda_lf_step_matches_plain(cuda, p):
     _padding_zero(pm, uk, vk)
 
 
-@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("p", range(1, 9))
 def test_cuda_lf2_step_matches_plain(cuda, p):
-    pm = _model(p, cuda)
+    """Kernel I (OPEN, MID, CLOSE on the tiled TMA kernel), two steps from
+    a random state, at every p it takes."""
+    pm = _lf_model(p, cuda)
     u0 = _random_padded(pm.layout, 39, cuda)
     v0 = _random_padded(pm.layout, 40, cuda, scale=1e3)
     args = (DT, 1.0, 0.6, 0.2, pm.layout, pm.base.c0)
@@ -297,6 +306,35 @@ def test_cuda_lf2_step_matches_plain(cuda, p):
     up, vp = lf2step.lf2_step_plain(u0, v0, *args, pm.lf2_tables)
     _assert_state_close(uk, vk, up, vp)
     _padding_zero(pm, uk, vk)
+
+
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_cuda_lf_phases_over_nan(cuda, p):
+    """Kernels H and I write every padded point of their outputs and
+    scratch: from buffers full of NaN the padding comes out exactly 0 (in
+    u_out and v_out of every phase) and the interior matches the plain
+    step, on (5,3,3) cells, ragged against the tiling."""
+    pm = _model(p, cuda, shape=(5, 3, 3), tile_x=max(16, lf2step._off0(p)))
+    u0 = _random_padded(pm.layout, 41, cuda)
+    v0 = _random_padded(pm.layout, 42, cuda, scale=1e3)
+    face = (pm.layout, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2, pm.src_x,
+            pm.abc_x)
+    nan = [torch.full_like(u0, float("nan")) for _ in range(5)]
+    uk, vk = lfstep.lf_step_cuda(u0, v0, DT, 1.0, 0.6, *face, out=tuple(nan[:2]),
+                                 scratch=nan[2])
+    torch.cuda.synchronize()
+    up, vp = lfstep.lf_step_plain(u0, v0, DT, 1.0, 0.6, pm.layout, pm.base.c0,
+                                  pm.lf_tables)
+    _assert_state_close(uk, vk, up, vp)
+    _padding_zero(pm, uk, vk, nan[2])
+    nan = [torch.full_like(u0, float("nan")) for _ in range(5)]
+    uk, vk = lf2step.lf2_step_cuda(u0, v0, DT, 1.0, 0.6, 0.2, *face,
+                                   out=tuple(nan[:2]), scratch=tuple(nan[2:]))
+    torch.cuda.synchronize()
+    up, vp = lf2step.lf2_step_plain(u0, v0, DT, 1.0, 0.6, 0.2, pm.layout, pm.base.c0,
+                                    pm.lf2_tables)
+    _assert_state_close(uk, vk, up, vp)
+    _padding_zero(pm, uk, vk, *nan[2:])
 
 
 @pytest.mark.parametrize("nsteps", [24, 25])
@@ -490,6 +528,23 @@ def test_cuda_general_apply_is_bitwise_deterministic(cuda):
             t = ops.tables(op if rule == "gll" else f"{op}_gauss", cuda)
             assert torch.equal(general.general_apply_cuda(x, t, -2.0),
                                general.general_apply_cuda(x, t, -2.0))
+
+
+def test_cuda_general_shuffled_cells_match_plain(cuda):
+    """Kernel K on a mesh whose cells are shuffled (a greedy colouring with
+    no parity structure): every mode against its plain version, two applies
+    bitwise equal."""
+    mesh, _ = perturbed_box((5, 4, 3), h=0.25)
+    perm = np.random.default_rng(7).permutation(mesh.ncells)
+    shuffled = type(mesh)(points=mesh.points, cells=mesh.cells[perm])
+    for rule in ("gll", "gauss"):
+        ops = GeneralOperators(shuffled, build_dofmap(shuffled, 2), dtype=F64, rule=rule)
+        x = _grid((ops.ndofs,), 99, cuda)
+        for op, coeff in (("mass", 1.0), ("stiffness", -1500.0**2)):
+            t = ops.tables(op if rule == "gll" else f"{op}_gauss", cuda)
+            y = general.general_apply_cuda(x, t, coeff)
+            assert torch.equal(y, general.general_apply_cuda(x, t, coeff))
+            assert _rel(y, general.general_apply_plain(x, t, coeff)) <= TOL
 
 
 def test_cuda_general_raises_above_p6(cuda):

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from wave_fenics_tpu_torch.models.linear_wave_padded import _flat_tile_x
-from wave_fenics_tpu_torch.ops import _cuda, tiling, wave
+from wave_fenics_tpu_torch.ops import _cuda, lf2step, lfstep, tiling, wave
 from wave_fenics_tpu_torch.ops.rk4step import _off0, stage_launch_args
 from wave_fenics_tpu_torch.ops.tiling import tiled_geometry
 from wave_fenics_tpu_torch.ops.wave import PaddedLayout
@@ -152,18 +152,22 @@ def test_python_tiling_policy_matches_the_c_kernel():
     size, many, one = (int(n) for n in rule.groups())
     for itemsize in (4, 8):
         assert tiling.tma_blocks_per_sm(itemsize) == (many if itemsize == size else one)
-    for name in ("slab_tiled.cu", "rk_stage_tiled.cu"):
+    for name in ("slab_tiled.cu", "rk_stage_tiled.cu", "lf_tiled.cu"):
         assert "__launch_bounds__(kTileThreads, (tma_min_blocks<T>()))" in _c_source(name)
 
 
 def test_point_only_ablation_patches_one_line():
     """profile_step --ablate replaces the stencil line of kernels A and C
-    (rk4_tiled.cu), D (rk_stage_tiled.cu) and E (slab_tiled.cu) by the
-    point value in a copy of the sources, and takes D's and E's other parts
-    out the same way; each line it replaces is there once."""
+    (rk4_tiled.cu), D (rk_stage_tiled.cu), E (slab_tiled.cu) and H/I
+    (lf_tiled.cu) by the point value in a copy of the sources, and takes
+    D's, E's, H/I's and K's (general_kernels.cu) other parts out the same
+    way; each line it replaces is there once."""
     from wave_fenics_tpu_torch.apps.profile_step import ABLATIONS, POINT_ONLY
 
-    assert sorted(POINT_ONLY) == ["rk4_tiled.cu", "rk_stage_tiled.cu", "slab_tiled.cu"]
+    assert sorted(POINT_ONLY) == ["lf_tiled.cu", "rk4_tiled.cu", "rk_stage_tiled.cu",
+                                  "slab_tiled.cu"]
+    assert sorted(a for a, ps in ABLATIONS.items() if "general_kernels.cu" in ps) == [
+        "K gather only", "K no geometry", "K no overlap", "K no y read"]
     for patches in ABLATIONS.values():
         for name, (line, patch) in patches.items():
             assert _c_source(name).count(line) == 1 and line != patch
@@ -184,7 +188,9 @@ def _tma_layout(kernel, cells, p):
 
 
 def _tma_geometry(kernel, lay, itemsize):
-    nf, extra = (1, 0) if kernel == "E" else (2, 2)
+    """Kernel E and the leapfrog phases of H and I take one TMA box of one
+    field a plane, D two fields and two stage-input planes."""
+    nf, extra = (2, 2) if kernel == "D" else (1, 0)
     return tiling.tma_geometry(lay, itemsize, fields=nf, extra=extra), nf, extra
 
 
@@ -205,9 +211,11 @@ def _padding_count(lay):
 
 @pytest.mark.parametrize("cells", TMA_CELLS)
 @pytest.mark.parametrize("kernel,p", [("E", p) for p in range(1, 11)]
-                         + [("D", p) for p in range(1, 9)])
+                         + [("D", p) for p in range(1, 9)]
+                         + [("H", p) for p in range(1, 9)])
 def test_tma_tiles_cover_the_interior_once(kernel, p, cells):
-    """Kernel E's and D's tiling: the tiles and x-chunks cover the interior
+    """Kernel E's, D's and the leapfrog phases' (H, I) tiling: the tiles and
+    x-chunks cover the interior
     exactly once and the padding pass the rest; every box starts 16-byte
     aligned along z, holds the tile's p-deep halo and stays within the TMA's
     256-point extents; the shared memory of a block stays within an H100's
@@ -320,6 +328,69 @@ def test_tma_launch_args_match_the_c_signature(name):
     proto = re.search(r'extern "C" int wave_\w+##SUFFIX\((.*?)\)\s*\{', _c_source(src), re.S)
     params = [q for q in proto.group(1).replace("\\", " ").split(",") if q.strip()]
     assert len(params) == len(sig)
+
+
+@pytest.mark.parametrize("phase", [0, 1, 2])
+def test_lf_launch_args_match_the_c_signature(phase):
+    """The leapfrog phases' argument lists (OPEN, MID, CLOSE: the same
+    tiling, one TMA field; CLOSE passes a null u_out) have the types ctypes
+    declares for ``wave_lf_phase_tiled``, end in tma_geometry's tiling, and
+    the launcher's C prototype has as many parameters."""
+    lay = _tma_layout("H", (4, 2, 2), 4)
+    u_out = None if phase == lfstep.LF_CLOSE else _tensor()
+    args = lfstep.lf_launch_args(phase, _tensor(), _tensor(), u_out, _tensor(), 1e-9,
+                                 0.5, lay, 1500.0, tuple(_tensor() for _ in range(5)),
+                                 _tensor(), _tensor(), 17, -1)
+    sig = _cuda._SIGNATURES["wave_lf_phase_tiled"]
+    kinds = {ctypes.c_void_p: (torch.Tensor, int), ctypes.c_int: int,
+             ctypes.c_double: float}
+    assert len(args) + 1 == len(sig) and sig[-1] is ctypes.c_void_p  # + stream
+    for a, t in zip(args, sig):
+        assert isinstance(a, kinds[t])
+    assert args[0] == phase and (args[3] is u_out if u_out is not None else args[3] == 0)
+    grid, ty, tz, cx, smem = _tma_geometry("H", lay, 4)[0]
+    assert args[-8:] == (ty, tz, cx, *grid, smem, int(tiling.tma_padding_first(grid)))
+    proto = re.search(r'extern "C" int wave_\w+##SUFFIX\((.*?)\)\s*\{',
+                      _c_source("lf_tiled.cu"), re.S)
+    params = [q for q in proto.group(1).replace("\\", " ").split(",") if q.strip()]
+    assert len(params) == len(sig)
+    assert re.search(r"enum LfPhase \{ kLfOpen = (\d), kLfMid = (\d), kLfClose = (\d) \}",
+                     _c_source("lf_tiled.cu")).groups() == tuple(
+        str(ph) for ph in (lfstep.LF_OPEN, lfstep.LF_MID, lfstep.LF_CLOSE))
+
+
+@pytest.mark.parametrize("cells,p,first", [((64, 32, 32), 4, True), ((32, 16, 16), 8, False)])
+def test_lf_padding_layer_order(cells, p, first):
+    """The leapfrog kernels' padding layer goes first where the tile blocks
+    take more than one wave of the H100's block slots (P2 at p = 4: 525
+    tile blocks, 264 slots in f32) and last where they fit one (P3 at
+    p = 8: 225), as tma_padding_first decides from the grid."""
+    lay = _tma_layout("H", cells, p)
+    (gz, gy, gx), *_ = _tma_geometry("H", lay, 4)[0]
+    tiles = gz * gy * (gx - tiling.PADDING_LAYERS)
+    slots = tiling.H100_SMS * tiling.tma_blocks_per_sm(4)
+    assert (tiles > slots) == first == tiling.tma_padding_first((gz, gy, gx))
+    assert tiles == (525 if first else 225)
+
+
+@pytest.mark.parametrize("kernel", ["H", "I"])
+def test_lf_wrappers_raise_on_cpu_tensors(kernel):
+    """Kernels H's and I's CUDA wrappers take CUDA tensors only: a CPU
+    tensor raises before any launch (the dispatchers send it to the plain
+    version), and no launch is counted."""
+    lay = _tma_layout("H", (4, 2, 2), 2)
+    x = torch.zeros(lay.padded_shape, dtype=torch.float64)
+    F = lay.padded_shape[1] * lay.padded_shape[2]
+    st = tuple(torch.zeros(1) for _ in range(5))
+    face = (lay, 1500.0, st, torch.zeros(1, F), torch.zeros(1, F), 3, -1)
+    fn = lfstep.lf_step_cuda if kernel == "H" else lf2step.lf2_step_cuda
+    n0 = fn.launches
+    with pytest.raises(ValueError, match="CUDA kernel called with a tensor on cpu"):
+        if kernel == "H":
+            fn(x, x, 1e-9, 1.0, 0.5, *face)
+        else:
+            fn(x, x, 1e-9, 1.0, 0.5, 0.2, *face)
+    assert fn.launches == n0
 
 
 @pytest.mark.parametrize("call", ["slab", "stage"])

@@ -26,10 +26,13 @@ iteration that CG's stopping test waits for.
 
 With ``--general`` it profiles RK4 steps of the explicit-dofmap model
 (``general_solve``'s perturbed box of ``--cells``, 4,276,737 dofs at the
-default 64x32x32 cells and p=4): kernel K's two phases (the element kernel
-and the scatter kernel, four applies per step), the plain-torch vector
-algebra of the RK4 stages, and the host's share of the wall time. It
-raises unless kernel K ran four applies per step.
+default 64x32x32 cells and p=4): kernel K's launches (per apply, the pass
+that sets y to 0 and one launch per colour, four applies per step), the
+plain-torch vector algebra of the RK4 stages, and the host's share of the
+wall time. It raises unless kernel K ran four applies per step, each with
+one zero launch and one launch per colour. The colour launches overlap
+(programmatic dependent launch), so their summed device times count the
+overlap twice; ``--general --ablate`` times an apply on CUDA events.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -40,6 +43,9 @@ Run from the repository root on a machine with a CUDA card:
            --cells 26 13 13 [--integrator leapfrog]    # kernel E
     python -m wave_fenics_tpu_torch.apps.profile_step --bp1 --cells 64 64 64
     python -m wave_fenics_tpu_torch.apps.profile_step --general [--steps 20]
+    python -m wave_fenics_tpu_torch.apps.profile_step --general --ablate     # kernel K
+    python -m wave_fenics_tpu_torch.apps.profile_step --ablate --integrator leapfrog \
+           [--degree 8 --cells 32 16 16]   # kernel I (H at p = 8)
     python -m wave_fenics_tpu_torch.apps.profile_step --sweep-tiling [--full-tableau]
     python -m wave_fenics_tpu_torch.apps.profile_step --ablate [--full-tableau]
     python -m wave_fenics_tpu_torch.apps.profile_step --ablate --degree 8 \
@@ -51,9 +57,12 @@ With ``--sweep-tiling`` it times each stage launch of kernel A (or C)
 at every tiling of ``TILINGS`` (the tile and x-chunk limits of
 ``ops/tiling.py::tiled_geometry``), the default first; with ``--ablate``
 it times the kernel of the path's RK4 (each stage of A or C, or one launch
-of D or E) as built and with the stencil replaced by the point value (a
-patched copy of ``csrc/``, built under ``_build/``; D and E also without
-each of the parts ``ABLATIONS`` takes out), beside one field copy.
+of D or E), or with ``--integrator leapfrog`` each phase of I (or H), as
+built and with the stencil replaced by the point value (a patched copy of
+``csrc/``, built under ``_build/``; D, E, H and I also without each of the
+parts ``ABLATIONS`` takes out), beside one field copy; with ``--general
+--ablate``, kernel K's stiffness apply as built, without each part
+``ABLATIONS`` takes out of it, and with all cells in one launch.
 
 It prints the card's name and power limit (nvidia-smi), one line per kernel
 instance, and last one JSON dict of every number.
@@ -76,7 +85,7 @@ import torch
 from ..benchmarks import general_solve
 from ..benchmarks.common import DTYPES
 from ..core.mesh import box_mesh
-from ..ops import _cuda, rk4step, tiling, wave
+from ..ops import _cuda, general, lfstep, rk4step, tiling, wave
 from ..ops.general import general_apply_cuda
 from ..ops.mass import bp1_setup, mass_apply
 from ..solvers.cg import cg
@@ -98,9 +107,9 @@ KERNELS = [
     (r"rk4_tiled_kernel<[^,<>]+,\s*\d+,\s*3>", "rk4 stage J=3", 7),
     (r"rk42_boundary_kernel<", "rk42 boundary (J)", 8),
     (r"rk_stage_tiled_kernel<", "rk stage (D)", 10),
-    (r"lf_phase_kernel<[^,<>]+,\s*0>", "lf OPEN", 4),
-    (r"lf_phase_kernel<[^,<>]+,\s*1>", "lf MID", 4),
-    (r"lf_phase_kernel<[^,<>]+,\s*2>", "lf CLOSE", 3),
+    (r"lf_phase_tiled_kernel<[^,<>]+,\s*\d+,\s*0>", "lf OPEN", 4),
+    (r"lf_phase_tiled_kernel<[^,<>]+,\s*\d+,\s*1>", "lf MID", 4),
+    (r"lf_phase_tiled_kernel<[^,<>]+,\s*\d+,\s*2>", "lf CLOSE", 3),
     (r"apply_flat_kernel<", "apply_flat (B)", 2),
     (r"apply_slab_tiled_kernel<", "apply_slab (E)", 2),
 ]
@@ -237,10 +246,10 @@ TILINGS = [(32, 256, (16, 64)), (32, 256, (16, 16)), (32, 256, (32, 32)),
 #: the ablations of --ablate: patched copies of the sources, each a set of
 #: (file: the line it replaces exactly once, the replacement). "point
 #: value" replaces the line that applies the stencil of kernels A and C
-#: (rk4_tiled.cu), D (rk_stage_tiled.cu) and E (slab_tiled.cu) by the point
-#: value (the same fetches, stage inputs and stores, no taps); the others
-#: take one part out of D or E: its padding pass (the padding blocks
-#: return at once), D's point-wise loads of
+#: (rk4_tiled.cu), D (rk_stage_tiled.cu), E (slab_tiled.cu) and H/I
+#: (lf_tiled.cu) by the point value (the same fetches, stage inputs and
+#: stores, no taps); the others take one part out of D, E or H/I: its
+#: padding pass (the padding blocks return at once), D's point-wise loads of
 #: v0, kv, ua, va (a value from the index instead), or D's stage input
 #: (u0's window read in its place).
 _D_POINT_LOADS = """      pn[0] = a.v0[nidx];
@@ -254,12 +263,15 @@ ABLATIONS = {
         "rk_stage_tiled.cu": ("T kv = tx * tab.fx + yz * __ldg(&s.sx[g]);", "T kv = q[P];"),
         "slab_tiled.cu": ("y[(long long)g * F + c.f] = (tx * lyz + ay) + az;",
                           "y[(long long)g * F + c.f] = q[P];"),
+        "lf_tiled.cu": ("T force = tx * tab.fx + yz * __ldg(&s.sx[g]);", "T force = q[P];"),
     },
     "no padding pass": {
         "rk_stage_tiled.cu": ("    for_each_padding<8>(s, t, pb, npb,",
                               "    if (false) for_each_padding<8>(s, t, pb, npb,"),
         "slab_tiled.cu": ("    for_each_padding<1>(s, t, pb, npb,",
                           "    if (false) for_each_padding<1>(s, t, pb, npb,"),
+        "lf_tiled.cu": ("    for_each_padding<1>(s, t, pb, npb,",
+                        "    if (false) for_each_padding<1>(s, t, pb, npb,"),
     },
     "no point-wise loads": {
         "rk_stage_tiled.cu": (_D_POINT_LOADS,
@@ -268,6 +280,28 @@ ABLATIONS = {
     "u0 as the stage input": {
         "rk_stage_tiled.cu": ("for (int e = (int)threadIdx.x; e < npt; e += nt) "
                               "un[e] = ub[e] + ca * kb[e];", "un = const_cast<T*>(ub);"),
+    },
+    # kernel K's collocated stiffness (general_kernels.cu): the gather and
+    # the colour's y update alone (no geometry, no contractions), the
+    # geometry loads replaced by constants, the read of y's entries taken
+    # out of the update (a plain store)
+    "K gather only": {
+        "general_kernels.cu": ("  for (int i = 0; i < M; ++i) a.y[dof[i]] = yo[i] + a.coeff * acc[i];",
+                               "  for (int i = 0; i < M; ++i) a.y[dof[i]] = yo[i] + xc[i];"),
+    },
+    "K no geometry": {
+        "general_kernels.cu": ("    load_geometry<T, M, Affine>(a, cell, col, g);",
+                               "    for (int e = 0; e < 6 * M; ++e) g[e / M][e % M] = T(1 + e % 3);"),
+    },
+    "K no y read": {
+        "general_kernels.cu": ("  for (int i = 0; i < M; ++i) yo[i] = a.y[dof[i]];",
+                               "  for (int i = 0; i < M; ++i) yo[i] = T(0);"),
+    },
+    # K's colour launches without the programmatic dependent launch (each
+    # waits for the previous one to end)
+    "K no overlap": {
+        "general_kernels.cu": ("  attr[0].val.programmaticStreamSerializationAllowed = 1;",
+                               "  attr[0].val.programmaticStreamSerializationAllowed = 0;"),
     },
 }
 POINT_ONLY = ABLATIONS["point value"]
@@ -382,12 +416,42 @@ def _ablate_tma(pm, case) -> dict:
             "copy_us": copy_s * 1e6, "copy_gbps": 2 * nbytes / copy_s / 1e9}
 
 
+def _ablate_lf(pm, case, label) -> dict:
+    """Kernel H or I (the path's leapfrog kernel, ``label``): each phase's
+    launch as built and with each ablation that patches ``lf_tiled.cu``, on
+    random fields of the padded shape."""
+    dev, dtype = pm.base.device, pm.base.dtype
+    u, v, u_out, v_out = (torch.randn(pm.layout.padded_shape, dtype=dtype, device=dev)
+                          for _ in range(4))
+    dt = 0.71 * case.dt
+    phases = {"OPEN": lfstep.LF_OPEN, "MID": lfstep.LF_MID, "CLOSE": lfstep.LF_CLOSE}
+    if label == "H":
+        del phases["MID"]
+
+    def phase_us(kl):
+        return {name: _launch_us(kl, "wave_lf_phase_tiled", u, lfstep.lf_launch_args(
+            ph, u, v, None if ph == lfstep.LF_CLOSE else u_out, v_out, dt, 0.5,
+            pm.layout, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2, pm.src_x,
+            pm.abc_x)) for name, ph in phases.items()}
+
+    nbytes, copy_s = _copy_rate(u)
+    args = lfstep.lf_launch_args(0, u, v, u_out, v_out, dt, 0.5, pm.layout, pm.base.c0,
+                                 pm.stencil, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+    return {"kernel": label, "phase_us": phase_us(_cuda.library()),
+            "ablated_phase_us": {a: phase_us(patched_library(a))
+                                 for a, patches in ABLATIONS.items()
+                                 if "lf_tiled.cu" in patches},
+            "geometry": list(args[-7:]), "field_bytes": nbytes,
+            "copy_us": copy_s * 1e6, "copy_gbps": 2 * nbytes / copy_s / 1e9}
+
+
 def ablate(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
-           lean=True) -> dict:
-    """What holds the path's RK4 kernel back: kernel A (or C) stage by stage,
+           lean=True, integrator="rk4") -> dict:
+    """What holds the path's kernel back: kernel A (or C) stage by stage,
     or kernel D or E per launch (the path at p > 8, or where the step
-    kernel does not apply), as built and with the stencil replaced by the
-    point value (D and E also without each part of ABLATIONS that patches
+    kernel does not apply), or with ``integrator='leapfrog'`` each phase of
+    kernel I (or H), as built and with the stencil replaced by the point
+    value (D, E, H and I also without each part of ABLATIONS that patches
     their source); and the copy rate of one state field (``Tensor.copy_``,
     a measuring stick only), the HBM rate a streaming kernel can reach on
     this card."""
@@ -395,8 +459,15 @@ def ablate(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
         raise RuntimeError("profile_step needs a CUDA card")
     case, pm = planar3d_app.build(cells, degree, dtype, tile_x, "cuda", lean)
     head = {"card": card_line(), "cells": list(cells), "degree": degree,
-            "dtype": dtype, "lean": lean,
+            "dtype": dtype, "lean": lean, "integrator": integrator,
             "padded_shape": list(pm.layout.padded_shape)}
+    if integrator == "leapfrog" and pm.kernel != "3d":
+        label = ("I" if pm.lf2_unavailable is None
+                 else "H" if pm.lf_unavailable is None else None)
+        if label is None:
+            raise ValueError(f"the leapfrog path at p = {degree} runs on force: "
+                             "ablate its RK4 kernel instead")
+        return {**head, **_ablate_lf(pm, case, label)}
     if pm.kernel == "3d" or pm.step_unavailable is not None:
         return {**head, **_ablate_tma(pm, case)}
     st = _StageTimer(case, pm, lean)
@@ -507,27 +578,29 @@ def profile_general(cells=(64, 32, 32), degree=4, dtype="f32", steps=20,
         sync(dev)
         wall_us = (time.perf_counter() - w0) * 1e6
     applies = general_apply_cuda.launches - n0
+    ncolours = md.ops.tables("stiffness", dev).ncolours
     events = _device_events(prof)
-    el = [us for name, us in events if "general_element_kernel" in name]
-    sc = [us for name, us in events if "general_scatter_kernel" in name]
-    other_us = sum(us for name, us in events
-                   if "general_element_kernel" not in name
-                   and "general_scatter_kernel" not in name)
-    if applies != 4 * steps or len(el) != applies or len(sc) != applies:
+    el = [us for name, us in events if "general_stiffness_kernel" in name]
+    zero = [us for name, us in events if "general_zero_kernel" in name]
+    other_us = sum(us for name, us in events if "general_" not in name)
+    if (applies != 4 * steps or len(el) != applies * ncolours
+            or len(zero) != applies):
         raise RuntimeError(
-            f"{steps} RK4 steps make {4 * steps} applies of kernel K; counted "
-            f"{applies}, the profiler saw {len(el)} element and {len(sc)} "
-            "scatter launches (no device time: time with CUDA events instead)")
-    busy_us = sum(el) + sum(sc) + other_us
+            f"{steps} RK4 steps make {4 * steps} applies of kernel K, each one "
+            f"zero launch and {ncolours} colour launches; counted {applies} "
+            f"applies, the profiler saw {len(el)} colour and {len(zero)} zero "
+            "launches (no device time: time with CUDA events instead)")
+    busy_us = sum(el) + sum(zero) + other_us
     return {
         "card": card_line(),
         "cells": list(cells), "degree": degree, "dtype": dtype,
         "ndofs": md.ndofs, "affine": md.ops.affine, "setup_s": setup_s,
-        "steps": steps, "k_applies": applies,
-        "element_us_per_launch": sum(el) / len(el),
-        "scatter_us_per_launch": sum(sc) / len(sc),
-        "k_ms_per_step": (sum(el) + sum(sc)) / 1e3 / steps,
-        "vector_kernel_launches_per_step": (len(events) - 2 * applies) / steps,
+        "steps": steps, "k_applies": applies, "colours": ncolours,
+        "element_us_per_apply": sum(el) / applies,
+        "zero_us_per_apply": sum(zero) / applies,
+        "colour_us": [sum(el[c::ncolours]) / applies for c in range(ncolours)],
+        "k_ms_per_step": (sum(el) + sum(zero)) / 1e3 / steps,
+        "vector_kernel_launches_per_step": (len(events) - len(el) - len(zero)) / steps,
         "vector_ms_per_step": other_us / 1e3 / steps,
         "host_ms_per_step": (wall_us - busy_us) / 1e3 / steps,
         "profiled_wall_ms_per_step": wall_us / 1e3 / steps,
@@ -535,6 +608,37 @@ def profile_general(cells=(64, 32, 32), degree=4, dtype="f32", steps=20,
         "enqueue_ms_per_step": (t1 - t0) / steps * 1e3,
         "synced_ms_per_step": (t2 - t0) / steps * 1e3,
     }
+
+
+def ablate_general(cells=(64, 32, 32), degree=4, dtype="f32", reps=100) -> dict:
+    """Kernel K's stiffness apply on the perturbed box of ``cells``
+    (CUDA events over back-to-back applies, the arguments converted once):
+    as built, with each ablation of ABLATIONS that patches
+    ``general_kernels.cu``, and with all cells in one launch (the colour
+    split taken out: the sums race, only the time counts)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA card")
+    md, setup_s = general_solve.build(cells, degree, dtype)
+    dev = md.device
+    t = md.ops.tables("stiffness", dev)
+    x = torch.randn(md.ndofs, dtype=md.dtype, device=dev)
+    y = torch.empty_like(x)
+    cpb = general.launch_shape(t.mode, t.m, t.nq, x.element_size())[0]
+
+    def us(kl, colour_starts=None):
+        return _launch_us(kl, "wave_general_apply", x,
+                          general.launch_args(x, y, t, -1500.0**2, colour_starts),
+                          reps=reps)
+
+    built = us(_cuda.library())
+    one = us(_cuda.library(), torch.tensor([0, t.ncells], dtype=torch.int32))
+    return {"card": card_line(), "cells": list(cells), "degree": degree, "dtype": dtype,
+            "ndofs": md.ndofs, "setup_s": setup_s, "colours": t.ncolours,
+            "cells_per_block": cpb, "us_per_apply": built,
+            "ablated_us_per_apply": {
+                **{a: us(patched_library(a)) for a, patches in ABLATIONS.items()
+                   if "general_kernels.cu" in patches},
+                "K one launch": one}}
 
 
 def main(argv=None):
@@ -553,21 +657,38 @@ def main(argv=None):
                          "of --cells")
     ap.add_argument("--general", action="store_true",
                     help="profile RK4 steps of the explicit-dofmap model "
-                         "(kernel K) on the perturbed box of --cells")
+                         "(kernel K) on the perturbed box of --cells; with "
+                         "--ablate, K's stiffness apply as built and ablated")
     ap.add_argument("--sweep-tiling", action="store_true",
                     help="time each stage of kernel A (C with --full-tableau) "
                          "at every tiling of TILINGS")
     ap.add_argument("--ablate", action="store_true",
-                    help="time the path's RK4 kernel (each stage of A, or C "
+                    help="time the path's kernel (each stage of A, or C "
                          "with --full-tableau; D or E where the path takes "
-                         "them) as built and with the stencil replaced by the "
-                         "point value, and one field copy")
+                         "them; each phase of I or H with --integrator "
+                         "leapfrog) as built and with the stencil replaced by "
+                         "the point value, and one field copy")
     args = ap.parse_args(argv)
+    if args.ablate and args.general:
+        out = ablate_general(args.cells, args.degree, args.dtype)
+        print(out["card"])
+        print(f"kernel K stiffness, {out['ndofs']} dofs, {out['colours']} colours, "
+              f"{out['cells_per_block']} cells a block: {out['us_per_apply']:.2f} "
+              "us/apply; " + "; ".join(f"{a}: {us:.2f}" for a, us in
+                                       out["ablated_us_per_apply"].items()))
+        print(json.dumps(out))
+        return
     if args.ablate:
         out = ablate(args.cells, args.degree, args.dtype, args.tile_x,
-                     lean=not args.full_tableau)
+                     lean=not args.full_tableau, integrator=args.integrator)
         print(out["card"])
-        if "stage_us" in out:
+        if "phase_us" in out:
+            print(f"kernel {out['kernel']} (tiling {out['geometry']}): phases "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in out["phase_us"].items())
+                  + " us; " + "; ".join(
+                      f"{a}: " + ", ".join(f"{k} {v:.2f}" for k, v in ph.items())
+                      for a, ph in out["ablated_phase_us"].items()), end="")
+        elif "stage_us" in out:
             print(f"kernel {out['kernel']}: stages "
                   f"{', '.join(f'{t:.2f}' for t in out['stage_us'])} us "
                   f"({out['ms_per_step']:.4f} ms/step); stencil replaced by the point "
@@ -596,9 +717,9 @@ def main(argv=None):
         out = profile_general(args.cells, args.degree, args.dtype, args.steps)
         print(out["card"])
         print(f"general RK4, {out['ndofs']} dofs, {out['steps']} steps: kernel K "
-              f"{out['k_ms_per_step']:.4f} ms/step (element "
-              f"{out['element_us_per_launch']:.2f} us + scatter "
-              f"{out['scatter_us_per_launch']:.2f} us per apply, 4 applies), "
+              f"{out['k_ms_per_step']:.4f} ms/step ({out['colours']} colour launches "
+              f"{out['element_us_per_apply']:.2f} us + zero "
+              f"{out['zero_us_per_apply']:.2f} us per apply, 4 applies), "
               f"vector ops {out['vector_ms_per_step']:.4f} ms/step, host "
               f"{out['host_ms_per_step']:.4f} ms/step; busy share "
               f"{out['device_busy_share']:.4f}; synced {out['synced_ms_per_step']:.4f} "

@@ -22,53 +22,98 @@
 // (pallas_general.py:22-24, 72-86, 311-318). Hopper gathers natively, so
 // none of them is here.
 //
-// Two launches per apply, and no atomics, so the result is the same bit for
-// bit on every run (the JAX package's determinism, tests/test_determinism.py):
+// The scatter is a coloured, in-place accumulation: the cells are split
+// into colours so that no two cells of one colour share a dof
+// (ops/gather_scatter.py::colour_cells, built once on the host), y is set
+// to 0, and one launch per colour, in a fixed order, adds its cells'
+// coeff E(x_e) straight into y. No atomics and no workspace: each dof's
+// sum is (((0 + first colour's term) + next) + ...), the same bit for bit
+// on every run (the JAX package's determinism, tests/test_determinism.py).
 //
-// 1. general_element_kernel: a block owns `cpb` cells. It gathers each
-//    cell's x_e into shared memory through the cell's dofmap row, applies
-//    the 1D contractions with B and D (sum-factorized: O(m^4) work per cell,
-//    no dense nd x nq table), folds in the geometry and coeff, applies the
-//    transposes and writes ye[c, :] to a workspace. The collocated mass
-//    needs no shared memory: one thread per element entry.
-// 2. general_scatter_kernel: one thread per dof sums that dof's sources
-//    ye[order[k]], k in [starts[d], starts[d+1]), in that fixed order
-//    (ops/gather_scatter.py::build_scatter_csr).
+// general_stiffness_kernel<T, M, Affine> (the collocated stiffness, the
+// mode of the general solvers, m = M = p + 1 <= 7): one thread per (j, k)
+// column of a cell, CPB = kColumnThreads / M^2 cells per block (10 at
+// p = 4), no division per entry. A thread issues the loads of its column's
+// dofmap entries, its 6M geometry values and then its x gather before the
+// block's first barrier, so the geometry's latency overlaps the gather's;
+// the column's M values of x_e stay in registers (the i derivative and its
+// transpose never touch shared memory), the j and k derivatives read one
+// shared copy of the cell, and w1, w2 of the transpose go through shared
+// memory. The streamed tables (geometry, dofmap) are loaded with the
+// evict-first hint, so x and y stay in L2.
+// general_element_kernel<T, Mode, Affine> (mass, mass_gauss,
+// stiffness_gauss): a block owns `cpb` cells, gathers x_e into shared
+// memory, applies the sum-factorized 1D contractions with B and D and adds
+// coeff y_e into y; the collocated mass is one thread per element entry.
+// In both, the colour launches overlap (programmatic dependent launch): a
+// launch's blocks start on the SMs the previous colour's last blocks free,
+// load and contract their cells, and wait (griddepcontrol.wait) only before
+// they read and write y.
 //
 // What bounds it on this card: per cell and contraction m multiply-adds per
-// point, 3(m^4) to 18(max(m, nq)^4) in all, are far below the flop rate;
-// the compulsory traffic is x and y once, the dofmap and the geometry
-// (6 values per node for the per-node stiffness: at 64x32x32 cells, p = 4,
-// f32, 17.1 + 17.1 + 32.8 + 196.6 MB). This first form also writes and reads
-// the workspace and reads the scatter tables (about 115 MB more), and its
-// gathers of x hit L2 where neighbouring cells share dofs.
+// point, far below the flop rate; the compulsory traffic is x and y once,
+// the dofmap and the geometry (6 values per node for the per-node
+// stiffness: at 64x32x32 cells, p = 4, f32, 17.1 + 17.1 + 32.8 + 196.6 MB,
+// 0.079 ms at 3.35 TB/s). The design adds the pass that sets y to 0
+// (general_zero_kernel) and the read of the y entries that each colour
+// updates, L2 hits while y stays resident.
 //
-// Each extern "C" launcher returns cudaGetLastError() after its launches (or
-// the error of the attribute call before them), so the caller sees a launch
-// that the runtime refused.
+// The extern "C" launcher returns cudaGetLastError() after its launches (or
+// the error of a call before them), so the caller sees a launch that the
+// runtime refused.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace wave_general {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;        // general_element_kernel
+constexpr int kColumnThreads = 256;  // general_stiffness_kernel, at most
 
 enum Mode { kMass = 0, kStiffness = 1, kMassGauss = 2, kStiffnessGauss = 3 };
+
+// Cells a block of the column kernel takes: one thread per (j, k) column.
+template <int M>
+__host__ __device__ constexpr int column_cells() {
+  return kColumnThreads / (M * M) > 0 ? kColumnThreads / (M * M) : 1;
+}
+
+// Column-kernel blocks an SM must hold: two in f32 (128 registers a
+// thread), one in f64.
+template <typename T>
+__host__ __device__ constexpr int column_min_blocks() {
+  return sizeof(T) == 4 ? 2 : 1;
+}
 
 template <typename T>
 struct ElementArgs {
   const T* x;           // [ndofs]
-  T* ye;                // [nc, m^3] workspace
+  T* y;                 // [ndofs], accumulated in place
   const int* dofmap;    // [nc, m^3]
+  const int* cells;     // this launch's cells: one colour's
+  int ncells;           // cells in this launch
   const T* B;           // [nq, m]
   const T* D;           // [nq, m]
   const T* geo;         // [ngeo, nc, npts], or [ngeo, nc] for affine cells
   const T* w;           // [npts] (affine cells only)
   int m, nq, nc;
-  int cpb;              // cells per block
-  int stride;           // shared-memory elements per cell
+  int cpb;              // cells per block (general_element_kernel)
+  int stride;           // shared-memory elements per cell (the same)
   T coeff;
 };
+
+// Programmatic dependent launch: the next launch on the stream may start
+// its blocks now, on the SMs this launch frees...
+__device__ __forceinline__ void allow_next_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// ... and this block waits here until the previous launch on the stream
+// has ended and its writes (y) are visible.
+__device__ __forceinline__ void wait_previous_launch() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
 
 // The geometric factor `g` of `cell` at point `q` (npts points per cell).
 template <typename T, bool Affine>
@@ -77,6 +122,123 @@ __device__ __forceinline__ T geo_at(const ElementArgs<T>& a, int g, int cell,
   if (Affine) return a.geo[(long long)g * a.nc + cell] * a.w[q];
   return a.geo[((long long)g * a.nc + cell) * npts + q];
 }
+
+// ---------------------------------------------------------------------------
+// The collocated stiffness, one thread per (j, k) column.
+// ---------------------------------------------------------------------------
+
+// The six G entries of the column's M nodes (node i at entry i M^2 + col of
+// the cell), in registers.
+template <typename T, int M, bool Affine>
+__device__ __forceinline__ void load_geometry(const ElementArgs<T>& a, int cell,
+                                              int col, T (&g)[6][M]) {
+  constexpr int M2 = M * M, M3 = M2 * M;
+  if (Affine) {
+#pragma unroll
+    for (int e = 0; e < 6; ++e) {
+      const T ge = __ldg(&a.geo[(long long)e * a.nc + cell]);
+#pragma unroll
+      for (int i = 0; i < M; ++i) g[e][i] = ge * __ldg(&a.w[i * M2 + col]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 6; ++e) {
+      const T* ge = a.geo + ((long long)e * a.nc + cell) * M3 + col;
+#pragma unroll
+      for (int i = 0; i < M; ++i) g[e][i] = __ldcs(ge + i * M2);  // streamed: evict first
+    }
+  }
+}
+
+template <typename T, int M, bool Affine>
+__global__ void __launch_bounds__(kColumnThreads, (column_min_blocks<T>()))
+    general_stiffness_kernel(ElementArgs<T> a) {
+  constexpr int M2 = M * M, M3 = M2 * M, CPB = column_cells<M>();
+  __shared__ T sD[M2];
+  __shared__ T xs[CPB][M3];   // the cells' x_e
+  __shared__ T w1s[CPB][M3];  // w_1 = G_1. grad x_e
+  __shared__ T w2s[CPB][M3];  // w_2 = G_2. grad x_e
+  const int tid = (int)threadIdx.x;
+  const int lc = tid / M2;  // the block's cell of this thread
+  const int col = tid - lc * M2;
+  const int j = col / M;
+  const int k = col - j * M;
+  const int slot = (int)blockIdx.x * CPB + lc;
+  const bool live = slot < a.ncells;
+  if (tid < M2) sD[tid] = a.D[tid];
+
+  int dof[M];
+  T g[6][M], xc[M];
+  if (live) {
+    const int cell = __ldg(&a.cells[slot]);
+    const int* dm = a.dofmap + (long long)cell * M3 + col;
+#pragma unroll
+    for (int i = 0; i < M; ++i) dof[i] = __ldcs(dm + i * M2);  // streamed: evict first
+    load_geometry<T, M, Affine>(a, cell, col, g);
+#pragma unroll
+    for (int i = 0; i < M; ++i) xc[i] = __ldg(&a.x[dof[i]]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      dof[i] = 0;
+      xc[i] = T(0);
+#pragma unroll
+      for (int e = 0; e < 6; ++e) g[e][i] = T(0);
+    }
+  }
+  // the next colour's blocks load and contract their cells while this
+  // launch ends
+  allow_next_launch();
+#pragma unroll
+  for (int i = 0; i < M; ++i) xs[lc][i * M2 + col] = xc[i];
+  __syncthreads();
+
+  // per node (i, j, k): the reference gradient u, then w_d = sum_d' G_dd' u_d'
+  const T* xe = xs[lc];
+  T w0[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    T u0 = T(0), u1 = T(0), u2 = T(0);
+#pragma unroll
+    for (int s = 0; s < M; ++s) {
+      u0 += sD[i * M + s] * xc[s];
+      u1 += sD[j * M + s] * xe[(i * M + s) * M + k];
+      u2 += sD[k * M + s] * xe[(i * M + j) * M + s];
+    }
+    w0[i] = g[0][i] * u0 + g[1][i] * u1 + g[2][i] * u2;
+    w1s[lc][i * M2 + col] = g[1][i] * u0 + g[3][i] * u1 + g[4][i] * u2;
+    w2s[lc][i * M2 + col] = g[2][i] * u0 + g[4][i] * u1 + g[5][i] * u2;
+  }
+  __syncthreads();
+
+  // y_e = sum_d D_d^T w_d
+  const T* w1 = w1s[lc];
+  const T* w2 = w2s[lc];
+  T acc[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    acc[i] = T(0);
+#pragma unroll
+    for (int s = 0; s < M; ++s) acc[i] += sD[s * M + i] * w0[s];
+#pragma unroll
+    for (int s = 0; s < M; ++s) acc[i] += sD[s * M + j] * w1[(i * M + s) * M + k];
+#pragma unroll
+    for (int s = 0; s < M; ++s) acc[i] += sD[s * M + k] * w2[(i * M + j) * M + s];
+  }
+  // added into y once the previous launch (the previous colour, or the
+  // pass that set y to 0) has ended
+  wait_previous_launch();
+  if (!live) return;
+  T yo[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) yo[i] = a.y[dof[i]];
+#pragma unroll
+  for (int i = 0; i < M; ++i) a.y[dof[i]] = yo[i] + a.coeff * acc[i];
+}
+
+// ---------------------------------------------------------------------------
+// The other modes: one block of `cpb` cells, sum-factorized in shared memory.
+// ---------------------------------------------------------------------------
 
 // One 1D contraction of every cell tensor of the block along Axis:
 // out[.., o, ..] = sum_k M(o, k) in[.., k, ..], with the table M [rows, cols]
@@ -123,16 +285,24 @@ __global__ void __launch_bounds__(kThreads)
   T* buf = reinterpret_cast<T*>(smem_raw);
   const int m = a.m, nq = a.nq;
   const int nd = m * m * m;
-  const int cell0 = blockIdx.x * a.cpb;
-  const int ncell = min(a.cpb, a.nc - cell0);
+  const int slot0 = blockIdx.x * a.cpb;  // the block's first cell of the launch
+  const int ncell = min(a.cpb, a.ncells - slot0);
   const int tid = threadIdx.x;
+  allow_next_launch();
 
-  if (Mode == kMass) {  // y_e = coeff detJw .* x_e, one thread per entry
-    for (int e = tid; e < ncell * nd; e += blockDim.x) {
-      const int cell = cell0 + e / nd;
-      const int n = e % nd;
-      const long long idx = (long long)cell * nd + n;
-      a.ye[idx] = a.coeff * (a.x[a.dofmap[idx]] * geo_at<T, Affine>(a, 0, cell, n, nd));
+  if (Mode == kMass) {  // y += coeff detJw .* x_e, one thread per entry
+    for (int e0 = 0; e0 < ncell * nd; e0 += blockDim.x) {
+      const int e = e0 + tid;
+      int d = 0;
+      T ye = T(0);
+      if (e < ncell * nd) {
+        const int cell = a.cells[slot0 + e / nd];
+        const int n = e % nd;
+        d = a.dofmap[(long long)cell * nd + n];
+        ye = a.coeff * (a.x[d] * geo_at<T, Affine>(a, 0, cell, n, nd));
+      }
+      wait_previous_launch();
+      if (e < ncell * nd) a.y[d] += ye;
     }
     return;
   }
@@ -149,60 +319,12 @@ __global__ void __launch_bounds__(kThreads)
     const int c = e / nd;
     const int n = e - c * nd;
     buf[c * a.stride + n] =
-        c < ncell ? a.x[a.dofmap[(long long)(cell0 + c) * nd + n]] : T(0);
+        c < ncell ? a.x[a.dofmap[(long long)a.cells[slot0 + c] * nd + n]] : T(0);
   }
   __syncthreads();
 
-  if (Mode == kStiffness) {
-    // collocated: B = I. Per node, the three reference derivatives, then
-    // w_d = sum_d' G_dd' u_d' (into the cell's buffers 1..3)
-    for (int e = tid; e < ncell * nd; e += blockDim.x) {
-      const int c = e / nd;
-      const int n = e - c * nd;
-      const int i = n / (m * m);
-      const int j = (n / m) % m;
-      const int k = n % m;
-      const T* xe = buf + c * a.stride;
-      T u0 = T(0), u1 = T(0), u2 = T(0);
-      for (int s = 0; s < m; ++s) {
-        u0 += sD[i * m + s] * xe[(s * m + j) * m + k];
-        u1 += sD[j * m + s] * xe[(i * m + s) * m + k];
-        u2 += sD[k * m + s] * xe[(i * m + j) * m + s];
-      }
-      const int cell = cell0 + c;
-      const T g00 = geo_at<T, Affine>(a, 0, cell, n, nd);
-      const T g01 = geo_at<T, Affine>(a, 1, cell, n, nd);
-      const T g02 = geo_at<T, Affine>(a, 2, cell, n, nd);
-      const T g11 = geo_at<T, Affine>(a, 3, cell, n, nd);
-      const T g12 = geo_at<T, Affine>(a, 4, cell, n, nd);
-      const T g22 = geo_at<T, Affine>(a, 5, cell, n, nd);
-      T* wv = buf + c * a.stride + nd;
-      wv[n] = g00 * u0 + g01 * u1 + g02 * u2;
-      wv[nd + n] = g01 * u0 + g11 * u1 + g12 * u2;
-      wv[2 * nd + n] = g02 * u0 + g12 * u1 + g22 * u2;
-    }
-    __syncthreads();
-    // y = sum_d D_d^T w_d
-    for (int e = tid; e < ncell * nd; e += blockDim.x) {
-      const int c = e / nd;
-      const int n = e - c * nd;
-      const int i = n / (m * m);
-      const int j = (n / m) % m;
-      const int k = n % m;
-      const T* w0 = buf + c * a.stride + nd;
-      const T* w1 = w0 + nd;
-      const T* w2 = w1 + nd;
-      T acc = T(0);
-      for (int s = 0; s < m; ++s) acc += sD[s * m + i] * w0[(s * m + j) * m + k];
-      for (int s = 0; s < m; ++s) acc += sD[s * m + j] * w1[(i * m + s) * m + k];
-      for (int s = 0; s < m; ++s) acc += sD[s * m + k] * w2[(i * m + j) * m + s];
-      a.ye[(long long)(cell0 + c) * nd + n] = a.coeff * acc;
-    }
-    return;
-  }
-
-  // non-collocated modes: per cell, x_e (reused as the output accumulator)
-  // [m^3], g0..g2 [Q^3] each, t1, t2 [Q^3] each, Q = max(m, nq)
+  // per cell, x_e (reused as the output accumulator) [m^3], g0..g2 [Q^3]
+  // each, t1, t2 [Q^3] each, Q = max(m, nq)
   const int Q = m > nq ? m : nq;
   const int Q3 = Q * Q * Q;
   const int nq3 = nq * nq * nq;
@@ -222,7 +344,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < ncell * nq3; e += blockDim.x) {
       const int c = e / nq3;
       const int q = e - c * nq3;
-      g[c * S + q] *= geo_at<T, false>(a, 0, cell0 + c, q, nq3);
+      g[c * S + q] *= geo_at<T, false>(a, 0, a.cells[slot0 + c], q, nq3);
     }
     __syncthreads();
     contract<T, 0, true, false>(g, t1, S, ncell, nq, nq, nq, sB, m, m);
@@ -246,7 +368,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < ncell * nq3; e += blockDim.x) {
       const int c = e / nq3;
       const int q = e - c * nq3;
-      const int cell = cell0 + c;
+      const int cell = a.cells[slot0 + c];
       T* p0 = g + c * S + q;
       const T u0 = p0[0], u1 = p0[Q3], u2 = p0[2 * Q3];
       const T g00 = geo_at<T, false>(a, 0, cell, q, nq3);
@@ -275,24 +397,73 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
     }
   }
+  wait_previous_launch();
   for (int e = tid; e < ncell * nd; e += blockDim.x) {
     const int c = e / nd;
     const int n = e - c * nd;
-    a.ye[(long long)(cell0 + c) * nd + n] = a.coeff * buf[c * S + n];
+    const int d = a.dofmap[(long long)a.cells[slot0 + c] * nd + n];
+    a.y[d] += a.coeff * buf[c * S + n];
   }
 }
 
+// ---------------------------------------------------------------------------
+// Launchers: y = 0, then one launch per colour.
+// ---------------------------------------------------------------------------
+
+// y = 0, 16 bytes a store where y's base allows; colour 0's blocks may
+// start their loads meanwhile (they wait for this launch before they touch
+// y). Launched as an ordinary kernel: it starts only when the work before
+// it on the stream, which may read y, has ended.
 template <typename T>
-__global__ void __launch_bounds__(256)
-    general_scatter_kernel(const T* __restrict__ ye, const int* __restrict__ order,
-                           const int* __restrict__ starts, T* __restrict__ y,
-                           int ndofs) {
-  for (int d = blockIdx.x * blockDim.x + threadIdx.x; d < ndofs;
-       d += gridDim.x * blockDim.x) {
-    const int lo = starts[d], hi = starts[d + 1];
-    T acc = T(0);
-    for (int k = lo; k < hi; ++k) acc += ye[order[k]];
-    y[d] = acc;
+__global__ void __launch_bounds__(256) general_zero_kernel(T* __restrict__ y, int n) {
+  allow_next_launch();
+  const int start = blockIdx.x * blockDim.x + threadIdx.x;
+  const int step = gridDim.x * blockDim.x;
+  constexpr int kPer = 16 / (int)sizeof(T);
+  const int nv = (reinterpret_cast<uintptr_t>(y) % 16 == 0) ? n / kPer : 0;
+  int4* yv = reinterpret_cast<int4*>(y);
+  for (int i = start; i < nv; i += step) yv[i] = make_int4(0, 0, 0, 0);
+  for (int i = nv * kPer + start; i < n; i += step) y[i] = T(0);
+}
+
+// A colour's launch may begin while the previous launch on the stream
+// finishes (programmatic dependent launch): its blocks load and contract
+// their cells, then wait for the previous launch's y.
+template <typename T>
+int launch_overlapped(void (*kernel)(ElementArgs<T>), unsigned blocks, int threads,
+                      int smem, const ElementArgs<T>& a, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <typename T, int M, bool Affine>
+int launch_stiffness_colour(const ElementArgs<T>& a, cudaStream_t stream) {
+  constexpr int CPB = column_cells<M>();
+  return launch_overlapped<T>(general_stiffness_kernel<T, M, Affine>,
+                              (unsigned)((a.ncells + CPB - 1) / CPB), CPB * M * M, 0, a,
+                              stream);
+}
+
+template <typename T, bool Affine>
+int launch_stiffness(const ElementArgs<T>& a, cudaStream_t stream) {
+  switch (a.m) {
+    case 2: return launch_stiffness_colour<T, 2, Affine>(a, stream);
+    case 3: return launch_stiffness_colour<T, 3, Affine>(a, stream);
+    case 4: return launch_stiffness_colour<T, 4, Affine>(a, stream);
+    case 5: return launch_stiffness_colour<T, 5, Affine>(a, stream);
+    case 6: return launch_stiffness_colour<T, 6, Affine>(a, stream);
+    case 7: return launch_stiffness_colour<T, 7, Affine>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -304,37 +475,52 @@ int launch_element(const ElementArgs<T>& a, int smem, cudaStream_t stream) {
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const unsigned blocks = (unsigned)((a.nc + a.cpb - 1) / a.cpb);
-  general_element_kernel<T, Mode, Affine><<<blocks, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_overlapped<T>(general_element_kernel<T, Mode, Affine>,
+                              (unsigned)((a.ncells + a.cpb - 1) / a.cpb), kThreads, smem,
+                              a, stream);
 }
 
 template <typename T>
-int launch_general_apply(const T* x, T* y, T* ye, const int* dofmap,
-                         const int* order, const int* starts, const T* B,
+int launch_colour(const ElementArgs<T>& a, int mode, int affine, int smem,
+                  cudaStream_t stream) {
+  if (mode == kStiffness) {
+    return affine ? launch_stiffness<T, true>(a, stream)
+                  : launch_stiffness<T, false>(a, stream);
+  }
+  if (mode == kMass) {
+    return affine ? launch_element<T, kMass, true>(a, smem, stream)
+                  : launch_element<T, kMass, false>(a, smem, stream);
+  }
+  if (mode == kMassGauss && !affine) {
+    return launch_element<T, kMassGauss, false>(a, smem, stream);
+  }
+  if (mode == kStiffnessGauss && !affine) {
+    return launch_element<T, kStiffnessGauss, false>(a, smem, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// colour_starts is a host array [ncolours + 1]: colour c's cells are
+// cells[colour_starts[c] .. colour_starts[c + 1]).
+template <typename T>
+int launch_general_apply(const T* x, T* y, const int* dofmap, const int* cells,
+                         const int* colour_starts, int ncolours, const T* B,
                          const T* D, const T* geo, const T* w, int mode,
                          int affine, int m, int nq, int nc, int ndofs, int cpb,
                          int stride, int smem, double coeff,
                          cudaStream_t stream) {
-  ElementArgs<T> a{x, ye, dofmap, B, D, geo, w, m, nq, nc, cpb, stride, T(coeff)};
-  int rc;
-  if (mode == kMass) {
-    rc = affine ? launch_element<T, kMass, true>(a, smem, stream)
-                : launch_element<T, kMass, false>(a, smem, stream);
-  } else if (mode == kStiffness) {
-    rc = affine ? launch_element<T, kStiffness, true>(a, smem, stream)
-                : launch_element<T, kStiffness, false>(a, smem, stream);
-  } else if (mode == kMassGauss && !affine) {
-    rc = launch_element<T, kMassGauss, false>(a, smem, stream);
-  } else if (mode == kStiffnessGauss && !affine) {
-    rc = launch_element<T, kStiffnessGauss, false>(a, smem, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  if (mode == kStiffness && (m < 2 || m > 7)) return (int)cudaErrorInvalidValue;
+  const long long nb = (ndofs / (16 / (long long)sizeof(T)) + 255LL) / 256 + 1;
+  general_zero_kernel<T><<<(unsigned)(nb < 65535LL * 64 ? nb : 65535LL * 64), 256, 0,
+                           stream>>>(y, ndofs);
+  for (int c = 0; c < ncolours; ++c) {
+    const int n = colour_starts[c + 1] - colour_starts[c];
+    if (n <= 0) continue;
+    const ElementArgs<T> a{x, y, dofmap, cells + colour_starts[c], n, B, D, geo,
+                           w, m, nq, nc, cpb, stride, T(coeff)};
+    const int rc = launch_colour<T>(a, mode, affine, smem, stream);
+    if (rc != 0) return rc;
   }
-  if (rc != 0) return rc;
-  const long long nb = (ndofs + 255LL) / 256;
-  general_scatter_kernel<T><<<(unsigned)(nb < 65535LL * 64 ? nb : 65535LL * 64), 256,
-                              0, stream>>>(ye, order, starts, y, ndofs);
   return (int)cudaGetLastError();
 }
 
@@ -346,13 +532,14 @@ int launch_general_apply(const T* x, T* y, T* ye, const int* dofmap,
 
 #define WAVE_GENERAL_DEFINE_LAUNCHER(T, SUFFIX)                                 \
   extern "C" int wave_general_apply_##SUFFIX(                                   \
-      const T* x, T* y, T* ye, const int* dofmap, const int* order,             \
-      const int* starts, const T* B, const T* D, const T* geo, const T* w,      \
-      int mode, int affine, int m, int nq, int nc, int ndofs, int cpb,          \
-      int stride, int smem, double coeff, cudaStream_t stream) {                \
+      const T* x, T* y, const int* dofmap, const int* cells,                    \
+      const int* colour_starts, int ncolours, const T* B, const T* D,           \
+      const T* geo, const T* w, int mode, int affine, int m, int nq, int nc,    \
+      int ndofs, int cpb, int stride, int smem, double coeff,                   \
+      cudaStream_t stream) {                                                    \
     return wave_general::launch_general_apply<T>(                               \
-        x, y, ye, dofmap, order, starts, B, D, geo, w, mode, affine, m, nq, nc, \
-        ndofs, cpb, stride, smem, coeff, stream);                               \
+        x, y, dofmap, cells, colour_starts, ncolours, B, D, geo, w, mode,       \
+        affine, m, nq, nc, ndofs, cpb, stride, smem, coeff, stream);            \
   }
 
 WAVE_GENERAL_DEFINE_LAUNCHER(float, f32)

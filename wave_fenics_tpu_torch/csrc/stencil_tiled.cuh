@@ -67,12 +67,13 @@ struct TileCoords {
   int y0, z0, xs, xe, ly, lz, y, z, f;
   bool active;  // the thread's column is an interior column
 
-  __device__ TileCoords(const PaddedBox& s, const Tiling& t) {
+  // zoff: layers of padding blocks before the x-chunks (padding_block)
+  __device__ TileCoords(const PaddedBox& s, const Tiling& t, int zoff = 0) {
     ly = (int)threadIdx.x / t.tz;
     lz = (int)threadIdx.x - ly * t.tz;
     y0 = s.h + (int)blockIdx.y * t.ty;
     z0 = s.h + (int)blockIdx.x * t.tz;
-    xs = s.x0 + (int)blockIdx.z * t.cx;
+    xs = s.x0 + ((int)blockIdx.z - zoff) * t.cx;
     xe = min(xs + t.cx, s.x0 + s.nx);
     y = y0 + ly;
     z = z0 + lz;
@@ -324,16 +325,25 @@ inline bool tma_tiling_fits(const Tiling& t, dim3 grid, int nx, int ny,
   return grid.z >= 2 && tiling_fits(t, dim3(grid.x, grid.y, grid.z - 1), nx, ny, nz);
 }
 
+// The layers of padding blocks in the grid beyond its x-chunks.
+__device__ __forceinline__ int padding_layers(const PaddedBox& s, const Tiling& t) {
+  return (int)gridDim.z - (s.nx + t.cx - 1) / t.cx;
+}
+
 // Whether this block is one of the padding layer's; if so, its index
-// `block` among the layer's `blocks` blocks.
+// `block` among the layer's `blocks` blocks. The layer is the grid's last
+// (First = false) or its first, whose blocks are dispatched with the first
+// wave of tile blocks (First = true; the tile blocks then take
+// TileCoords(s, t, padding_layers(s, t))).
+template <bool First = false>
 __device__ __forceinline__ bool padding_block(const PaddedBox& s,
                                               const Tiling& t, long long& block,
                                               long long& blocks) {
-  const int chunks = (s.nx + t.cx - 1) / t.cx;
-  if ((int)blockIdx.z < chunks) return false;
-  block = ((long long)(blockIdx.z - chunks) * gridDim.y + blockIdx.y) * gridDim.x +
-          blockIdx.x;
-  blocks = (long long)(gridDim.z - chunks) * gridDim.y * gridDim.x;
+  const int layers = padding_layers(s, t);
+  const int z = First ? (int)blockIdx.z : (int)blockIdx.z - ((int)gridDim.z - layers);
+  if (z < 0 || z >= layers) return false;
+  block = ((long long)z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  blocks = (long long)layers * gridDim.y * gridDim.x;
   return true;
 }
 

@@ -1,8 +1,9 @@
 // Hand-written Hopper kernels of the planar3d solver paths (sm_90a).
 //
-// Three entry points share the stencil of stencil.cuh (kernels A and C, the
-// RK4 step, are in rk4_tiled.cu, and kernel D, the fused RK4 stage, in
-// rk_stage_tiled.cu, on the tiled stencil of stencil_tiled.cuh):
+// Two entry points share the stencil of stencil.cuh (kernels A and C, the
+// RK4 step, are in rk4_tiled.cu, kernel D, the fused RK4 stage, in
+// rk_stage_tiled.cu, and kernels H and I, the leapfrog phases, in
+// lf_tiled.cu, on the tiled stencil of stencil_tiled.cuh):
 //
 // * apply_flat_kernel (kernel B) replaces the TPU kernel
 //   wave_fenics_tpu/ops/pallas_wave.py::_kernel_flat: y = A x on the flat
@@ -13,10 +14,6 @@
 //   0) fused into one. The TPU kernel's 6p wedge and its six shrinking
 //   stage windows keep a slab in VMEM; a launch here covers the whole grid,
 //   so they have no counterpart.
-// * lf_phase_kernel<Phase> (kernels H and I) replaces
-//   pallas_lfstep.py::_kernel_lf_step (OPEN + CLOSE: one leapfrog step) and
-//   pallas_lf2step.py::_kernel_lf2_step (OPEN + MID + CLOSE: two leapfrog
-//   steps, the step-boundary force computed once).
 //
 // What bounds them on this card: a stencil of 3 * (2p + 1) taps per point
 // with one multiply-add per tap is far below the H100's flop rate, so the
@@ -31,8 +28,8 @@
 // the neighbouring blocks read; a stage input (un3 or u1) is formed at
 // each tap from the fields in memory instead of being written out; padding
 // points write zeros without reading any tap. Moving them onto the tiled
-// stencil of stencil_tiled.cuh, as kernels A, C and D did, is the next
-// performance step (ROADMAP.md).
+// stencil of stencil_tiled.cuh, as kernels A, C, D, H and I did, is the
+// next performance step (ROADMAP.md).
 //
 // Each extern "C" launcher returns cudaGetLastError() after its launch, so
 // the caller sees a launch the runtime refused.
@@ -158,76 +155,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------------------
-// Kernels H and I: the phases of kick-drift-kick leapfrog. With
-// F(u) = A u + c0^2 g W1 (source row), D = c0 W2 (absorbing row) and
-// h = dt/2:
-//
-//   OPEN  (u0, v0):  v+ = (v0 + h F(u0)) / (1 + h D),  u1 = u0 + dt v+
-//   MID   (u1, v+):  v1 = (1 - h D) v+ + h F(u1),
-//                    v+' = (v1 + h F(u1)) / (1 + h D),  u2 = u1 + dt v+'
-//   CLOSE (u1, v+):  v1 = (1 - h D) v+ + h F(u1)
-//
-// One step (kernel H) is OPEN then CLOSE: two stencil applies, F recomputed
-// from u0 as the TPU kernel does. Two steps (kernel I) are OPEN, MID,
-// CLOSE: the step-boundary force is applied once and serves both steps.
-// `u` is read at the taps, so u_out must not alias it; CLOSE writes v_out
-// only (u1 stays where OPEN or MID wrote it).
-// ---------------------------------------------------------------------------
-
-enum LfPhase { kLfOpen = 0, kLfMid = 1, kLfClose = 2 };
-
-template <typename T>
-struct LfArgs {
-  const T* u;  // u0 (OPEN) or u1 (MID, CLOSE), read at the taps
-  const T* v;  // v0 (OPEN) or v+ (MID, CLOSE)
-  T* u_out;    // OPEN: u1; MID: u2
-  T* v_out;    // OPEN: v+; MID: v+'; CLOSE: v1
-  const T* w1;
-  const T* w2;
-  int src_x, abc_x;
-  T dt, g, c0sq, c0;
-};
-
-template <typename T, int Phase>
-__global__ void __launch_bounds__(kThreads)
-    lf_phase_kernel(Stencil<T> s, LfArgs<T> a) {
-  const int F = s.F();
-  const long long n = (long long)s.Lx * F;
-  const T dt = a.dt;
-  const T h = dt * T(0.5);
-  const T one = T(1);
-  auto load = [&a, F](int g, int f) { return a.u[(long long)g * F + f]; };
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int g = (int)(i / F);
-    const int f = (int)(i - (long long)g * F);
-    if (!s.interior(g, f)) {
-      if constexpr (Phase != kLfClose) a.u_out[i] = T(0);
-      a.v_out[i] = T(0);
-      continue;
-    }
-    T force = apply_stencil(s, load, g, f);
-    if (g == a.src_x) force += (a.c0sq * a.g) * a.w1[f];
-    const T d = g == a.abc_x ? a.c0 * a.w2[f] : T(0);
-    const T vin = a.v[i];
-    if constexpr (Phase == kLfOpen) {
-      const T vplus = (vin + h * force) / (one + h * d);
-      a.v_out[i] = vplus;
-      a.u_out[i] = a.u[i] + dt * vplus;
-    } else {
-      const T v1 = (one - h * d) * vin + h * force;
-      if constexpr (Phase == kLfClose) {
-        a.v_out[i] = v1;
-      } else {
-        const T vplus = (v1 + h * force) / (one + h * d);
-        a.v_out[i] = vplus;
-        a.u_out[i] = a.u[i] + dt * vplus;
-      }
-    }
-  }
-}
-
 template <typename T>
 Stencil<T> make_stencil(const T* cvx, const T* sx, const T* fx, const T* cvy,
                         const T* cvz, int p, int Lx, int Ly, int Lz, int x0,
@@ -249,19 +176,6 @@ int launch_apply_flat(const T* x, T* y, Stencil<T> s, cudaStream_t stream) {
 template <typename T>
 int launch_rk42_boundary(Stencil<T> s, BoundaryArgs<T> a, cudaStream_t stream) {
   rk42_boundary_kernel<T><<<blocks_of(s), kThreads, 0, stream>>>(s, a);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_lf_phase(int phase, Stencil<T> s, LfArgs<T> a,
-                    cudaStream_t stream) {
-  const unsigned nb = blocks_of(s);
-  switch (phase) {
-    case kLfOpen: lf_phase_kernel<T, kLfOpen><<<nb, kThreads, 0, stream>>>(s, a); break;
-    case kLfMid: lf_phase_kernel<T, kLfMid><<<nb, kThreads, 0, stream>>>(s, a); break;
-    case kLfClose: lf_phase_kernel<T, kLfClose><<<nb, kThreads, 0, stream>>>(s, a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }
 
@@ -293,15 +207,6 @@ int launch_lf_phase(int phase, Stencil<T> s, LfArgs<T> a,
                             (T)(-c0)};                                        \
     return wave::launch_rk42_boundary<T>(                                     \
         wave::make_stencil<T>(WAVE_STENCIL_ARGS), a, stream);                 \
-  }                                                                           \
-  extern "C" int wave_lf_phase_##SUFFIX(                                      \
-      int phase, const T* u, const T* v, T* u_out, T* v_out, const T* w1,     \
-      const T* w2, int src_x, int abc_x, double dt, double g, double c0,      \
-      WAVE_STENCIL_PARAMS(T), cudaStream_t stream) {                          \
-    wave::LfArgs<T> a{u, v, u_out, v_out, w1, w2, src_x, abc_x, (T)dt, (T)g,  \
-                      (T)(c0 * c0), (T)c0};                                   \
-    return wave::launch_lf_phase<T>(                                          \
-        phase, wave::make_stencil<T>(WAVE_STENCIL_ARGS), a, stream);          \
   }
 
 WAVE_DEFINE_LAUNCHERS(float, f32)

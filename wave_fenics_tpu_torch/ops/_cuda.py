@@ -62,15 +62,18 @@ _SIGNATURES = {
     "wave_rk_stage_tiled": [_P] * 12 + [_I, _I, _D, _D, _D, _D] + _STENCIL
     + [_I] * 7 + [_P],
     # phase, u, v, u_out, v_out, w1, w2, src_x, abc_x, dt, g, c0, <stencil>,
-    # stream (kernels H and I)
-    "wave_lf_phase": [_I] + [_P] * 6 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
+    # ty, tz, cx, gx, gy, gz, smem, padding_first, stream (kernels H and I;
+    # the tiling of ops/tiling.py::tma_geometry and tma_padding_first)
+    "wave_lf_phase_tiled": [_I] + [_P] * 6 + [_I, _I, _D, _D, _D] + _STENCIL
+    + [_I] * 8 + [_P],
     # x, y, cvx, cvy, cvz, lx, ly, lz, p, Nx, Ny, Nz, stream (kernel F)
     "wave_stiffness_grid": [_P] * 8 + [_I] * 4 + [_P],
     # x, y, cvx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz, stream (kernel G)
     "wave_mass_apply": [_P] * 5 + [_I] * 9 + [_P],
-    # x, y, ye, dofmap, order, starts, B, D, geo, w, mode, affine, m, nq, nc,
-    # ndofs, cpb, stride, smem, coeff, stream (kernel K)
-    "wave_general_apply": [_P] * 10 + [_I] * 9 + [_D, _P],
+    # x, y, dofmap, cells, colour_starts (host), ncolours, B, D, geo, w,
+    # mode, affine, m, nq, nc, ndofs, cpb, stride, smem, coeff, stream
+    # (kernel K)
+    "wave_general_apply": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 9 + [_D, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

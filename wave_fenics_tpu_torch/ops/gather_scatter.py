@@ -8,14 +8,14 @@ Port of ``wave_fenics_tpu.ops.gather_scatter``:
   stride-p pattern, so gather is m strided slices and scatter-add is a 1D
   overlap-add per axis; no indexed scatter, deterministic;
 - the explicit-dofmap path: ``gather_indexed`` (x[dofmap]),
-  ``scatter_indexed`` (an indexed add, the oracles' scatter) and the
-  transpose tables of ``build_ell_scatter`` in CSR form
-  (:func:`build_scatter_csr`): per dof, the flat element entries that add
-  into it, in increasing order. :func:`scatter_csr` sums them in that fixed
-  order, as kernel K's scatter phase does (``ops.general``), so the
+  ``scatter_indexed`` (an indexed add, the oracles' scatter), and kernel
+  K's coloured scatter: :func:`colour_cells` splits the cells into colours
+  so that no two cells of one colour share a dof, and
+  :func:`scatter_coloured` adds the element tensors into a zero vector one
+  colour after another, as kernel K does (``ops.general``), so the
   scatter-add needs no atomics and its result does not depend on the run.
-  The JAX package's multiplicity buckets (``EllScatter``) are a TPU layout
-  of the same table and are not ported.
+  The JAX package's multiplicity buckets (``build_ell_scatter``) are a TPU
+  layout of the scatter and are not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["gather_1d", "scatter_1d", "gather_grid", "scatter_grid",
-           "gather_indexed", "scatter_indexed", "build_scatter_csr", "scatter_csr"]
+           "gather_indexed", "scatter_indexed", "colour_cells", "scatter_coloured"]
 
 
 def _along(axis: int, s: slice) -> tuple:
@@ -110,32 +110,54 @@ def scatter_indexed(ye: torch.Tensor, dofmap: torch.Tensor, ndofs: int) -> torch
     return ye.new_zeros(ndofs).index_add_(0, dofmap.reshape(-1).long(), ye.reshape(-1))
 
 
-def build_scatter_csr(dofmap: np.ndarray, ndofs: int) -> tuple[np.ndarray, np.ndarray]:
-    """(order int32 [nc*nd], starts int32 [ndofs + 1]): the flat element
-    entries ``order[starts[d]:starts[d+1]]`` add into dof d, in increasing
-    entry order (the transpose tables of the JAX package's
-    ``build_ell_scatter``; host, once)."""
-    flat = np.asarray(dofmap).ravel()
-    if flat.size >= 2**31:
-        raise ValueError(f"{flat.size} element entries do not fit int32 tables")
-    order = np.argsort(flat, kind="stable").astype(np.int32)
-    counts = np.bincount(flat, minlength=ndofs)
-    if counts.size != ndofs or counts.min() < 1:
-        raise ValueError("every dof must appear in the dofmap, and only dofs < ndofs")
-    starts = np.zeros(ndofs + 1, dtype=np.int64)
+def colour_cells(dofmap: np.ndarray, m: int) -> tuple[np.ndarray, np.ndarray]:
+    """(cells int32 [nc], colour_starts int32 [ncolours + 1]): colour c's
+    cells are ``cells[colour_starts[c]:colour_starts[c + 1]]``, in
+    increasing order, and no two cells of one colour share a dof.
+
+    Greedy, in cell order: a cell takes the lowest colour that no earlier
+    cell sharing one of its 8 corner dofs holds (on a conforming hex mesh
+    two cells that share a dof share a corner); on a box's cells in C order
+    that is the parity colouring, (cx % 2, cy % 2, cz % 2), 8 colours.
+    Every colour is then checked against all of its cells' dofs (host,
+    once; the same result on every build)."""
+    dm = np.asarray(dofmap)
+    nc = dm.shape[0]
+    corners = dm.reshape(nc, m, m, m)[:, :: m - 1, :: m - 1, :: m - 1].reshape(nc, 8)
+    _, vid = np.unique(corners, return_inverse=True)
+    used = [0] * (int(vid.max()) + 1)
+    colour = []
+    for vs in vid.reshape(nc, 8).tolist():
+        busy = 0
+        for v in vs:
+            busy |= used[v]
+        bit = ~busy & (busy + 1)  # the lowest colour free at every corner
+        for v in vs:
+            used[v] |= bit
+        colour.append(bit.bit_length() - 1)
+    colour = np.asarray(colour, dtype=np.int64)
+    counts = np.bincount(colour)
+    ndofs = int(dm.max()) + 1
+    for c in range(counts.size):
+        if np.bincount(dm[colour == c].ravel(), minlength=ndofs).max() > 1:
+            raise ValueError(f"cells of colour {c} share a dof but no corner: the "
+                             "mesh is not a conforming hex mesh")
+    starts = np.zeros(counts.size + 1, dtype=np.int64)
     np.cumsum(counts, out=starts[1:])
-    return order, starts.astype(np.int32)
+    return (np.argsort(colour, kind="stable").astype(np.int32),
+            starts.astype(np.int32))
 
 
-def scatter_csr(ye: torch.Tensor, order: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-    """y[d] = sum over k in [starts[d], starts[d+1]) of ye.ravel()[order[k]],
-    summed in that order: ((0 + s0) + s1) + ..., as kernel K's scatter phase
-    sums (plain torch, one masked pass per multiplicity)."""
-    vals = ye.reshape(-1)[order.long()]
-    lo = starts[:-1].long()
-    counts = starts[1:].long() - lo
-    y = ye.new_zeros(counts.numel())
-    for j in range(int(counts.max())):
-        live = counts > j
-        y[live] += vals[lo[live] + j]
+def scatter_coloured(ye: torch.Tensor, dofmap: torch.Tensor, cells: torch.Tensor,
+                     colour_starts: torch.Tensor, ndofs: int) -> torch.Tensor:
+    """y = 0, then y[dofmap[c]] += ye[c] for the cells of each colour in
+    turn (:func:`colour_cells`): each dof's sum is ((0 + s_0) + s_1) + ... in
+    colour order, as kernel K's colour launches add (plain torch; no index
+    repeats within a colour)."""
+    y = ye.new_zeros(ndofs)
+    bounds = colour_starts.tolist()
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        c = cells[lo:hi].long()
+        idx = dofmap[c].reshape(-1).long()
+        y[idx] += ye[c].reshape(-1)
     return y

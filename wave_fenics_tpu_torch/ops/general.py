@@ -15,13 +15,15 @@ four modes (the TPU kernel's, ``pallas_general.py:401-529``):
 - ``stiffness_gauss``: the full-G stiffness at non-collocated points.
 
 :class:`GeneralTables` holds what both implementations read on a device:
-the dofmap, the scatter lists (``gather_scatter.build_scatter_csr``), the 1D
-tables B and D, and the geometry per node (or per cell and w for affine
-cells). :func:`general_apply_plain` is plain torch: gather ->
-``element_kernels`` -> the same fixed-order scatter (``scatter_csr``).
-:func:`general_apply_cuda` launches kernel K
-(``csrc/general_kernels.cu``: an element phase and a scatter phase, no
-atomics, so two applies agree bit for bit). :func:`general_apply`
+the dofmap, the colouring of the cells (``gather_scatter.colour_cells``:
+no two cells of one colour share a dof), the 1D tables B and D, and the
+geometry per node (or per cell and w for affine cells).
+:func:`general_apply_plain` is plain torch: gather -> ``element_kernels``
+-> the same coloured scatter (``scatter_coloured``).
+:func:`general_apply_cuda` launches kernel K (``csrc/general_kernels.cu``:
+y = 0, then one launch per colour that adds its cells' coeff E(x_e)
+straight into y; no atomics, so two applies agree bit for bit; the
+collocated stiffness on a column-per-thread kernel). :func:`general_apply`
 dispatches on the tensor's device: CPU -> plain, CUDA -> kernel K.
 
 The TPU kernel's window and chain tables (``ops/general_tables.py``), gather
@@ -48,15 +50,19 @@ __all__ = [
     "general_apply",
     "general_apply_plain",
     "general_apply_cuda",
+    "launch_args",
 ]
 
 MODES = ("mass", "stiffness", "mass_gauss", "stiffness_gauss")
 #: highest degree kernel K takes (nd = 343 nodes per cell); the JAX package
 #: leaves p > 6 to XLA (``operators.py:405-411``)
 MAX_DEGREE = 6
-#: threads of an element-phase block, and the shared memory one may use
-#: (H100: 227 KB)
+#: threads of a ``general_element_kernel`` block (kThreads), the most
+#: threads of a ``general_stiffness_kernel`` block (kColumnThreads: one a
+#: (j, k) column of a cell), and the shared memory a block may use (H100:
+#: 227 KB)
 THREADS = 128
+COLUMN_THREADS = 256
 SMEM_LIMIT = 232_448
 #: the symmetric G entries in table order
 SYM = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
@@ -66,15 +72,18 @@ SYM = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 class GeneralTables:
     """The device tables of one operator mode.
 
-    dofmap [nc, m^3] int32; order [nc m^3] and starts [ndofs + 1] int32 (the
-    scatter lists); B, D [nq, m]; geo [ngeo, nc, npts] per point, or
-    [ngeo, nc] with w [npts] for affine cells (ngeo = 1 for the masses, 6
-    for the stiffnesses; npts = m^3 collocated, nq^3 otherwise)."""
+    dofmap [nc, m^3] int32; cells [nc] int32 on the tables' device and
+    colour_starts [ncolours + 1] int32 on the CPU (the colouring of
+    ``gather_scatter.colour_cells``); ndofs; B, D [nq, m]; geo
+    [ngeo, nc, npts] per point, or [ngeo, nc] with w [npts] for affine
+    cells (ngeo = 1 for the masses, 6 for the stiffnesses; npts = m^3
+    collocated, nq^3 otherwise)."""
 
     mode: str
     dofmap: torch.Tensor
-    order: torch.Tensor
-    starts: torch.Tensor
+    cells: torch.Tensor
+    colour_starts: torch.Tensor
+    ndofs: int
     B: torch.Tensor
     D: torch.Tensor
     geo: torch.Tensor
@@ -91,8 +100,8 @@ class GeneralTables:
         return self.w is not None
 
     @property
-    def ndofs(self) -> int:
-        return self.starts.numel() - 1
+    def ncolours(self) -> int:
+        return self.colour_starts.numel() - 1
 
     @property
     def ncells(self) -> int:
@@ -119,15 +128,22 @@ class GeneralTables:
 
 def launch_shape(mode: str, m: int, nq: int, itemsize: int) -> tuple[int, int, int]:
     """(cells per block, shared-memory elements per cell, shared-memory
-    bytes) of kernel K's element phase; raises a ValueError where p > 6 or
-    the cell's buffers do not fit the card's shared memory."""
+    bytes) of kernel K's element launches; raises a ValueError where p > 6
+    or the cell's buffers do not fit the card's shared memory.
+
+    The collocated stiffness (``general_stiffness_kernel<T, M>``): one
+    thread per (j, k) column, COLUMN_THREADS // m^2 cells a block, x_e, w_1
+    and w_2 of each cell and the table D in static shared memory. The other
+    modes (``general_element_kernel``): THREADS // points cells a block,
+    dynamic shared memory."""
     if m - 1 > MAX_DEGREE:
         raise ValueError(f"kernel K takes p <= {MAX_DEGREE}, not p = {m - 1}")
     Q = max(m, nq)
+    if mode == "stiffness":
+        cpb, stride = max(1, COLUMN_THREADS // m**2), 3 * m**3
+        return cpb, stride, (cpb * stride + m * m) * itemsize
     if mode == "mass":
         points, stride = m**3, 0
-    elif mode == "stiffness":
-        points, stride = m**3, 4 * m**3  # x_e and w_0..w_2
     else:  # x_e; the three gradients and two temporaries at max(m, nq)^3
         points, stride = Q**3, m**3 + 5 * Q**3
     cpb = max(1, THREADS // points)
@@ -141,7 +157,7 @@ def launch_shape(mode: str, m: int, nq: int, itemsize: int) -> tuple[int, int, i
 
 def general_apply_plain(x: torch.Tensor, t: GeneralTables, coeff=1.0) -> torch.Tensor:
     """y = coeff S(E(x_e)) in plain torch: gather, the element kernel of
-    ``t.mode``, the fixed-order scatter of kernel K."""
+    ``t.mode``, the coloured scatter of kernel K in its order."""
     m, nq, nc = t.m, t.nq, t.ncells
     xe = gs.gather_indexed(x, t.dofmap).reshape(nc, m, m, m)
     geo = t.geometry().reshape(-1, nc, nq, nq, nq)
@@ -154,19 +170,33 @@ def general_apply_plain(x: torch.Tensor, t: GeneralTables, coeff=1.0) -> torch.T
                                       for b in range(3)], dim=-1)
                          for a in range(3)], dim=-2)  # [nc, q, q, q, 3, 3]
         ye = ek.stiffness_element_full(xe, t.B, t.D, G, coeff)
-    return gs.scatter_csr(ye, t.order, t.starts)
+    return gs.scatter_coloured(ye, t.dofmap, t.cells, t.colour_starts, t.ndofs)
+
+
+def launch_args(x: torch.Tensor, out: torch.Tensor, t: GeneralTables, coeff=1.0,
+                colour_starts: torch.Tensor | None = None) -> tuple:
+    """The arguments of the C launcher ``wave_general_apply`` (kernel K) up
+    to the stream: the vectors, the dofmap, the colouring (``colour_starts``
+    in place of ``t``'s, where given), the tables, the mode and the launch
+    shape of :func:`launch_shape`."""
+    m, nq = t.m, t.nq
+    cpb, stride, smem = launch_shape(t.mode, m, nq, x.element_size())
+    cs = t.colour_starts if colour_starts is None else colour_starts
+    return (x, out, t.dofmap, t.cells, cs, cs.numel() - 1, t.B, t.D, t.geo, t.w,
+            MODES.index(t.mode), int(t.affine), m, nq, t.ncells, t.ndofs, cpb,
+            stride, smem, float(coeff))
 
 
 def general_apply_cuda(
     x: torch.Tensor, t: GeneralTables, coeff=1.0, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """y = coeff S(E(x_e)) with kernel K (an element launch and a scatter
-    launch; one count). ``coeff`` is a number or a 0-d tensor; ``out``
+    """y = coeff S(E(x_e)) with kernel K (y set to 0, then one launch per
+    colour; one count). ``coeff`` is a number or a 0-d tensor; ``out``
     (optional) must not alias ``x``."""
     m, nq, nc, nd = t.m, t.nq, t.ncells, t.m**3
-    cpb, stride, smem = launch_shape(t.mode, m, nq, x.element_size())
     if out is None:
         out = torch.empty_like(x)
+    args = launch_args(x, out, t, coeff)  # raises where p > 6
     ngeo = 1 if t.mode.startswith("mass") else 6
     geo_shape = (ngeo, nc) if t.affine else (ngeo, nc, t.npts)
     floats = dict(x=(x, (t.ndofs,)), y=(out, (t.ndofs,)), B=(t.B, (nq, m)),
@@ -175,13 +205,11 @@ def general_apply_cuda(
         floats["w"] = (t.w, (t.npts,))
     _cuda.check_operands(x.device, x.dtype, **floats)
     _cuda.check_index_operands(x.device, dofmap=(t.dofmap, (nc, nd)),
-                               order=(t.order, (nc * nd,)),
-                               starts=(t.starts, (t.ndofs + 1,)))
+                               cells=(t.cells, (nc,)))
+    _cuda.check_index_operands(torch.device("cpu"),
+                               colour_starts=(t.colour_starts, (t.ncolours + 1,)))
     _cuda.check_no_alias((out,), (x,))
-    ye = torch.empty((nc, nd), dtype=x.dtype, device=x.device)
-    _cuda.launch("wave_general_apply", x.dtype, x.device, x, out, ye, t.dofmap,
-                 t.order, t.starts, t.B, t.D, t.geo, t.w, MODES.index(t.mode),
-                 int(t.affine), m, nq, nc, t.ndofs, cpb, stride, smem, float(coeff))
+    _cuda.launch("wave_general_apply", x.dtype, x.device, *args)
     general_apply_cuda.launches += 1
     return out
 

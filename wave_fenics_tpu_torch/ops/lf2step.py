@@ -15,8 +15,8 @@ Implementations:
   by tile (3p-deep slab windows, three nested stencil windows, the same
   tables);
 - :func:`lf2_step_cuda`: the hand-written CUDA kernel
-  (``csrc/wave_kernels.cu::lf_phase_kernel``), three launches per call
-  (OPEN, MID, CLOSE).
+  (``csrc/lf_tiled.cu::lf_phase_tiled_kernel``, kernel H's), three launches
+  per call (OPEN, MID, CLOSE).
 
 :func:`lf2_step` dispatches on the tensor's device: CPU -> plain, CUDA ->
 kernel (or raise).

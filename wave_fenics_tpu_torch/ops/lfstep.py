@@ -16,8 +16,9 @@ Implementations:
   tile (2p-deep slab windows, band-matrix x term, all 2(2p+1) rolled y/z
   taps summed in chunks of 9, the same tables);
 - :func:`lf_step_cuda`: the hand-written CUDA kernel
-  (``csrc/wave_kernels.cu::lf_phase_kernel``), two launches per step
-  (OPEN, CLOSE).
+  (``csrc/lf_tiled.cu::lf_phase_tiled_kernel``, the 2.5D tiled stencil with
+  TMA plane loads on the tiling of ``tiling.tma_geometry``), two launches
+  per step (OPEN, CLOSE).
 
 :func:`lf_step` dispatches on the tensor's device: CPU -> plain, CUDA ->
 kernel (or raise).
@@ -31,9 +32,16 @@ import numpy as np
 import torch
 
 from ..convert import numpy_dtype
-from . import _cuda
+from . import _cuda, tiling
 from .rk4step import _TileStep
-from .wave import PaddedLayout, StencilTables, axis_cv_tables, check_stencil, stencil_args
+from .wave import (
+    PaddedLayout,
+    StencilTables,
+    axis_cv_tables,
+    check_stencil,
+    stencil_args,
+    tma_launch_geometry,
+)
 
 __all__ = [
     "LFTables",
@@ -42,12 +50,13 @@ __all__ = [
     "lf_step",
     "lf_step_plain",
     "lf_step_cuda",
+    "lf_launch_args",
     "LF_OPEN",
     "LF_MID",
     "LF_CLOSE",
 ]
 
-#: phases of ``lf_phase_kernel`` (csrc/wave_kernels.cu::LfPhase)
+#: phases of ``lf_phase_tiled_kernel`` (csrc/lf_tiled.cu::LfPhase)
 LF_OPEN, LF_MID, LF_CLOSE = 0, 1, 2
 #: the 2(2p+1) y/z roll terms are summed in chunks of this many (the TPU
 #: kernels' ``yz_chunk``)
@@ -228,20 +237,35 @@ def lf_step_plain(
     return ts.finish(u1, v1)
 
 
+def lf_launch_args(
+    phase: int, u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor | None,
+    v_out: torch.Tensor, dt: float, g: float, layout: PaddedLayout, c0: float,
+    st: StencilTables, w1: torch.Tensor, w2: torch.Tensor, src_x: int, abc_x: int,
+) -> tuple:
+    """The arguments of the C launcher ``wave_lf_phase_tiled`` (kernels H
+    and I) up to the stream: the phase, the fields (``u_out`` None in
+    CLOSE), the face planes and rows, the scalars, the stencil, then the
+    tiling of ``tiling.tma_geometry`` (``fields=1, extra=0``: one TMA box
+    of u a plane) on this card and ``tiling.tma_padding_first``."""
+    grid, ty, tz, cx, smem = tma_launch_geometry(u, layout, 1, 0)
+    sms = tiling.sm_count(u.device.index) if u.is_cuda else tiling.H100_SMS
+    first = tiling.tma_padding_first(grid, u.element_size(), sms)
+    return (phase, u, v, 0 if u_out is None else u_out, v_out, w1, w2, int(src_x),
+            int(abc_x), float(dt), float(g), float(c0), *stencil_args(layout, st),
+            ty, tz, cx, *grid, smem, int(first))
+
+
 def launch_lf_phase(
     kernel, phase: int, u: torch.Tensor, v: torch.Tensor,
     u_out: torch.Tensor | None, v_out: torch.Tensor, dt: float, g: float,
     layout: PaddedLayout, c0: float, st: StencilTables, w1: torch.Tensor,
     w2: torch.Tensor, src_x: int, abc_x: int,
 ) -> None:
-    """One launch of ``lf_phase_kernel`` (kernels H and I; operands checked
-    by the caller); adds one to ``kernel.launches``. CLOSE writes v_out
-    only (``u_out`` None)."""
-    _cuda.launch(
-        "wave_lf_phase", u.dtype, u.device, phase, u, v,
-        0 if u_out is None else u_out, v_out, w1, w2, int(src_x), int(abc_x),
-        float(dt), float(g), float(c0), *stencil_args(layout, st),
-    )
+    """One launch of ``lf_phase_tiled_kernel`` (kernels H and I; operands
+    checked by the caller); adds one to ``kernel.launches``. CLOSE writes
+    v_out only (``u_out`` None)."""
+    _cuda.launch("wave_lf_phase_tiled", u.dtype, u.device, *lf_launch_args(
+        phase, u, v, u_out, v_out, dt, g, layout, c0, st, w1, w2, src_x, abc_x))
     kernel.launches += 1
 
 

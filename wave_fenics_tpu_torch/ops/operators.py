@@ -279,9 +279,7 @@ class GeneralOperators:
     def tables(self, mode: str, device: torch.device) -> GeneralTables:
         """Kernel K's tables of ``mode`` on ``device`` (built once each)."""
         (dofmap,) = self._tensors("dofmap", device, lambda: (self._dofmap,), torch.int32)
-        order, starts = self._tensors(
-            "csr", device, lambda: gs.build_scatter_csr(self._dofmap, self.ndofs),
-            torch.int32)
+        (cells,) = self._tensors("colours", device, lambda: self.colouring[:1], torch.int32)
         B, D = self._tensors("BD", device, lambda: (self._B, self._D))
         af = self._affine if mode in ("mass", "stiffness") else None
         nc = self.mesh.ncells
@@ -296,7 +294,18 @@ class GeneralOperators:
             return (np.stack([G[:, :, a, b] for a, b in SYM]),)
 
         geo = self._tensors(("geo", mode), device, make)
-        return GeneralTables(mode, dofmap, order, starts, B, D, *geo)
+        return GeneralTables(mode, dofmap, cells, self._colour_starts, self.ndofs, B, D,
+                             *geo)
+
+    @cached_property
+    def colouring(self) -> tuple[np.ndarray, np.ndarray]:
+        """(cells, colour_starts) of ``gather_scatter.colour_cells``: kernel
+        K's colours, no two cells of one share a dof (NumPy, host, once)."""
+        return gs.colour_cells(self._dofmap, self.dofs.p + 1)
+
+    @cached_property
+    def _colour_starts(self) -> torch.Tensor:
+        return torch.as_tensor(self.colouring[1], dtype=torch.int32)
 
     def _apply(self, op: str, x: torch.Tensor, coeff) -> torch.Tensor:
         if x.device.type not in ("cpu", "cuda"):

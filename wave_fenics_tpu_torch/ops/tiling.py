@@ -32,7 +32,7 @@ __all__ = [
     "TILE_THREADS", "TILE_Z", "CHUNK_X", "PIPE", "PLANE_FIELDS", "BLOCKS_PER_SM",
     "H100_SMS", "RING", "BOX_MAX", "CHUNK_X_TMA", "PADDING_LAYERS", "blocks_per_sm",
     "tma_blocks_per_sm", "tiled_geometry", "tma_window", "tma_smem_bytes",
-    "tma_geometry", "sm_count",
+    "tma_geometry", "tma_padding_first", "sm_count",
 ]
 
 #: the tiling limits: threads of a tile block at most (stencil_tiled.cuh
@@ -177,6 +177,21 @@ def _tma_geometry(shape, p, h, itemsize, sms, fields, extra):
     cx = _cdiv(Nx, chunks)
     smem = tma_smem_bytes(tma_window(h, p, ty, tz, itemsize), itemsize, fields, extra)
     return (nz_tiles, ny_tiles, _cdiv(Nx, cx) + PADDING_LAYERS), ty, tz, cx, smem
+
+
+def tma_padding_first(grid, itemsize: int = 4, sms: int = H100_SMS) -> bool:
+    """Whether a TMA kernel's padding layer should be the grid's first
+    (kernels H and I, ``csrc/lf_tiled.cu``): where the tile blocks take more
+    than one wave of the card's block slots. Last, the padding blocks would
+    wait for the tile blocks' last wave and end after it; first, they share
+    the first wave and delay some tile blocks by their own short time.
+    Where the tile blocks fit one wave, the padding layer goes last: its
+    blocks take the slots the tiles leave and delay none of them (on the
+    H100, f32: P2 at p = 4, 525 tile blocks in 264 slots, first; P3 at
+    p = 8, 225 tile blocks, last)."""
+    gx, gy, gz = grid
+    tiles = gx * gy * (gz - PADDING_LAYERS)
+    return tiles > sms * tma_blocks_per_sm(itemsize)
 
 
 @functools.cache

@@ -511,7 +511,10 @@ def apply_slab_plain(
     return out
 
 
-def _geometry(x: torch.Tensor, layout: PaddedLayout, fields: int, extra: int):
+def tma_launch_geometry(x: torch.Tensor, layout: PaddedLayout, fields: int,
+                        extra: int):
+    """``tiling.tma_geometry`` of ``layout`` for ``x``'s type on ``x``'s card
+    (the H100's SM count for a tensor that is not on a card)."""
     sms = tiling.sm_count(x.device.index) if x.is_cuda else tiling.H100_SMS
     return tiling.tma_geometry(layout, x.element_size(), sms, fields, extra)
 
@@ -520,7 +523,7 @@ def slab_launch_args(xp, out, layout: PaddedLayout, tables) -> tuple:
     """The arguments of the C launcher ``wave_apply_slab_tiled`` (kernel E)
     up to the stream: x, y, the six tables, the layout, then the tiling of
     ``tiling.tma_geometry`` on this card."""
-    grid, ty, tz, cx, smem = _geometry(xp, layout, 1, 0)
+    grid, ty, tz, cx, smem = tma_launch_geometry(xp, layout, 1, 0)
     Lx, Ly, Lz = layout.padded_shape
     Nx, Ny, Nz = layout.shape
     return (xp, out, *tables, layout.p, Lx, Ly, Lz, layout.x0, Nx, layout.h, Ny,
@@ -616,7 +619,7 @@ def rk_stage_launch_args(u0, ku, v0, kv, ua, va, vn, kvp, uap, vap, ca, cb, g,
     up to the stream: the fields, the face planes and rows, the scalars,
     the stencil, then the tiling of ``tiling.tma_geometry`` (``fields=2,
     extra=2``) on this card."""
-    grid, ty, tz, cx, smem = _geometry(u0, layout, 2, 2)
+    grid, ty, tz, cx, smem = tma_launch_geometry(u0, layout, 2, 2)
     return (u0, ku, v0, kv, ua, va, vn, kvp, uap, vap, w1, w2, int(src_x),
             int(abc_x), float(ca), float(cb), float(g), float(c0),
             *stencil_args(layout, st), ty, tz, cx, *grid, smem)
