@@ -40,11 +40,13 @@ its last line:
    error is the larger of |du|/max|u_ref| and |dv|/max|v_ref|; kernel C,
    like A, runs from NaN-filled buffers and is timed stage by stage;
 6. kernels F (the separable stiffness on the unpadded grid) and G (the
-   BP1 consistent mass on the padded layout) against their plain versions:
-   f64 small (F: (4,2,2) and (4,2,3) cells, p in {2, 4}, Nx = 17 at p=4;
-   G: (3,2,2) cells, p in {1, 2, 4, 8}), limit 1e-12 relative; f32 at the
-   reference's BP1 size (64^3 cells, p=4, 16,974,593 dofs), limit 1e-5 of
-   max|ref|, G's padding exactly 0; with times against each bound, and G
+   BP1 consistent mass on the padded layout, csrc/mass_tiled.cu) against
+   their plain versions: f64 small (F: (4,2,2) and (4,2,3) cells, p in
+   {2, 4}, Nx = 17 at p=4; G: (3,2,2) and (5,3,4) cells at every p =
+   1..8, from an output full of NaN, also against the plain twin in G's
+   z, y, x order), limit 1e-12 relative; f32 at the reference's BP1 size
+   (64^3 cells, p=4, 16,974,593 dofs), limit 1e-5 of max|ref|, G's
+   padding exactly 0 (from NaN); with times against each bound, and G
    beside the one PyTorch call that computes its function (torch.einsum
    of the three assembled 1D mass matrices, dense, with the grid; TF32
    off), which must agree to 1e-5 of max|ref|;
@@ -100,23 +102,30 @@ its last line:
     (planar3d p = 10, 26x13x13 cells, 4,479,021 dofs, padded (304, 152,
     256)), limit 1e-5 of max|ref|; each from an output buffer full of NaN,
     the padding then exactly 0; with its time against the bound;
-13. kernel J (two full-tableau RK4 steps, 7 launches) against its plain
-    version (f64, (4,2,2) cells, tile 24, p in {2, 4}, 25 steps, the odd
-    last step on kernel C; limit 1e-12 relative) and against kernel C's
-    steps (1e-13); f32 at the P1 width, 50 steps, limit 1e-4; with its time
-    per two steps against two kernel-C steps and the bound;
+13. kernel J (two full-tableau RK4 steps, 7 launches; its step boundary
+    csrc/rk42_tiled.cu) against its plain version (f64, (4,2,2) cells,
+    tile 24 or the 6p halo above it, every p = 1..8, 25 steps from NaN in
+    every kernel buffer, the odd last step on kernel C; limit 1e-12
+    relative) and against kernel C's steps (1e-13); the step boundary
+    alone against its plain version (f64 at p in {2, 4, 8}, 1e-12 per
+    field; f32 at the P1 width on the stages of a J call, 1e-5), from
+    outputs full of NaN, their padding exactly 0; f32 at the P1 width, 50
+    steps, limit 1e-4; with its time per two steps against two kernel-C
+    steps and the bound, and the boundary launch's time against its own
+    bound (8 state fields);
 14. the new app paths, each counted alone (warm-up call included): P12 RK4
     p = 10 on kernel E (4 x (3,762 + 1) launches), P13 leapfrog p = 10 on
     kernel E ((5,299 + 1) + 2), P14 ``--two-step`` at the P1 configuration
-    (kernel J 7 x (744 + 1) = 5,215, kernel A 4 for the odd last step), and
+    (kernel J 7 x (744 + 1) = 5,215, its step boundary 745 of them, kernel
+    A 4 for the odd last step), and
     P15: the P1 configuration through ``--config`` and ``--checkpoint-dir``,
     300 steps in chunks of 100, snapshots at steps 100 and 200, then a
     second call that resumes from step 200; each call's final state within
     1e-5 relative of one unchunked 300-step run.
 
 It prints one JSON line of per-kernel results ("kernels": all eleven
-kernels, each with the launches of its path's run; kernel B's path is the
-f1-path RK4 check) and, last, one JSON line ``{"ok": true, "device":
+kernels, each with the launches of its path's run, and J's step boundary
+alone; kernel B's path is the f1-path RK4 check) and, last, one JSON line ``{"ok": true, "device":
 {...}}``. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
@@ -325,15 +334,22 @@ def main() -> None:
         return sum(t.numel() * t.element_size()
                    for t in (*pm.stencil, pm.face_w1, pm.face_w2))
 
-    def bound(pm, fields, applies, pointwise_flops):
-        """(bound_ms, bound_by): the larger of the compulsory bytes (each
-        state field in or out once, plus the tables) over the HBM rate and
-        the flops on the interior points over the f32 peak. One stencil
-        apply is 6K + 2 flops a point (K = 2p + 1; csrc/stencil.cuh: K x
-        taps, 2K - 1 y/z taps, 2 FMA flops each, the merged shift-0 tap's
-        add and the two line products and their sum)."""
+    def interior_bytes(pm):
+        return math.prod(pm.layout.shape) * torch.finfo(pm.base.dtype).bits // 8
+
+    def bound(pm, ins, outs, applies, pointwise_flops):
+        """(bound_ms, bound_by): the larger of the compulsory bytes over the
+        HBM rate and the flops on the interior points over the f32 peak.
+        The compulsory bytes, by the rule every bound of this script uses:
+        each input field's interior read once (its padding is 0 by the
+        layout's invariant, so no result depends on it), each output field
+        written once on its whole padded box (0 in the padding), plus the
+        tables. One stencil apply is 6K + 2 flops a point (K = 2p + 1;
+        csrc/stencil.cuh: K x taps, 2K - 1 y/z taps, 2 FMA flops each, the
+        merged shift-0 tap's add and the two line products and their
+        sum)."""
         K = 2 * pm.layout.p + 1
-        nbytes = fields * field_bytes(pm) + table_bytes(pm)
+        nbytes = ins * interior_bytes(pm) + outs * field_bytes(pm) + table_bytes(pm)
         flops = math.prod(pm.layout.shape) * (applies * (6 * K + 2) + pointwise_flops)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -414,7 +430,7 @@ def main() -> None:
     b_ms = 1e3 * timeit(lambda: wave.apply_flat_cuda(x, hpm.layout, hpm.stencil, out=out_b))
     b_plain_ms = 1e3 * timeit(
         lambda: wave.apply_flat_plain(x, hpm.layout, hpm.flat_tables), reps=5)
-    b_bound = bound(hpm, 2, 1, 0)
+    b_bound = bound(hpm, 1, 1, 1, 0)
     print(f"f32 headline: kernel {b_ms:.4f} ms/apply, plain {b_plain_ms:.4f} "
           f"ms/apply, bound {b_bound[0]:.4f} ms ({b_bound[1]}) [{smi}]")
     del x, yk, yp, out_b
@@ -461,10 +477,11 @@ def main() -> None:
         uk, vk, case.dt, gs, hpm.layout, hpm.base.c0, hpm.step_tables), reps=5)
     # u0, v0 in and u1, v1 out once; four stencil applies and ~20 point-wise
     # flops a point
-    a_bound = bound(hpm, 4, 4, 20)
-    # what four launches must move: J0 u0 -> kv0, J1 u0, v0 -> kv1, J2 u0,
-    # v0, kv0 -> kv2, J3 u0, v0, kv0, kv1, kv2 -> u1, v1: 16 field passes
-    floor_ms = 1e3 * 16 * field_bytes(hpm) / HBM_BYTES_PER_S
+    a_bound = bound(hpm, 2, 2, 4, 20)
+    # what four launches must move, by bound's rule (inputs' interiors,
+    # padded outputs): J0 u0 -> kv0, J1 u0, v0 -> kv1, J2 u0, v0, kv0 ->
+    # kv2, J3 u0, v0, kv0, kv1, kv2 -> u1, v1: 11 fields in, 5 out
+    floor_ms = 1e3 * (11 * interior_bytes(hpm) + 5 * field_bytes(hpm)) / HBM_BYTES_PER_S
     grid, ty, tz, cx, smem = tiling.tiled_geometry(hpm.layout, 4)
     print(f"f32 headline (tiles {ty}x{tz}, x-chunks of {cx}, grid {grid}, "
           f"{smem} B shared): kernel {sum(a_stage_us) / 1e3:.4f} ms/step "
@@ -472,20 +489,22 @@ def main() -> None:
           f"{', '.join(f'{t:.2f}' for t in a_stage_us)} us; through the wrapper "
           f"{a_ms:.4f} ms/step), plain {a_plain_ms:.4f} "
           f"ms/step, bound {a_bound[0]:.4f} ms ({a_bound[1]}), 4-launch floor "
-          f"{floor_ms:.4f} ms (16 field passes) [{smi}]")
+          f"{floor_ms:.4f} ms (11 fields in, 5 out) [{smi}]")
     del u0, v0, uk, vk, up, vp, bufs, hpm
 
     # -- 5. kernels C, D, H, I ----------------------------------------------
     results = {}  # kernel -> (max_abs_err, ms, plain_ms, (bound_ms, bound_by))
 
     # the kernel buffers each solver writes: (pairs, first scratch fields)
-    nscratch = {"full": 3, "lf": 1, "lf2": 3}
+    nscratch = {"full": 3, "lf": 1, "lf2": 3, "rk42": 6}
 
     def check_small(name, kind, ps, tol=1e-12, **model_kw):
         for p in ps:
             kw = dict(model_kw)
             if kind in ("lf", "lf2"):  # kernel I's 3p-deep halo: tile 24 from p = 6
                 kw.setdefault("tile_x", max(16, lf2step._off0(p)))
+            if kind == "rk42":  # kernel J's 6p-deep halo: tile 24, 32 from p = 5
+                kw["tile_x"] = max(kw.get("tile_x", 16), rk42step._off0(p))
             spm = small_model(p, **kw)
             if kind in nscratch:  # kernels C, H, I from NaN in every buffer, as A
                 nan_workspace(spm)
@@ -507,8 +526,7 @@ def main() -> None:
                       f"{rel:.3e} (limit 1e-13)")
                 check(rel <= 1e-13, f"kernel C vs kernel A p={p}")
             if name == "J":  # the same steps, one step per call of kernel C
-                uc, vc = kernel_solve(small_model(p, **model_kw), "full", 1e-9, 25,
-                                      u0, v0)
+                uc, vc = kernel_solve(small_model(p, **kw), "full", 1e-9, 25, u0, v0)
                 _, rel = state_err(uk, vk, uc, vc)
                 print(f"kernel J vs kernel C f64 p={p}: relative error "
                       f"{rel:.3e} (limit 1e-13)")
@@ -547,7 +565,7 @@ def main() -> None:
     c_plain_ms = 1e3 * timeit(lambda: rk4step.rk4_step_full_plain(
         uk, vk, case.dt, gs, cpm.layout, cpm.base.c0, cpm.step_tables), reps=5)
     # the kernel's time per step: its four stage launches back to back
-    results["C"] = (c_err, sum(c_stage_us) / 1e3, c_plain_ms, bound(cpm, 4, 4, 30))
+    results["C"] = (c_err, sum(c_stage_us) / 1e3, c_plain_ms, bound(cpm, 2, 2, 4, 30))
     del uk, vk, bufs, cpm
 
     phase("kernel D (tiled TMA rk stage kernel) against rk_stage_plain")
@@ -591,8 +609,8 @@ def main() -> None:
     d_err, uk, vk = check_full_width("D", "fused", dpm, case8.dt)
     workspace_clean(dpm, nscratch=4)
     # six distinct inputs, as stages 1-3 of solve_fused_n give them
-    # (u0, ku = the last stage's vn, v0, kv, ua, va), so that the 10-field
-    # bound counts only bytes this call must move
+    # (u0, ku = the last stage's vn, v0, kv, ua, va), so that the bound's
+    # six inputs count only bytes this call must move
     ins = tuple(x.clone() for x in (uk, uk, vk, vk, uk, vk))
     dargs = (0.5 * case8.dt, case8.dt / 3.0, 1.0, dpm.layout, dpm.base.c0)
     face = (dpm.face_w1, dpm.face_w2, dpm.src_x, dpm.abc_x)
@@ -608,7 +626,7 @@ def main() -> None:
           f"{d_args[-5]}, grid {tuple(d_args[-4:-1])}, {d_args[-1]} B shared): "
           f"{d_ms:.4f} ms/launch (through the wrapper {d_wrapper_ms:.4f}) [{smi}]")
     # u0, ku, v0, kv, ua, va in and vn, kv', ua', va' out; one apply
-    results["D"] = (d_err, d_ms, d_plain_ms, bound(dpm, 10, 1, 8))
+    results["D"] = (d_err, d_ms, d_plain_ms, bound(dpm, 6, 4, 1, 8))
     del uk, vk, ins, bufs, dpm
 
     def phase_us(pm, phases, u, v, bufs, dt, gs):
@@ -644,7 +662,7 @@ def main() -> None:
     print(f"kernel H f32 P3: phases {h_phase_us} us, {sum(h_phase_us.values()) / 1e3:.4f} "
           f"ms/step (through the wrapper {h_wrapper_ms:.4f}) [{smi}]")
     results["H"] = (h_err, sum(h_phase_us.values()) / 1e3, h_plain_ms,
-                    bound(lpm, 4, 2, 12))
+                    bound(lpm, 2, 2, 2, 12))
     del uk, vk, bufs, lpm
 
     phase("kernel I (tiled TMA leapfrog phases OPEN, MID, CLOSE) against lf2_step_plain")
@@ -666,7 +684,7 @@ def main() -> None:
     print(f"kernel I f32 P2: phases {i_phase_us} us, {sum(i_phase_us.values()) / 1e3:.4f} "
           f"ms per 2 steps (through the wrapper {i_wrapper_ms:.4f}) [{smi}]")
     results["I"] = (i_err, sum(i_phase_us.values()) / 1e3, i_plain_ms,
-                    bound(ipm, 4, 3, 24))
+                    bound(ipm, 2, 2, 3, 24))
     del uk, vk, bufs, ipm
     for k, unit in (("C", "step"), ("D", "stage launch"), ("H", "step"),
                     ("I", "call of 2 steps")):
@@ -733,36 +751,49 @@ def main() -> None:
                     op_bound(2 * nbytes(x) + nbytes(*ftabs), x.numel() * (6 * 9 + 8)))
     del x, yk, yp, out_f
 
-    phase("kernel G (mass_apply) against mass_apply_plain")
-    for p in (1, 2, 4, 8):
-        lay, tabs, _ = mass.bp1_setup(box_mesh((3, 2, 2), (1.0, 0.8, 1.2)), p,
+    phase("kernel G (tiled TMA mass_apply) against mass_apply_plain")
+    # every p the kernel takes, on (3,2,2) cells and on (5,3,4), ragged
+    # against the tiling, each from an output full of NaN; also against the
+    # plain twin in the kernel's contraction order (z, y, x)
+    for p in range(1, 9):
+        for cells in ((3, 2, 2), (5, 3, 4)):
+            lay, tabs, _ = mass.bp1_setup(box_mesh(cells, (1.0, 0.8, 1.2)), p,
                                           torch.float64, dev)
-        x = random_padded(lay, 30 + p, torch.float64)
-        yk = mass.mass_apply_cuda(x, lay, tabs)
-        yp = mass.mass_apply_plain(x, lay, tabs)
-        torch.cuda.synchronize()
-        _, rel = rel_err(yk, yp)
-        print(f"f64 (3,2,2) p={p}, padded {lay.padded_shape}: max|err|/max|ref| = "
-              f"{rel:.3e} (limit 1e-12)")
-        check(rel <= 1e-12, f"kernel G f64 p={p}")
-        padding_zero(lay, yk)
+            x = random_padded(lay, 30 + p, torch.float64)
+            yk = mass.mass_apply_cuda(x, lay, tabs, out=torch.full_like(x, float("nan")))
+            yp = mass.mass_apply_plain(x, lay, tabs)
+            yz = mass.mass_apply_zyx_plain(x, lay, tabs)
+            torch.cuda.synchronize()
+            _, rel = rel_err(yk, yp)
+            _, rel_zyx = rel_err(yk, yz)
+            print(f"f64 {cells} p={p}, padded {lay.padded_shape}, from NaN: "
+                  f"max|err|/max|ref| = {rel:.3e}, against the z-y-x twin "
+                  f"{rel_zyx:.3e} (limit 1e-12)")
+            check(rel <= 1e-12 and rel_zyx <= 1e-12, f"kernel G f64 p={p} {cells}")
+            padding_zero(lay, yk)
     mesh64 = box_mesh((BP1["size"],) * 3, (1.0, 1.0, 1.0))
     glay, gtabs, _ = mass.bp1_setup(mesh64, BP1["degree"], torch.float32, dev)
     x = random_padded(glay, 31, torch.float32)
-    yk = mass.mass_apply_cuda(x, glay, gtabs)
+    yk = mass.mass_apply_cuda(x, glay, gtabs, out=torch.full_like(x, float("nan")))
     yp = mass.mass_apply_plain(x, glay, gtabs)
     torch.cuda.synchronize()
     g_err, rel = rel_err(yk, yp)
-    print(f"f32 padded {glay.padded_shape} p=4 ({nbytes(x) / 1e6:.1f} MB/field): "
-          f"max|err| = {g_err:.6e}, max|err|/max|ref| = {rel:.3e} (limit 1e-5)")
+    print(f"f32 padded {glay.padded_shape} p=4 ({nbytes(x) / 1e6:.1f} MB/field), "
+          f"from NaN: max|err| = {g_err:.6e}, max|err|/max|ref| = {rel:.3e} "
+          "(limit 1e-5)")
     check(rel <= 1e-5, "kernel G f32 agreement")
     padding_zero(glay, yk)
     out_g = torch.empty_like(x)
-    g_ms = 1e3 * timeit(lambda: mass.mass_apply_cuda(x, glay, gtabs, out=out_g))
+    g_wrapper_ms = 1e3 * timeit(lambda: mass.mass_apply_cuda(x, glay, gtabs, out=out_g))
+    g_args = mass.mass_launch_args(x, out_g, glay, gtabs)
+    g_ms = 1e3 * timeit(_cuda.launcher(_cuda.library(), "wave_mass_tiled", x.dtype, dev,
+                                       *g_args), reps=200)
     g_plain_ms = 1e3 * timeit(lambda: mass.mass_apply_plain(x, glay, gtabs), reps=5)
-    # x's interior in (its padding is zero, and bricks without an interior
-    # point read nothing), the padded y out; three banded contractions of
-    # 2(2p+1) flops on each interior point
+    print(f"kernel G f32 P7 (tiles {g_args[-7]}x{g_args[-6]}, x-chunks of "
+          f"{g_args[-5]}, grid {tuple(g_args[-4:-1])}, {g_args[-1]} B shared): "
+          f"{g_ms:.4f} ms/apply (through the wrapper {g_wrapper_ms:.4f}) [{smi}]")
+    # by bound's rule: x's interior in, the padded y out, the tables; three
+    # banded contractions of 2(2p+1) flops on each interior point
     results["G"] = (g_err, g_ms, g_plain_ms,
                     op_bound(math.prod(glay.shape) * x.element_size()
                              + nbytes(out_g, *gtabs),
@@ -852,9 +883,28 @@ def main() -> None:
 
     # -- 13. kernel J -------------------------------------------------------
     phase("kernel J (2-step RK4, 7 launches) against rk42_step_plain")
-    # tile 24 holds the 6p halo at p=4; lean=False puts the odd 25th step on
+    # every p the two-step path takes, on tile 24 or the 6p halo above it,
+    # from NaN in every kernel buffer; lean=False puts the odd 25th step on
     # kernel C, so the comparison with kernel C's steps is like for like
-    check_small("J", "rk42", (2, 4), tile_x=24, lean=False)
+    check_small("J", "rk42", range(1, 9), tile_x=24, lean=False)
+    # the step boundary alone (f64, one launch from random fields into
+    # outputs full of NaN) against its plain version
+    for p in (2, 4, 8):
+        spm = small_model(p, tile_x=max(24, rk42step._off0(p)))
+        ins = [random_padded(spm.layout, 70 + p + j, torch.float64, scale=sc)
+               for j, sc in enumerate((1.0, 1e3, 1e9, 1e9, 1e9))]
+        bface = (spm.layout, spm.base.c0, spm.stencil, spm.face_w1, spm.face_w2,
+                 spm.src_x, spm.abc_x)
+        got = rk42step._rk42_boundary_cuda(
+            *ins, 1e-9, 0.5, *bface,
+            out=tuple(torch.full_like(ins[0], float("nan")) for _ in range(3)))
+        want = rk42step.rk42_boundary_plain(*ins, 1e-9, 0.5, *bface)
+        torch.cuda.synchronize()
+        rel = max(rel_err(gk, wk)[1] for gk, wk in zip(got, want))
+        print(f"J's step boundary alone f64 (4,2,2) p={p}, from NaN: relative error "
+              f"{rel:.3e} per field (limit 1e-12)")
+        check(rel <= 1e-12, f"J's step boundary f64 p={p}")
+        padding_zero(spm.layout, *got)
     case, jpm = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda")
     j_err, uk, vk = check_full_width("J", "rk42", jpm, case.dt)
     gs5 = [jpm.base.g_amplitude(j * 0.5 * case.dt) for j in range(5)]
@@ -873,16 +923,45 @@ def main() -> None:
     c2_ms = 1e3 * timeit(two_c_steps)
     j_plain_ms = 1e3 * timeit(lambda: rk42step.rk42_step_plain(uk, vk, case.dt, gs5,
                                                                *face), reps=5)
+    # the step boundary alone at the P1 width, on the stages a J call leaves
+    # in bufs[2:5] (kv0, kv1, kv2 of (uk, vk)), into outputs full of NaN
+    rk42step.rk42_step_cuda(uk, vk, case.dt, gs5, *face, out=tuple(bufs[:2]),
+                            scratch=tuple(bufs[2:8]))
+    bins = (uk, vk, *bufs[2:5])
+    bface = (case.dt, gs5[2], *face)
+    jb_out = tuple(torch.full_like(uk, float("nan")) for _ in range(3))
+    got = rk42step._rk42_boundary_cuda(*bins, *bface, out=jb_out)
+    want = rk42step.rk42_boundary_plain(*bins, *bface)
+    torch.cuda.synchronize()
+    jb_err = max(rel_err(gk, wk)[0] for gk, wk in zip(got, want))
+    rel = max(rel_err(gk, wk)[1] for gk, wk in zip(got, want))
+    print(f"J's step boundary alone f32 P1 width, from NaN: max|err| = {jb_err:.6e}, "
+          f"relative {rel:.3e} per field (limit 1e-5)")
+    check(rel <= 1e-5, "J's step boundary f32 agreement")
+    padding_zero(jpm.layout, *got)
+    jb_args = rk42step.boundary_launch_args(
+        *bins, *jb_out, jpm.face_w1, jpm.face_w2, jpm.src_x, jpm.abc_x, case.dt, gs5[2],
+        jpm.base.c0, jpm.layout, jpm.stencil)
+    jb_ms = 1e3 * timeit(_cuda.launcher(_cuda.library(), "wave_rk42_boundary_tiled",
+                                        uk.dtype, dev, *jb_args), reps=200)
+    jb_plain_ms = 1e3 * timeit(lambda: rk42step.rk42_boundary_plain(*bins, *bface), reps=5)
+    # u0, v0, kv0, kv1, kv2 in and u1, v1, kv0' out once; two stencil
+    # applies and ~30 point-wise flops a point
+    results["Jb"] = (jb_err, jb_ms, jb_plain_ms, bound(jpm, 5, 3, 2, 30))
+    print(f"J's step boundary f32 P1 (tiles {jb_args[-7]}x{jb_args[-6]}, x-chunks of "
+          f"{jb_args[-5]}, grid {tuple(jb_args[-4:-1])}, {jb_args[-1]} B shared): "
+          f"{jb_ms * 1e3:.2f} us/launch, plain {jb_plain_ms:.4f} ms, bound "
+          f"{results['Jb'][3][0]:.4f} ms ({results['Jb'][3][1]}) [{smi}]")
     # u0, v0 in and u2, v2 out once; eight stencil applies (the boundary
     # launch makes two) and ~60 point-wise flops a point
-    results["J"] = (j_err, j_ms, j_plain_ms, bound(jpm, 4, 8, 60))
+    results["J"] = (j_err, j_ms, j_plain_ms, bound(jpm, 2, 2, 8, 60))
     print(f"kernel J: {j_ms:.4f} ms per 2 steps ({rk42step.LAUNCHES_PER_CALL} "
           f"launches), two kernel-C steps {c2_ms:.4f} ms (8 launches), plain "
           f"{j_plain_ms:.4f} ms, bound {results['J'][3][0]:.4f} ms "
           f"({results['J'][3][1]}) [{smi}]")
     print(f"kernel E: {e_ms:.4f} ms/apply, plain {e_plain_ms:.4f} ms, bound "
           f"{results['E'][3][0]:.4f} ms ({results['E'][3][1]}) [{smi}]")
-    del uk, vk, bufs, jpm
+    del uk, vk, bufs, jpm, bins, jb_out, got, want
 
     # -- 7. physics ---------------------------------------------------------
     phase("physics: f64 analytic plane wave through solve_step_n")
@@ -1053,10 +1132,13 @@ def main() -> None:
     p12, p13, p14 = (apps[label] for label, *_ in new_paths)
     launches["E"] = path_counts["P12 RK4 p=10, kernel E"]["E"]
     launches["J"] = path_counts["P14 RK4 two-step, kernel J"]["J"]
+    # one step-boundary launch in each call of kernel J's seven
+    launches["Jb"] = launches["J"] // rk42step.LAUNCHES_PER_CALL
     check(p12["ndofs"] == p13["ndofs"] == P12_DOFS and p14["ndofs"] == NDOFS, "ndofs")
     check(p12["nsteps"] == case12.nsteps == 3762, "P12 steps")
     check(p13["nsteps"] == math.ceil(case12.nsteps / 0.71) == 5299, "P13 steps")
-    check(p14["nsteps"] == 1489 and launches["J"] == 5215, "P14 steps and launches")
+    check(p14["nsteps"] == 1489 and launches["J"] == 5215 and launches["Jb"] == 745,
+          "P14 steps and launches")
     rel = abs(p14["u_norm"] - p1["u_norm"]) / p1["u_norm"]
     print(f"P14 against P1 (the same RK4, two steps per call): |u| relative "
           f"difference {rel:.3e} (limit 1e-4)")
@@ -1340,6 +1422,8 @@ def main() -> None:
     # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
     # since no app path at p <= 8 launches it)
     src = "wave_fenics_tpu_torch/csrc/wave_kernels.cu"
+    src_rk42 = "wave_fenics_tpu_torch/csrc/rk42_tiled.cu"
+    src_mass = "wave_fenics_tpu_torch/csrc/mass_tiled.cu"
     src_lf = "wave_fenics_tpu_torch/csrc/lf_tiled.cu"
     src_rk4 = "wave_fenics_tpu_torch/csrc/rk4_tiled.cu"
     src_slab = "wave_fenics_tpu_torch/csrc/slab_tiled.cu"
@@ -1374,9 +1458,10 @@ def main() -> None:
         "F": ("stiffness_grid_kernel (kernel F: separable stiffness on the "
               "unpadded grid, 64^3 cells, p=4; ms per apply)",
               "wave_fenics_tpu/ops/pallas_stiffness.py:146", src_ops),
-        "G": ("mass_apply_kernel (kernel G: BP1 consistent Gauss mass on the "
-              "padded layout, 64^3 cells, p=4; ms per apply)",
-              "wave_fenics_tpu/ops/pallas_mass.py:45", src_ops),
+        "G": ("mass_tiled_kernel<T, P> (kernel G: BP1 consistent Gauss mass on the "
+              "padded layout, 2.5D tiled with TMA plane loads, contracting z, y, x, "
+              "64^3 cells, p=4; ms per apply)",
+              "wave_fenics_tpu/ops/pallas_mass.py:45", src_mass),
         "K": ("general_zero_kernel + general_stiffness_kernel<T, M, Affine> per "
               "colour (kernel K: explicit-dofmap matvec, stiffness with per-node G "
               "on the perturbed 64x32x32-cell box, p=4, 8 colour launches; ms per "
@@ -1386,10 +1471,15 @@ def main() -> None:
               "layout, 2.5D tiled stencil with TMA plane loads, p=10, 26x13x13 "
               "cells; ms per apply)",
               "wave_fenics_tpu/ops/pallas_wave.py:128", src_slab),
-        "J": ("rk42_boundary_kernel + 6 stages of kernel C's rk4_tiled_kernel<T, "
-              "P, J> (csrc/rk4_tiled.cu) (kernel J: two full-tableau RK4 steps, 7 "
-              "launches, p=4; ms per call of 2 steps)",
-              "wave_fenics_tpu/ops/pallas_rk42step.py:97", src),
+        "J": ("rk42_boundary_tiled_kernel<T, P> + 6 stages of kernel C's "
+              "rk4_tiled_kernel<T, P, J> (csrc/rk4_tiled.cu) (kernel J: two "
+              "full-tableau RK4 steps, 7 launches, p=4; ms per call of 2 steps)",
+              "wave_fenics_tpu/ops/pallas_rk42step.py:97", src_rk42),
+        "Jb": ("rk42_boundary_tiled_kernel<T, P> alone (kernel J's step boundary: "
+               "step 1's stage 3, its full-tableau (u1, v1) and step 2's stage 0, "
+               "2.5D tiled with TMA plane loads of 5 fields, p=4, the P1 width; ms "
+               "per launch; launches: one per call on P14)",
+               "wave_fenics_tpu/ops/pallas_rk42step.py:97", src_rk42),
     }
     kernels = []
     for k, (name, replaces, source) in meta.items():
@@ -1414,6 +1504,8 @@ def main() -> None:
     by_name["C"]["stage_us"] = c_stage_us
     by_name["C"]["wrapper_ms_per_step"] = c_ms
     by_name["J"]["two_c_steps_ms"] = c2_ms
+    by_name["J"]["boundary_ms"] = jb_ms
+    by_name["G"]["wrapper_ms"] = g_wrapper_ms
     # "ms" of D and E: back-to-back launches; wrapper_ms: through the
     # wrapper, its operand checks included
     by_name["D"]["wrapper_ms"] = d_wrapper_ms

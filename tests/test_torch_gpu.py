@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (A to K) against their plain versions
-(float64; kernel E also in float32), kernels A, C, D and E also from output
-buffers full of NaN.
+(float64; kernel E also in float32), kernels A, C, D, E, G and J also from
+output buffers full of NaN.
 
 Every test here needs a CUDA card and skips without one. The file imports
 only torch and the port, so it runs on a machine without JAX:
@@ -411,6 +411,24 @@ def test_cuda_mass_apply_matches_plain(cuda, p):
     assert float(outside.abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("cells", [(3, 2, 2), (5, 3, 4)])
+@pytest.mark.parametrize("p", range(1, 9))
+def test_cuda_mass_tiled_every_p_over_nan(cuda, p, cells):
+    """Kernel G (csrc/mass_tiled.cu) at every p it takes, on a grid ragged
+    against its tiling too, from an output buffer full of NaN: against the
+    plain version and its plain twin in the kernel's z, y, x order (1e-12),
+    the padding of y exactly zero."""
+    layout, tables, _ = mass.bp1_setup(box_mesh(cells, (1.0, 0.8, 1.2)), p, F64, cuda)
+    x = _random_padded(layout, 90 + p, cuda)
+    y = mass.mass_apply_cuda(x, layout, tables, out=torch.full_like(x, float("nan")))
+    torch.cuda.synchronize()
+    assert _rel(y, mass.mass_apply_plain(x, layout, tables)) <= TOL
+    assert _rel(y, mass.mass_apply_zyx_plain(x, layout, tables)) <= TOL
+    outside = y.clone()
+    outside[layout.interior] = 0.0
+    assert float(outside.abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("p", [2, 4])
 def test_cuda_mass_gauss_matches_cpu(cuda, p):
     ops = StructuredOperators(box_mesh((3, 2, 2), (1.0, 0.8, 1.2)), p, dtype=F64)
@@ -658,6 +676,59 @@ def test_cuda_rk42_step_matches_plain_and_two_c_steps(cuda, p):
     uc, vc = rk4step.rk4_step_full_cuda(uc, vc, DT, (g[2], g[3], g[3], g[4]), *face)
     _assert_state_close(uk, vk, uc, vc, 1e-13)
     _padding_zero(pm, uk, vk)
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+def test_cuda_rk42_every_p_over_nan(cuda, p):
+    """Kernel J at every p the two-step path takes (on the smallest tile >=
+    its 6p halo, and at least 24) from output and scratch buffers full of
+    NaN: against its plain version (1e-12) and two kernel-C steps (1e-13);
+    the step boundary's outputs (u1, v1, kv0') and (u2, v2) with exactly
+    zero padding and no NaN."""
+    mesh = box_mesh((4, 2, 2), (0.01, 0.005, 0.005),
+                    facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    pm = PaddedLinearWave(LinearWave(mesh, p=p, dtype=F64, device=cuda),
+                          tile_x=max(24, rk42step._off0(p)), lean=False)
+    assert pm.rk42_unavailable is None
+    u0 = _random_padded(pm.layout, 140 + p, cuda)
+    v0 = _random_padded(pm.layout, 141 + p, cuda, scale=1e3)
+    face = (pm.layout, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2,
+            pm.src_x, pm.abc_x)
+    nan = [torch.full_like(u0, float("nan")) for _ in range(8)]
+    uk, vk = rk42step.rk42_step_cuda(u0, v0, DT, RK42_GS, *face, out=tuple(nan[:2]),
+                                     scratch=tuple(nan[2:]))
+    torch.cuda.synchronize()
+    up, vp = rk42step.rk42_step_plain(u0, v0, DT, RK42_GS, *face)
+    _assert_state_close(uk, vk, up, vp)
+    g = RK42_GS
+    uc, vc = rk4step.rk4_step_full_cuda(u0, v0, DT, (g[0], g[1], g[1], g[2]), *face)
+    uc, vc = rk4step.rk4_step_full_cuda(uc, vc, DT, (g[2], g[3], g[3], g[4]), *face)
+    _assert_state_close(uk, vk, uc, vc, 1e-13)
+    written = (uk, vk, *nan[5:])  # (u2, v2) and the boundary's u1, v1, kv0'
+    _padding_zero(pm, *written)
+    assert all(bool(torch.isfinite(x).all()) for x in written)
+
+
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_cuda_rk42_boundary_alone_matches_plain(cuda, p):
+    """Kernel J's step boundary alone (one launch) from random (u0, v0) and
+    stages kv0..kv2 into outputs full of NaN: against its plain version
+    (1e-12 per field), the padding of u1, v1, kv0' exactly zero."""
+    mesh = box_mesh((4, 2, 2), (0.01, 0.005, 0.005),
+                    facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    pm = PaddedLinearWave(LinearWave(mesh, p=p, dtype=F64, device=cuda),
+                          tile_x=max(24, rk42step._off0(p)))
+    ins = [_random_padded(pm.layout, 150 + p + j, cuda, scale=s)
+           for j, s in enumerate((1.0, 1e3, 1e9, 1e9, 1e9))]
+    face = (pm.layout, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2,
+            pm.src_x, pm.abc_x)
+    out = tuple(torch.full_like(ins[0], float("nan")) for _ in range(3))
+    got = rk42step._rk42_boundary_cuda(*ins, DT, 0.5, *face, out=out)
+    torch.cuda.synchronize()
+    want = rk42step.rk42_boundary_plain(*ins, DT, 0.5, *face)
+    for x, w in zip(got, want):
+        assert _rel(x, w) <= TOL
+    _padding_zero(pm, *got)
 
 
 @pytest.mark.parametrize("lean", [True, False])

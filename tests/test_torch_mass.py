@@ -2,8 +2,9 @@
 JAX package on the same inputs (float64, CPU).
 
 The JAX fused mass runs its Pallas kernel in interpret mode off the TPU by
-itself (``make_mass_apply``). The CUDA kernel G is checked against the
-plain version in test_torch_gpu.py."""
+itself (``make_mass_apply``). The CUDA kernel G (csrc/mass_tiled.cu, which
+contracts z, y, x in that order, as ``mass_apply_zyx_plain`` does) is
+checked against the plain version in test_torch_gpu.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -79,6 +80,25 @@ def test_mass_apply_plain_matches_jax_kernel(p, cells):
     want = np.asarray(jpm.make_mass_apply(jlay, M1, jnp.float64)(jnp.asarray(x)))
     tables = mass.MassTables(*tables_from_numpy(mass.mass_tables(lay, M1, F64), "cpu", F64))
     got = mass.mass_apply(torch.as_tensor(x), lay, tables)
+    assert max_rel(got, want) <= TOL
+    outside = got.clone()
+    outside[lay.interior] = 0.0
+    assert float(outside.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("p,cells", [(1, (3, 2, 2)), (2, (3, 2, 2)), (3, (2, 2, 2)),
+                                     (4, (2, 2, 2)), (6, (2, 1, 1)), (8, (2, 1, 1))])
+def test_mass_apply_zyx_plain_matches_jax_kernel(p, cells):
+    """The plain twin of kernel G in its contraction order (z, y, x) against
+    the JAX TPU kernel (x, y, z; interpret mode) on the same padded state:
+    the order changes only the rounding; the padding of y exactly zero."""
+    h = box_mesh(cells, EXTENT).h
+    M1 = separable_mass_tables(p, h, np.float64)
+    jlay, lay = _layouts(cells, p)
+    x = _random_padded(lay, 70 + p)
+    want = np.asarray(jpm.make_mass_apply(jlay, M1, jnp.float64)(jnp.asarray(x)))
+    tables = mass.MassTables(*tables_from_numpy(mass.mass_tables(lay, M1, F64), "cpu", F64))
+    got = mass.mass_apply_zyx_plain(torch.as_tensor(x), lay, tables)
     assert max_rel(got, want) <= TOL
     outside = got.clone()
     outside[lay.interior] = 0.0

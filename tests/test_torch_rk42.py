@@ -68,6 +68,56 @@ def test_rk42_step_plain_matches_two_full_tableau_steps(p, tile):
     assert torch.equal(u_d, u2) and torch.equal(v_d, v2)
 
 
+@pytest.mark.parametrize("p", [1, 3, 5, 6, 7, 8])
+def test_rk42_step_plain_matches_two_steps_at_every_p(p):
+    """The plain version of kernel J at the degrees the test above leaves
+    out, each on the smallest tile >= its 6p halo (and at least 24): two
+    full-tableau steps in one call equal two kernel-C plain steps (1e-13),
+    the padding of (u2, v2) exactly zero."""
+    pm = PaddedLinearWave(torch_model(p=p), tile_x=max(24, rk42step._off0(p)))
+    assert pm.rk42_unavailable is None
+    lay = pm.layout
+    u0 = torch.as_tensor(random_padded(lay, 5 * p))
+    v0 = 1e3 * torch.as_tensor(random_padded(lay, 5 * p + 1))
+    u2, v2 = rk42step.rk42_step_plain(
+        u0, v0, DT, GS, lay, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2,
+        pm.src_x, pm.abc_x)
+    uc, vc = u0, v0
+    for gs in ((GS[0], GS[1], GS[1], GS[2]), (GS[2], GS[3], GS[3], GS[4])):
+        uc, vc = rk4step.rk4_step_full_plain(uc, vc, DT, gs, lay, pm.base.c0,
+                                             pm.step_tables)
+    _assert_close(u2, v2, uc, vc, tol=1e-13)
+    for x in (u2, v2):
+        outside = x.clone()
+        outside[lay.interior] = 0.0
+        assert float(outside.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_rk42_boundary_plain_is_a_full_step_and_a_stage(p):
+    """The plain step boundary (the plain version of the boundary kernel)
+    from step 1's stages kv0..kv2: (u1, v1) is one kernel-C plain step
+    (1e-13), and kv0' is stage 0 of the next step from (u1, v1)."""
+    pm = PaddedLinearWave(torch_model(p=p), tile_x=24)
+    lay = pm.layout
+    face = (lay, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+    u0 = torch.as_tensor(random_padded(lay, 7 * p))
+    v0 = 1e3 * torch.as_tensor(random_padded(lay, 7 * p + 1))
+    kv_of, stage, _ = rk42step._phases(u0, DT, *face)
+    kv0 = kv_of(u0, v0, GS[0])
+    kv1 = stage(1, u0, v0, kv0, None, None, GS[1])
+    kv2 = stage(2, u0, v0, kv0, kv1, None, GS[1])
+    u1, v1, kv0n = rk42step.rk42_boundary_plain(u0, v0, kv0, kv1, kv2, DT, GS[2], *face)
+    uc, vc = rk4step.rk4_step_full_plain(u0, v0, DT, (GS[0], GS[1], GS[1], GS[2]), lay,
+                                         pm.base.c0, pm.step_tables)
+    _assert_close(u1, v1, uc, vc, tol=1e-13)
+    assert max_rel(kv0n, kv_of(u1, v1, GS[2])) == 0.0
+    for x in (u1, v1, kv0n):
+        outside = x.clone()
+        outside[lay.interior] = 0.0
+        assert float(outside.abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("p", [2, 4])
 def test_apply_stencil_plain_matches_flat_apply(p):
     """The plain version of csrc/stencil.cuh (J's plain phases) against

@@ -1,9 +1,10 @@
 """The tilings of the tiled stencil kernels on the layouts the app and
 chip_smoke.py build, and the C launchers' argument lists: the RK4 stage
 kernel (kernels A and C, and kernel J's stages; csrc/rk4_tiled.cu) at every
-p it takes (1..8), and the TMA kernels D (csrc/rk_stage_tiled.cu, p = 1..8)
-and E (csrc/slab_tiled.cu, p = 1..10). CPU only: the geometry is plain
-Python, so it is checked here."""
+p it takes (1..8), and the TMA kernels D (csrc/rk_stage_tiled.cu, p = 1..8),
+E (csrc/slab_tiled.cu, p = 1..10), G (the BP1 mass, csrc/mass_tiled.cu,
+p = 1..8) and J's step boundary (csrc/rk42_tiled.cu, p = 1..8). CPU only:
+the geometry is plain Python, so it is checked here."""
 
 import ctypes
 import re
@@ -14,7 +15,8 @@ import pytest
 import torch
 
 from wave_fenics_tpu_torch.models.linear_wave_padded import _flat_tile_x
-from wave_fenics_tpu_torch.ops import _cuda, lf2step, lfstep, tiling, wave
+from wave_fenics_tpu_torch.core.mesh import box_mesh
+from wave_fenics_tpu_torch.ops import _cuda, lf2step, lfstep, mass, rk42step, tiling, wave
 from wave_fenics_tpu_torch.ops.rk4step import _off0, stage_launch_args
 from wave_fenics_tpu_torch.ops.tiling import tiled_geometry
 from wave_fenics_tpu_torch.ops.wave import PaddedLayout
@@ -152,20 +154,37 @@ def test_python_tiling_policy_matches_the_c_kernel():
     size, many, one = (int(n) for n in rule.groups())
     for itemsize in (4, 8):
         assert tiling.tma_blocks_per_sm(itemsize) == (many if itemsize == size else one)
-    for name in ("slab_tiled.cu", "rk_stage_tiled.cu", "lf_tiled.cu"):
+    for name in ("slab_tiled.cu", "rk_stage_tiled.cu", "lf_tiled.cu", "mass_tiled.cu",
+                 "rk42_tiled.cu"):
         assert "__launch_bounds__(kTileThreads, (tma_min_blocks<T>()))" in _c_source(name)
+    # kernel J's step boundary: its ring depth and its planes
+    rule = re.search(r"boundary_ring\(\) \{\s*return sizeof\(T\) == (\d+) \? (\d+) : (\d+);",
+                     _c_source("rk42_tiled.cu"))
+    size, many, one = (int(n) for n in rule.groups())
+    for itemsize in (4, 8):
+        assert rk42step.boundary_ring(itemsize) == (many if itemsize == size else one)
+    assert ("PlaneRing<T, R> ring(smem_raw, w, %d, %d)"
+            % (rk42step.BOUNDARY_FIELDS, rk42step.BOUNDARY_EXTRA)) in _c_source("rk42_tiled.cu")
+    assert ("tma_smem_bytes<T>(w, %d, %d, boundary_ring<T>())"
+            % (rk42step.BOUNDARY_FIELDS, rk42step.BOUNDARY_EXTRA)) in _c_source("rk42_tiled.cu")
+    # kernel G: one field, two z-contracted planes, then cvx of a chunk's rows
+    src = _c_source("mass_tiled.cu")
+    assert "PlaneRing<T> ring(smem_raw, w, 1, 2)" in src
+    assert "return tma_smem_bytes<T>(w, 1, 2) + (2 * P + 1) * t.cx * (int)sizeof(T);" in src
 
 
 def test_point_only_ablation_patches_one_line():
     """profile_step --ablate replaces the stencil line of kernels A and C
-    (rk4_tiled.cu), D (rk_stage_tiled.cu), E (slab_tiled.cu) and H/I
-    (lf_tiled.cu) by the point value in a copy of the sources, and takes
-    D's, E's, H/I's and K's (general_kernels.cu) other parts out the same
-    way; each line it replaces is there once."""
+    (rk4_tiled.cu), D (rk_stage_tiled.cu), E (slab_tiled.cu), H/I
+    (lf_tiled.cu) and J's boundary (rk42_tiled.cu), and G's z and y
+    contractions (mass_tiled.cu), by the point value in a copy of the
+    sources, and takes D's, E's, G's, H/I's, J's and K's
+    (general_kernels.cu) other parts out the same way; each line it
+    replaces is there once."""
     from wave_fenics_tpu_torch.apps.profile_step import ABLATIONS, POINT_ONLY
 
-    assert sorted(POINT_ONLY) == ["lf_tiled.cu", "rk4_tiled.cu", "rk_stage_tiled.cu",
-                                  "slab_tiled.cu"]
+    assert sorted(POINT_ONLY) == ["lf_tiled.cu", "mass_tiled.cu", "rk42_tiled.cu",
+                                  "rk4_tiled.cu", "rk_stage_tiled.cu", "slab_tiled.cu"]
     assert sorted(a for a, ps in ABLATIONS.items() if "general_kernels.cu" in ps) == [
         "K gather only", "K no geometry", "K no overlap", "K no y read"]
     for patches in ABLATIONS.values():
@@ -411,3 +430,222 @@ def test_tma_wrappers_raise_on_cpu_tensors(call):
             wave.rk_stage_cuda(x, x, x, x, x, x, 0.0, 1e-9, 1.0, lay, 1500.0,
                                tuple(torch.zeros(1) for _ in range(5)),
                                torch.zeros(1, F), torch.zeros(1, F), 3, -1)
+
+
+# Kernel G (csrc/mass_tiled.cu) on the BP1 layouts ops/mass.py::bp1_setup
+# builds (z_align 16, tile 32 at p = 1, else 16): the P6 size (64^3 cells;
+# (304, 272, 272) at p = 4) and two small grids, the second ragged against
+# the tiling.
+G_CELLS = [(64, 64, 64), (3, 2, 2), (5, 3, 4)]
+
+
+def _mass_layout(cells, p):
+    return mass.mass_layout(tuple(n * p + 1 for n in cells), p, 32 if p == 1 else 16)
+
+
+def _mass_geometry(lay, itemsize):
+    """kernel G's launch tiling (mass_launch_args) on an H100."""
+    x = torch.zeros(1, dtype=torch.float32 if itemsize == 4 else torch.float64)
+    args = mass.mass_launch_args(x, x, lay, tuple(torch.zeros(1) for _ in range(3)))
+    ty, tz, cx, gz, gy, gx, smem = args[-7:]
+    return (gz, gy, gx), ty, tz, cx, smem
+
+
+def _covers_once(lay, grid, ty, tz, cx, p):
+    """The tiles and x-chunks of a TMA grid cover the interior exactly once,
+    every tap of a tile inside the state, and the padding pass the rest."""
+    gz, gy, gx = grid
+    Nx, Ny, Nz = lay.shape
+    Lx, Ly, Lz = lay.padded_shape
+    ranges = [_axis_ranges(lay.x0, Nx, cx, gx - tiling.PADDING_LAYERS),
+              _axis_ranges(lay.h, Ny, ty, gy), _axis_ranges(lay.h, Nz, tz, gz)]
+    for (start, n, L), rs in zip(((lay.x0, Nx, Lx), (lay.h, Ny, Ly), (lay.h, Nz, Lz)),
+                                 ranges):
+        hits = np.zeros(L, dtype=int)
+        for lo, hi in rs:
+            assert lo < hi  # no empty tile
+            hits[lo:hi] += 1
+        assert (hits[start:start + n] == 1).all() and hits.sum() == n
+        assert rs[0][0] - p >= 0 and rs[-1][1] + p <= L
+    if np.prod(lay.padded_shape) <= 4_000_000:  # every point written once
+        count = _padding_count(lay)
+        for x in ranges[0]:
+            for y in ranges[1]:
+                for z in ranges[2]:
+                    count[x[0]:x[1], y[0]:y[1], z[0]:z[1]] += 1
+        assert (count == 1).all()
+
+
+@pytest.mark.parametrize("cells", G_CELLS)
+@pytest.mark.parametrize("p", range(1, 9))
+def test_mass_tiles_cover_the_interior_once(p, cells):
+    """Kernel G's tiling: the tiles and x-chunks cover the interior of the
+    BP1 layout exactly once and the padding pass the rest; every box
+    starts 16-byte aligned along z (a misaligned TMA box start is an
+    illegal instruction on the H100) and holds the tile's p-deep halo; the
+    shared memory (the ring, two z-contracted planes and cvx of a chunk's
+    rows) stays within a block's 227 KB in f32 and f64, p = 8 included."""
+    lay = _mass_layout(cells, p)
+    if cells == (64, 64, 64) and p == 4:
+        assert lay.padded_shape == (304, 272, 272)
+    if p == 1:
+        assert lay.tile_x == 32
+    Lz = lay.padded_shape[2]
+    for itemsize in (4, 8):
+        grid, ty, tz, cx, smem = _mass_geometry(lay, itemsize)
+        W, BY, oz, box = tiling.tma_window(lay.h, p, ty, tz, itemsize)
+        assert ty * tz <= tiling.TILE_THREADS and tz % (16 // itemsize) == 0
+        assert W <= tiling.BOX_MAX and BY == ty + 2 * p and oz + tz + 2 * p <= W
+        assert (Lz * itemsize) % 16 == 0
+        for bz in range(grid[0]):
+            z_start = lay.h + bz * tz - p - oz
+            assert z_start >= 0 and (z_start * itemsize) % 16 == 0
+        want = tiling.tma_smem_bytes((W, BY, oz, box), itemsize, 1, 2) \
+            + (2 * p + 1) * cx * itemsize
+        assert smem == want <= tiling.SMEM_LIMIT
+    _covers_once(lay, grid, ty, tz, cx, p)
+
+
+def test_mass_geometry_on_the_p6_layout():
+    """P6 in f32: 32-wide z tiles of 8 rows (9 x 33 tiles of the 257^2
+    interior columns), chunks of 43 rows and the padding layer (6 + 1
+    layers), two blocks an SM within its shared memory."""
+    lay = _mass_layout((64, 64, 64), 4)
+    grid, ty, tz, cx, smem = _mass_geometry(lay, 4)
+    assert (grid, ty, tz, cx) == ((9, 33, 7), 8, 32, 43)
+    assert tiling.tma_blocks_per_sm(4) * (smem + SM_RESERVED) <= SM_SMEM
+
+
+# Kernel J's step boundary on the layouts of the two-step path: the P1
+# configuration (64x32x32 cells, tile 48) and (4,2,2) cells, each on the
+# smallest tile >= the 6p halo the path allows (and at least 24).
+J_CELLS = [((64, 32, 32), 48), ((4, 2, 2), 24)]
+
+
+def _rk42_layout(cells, p, tile):
+    return _layout(cells, p, max(tile, rk42step._off0(p)))
+
+
+def _boundary_geometry(lay, itemsize):
+    dt = torch.float32 if itemsize == 4 else torch.float64
+    t = torch.zeros(1, dtype=dt)
+    args = rk42step.boundary_launch_args(
+        *(t for _ in range(10)), 17, -1, 1e-9, 0.5, 1500.0, lay,
+        tuple(torch.zeros(1) for _ in range(5)))
+    ty, tz, cx, gz, gy, gx, smem = args[-7:]
+    return (gz, gy, gx), ty, tz, cx, smem
+
+
+@pytest.mark.parametrize("cells,tile", J_CELLS)
+@pytest.mark.parametrize("p", range(1, 9))
+def test_boundary_tiles_cover_the_interior_once(p, cells, tile):
+    """Kernel J's step-boundary tiling on tiles >= 6p: the interior exactly
+    once, the padding pass the rest, 16-byte aligned box starts, and the
+    shared memory of five input boxes a plane in a ring of boundary_ring
+    planes and four formed planes within a block's 227 KB in f32 and f64;
+    in f32 two blocks fit an SM at p <= 6."""
+    lay = _rk42_layout(cells, p, tile)
+    assert lay.tile_x >= 6 * p
+    for itemsize in (4, 8):
+        grid, ty, tz, cx, smem = _boundary_geometry(lay, itemsize)
+        W, BY, oz, box = window = tiling.tma_window(lay.h, p, ty, tz, itemsize)
+        assert tz % (16 // itemsize) == 0 and W <= tiling.BOX_MAX and BY <= tiling.BOX_MAX
+        for bz in range(grid[0]):
+            assert ((lay.h + bz * tz - p - oz) * itemsize) % 16 == 0
+        ring = rk42step.boundary_ring(itemsize)
+        assert smem == tiling.tma_smem_bytes(window, itemsize, 5, 4, ring) <= tiling.SMEM_LIMIT
+        if itemsize == 4 and p <= 6:
+            assert tiling.tma_blocks_per_sm(4) * (smem + SM_RESERVED) <= SM_SMEM
+    _covers_once(lay, grid, ty, tz, cx, p)
+
+
+def test_mass_launch_args_match_the_c_signature():
+    """Kernel G's wrapper builds an argument list whose types are the ones
+    ctypes declares for ``wave_mass_tiled``, ending in the tiling, and the
+    launcher's C prototype has as many parameters."""
+    lay = _mass_layout((3, 2, 2), 4)
+    args = mass.mass_launch_args(_tensor(), _tensor(), lay,
+                                 tuple(_tensor() for _ in range(3)))
+    sig = _cuda._SIGNATURES["wave_mass_tiled"]
+    kinds = {ctypes.c_void_p: torch.Tensor, ctypes.c_int: int, ctypes.c_double: float}
+    assert len(args) + 1 == len(sig) and sig[-1] is ctypes.c_void_p  # + stream
+    for a, t in zip(args, sig):
+        assert type(a) is kinds[t] or isinstance(a, kinds[t])
+    grid, ty, tz, cx, smem = _mass_geometry(lay, 4)
+    assert args[-7:] == (ty, tz, cx, *grid, smem)
+    proto = re.search(r'extern "C" int wave_\w+##SUFFIX\((.*?)\)\s*\{',
+                      _c_source("mass_tiled.cu"), re.S)
+    params = [q for q in proto.group(1).replace("\\", " ").split(",") if q.strip()]
+    assert len(params) == len(sig)
+
+
+def test_boundary_launch_args_match_the_c_signature():
+    """Kernel J's step-boundary argument list has the types ctypes declares
+    for ``wave_rk42_boundary_tiled``, ends in the tiling, and the
+    launcher's C prototype has as many parameters."""
+    lay = _rk42_layout((4, 2, 2), 4, 24)
+    args = rk42step.boundary_launch_args(
+        *(_tensor() for _ in range(10)), 17, -1, 1e-9, 0.5, 1500.0, lay,
+        tuple(_tensor() for _ in range(5)))
+    sig = _cuda._SIGNATURES["wave_rk42_boundary_tiled"]
+    kinds = {ctypes.c_void_p: torch.Tensor, ctypes.c_int: int, ctypes.c_double: float}
+    assert len(args) + 1 == len(sig) and sig[-1] is ctypes.c_void_p  # + stream
+    for a, t in zip(args, sig):
+        assert type(a) is kinds[t] or isinstance(a, kinds[t])
+    grid, ty, tz, cx, smem = _boundary_geometry(lay, 4)
+    assert args[-7:] == (ty, tz, cx, *grid, smem)
+    proto = re.search(r'extern "C" int wave_\w+##SUFFIX\((.*?)\)\s*\{',
+                      _c_source("rk42_tiled.cu"), re.S)
+    params = [q for q in proto.group(1).replace("\\", " ").split(",") if q.strip()]
+    assert len(params) == len(sig)
+
+
+@pytest.mark.parametrize("kernel", ["G", "J", "J boundary"])
+def test_g_and_j_wrappers_raise_on_cpu_tensors(kernel):
+    """Kernel G's and J's CUDA wrappers (and the checks' launch of J's step
+    boundary alone) take CUDA tensors only: a CPU tensor raises before any
+    launch (the dispatchers send it to the plain version), and no launch
+    is counted (the boundary's launches are counted by kernel J's)."""
+    counter = None
+    if kernel == "G":
+        lay, tabs, _ = mass.bp1_setup(box_mesh((3, 2, 2), (1.0, 0.8, 1.2)), 2,
+                                      torch.float64, torch.device("cpu"))
+        fn = mass.mass_apply_cuda
+        call = lambda: fn(torch.zeros(lay.padded_shape, dtype=torch.float64), lay, tabs)  # noqa: E731
+    else:
+        lay = _rk42_layout((4, 2, 2), 2, 24)
+        x = torch.zeros(lay.padded_shape, dtype=torch.float64)
+        F = lay.padded_shape[1] * lay.padded_shape[2]
+        face = (lay, 1500.0, tuple(torch.zeros(1) for _ in range(5)), torch.zeros(1, F),
+                torch.zeros(1, F), 3, -1)
+        if kernel == "J":
+            fn = rk42step.rk42_step_cuda
+            call = lambda: fn(x, x, 1e-9, (1.0,) * 5, *face)  # noqa: E731
+        else:
+            fn, counter = rk42step._rk42_boundary_cuda, rk42step.rk42_step_cuda
+            call = lambda: fn(x, x, x, x, x, 1e-9, 0.5, *face)  # noqa: E731
+    counter = counter or fn
+    n0 = counter.launches
+    with pytest.raises(ValueError, match="CUDA kernel called with a tensor on cpu"):
+        call()
+    assert counter.launches == n0
+
+
+def test_tma_launch_check_names_the_unmet_condition():
+    """No fallback: a layout kernels G and J cannot tile raises a ValueError
+    that names the condition, before any launch: p above 8, a padded z
+    row that is no multiple of 16 bytes, too shallow a padding, too much
+    shared memory."""
+    t32 = torch.zeros(1, dtype=torch.float32)
+    tabs = tuple(torch.zeros(1) for _ in range(3))
+    with pytest.raises(ValueError, match="p <= 8"):
+        mass.mass_launch_args(t32, t32, PaddedLayout((19, 19, 19), 9, z_align=16), tabs)
+    odd = PaddedLayout((9, 9, 9), 2, tile_x=16, z_align=1)  # Lz = 13
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        mass.mass_launch_args(t32, t32, odd, tabs)
+    shallow = PaddedLayout((9, 9, 9), 4, tile_x=2, z_align=16)
+    with pytest.raises(ValueError, match="must be >= p"):
+        tiling.check_tma_launch(shallow, 4, 8, 16, 1024)
+    lay = _mass_layout((3, 2, 2), 4)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        tiling.check_tma_launch(lay, 8, 8, 16, tiling.SMEM_LIMIT + 1)

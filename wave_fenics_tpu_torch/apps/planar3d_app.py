@@ -104,7 +104,7 @@ def solver_path(pm: PaddedLinearWave, integrator: str = "rk4",
 
     def named(kernel: str, plain: str) -> str:
         src = ("csrc/slab_tiled.cu" if "kernel E" in kernel
-               else "csrc/rk4_tiled.cu, csrc/wave_kernels.cu" if "kernel J" in kernel
+               else "csrc/rk4_tiled.cu, csrc/rk42_tiled.cu" if "kernel J" in kernel
                else "csrc/rk4_tiled.cu" if "kernel A" in kernel or "kernel C" in kernel
                else "csrc/rk_stage_tiled.cu" if "kernel D" in kernel
                else "csrc/lf_tiled.cu" if "kernel H" in kernel or "kernel I" in kernel

@@ -52,6 +52,8 @@ Run from the repository root on a machine with a CUDA card:
            --cells 32 16 16          # kernel D (the path's RK4 stage kernel)
     python -m wave_fenics_tpu_torch.apps.profile_step --ablate --degree 10 \
            --cells 26 13 13          # kernel E
+    python -m wave_fenics_tpu_torch.apps.profile_step --ablate --two-step   # J's boundary
+    python -m wave_fenics_tpu_torch.apps.profile_step --ablate --bp1 --cells 64 64 64  # G
 
 With ``--sweep-tiling`` it times each stage launch of kernel A (or C)
 at every tiling of ``TILINGS`` (the tile and x-chunk limits of
@@ -60,9 +62,14 @@ it times the kernel of the path's RK4 (each stage of A or C, or one launch
 of D or E), or with ``--integrator leapfrog`` each phase of I (or H), as
 built and with the stencil replaced by the point value (a patched copy of
 ``csrc/``, built under ``_build/``; D, E, H and I also without each of the
-parts ``ABLATIONS`` takes out), beside one field copy; with ``--general
---ablate``, kernel K's stiffness apply as built, without each part
-``ABLATIONS`` takes out of it, and with all cells in one launch.
+parts ``ABLATIONS`` takes out; H and I also with their padding layer on
+the grid's other end), beside one field copy; with ``--two-step
+--ablate`` kernel J's step-boundary launch, with ``--bp1 --ablate`` kernel
+G's apply on the BP1 layout of ``--cells`` (its z and y contractions
+replaced by the window's point value), each as built and without each part
+``ABLATIONS`` takes out of it; with ``--general --ablate``, kernel K's
+stiffness apply as built, without each part ``ABLATIONS`` takes out of it,
+and with all cells in one launch.
 
 It prints the card's name and power limit (nvidia-smi), one line per kernel
 instance, and last one JSON dict of every number.
@@ -85,9 +92,9 @@ import torch
 from ..benchmarks import general_solve
 from ..benchmarks.common import DTYPES
 from ..core.mesh import box_mesh
-from ..ops import _cuda, general, lfstep, rk4step, tiling, wave
+from ..ops import _cuda, general, lfstep, rk4step, rk42step, tiling, wave
 from ..ops.general import general_apply_cuda
-from ..ops.mass import bp1_setup, mass_apply
+from ..ops.mass import bp1_setup, mass_apply, mass_launch_args
 from ..solvers.cg import cg
 from ..utils.timing import sync, timeit
 from . import planar3d_app
@@ -105,7 +112,7 @@ KERNELS = [
     (r"rk4_tiled_kernel<[^,<>]+,\s*\d+,\s*1>", "rk4 stage J=1", 3),
     (r"rk4_tiled_kernel<[^,<>]+,\s*\d+,\s*2>", "rk4 stage J=2", 4),
     (r"rk4_tiled_kernel<[^,<>]+,\s*\d+,\s*3>", "rk4 stage J=3", 7),
-    (r"rk42_boundary_kernel<", "rk42 boundary (J)", 8),
+    (r"rk42_boundary_tiled_kernel<", "rk42 boundary (J)", 8),
     (r"rk_stage_tiled_kernel<", "rk stage (D)", 10),
     (r"lf_phase_tiled_kernel<[^,<>]+,\s*\d+,\s*0>", "lf OPEN", 4),
     (r"lf_phase_tiled_kernel<[^,<>]+,\s*\d+,\s*1>", "lf MID", 4),
@@ -244,18 +251,53 @@ TILINGS = [(32, 256, (16, 64)), (32, 256, (16, 16)), (32, 256, (32, 32)),
            (32, 256, (64, 64)), (32, 128, (16, 64)), (16, 256, (16, 64)),
            (16, 128, (16, 64))]
 #: the ablations of --ablate: patched copies of the sources, each a set of
-#: (file: the line it replaces exactly once, the replacement). "point
-#: value" replaces the line that applies the stencil of kernels A and C
-#: (rk4_tiled.cu), D (rk_stage_tiled.cu), E (slab_tiled.cu) and H/I
-#: (lf_tiled.cu) by the point value (the same fetches, stage inputs and
-#: stores, no taps); the others take one part out of D, E or H/I: its
-#: padding pass (the padding blocks return at once), D's point-wise loads of
-#: v0, kv, ua, va (a value from the index instead), or D's stage input
-#: (u0's window read in its place).
+#: (file: the lines it replaces exactly once, the replacement). "point
+#: value" replaces the lines that apply the stencil of kernels A and C
+#: (rk4_tiled.cu), D (rk_stage_tiled.cu), E (slab_tiled.cu), H/I
+#: (lf_tiled.cu) and J's boundary (rk42_tiled.cu) by the point value (the
+#: same fetches, stage inputs and stores, no taps), and kernel G's z and y
+#: contractions (mass_tiled.cu) by the window's point value (no
+#: z-contracted plane; the x contraction stays); the others take one part
+#: out of D, E, G, H/I or J's boundary: its padding pass (the padding
+#: blocks return at once), D's or J's point-wise loads (v0, kv, ua, va;
+#: v0, kv0, kv1, kv2: a value from the index instead), or the stage inputs
+#: D and J form (u0's window read in their place).
 _D_POINT_LOADS = """      pn[0] = a.v0[nidx];
       pn[1] = a.kv[nidx];
       pn[2] = a.ua[nidx];
       pn[3] = a.va[nidx];"""
+_J_POINT_LOADS = """      pn[0] = a.v0[nidx];
+      pn[1] = a.kv0[nidx];
+      pn[2] = a.kv1[nidx];
+      pn[3] = a.kv2[nidx];"""
+_J_STENCILS = """    T kv3 = x_taps<T, P>(s, q3, g) * tab.fx + yz3 * sxg;
+    if (g == a.src_x) kv3 += (a.c0sq * a.g) * w1;
+    if (g == a.abc_x) kv3 += (a.mc0 * w2) * (pt[0] + dt * pt[3]);
+    const T accv = ((b0 * pt[1] + b1 * pt[2]) + b1 * pt[3]) + b0 * kv3;
+    const T v1 = pt[0] + dt * accv;
+    T kv = x_taps<T, P>(s, q1, g) * tab.fx + yz1 * sxg;"""
+_J_FORM = """    for (int e = (int)threadIdx.x; e < npt; e += nt) {
+      const int r = e / WF;
+      const int j = r * W + w.oz + (e - r * WF);
+      const T u0 = sl[j];
+      const T v0 = sl[box + j];
+      const T k0 = sl[2 * box + j];
+      const T k1 = sl[3 * box + j];
+      const T k2 = sl[4 * box + j];
+      f3[j] = u0 + dt * (v0 + hdt * k1);
+      const T vn1 = v0 + hdt * k0;
+      const T vn2 = v0 + hdt * k1;
+      const T vn3 = v0 + dt * k2;
+      f1[j] = u0 + dt * (((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3);
+    }"""
+_G_ZY = """    for (int r = c.ly; r < nrow; r += t.ty) zb[r * tz + c.lz] = band<T, P>(cz, xb + r * W, 1);
+    __syncthreads();  // the z-contracted plane gi is complete, and every
+                      // thread is past plane gi - 1: refill its slot
+    if (threadIdx.x == 0 && i + kRing - 1 < iters) {
+      ring.fetch(i + kRing - 1, &xmap, nullptr, zs, ys, gi + kRing - 1);
+    }
+    if (!c.active) continue;
+    const T v = band<T, P>(cy, zb + c.ly * tz + c.lz, tz);  // y at the column"""
 ABLATIONS = {
     "point value": {
         "rk4_tiled.cu": ("T kv = x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);",
@@ -264,6 +306,11 @@ ABLATIONS = {
         "slab_tiled.cu": ("y[(long long)g * F + c.f] = (tx * lyz + ay) + az;",
                           "y[(long long)g * F + c.f] = q[P];"),
         "lf_tiled.cu": ("T force = tx * tab.fx + yz * __ldg(&s.sx[g]);", "T force = q[P];"),
+        "rk42_tiled.cu": (_J_STENCILS, _J_STENCILS.replace(
+            "x_taps<T, P>(s, q3, g) * tab.fx + yz3 * sxg", "q3[P]").replace(
+            "x_taps<T, P>(s, q1, g) * tab.fx + yz1 * sxg", "q1[P]")),
+        "mass_tiled.cu": (_G_ZY, "\n".join(_G_ZY.splitlines()[1:-1])
+                          + "\n    const T v = xb[(c.ly + P) * W + P];"),
     },
     "no padding pass": {
         "rk_stage_tiled.cu": ("    for_each_padding<8>(s, t, pb, npb,",
@@ -272,14 +319,29 @@ ABLATIONS = {
                           "    if (false) for_each_padding<1>(s, t, pb, npb,"),
         "lf_tiled.cu": ("    for_each_padding<1>(s, t, pb, npb,",
                         "    if (false) for_each_padding<1>(s, t, pb, npb,"),
+        "rk42_tiled.cu": ("    for_each_padding<1>(s, t, pb, npb,",
+                          "    if (false) for_each_padding<1>(s, t, pb, npb,"),
+        "mass_tiled.cu": ("    for_each_padding<1>(s, t, pb, npb,",
+                          "    if (false) for_each_padding<1>(s, t, pb, npb,"),
     },
     "no point-wise loads": {
         "rk_stage_tiled.cu": (_D_POINT_LOADS,
                               "      pn[0] = pn[1] = pn[2] = pn[3] = T(nidx & 1);"),
+        "rk42_tiled.cu": (_J_POINT_LOADS,
+                          "      pn[0] = pn[1] = pn[2] = pn[3] = T(nidx & 1);"),
     },
     "u0 as the stage input": {
         "rk_stage_tiled.cu": ("for (int e = (int)threadIdx.x; e < npt; e += nt) "
                               "un[e] = ub[e] + ca * kb[e];", "un = const_cast<T*>(ub);"),
+        "rk42_tiled.cu": (_J_FORM, "    f3 = const_cast<T*>(sl);\n    f1 = f3;"),
+    },
+    # the TMA kernels' window pitch (stencil_tiled.cuh::tma_window) cut to
+    # the tile and its halo rounded up to 16 bytes, instead of the tile
+    # width plus a multiple of 32 (fewer bytes a plane from L2; bank
+    # conflicts where a warp spans two window rows)
+    "tight window pitch": {
+        "stencil_tiled.cuh": ("  const int W = t.tz + (oz + 2 * P + 31) / 32 * 32;",
+                              "  const int W = (oz + t.tz + 2 * P + A - 1) / A * A;"),
     },
     # kernel K's collocated stiffness (general_kernels.cu): the gather and
     # the colour's y update alone (no geometry, no contractions), the
@@ -418,8 +480,10 @@ def _ablate_tma(pm, case) -> dict:
 
 def _ablate_lf(pm, case, label) -> dict:
     """Kernel H or I (the path's leapfrog kernel, ``label``): each phase's
-    launch as built and with each ablation that patches ``lf_tiled.cu``, on
-    random fields of the padded shape."""
+    launch as built, with each ablation that patches ``lf_tiled.cu``, and
+    with its padding layer on the other end of the grid from where
+    ``tiling.tma_padding_first`` puts it, on random fields of the padded
+    shape."""
     dev, dtype = pm.base.device, pm.base.dtype
     u, v, u_out, v_out = (torch.randn(pm.layout.padded_shape, dtype=dtype, device=dev)
                           for _ in range(4))
@@ -428,39 +492,96 @@ def _ablate_lf(pm, case, label) -> dict:
     if label == "H":
         del phases["MID"]
 
-    def phase_us(kl):
-        return {name: _launch_us(kl, "wave_lf_phase_tiled", u, lfstep.lf_launch_args(
+    def launch_args(ph, flip=False):
+        args = lfstep.lf_launch_args(
             ph, u, v, None if ph == lfstep.LF_CLOSE else u_out, v_out, dt, 0.5,
             pm.layout, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2, pm.src_x,
-            pm.abc_x)) for name, ph in phases.items()}
+            pm.abc_x)
+        return (*args[:-1], 1 - args[-1]) if flip else args  # the last: padding_first
+
+    def phase_us(kl, flip=False):
+        return {name: _launch_us(kl, "wave_lf_phase_tiled", u, launch_args(ph, flip))
+                for name, ph in phases.items()}
 
     nbytes, copy_s = _copy_rate(u)
-    args = lfstep.lf_launch_args(0, u, v, u_out, v_out, dt, 0.5, pm.layout, pm.base.c0,
-                                 pm.stencil, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+    args = launch_args(lfstep.LF_OPEN)
+    ablated = {a: phase_us(patched_library(a))
+               for a, patches in ABLATIONS.items() if "lf_tiled.cu" in patches}
+    ablated["padding layer " + ("last" if args[-1] else "first")] = phase_us(
+        _cuda.library(), flip=True)
     return {"kernel": label, "phase_us": phase_us(_cuda.library()),
-            "ablated_phase_us": {a: phase_us(patched_library(a))
-                                 for a, patches in ABLATIONS.items()
-                                 if "lf_tiled.cu" in patches},
+            "ablated_phase_us": ablated,
+            "geometry": list(args[-7:]), "field_bytes": nbytes,
+            "copy_us": copy_s * 1e6, "copy_gbps": 2 * nbytes / copy_s / 1e9}
+
+
+def _ablate_boundary(pm, case) -> dict:
+    """Kernel J's step-boundary launch on ``pm`` as built and with each
+    ablation that patches ``rk42_tiled.cu``, on random fields of the padded
+    shape."""
+    dev, dtype = pm.base.device, pm.base.dtype
+    u0, v0, kv0, kv1, kv2, u1, v1, kv = (
+        torch.randn(pm.layout.padded_shape, dtype=dtype, device=dev) for _ in range(8))
+    args = rk42step.boundary_launch_args(
+        u0, v0, kv0, kv1, kv2, u1, v1, kv, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x,
+        case.dt, 0.5, pm.base.c0, pm.layout, pm.stencil)
+    name = "wave_rk42_boundary_tiled"
+    nbytes, copy_s = _copy_rate(u0)
+    return {"kernel": "J boundary",
+            "us_per_launch": _launch_us(_cuda.library(), name, u0, args),
+            "ablated_us_per_launch": {a: _launch_us(patched_library(a), name, u0, args)
+                                      for a, patches in ABLATIONS.items()
+                                      if {"rk42_tiled.cu", "stencil_tiled.cuh"} & set(patches)},
+            "geometry": list(args[-7:]), "field_bytes": nbytes,
+            "copy_us": copy_s * 1e6, "copy_gbps": 2 * nbytes / copy_s / 1e9}
+
+
+def ablate_bp1(cells=(64, 64, 64), degree=4, dtype="f32") -> dict:
+    """Kernel G's apply on the BP1 problem of ``cells`` (a unit box, the
+    layout ``cg_bench`` builds) as built and with each ablation that
+    patches ``mass_tiled.cu`` (CUDA events over back-to-back launches), and
+    one field copy."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA card")
+    dev = torch.device("cuda")
+    layout, tables, _ = bp1_setup(box_mesh(tuple(cells), (1.0, 1.0, 1.0)), degree,
+                                  DTYPES[dtype], dev)
+    x = layout.pad(torch.randn(layout.shape, dtype=DTYPES[dtype], device=dev))
+    y = torch.empty_like(x)
+    args = mass_launch_args(x, y, layout, tables)
+    nbytes, copy_s = _copy_rate(x)
+    return {"card": card_line(), "cells": list(cells), "degree": degree,
+            "dtype": dtype, "padded_shape": list(layout.padded_shape), "kernel": "G",
+            "us_per_launch": _launch_us(_cuda.library(), "wave_mass_tiled", x, args),
+            "ablated_us_per_launch": {
+                a: _launch_us(patched_library(a), "wave_mass_tiled", x, args)
+                for a, patches in ABLATIONS.items()
+                if {"mass_tiled.cu", "stencil_tiled.cuh"} & set(patches)},
             "geometry": list(args[-7:]), "field_bytes": nbytes,
             "copy_us": copy_s * 1e6, "copy_gbps": 2 * nbytes / copy_s / 1e9}
 
 
 def ablate(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
-           lean=True, integrator="rk4") -> dict:
+           lean=True, integrator="rk4", two_step=False) -> dict:
     """What holds the path's kernel back: kernel A (or C) stage by stage,
     or kernel D or E per launch (the path at p > 8, or where the step
     kernel does not apply), or with ``integrator='leapfrog'`` each phase of
     kernel I (or H), as built and with the stencil replaced by the point
     value (D, E, H and I also without each part of ABLATIONS that patches
-    their source); and the copy rate of one state field (``Tensor.copy_``,
-    a measuring stick only), the HBM rate a streaming kernel can reach on
-    this card."""
+    their source), or with ``two_step`` kernel J's step-boundary launch as
+    built and without each part of ABLATIONS that patches it; and the copy
+    rate of one state field (``Tensor.copy_``, a measuring stick only), the
+    HBM rate a streaming kernel can reach on this card."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA card")
     case, pm = planar3d_app.build(cells, degree, dtype, tile_x, "cuda", lean)
     head = {"card": card_line(), "cells": list(cells), "degree": degree,
             "dtype": dtype, "lean": lean, "integrator": integrator,
             "padded_shape": list(pm.layout.padded_shape)}
+    if two_step:
+        if pm.rk42_unavailable is not None:
+            raise ValueError(f"the two-step path is unavailable: {pm.rk42_unavailable}")
+        return {**head, **_ablate_boundary(pm, case)}
     if integrator == "leapfrog" and pm.kernel != "3d":
         label = ("I" if pm.lf2_unavailable is None
                  else "H" if pm.lf_unavailable is None else None)
@@ -520,8 +641,8 @@ def profile_bp1(cells=(64, 64, 64), degree=4, dtype="f32", kmax=50,
         sync(dev)
         wall_us = (time.perf_counter() - w0) * 1e6
     events = _device_events(prof)
-    g_us = [us for name, us in events if "mass_apply_kernel" in name]
-    other_us = sum(us for name, us in events if "mass_apply_kernel" not in name)
+    g_us = [us for name, us in events if "mass_tiled_kernel" in name]
+    other_us = sum(us for name, us in events if "mass_tiled_kernel" not in name)
     if len(g_us) != 1 + iters:
         raise RuntimeError(f"the profiler saw {len(g_us)} kernel G launches, "
                            f"the solve makes {1 + iters}: it does not trace "
@@ -666,8 +787,9 @@ def main(argv=None):
                     help="time the path's kernel (each stage of A, or C "
                          "with --full-tableau; D or E where the path takes "
                          "them; each phase of I or H with --integrator "
-                         "leapfrog) as built and with the stencil replaced by "
-                         "the point value, and one field copy")
+                         "leapfrog; J's step boundary with --two-step; G "
+                         "with --bp1) as built and with the stencil replaced "
+                         "by the point value, and one field copy")
     args = ap.parse_args(argv)
     if args.ablate and args.general:
         out = ablate_general(args.cells, args.degree, args.dtype)
@@ -678,9 +800,13 @@ def main(argv=None):
                                        out["ablated_us_per_apply"].items()))
         print(json.dumps(out))
         return
-    if args.ablate:
+    if args.ablate and args.bp1:
+        out = ablate_bp1(args.cells, args.degree, args.dtype)
+    elif args.ablate:
         out = ablate(args.cells, args.degree, args.dtype, args.tile_x,
-                     lean=not args.full_tableau, integrator=args.integrator)
+                     lean=not args.full_tableau, integrator=args.integrator,
+                     two_step=args.two_step)
+    if args.ablate:
         print(out["card"])
         if "phase_us" in out:
             print(f"kernel {out['kernel']} (tiling {out['geometry']}): phases "

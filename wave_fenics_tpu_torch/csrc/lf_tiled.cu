@@ -19,9 +19,10 @@
 // u_out must not alias it; CLOSE writes v_out only (u1 stays where OPEN or
 // MID wrote it). In the padding, u_out (OPEN, MID) and v_out are 0.
 //
-// What bounds it on this card: the fields each phase must move, OPEN u, v
-// in and u_out, v_out out (4 state-field passes, 0.035 ms in f32 at the
-// P3 size, 29.57 MB a field, at 3.35 TB/s), MID 4, CLOSE 3; one
+// What bounds it on this card: the fields each phase must move, OPEN the
+// interiors of u, v in (their padding is 0) and the padded u_out, v_out
+// out (0.029 ms in f32 at the P3 size: 2 x 17.11 MB + 2 x 29.57 MB and
+// the tables, at 3.35 TB/s), MID the same, CLOSE one padded field out; one
 // multiply-add per tap is far below the flop rate. The earlier per-point
 // form loaded every tap of a point (51 at p = 8) from L1/L2: HBM ran at
 // 10-31 % of its rate.

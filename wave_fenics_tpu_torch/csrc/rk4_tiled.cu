@@ -5,16 +5,17 @@
 // * The lean stage algebra (kernel A) replaces
 //   wave_fenics_tpu/ops/pallas_rk4step.py::_kernel_rk4_step_lean.
 // * The full Butcher tableau (kernel C, the argument lean = 0) replaces
-//   pallas_rk4step.py::_kernel_rk4_step; kernel J (wave_kernels.cu) runs
+//   pallas_rk4step.py::_kernel_rk4_step; kernel J (rk42_tiled.cu) runs
 //   six of its stages.
 //
 // What bounds them on this card: with one multiply-add per tap the flops
-// are far below the H100's rate; the compulsory traffic of a step is 16
-// state-field passes (stage J reads its inputs, 1 to 5 fields, and writes
-// kv_J, or u1 and v1), about 0.15 ms at 3.35 TB/s in f32 at 4.28 M dofs.
-// The earlier per-point form loaded every tap from L1/L2 and formed the
-// stage input from two or three fields at each of the 3(2p + 1) taps: it
-// was bound by load issue at 19x the bound.
+// are far below the H100's rate; the compulsory traffic of a step's four
+// launches is the interiors of the fields stage J reads (1 to 5; their
+// padding is 0), 11 in all, and the padded kv_J, or u1 and v1, it writes,
+// 5 in all: about 0.104 ms at 3.35 TB/s in f32 at the P1 size. The earlier
+// per-point form loaded every tap from L1/L2 and formed the stage input
+// from two or three fields at each of the 3(2p + 1) taps: it was bound by
+// load issue at 7x that floor.
 //
 // The design: a block streams one x-chunk of a ty x tz tile of interior
 // columns (stencil_tiled.cuh). Each x plane of the fields the stage input

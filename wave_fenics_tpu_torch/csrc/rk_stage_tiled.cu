@@ -15,11 +15,12 @@
 // and kv' alias nothing. The stencil is stencil.cuh's apply_stencil, in its
 // sum order.
 //
-// What bounds it on this card: the six fields it reads and the four it
-// writes, ten state-field passes (0.089 ms in f32 at the P4 size, 29.57
-// MB a field, at 3.35 TB/s); one multiply-add per tap is far below the
-// flop rate. The earlier per-point form formed u0 + ca ku at each of its
-// 51 taps (p = 8) from two global loads: bound by load issue at 4.1x.
+// What bounds it on this card: the interiors of the six fields it reads
+// (their padding is 0) and the four padded fields it writes (0.067 ms in
+// f32 at the P4 size: 6 x 17.11 MB + 4 x 29.57 MB and the tables, at 3.35
+// TB/s); one multiply-add per tap is far below the flop rate. The earlier
+// per-point form formed u0 + ca ku at each of its 51 taps (p = 8) from two
+// global loads: bound by load issue at 5.4x.
 //
 // The design: a block owns a ty x tz tile of interior (y, z) columns and
 // streams one x-chunk (stencil_tiled.cuh). Each plane's windows of u0 and

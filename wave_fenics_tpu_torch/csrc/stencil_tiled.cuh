@@ -18,11 +18,13 @@
 //
 // The geometry helpers take the table-free PaddedBox, which both layouts'
 // stencils provide: kernels A and C (rk4_tiled.cu) on the flat layout,
-// kernel D (rk_stage_tiled.cu) on the flat layout and kernel E
-// (slab_tiled.cu) on the 3D slab. A and C copy their planes element by
-// element with cp.async (fetch_plane); D and E take each plane window with
-// one TMA request into a ring of kRing planes (PlaneRing, the end of this
-// file), so no thread spends instructions on the copy.
+// kernel D (rk_stage_tiled.cu), H and I (lf_tiled.cu) and J's step
+// boundary (rk42_tiled.cu) on the flat layout, kernel E (slab_tiled.cu) on
+// the 3D slab, and kernel G (mass_tiled.cu, the BP1 mass) on its padded
+// layout. A and C copy their planes element by element with cp.async
+// (fetch_plane); the others take each plane window of a field with one TMA
+// request into a ring of planes (PlaneRing, the end of this file), so no
+// thread spends instructions on the copy.
 #pragma once
 
 #include <cuda.h>
@@ -251,14 +253,15 @@ inline bool tiling_fits(const Tiling& t, dim3 grid, int nx, int ny, int nz) {
 }
 
 // ---------------------------------------------------------------------------
-// The TMA plane ring of kernels D and E (sm_90).
+// The TMA plane ring of kernels D, E, G, H, I and J's boundary (sm_90).
 //
 // Thread 0 asks the Tensor Memory Accelerator for the whole window of plane
 // g, the box {W, ty + 2P, 1} of a 3D tensor map over the padded state
 // [Lx, Ly, Lz], and the copy reports its bytes to the slot's mbarrier.
 // Every thread waits on that barrier (the parity of the slot's use), then
 // one __syncthreads per plane says that every thread is past the previous
-// plane, whose slot thread 0 then refills kRing - 1 planes ahead. The
+// plane, whose slot thread 0 then refills R - 1 planes ahead (a ring of
+// R = kRing slots, or fewer where a plane holds many fields). The
 // window is read as it is in memory: the state's padding as it holds it,
 // zeros beyond the tensor's ends.
 //
@@ -309,11 +312,13 @@ __host__ __device__ inline TmaWindow tma_window(const PaddedBox& s,
 }
 
 // Dynamic shared memory of a TMA tile block: 128 bytes to align the base,
-// kRing slots of nf boxes and `extra` boxes, then the kRing mbarriers.
+// `ring` slots (kRing unless the kernel's PlaneRing says otherwise) of nf
+// boxes and `extra` boxes, then the ring's mbarriers.
 template <typename T>
-inline int tma_smem_bytes(const TmaWindow& w, int nf, int extra) {
-  return 128 + (kRing * nf + extra) * w.box * (int)sizeof(T) +
-         kRing * (int)sizeof(uint64_t);
+inline int tma_smem_bytes(const TmaWindow& w, int nf, int extra,
+                          int ring = kRing) {
+  return 128 + (ring * nf + extra) * w.box * (int)sizeof(T) +
+         ring * (int)sizeof(uint64_t);
 }
 
 // The TMA kernels' grid has one more layer of x-chunks than the tiling
@@ -381,10 +386,10 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// The ring in dynamic shared memory: kRing slots of nf boxes, `extra`
-// boxes, then one mbarrier per slot (initialised here: every thread of the
-// block constructs it, and the constructor ends in a __syncthreads).
-template <typename T>
+// The ring in dynamic shared memory: R slots of nf boxes, `extra` boxes,
+// then one mbarrier per slot (initialised here: every thread of the block
+// constructs it, and the constructor ends in a __syncthreads).
+template <typename T, int R = kRing>
 struct PlaneRing {
   T* buf;
   uint64_t* full;
@@ -397,9 +402,9 @@ struct PlaneRing {
         tx_bytes((unsigned)(nf_ * w.W * w.BY * (int)sizeof(T))) {
     unsigned char* base = raw + ((128u - (smem_addr(raw) & 127u)) & 127u);
     buf = reinterpret_cast<T*>(base);
-    full = reinterpret_cast<uint64_t*>(buf + (kRing * nf + extra) * box);
+    full = reinterpret_cast<uint64_t*>(buf + (R * nf + extra) * box);
     if (threadIdx.x == 0) {
-      for (int i = 0; i < kRing; ++i) {
+      for (int i = 0; i < R; ++i) {
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
                          smem_addr(full + i))
                      : "memory");
@@ -411,23 +416,25 @@ struct PlaneRing {
 
   // the nf boxes of plane use i (field-major)
   __device__ __forceinline__ T* slot(int i) const {
-    return buf + (i % kRing) * nf * box;
+    return buf + (i % R) * nf * box;
   }
   __device__ __forceinline__ T* extra(int j) const {
-    return buf + (kRing * nf + j) * box;
+    return buf + (R * nf + j) * box;
+  }
+  // the first byte after the ring's barriers (8-byte aligned)
+  __device__ __forceinline__ unsigned char* end() const {
+    return reinterpret_cast<unsigned char*>(full + R);
   }
 
   // Thread 0 only: start the copies of plane g, the box at (zs, ys), of the
-  // nf maps into the slot of use i.
-  __device__ __forceinline__ void fetch(int i, const CUtensorMap* m0,
-                                        const CUtensorMap* m1, int zs, int ys,
-                                        int g) const {
-    const unsigned bar = smem_addr(full + i % kRing);
+  // nf maps maps[0..nf) into the slot of use i.
+  __device__ __forceinline__ void fetch(int i, const CUtensorMap* const* maps,
+                                        int zs, int ys, int g) const {
+    const unsigned bar = smem_addr(full + i % R);
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                      bar),
                  "r"(tx_bytes)
                  : "memory");
-    const CUtensorMap* maps[2] = {m0, m1};
     for (int f = 0; f < nf; ++f) {
       asm volatile(
           "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
@@ -437,11 +444,17 @@ struct PlaneRing {
           : "memory");
     }
   }
+  __device__ __forceinline__ void fetch(int i, const CUtensorMap* m0,
+                                        const CUtensorMap* m1, int zs, int ys,
+                                        int g) const {
+    const CUtensorMap* maps[2] = {m0, m1};
+    fetch(i, maps, zs, ys, g);
+  }
 
   // Wait until the copies of use i have landed.
   __device__ __forceinline__ void wait(int i) const {
-    const unsigned bar = smem_addr(full + i % kRing);
-    const unsigned parity = (unsigned)(i / kRing) & 1u;
+    const unsigned bar = smem_addr(full + i % R);
+    const unsigned parity = (unsigned)(i / R) & 1u;
     asm volatile(
         "{\n .reg .pred P1;\n WAIT:\n"
         " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"

@@ -50,8 +50,10 @@ _SIGNATURES = {
     "wave_rk4_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_I] * 7 + [_P],
     "wave_rk4_full_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_I] * 7 + [_P],
     # u0, v0, kv0, kv1, kv2, u1, v1, kv0_out, w1, w2, src_x, abc_x, dt, g,
-    # c0, <stencil>, stream (kernel J's step boundary)
-    "wave_rk42_boundary": [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_P],
+    # c0, <stencil>, ty, tz, cx, gx, gy, gz, smem, stream (kernel J's step
+    # boundary; ops/rk42step.py::boundary_launch_args)
+    "wave_rk42_boundary_tiled": [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL
+    + [_I] * 7 + [_P],
     # x, y, lyz, lxz, lxy, cvx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz,
     # ty, tz, cx, gx, gy, gz, smem, stream (kernel E; the tiling of
     # ops/tiling.py::tma_geometry)
@@ -68,8 +70,9 @@ _SIGNATURES = {
     + [_I] * 8 + [_P],
     # x, y, cvx, cvy, cvz, lx, ly, lz, p, Nx, Ny, Nz, stream (kernel F)
     "wave_stiffness_grid": [_P] * 8 + [_I] * 4 + [_P],
-    # x, y, cvx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz, stream (kernel G)
-    "wave_mass_apply": [_P] * 5 + [_I] * 9 + [_P],
+    # x, y, cvx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz, ty, tz, cx, gx,
+    # gy, gz, smem, stream (kernel G; ops/mass.py::mass_launch_args)
+    "wave_mass_tiled": [_P] * 5 + [_I] * 9 + [_I] * 7 + [_P],
     # x, y, dofmap, cells, colour_starts (host), ncolours, B, D, geo, w,
     # mode, affine, m, nq, nc, ndofs, cpb, stride, smem, coeff, stream
     # (kernel K)

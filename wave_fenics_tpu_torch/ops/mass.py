@@ -19,9 +19,11 @@ y comes out exactly zero and CG's axpy and dot run on padded vectors.
 
 Two implementations on the same tables: :func:`mass_apply_plain` (plain
 torch, three 1D passes over the whole state) and :func:`mass_apply_cuda`
-(``csrc/operator_kernels.cu::mass_apply_kernel``: one launch, each block
-contracting a brick with its halo in shared memory). :func:`mass_apply`
-dispatches on the tensor's device: CPU -> plain, CUDA -> kernel.
+(``csrc/mass_tiled.cu::mass_tiled_kernel``: one launch on the 2.5D tiled
+stencil with TMA plane loads, contracting z, then y, then x;
+:func:`mass_apply_zyx_plain` is its plain twin in that order).
+:func:`mass_apply` dispatches on the tensor's device: CPU -> plain, CUDA
+-> kernel.
 :func:`mass_operator` builds a layout and its tables on a device;
 :func:`bp1_setup` adds the BP1 problem's Jacobi map for CG.
 """
@@ -35,10 +37,10 @@ import torch
 import torch.nn.functional as nnf
 
 from ..convert import numpy_dtype, tables_from_numpy
-from . import _cuda
+from . import _cuda, tiling
 from .separable import separable_mass_tables
 from .stiffness import banded_1d_coeffs
-from .wave import PaddedLayout
+from .wave import PaddedLayout, tma_launch_geometry
 
 __all__ = [
     "MassTables",
@@ -48,7 +50,9 @@ __all__ = [
     "bp1_setup",
     "mass_apply",
     "mass_apply_plain",
+    "mass_apply_zyx_plain",
     "mass_apply_cuda",
+    "mass_launch_args",
     "mass_fused",
 ]
 
@@ -159,14 +163,47 @@ def mass_apply_plain(
     return _band(t, tables.cvz, p, 2)
 
 
+def mass_apply_zyx_plain(
+    xp: torch.Tensor, layout: PaddedLayout, tables: MassTables
+) -> torch.Tensor:
+    """The same y as :func:`mass_apply_plain` with the contractions in
+    kernel G's order, z, then y, then x (``csrc/mass_tiled.cu``)."""
+    p = layout.p
+    t = _band(xp, tables.cvz, p, 2)
+    t = _band(t, tables.cvy, p, 1)
+    return _band(t, tables.cvx, p, 0)
+
+
+def mass_launch_args(xp: torch.Tensor, out: torch.Tensor, layout: PaddedLayout,
+                     tables: MassTables) -> tuple:
+    """The arguments of the C launcher ``wave_mass_tiled`` (kernel G) up to
+    the stream: x, y, the tables, the layout, then the tiling of
+    ``tiling.tma_geometry`` (``fields=1, extra=2``: one TMA box of x a
+    plane, two z-contracted planes) on this card and its shared memory
+    with cvx of a chunk's rows added. Raises a ValueError naming the
+    condition a layout the kernel cannot tile breaks."""
+    p = layout.p
+    if p > MAX_DEGREE:
+        raise ValueError(f"kernel G takes p <= {MAX_DEGREE}, not p = {p}")
+    itemsize = xp.element_size()
+    grid, ty, tz, cx, smem = tma_launch_geometry(xp, layout, 1, 2)
+    smem += (2 * p + 1) * cx * itemsize
+    tiling.check_tma_launch(layout, itemsize, ty, tz, smem)
+    Lx, Ly, Lz = layout.padded_shape
+    Nx, Ny, Nz = layout.shape
+    return (xp, out, *tables, p, Lx, Ly, Lz, layout.x0, Nx, layout.h, Ny, Nz,
+            ty, tz, cx, *grid, smem)
+
+
 def mass_apply_cuda(
     xp: torch.Tensor,
     layout: PaddedLayout,
     tables: MassTables,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """y = (Mx (x) My (x) Mz) x with the CUDA kernel G (one launch). ``out``
-    (optional) must not alias ``xp``."""
+    """y = (Mx (x) My (x) Mz) x with the CUDA kernel G (one launch): every
+    padded point written, 0 outside the interior, whatever ``out`` held.
+    ``out`` (optional) must not alias ``xp``."""
     p = layout.p
     shape = layout.padded_shape
     Lx, Ly, Lz = shape
@@ -179,9 +216,8 @@ def mass_apply_cuda(
         cvz=(tables.cvz, (K, Lz)),
     )
     _cuda.check_no_alias((out,), (xp,))
-    Nx, Ny, Nz = layout.shape
-    _cuda.launch("wave_mass_apply", xp.dtype, xp.device, xp, out, *tables, p,
-                 Lx, Ly, Lz, layout.x0, Nx, layout.h, Ny, Nz)
+    _cuda.launch("wave_mass_tiled", xp.dtype, xp.device,
+                 *mass_launch_args(xp, out, layout, tables))
     mass_apply_cuda.launches += 1
     return out
 

@@ -13,15 +13,19 @@ C's eight:
 
 1-3. stages 0..2 of step 1 (kernel C's stage kernel,
      ``csrc/rk4_tiled.cu``): kv0, kv1, kv2;
-4.   the step boundary (``csrc/wave_kernels.cu::rk42_boundary_kernel``):
+4.   the step boundary (``csrc/rk42_tiled.cu::rk42_boundary_tiled_kernel``,
+     the 2.5D tiled stencil with TMA plane loads of u0, v0, kv0, kv1, kv2):
      kv3 of step 1, the full-tableau (u1, v1), and step 2's stage 0,
-     kv0' = A u1 + faces at t + dt, with u1 formed at each tap (it does
-     not depend on kv3);
+     kv0' = A u1 + faces at t + dt, with un3 and u1 formed once per point
+     of each plane window (u1 does not depend on kv3);
 5-7. stages 1..3 of step 2 from (u1, v1, kv0'): (u2, v2).
 
 Implementations: :func:`rk42_step_plain` (plain torch, the same seven
-phases on the stencil tables, ``ops.wave.apply_stencil_plain``) and
-:func:`rk42_step_cuda` (the kernels, with ``.launches``); :func:`rk42_step`
+phases on the stencil tables, ``ops.wave.apply_stencil_plain``; the fourth
+is :func:`rk42_boundary_plain`) and
+:func:`rk42_step_cuda` (the kernels, with ``.launches``; the checks
+launch the boundary alone through :func:`_rk42_boundary_cuda`, which counts
+no launch); :func:`rk42_step`
 dispatches on the tensor's device: CPU -> plain, CUDA -> kernel (or raise).
 """
 
@@ -29,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _cuda
+from . import _cuda, tiling
 from .rk4step import stage_launch_args
 from .wave import (
     PaddedLayout,
@@ -37,11 +41,23 @@ from .wave import (
     apply_stencil_plain,
     check_stencil,
     stencil_args,
+    tma_launch_geometry,
 )
 
-__all__ = ["rk42_step", "rk42_step_plain", "rk42_step_cuda", "LAUNCHES_PER_CALL"]
+__all__ = ["rk42_step", "rk42_step_plain", "rk42_step_cuda", "rk42_boundary_plain",
+           "boundary_launch_args", "boundary_ring", "LAUNCHES_PER_CALL"]
 
 _B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+#: the step-boundary kernel's TMA input fields a plane (u0, v0, kv0, kv1,
+#: kv2) and its formed planes (un3 and u1, two of each)
+BOUNDARY_FIELDS, BOUNDARY_EXTRA = 5, 4
+
+
+def boundary_ring(itemsize: int) -> int:
+    """Planes in the step-boundary kernel's TMA ring
+    (``csrc/rk42_tiled.cu::boundary_ring<T>``): three in f32, two in f64,
+    so that five boxes a plane leave room for the blocks an SM holds."""
+    return 3 if itemsize == 4 else 2
 
 
 def _off0(p: int) -> int:
@@ -56,6 +72,72 @@ def _check_layout(layout: PaddedLayout) -> None:
     if layout.tile_x < _off0(layout.p):
         raise ValueError(
             f"tile_x = {layout.tile_x} < the 6p slab halo {_off0(layout.p)}")
+
+
+def _phases(like: torch.Tensor, dt: float, layout: PaddedLayout, c0: float,
+            st: StencilTables, w1: torch.Tensor, w2: torch.Tensor, src_x: int,
+            abc_x: int):
+    """(kv_of, stage, combine) of the plain version, on ``like``'s dtype and
+    device: kv_of(un, vn, g) = A un + c0^2 g W1 - c0 W2 vn (the face terms
+    on their rows); stage(j, u, v, k0, k1, k2, g), kernel C's stage j from
+    (u, v) and the earlier stages' kv; combine(u, v, k0, k1, k2, k3), the
+    full-tableau (u1, v1)."""
+    Lx = layout.padded_shape[0]
+    sc = lambda x: torch.tensor(x, dtype=like.dtype, device=like.device)  # noqa: E731
+    dt_ = sc(dt)
+    a = sc(0.5) * dt_
+    c0sq, mc0 = sc(c0 * c0), sc(-c0)
+    b0, b1 = sc(_B[0]), sc(_B[1])
+
+    def kv_of(un, vn, g):
+        kv = apply_stencil_plain(un, layout, st)
+        k2, vn2 = kv.view(Lx, -1), vn.reshape(Lx, -1)
+        k2[src_x] += (c0sq * sc(g)) * w1[0]
+        k2[abc_x] += (mc0 * w2[0]) * vn2[abc_x]
+        return kv
+
+    def stage(j, u, v, k0, k1, k2, g):
+        if j == 1:
+            return kv_of(u + a * v, v + a * k0, g)
+        if j == 2:
+            return kv_of(u + a * (v + a * k0), v + a * k1, g)
+        return kv_of(u + dt_ * (v + a * k1), v + dt_ * k2, g)
+
+    def combine(u, v, k0, k1, k2, k3):
+        vn1, vn2, vn3 = v + a * k0, v + a * k1, v + dt_ * k2
+        accu = ((b0 * v + b1 * vn1) + b1 * vn2) + b0 * vn3
+        accv = ((b0 * k0 + b1 * k1) + b1 * k2) + b0 * k3
+        return u + dt_ * accu, v + dt_ * accv
+
+    return kv_of, stage, combine
+
+
+def rk42_boundary_plain(
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    kv0: torch.Tensor,
+    kv1: torch.Tensor,
+    kv2: torch.Tensor,
+    dt: float,
+    g: float,
+    layout: PaddedLayout,
+    c0: float,
+    st: StencilTables,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    src_x: int,
+    abc_x: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The step boundary, the fourth of :func:`rk42_step_cuda`'s launches
+    (the plain version of ``rk42_boundary_tiled_kernel``): from step 1's
+    (u0, v0) and stages kv0..kv2 at ``g`` = g(t + dt), step 1's kv3, its
+    full-tableau (u1, v1) and step 2's stage 0, kv0' = A u1 + faces.
+    Returns (u1, v1, kv0')."""
+    _check_layout(layout)
+    kv_of, stage, combine = _phases(u0, dt, layout, c0, st, w1, w2, src_x, abc_x)
+    kv3 = stage(3, u0, v0, kv0, kv1, kv2, g)
+    u1, v1 = combine(u0, v0, kv0, kv1, kv2, kv3)
+    return u1, v1, kv_of(u1, v1, g)
 
 
 def rk42_step_plain(
@@ -75,48 +157,88 @@ def rk42_step_plain(
     seven phases of :func:`rk42_step_cuda`; ``w1``/``w2`` are the [1, F]
     facet planes, ``src_x``/``abc_x`` their padded x rows."""
     _check_layout(layout)
-    shape = layout.padded_shape
-    Lx = shape[0]
-    sc = lambda x: torch.tensor(x, dtype=u0.dtype, device=u0.device)  # noqa: E731
-    dt_ = sc(dt)
-    a = sc(0.5) * dt_
-    c0sq, mc0 = sc(c0 * c0), sc(-c0)
-    b0, b1 = sc(_B[0]), sc(_B[1])
-
-    def kv_of(un, vn, g):
-        """A un + c0^2 g W1 - c0 W2 vn (the face terms on their rows)."""
-        kv = apply_stencil_plain(un, layout, st)
-        k2, vn2 = kv.view(Lx, -1), vn.reshape(Lx, -1)
-        k2[src_x] += (c0sq * sc(g)) * w1[0]
-        k2[abc_x] += (mc0 * w2[0]) * vn2[abc_x]
-        return kv
-
-    def stage(j, u, v, k0, k1, k2, g):
-        """Kernel C's stage j from (u, v) and the earlier stages' kv."""
-        if j == 1:
-            return kv_of(u + a * v, v + a * k0, g)
-        if j == 2:
-            return kv_of(u + a * (v + a * k0), v + a * k1, g)
-        return kv_of(u + dt_ * (v + a * k1), v + dt_ * k2, g)
-
-    def combine(u, v, k0, k1, k2, k3):
-        vn1, vn2, vn3 = v + a * k0, v + a * k1, v + dt_ * k2
-        accu = ((b0 * v + b1 * vn1) + b1 * vn2) + b0 * vn3
-        accv = ((b0 * k0 + b1 * k1) + b1 * k2) + b0 * k3
-        return u + dt_ * accu, v + dt_ * accv
-
+    face = (layout, c0, st, w1, w2, src_x, abc_x)
+    kv_of, stage, combine = _phases(u0, dt, *face)
     # step 1: stages 0..2, then the boundary: kv3, (u1, v1) and step 2's kv0
     kv0 = kv_of(u0, v0, gs[0])
     kv1 = stage(1, u0, v0, kv0, None, None, gs[1])
     kv2 = stage(2, u0, v0, kv0, kv1, None, gs[1])
-    kv3 = stage(3, u0, v0, kv0, kv1, kv2, gs[2])
-    u1, v1 = combine(u0, v0, kv0, kv1, kv2, kv3)
-    kv0 = kv_of(u1, v1, gs[2])
+    u1, v1, kv0 = rk42_boundary_plain(u0, v0, kv0, kv1, kv2, dt, gs[2], *face)
     # step 2: stages 1..3
     kv1 = stage(1, u1, v1, kv0, None, None, gs[3])
     kv2 = stage(2, u1, v1, kv0, kv1, None, gs[3])
     kv3 = stage(3, u1, v1, kv0, kv1, kv2, gs[4])
     return combine(u1, v1, kv0, kv1, kv2, kv3)
+
+
+def boundary_launch_args(
+    u0, v0, kv0, kv1, kv2, u1, v1, kv0_out, w1, w2, src_x: int, abc_x: int,
+    dt: float, g: float, c0: float, layout: PaddedLayout, st: StencilTables,
+) -> tuple:
+    """The arguments of the C launcher ``wave_rk42_boundary_tiled`` (kernel
+    J's step boundary) up to the stream: the fields, the face planes and
+    rows, the scalars (``g`` = g(t + dt)), the stencil, then the tiling of
+    ``tiling.tma_geometry`` (``fields=5, extra=4``, a ring of
+    :func:`boundary_ring` planes) on this card. Raises a ValueError naming
+    the condition a layout the kernel cannot tile breaks."""
+    itemsize = u0.element_size()
+    grid, ty, tz, cx, smem = tma_launch_geometry(
+        u0, layout, BOUNDARY_FIELDS, BOUNDARY_EXTRA, boundary_ring(itemsize))
+    tiling.check_tma_launch(layout, itemsize, ty, tz, smem)
+    return (u0, v0, kv0, kv1, kv2, u1, v1, kv0_out, w1, w2, int(src_x), int(abc_x),
+            float(dt), float(g), float(c0), *stencil_args(layout, st),
+            ty, tz, cx, *grid, smem)
+
+
+def _launch_boundary(u0, v0, kv0, kv1, kv2, u1, v1, kv0_out, dt, g, layout, c0, st,
+                     w1, w2, src_x, abc_x) -> None:
+    """One launch of the step-boundary kernel (operands checked by the
+    caller)."""
+    _cuda.launch("wave_rk42_boundary_tiled", u0.dtype, u0.device, *boundary_launch_args(
+        u0, v0, kv0, kv1, kv2, u1, v1, kv0_out, w1, w2, src_x, abc_x, dt, g, c0,
+        layout, st))
+
+
+def _rk42_boundary_cuda(
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    kv0: torch.Tensor,
+    kv1: torch.Tensor,
+    kv2: torch.Tensor,
+    dt: float,
+    g: float,
+    layout: PaddedLayout,
+    c0: float,
+    st: StencilTables,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    src_x: int,
+    abc_x: int,
+    out: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel J's step boundary alone, for the checks that hold it against
+    :func:`rk42_boundary_plain` (one launch of
+    ``rk42_boundary_tiled_kernel``, counted nowhere: on the solver paths
+    the boundary runs inside :func:`rk42_step_cuda`): (u1, v1, kv0'),
+    every padded point written, 0 outside the interior. ``out`` = (u1, v1,
+    kv0') is reused when given; none of them may alias an input or each
+    other."""
+    _check_layout(layout)
+    shape = layout.padded_shape
+    F = shape[1] * shape[2]
+    dev, dtype = u0.device, u0.dtype
+    if out is None:
+        out = tuple(torch.empty_like(u0) for _ in range(3))
+    ins = (u0, v0, kv0, kv1, kv2)
+    _cuda.check_operands(
+        dev, dtype, w1=(w1, (1, F)), w2=(w2, (1, F)),
+        **{f"in{j}": (x, shape) for j, x in enumerate(ins)},
+        **{f"out{j}": (x, shape) for j, x in enumerate(out)},
+    )
+    check_stencil(layout, st, dev, dtype)
+    _cuda.check_no_alias(out, ins)
+    _launch_boundary(*ins, *out, dt, g, layout, c0, st, w1, w2, src_x, abc_x)
+    return out
 
 
 def rk42_step_cuda(
@@ -136,9 +258,10 @@ def rk42_step_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two full-tableau RK4 steps with the CUDA kernel J: seven launches,
     each adding one to ``rk42_step_cuda.launches`` (kernel C's count does
-    not move). ``out`` = (u2, v2) and ``scratch`` = (kv0, kv1, kv2, u1, v1,
-    kv0') are reused when given; none of them may alias (u0, v0) or each
-    other."""
+    not move; the fourth is the step boundary, so a call's boundary launches
+    are its count over LAUNCHES_PER_CALL). ``out`` = (u2, v2) and
+    ``scratch`` = (kv0, kv1, kv2, u1, v1, kv0') are reused when given; none
+    of them may alias (u0, v0) or each other."""
     _check_layout(layout)
     shape = layout.padded_shape
     F = shape[1] * shape[2]
@@ -157,7 +280,6 @@ def rk42_step_cuda(
     )
     check_stencil(layout, st, dev, dtype)
     _cuda.check_no_alias((u2, v2, *scratch), (u0, v0))
-    sargs = stencil_args(layout, st)
     face = (w1, w2, int(src_x), int(abc_x), float(dt))
 
     def stage(j, u, v, k0, k_out, g):
@@ -169,8 +291,8 @@ def rk42_step_cuda(
     stage(0, u0, v0, kv0, kv0, gs[0])
     stage(1, u0, v0, kv0, kv1, gs[1])
     stage(2, u0, v0, kv0, kv2, gs[1])
-    _cuda.launch("wave_rk42_boundary", dtype, dev, u0, v0, kv0, kv1, kv2, u1,
-                 v1, kv0n, *face, float(gs[2]), float(c0), *sargs)
+    _launch_boundary(u0, v0, kv0, kv1, kv2, u1, v1, kv0n, dt, gs[2], c0=c0,
+                     layout=layout, st=st, w1=w1, w2=w2, src_x=src_x, abc_x=abc_x)
     rk42_step_cuda.launches += 1
     stage(1, u1, v1, kv0n, kv1, gs[3])
     stage(2, u1, v1, kv0n, kv2, gs[3])

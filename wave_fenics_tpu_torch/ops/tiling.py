@@ -7,9 +7,11 @@ streams CX interior x rows plus p warm-up planes on each side; the grid is
 - :func:`tiled_geometry`: kernels A and C and kernel J's stages
   (``csrc/rk4_tiled.cu``), whose planes arrive by ``cp.async`` into a ring
   of PIPE planes of up to PLANE_FIELDS fields;
-- :func:`tma_geometry`: kernels D (``csrc/rk_stage_tiled.cu``) and E
-  (``csrc/slab_tiled.cu``), whose plane windows arrive by TMA into a ring
-  of RING planes: TZ a multiple of one 16-byte unit, so every box's z start
+- :func:`tma_geometry`: kernels D (``csrc/rk_stage_tiled.cu``), E
+  (``csrc/slab_tiled.cu``), G (``csrc/mass_tiled.cu``), H and I
+  (``csrc/lf_tiled.cu``) and J's step boundary (``csrc/rk42_tiled.cu``),
+  whose plane windows arrive by TMA into a ring of RING planes (fewer for
+  J's boundary): TZ a multiple of one 16-byte unit, so every box's z start
   is 16-byte aligned, and the box within BOX_MAX along each axis; one more
   layer of blocks writes the outputs' padding.
 
@@ -32,7 +34,7 @@ __all__ = [
     "TILE_THREADS", "TILE_Z", "CHUNK_X", "PIPE", "PLANE_FIELDS", "BLOCKS_PER_SM",
     "H100_SMS", "RING", "BOX_MAX", "CHUNK_X_TMA", "PADDING_LAYERS", "blocks_per_sm",
     "tma_blocks_per_sm", "tiled_geometry", "tma_window", "tma_smem_bytes",
-    "tma_geometry", "tma_padding_first", "sm_count",
+    "tma_geometry", "tma_padding_first", "check_tma_launch", "SMEM_LIMIT", "sm_count",
 ]
 
 #: the tiling limits: threads of a tile block at most (stencil_tiled.cuh
@@ -59,6 +61,8 @@ CHUNK_X_TMA = (16, 128)
 #: layers of padding blocks at the end of a TMA kernel's grid
 #: (stencil_tiled.cuh::tma_tiling_fits)
 PADDING_LAYERS = 1
+#: bytes of shared memory a block may use on an H100 (227 KB)
+SMEM_LIMIT = 232_448
 
 
 def blocks_per_sm(itemsize: int, p: int) -> int:
@@ -144,30 +148,36 @@ def tma_window(h: int, p: int, ty: int, tz: int, itemsize: int):
     return W, BY, oz, _cdiv(W * BY * itemsize, 128) * 128 // itemsize
 
 
-def tma_smem_bytes(window, itemsize: int, fields: int, extra: int) -> int:
+def tma_smem_bytes(window, itemsize: int, fields: int, extra: int,
+                   ring: int = RING) -> int:
     """Dynamic shared memory of a TMA tile block
     (``stencil_tiled.cuh::tma_smem_bytes``): 128 bytes to align the base,
-    RING slots of ``fields`` boxes and ``extra`` boxes, RING mbarriers."""
+    ``ring`` slots of ``fields`` boxes and ``extra`` boxes, ``ring``
+    mbarriers."""
     box = window[3]
-    return 128 + (RING * fields + extra) * box * itemsize + RING * 8
+    return 128 + (ring * fields + extra) * box * itemsize + ring * 8
 
 
 def tma_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
-                 fields: int = 1, extra: int = 0):
+                 fields: int = 1, extra: int = 0, ring: int = RING):
     """(grid, TY, TZ, CX, smem_bytes) of a TMA tile kernel on ``layout``:
-    kernel E takes one field a plane (``fields=1, extra=0``), kernel D two
-    (u0, ku) and two stage-input planes (``fields=2, extra=2``). As
+    kernels E, H and I take one field a plane (``fields=1, extra=0``),
+    kernel G one and two z-contracted planes (``fields=1, extra=2``; its
+    launch adds cvx of a chunk's rows, ``ops/mass.py``), kernel D two
+    (u0, ku) and two stage-input planes (``fields=2, extra=2``), J's step
+    boundary five (u0, v0, kv0, kv1, kv2) and two pairs of formed planes
+    in a ring of ``ring`` planes (``fields=5, extra=4``). As
     :func:`tiled_geometry`, with TZ a multiple of the 16-byte unit and the
     box within BOX_MAX; the chunks fill tma_blocks_per_sm blocks an SM. The
     grid has PADDING_LAYERS more layers of x-chunks than the tiling needs:
     their blocks write the outputs' padding while the tile blocks stream
     (``stencil_tiled.cuh::padding_block``)."""
     return _tma_geometry(tuple(layout.shape), layout.p, layout.h, itemsize, sms,
-                         fields, extra)
+                         fields, extra, ring)
 
 
 @functools.cache
-def _tma_geometry(shape, p, h, itemsize, sms, fields, extra):
+def _tma_geometry(shape, p, h, itemsize, sms, fields, extra, ring):
     Nx, Ny, Nz = shape
     nz_tiles, tz, ny_tiles, ty = _tiles(Ny, Nz, TILE_Z, TILE_THREADS,
                                         tz_unit=16 // itemsize,
@@ -175,7 +185,8 @@ def _tma_geometry(shape, p, h, itemsize, sms, fields, extra):
     chunks = _chunks(Nx, p, nz_tiles * ny_tiles, sms * tma_blocks_per_sm(itemsize),
                      CHUNK_X_TMA)
     cx = _cdiv(Nx, chunks)
-    smem = tma_smem_bytes(tma_window(h, p, ty, tz, itemsize), itemsize, fields, extra)
+    smem = tma_smem_bytes(tma_window(h, p, ty, tz, itemsize), itemsize, fields, extra,
+                          ring)
     return (nz_tiles, ny_tiles, _cdiv(Nx, cx) + PADDING_LAYERS), ty, tz, cx, smem
 
 
@@ -187,11 +198,38 @@ def tma_padding_first(grid, itemsize: int = 4, sms: int = H100_SMS) -> bool:
     the first wave and delay some tile blocks by their own short time.
     Where the tile blocks fit one wave, the padding layer goes last: its
     blocks take the slots the tiles leave and delay none of them (on the
-    H100, f32: P2 at p = 4, 525 tile blocks in 264 slots, first; P3 at
-    p = 8, 225 tile blocks, last)."""
+    H100, f32: P2 at p = 4, 525 tile blocks in 264 slots, first, 14 %
+    faster than last; P3 at p = 8, 225 tile blocks, last, 18 % faster than
+    first). The rule is H's and I's only: kernel G and J's step boundary
+    measured 3-5 % faster with their padding layer last, J's boundary on
+    I's own grid of 525 tile blocks, so the wave count does not decide for
+    every kernel, and those two always put it last."""
     gx, gy, gz = grid
     tiles = gx * gy * (gz - PADDING_LAYERS)
     return tiles > sms * tma_blocks_per_sm(itemsize)
+
+
+def check_tma_launch(layout: PaddedLayout, itemsize: int, ty: int, tz: int,
+                     smem: int) -> None:
+    """Raise a ValueError naming the condition a TMA tile kernel's launch on
+    ``layout`` breaks (``stencil_tiled.cuh::tma_fits``, the launchers'
+    rules): every tap of an interior point inside the state, the rows of
+    the state a multiple of 16 bytes (the tensor map's pitch), the box
+    within BOX_MAX, the shared memory within SMEM_LIMIT."""
+    p, Lz = layout.p, layout.padded_shape[2]
+    if layout.x0 < p or layout.h < p:
+        raise ValueError(f"tile_x = {layout.tile_x} and the y/z padding {layout.h} "
+                         f"must be >= p = {p}")
+    if (Lz * itemsize) % 16:
+        raise ValueError(f"a padded z row of {Lz} x {itemsize} bytes is no multiple "
+                         "of 16 bytes (the TMA tensor map's row pitch)")
+    W, BY, _, _ = tma_window(layout.h, p, ty, tz, itemsize)
+    if W > BOX_MAX or BY > BOX_MAX:
+        raise ValueError(f"the plane window {W} x {BY} exceeds the TMA box's "
+                         f"{BOX_MAX} points along an axis")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the launch needs {smem} bytes of shared memory a block, "
+                         f"more than the {SMEM_LIMIT} an H100 block may use")
 
 
 @functools.cache

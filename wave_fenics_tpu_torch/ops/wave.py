@@ -512,11 +512,11 @@ def apply_slab_plain(
 
 
 def tma_launch_geometry(x: torch.Tensor, layout: PaddedLayout, fields: int,
-                        extra: int):
+                        extra: int, ring: int = tiling.RING):
     """``tiling.tma_geometry`` of ``layout`` for ``x``'s type on ``x``'s card
     (the H100's SM count for a tensor that is not on a card)."""
     sms = tiling.sm_count(x.device.index) if x.is_cuda else tiling.H100_SMS
-    return tiling.tma_geometry(layout, x.element_size(), sms, fields, extra)
+    return tiling.tma_geometry(layout, x.element_size(), sms, fields, extra, ring)
 
 
 def slab_launch_args(xp, out, layout: PaddedLayout, tables) -> tuple:
