@@ -12,8 +12,12 @@ its last line:
 1. device: a CUDA card, its name and power limit (nvidia-smi), TF32 off
    for the plain versions;
 2. build: nvcc compiles csrc/*.cu for sm_90a (ops/_cuda.py);
-3. kernel B (stiffness/m) against its plain version: f64 at (4,2,2) cells,
-   f32 at the headline size (64x32x32 cells, p=4, tile 48), with times;
+3. kernel B (stiffness/m on the flat layout, csrc/flat_tiled.cu) against
+   its plain version and its plain twin in the kernel's sum order: f64 at
+   every p = 1..8 on (4,2,2) and (5,3,3) cells, limit 1e-12 relative; f32
+   at the headline size (64x32x32 cells, p=4, tile 48: the P1 layout),
+   limit 1e-5 of max|ref|; each from an output full of NaN, the padding
+   then exactly 0; with its time against the bound;
 4. kernel A (lean RK4 step, csrc/rk4_tiled.cu) against the plain lean
    step: f64 at (4,2,2) cells for p in {1, 2, 3, 4} and at p=4 on (9,4,8)
    cells, whose 37x17x33 interior is no multiple of the tiling's CX, TY
@@ -39,14 +43,15 @@ its last line:
    padding, so the absorbing row carries O(max|v|) values; the relative
    error is the larger of |du|/max|u_ref| and |dv|/max|v_ref|; kernel C,
    like A, runs from NaN-filled buffers and is timed stage by stage;
-6. kernels F (the separable stiffness on the unpadded grid) and G (the
-   BP1 consistent mass on the padded layout, csrc/mass_tiled.cu) against
-   their plain versions: f64 small (F: (4,2,2) and (4,2,3) cells, p in
-   {2, 4}, Nx = 17 at p=4; G: (3,2,2) and (5,3,4) cells at every p =
-   1..8, from an output full of NaN, also against the plain twin in G's
-   z, y, x order), limit 1e-12 relative; f32 at the reference's BP1 size
-   (64^3 cells, p=4, 16,974,593 dofs), limit 1e-5 of max|ref|, G's
-   padding exactly 0 (from NaN); with times against each bound, and G
+6. kernels F (the separable stiffness on the unpadded grid, csrc/
+   stiffness_tiled.cu) and G (the BP1 consistent mass on the padded
+   layout, csrc/mass_tiled.cu) against their plain versions: f64 small
+   (F: (4,2,3) and (5,3,4) cells at every p = 1..10, Nx = 17 at p=4; G:
+   (3,2,2) and (5,3,4) cells at every p = 1..8, also against the plain
+   twin in G's z, y, x order; each from an output full of NaN), limit
+   1e-12 relative; f32 at the reference's BP1 size (64^3 cells, p=4,
+   16,974,593 dofs), limit 1e-5 of max|ref|, from NaN, G's padding then
+   exactly 0; with times against each bound, and G
    beside the one PyTorch call that computes its function (torch.einsum
    of the three assembled 1D mass matrices, dense, with the grid; TF32
    off), which must agree to 1e-5 of max|ref|;
@@ -401,15 +406,26 @@ def main() -> None:
         return out
 
     # -- 3. kernel B --------------------------------------------------------
-    phase("kernel B (apply_flat) against apply_flat_plain")
-    pm = small_model(4)
-    x = random_padded(pm.layout, 1, torch.float64)
-    yk = wave.apply_flat_cuda(x, pm.layout, pm.stencil)
-    yp = wave.apply_flat_plain(x, pm.layout, pm.flat_tables)
-    torch.cuda.synchronize()
-    rel = float((yk - yp).abs().max() / yp.abs().max())
-    print(f"f64 (4,2,2) p=4: max|err|/max|ref| = {rel:.3e} (limit 1e-12)")
-    check(rel <= 1e-12, "kernel B f64 agreement")
+    phase("kernel B (tiled TMA apply_flat) against apply_flat_plain")
+    # every p the kernel takes, on (4,2,2) cells and on (5,3,3), ragged
+    # against the tiling, each from an output full of NaN; also against the
+    # plain twin in the kernel's sum order (apply_stencil_plain)
+    for p in range(1, 9):
+        for cells in ((4, 2, 2), (5, 3, 3)):
+            pm = small_model(p, cells=cells)
+            x = random_padded(pm.layout, 1 + p, torch.float64)
+            yk = wave.apply_flat_cuda(x, pm.layout, pm.stencil,
+                                      out=torch.full_like(x, float("nan")))
+            yp = wave.apply_flat_plain(x, pm.layout, pm.flat_tables)
+            ys = wave.apply_stencil_plain(x, pm.layout, pm.stencil)
+            torch.cuda.synchronize()
+            rel = float((yk - yp).abs().max() / yp.abs().max())
+            rel_s = float((yk - ys).abs().max() / ys.abs().max())
+            print(f"f64 {cells} p={p}, padded {pm.layout.padded_shape}, from NaN: "
+                  f"max|err|/max|ref| = {rel:.3e}, against the twin in the kernel's "
+                  f"order {rel_s:.3e} (limit 1e-12)")
+            check(rel <= 1e-12 and rel_s <= 1e-12, f"kernel B f64 p={p} {cells}")
+            padding_zero(pm.layout, yk)
 
     case, hpm = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda")
     n_rk4 = case.nsteps
@@ -417,21 +433,28 @@ def main() -> None:
           f"{hpm.layout.padded_shape}, tile_x {hpm.layout.tile_x}, "
           f"{case.nsteps} steps")
     x = random_padded(hpm.layout, 2, torch.float32)
-    yk = wave.apply_flat_cuda(x, hpm.layout, hpm.stencil)
+    yk = wave.apply_flat_cuda(x, hpm.layout, hpm.stencil,
+                              out=torch.full_like(x, float("nan")))
     yp = wave.apply_flat_plain(x, hpm.layout, hpm.flat_tables)
     torch.cuda.synchronize()
     b_err = float((yk - yp).abs().max())
     rel = b_err / float(yp.abs().max())
-    print(f"f32 headline: max|err| = {b_err:.6e}, max|err|/max|ref| = "
+    print(f"f32 headline, from NaN: max|err| = {b_err:.6e}, max|err|/max|ref| = "
           f"{rel:.3e} (limit 1e-5)")
     check(rel <= 1e-5, "kernel B f32 agreement")
     padding_zero(hpm.layout, yk)
     out_b = torch.empty_like(x)
-    b_ms = 1e3 * timeit(lambda: wave.apply_flat_cuda(x, hpm.layout, hpm.stencil, out=out_b))
+    b_wrapper_ms = 1e3 * timeit(
+        lambda: wave.apply_flat_cuda(x, hpm.layout, hpm.stencil, out=out_b))
+    b_args = wave.flat_launch_args(x, out_b, hpm.layout, hpm.stencil)
+    b_ms = 1e3 * timeit(_cuda.launcher(_cuda.library(), "wave_apply_flat_tiled", x.dtype,
+                                       dev, *b_args), reps=200)
     b_plain_ms = 1e3 * timeit(
         lambda: wave.apply_flat_plain(x, hpm.layout, hpm.flat_tables), reps=5)
     b_bound = bound(hpm, 1, 1, 1, 0)
-    print(f"f32 headline: kernel {b_ms:.4f} ms/apply, plain {b_plain_ms:.4f} "
+    print(f"f32 headline (tiles {b_args[-7]}x{b_args[-6]}, x-chunks of {b_args[-5]}, "
+          f"grid {tuple(b_args[-4:-1])}, {b_args[-1]} B shared): kernel {b_ms:.4f} "
+          f"ms/apply (through the wrapper {b_wrapper_ms:.4f}), plain {b_plain_ms:.4f} "
           f"ms/apply, bound {b_bound[0]:.4f} ms ({b_bound[1]}) [{smi}]")
     del x, yk, yp, out_b
 
@@ -716,34 +739,47 @@ def main() -> None:
         return torch.as_tensor(np.random.default_rng(seed).standard_normal(shape),
                                dtype=dtype, device=dev)
 
-    phase("kernel F (stiffness_grid) against stiffness_grid_plain")
-    for p, cells in ((2, (4, 2, 3)), (4, (4, 2, 2))):
-        ops = StructuredOperators(box_mesh(cells, (1.0, 0.8, 1.2)), p,
-                                  dtype=torch.float64)
-        tabs = grid_tables(ops)
-        x = random_grid(ops.grid_shape, 20 + p, torch.float64)
-        yk = stiffness.stiffness_grid_cuda(x, tabs, p)
-        yp = stiffness.stiffness_grid_plain(x, tabs, p)
-        torch.cuda.synchronize()
-        _, rel = rel_err(yk, yp)
-        print(f"f64 {cells} p={p}, grid {ops.grid_shape}: max|err|/max|ref| = "
-              f"{rel:.3e} (limit 1e-12)")
-        check(rel <= 1e-12 and tuple(yk.shape) == ops.grid_shape,
-              f"kernel F f64 p={p}")
+    phase("kernel F (tiled cp.async stiffness_grid) against stiffness_grid_plain")
+    # every p StructuredOperators takes, on (4,2,3) cells (Nx = 17 at p=4,
+    # the JAX tests' ragged grid) and on (5,3,4), ragged against the tiling,
+    # each from an output full of NaN
+    for p in range(1, 11):
+        for cells in ((4, 2, 3), (5, 3, 4)):
+            ops = StructuredOperators(box_mesh(cells, (1.0, 0.8, 1.2)), p,
+                                      dtype=torch.float64)
+            tabs = grid_tables(ops)
+            x = random_grid(ops.grid_shape, 20 + p, torch.float64)
+            yk = stiffness.stiffness_grid_cuda(x, tabs, p,
+                                               out=torch.full_like(x, float("nan")))
+            yp = stiffness.stiffness_grid_plain(x, tabs, p)
+            torch.cuda.synchronize()
+            _, rel = rel_err(yk, yp)
+            print(f"f64 {cells} p={p}, grid {ops.grid_shape}, from NaN: "
+                  f"max|err|/max|ref| = {rel:.3e} (limit 1e-12)")
+            check(rel <= 1e-12 and bool(torch.isfinite(yk).all()),
+                  f"kernel F f64 p={p} {cells}")
     fops = StructuredOperators(box_mesh((BP1["size"],) * 3, (1.0, 1.0, 1.0)),
                                BP1["degree"], dtype=torch.float32)
     check(fops.ndofs == BP1_DOFS, "the BP1 size")
     ftabs = grid_tables(fops)
     x = random_grid(fops.grid_shape, 21, torch.float32)
-    yk = stiffness.stiffness_grid_cuda(x, ftabs, fops.p)
+    yk = stiffness.stiffness_grid_cuda(x, ftabs, fops.p,
+                                       out=torch.full_like(x, float("nan")))
     yp = stiffness.stiffness_grid_plain(x, ftabs, fops.p)
     torch.cuda.synchronize()
     f_err, rel = rel_err(yk, yp)
-    print(f"f32 {fops.grid_shape} p=4: max|err| = {f_err:.6e}, max|err|/max|ref| "
-          f"= {rel:.3e} (limit 1e-5)")
+    print(f"f32 {fops.grid_shape} p=4, from NaN: max|err| = {f_err:.6e}, "
+          f"max|err|/max|ref| = {rel:.3e} (limit 1e-5)")
     check(rel <= 1e-5, "kernel F f32 agreement")
     out_f = torch.empty_like(x)
-    f_ms = 1e3 * timeit(lambda: stiffness.stiffness_grid_cuda(x, ftabs, fops.p, out=out_f))
+    f_wrapper_ms = 1e3 * timeit(
+        lambda: stiffness.stiffness_grid_cuda(x, ftabs, fops.p, out=out_f))
+    f_args = stiffness.stiffness_launch_args(x, out_f, ftabs, fops.p)
+    f_ms = 1e3 * timeit(_cuda.launcher(_cuda.library(), "wave_stiffness_tiled", x.dtype,
+                                       dev, *f_args), reps=200)
+    print(f"kernel F f32 P7 (tiles {f_args[-7]}x{f_args[-6]}, x-chunks of "
+          f"{f_args[-5]}, grid {tuple(f_args[-4:-1])}, {f_args[-1]} B shared): "
+          f"{f_ms:.4f} ms/apply (through the wrapper {f_wrapper_ms:.4f}) [{smi}]")
     f_plain_ms = 1e3 * timeit(lambda: stiffness.stiffness_grid_plain(x, ftabs, fops.p),
                               reps=5)
     # x in, y out; 3(2p+1) taps at 2 flops, 3 line products, 3 products, 2 adds
@@ -1421,14 +1457,14 @@ def main() -> None:
     # "kernels": all eleven, each with the launches of its path's run (G:
     # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
     # since no app path at p <= 8 launches it)
-    src = "wave_fenics_tpu_torch/csrc/wave_kernels.cu"
+    src_flat = "wave_fenics_tpu_torch/csrc/flat_tiled.cu"
     src_rk42 = "wave_fenics_tpu_torch/csrc/rk42_tiled.cu"
     src_mass = "wave_fenics_tpu_torch/csrc/mass_tiled.cu"
     src_lf = "wave_fenics_tpu_torch/csrc/lf_tiled.cu"
     src_rk4 = "wave_fenics_tpu_torch/csrc/rk4_tiled.cu"
     src_slab = "wave_fenics_tpu_torch/csrc/slab_tiled.cu"
     src_stage = "wave_fenics_tpu_torch/csrc/rk_stage_tiled.cu"
-    src_ops = "wave_fenics_tpu_torch/csrc/operator_kernels.cu"
+    src_grid = "wave_fenics_tpu_torch/csrc/stiffness_tiled.cu"
     src_gen = "wave_fenics_tpu_torch/csrc/general_kernels.cu"
     results["A"] = (a_err, sum(a_stage_us) / 1e3, a_plain_ms, a_bound)
     results["B"] = (b_err, b_ms, b_plain_ms, b_bound)
@@ -1438,9 +1474,10 @@ def main() -> None:
         "A": ("rk4_tiled_kernel<T, P, J>, lean (kernel A: lean RK4 step, 4 stage "
               "launches on the 2.5D tiled stencil; ms per step)",
               "wave_fenics_tpu/ops/pallas_rk4step.py:201", src_rk4),
-        "B": ("apply_flat_kernel (kernel B: stiffness/m on the flat layout, p=4; ms "
+        "B": ("apply_flat_tiled_kernel<T, P> (kernel B: stiffness/m on the flat "
+              "layout, 2.5D tiled stencil with TMA plane loads, p=4, the P1 layout; ms "
               "per apply; launches: the f1-path RK4, 2 steps)",
-              "wave_fenics_tpu/ops/pallas_wave.py:336", src),
+              "wave_fenics_tpu/ops/pallas_wave.py:336", src_flat),
         "C": ("rk4_tiled_kernel<T, P, J>, full tableau (kernel C: full-tableau "
               "RK4 step, 4 stage launches on the 2.5D tiled stencil; ms per step)",
               "wave_fenics_tpu/ops/pallas_rk4step.py:67", src_rk4),
@@ -1455,9 +1492,10 @@ def main() -> None:
               "leapfrog steps on the 2.5D tiled stencil with TMA plane loads, p=4; ms "
               "per call, the phase launches back to back)",
               "wave_fenics_tpu/ops/pallas_lf2step.py:70", src_lf),
-        "F": ("stiffness_grid_kernel (kernel F: separable stiffness on the "
-              "unpadded grid, 64^3 cells, p=4; ms per apply)",
-              "wave_fenics_tpu/ops/pallas_stiffness.py:146", src_ops),
+        "F": ("stiffness_tiled_kernel<T, P> (kernel F: separable stiffness on the "
+              "unpadded grid, 2.5D tiled stencil with cp.async plane loads, 64^3 "
+              "cells, p=4; ms per apply)",
+              "wave_fenics_tpu/ops/pallas_stiffness.py:146", src_grid),
         "G": ("mass_tiled_kernel<T, P> (kernel G: BP1 consistent Gauss mass on the "
               "padded layout, 2.5D tiled with TMA plane loads, contracting z, y, x, "
               "64^3 cells, p=4; ms per apply)",
@@ -1506,6 +1544,9 @@ def main() -> None:
     by_name["J"]["two_c_steps_ms"] = c2_ms
     by_name["J"]["boundary_ms"] = jb_ms
     by_name["G"]["wrapper_ms"] = g_wrapper_ms
+    # "ms" of B and F: back-to-back launches; wrapper_ms: through the wrapper
+    by_name["B"]["wrapper_ms"] = b_wrapper_ms
+    by_name["F"]["wrapper_ms"] = f_wrapper_ms
     # "ms" of D and E: back-to-back launches; wrapper_ms: through the
     # wrapper, its operand checks included
     by_name["D"]["wrapper_ms"] = d_wrapper_ms

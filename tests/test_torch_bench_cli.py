@@ -29,10 +29,22 @@ def test_operators_cli_checks_against_f64(op, capsys):
     assert r["max_rel_err_vs_f64_oracle"] <= 1e-12
 
 
-def test_operators_cli_f32_two_point(capsys):
+def test_operators_cli_f32_two_point(capsys, monkeypatch):
+    """The two-point rate through the CLI. The host clock is taken out of the
+    outcome: each window still calls the op n times, but costs a fixed 1 ms a
+    call plus 5 ms a window, so the difference of the two windows gives
+    exactly 1 ms an apply whatever the machine's load."""
+
+    def window(fn, n, device):
+        for _ in range(n):
+            fn()
+        return n * 1e-3 + 5e-3
+
+    monkeypatch.setattr(common, "_window", window)
     r = _main(operators_bench, ["--op", "bp1-mass", "--size", "2", "--degree", "4",
                                 "--reps", "8", "--check"], capsys)
-    assert r["timing"] == "two-point" and r["ms_per_apply"] > 0
+    assert r["timing"] == "two-point"
+    assert abs(r["ms_per_apply"] - 1.0) <= 1e-9
     assert r["max_rel_err_vs_f64_oracle"] <= 1e-5
 
 

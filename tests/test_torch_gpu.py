@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (A to K) against their plain versions
-(float64; kernel E also in float32), kernels A, C, D, E, G and J also from
-output buffers full of NaN.
+(float64; kernel E also in float32), kernels A, B, C, D, E, F, G and J also
+from output buffers full of NaN.
 
 Every test here needs a CUDA card and skips without one. The file imports
 only torch and the port, so it runs on a machine without JAX:
@@ -107,6 +107,22 @@ def test_apply_flat_cuda_matches_plain(cuda, p):
     outside = y.clone()
     outside[pm.layout.interior] = 0.0
     assert float(outside.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("cells", [(4, 2, 2), (5, 3, 3)])
+@pytest.mark.parametrize("p", range(1, 9))
+def test_cuda_apply_flat_tiled_every_p_over_nan(cuda, p, cells):
+    """Kernel B (csrc/flat_tiled.cu) at every p it takes, on (4,2,2) cells
+    and on (5,3,3), ragged against its tiling, from an output buffer full of
+    NaN: against its plain version and its plain twin in the kernel's sum
+    order (1e-12), the padding of y exactly zero."""
+    pm = _model(p, cuda, cells)
+    x = _random_padded(pm.layout, 100 + p, cuda)
+    y = wave.apply_flat_cuda(x, pm.layout, pm.stencil, out=torch.full_like(x, float("nan")))
+    torch.cuda.synchronize()
+    assert _rel(y, wave.apply_flat_plain(x, pm.layout, pm.flat_tables)) <= TOL
+    assert _rel(y, wave.apply_stencil_plain(x, pm.layout, pm.stencil)) <= TOL
+    _padding_zero(pm, y)
 
 
 def test_apply_flat_cuda_rejects_bad_operands(cuda):
@@ -393,6 +409,24 @@ def test_cuda_stiffness_grid_matches_plain(cuda, p, cells):
     # a 0-d tensor c0 is read with float()
     y0 = ops.stiffness(x, torch.tensor(1500.0, dtype=F64, device=cuda))
     assert _rel(y0, y) == 0.0
+
+
+@pytest.mark.parametrize("cells", [(4, 2, 3), (5, 3, 4)])
+@pytest.mark.parametrize("p", range(1, 11))
+def test_cuda_stiffness_tiled_every_p_over_nan(cuda, p, cells):
+    """Kernel F (csrc/stiffness_tiled.cu) at every p StructuredOperators
+    takes, on grids whose three extents differ and are ragged against the
+    tiling, from an output buffer full of NaN: against its plain version
+    (1e-12), every point written."""
+    ops = StructuredOperators(box_mesh(cells, (1.0, 0.8, 1.2)), p, dtype=F64)
+    tables = stiffness.GridStiffnessTables(*(torch.as_tensor(t, device=cuda) for t in
+                                             stiffness.stiffness_grid_tables(
+        ops._sepA, ops._seplines, ops.grid_shape, p, -1500.0**2, F64)))
+    x = _grid(ops.grid_shape, 110 + p, cuda)
+    y = stiffness.stiffness_grid_cuda(x, tables, p, out=torch.full_like(x, float("nan")))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert _rel(y, stiffness.stiffness_grid_plain(x, tables, p)) <= TOL
 
 
 @pytest.mark.parametrize("p", [1, 2, 4, 8])

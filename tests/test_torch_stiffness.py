@@ -1,7 +1,10 @@
 """Kernel B (y = -c0^2 (K x)/m on the padded flat layout): the port's plain
-version against the JAX TPU kernel in interpret mode, the separable
-stiffness against the JAX package's. The CUDA kernel is checked against
-the plain version in test_torch_gpu.py."""
+version, and its plain twin in the CUDA kernel's sum order
+(apply_stencil_plain), against the JAX TPU kernel in interpret mode; kernel
+F's plain version (the separable stiffness on the unpadded grid, in the
+CUDA kernel's own sum order) against the JAX package's at every degree.
+The CUDA kernels are checked against the plain versions in
+test_torch_gpu.py."""
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +25,7 @@ from wave_fenics_tpu.ops.separable import (
     separable_stiffness_tables as j_sep_tables,
 )
 from wave_fenics_tpu_torch.convert import tables_from_numpy
-from wave_fenics_tpu_torch.ops import wave
+from wave_fenics_tpu_torch.ops import stiffness, wave
 
 F64 = torch.float64
 TOL = 1e-12  # f64, relative to max |ref|: only association order differs
@@ -49,6 +52,43 @@ def test_apply_flat_plain_matches_jax_kernel(p, tile_x):
     assert max_rel(y_conv, ref) <= TOL
     assert max_rel(y_own, ref) <= TOL
     np.testing.assert_array_equal(y_conv.numpy(), y_own.numpy())
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+def test_flat_stencil_twin_matches_jax_kernel(p):
+    """Kernel B's sum order (the x taps in k order, then the merged shift-0
+    y/z tap, the y taps, the z taps; csrc/stencil_tiled.cuh) departs from
+    the TPU kernel's band matrix and rolls: its plain twin
+    (apply_stencil_plain) against the JAX flat kernel at every degree
+    kernel B takes."""
+    jpm, pm = padded_pair(shape=(3, 2, 2), p=p, tile_x=16)
+    jlay, jb = jpm.layout, jpm.base
+    A, _ = j_sep_tables(p, jb.mesh.h, jb.dtype)
+    lines = j_grid_lines(jb.mesh.shape, p, jb.dtype)
+    jtabs = jwave.build_tables_flat(
+        jlay, A, lines, -float(jb.c0) ** 2, jpm._m_lines, dtype=jnp.float64
+    )
+    x = random_padded(jlay, 40 + p)
+    ref = np.asarray(jax.jit(jwave.make_apply_flat(jlay, dtype=jnp.float64))(
+        jnp.asarray(x), *[jnp.asarray(t) for t in jtabs]))
+    got = wave.apply_stencil_plain(torch.as_tensor(x), pm.layout, pm.stencil)
+    assert max_rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("p", range(1, 11))
+def test_stiffness_grid_plain_matches_jax_every_degree(p):
+    """Kernel F's plain version (its sums in the kernel's order) against the
+    JAX package's separable stiffness at every degree kernel F takes, on a
+    grid whose Nx, Ny, Nz all differ."""
+    jm, tm = jax_model(shape=(3, 2, 1), p=p), torch_model(shape=(3, 2, 1), p=p)
+    x = np.random.default_rng(50 + p).standard_normal(jm.ops.grid_shape)
+    ref = np.asarray(jm.ops.stiffness(jnp.asarray(x), jm.c0))
+    tabs = stiffness.GridStiffnessTables(*tables_from_numpy(
+        stiffness.stiffness_grid_tables(tm.ops._sepA, tm.ops._seplines,
+                                        tm.ops.grid_shape, p, -float(tm.c0) ** 2, F64),
+        "cpu", F64))
+    got = stiffness.stiffness_grid_plain(torch.as_tensor(x), tabs, p)
+    assert max_rel(got, ref) <= TOL
 
 
 @pytest.mark.parametrize("p", [2, 4])

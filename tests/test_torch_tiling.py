@@ -1,10 +1,12 @@
 """The tilings of the tiled stencil kernels on the layouts the app and
 chip_smoke.py build, and the C launchers' argument lists: the RK4 stage
 kernel (kernels A and C, and kernel J's stages; csrc/rk4_tiled.cu) at every
-p it takes (1..8), and the TMA kernels D (csrc/rk_stage_tiled.cu, p = 1..8),
-E (csrc/slab_tiled.cu, p = 1..10), G (the BP1 mass, csrc/mass_tiled.cu,
-p = 1..8) and J's step boundary (csrc/rk42_tiled.cu, p = 1..8). CPU only:
-the geometry is plain Python, so it is checked here."""
+p it takes (1..8), kernel F on the unpadded dof grid (csrc/stiffness_tiled.cu,
+p = 1..10), and the TMA kernels B (csrc/flat_tiled.cu, p = 1..8), D
+(csrc/rk_stage_tiled.cu, p = 1..8), E (csrc/slab_tiled.cu, p = 1..10), G
+(the BP1 mass, csrc/mass_tiled.cu, p = 1..8) and J's step boundary
+(csrc/rk42_tiled.cu, p = 1..8). CPU only: the geometry is plain Python, so
+it is checked here."""
 
 import ctypes
 import re
@@ -16,7 +18,16 @@ import torch
 
 from wave_fenics_tpu_torch.models.linear_wave_padded import _flat_tile_x
 from wave_fenics_tpu_torch.core.mesh import box_mesh
-from wave_fenics_tpu_torch.ops import _cuda, lf2step, lfstep, mass, rk42step, tiling, wave
+from wave_fenics_tpu_torch.ops import (
+    _cuda,
+    lf2step,
+    lfstep,
+    mass,
+    rk42step,
+    stiffness,
+    tiling,
+    wave,
+)
 from wave_fenics_tpu_torch.ops.rk4step import _off0, stage_launch_args
 from wave_fenics_tpu_torch.ops.tiling import tiled_geometry
 from wave_fenics_tpu_torch.ops.wave import PaddedLayout
@@ -155,8 +166,27 @@ def test_python_tiling_policy_matches_the_c_kernel():
     for itemsize in (4, 8):
         assert tiling.tma_blocks_per_sm(itemsize) == (many if itemsize == size else one)
     for name in ("slab_tiled.cu", "rk_stage_tiled.cu", "lf_tiled.cu", "mass_tiled.cu",
-                 "rk42_tiled.cu"):
+                 "rk42_tiled.cu", "flat_tiled.cu"):
         assert "__launch_bounds__(kTileThreads, (tma_min_blocks<T>()))" in _c_source(name)
+    # kernel F: the TMA kernels' launch bounds, grid_rows<T, P>, one field a
+    # plane of the cp.async ring
+    src = _c_source("stiffness_tiled.cu")
+    rule = re.search(r"grid_rows\(\) \{\s*return sizeof\(T\) == (\d+) && P <= (\d+) "
+                     r"\? (\d+) : (\d+);", src)
+    size, pmax, two, one = (int(n) for n in rule.groups())
+    for itemsize in (4, 8):
+        for p in range(1, 11):
+            want = two if itemsize == size and p <= pmax else one
+            assert tiling.grid_rows(itemsize, p) == want
+    assert "__launch_bounds__(kTileThreads, (tma_min_blocks<T>()))" in src
+    assert "smem < grid_smem_bytes<T, P>(t, R)" in src
+    assert "return kPipe * rows * grid_pitch(t.tz, P, R) * (int)sizeof(T) +" in src
+    assert "rows * (t.tz + 2 * P) * (int)sizeof(int2);" in src
+    assert "case %d: return launch_grid<T, %d>" % ((stiffness.MAX_DEGREE,) * 2) in src
+    # kernel B: one TMA field a plane, no extra planes
+    src = _c_source("flat_tiled.cu")
+    assert "PlaneRing<T> ring(smem_raw, w, 1, 0)" in src
+    assert "smem < tma_smem_bytes<T>(w, 1, 0)" in src
     # kernel J's step boundary: its ring depth and its planes
     rule = re.search(r"boundary_ring\(\) \{\s*return sizeof\(T\) == (\d+) \? (\d+) : (\d+);",
                      _c_source("rk42_tiled.cu"))
@@ -183,8 +213,9 @@ def test_point_only_ablation_patches_one_line():
     replaces is there once."""
     from wave_fenics_tpu_torch.apps.profile_step import ABLATIONS, POINT_ONLY
 
-    assert sorted(POINT_ONLY) == ["lf_tiled.cu", "mass_tiled.cu", "rk42_tiled.cu",
-                                  "rk4_tiled.cu", "rk_stage_tiled.cu", "slab_tiled.cu"]
+    assert sorted(POINT_ONLY) == ["flat_tiled.cu", "lf_tiled.cu", "mass_tiled.cu",
+                                  "rk42_tiled.cu", "rk4_tiled.cu", "rk_stage_tiled.cu",
+                                  "slab_tiled.cu", "stiffness_tiled.cu"]
     assert sorted(a for a, ps in ABLATIONS.items() if "general_kernels.cu" in ps) == [
         "K gather only", "K no geometry", "K no overlap", "K no y read"]
     for patches in ABLATIONS.values():
@@ -207,10 +238,18 @@ def _tma_layout(kernel, cells, p):
 
 
 def _tma_geometry(kernel, lay, itemsize):
-    """Kernel E and the leapfrog phases of H and I take one TMA box of one
-    field a plane, D two fields and two stage-input planes."""
+    """Kernels B and E and the leapfrog phases of H and I take one TMA box
+    of one field a plane, D two fields and two stage-input planes."""
     nf, extra = (2, 2) if kernel == "D" else (1, 0)
     return tiling.tma_geometry(lay, itemsize, fields=nf, extra=extra), nf, extra
+
+
+def _flat_geometry(lay, itemsize):
+    """Kernel B's launch tiling (flat_launch_args) on an H100."""
+    x = torch.zeros(1, dtype=torch.float32 if itemsize == 4 else torch.float64)
+    args = wave.flat_launch_args(x, x, lay, tuple(torch.zeros(1) for _ in range(5)))
+    ty, tz, cx, gz, gy, gx, smem = args[-7:]
+    return (gz, gy, gx), ty, tz, cx, smem
 
 
 def _padding_count(lay):
@@ -231,10 +270,12 @@ def _padding_count(lay):
 @pytest.mark.parametrize("cells", TMA_CELLS)
 @pytest.mark.parametrize("kernel,p", [("E", p) for p in range(1, 11)]
                          + [("D", p) for p in range(1, 9)]
-                         + [("H", p) for p in range(1, 9)])
+                         + [("H", p) for p in range(1, 9)]
+                         + [("B", p) for p in range(1, 9)])
 def test_tma_tiles_cover_the_interior_once(kernel, p, cells):
-    """Kernel E's, D's and the leapfrog phases' (H, I) tiling: the tiles and
-    x-chunks cover the interior
+    """Kernel E's, D's, the leapfrog phases' (H, I) and kernel B's tiling
+    (B's through its launcher's arguments): the tiles and x-chunks cover
+    the interior
     exactly once and the padding pass the rest; every box starts 16-byte
     aligned along z, holds the tile's p-deep halo and stays within the TMA's
     256-point extents; the shared memory of a block stays within an H100's
@@ -245,6 +286,8 @@ def test_tma_tiles_cover_the_interior_once(kernel, p, cells):
     Lx, Ly, Lz = lay.padded_shape
     for itemsize in (4, 8):
         (gz, gy, gx), ty, tz, cx, smem = geo = _tma_geometry(kernel, lay, itemsize)[0]
+        if kernel == "B":
+            assert _flat_geometry(lay, itemsize) == geo
         W, BY, oz, box = tiling.tma_window(lay.h, p, ty, tz, itemsize)
         unit = 16 // itemsize
         assert ty * tz <= tiling.TILE_THREADS and tz <= tiling.TILE_Z and tz % unit == 0
@@ -649,3 +692,164 @@ def test_tma_launch_check_names_the_unmet_condition():
     lay = _mass_layout((3, 2, 2), 4)
     with pytest.raises(ValueError, match="bytes of shared memory"):
         tiling.check_tma_launch(lay, 8, 8, 16, tiling.SMEM_LIMIT + 1)
+
+
+# Kernel F (csrc/stiffness_tiled.cu) on the unpadded dof grid: the P7 grid
+# (257^3), the ragged Nx = 17 of the JAX tests ((4,2,3) cells at p = 4:
+# 17 x 9 x 13), and (4,2,3)- and (5,3,4)-cell grids at each degree.
+def _f_shapes(p):
+    return [(257, 257, 257), (17, 9, 13)] + [tuple(c * p + 1 for c in cells)
+                                             for cells in ((4, 2, 3), (5, 3, 4))]
+
+
+def _f_geometry(shape, p, itemsize):
+    """Kernel F's launch tiling (stiffness_launch_args) on an H100."""
+    x = torch.zeros(shape, dtype=torch.float32 if itemsize == 4 else torch.float64)
+    args = stiffness.stiffness_launch_args(x, x, tuple(torch.zeros(1) for _ in range(6)), p)
+    assert args[8:12] == (p, *shape)
+    ty, tz, cx, gz, gy, gx, smem = args[-7:]
+    return (gz, gy, gx), ty, tz, cx, smem
+
+
+@pytest.mark.parametrize("p", range(1, 11))
+def test_grid_tiles_cover_the_grid_once(p):
+    """Kernel F's tiling at every degree it takes: the tiles and x-chunks
+    cover every grid point exactly once (no padding, so no padding pass);
+    the p warm-up planes of a chunk and the y/z halo of a tile may leave
+    the grid, where the cp.async window reads zeros; the shared memory the
+    launch asks for holds the kPipe-plane ring and the offset table of the
+    (ty + 2p) x (tz + 2p) window, within a block's 227 KB and, for the
+    blocks the launch bounds ask for, within an SM's 228 KB, in f32 and
+    f64; the chunks fill the card's block slots."""
+    for shape in _f_shapes(p):
+        Nx, Ny, Nz = shape
+        for itemsize in (4, 8):
+            grid, ty, tz, cx, smem = _f_geometry(shape, p, itemsize)
+            assert (grid, ty, tz, cx, smem) == tiling.grid_geometry(shape, p, itemsize)
+            rows = tiling.grid_rows(itemsize, p)
+            assert ty % rows == 0 and tz % rows == 0
+            assert ty // rows * tz <= tiling.TILE_THREADS and tz <= tiling.TILE_Z
+            # the window's pitch: a warp's 32 tap loads in 32 banks
+            W = tiling.grid_pitch(tz, p, rows)
+            assert W >= tz + 2 * p and (rows * W - tz) % 32 == 0
+            nt = ty // rows * tz
+            for j in range(2 * p + rows):  # the rows a thread reads
+                for t0 in range(0, nt, 32):  # each warp
+                    banks = {((rows * (t // tz) + j) * W + t % tz) % 32
+                             for t in range(t0, min(t0 + 32, nt))}
+                    assert len(banks) == min(32, nt - t0)
+            assert cx <= tiling.CHUNK_X_TMA[1]
+            assert smem == (tiling.PIPE * (ty + 2 * p) * W * itemsize
+                            + 8 * (ty + 2 * p) * (tz + 2 * p))
+            assert smem <= tiling.SMEM_LIMIT
+            assert tiling.tma_blocks_per_sm(itemsize) * (smem + SM_RESERVED) <= SM_SMEM
+            assert grid == (-(-Nz // tz), -(-Ny // ty), -(-Nx // cx))
+        ranges = [_axis_ranges(0, Nx, cx, grid[2]), _axis_ranges(0, Ny, ty, grid[1]),
+                  _axis_ranges(0, Nz, tz, grid[0])]
+        for n, rs in zip(shape, ranges):
+            hits = np.zeros(n, dtype=int)
+            for lo, hi in rs:
+                assert lo < hi  # no empty tile or chunk
+                hits[lo:hi] += 1
+            assert (hits == 1).all()
+        if np.prod(shape) <= 1_000_000:  # the whole grid, point by point
+            count = np.zeros(shape, dtype=int)
+            for x in ranges[0]:
+                for y in ranges[1]:
+                    for z in ranges[2]:
+                        count[x[0]:x[1], y[0]:y[1], z[0]:z[1]] += 1
+            assert (count == 1).all()
+
+
+def test_grid_geometry_on_the_p7_grid():
+    """P7 in f32 (257^3, p = 4): 30-wide z tiles of 16 rows, two a thread
+    (9 x 17 tiles of 240 threads; the window's pitch 47), five x-chunks of
+    52 rows: 765 blocks, under three waves of the two blocks an SM the
+    launch bounds ask for; cached (every apply asks). In f64 one row a
+    thread: tiles of 8 x 29."""
+    geo = tiling.grid_geometry((257, 257, 257), 4, 4)
+    assert geo == ((9, 17, 5), 16, 30, 52, 25_344)
+    assert tiling.grid_pitch(30, 4, 2) == 47
+    assert tiling.grid_geometry((257, 257, 257), 4, 4) is geo
+    assert 9 * 17 * 5 <= 3 * tiling.tma_blocks_per_sm(4) * tiling.H100_SMS
+    assert tiling.grid_geometry((257, 257, 257), 4, 8)[1:3] == (8, 29)
+
+
+def test_flat_geometry_on_the_p1_layout():
+    """Kernel B at the P1 layout ((384, 144, 144), p = 4, f32): the tiling
+    of the leapfrog kernels on the same layout (28-wide z tiles of 9 rows,
+    7 chunks of 37 rows: 525 tile blocks and one layer of 75 padding
+    blocks), the box 16-byte aligned."""
+    lay = _tma_layout("B", (64, 32, 32), 4)
+    lay = PaddedLayout(lay.shape, 4, tile_x=48, z_align=16)
+    assert lay.padded_shape == (384, 144, 144)
+    grid, ty, tz, cx, _ = _flat_geometry(lay, 4)
+    assert (grid, ty, tz, cx) == ((5, 15, 8), 9, 28, 37)
+    assert grid[0] * grid[1] * (grid[2] - tiling.PADDING_LAYERS) == 525
+
+
+def test_flat_and_grid_launch_args_match_the_c_signature():
+    """Kernels B's and F's wrappers build argument lists whose types are the
+    ones ctypes declares for ``wave_apply_flat_tiled`` and
+    ``wave_stiffness_tiled``, ending in their tilings, and each launcher's C
+    prototype has as many parameters."""
+    kinds = {ctypes.c_void_p: torch.Tensor, ctypes.c_int: int, ctypes.c_double: float}
+    lay = _tma_layout("B", (4, 2, 2), 4)
+    flat = wave.flat_launch_args(_tensor(), _tensor(), lay,
+                                 tuple(_tensor() for _ in range(5)))
+    (gz, gy, gx), ty, tz, cx, smem = _tma_geometry("B", lay, 4)[0]
+    assert flat[-7:] == (ty, tz, cx, gz, gy, gx, smem)
+    x = torch.zeros((9, 5, 7))
+    grid = stiffness.stiffness_launch_args(x, x, tuple(_tensor() for _ in range(6)), 2)
+    (fz, fy, fx), ty, tz, cx, smem = tiling.grid_geometry((9, 5, 7), 2)
+    assert grid[-7:] == (ty, tz, cx, fz, fy, fx, smem)
+    for name, args, src in (("wave_apply_flat_tiled", flat, "flat_tiled.cu"),
+                            ("wave_stiffness_tiled", grid, "stiffness_tiled.cu")):
+        sig = _cuda._SIGNATURES[name]
+        assert len(args) + 1 == len(sig) and sig[-1] is ctypes.c_void_p  # + stream
+        for a, t in zip(args, sig):
+            assert type(a) is kinds[t] or isinstance(a, kinds[t])
+        proto = re.search(r'extern "C" int wave_\w+##SUFFIX\((.*?)\)\s*\{', _c_source(src),
+                          re.S)
+        params = [q for q in proto.group(1).replace("\\", " ").split(",") if q.strip()]
+        assert len(params) == len(sig)
+
+
+@pytest.mark.parametrize("kernel", ["B", "F"])
+def test_flat_and_grid_wrappers_raise_on_cpu_tensors(kernel):
+    """Kernels B's and F's CUDA wrappers take CUDA tensors only: a CPU
+    tensor raises before any launch (the dispatchers send it to the plain
+    version), and no launch is counted."""
+    if kernel == "B":
+        lay = _tma_layout("B", (2, 1, 1), 2)
+        x = torch.zeros(lay.padded_shape, dtype=torch.float64)
+        fn = wave.apply_flat_cuda
+        call = lambda: fn(x, lay, tuple(torch.zeros(1) for _ in range(5)))  # noqa: E731
+    else:
+        x = torch.zeros((5, 3, 3), dtype=torch.float64)
+        fn = stiffness.stiffness_grid_cuda
+        tabs = stiffness.GridStiffnessTables(*(torch.zeros(1) for _ in range(6)))
+        call = lambda: fn(x, tabs, 2)  # noqa: E731
+    n0 = fn.launches
+    with pytest.raises(ValueError, match="CUDA kernel called with a tensor on cpu"):
+        call()
+    assert fn.launches == n0
+
+
+def test_flat_and_grid_launch_checks_name_the_unmet_condition():
+    """No fallback: a degree or layout kernels B and F cannot take raises a
+    ValueError that names the condition, before any launch: F outside
+    1 <= p <= 10, B above p = 8 or on a layout the flat kernels do not
+    take. (A flat layout's Ly * Lz is a multiple of 128 and Ly of 8, so its
+    z rows are whole 16-byte units, as the TMA box needs.)"""
+    t32 = torch.zeros((9, 9, 9), dtype=torch.float32)
+    tabs = tuple(torch.zeros(1) for _ in range(6))
+    for p in (0, 11):
+        with pytest.raises(ValueError, match="1 <= p <= 10"):
+            stiffness.stiffness_launch_args(t32, t32, tabs, p)
+    st = tuple(torch.zeros(1) for _ in range(5))
+    with pytest.raises(ValueError, match="p <= 8"):
+        wave.flat_launch_args(t32, t32, PaddedLayout((19, 19, 19), 9, z_align=16), st)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        wave.flat_launch_args(t32, t32, PaddedLayout((9, 9, 9), 2, tile_x=12,
+                                                     z_align=16), st)

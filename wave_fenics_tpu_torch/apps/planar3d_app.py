@@ -108,7 +108,7 @@ def solver_path(pm: PaddedLinearWave, integrator: str = "rk4",
                else "csrc/rk4_tiled.cu" if "kernel A" in kernel or "kernel C" in kernel
                else "csrc/rk_stage_tiled.cu" if "kernel D" in kernel
                else "csrc/lf_tiled.cu" if "kernel H" in kernel or "kernel I" in kernel
-               else "csrc/wave_kernels.cu")
+               else "csrc/flat_tiled.cu")
         return (f"CUDA {kernel} ({src})" if cuda
                 else f"plain torch {plain} (CPU)")
 

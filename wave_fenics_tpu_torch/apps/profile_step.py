@@ -54,6 +54,8 @@ Run from the repository root on a machine with a CUDA card:
            --cells 26 13 13          # kernel E
     python -m wave_fenics_tpu_torch.apps.profile_step --ablate --two-step   # J's boundary
     python -m wave_fenics_tpu_torch.apps.profile_step --ablate --bp1 --cells 64 64 64  # G
+    python -m wave_fenics_tpu_torch.apps.profile_step --ablate --stiffness --cells 64 64 64  # F
+    python -m wave_fenics_tpu_torch.apps.profile_step --ablate --flat       # B, P1 layout
 
 With ``--sweep-tiling`` it times each stage launch of kernel A (or C)
 at every tiling of ``TILINGS`` (the tile and x-chunk limits of
@@ -66,7 +68,11 @@ parts ``ABLATIONS`` takes out; H and I also with their padding layer on
 the grid's other end), beside one field copy; with ``--two-step
 --ablate`` kernel J's step-boundary launch, with ``--bp1 --ablate`` kernel
 G's apply on the BP1 layout of ``--cells`` (its z and y contractions
-replaced by the window's point value), each as built and without each part
+replaced by the window's point value), with ``--stiffness --ablate`` kernel
+F's apply on the unpadded grid of a unit box of ``--cells`` (its y and z
+taps replaced by the window's point value), with ``--flat --ablate`` kernel
+B's apply on the planar3d layout of ``--cells`` (also with its padding
+layer on the grid's other end), each as built and without each part
 ``ABLATIONS`` takes out of it; with ``--general --ablate``, kernel K's
 stiffness apply as built, without each part ``ABLATIONS`` takes out of it,
 and with all cells in one launch.
@@ -91,10 +97,13 @@ import torch
 
 from ..benchmarks import general_solve
 from ..benchmarks.common import DTYPES
+from ..convert import tables_from_numpy
 from ..core.mesh import box_mesh
 from ..ops import _cuda, general, lfstep, rk4step, rk42step, tiling, wave
 from ..ops.general import general_apply_cuda
 from ..ops.mass import bp1_setup, mass_apply, mass_launch_args
+from ..ops.operators import StructuredOperators
+from ..ops.stiffness import GridStiffnessTables, stiffness_grid_tables, stiffness_launch_args
 from ..solvers.cg import cg
 from ..utils.timing import sync, timeit
 from . import planar3d_app
@@ -117,7 +126,7 @@ KERNELS = [
     (r"lf_phase_tiled_kernel<[^,<>]+,\s*\d+,\s*0>", "lf OPEN", 4),
     (r"lf_phase_tiled_kernel<[^,<>]+,\s*\d+,\s*1>", "lf MID", 4),
     (r"lf_phase_tiled_kernel<[^,<>]+,\s*\d+,\s*2>", "lf CLOSE", 3),
-    (r"apply_flat_kernel<", "apply_flat (B)", 2),
+    (r"apply_flat_tiled_kernel<", "apply_flat (B)", 2),
     (r"apply_slab_tiled_kernel<", "apply_slab (E)", 2),
 ]
 _KERNEL_RES = [(re.compile(pat), label, fields) for pat, label, fields in KERNELS]
@@ -253,15 +262,18 @@ TILINGS = [(32, 256, (16, 64)), (32, 256, (16, 16)), (32, 256, (32, 32)),
 #: the ablations of --ablate: patched copies of the sources, each a set of
 #: (file: the lines it replaces exactly once, the replacement). "point
 #: value" replaces the lines that apply the stencil of kernels A and C
-#: (rk4_tiled.cu), D (rk_stage_tiled.cu), E (slab_tiled.cu), H/I
-#: (lf_tiled.cu) and J's boundary (rk42_tiled.cu) by the point value (the
-#: same fetches, stage inputs and stores, no taps), and kernel G's z and y
-#: contractions (mass_tiled.cu) by the window's point value (no
-#: z-contracted plane; the x contraction stays); the others take one part
-#: out of D, E, G, H/I or J's boundary: its padding pass (the padding
-#: blocks return at once), D's or J's point-wise loads (v0, kv, ua, va;
-#: v0, kv0, kv1, kv2: a value from the index instead), or the stage inputs
-#: D and J form (u0's window read in their place).
+#: (rk4_tiled.cu), B (flat_tiled.cu), D (rk_stage_tiled.cu), E
+#: (slab_tiled.cu), H/I (lf_tiled.cu) and J's boundary (rk42_tiled.cu) by
+#: the point value (the same fetches, stage inputs and stores, no taps),
+#: kernel G's z and y contractions (mass_tiled.cu) by the window's point
+#: value (no z-contracted plane; the x contraction stays), and kernel F's
+#: y and z taps (stiffness_tiled.cu) by the window's point value (the x
+#: taps and the line products stay); the others take one part out of B,
+#: D, E, G, H/I or J's boundary: its padding pass (the padding blocks
+#: return at once), D's or J's point-wise loads (v0, kv, ua, va; v0, kv0,
+#: kv1, kv2: a value from the index instead), or the stage inputs D and J
+#: form (u0's window read in their place); "padding layer last" moves
+#: B's padding layer to the grid's last layer.
 _D_POINT_LOADS = """      pn[0] = a.v0[nidx];
       pn[1] = a.kv[nidx];
       pn[2] = a.ua[nidx];
@@ -298,6 +310,11 @@ _G_ZY = """    for (int r = c.ly; r < nrow; r += t.ty) zb[r * tz + c.lz] = band<
     }
     if (!c.active) continue;
     const T v = band<T, P>(cy, zb + c.ly * tz + c.lz, tz);  // y at the column"""
+_F_YZ = """        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k < K; ++k) acc += cy[r][k] * v[k + r];
+        ty[r] = acc * (lx * lz);
+        tz[r] = axis_taps<T, P>(cz, ctr + r * W, 1) * (lx * ly[r]);"""
 ABLATIONS = {
     "point value": {
         "rk4_tiled.cu": ("T kv = x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);",
@@ -311,6 +328,10 @@ ABLATIONS = {
             "x_taps<T, P>(s, q1, g) * tab.fx + yz1 * sxg", "q1[P]")),
         "mass_tiled.cu": (_G_ZY, "\n".join(_G_ZY.splitlines()[1:-1])
                           + "\n    const T v = xb[(c.ly + P) * W + P];"),
+        "flat_tiled.cu": ("x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);",
+                          "q[P];"),
+        "stiffness_tiled.cu": (_F_YZ, "        ty[r] = v[P + r] * (lx * lz);\n"
+                               "        tz[r] = v[P + r] * (lx * ly[r]);"),
     },
     "no padding pass": {
         "rk_stage_tiled.cu": ("    for_each_padding<8>(s, t, pb, npb,",
@@ -323,6 +344,22 @@ ABLATIONS = {
                           "    if (false) for_each_padding<1>(s, t, pb, npb,"),
         "mass_tiled.cu": ("    for_each_padding<1>(s, t, pb, npb,",
                           "    if (false) for_each_padding<1>(s, t, pb, npb,"),
+        "flat_tiled.cu": ("    for_each_padding<1>(s, t, pb, npb,",
+                          "    if (false) for_each_padding<1>(s, t, pb, npb,"),
+    },
+    # kernel F without its x taps (the point value in their place), and
+    # without the copies of the planes after the first kPipe - 1 (the taps
+    # read stale planes)
+    "F no x taps": {
+        "stiffness_tiled.cu": ("(tx[r] * (ly[r] * lz) + ay[r]) + az[r];",
+                               "(q[r][P] * (ly[r] * lz) + ay[r]) + az[r];"),
+    },
+    "F no plane copies": {
+        "stiffness_tiled.cu": ("if (ip < iters) w.fetch(", "if (false) w.fetch("),
+    },
+    "padding layer last": {
+        "flat_tiled.cu": ("constexpr bool kPaddingFirst = true;",
+                          "constexpr bool kPaddingFirst = false;"),
     },
     "no point-wise loads": {
         "rk_stage_tiled.cu": (_D_POINT_LOADS,
@@ -561,6 +598,56 @@ def ablate_bp1(cells=(64, 64, 64), degree=4, dtype="f32") -> dict:
             "copy_us": copy_s * 1e6, "copy_gbps": 2 * nbytes / copy_s / 1e9}
 
 
+def _ablations_of(src: str) -> list[str]:
+    return [a for a, patches in ABLATIONS.items() if src in patches]
+
+
+def ablate_stiffness(cells=(64, 64, 64), degree=4, dtype="f32") -> dict:
+    """Kernel F's apply on the unpadded dof grid of ``cells`` (a unit box:
+    at 64^3 cells the grid of ``operators_bench --op stiffness``, P7) as
+    built and with each ablation that patches ``stiffness_tiled.cu`` (CUDA
+    events over back-to-back launches), and one field copy."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA card")
+    dev, dt = torch.device("cuda"), DTYPES[dtype]
+    ops = StructuredOperators(box_mesh(tuple(cells), (1.0, 1.0, 1.0)), degree, dtype=dt)
+    tables = GridStiffnessTables(*tables_from_numpy(stiffness_grid_tables(
+        ops._sepA, ops._seplines, ops.grid_shape, degree, -1500.0**2, dt), dev, dt))
+    x = torch.randn(ops.grid_shape, dtype=dt, device=dev)
+    args = stiffness_launch_args(x, torch.empty_like(x), tables, degree)
+    name = "wave_stiffness_tiled"
+    nbytes, copy_s = _copy_rate(x)
+    return {"card": card_line(), "cells": list(cells), "degree": degree,
+            "dtype": dtype, "grid_shape": list(ops.grid_shape), "kernel": "F",
+            "us_per_launch": _launch_us(_cuda.library(), name, x, args),
+            "ablated_us_per_launch": {a: _launch_us(patched_library(a), name, x, args)
+                                      for a in _ablations_of("stiffness_tiled.cu")},
+            "geometry": list(args[-7:]), "field_bytes": nbytes,
+            "copy_us": copy_s * 1e6, "copy_gbps": 2 * nbytes / copy_s / 1e9}
+
+
+def ablate_flat(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None) -> dict:
+    """Kernel B's apply on the planar3d layout of ``cells`` (the P1 layout,
+    (384, 144, 144), by default) as built and with each ablation that
+    patches ``flat_tiled.cu`` (CUDA events over back-to-back launches, x
+    random in the interior and 0 in the padding), and one field copy."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA card")
+    _, pm = planar3d_app.build(cells, degree, dtype, tile_x, "cuda")
+    x = pm.layout.pad(torch.randn(pm.layout.shape, dtype=pm.base.dtype,
+                                  device=pm.base.device))
+    args = wave.flat_launch_args(x, torch.empty_like(x), pm.layout, pm.stencil)
+    name = "wave_apply_flat_tiled"
+    nbytes, copy_s = _copy_rate(x)
+    return {"card": card_line(), "cells": list(cells), "degree": degree,
+            "dtype": dtype, "padded_shape": list(pm.layout.padded_shape), "kernel": "B",
+            "us_per_launch": _launch_us(_cuda.library(), name, x, args),
+            "ablated_us_per_launch": {a: _launch_us(patched_library(a), name, x, args)
+                                      for a in _ablations_of("flat_tiled.cu")},
+            "geometry": list(args[-7:]), "field_bytes": nbytes,
+            "copy_us": copy_s * 1e6, "copy_gbps": 2 * nbytes / copy_s / 1e9}
+
+
 def ablate(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
            lean=True, integrator="rk4", two_step=False) -> dict:
     """What holds the path's kernel back: kernel A (or C) stage by stage,
@@ -780,6 +867,11 @@ def main(argv=None):
                     help="profile RK4 steps of the explicit-dofmap model "
                          "(kernel K) on the perturbed box of --cells; with "
                          "--ablate, K's stiffness apply as built and ablated")
+    ap.add_argument("--stiffness", action="store_true",
+                    help="with --ablate, kernel F on the unpadded dof grid of a "
+                         "unit box of --cells")
+    ap.add_argument("--flat", action="store_true",
+                    help="with --ablate, kernel B on the planar3d layout of --cells")
     ap.add_argument("--sweep-tiling", action="store_true",
                     help="time each stage of kernel A (C with --full-tableau) "
                          "at every tiling of TILINGS")
@@ -791,6 +883,8 @@ def main(argv=None):
                          "with --bp1) as built and with the stencil replaced "
                          "by the point value, and one field copy")
     args = ap.parse_args(argv)
+    if (args.stiffness or args.flat) and not args.ablate:
+        ap.error("--stiffness and --flat select the kernel --ablate times")
     if args.ablate and args.general:
         out = ablate_general(args.cells, args.degree, args.dtype)
         print(out["card"])
@@ -802,6 +896,10 @@ def main(argv=None):
         return
     if args.ablate and args.bp1:
         out = ablate_bp1(args.cells, args.degree, args.dtype)
+    elif args.ablate and args.stiffness:
+        out = ablate_stiffness(args.cells, args.degree, args.dtype)
+    elif args.ablate and args.flat:
+        out = ablate_flat(args.cells, args.degree, args.dtype, args.tile_x)
     elif args.ablate:
         out = ablate(args.cells, args.degree, args.dtype, args.tile_x,
                      lean=not args.full_tableau, integrator=args.integrator,

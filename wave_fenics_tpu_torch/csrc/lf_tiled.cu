@@ -14,7 +14,7 @@
 //                    v+' = (v1 + h F(u1)) / (1 + h D),  u2 = u1 + dt v+'
 //   CLOSE (u1, v+):  v1 = (1 - h D) v+ + h F(u1)
 //
-// A u is stencil.cuh's apply_stencil in its sum order, then the source
+// A u is stencil_tiled.cuh's stencil in its sum order, then the source
 // term, then the phase's formula as written. `u` is read at the taps, so
 // u_out must not alias it; CLOSE writes v_out only (u1 stays where OPEN or
 // MID wrote it). In the padding, u_out (OPEN, MID) and v_out are 0.

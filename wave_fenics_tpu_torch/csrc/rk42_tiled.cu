@@ -16,8 +16,8 @@
 //
 // with vn1 = v0 + a kv0, vn2 = v0 + a kv1, vn3 = v0 + dt kv2: the
 // expressions and association orders of kernel C's stage 3, so that u1
-// and v1 are the ones two kernel-C steps give. A is stencil.cuh's
-// apply_stencil in its sum order. u1, v1 and kv0' are written for step
+// and v1 are the ones two kernel-C steps give. A is stencil_tiled.cuh's
+// stencil in its sum order. u1, v1 and kv0' are written for step
 // 2's stages, 0 in the padding; none of them may alias an input.
 //
 // What bounds it on this card: the interiors of five fields in (u0, v0,

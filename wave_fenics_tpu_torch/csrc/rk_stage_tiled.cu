@@ -12,8 +12,8 @@
 // vn and ua' are written at every padded point; in the padding kv' = 0 and
 // va' = va, as on the TPU kernel's all-pad tiles. ua'/va' are point-wise
 // updates and may be ua/va themselves (solve_fused_n passes them so); vn
-// and kv' alias nothing. The stencil is stencil.cuh's apply_stencil, in its
-// sum order.
+// and kv' alias nothing. The stencil is stencil_tiled.cuh's, in its sum
+// order (x_taps, ColumnTables::yz).
 //
 // What bounds it on this card: the interiors of the six fields it reads
 // (their padding is 0) and the four padded fields it writes (0.067 ms in

@@ -17,9 +17,10 @@
 // lines folded in, fx the outer product of the y and z lines and sx the x
 // line (all built by ops/wave.py::stencil_tables). The two shift-0 taps
 // of the y and z stencils are merged into one term, as in the TPU step
-// kernel. Every read outside [0, Lx) x [0, F) is masked: for an interior
-// point none occurs (the padding is at least p deep on every side), so the
-// masks only guard against a layout that breaks that rule.
+// kernel. The kernels that apply it stream it through shared memory, in
+// the sum order of stencil_tiled.cuh (x_taps, ColumnTables::yz); the
+// padding is at least p deep on every side, so no tap of an interior point
+// leaves the state.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,42 +51,7 @@ struct Stencil : PaddedBox {
                               int ny_, int nz_)
       : PaddedBox{p_, Lx_, Ly_, Lz_, x0_, nx_, h_, ny_, nz_},
         cvx(cvx_), sx(sx_), fx(fx_), cvy(cvy_), cvz(cvz_) {}
-
-  __device__ __forceinline__ bool interior(int g, int f) const {
-    const int y = f / Lz;
-    const int z = f - y * Lz;
-    return g >= x0 && g < x0 + nx && y >= h && y < h + ny && z >= h &&
-           z < h + nz;
-  }
 };
-
-// (A x)[g, f]; load(g', f') returns x at row g', column f'.
-template <typename T, typename Load>
-__device__ __forceinline__ T apply_stencil(const Stencil<T>& s,
-                                           const Load& load, int g, int f) {
-  const int p = s.p;
-  const int K = 2 * p + 1;
-  const int F = s.F();
-
-  T tx = T(0);
-  for (int k = 0; k < K; ++k) {
-    const int gg = g + k - p;
-    if (gg >= 0 && gg < s.Lx) tx += s.cvx[k * s.Lx + g] * load(gg, f);
-  }
-
-  T yz = (s.cvy[p * F + f] + s.cvz[p * F + f]) * load(g, f);
-  for (int k = 0; k < K; ++k) {
-    if (k == p) continue;
-    const int ff = f + (k - p) * s.Lz;
-    if (ff >= 0 && ff < F) yz += s.cvy[k * F + f] * load(g, ff);
-  }
-  for (int k = 0; k < K; ++k) {
-    if (k == p) continue;
-    const int ff = f + (k - p);
-    if (ff >= 0 && ff < F) yz += s.cvz[k * F + f] * load(g, ff);
-  }
-  return tx * s.fx[f] + yz * s.sx[g];
-}
 
 // The same A on the 3D-slab layout [Lx, Ly, Lz] (z aligned to 128; kernel
 // E, slab_tiled.cu), with the TPU kernel's tables as they are: the banded coefficients

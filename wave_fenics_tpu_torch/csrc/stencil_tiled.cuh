@@ -7,24 +7,28 @@
 // into shared memory once (cp.async, zeros outside the interior without a
 // load); the y and z taps are read from there, the x taps from a register
 // queue of the column's last 2p + 1 plane values, and the column's y/z
-// tables stay in registers for the whole chunk. The sums keep the order of
-// stencil.cuh's apply_stencil: the x taps in k order; the merged shift-0
-// y/z tap, the y taps, the z taps; then tx * fx + yz * sx.
+// tables stay in registers for the whole chunk. The sums of the flat
+// layout's kernels keep one order (that of ops/wave.py::
+// apply_stencil_plain): the x taps in k order (x_taps); the merged shift-0
+// y/z tap, the y taps, the z taps (ColumnTables::yz); then tx * fx + yz *
+// sx.
 //
 // The tiling (ty, tz, cx and the grid: z tiles, y tiles, x-chunks) comes
 // from the caller (ops/rk4step.py::tiled_geometry). Each block also writes
 // zeros to its share of the outputs' padding rows, while its first planes
 // are in flight.
 //
-// The geometry helpers take the table-free PaddedBox, which both layouts'
-// stencils provide: kernels A and C (rk4_tiled.cu) on the flat layout,
-// kernel D (rk_stage_tiled.cu), H and I (lf_tiled.cu) and J's step
-// boundary (rk42_tiled.cu) on the flat layout, kernel E (slab_tiled.cu) on
-// the 3D slab, and kernel G (mass_tiled.cu, the BP1 mass) on its padded
-// layout. A and C copy their planes element by element with cp.async
-// (fetch_plane); the others take each plane window of a field with one TMA
-// request into a ring of planes (PlaneRing, the end of this file), so no
-// thread spends instructions on the copy.
+// The geometry helpers take the table-free PaddedBox, which every
+// layout's stencil provides: kernels A and C (rk4_tiled.cu), B
+// (flat_tiled.cu), D (rk_stage_tiled.cu), H and I (lf_tiled.cu) and J's
+// step boundary (rk42_tiled.cu) on the flat layout, kernel E
+// (slab_tiled.cu) on the 3D slab, kernel G (mass_tiled.cu, the BP1 mass)
+// on its padded layout, and kernel F (stiffness_tiled.cu) on the unpadded
+// dof grid, a box with no padding. A, C and F copy their planes element by
+// element with cp.async (A and C with fetch_plane, F into a window of its
+// own); the others take each plane window of a field with one TMA request
+// into a ring of planes (PlaneRing, the end of this file), so no thread
+// spends instructions on the copy.
 #pragma once
 
 #include <cuda.h>
@@ -278,8 +282,8 @@ inline bool tiling_fits(const Tiling& t, dim3 grid, int nx, int ny, int nz) {
 constexpr int kRing = 6;      // plane windows in the TMA ring
 constexpr int kBoxMax = 256;  // a TMA box's extent along any axis at most
 
-// Tile blocks per SM the register budget must allow for the TMA kernels:
-// two in f32 (128 registers a thread), one in f64.
+// Tile blocks per SM the register budget must allow for the TMA kernels
+// and kernel F: two in f32 (128 registers a thread), one in f64.
 template <typename T>
 __host__ __device__ constexpr int tma_min_blocks() {
   return sizeof(T) == 4 ? 2 : 1;

@@ -41,8 +41,9 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # cvx, sx, fx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz
 _STENCIL = [_P] * 5 + [_I] * 9
 _SIGNATURES = {
-    # x, y, <stencil>, stream
-    "wave_apply_flat": [_P, _P] + _STENCIL + [_P],
+    # x, y, <stencil>, ty, tz, cx, gx, gy, gz, smem, stream (kernel B; the
+    # tiling of ops/tiling.py::tma_geometry)
+    "wave_apply_flat_tiled": [_P, _P] + _STENCIL + [_I] * 7 + [_P],
     # stage, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2, src_x, abc_x,
     # dt, g, c0, <stencil>, ty, tz, cx, gx, gy, gz, smem, stream (lean:
     # kernel A; full tableau: kernel C; the tiling of
@@ -68,8 +69,9 @@ _SIGNATURES = {
     # the tiling of ops/tiling.py::tma_geometry and tma_padding_first)
     "wave_lf_phase_tiled": [_I] + [_P] * 6 + [_I, _I, _D, _D, _D] + _STENCIL
     + [_I] * 8 + [_P],
-    # x, y, cvx, cvy, cvz, lx, ly, lz, p, Nx, Ny, Nz, stream (kernel F)
-    "wave_stiffness_grid": [_P] * 8 + [_I] * 4 + [_P],
+    # x, y, cvx, cvy, cvz, lx, ly, lz, p, Nx, Ny, Nz, ty, tz, cx, gx, gy, gz,
+    # smem, stream (kernel F; the tiling of ops/tiling.py::grid_geometry)
+    "wave_stiffness_tiled": [_P] * 8 + [_I] * 4 + [_I] * 7 + [_P],
     # x, y, cvx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz, ty, tz, cx, gx,
     # gy, gz, smem, stream (kernel G; ops/mass.py::mass_launch_args)
     "wave_mass_tiled": [_P] * 5 + [_I] * 9 + [_I] * 7 + [_P],

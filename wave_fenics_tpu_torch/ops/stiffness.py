@@ -27,9 +27,11 @@ on the padded layout).
 Two implementations of ``y = coeff K x`` on the same tables
 (:func:`stiffness_grid_tables`): :func:`stiffness_grid_plain` (plain
 torch, the TPU kernel's per-axis shifted multiply-adds on a zero-padded
-copy) and :func:`stiffness_grid_cuda` (``csrc/operator_kernels.cu::
-stiffness_grid_kernel``, one launch). :func:`stiffness_grid` dispatches on
-the tensor's device: CPU -> plain, CUDA -> kernel.
+copy) and :func:`stiffness_grid_cuda` (``csrc/stiffness_tiled.cu::
+stiffness_tiled_kernel``, one launch on the tiling of
+``tiling.grid_geometry``; the same sums in the same order).
+:func:`stiffness_grid` dispatches on the tensor's device: CPU -> plain,
+CUDA -> kernel.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..convert import numpy_dtype
-from . import _cuda
+from . import _cuda, tiling
 
 __all__ = [
     "banded_1d_coeffs",
@@ -51,7 +53,12 @@ __all__ = [
     "stiffness_grid",
     "stiffness_grid_plain",
     "stiffness_grid_cuda",
+    "stiffness_launch_args",
+    "MAX_DEGREE",
 ]
+
+#: the highest degree kernel F takes (every degree StructuredOperators takes)
+MAX_DEGREE = 10
 
 
 def build_stencil_coeffs(A: np.ndarray, p: int) -> np.ndarray:
@@ -154,14 +161,33 @@ def stiffness_grid_plain(
     return out + tz * (lx[:, None] * ly[None, :])[:, :, None]
 
 
+def stiffness_launch_args(x: torch.Tensor, out: torch.Tensor,
+                          tables: GridStiffnessTables, p: int) -> tuple:
+    """The arguments of the C launcher ``wave_stiffness_tiled`` (kernel F)
+    up to the stream: x, y, the six tables, p and the grid, then the tiling
+    of ``tiling.grid_geometry`` on this card. Raises a ValueError naming
+    the condition a degree or grid the kernel cannot take breaks."""
+    if not 1 <= p <= MAX_DEGREE:
+        raise ValueError(f"kernel F takes 1 <= p <= {MAX_DEGREE}, not p = {p}")
+    Nx, Ny, Nz = x.shape
+    sms = tiling.sm_count(x.device.index) if x.is_cuda else tiling.H100_SMS
+    grid, ty, tz, cx, smem = tiling.grid_geometry((Nx, Ny, Nz), p, x.element_size(),
+                                                  sms)
+    if smem > tiling.SMEM_LIMIT:
+        raise ValueError(f"kernel F needs {smem} bytes of shared memory a block, "
+                         f"more than the {tiling.SMEM_LIMIT} an H100 block may use")
+    return (x, out, *tables, p, Nx, Ny, Nz, ty, tz, cx, *grid, smem)
+
+
 def stiffness_grid_cuda(
     x: torch.Tensor,
     tables: GridStiffnessTables,
     p: int,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """y = coeff K x with the CUDA kernel F (one launch). ``out`` (optional)
-    must not alias ``x``."""
+    """y = coeff K x with the CUDA kernel F (one launch): every grid point
+    written, whatever ``out`` held. ``out`` (optional) must not alias
+    ``x``."""
     shape = tuple(x.shape)
     if len(shape) != 3:
         raise ValueError(f"x must be a 3D dof grid, not shape {shape}")
@@ -176,8 +202,8 @@ def stiffness_grid_cuda(
         ly=(tables.ly, (Ny,)), lz=(tables.lz, (Nz,)),
     )
     _cuda.check_no_alias((out,), (x,))
-    _cuda.launch("wave_stiffness_grid", x.dtype, x.device, x, out, *tables,
-                 p, Nx, Ny, Nz)
+    _cuda.launch("wave_stiffness_tiled", x.dtype, x.device,
+                 *stiffness_launch_args(x, out, tables, p))
     stiffness_grid_cuda.launches += 1
     return out
 

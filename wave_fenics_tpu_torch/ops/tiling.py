@@ -6,9 +6,12 @@ streams CX interior x rows plus p warm-up planes on each side; the grid is
 
 - :func:`tiled_geometry`: kernels A and C and kernel J's stages
   (``csrc/rk4_tiled.cu``), whose planes arrive by ``cp.async`` into a ring
-  of PIPE planes of up to PLANE_FIELDS fields;
-- :func:`tma_geometry`: kernels D (``csrc/rk_stage_tiled.cu``), E
-  (``csrc/slab_tiled.cu``), G (``csrc/mass_tiled.cu``), H and I
+  of PIPE planes of up to PLANE_FIELDS fields, and :func:`grid_geometry`:
+  kernel F (``csrc/stiffness_tiled.cu``), one field a plane on the
+  unpadded dof grid;
+- :func:`tma_geometry`: kernels B (``csrc/flat_tiled.cu``), D
+  (``csrc/rk_stage_tiled.cu``), E (``csrc/slab_tiled.cu``), G
+  (``csrc/mass_tiled.cu``), H and I
   (``csrc/lf_tiled.cu``) and J's step boundary (``csrc/rk42_tiled.cu``),
   whose plane windows arrive by TMA into a ring of RING planes (fewer for
   J's boundary): TZ a multiple of one 16-byte unit, so every box's z start
@@ -33,7 +36,9 @@ if TYPE_CHECKING:
 __all__ = [
     "TILE_THREADS", "TILE_Z", "CHUNK_X", "PIPE", "PLANE_FIELDS", "BLOCKS_PER_SM",
     "H100_SMS", "RING", "BOX_MAX", "CHUNK_X_TMA", "PADDING_LAYERS", "blocks_per_sm",
-    "tma_blocks_per_sm", "tiled_geometry", "tma_window", "tma_smem_bytes",
+    "tma_blocks_per_sm", "grid_rows", "grid_pitch",
+    "tiled_geometry", "grid_geometry",
+    "tma_window", "tma_smem_bytes",
     "tma_geometry", "tma_padding_first", "check_tma_launch", "SMEM_LIMIT", "sm_count",
 ]
 
@@ -72,24 +77,34 @@ def blocks_per_sm(itemsize: int, p: int) -> int:
 
 
 def tma_blocks_per_sm(itemsize: int) -> int:
-    """Tile blocks an SM holds at once for kernels D and E: the launch
-    bounds of ``csrc/stencil_tiled.cuh::tma_min_blocks<T>``."""
+    """Tile blocks an SM holds at once for the TMA kernels and kernel F: the
+    launch bounds of ``csrc/stencil_tiled.cuh::tma_min_blocks<T>``."""
     return 2 if itemsize == 4 else 1
+
+
+def grid_rows(itemsize: int, p: int) -> int:
+    """Rows of its tile column a thread of kernel F owns
+    (``csrc/stiffness_tiled.cu::grid_rows<T, P>``)."""
+    return 2 if itemsize == 4 and p <= 4 else 1
 
 
 def _cdiv(n: int, d: int) -> int:
     return -(-n // d)
 
 
-def _tiles(Ny, Nz, tz_max, tile_threads, tz_unit=1, ty_max=None):
+def _tiles(Ny, Nz, tz_max, tile_threads, tz_unit=1, ty_max=None, rows=1):
     """(z tiles, TZ, y tiles, TY): tiles as even as the interior allows, TZ
-    a multiple of ``tz_unit``, at most ``tile_threads`` points a tile."""
+    a multiple of ``tz_unit``, at most ``tile_threads`` threads a tile,
+    each owning ``rows`` rows of a column (TY a multiple of ``rows``)."""
     nz_tiles = _cdiv(Nz, tz_max)
     tz = _cdiv(_cdiv(Nz, nz_tiles), tz_unit) * tz_unit
     nz_tiles = _cdiv(Nz, tz)
-    ty_cap = tile_threads // tz if ty_max is None else min(tile_threads // tz, ty_max)
+    ty_cap = tile_threads // tz * rows
+    if ty_max is not None:
+        ty_cap = min(ty_cap, ty_max)
     ny_tiles = _cdiv(Ny, ty_cap)
-    return nz_tiles, tz, ny_tiles, _cdiv(Ny, ny_tiles)
+    ty = _cdiv(_cdiv(Ny, ny_tiles), rows) * rows
+    return nz_tiles, tz, _cdiv(Ny, ty), ty
 
 
 def _chunks(Nx, p, tiles, slots, chunk_x):
@@ -135,6 +150,41 @@ def _tiled_geometry(shape, p, itemsize, sms, tile_z, tile_threads, chunk_x):
     return (nz_tiles, ny_tiles, _cdiv(Nx, cx)), ty, tz, cx, smem
 
 
+def grid_pitch(tz: int, p: int, rows: int) -> int:
+    """The pitch of kernel F's plane window in shared memory
+    (``csrc/stiffness_tiled.cu::grid_pitch``): at least TZ + 2p, with
+    ``rows`` x pitch = TZ (mod 32), so that a warp's tap loads fall in 32
+    distinct banks."""
+    base = tz // rows
+    return base + _cdiv(tz + 2 * p - base, 32 // rows) * (32 // rows)
+
+
+def grid_geometry(shape, p: int, itemsize: int = 4, sms: int = H100_SMS):
+    """(grid, TY, TZ, CX, smem_bytes) of kernel F on the unpadded dof grid
+    ``shape`` [Nx, Ny, Nz]: :func:`tiled_geometry`'s policy on the grid
+    itself (no padding: the tiles start at 0), a thread owning grid_rows
+    rows of its column (TY and TZ multiples of it, TY / grid_rows x TZ
+    threads), the chunks filling tma_blocks_per_sm blocks an SM, CX within
+    CHUNK_X_TMA (2p warm-up planes a chunk up to p = 10); ``smem_bytes``
+    holds a ring of PIPE planes of TY + 2p rows at the pitch of
+    :func:`grid_pitch` and the window's copy table (two int32 a point)."""
+    return _grid_geometry(tuple(shape), p, itemsize, sms)
+
+
+@functools.cache
+def _grid_geometry(shape, p, itemsize, sms):
+    Nx, Ny, Nz = shape
+    rows = grid_rows(itemsize, p)
+    nz_tiles, tz, ny_tiles, ty = _tiles(Ny, Nz, TILE_Z, TILE_THREADS, tz_unit=rows,
+                                        rows=rows)
+    chunks = _chunks(Nx, p, nz_tiles * ny_tiles, sms * tma_blocks_per_sm(itemsize),
+                     CHUNK_X_TMA)
+    cx = _cdiv(Nx, chunks)
+    smem = (PIPE * (ty + 2 * p) * grid_pitch(tz, p, rows) * itemsize
+            + 8 * (ty + 2 * p) * (tz + 2 * p))
+    return (nz_tiles, ny_tiles, _cdiv(Nx, cx)), ty, tz, cx, smem
+
+
 def tma_window(h: int, p: int, ty: int, tz: int, itemsize: int):
     """(W, BY, oz, box) of ``csrc/stencil_tiled.cuh::tma_window``: the box's
     z extent W (TZ plus a multiple of 32, so that a warp's tap loads from
@@ -161,7 +211,7 @@ def tma_smem_bytes(window, itemsize: int, fields: int, extra: int,
 def tma_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
                  fields: int = 1, extra: int = 0, ring: int = RING):
     """(grid, TY, TZ, CX, smem_bytes) of a TMA tile kernel on ``layout``:
-    kernels E, H and I take one field a plane (``fields=1, extra=0``),
+    kernels B, E, H and I take one field a plane (``fields=1, extra=0``),
     kernel G one and two z-contracted planes (``fields=1, extra=2``; its
     launch adds cvx of a chunk's rows, ``ops/mass.py``), kernel D two
     (u0, ku) and two stage-input planes (``fields=2, extra=2``), J's step

@@ -13,9 +13,10 @@ Two implementations of ``y = A x`` (kernel B):
   ``WXT``, y/z terms as rolls of the flattened (y, z) plane, the same
   tables and roll order);
 - :func:`apply_flat_cuda`: the hand-written CUDA kernel
-  (``csrc/wave_kernels.cu::apply_flat_kernel``), which reads the banded
-  x coefficients ``cvx`` directly instead of a band matrix
-  (:func:`stencil_tables`).
+  (``csrc/flat_tiled.cu::apply_flat_tiled_kernel``, on the TMA tiling of
+  ``tiling.tma_geometry``), which reads the banded x coefficients ``cvx``
+  directly instead of a band matrix (:func:`stencil_tables`), in the sum
+  order of :func:`apply_stencil_plain`.
 
 and of one stage of the fused-stage RK4 path (kernel D, the TPU kernel
 ``_kernel_rk_stage``): :func:`rk_stage_plain` and :func:`rk_stage_cuda`
@@ -29,8 +30,9 @@ kernel ``_kernel``: :func:`build_tables` (its tables, tap form),
 and :func:`apply_slab_cuda` (``csrc/slab_tiled.cu::apply_slab_tiled_kernel``,
 on the TMA tiling of ``tiling.tma_geometry``).
 
-:func:`apply_stencil_plain` is the plain version of ``csrc/stencil.cuh``
-on the whole padded state, the stencil the flat-layout CUDA kernels share.
+:func:`apply_stencil_plain` is the plain version of the stencil the
+flat-layout CUDA kernels share (``csrc/stencil.cuh``'s tables, in the sum
+order of ``csrc/stencil_tiled.cuh``), on the whole padded state.
 
 :func:`apply_flat`, :func:`apply_slab` and :func:`rk_stage` dispatch on the
 tensor's device: CPU -> plain, CUDA -> kernel (or raise). There is no
@@ -61,6 +63,7 @@ __all__ = [
     "apply_flat",
     "apply_flat_plain",
     "apply_flat_cuda",
+    "flat_launch_args",
     "apply_slab",
     "apply_slab_plain",
     "apply_slab_cuda",
@@ -396,14 +399,27 @@ def check_stencil(layout: PaddedLayout, st: StencilTables, device, dtype) -> Non
         raise ValueError("the padding must be at least p deep on every side")
 
 
+def flat_launch_args(xp, out, layout: PaddedLayout, st: StencilTables) -> tuple:
+    """The arguments of the C launcher ``wave_apply_flat_tiled`` (kernel B)
+    up to the stream: x, y, the stencil, then the tiling of
+    ``tiling.tma_geometry`` (``fields=1, extra=0``: one TMA box of x a
+    plane) on this card. Raises a ValueError naming the condition a layout
+    the kernel cannot tile breaks."""
+    layout.check_flat()
+    grid, ty, tz, cx, smem = tma_launch_geometry(xp, layout, 1, 0)
+    tiling.check_tma_launch(layout, xp.element_size(), ty, tz, smem)
+    return (xp, out, *stencil_args(layout, st), ty, tz, cx, *grid, smem)
+
+
 def apply_flat_cuda(
     xp: torch.Tensor,
     layout: PaddedLayout,
     st: StencilTables,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """y = A x with the CUDA kernel B (one launch). ``out`` (optional) must
-    not alias ``xp``."""
+    """y = A x with the CUDA kernel B (one launch): every padded point
+    written, 0 outside the interior, whatever ``out`` held. ``out``
+    (optional) must not alias ``xp``."""
     layout.check_flat()
     shape = layout.padded_shape
     if out is None:
@@ -412,8 +428,8 @@ def apply_flat_cuda(
     check_stencil(layout, st, xp.device, xp.dtype)
     if out.data_ptr() == xp.data_ptr():
         raise ValueError("out must not alias the input")
-    _cuda.launch("wave_apply_flat", xp.dtype, xp.device, xp, out,
-                 *stencil_args(layout, st))
+    _cuda.launch("wave_apply_flat_tiled", xp.dtype, xp.device,
+                 *flat_launch_args(xp, out, layout, st))
     apply_flat_cuda.launches += 1
     return out
 
@@ -440,10 +456,10 @@ def apply_flat(
 def apply_stencil_plain(
     xp: torch.Tensor, layout: PaddedLayout, st: StencilTables
 ) -> torch.Tensor:
-    """y = A x on the whole padded state with the stencil tables, as
-    ``csrc/stencil.cuh::apply_stencil`` computes it at each point (the x
-    band, then the merged shift-0 y/z tap, the other y taps and the other z
-    taps, in that order); exactly 0 outside the interior."""
+    """y = A x on the whole padded state with the stencil tables, as the
+    flat-layout kernels compute it at each point (``csrc/stencil_tiled.cuh``:
+    the x band, then the merged shift-0 y/z tap, the other y taps and the
+    other z taps, in that order); exactly 0 outside the interior."""
     p = layout.p
     Lx, Ly, Lz = layout.padded_shape
     F = Ly * Lz
