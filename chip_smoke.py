@@ -6,8 +6,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (numbered in the order they were added; 12 and 13 run after 6, 14
-after 8); any failure raises, so the script exits non-zero and never prints
-its last line:
+after 8, 15 inside 11, after P9, on the P8 model); any failure raises, so
+the script exits non-zero and never prints its last line:
 
 1. device: a CUDA card, its name and power limit (nvidia-smi), TF32 off
    for the plain versions;
@@ -126,11 +126,29 @@ its last line:
     P15: the P1 configuration through ``--config`` and ``--checkpoint-dir``,
     300 steps in chunks of 100, snapshots at steps 100 and 200, then a
     second call that resumes from step 200; each call's final state within
-    1e-5 relative of one unchunked 300-step run.
+    1e-5 relative of one unchunked 300-step run;
+15. the imported-mesh workflow, each path counted alone: P16 the P8 model
+    (the perturbed 64x32x32-cell box, p=4, f32) written as binary XDMF
+    (mesh and facet meshtags) and run through ``planar3d_app.run`` with
+    ``mesh_path``, ``meshtags_path`` and ``output_path`` at the full step
+    count: kernel K 4 x (steps + 1 warm-up step) applies and no other
+    kernel, |v| finite and below 1e15, the output's points the dof
+    coordinates and its u, v the returned state exactly; P17 the same with
+    leapfrog, 400 steps in chunks of 100 (K: 400 + 4 chunk starts + 2 for
+    the warm-up step), within 1e-5 relative of one unchunked solve; P18
+    the box branch's ``--output`` at the P1 configuration, 100 steps on
+    kernel A, the fields ``to_grid`` of the state and the node lines
+    ``StructuredDofGrid``'s exactly; P19 ``general_wave.solve_recording``
+    on the P8 model (200 RK4 steps, 3 probes: K 800 applies, the final
+    state bitwise equal to ``solve_n``'s, the last row u at the probes),
+    ``linear_wave.solve_recording`` on kernel F (f64, (16,8,8) cells, p=4,
+    25 steps) against the CPU, and ``diagnostics.energy`` on F and K (f64)
+    against the CPU, limit 1e-12 relative.
 
 It prints one JSON line of per-kernel results ("kernels": all eleven
 kernels, each with the launches of its path's run, and J's step boundary
-alone; kernel B's path is the f1-path RK4 check) and, last, one JSON line ``{"ok": true, "device":
+alone; kernel B's path is the f1-path RK4 check; K's and F's include phase
+15's) and, last, one JSON line ``{"ok": true, "device":
 {...}}``. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
@@ -198,8 +216,17 @@ def main() -> None:
     from wave_fenics_tpu_torch.benchmarks import cg_bench, general_solve, operators_bench
     from wave_fenics_tpu_torch.convert import tables_from_numpy
     from wave_fenics_tpu_torch.core.basis import gll_points_weights
-    from wave_fenics_tpu_torch.core.dofmap import build_dofmap
+    from wave_fenics_tpu_torch.core.dofmap import StructuredDofGrid, build_dofmap
+    from wave_fenics_tpu_torch.core.io import (
+        read_xdmf,
+        read_xdmf_attributes,
+        read_xdmf_geometry,
+        write_xdmf_mesh,
+        write_xdmf_meshtags,
+    )
     from wave_fenics_tpu_torch.core.mesh import FacetTags, HexMesh, box_mesh
+    from wave_fenics_tpu_torch.models import diagnostics, general_wave, linear_wave
+    from wave_fenics_tpu_torch.models.general_wave import GeneralLinearWave
     from wave_fenics_tpu_torch.models.linear_wave import LinearWave
     from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
     from wave_fenics_tpu_torch.models.planar3d import (
@@ -1383,7 +1410,161 @@ def main() -> None:
         check(counts["K"] == want, f"{label}: kernel K launched {counts['K']}, want {want}")
         only(counts, "K", label)
         k_paths[label] = counts["K"]
-    del gmodel
+
+    # -- 15. the imported-mesh workflow ----------------------------------
+    # P16/P17: the app's general branch on the P8 model written as XDMF
+    # (binary), P18: the box branch's --output at the P1 configuration,
+    # P19: probe recording and the energy; each path counted alone
+    def only_k(counts, want, label):
+        check(counts["K"] == want, f"{label}: kernel K launched {counts['K']}, want {want}")
+        only(counts, "K", label)
+
+    p15_k, p15_f = {}, {}
+    with tempfile.TemporaryDirectory(prefix="_p16_", dir=ROOT) as tmp:
+        phase(f"P16 imported-mesh app, RK4, at {NDOFS:,} dofs: kernel K")
+        t0 = time.perf_counter()
+        mesh_path, tags_path = os.path.join(tmp, "mesh.xdmf"), os.path.join(tmp, "tags.xdmf")
+        ft = gmodel.facet_tags
+        write_xdmf_mesh(mesh_path, gmodel.mesh)
+        write_xdmf_meshtags(tags_path, gmodel.mesh, np.concatenate([ft[1], ft[2]]),
+                            [1] * len(ft[1]) + [2] * len(ft[2]))
+        print(f"wrote the P8 mesh ({gmodel.mesh.ncells} cells) and its {len(ft[1])} + "
+              f"{len(ft[2])} tagged facets as binary XDMF in "
+              f"{time.perf_counter() - t0:.2f} s")
+        out_path = os.path.join(tmp, "out.xdmf")
+        cfg16 = SimulationConfig()
+        cfg16.domain.mesh_path, cfg16.domain.meshtags_path = mesh_path, tags_path
+        cfg16.run.output_path = out_path
+        zero_counts()
+        p16, u16, v16 = planar3d_app.run(cfg16, dtype="f32", device="cuda",
+                                         return_state=True)
+        counts = read_counts()
+        print(json.dumps(p16))
+        n16 = p16["nsteps"]
+        print(f"P16: {n16} steps (steps/period {p16['steps_per_period']}, dt "
+              f"{p16['dt']:.6e}); kernel K applies {counts['K']} = 4 x ({n16} + 1 "
+              f"warm-up step), each 1 + {len(k_colours)} launches; mesh read "
+              f"{p16['read_seconds']:.3f} s, setup {p16['setup_seconds']:.2f} s, solve "
+              f"{p16['solve_seconds']:.4f} s, output {p16['output_seconds']:.2f} s, "
+              f"{p16['gdof_steps_per_s']:.4f} GDoF*steps/s [{smi}]")
+        check(p16["ndofs"] == NDOFS and "CUDA kernel K" in p16["solver_path"], "P16 record")
+        only_k(counts, 4 * (n16 + 1), "P16")
+        p15_k["P16"] = counts["K"]
+        vmax = float(v16.abs().max())
+        check(math.isfinite(vmax) and 0 < vmax < 1e15, f"P16 |v| {vmax:.3e}")
+        t0 = time.perf_counter()
+        back = read_xdmf(out_path)
+        fields = read_xdmf_attributes(out_path)
+        print(f"P16 output read back in {time.perf_counter() - t0:.2f} s: "
+              f"{back.ncells} sub-hexes, {len(back.points)} points, |v| max {vmax:.4e}")
+        check(np.array_equal(back.points, gmodel.dofs.dof_coords),
+              "P16 output points equal the dof coordinates")
+        check(back.ncells == gmodel.mesh.ncells * 4**3, "P16 output sub-hexes")
+        for name, x in (("u", u16), ("v", v16)):
+            check(np.array_equal(fields[name], x.cpu().double().numpy()),
+                  f"P16 output {name} equals the returned state")
+        del back, fields
+
+        phase("P17 imported-mesh app, leapfrog, 400 steps in chunks of 100: kernel K")
+        cfg17 = SimulationConfig.from_json(cfg16.to_json())
+        cfg17.run.output_path = None
+        cfg17.run.checkpoint_every_steps = 100
+        cfg17.time.integrator = "leapfrog"
+        zero_counts()
+        p17, u17, v17 = planar3d_app.run(cfg17, dtype="f32", device="cuda", steps=400,
+                                         checkpoint_dir=os.path.join(tmp, "ckpt"),
+                                         return_state=True)
+        counts = read_counts()
+        print(json.dumps(p17))
+        print(f"P17: 400 steps, kernel K applies {counts['K']} = 400 + 4 chunk starts + "
+              f"2 (warm-up step); setup {p17['setup_seconds']:.2f} s, solve "
+              f"{p17['solve_seconds']:.4f} s [{smi}]")
+        check(p17["nsteps"] == 400 and "general leapfrog" in p17["solver_path"], "P17 record")
+        only_k(counts, 400 + 4 + 2, "P17")
+        p15_k["P17"] = counts["K"]
+        ur, vr = gmodel.solve_n(0.0, p17["dt"], 400, integrator="leapfrog")
+        _, rel = state_err(u17, v17, ur, vr)
+        print(f"P17 against one unchunked 400-step solve of the P8 model: relative "
+              f"error {rel:.3e} (limit 1e-5)")
+        check(rel <= 1e-5, "P17 chunked against unchunked")
+        del u16, v16, u17, v17, ur, vr
+
+        phase("P18 the box branch's --output at the P1 configuration: kernel A")
+        out18 = os.path.join(tmp, "box.xdmf")
+        zero_counts()
+        p18, u18, v18 = planar3d_app.run(**HEADLINE, dtype="f32", device="cuda", steps=100,
+                                         output=out18, return_state=True)
+        counts = read_counts()
+        print(json.dumps(p18))
+        check(counts["A"] == 4 * (100 + 1)
+              and not {k: n for k, n in counts.items() if k != "A" and n},
+              f"P18: launches {counts}")
+        fields = read_xdmf_attributes(out18)
+        for name, x in (("u", u18), ("v", v18)):
+            check(np.array_equal(fields[name], hpm.to_grid(x).cpu().double().numpy()),
+                  f"P18 output {name} equals to_grid of the returned state")
+        dg = StructuredDofGrid(hpm.base.mesh, hpm.base.p)
+        z, y, x = read_xdmf_geometry(out18)
+        check(all(np.array_equal(a, dg.axis_coords(d)) for d, a in enumerate((x, y, z))),
+              "P18 node lines equal StructuredDofGrid's")
+        print(f"P18: kernel A {counts['A']} launches; output {p18['output_seconds']:.3f} s "
+              f"[{smi}]")
+        del u18, v18, fields
+
+    phase(f"P19 recording on kernel K ({NDOFS:,} dofs) and kernel F; the energy")
+    dt16 = p16["dt"]
+    probes = gmodel.dofs.dof_coords[[1000, NDOFS // 2, NDOFS - 1000]]
+    zero_counts()
+    ur, vr, series = general_wave.solve_recording(gmodel, 0.0, dt16, 200, probes)
+    counts = read_counts()
+    only_k(counts, 800, "P19 general recording")
+    p15_k["P19"] = counts["K"]
+    us, vs = gmodel.solve_n(0.0, dt16, 200)
+    ids = torch.as_tensor(general_wave.probe_dofs(gmodel, probes), device=dev)
+    check(torch.equal(ur, us) and torch.equal(vr, vs),
+          "recording's final state bitwise equal to solve_n's")
+    check(series.shape == (200, 3) and torch.equal(series[-1], ur[ids]),
+          "the last series row equals u at the probes")
+    print(f"P19 general: 200 RK4 steps, 3 probes, kernel K {counts['K']} applies; "
+          f"final state bitwise equal to solve_n's; |series| max "
+          f"{float(series.abs().max()):.4e}")
+    del ur, vr, us, vs, series
+    box = box_mesh((16, 8, 8), (0.01, 0.005, 0.005), facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    lwg, lwc = (LinearWave(box, p=4, dtype=torch.float64, device=d) for d in (dev, "cpu"))
+    pts = np.array([[0.002, 0.001, 0.002], [0.005, 0.0025, 0.0025], [0.009, 0.004, 0.001]])
+    zero_counts()
+    ug, vg, sg = linear_wave.solve_recording(lwg, 0.0, 1e-9, 25, pts)
+    counts = read_counts()
+    check(counts["F"] == 100 and not {k: n for k, n in counts.items() if k != "F" and n},
+          f"P19 box recording launches {counts}")
+    p15_f["P19"] = counts["F"]
+    uc, vc, sc = linear_wave.solve_recording(lwc, 0.0, 1e-9, 25, pts)
+    _, rel_s = rel_err(sg.cpu(), sc)
+    _, rel = state_err(ug.cpu(), vg.cpu(), uc, vc)
+    print(f"P19 box (16,8,8) p=4 f64: 25 steps on kernel F ({counts['F']} launches); "
+          f"series {rel_s:.3e}, state {rel:.3e} against the CPU (limit 1e-12)")
+    check(rel_s <= 1e-12 and rel <= 1e-12, "P19 box recording against the CPU")
+    hm_e, tags_e = general_solve.perturbed_box((8, 4, 4))
+    gg, gc = (GeneralLinearWave(hm_e, 4, tags_e, dtype=torch.float64, device=d)
+              for d in (dev, "cpu"))
+    rng = np.random.default_rng(15)
+    for label, mg, mc, kernel in (("box", lwg, lwc, "F"), ("general", gg, gc, "K")):
+        shape = tuple(mc.zero_state()[0].shape)
+        u, v = rng.standard_normal(shape), rng.standard_normal(shape)
+        e_c = float(diagnostics.energy(mc, torch.as_tensor(u), torch.as_tensor(v)))
+        zero_counts()
+        e_g = float(diagnostics.energy(mg, torch.as_tensor(u, device=dev),
+                                       torch.as_tensor(v, device=dev)))
+        counts = read_counts()
+        rel = abs(e_g - e_c) / abs(e_c)
+        print(f"P19 energy, {label} f64: card {e_g:.15e}, CPU {e_c:.15e}, relative "
+              f"{rel:.3e} (limit 1e-12); launches {counts}")
+        check(rel <= 1e-12, f"P19 energy ({label}) against the CPU")
+        check(counts[kernel] == (1 if kernel == "F" else 2)
+              and not {k: n for k, n in counts.items() if k != kernel and n},
+              f"P19 energy ({label}) launches {counts}")
+        (p15_f if kernel == "F" else p15_k)[f"P19 energy {label}"] = counts[kernel]
+    del gmodel, lwg, gg
 
     for op in ("stiffness-general", "mass-general", "stiffness-gauss", "mass"):
         phase(f"P10 operators_bench {op} at {NDOFS:,} dofs: kernel K")
@@ -1468,7 +1649,9 @@ def main() -> None:
     src_gen = "wave_fenics_tpu_torch/csrc/general_kernels.cu"
     results["A"] = (a_err, sum(a_stage_us) / 1e3, a_plain_ms, a_bound)
     results["B"] = (b_err, b_ms, b_plain_ms, b_bound)
-    launches["K"] = k_paths["P8"]
+    # K and F: their paths' runs, and the imported-mesh workflow's (phase 15)
+    launches["K"] = k_paths["P8"] + sum(p15_k.values())
+    launches["F"] += sum(p15_f.values())
     launches["B"] = f1_launches
     meta = {
         "A": ("rk4_tiled_kernel<T, P, J>, lean (kernel A: lean RK4 step, 4 stage "
@@ -1529,7 +1712,8 @@ def main() -> None:
             "library_ms": library.get(k),
         })
     by_name = {k: entry for k, entry in zip(meta, kernels)}
-    by_name["K"]["launches_per_path"] = k_paths
+    by_name["K"]["launches_per_path"] = {**k_paths, **p15_k}
+    by_name["F"]["launches_per_path"] = {"P7 stiffness": p7["stiffness"], **p15_f}
     by_name["K"]["ms_per_mode"] = {"P8 mass": k_modes["mass"][1], **{
         k: v for k, v in k_modes.items() if k.startswith("P10")}}
     by_name["B"]["app_path_launches"] = b_on_paths

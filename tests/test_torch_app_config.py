@@ -1,6 +1,6 @@
 """The app's entry point: the port's SimulationConfig against the JAX
 package's (the same JSON, the same case), the fields the port cannot honour
-yet, snapshots in the JAX package's .npz format both ways, and the chunked,
+yet, the imported-mesh fields and the output path, snapshots in the JAX package's .npz format both ways, and the chunked,
 checkpointed and resumed runs against one unchunked run (CPU, f64)."""
 
 import json
@@ -14,6 +14,15 @@ import _torch_cases  # noqa: F401  (one torch thread per test process)
 from wave_fenics_tpu.utils import checkpoint as jcheckpoint
 from wave_fenics_tpu.utils.config import SimulationConfig as JSimulationConfig
 from wave_fenics_tpu_torch.apps import planar3d_app
+from wave_fenics_tpu_torch.benchmarks.general_solve import perturbed_box
+from wave_fenics_tpu_torch.core.dofmap import StructuredDofGrid
+from wave_fenics_tpu_torch.core.io import (
+    read_xdmf_attributes,
+    read_xdmf_geometry,
+    write_xdmf_mesh,
+    write_xdmf_meshtags,
+)
+from wave_fenics_tpu_torch.models.general_wave import GeneralLinearWave
 from wave_fenics_tpu_torch.utils import checkpoint
 from wave_fenics_tpu_torch.utils.config import SimulationConfig
 
@@ -42,18 +51,88 @@ def test_jax_config_file_loads_and_builds_the_same_case():
     assert c.model.dtype == torch.float64 and c.model.p == 3
 
 
-@pytest.mark.parametrize("section,name,value,item", [
-    ("domain", "mesh_path", "mesh.xdmf", "item 8"),
-    ("domain", "meshtags_path", "tags.xdmf", "item 8"),
-    ("run", "ndev", 2, "item 10"),
-    ("run", "dtype", "bf16", "item 9"),
-    ("run", "output_path", "out.xdmf", "item 4"),
+@pytest.mark.parametrize("section,name,value,subject", [
+    ("run", "ndev", 2, r"distribution \(parallel/, torch.distributed\)"),
+    ("run", "dtype", "bf16", "bf16 state"),
 ])
-def test_unsupported_fields_raise(section, name, value, item):
+def test_unsupported_fields_raise(section, name, value, subject):
     cfg = SimulationConfig()
     setattr(getattr(cfg, section), name, value)
-    with pytest.raises(ValueError, match=item):
+    with pytest.raises(ValueError, match=subject):
         cfg.build_case(device="cpu")
+
+
+def _imported_config(tmp_path, degree=2):
+    """A config on a perturbed (4, 2, 2)-cell box written as XDMF: tag 1 on
+    the x-low facets, tag 2 on the x-high ones."""
+    hm, tags = perturbed_box((4, 2, 2), h=0.002)
+    write_xdmf_mesh(str(tmp_path / "mesh.xdmf"), hm)
+    write_xdmf_meshtags(str(tmp_path / "tags.xdmf"), hm,
+                        np.concatenate([tags[1], tags[2]]),
+                        [1] * len(tags[1]) + [2] * len(tags[2]))
+    cfg = SimulationConfig()
+    cfg.domain.mesh_path = str(tmp_path / "mesh.xdmf")
+    cfg.domain.meshtags_path = str(tmp_path / "tags.xdmf")
+    cfg.domain.degree = degree
+    cfg.run.dtype = "f64"
+    return cfg
+
+
+def test_mesh_path_builds_the_imported_case(tmp_path):
+    """domain.mesh_path (with meshtags_path) builds planar3d_case_xdmf; the
+    box fields ncells/domain_length/width are ignored, as in the JAX
+    package."""
+    cfg = _imported_config(tmp_path)
+    cfg.domain.ncells = (7, 7, 7)
+    cfg.domain.width = 1.0
+    case = cfg.build_case(device="cpu")
+    assert isinstance(case.model, GeneralLinearWave)
+    assert case.model.ndofs == 9 * 5 * 5 and case.model.dtype == torch.float64
+    assert float(case.model.W1.abs().max()) > 0 and float(case.model.W2.abs().max()) > 0
+    assert case.tf == pytest.approx(0.008 / 1500.0 + 8 / 0.5e6, rel=1e-12)
+
+
+def test_meshtags_path_alone_raises_and_mesh_path_alone_has_no_tags(tmp_path):
+    cfg = SimulationConfig()
+    cfg.domain.meshtags_path = "tags.xdmf"
+    with pytest.raises(ValueError, match="meshtags_path needs domain.mesh_path"):
+        cfg.build_case(device="cpu")
+    cfg = _imported_config(tmp_path)
+    cfg.domain.meshtags_path = None
+    model = cfg.build_case(device="cpu").model
+    assert float(model.W1.abs().max()) == 0.0 == float(model.W2.abs().max())
+
+
+def test_tags_are_honoured_on_an_imported_mesh(tmp_path):
+    """source_tag/abc_tag swap the planes on an imported mesh (the JAX
+    package honours them there); on a box they still raise."""
+    cfg = _imported_config(tmp_path)
+    ref = cfg.build_case(device="cpu").model
+    cfg.domain.source_tag, cfg.domain.abc_tag = 2, 1
+    swapped = cfg.build_case(device="cpu").model
+    assert torch.equal(swapped.W1, ref.W2) and torch.equal(swapped.W2, ref.W1)
+
+
+def test_output_path_writes_the_box_state(tmp_path):
+    """run.output_path on the box branch: the unpadded grid of the final
+    state in a rectilinear XDMF file, binary heavy data, the node lines
+    StructuredDofGrid's, the write timed apart from the solve."""
+    cfg = SimulationConfig()
+    cfg.domain.ncells = (4, 2, 2)
+    cfg.run.dtype = "f64"
+    cfg.run.output_path = str(tmp_path / "out" / "box.xdmf")
+    out, u, v = planar3d_app.run(cfg, device="cpu", steps=5, return_state=True)
+    assert out["output_seconds"] > 0 and out["read_seconds"] == 0.0
+    case, pm = planar3d_app.build(cells=(4, 2, 2), dtype="f64", device="cpu")
+    fields = read_xdmf_attributes(cfg.run.output_path)
+    np.testing.assert_array_equal(fields["u"], pm.to_grid(u).numpy())
+    np.testing.assert_array_equal(fields["v"], pm.to_grid(v).numpy())
+    dg = StructuredDofGrid(case.model.mesh, case.model.p)
+    z, y, x = read_xdmf_geometry(cfg.run.output_path)
+    for a, d in zip((x, y, z), range(3)):
+        np.testing.assert_array_equal(a, dg.axis_coords(d))
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
+        "box.u.bin", "box.v.bin", "box.x.bin", "box.xdmf", "box.y.bin", "box.z.bin"]
 
 
 @pytest.mark.parametrize("section,name,value", [

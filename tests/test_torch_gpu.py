@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (A to K) against their plain versions
 (float64; kernel E also in float32), kernels A, B, C, D, E, F, G and J also
-from output buffers full of NaN.
+from output buffers full of NaN; the app paths' launch counts, and the
+imported-mesh workflow (the app's general branch with --output, probe
+recording, the energy) on kernels K, F and A against the CPU.
 
 Every test here needs a CUDA card and skips without one. The file imports
 only torch and the port, so it runs on a machine without JAX:
@@ -801,3 +803,135 @@ def test_cuda_slab_app_paths(cuda, integrator, per_step, extra):
     assert n == 6 and "kernel E" in out["solver_path"]
     assert wave.apply_slab_cuda.launches == per_step * (n + 1) + 2 * extra
     assert np.isfinite(out["u_norm"]) and out["u_norm"] > 0.0
+
+
+# -- the imported-mesh workflow: the app's general branch, recording, energy --
+
+COUNTERS = {"A": rk4step.rk4_step_lean_cuda, "B": wave.apply_flat_cuda,
+            "C": rk4step.rk4_step_full_cuda, "D": wave.rk_stage_cuda,
+            "E": wave.apply_slab_cuda, "F": stiffness.stiffness_grid_cuda,
+            "G": mass.mass_apply_cuda, "H": lfstep.lf_step_cuda,
+            "I": lf2step.lf2_step_cuda, "J": rk42step.rk42_step_cuda,
+            "K": general.general_apply_cuda}
+
+
+def _zero_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def _launched():
+    return {k: fn.launches for k, fn in COUNTERS.items() if fn.launches}
+
+
+def _imported_files(d):
+    from wave_fenics_tpu_torch.core.io import write_xdmf_mesh, write_xdmf_meshtags
+
+    hm, tags = perturbed_box((4, 2, 2), h=0.002)
+    write_xdmf_mesh(str(d / "mesh.xdmf"), hm)
+    write_xdmf_meshtags(str(d / "tags.xdmf"), hm, np.concatenate([tags[1], tags[2]]),
+                        [1] * len(tags[1]) + [2] * len(tags[2]))
+    return str(d / "mesh.xdmf"), str(d / "tags.xdmf")
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "leapfrog"])
+def test_cuda_imported_app_matches_cpu(cuda, tmp_path, integrator):
+    """The app's imported-mesh branch on kernel K (f64, p=3, chunks of 7):
+    the CPU run's state within 1e-12; K's launches, RK4 4 x (steps + 1
+    warm-up step), leapfrog steps + one at each chunk's t0 + 2 for the
+    warm-up step, and no other kernel; the --output file equal to the
+    returned state."""
+    from wave_fenics_tpu_torch.core.io import read_xdmf_attributes
+    from wave_fenics_tpu_torch.utils.config import SimulationConfig
+
+    mesh, tags = _imported_files(tmp_path)
+    cfg = SimulationConfig()
+    cfg.domain.degree = 3
+    cfg.run.dtype = "f64"
+    cfg.run.checkpoint_every_steps = 7
+    cfg.time.integrator = integrator
+    kw = dict(mesh=mesh, meshtags=tags, steps=30, return_state=True)
+    _, u_c, v_c = planar3d_app.run(cfg, device="cpu", **kw)
+    _zero_counts()
+    out, u, v = planar3d_app.run(cfg, device="cuda", checkpoint_dir=str(tmp_path / "ck"),
+                                 output=str(tmp_path / "out.xdmf"), **kw)
+    chunks = -(-30 // 7)
+    want = 4 * 31 if integrator == "rk4" else 30 + chunks + 2
+    assert _launched() == {"K": want}
+    assert "CUDA kernel K (csrc/general_kernels.cu)" in out["solver_path"]
+    _assert_state_close(u.cpu(), v.cpu(), u_c, v_c)
+    back = read_xdmf_attributes(str(tmp_path / "out.xdmf"))
+    np.testing.assert_array_equal(back["u"], u.cpu().numpy())
+    np.testing.assert_array_equal(back["v"], v.cpu().numpy())
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "leapfrog"])
+def test_cuda_general_solve_recording(cuda, integrator):
+    """Recording on kernel K: the final state bitwise equal to solve_n's,
+    the last row equal to u at the probes, the series within 1e-12 of the
+    CPU's, K launched 4 per RK4 step (one per leapfrog step and one at
+    t0)."""
+    from wave_fenics_tpu_torch.models.general_wave import probe_dofs, solve_recording
+
+    mesh, tags = perturbed_box((4, 3, 2))
+    mg = GeneralLinearWave(mesh, 3, tags, dtype=F64, device=cuda)
+    mc = GeneralLinearWave(mesh, 3, tags, dtype=F64, device="cpu")
+    pts = np.asarray(mg.dofs.dof_coords)[[5, 77, 300]]
+    dt = 0.5 * min_edge(mesh) / (1500.0 * 9) * (LEAPFROG_DT if integrator == "leapfrog" else 1.0)
+    _zero_counts()
+    u, v, s = solve_recording(mg, 0.0, dt, 20, pts, integrator=integrator)
+    assert _launched() == {"K": 80 if integrator == "rk4" else 21}
+    assert s.device.type == "cuda" and s.shape == (20, 3)
+    ur, vr = mg.solve_n(0.0, dt, 20, integrator=integrator)
+    assert torch.equal(u, ur) and torch.equal(v, vr)
+    assert torch.equal(s[-1], u[torch.as_tensor(probe_dofs(mg, pts), device=cuda)])
+    _, _, sc = solve_recording(mc, 0.0, dt, 20, pts, integrator=integrator)
+    assert _rel(s.cpu(), sc) <= TOL
+
+
+def test_cuda_linear_wave_solve_recording_and_energy(cuda):
+    """Kernel F: the box model's recording (4 launches a step) within 1e-12
+    of the CPU's; the energy of a box model (F) and of a general model (K)
+    within 1e-12 of the CPU's."""
+    from wave_fenics_tpu_torch.models import diagnostics
+    from wave_fenics_tpu_torch.models.linear_wave import solve_recording
+
+    mesh = box_mesh((6, 3, 3), (0.01, 0.005, 0.005), facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    mg, mc = (LinearWave(mesh, p=4, dtype=F64, device=d) for d in (cuda, "cpu"))
+    pts = np.array([[0.002, 0.001, 0.002], [0.007, 0.004, 0.001]])
+    _zero_counts()
+    ug, vg, sg = solve_recording(mg, 0.0, DT, 25, pts)
+    assert _launched() == {"F": 100}
+    uc, vc, sc = solve_recording(mc, 0.0, DT, 25, pts)
+    assert _rel(sg.cpu(), sc) <= TOL
+    _assert_state_close(ug.cpu(), vg.cpu(), uc, vc)
+    hm, tags = perturbed_box((4, 3, 2))
+    gg, gc = (GeneralLinearWave(hm, 4, tags, dtype=F64, device=d) for d in (cuda, "cpu"))
+    rng = np.random.default_rng(9)
+    for mdl_g, mdl_c in ((mg, mc), (gg, gc)):
+        shape = tuple(mdl_c.zero_state()[0].shape)
+        u, v = rng.standard_normal(shape), rng.standard_normal(shape)
+        e_c = float(diagnostics.energy(mdl_c, torch.as_tensor(u), torch.as_tensor(v)))
+        e_g = float(diagnostics.energy(mdl_g, torch.as_tensor(u, device=cuda),
+                                       torch.as_tensor(v, device=cuda)))
+        assert abs(e_g - e_c) <= TOL * abs(e_c)
+
+
+def test_cuda_box_output_on_kernel_a(cuda, tmp_path):
+    """--output on the box branch (kernel A): the written fields equal
+    pm.to_grid of the returned state, the node lines StructuredDofGrid's."""
+    from wave_fenics_tpu_torch.core.dofmap import StructuredDofGrid
+    from wave_fenics_tpu_torch.core.io import read_xdmf_attributes, read_xdmf_geometry
+
+    _zero_counts()
+    out, u, v = planar3d_app.run(cells=(4, 2, 2), dtype="f64", device="cuda", steps=6,
+                                 output=str(tmp_path / "box.xdmf"), return_state=True)
+    assert _launched() == {"A": 4 * 7} and out["output_seconds"] > 0
+    case, pm = planar3d_app.build(cells=(4, 2, 2), dtype="f64", device="cuda")
+    back = read_xdmf_attributes(str(tmp_path / "box.xdmf"))
+    np.testing.assert_array_equal(back["u"], pm.to_grid(u).cpu().numpy())
+    np.testing.assert_array_equal(back["v"], pm.to_grid(v).cpu().numpy())
+    dg = StructuredDofGrid(case.model.mesh, case.model.p)
+    z, y, x = read_xdmf_geometry(str(tmp_path / "box.xdmf"))
+    for a, d in zip((x, y, z), range(3)):
+        np.testing.assert_array_equal(a, dg.axis_coords(d))

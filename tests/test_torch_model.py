@@ -115,8 +115,9 @@ def test_app_cpu_run_matches_model(capsys):
 
 def test_port_never_imports_jax():
     """Importing the port, the app, its config and checkpoints, the
-    leapfrog, fused-stage and 2-step modules and the benchmarks included,
-    loads neither JAX nor the JAX package (run
+    leapfrog, fused-stage and 2-step modules, the benchmarks, the XDMF I/O,
+    the diagnostics, the general and planar3d models and the examples
+    included, loads neither JAX nor the JAX package (run
     in a fresh interpreter: this test process has both)."""
     code = (
         "import sys\n"
@@ -133,6 +134,12 @@ def test_port_never_imports_jax():
         "import wave_fenics_tpu_torch.ops.rk42step\n"
         "import wave_fenics_tpu_torch.utils.config\n"
         "import wave_fenics_tpu_torch.utils.checkpoint\n"
+        "import wave_fenics_tpu_torch.core.io\n"
+        "import wave_fenics_tpu_torch.models.diagnostics\n"
+        "import wave_fenics_tpu_torch.models.general_wave\n"
+        "import wave_fenics_tpu_torch.models.planar3d\n"
+        "import wave_fenics_tpu_torch.examples.imported_mesh_hifu\n"
+        "import wave_fenics_tpu_torch.examples.hifu_with_output\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'wave_fenics_tpu')]\n"
         "print(bad)\n"

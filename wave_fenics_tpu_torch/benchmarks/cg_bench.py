@@ -48,8 +48,8 @@ from ..solvers.cg import cg
 from .common import (DTYPES, cells_from_args, device_name, make_parser,
                      report, resolve_device, two_point_time)
 
-SHARDED_SLICE = ("--ndev > 1 needs the distribution slice (ROADMAP Queue 1 "
-                 "item 10), not ported yet")
+SHARDED_SLICE = ("--ndev > 1 needs the distribution slice (parallel/, "
+                 "torch.distributed), not ported yet")
 
 
 def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,

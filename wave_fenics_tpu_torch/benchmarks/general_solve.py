@@ -24,14 +24,11 @@ import time
 
 import numpy as np
 
-from ..core.mesh import HexMesh, box_mesh
+from ..core.mesh import HEX_FACES, HexMesh, box_mesh
 from ..models.general_wave import GeneralLinearWave
 from .common import (DTYPES, cells_from_args, device_name, make_parser, report,
                      resolve_device, two_point_time)
 
-#: the six quad faces of a hex in basix vertex order
-_FACES = [(0, 1, 2, 3), (0, 1, 4, 5), (0, 2, 4, 6), (1, 3, 5, 7),
-          (2, 3, 6, 7), (4, 5, 6, 7)]
 #: leapfrog's stable step against RK4's (imaginary-axis stability 2 vs 2.83)
 LEAPFROG_DT = 0.71
 
@@ -59,7 +56,7 @@ def perturbed_box(cells, h=0.002, amp_rel=0.08, seed=0) -> tuple[HexMesh, dict]:
     inner = np.all((pts > 1e-12) & (pts < ext - 1e-12), axis=1)
     pts[inner] += amp_rel * h * rng.standard_normal(pts[inner].shape)
     hm = HexMesh(points=pts, cells=hm.cells)
-    faces = hm.cells[:, _FACES]  # [nc, 6, 4]
+    faces = hm.cells[:, HEX_FACES]  # [nc, 6, 4]
 
     def xface_quads(x0):
         on = np.abs(hm.points[:, 0] - x0) < 1e-12

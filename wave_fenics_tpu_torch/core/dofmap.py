@@ -1,6 +1,8 @@
-"""Continuous-Galerkin dof numbering on general hex meshes (host-side NumPy).
+"""Continuous-Galerkin dof numbering on hex meshes (host-side NumPy).
 
-A copy of the general part of ``wave_fenics_tpu.core.dofmap``
+A copy of ``wave_fenics_tpu.core.dofmap``: ``StructuredDofGrid`` (the dof
+grid of a structured box, ``[Nx, Ny, Nz]`` with ``Nd = n_cells_d * p + 1``;
+its node lines place probes and label XDMF output) and the general part
 (``GeneralDofMap``, ``build_dofmap``, ``morton_cell_order``), the NumPy
 ``np.unique`` route only (the JAX package's own fallback where its native
 library is absent). It replaces the DOLFINx dofmap the reference leans on
@@ -19,9 +21,58 @@ import numpy as np
 
 from .basis import gll_points_weights
 from .geometry import trilinear_tabulate
-from .mesh import HexMesh
+from .mesh import HexMesh, StructuredBoxMesh
 
-__all__ = ["GeneralDofMap", "build_dofmap", "morton_cell_order"]
+__all__ = ["StructuredDofGrid", "GeneralDofMap", "build_dofmap", "morton_cell_order"]
+
+
+@dataclass(frozen=True)
+class StructuredDofGrid:
+    """Degree-p GLL dof grid over a structured box mesh."""
+
+    mesh: StructuredBoxMesh
+    p: int
+
+    @property
+    def grid_shape(self) -> tuple[int, int, int]:
+        return tuple(n * self.p + 1 for n in self.mesh.shape)
+
+    @property
+    def ndofs(self) -> int:
+        gx, gy, gz = self.grid_shape
+        return gx * gy * gz
+
+    @property
+    def ncells(self) -> int:
+        return self.mesh.ncells
+
+    def axis_coords(self, axis: int) -> np.ndarray:
+        """Physical node coordinates along one axis, shape [n*p+1]."""
+        n = self.mesh.shape[axis]
+        h = self.mesh.h[axis]
+        o = self.mesh.origin[axis]
+        nodes, _ = gll_points_weights(self.p + 1)
+        line = o + h * (np.arange(n)[:, None] + nodes[None, :])  # [n, p+1]
+        return np.concatenate([line[:, :-1].ravel(), line[-1:, -1]])
+
+    def dof_coords_grid(self) -> np.ndarray:
+        """Node coordinates as [Nx, Ny, Nz, 3]."""
+        X, Y, Z = np.meshgrid(*(self.axis_coords(d) for d in range(3)), indexing="ij")
+        return np.stack([X, Y, Z], axis=-1)
+
+    def dofmap(self) -> np.ndarray:
+        """Explicit dofmap [ncells, (p+1)^3] (flat global ids, C-order grid,
+        cells ordered x slowest)."""
+        nx, ny, nz = self.mesh.shape
+        _, gy, gz = self.grid_shape
+        p = self.p
+        m = p + 1
+        ax = [np.arange(n)[:, None] * p + np.arange(m)[None, :] for n in (nx, ny, nz)]
+        gi = ax[0][:, None, None, :, None, None]  # [nx,1,1,m,1,1]
+        gj = ax[1][None, :, None, None, :, None]
+        gk = ax[2][None, None, :, None, None, :]
+        flat = (gi * gy + gj) * gz + gk  # [nx,ny,nz,m,m,m]
+        return flat.reshape(nx * ny * nz, m * m * m).astype(np.int32)
 
 
 @dataclass(frozen=True)

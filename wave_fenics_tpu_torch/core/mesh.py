@@ -1,9 +1,9 @@
 """Hexahedral meshes (host-side NumPy): structured boxes and general hex meshes.
 
 A copy of ``wave_fenics_tpu.core.mesh`` (``BOX_FACETS``, ``FacetTags``,
-``StructuredBoxMesh``, ``box_mesh``, ``HexMesh``). Reading XDMF files
-(``core/io.py``) is not ported yet; a mesh comes from ``to_hex_mesh`` or as
-NumPy arrays (``convert.general_mesh_from_numpy``).
+``StructuredBoxMesh``, ``box_mesh``, ``HexMesh``). A general mesh comes
+from an XDMF file (``core/io.py``), from ``to_hex_mesh`` or as NumPy arrays
+(``convert.general_mesh_from_numpy``).
 
 Replaces the DOLFINx mesh layer consumed by the reference:
 - ``mesh::create_box`` (demo/gpu_operator/main.cpp:60-72, etc.)
@@ -22,7 +22,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["BOX_FACETS", "FacetTags", "StructuredBoxMesh", "HexMesh", "box_mesh"]
+__all__ = ["BOX_FACETS", "HEX_FACES", "FacetTags", "StructuredBoxMesh", "HexMesh",
+           "box_mesh"]
 
 # Basix/DOLFINx hexahedron vertex order: the local vertex v has reference
 # coordinates (v&1, (v>>1)&1, (v>>2)&1).
@@ -35,6 +36,10 @@ _VERTEX_COORDS = np.array(
 # Facet id convention for structured boxes: (axis, side) pairs.
 # 0: x=lo, 1: x=hi, 2: y=lo, 3: y=hi, 4: z=lo, 5: z=hi
 BOX_FACETS = [(0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (2, 1)]
+
+#: the six quad faces of a hex, each in basix quad vertex order
+HEX_FACES = [(0, 1, 2, 3), (0, 1, 4, 5), (0, 2, 4, 6), (1, 3, 5, 7),
+             (2, 3, 6, 7), (4, 5, 6, 7)]
 
 
 @dataclass(frozen=True)
@@ -123,10 +128,14 @@ class HexMesh:
 
     points: [n_points, 3] vertex coordinates
     cells:  [n_cells, 8] vertex ids in basix hexahedron order
+    facets: optional [n_tagged_facets, 4] vertex ids of tagged exterior facets
+    facet_tag_values: optional [n_tagged_facets] integer tags
     """
 
     points: np.ndarray
     cells: np.ndarray
+    facets: np.ndarray | None = None
+    facet_tag_values: np.ndarray | None = None
 
     @property
     def ncells(self) -> int:

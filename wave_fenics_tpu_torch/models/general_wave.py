@@ -5,9 +5,11 @@ Port of ``wave_fenics_tpu.models.general_wave`` (``GeneralLinearWave``,
 on any ``core.mesh.HexMesh`` with tagged exterior quad facets, through the
 explicit-dofmap operators (``ops.operators.GeneralOperators``; kernel K on
 a card). It completes the reference's mesh-agnostic driver
-(demo/cpu_planar3d/main.cpp reads an arbitrary XDMF hex mesh and its facet
-tags; reading XDMF is not ported yet, ``convert.general_mesh_from_numpy``
-carries a mesh across).
+(demo/cpu_planar3d/main.cpp:39-45 reads an arbitrary XDMF hex mesh and its
+facet tags): ``from_xdmf`` builds the model from those two files (or
+``convert.general_mesh_from_numpy`` carries a mesh across), and
+``probe_dofs``/``solve_recording`` record pressure time series at probe
+points on the device.
 
 Boundary facet integrals are assembled once at setup by GLL facet
 quadrature on each tagged bilinear facet: with collocation the integral is
@@ -25,13 +27,15 @@ import torch
 from ..convert import numpy_dtype
 from ..core.basis import gll_points_weights, tabulate_1d
 from ..core.dofmap import GeneralDofMap, build_dofmap
-from ..core.mesh import HexMesh
+from ..core.io import QUAD_VTK_TO_BASIX, read_xdmf, read_xdmf_meshtags
+from ..core.mesh import HEX_FACES, HexMesh
 from ..ops.operators import GeneralOperators
-from ..solvers.leapfrog import leapfrog_solve_n
-from ..solvers.rk4 import rk4_solve_n
+from ..solvers.leapfrog import leapfrog_solve_n, leapfrog_solve_n_recording
+from ..solvers.rk4 import rk4_solve_n, rk4_solve_n_recording
 from .linear_wave import WavePhysics
 
-__all__ = ["GeneralLinearWave", "facet_lumped_weights"]
+__all__ = ["GeneralLinearWave", "facet_lumped_weights", "check_exterior_facets",
+           "read_mesh_and_tags", "from_xdmf", "probe_dofs", "solve_recording"]
 
 
 def facet_lumped_weights(
@@ -190,3 +194,96 @@ class GeneralLinearWave(WavePhysics):
         if integrator == "rk4":
             return rk4_solve_n(self.f0, self.f1, u0, v0, t0, dt, nsteps)
         raise ValueError(f"unknown integrator: {integrator!r}")
+
+
+def check_exterior_facets(mesh: HexMesh, facets: np.ndarray) -> None:
+    """Raise a ValueError unless every facet ([n, 4] vertex ids) is an
+    exterior face of the mesh: a face of exactly one cell. A facet that is
+    no cell's face, or an interior face, would otherwise take boundary
+    weights silently (none, or on an interior plane)."""
+    faces = np.sort(np.asarray(mesh.cells)[:, HEX_FACES].reshape(-1, 4), axis=1)
+    keys, counts = np.unique(faces, axis=0, return_counts=True)
+    exterior = keys[counts == 1]
+    fs = np.sort(np.asarray(facets, np.int64).reshape(-1, 4), axis=1)
+    row = np.dtype([("", np.int64)] * 4)
+    ext = np.ascontiguousarray(exterior, np.int64).view(row).reshape(-1)
+    want = np.ascontiguousarray(fs).view(row).reshape(-1)
+    bad = ~np.isin(want, ext)
+    if bad.any():
+        raise ValueError(
+            f"{int(bad.sum())} of {len(fs)} tagged facets are not exterior faces "
+            f"of the mesh (first: vertices {fs[np.argmax(bad)].tolist()}): the "
+            "meshtags do not belong to this mesh")
+
+
+def read_mesh_and_tags(mesh_path: str, meshtags_path: str | None = None,
+                       mesh_grid: str | None = None,
+                       tags_grid: str | None = None) -> tuple[HexMesh, dict]:
+    """(mesh, facet_tags) from DOLFINx-exported XDMF files: the mesh, and
+    tag -> facets [n, 4] in basix quad order, each checked to be an exterior
+    face of the mesh (``check_exterior_facets``)."""
+    mesh = read_xdmf(mesh_path, mesh_grid)
+    facet_tags: dict = {}
+    if meshtags_path is not None:
+        facets, values = read_xdmf_meshtags(meshtags_path, tags_grid)
+        facets = facets[:, QUAD_VTK_TO_BASIX]
+        check_exterior_facets(mesh, facets)
+        for tag in np.unique(values):
+            facet_tags[int(tag)] = facets[values == tag]
+    return mesh, facet_tags
+
+
+def from_xdmf(
+    mesh_path: str,
+    meshtags_path: str | None = None,
+    mesh_grid: str | None = None,
+    tags_grid: str | None = None,
+    p: int = 4,
+    **physics,
+) -> GeneralLinearWave:
+    """The wave model from DOLFINx-exported XDMF files, the reference's
+    workflow (demo/cpu_planar3d/main.cpp:40-45): mesh and boundary
+    meshtags in, a model ready to solve out. ``physics`` are the keywords
+    of ``GeneralLinearWave`` (``device``, ``dtype``, ``c0``, ...)."""
+    mesh, facet_tags = read_mesh_and_tags(mesh_path, meshtags_path, mesh_grid,
+                                          tags_grid)
+    return GeneralLinearWave(mesh=mesh, p=p, facet_tags=facet_tags, **physics)
+
+
+def probe_dofs(model: GeneralLinearWave, points) -> np.ndarray:
+    """Dof ids nearest to the given physical points: hydrophone placement
+    on an imported mesh (the general-mesh analogue of
+    ``linear_wave.probe_indices``; the same nearest-GLL-node fidelity)."""
+    pts = np.atleast_2d(np.asarray(points, np.float64))
+    dc = np.asarray(model.dofs.dof_coords, np.float64)
+    return np.array([int(((dc - q) ** 2).sum(axis=1).argmin()) for q in pts],
+                    dtype=np.int64)
+
+
+def solve_recording(
+    model: GeneralLinearWave,
+    t0: float,
+    dt: float,
+    nsteps: int,
+    points,
+    u0=None,
+    v0=None,
+    integrator: str = "rk4",
+):
+    """Solve recording the pressure time series at probe points on a
+    general mesh. Returns (u, v, series[nsteps, npoints]), the series a
+    tensor on the model's device, filled step by step with no host read;
+    ``integrator`` as in :meth:`GeneralLinearWave.solve_n`."""
+    if u0 is None:
+        u0, v0 = model.zero_state()
+    ids = torch.as_tensor(probe_dofs(model, points), device=model.device)
+
+    def sample(t, u, v):
+        return u[ids]
+
+    if integrator == "leapfrog":
+        return leapfrog_solve_n_recording(model.force, model.damping, u0, v0, t0, dt,
+                                          nsteps, sample)
+    if integrator == "rk4":
+        return rk4_solve_n_recording(model.f0, model.f1, u0, v0, t0, dt, nsteps, sample)
+    raise ValueError(f"unknown integrator: {integrator!r}")

@@ -27,11 +27,13 @@ from torch import nn
 
 from ..convert import numpy_dtype
 from ..core.basis import lumped_weight_line
+from ..core.dofmap import StructuredDofGrid
 from ..core.mesh import BOX_FACETS, StructuredBoxMesh
 from ..ops.operators import StructuredOperators
-from ..solvers.rk4 import rk4_solve
+from ..solvers.rk4 import rk4_solve, rk4_solve_n_recording
 
-__all__ = ["WavePhysics", "LinearWave", "lumped_boundary_weights"]
+__all__ = ["WavePhysics", "LinearWave", "lumped_boundary_weights", "probe_indices",
+           "solve_recording"]
 
 
 def lumped_boundary_weights(
@@ -170,3 +172,30 @@ class LinearWave(WavePhysics):
         """u_0 = v_0 = 0 (LinearGLL.hpp:131-134)."""
         z = torch.zeros(self.ops.grid_shape, dtype=self.dtype, device=self.device)
         return z, z
+
+
+def probe_indices(model: LinearWave, points) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Grid indices of the dofs nearest to the given physical points
+    (probe/"hydrophone" placement)."""
+    dg = StructuredDofGrid(model.mesh, model.p)
+    pts = np.atleast_2d(points)
+    return tuple(
+        np.abs(dg.axis_coords(d)[None, :] - pts[:, d : d + 1]).argmin(axis=1)
+        for d in range(3))
+
+
+def solve_recording(model: LinearWave, t0: float, dt: float, nsteps: int, points,
+                    u0=None, v0=None):
+    """RK4 solve (``f1``: kernel F on a card) recording the pressure time
+    series at probe points. Returns (u, v, series[nsteps, npoints]), the
+    series a tensor on the model's device, filled with no host read per
+    step."""
+    if u0 is None:
+        u0, v0 = model.zero_state()
+    ii, jj, kk = (torch.as_tensor(i, device=model.device)
+                  for i in probe_indices(model, points))
+
+    def sample(t, u, v):
+        return u[ii, jj, kk]
+
+    return rk4_solve_n_recording(model.f0, model.f1, u0, v0, t0, dt, nsteps, sample)

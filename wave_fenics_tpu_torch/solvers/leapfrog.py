@@ -12,8 +12,8 @@ boundary); one kick-drift-kick step is
 2nd order, stable for dt up to about 0.71x the RK4 CFL step; the damping
 part is unconditionally stable. F(t + dt, u') is carried to the next step.
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` becomes a Python
-loop and t a Python float; the traced-count and recording forms are not
-ported (a traced step count has no use in eager PyTorch).
+loop and t a Python float; the traced-count form is not ported (a traced
+step count has no use in eager PyTorch).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ["leapfrog_step", "leapfrog_solve_n"]
+__all__ = ["leapfrog_step", "leapfrog_solve_n", "leapfrog_solve_n_recording"]
 
 
 def leapfrog_step(
@@ -68,3 +68,27 @@ def leapfrog_solve_n(
     for _ in range(nsteps):
         u, v, F, t = leapfrog_step(force, damp, u, v, F, t, dt)
     return u, v
+
+
+def leapfrog_solve_n_recording(
+    force: Callable,
+    damp: torch.Tensor | None,
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    t0: float,
+    dt: float,
+    nsteps: int,
+    sample: Callable,
+):
+    """Like :func:`leapfrog_solve_n`, also recording ``sample(t, u, v)``
+    after each step (mirrors ``rk4_solve_n_recording``). Returns (u, v,
+    series[nsteps, ...]), the series preallocated on the state's device and
+    filled with no host read per step."""
+    t = float(t0)
+    u, v, F = u0, v0, force(t, u0)
+    first = sample(t, u, v)  # shape and dtype of one sample
+    series = first.new_empty((nsteps, *first.shape))
+    for i in range(nsteps):
+        u, v, F, t = leapfrog_step(force, damp, u, v, F, t, dt)
+        series[i] = sample(t, u, v)
+    return u, v, series

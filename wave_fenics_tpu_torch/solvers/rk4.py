@@ -16,7 +16,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ["rk4_step", "rk4_solve_n", "rk4_solve"]
+__all__ = ["rk4_step", "rk4_solve_n", "rk4_solve_n_recording", "rk4_solve"]
 
 # Butcher tableau of the reference (LinearGLL.hpp:233-236)
 _A = (0.0, 0.5, 0.5, 1.0)
@@ -63,6 +63,32 @@ def rk4_solve_n(
     """Integrate exactly ``nsteps`` fixed steps from t0; returns (u, v)."""
     u, v, _ = _steps(f0, f1, u0, v0, t0, dt, nsteps)
     return u, v
+
+
+def rk4_solve_n_recording(
+    f0: Callable,
+    f1: Callable,
+    u0: torch.Tensor,
+    v0: torch.Tensor,
+    t0: float,
+    dt: float,
+    nsteps: int,
+    sample: Callable,
+):
+    """Like :func:`rk4_solve_n`, also recording ``sample(t, u, v)`` after
+    each step at its end time t (probe time series, an observability
+    feature the reference lacks). Returns (u, v, series[nsteps, ...]): the
+    samples go into one tensor preallocated on the state's device, with no
+    host read per step."""
+    t = float(t0)
+    u, v = u0, v0
+    first = sample(t, u, v)  # shape and dtype of one sample
+    series = first.new_empty((nsteps, *first.shape))
+    for i in range(nsteps):
+        u, v = rk4_step(f0, f1, u, v, t, dt)
+        t = t + dt
+        series[i] = sample(t, u, v)
+    return u, v, series
 
 
 def _steps(f0, f1, u, v, t0, dt, nsteps):

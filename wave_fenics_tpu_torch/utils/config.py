@@ -2,22 +2,27 @@
 
 Port of ``wave_fenics_tpu.utils.config``: the same dataclasses, field names
 and defaults, and the same JSON form, so a config file written by the JAX
-package loads here unchanged. ``build_case`` builds the box case through
-the port's ``planar3d_case`` on a device (the card unless the caller asks
-for the CPU).
+package loads here unchanged. ``build_case`` builds the case on a device
+(the card unless the caller asks for the CPU): the box case through
+``planar3d_case``, or, with ``domain.mesh_path`` (and
+``domain.meshtags_path``), the imported-mesh case through
+``planar3d_case_xdmf``, where ``ncells``, ``domain_length`` and ``width``
+are ignored as the JAX package ignores them. ``run.output_path`` names the
+XDMF file of the final state (``apps/planar3d_app.py``).
+``run.force_padded`` is accepted and has no effect: the port's app always
+runs the padded solvers on a box.
 
-Fields the port cannot honour yet raise a ValueError naming their ROADMAP
-item, and are never silently ignored: ``domain.mesh_path`` and
-``domain.meshtags_path`` (item 8, ``core/io.py``), ``run.ndev > 1`` (item
-10), ``run.dtype == 'bf16'`` (item 9) and ``run.output_path`` (item 4,
-XDMF output). ``run.force_padded`` is accepted and has no effect: the
-port's app always runs the padded solvers.
+Fields the port cannot honour yet raise a ValueError naming what is
+missing, and are never silently ignored: ``run.ndev > 1`` (distribution,
+``parallel/`` on ``torch.distributed``) and ``run.dtype == 'bf16'`` (bf16
+state).
 
-The JAX package's ``build_case`` ignores ``physics.window_periods``,
+The JAX package's box case ignores ``physics.window_periods``,
 ``time.t0``, ``domain.source_tag``, ``domain.abc_tag`` and
-``run.log_every_steps``; honouring them would make the port disagree with
-the reference on the same file, so a value other than the default raises
-a ValueError that names the field.
+``run.log_every_steps`` (its imported-mesh case honours the two tags);
+honouring them would make the port disagree with the reference on the
+same file, so where the JAX package ignores a field a value other than the
+default raises a ValueError that names the field.
 """
 
 from __future__ import annotations
@@ -51,8 +56,10 @@ class DomainConfig:
     degree: int = 4                      # basis degree p
     source_tag: int = 1
     abc_tag: int = 2
-    #: imported-mesh mode (an XDMF mesh and its facet meshtags): not ported
-    #: yet, raises
+    #: imported-mesh mode (the reference's planar3d workflow,
+    #: demo/cpu_planar3d/main.cpp:39-45): an XDMF mesh and its facet
+    #: meshtags; ``ncells``/``domain_length``/``width`` are then ignored and
+    #: the model is the explicit-dofmap GeneralLinearWave
     mesh_path: str | None = None
     meshtags_path: str | None = None
 
@@ -74,7 +81,8 @@ class RunConfig:
     checkpoint_dir: str | None = None
     checkpoint_every_steps: int = 1000
     log_every_steps: int = 50
-    #: XDMF output of the final state: not ported yet, raises
+    #: write the final u/v as XDMF (a rectilinear grid for a box, the
+    #: p-refined sub-hex grid for an imported mesh), binary heavy data
     output_path: str | None = None
     #: accepted, no effect: the port's app always runs the padded solvers
     force_padded: bool = False
@@ -106,41 +114,53 @@ class SimulationConfig:
     def check_supported(self) -> None:
         """Raise a ValueError for the first field the port cannot honour."""
         d, r = self.domain, self.run
-        for name, value, default in (
-                ("physics.window_periods", self.physics.window_periods, 4.0),
-                ("time.t0", self.time.t0, 0.0),
-                ("domain.source_tag", d.source_tag, 1),
-                ("domain.abc_tag", d.abc_tag, 2),
-                ("run.log_every_steps", r.log_every_steps, 50)):
+        imported = d.mesh_path is not None
+        ignored = [("physics.window_periods", self.physics.window_periods, 4.0),
+                   ("time.t0", self.time.t0, 0.0),
+                   ("run.log_every_steps", r.log_every_steps, 50)]
+        if not imported:  # the JAX package honours the tags on imported meshes
+            ignored += [("domain.source_tag", d.source_tag, 1),
+                        ("domain.abc_tag", d.abc_tag, 2)]
+        for name, value, default in ignored:
             if value != default:
                 raise ValueError(
                     f"{name} = {value!r}: the case is built with its default "
                     f"{default!r}, as the JAX package builds it; other values "
                     "are not supported")
-        if d.mesh_path is not None or d.meshtags_path is not None:
-            raise ValueError(
-                "domain.mesh_path/meshtags_path: imported XDMF meshes are not "
-                "ported yet (ROADMAP Queue 1 item 8, core/io.py)")
+        if d.meshtags_path is not None and not imported:
+            raise ValueError("domain.meshtags_path needs domain.mesh_path: facet "
+                             "tags belong to an imported mesh")
         if r.ndev > 1:
-            raise ValueError(f"run.ndev = {r.ndev}: distribution is not ported "
-                             "yet (ROADMAP Queue 1 item 10)")
+            raise ValueError(f"run.ndev = {r.ndev}: distribution (parallel/, "
+                             "torch.distributed) is not ported yet")
         if r.dtype == "bf16":
-            raise ValueError("run.dtype = 'bf16': bf16 state is not ported yet "
-                             "(ROADMAP Queue 1 item 9)")
+            raise ValueError("run.dtype = 'bf16': bf16 state is not ported yet")
         if r.dtype not in DTYPES:
             raise ValueError(f"run.dtype = {r.dtype!r}: f32 or f64")
-        if r.output_path is not None:
-            raise ValueError("run.output_path: XDMF output is not ported yet "
-                             "(ROADMAP Queue 1 item 4)")
         if self.time.integrator not in ("rk4", "leapfrog"):
             raise ValueError(f"time.integrator = {self.time.integrator!r}: "
                              "rk4 or leapfrog")
 
     def build_case(self, device: torch.device | str = "cuda"):
         """The Planar3DCase of this config, its model on ``device``."""
-        from ..models.planar3d import planar3d_case
+        from ..models.planar3d import planar3d_case, planar3d_case_xdmf
 
         self.check_supported()
+        if self.domain.mesh_path is not None:
+            return planar3d_case_xdmf(
+                self.domain.mesh_path,
+                self.domain.meshtags_path,
+                degree=self.domain.degree,
+                speed_of_sound=self.physics.speed_of_sound,
+                source_frequency=self.physics.source_frequency,
+                pressure_amplitude=self.physics.pressure_amplitude,
+                cfl=self.time.cfl,
+                n_tail_periods=self.time.n_tail_periods,
+                source_tag=self.domain.source_tag,
+                abc_tag=self.domain.abc_tag,
+                dtype=DTYPES[self.run.dtype],
+                device=device,
+            )
         return planar3d_case(
             ncells=tuple(self.domain.ncells),
             domain_length=self.domain.domain_length,
