@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (numbered in the order they were added; 12 and 13 run after 6, 14
-after 8, 15 inside 11, after P9, on the P8 model); any failure raises, so
+after 8, 15 inside 11, after P9, on the P8 model, 16 inside 10); any
+failure raises, so
 the script exits non-zero and never prints its last line:
 
 1. device: a CUDA card, its name and power limit (nvidia-smi), TF32 off
@@ -143,12 +144,29 @@ the script exits non-zero and never prints its last line:
     state bitwise equal to ``solve_n``'s, the last row u at the probes),
     ``linear_wave.solve_recording`` on kernel F (f64, (16,8,8) cells, p=4,
     25 steps) against the CPU, and ``diagnostics.energy`` on F and K (f64)
-    against the CPU, limit 1e-12 relative.
+    against the CPU, limit 1e-12 relative;
+16. the general-model set-up on the card (``native``: csrc/setup_kernels.cu,
+    run before phase 10's f32 checks, and on P16's mesh inside 15): the P8
+    model built on the card (one launch each of the geometry and node-key
+    kernels, one dedup for the dofmap and one a tag), a second build bitwise
+    equal (dofmap, dof coordinates, G, detJw, m, W1, W2), and the NumPy route
+    built once at full size as the oracle: ndofs, the dofmap and the affine
+    flag equal, dof coordinates within 1e-15 relative, m, W1 and W2 (f32)
+    within 1e-6; G (f64) within 1e-13 of max|G| and detJw within 1e-13
+    relative of the NumPy route's (whose own J loses |X| / h ulps), the
+    card's detJw within 1e-15 of an 80-bit J on 4,096 cells, no clamp
+    decision that differs; a degenerate cell raises; both routes' set-up
+    seconds; each set-up kernel against its plain version at the P8 shapes
+    (the node keys and the dedup bit for bit) and timed against its bound,
+    the dedup beside ``torch.unique(dim=0)``. P16's mesh read back from XDMF
+    and built on the card: the NumPy route's dofmap, m, W1 and W2, and the
+    P8 model's G, m, W1 and W2 bit for bit. P10, P11, P16 and P17 check
+    their set-up launches.
 
 It prints one JSON line of per-kernel results ("kernels": all eleven
-kernels, each with the launches of its path's run, and J's step boundary
-alone; kernel B's path is the f1-path RK4 check; K's and F's include phase
-15's) and, last, one JSON line ``{"ok": true, "device":
+kernels, each with the launches of its path's run, J's step boundary
+alone, and the three set-up kernels with P16's launches; kernel B's path
+is the f1-path RK4 check; K's and F's include phase 15's) and, last, one JSON line ``{"ok": true, "device":
 {...}}``. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
@@ -174,6 +192,7 @@ BP1 = dict(size=64, degree=4)  # the reference's documented BP1 size
 BP1_DOFS = 16_974_593
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12    # f32 outside the tensor cores (the same sheet)
+F64_FLOPS_PER_S = 34e12    # f64 outside the tensor cores (the same sheet)
 RK_A = (0.0, 0.5, 0.5, 1.0)
 RK_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
 RK_C = (0.0, 0.5, 0.5, 1.0)
@@ -186,6 +205,190 @@ def phase(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def setup_phase(gmodel, gsetup: float, smi: str, dev) -> dict:
+    """Phase 16: the general-model set-up on the card (``native``'s kernels)
+    against the NumPy route, at the P8 size. ``gmodel`` is the P8 model that
+    ``general_solve.build`` made on the card in ``gsetup`` seconds. Returns
+    the NumPy route's results that phase 15 holds P16's mesh against, and
+    each set-up kernel's (max_abs_err, ms, plain_ms, (bound_ms, bound_by),
+    library_ms)."""
+    import numpy as np
+    import torch
+
+    from wave_fenics_tpu_torch import native
+    from wave_fenics_tpu_torch.benchmarks import general_solve
+    from wave_fenics_tpu_torch.core import geometry
+    from wave_fenics_tpu_torch.core.basis import clamp_table, gll_points_weights, tabulate_1d
+    from wave_fenics_tpu_torch.core.dofmap import build_dofmap
+    from wave_fenics_tpu_torch.core.mesh import HexMesh
+    from wave_fenics_tpu_torch.models.general_wave import facet_lumped_weights
+    from wave_fenics_tpu_torch.ops import _cuda
+    from wave_fenics_tpu_torch.ops.operators import GeneralOperators
+    from wave_fenics_tpu_torch.utils.timing import timeit
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+        return float((a.cpu() - b.cpu()).abs().max() / b.abs().max())
+
+    def decisions(G):
+        return torch.stack([(G - v).abs() <= 1e-8 + 1e-5 * abs(v)
+                            for v in (-1.0, 0.0, 1.0)]).any(0)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F64_FLOPS_PER_S
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    hm, tags = gmodel.mesh, gmodel.facet_tags
+    # a second build on the card: bitwise the first (no float atomics)
+    g2, gsetup2 = general_solve.build(HEADLINE["cells"], degree=4, dtype="f32")
+    same = {
+        "dofmap": np.array_equal(gmodel.dofs.dofmap, g2.dofs.dofmap),
+        "dof_coords": np.array_equal(gmodel.dofs.dof_coords, g2.dofs.dof_coords),
+        "G": torch.equal(gmodel.ops._G, g2.ops._G),
+        "detJw": torch.equal(gmodel.ops._detJw, g2.ops._detJw),
+        **{k: torch.equal(getattr(gmodel, k), getattr(g2, k)) for k in ("m", "W1", "W2")}}
+    print(f"second card build {gsetup2:.3f} s; bitwise equal to the first: {same}")
+    check(all(same.values()), f"two card set-ups bitwise equal: {same}")
+    del g2
+
+    # the NumPy route, once at full size: the oracle
+    t0 = time.perf_counter()
+    hm_np, tags_np = general_solve.perturbed_box(HEADLINE["cells"], h=0.002)
+    dofs_np = build_dofmap(hm_np, 4)
+    ops_np = GeneralOperators(hm_np, dofs_np, dtype=torch.float32)
+    m_np = ops_np.lumped_mass
+    W_np = {tag: facet_lumped_weights(hm_np, dofs_np, tags_np[tag], 4) for tag in (1, 2)}
+    np_setup = time.perf_counter() - t0
+    check(np.array_equal(hm_np.points, hm.points) and np.array_equal(hm_np.cells, hm.cells),
+          "the NumPy route's mesh is the card's")
+    print(f"P8 set-up: card route {gsetup:.3f} s (second build {gsetup2:.3f} s), NumPy "
+          f"route {np_setup:.2f} s [{smi}]")
+    res = {"ndofs": dofs_np.ndofs == gmodel.ndofs,
+           "dofmap": np.array_equal(dofs_np.dofmap, gmodel.dofs.dofmap),
+           "affine": ops_np.affine == gmodel.ops.affine}
+    coords_rel = rel(gmodel.dofs.dof_coords, dofs_np.dof_coords)
+    m_rel = rel(gmodel.m, m_np)
+    w_rel = {t: rel(getattr(gmodel, f"W{t}"), W_np[t].astype(np.float32)) for t in (1, 2)}
+    print(f"card against NumPy: {res}; dof coordinates {coords_rel:.3e} (limit 1e-15), "
+          f"m {m_rel:.3e}, W1 {w_rel[1]:.3e}, W2 {w_rel[2]:.3e} (f32, limit 1e-6)")
+    check(all(res.values()), f"card set-up against NumPy: {res}")
+    check(coords_rel <= 1e-15 and m_rel <= 1e-6 and max(w_rel.values()) <= 1e-6,
+          "card set-up's coordinates, m, W1, W2 against NumPy")
+    del ops_np
+
+    # G and detJw in f64 on both routes, unclamped and clamped
+    Gn_raw, dwn = geometry.precompute_geometric_data(hm, 4, clamp=False)
+    Gn = clamp_table(Gn_raw)
+    Gc_raw, dwc = geometry.precompute_geometric_data(hm, 4, clamp=False, device=dev)
+    Gc, _ = geometry.precompute_geometric_data(hm, 4, device=dev)
+    g_rel, dw_rel = rel(Gc, Gn), rel(dwc, dwn)
+    mismatch = int((decisions(Gc_raw).cpu() != decisions(torch.as_tensor(Gn_raw))).sum())
+    snapped = int(decisions(Gc_raw).sum())
+    # each route's detJw against an 80-bit extended-precision J on a sample
+    # of cells (the first and last 2048)
+    tab = tabulate_1d(4)
+    w3 = geometry.quadrature_weights_3d(tab)
+    _, dphi = geometry.trilinear_tabulate(geometry.quadrature_points_3d(tab))
+    sample = np.r_[0:2048, hm.ncells - 2048:hm.ncells]
+    X = hm.cell_coords()[sample].astype(np.longdouble)
+    J = np.einsum("cni,jqn->cqij", X, dphi.astype(np.longdouble))
+    det = (J[..., 0, 0] * (J[..., 1, 1] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 1])
+           - J[..., 0, 1] * (J[..., 1, 0] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 0])
+           + J[..., 0, 2] * (J[..., 1, 0] * J[..., 2, 1] - J[..., 1, 1] * J[..., 2, 0]))
+    exact = np.abs(det) * w3.astype(np.longdouble)
+    scale = float(np.abs(exact).max())
+    card_x = float(np.abs(dwc.cpu().numpy()[sample] - exact).max()) / scale
+    numpy_x = float(np.abs(dwn[sample] - exact).max()) / scale
+    print(f"f64 G against NumPy {g_rel:.3e} of max|G| (limit 1e-13), detJw {dw_rel:.3e} "
+          f"(limit 1e-13); clamp decisions that differ: {mismatch} (of {snapped} "
+          f"snapped); detJw against 80-bit J on {len(sample)} cells: card {card_x:.3e} "
+          f"(limit 1e-15), NumPy {numpy_x:.3e}")
+    check(g_rel <= 1e-13 and dw_rel <= 1e-13 and mismatch == 0 and card_x <= 1e-15,
+          "card geometry against NumPy and the extended-precision J")
+    del Gn_raw, Gn, dwn, Gc_raw, Gc, X, J, det, exact
+
+    # a degenerate cell (every vertex at one point) raises
+    flat = HexMesh(points=np.zeros((8, 3)), cells=native.box_cells(1, 1, 1).numpy())
+    try:
+        geometry.precompute_geometric_data(flat, 2, device=dev)
+        raised = False
+    except ValueError as e:
+        raised = "singular Jacobian" in str(e)
+    check(raised, "a degenerate cell raises on the card")
+
+    # each set-up kernel at the P8 shapes: against its plain version on the
+    # card, back-to-back launches, the bound and a one-call PyTorch equivalent
+    kl = _cuda.library()
+    nc, nq, nd = hm.ncells, len(w3), 125
+    cc = torch.as_tensor(hm.cell_coords(), device=dev)
+    dp, w = (torch.as_tensor(a, device=dev) for a in (dphi, w3))
+    out = {}
+    Gk, dwk = native.geometry_factors_cuda(cc, dp, w)
+    Gp, dwp = native.geometry_factors_plain(cc, dp, w)
+    err = max(float((Gk - Gp).abs().max()), float((dwk - dwp).abs().max()))
+    check(rel(Gk, Gp) <= 1e-13 and rel(dwk, dwp) <= 1e-15, "geometry kernel against plain")
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms = 1e3 * timeit(_cuda.launcher(kl, "wave_geometry_factors", None, dev,
+                                     *native.geometry_launch_args(cc, dp, w, True, Gk, dwk,
+                                                                  flag)), reps=50)
+    plain_ms = 1e3 * timeit(lambda: native.geometry_factors_plain(cc, dp, w), reps=3,
+                            warmup=1)
+    # the cells in, G and detJw out once; ~240 f64 flops a point
+    out["geometry"] = (err, ms, plain_ms, bound(nbytes(cc, dp, w, Gk, dwk),
+                                                240 * nc * nq), None)
+    del Gk, dwk, Gp, dwp
+    nodes, _ = gll_points_weights(5)
+    Xr, Yr, Zr = np.meshgrid(nodes, nodes, nodes, indexing="ij")
+    phi, _ = geometry.trilinear_tabulate(np.stack([Xr.ravel(), Yr.ravel(), Zr.ravel()], -1))
+    ph = torch.as_tensor(phi, device=dev)
+    keys, coords = native.node_keys_cuda(cc, ph, 1.0, 1e-9)
+    kp, cp = native.node_keys_plain(cc, ph, 1.0, 1e-9)
+    check(torch.equal(keys, kp) and torch.equal(coords, cp), "node keys bitwise the plain")
+    ms = 1e3 * timeit(_cuda.launcher(kl, "wave_node_keys", None, dev, cc, ph, nc, nd,
+                                     1.0 / 1e-9, keys, coords), reps=50)
+    plain_ms = 1e3 * timeit(lambda: native.node_keys_plain(cc, ph, 1.0, 1e-9), reps=3,
+                            warmup=1)
+    # the cells in, keys and coordinates out once; 16 flops a component
+    out["keys"] = (0.0, ms, plain_ms, bound(nbytes(cc, ph, keys, coords), 48 * nc * nd),
+                   None)
+    ids, ndofs = native.dedup_dofs_cuda(keys)
+    pids, pndofs = native.dedup_dofs_plain(keys)
+    check(ndofs == pndofs == gmodel.ndofs and torch.equal(ids, pids), "dedup against plain")
+    n = keys.shape[0]
+    size = native.dedup_table_size(n)
+    table = torch.empty(size, dtype=torch.int64, device=dev)
+    rep = torch.empty(n, dtype=torch.int64, device=dev)
+    hash_launch = _cuda.launcher(kl, "wave_dedup_hash", None, dev, keys, n, table, size - 1,
+                                 rep, flag)
+
+    def hashed():
+        table.fill_(-1)
+        hash_launch()
+
+    ms = 1e3 * timeit(hashed, reps=20)
+    wrapper_ms = 1e3 * timeit(lambda: native.dedup_dofs_cuda(keys), reps=10)
+    plain_ms = 1e3 * timeit(lambda: native.dedup_dofs_plain(keys), reps=3, warmup=1)
+    lib_ms = 1e3 * timeit(lambda: torch.unique(keys, dim=0, return_inverse=True), reps=3,
+                          warmup=1)
+    # the keys in, the ids out once
+    out["dedup"] = (float((ids - pids).abs().max()), ms, plain_ms,
+                    bound(nbytes(keys, ids), 0), lib_ms)
+    for k, (e, t, tp, (b, by), lib) in out.items():
+        print(f"set-up kernel {k}: {t:.4f} ms, plain {tp:.4f} ms, bound {b:.4f} ms ({by}), "
+              f"max|err| against plain {e:.3e}" + (
+                  f"; torch.unique(dim=0) {lib:.4f} ms, the wrapper (table fill, insert, "
+                  f"lookup, numbering) {wrapper_ms:.4f} ms" if lib is not None else "")
+              + f" [{smi}]")
+    del cc, keys, coords, kp, cp, ids, pids, table, rep
+    return {"np_setup": np_setup, "card_setup": gsetup, "card_setup2": gsetup2,
+            "ndofs": dofs_np.ndofs, "dofmap": dofs_np.dofmap, "m": m_np, "W": W_np,
+            "kernels": out, "dedup_wrapper_ms": wrapper_ms, "detJw_80bit": (card_x, numpy_x),
+            "g_rel": g_rel, "dw_rel": dw_rel, "mismatch": mismatch}
 
 
 def main() -> None:
@@ -212,6 +415,7 @@ def main() -> None:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
+    from wave_fenics_tpu_torch import native
     from wave_fenics_tpu_torch.apps import planar3d_app
     from wave_fenics_tpu_torch.benchmarks import cg_bench, general_solve, operators_bench
     from wave_fenics_tpu_torch.convert import tables_from_numpy
@@ -266,9 +470,16 @@ def main() -> None:
         "J": rk42step.rk42_step_cuda,
     }
 
+    # the set-up kernels' counters (native.py), read apart from the solvers'
+    setup_counters = {"geometry": native.geometry_factors_cuda,
+                      "keys": native.node_keys_cuda, "dedup": native.dedup_dofs_cuda}
+
     def zero_counts():
-        for fn in counters.values():
+        for fn in (*counters.values(), *setup_counters.values()):
             fn.launches = 0
+
+    def read_setup():
+        return {k: fn.launches for k, fn in setup_counters.items()}
 
     def read_counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -1358,10 +1569,22 @@ def main() -> None:
             check(t.affine and rel <= 1e-12 and rel_o <= 1e-12 and bitwise,
                   f"kernel K affine {op} p={p}")
 
+    # -- 16. the general-model set-up on the card ---------------------------
+    phase(f"general set-up on the card (csrc/setup_kernels.cu) at the P8 size against "
+          "the NumPy route")
+    zero_counts()
     gmodel, gsetup = general_solve.build(HEADLINE["cells"], degree=4, dtype="f32")
+    setup_paths = {"P8 build": read_setup()}
     print(f"P8 model: perturbed {gmodel.mesh.ncells} cells, p=4, {gmodel.ndofs} dofs, "
-          f"affine {gmodel.ops.affine}; host setup {gsetup:.2f} s (mesh, dofmap, "
-          "geometry, boundary weights)")
+          f"affine {gmodel.ops.affine}; set-up on the card {gsetup:.3f} s (mesh, "
+          f"dofmap, geometry, lumped mass, boundary weights); set-up launches "
+          f"{setup_paths['P8 build']} [{smi}]")
+    check(setup_paths["P8 build"] == {"geometry": 1, "keys": 1, "dedup": 3},
+          f"P8 build's set-up launches {setup_paths['P8 build']}")
+    setup = setup_phase(gmodel, gsetup, smi, dev)
+    for k, (err, ms, plain_ms, bnd, lib_ms) in setup["kernels"].items():
+        results[k] = (err, ms, plain_ms, bnd)
+        library[k] = lib_ms
     t0 = time.perf_counter()
     k_colours = np.diff(gmodel.ops.colouring[1]).tolist()
     print(f"P8 colouring: {len(k_colours)} colours of {k_colours} cells "
@@ -1435,10 +1658,39 @@ def main() -> None:
         cfg16 = SimulationConfig()
         cfg16.domain.mesh_path, cfg16.domain.meshtags_path = mesh_path, tags_path
         cfg16.run.output_path = out_path
+        # the card route on P16's mesh as read back, against phase 16's NumPy
+        # route on the same points and cells, and bitwise against the P8 model
+        t0 = time.perf_counter()
+        gx = general_wave.from_xdmf(mesh_path, tags_path, p=4, dtype=torch.float32,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        gx_s = time.perf_counter() - t0
+        check(np.array_equal(gx.mesh.points, gmodel.mesh.points)
+              and np.array_equal(gx.mesh.cells, gmodel.mesh.cells)
+              and all(np.array_equal(gx.facet_tags[t], ft[t]) for t in (1, 2)),
+              "P16's mesh and tags read back as written")
+        rx = {"ndofs": gx.ndofs == setup["ndofs"],
+              "dofmap": np.array_equal(gx.dofs.dofmap, setup["dofmap"]),
+              "affine": gx.ops.affine == gmodel.ops.affine,
+              **{k: torch.equal(getattr(gx, k), getattr(gmodel, k)) for k in ("m", "W1", "W2")},
+              "G": torch.equal(gx.ops._G, gmodel.ops._G)}
+        w_rel = max(float((getattr(gx, f"W{t}").double().cpu()
+                           - torch.as_tensor(setup["W"][t].astype(np.float32)).double())
+                          .abs().max() / float(np.abs(setup["W"][t]).max())) for t in (1, 2))
+        m_rel = float((gx.m.cpu() - torch.as_tensor(setup["m"])).abs().max()
+                      / float(np.abs(setup["m"]).max()))
+        print(f"P16's mesh on the card: from_xdmf {gx_s:.3f} s; against the NumPy route "
+              f"and bitwise the P8 model: {rx}; m {m_rel:.3e}, W {w_rel:.3e} (limit 1e-6)")
+        check(all(rx.values()) and m_rel <= 1e-6 and w_rel <= 1e-6,
+              "the card set-up on P16's mesh")
+        del gx
         zero_counts()
         p16, u16, v16 = planar3d_app.run(cfg16, dtype="f32", device="cuda",
                                          return_state=True)
         counts = read_counts()
+        setup_paths["P16"] = read_setup()
+        check(setup_paths["P16"] == {"geometry": 1, "keys": 1, "dedup": 3},
+              f"P16's set-up launches {setup_paths['P16']}")
         print(json.dumps(p16))
         n16 = p16["nsteps"]
         print(f"P16: {n16} steps (steps/period {p16['steps_per_period']}, dt "
@@ -1475,6 +1727,9 @@ def main() -> None:
                                          checkpoint_dir=os.path.join(tmp, "ckpt"),
                                          return_state=True)
         counts = read_counts()
+        setup_paths["P17"] = read_setup()
+        check(setup_paths["P17"] == {"geometry": 1, "keys": 1, "dedup": 3},
+              f"P17's set-up launches {setup_paths['P17']}")
         print(json.dumps(p17))
         print(f"P17: 400 steps, kernel K applies {counts['K']} = 400 + 4 chunk starts + "
               f"2 (warm-up step); setup {p17['setup_seconds']:.2f} s, solve "
@@ -1585,6 +1840,10 @@ def main() -> None:
         only(counts, "K", f"P10 {op}")
         check(out["max_rel_err_vs_f64_oracle"] <= 1e-5, f"P10 {op} against f64")
         k_paths[f"P10 {op}"] = counts["K"]
+        # the op and its f64 oracle set up on the card on one dofmap
+        setup_paths[f"P10 {op}"] = read_setup()
+        check(setup_paths[f"P10 {op}"] == {"geometry": 2, "keys": 1, "dedup": 1},
+              f"P10 {op}'s set-up launches {setup_paths[f'P10 {op}']}")
         k_modes[f"P10 {op}"] = out["ms_per_apply"]
 
     phase(f"P11 cg_bench general at {NDOFS:,} dofs: kernel K (mass_gauss)")
@@ -1605,6 +1864,9 @@ def main() -> None:
     check(counts["K"] == want, f"P11: kernel K launched {counts['K']}, want {want}")
     only(counts, "K", "P11")
     k_paths["P11"] = counts["K"]
+    setup_paths["P11"] = read_setup()
+    check(setup_paths["P11"] == {"geometry": 1, "keys": 1, "dedup": 1},
+          f"P11's set-up launches {setup_paths['P11']}")
 
     phase("the assembled CSR SpMV against kernel K at 16^3 cells, p=4")
     t0 = time.perf_counter()
@@ -1647,6 +1909,7 @@ def main() -> None:
     src_stage = "wave_fenics_tpu_torch/csrc/rk_stage_tiled.cu"
     src_grid = "wave_fenics_tpu_torch/csrc/stiffness_tiled.cu"
     src_gen = "wave_fenics_tpu_torch/csrc/general_kernels.cu"
+    src_setup = "wave_fenics_tpu_torch/csrc/setup_kernels.cu"
     results["A"] = (a_err, sum(a_stage_us) / 1e3, a_plain_ms, a_bound)
     results["B"] = (b_err, b_ms, b_plain_ms, b_bound)
     # K and F: their paths' runs, and the imported-mesh workflow's (phase 15)
@@ -1701,7 +1964,22 @@ def main() -> None:
                "2.5D tiled with TMA plane loads of 5 fields, p=4, the P1 width; ms "
                "per launch; launches: one per call on P14)",
                "wave_fenics_tpu/ops/pallas_rk42step.py:97", src_rk42),
+        # the set-up kernels (phase 16): counterparts of the JAX package's
+        # host library, not of a TPU kernel; launches: P16's model build
+        "geometry": ("geometry_factors_kernel (general set-up: G and |det J| w of "
+                     "the P8 model, 65,536 cells x 125 points, f64, clamped; ms per "
+                     "launch)", "wave_fenics_tpu/native/wavecore.cpp:32", src_setup),
+        "keys": ("node_keys_kernel (general set-up: the quantized keys and "
+                 "coordinates of the P8 model's 8,192,000 nodes; ms per launch)",
+                 "wave_fenics_tpu/core/dofmap.py:168", src_setup),
+        "dedup": ("dedup_insert_kernel + dedup_lookup_kernel (general set-up: hash "
+                  "dedup of the P8 model's 8,192,000 node keys into 4,276,737 dofs, "
+                  "numbered by first appearance; ms per call with the table's fill; "
+                  "library: torch.unique(dim=0, return_inverse=True), sorted "
+                  "numbering)", "wave_fenics_tpu/native/wavecore.cpp:87", src_setup),
     }
+    for k in ("geometry", "keys", "dedup"):
+        launches[k] = setup_paths["P16"][k]
     kernels = []
     for k, (name, replaces, source) in meta.items():
         err, ms, plain_ms, (bms, by) = results[k]
@@ -1743,6 +2021,14 @@ def main() -> None:
     by_name["I"]["wrapper_ms"] = i_wrapper_ms
     by_name["K"]["wrapper_ms"] = k_wrapper_ms["stiffness"]
     by_name["K"]["colours"] = k_colours
+    for k in ("geometry", "keys", "dedup"):
+        by_name[k]["launches_per_path"] = {label: c[k] for label, c in setup_paths.items()}
+    by_name["dedup"]["wrapper_ms"] = setup["dedup_wrapper_ms"]
+    by_name["geometry"]["detJw_err_vs_80bit"] = {
+        "card": setup["detJw_80bit"][0], "numpy": setup["detJw_80bit"][1]}
+    by_name["geometry"]["setup_s"] = {"card": setup["card_setup"],
+                                      "card_second": setup["card_setup2"],
+                                      "numpy": setup["np_setup"]}
     by_name["J"]["odd_step_launches_A"] = path_counts["P14 RK4 two-step, kernel J"]["A"]
     # the same kernel at 16^3 cells, beside the one PyTorch call that computes
     # its function there (the assembled matrix at the P8 size would not fit

@@ -2,7 +2,9 @@
 (float64; kernel E also in float32), kernels A, B, C, D, E, F, G and J also
 from output buffers full of NaN; the app paths' launch counts, and the
 imported-mesh workflow (the app's general branch with --output, probe
-recording, the energy) on kernels K, F and A against the CPU.
+recording, the energy) on kernels K, F and A against the CPU; the general
+set-up kernels (native.py) against their plain versions and the card's
+set-up against the NumPy route.
 
 Every test here needs a CUDA card and skips without one. The file imports
 only torch and the port, so it runs on a machine without JAX:
@@ -935,3 +937,178 @@ def test_cuda_box_output_on_kernel_a(cuda, tmp_path):
     z, y, x = read_xdmf_geometry(str(tmp_path / "box.xdmf"))
     for a, d in zip((x, y, z), range(3)):
         np.testing.assert_array_equal(a, dg.axis_coords(d))
+
+
+# -- the general-model set-up on the card (native.py, csrc/setup_kernels.cu) --
+
+SETUP_COUNTERS = {"geometry": "geometry_factors_cuda", "keys": "node_keys_cuda",
+                  "dedup": "dedup_dofs_cuda"}
+
+
+def _setup_counts():
+    from wave_fenics_tpu_torch import native
+
+    return {k: getattr(native, name).launches for k, name in SETUP_COUNTERS.items()}
+
+
+def _clamp_decisions(G):
+    G = np.asarray(G)
+    return np.any([np.isclose(G, v, rtol=1e-5, atol=1e-8) for v in (-1.0, 0.0, 1.0)],
+                  axis=0)
+
+
+@pytest.mark.parametrize("p,q,rule", [(1, None, "gll"), (2, None, "gll"), (4, None, "gll"),
+                                      (6, None, "gll"), (10, None, "gll"), (3, 8, "gauss")])
+def test_cuda_geometry_factors_match_plain_and_numpy(cuda, p, q, rule):
+    """geometry_factors_kernel (one launch) against its plain version (G
+    within 1e-13 of max|G|, detJw within 1e-15 relative), against an
+    80-bit extended-precision J (detJw within 1e-15) and against the NumPy
+    route (G within 1e-13; its own detJw carries a few 1e-16 to 1e-15 more
+    rounding, the J of absolute coordinates), clamped and not; no clamp
+    decision differs. p = 10 (1,331 points) takes tiles of 128 points."""
+    from wave_fenics_tpu_torch import native
+    from wave_fenics_tpu_torch.core import geometry
+    from wave_fenics_tpu_torch.core.basis import tabulate_1d
+
+    mesh, _ = perturbed_box((4, 3, 2), h=0.25)
+    tab = tabulate_1d(p, q, rule)
+    _, dphi = geometry.trilinear_tabulate(geometry.quadrature_points_3d(tab))
+    J = np.einsum("cni,jqn->cqij", mesh.cell_coords().astype(np.longdouble),
+                  dphi.astype(np.longdouble))
+    det = (J[..., 0, 0] * (J[..., 1, 1] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 1])
+           - J[..., 0, 1] * (J[..., 1, 0] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 0])
+           + J[..., 0, 2] * (J[..., 1, 0] * J[..., 2, 1] - J[..., 1, 1] * J[..., 2, 0]))
+    exact = np.abs(det) * geometry.quadrature_weights_3d(tab).astype(np.longdouble)
+    for clamp in (True, False):
+        n0 = native.geometry_factors_cuda.launches
+        G, dw = geometry.precompute_geometric_data(mesh, p, q, rule, clamp=clamp,
+                                                   device=cuda)
+        torch.cuda.synchronize()
+        assert native.geometry_factors_cuda.launches == n0 + 1
+        Gp, dwp = geometry.precompute_geometric_data(mesh, p, q, rule, clamp=clamp,
+                                                     device="cpu")
+        Gn, _ = geometry.precompute_geometric_data(mesh, p, q, rule, clamp=clamp)
+        assert _rel(G.cpu(), Gp) <= 1e-13 and _rel(dw.cpu(), dwp) <= 1e-15
+        assert _rel(G.cpu(), torch.as_tensor(Gn)) <= 1e-13
+        err = np.abs(dw.cpu().numpy() - exact).max() / np.abs(exact).max()
+        assert float(err) <= 1e-15
+        if not clamp:
+            assert int((_clamp_decisions(G.cpu()) != _clamp_decisions(Gn)).sum()) == 0
+
+
+def test_cuda_geometry_singular_raises(cuda):
+    from wave_fenics_tpu_torch.core import geometry
+    from wave_fenics_tpu_torch.core.mesh import HexMesh
+
+    hm = box_mesh((2, 1, 1), (1.0, 0.8, 0.9)).to_hex_mesh()
+    pts = hm.points.copy()
+    pts[:, 2] = 0.0
+    with pytest.raises(ValueError, match="singular Jacobian in mesh"):
+        geometry.precompute_geometric_data(HexMesh(points=pts, cells=hm.cells), 2,
+                                           device=cuda)
+
+
+@pytest.mark.parametrize("p", [1, 4, 10])
+def test_cuda_node_keys_equal_plain_bitwise(cuda, p):
+    """node_keys_kernel rounds each product and sum on its own, as its
+    plain version does: keys and coordinates bit for bit."""
+    from wave_fenics_tpu_torch import native
+
+    mesh, _ = perturbed_box((5, 3, 2), h=0.002)
+    cc = torch.as_tensor(mesh.cell_coords(), device=cuda)
+    phi = torch.as_tensor(np.random.default_rng(p).random(((p + 1) ** 3, 8)), device=cuda)
+    n0 = native.node_keys_cuda.launches
+    keys, coords = native.node_keys(cc, phi, 1.0, 1e-9)
+    assert native.node_keys_cuda.launches == n0 + 1
+    kp, cp = native.node_keys_plain(cc, phi, 1.0, 1e-9)
+    assert torch.equal(keys, kp) and torch.equal(coords, cp)
+    kc, cpc = native.node_keys_plain(cc.cpu(), phi.cpu(), 1.0, 1e-9)
+    assert torch.equal(keys.cpu(), kc) and torch.equal(coords.cpu(), cpc)
+
+
+@pytest.mark.parametrize("lo,hi,n", [(0, 6, 5000), (-3, 3, 200_000), (0, 100, 2_000_000),
+                                     (-10**12, 10**12, 100_000)])
+def test_cuda_dedup_matches_plain(cuda, lo, hi, n):
+    """The hash dedup against its plain version: the same first-appearance
+    ids, ndofs and first nodes; two runs bitwise equal."""
+    from wave_fenics_tpu_torch import native
+
+    keys = torch.as_tensor(np.random.default_rng(n).integers(lo, hi, size=(n, 3)),
+                           device=cuda)
+    ids, nd, first = native.dedup_dofs(keys, return_first=True)
+    ids2, nd2 = native.dedup_dofs(keys)
+    pids, pnd, pfirst = native.dedup_dofs_plain(keys, return_first=True)
+    assert nd == nd2 == pnd and torch.equal(ids, ids2)
+    assert torch.equal(ids, pids) and torch.equal(first, pfirst)
+
+
+def test_cuda_dedup_rejects_bad_keys(cuda):
+    from wave_fenics_tpu_torch import native
+
+    with pytest.raises(TypeError):
+        native.dedup_dofs(torch.zeros((4, 3), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        native.dedup_dofs(torch.zeros((4, 2), dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.parametrize("reorder", ["appearance", "morton", None])
+@pytest.mark.parametrize("p", [1, 2, 4, 5])
+def test_cuda_build_dofmap_equals_numpy_route(cuda, p, reorder):
+    mesh, _ = perturbed_box((6, 4, 3), h=0.002)
+    got = build_dofmap(mesh, p, reorder=reorder, device=cuda)
+    want = build_dofmap(mesh, p, reorder=reorder)
+    assert got.ndofs == want.ndofs
+    np.testing.assert_array_equal(got.dofmap, want.dofmap)
+    np.testing.assert_array_equal(got.device_dofmap.cpu().numpy(), want.dofmap)
+    assert _rel(torch.as_tensor(got.dof_coords), torch.as_tensor(want.dof_coords)) <= 1e-15
+
+
+@pytest.mark.parametrize("quadrature", ["gll", "gauss"])
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_cuda_general_wave_setup_matches_numpy_route(cuda, dtype, quadrature):
+    """A model built on the card (its dofmap, geometry, affine test, lumped
+    mass and facet weights there: each set-up kernel launched, one dedup a
+    tag) against the NumPy route: dofmap equal, m, W1, W2 within 1e-12
+    (f64) or 1e-6 (f32) relative, K's tables within the same."""
+    from wave_fenics_tpu_torch.models.general_wave import facet_lumped_weights
+
+    mesh, tags = perturbed_box((6, 4, 3), h=0.002)
+    tol = 1e-12 if dtype == F64 else 1e-6
+    c0 = _setup_counts()
+    mg = GeneralLinearWave(mesh, 3, tags, dtype=dtype, device=cuda, quadrature=quadrature)
+    counts = {k: n - c0[k] for k, n in _setup_counts().items()}
+    assert counts == {"geometry": 1, "keys": 1, "dedup": 3}
+    dofs = build_dofmap(mesh, 3)
+    ops = GeneralOperators(mesh, dofs, dtype=dtype, rule=quadrature)
+    np.testing.assert_array_equal(mg.dofs.dofmap, dofs.dofmap)
+    assert mg.ops.affine == ops.affine
+    assert _rel(mg.m.cpu(), torch.as_tensor(ops.lumped_mass)) <= tol
+    for name, tag in (("W1", 1), ("W2", 2)):
+        W = facet_lumped_weights(mesh, dofs, tags[tag], 3, rule=quadrature)
+        assert _rel(getattr(mg, name).cpu().double(), torch.as_tensor(W)) <= tol
+    mode = "stiffness" if quadrature == "gll" else "stiffness_gauss"
+    t, r = mg.ops.tables(mode, cuda), ops.tables(mode, cuda)
+    assert _rel(t.geo, r.geo) <= tol and torch.equal(t.dofmap, r.dofmap)
+
+
+def test_cuda_two_setups_are_bitwise_equal(cuda):
+    """No float atomics in the set-up: two builds of one model agree bit
+    for bit (dofmap, dof coordinates, G, detJw, m, W1, W2)."""
+    mesh, tags = perturbed_box((6, 4, 3), h=0.002)
+    a, b = (GeneralLinearWave(mesh, 4, tags, dtype=torch.float32, device=cuda)
+            for _ in range(2))
+    np.testing.assert_array_equal(a.dofs.dofmap, b.dofs.dofmap)
+    np.testing.assert_array_equal(a.dofs.dof_coords, b.dofs.dof_coords)
+    for name in ("m", "W1", "W2"):
+        assert torch.equal(getattr(a, name), getattr(b, name))
+    assert torch.equal(a.ops._G, b.ops._G) and torch.equal(a.ops._detJw, b.ops._detJw)
+
+
+def test_cuda_unmatched_facet_raises(cuda):
+    from wave_fenics_tpu_torch.models.general_wave import facet_lumped_weights
+
+    mesh, tags = perturbed_box((3, 2, 2), h=0.25)
+    bad = tags[1][:1].copy()
+    bad[0, 3] = mesh.cells[-1, 7]
+    with pytest.raises(ValueError, match="does not coincide with a volume dof"):
+        facet_lumped_weights(mesh, build_dofmap(mesh, 2, device=cuda), bad, 2, device=cuda)

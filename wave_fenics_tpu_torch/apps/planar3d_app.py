@@ -266,9 +266,10 @@ def run(
     ts = time.perf_counter()
     case = cfg.build_case(device=_device(device))
     pm = None if imported else padded_model(case, tile_x, lean)
-    setup_s = time.perf_counter() - ts
     m = case.model
     dev = m.device
+    sync(dev)  # a general model's set-up runs on the card
+    setup_s = time.perf_counter() - ts
     integrator = cfg.time.integrator
     dt = case.dt
     nstep = case.nsteps

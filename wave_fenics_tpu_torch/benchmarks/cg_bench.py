@@ -45,6 +45,7 @@ from ..core.mesh import box_mesh
 from ..ops.mass import bp1_setup, mass_apply
 from ..ops.operators import GeneralOperators, StructuredOperators
 from ..solvers.cg import cg
+from ..utils.timing import sync
 from .common import (DTYPES, cells_from_args, device_name, make_parser,
                      report, resolve_device, two_point_time)
 
@@ -58,8 +59,8 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
         q: int | None = None, precond: bool = False) -> dict:
     """One CG benchmark record (the keys of the JAX bench's, plus
     ``device``, ``timing``, ``solves``: the number of solves run, each of
-    1 + iters matvecs, and ``setup_s``: the host seconds that built the
-    operator and b, before the first solve)."""
+    1 + iters matvecs, and ``setup_s``: the seconds that built the
+    operator and b, before the first solve, the device synchronised)."""
     if ndev != 1:
         raise NotImplementedError(SHARDED_SLICE)
     if op not in ("bp1", "spectral", "general"):
@@ -75,11 +76,12 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
     pre = None
     if op == "general":
         hm = mesh.to_hex_mesh()
-        gops = GeneralOperators(hm, build_dofmap(hm, p), dtype=dt, rule="gauss", q=q)
+        gops = GeneralOperators(hm, build_dofmap(hm, p, device=dev), dtype=dt,
+                                rule="gauss", q=q, device=dev)
         b = torch.as_tensor(rng.standard_normal(gops.ndofs), dtype=dt, device=dev)
         matvec = gops.mass
         if precond:
-            (inv_m,) = tables_from_numpy((1.0 / gops.lumped_mass,), dev, dt)
+            inv_m = 1.0 / gops.lumped_mass_on(dev)
             pre = lambda r: inv_m * r  # noqa: E731
     elif op == "bp1":
         b0 = torch.as_tensor(rng.standard_normal(grid), dtype=dt, device=dev)
@@ -94,6 +96,7 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
             (inv_diag,) = tables_from_numpy((1.0 / ops.lumped_mass,), dev, dt)
             pre = lambda r: inv_diag * r  # noqa: E731
 
+    sync(dev)
     setup_s = time.perf_counter() - t0
 
     def solve():

@@ -26,6 +26,7 @@ import numpy as np
 
 from ..core.mesh import HEX_FACES, HexMesh, box_mesh
 from ..models.general_wave import GeneralLinearWave
+from ..utils.timing import sync
 from .common import (DTYPES, cells_from_args, device_name, make_parser, report,
                      resolve_device, two_point_time)
 
@@ -67,12 +68,14 @@ def perturbed_box(cells, h=0.002, amp_rel=0.08, seed=0) -> tuple[HexMesh, dict]:
 
 def build(cells, degree: int = 4, dtype: str = "f32",
           device: str = "cuda") -> tuple[GeneralLinearWave, float]:
-    """(the model on the perturbed box of ``cells``, the host seconds its
-    setup took: mesh, dofmap, geometry and boundary weights)."""
+    """(the model on the perturbed box of ``cells``, the seconds its set-up
+    took: the mesh on the host; the dofmap, geometry, lumped mass and
+    boundary weights on ``device``, synchronised before the clock is read)."""
     t0 = time.perf_counter()
     hm, tags = perturbed_box(tuple(cells), h=0.002)
-    model = GeneralLinearWave(hm, degree, tags, dtype=DTYPES[dtype],
-                              device=resolve_device(device))
+    dev = resolve_device(device)
+    model = GeneralLinearWave(hm, degree, tags, dtype=DTYPES[dtype], device=dev)
+    sync(dev)
     return model, time.perf_counter() - t0
 
 
@@ -82,7 +85,7 @@ def run(size: int = 16, degree: int = 4, s: int | None = None, steps: int = 100,
         model: GeneralLinearWave | None = None) -> dict:
     """One solve-rate record (the JAX bench's keys, plus ``device``,
     ``timing``, ``solves``: the solves run, each of ``applies_per_solve``
-    stiffness applies, and ``setup_s``: the host setup seconds). ``model``
+    stiffness applies, and ``setup_s``: the set-up seconds of ``build``). ``model``
     (optional) is one that ``build`` made for the same arguments."""
     if integrator not in ("rk4", "leapfrog"):
         raise ValueError(f"unknown integrator: {integrator!r}")

@@ -43,6 +43,7 @@ from ..models.linear_wave_padded import PaddedLinearWave
 from ..ops.mass import bp1_setup, mass_apply
 from ..ops.operators import GeneralOperators, StructuredOperators
 from ..ops.separable import mass_separable, separable_mass_tables
+from ..utils.timing import sync
 from .common import (DTYPES, cells_from_args, device_name, make_parser,
                      report, resolve_device, streaming_fields, two_point_time)
 
@@ -77,11 +78,13 @@ def _oracle(op: str, mesh, p: int, x: torch.Tensor, layout=None) -> torch.Tensor
 
 def _general(op: str, mesh, p: int, dt: torch.dtype, dev: torch.device):
     """(x, the op's apply, a maker of its f64 oracle) of an explicit-dofmap
-    op on the box as a HexMesh; the oracle shares the mesh and the dofmap."""
+    op on the box as a HexMesh, set up on ``dev`` (the set-up kernels on a
+    card); the oracle shares the mesh and the dofmap and is set up in the
+    same route, in float64."""
     hexm = mesh.to_hex_mesh()
-    dofs = build_dofmap(hexm, p)
+    dofs = build_dofmap(hexm, p, device=dev)
     rule = "gauss" if op in ("mass", "stiffness-gauss") else "gll"
-    gops = GeneralOperators(hexm, dofs, dtype=dt, rule=rule)
+    gops = GeneralOperators(hexm, dofs, dtype=dt, rule=rule, device=dev)
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(gops.ndofs),
                         dtype=dt, device=dev)
     f = {
@@ -93,7 +96,7 @@ def _general(op: str, mesh, p: int, dt: torch.dtype, dev: torch.device):
     }[op]
 
     def oracle():
-        ops64 = GeneralOperators(hexm, dofs, dtype=torch.float64, rule=rule)
+        ops64 = GeneralOperators(hexm, dofs, dtype=torch.float64, rule=rule, device=dev)
         return (ops64.spectral_mass_roundtrip if op == "mass-general"
                 else ops64.mass_indexed if op == "mass"
                 else lambda a: ops64.stiffness_indexed(a, C0))
@@ -106,7 +109,8 @@ def run(op: str = "stiffness", size: int = 32, degree: int = 4,
         dtype: str = "f32", device: str = "cuda") -> dict:
     """One matvec benchmark record (the JAX bench's keys, plus ``device``,
     ``timing``, ``applies``: the number of applies run, and ``setup_s``: the
-    host seconds that built the op, before its first apply)."""
+    seconds that built the op, before its first apply, the device
+    synchronised)."""
     if op not in STRUCTURED_OPS + GENERAL_OPS:
         raise ValueError(f"--op {op!r}: one of {STRUCTURED_OPS + GENERAL_OPS}")
     dev = resolve_device(device)
@@ -139,6 +143,7 @@ def run(op: str = "stiffness", size: int = 32, degree: int = 4,
             "spectral-roundtrip": ops.spectral_mass_roundtrip,
         }[op]
         f = lambda: g(x)  # noqa: E731
+    sync(dev)
     setup_s = time.perf_counter() - t0
 
     t, timing, calls = two_point_time(f, reps, dev)

@@ -51,10 +51,12 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 def tables_from_numpy(tables, device, dtype) -> tuple[torch.Tensor, ...]:
-    """NumPy tables (e.g. from ``build_step_tables``) -> contiguous tensors."""
+    """NumPy tables (e.g. from ``build_step_tables``), or tensors, ->
+    contiguous tensors of ``dtype`` on ``device``."""
     dt = torch_dtype(dtype)
     return tuple(
-        torch.as_tensor(np.ascontiguousarray(t), dtype=dt, device=device)
+        t.to(device=device, dtype=dt).contiguous() if isinstance(t, torch.Tensor)
+        else torch.as_tensor(np.ascontiguousarray(t), dtype=dt, device=device)
         for t in tables
     )
 

@@ -1,13 +1,17 @@
-"""Continuous-Galerkin dof numbering on hex meshes (host-side NumPy).
+"""Continuous-Galerkin dof numbering on hex meshes.
 
 A copy of ``wave_fenics_tpu.core.dofmap``: ``StructuredDofGrid`` (the dof
 grid of a structured box, ``[Nx, Ny, Nz]`` with ``Nd = n_cells_d * p + 1``;
 its node lines place probes and label XDMF output) and the general part
-(``GeneralDofMap``, ``build_dofmap``, ``morton_cell_order``), the NumPy
-``np.unique`` route only (the JAX package's own fallback where its native
-library is absent). It replaces the DOLFINx dofmap the reference leans on
-(``V->dofmap()->list()``, common/operators.hpp:56): an explicit
-``dofmap[nc, (p+1)^3]`` built by geometric dedup of the element nodes.
+(``GeneralDofMap``, ``build_dofmap``, ``morton_cell_order``). It replaces
+the DOLFINx dofmap the reference leans on (``V->dofmap()->list()``,
+common/operators.hpp:56): an explicit ``dofmap[nc, (p+1)^3]`` built by
+geometric dedup of the element nodes. ``build_dofmap`` has two routes: the
+NumPy ``np.unique`` route (``device=None``, the JAX package's own fallback
+where its native library is absent, and the oracle), and the tensor route
+on a device, the counterpart of the JAX package's native route
+(``native.node_keys`` and ``native.dedup_dofs``: the hand-written kernels
+on a card, their plain versions on the CPU), which gives the same numbering.
 
 Element-local tensors use axes [c, i, j, k] with i -> x, j -> y, k -> z and
 C-order flattening (z fastest), matching ``geometry.quadrature_points_3d``.
@@ -18,7 +22,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from .. import native
 from .basis import gll_points_weights
 from .geometry import trilinear_tabulate
 from .mesh import HexMesh, StructuredBoxMesh
@@ -86,6 +92,11 @@ class GeneralDofMap:
     #: cell permutation applied before numbering (reorder='morton'); apply
     #: the same order to any per-cell data (mesh.cells[cell_order])
     cell_order: np.ndarray | None = None
+    #: built on a device (``build_dofmap(..., device=...)``): the dofmap
+    #: there, and each dof's quantized coordinate key [ndofs, 3] int64 (the
+    #: key of its first node; the facet weights match facet nodes against it)
+    device_dofmap: torch.Tensor | None = None
+    device_keys: torch.Tensor | None = None
 
     @property
     def ncells(self) -> int:
@@ -113,6 +124,7 @@ def morton_cell_order(mesh: HexMesh, bits: int = 10) -> np.ndarray:
 
 def build_dofmap(
     mesh: HexMesh, p: int, tol: float = 1e-9, reorder: str | None = "appearance",
+    device: torch.device | str | None = None,
 ) -> GeneralDofMap:
     """CG dof numbering by geometric dedup of the trilinear-mapped GLL nodes.
 
@@ -126,6 +138,13 @@ def build_dofmap(
     touch a narrow id range; ``'morton'`` first reorders the cells along a
     Z-order curve (callers then apply ``cell_order`` to per-cell data);
     ``None`` numbers dofs by sorted geometric key.
+
+    ``device=None`` takes the NumPy route. A device takes the tensor route
+    there (``native.node_keys``, ``native.dedup_dofs``; the Morton cell
+    order stays on the host): the same ``dofmap`` and ``ndofs``, and
+    ``dof_coords`` of each dof's first node (the NumPy route keeps its last
+    one; the two may differ in the last bits). It also keeps the dofmap and
+    the dof keys on the device (``device_dofmap``, ``device_keys``).
     """
     cell_order = None
     if reorder == "morton":
@@ -136,9 +155,12 @@ def build_dofmap(
     X, Y, Z = np.meshgrid(nodes, nodes, nodes, indexing="ij")
     ref_pts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=-1)
     phi, _ = trilinear_tabulate(ref_pts)  # [nd, 8]
+    scale = max(np.abs(mesh.points).max(), 1.0)
+    if device is not None:
+        return _build_dofmap_tensors(mesh, p, phi, scale, tol, reorder, cell_order,
+                                     torch.device(device))
     coords = np.matmul(phi, mesh.cell_coords())  # [nc, nd, 3]
 
-    scale = max(np.abs(mesh.points).max(), 1.0)
     # quantize in place: fresh temporaries of this size page-fault at scale
     flat = coords.reshape(-1, 3)
     buf = np.empty_like(flat)
@@ -161,3 +183,30 @@ def build_dofmap(
     dof_coords[dofmap.ravel()] = coords.reshape(-1, 3)
     return GeneralDofMap(dofmap=dofmap, ndofs=ndofs, dof_coords=dof_coords, p=p,
                          cell_order=cell_order)
+
+
+def _build_dofmap_tensors(mesh: HexMesh, p: int, phi: np.ndarray, scale: float,
+                          tol: float, reorder: str | None, cell_order,
+                          device: torch.device) -> GeneralDofMap:
+    """The tensor route of :func:`build_dofmap` on ``device``: the keys of
+    every (cell, node), ids by first appearance (``dedup_dofs``), then for
+    ``reorder=None`` the rank of each dof's key in sorted order."""
+    nc, nd = mesh.ncells, (p + 1) ** 3
+    pts = torch.as_tensor(mesh.points, dtype=torch.float64, device=device)
+    cells = torch.as_tensor(np.asarray(mesh.cells), dtype=torch.int64, device=device)
+    cc = pts[cells].contiguous()  # [nc, 8, 3]
+    phi_t = torch.as_tensor(phi, dtype=torch.float64, device=device)
+    keys, coords = native.node_keys(cc, phi_t, scale, tol)
+    ids, ndofs, first = native.dedup_dofs(keys, return_first=True)
+    dof_keys, dof_coords = keys[first], coords[first]
+    if reorder not in ("morton", "appearance"):
+        # number by sorted key: the rank of each dof's key among the keys
+        _, rank = torch.unique(dof_keys, dim=0, return_inverse=True)
+        order = torch.empty_like(rank)
+        order[rank] = torch.arange(ndofs, device=device)
+        ids = rank[ids.long()].to(torch.int32)
+        dof_keys, dof_coords = dof_keys[order], dof_coords[order]
+    dofmap = ids.reshape(nc, nd)
+    return GeneralDofMap(dofmap=dofmap.cpu().numpy(), ndofs=ndofs,
+                         dof_coords=dof_coords.cpu().numpy(), p=p, cell_order=cell_order,
+                         device_dofmap=dofmap, device_keys=dof_keys)

@@ -1,10 +1,9 @@
 """Geometric factors: Jacobians, |det J| w and G = J^-1 J^-T |det J| w
 (host-side NumPy, float64, once per mesh).
 
-A copy of ``wave_fenics_tpu.core.geometry``, the NumPy route only (the JAX
-package's own fallback where its native library is absent). It re-derives
-the reference's host precompute layer as batched einsums over
-[ncells, nq]:
+A copy of ``wave_fenics_tpu.core.geometry``. Its NumPy route (the JAX
+package's own fallback where its native library is absent) re-derives the
+reference's host precompute layer as batched einsums over [ncells, nq]:
 
 - ``precompute_geometric_data``      (common/precomputation.hpp:18-110)
 - ``compute_jacobian``               (common/precompute.hpp:49-96)
@@ -20,12 +19,19 @@ Conventions:
 On an axis-aligned uniform box J = diag(hx, hy, hz) in every cell and at
 every point, so |det J| w and G collapse to closed form and G is diagonal
 (``structured_geometric_factors``).
+
+``precompute_geometric_data(..., device=...)`` takes the tensor route
+instead, the counterpart of the JAX package's native route: the cells go to
+the device and ``native.geometry_factors`` computes G and |det J| w there
+(the hand-written kernel on a card, its plain version on the CPU).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .. import native
 from .basis import Tab1D, clamp_table, tabulate_1d
 from .mesh import HexMesh, StructuredBoxMesh
 
@@ -101,14 +107,22 @@ def compute_geometrical_factor(
 
 def precompute_geometric_data(
     mesh: HexMesh, p: int, q: int | None = None, rule: str = "gll",
-    clamp: bool = True,
-) -> tuple[np.ndarray, np.ndarray]:
+    clamp: bool = True, device: torch.device | str | None = None,
+):
     """(G[nc, nq, 3, 3], detJw[nc, nq]) of a general hex mesh, float64,
     with the +-1/0 clamping of G (precomputation.hpp:105-107) unless
-    ``clamp`` is False."""
+    ``clamp`` is False. ``device=None``: NumPy arrays (the oracle); a
+    device: tensors there, from ``native.geometry_factors``."""
     tab = tabulate_1d(p, q, rule)
     w3 = quadrature_weights_3d(tab)
     _, dphi = trilinear_tabulate(quadrature_points_3d(tab))
+    if device is not None:
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                                   device=device)
+
+        return native.geometry_factors(dev(mesh.cell_coords()), dev(dphi), dev(w3),
+                                       clamp)
     J = compute_jacobian(mesh.cell_coords(), dphi)
     detJ = compute_jacobian_determinant(J)
     detJw = np.abs(detJ) * w3[None, :]

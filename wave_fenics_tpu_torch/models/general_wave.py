@@ -17,6 +17,13 @@ diagonal, so each facet contributes w_i w_j |J_s(x_ij)| to the dof at its
 (i, j) facet node, |J_s| = |dx/du x dx/dv| the surface element. Facet nodes
 are matched to volume dofs by the dofmap's quantized geometric key (exact
 for trilinear cells). Time is a Python float, as in ``LinearWave``.
+
+The model's set-up runs on its ``device``: the dofmap, the geometry
+factors, the affine test, the lumped mass and the facet weights
+(``build_dofmap``, ``GeneralOperators`` and ``facet_lumped_weights`` with
+``device=``: the hand-written set-up kernels of ``native`` on a card, their
+plain versions on the CPU). The NumPy route of each (``device=None``) stays
+as the oracle.
 """
 
 from __future__ import annotations
@@ -24,11 +31,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import numpy_dtype
+from .. import native
 from ..core.basis import gll_points_weights, tabulate_1d
 from ..core.dofmap import GeneralDofMap, build_dofmap
 from ..core.io import QUAD_VTK_TO_BASIX, read_xdmf, read_xdmf_meshtags
 from ..core.mesh import HEX_FACES, HexMesh
+from ..ops import gather_scatter as gs
 from ..ops.operators import GeneralOperators
 from ..solvers.leapfrog import leapfrog_solve_n, leapfrog_solve_n_recording
 from ..solvers.rk4 import rk4_solve_n, rk4_solve_n_recording
@@ -36,6 +44,10 @@ from .linear_wave import WavePhysics
 
 __all__ = ["GeneralLinearWave", "facet_lumped_weights", "check_exterior_facets",
            "read_mesh_and_tags", "from_xdmf", "probe_dofs", "solve_recording"]
+
+
+_UNMATCHED_FACET = ("facet node does not coincide with a volume dof: facet vertex "
+                    "ordering or mesh/tag mismatch")
 
 
 def facet_lumped_weights(
@@ -46,7 +58,8 @@ def facet_lumped_weights(
     tol: float = 1e-9,
     rule: str = "gll",
     qdeg: int | None = None,
-) -> np.ndarray:
+    device: torch.device | str | None = None,
+):
     """Lumped facet-mass vector W[ndofs]: over the given facets [n, 4] (basix
     quad vertex order), W_i = the integral of phi_i |J_s| over the facet,
     accumulated at the matching volume dofs.
@@ -55,7 +68,16 @@ def facet_lumped_weights(
     W at facet node (i, j) is w_i w_j |J_s(x_ij)|. ``rule='gauss'``: |J_s|
     at tensor Gauss points, row-sum lumped, W[i, j] = sum_ab qw_a qw_b
     B[a, i] B[b, j] |J_s(u_a, v_b)| (the companion of the Gauss-rule volume
-    operators)."""
+    operators).
+
+    ``device=None``: NumPy, the facet keys matched by a sort and a search.
+    A device: a float64 tensor there, the JAX package's native route: one
+    ``native.dedup_dofs`` over [the dof keys; the facet keys], where an id
+    >= ndofs is a facet node that matches no dof; ``dofs`` must have been
+    built on that device (its ``device_keys``)."""
+    if device is not None:
+        return _facet_weights_tensors(mesh, dofs, facets, p, tol, rule, qdeg,
+                                      torch.device(device))
     nodes, w1d = gll_points_weights(p + 1)
     U, V = np.meshgrid(nodes, nodes, indexing="ij")
     u = U.ravel()
@@ -99,11 +121,66 @@ def facet_lumped_weights(
     ok = (pos < len(sk)) & (sk[np.minimum(pos, len(sk) - 1)] == fv)
     ids = order[np.minimum(pos, len(sk) - 1)]
     if not ok.all():
-        raise ValueError("facet node does not coincide with a volume dof: facet "
-                         "vertex ordering or mesh/tag mismatch")
+        raise ValueError(_UNMATCHED_FACET)
     W = np.zeros(dofs.ndofs)
     np.add.at(W, ids, Wf.ravel())
     return W
+
+
+def _facet_weights_tensors(mesh: HexMesh, dofs: GeneralDofMap, facets, p: int,
+                           tol: float, rule: str, qdeg: int | None,
+                           device: torch.device) -> torch.Tensor:
+    """The device route of :func:`facet_lumped_weights`: the NumPy route's
+    arithmetic in torch on ``device``, the facet nodes matched by one dedup
+    over [dof keys; facet keys], the weights added in the NumPy route's
+    order (``scatter_ordered``)."""
+    keys = dofs.device_keys
+    if keys is None or keys.device.type != device.type:
+        raise ValueError(f"facet weights on {device} match facet nodes against the "
+                         "keys of a dofmap built there (build_dofmap(..., device=...))")
+    dev = keys.device
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=dev)
+
+    nodes, w1d = gll_points_weights(p + 1)
+    U, V = np.meshgrid(nodes, nodes, indexing="ij")
+    u, v = t(U.ravel())[None, :, None], t(V.ravel())[None, :, None]
+    q = max(np.abs(mesh.points).max(), 1.0) * tol
+    fa = torch.as_tensor(np.asarray(facets, dtype=np.int64), device=dev)
+    fc = t(mesh.points)[fa]  # [nf, 4, 3]
+    v0, v1, v2, v3 = (fc[:, i, None, :] for i in range(4))
+
+    def surf(uu, vv):
+        """Bilinear facet map and surface element at parameter points."""
+        x = ((1 - uu) * (1 - vv) * v0 + uu * (1 - vv) * v1
+             + (1 - uu) * vv * v2 + uu * vv * v3)  # [nf, npt, 3]
+        xu = (1 - vv) * (v1 - v0) + vv * (v3 - v2)
+        xv = (1 - uu) * (v2 - v0) + uu * (v3 - v1)
+        cr = torch.stack([xu[..., 1] * xv[..., 2] - xu[..., 2] * xv[..., 1],
+                          xu[..., 2] * xv[..., 0] - xu[..., 0] * xv[..., 2],
+                          xu[..., 0] * xv[..., 1] - xu[..., 1] * xv[..., 0]], dim=-1)
+        return x, torch.sqrt((cr * cr).sum(-1))
+
+    x, Js = surf(u, v)
+    nf = fa.shape[0]
+    if rule == "gll":
+        Wf = t(np.outer(w1d, w1d).ravel())[None, :] * Js  # [nf, nd2]
+    elif rule == "gauss":
+        tab = tabulate_1d(p, qdeg, "gauss")
+        Uq, Vq = np.meshgrid(tab.qpts, tab.qpts, indexing="ij")
+        _, Jg = surf(t(Uq.ravel())[None, :, None], t(Vq.ravel())[None, :, None])
+        B, qw = t(tab.B), t(tab.qwts)
+        Wf = torch.einsum("ai,bj,a,b,fab->fij", B, B, qw, qw,
+                          Jg.reshape(nf, tab.nq, tab.nq)).reshape(nf, -1)
+    else:
+        raise ValueError(f"unknown quadrature rule {rule!r}")
+    fkeys = torch.round(x.reshape(-1, 3) / q).to(torch.int64)
+    ids, _ = native.dedup_dofs(torch.cat([keys, fkeys]))
+    ids = ids[keys.shape[0]:]
+    if bool((ids >= dofs.ndofs).any()):
+        raise ValueError(_UNMATCHED_FACET)
+    return gs.scatter_ordered(Wf, ids, dofs.ndofs)
 
 
 class GeneralLinearWave(WavePhysics):
@@ -151,31 +228,28 @@ class GeneralLinearWave(WavePhysics):
         self.c0_cells = c0_cells
         self.quadrature = quadrature
         self.quadrature_degree = quadrature_degree
-        self.dofs = build_dofmap(mesh, p)
+        dev = torch.device(device)
+        self.dofs = build_dofmap(mesh, p, device=dev)
         coeff = None if c0_cells is None else (np.asarray(c0_cells) / c0) ** 2
         self.ops = GeneralOperators(mesh, self.dofs, dtype=dtype, coeff_cells=coeff,
-                                    rule=quadrature, q=quadrature_degree)
-        npdt = numpy_dtype(dtype)
-        m = self.ops.lumped_mass
-
-        def buf(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
-        self.register_buffer("m", buf(m))
-        self.register_buffer("inv_m", buf((1.0 / m).astype(npdt)))
-        self.register_buffer("W1", buf(self._tag_weights(source_tag).astype(npdt)))
-        self.register_buffer("W2", buf(self._tag_weights(abc_tag).astype(npdt)))
+                                    rule=quadrature, q=quadrature_degree, device=dev)
+        m = self.ops.lumped_mass_on(dev)
+        self.register_buffer("m", m)
+        self.register_buffer("inv_m", 1.0 / m)
+        self.register_buffer("W1", self._tag_weights(source_tag, dev).to(dtype))
+        self.register_buffer("W2", self._tag_weights(abc_tag, dev).to(dtype))
 
     @property
     def ndofs(self) -> int:
         return self.dofs.ndofs
 
-    def _tag_weights(self, tag: int) -> np.ndarray:
+    def _tag_weights(self, tag: int, device: torch.device) -> torch.Tensor:
         facets = self.facet_tags.get(tag)
         if facets is None or len(facets) == 0:
-            return np.zeros(self.ndofs)
+            return torch.zeros(self.ndofs, dtype=torch.float64, device=device)
         return facet_lumped_weights(self.mesh, self.dofs, facets, self.p,
-                                    rule=self.quadrature, qdeg=self.quadrature_degree)
+                                    rule=self.quadrature, qdeg=self.quadrature_degree,
+                                    device=device)
 
     def zero_state(self) -> tuple[torch.Tensor, torch.Tensor]:
         z = torch.zeros(self.ndofs, dtype=self.dtype, device=self.device)

@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["KernelLibrary", "library", "load", "launch", "launcher", "check_operands",
-           "check_index_operands", "check_no_alias", "nvcc"]
+           "check_index_operands", "check_typed_operands", "check_no_alias", "nvcc"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_P, _I, _D, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_int64
 # cvx, sx, fx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz
 _STENCIL = [_P] * 5 + [_I] * 9
 _SIGNATURES = {
@@ -79,6 +79,16 @@ _SIGNATURES = {
     # mode, affine, m, nq, nc, ndofs, cpb, stride, smem, coeff, stream
     # (kernel K)
     "wave_general_apply": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 9 + [_D, _P],
+}
+#: launchers with one type only (no _f32/_f64 pair): the set-up kernels of
+#: csrc/setup_kernels.cu (native.py), float64 coordinates and int64 keys
+_SETUP_SIGNATURES = {
+    # X, dphi, w, nc, nq, qt, cb, clamp, G, detJw, singular, smem, stream
+    "wave_geometry_factors": [_P] * 3 + [_L] + [_I] * 4 + [_P] * 3 + [_I, _P],
+    # X, phi, nc, nd, inv, keys, coords, stream
+    "wave_node_keys": [_P, _P, _L, _I, _D, _P, _P, _P],
+    # keys, n, table, mask, rep, overflow, stream
+    "wave_dedup_hash": [_P, _L, _P, ctypes.c_uint64, _P, _P, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -173,6 +183,10 @@ def load(csrc: Path) -> KernelLibrary:
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    for name, argtypes in _SETUP_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib=lib, path=so, build_log=text, build_seconds=seconds)
@@ -197,6 +211,15 @@ def check_operands(device: torch.device, dtype: torch.dtype, **operands) -> None
     _check_tensors(device, dtype, operands)
 
 
+def check_typed_operands(device: torch.device, dtype: torch.dtype, **operands) -> None:
+    """Raise unless every ``name=(tensor, shape)`` is a contiguous tensor of
+    exactly ``dtype`` and ``shape`` on the CUDA ``device`` (the one-type
+    launchers of ``_SETUP_SIGNATURES``)."""
+    if device.type != "cuda":
+        raise ValueError(f"CUDA kernel called with a tensor on {device}")
+    _check_tensors(device, dtype, operands)
+
+
 def check_index_operands(device: torch.device, **operands) -> None:
     """Raise unless every ``name=(tensor, shape)`` is a contiguous int32
     tensor of ``shape`` on ``device`` (index tables)."""
@@ -217,19 +240,20 @@ def _check_tensors(device, dtype, operands) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    """Call launcher ``name`` (f32/f64 by ``dtype``) on ``device``'s current
+def launch(name: str, dtype: torch.dtype | None, device: torch.device, *args) -> None:
+    """Call launcher ``name`` (f32/f64 by ``dtype``; ``None`` for a launcher
+    of one type only, ``_SETUP_SIGNATURES``) on ``device``'s current
     stream; tensors among ``args`` pass as their data pointers."""
     launcher(library(), name, dtype, device, *args)()
 
 
-def launcher(kl: KernelLibrary, name: str, dtype: torch.dtype,
+def launcher(kl: KernelLibrary, name: str, dtype: torch.dtype | None,
              device: torch.device, *args):
     """A callable that launches ``name`` of library ``kl`` on ``args`` as
     :func:`launch` does, with the arguments and the stream converted once:
     it costs the host little more than the ctypes call, so back-to-back
     calls time the kernel itself."""
-    fn = getattr(kl.lib, f"{name}_{_SUFFIX[dtype]}")
+    fn = getattr(kl.lib, name if dtype is None else f"{name}_{_SUFFIX[dtype]}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
 

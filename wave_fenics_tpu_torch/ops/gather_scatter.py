@@ -13,7 +13,9 @@ Port of ``wave_fenics_tpu.ops.gather_scatter``:
   so that no two cells of one colour share a dof, and
   :func:`scatter_coloured` adds the element tensors into a zero vector one
   colour after another, as kernel K does (``ops.general``), so the
-  scatter-add needs no atomics and its result does not depend on the run.
+  scatter-add needs no atomics and its result does not depend on the run;
+  :func:`scatter_ordered` adds any indexed values in their flat order
+  (``np.add.at``'s order), the set-up's deterministic scatter.
   The JAX package's multiplicity buckets (``build_ell_scatter``) are a TPU
   layout of the scatter and are not ported.
 """
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 __all__ = ["gather_1d", "scatter_1d", "gather_grid", "scatter_grid",
-           "gather_indexed", "scatter_indexed", "colour_cells", "scatter_coloured"]
+           "gather_indexed", "scatter_indexed", "scatter_ordered", "colour_cells",
+           "scatter_coloured"]
 
 
 def _along(axis: int, s: slice) -> tuple:
@@ -108,6 +111,27 @@ def scatter_indexed(ye: torch.Tensor, dofmap: torch.Tensor, ndofs: int) -> torch
     """y[dofmap[c, n]] += ye[c, n] (``index_add_``: on a card its atomics
     add in no fixed order)."""
     return ye.new_zeros(ndofs).index_add_(0, dofmap.reshape(-1).long(), ye.reshape(-1))
+
+
+def scatter_ordered(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """y = 0, y[ids[i]] += vals[i] in the order of i (``np.add.at``'s):
+    each sum is ((0 + v_first) + v_next) + ..., the same bit for bit on
+    every run and device. A stable sort groups the values by id; the r-th
+    value of every group is added in pass r, an ``index_add_`` whose ids
+    are distinct, so no two adds meet in one place."""
+    ids, vals = ids.reshape(-1).long(), vals.reshape(-1)
+    s, order = torch.sort(ids, stable=True)
+    k = s.numel()
+    pos = torch.arange(k, device=ids.device)
+    start = torch.ones(k, dtype=torch.bool, device=ids.device)
+    start[1:] = s[1:] != s[:-1]
+    rank = pos - torch.cummax(torch.where(start, pos, 0), 0).values
+    v = vals[order]
+    y = vals.new_zeros(n)
+    for r in range(int(rank.max()) + 1 if k else 0):
+        sel = rank == r
+        y.index_add_(0, s[sel], v[sel])
+    return y
 
 
 def colour_cells(dofmap: np.ndarray, m: int) -> tuple[np.ndarray, np.ndarray]:

@@ -195,6 +195,27 @@ class StructuredOperators:
         return self.scatter(ye)
 
 
+def _affine_factors(G, detJw, w3: np.ndarray) -> dict | None:
+    """{"g6": [6, nc], "dJ": [nc], "w": w3} where every cell is affine
+    (a parallelepiped: G[c, q] = g6[c] w_q and detJw[c, q] = |det J[c]| w_q
+    to 1e-12 of the largest), else None; NumPy arrays or tensors, as G."""
+    if isinstance(G, torch.Tensor):
+        stack, w3 = torch.stack, torch.as_tensor(w3, device=G.device)
+    else:
+        stack = np.stack
+    nc = G.shape[0]
+    Gs = stack([G[:, :, a, b] for a, b in SYM]).reshape(6, nc, -1)
+    dJw = detJw.reshape(nc, -1)
+    g6 = Gs[:, :, :1] / w3[0]
+    dJ = dJw[:, :1] / w3[0]
+    gs_scale = max(float(abs(Gs).max()), 1e-300)
+    dj_scale = max(float(abs(detJw).max()), 1e-300)
+    if (float(abs(Gs - g6 * w3).max()) <= 1e-12 * gs_scale
+            and float(abs(dJw - dJ * w3).max()) <= 1e-12 * dj_scale):
+        return {"g6": g6[..., 0], "dJ": dJ[:, 0], "w": w3}
+    return None
+
+
 @dataclass(frozen=True)
 class GeneralOperators:
     """Matrix-free operators over an explicit dofmap (imported hex meshes).
@@ -203,8 +224,14 @@ class GeneralOperators:
     B^T D B pipeline of demo/gpu_operator) and full 3x3 geometric factors.
     Vectors are flat ``[ndofs]`` tensors. ``coeff_cells`` (optional, shape
     [ncells]) is a per-cell stiffness coefficient, folded into G at setup.
-    Host tables are built once; their device copies once per (table,
-    device).
+
+    ``device=None``: the tables are built on the host in NumPy (the oracle)
+    and copied to a device once per (table, device). A device: G, |det J| w,
+    the coefficient fold, the affine test and the lumped mass are computed
+    there (``precompute_geometric_data(..., device=...)``: the hand-written
+    kernel on a card), K's tables are made there from them, and the NumPy
+    forms that host code reads (``lumped_mass``) are made on demand only. A
+    dofmap built on the same device lends its device copy.
     """
 
     mesh: HexMesh
@@ -213,42 +240,50 @@ class GeneralOperators:
     q: int | None = None
     rule: str = "gll"
     coeff_cells: object = None
+    device: torch.device | str | None = None
 
     def __post_init__(self):
         p = self.dofs.p
         tab = tabulate_1d(p, self.q, self.rule)
-        G, detJw = geometry.precompute_geometric_data(self.mesh, p, self.q, self.rule)
+        G, detJw = geometry.precompute_geometric_data(self.mesh, p, self.q, self.rule,
+                                                      device=self.device)
         if self.coeff_cells is not None:
-            G = G * np.asarray(self.coeff_cells, dtype=G.dtype)[:, None, None, None]
+            coeff = np.asarray(self.coeff_cells, dtype=np.float64)
+            if isinstance(G, torch.Tensor):
+                coeff = torch.as_tensor(coeff, device=G.device)
+            G = G * coeff[:, None, None, None]
         nq, nc = tab.nq, self.mesh.ncells
         npdt = numpy_dtype(self.dtype)
         setattr_ = object.__setattr__
         setattr_(self, "_tab", tab)
         setattr_(self, "_B", tab.B.astype(npdt))
         setattr_(self, "_D", tab.D.astype(npdt))
-        setattr_(self, "_detJw", detJw.reshape(nc, nq, nq, nq).astype(npdt))
-        # affine (parallelepiped) cells, detected on the float64 factors:
-        # G[c, q] = g6[c] w_q and detJw[c, q] = |det J[c]| w_q exactly
-        affine = None
-        if tab.collocated:
-            w3 = geometry.quadrature_weights_3d(tab)
-            Gs = np.stack([G[:, :, a, b] for a, b in SYM]).reshape(6, nc, -1)
-            g6 = Gs[:, :, :1] / w3[0]
-            dJ = detJw.reshape(nc, -1)[:, :1] / w3[0]
-            gs_scale = max(float(np.abs(Gs).max()), 1e-300)
-            dj_scale = max(float(np.abs(detJw).max()), 1e-300)
-            if (np.abs(Gs - g6 * w3).max() <= 1e-12 * gs_scale
-                    and np.abs(detJw.reshape(nc, -1) - dJ * w3).max() <= 1e-12 * dj_scale):
-                affine = {"g6": g6[..., 0], "dJ": dJ[:, 0], "w": w3}
+        # affine (parallelepiped) cells, detected on the float64 factors
+        affine = (_affine_factors(G, detJw, geometry.quadrature_weights_3d(tab))
+                  if tab.collocated else None)
         setattr_(self, "_affine", affine)
-        setattr_(self, "_G", G.reshape(nc, nq, nq, nq, 3, 3).astype(npdt))
+        if isinstance(G, torch.Tensor):
+            G, detJw = G.to(self.dtype), detJw.to(self.dtype)
+        else:
+            G, detJw = G.astype(npdt), detJw.astype(npdt)
+        setattr_(self, "_detJw", detJw.reshape(nc, nq, nq, nq))
+        setattr_(self, "_G", G.reshape(nc, nq, nq, nq, 3, 3))
         setattr_(self, "_dofmap", self.dofs.dofmap)
         setattr_(self, "_on_device", {})
+        if self.device is not None:
+            dev = G.device
+            dm = self.dofs.device_dofmap
+            if dm is not None and dm.device == dev:
+                self._on_device[("dofmap", dev)] = (dm,)
+            self._on_device[("lumped_mass", dev)] = (self._lumped_mass_tensor(dev),)
 
     def _tensors(self, key, device: torch.device, make, dtype=None) -> tuple[torch.Tensor, ...]:
-        """The tables ``make()`` (NumPy) as tensors of ``dtype`` (default:
-        the operator's) on ``device``, built and copied once per (key,
-        device)."""
+        """The tables ``make()`` (NumPy, or tensors of the device route) as
+        tensors of ``dtype`` (default: the operator's) on ``device``, built
+        once per (key, device)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         k = (key, device)
         if k not in self._on_device:
             self._on_device[k] = tables_from_numpy(make(), device, dtype or self.dtype)
@@ -291,7 +326,8 @@ class GeneralOperators:
             if mode.startswith("mass"):
                 return (self._detJw.reshape(1, nc, -1),)
             G = self._G.reshape(nc, -1, 3, 3)
-            return (np.stack([G[:, :, a, b] for a, b in SYM]),)
+            stack = torch.stack if isinstance(G, torch.Tensor) else np.stack
+            return (stack([G[:, :, a, b] for a, b in SYM]),)
 
         geo = self._tensors(("geo", mode), device, make)
         return GeneralTables(mode, dofmap, cells, self._colour_starts, self.ndofs, B, D,
@@ -332,8 +368,7 @@ class GeneralOperators:
         assembled diagonal."""
         if not self._tab.collocated:
             raise ValueError("spectral_mass needs collocated (GLL) quadrature")
-        (m,) = self._tensors("lumped_mass", x.device, lambda: (self.lumped_mass,))
-        return m * x
+        return self.lumped_mass_on(x.device) * x
 
     def spectral_mass_roundtrip(self, x: torch.Tensor) -> torch.Tensor:
         """The reference-shaped gather -> detJw -> scatter path
@@ -345,7 +380,10 @@ class GeneralOperators:
 
     @cached_property
     def lumped_mass(self) -> np.ndarray:
-        """m = M @ 1 (NumPy, host, once)."""
+        """m = M @ 1 (NumPy; on the device route, copied from the device on
+        first use)."""
+        if self.device is not None:
+            return self.lumped_mass_on(self._G.device).cpu().numpy()
         m1 = self.dofs.p + 1
         nc = self.mesh.ncells
         ones = np.ones((nc, m1, m1, m1), dtype=numpy_dtype(self.dtype))
@@ -358,6 +396,24 @@ class GeneralOperators:
         out = np.zeros((self.ndofs,), dtype=numpy_dtype(self.dtype))
         np.add.at(out, self._dofmap.ravel(), ye.reshape(nc, -1).ravel())
         return out
+
+    def lumped_mass_on(self, device) -> torch.Tensor:
+        """m = M @ 1 as a tensor on ``device`` (on the device route, the
+        one computed there)."""
+        (m,) = self._tensors("lumped_mass", device, lambda: (self.lumped_mass,))
+        return m
+
+    def _lumped_mass_tensor(self, device: torch.device) -> torch.Tensor:
+        """m = M @ 1 on ``device`` from the device route's detJw: the
+        per-element B^T diag(detJw) B 1, added in the NumPy route's order
+        (``scatter_ordered``), so two builds agree bit for bit."""
+        m1 = self.dofs.p + 1
+        nc = self.mesh.ncells
+        (B,) = tables_from_numpy((self._B,), device, self.dtype)
+        ones = torch.ones((nc, m1, m1, m1), dtype=self.dtype, device=device)
+        ye = ek.mass_element(ones, B, self._detJw)
+        (dofmap,) = self._tensors("dofmap", device, lambda: (self._dofmap,), torch.int32)
+        return gs.scatter_ordered(ye, dofmap, self.ndofs)
 
     def _coeff(self, x: torch.Tensor, c0):
         """-c0^2: a float for kernel K, a 0-d tensor for the plain versions."""
