@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (numbered in the order they were added; 12 and 13 run after 6, 14
-after 8, 15 inside 11, after P9, on the P8 model, 16 inside 10); any
+and 17 after 8, 15 inside 11, after P9, on the P8 model, 16 inside 10); any
 failure raises, so
 the script exits non-zero and never prints its last line:
 
@@ -163,10 +163,41 @@ the script exits non-zero and never prints its last line:
     P8 model's G, m, W1 and W2 bit for bit. P10, P11, P16 and P17 check
     their set-up launches.
 
+17. the distributed structured box (``parallel/``, P20; every block on
+    this card, so the numbers are the one-card cost of the exchange and of
+    the per-block launches, not scaling): f64 at (8,4,4) cells, p=4, 12
+    steps, each sharded path against the one-device solve of the same path
+    (the value-halo step on A, leapfrog on H and I at (2,2,1); the
+    per-stage halo-add on B at (2,2,1) and on E at (2,1,1);
+    ``ShardedLinearWave`` on F), limit 1e-12 relative, the shared interface
+    planes bitwise equal (after a refresh on the value-halo paths); one call
+    of A, H and I on each block of their value-halo layouts (halo 3p, 2p,
+    3p) at the P1 width, (2,2,1), f32, from output and scratch buffers full
+    of NaN: the interior against the plain version within 1e-5, the outputs
+    exactly 0 outside their ring, no NaN; at the P1 width (f32, tile 48,
+    100 steps) ``solve_step_n`` at (2,1,1) and (2,2,1), ``solve_lf_n`` and
+    ``solve_lf2_n`` at (2,2,1), ``solve_n`` (B) at (2,1,1), and at P12's
+    p = 10 ``solve_n`` on E at (2,1,1) for 20 steps: B and E first called
+    on each block at its shape and on its tables, from NaN, against their
+    plain versions within 1e-5 (the padding exactly 0), then each kernel
+    launched once per block per launch of a step and no other, the global
+    grid within 1e-4 of the one-device solve, the interface planes bitwise
+    equal; ms/step beside the one-device path's, the exchange's share of a
+    step (CUDA events around every slab swap inside the timed solve: the
+    value-halo refresh, or the halo-add's copies) and the launches per
+    step; ``ShardedLinearWave`` (F) at (2,2,1), F on each block against its
+    plain version within 1e-5, then 10 steps within 1e-4 of
+    ``LinearWave``, with its exchange share; and the app's ``--ndev 4`` at the P1 configuration, RK4
+    (A: 4 x (1,489 + 1) x 4 launches) and leapfrog (H: 2 x (2,098 + 1) x 4),
+    with the JAX app's ``solver_path`` strings, |u| within 1e-4 of P1's and
+    P2's.
+
 It prints one JSON line of per-kernel results ("kernels": all eleven
 kernels, each with the launches of its path's run, J's step boundary
 alone, and the three set-up kernels with P16's launches; kernel B's path
-is the f1-path RK4 check; K's and F's include phase 15's) and, last, one JSON line ``{"ok": true, "device":
+is the f1-path RK4 check; K's and F's include phase 15's; A, B, E, F, H
+and I add phase 17's sharded runs, listed under ``sharded_launches``) and,
+last, one JSON line ``{"ok": true, "device":
 {...}}``. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
@@ -457,6 +488,7 @@ def main() -> None:
     from wave_fenics_tpu_torch.ops.operators import GeneralOperators, StructuredOperators
     from wave_fenics_tpu_torch.ops.separable import separable_mass_tables
     from wave_fenics_tpu_torch.solvers.cg import cg
+    from wave_fenics_tpu_torch.solvers.rk4 import rk4_solve_n
     from wave_fenics_tpu_torch.utils.config import SimulationConfig
     from wave_fenics_tpu_torch.utils.timing import Timer, timeit
 
@@ -1452,6 +1484,329 @@ def main() -> None:
             check(rel <= 1e-5, f"P15 call {call} against the unchunked run")
     del p15, ur, vr
 
+    # -- 17. the distributed structured box (parallel/) ---------------------
+    # P20: the sharded structured run at the P1 width (and at P12's p = 10
+    # for kernel E), every block on this card; each path counted alone
+    from wave_fenics_tpu_torch.parallel.sharded_padded import ShardedPaddedWave
+    from wave_fenics_tpu_torch.parallel.sharded_wave import ShardedLinearWave
+
+    def x_neighbours(sw):
+        """(lower, upper) block pairs along x and along y."""
+        out = []
+        for b in range(sw.mesh.nblocks):
+            for axis in (0, 1):
+                nb = sw.mesh.neighbour(b, axis, +1)
+                if nb is not None:
+                    out.append((axis, b, nb))
+        return out
+
+    def planes_bitwise(sw, v, lay, label):
+        """Both copies of every shared x and y plane bitwise equal."""
+        inter = lay.interior
+        for axis, b, nb in x_neighbours(sw):
+            lo = v[b][inter].select(axis, -1)
+            hi = v[nb][inter].select(axis, 0)
+            check(torch.equal(lo, hi), f"{label}: blocks {b} and {nb} hold one "
+                  f"shared plane along axis {axis}")
+
+    def sharded_solvers(sw, pm, kind):
+        lay = sw.layout if kind == "n" else sw.halo_layout(kind)
+        solve = {"n": sw.solve_n, "step": sw.solve_step_n, "lf": sw.solve_lf_n,
+                 "lf2": sw.solve_lf2_n}[kind]
+        ref = {"n": pm.solve_n, "step": pm.solve_step_n, "lf": pm.solve_lf_n,
+               "lf2": pm.solve_lf2_n}[kind]
+        return lay, solve, ref
+
+    phase("P20 sharded solves, f64 at (8,4,4) cells against one device")
+    for kind, parts, kernel in (("step", (2, 2, 1), "flat"), ("lf", (2, 2, 1), "flat"),
+                                ("lf2", (2, 2, 1), "flat"), ("n", (2, 2, 1), "flat"),
+                                ("n", (2, 1, 1), "3d")):
+        m64 = LinearWave(box_mesh((8, 4, 4), (0.01, 0.005, 0.005),
+                                  facet_tags=FacetTags({1: (0,), 2: (1,)})),
+                         p=4, dtype=torch.float64, device=dev)
+        sw = ShardedPaddedWave(m64, parts, kernel=kernel)
+        pm = PaddedLinearWave(m64, tile_x=16, kernel=kernel)
+        lay, solve, ref = sharded_solvers(sw, pm, kind)
+        u, v = solve(0.0, 1e-9, 12)[:2]
+        ur, vr = ref(0.0, 1e-9, 12)[:2]
+        _, rel = state_err(torch.as_tensor(sw.to_global(u, lay)),
+                           torch.as_tensor(sw.to_global(v, lay)),
+                           pm.to_grid(ur).cpu(), pm.to_grid(vr).cpu())
+        print(f"P20 f64 {kind} {parts} {kernel}: 12 steps against one device: relative "
+              f"error {rel:.3e} (limit 1e-12)")
+        check(rel <= 1e-12, f"P20 f64 {kind} {parts} against one device")
+        if kind != "n":
+            sw.refresh(v, lay)
+        planes_bitwise(sw, v, lay, f"P20 f64 {kind} {parts}")
+    msw = [ShardedLinearWave(LinearWave(box_mesh((8, 4, 4), (0.01, 0.005, 0.005),
+                                                 facet_tags=FacetTags({1: (0,), 2: (1,)})),
+                                        p=4, dtype=torch.float64, device=dev), (2, 2, 1))]
+    u, v, _ = msw[0].solve_n(0.0, 1e-9, 12)
+    ur, vr = rk4_solve_n(msw[0].model.f0, msw[0].model.f1, *msw[0].model.zero_state(),
+                         0.0, 1e-9, 12)
+    _, rel = state_err(torch.as_tensor(msw[0].to_global(u)),
+                       torch.as_tensor(msw[0].to_global(v)), ur.cpu(), vr.cpu())
+    print(f"P20 f64 ShardedLinearWave (2,2,1), kernel F: relative error {rel:.3e} "
+          "(limit 1e-12)")
+    check(rel <= 1e-12, "P20 f64 ShardedLinearWave against LinearWave.solve")
+    del msw
+
+    phase(f"P20 halo-layout launches of A, H and I at the P1 width ({NDOFS:,} dofs, "
+          "(2,2,1) blocks) against their plain versions, from NaN")
+    case20, pm20 = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda")
+    m20 = case20.model
+    sw20 = ShardedPaddedWave(m20, (2, 2, 1), tile_x=48)
+    print("P20 blocks on devices: " + ", ".join(
+        f"{sw20.mesh.coords(b)} -> {d}" for b, d in enumerate(sw20.mesh.devices)))
+    grid20 = m20.ops.grid_shape
+    rng20 = np.random.default_rng(20)
+    g20 = [rng20.standard_normal(grid20), 1e3 * rng20.standard_normal(grid20)]
+    halo_err = {}
+    for kind, nfields, rings in (("step", 5, (0, 0)), ("lf", 3, (4, 0)),
+                                 ("lf2", 5, (4, 0))):
+        lay = sw20.halo_layout(kind)
+        u0 = sw20.refresh(sw20.from_global(g20[0], lay), lay)
+        v0 = sw20.refresh(sw20.from_global(g20[1], lay), lay)
+        worst = 0.0
+        for b, (tables, st, src_x, abc_x) in enumerate(sw20._halo_tables(kind)):
+            nan = [torch.full_like(u0[b], float("nan")) for _ in range(nfields)]
+            c0 = m20.c0
+            if kind == "step":
+                gs = (1.0, 0.7, 0.4, 0.1)
+                uk, vk = rk4step.rk4_step_lean(u0[b], v0[b], case20.dt, gs, lay, c0,
+                                               tables, st, src_x, abc_x,
+                                               out=tuple(nan[:2]), scratch=tuple(nan[2:]))
+                up, vp = rk4step.rk4_step_lean_plain(u0[b], v0[b], case20.dt, gs, lay,
+                                                     c0, tables)
+            elif kind == "lf":
+                uk, vk = lfstep.lf_step(u0[b], v0[b], case20.dt, 1.0, 0.6, lay, c0,
+                                        tables, st, src_x, abc_x, out=tuple(nan[:2]),
+                                        scratch=nan[2])
+                up, vp = lfstep.lf_step_plain(u0[b], v0[b], case20.dt, 1.0, 0.6, lay,
+                                              c0, tables)
+            else:
+                uk, vk = lf2step.lf2_step(u0[b], v0[b], case20.dt, 1.0, 0.6, 0.2, lay,
+                                          c0, tables, st, src_x, abc_x,
+                                          out=tuple(nan[:2]), scratch=tuple(nan[2:]))
+                up, vp = lf2step.lf2_step_plain(u0[b], v0[b], case20.dt, 1.0, 0.6, 0.2,
+                                                lay, c0, tables)
+            torch.cuda.synchronize()
+            inter = lay.interior
+            _, rel = state_err(uk[inter], vk[inter], up[inter], vp[inter])
+            worst = max(worst, rel)
+            check(all(bool(torch.isfinite(x).all()) for x in nan),
+                  f"P20 {kind} block {b}: no NaN left in its buffers")
+            for x, r in zip((uk, vk), rings):
+                x0, nx, h, ny, nz = lay.box(r)
+                outside = x.clone()
+                outside[x0 : x0 + nx, h : h + ny, h : h + nz] = 0.0
+                check(float(outside.abs().max()) == 0.0,
+                      f"P20 {kind} block {b}: zero outside its {r}-deep ring")
+        halo_err[kind] = worst
+        print(f"P20 {kind} on the {lay.h}-deep value-halo layout {lay.padded_shape}: "
+              f"kernel against plain on the interior of every block: {worst:.3e} "
+              f"(limit 1e-5)")
+        check(worst <= 1e-5, f"P20 {kind}: halo-layout kernel against its plain version")
+    del u0, v0, uk, vk, up, vp, nan
+
+    phase(f"P20 sharded solves at the P1 width ({NDOFS:,} dofs, f32, tile 48) and "
+          "kernel E at P12's p = 10, against one device")
+    case12b, epm12 = planar3d_app.build(**P12, dtype="f32", device="cuda")
+    p20_runs = [  # (label, model, one-device model, parts, kind, kernel, steps)
+        ("P20 step (2,1,1)", m20, pm20, (2, 1, 1), "step", "A", 100),
+        ("P20 step (2,2,1)", m20, pm20, (2, 2, 1), "step", "A", 100),
+        ("P20 lf (2,2,1)", m20, pm20, (2, 2, 1), "lf", "H", 100),
+        ("P20 lf2 (2,2,1)", m20, pm20, (2, 2, 1), "lf2", "I", 100),
+        ("P20 stage (2,1,1)", m20, pm20, (2, 1, 1), "n", "B", 100),
+        ("P20 stage p=10 (2,1,1)", case12b.model, epm12, (2, 1, 1), "n", "E", 20),
+    ]
+    class TimedExchange:
+        """A solver's exchange with CUDA events around every slab swap (the
+        halo-add's copies, the value-halo refresh), so the exchange's share
+        is read inside the timed solve itself."""
+
+        def __init__(self, inner):
+            self.inner, self.mesh, self.spans = inner, inner.mesh, []
+
+        @property
+        def local_blocks(self):
+            return self.inner.local_blocks
+
+        def _timed(self, fn, *args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*args)
+            ev[1].record()
+            self.spans.append(ev)
+            return out
+
+        def swap(self, *args):
+            return self._timed(self.inner.swap, *args)
+
+        def swap_into(self, *args):
+            return self._timed(self.inner.swap_into, *args)
+
+        def allreduce(self, x):
+            return self.inner.allreduce(x)
+
+        def gather(self, blocks):
+            return self.inner.gather(blocks)
+
+        def ms(self):
+            torch.cuda.synchronize()
+            return sum(a.elapsed_time(b) for a, b in self.spans)
+
+    def timed_exchange(sw):
+        sw.exchange = TimedExchange(sw.exchange)
+        return sw.exchange
+
+    def hold_per_block(sw, kernel, label):
+        """Kernel B, E or F on each block of a sharded model, at the
+        block's shape and on the block's own tables, from a NaN output,
+        against its plain version: f32 to 1e-5 relative, the padding zero."""
+        worst = 0.0
+        for b in range(sw.mesh.nblocks):
+            if kernel == "F":
+                ops = sw.local_ops
+                tabs = stiffness.GridStiffnessTables(*tables_from_numpy(
+                    stiffness.stiffness_grid_tables(
+                        ops._sepA, ops._seplines, ops.grid_shape, ops.p,
+                        -float(sw.model.c0) ** 2, ops.dtype), dev, ops.dtype))
+                x = random_grid(ops.grid_shape, 300 + b, torch.float32)
+                yk = stiffness.stiffness_grid_cuda(x, tabs, ops.p,
+                                                   out=torch.full_like(x, float("nan")))
+                yp = stiffness.stiffness_grid_plain(x, tabs, ops.p)
+            else:
+                lay = sw.layout
+                x = random_padded(lay, 300 + b, torch.float32)
+                nan = torch.full_like(x, float("nan"))
+                if kernel == "B":
+                    st = sw._tables[b][1]
+                    yk = wave.apply_flat_cuda(x, lay, st, out=nan)
+                    yp = wave.apply_stencil_plain(x, lay, st)
+                else:
+                    yk = wave.apply_slab_cuda(x, lay, sw._tables[b], out=nan)
+                    yp = wave.apply_slab_plain(x, lay, sw._tables[b])
+            torch.cuda.synchronize()
+            _, rel = rel_err(yk, yp)
+            worst = max(worst, rel)
+            check(bool(torch.isfinite(yk).all()), f"{label} block {b}: no NaN left")
+            if kernel != "F":
+                padding_zero(lay, yk)
+        shape = (sw.local_ops.grid_shape if kernel == "F" else sw.layout.padded_shape)
+        print(f"{label}: kernel {kernel} on each of {sw.mesh.nblocks} blocks "
+              f"{tuple(shape)} against its plain version, from NaN: max|err|/max|ref| "
+              f"= {worst:.3e} (limit 1e-5)")
+        check(worst <= 1e-5, f"{label}: kernel {kernel} against its plain version")
+        return worst
+
+    per_step_launches = {"step": 4, "lf": 2, "lf2": 1.5, "n": 4}
+    p20 = {}
+    for label, model, pm, parts, kind, kernel, n in p20_runs:
+        tile = 48 if model.p == 4 else 16
+        sw = ShardedPaddedWave(model, parts, tile_x=tile)
+        lay, solve, ref = sharded_solvers(sw, pm, kind)
+        dt = case20.dt if model is m20 else case12b.dt
+        solve(0.0, dt, 2)  # tables, buffers, first launches
+        if kind == "n":
+            hold_per_block(sw, kernel, label)
+        ex = timed_exchange(sw)
+        tm = Timer(dev)
+        zero_counts()
+        with tm("solve"):
+            u, v = solve(0.0, dt, n)[:2]
+        counts = read_counts()
+        ex_ms = ex.ms() / n
+        sw.exchange = ex.inner
+        nb = sw.mesh.nblocks
+        want = int(per_step_launches[kind] * n) * nb
+        check(counts[kernel] == want, f"{label}: kernel {kernel} launched "
+              f"{counts[kernel]} times, want {want}")
+        others = {k: c for k, c in counts.items() if k != kernel and c}
+        check(not others, f"{label}: other kernels launched {others}")
+        ms_step = 1e3 * tm.seconds("solve") / n
+        ex_what = ("the halo-add's slab copies, events in the timed solve" if kind == "n"
+                   else "the value-halo refresh of u and v, events in the timed solve")
+        ur, vr = ref(0.0, dt, n)[:2]
+        err, rel = state_err(torch.as_tensor(sw.to_global(u, lay)),
+                             torch.as_tensor(sw.to_global(v, lay)),
+                             pm.to_grid(ur).cpu(), pm.to_grid(vr).cpu())
+        tm1 = Timer(dev)
+        with tm1("one"):
+            ref(0.0, dt, n)
+        one_ms = 1e3 * tm1.seconds("one") / n
+        if kind != "n":
+            sw.refresh(v, lay)
+        planes_bitwise(sw, v, lay, label)
+        p20[label] = dict(kernel=kernel, parts=parts, steps=n, ms_per_step=ms_step,
+                          one_device_ms_per_step=one_ms, exchange_ms_per_step=ex_ms,
+                          exchange_share=ex_ms / ms_step, launches=counts[kernel],
+                          launches_per_step=counts[kernel] / n, max_rel_err=rel,
+                          layout=list(lay.padded_shape))
+        print(f"{label}: {ms_step:.4f} ms/step on {nb} blocks (one device "
+              f"{one_ms:.4f}); exchange ({ex_what}) {ex_ms:.4f} ms/step, "
+              f"{100 * ex_ms / ms_step:.1f} % of the step; kernel {kernel} "
+              f"{counts[kernel] / n:g} launches/step; against one device "
+              f"{rel:.3e} (limit 1e-4) [{smi}]")
+        check(rel <= 1e-4, f"{label} against one device")
+        del u, v, ur, vr, sw
+    print("P20 " + json.dumps(p20))
+
+    phase("P20 ShardedLinearWave (kernel F per block) at the P1 width, (2,2,1)")
+    msw = ShardedLinearWave(m20, (2, 2, 1))
+    msw.solve_n(case20.t0, case20.dt, 1)
+    hold_per_block(msw, "F", "P20 ShardedLinearWave (2,2,1)")
+    ex = timed_exchange(msw)
+    zero_counts()
+    tm = Timer(dev)
+    with tm("solve"):
+        u, v, _ = msw.solve_n(case20.t0, case20.dt, 10)
+    f_sharded = read_counts()["F"]
+    f_ex_ms = ex.ms() / 10
+    msw.exchange = ex.inner
+    check(f_sharded == 4 * 10 * 4, f"P20 F launched {f_sharded} times, want 160")
+    ur, vr = rk4_solve_n(m20.f0, m20.f1, *m20.zero_state(), case20.t0, case20.dt, 10)
+    _, rel = state_err(torch.as_tensor(msw.to_global(u)), torch.as_tensor(msw.to_global(v)),
+                       ur.cpu(), vr.cpu())
+    f_ms = 1e3 * tm.seconds("solve") / 10
+    print(f"P20 ShardedLinearWave: {f_ms:.4f} ms/step, F {f_sharded} launches; "
+          f"exchange (the halo-add's slab copies, events in the timed solve) "
+          f"{f_ex_ms:.4f} ms/step, {100 * f_ex_ms / f_ms:.1f} % of the step; against "
+          f"LinearWave.solve {rel:.3e} (limit 1e-4) [{smi}]")
+    check(rel <= 1e-4, "P20 ShardedLinearWave against one device")
+    p20["P20 ShardedLinearWave (2,2,1)"] = dict(kernel="F", launches=f_sharded,
+                                                ms_per_step=f_ms,
+                                                exchange_ms_per_step=f_ex_ms,
+                                                exchange_share=f_ex_ms / f_ms,
+                                                max_rel_err=rel)
+    del msw, u, v, ur, vr
+
+    # the app's --ndev 4 at the P1 configuration, each counted alone
+    p20_apps = {}
+    for integrator, kernel, per_call, ref_label in (
+            ("rk4", "A", 4, "P1 RK4, kernel A"), ("leapfrog", "H", 2,
+                                                  "P2 leapfrog, kernel I")):
+        phase(f"P20 app --ndev 4 --integrator {integrator} at {NDOFS:,} dofs")
+        zero_counts()
+        out = planar3d_app.run(**HEADLINE, integrator=integrator, ndev=4, dtype="f32",
+                               device="cuda")
+        counts = read_counts()
+        print(json.dumps(out))
+        want = per_call * (out["nsteps"] + 1) * 4
+        name = ("sharded value-halo RK4 STEP kernel" if integrator == "rk4"
+                else "sharded value-halo leapfrog STEP kernel")
+        check(out["solver_path"] == name, f"P20 app {integrator}: solver_path")
+        check(counts[kernel] == want, f"P20 app {integrator}: kernel {kernel} launched "
+              f"{counts[kernel]} times, want {want}")
+        others = {k: c for k, c in counts.items() if k != kernel and c}
+        check(not others, f"P20 app {integrator}: other kernels launched {others}")
+        rel = abs(out["u_norm"] - apps[ref_label]["u_norm"]) / apps[ref_label]["u_norm"]
+        print(f"P20 app {integrator}: {out['nsteps']} steps, kernel {kernel} "
+              f"{counts[kernel]} launches; |u| against {ref_label}: {rel:.3e} (limit "
+              f"1e-4); {out['solve_seconds']:.4f} s [{smi}]")
+        check(rel <= 1e-4, f"P20 app {integrator} against the one-device app")
+        p20_apps[integrator] = (kernel, counts[kernel], out)
+
     # -- 9. the operator benchmark paths -----------------------------------
     def only(counts, kernel, label):
         others = {k: n for k, n in counts.items() if k != kernel and n}
@@ -1916,13 +2271,22 @@ def main() -> None:
     launches["K"] = k_paths["P8"] + sum(p15_k.values())
     launches["F"] += sum(p15_f.values())
     launches["B"] = f1_launches
+    # the sharded runs (phase 17), each counted alone, added to their kernels
+    sharded_launches = {}
+    for label, r in p20.items():
+        sharded_launches.setdefault(r["kernel"], {})[label] = r["launches"]
+    for integrator, (kernel, n, _) in p20_apps.items():
+        sharded_launches.setdefault(kernel, {})[f"P20 app --ndev 4 {integrator}"] = n
+    for kernel, per_path in sharded_launches.items():
+        launches[kernel] += sum(per_path.values())
     meta = {
         "A": ("rk4_tiled_kernel<T, P, J>, lean (kernel A: lean RK4 step, 4 stage "
               "launches on the 2.5D tiled stencil; ms per step)",
               "wave_fenics_tpu/ops/pallas_rk4step.py:201", src_rk4),
         "B": ("apply_flat_tiled_kernel<T, P> (kernel B: stiffness/m on the flat "
               "layout, 2.5D tiled stencil with TMA plane loads, p=4, the P1 layout; ms "
-              "per apply; launches: the f1-path RK4, 2 steps)",
+              "per apply; launches: the f1-path RK4, 2 steps, and P20's per-stage "
+              "sharded run)",
               "wave_fenics_tpu/ops/pallas_wave.py:336", src_flat),
         "C": ("rk4_tiled_kernel<T, P, J>, full tableau (kernel C: full-tableau "
               "RK4 step, 4 stage launches on the 2.5D tiled stencil; ms per step)",
@@ -2030,6 +2394,8 @@ def main() -> None:
                                       "card_second": setup["card_setup2"],
                                       "numpy": setup["np_setup"]}
     by_name["J"]["odd_step_launches_A"] = path_counts["P14 RK4 two-step, kernel J"]["A"]
+    for kernel, per_path in sharded_launches.items():
+        by_name[kernel]["sharded_launches"] = per_path
     # the same kernel at 16^3 cells, beside the one PyTorch call that computes
     # its function there (the assembled matrix at the P8 size would not fit
     # a host assembly)

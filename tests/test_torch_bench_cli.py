@@ -94,9 +94,9 @@ def test_general_solve_cli(integrator, capsys):
     assert 0.0 < r["vmax"] < 1e15 and r["gdof_steps_per_s"] > 0
 
 
-@pytest.mark.parametrize("kw,match", [(dict(ndev=4), "distribution slice")])
+@pytest.mark.parametrize("kw,match", [(dict(op="general", ndev=4), "sharded general")])
 def test_cg_cli_later_slices_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         cg_bench.run(size=2, degree=2, device="cpu", **kw)
 
 

@@ -4,7 +4,10 @@ from output buffers full of NaN; the app paths' launch counts, and the
 imported-mesh workflow (the app's general branch with --output, probe
 recording, the energy) on kernels K, F and A against the CPU; the general
 set-up kernels (native.py) against their plain versions and the card's
-set-up against the NumPy route.
+set-up against the NumPy route; the distributed structured box
+(``parallel/``): A, H and I on the value-halo layouts against their plain
+versions from NaN, every sharded path against the one-device solve, and
+the app's ``--ndev``.
 
 Every test here needs a CUDA card and skips without one. The file imports
 only torch and the port, so it runs on a machine without JAX:
@@ -1112,3 +1115,175 @@ def test_cuda_unmatched_facet_raises(cuda):
     bad[0, 3] = mesh.cells[-1, 7]
     with pytest.raises(ValueError, match="does not coincide with a volume dof"):
         facet_lumped_weights(mesh, build_dofmap(mesh, 2, device=cuda), bad, 2, device=cuda)
+
+
+# -- the distributed structured box (parallel/) ------------------------------
+
+def _sharded(p, device, parts, shape=(4, 2, 2), kernel="flat", dtype=F64):
+    from wave_fenics_tpu_torch.parallel.sharded_padded import ShardedPaddedWave
+
+    mesh = box_mesh(shape, (0.01, 0.005, 0.005),
+                    facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    return ShardedPaddedWave(LinearWave(mesh, p=p, dtype=dtype, device=device), parts,
+                             kernel=kernel)
+
+
+def _halo_state(sw, lay, seed, scale=1.0):
+    """Random global fields in the blocks of ``lay``, their value halos
+    refreshed: what a kernel call of a value-halo path reads."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(n * sw.model.p + 1 for n in sw.model.mesh.shape)
+    u = sw.refresh(sw.from_global(rng.standard_normal(shape), lay), lay)
+    v = sw.refresh(sw.from_global(scale * rng.standard_normal(shape), lay), lay)
+    return u, v
+
+
+def _outside_box_zero(lay, ring, *fields):
+    x0, nx, h, ny, nz = lay.box(ring)
+    for x in fields:
+        outside = x.clone()
+        outside[x0 : x0 + nx, h : h + ny, h : h + nz] = 0.0
+        assert float(outside.abs().max()) == 0.0
+
+
+# (path, p, the output rings of the call's u and v)
+HALO_CASES = [("step", 2, (0, 0)), ("step", 4, (0, 0)), ("lf", 2, (2, 0)),
+              ("lf", 4, (4, 0)), ("lf2", 2, (2, 0)), ("lf2", 4, (4, 0))]
+
+
+@pytest.mark.parametrize("path,p,rings", HALO_CASES)
+def test_cuda_halo_layout_kernels_match_plain_over_nan(cuda, path, p, rings):
+    """Kernels A, H and I on the value-halo layouts (3p, 2p, 3p), one call
+    on each block of a (2,2,1) split from output and scratch buffers full
+    of NaN: the interior against the plain version at 1e-12, the outputs
+    exactly 0 outside their ring, nothing left NaN."""
+    sw = _sharded(p, cuda, (2, 2, 1))
+    lay = sw.halo_layout(path)
+    u0, v0 = _halo_state(sw, lay, 51, scale=1e3)
+    counter = {"step": rk4step.rk4_step_lean_cuda, "lf": lfstep.lf_step_cuda,
+               "lf2": lf2step.lf2_step_cuda}[path]
+    inter = lay.interior
+    for b, (tables, st, src_x, abc_x) in enumerate(sw._halo_tables(path)):
+        nan = [torch.full_like(u0[b], float("nan")) for _ in range(5)]
+        n0 = counter.launches
+        if path == "step":
+            gs = GS
+            uk, vk = rk4step.rk4_step_lean(u0[b], v0[b], DT, gs, lay, sw.model.c0,
+                                           tables, st, src_x, abc_x,
+                                           out=tuple(nan[:2]), scratch=tuple(nan[2:]))
+            up, vp = rk4step.rk4_step_lean_plain(u0[b], v0[b], DT, gs, lay, sw.model.c0,
+                                                 tables)
+            calls = 4
+        elif path == "lf":
+            uk, vk = lfstep.lf_step(u0[b], v0[b], DT, 1.0, 0.6, lay, sw.model.c0, tables,
+                                    st, src_x, abc_x, out=tuple(nan[:2]), scratch=nan[2])
+            up, vp = lfstep.lf_step_plain(u0[b], v0[b], DT, 1.0, 0.6, lay, sw.model.c0,
+                                          tables)
+            calls = 2
+            nan = nan[:3]  # two outputs and one scratch field
+        else:
+            uk, vk = lf2step.lf2_step(u0[b], v0[b], DT, 1.0, 0.6, 0.2, lay, sw.model.c0,
+                                      tables, st, src_x, abc_x, out=tuple(nan[:2]),
+                                      scratch=tuple(nan[2:]))
+            up, vp = lf2step.lf2_step_plain(u0[b], v0[b], DT, 1.0, 0.6, 0.2, lay,
+                                            sw.model.c0, tables)
+            calls = 3
+        torch.cuda.synchronize()
+        assert counter.launches == n0 + calls
+        assert not any(bool(torch.isnan(x).any()) for x in nan)
+        _assert_state_close(uk[inter], vk[inter], up[inter], vp[inter])
+        _outside_box_zero(lay, rings[0], uk)
+        _outside_box_zero(lay, rings[1], vk)
+
+
+@pytest.mark.parametrize("parts", [(2, 1, 1), (2, 2, 1)])
+@pytest.mark.parametrize("path", ["n", "n3d", "step", "lf", "lf2"])
+def test_cuda_sharded_solves_match_single_device(cuda, path, parts):
+    """Every sharded structured path on the card (B, E, A, H, I on each
+    block) against the single-device solve of the same path on the card,
+    f64, 12 steps, at 1e-12; each kernel launched once per block per launch
+    of a step."""
+    sw = _sharded(4, cuda, parts, kernel="3d" if path == "n3d" else "flat")
+    pm = PaddedLinearWave(sw.model, tile_x=16, kernel="3d" if path == "n3d" else "flat")
+    nb, n = sw.mesh.nblocks, 12
+    solve, ref, counter, per_step, conv = {
+        "n": (sw.solve_n, pm.solve_n, wave.apply_flat_cuda, 4, sw.to_global),
+        "n3d": (sw.solve_n, pm.solve_n, wave.apply_slab_cuda, 4, sw.to_global),
+        "step": (sw.solve_step_n, pm.solve_step_n, rk4step.rk4_step_lean_cuda, 4,
+                 sw.to_global_step),
+        "lf": (sw.solve_lf_n, pm.solve_lf_n, lfstep.lf_step_cuda, 2, sw.to_global_lf),
+        "lf2": (sw.solve_lf2_n, pm.solve_lf2_n, lf2step.lf2_step_cuda, 1.5,
+                sw.to_global_lf2),
+    }[path]
+    n0 = counter.launches
+    u, v = solve(0.0, DT, n)[:2]
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + int(per_step * n) * nb
+    ur, vr = ref(0.0, DT, n)[:2]
+    _assert_state_close(torch.as_tensor(conv(u)), torch.as_tensor(conv(v)),
+                        pm.to_grid(ur).cpu(), pm.to_grid(vr).cpu())
+
+
+def test_cuda_sharded_step_interface_planes_bitwise(cuda):
+    """After the value-halo refresh the duplicated x-interface plane holds
+    the lower block's value on both blocks, bit for bit."""
+    sw = _sharded(4, cuda, (2, 2, 1))
+    lay = sw.halo_layout("step")
+    u, v, _ = sw.solve_step_n(0.0, DT, 8)
+    sw.refresh(v, lay)
+    x0, nx = lay.x0, lay.shape[0]
+    for by in range(2):
+        lo, hi = v[sw.mesh.index(0, by, 0)], v[sw.mesh.index(1, by, 0)]
+        assert torch.equal(lo[lay.interior][-1], hi[lay.interior][0])
+    assert float(v[0][x0 + nx - 1].abs().max()) > 0.0
+
+
+def test_cuda_sharded_linear_wave_and_cg_match_cpu(cuda):
+    """ShardedLinearWave on kernel F per block: the solve and the
+    distributed CG mass solve on the card against the CPU's, f64."""
+    from wave_fenics_tpu_torch.parallel.sharded_wave import ShardedLinearWave
+
+    mesh = box_mesh((4, 2, 2), (0.01, 0.005, 0.005),
+                    facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    sws = [ShardedLinearWave(LinearWave(mesh, p=4, dtype=F64, device=d), (2, 2, 1))
+           for d in ("cpu", cuda)]
+    n0 = stiffness.stiffness_grid_cuda.launches
+    (uc, vc, _), (ug, vg, _) = (s.solve_n(0.0, DT, 10) for s in sws)
+    assert stiffness.stiffness_grid_cuda.launches == n0 + 4 * 10 * 4
+    _assert_state_close(torch.as_tensor(sws[1].to_global(ug)),
+                        torch.as_tensor(sws[1].to_global(vg)),
+                        torch.as_tensor(sws[0].to_global(uc)),
+                        torch.as_tensor(sws[0].to_global(vc)))
+    b = np.random.default_rng(52).standard_normal(tuple(n * 4 + 1 for n in mesh.shape))
+    (xc, kc, _), (xg, kg, _) = (s.cg_mass(s.from_global(b), kmax=60, rtol=1e-10)
+                                for s in sws)
+    assert kc == kg
+    # the two dots sum in different orders, which CG amplifies: both
+    # solutions agree with x = b / m (the assembled lumped mass) to CG's
+    # tolerance
+    exact = torch.as_tensor(b / sws[0].model.ops.lumped_mass)
+    for s, x in zip(sws, (xc, xg)):
+        assert _rel(torch.as_tensor(s.to_global(x)), exact) <= 1e-9
+
+
+@pytest.mark.parametrize("integrator,kernel,per_step", [("rk4", "A", 4),
+                                                         ("leapfrog", "H", 2)])
+def test_cuda_app_ndev_runs_the_sharded_kernels(cuda, tmp_path, integrator, kernel,
+                                               per_step):
+    """The app's --ndev 4 on the card: the JAX app's solver_path, the value-
+    halo kernel launched once per block per launch of a step (the warm-up
+    step included), and the final global grid (--output) the CPU run's."""
+    from wave_fenics_tpu_torch.core.io import read_xdmf_attributes
+
+    counter = {"A": rk4step.rk4_step_lean_cuda, "H": lfstep.lf_step_cuda}[kernel]
+    kw = dict(cells=(8, 4, 4), degree=4, dtype="f64", steps=6, integrator=integrator,
+              ndev=4)
+    n0 = counter.launches
+    out = planar3d_app.run(device="cuda", output=str(tmp_path / "g.xdmf"), **kw)
+    assert counter.launches == n0 + per_step * (6 + 1) * 4
+    assert out["solver_path"] == ("sharded value-halo RK4 STEP kernel" if integrator == "rk4"
+                                  else "sharded value-halo leapfrog STEP kernel")
+    planar3d_app.run(device="cpu", output=str(tmp_path / "c.xdmf"), **kw)
+    g, c = (read_xdmf_attributes(str(tmp_path / f)) for f in ("g.xdmf", "c.xdmf"))
+    _assert_state_close(torch.as_tensor(g["u"]), torch.as_tensor(g["v"]),
+                        torch.as_tensor(c["u"]), torch.as_tensor(c["v"]))

@@ -21,8 +21,16 @@ Operators:
   card.
 
 ``--precond``: Jacobi (bp1: the Kronecker product of the assembled 1D mass
-diagonals; spectral and general: the inverse lumped mass). Not ported yet:
-``--ndev > 1`` (the distribution slice) raises.
+diagonals; spectral and general: the inverse lumped mass).
+
+``--ndev N`` (N > 1; ``--op`` bp1 or spectral, as the JAX bench takes
+them): the spectral mass on ``parallel.sharded_wave.ShardedLinearWave``,
+``decompose3d(N)`` blocks (all on the card with one card) with the
+ownership-weighted dot (the gpu_cg distributed CG, cg.hpp:37-121), checked
+against the same CG on one device: iterations within 1 and solutions
+within 10 rtol (the record's ``iters_single_device``,
+``iteration_parity``, ``max_rel_solution_diff``). ``--op general --ndev``
+raises: the sharded general branch is not ported yet.
 
 Timing: ``reps`` and ``reps // 4`` back-to-back solves of the same b,
 differenced (``common.two_point_time``; CUDA events on a card). The JAX
@@ -43,14 +51,18 @@ from ..convert import tables_from_numpy
 from ..core.dofmap import build_dofmap
 from ..core.mesh import box_mesh
 from ..ops.mass import bp1_setup, mass_apply
+from ..models.linear_wave import LinearWave
 from ..ops.operators import GeneralOperators, StructuredOperators
+from ..parallel.partition import Blocks, decompose3d
+from ..parallel.sharded_wave import ShardedLinearWave
 from ..solvers.cg import cg
 from ..utils.timing import sync
 from .common import (DTYPES, cells_from_args, device_name, make_parser,
                      report, resolve_device, two_point_time)
 
-SHARDED_SLICE = ("--ndev > 1 needs the distribution slice (parallel/, "
-                 "torch.distributed), not ported yet")
+SHARDED_GENERAL = ("--op general --ndev > 1 needs the sharded general branch "
+                   "(parallel/sharded_general.py: RCB partition, its exchanges "
+                   "and CG), not ported yet")
 
 
 def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
@@ -61,10 +73,12 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
     ``device``, ``timing``, ``solves``: the number of solves run, each of
     1 + iters matvecs, and ``setup_s``: the seconds that built the
     operator and b, before the first solve, the device synchronised)."""
-    if ndev != 1:
-        raise NotImplementedError(SHARDED_SLICE)
     if op not in ("bp1", "spectral", "general"):
         raise ValueError(f"--op {op!r}: bp1, spectral or general")
+    if ndev < 1:
+        raise ValueError(f"--ndev {ndev}: at least 1")
+    if ndev > 1 and op == "general":
+        raise ValueError(SHARDED_GENERAL)
     dev = resolve_device(device)
     dt = DTYPES[dtype]
     t0 = time.perf_counter()
@@ -73,8 +87,15 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
     rng = np.random.default_rng(0)
     grid = tuple(n * p + 1 for n in mesh.shape)
     ndofs = int(np.prod(grid))
-    pre = None
-    if op == "general":
+    pre = dot = sw = None
+    if ndev > 1:
+        sw = ShardedLinearWave(LinearWave(mesh, p, dtype=dt, device=dev),
+                               decompose3d(ndev))
+        b = sw.from_global(rng.standard_normal(grid))
+        matvec, dot = sw.spectral_mass, sw.dot
+        if precond:
+            pre = lambda r: Blocks(i * x for i, x in zip(sw.inv_m, r))  # noqa: E731
+    elif op == "general":
         hm = mesh.to_hex_mesh()
         gops = GeneralOperators(hm, build_dofmap(hm, p, device=dev), dtype=dt,
                                 rule="gauss", q=q, device=dev)
@@ -99,13 +120,16 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
     sync(dev)
     setup_s = time.perf_counter() - t0
 
-    def solve():
-        return cg(matvec, b, kmax=kmax, rtol=rtol, precond=pre)
+    x0 = None if sw is None else Blocks(torch.zeros_like(x) for x in b)
 
-    _, iters, rnorm = solve()
+    def solve():
+        return cg(matvec, b, x0=x0, kmax=kmax, rtol=rtol, precond=pre, dot=dot)
+
+    x, iters, rnorm = solve()
     t, timing, calls = two_point_time(solve, reps, dev)
-    return dict(
-        metric=f"CG {op} mass (Dofs*iteration/s, utils.hpp:58-64)",
+    out = dict(
+        metric=f"CG {op if sw is None else 'spectral sharded'} mass "
+               "(Dofs*iteration/s, utils.hpp:58-64)",
         s=s, degree=p, ndofs=ndofs, iters=iters, ndev=ndev, dtype=dtype,
         precond=bool(precond), q=q, device=device_name(dev),
         rnorm2=float(rnorm),
@@ -113,6 +137,32 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
         dofs_iter_per_s=ndofs * iters / t,
         gdofs_iter_per_s=ndofs * iters / t / 1e9,
     )
+    if sw is not None:
+        out.update(_single_device_parity(sw, x, iters, grid, dt, dev, kmax, rtol,
+                                         precond))
+    return out
+
+
+def _single_device_parity(sw, x, iters, grid, dt, dev, kmax, rtol, precond) -> dict:
+    """The sharded CG against the same CG on one device from the same b:
+    its dots sum in another order, which CG amplifies past the residual
+    plateau, so the iterations may differ by one (the JAX bench's rule);
+    the solutions agree to the solver's tolerance."""
+    ops = StructuredOperators(sw.model.mesh, sw.model.p, dtype=dt)
+    b1 = torch.as_tensor(np.random.default_rng(0).standard_normal(grid), dtype=dt,
+                         device=dev)
+    pre = None
+    if precond:
+        (inv,) = tables_from_numpy((1.0 / ops.lumped_mass,), dev, dt)
+        pre = lambda r: inv * r  # noqa: E731
+    x1, k1, _ = cg(ops.spectral_mass, b1, kmax=kmax, rtol=rtol, precond=pre)
+    x1n = x1.cpu().numpy()
+    rel = float(np.abs(sw.to_global(x) - x1n).max() / np.abs(x1n).max())
+    if abs(k1 - iters) > 1 or rel >= 10 * rtol:
+        raise RuntimeError(f"sharded CG: {iters} iterations and a solution {rel:.3e} "
+                           f"from one device's ({k1} iterations)")
+    return dict(iters_single_device=k1, iteration_parity=k1 == iters,
+                max_rel_solution_diff=rel)
 
 
 def main(argv=None):

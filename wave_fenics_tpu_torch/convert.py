@@ -6,7 +6,10 @@ port's tensors on an explicit device and dtype, so the same tables and
 the same padded state can drive both implementations. A general hex mesh
 and its facet tags come across as NumPy arrays
 (:func:`general_mesh_from_numpy`): they are the general-mesh path's input,
-from which the port builds its own dofmap, geometry and tables.
+from which the port builds its own dofmap, geometry and tables. A blocked
+array of the JAX package's distributed models (``[mx, my, mz, ...]``)
+comes across as the port's per-block tensors (:func:`blocked_from_numpy`)
+and goes back (:func:`blocked_to_numpy`).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from .core.mesh import HexMesh
+from .parallel.partition import Blocks
 
 __all__ = [
     "numpy_dtype",
@@ -22,6 +26,8 @@ __all__ = [
     "tables_from_numpy",
     "state_from_numpy",
     "general_mesh_from_numpy",
+    "blocked_from_numpy",
+    "blocked_to_numpy",
 ]
 
 _TORCH_TO_NUMPY = {
@@ -76,3 +82,25 @@ def general_mesh_from_numpy(points, cells, facet_tags=None) -> tuple[HexMesh, di
                    cells=np.array(cells, dtype=np.int64))
     tags = {int(t): np.array(f, dtype=np.int64) for t, f in (facet_tags or {}).items()}
     return mesh, tags
+
+
+def blocked_from_numpy(blocked, devices, dtype) -> Blocks:
+    """A JAX blocked array ``[mx, my, mz, ...]`` -> the port's ``Blocks``:
+    block (bx, by, bz) at C-order index (bx * my + by) * mz + bz, a
+    contiguous copy of ``dtype`` on ``devices[b]`` (one device for all
+    when ``devices`` is a single device)."""
+    a = np.asarray(blocked)
+    mx, my, mz = a.shape[:3]
+    n = mx * my * mz
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices] * n
+    flat = a.reshape(n, *a.shape[3:])
+    return Blocks(torch.tensor(flat[b], dtype=torch_dtype(dtype), device=devices[b])
+                  for b in range(n))
+
+
+def blocked_to_numpy(blocks, parts) -> np.ndarray:
+    """The port's ``Blocks`` (every block held) -> a JAX-style blocked
+    array ``[mx, my, mz, ...]``."""
+    arrs = [x.detach().cpu().numpy() for x in blocks]
+    return np.stack(arrs).reshape(*parts, *arrs[0].shape)

@@ -19,6 +19,14 @@
 // u_out must not alias it; CLOSE writes v_out only (u1 stays where OPEN or
 // MID wrote it). In the padding, u_out (OPEN, MID) and v_out are 0.
 //
+// On a value-halo layout (parallel/sharded_padded.py: a halo of 2p for
+// one step, 3p for two, holding the neighbour blocks' values) the caller
+// passes each phase's box grown into the halo by the depth at which the
+// next phase reads its u at the taps (ops/lfstep.py::phase_rings: OPEN p
+// in a step; OPEN 2p, MID p in two), CLOSE the interior. The kernel is the
+// same: its TMA windows read the halo as it is in memory, and "the
+// padding" it zeroes is everything outside the box.
+//
 // What bounds it on this card: the fields each phase must move, OPEN the
 // interiors of u, v in (their padding is 0) and the padded u_out, v_out
 // out (0.029 ms in f32 at the P3 size: 2 x 17.11 MB + 2 x 29.57 MB and

@@ -52,6 +52,14 @@
 // source c0^2 g_J W1, then the absorbing term -c0 W2 vn_J. Stage 3 reads
 // u0's neighbours while it writes u1, so no output may alias an input.
 //
+// On a value-halo layout (halo >= 2p deep, holding the neighbour blocks'
+// values: parallel/sharded_padded.py) the caller passes each stage's box
+// grown by its ring r_J into the halo and load = p: stages 0 and 1 write
+// kv0, kv1 to depth p (stage 2 reads kv0, stage 3 kv1, at their taps),
+// stages 2 and 3 the interior only, since a step's result at a point
+// depends on (u0, v0) within 2p of it. The kernel is the same: it writes
+// its box and zeros outside it, and reads the load ring as it is in memory.
+//
 // Each extern "C" launcher returns cudaGetLastError() after its launch (or
 // cudaErrorInvalidValue for a tiling that does not fit the layout).
 
@@ -75,6 +83,7 @@ struct StageArgs {
   const T* w2;  // [F] absorbing facet weights / m
   int src_x, abc_x;
   int lean;  // 1: kernel A's stage algebra; 0: kernel C's
+  int load;  // the load ring around the output box (Window)
   T dt, g, c0sq, mc0;
 };
 
@@ -116,7 +125,8 @@ __global__ void __launch_bounds__(kTileThreads, (min_blocks<T, P>()))
 
   const TileCoords c(s, t);
   const int plane = (t.ty + 2 * P) * (t.tz + 2 * P);
-  const Window<P> w(s, c, t, reinterpret_cast<int*>(smem + kPipe * NF * plane));
+  const Window<P> w(s, c, t, reinterpret_cast<int*>(smem + kPipe * NF * plane),
+                    a.load);
   const int W = w.W;
   const int F = s.F();
   const T dt = a.dt;
@@ -254,7 +264,10 @@ int launch_stage_p(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
 template <typename T>
 int launch_rk4_tiled(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
                      dim3 grid, int smem, cudaStream_t stream) {
-  if (!tiling_fits(t, grid, s.nx, s.ny, s.nz) || !box_fits_int(s)) {
+  if (!tiling_fits(t, grid, s.nx, s.ny, s.nz) || !box_fits_int(s) ||
+      a.load < 0 || s.x0 - a.load < 0 || s.x0 + s.nx + a.load > s.Lx ||
+      s.h - a.load < 0 || s.h + s.ny + a.load > s.Ly ||
+      s.h + s.nz + a.load > s.Lz) {
     return (int)cudaErrorInvalidValue;
   }
   switch (s.p) {
@@ -273,8 +286,11 @@ int launch_rk4_tiled(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
 }  // namespace wave
 
 // ---------------------------------------------------------------------------
-// Plain C interface (bound with ctypes by ops/_cuda.py). The last seven
-// ints are ops/rk4step.py::tiled_geometry's tiling: ty, tz, cx, the grid
+// Plain C interface (bound with ctypes by ops/_cuda.py). (x0, nx, h, ny,
+// nz) is the output box: the interior, or on a value-halo layout the
+// interior grown into the halo by the stage's ring; `load` is the ring of
+// values read around it (0: the interior only). The last seven ints are
+// ops/tiling.py::tiled_geometry's tiling of the box: ty, tz, cx, the grid
 // (gx, gy, gz) and the dynamic shared memory in bytes.
 // ---------------------------------------------------------------------------
 
@@ -284,11 +300,12 @@ int launch_rk4_tiled(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
       const T* kv2, T* kv_out, T* u1, T* v1, const T* w1, const T* w2,        \
       int src_x, int abc_x, double dt, double g, double c0, const T* cvx,     \
       const T* sx, const T* fx, const T* cvy, const T* cvz, int p, int Lx,    \
-      int Ly, int Lz, int x0, int nx, int h, int ny, int nz, int ty, int tz,  \
-      int cx, int gx, int gy, int gz, int smem, cudaStream_t stream) {        \
+      int Ly, int Lz, int x0, int nx, int h, int ny, int nz, int load,        \
+      int ty, int tz, int cx, int gx, int gy, int gz, int smem,               \
+      cudaStream_t stream) {                                                  \
     wave::StageArgs<T> a{u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,       \
-                         src_x, abc_x, LEAN, (T)dt, (T)g, (T)(c0 * c0),       \
-                         (T)(-c0)};                                           \
+                         src_x, abc_x, LEAN, load, (T)dt, (T)g,               \
+                         (T)(c0 * c0), (T)(-c0)};                             \
     wave::Stencil<T> s{cvx, sx, fx, cvy, cvz, p, Lx, Ly, Lz,                  \
                        x0, nx, h, ny, nz};                                    \
     return wave::launch_rk4_tiled<T>(stage, s, a, wave::Tiling{ty, tz, cx},   \

@@ -91,22 +91,25 @@ struct TileCoords {
 // The tile's (ty + 2P) x (tz + 2P) plane window (pitch W = tz + 2P) and a
 // thread's share of it, the elements e = threadIdx.x + k * nt. off[e] (in
 // shared memory) is the element's (y, z) offset in a plane, y * Lz + z, or
-// -1 outside the interior; each thread writes and reads only its own
-// entries, so the table needs no barrier.
+// -1 outside the load box: the box s grown by `load` points on every side
+// (0 on one device: the interior; the value-halo layouts load the p-deep
+// ring of halo values around a box grown into the halo). Each thread
+// writes and reads only its own entries, so the table needs no barrier.
 template <int P>
 struct Window {
-  int W, n, nt;  // pitch, window points, threads
+  int W, n, nt, load;  // pitch, window points, threads, load ring
   int* off;
 
   __device__ Window(const PaddedBox& s, const TileCoords& c, const Tiling& t,
-                    int* table)
+                    int* table, int load_ = 0)
       : W(t.tz + 2 * P), n((t.ty + 2 * P) * (t.tz + 2 * P)), nt(t.ty * t.tz),
-        off(table) {
+        load(load_), off(table) {
     for (int e = (int)threadIdx.x; e < n; e += nt) {
       const int r = e / W;
       const int yy = c.y0 - P + r;
       const int zz = c.z0 - P + (e - r * W);
-      off[e] = yy >= s.h && yy < s.h + s.ny && zz >= s.h && zz < s.h + s.nz
+      off[e] = yy >= s.h - load && yy < s.h + s.ny + load && zz >= s.h - load &&
+                       zz < s.h + s.nz + load
                    ? yy * s.Lz + zz
                    : -1;
     }
@@ -114,13 +117,13 @@ struct Window {
 };
 
 // Start the copies of plane g of the fields f0..f(NF-1) over the window
-// into dst (field-major); points outside the interior become 0 without a
+// into dst (field-major); points outside the load box become 0 without a
 // load. Each thread copies its own elements of the window.
 template <typename T, int P, int NF>
 __device__ __forceinline__ void fetch_plane(T* dst, const T* f0, const T* f1,
                                             const T* f2, const PaddedBox& s,
                                             const Window<P>& w, int g) {
-  const bool gx = g >= s.x0 && g < s.x0 + s.nx;
+  const bool gx = g >= s.x0 - w.load && g < s.x0 + s.nx + w.load;
   const long long row = (long long)g * s.F();
   for (int e = (int)threadIdx.x; e < w.n; e += w.nt) {
     const int o = w.off[e];

@@ -18,6 +18,11 @@ Implementations:
   (``csrc/lf_tiled.cu::lf_phase_tiled_kernel``, kernel H's), three launches
   per call (OPEN, MID, CLOSE).
 
+On a value-halo layout (halo = 3p of neighbour values) the phases write the
+interior grown by ``lfstep.phase_rings`` (2p, p, 0) and zeros beyond; the
+plain version computes what the TPU kernel computes over the whole plane.
+Both agree on the interior.
+
 :func:`lf2_step` dispatches on the tensor's device: CPU -> plain, CUDA ->
 kernel (or raise).
 """
@@ -39,6 +44,7 @@ from .lfstep import (
     check_lf_layout,
     check_lf_operands,
     launch_lf_phase,
+    phase_rings,
 )
 from .rk4step import _TileStep
 from .wave import PaddedLayout, StencilTables, axis_cv_tables
@@ -243,9 +249,13 @@ def lf2_step_cuda(
                       vplus1=vplus1, vplus2=vplus2)
     _cuda.check_no_alias((u2, v2, u1, vplus1, vplus2), (u0, v0))
     face = (layout, c0, st, w1, w2, src_x, abc_x)
-    launch_lf_phase(lf2_step_cuda, LF_OPEN, u0, v0, u1, vplus1, dt, g0, *face)
-    launch_lf_phase(lf2_step_cuda, LF_MID, u1, vplus1, u2, vplus2, dt, g1, *face)
-    launch_lf_phase(lf2_step_cuda, LF_CLOSE, u2, vplus2, None, v2, dt, g2, *face)
+    r_open, r_mid, r_close = phase_rings(layout, 3)
+    launch_lf_phase(lf2_step_cuda, LF_OPEN, u0, v0, u1, vplus1, dt, g0, *face,
+                    ring=r_open)
+    launch_lf_phase(lf2_step_cuda, LF_MID, u1, vplus1, u2, vplus2, dt, g1, *face,
+                    ring=r_mid)
+    launch_lf_phase(lf2_step_cuda, LF_CLOSE, u2, vplus2, None, v2, dt, g2, *face,
+                    ring=r_close)
     return u2, v2
 
 

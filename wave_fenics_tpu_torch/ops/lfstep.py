@@ -20,6 +20,12 @@ Implementations:
   TMA plane loads on the tiling of ``tiling.tma_geometry``), two launches
   per step (OPEN, CLOSE).
 
+On a value-halo layout (the distributed leapfrog's halo = 2p of neighbour
+values) the plain version computes what the TPU kernel computes over the
+whole padded plane; the kernel's phases write the interior grown by their
+rings (:func:`phase_rings`: OPEN's u1 and v+ to depth p, where CLOSE reads
+them) and zeros beyond. Both agree on the interior.
+
 :func:`lf_step` dispatches on the tensor's device: CPU -> plain, CUDA ->
 kernel (or raise).
 """
@@ -51,6 +57,7 @@ __all__ = [
     "lf_step_plain",
     "lf_step_cuda",
     "lf_launch_args",
+    "phase_rings",
     "LF_OPEN",
     "LF_MID",
     "LF_CLOSE",
@@ -237,35 +244,54 @@ def lf_step_plain(
     return ts.finish(u1, v1)
 
 
+def phase_rings(layout: PaddedLayout, phases: int) -> tuple[int, ...]:
+    """The rings of a call's ``phases`` phase launches (kernel H: OPEN,
+    CLOSE; kernel I: OPEN, MID, CLOSE) on ``layout``: all 0 on one device;
+    on a value-halo layout phase k writes to depth (phases - 1 - k) p, the
+    depth at which the next phase reads its u at the taps, so the halo must
+    be phases x p deep."""
+    p = layout.p
+    if not layout.value_halo:
+        return (0,) * phases
+    if layout.h < phases * p:
+        raise ValueError(f"a value halo of {layout.h} < {phases}p = {phases * p}: "
+                         f"{phases} leapfrog phases read u {phases}p deep")
+    return tuple((phases - 1 - k) * p for k in range(phases))
+
+
 def lf_launch_args(
     phase: int, u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor | None,
     v_out: torch.Tensor, dt: float, g: float, layout: PaddedLayout, c0: float,
     st: StencilTables, w1: torch.Tensor, w2: torch.Tensor, src_x: int, abc_x: int,
+    ring: int = 0,
 ) -> tuple:
     """The arguments of the C launcher ``wave_lf_phase_tiled`` (kernels H
     and I) up to the stream: the phase, the fields (``u_out`` None in
-    CLOSE), the face planes and rows, the scalars, the stencil, then the
-    tiling of ``tiling.tma_geometry`` (``fields=1, extra=0``: one TMA box
-    of u a plane) on this card and ``tiling.tma_padding_first``."""
-    grid, ty, tz, cx, smem = tma_launch_geometry(u, layout, 1, 0)
+    CLOSE), the face planes and rows, the scalars, the stencil on the
+    interior grown by ``ring`` (:func:`phase_rings`), then the tiling of
+    ``tiling.tma_geometry`` (``fields=1, extra=0``: one TMA box of u a
+    plane) of that box on this card and ``tiling.tma_padding_first``."""
+    grid, ty, tz, cx, smem = tma_launch_geometry(u, layout, 1, 0, box_ring=ring)
+    tiling.check_tma_launch(layout, u.element_size(), ty, tz, smem, ring)
     sms = tiling.sm_count(u.device.index) if u.is_cuda else tiling.H100_SMS
     first = tiling.tma_padding_first(grid, u.element_size(), sms)
     return (phase, u, v, 0 if u_out is None else u_out, v_out, w1, w2, int(src_x),
-            int(abc_x), float(dt), float(g), float(c0), *stencil_args(layout, st),
-            ty, tz, cx, *grid, smem, int(first))
+            int(abc_x), float(dt), float(g), float(c0),
+            *stencil_args(layout, st, ring), ty, tz, cx, *grid, smem, int(first))
 
 
 def launch_lf_phase(
     kernel, phase: int, u: torch.Tensor, v: torch.Tensor,
     u_out: torch.Tensor | None, v_out: torch.Tensor, dt: float, g: float,
     layout: PaddedLayout, c0: float, st: StencilTables, w1: torch.Tensor,
-    w2: torch.Tensor, src_x: int, abc_x: int,
+    w2: torch.Tensor, src_x: int, abc_x: int, ring: int = 0,
 ) -> None:
     """One launch of ``lf_phase_tiled_kernel`` (kernels H and I; operands
-    checked by the caller); adds one to ``kernel.launches``. CLOSE writes
-    v_out only (``u_out`` None)."""
+    checked by the caller) over the interior grown by ``ring``; adds one to
+    ``kernel.launches``. CLOSE writes v_out only (``u_out`` None)."""
     _cuda.launch("wave_lf_phase_tiled", u.dtype, u.device, *lf_launch_args(
-        phase, u, v, u_out, v_out, dt, g, layout, c0, st, w1, w2, src_x, abc_x))
+        phase, u, v, u_out, v_out, dt, g, layout, c0, st, w1, w2, src_x, abc_x,
+        ring))
     kernel.launches += 1
 
 
@@ -314,8 +340,11 @@ def lf_step_cuda(
                       vplus=scratch)
     _cuda.check_no_alias((u1, v1, scratch), (u0, v0))
     face = (layout, c0, st, w1, w2, src_x, abc_x)
-    launch_lf_phase(lf_step_cuda, LF_OPEN, u0, v0, u1, scratch, dt, g0, *face)
-    launch_lf_phase(lf_step_cuda, LF_CLOSE, u1, scratch, None, v1, dt, g1, *face)
+    r_open, r_close = phase_rings(layout, 2)
+    launch_lf_phase(lf_step_cuda, LF_OPEN, u0, v0, u1, scratch, dt, g0, *face,
+                    ring=r_open)
+    launch_lf_phase(lf_step_cuda, LF_CLOSE, u1, scratch, None, v1, dt, g1, *face,
+                    ring=r_close)
     return u1, v1
 
 

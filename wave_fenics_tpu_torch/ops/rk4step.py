@@ -24,6 +24,14 @@ Implementations:
   ``lean`` argument set or clear), four launches per step, one per stage,
   on the tiling of :func:`tiling.tiled_geometry`.
 
+On a value-halo layout (``PaddedLayout.value_halo``: the distributed
+step path's halo = 3p of neighbour values) the plain versions compute what
+the TPU kernel computes, tile by tile over the whole padded plane; the
+kernels write each stage over the interior grown by its ring
+(:func:`stage_rings`) and zeros beyond it. Both agree on the interior,
+which is all a step's result is: the halo is refreshed from the
+neighbours before the next step.
+
 :func:`rk4_step_lean` and :func:`rk4_step_full` dispatch on the tensor's
 device: CPU -> plain, CUDA -> kernel (or raise).
 """
@@ -58,6 +66,7 @@ __all__ = [
     "rk4_step_full_cuda",
     "rk4_step_full",
     "stage_launch_args",
+    "stage_rings",
 ]
 
 _RK_A = (0.0, 0.5, 0.5, 1.0)
@@ -393,21 +402,41 @@ def rk4_step_full_plain(
     return ts.finish(u1, v1)
 
 
+def stage_rings(layout: PaddedLayout) -> tuple[tuple[int, int, int, int], int]:
+    """(the rings of the four stage launches, the load ring) of kernels A
+    and C on ``layout``. One device: all 0 (the interior, zero padding
+    around it). A value-halo layout: stages 0 and 1 write kv0 and kv1 to
+    depth p, since stage 2 forms un2 from kv0 and stage 3 un3 from kv1 at
+    their taps; stages 2 and 3 the interior; each reads the p-deep ring of
+    values around its box. A step's result then depends on (u0, v0) within
+    2p of a point, so the halo must be at least 2p deep."""
+    p = layout.p
+    if not layout.value_halo:
+        return (0, 0, 0, 0), 0
+    if layout.h < 2 * p:
+        raise ValueError(f"a value halo of {layout.h} < 2p = {2 * p}: an RK4 step "
+                         "reads (u0, v0) 2p deep")
+    return (p, p, 0, 0), p
+
+
 def stage_launch_args(stage, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,
-                      src_x, abc_x, dt, g, c0, layout, st, geometry=None) -> tuple:
+                      src_x, abc_x, dt, g, c0, layout, st, geometry=None,
+                      ring: int = 0, load: int = 0) -> tuple:
     """The arguments of the C launchers ``wave_rk4_stage``/
     ``wave_rk4_full_stage`` (kernels A and C, and kernel J's stages) for
     stage ``stage``, up to the stream: the fields, the face rows and
-    scalars, the stencil, then the tiling: ``geometry`` (a result of
-    :func:`tiled_geometry`, as a tiling sweep passes it) or else
-    :func:`tiled_geometry` at its default limits on this card."""
+    scalars, the stencil on the interior grown by ``ring`` with the
+    ``load`` ring around it (:func:`stage_rings`), then the tiling:
+    ``geometry`` (a result of :func:`tiled_geometry`, as a tiling sweep
+    passes it) or else :func:`tiled_geometry` of the box at its default
+    limits on this card."""
     if geometry is None:
         sms = sm_count(u0.device.index) if u0.is_cuda else H100_SMS
-        geometry = tiled_geometry(layout, u0.element_size(), sms)
+        geometry = tiled_geometry(layout, u0.element_size(), sms, ring=ring)
     grid, ty, tz, cx, smem = geometry
     return (int(stage), u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,
             int(src_x), int(abc_x), float(dt), float(g), float(c0),
-            *stencil_args(layout, st), ty, tz, cx, *grid, smem)
+            *stencil_args(layout, st, ring), int(load), ty, tz, cx, *grid, smem)
 
 
 def _rk4_step_cuda(
@@ -434,11 +463,12 @@ def _rk4_step_cuda(
     )
     check_stencil(layout, st, dev, dtype)
     _cuda.check_no_alias((u1, v1, kv0, kv1, kv2), (u0, v0))
+    rings, load = stage_rings(layout)
     for j in range(4):
         kv_out = scratch[j] if j < 3 else kv2  # stage 3 writes u1, v1
         _cuda.launch(launcher, dtype, dev, *stage_launch_args(
             j, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2, src_x, abc_x,
-            dt, gs[j], c0, layout, st))
+            dt, gs[j], c0, layout, st, ring=rings[j], load=load))
         kernel.launches += 1
     return u1, v1
 
@@ -459,8 +489,9 @@ def rk4_step_lean_cuda(
     scratch: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One lean RK4 step with the CUDA kernel A: four launches, one per
-    stage. ``w1``/``w2`` are the [1, F] facet planes (StepTables.W1/W2),
-    ``src_x``/``abc_x`` their padded x rows. ``out`` = (u1, v1) and
+    stage, each over the box of :func:`stage_rings`. ``w1``/``w2`` are the
+    [1, F] facet planes (StepTables.W1/W2), ``src_x``/``abc_x`` their padded
+    x rows (-1 where the layout holds no such face). ``out`` = (u1, v1) and
     ``scratch`` = (kv0, kv1, kv2) are reused when given (the caller
     allocates them once); ``out`` must not alias (u0, v0), because stage 3
     reads the neighbours of u0 while it writes u1."""

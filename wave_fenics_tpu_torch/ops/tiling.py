@@ -123,9 +123,10 @@ def _chunks(Nx, p, tiles, slots, chunk_x):
 
 def tiled_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
                    tile_z: int = TILE_Z, tile_threads: int = TILE_THREADS,
-                   chunk_x: tuple[int, int] = CHUNK_X):
+                   chunk_x: tuple[int, int] = CHUNK_X, ring: int = 0):
     """(grid, TY, TZ, CX, smem_bytes) of kernel A's stage kernel on
-    ``layout``.
+    ``layout``'s box grown by ``ring`` (``PaddedLayout.box``: the interior
+    for ``ring = 0``).
 
     The tiles are as even as the interior allows (at most ``tile_z`` along
     z, at most ``tile_threads`` points), so a ragged last tile loses little.
@@ -134,7 +135,8 @@ def tiled_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
     ``smem_bytes`` holds PIPE planes of PLANE_FIELDS fields over the tile
     and its p-deep y/z halo, in ``itemsize``-byte values, and the window's
     table of int32 offsets."""
-    return _tiled_geometry(tuple(layout.shape), layout.p, itemsize, sms,
+    _, nx, _, ny, nz = layout.box(ring)
+    return _tiled_geometry((nx, ny, nz), layout.p, itemsize, sms,
                            tile_z, tile_threads, tuple(chunk_x))
 
 
@@ -209,8 +211,10 @@ def tma_smem_bytes(window, itemsize: int, fields: int, extra: int,
 
 
 def tma_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
-                 fields: int = 1, extra: int = 0, ring: int = RING):
-    """(grid, TY, TZ, CX, smem_bytes) of a TMA tile kernel on ``layout``:
+                 fields: int = 1, extra: int = 0, ring: int = RING,
+                 box_ring: int = 0):
+    """(grid, TY, TZ, CX, smem_bytes) of a TMA tile kernel on ``layout``'s
+    box grown by ``box_ring`` (``PaddedLayout.box``; the interior for 0):
     kernels B, E, H and I take one field a plane (``fields=1, extra=0``),
     kernel G one and two z-contracted planes (``fields=1, extra=2``; its
     launch adds cvx of a chunk's rows, ``ops/mass.py``), kernel D two
@@ -222,8 +226,9 @@ def tma_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
     grid has PADDING_LAYERS more layers of x-chunks than the tiling needs:
     their blocks write the outputs' padding while the tile blocks stream
     (``stencil_tiled.cuh::padding_block``)."""
-    return _tma_geometry(tuple(layout.shape), layout.p, layout.h, itemsize, sms,
-                         fields, extra, ring)
+    _, nx, h, ny, nz = layout.box(box_ring)
+    return _tma_geometry((nx, ny, nz), layout.p, h, itemsize, sms, fields, extra,
+                         ring)
 
 
 @functools.cache
@@ -260,20 +265,22 @@ def tma_padding_first(grid, itemsize: int = 4, sms: int = H100_SMS) -> bool:
 
 
 def check_tma_launch(layout: PaddedLayout, itemsize: int, ty: int, tz: int,
-                     smem: int) -> None:
+                     smem: int, box_ring: int = 0) -> None:
     """Raise a ValueError naming the condition a TMA tile kernel's launch on
-    ``layout`` breaks (``stencil_tiled.cuh::tma_fits``, the launchers'
-    rules): every tap of an interior point inside the state, the rows of
-    the state a multiple of 16 bytes (the tensor map's pitch), the box
-    within BOX_MAX, the shared memory within SMEM_LIMIT."""
+    ``layout``'s box grown by ``box_ring`` breaks (``stencil_tiled.cuh::
+    tma_fits``, the launchers' rules): every tap of a point of the box
+    inside the state, the rows of the state a multiple of 16 bytes (the
+    tensor map's pitch), the box within BOX_MAX, the shared memory within
+    SMEM_LIMIT."""
     p, Lz = layout.p, layout.padded_shape[2]
     if layout.x0 < p or layout.h < p:
         raise ValueError(f"tile_x = {layout.tile_x} and the y/z padding {layout.h} "
                          f"must be >= p = {p}")
+    x0, _, h, _, _ = layout.box(box_ring)
     if (Lz * itemsize) % 16:
         raise ValueError(f"a padded z row of {Lz} x {itemsize} bytes is no multiple "
                          "of 16 bytes (the TMA tensor map's row pitch)")
-    W, BY, _, _ = tma_window(layout.h, p, ty, tz, itemsize)
+    W, BY, _, _ = tma_window(h, p, ty, tz, itemsize)
     if W > BOX_MAX or BY > BOX_MAX:
         raise ValueError(f"the plane window {W} x {BY} exceeds the TMA box's "
                          f"{BOX_MAX} points along an axis")

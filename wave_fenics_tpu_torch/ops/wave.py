@@ -60,6 +60,7 @@ __all__ = [
     "build_tables",
     "build_tables_flat",
     "stencil_tables",
+    "stencil_tables_from_cv",
     "apply_flat",
     "apply_flat_plain",
     "apply_flat_cuda",
@@ -84,23 +85,46 @@ def _r8(n):
 class PaddedLayout:
     """Aligned padded storage for a dof grid [Nx, Ny, Nz].
 
-    Interior at offset (tile_x, p, p); padded dims:
-    x = (ceil(Nx/tile_x) + 2) * tile_x, y = r8(Ny + 2p), and z rounded
+    Interior at offset (tile_x, h, h); padded dims:
+    x = (ceil(Nx/tile_x) + 2) * tile_x, y = r8(Ny + 2h), and z rounded
     to ``z_align``. The alignments are the TPU's DMA rules, kept so that
-    padded states match the JAX package's element for element. The padding
-    beyond the interior must stay zero; operators preserve this invariant.
+    padded states match the JAX package's element for element.
+
+    ``halo`` defaults to p (one device: zero padding the stencils fall
+    off). The distributed value-halo layouts (``parallel/sharded_padded.py``)
+    take halo = 3p (RK4 step, 2-step leapfrog) or 2p (leapfrog step): the
+    halo then holds the neighbour blocks' values, exchanged once per kernel
+    call, and the kernels also compute into it (:meth:`box`). The padding
+    beyond the valid halo must stay zero; operators preserve this invariant.
     """
 
     shape: tuple[int, int, int]
     p: int
     tile_x: int = 16
     z_align: int = 128
+    halo: int | None = None
 
     @property
     def h(self) -> int:
-        """y/z padding depth: p (the distributed layouts' deeper halo is not
-        ported)."""
-        return self.p
+        """y/z padding depth: p, or ``halo`` where given."""
+        return self.p if self.halo is None else self.halo
+
+    @property
+    def value_halo(self) -> bool:
+        """Whether the halo is deeper than the stencil's reach: a
+        distributed layout whose halo carries neighbour values."""
+        return self.h > self.p
+
+    def box(self, ring: int = 0) -> tuple[int, int, int, int, int]:
+        """(x0, nx, h, ny, nz) of the interior grown by ``ring`` points on
+        every side: the output box of a kernel launch that also writes
+        that deep into the halo (0: the interior)."""
+        Nx, Ny, Nz = self.shape
+        if ring < 0 or ring > self.h - self.p or ring > self.x0 - self.p:
+            raise ValueError(f"ring {ring}: a launch box grows at most h - p = "
+                             f"{self.h - self.p} into the halo")
+        return (self.x0 - ring, Nx + 2 * ring, self.h - ring, Ny + 2 * ring,
+                Nz + 2 * ring)
 
     @property
     def ntx(self) -> int:
@@ -282,12 +306,22 @@ def stencil_tables(
     stencil (``csrc/stencil.cuh``): the banded x coefficients as they are,
     and the y/z coefficients with the z/y lines folded in exactly as the TPU
     step kernel's tables fold them (``build_step_tables_from_cv``)."""
+    return stencil_tables_from_cv(
+        layout, *axis_cv_tables(layout, A, lines, coeff, inv_m_lines), dtype)
+
+
+def stencil_tables_from_cv(
+    layout: PaddedLayout,
+    cvx: np.ndarray, cvy: np.ndarray, cvz: np.ndarray,
+    pLx: np.ndarray, pLy: np.ndarray, pLz: np.ndarray,
+    dtype=np.float32,
+) -> tuple[np.ndarray, ...]:
+    """:func:`stencil_tables` from padded coefficient and line vectors
+    (those of :func:`axis_cv_tables`, or a block's slices of the global
+    ones with their halo, ``parallel/sharded_padded.py``)."""
     Lx, Ly, Lz = layout.padded_shape
     F = Ly * Lz
     npdt = numpy_dtype(dtype)
-    cvx, cvy, cvz, pLx, pLy, pLz = axis_cv_tables(
-        layout, A, lines, coeff, inv_m_lines
-    )
     gz = np.tile(pLz, Ly).reshape(1, F)
     gy = np.repeat(pLy, Lz).reshape(1, F)
     return (
@@ -379,11 +413,11 @@ def apply_flat_plain(
     return out.reshape(Lx, Ly, Lz)
 
 
-def stencil_args(layout: PaddedLayout, st: StencilTables) -> tuple:
-    """The stencil arguments of the C launchers (csrc/stencil.cuh order)."""
+def stencil_args(layout: PaddedLayout, st: StencilTables, ring: int = 0) -> tuple:
+    """The stencil arguments of the C launchers (csrc/stencil.cuh order),
+    the box the interior grown by ``ring`` (:meth:`PaddedLayout.box`)."""
     Lx, Ly, Lz = layout.padded_shape
-    Nx, Ny, Nz = layout.shape
-    return (*st, layout.p, Lx, Ly, Lz, layout.x0, Nx, layout.h, Ny, Nz)
+    return (*st, layout.p, Lx, Ly, Lz, *layout.box(ring))
 
 
 def check_stencil(layout: PaddedLayout, st: StencilTables, device, dtype) -> None:
@@ -528,11 +562,13 @@ def apply_slab_plain(
 
 
 def tma_launch_geometry(x: torch.Tensor, layout: PaddedLayout, fields: int,
-                        extra: int, ring: int = tiling.RING):
-    """``tiling.tma_geometry`` of ``layout`` for ``x``'s type on ``x``'s card
-    (the H100's SM count for a tensor that is not on a card)."""
+                        extra: int, ring: int = tiling.RING, box_ring: int = 0):
+    """``tiling.tma_geometry`` of ``layout`` (its box grown by ``box_ring``)
+    for ``x``'s type on ``x``'s card (the H100's SM count for a tensor that
+    is not on a card)."""
     sms = tiling.sm_count(x.device.index) if x.is_cuda else tiling.H100_SMS
-    return tiling.tma_geometry(layout, x.element_size(), sms, fields, extra, ring)
+    return tiling.tma_geometry(layout, x.element_size(), sms, fields, extra, ring,
+                               box_ring)
 
 
 def slab_launch_args(xp, out, layout: PaddedLayout, tables) -> tuple:

@@ -1,0 +1,159 @@
+"""Multi-process runs on ``torch.distributed``.
+
+Port of ``wave_fenics_tpu.parallel.distributed``. The reference binds one
+MPI rank per GPU (demo/gpu_cg/main.cpp:31-50, common/cuda/utils.hpp:22-38);
+here each process joins one process group (NCCL between cards, gloo on the
+CPU) and drives the blocks it owns, on its own device.
+:class:`ProcessGroupExchange` is ``halo.Exchange`` across processes: a slab
+between blocks of one process is copied as ``halo.LocalExchange`` copies
+it, a slab between processes goes by ``dist.batch_isend_irecv``.
+
+Nothing tells a process of a cluster: :func:`initialize` takes the address,
+the world size and the rank from its arguments or from the environment
+(``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .halo import copy_to
+from .partition import BlockMesh, Blocks, decompose3d
+
+__all__ = [
+    "initialize",
+    "global_device_mesh",
+    "process_summary",
+    "ProcessGroupExchange",
+]
+
+
+def initialize(device: str | torch.device | None = None, **kwargs) -> None:
+    """Join the process group (a no-op when already in one, or for a
+    single process: no ``init_method`` given and no ``WORLD_SIZE`` in the
+    environment). The backend is NCCL for a CUDA ``device`` (the default
+    where a card is visible), gloo for the CPU; ``kwargs`` go to
+    ``dist.init_process_group`` (``init_method``, ``world_size``,
+    ``rank``)."""
+    if dist.is_initialized():
+        return
+    if "init_method" not in kwargs and "WORLD_SIZE" not in os.environ:
+        return
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend=backend, **kwargs)
+
+
+def _local_device() -> torch.device:
+    """This process's device: the card of its local rank on NCCL, else the
+    CPU."""
+    if dist.is_initialized() and dist.get_backend() == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        return torch.device("cuda", local % torch.cuda.device_count())
+    return torch.device("cpu")
+
+
+def global_device_mesh(parts: tuple[int, int, int] | None = None) -> BlockMesh:
+    """The block mesh of all processes: ``parts`` (default one block per
+    process, factored near-cubically by ``decompose3d``), each block on its
+    owner's device (``ProcessGroupExchange.owner``; a process sees only its
+    own blocks, so the others carry its device too)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if parts is None:
+        parts = decompose3d(world)
+    n = int(np.prod(parts))
+    if n < world:
+        raise ValueError(f"{n} blocks for {world} processes: each process needs one")
+    return BlockMesh(tuple(parts), (_local_device(),) * n)
+
+
+def process_summary() -> str:
+    """Rank/size/device line (the reference's startup prints)."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    backend = dist.get_backend() if dist.is_initialized() else "none"
+    return (f"process {rank}/{world}, backend: {backend}, device: "
+            f"{_local_device()}")
+
+
+class ProcessGroupExchange:
+    """``halo.Exchange`` over the current process group: block b belongs to
+    process ``owner(b)`` = b * world // nblocks (contiguous runs of blocks
+    in C order), which holds it on ``mesh.devices[b]``."""
+
+    def __init__(self, mesh: BlockMesh, group=None):
+        if not dist.is_initialized():
+            raise ValueError("ProcessGroupExchange needs a process group: call "
+                             "distributed.initialize first")
+        self.mesh = mesh
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.world = dist.get_world_size(group)
+        if mesh.nblocks < self.world:
+            raise ValueError(f"{mesh.nblocks} blocks for {self.world} processes")
+
+    def owner(self, b: int) -> int:
+        return b * self.world // self.mesh.nblocks
+
+    @property
+    def local_blocks(self) -> list[int]:
+        return [b for b in range(self.mesh.nblocks) if self.owner(b) == self.rank]
+
+    def swap(self, axis, to_left, to_right):
+        """The messages of one axis in one order on every process (block,
+        then direction), tagged by receiving block and direction, so both
+        gloo's tags and NCCL's in-order matching pair them."""
+        n = self.mesh.nblocks
+        from_left, from_right = Blocks([None] * n), Blocks([None] * n)
+        ops = []
+        for b in range(n):
+            for step, src, dst in ((-1, to_left, from_right), (+1, to_right, from_left)):
+                nb = self.mesh.neighbour(b, axis, step)
+                if nb is None:
+                    continue
+                tag = 2 * nb + (1 if step < 0 else 0)
+                mine, theirs = self.owner(b) == self.rank, self.owner(nb) == self.rank
+                if mine and theirs:
+                    dst[nb] = copy_to(src[b], self.mesh.devices[nb])
+                elif mine:
+                    ops.append(dist.P2POp(dist.isend, src[b].contiguous(),
+                                          self.owner(nb), self.group, tag))
+                elif theirs:
+                    # the slab has the shape of the receiver's own slab of
+                    # the same direction
+                    buf = torch.empty_like(src[nb], memory_format=torch.contiguous_format)
+                    ops.append(dist.P2POp(dist.irecv, buf, self.owner(b), self.group,
+                                          tag))
+                    dst[nb] = buf
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return from_left, from_right
+
+    def swap_into(self, axis, to_left, to_right, into_left, into_right):
+        """:meth:`swap` (every slab taken before any view is written), then
+        each received slab copied into its view."""
+        from_left, from_right = self.swap(axis, to_left, to_right)
+        for b in self.local_blocks:
+            if from_left[b] is not None:
+                into_left[b].copy_(from_left[b])
+            if from_right[b] is not None:
+                into_right[b].copy_(from_right[b])
+
+    def allreduce(self, x):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x
+
+    def gather(self, blocks):
+        mine = {b: blocks[b].detach().cpu().numpy() for b in self.local_blocks}
+        parts = [None] * self.world
+        dist.all_gather_object(parts, mine, group=self.group)
+        out = {}
+        for d in parts:
+            out.update(d)
+        return [out[b] for b in range(self.mesh.nblocks)]

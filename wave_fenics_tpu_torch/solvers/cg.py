@@ -12,6 +12,10 @@ Semantics kept: the start r0 = b - A x0 (one matvec even when x0 = 0), the
 stopping rule rnorm / rnorm0 < rtol^2 on squared norms (rtol^2 formed in
 the residual's dtype), the cap kmax, the standard p <- z + beta p update
 (the reference adds p into r at cg.hpp:116-117; that slip is not copied).
+
+``dot`` replaces the inner product: the distributed CG of
+``parallel.sharded_wave`` passes its ownership-weighted, all-reduced dot
+and runs on ``parallel.partition.Blocks`` vectors (with ``x0`` given).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ def cg(
     kmax: int = 50,
     rtol: float = 1e-8,
     precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
 ):
     """Solve A x = b with (preconditioned) CG. Returns (x, k, rnorm2): the
     solution, the iterations taken (a Python int) and the last squared
@@ -42,23 +47,24 @@ def cg(
     """
     x = torch.zeros_like(b) if x0 is None else x0
     M = precond if precond is not None else (lambda r: r)
+    inner = inner_product if dot is None else dot
 
     r = b - matvec(x)
     z = M(r)
     p = z
-    rnorm0 = inner_product(r, r)
-    rz = inner_product(r, z)
+    rnorm0 = inner(r, r)
+    rz = inner(r, z)
     rnorm = rnorm0
     rtol2 = torch.tensor(rtol, dtype=rnorm0.dtype) ** 2
     k = 0
     while k < kmax and bool(rnorm / rnorm0 >= rtol2):
         y = matvec(p)
-        alpha = rz / inner_product(p, y)
+        alpha = rz / inner(p, y)
         x = x + alpha * p
         r = r - alpha * y
         z = M(r)
-        rnorm = inner_product(r, r)
-        rz_new = inner_product(r, z)
+        rnorm = inner(r, r)
+        rz_new = inner(r, z)
         beta = rz_new / rz
         rz = rz_new
         p = z + beta * p
