@@ -6,8 +6,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (numbered in the order they were added; 12 and 13 run after 6, 14
-and 17 after 8, 15 inside 11, after P9, on the P8 model, 16 inside 10); any
-failure raises, so
+and 17 after 8, 15 inside 11, after P9, on the P8 model, 16 inside 10, 18
+inside 15, after P18); any failure raises, so
 the script exits non-zero and never prints its last line:
 
 1. device: a CUDA card, its name and power limit (nvidia-smi), TF32 off
@@ -190,13 +190,37 @@ the script exits non-zero and never prints its last line:
     ``LinearWave``, with its exchange share; and the app's ``--ndev 4`` at the P1 configuration, RK4
     (A: 4 x (1,489 + 1) x 4 launches) and leapfrog (H: 2 x (2,098 + 1) x 4),
     with the JAX app's ``solver_path`` strings, |u| within 1e-4 of P1's and
-    P2's.
+    P2's;
+18. the distributed imported mesh (``parallel/sharded_general.py``, P21):
+    P16's mesh (the perturbed 64x32x32-cell box, p=4, f32, 4,276,737 dofs)
+    on 4 RCB parts, all on this card (so the numbers are the one-card cost
+    of the assembly and of the per-part launches, not scaling): the host
+    set-up's seconds and the parts' cells, dofs, interface slots, colours
+    and rounds; kernel K on each part's own tables from an output full of
+    NaN against its plain version within 1e-5 of max|ref|, two applies
+    bitwise equal, its time against the bound at the part's bytes; 100
+    RK4 steps with ``allgather`` and with ``ppermute`` and 100 leapfrog
+    steps with ``auto``, each K launch counted (4 parts x 4 x 100; 4 x
+    101), within 1e-4 of ``GeneralLinearWave.solve_n`` on the card, the two
+    modes within 1e-6 of each other, ms/step beside one device's, the
+    assembly's share of a step (CUDA events around every assembly inside
+    the timed solve) and the idle share (the profiler over 20 steps); f64 on
+    the 6x4x4 perturbed box, p=4, 8 parts, within 1e-12 of one device; the
+    app's ``--mesh --ndev 4``, RK4 to tf (K 4 x 4 x (steps + 1)) with |u|
+    within 1e-4 of P16's, and leapfrog 400 steps in chunks of 100, then
+    again from the snapshot of step 200 (K 4 x (400 + 4 + 2), 4 x (200 + 2
+    + 2)), each within 1e-5 of one unchunked 4-part solve, which is within
+    1e-4 of one device's;
+    ``cg_bench.run(op="general", s=16, degree=4, ndev=4)``, iterations
+    within 1 of one device's; ``scatter_bench`` local and halo at size 64,
+    general-halo at size 32 with both modes, launching no kernel.
 
 It prints one JSON line of per-kernel results ("kernels": all eleven
 kernels, each with the launches of its path's run, J's step boundary
 alone, and the three set-up kernels with P16's launches; kernel B's path
 is the f1-path RK4 check; K's and F's include phase 15's; A, B, E, F, H
-and I add phase 17's sharded runs, listed under ``sharded_launches``) and,
+and I add phase 17's sharded runs and K phase 18's, listed under
+``sharded_launches``; K's entry also lists P21's parts) and,
 last, one JSON line ``{"ok": true, "device":
 {...}}``. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -2121,6 +2145,245 @@ def main() -> None:
               f"[{smi}]")
         del u18, v18, fields
 
+        # -- 18. the distributed imported mesh: P21 --------------------------
+        # P16's mesh on 4 RCB parts, every part on this card: the numbers are
+        # the one-card cost of the assembly and of the per-part launches, not
+        # scaling
+        from wave_fenics_tpu_torch.benchmarks import scatter_bench
+        from wave_fenics_tpu_torch.parallel.sharded_general import ShardedGeneralWave
+
+        phase(f"P21 sharded general set-up: P16's mesh ({NDOFS:,} dofs) on 4 RCB parts")
+        t0 = time.perf_counter()
+        sw21 = ShardedGeneralWave(gmodel, 4, exchange="allgather")
+        s21 = sw21._setup
+        t1 = time.perf_counter()
+        ns21 = sw21._nbr_setup
+        t2 = time.perf_counter()
+        tb21 = sw21.prepare()._tables
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        setup21 = {"partition_and_tables_s": t1 - t0, "pairwise_tables_s": t2 - t1,
+                   "device_tables_s": t3 - t2}
+        auto21 = "ppermute" if ns21["NR"] * ns21["Sb"] < 4 * s21["S"] else "allgather"
+        parts21 = [dict(part=i, cells=t.ncells, dofs=t.ndofs, colours=t.ncolours,
+                        interface_slots=len(s21["bidx"][i]))
+                   for i, t in tb21["K"].items()]
+        print(f"P21 set-up (host NumPy, then the parts' tables on the card): "
+              f"{json.dumps(setup21)}; S = {s21['S']} slots, K = {s21['K']} other copies "
+              f"at most, {ns21['NR']} rounds of buckets up to {ns21['Sb']} slots, "
+              f"auto -> {auto21}; dofs held by 3+ parts: "
+              f"{int((s21['counts'] >= 3).sum())}")
+        print("P21 parts: " + json.dumps(parts21))
+        check(sum(p["cells"] for p in parts21) == gmodel.mesh.ncells, "P21 parts' cells")
+
+        phase("P21 kernel K on each part against its plain version, from NaN")
+        for info, (i, t) in zip(parts21, tb21["K"].items()):
+            x = random_dofs(t.ndofs, 210 + i, torch.float32)
+            yk = general.general_apply_cuda(x, t, -C0SQ, out=torch.full_like(x, float("nan")))
+            yk2 = general.general_apply_cuda(x, t, -C0SQ)
+            yp = general.general_apply_plain(x, t, -C0SQ)
+            torch.cuda.synchronize()
+            err, rel = rel_err(yk, yp)
+            bitwise = bool(torch.equal(yk, yk2))
+            out_k = torch.empty_like(x)
+            ms = 1e3 * timeit(_cuda.launcher(_cuda.library(), "wave_general_apply", x.dtype,
+                                             dev, *general.launch_args(x, out_k, t, -C0SQ)),
+                              reps=200)
+            bms, by = k_bound(t, 4)
+            info.update(max_abs_err=err, rel_err=rel, ms=ms, bound_ms=bms, bound_by=by)
+            print(f"P21 part {i}: {t.ncells} cells, {t.ndofs} dofs, {t.ncolours} colours; "
+                  f"K against plain {rel:.3e} (limit 1e-5), two applies bitwise equal: "
+                  f"{bitwise}; {ms:.4f} ms/apply, bound {bms:.4f} ms ({by}) [{smi}]")
+            check(rel <= 1e-5 and bitwise and bool(torch.isfinite(yk).all()),
+                  f"P21 part {i}: kernel K against its plain version")
+            del x, yk, yk2, yp, out_k
+
+        def timed_assembly(sw):
+            """CUDA events around every assembly (packing, the collective and
+            the adds) of ``sw``'s solves until ``del sw._assemble``."""
+            spans, inner = [], sw._assemble
+
+            def assemble(b):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = inner(b)
+                ev[1].record()
+                spans.append(ev)
+                return out
+
+            sw._assemble = assemble
+            return spans
+
+        phase(f"P21 sharded solves at {NDOFS:,} dofs (f32, 4 parts, 100 steps) against one "
+              "device; f64 on the 6x4x4 perturbed box on 8 parts")
+        dt21, dt21lf = p16["dt"], p17["dt"]
+        one21 = {}
+        for integrator, dtx in (("rk4", dt21), ("leapfrog", dt21lf)):
+            tm1 = Timer(dev)
+            with tm1("one"):
+                one21[integrator] = gmodel.solve_n(0.0, dtx, 100, integrator=integrator)
+            one21[integrator + "_ms"] = 1e3 * tm1.seconds("one") / 100
+        p21, v21g, p21_k = {}, {}, {}
+        for label, mode, integrator, dtx in (("rk4 allgather", "allgather", "rk4", dt21),
+                                             ("rk4 ppermute", "ppermute", "rk4", dt21),
+                                             ("leapfrog auto", "auto", "leapfrog", dt21lf)):
+            t0 = time.perf_counter()
+            sw = ShardedGeneralWave(gmodel, 4, exchange=mode).prepare()
+            torch.cuda.synchronize()
+            set_s = time.perf_counter() - t0
+            sw.solve_n(0.0, dtx, 1, integrator=integrator)  # first launches
+            spans = timed_assembly(sw)
+            tm = Timer(dev)
+            zero_counts()
+            with tm("solve"):
+                u, v, _ = sw.solve_n(0.0, dtx, 100, integrator=integrator)
+            counts = read_counts()
+            asm_ms = sum(a.elapsed_time(b) for a, b in spans) / 100
+            del sw._assemble
+            only_k(counts, 4 * (4 * 100 if integrator == "rk4" else 100 + 1), f"P21 {label}")
+            p21_k[f"P21 {label}"] = counts["K"]
+            ms_step = 1e3 * tm.seconds("solve") / 100
+            ur, vr = one21[integrator]
+            _, rel = state_err(torch.as_tensor(sw.to_global(u)),
+                               torch.as_tensor(sw.to_global(v)), ur.cpu(), vr.cpu())
+            v21g[label] = sw.to_global(v)
+            rec = dict(exchange=sw.exchange_mode, steps=100, ms_per_step=ms_step,
+                       one_device_ms_per_step=one21[integrator + "_ms"],
+                       assembly_ms_per_step=asm_ms, assembly_share=asm_ms / ms_step,
+                       launches=counts["K"], max_rel_err=rel, setup_s=set_s)
+            if label == "rk4 allgather":
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    sw.solve_n(0.0, dtx, 20)
+                    torch.cuda.synchronize()
+                    prof_ms = 1e3 * (time.perf_counter() - t0) / 20
+                dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 20
+                rec.update(device_ms_per_step=dev_ms, idle_share=1.0 - dev_ms / prof_ms)
+                print(f"P21 {label}: profiled 20 steps: device {dev_ms:.4f} ms/step of "
+                      f"{prof_ms:.4f} ms/step (idle {100 * rec['idle_share']:.1f} %) [{smi}]")
+            p21[label] = rec
+            print(f"P21 {label} ({sw.exchange_mode}): {ms_step:.4f} ms/step on 4 parts (one "
+                  f"device {one21[integrator + '_ms']:.4f}); assembly (events around every "
+                  f"_assemble in the timed solve) {asm_ms:.4f} ms/step, "
+                  f"{100 * asm_ms / ms_step:.1f} % of the step; kernel K {counts['K']} "
+                  f"launches; against one device {rel:.3e} (limit 1e-4); tables "
+                  f"{set_s:.2f} s [{smi}]")
+            check(rel <= 1e-4, f"P21 {label} against one device")
+            del sw, u, v
+        va, vp = v21g["rk4 allgather"], v21g["rk4 ppermute"]
+        modes_rel = float(np.abs(vp - va).max() / np.abs(va).max())
+        print(f"P21 allgather against ppermute: {modes_rel:.3e} (limit 1e-6)")
+        check(modes_rel <= 1e-6, "P21 the two assembly modes agree")
+        del one21, v21g, va, vp
+        hm64, tags64 = general_solve.perturbed_box((6, 4, 4))
+        g64 = GeneralLinearWave(hm64, 4, tags64, dtype=torch.float64, device=dev)
+        for mode, integrator in (("allgather", "rk4"), ("ppermute", "rk4"),
+                                 ("auto", "leapfrog")):
+            sw = ShardedGeneralWave(g64, 8, exchange=mode)
+            u, v, _ = sw.solve_n(0.0, 1e-9, 12, integrator=integrator)
+            ur, vr = g64.solve_n(0.0, 1e-9, 12, integrator=integrator)
+            _, rel = state_err(torch.as_tensor(sw.to_global(u)),
+                               torch.as_tensor(sw.to_global(v)), ur.cpu(), vr.cpu())
+            print(f"P21 f64 (6,4,4) p=4, 8 parts, {integrator} {sw.exchange_mode}: 12 steps "
+                  f"against one device {rel:.3e} (limit 1e-12); dofs held by 3+ parts: "
+                  f"{int((sw._setup['counts'] >= 3).sum())}")
+            check(rel <= 1e-12, f"P21 f64 {integrator} {mode} against one device")
+        del g64, sw, u, v, ur, vr
+
+        phase(f"P21 app --mesh --ndev 4 at {NDOFS:,} dofs: RK4 to tf, then leapfrog 400 "
+              "steps in chunks of 100 with a resume")
+        cfg21 = SimulationConfig.from_json(cfg16.to_json())
+        cfg21.run.output_path = None
+        cfg21.run.ndev = 4
+        zero_counts()
+        p21a, u21, _ = planar3d_app.run(cfg21, dtype="f32", device="cuda", return_state=True)
+        counts = read_counts()
+        print(json.dumps(p21a))
+        n21 = p21a["nsteps"]
+        only_k(counts, 4 * 4 * (n21 + 1), "P21 app rk4")
+        p21_k["P21 app rk4"] = counts["K"]
+        rel = abs(p21a["u_norm"] - p16["u_norm"]) / p16["u_norm"]
+        print(f"P21 app rk4: {n21} steps, {p21a['exchange']}, kernel K {counts['K']} = 4 "
+              f"parts x 4 x ({n21} + 1 warm-up step); |u| against P16's {rel:.3e} (limit "
+              f"1e-4); setup {p21a['setup_seconds']:.2f} s, solve "
+              f"{p21a['solve_seconds']:.4f} s ({1e3 * p21a['solve_seconds'] / n21:.4f} "
+              f"ms/step; P16 one device {1e3 * p16['solve_seconds'] / n16:.4f}) [{smi}]")
+        check(p21a["solver_path"] == "sharded general (rk4, RCB, ndev=4)"
+              and p21a["ndev"] == 4 and p21a["exchange"] == auto21, "P21 app record")
+        check(rel <= 1e-4, "P21 app rk4 against the one-device app")
+        del u21
+        cfg21l = SimulationConfig.from_json(cfg21.to_json())
+        cfg21l.time.integrator = "leapfrog"
+        cfg21l.run.checkpoint_every_steps = 100
+        ck21 = os.path.join(tmp, "ck21")
+        # the references: one unchunked solve on the app's path (4 parts,
+        # auto), and one on one device
+        sw21a = ShardedGeneralWave(gmodel, 4)
+        ua, va, _ = sw21a.solve_n(0.0, p17["dt"], 400, integrator="leapfrog")
+        ua, va = torch.as_tensor(sw21a.to_global(ua)), torch.as_tensor(sw21a.to_global(va))
+        ur, vr = (x.cpu() for x in gmodel.solve_n(0.0, p17["dt"], 400,
+                                                  integrator="leapfrog"))
+        _, rel1 = state_err(ua, va, ur, vr)
+        print(f"P21 leapfrog, 400 steps, unchunked: 4 parts ({sw21a.exchange_mode}) against "
+              f"one device {rel1:.3e} (limit 1e-4)")
+        check(rel1 <= 1e-4, "P21 leapfrog, 400 steps, against one device")
+        for label, want in (("P21 app leapfrog", 400 + 4 + 2),
+                            ("P21 app leapfrog resumed", 200 + 2 + 2)):
+            if label.endswith("resumed"):
+                snaps = sorted(os.listdir(ck21))
+                check(len(snaps) == 3, f"P21 snapshots {snaps}")
+                os.remove(os.path.join(ck21, snaps[-1]))
+            zero_counts()
+            out, u, v = planar3d_app.run(cfg21l, dtype="f32", device="cuda", steps=400,
+                                         checkpoint_dir=ck21, return_state=True)
+            counts = read_counts()
+            only_k(counts, 4 * want, label)
+            p21_k[label] = counts["K"]
+            _, rel = state_err(torch.as_tensor(sw21a.to_global(u)),
+                               torch.as_tensor(sw21a.to_global(v)), ua, va)
+            print(f"{label}: from step {out['resumed_from_step']}, kernel K {counts['K']} = "
+                  f"4 x {want}; against the unchunked 4-part solve {rel:.3e} (limit 1e-5) "
+                  f"[{smi}]")
+            check(out["nsteps"] == 400 and "sharded general (leapfrog" in out["solver_path"],
+                  f"{label} record")
+            check(rel <= 1e-5, f"{label} against the unchunked solve")
+        check(out["resumed_from_step"] == 200, "P21 the resumed run starts at step 200")
+        del u, v, ua, va, ur, vr, tb21, sw21a
+
+        phase("P21 cg_bench --op general --s 16 --p 4 --ndev 4")
+        zero_counts()
+        cg21 = cg_bench.run(op="general", s=16, degree=4, ndev=4, dtype="f32", device="cuda")
+        counts = read_counts()
+        print(json.dumps(cg21))
+        want = cg21["solves"] * (1 + cg21["iters"]) * 4 + 1 + cg21["iters_single_device"]
+        only_k(counts, want, "P21 cg_bench")
+        p21_k["P21 cg_bench"] = counts["K"]
+        print(f"P21 cg_bench: {cg21['iters']} iterations ({cg21['iters_single_device']} on "
+              f"one device), {cg21['exchange']}, solution {cg21['max_rel_solution_diff']:.3e} "
+              f"from one device's (limit 1e-2); {cg21['ms_total']:.4f} ms/solve; K "
+              f"{counts['K']} launches [{smi}]")
+        check(abs(cg21["iters"] - cg21["iters_single_device"]) <= 1, "P21 cg_bench parity")
+
+        phase("P21 scatter_bench: local and halo at --size 64 --degree 4, general-halo at "
+              "--size 32 --degree 4")
+        scatter21 = {}
+        for kw in (dict(mode="local", size=64, check=True), dict(mode="halo", size=64),
+                   dict(mode="general-halo", size=32, exchange="allgather"),
+                   dict(mode="general-halo", size=32, exchange="ppermute")):
+            zero_counts()
+            r = scatter_bench.run(degree=4, dtype="f32", device="cuda", **kw)
+            counts = read_counts()
+            print(json.dumps(r))
+            check(not any(counts.values()), f"scatter_bench {kw}: no kernel, {counts}")
+            scatter21[r["metric"]] = r.get("us_per_exchange", r.get("ms"))
+        p21["scatter_bench"] = scatter21
+        p21["parts"] = parts21
+        p21["setup"] = setup21
+        print("P21 " + json.dumps(p21))
+
     phase(f"P19 recording on kernel K ({NDOFS:,} dofs) and kernel F; the energy")
     dt16 = p16["dt"]
     probes = gmodel.dofs.dof_coords[[1000, NDOFS // 2, NDOFS - 1000]]
@@ -2277,6 +2540,7 @@ def main() -> None:
         sharded_launches.setdefault(r["kernel"], {})[label] = r["launches"]
     for integrator, (kernel, n, _) in p20_apps.items():
         sharded_launches.setdefault(kernel, {})[f"P20 app --ndev 4 {integrator}"] = n
+    sharded_launches.setdefault("K", {}).update(p21_k)
     for kernel, per_path in sharded_launches.items():
         launches[kernel] += sum(per_path.values())
     meta = {
@@ -2384,6 +2648,7 @@ def main() -> None:
     by_name["I"]["phase_us"] = i_phase_us
     by_name["I"]["wrapper_ms"] = i_wrapper_ms
     by_name["K"]["wrapper_ms"] = k_wrapper_ms["stiffness"]
+    by_name["K"]["P21_parts"] = parts21
     by_name["K"]["colours"] = k_colours
     for k in ("geometry", "keys", "dedup"):
         by_name[k]["launches_per_path"] = {label: c[k] for label, c in setup_paths.items()}

@@ -1,12 +1,16 @@
 """Worker process of ``tests/test_torch_multiprocess.py``: one of the
 processes of a gloo process group that together run a ShardedPaddedWave
-solve of the port, each driving the blocks it owns.
+or ShardedGeneralWave solve of the port, each driving the blocks or parts
+it owns.
 
 Usage: python _torch_mp_worker.py PORT RANK WORLD OUTDIR PARTS MODE
 
-PARTS: a comma list like "4,1,1"; MODE: "stage" (the per-stage halo-add
-``solve_n``) or "step" (the value-halo ``solve_step_n``). Rank 0 writes
-the gathered global u and v to OUTDIR/u.npy and OUTDIR/v.npy.
+PARTS: a comma list like "4,1,1" (for the general modes, the number of
+parts, N,1,1); MODE: "stage" (the per-stage halo-add ``solve_n``), "step"
+(the value-halo ``solve_step_n``), "general-allgather" or
+"general-ppermute" (``ShardedGeneralWave.solve_n`` on the box as a
+``HexMesh``, with that assembly). Rank 0 writes the gathered global u and
+v to OUTDIR/u.npy and OUTDIR/v.npy.
 """
 
 import os
@@ -28,7 +32,28 @@ def model():
                       device="cpu")
 
 
+def general_model():
+    """The box as a ``HexMesh``, p = 3, tag 1 on the x-low faces and 2 on
+    the x-high ones (the JAX worker's ``general_facet_tags``)."""
+    from wave_fenics_tpu_torch.models.general_wave import GeneralLinearWave
+
+    hm = model().mesh.to_hex_mesh()
+    length = float(hm.points[:, 0].max())
+
+    def xquads(x0, vids):
+        on = np.abs(hm.points[:, 0] - x0) < 1e-12
+        quads = hm.cells[:, list(vids)]
+        return quads[on[quads].all(axis=1)]
+
+    tags = {1: xquads(0.0, (0, 2, 4, 6)), 2: xquads(length, (1, 3, 5, 7))}
+    return GeneralLinearWave(hm, P, tags, c0=1500.0, freq0=0.5e6, dtype=torch.float64,
+                             device="cpu")
+
+
 def solve(sw, mode):
+    if mode.startswith("general"):
+        u, v, _ = sw.solve_n(0.0, DT, NSTEPS)
+        return sw.to_global(u), sw.to_global(v)
     if mode == "step":
         u, v, _ = sw.solve_step_n(0.0, DT, NSTEPS)
         return sw.to_global_step(u), sw.to_global_step(v)
@@ -46,6 +71,7 @@ def main():
     import torch.distributed as dist
 
     from wave_fenics_tpu_torch.parallel import distributed
+    from wave_fenics_tpu_torch.parallel.sharded_general import ShardedGeneralWave
     from wave_fenics_tpu_torch.parallel.sharded_padded import ShardedPaddedWave
 
     distributed.initialize(device="cpu", init_method=f"tcp://localhost:{port}",
@@ -53,7 +79,12 @@ def main():
     print(distributed.process_summary(), flush=True)
     ex = distributed.ProcessGroupExchange(distributed.global_device_mesh(parts))
     assert len(ex.local_blocks) == int(np.prod(parts)) // world
-    sw = ShardedPaddedWave(model(), parts, exchange=ex)
+    if mode.startswith("general"):
+        sw = ShardedGeneralWave(general_model(), parts[0], exchange=mode.split("-")[1],
+                                comm=ex)
+        assert sw.exchange_mode == mode.split("-")[1]
+    else:
+        sw = ShardedPaddedWave(model(), parts, exchange=ex)
     ug, vg = solve(sw, mode)
     if rank == 0:
         np.save(os.path.join(outdir, "u.npy"), ug)

@@ -52,9 +52,9 @@ def test_jax_config_file_loads_and_builds_the_same_case():
 
 
 @pytest.mark.parametrize("fields,subject", [
-    # blocks of a box run (the app's --ndev); an imported mesh needs the
-    # sharded general branch, not ported yet
-    ((("run", "ndev", 2), ("domain", "mesh_path", "mesh.xdmf")), "sharded general"),
+    # run.ndev > 1 runs blocks of a box or RCB parts of an imported mesh;
+    # fewer than one device raises on either
+    ((("run", "ndev", 0), ("domain", "mesh_path", "mesh.xdmf")), "at least 1"),
     ((("run", "dtype", "bf16"),), "bf16 state"),
 ])
 def test_unsupported_fields_raise(fields, subject):

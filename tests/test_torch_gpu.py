@@ -1287,3 +1287,87 @@ def test_cuda_app_ndev_runs_the_sharded_kernels(cuda, tmp_path, integrator, kern
     g, c = (read_xdmf_attributes(str(tmp_path / f)) for f in ("g.xdmf", "c.xdmf"))
     _assert_state_close(torch.as_tensor(g["u"]), torch.as_tensor(g["v"]),
                         torch.as_tensor(c["u"]), torch.as_tensor(c["v"]))
+
+
+# -- the distributed imported mesh (parallel/sharded_general.py) -------------
+
+def _sharded_general_pair(device, ndev=4, p=3, exchange="auto"):
+    """(ShardedGeneralWave on the CPU, on ``device``) of one perturbed-box
+    model in f64."""
+    from wave_fenics_tpu_torch.parallel.sharded_general import ShardedGeneralWave
+
+    hm, tags = perturbed_box((6, 4, 4), h=0.002)
+    return [ShardedGeneralWave(GeneralLinearWave(hm, p, tags, dtype=F64, device=d), ndev,
+                               exchange=exchange) for d in ("cpu", device)]
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_cuda_sharded_general_k_per_part_matches_plain_over_nan(cuda, p):
+    """Kernel K on each part's own tables (local dofmap and colouring, the
+    model's geometry sliced to the part's cells), from an output full of
+    NaN, against its plain version at 1e-12; two applies bitwise equal; the
+    affine box takes the affine branch on every part as on the whole."""
+    from wave_fenics_tpu_torch.parallel.sharded_general import ShardedGeneralWave
+
+    hm, tags = perturbed_box((6, 4, 4), h=0.002)
+    box = box_mesh((6, 4, 4), (0.012, 0.008, 0.008)).to_hex_mesh()
+    for mesh, affine in ((hm, False), (box, True)):
+        model = GeneralLinearWave(mesh, p, tags if mesh is hm else {}, dtype=F64,
+                                  device=cuda)
+        sw = ShardedGeneralWave(model, 4)
+        assert model.ops.affine == affine
+        for i, t in sw._tables["K"].items():
+            assert t.affine == affine and t.dofmap.device.type == "cuda"
+            x = torch.as_tensor(np.random.default_rng(90 + i).standard_normal(t.ndofs),
+                                dtype=F64, device=cuda)
+            out = torch.full_like(x, float("nan"))
+            yk = general.general_apply_cuda(x, t, -1500.0**2, out=out)
+            yk2 = general.general_apply_cuda(x, t, -1500.0**2)
+            yp = general.general_apply_plain(x, t, -1500.0**2)
+            assert _rel(yk, yp) <= TOL and torch.equal(yk, yk2)
+
+
+@pytest.mark.parametrize("integrator,exchange", [("rk4", "allgather"), ("rk4", "ppermute"),
+                                                 ("leapfrog", "auto")])
+def test_cuda_sharded_general_solves_match_cpu(cuda, integrator, exchange):
+    """The sharded RK4 and leapfrog solves on kernel K per part against the
+    CPU's (f64, 4 parts, 10 steps) at 1e-12; K launched once per part per
+    stiffness apply and no other kernel."""
+    sc, sg = _sharded_general_pair(cuda, exchange=exchange)
+    uc, vc, _ = sc.solve_n(0.0, DT, 10, integrator=integrator)
+    _zero_counts()
+    ug, vg, _ = sg.solve_n(0.0, DT, 10, integrator=integrator)
+    torch.cuda.synchronize()
+    assert _launched() == {"K": 4 * (4 * 10 if integrator == "rk4" else 10 + 1)}
+    _assert_state_close(*(torch.as_tensor(s.to_global(x))
+                          for s, x in ((sg, ug), (sg, vg), (sc, uc), (sc, vc))))
+
+
+def test_cuda_sharded_general_cg_matches_cpu(cuda):
+    """cg_solve on the card against the CPU's: iterations equal, x at
+    1e-10 relative (the dots sum in another order)."""
+    sc, sg = _sharded_general_pair(cuda, p=4, exchange="ppermute")
+    b = np.random.default_rng(53).standard_normal(sc.model.ndofs)
+    tau = (0.25 * 0.002 / (1500.0 * 16)) ** 2
+    (xc, kc, _), (xg, kg, _) = (s.cg_solve(s.from_global(b), tau, kmax=80, rtol=1e-10)
+                                for s in (sc, sg))
+    assert kc == kg and 0 < kg < 80
+    assert _rel(torch.as_tensor(sg.to_global(xg)), torch.as_tensor(sc.to_global(xc))) <= 1e-10
+
+
+def test_cuda_app_mesh_ndev_matches_cpu(cuda, tmp_path):
+    """The app's --mesh --ndev 2 on the card: the JAX app's solver_path, K
+    launched 2 parts x 4 x (steps + 1 warm-up step), and the final state
+    (--output, the global vector) the CPU run's."""
+    from wave_fenics_tpu_torch.core.io import read_xdmf_attributes
+
+    mesh, tags = _imported_files(tmp_path)
+    kw = dict(mesh=mesh, meshtags=tags, degree=3, dtype="f64", steps=12, ndev=2)
+    _zero_counts()
+    out = planar3d_app.run(device="cuda", output=str(tmp_path / "g.xdmf"), **kw)
+    assert _launched() == {"K": 2 * 4 * (12 + 1)}
+    assert out["solver_path"] == "sharded general (rk4, RCB, ndev=2)"
+    planar3d_app.run(device="cpu", output=str(tmp_path / "c.xdmf"), **kw)
+    g, c = (read_xdmf_attributes(str(tmp_path / f)) for f in ("g.xdmf", "c.xdmf"))
+    _assert_state_close(torch.as_tensor(g["u"]), torch.as_tensor(g["v"]),
+                        torch.as_tensor(c["u"]), torch.as_tensor(c["v"]))

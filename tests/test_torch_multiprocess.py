@@ -1,6 +1,8 @@
 """The port's multi-process exchange (``parallel.distributed.
-ProcessGroupExchange``) on two gloo processes of two blocks each: the
-ShardedPaddedWave solve across the process boundary against the same
+ProcessGroupExchange``) on two gloo processes of two blocks or parts each:
+the ShardedPaddedWave solve, and the ShardedGeneralWave solve in both
+assembly modes (``dist.all_gather``; pairwise rounds on
+``dist.batch_isend_irecv``), across the process boundary against the same
 solve in one process (``halo.LocalExchange``), at 1e-12.
 
 The pattern of ``tests/test_multiprocess.py``: a free port on localhost,
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 
 import _torch_mp_worker as worker
+from wave_fenics_tpu_torch.parallel.sharded_general import ShardedGeneralWave
 from wave_fenics_tpu_torch.parallel.sharded_padded import ShardedPaddedWave
 
 TIMEOUT_S = 300
@@ -28,7 +31,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.mark.parametrize("parts,mode", [("4,1,1", "stage"), ("2,2,1", "step")])
+@pytest.mark.parametrize("parts,mode", [("4,1,1", "stage"), ("2,2,1", "step"),
+                                        ("4,1,1", "general-allgather"),
+                                        ("4,1,1", "general-ppermute")])
 def test_two_process_solve_matches_single_process(tmp_path, parts, mode):
     here = os.path.dirname(os.path.abspath(__file__))
     env = os.environ.copy()
@@ -56,7 +61,12 @@ def test_two_process_solve_matches_single_process(tmp_path, parts, mode):
         assert rc == 0, f"worker failed:\n{out}\n{err}"
         assert "done" in out and "backend: gloo" in out
 
-    sw = ShardedPaddedWave(worker.model(), tuple(int(s) for s in parts.split(",")))
+    shape = tuple(int(s) for s in parts.split(","))
+    if mode.startswith("general"):
+        sw = ShardedGeneralWave(worker.general_model(), shape[0],
+                                exchange=mode.split("-")[1])
+    else:
+        sw = ShardedPaddedWave(worker.model(), shape)
     u_ref, v_ref = worker.solve(sw, mode)
     for name, ref in (("u", u_ref), ("v", v_ref)):
         got = np.load(tmp_path / f"{name}.npy")

@@ -19,6 +19,15 @@ dofs), every block on the card, tile 48. For ``solve_step_n`` (kernel A),
 - ``exchange_ms_per_step`` (the value-halo paths): ``refresh`` of u and v,
   CUDA events over back-to-back calls, per step.
 
+Where the tree has ``parallel/sharded_general.py``, it also times the
+imported-mesh paths: ``ShardedGeneralWave.solve_n`` RK4 and leapfrog on the
+perturbed 64x32x32-cell box (``general_solve.build``, p = 4, f32, 4,276,737
+dofs) on 4 RCB parts, the assembly ``auto``: the same ``ms_per_step``,
+``device_ms_per_step`` and ``idle_share``, and ``assembly_ms_per_step``
+from CUDA events around every ``_assemble`` inside the timed solve (the
+packing, the collective and the adds), with ``one_device_ms_per_step`` of
+``GeneralLinearWave.solve_n`` beside them.
+
 It prints the card's name and power limit (nvidia-smi) and, last, one JSON
 line.
 """
@@ -96,8 +105,69 @@ def main(argv=None) -> None:
               + (f", refresh {r['exchange_ms_per_step']:.4f} ms/step" if kind != "n"
                  else "") + f" ({root})")
         del sw, u, v
+    if (root / "wave_fenics_tpu_torch" / "parallel" / "sharded_general.py").is_file():
+        out.update(_general_times(n))
     print(card)
     print(json.dumps(out))
+
+
+def _general_times(n: int) -> dict:
+    """The imported-mesh sharded solves (RK4, leapfrog) on 4 parts against
+    one device: the records of the module's docstring."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wave_fenics_tpu_torch.benchmarks import general_solve
+    from wave_fenics_tpu_torch.parallel.sharded_general import ShardedGeneralWave
+
+    model, _ = general_solve.build((64, 32, 32), degree=4, dtype="f32")
+    dt = 0.5 * general_solve.min_edge(model.mesh) / (model.c0 * 16)
+    out = {}
+    for integrator, dtx in (("rk4", dt), ("leapfrog", dt * general_solve.LEAPFROG_DT)):
+        sw = ShardedGeneralWave(model, 4)
+        sw.solve_n(0.0, dtx, 2, integrator=integrator)
+        spans, inner = [], sw._assemble
+
+        def assemble(b, inner=inner, spans=spans):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            b = inner(b)
+            ev[1].record()
+            spans.append(ev)
+            return b
+
+        sw._assemble = assemble
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw.solve_n(0.0, dtx, n, integrator=integrator)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / n
+        asm_ms = sum(a.elapsed_time(b) for a, b in spans) / n
+        del sw._assemble
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sw.solve_n(0.0, dtx, n, integrator=integrator)
+            torch.cuda.synchronize()
+            prof_host_ms = 1e3 * (time.perf_counter() - t0) / n
+        dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+        model.solve_n(0.0, dtx, 2, integrator=integrator)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.solve_n(0.0, dtx, n, integrator=integrator)
+        torch.cuda.synchronize()
+        one_ms = 1e3 * (time.perf_counter() - t0) / n
+        r = {"parts": 4, "exchange": sw.exchange_mode, "ms_per_step": host_ms,
+             "device_ms_per_step": dev_ms, "idle_share": 1.0 - dev_ms / prof_host_ms,
+             "assembly_ms_per_step": asm_ms, "assembly_share": asm_ms / host_ms,
+             "one_device_ms_per_step": one_ms}
+        out[f"general {integrator}"] = r
+        print(f"general {integrator} (4 parts, {sw.exchange_mode}): {host_ms:.4f} ms/step, "
+              f"device {dev_ms:.4f} ms/step (idle {100 * r['idle_share']:.1f} %), "
+              f"assembly {asm_ms:.4f} ms/step ({100 * r['assembly_share']:.1f} %); one "
+              f"device {one_ms:.4f} ms/step")
+        del sw
+    return out
 
 
 if __name__ == "__main__":

@@ -8,5 +8,8 @@ has ``run(**kw) -> dict`` and prints one JSON result line:
   gpu_spectral_mass; BP1 mass; stiffness);
 - ``cg_bench``: CG Dofs*iteration/s (gpu_cg / CEED BP1; the general mass);
 - ``general_solve``: the RK4 or leapfrog solve rate on a perturbed
-  (unstructured) hex box, GDoF*steps/s.
+  (unstructured) hex box, GDoF*steps/s;
+- ``scatter_bench``: the structured gather/scatter round trip, the box's
+  halo exchange and the imported-mesh interface assembly
+  (gpu_scatter_local, gpu_scatter_mpi).
 """

@@ -29,8 +29,14 @@ them): the spectral mass on ``parallel.sharded_wave.ShardedLinearWave``,
 ownership-weighted dot (the gpu_cg distributed CG, cg.hpp:37-121), checked
 against the same CG on one device: iterations within 1 and solutions
 within 10 rtol (the record's ``iters_single_device``,
-``iteration_parity``, ``max_rel_solution_diff``). ``--op general --ndev``
-raises: the sharded general branch is not ported yet.
+``iteration_parity``, ``max_rel_solution_diff``). ``--op general --ndev N``
+is the gpu_cg configuration itself, an arbitrary dofmap with a
+VectorUpdater exchange each iteration, on the box as a ``HexMesh``:
+``parallel.sharded_general.ShardedGeneralWave.cg_solve`` of (diag(m) +
+tau K) x = b on N RCB parts (kernel K's stiffness on each; Jacobi by 1/m
+always, tau = (h / (4 c0 p^2))^2, the JAX bench's), checked against the
+same CG on one device: iterations within 1 and solutions within 1e-6 (f64)
+or 1e-2 (f32) relative (the record also has ``exchange``).
 
 Timing: ``reps`` and ``reps // 4`` back-to-back solves of the same b,
 differenced (``common.two_point_time``; CUDA events on a card). The JAX
@@ -51,19 +57,16 @@ from ..convert import tables_from_numpy
 from ..core.dofmap import build_dofmap
 from ..core.mesh import box_mesh
 from ..ops.mass import bp1_setup, mass_apply
+from ..models.general_wave import GeneralLinearWave
 from ..models.linear_wave import LinearWave
 from ..ops.operators import GeneralOperators, StructuredOperators
 from ..parallel.partition import Blocks, decompose3d
+from ..parallel.sharded_general import ShardedGeneralWave
 from ..parallel.sharded_wave import ShardedLinearWave
 from ..solvers.cg import cg
 from ..utils.timing import sync
 from .common import (DTYPES, cells_from_args, device_name, make_parser,
                      report, resolve_device, two_point_time)
-
-SHARDED_GENERAL = ("--op general --ndev > 1 needs the sharded general branch "
-                   "(parallel/sharded_general.py: RCB partition, its exchanges "
-                   "and CG), not ported yet")
-
 
 def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
         reps: int = 8, dtype: str = "f32", device: str = "cuda",
@@ -77,8 +80,6 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
         raise ValueError(f"--op {op!r}: bp1, spectral or general")
     if ndev < 1:
         raise ValueError(f"--ndev {ndev}: at least 1")
-    if ndev > 1 and op == "general":
-        raise ValueError(SHARDED_GENERAL)
     dev = resolve_device(device)
     dt = DTYPES[dtype]
     t0 = time.perf_counter()
@@ -87,8 +88,13 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
     rng = np.random.default_rng(0)
     grid = tuple(n * p + 1 for n in mesh.shape)
     ndofs = int(np.prod(grid))
-    pre = dot = sw = None
-    if ndev > 1:
+    pre = dot = sw = sg = None
+    if ndev > 1 and op == "general":
+        gm = GeneralLinearWave(mesh.to_hex_mesh(), p, facet_tags={}, dtype=dt, device=dev)
+        tau = (0.25 / mesh.shape[0] / (gm.c0 * p * p)) ** 2
+        sg = ShardedGeneralWave(gm, ndev).prepare()
+        b = sg.from_global(rng.standard_normal(gm.ndofs))
+    elif ndev > 1:
         sw = ShardedLinearWave(LinearWave(mesh, p, dtype=dt, device=dev),
                                decompose3d(ndev))
         b = sw.from_global(rng.standard_normal(grid))
@@ -123,15 +129,21 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
     x0 = None if sw is None else Blocks(torch.zeros_like(x) for x in b)
 
     def solve():
+        if sg is not None:
+            return sg.cg_solve(b, tau, kmax=kmax, rtol=rtol)
         return cg(matvec, b, x0=x0, kmax=kmax, rtol=rtol, precond=pre, dot=dot)
 
     x, iters, rnorm = solve()
     t, timing, calls = two_point_time(solve, reps, dev)
+    metric = (f"CG {op if sw is None else 'spectral sharded'} mass "
+              "(Dofs*iteration/s, utils.hpp:58-64)")
+    if sg is not None:
+        metric = ("CG general distributed (diag(m)+tau*K, cg.hpp:37-121 + "
+                  "VectorUpdater halo per iteration)")
     out = dict(
-        metric=f"CG {op if sw is None else 'spectral sharded'} mass "
-               "(Dofs*iteration/s, utils.hpp:58-64)",
+        metric=metric,
         s=s, degree=p, ndofs=ndofs, iters=iters, ndev=ndev, dtype=dtype,
-        precond=bool(precond), q=q, device=device_name(dev),
+        precond=bool(precond) or sg is not None, q=q, device=device_name(dev),
         rnorm2=float(rnorm),
         ms_total=t * 1e3, timing=timing, solves=1 + calls, setup_s=setup_s,
         dofs_iter_per_s=ndofs * iters / t,
@@ -140,7 +152,30 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
     if sw is not None:
         out.update(_single_device_parity(sw, x, iters, grid, dt, dev, kmax, rtol,
                                          precond))
+    if sg is not None:
+        out.update(_general_parity(sg, x, iters, tau, dtype, dev, kmax, rtol))
     return out
+
+
+def _general_parity(sg, x, iters, tau, dtype, dev, kmax, rtol) -> dict:
+    """The sharded general CG against the same CG on one device from the
+    same b (the JAX bench's rule: iterations within 1, solutions within
+    1e-6 relative in f64 and 1e-2 in f32)."""
+    gm = sg.model
+    b1 = torch.as_tensor(np.random.default_rng(0).standard_normal(gm.ndofs), dtype=gm.dtype,
+                         device=dev)
+
+    def matvec(z):
+        return gm.m * z - tau * gm.ops.stiffness(z, gm.c0)
+
+    x1, k1, _ = cg(matvec, b1, kmax=kmax, rtol=rtol, precond=lambda r: r / gm.m)
+    x1n = x1.cpu().numpy()
+    rel = float(np.abs(sg.to_global(x) - x1n).max() / np.abs(x1n).max())
+    if abs(k1 - iters) > 1 or rel >= (1e-6 if dtype == "f64" else 1e-2):
+        raise RuntimeError(f"sharded general CG: {iters} iterations and a solution "
+                           f"{rel:.3e} from one device's ({k1} iterations)")
+    return dict(exchange=sg.exchange_mode, iters_single_device=k1,
+                iteration_parity=k1 == iters, max_rel_solution_diff=rel)
 
 
 def _single_device_parity(sw, x, iters, grid, dt, dev, kmax, rtol, precond) -> dict:

@@ -316,6 +316,13 @@ class GeneralOperators:
         (dofmap,) = self._tensors("dofmap", device, lambda: (self._dofmap,), torch.int32)
         (cells,) = self._tensors("colours", device, lambda: self.colouring[:1], torch.int32)
         B, D = self._tensors("BD", device, lambda: (self._B, self._D))
+        return GeneralTables(mode, dofmap, cells, self._colour_starts, self.ndofs, B, D,
+                             *self.geometry_tables(mode, device))
+
+    def geometry_tables(self, mode: str, device: torch.device) -> tuple[torch.Tensor, ...]:
+        """Kernel K's geometry of ``mode`` on ``device`` (built once each):
+        (geo [ngeo, nc, npts],), or (geo [ngeo, nc], w [npts]) where every
+        cell is affine."""
         af = self._affine if mode in ("mass", "stiffness") else None
         nc = self.mesh.ncells
 
@@ -329,9 +336,7 @@ class GeneralOperators:
             stack = torch.stack if isinstance(G, torch.Tensor) else np.stack
             return (stack([G[:, :, a, b] for a, b in SYM]),)
 
-        geo = self._tensors(("geo", mode), device, make)
-        return GeneralTables(mode, dofmap, cells, self._colour_starts, self.ndofs, B, D,
-                             *geo)
+        return self._tensors(("geo", mode), device, make)
 
     @cached_property
     def colouring(self) -> tuple[np.ndarray, np.ndarray]:
@@ -343,11 +348,16 @@ class GeneralOperators:
     def _colour_starts(self) -> torch.Tensor:
         return torch.as_tensor(self.colouring[1], dtype=torch.int32)
 
+    def mode(self, op: str) -> str:
+        """Kernel K's mode of ``op`` ("mass" or "stiffness") under this
+        operator set's quadrature: ``op``, or ``op + "_gauss"`` off the GLL
+        points."""
+        return op if self._tab.collocated else f"{op}_gauss"
+
     def _apply(self, op: str, x: torch.Tensor, coeff) -> torch.Tensor:
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"no implementation of {op} for device {x.device}")
-        mode = op if self._tab.collocated else f"{op}_gauss"
-        return general_apply(x, self.tables(mode, x.device), coeff)
+        return general_apply(x, self.tables(self.mode(op), x.device), coeff)
 
     # -- operators --------------------------------------------------------
     def mass(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,3 +1,3 @@
-"""The distributed structured box (port of ``wave_fenics_tpu.parallel``
-without ``sharded_general``): ``partition``, ``halo``, ``sharded_wave``,
-``sharded_padded`` and ``distributed``."""
+"""The distributed box and imported meshes (port of
+``wave_fenics_tpu.parallel``): ``partition``, ``halo``, ``sharded_wave``,
+``sharded_padded``, ``sharded_general`` and ``distributed``."""

@@ -6,7 +6,9 @@ here each process joins one process group (NCCL between cards, gloo on the
 CPU) and drives the blocks it owns, on its own device.
 :class:`ProcessGroupExchange` is ``halo.Exchange`` across processes: a slab
 between blocks of one process is copied as ``halo.LocalExchange`` copies
-it, a slab between processes goes by ``dist.batch_isend_irecv``.
+it, a slab between processes goes by ``dist.batch_isend_irecv``; so do the
+pairwise swaps of the imported-mesh assembly, whose all-gather is
+``dist.all_gather``.
 
 Nothing tells a process of a cluster: :func:`initialize` takes the address,
 the world size and the rank from its arguments or from the environment
@@ -148,6 +150,48 @@ class ProcessGroupExchange:
     def allreduce(self, x):
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
         return x
+
+    def all_gather(self, bufs):
+        """``dist.all_gather`` of each process's held buffers, concatenated
+        and padded to the most blocks a process holds; the result, in block
+        order, is shared by the held blocks (one device a process)."""
+        own = self.local_blocks
+        n = self.mesh.nblocks
+        per_rank = [sum(1 for b in range(n) if self.owner(b) == r)
+                    for r in range(self.world)]
+        x = bufs[own[0]]
+        length = x.numel()
+        mine = x.new_zeros(max(per_rank) * length)
+        torch.cat([bufs[b] for b in own], out=mine[: len(own) * length])
+        parts = [torch.empty_like(mine) for _ in range(self.world)]
+        dist.all_gather(parts, mine, group=self.group)
+        full = torch.cat([t[: k * length] for t, k in zip(parts, per_rank)])
+        return Blocks(full if b in own else None for b in range(n))
+
+    def swap_pairs(self, pairs, sends):
+        """The messages in one order on every process (pair, then
+        direction), tagged by receiver and sender; a buffer from another
+        process has the length of the receiver's own buffer to it."""
+        n = self.mesh.nblocks
+        got, ops = {}, []
+        for i, j in pairs:
+            for a, b in ((i, j), (j, i)):  # a receives from b
+                mine, theirs = self.owner(a) == self.rank, self.owner(b) == self.rank
+                tag = a * n + b
+                if mine and theirs:
+                    got[(a, b)] = copy_to(sends[(b, a)], self.mesh.devices[a])
+                elif theirs:
+                    ops.append(dist.P2POp(dist.isend, sends[(b, a)].contiguous(),
+                                          self.owner(a), self.group, tag))
+                elif mine:
+                    buf = torch.empty_like(sends[(a, b)],
+                                           memory_format=torch.contiguous_format)
+                    ops.append(dist.P2POp(dist.irecv, buf, self.owner(b), self.group, tag))
+                    got[(a, b)] = buf
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return got
 
     def gather(self, blocks):
         mine = {b: blocks[b].detach().cpu().numpy() for b in self.local_blocks}

@@ -17,7 +17,9 @@ Every sweep runs x, then y, then z, on whole planes, so edge and corner
 values travel through two or three exchanges.
 
 The exchange itself is one small interface, :class:`Exchange`: each block
-hands a slab to each neighbour along an axis and receives one from each.
+hands a slab to each neighbour along an axis and receives one from each;
+the imported-mesh assembly of ``sharded_general`` adds an all-gather of one
+buffer a block and rounds of pairwise swaps.
 :class:`LocalExchange` holds every block in this process and copies the
 slabs between block tensors (across cards a ``non_blocking`` copy, which
 PyTorch orders behind the work queued on both cards' current streams);
@@ -78,6 +80,20 @@ class Exchange(Protocol):
     def gather(self, blocks: Blocks) -> list[np.ndarray]:
         """Every block of a field, on the host, in every process."""
 
+    def all_gather(self, bufs: Blocks) -> Blocks:
+        """Each held block's 1D buffer, all of one length L, to every block:
+        for each held block, the buffers of all blocks concatenated in block
+        order ([nblocks * L], on the block's device). The held blocks of one
+        device may share one result; it is only read."""
+
+    def swap_pairs(self, pairs, sends: dict) -> dict:
+        """One round of pairwise swaps: ``pairs`` are (i, j) pairs of
+        blocks, no block in two; ``sends[(a, b)]`` is what held block a
+        sends to its partner b (both sides of a pair send buffers of one
+        length). Returns ``got[(a, b)]``: what held block a received from b,
+        on a's device, to be read only (on one device it may be the
+        sender's buffer itself)."""
+
 
 def copy_to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A copy of ``x`` on ``device`` (``non_blocking``: across cards PyTorch
@@ -130,6 +146,24 @@ class LocalExchange:
 
     def gather(self, blocks):
         return [x.detach().cpu().numpy() for x in blocks]
+
+    def all_gather(self, bufs):
+        """One concatenation for each device that holds blocks, shared by
+        its blocks."""
+        full = {}
+        for dev in self.mesh.devices:
+            if dev not in full:
+                full[dev] = torch.cat([x if x.device == dev else copy_to(x, dev)
+                                       for x in bufs])
+        return Blocks(full[dev] for dev in self.mesh.devices)
+
+    def swap_pairs(self, pairs, sends):
+        got = {}
+        for i, j in pairs:
+            for a, b in ((i, j), (j, i)):
+                x, dev = sends[(b, a)], self.mesh.devices[a]
+                got[(a, b)] = x if x.device == dev else copy_to(x, dev)
+        return got
 
 
 def _plane(x: torch.Tensor, axis: int, i: int) -> torch.Tensor:

@@ -124,10 +124,11 @@ def make_device_mesh(
 class Blocks(list):
     """The per-block tensors of one blocked field, in C block order (None
     for a block another process holds), with the block-wise arithmetic the
-    solvers run on: ``x + y``, ``x - y``, ``a * x`` and ``x * a`` for a
-    number or a 0-d tensor ``a`` (moved to each block's device), ``-x``.
-    The list's own ``+`` (concatenation) and ``*`` (repetition) are
-    replaced by these."""
+    solvers run on: ``x + y``, ``x - y``, ``x * y`` and ``x / y`` of two
+    Blocks of one mesh, or of a Blocks and a number or a 0-d tensor ``a``
+    (moved to each block's device) on either side (``a / x`` aside), and
+    ``-x``. The list's own ``+`` (concatenation) and ``*`` (repetition)
+    are replaced by these."""
 
     def _zip(self, other, fn):
         if not isinstance(other, Blocks) or len(other) != len(self):
@@ -143,17 +144,31 @@ class Blocks(list):
             return Blocks(None if a is None else fn(a, s) for a in self)
         return NotImplemented
 
+    def _either(self, other, fn):
+        if isinstance(other, Blocks):
+            return self._zip(other, fn)
+        return self._scaled(other, fn)
+
     def __add__(self, other):
-        return self._zip(other, lambda a, b: a + b)
+        return self._either(other, lambda a, b: a + b)
+
+    def __radd__(self, s):
+        return self._scaled(s, lambda a, c: c + a)
 
     def __sub__(self, other):
-        return self._zip(other, lambda a, b: a - b)
+        return self._either(other, lambda a, b: a - b)
 
-    def __mul__(self, s):
-        return self._scaled(s, lambda a, c: a * c)
+    def __rsub__(self, s):
+        return self._scaled(s, lambda a, c: c - a)
+
+    def __mul__(self, other):
+        return self._either(other, lambda a, b: a * b)
 
     def __rmul__(self, s):
         return self._scaled(s, lambda a, c: c * a)
+
+    def __truediv__(self, other):
+        return self._either(other, lambda a, b: a / b)
 
     def __neg__(self):
         return Blocks(None if a is None else -a for a in self)

@@ -70,7 +70,8 @@ __all__ = ["ShardedPaddedWave", "STEP2_SLICE"]
 
 #: what solve_step2_n raises: the next slice of the port
 STEP2_SLICE = ("the distributed 2-step RK4 (kernel J on a 6p value halo) is "
-               "not ported yet (ROADMAP.md Queue 1, distribution)")
+               "not ported yet: sharded J is the next item of ROADMAP.md Queue 1 "
+               "(item 7.1, distribution)")
 
 # (module, tables, their builder, halo in units of p) of the value-halo paths
 _PATHS = {

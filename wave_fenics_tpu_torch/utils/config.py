@@ -12,13 +12,13 @@ XDMF file of the final state (``apps/planar3d_app.py``).
 ``run.force_padded`` is accepted and has no effect: the port's app always
 runs the padded solvers on a box.
 
-``run.ndev > 1`` runs the box on that many blocks (the app's sharded
-branch, ``parallel/sharded_padded.py``).
+``run.ndev > 1`` runs the box on that many blocks, and an imported mesh
+on that many RCB parts of its cells (the app's sharded branch,
+``parallel/sharded_padded.py``, ``parallel/sharded_general.py``).
 
 Fields the port cannot honour yet raise a ValueError naming what is
-missing, and are never silently ignored: ``run.ndev > 1`` on an imported
-mesh (the sharded general branch, not ported) and ``run.dtype == 'bf16'``
-(bf16 state).
+missing, and are never silently ignored: ``run.dtype == 'bf16'`` (bf16
+state).
 
 The JAX package's box case ignores ``physics.window_periods``,
 ``time.t0``, ``domain.source_tag``, ``domain.abc_tag`` and
@@ -80,7 +80,7 @@ class TimeConfig:
 @dataclass
 class RunConfig:
     dtype: str = "f32"                   # f32 | f64 (bf16 raises)
-    ndev: int = 1                        # > 1: blocks (a box only)
+    ndev: int = 1                        # > 1: blocks, or RCB parts of a mesh
     checkpoint_dir: str | None = None
     checkpoint_every_steps: int = 1000
     log_every_steps: int = 50
@@ -135,10 +135,6 @@ class SimulationConfig:
                              "tags belong to an imported mesh")
         if r.ndev < 1:
             raise ValueError(f"run.ndev = {r.ndev}: at least 1")
-        if r.ndev > 1 and imported:
-            raise ValueError(f"run.ndev = {r.ndev} on an imported mesh: the sharded "
-                             "general branch (parallel/sharded_general.py: RCB "
-                             "partition, its exchanges and CG) is not ported yet")
         if r.dtype == "bf16":
             raise ValueError("run.dtype = 'bf16': bf16 state is not ported yet")
         if r.dtype not in DTYPES:
