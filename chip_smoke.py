@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases (numbered in the order they were added; 12 and 13 run after 6, 14
 and 17 after 8, 15 inside 11, after P9, on the P8 model, 16 inside 10, 18
-inside 15, after P18); any failure raises, so
+inside 15, after P18, 19 after 17, 20 inside 11); any failure raises, so
 the script exits non-zero and never prints its last line:
 
 1. device: a CUDA card, its name and power limit (nvidia-smi), TF32 off
@@ -213,14 +213,38 @@ the script exits non-zero and never prints its last line:
     1e-4 of one device's;
     ``cg_bench.run(op="general", s=16, degree=4, ndev=4)``, iterations
     within 1 of one device's; ``scatter_bench`` local and halo at size 64,
-    general-halo at size 32 with both modes, launching no kernel.
+    general-halo at size 32 with both modes, launching no kernel;
+19. the distributed 2-step RK4 (kernel J on the 6p value halo), Newmark and
+    heterogeneous media: inside phase 17, f64 at (8,4,4) cells on (2,2,1)
+    ``solve_step2_n`` from a random O(1) state, 12 steps, against one
+    device's ``solve_step_n``, limit 1e-12; one call of J's seven launches on
+    each block of the 6p layout at the P1 width, (2,2,1), f32, from NaN,
+    against its plain version on the whole state (the plain version computes
+    the same launch boxes, ``ops.rk42step.call_rings``), limit 1e-5, and the
+    step boundary's time on block 0's grown box; P22, ``solve_step2_n`` at
+    the P1 width on (2,1,1) and (2,2,1), f32, 100 steps, checked like P20's
+    runs (7 J launches per block per 2 steps, within 1e-4 of one device's
+    J), with its device ms/step and idle share (the profiler over 20 steps)
+    beside one device's J and the sharded step A; P23, ``newmark_solve_n``
+    at the P1 size, f64, 30 steps of 10x the RK4 step: CG iterations a step,
+    ms/step, kernel F launched once per right-hand side, once per CG matvec
+    and once for the initial acceleration and no other kernel, the host
+    syncs a step, a finite state with max|u| within twice RK4's at its own
+    step over the same time; P24, ``LinearWave(c0_cells)`` (f64 (4,2,2)
+    two layers on the card against the CPU, limit 1e-12; then two layers,
+    1.3 c0 and c0 across x = L/2, at the P1 size, f32, 100 RK4 steps on the
+    per-cell path, no kernel launched, the field off the homogeneous
+    model's by more than 1e-3 of max|u|): ms/step;
+20. ``EAOperator`` at 16^3 cells, p=4 (the perturbed box, f32): against
+    kernel K within 1e-5 of max|ref|, ms/apply beside K and the CSR SpMV.
 
 It prints one JSON line of per-kernel results ("kernels": all eleven
 kernels, each with the launches of its path's run, J's step boundary
 alone, and the three set-up kernels with P16's launches; kernel B's path
-is the f1-path RK4 check; K's and F's include phase 15's; A, B, E, F, H
-and I add phase 17's sharded runs and K phase 18's, listed under
-``sharded_launches``; K's entry also lists P21's parts) and,
+is the f1-path RK4 check; K's and F's include phase 15's; A, B, E, F, H,
+I and J add phase 17's sharded runs (J: P22) and K phase 18's, listed
+under ``sharded_launches``; F adds P23's Newmark launches; K's entry also
+lists P21's parts, J's the boundary's time on a grown box) and,
 last, one JSON line ``{"ok": true, "device":
 {...}}``. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -505,6 +529,7 @@ def main() -> None:
         wave,
     )
     from wave_fenics_tpu_torch.ops.assembled import (
+        EAOperator,
         assemble_csr,
         assemble_element_tensors,
         csr_tensor,
@@ -512,6 +537,7 @@ def main() -> None:
     from wave_fenics_tpu_torch.ops.operators import GeneralOperators, StructuredOperators
     from wave_fenics_tpu_torch.ops.separable import separable_mass_tables
     from wave_fenics_tpu_torch.solvers.cg import cg
+    from wave_fenics_tpu_torch.solvers.newmark import newmark_solve_n
     from wave_fenics_tpu_torch.solvers.rk4 import rk4_solve_n
     from wave_fenics_tpu_torch.utils.config import SimulationConfig
     from wave_fenics_tpu_torch.utils.timing import Timer, timeit
@@ -1536,9 +1562,9 @@ def main() -> None:
     def sharded_solvers(sw, pm, kind):
         lay = sw.layout if kind == "n" else sw.halo_layout(kind)
         solve = {"n": sw.solve_n, "step": sw.solve_step_n, "lf": sw.solve_lf_n,
-                 "lf2": sw.solve_lf2_n}[kind]
+                 "lf2": sw.solve_lf2_n, "step2": sw.solve_step2_n}[kind]
         ref = {"n": pm.solve_n, "step": pm.solve_step_n, "lf": pm.solve_lf_n,
-               "lf2": pm.solve_lf2_n}[kind]
+               "lf2": pm.solve_lf2_n, "step2": pm.solve_step2_n}[kind]
         return lay, solve, ref
 
     phase("P20 sharded solves, f64 at (8,4,4) cells against one device")
@@ -1562,6 +1588,29 @@ def main() -> None:
         if kind != "n":
             sw.refresh(v, lay)
         planes_bitwise(sw, v, lay, f"P20 f64 {kind} {parts}")
+    # the 2-step RK4 (kernel J on the 6p value halo) from a random O(1)
+    # state (a zero state leaves the deep halo exponentially small), against
+    # one device's step path
+    m64 = LinearWave(box_mesh((8, 4, 4), (0.01, 0.005, 0.005),
+                              facet_tags=FacetTags({1: (0,), 2: (1,)})),
+                     p=4, dtype=torch.float64, device=dev)
+    sw = ShardedPaddedWave(m64, (2, 2, 1), tile_x=24)
+    pm = PaddedLinearWave(m64, tile_x=24)
+    lay = sw.halo_layout("step2")
+    rng = np.random.default_rng(22)
+    g0 = [rng.standard_normal(m64.ops.grid_shape) for _ in range(2)]
+    u, v, _ = sw.solve_step2_n(0.0, 1e-9, 12, *(sw.from_global(g, lay) for g in g0))
+    ur, vr, _ = pm.solve_step_n(0.0, 1e-9, 12, *(pm.from_grid(torch.as_tensor(g, device=dev))
+                                                 for g in g0))
+    _, rel = state_err(torch.as_tensor(sw.to_global_step2(u)),
+                       torch.as_tensor(sw.to_global_step2(v)),
+                       pm.to_grid(ur).cpu(), pm.to_grid(vr).cpu())
+    print(f"P20 f64 step2 (2,2,1) flat, from a random state: 12 steps against one "
+          f"device's solve_step_n: relative error {rel:.3e} (limit 1e-12)")
+    check(rel <= 1e-12, "P20 f64 step2 against one device")
+    sw.refresh(v, lay)
+    planes_bitwise(sw, v, lay, "P20 f64 step2 (2,2,1)")
+    del m64, sw, pm, u, v, ur, vr
     msw = [ShardedLinearWave(LinearWave(box_mesh((8, 4, 4), (0.01, 0.005, 0.005),
                                                  facet_tags=FacetTags({1: (0,), 2: (1,)})),
                                         p=4, dtype=torch.float64, device=dev), (2, 2, 1))]
@@ -1575,7 +1624,7 @@ def main() -> None:
     check(rel <= 1e-12, "P20 f64 ShardedLinearWave against LinearWave.solve")
     del msw
 
-    phase(f"P20 halo-layout launches of A, H and I at the P1 width ({NDOFS:,} dofs, "
+    phase(f"P20 halo-layout launches of A, H, I and J at the P1 width ({NDOFS:,} dofs, "
           "(2,2,1) blocks) against their plain versions, from NaN")
     case20, pm20 = planar3d_app.build(**HEADLINE, dtype="f32", device="cuda")
     m20 = case20.model
@@ -1586,8 +1635,9 @@ def main() -> None:
     rng20 = np.random.default_rng(20)
     g20 = [rng20.standard_normal(grid20), 1e3 * rng20.standard_normal(grid20)]
     halo_err = {}
+    jb_grown = {}
     for kind, nfields, rings in (("step", 5, (0, 0)), ("lf", 3, (4, 0)),
-                                 ("lf2", 5, (4, 0))):
+                                 ("lf2", 5, (4, 0)), ("step2", 8, (0, 0))):
         lay = sw20.halo_layout(kind)
         u0 = sw20.refresh(sw20.from_global(g20[0], lay), lay)
         v0 = sw20.refresh(sw20.from_global(g20[1], lay), lay)
@@ -1608,12 +1658,42 @@ def main() -> None:
                                         scratch=nan[2])
                 up, vp = lfstep.lf_step_plain(u0[b], v0[b], case20.dt, 1.0, 0.6, lay,
                                               c0, tables)
-            else:
+            elif kind == "lf2":
                 uk, vk = lf2step.lf2_step(u0[b], v0[b], case20.dt, 1.0, 0.6, 0.2, lay,
                                           c0, tables, st, src_x, abc_x,
                                           out=tuple(nan[:2]), scratch=tuple(nan[2:]))
                 up, vp = lf2step.lf2_step_plain(u0[b], v0[b], case20.dt, 1.0, 0.6, 0.2,
                                                 lay, c0, tables)
+            else:
+                # J's seven launches, each on its ring (ops.rk42step.call_rings);
+                # the plain version computes the same boxes, so the whole
+                # state compares
+                jargs = (case20.dt, (1.0, 0.8, 0.55, 0.3, 0.1), lay, c0, st, *tables,
+                         src_x, abc_x)
+                uk, vk = rk42step.rk42_step_cuda(u0[b], v0[b], *jargs, out=tuple(nan[:2]),
+                                                 scratch=tuple(nan[2:]))
+                up, vp = rk42step.rk42_step_plain(u0[b], v0[b], *jargs)
+                _, rel = state_err(uk, vk, up, vp)
+                check(rel <= 1e-5, f"P20 step2 block {b}: the whole state against plain")
+                if b == 0:
+                    # the step boundary alone on its grown box (2p into the
+                    # halo), on the stages this call left in the scratch
+                    bring = rk42step.call_rings(lay)[0][3]
+                    bins = (u0[b], v0[b], *nan[2:5])
+                    bargs = rk42step.boundary_launch_args(
+                        *bins, *nan[5:8], *tables, src_x, abc_x, case20.dt, 0.55, c0, lay,
+                        st, bring)
+                    x0, nx, h, ny, nz = lay.box(bring)
+                    box_pts, pad_pts = nx * ny * nz, math.prod(lay.padded_shape)
+                    q = 2 * lay.p
+                    jb_bytes = uk.element_size() * (5 * (nx + q) * (ny + q) * (nz + q)
+                                                    + 3 * pad_pts)
+                    jb_grown = dict(
+                        us=1e6 * timeit(_cuda.launcher(_cuda.library(),
+                                                       "wave_rk42_boundary_tiled",
+                                                       uk.dtype, dev, *bargs), reps=100),
+                        bound_us=1e6 * jb_bytes / HBM_BYTES_PER_S, box=[nx, ny, nz],
+                        box_points=box_pts, ring=bring, tiling=list(bargs[-7:]))
             torch.cuda.synchronize()
             inter = lay.interior
             _, rel = state_err(uk[inter], vk[inter], up[inter], vp[inter])
@@ -1631,6 +1711,10 @@ def main() -> None:
               f"kernel against plain on the interior of every block: {worst:.3e} "
               f"(limit 1e-5)")
         check(worst <= 1e-5, f"P20 {kind}: halo-layout kernel against its plain version")
+    print(f"J's step boundary on block 0's grown box {jb_grown['box']} (ring "
+          f"{jb_grown['ring']}, tiling {jb_grown['tiling']}): {jb_grown['us']:.2f} "
+          f"us/launch, bound {jb_grown['bound_us']:.2f} us (5 inputs over the box and "
+          f"its p-deep ring, 3 padded outputs) [{smi}]")
     del u0, v0, uk, vk, up, vp, nan
 
     phase(f"P20 sharded solves at the P1 width ({NDOFS:,} dofs, f32, tile 48) and "
@@ -1643,6 +1727,9 @@ def main() -> None:
         ("P20 lf2 (2,2,1)", m20, pm20, (2, 2, 1), "lf2", "I", 100),
         ("P20 stage (2,1,1)", m20, pm20, (2, 1, 1), "n", "B", 100),
         ("P20 stage p=10 (2,1,1)", case12b.model, epm12, (2, 1, 1), "n", "E", 20),
+        # P22: the 2-step RK4, kernel J on the 6p value halo
+        ("P22 step2 (2,1,1)", m20, pm20, (2, 1, 1), "step2", "J", 100),
+        ("P22 step2 (2,2,1)", m20, pm20, (2, 2, 1), "step2", "J", 100),
     ]
     class TimedExchange:
         """A solver's exchange with CUDA events around every slab swap (the
@@ -1724,7 +1811,22 @@ def main() -> None:
         check(worst <= 1e-5, f"{label}: kernel {kernel} against its plain version")
         return worst
 
-    per_step_launches = {"step": 4, "lf": 2, "lf2": 1.5, "n": 4}
+    per_step_launches = {"step": 4, "lf": 2, "lf2": 1.5, "n": 4, "step2": 3.5}
+
+    def device_ms_idle(fn, n):
+        """(device ms/step, idle share) of ``fn()`` running ``n`` steps: the
+        device time of every kernel and copy ``torch.profiler`` records,
+        against the host clock of that profiled call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host = 1e3 * (time.perf_counter() - t0) / n
+        devms = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+        return devms, 1.0 - devms / host
     p20 = {}
     for label, model, pm, parts, kind, kernel, n in p20_runs:
         tile = 48 if model.p == 4 else 16
@@ -1767,6 +1869,11 @@ def main() -> None:
                           exchange_share=ex_ms / ms_step, launches=counts[kernel],
                           launches_per_step=counts[kernel] / n, max_rel_err=rel,
                           layout=list(lay.padded_shape))
+        if kind == "step2":
+            dms, idle = device_ms_idle(lambda: solve(0.0, dt, 20), 20)
+            p20[label].update(device_ms_per_step=dms, idle_share=idle)
+            print(f"{label}: device {dms:.4f} ms/step (torch.profiler over 20 steps), "
+                  f"idle {100 * idle:.1f} %")
         print(f"{label}: {ms_step:.4f} ms/step on {nb} blocks (one device "
               f"{one_ms:.4f}); exchange ({ex_what}) {ex_ms:.4f} ms/step, "
               f"{100 * ex_ms / ms_step:.1f} % of the step; kernel {kernel} "
@@ -1775,6 +1882,12 @@ def main() -> None:
         check(rel <= 1e-4, f"{label} against one device")
         del u, v, ur, vr, sw
     print("P20 " + json.dumps(p20))
+    for parts in ("(2,1,1)", "(2,2,1)"):
+        j, a = p20[f"P22 step2 {parts}"], p20[f"P20 step {parts}"]
+        print(f"P22 step2 {parts}: {j['ms_per_step']:.4f} ms/step; one device's J "
+              f"{j['one_device_ms_per_step']:.4f}; the sharded step A "
+              f"{a['ms_per_step']:.4f}; exchange {100 * j['exchange_share']:.1f} % "
+              f"against A's {100 * a['exchange_share']:.1f} % [{smi}]")
 
     phase("P20 ShardedLinearWave (kernel F per block) at the P1 width, (2,2,1)")
     msw = ShardedLinearWave(m20, (2, 2, 1))
@@ -1830,6 +1943,91 @@ def main() -> None:
               f"1e-4); {out['solve_seconds']:.4f} s [{smi}]")
         check(rel <= 1e-4, f"P20 app {integrator} against the one-device app")
         p20_apps[integrator] = (kernel, counts[kernel], out)
+
+    # -- 19. Newmark on kernel F, the heterogeneous box ------------------
+    phase(f"P23 Newmark (kernel F inside CG) at the P1 size ({NDOFS:,} dofs), f64, "
+          "dt 10x the RK4 step")
+    case23 = planar3d_case(ncells=HEADLINE["cells"], degree=4, dtype=torch.float64,
+                           device=dev)
+    m23 = case23.model
+    dt23, n23 = 10 * case23.dt, 30
+    stats = {}
+    newmark_solve_n(m23, dt23, 2, *m23.zero_state(), stats=stats)  # tables, first launches
+    zero_counts()
+    tm = Timer(dev)
+    with tm("newmark"):
+        un, vn, an = newmark_solve_n(m23, dt23, n23, *m23.zero_state(), stats=stats)
+    counts = read_counts()
+    its = stats["cg_iterations"]
+    p23_f = counts["F"]
+    check(p23_f == sum(its) + 2 * n23 + 1, f"P23: kernel F launched {p23_f} times, "
+          f"want {sum(its) + 2 * n23 + 1}")
+    check(not {k: c for k, c in counts.items() if k != "F" and c},
+          f"P23: other kernels launched {counts}")
+    nm_ms = 1e3 * tm.seconds("newmark") / n23
+    # RK4 at its own step over the same time (LinearWave.solve: kernel F in f1)
+    ur, vr = rk4_solve_n(m23.f0, m23.f1, *m23.zero_state(), 0.0, case23.dt, 10 * n23)
+    umax, urmax = float(un.abs().max()), float(ur.abs().max())
+    check(bool(torch.isfinite(un).all() and torch.isfinite(vn).all()
+               and torch.isfinite(an).all()), "P23: a finite Newmark state")
+    check(0.0 < umax <= 2.0 * urmax, f"P23: max|u| {umax:.4e} bounded by twice RK4's "
+          f"{urmax:.4e}")
+    p23 = dict(steps=n23, dt=dt23, rk4_dt=case23.dt, cg_iterations=its,
+               iterations_per_step=sum(its) / n23, ms_per_step=nm_ms, f_launches=p23_f,
+               host_syncs_per_step=stats["host_syncs"] / n23, max_u=umax,
+               rk4_max_u=urmax)
+    print(f"P23 Newmark: {n23} steps of {dt23:.4e} s, CG {sum(its) / n23:.2f} "
+          f"iterations/step ({min(its)}-{max(its)}), {nm_ms:.4f} ms/step, kernel F "
+          f"{p23_f} launches, host syncs {stats['host_syncs'] / n23:.2f}/step; max|u| "
+          f"{umax:.4e} against RK4's {urmax:.4e} at dt {case23.dt:.4e} [{smi}]")
+    print("P23 " + json.dumps(p23))
+    del case23, m23, un, vn, an, ur, vr
+
+    phase(f"P24 a two-layer medium at the P1 size ({NDOFS:,} dofs, f32): 100 RK4 "
+          "steps on the per-cell stiffness")
+    # the small f64 check first: the per-cell path on the card against the CPU
+    for d in ("cpu", dev):
+        mesh24 = box_mesh((4, 2, 2), (1.0, 0.5, 0.5), facet_tags=FacetTags({1: (0,), 2: (1,)}))
+        het = LinearWave(mesh24, p=3, c0=1.0, dtype=torch.float64, device=d,
+                         c0_cells=np.where(np.arange(16) // 4 < 2, 1.0, 1.3))
+        u, v, _ = het.solve(0.0, 25e-3, 1e-3, *het.zero_state())
+        if d == "cpu":
+            uc, vc = u, v
+    _, rel = state_err(u.cpu(), v.cpu(), uc, vc)
+    print(f"P24 f64 (4,2,2) two layers, 25 RK4 steps on the card against the CPU: "
+          f"relative error {rel:.3e} (limit 1e-12)")
+    check(rel <= 1e-12, "P24 f64 heterogeneous box against the CPU")
+    case24 = planar3d_case(ncells=HEADLINE["cells"], degree=4, dtype=torch.float32,
+                           device=dev)
+    b24 = case24.model
+    mids = (np.arange(b24.mesh.shape[0]) + 0.5) * b24.mesh.h[0]
+    layer = np.repeat(mids < 0.5 * b24.mesh.h[0] * b24.mesh.shape[0],
+                      b24.mesh.shape[1] * b24.mesh.shape[2])
+    # the faster layer at the source, so the 100 steps' field (a few mm from
+    # the source face) already feels the medium
+    m24 = LinearWave(b24.mesh, p=4, c0=b24.c0, freq0=b24.freq0, p0=b24.p0,
+                     dtype=torch.float32, device=dev,
+                     c0_cells=np.where(layer, 1.3 * b24.c0, b24.c0))
+    dt24 = case24.dt / 1.3  # the CFL step of the faster layer
+    rk4_solve_n(m24.f0, m24.f1, *m24.zero_state(), 0.0, dt24, 2)
+    zero_counts()
+    tm = Timer(dev)
+    with tm("het"):
+        u, v = rk4_solve_n(m24.f0, m24.f1, *m24.zero_state(), 0.0, dt24, 100)
+    counts = read_counts()
+    check(not any(counts.values()), f"P24: the per-cell path launched {counts}")
+    het_ms = 1e3 * tm.seconds("het") / 100
+    uh, _ = rk4_solve_n(b24.f0, b24.f1, *b24.zero_state(), 0.0, dt24, 100)
+    dif = float((u - uh).abs().max()) / float(uh.abs().max())
+    check(bool(torch.isfinite(u).all() and torch.isfinite(v).all()), "P24 finite")
+    check(dif > 1e-3, f"P24: the two-layer field differs from the homogeneous {dif:.3e}")
+    p24 = dict(steps=100, dt=dt24, ms_per_step=het_ms, max_u=float(u.abs().max()),
+               rel_diff_homogeneous=dif)
+    print(f"P24 two layers (1.3 c0, c0 across x = L/2): {het_ms:.4f} ms/step on the "
+          f"per-cell path (plain torch: gather, element contraction, scatter); max|u| "
+          f"{p24['max_u']:.4e}, {dif:.3e} of max|u| from the homogeneous model [{smi}]")
+    print("P24 " + json.dumps(p24))
+    del case24, b24, m24, u, v, uh
 
     # -- 9. the operator benchmark paths -----------------------------------
     def only(counts, kernel, label):
@@ -2486,14 +2684,17 @@ def main() -> None:
     check(setup_paths["P11"] == {"geometry": 1, "keys": 1, "dedup": 1},
           f"P11's set-up launches {setup_paths['P11']}")
 
-    phase("the assembled CSR SpMV against kernel K at 16^3 cells, p=4")
+    phase("the assembled CSR SpMV and the element-assembly operator against kernel K "
+          "at 16^3 cells, p=4")
     t0 = time.perf_counter()
     hm16, _ = general_solve.perturbed_box((16, 16, 16))
     ops16 = GeneralOperators(hm16, build_dofmap(hm16, 4), dtype=torch.float32)
     t1 = time.perf_counter()
-    A = assemble_csr(ops16.dofs, assemble_element_tensors(
-        hm16, 4, kind="stiffness", coeff=-C0SQ, clamp=True))
+    A_e16 = assemble_element_tensors(hm16, 4, kind="stiffness", coeff=-C0SQ, clamp=True)
+    A = assemble_csr(ops16.dofs, A_e16)
     A16 = csr_tensor(A, dev, torch.float32)
+    ea16 = EAOperator(ops16.dofs, A_e16, dtype=torch.float32, device=dev)
+    del A_e16
     print(f"{ops16.ndofs} dofs: host setup {t1 - t0:.2f} s; CSR with {A.nnz} "
           f"entries, host assembly {time.perf_counter() - t1:.1f} s")
     del A
@@ -2513,7 +2714,21 @@ def main() -> None:
           f"{plain16:.4f} ms, bound {bound16[0]:.4f} ms ({bound16[1]}); K against "
           f"the CSR SpMV: max|err|/max|ref| = {rel_csr:.3e} (limit 1e-5) [{smi}]")
     check(rel_csr <= 1e-5, "kernel K against the assembled CSR SpMV")
-    del A16, x, out_k, y_csr
+    _, rel_ea = rel_err(ea16(x), general.general_apply_cuda(x, t16, -C0SQ))
+    ea_ms = 1e3 * timeit(lambda: ea16(x), reps=50)
+    ea_bytes = ea16.A_e.numel() * 4 + ea16.dofmap.numel() * 8 + 2 * x.numel() * 4
+    ea = dict(ms=ea_ms, k_ms=ms16, csr_ms=csr_ms, rel_err_vs_k=rel_ea,
+              a_e_bytes=ea16.A_e.numel() * 4,
+              bytes_bound_ms=1e3 * ea_bytes / HBM_BYTES_PER_S)
+    print(f"EAOperator (gather, torch.bmm of the stored A_e [{ea16.A_e.shape[0]}, "
+          f"{ea16.A_e.shape[1]}, {ea16.A_e.shape[2]}], index_add_ scatter; TF32 off): "
+          f"{ea_ms:.4f} ms/apply beside kernel K {ms16:.4f} ms and the CSR SpMV "
+          f"{csr_ms:.4f} ms; its bytes (A_e, the dofmap, x, y) over the HBM rate "
+          f"{ea['bytes_bound_ms']:.4f} ms; against K: max|err|/max|ref| = {rel_ea:.3e} "
+          f"(limit 1e-5) [{smi}]")
+    print("EA " + json.dumps(ea))
+    check(rel_ea <= 1e-5, "EAOperator against kernel K")
+    del A16, x, out_k, y_csr, ea16
 
     # "kernels": all eleven, each with the launches of its path's run (G:
     # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
@@ -2532,7 +2747,7 @@ def main() -> None:
     results["B"] = (b_err, b_ms, b_plain_ms, b_bound)
     # K and F: their paths' runs, and the imported-mesh workflow's (phase 15)
     launches["K"] = k_paths["P8"] + sum(p15_k.values())
-    launches["F"] += sum(p15_f.values())
+    launches["F"] += sum(p15_f.values()) + p23_f
     launches["B"] = f1_launches
     # the sharded runs (phase 17), each counted alone, added to their kernels
     sharded_launches = {}
@@ -2619,7 +2834,8 @@ def main() -> None:
         })
     by_name = {k: entry for k, entry in zip(meta, kernels)}
     by_name["K"]["launches_per_path"] = {**k_paths, **p15_k}
-    by_name["F"]["launches_per_path"] = {"P7 stiffness": p7["stiffness"], **p15_f}
+    by_name["F"]["launches_per_path"] = {"P7 stiffness": p7["stiffness"], **p15_f,
+                                         "P23 Newmark": p23_f}
     by_name["K"]["ms_per_mode"] = {"P8 mass": k_modes["mass"][1], **{
         k: v for k, v in k_modes.items() if k.startswith("P10")}}
     by_name["B"]["app_path_launches"] = b_on_paths
@@ -2633,6 +2849,8 @@ def main() -> None:
     by_name["C"]["wrapper_ms_per_step"] = c_ms
     by_name["J"]["two_c_steps_ms"] = c2_ms
     by_name["J"]["boundary_ms"] = jb_ms
+    # the boundary on block 0's grown box of the 6p layout (P1 width, (2,2,1))
+    by_name["J"]["sharded_boundary_us"] = jb_grown
     by_name["G"]["wrapper_ms"] = g_wrapper_ms
     # "ms" of B and F: back-to-back launches; wrapper_ms: through the wrapper
     by_name["B"]["wrapper_ms"] = b_wrapper_ms

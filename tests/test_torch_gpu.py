@@ -1371,3 +1371,150 @@ def test_cuda_app_mesh_ndev_matches_cpu(cuda, tmp_path):
     g, c = (read_xdmf_attributes(str(tmp_path / f)) for f in ("g.xdmf", "c.xdmf"))
     _assert_state_close(torch.as_tensor(g["u"]), torch.as_tensor(g["v"]),
                         torch.as_tensor(c["u"]), torch.as_tensor(c["v"]))
+
+
+# -- the distributed 2-step RK4 (kernel J on the 6p value halo), Newmark on
+# kernel F, the heterogeneous box, the element-assembly operator ----------
+
+def _step2_state(sw, seed, dtype=F64):
+    """Random O(1) u and 1e3-scaled v on the blocks of the 6p layout, their
+    halos refreshed, and random kv0..kv2 over the whole 6p halo (what the
+    boundary launch reads as it is in memory)."""
+    lay = sw.halo_layout("step2")
+    u, v = _halo_state(sw, lay, seed, scale=1e3)
+    kvs = [_halo_state(sw, lay, seed + 10 + j, scale=1e9)[0] for j in range(3)]
+    cast = lambda bl: [x.to(dtype) for x in bl]  # noqa: E731
+    return lay, cast(u), cast(v), [cast(k) for k in kvs]
+
+
+@pytest.mark.parametrize("dtype,tol", [(F64, TOL), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("p", [3, 4, 5])
+def test_cuda_rk42_boundary_grown_box_matches_plain_over_nan(cuda, p, dtype, tol):
+    """J's step boundary on its grown launch box (the interior + 2p of the
+    6p value halo) from outputs full of NaN, on each block of (4,2,2) cells
+    on (2,1,1): block 0's box holds the global x-high face row and block
+    1's the x-low one, both in the halo. Against rk42_boundary_plain on the
+    same box, per field relative to max|ref|, every point of the state; 0
+    outside the box."""
+    sw = _sharded(p, cuda, (2, 1, 1), dtype=dtype)
+    lay, u, v, kvs = _step2_state(sw, 70 + p, dtype)
+    ring = rk42step.call_rings(lay)[0][3]
+    assert ring == 2 * p
+    x0, nx, _, _, _ = lay.box(ring)
+    for b, (faces, st, src_x, abc_x) in enumerate(sw._halo_tables("step2")):
+        face_rows = [r for r in (src_x, abc_x) if r >= 0]
+        assert any(not (lay.x0 <= r < lay.x0 + lay.shape[0]) and x0 <= r < x0 + nx
+                   for r in face_rows), "a face row in the halo, inside the box"
+        ins = (u[b], v[b], *(k[b] for k in kvs))
+        args = (DT, 0.5, lay, sw.model.c0, st, *faces, src_x, abc_x)
+        out = tuple(torch.full_like(ins[0], float("nan")) for _ in range(3))
+        got = rk42step._rk42_boundary_cuda(*ins, *args, out=out, ring=ring)
+        torch.cuda.synchronize()
+        want = rk42step.rk42_boundary_plain(*ins, *args, ring=ring)
+        for x, w in zip(got, want):
+            assert _rel(x, w) <= tol
+        _outside_box_zero(lay, ring, *got)
+
+
+@pytest.mark.parametrize("cells,parts", [((4, 2, 2), (2, 1, 1)), ((8, 4, 4), (2, 2, 1))])
+def test_cuda_rk42_call_on_the_6p_halo_matches_plain_over_nan(cuda, cells, parts):
+    """One kernel-J call (seven launches, each on its ring) on every block
+    of the 6p layout from output and scratch buffers full of NaN, against
+    rk42_step_plain on the same rings, at every point of the state."""
+    sw = _sharded(4, cuda, parts, shape=cells)
+    lay, u, v, _ = _step2_state(sw, 90)
+    for b, (faces, st, src_x, abc_x) in enumerate(sw._halo_tables("step2")):
+        nan = [torch.full_like(u[b], float("nan")) for _ in range(8)]
+        n0 = rk42step.rk42_step_cuda.launches
+        args = (DT, (1.0, 0.8, 0.55, 0.3, 0.1), lay, sw.model.c0, st, *faces, src_x,
+                abc_x)
+        uk, vk = rk42step.rk42_step_cuda(u[b], v[b], *args, out=tuple(nan[:2]),
+                                         scratch=tuple(nan[2:]))
+        torch.cuda.synchronize()
+        assert rk42step.rk42_step_cuda.launches == n0 + 7
+        up, vp = rk42step.rk42_step_plain(u[b], v[b], *args)
+        _assert_state_close(uk, vk, up, vp)
+        _outside_box_zero(lay, 0, uk, vk)
+        assert not any(bool(torch.isnan(x).any()) for x in nan)
+
+
+@pytest.mark.parametrize("cells,parts", [((8, 4, 4), (2, 2, 1)), ((15, 4, 4), (3, 1, 1))])
+def test_cuda_sharded_step2_matches_single_device(cuda, cells, parts):
+    """solve_step2_n on the card from a random O(1) state against the
+    one-device solve_step_n on the card, f64, 12 steps, at 1e-12; kernel J
+    launched 7 times per block per call."""
+    sw = _sharded(4, cuda, parts, shape=cells)
+    pm = PaddedLinearWave(sw.model, tile_x=24)
+    lay = sw.halo_layout("step2")
+    rng = np.random.default_rng(3)
+    g = tuple(n * 4 + 1 for n in cells)
+    u0, v0 = rng.standard_normal(g), rng.standard_normal(g)
+    n0 = rk42step.rk42_step_cuda.launches
+    u, v, _ = sw.solve_step2_n(0.0, DT, 12, sw.from_global(u0, lay),
+                               sw.from_global(v0, lay))
+    torch.cuda.synchronize()
+    assert rk42step.rk42_step_cuda.launches == n0 + 7 * 6 * sw.mesh.nblocks
+    ur, vr, _ = pm.solve_step_n(0.0, DT, 12, pm.from_grid(torch.as_tensor(u0, device=cuda)),
+                                pm.from_grid(torch.as_tensor(v0, device=cuda)))
+    _assert_state_close(torch.as_tensor(sw.to_global_step2(u)),
+                        torch.as_tensor(sw.to_global_step2(v)),
+                        pm.to_grid(ur).cpu(), pm.to_grid(vr).cpu())
+
+
+def test_cuda_newmark_on_kernel_f_matches_cpu(cuda):
+    """newmark_solve_n on the card: kernel F once per right-hand side and
+    once per CG matvec (the start's residual and each iteration), once more
+    for the initial acceleration; (u, v, a) against the CPU solve, where CG
+    may stop one iteration apart, within 1e-8."""
+    from wave_fenics_tpu_torch.solvers.newmark import newmark_solve_n
+
+    mesh = box_mesh((6, 2, 2), (1.0, 0.3, 0.3), facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    res = []
+    for device in ("cpu", cuda):
+        m = LinearWave(mesh, p=3, c0=1.0, dtype=F64, device=device)
+        x = torch.as_tensor(np.sin(np.linspace(0, np.pi, 19))[:, None, None]
+                            * np.ones(m.ops.grid_shape), device=device)
+        stats = {}
+        n0 = stiffness.stiffness_grid_cuda.launches
+        out = newmark_solve_n(m, 0.02, 20, x, torch.zeros_like(x), t0=1e-3, stats=stats)
+        res.append((out, stats, stiffness.stiffness_grid_cuda.launches - n0))
+    (cpu_out, cpu_stats, cpu_f), (gpu_out, gpu_stats, gpu_f) = res
+    assert cpu_f == 0
+    assert gpu_f == sum(gpu_stats["cg_iterations"]) + 2 * 20 + 1
+    assert all(abs(a - b) <= 1 for a, b in zip(cpu_stats["cg_iterations"],
+                                                gpu_stats["cg_iterations"]))
+    for g, c in zip(gpu_out, cpu_out):
+        assert _rel(g.cpu(), c) <= 1e-8
+
+
+def test_cuda_heterogeneous_box_matches_cpu(cuda):
+    """LinearWave(c0_cells) on the card (the per-cell stiffness, plain
+    torch on every device; no kernel) against the CPU, f64, 25 RK4 steps."""
+    mesh = box_mesh((4, 2, 2), (1.0, 0.5, 0.5), facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    c0_cells = np.where(np.arange(16) // 4 < 2, 1.0, 1.3)
+    out = []
+    for device in ("cpu", cuda):
+        m = LinearWave(mesh, p=3, c0=1.0, dtype=F64, device=device, c0_cells=c0_cells)
+        n0 = stiffness.stiffness_grid_cuda.launches
+        u, v, _ = m.solve(0.0, 25e-3, 1e-3, *m.zero_state())
+        assert stiffness.stiffness_grid_cuda.launches == n0
+        out.append((u.cpu(), v.cpu()))
+    _assert_state_close(*out[1], *out[0])
+
+
+def test_cuda_ea_matches_kernel_k(cuda):
+    """EAOperator on the card (the batched product of the stored A_e, on
+    the clamped geometry, so it is kernel K's operator) against kernel K's
+    stiffness, f64, on a perturbed box at p = 3."""
+    from wave_fenics_tpu_torch.ops.assembled import EAOperator, assemble_element_tensors
+
+    hm, _ = perturbed_box((3, 3, 2), h=0.01)
+    dofs = build_dofmap(hm, 3)
+    ea = EAOperator(dofs, assemble_element_tensors(hm, 3, kind="stiffness", coeff=-2.0,
+                                                   clamp=True), dtype=F64, device=cuda)
+    ops = GeneralOperators(hm, dofs, dtype=F64)
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(dofs.ndofs), device=cuda)
+    n0 = general.general_apply_cuda.launches
+    want = ops.stiffness(x, 2.0**0.5)
+    assert general.general_apply_cuda.launches == n0 + 1
+    assert _rel(ea(x), want) <= TOL

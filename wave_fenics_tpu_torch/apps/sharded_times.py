@@ -8,8 +8,9 @@ Run it by path, not as a module, so that the package comes from ``--root``:
 
 The model is the planar3d case at 64x32x32 cells, p = 4, f32 (4,276,737
 dofs), every block on the card, tile 48. For ``solve_step_n`` (kernel A),
-``solve_lf_n`` (H) and ``solve_lf2_n`` (I) on (2,2,1) blocks and
-``solve_n`` (B) on (2,1,1) it reports, after a 2-step warm-up:
+``solve_lf_n`` (H), ``solve_lf2_n`` (I) and, where the tree has it,
+``solve_step2_n`` (J) on (2,2,1) blocks and ``solve_n`` (B) on (2,1,1) it
+reports, after a 2-step warm-up:
 
 - ``ms_per_step``: the host clock around ``--steps`` steps, synchronized
   before and after;
@@ -17,7 +18,8 @@ dofs), every block on the card, tile 48. For ``solve_step_n`` (kernel A),
   profiler records over one more such solve (``torch.profiler``), and
   ``idle_share`` = 1 - device / host time of that solve;
 - ``exchange_ms_per_step`` (the value-halo paths): ``refresh`` of u and v,
-  CUDA events over back-to-back calls, per step.
+  CUDA events over back-to-back calls, per step (half a call's on the
+  2-step paths lf2 and step2).
 
 Where the tree has ``parallel/sharded_general.py``, it also times the
 imported-mesh paths: ``ShardedGeneralWave.solve_n`` RK4 and leapfrog on the
@@ -74,11 +76,15 @@ def main(argv=None) -> None:
     case, _ = planar3d_app.build((64, 32, 32), 4, "f32", None, "cuda")
     n = args.steps
     out = {"card": card, "root": str(root), "steps": n}
-    for kind, parts in (("step", (2, 2, 1)), ("lf", (2, 2, 1)), ("lf2", (2, 2, 1)),
-                        ("n", (2, 1, 1))):
+    paths = [("step", (2, 2, 1)), ("lf", (2, 2, 1)), ("lf2", (2, 2, 1)),
+             ("n", (2, 1, 1))]
+    if hasattr(ShardedPaddedWave, "step2_unavailable"):  # trees with sharded J
+        paths.append(("step2", (2, 2, 1)))
+    for kind, parts in paths:
         sw = ShardedPaddedWave(case.model, parts, tile_x=48)
         solve = {"n": sw.solve_n, "step": sw.solve_step_n, "lf": sw.solve_lf_n,
-                 "lf2": sw.solve_lf2_n}[kind]
+                 "lf2": sw.solve_lf2_n,
+                 "step2": getattr(sw, "solve_step2_n", None)}[kind]
         solve(0.0, case.dt, 2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -98,7 +104,7 @@ def main(argv=None) -> None:
             lay = sw.halo_layout(kind)
             per_call = 1e3 * timeit(lambda: (sw.refresh(u, lay), sw.refresh(v, lay)),
                                     reps=50)
-            r["exchange_ms_per_step"] = per_call / (2 if kind == "lf2" else 1)
+            r["exchange_ms_per_step"] = per_call / (2 if kind in ("lf2", "step2") else 1)
         out[kind] = r
         print(f"{kind} {parts}: {host_ms:.4f} ms/step, device {dev_ms:.4f} ms/step "
               f"(idle {100 * r['idle_share']:.1f} %)"

@@ -20,6 +20,18 @@
 // stencil in its sum order. u1, v1 and kv0' are written for step
 // 2's stages, 0 in the padding; none of them may alias an input.
 //
+// On a value-halo layout (parallel/sharded_padded.py: a halo of 6p holding
+// the neighbour blocks' values, refreshed once per call) the caller passes
+// the box grown 2p into the halo (ops/rk42step.py::call_rings): step 2's
+// stages read u1 and v1 2p deep and kv0' p deep, and kv0' is exact there
+// because the stages before wrote kv0 and kv2 2p deep and kv1 3p deep. The
+// kernel is the same: its TMA windows read the inputs p deep around the
+// box as they are in memory, it forms un3 and u1 there from them, the face
+// terms act on rows src_x and abc_x wherever they fall in the box (the
+// global x faces may lie in the halo), and "the padding" it zeroes is
+// everything outside the box. The box's TMA z start moves with the box's
+// h, and tma_window's oz keeps it 16-byte aligned.
+//
 // What bounds it on this card: the interiors of five fields in (u0, v0,
 // kv0, kv1, kv2; their padding is 0) and three padded fields out (0.0546
 // ms in f32 at the P1 size: 5 x 17.11 MB + 3 x 31.85 MB and the tables,

@@ -33,7 +33,7 @@ from ..ops.operators import StructuredOperators
 from ..solvers.rk4 import rk4_solve, rk4_solve_n_recording
 
 __all__ = ["WavePhysics", "LinearWave", "lumped_boundary_weights", "probe_indices",
-           "solve_recording"]
+           "solve_recording", "require_homogeneous"]
 
 
 def lumped_boundary_weights(
@@ -126,8 +126,12 @@ class LinearWave(WavePhysics):
     (common/LinearGLL.hpp:69-128): basis degree, speed of sound, source
     frequency, pressure amplitude; plus boundary tags resolved through the
     mesh's facet_tags (source tag 1, absorbing tag 2, forms.ufl:21-24).
-    ``inv_m``, ``W1`` and ``W2`` are buffers on ``device`` (the card unless
-    the caller asks for the CPU).
+    ``m``, ``inv_m``, ``W1`` and ``W2`` are buffers on ``device`` (the card
+    unless the caller asks for the CPU). ``c0_cells`` (optional, [ncells])
+    is a per-cell sound speed (heterogeneous media): the stiffness takes
+    the per-cell path with the coefficient (c0_cells / c0)^2, and c0 stays
+    the reference speed of the source and absorbing terms. The padded and
+    sharded models raise on such a model (their tables hold c0 alone).
     """
 
     def __init__(
@@ -142,6 +146,7 @@ class LinearWave(WavePhysics):
         abc_tag: int = 2,
         dtype: torch.dtype = torch.float32,
         device: torch.device | str = "cuda",
+        c0_cells=None,
     ):
         super().__init__()
         self.mesh = mesh
@@ -153,15 +158,18 @@ class LinearWave(WavePhysics):
         self.source_tag = source_tag
         self.abc_tag = abc_tag
         self.dtype = dtype
-        self.ops = StructuredOperators(mesh, p, dtype=dtype)
+        self.c0_cells = c0_cells
+        coeff = None if c0_cells is None else (np.asarray(c0_cells) / c0) ** 2
+        self.ops = StructuredOperators(mesh, p, dtype=dtype, coeff_cells=coeff)
         npdt = numpy_dtype(dtype)
         tags = mesh.facet_tags
 
         def buf(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-        # 1/m precomputed: the optimization the reference left as a TODO
-        # (LinearGLL.hpp:179-181)
+        # m = M @ 1 (LinearGLL.hpp:105-110) and 1/m precomputed: the
+        # optimization the reference left as a TODO (LinearGLL.hpp:179-181)
+        self.register_buffer("m", buf(self.ops.lumped_mass))
         self.register_buffer("inv_m", buf((1.0 / self.ops.lumped_mass).astype(npdt)))
         self.register_buffer("W1", buf(lumped_boundary_weights(
             mesh, p, tags.facets_of(source_tag)).astype(npdt)))
@@ -172,6 +180,16 @@ class LinearWave(WavePhysics):
         """u_0 = v_0 = 0 (LinearGLL.hpp:131-134)."""
         z = torch.zeros(self.ops.grid_shape, dtype=self.dtype, device=self.device)
         return z, z
+
+
+def require_homogeneous(model, who: str) -> None:
+    """Raise a ValueError where ``model`` has a per-cell sound speed:
+    ``who`` builds its tables from c0 alone (the JAX package's padded and
+    sharded models ignore ``c0_cells`` and return the homogeneous answer)."""
+    if getattr(model, "c0_cells", None) is not None:
+        raise ValueError(f"{who} builds its tables from c0 alone: a model with "
+                         "c0_cells (a per-cell sound speed) runs on LinearWave's "
+                         "own solvers (the per-cell stiffness)")
 
 
 def probe_indices(model: LinearWave, points) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

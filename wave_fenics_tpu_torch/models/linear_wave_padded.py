@@ -78,7 +78,7 @@ from ..ops.wave import (
     stencil_tables,
 )
 from ..solvers.rk4 import rk4_solve, rk4_solve_n
-from .linear_wave import LinearWave, lumped_boundary_weights
+from .linear_wave import LinearWave, lumped_boundary_weights, require_homogeneous
 
 __all__ = ["PaddedLinearWave"]
 
@@ -111,6 +111,7 @@ class PaddedLinearWave(nn.Module):
                  kernel: str = "flat"):
         super().__init__()
         b = base
+        require_homogeneous(b, "PaddedLinearWave")
         if kernel not in ("flat", "3d"):
             raise ValueError(f"kernel = {kernel!r}: 'flat' or '3d'")
         self.base = b

@@ -1,27 +1,37 @@
-"""Globally assembled operators (host, NumPy and SciPy): the sparse baseline.
+"""Element-assembled and globally assembled operators: the baselines
+beside the matrix-free operators.
 
-Port of ``assemble_element_tensors`` and ``assemble_csr`` of
-``wave_fenics_tpu.ops.assembled``: dense per-element matrices A_e
-(assemble_element_tensor semantics, common/precompute.hpp:202-232) summed
-into one CSR matrix (the reference's PETScOperator baseline,
-demo/gpu_cg/operators.hpp:72-124). On a card its matvec is one PyTorch call
-(``csr_tensor``: ``torch.sparse.mm`` of the assembled matrix), the yardstick
-beside kernel K, which computes the same operator matrix-free. The
-element-assembly operator (``EAOperator``) and the BCOO matvec are not
-ported yet.
+Port of ``wave_fenics_tpu.ops.assembled``: dense per-element matrices A_e
+(``assemble_element_tensors``, assemble_element_tensor semantics,
+common/precompute.hpp:202-232);
+
+- ``EAOperator``: the stored-A_e matvec y = scatter(A_e @ gather(x)) (the
+  reference's EA operator, demo/gpu_cg/operators.hpp:127-201), one batched
+  product over all cells (``torch.bmm``, as the JAX package's einsum at
+  HIGHEST precision: TF32 must be off on a card), gathered and scattered
+  through ``ops.gather_scatter``;
+- ``assemble_csr``: A_e summed into one SciPy CSR matrix (the PETScOperator
+  baseline, operators.hpp:72-124); on a card its matvec is one PyTorch call
+  (``csr_tensor``: ``torch.sparse.mm``), which covers the JAX module's
+  on-device BCOO matvec. Both are yardsticks beside kernel K, which
+  computes the same operator matrix-free.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
+from ..convert import numpy_dtype
 from ..core import geometry
 from ..core.basis import tabulate_1d
 from ..core.dofmap import GeneralDofMap
 from ..core.mesh import HexMesh
+from . import gather_scatter as gs
+from .wave import _check_no_tf32
 
-__all__ = ["assemble_element_tensors", "assemble_csr", "csr_tensor"]
+__all__ = ["assemble_element_tensors", "EAOperator", "assemble_csr", "csr_tensor"]
 
 
 def _tables_3d(p: int, q: int | None, rule: str):
@@ -52,6 +62,29 @@ def assemble_element_tensors(
     else:
         raise ValueError(kind)
     return coeff * A
+
+
+class EAOperator(nn.Module):
+    """Element-assembly matvec y = scatter(A_e @ gather(x)) on a flat dof
+    vector: A_e [nc, nd, nd] and the dofmap are buffers of the operator
+    dtype on ``device`` (the card unless the caller asks for the CPU)."""
+
+    def __init__(self, dofs: GeneralDofMap, A_e: np.ndarray,
+                 dtype: torch.dtype = torch.float32,
+                 device: torch.device | str = "cuda"):
+        super().__init__()
+        self.ndofs = dofs.ndofs
+        self.dtype = dtype
+        self.register_buffer("A_e", torch.as_tensor(
+            np.ascontiguousarray(A_e, dtype=numpy_dtype(dtype)), device=device))
+        self.register_buffer("dofmap", torch.as_tensor(
+            np.ascontiguousarray(dofs.dofmap, dtype=np.int64), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _check_no_tf32(x)
+        xe = gs.gather_indexed(x, self.dofmap)  # [nc, nd]
+        ye = torch.bmm(self.A_e, xe[:, :, None])[:, :, 0]
+        return gs.scatter_indexed(ye, self.dofmap, self.ndofs)
 
 
 def assemble_csr(dofs: GeneralDofMap, A_e: np.ndarray):

@@ -488,12 +488,13 @@ def apply_flat(
 
 
 def apply_stencil_plain(
-    xp: torch.Tensor, layout: PaddedLayout, st: StencilTables
+    xp: torch.Tensor, layout: PaddedLayout, st: StencilTables, ring: int = 0
 ) -> torch.Tensor:
     """y = A x on the whole padded state with the stencil tables, as the
     flat-layout kernels compute it at each point (``csrc/stencil_tiled.cuh``:
     the x band, then the merged shift-0 y/z tap, the other y taps and the
-    other z taps, in that order); exactly 0 outside the interior."""
+    other z taps, in that order); exactly 0 outside the interior grown by
+    ``ring`` (:meth:`PaddedLayout.box`; a value-halo layout's launch box)."""
     p = layout.p
     Lx, Ly, Lz = layout.padded_shape
     F = Ly * Lz
@@ -510,8 +511,9 @@ def apply_stencil_plain(
         if k != p:
             yz = yz + st.cvz[k] * torch.roll(x2, p - k, 1)
     y = tx * st.fx + yz * st.sx[:, None]
+    x0, nx, h, ny, nz = layout.box(ring)
     inside = torch.zeros(layout.padded_shape, dtype=torch.bool, device=xp.device)
-    inside[layout.interior] = True
+    inside[x0 : x0 + nx, h : h + ny, h : h + nz] = True
     return torch.where(inside.reshape(Lx, F), y, torch.zeros_like(y)).reshape(
         Lx, Ly, Lz)
 

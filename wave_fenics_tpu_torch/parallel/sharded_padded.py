@@ -17,20 +17,21 @@ Port of ``wave_fenics_tpu.parallel.sharded_padded``. Two schemes:
   before the next launch, so it would overlap nothing; both of the JAX
   settings give this path's result;
 - **value halo** (:meth:`solve_step_n` on kernel A, :meth:`solve_lf_n` on
-  kernel H, :meth:`solve_lf2_n` on kernel I): the blocks live in layouts
-  with a halo of 3p, 2p and 3p that holds the neighbours' values,
-  refreshed once per kernel call (:func:`halo.refresh_value_halos`); the
-  tables are slices of the global assembled coefficients with that halo,
-  so a block computes the whole stencil on its own rows and no partial
-  sum is exchanged. On a card the kernels write each launch over the
-  interior grown into the halo as deep as the next launch reads
-  (``ops.rk4step.stage_rings``, ``ops.lfstep.phase_rings``).
+  kernel H, :meth:`solve_lf2_n` on kernel I, :meth:`solve_step2_n` on
+  kernel J): the blocks live in layouts with a halo of 3p, 2p, 3p and 6p
+  that holds the neighbours' values, refreshed once per kernel call
+  (:func:`halo.refresh_value_halos`); the tables are slices of the global
+  assembled coefficients with that halo, so a block computes the whole
+  stencil on its own rows and no partial sum is exchanged. The kernels
+  write each launch over the interior grown into the halo as deep as the
+  next launch reads (``ops.rk4step.stage_rings``, ``ops.lfstep.
+  phase_rings``, ``ops.rk42step.call_rings``); J's plain version computes
+  the same boxes, A's, H's and I's what the TPU kernels compute.
 
 Where a path does not apply, its solver raises a ValueError that names
 the condition (``step_unavailable``, ``lf_unavailable``,
-``lf2_unavailable``); the JAX ``solve_step_n`` falls back to ``solve_n``
-instead, and the app makes that choice itself. ``solve_step2_n`` (kernel J
-on a 6p halo) is not ported and raises.
+``lf2_unavailable``, ``step2_unavailable``); the JAX ``solve_step_n``
+falls back to ``solve_n`` instead, and the app makes that choice itself.
 """
 
 from __future__ import annotations
@@ -43,9 +44,9 @@ import torch
 from ..convert import numpy_dtype
 from ..core.basis import lumped_weight_line
 from ..core.mesh import BOX_FACETS
-from ..models.linear_wave import LinearWave
+from ..models.linear_wave import LinearWave, require_homogeneous
 from ..models.linear_wave_padded import _RK_C, _flat_tile_x
-from ..ops import lf2step, lfstep, rk4step
+from ..ops import lf2step, lfstep, rk42step, rk4step
 from ..ops.separable import separable_stiffness_tables
 from ..ops.stiffness import banded_1d_coeffs
 from ..ops.wave import (
@@ -66,18 +67,16 @@ from .halo import Exchange, LocalExchange, halo_add, refresh_value_halos
 from .partition import Blocks, per_block
 from .sharded_wave import block_mesh
 
-__all__ = ["ShardedPaddedWave", "STEP2_SLICE"]
+__all__ = ["ShardedPaddedWave"]
 
-#: what solve_step2_n raises: the next slice of the port
-STEP2_SLICE = ("the distributed 2-step RK4 (kernel J on a 6p value halo) is "
-               "not ported yet: sharded J is the next item of ROADMAP.md Queue 1 "
-               "(item 7.1, distribution)")
-
-# (module, tables, their builder, halo in units of p) of the value-halo paths
+# (module, tables, the function that builds them, halo in units of p) of
+# the value-halo paths; the step2 path's tables are the stencil's and the
+# face planes (kernel J's plain version runs on them too)
 _PATHS = {
     "step": (rk4step, rk4step.StepTables, rk4step.build_step_tables_from_cv, 3),
     "lf": (lfstep, lfstep.LFTables, lfstep.build_lf_tables_from_cv, 2),
     "lf2": (lf2step, lf2step.LF2Tables, lf2step.build_lf2_tables_from_cv, 3),
+    "step2": (rk42step, None, None, 6),
 }
 
 
@@ -95,6 +94,7 @@ class ShardedPaddedWave:
                  exchange: Exchange | None = None):
         if kernel not in ("flat", "3d"):
             raise ValueError(f"kernel = {kernel!r}: 'flat' or '3d'")
+        require_homogeneous(model, "ShardedPaddedWave")
         self.model = model
         self.parts = tuple(int(m) for m in parts)
         for n, m in zip(model.mesh.shape, self.parts):
@@ -293,10 +293,22 @@ class ShardedPaddedWave:
 
     lf_unavailable = lf2_unavailable = step_unavailable
 
+    @property
+    def step2_unavailable(self) -> str | None:
+        """Why the 2-step RK4 path does not apply, or None: the value-halo
+        paths' conditions and the JAX package's one-hop guard scaled to the
+        6p halo, >= 5 cells a block on every axis split >= 3 ways."""
+        why = self.value_halo_unavailable
+        if why is None and any(m >= 3 and n < 5
+                               for n, m in zip(self.local_cells, self.parts)):
+            why = ("needs >= 5 cells a block on every axis split >= 3 ways (the "
+                   "one-hop 6p value-halo refresh)")
+        return why
+
     def halo_layout(self, path: str) -> PaddedLayout:
-        """The value-halo layout of ``path``: halo 3p ('step', 'lf2') or 2p
-        ('lf'), the tile the JAX package takes (a multiple of p and 8, at
-        least the TPU kernel's slab halo)."""
+        """The value-halo layout of ``path``: halo 3p ('step', 'lf2'), 2p
+        ('lf') or 6p ('step2'), the tile the JAX package takes (a multiple
+        of p and 8, at least the TPU kernel's slab halo)."""
         mod, _, _, k = _PATHS[path]
         p = self.model.p
         shape = tuple(n * p + 1 for n in self.local_cells)
@@ -322,12 +334,13 @@ class ShardedPaddedWave:
         """Per block (tables, stencil or None, src_x, abc_x) of a value-halo
         path: the JAX package's tables from the global assembled
         coefficients (``build_*_tables_from_cv``), and on a card the
-        kernels' stencil tables from the same vectors; ``src_x``/``abc_x``
-        the padded rows of the global x faces, -1 on a block that does not
-        reach them."""
+        kernels' stencil tables from the same vectors; for 'step2', the
+        [1, F] face planes (w1, w2) and the stencil on every device;
+        ``src_x``/``abc_x`` the padded rows of the global x faces, -1 on a
+        block that does not reach them."""
         if path in self._halo_tabs:
             return self._halo_tabs[path]
-        why = self.value_halo_unavailable
+        why = self.step2_unavailable if path == "step2" else self.value_halo_unavailable
         if why is not None:
             raise ValueError(f"value-halo {path} path unavailable for this "
                              f"configuration ({why})")
@@ -368,10 +381,13 @@ class ShardedPaddedWave:
                 return lay.x0 + r if -h <= r < Nloc + h else -1
 
             src_x, abc_x = prow(0), prow(gshape[0] - 1)
-            tables = kind(*(self._tensor(t, dev) for t in build_tables_from_cv(
-                lay, cvx, cvy, cvz, pLx, pLy, pLz, w1, w2, src_x, abc_x, md.dtype)))
             st = None
-            if dev.type == "cuda":
+            if path == "step2":
+                tables = tuple(self._tensor(w.reshape(1, -1), dev) for w in (w1, w2))
+            else:
+                tables = kind(*(self._tensor(t, dev) for t in build_tables_from_cv(
+                    lay, cvx, cvy, cvz, pLx, pLy, pLz, w1, w2, src_x, abc_x, md.dtype)))
+            if dev.type == "cuda" or path == "step2":
                 st = StencilTables(*(self._tensor(t, dev) for t in stencil_tables_from_cv(
                     lay, cvx, cvy, cvz, pLx, pLy, pLz, md.dtype)))
             return tables, st, src_x, abc_x
@@ -516,9 +532,34 @@ class ShardedPaddedWave:
 
         return (*self._steps("lf2", 3, nsteps // 2, 2 * dtf, step, t0, u0, v0), nsteps)
 
+    def zero_state_step2(self):
+        lay = self.halo_layout("step2")
+        return self.zero_blocks(lay), self.zero_blocks(lay)
+
     def solve_step2_n(self, t0, dt, nsteps, u0=None, v0=None):
-        """The JAX package's distributed 2-step RK4: not ported; raises."""
-        raise ValueError(STEP2_SLICE)
+        """RK4 with one 6p value-halo refresh and one call of the 2-step
+        kernel per two steps (kernel J: seven launches a block, the source
+        sampled at t + j dt/2, j = 0..4); ``nsteps`` must be even. Returns
+        (u, v, nsteps); raises a ValueError where the path does not
+        apply."""
+        why = self.step2_unavailable
+        if why is not None:
+            raise ValueError("distributed 2-step RK4 path unavailable for this "
+                             f"configuration ({why})")
+        if nsteps % 2:
+            raise ValueError("nsteps must be even for solve_step2_n (an odd tail "
+                             "would need the 3p single-step layout)")
+        md = self.model
+        dtf = float(dt)
+
+        def step(lay, tab, u, v, t, out, scratch):
+            (w1, w2), st, src_x, abc_x = tab
+            gs = [md.g_amplitude(t + j * 0.5 * dtf) for j in range(5)]
+            return rk42step.rk42_step(u, v, dtf, gs, lay, md.c0, st, w1, w2, src_x,
+                                      abc_x, out=out, scratch=scratch)
+
+        return (*self._steps("step2", 6, nsteps // 2, 2 * dtf, step, t0, u0, v0),
+                nsteps)
 
     # -- host conversion ---------------------------------------------------
     def to_global(self, blocked: Blocks, lay: PaddedLayout | None = None) -> np.ndarray:
@@ -544,6 +585,9 @@ class ShardedPaddedWave:
 
     def to_global_lf2(self, blocked: Blocks) -> np.ndarray:
         return self.to_global(blocked, self.halo_layout("lf2"))
+
+    def to_global_step2(self, blocked: Blocks) -> np.ndarray:
+        return self.to_global(blocked, self.halo_layout("step2"))
 
     def from_global(self, grid: np.ndarray, lay: PaddedLayout | None = None) -> Blocks:
         """The global dof grid -> padded blocks in ``lay`` (default the

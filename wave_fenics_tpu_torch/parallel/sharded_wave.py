@@ -28,7 +28,7 @@ import torch
 from ..convert import numpy_dtype
 from ..core.basis import lumped_weight_line
 from ..core.mesh import StructuredBoxMesh
-from ..models.linear_wave import LinearWave, lumped_boundary_weights
+from ..models.linear_wave import LinearWave, lumped_boundary_weights, require_homogeneous
 from ..ops.operators import StructuredOperators
 from ..solvers.cg import cg
 from ..solvers.rk4 import rk4_solve_n
@@ -90,6 +90,7 @@ class ShardedLinearWave:
 
     def __init__(self, model: LinearWave, parts, devices=None, device=None,
                  exchange: Exchange | None = None):
+        require_homogeneous(model, "ShardedLinearWave")
         self.model = model
         self.parts = tuple(int(m) for m in parts)
         for n, m in zip(model.mesh.shape, self.parts):
