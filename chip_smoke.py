@@ -236,16 +236,31 @@ the script exits non-zero and never prints its last line:
     per-cell path, no kernel launched, the field off the homogeneous
     model's by more than 1e-3 of max|u|): ms/step;
 20. ``EAOperator`` at 16^3 cells, p=4 (the perturbed box, f32): against
-    kernel K within 1e-5 of max|ref|, ms/apply beside K and the CSR SpMV.
+    kernel K within 1e-5 of max|ref|, ms/apply beside K and the CSR SpMV;
+21. ``benchmarks/tsmm.py`` at the JAX defaults (100,000 cells, p=4, f32):
+    TF32 off (its flags read back), f32 against f64 on the first 1,000
+    cells within 1e-5 of max|ref|, no hand kernel launched; ms/apply,
+    GFLOP/s on both flop models, the bound (one pass of u and y) and each
+    of the six contractions alone;
+22. the dry run (``apps/dryrun.py``) at 8 blocks, f32, 2 cells a block on
+    each axis: every check of the JAX dry run at its tolerances, the 2-step
+    RK4 included, and kernels A, B, F, H, I, J and K launched and no other;
+23. the four examples at their JAX sizes, each counted alone and asserting
+    what its JAX counterpart asserts: the convergence study (F), the f64
+    plane wave to < 1e-6 (F, 4 a step), ``multichip_solve 8`` (B, 8 blocks
+    x 4 x 10 steps) and ``unstructured_distributed_solve 8`` (K, (8 parts +
+    one device) x 4 x 10, within 1e-12 of one device).
 
 It prints one JSON line of per-kernel results ("kernels": all eleven
 kernels, each with the launches of its path's run, J's step boundary
 alone, and the three set-up kernels with P16's launches; kernel B's path
 is the f1-path RK4 check; K's and F's include phase 15's; A, B, E, F, H,
 I and J add phase 17's sharded runs (J: P22) and K phase 18's, listed
-under ``sharded_launches``; F adds P23's Newmark launches; K's entry also
-lists P21's parts, J's the boundary's time on a grown box) and,
-last, one JSON line ``{"ok": true, "device":
+under ``sharded_launches``; A, B, F, H, I, J and K add phase 22's dry run
+(``dryrun_launches``) and B, F and K phase 23's examples
+(``example_launches``); F adds P23's Newmark launches; K's entry also
+lists P21's parts, J's the boundary's time on a grown box), the lines
+``tsmm {...}`` and ``dryrun {...}``, and, last, one JSON line ``{"ok": true, "device":
 {...}}``. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
@@ -299,8 +314,8 @@ def setup_phase(gmodel, gsetup: float, smi: str, dev) -> dict:
     from wave_fenics_tpu_torch import native
     from wave_fenics_tpu_torch.benchmarks import general_solve
     from wave_fenics_tpu_torch.core import geometry
-    from wave_fenics_tpu_torch.core.basis import clamp_table, gll_points_weights, tabulate_1d
-    from wave_fenics_tpu_torch.core.dofmap import build_dofmap
+    from wave_fenics_tpu_torch.core.basis import clamp_table, tabulate_1d
+    from wave_fenics_tpu_torch.core.dofmap import build_dofmap, node_phi
     from wave_fenics_tpu_torch.core.mesh import HexMesh
     from wave_fenics_tpu_torch.models.general_wave import facet_lumped_weights
     from wave_fenics_tpu_torch.ops import _cuda
@@ -421,10 +436,8 @@ def setup_phase(gmodel, gsetup: float, smi: str, dev) -> dict:
     out["geometry"] = (err, ms, plain_ms, bound(nbytes(cc, dp, w, Gk, dwk),
                                                 240 * nc * nq), None)
     del Gk, dwk, Gp, dwp
-    nodes, _ = gll_points_weights(5)
-    Xr, Yr, Zr = np.meshgrid(nodes, nodes, nodes, indexing="ij")
-    phi, _ = geometry.trilinear_tabulate(np.stack([Xr.ravel(), Yr.ravel(), Zr.ravel()], -1))
-    ph = torch.as_tensor(phi, device=dev)
+    # the trilinear basis at the mirrored GLL nodes, as build_dofmap takes it
+    ph = torch.as_tensor(node_phi(4), device=dev)
     keys, coords = native.node_keys_cuda(cc, ph, 1.0, 1e-9)
     kp, cp = native.node_keys_plain(cc, ph, 1.0, 1e-9)
     check(torch.equal(keys, kp) and torch.equal(coords, cp), "node keys bitwise the plain")
@@ -432,7 +445,8 @@ def setup_phase(gmodel, gsetup: float, smi: str, dev) -> dict:
                                      1.0 / 1e-9, keys, coords), reps=50)
     plain_ms = 1e3 * timeit(lambda: native.node_keys_plain(cc, ph, 1.0, 1e-9), reps=3,
                             warmup=1)
-    # the cells in, keys and coordinates out once; 16 flops a component
+    # the cells in, keys and coordinates out once; 16 flops a component (the
+    # sort's 19 compare-exchanges are not counted)
     out["keys"] = (0.0, ms, plain_ms, bound(nbytes(cc, ph, keys, coords), 48 * nc * nd),
                    None)
     ids, ndofs = native.dedup_dofs_cuda(keys)
@@ -468,6 +482,160 @@ def setup_phase(gmodel, gsetup: float, smi: str, dev) -> dict:
             "ndofs": dofs_np.ndofs, "dofmap": dofs_np.dofmap, "m": m_np, "W": W_np,
             "kernels": out, "dedup_wrapper_ms": wrapper_ms, "detJw_80bit": (card_x, numpy_x),
             "g_rel": g_rel, "dw_rel": dw_rel, "mismatch": mismatch}
+
+
+#: cells a block on each axis of the dry run on the card (the JAX dry run's 2)
+DRYRUN_CELLS_PER_BLOCK = 2
+
+
+def slice_phases(dev, smi, counters: dict, setup_counters: dict) -> dict:
+    """Phases 21-23: ``benchmarks/tsmm.py`` at the JAX defaults, the dry run
+    (``apps/dryrun.py``) at 8 blocks and the four examples, each at its JAX
+    size on the card. Each run is counted alone: every count set to 0 just
+    before it and read just after. Returns each run's record and launches."""
+    import numpy as np
+    import torch
+
+    from wave_fenics_tpu_torch.apps import dryrun
+    from wave_fenics_tpu_torch.benchmarks import tsmm
+    from wave_fenics_tpu_torch.core.basis import tabulate_1d
+    from wave_fenics_tpu_torch.examples import (
+        convergence_study,
+        multichip_solve,
+        plane_wave_validation,
+        unstructured_distributed_solve,
+    )
+    from wave_fenics_tpu_torch.ops.element_kernels import apply_axis
+    from wave_fenics_tpu_torch.utils.timing import timeit
+
+    def zero():
+        for fn in (*counters.values(), *setup_counters.values()):
+            fn.launches = 0
+
+    def launched():
+        return {k: fn.launches for k, fn in counters.items() if fn.launches}
+
+    out = {}
+    # -- 21. tsmm ---------------------------------------------------------
+    phase("tsmm (benchmarks/tsmm.py) at the JAX defaults: 100,000 cells, p=4, f32")
+    nc, p = 100_000, 4
+    zero()
+    t0 = time.perf_counter()
+    rec = tsmm.run(ncells=nc, degree=p, reps=100, dtype="f32", device="cuda", check=True)
+    wall = time.perf_counter() - t0
+    kernels = launched()
+    print(json.dumps(rec))
+    off = {"cuda_matmul_allow_tf32": False, "cudnn_allow_tf32": False,
+           "float32_matmul_precision": "highest"}
+    check(rec["tf32"] == off and not torch.backends.cuda.matmul.allow_tf32,
+          f"tsmm ran with TF32 off: {rec['tf32']}")
+    check(rec["max_rel_err_vs_f64"] <= 1e-5, "tsmm f32 against f64 on the first 1,000 cells")
+    check(not kernels, f"tsmm launched no hand kernel (its contractions are einsums): "
+          f"{kernels}")
+    nd, nq = p + 1, p + 2  # a Gauss rule of exactness 2p + 2: p + 2 points
+    check(rec["ndofs"] == nd**3 and rec["nq"] == nq**3, "tsmm's sizes")
+    _, flops_sf = tsmm.flops(nc, nd, nq)
+    # one pass: u read once, y written once; the six chained contractions
+    # each read their input and write their output once
+    t_bytes = 2 * nc * nd**3 * 4 / HBM_BYTES_PER_S
+    t_ops = flops_sf / F32_FLOPS_PER_S
+    chain = 2 * nc * (nd**3 + 2 * nq * nd**2 + 2 * nq**2 * nd + nq**3) * 4
+    rec.update(bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               chain_bytes_ms=1e3 * chain / HBM_BYTES_PER_S, seconds=wall)
+    # where an apply's time goes: each of the six contractions alone, on its
+    # own input (CUDA events over back-to-back calls)
+    B = torch.as_tensor(tabulate_1d(p, q=2 * p + 2, rule="gauss").B, dtype=torch.float32,
+                        device=dev)
+    x = torch.randn((nc, nd, nd, nd), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    rec["contraction_ms"] = []
+    for M, axis in ((B, 1), (B, 2), (B, 3), (B.T, 1), (B.T, 2), (B.T, 3)):
+        rec["contraction_ms"].append(1e3 * timeit(lambda: apply_axis(x, M, axis), reps=50))
+        x = apply_axis(x, M, axis)
+    del x
+    print(f"tsmm: {rec['ms_per_apply']:.4f} ms/apply ({rec['timing']}), "
+          f"{rec['gflops']:.1f} GFLOP/s sum-factorized, {rec['gflops_ref']:.1f} on the dense "
+          f"model; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; one pass of u and y, "
+          f"{flops_sf / 1e9:.3f} GFLOP), the chain's own bytes {rec['chain_bytes_ms']:.4f} "
+          f"ms; the six contractions alone "
+          + ", ".join(f"{t:.4f}" for t in rec["contraction_ms"])
+          + f" ms; f32 against f64 {rec['max_rel_err_vs_f64']:.3e} (limit 1e-5); TF32 flags "
+          f"{rec['tf32']}; {wall:.1f} s [{smi}]")
+    out["tsmm"] = rec
+
+    # -- 22. the dry run ----------------------------------------------------
+    phase(f"dry run (apps/dryrun.py) at 8 blocks on the card, f32, "
+          f"{DRYRUN_CELLS_PER_BLOCK} cells a block on each axis")
+    zero()
+    t0 = time.perf_counter()
+    r = dryrun.dryrun_multichip(8, device=dev, dtype=torch.float32,
+                                cells_per_block=DRYRUN_CELLS_PER_BLOCK)
+    wall = time.perf_counter() - t0
+    kernels = launched()
+    setup = {k: fn.launches for k, fn in setup_counters.items()}
+    print(f"dry run: {wall:.2f} s; launches {kernels}, set-up {setup}; checks "
+          + json.dumps(r["checks"]) + f"; CG {r['cg_iters']} iterations [{smi}]")
+    check(set(kernels) == set("ABFHIJK"),
+          f"the dry run launched A, B, F, H, I, J and K and no other kernel: {kernels}")
+    check(r["step2_unavailable"] is None, "the dry run's 2-step RK4 ran")
+    out["dryrun"] = {"launches": kernels, "setup_launches": setup, "checks": r["checks"],
+                     "v_max": r["v_max"], "cg_iters": r["cg_iters"], "seconds": wall,
+                     "cells_per_block": DRYRUN_CELLS_PER_BLOCK, "summary": r["summary"]}
+
+    # -- 23. the four examples ------------------------------------------------
+    examples = {}
+    phase("examples/convergence_study.py: p in {2, 3, 4} x nx in {8, 12, 16}, f64, "
+          "kernel F")
+    zero()
+    t0 = time.perf_counter()
+    conv = convergence_study.main(["--device", "cuda"])
+    kernels = launched()
+    errs = list(conv["errors"].values())
+    check(len(errs) == 9 and all(np.isfinite(e) and 0 < e < 1 for e in errs),
+          f"the convergence table's errors {conv['errors']}")
+    check(set(kernels) == {"F"}, f"convergence study launches {kernels}")
+    examples["convergence_study"] = {
+        "errors": {f"p={q} nx={n}": e for (q, n), e in conv["errors"].items()},
+        "launches": kernels, "seconds": time.perf_counter() - t0}
+
+    phase("examples/plane_wave_validation.py: (32,2,2) cells, f64, kernel F")
+    zero()
+    t0 = time.perf_counter()
+    pw = plane_wave_validation.main(["--device", "cuda"])  # asserts rel < 1e-6
+    kernels = launched()
+    check(kernels == {"F": 4 * pw["steps"]}, f"plane wave launches {kernels}")
+    examples["plane_wave_validation"] = {"rel_err": pw["rel_err"], "steps": pw["steps"],
+                                         "launches": kernels,
+                                         "seconds": time.perf_counter() - t0}
+
+    phase("examples/multichip_solve.py 8: (2,2,2) blocks of 4^3 cells, f32, kernel B "
+          "per block")
+    zero()
+    t0 = time.perf_counter()
+    mc = multichip_solve.main(["8", "--device", "cuda"])
+    kernels = launched()
+    check(np.isfinite(mc["v"]).all() and mc["v_max"] > 0, "multichip v finite, nonzero")
+    check(kernels == {"B": 8 * 4 * mc["steps"]}, f"multichip launches {kernels}")
+    examples["multichip_solve"] = {"v_max": mc["v_max"], "steps": mc["steps"],
+                                   "launches": kernels, "seconds": time.perf_counter() - t0}
+
+    phase("examples/unstructured_distributed_solve.py 8: 8 RCB parts, f64, kernel K per "
+          "part")
+    zero()
+    t0 = time.perf_counter()
+    ud = unstructured_distributed_solve.main(["8", "--device", "cuda"])  # err < 1e-12
+    kernels = launched()
+    check(ud["route"] == "kernel K", f"the parts' route {ud['route']}")
+    check(kernels == {"K": (8 + 1) * 4 * ud["steps"]},
+          f"unstructured distributed launches {kernels}")
+    examples["unstructured_distributed_solve"] = {
+        "rel_err": ud["rel_err"], "ndofs": ud["ndofs"], "launches": kernels,
+        "seconds": time.perf_counter() - t0}
+    for name, e in examples.items():
+        print(f"example {name}: " + json.dumps(e) + f" [{smi}]")
+    out["examples"] = examples
+    return out
 
 
 def main() -> None:
@@ -2730,6 +2898,9 @@ def main() -> None:
     check(rel_ea <= 1e-5, "EAOperator against kernel K")
     del A16, x, out_k, y_csr, ea16
 
+    # phases 21-23: tsmm, the dry run and the four examples, each counted alone
+    slice21 = slice_phases(dev, smi, counters, setup_counters)
+
     # "kernels": all eleven, each with the launches of its path's run (G:
     # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
     # since no app path at p <= 8 launches it)
@@ -2758,6 +2929,15 @@ def main() -> None:
     sharded_launches.setdefault("K", {}).update(p21_k)
     for kernel, per_path in sharded_launches.items():
         launches[kernel] += sum(per_path.values())
+    dryrun_launches = slice21["dryrun"]["launches"]
+    example_launches = {}
+    for name, e in slice21["examples"].items():
+        for kernel, n in e["launches"].items():
+            example_launches.setdefault(kernel, {})[name] = n
+    for kernel, n in dryrun_launches.items():
+        launches[kernel] += n
+    for kernel, per_example in example_launches.items():
+        launches[kernel] += sum(per_example.values())
     meta = {
         "A": ("rk4_tiled_kernel<T, P, J>, lean (kernel A: lean RK4 step, 4 stage "
               "launches on the 2.5D tiled stencil; ms per step)",
@@ -2879,6 +3059,10 @@ def main() -> None:
     by_name["J"]["odd_step_launches_A"] = path_counts["P14 RK4 two-step, kernel J"]["A"]
     for kernel, per_path in sharded_launches.items():
         by_name[kernel]["sharded_launches"] = per_path
+    for kernel, n in dryrun_launches.items():
+        by_name[kernel]["dryrun_launches"] = n
+    for kernel, per_example in example_launches.items():
+        by_name[kernel]["example_launches"] = per_example
     # the same kernel at 16^3 cells, beside the one PyTorch call that computes
     # its function there (the assembled matrix at the P8 size would not fit
     # a host assembly)
@@ -2893,6 +3077,8 @@ def main() -> None:
         "plain_ms": plain16, "bound_ms": bound16[0], "bound_by": bound16[1],
         "library_ms": csr_ms,
     })
+    print("tsmm " + json.dumps(slice21["tsmm"]))
+    print("dryrun " + json.dumps(slice21["dryrun"]))
     print(f"total {time.perf_counter() - t_start:.1f} s after the device check")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1029,6 +1029,32 @@ def test_cuda_node_keys_equal_plain_bitwise(cuda, p):
     assert torch.equal(keys.cpu(), kc) and torch.equal(coords.cpu(), cpc)
 
 
+@pytest.mark.parametrize("p", [2, 4, 5])
+def test_cuda_build_dofmap_one_dof_per_node_on_rotated_cells(cuda, p):
+    """On cells that list their vertices in different orders, with shared
+    nodes at a key's .5 boundary (``_torch_node_mesh.split_mesh``): the
+    card's node keys and coordinates bit for bit the plain version's, and
+    the card's dofmap the CPU routes', one dof per geometric node."""
+    from _torch_node_mesh import expected_ndofs, one_dof_per_node, split_mesh
+
+    from wave_fenics_tpu_torch import native
+    from wave_fenics_tpu_torch.core.dofmap import node_phi
+    from wave_fenics_tpu_torch.core.mesh import HexMesh
+
+    pts, cells = split_mesh(p)
+    cc = torch.as_tensor(pts[cells], device=cuda)
+    phi = torch.as_tensor(node_phi(p), device=cuda)
+    keys, coords = native.node_keys_cuda(cc, phi, 1.0, 1e-9)
+    kp, cp = native.node_keys_plain(cc.cpu(), phi.cpu(), 1.0, 1e-9)
+    assert torch.equal(keys.cpu(), kp) and torch.equal(coords.cpu(), cp)
+    mesh = HexMesh(points=pts, cells=cells)
+    got = build_dofmap(mesh, p, device=cuda)
+    for ref in (build_dofmap(mesh, p, device="cpu"), build_dofmap(mesh, p)):
+        assert got.ndofs == ref.ndofs == expected_ndofs(p)
+        np.testing.assert_array_equal(got.dofmap, ref.dofmap)
+    assert one_dof_per_node(got.dofmap, pts, cells, p)
+
+
 @pytest.mark.parametrize("lo,hi,n", [(0, 6, 5000), (-3, 3, 200_000), (0, 100, 2_000_000),
                                      (-10**12, 10**12, 100_000)])
 def test_cuda_dedup_matches_plain(cuda, lo, hi, n):

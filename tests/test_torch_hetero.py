@@ -28,8 +28,8 @@ CELLS, EXTENT = (4, 2, 2), (1.0, 0.5, 0.5)
 
 def _two_layer(tags=None):
     jmesh = jbox_mesh(CELLS, EXTENT, facet_tags=JFacetTags(tags or {}))
-    c0_cells = np.where(jmesh.cell_midpoints()[:, 0] < 0.5, 1.0, 1.3)
     mesh = box_mesh(CELLS, EXTENT, facet_tags=FacetTags(tags or {}))
+    c0_cells = np.where(mesh.cell_midpoints()[:, 0] < 0.5, 1.0, 1.3)
     return jmesh, mesh, c0_cells
 
 

@@ -11,5 +11,8 @@ has ``run(**kw) -> dict`` and prints one JSON result line:
   (unstructured) hex box, GDoF*steps/s;
 - ``scatter_bench``: the structured gather/scatter round trip, the box's
   halo exchange and the imported-mesh interface assembly
-  (gpu_scatter_local, gpu_scatter_mpi).
+  (gpu_scatter_local, gpu_scatter_mpi);
+- ``tsmm``: the batched interpolate-and-project contraction pair
+  (gpu_tsmm), GFLOP/s on the reference's dense model and on the
+  sum-factorized work.
 """

@@ -35,6 +35,8 @@ __all__ = [
     "tabulate_1d",
     "Tab1D",
     "clamp_table",
+    "hex_basix_to_lex_permutation",
+    "tensor_product_permutation",
 ]
 
 # Quadrature-degree map used throughout the reference
@@ -237,3 +239,64 @@ def lumped_weight_line(ncells: int, p: int, h: float) -> np.ndarray:
     for c in range(ncells):
         out[c * p : (c + 1) * p + 1] += w
     return h * out
+
+
+# -- tensor-product (lexicographic) <-> Basix dof ordering ----------------------
+# Basix hexahedron sub-entities (vertex coordinates in {0,1}^3, in basix
+# topological order). Needed only for meshes that carry DOLFINx dof
+# ordering; the port's meshes are lexicographic throughout, so it needs no
+# runtime permutation (the reference's common/permute.hpp:10-28).
+_HEX_VERTICES = [
+    (0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
+    (0, 0, 1), (1, 0, 1), (0, 1, 1), (1, 1, 1),
+]
+_HEX_EDGES = [
+    (0, 1), (0, 2), (0, 4), (1, 3), (1, 5), (2, 3),
+    (2, 6), (3, 7), (4, 5), (4, 6), (5, 7), (6, 7),
+]
+_HEX_FACES = [
+    (0, 1, 2, 3), (0, 1, 4, 5), (0, 2, 4, 6),
+    (1, 3, 5, 7), (2, 3, 6, 7), (4, 5, 6, 7),
+]
+
+
+def _lex_index(i: int, j: int, k: int, n: int) -> int:
+    """Lexicographic index with x fastest: i + n j + n^2 k."""
+    return i + n * j + n * n * k
+
+
+@functools.lru_cache(maxsize=None)
+def hex_basix_to_lex_permutation(p: int) -> np.ndarray:
+    """``perm`` (int32) with ``lex_dofs[t] = basix_dofs[perm[t]]``: position
+    t in lexicographic (x-fastest) order holds basix dof perm[t] (the Basix
+    tensor-product permutation of common/operators.hpp:24,
+    common/permute.hpp:10-28).
+
+    Basix orders the Lagrange dofs by sub-entity: the 8 vertices, the 12
+    edges (p - 1 interior nodes each, from the low vertex to the high), the
+    6 faces ((p - 1)^2 nodes, lexicographic in the face's two axes in basix
+    face-vertex order), then the (p - 1)^3 interior nodes (lexicographic).
+    """
+    n = p + 1
+    verts = [np.array(v) * p for v in _HEX_VERTICES]
+    grid: list[tuple[int, int, int]] = [tuple(int(c) for c in v) for v in verts]
+    for a, b in _HEX_EDGES:
+        for t in range(1, p):
+            grid.append(tuple(int(c) for c in verts[a] + (verts[b] - verts[a]) * t // p))
+    for f in _HEX_FACES:
+        v0 = verts[f[0]]
+        e1, e2 = (verts[f[1]] - v0) // p, (verts[f[2]] - v0) // p
+        for t2 in range(1, p):
+            for t1 in range(1, p):
+                grid.append(tuple(int(c) for c in v0 + e1 * t1 + e2 * t2))
+    grid += [(i, j, k) for k in range(1, p) for j in range(1, p) for i in range(1, p)]
+    assert len(grid) == n**3
+    perm = np.empty(n**3, dtype=np.int32)
+    for basix_idx, (i, j, k) in enumerate(grid):
+        perm[_lex_index(i, j, k, n)] = basix_idx
+    return perm
+
+
+def tensor_product_permutation(p: int) -> np.ndarray:
+    """Alias in the reference's terms (common/operators.hpp:24)."""
+    return hex_basix_to_lex_permutation(p)

@@ -29,7 +29,8 @@ from .basis import gll_points_weights
 from .geometry import trilinear_tabulate
 from .mesh import HexMesh, StructuredBoxMesh
 
-__all__ = ["StructuredDofGrid", "GeneralDofMap", "build_dofmap", "morton_cell_order"]
+__all__ = ["StructuredDofGrid", "GeneralDofMap", "build_dofmap", "morton_cell_order",
+           "node_phi", "node_sums"]
 
 
 @dataclass(frozen=True)
@@ -122,6 +123,39 @@ def morton_cell_order(mesh: HexMesh, bits: int = 10) -> np.ndarray:
     return np.argsort(code, kind="stable")
 
 
+def node_phi(p: int, mirrored: bool = True) -> np.ndarray:
+    """The trilinear basis [(p+1)^3, 8] at the element's GLL nodes (x
+    slowest). ``mirrored``: the nodes below 1/2 are 1 - x of those above, bit
+    for bit (the GLL rule's own lower nodes can miss that by an ulp), so a
+    node shared by two cells that run opposite ways along an axis gets the
+    same weights on the same vertices in both."""
+    nodes, _ = gll_points_weights(p + 1)
+    if mirrored:
+        nodes = np.where(nodes >= 0.5, nodes, 1.0 - nodes[::-1])
+    X, Y, Z = np.meshgrid(nodes, nodes, nodes, indexing="ij")
+    phi, _ = trilinear_tabulate(np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=-1))
+    return phi
+
+
+def node_sums(phi: np.ndarray, cell_coords: np.ndarray) -> np.ndarray:
+    """x[c, n] = sum_v phi[n, v] X[c, v] [nc, nd, 3], the eight products of
+    a component summed in ascending order of value: an order that does not
+    depend on how a cell lists its vertices (``native.node_keys``'s, bit for
+    bit). A sum in vertex order, or BLAS's, can round two cells' copies of a
+    shared node apart, and so split it where it lies at a key's .5
+    boundary."""
+    nc, nd = cell_coords.shape[0], phi.shape[0]
+    out = np.empty((nc, nd, 3))
+    for c in range(0, nc, native.KEY_CHUNK):
+        prod = np.sort(phi[None, :, :, None] * cell_coords[c : c + native.KEY_CHUNK, None],
+                       axis=2)
+        x = prod[:, :, 0].copy()
+        for v in range(1, 8):
+            x += prod[:, :, v]
+        out[c : c + native.KEY_CHUNK] = x
+    return out
+
+
 def build_dofmap(
     mesh: HexMesh, p: int, tol: float = 1e-9, reorder: str | None = "appearance",
     device: torch.device | str | None = None,
@@ -131,7 +165,11 @@ def build_dofmap(
     Nodes on shared faces and edges coincide exactly under the trilinear map
     (a face restriction depends only on the face's vertices), so dedup of
     the coordinates rounded at relative tolerance ``tol`` is exact for
-    non-degenerate meshes.
+    non-degenerate meshes. Both routes take the keys from :func:`node_sums`
+    on :func:`node_phi`'s mirrored nodes, so the copies of a shared node get
+    one key however the cells list their vertices; the JAX package's keys
+    (a BLAS matmul on the GLL rule's nodes) can split such a node in two
+    where it lies at a key's .5 boundary, and otherwise agree.
 
     ``reorder='appearance'`` (default) keeps the cell order and numbers dofs
     by first appearance in the cell-major traversal, so consecutive cells
@@ -139,34 +177,31 @@ def build_dofmap(
     Z-order curve (callers then apply ``cell_order`` to per-cell data);
     ``None`` numbers dofs by sorted geometric key.
 
-    ``device=None`` takes the NumPy route. A device takes the tensor route
-    there (``native.node_keys``, ``native.dedup_dofs``; the Morton cell
-    order stays on the host): the same ``dofmap`` and ``ndofs``, and
-    ``dof_coords`` of each dof's first node (the NumPy route keeps its last
-    one; the two may differ in the last bits). It also keeps the dofmap and
-    the dof keys on the device (``device_dofmap``, ``device_keys``).
+    ``device=None`` takes the NumPy route, whose ``dof_coords`` are the JAX
+    package's (each dof's last node through ``np.matmul``). A device takes
+    the tensor route there (``native.node_keys``, ``native.dedup_dofs``; the
+    Morton cell order stays on the host): the same ``dofmap`` and ``ndofs``,
+    and ``dof_coords`` of each dof's first node from the sorted sum (the two
+    may differ in the last bits). It also keeps the dofmap and the dof keys
+    on the device (``device_dofmap``, ``device_keys``).
     """
     cell_order = None
     if reorder == "morton":
         cell_order = morton_cell_order(mesh)
         mesh = HexMesh(points=mesh.points, cells=mesh.cells[cell_order])
-    nodes, _ = gll_points_weights(p + 1)
     m = p + 1
-    X, Y, Z = np.meshgrid(nodes, nodes, nodes, indexing="ij")
-    ref_pts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=-1)
-    phi, _ = trilinear_tabulate(ref_pts)  # [nd, 8]
     scale = max(np.abs(mesh.points).max(), 1.0)
     if device is not None:
-        return _build_dofmap_tensors(mesh, p, phi, scale, tol, reorder, cell_order,
-                                     torch.device(device))
-    coords = np.matmul(phi, mesh.cell_coords())  # [nc, nd, 3]
+        return _build_dofmap_tensors(mesh, p, node_phi(p), scale, tol, reorder,
+                                     cell_order, torch.device(device))
+    cc = mesh.cell_coords()
+    coords = np.matmul(node_phi(p, mirrored=False), cc)  # [nc, nd, 3]
 
     # quantize in place: fresh temporaries of this size page-fault at scale
-    flat = coords.reshape(-1, 3)
-    buf = np.empty_like(flat)
-    np.multiply(flat, 1.0 / (scale * tol), out=buf)
-    np.rint(buf, out=buf)
-    key = buf.astype(np.int64)
+    flat = node_sums(node_phi(p), cc).reshape(-1, 3)
+    np.multiply(flat, 1.0 / (scale * tol), out=flat)
+    np.rint(flat, out=flat)
+    key = flat.astype(np.int64)
 
     uniq, inv = np.unique(key, axis=0, return_inverse=True)
     inv = inv.reshape(-1)

@@ -94,6 +94,13 @@ class StructuredBoxMesh:
                 for o, h, n in zip(self.origin, self.h, self.shape)]
         return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
 
+    def cell_midpoints(self) -> np.ndarray:
+        """Cell centres [ncells, 3], cells in C order over (cx, cy, cz) (x
+        slowest, as ``to_hex_mesh`` lists them)."""
+        axes = [o + h * (np.arange(n) + 0.5)
+                for o, h, n in zip(self.origin, self.h, self.shape)]
+        return np.stack([a.ravel() for a in np.meshgrid(*axes, indexing="ij")], axis=-1)
+
     def to_hex_mesh(self) -> "HexMesh":
         """Explicit vertex/cell representation (the general-geometry path and
         its oracles): vertices in C order of the vertex grid, cells in C

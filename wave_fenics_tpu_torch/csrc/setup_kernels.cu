@@ -31,10 +31,16 @@
 //   0.20 ms at 3.35 TB/s) against about 250 f64 operations a point.
 //
 // node_keys_kernel: one thread per (cell, node). x = sum_v phi[n, v]
-//   X[c, v] in basix vertex order, key = rint(x * inv) as int64 (inv =
-//   1 / (scale tol), the product of core/dofmap.py::build_dofmap). Every
-//   product and sum is rounded on its own (__dmul_rn, __dadd_rn: no fused
-//   multiply-add), so the kernel and its plain version agree bit for bit.
+//   X[c, v], key = rint(x * inv) as int64 (inv = 1 / (scale tol), the
+//   product of core/dofmap.py::build_dofmap). The eight products of a
+//   component are sorted by value (a 19-comparator network) and summed in
+//   that order, which does not depend on how the cell lists its vertices:
+//   two cells that share a node and list its face in different orders sum
+//   the same products in the same order, so the node gets one key even
+//   where x lies at a key's .5 boundary (a sum in vertex order, or BLAS's,
+//   can round the two copies apart there). Every product and sum is
+//   rounded on its own (__dmul_rn, __dadd_rn: no fused multiply-add), so
+//   the kernel and its plain version agree bit for bit.
 //   Bound: bytes (6 words written a node).
 //
 // dedup_insert_kernel, dedup_lookup_kernel: the counterpart of wavecore's
@@ -155,6 +161,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// a <= b afterwards; equal values (+0 and -0 among them) stay as they are
+__device__ __forceinline__ void order2(double& a, double& b) {
+  const bool swap = b < a;
+  const double lo = swap ? b : a, hi = swap ? a : b;
+  a = lo;
+  b = hi;
+}
+
 __global__ void __launch_bounds__(kThreads)
     node_keys_kernel(const double* __restrict__ X,
                      const double* __restrict__ phi, int64_t nc, int nd,
@@ -166,11 +180,21 @@ __global__ void __launch_bounds__(kThreads)
   const double* f = phi + (t % nd) * 8;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    double s = __dmul_rn(f[0], x[i]);
+    double s[8];
 #pragma unroll
-    for (int v = 1; v < 8; ++v) s = __dadd_rn(s, __dmul_rn(f[v], x[v * 3 + i]));
-    coords[t * 3 + i] = s;
-    keys[t * 3 + i] = (long long)rint(__dmul_rn(s, inv));
+    for (int v = 0; v < 8; ++v) s[v] = __dmul_rn(f[v], x[v * 3 + i]);
+    // a 19-comparator sorting network for 8 values
+    order2(s[0], s[2]); order2(s[1], s[3]); order2(s[4], s[6]); order2(s[5], s[7]);
+    order2(s[0], s[4]); order2(s[1], s[5]); order2(s[2], s[6]); order2(s[3], s[7]);
+    order2(s[0], s[1]); order2(s[2], s[3]); order2(s[4], s[5]); order2(s[6], s[7]);
+    order2(s[2], s[4]); order2(s[3], s[5]);
+    order2(s[1], s[4]); order2(s[3], s[6]);
+    order2(s[1], s[2]); order2(s[3], s[4]); order2(s[5], s[6]);
+    double acc = s[0];
+#pragma unroll
+    for (int v = 1; v < 8; ++v) acc = __dadd_rn(acc, s[v]);
+    coords[t * 3 + i] = acc;
+    keys[t * 3 + i] = (long long)rint(__dmul_rn(acc, inv));
   }
 }
 

@@ -159,15 +159,26 @@ def geometry_factors(cell_coords: torch.Tensor, dphi: torch.Tensor, w: torch.Ten
 
 
 # -- node keys -------------------------------------------------------------
+#: cells a chunk of :func:`node_keys_plain` takes (its products are nc nd 24
+#: doubles)
+KEY_CHUNK = 4096
+
+
 def node_keys_plain(cell_coords: torch.Tensor, phi: torch.Tensor, scale: float,
                     tol: float):
-    """The plain version of :func:`node_keys`, in the kernel's order: each
-    product and sum rounded on its own, so the two agree bit for bit."""
+    """The plain version of :func:`node_keys`, in the kernel's order: the
+    eight products of a component sorted by value and summed in that order,
+    each product and sum rounded on its own, so the two agree bit for bit."""
     inv = 1.0 / (scale * tol)
-    x = phi[None, :, 0, None] * cell_coords[:, None, 0, :]
-    for v in range(1, 8):
-        x = x + phi[None, :, v, None] * cell_coords[:, None, v, :]
-    coords = x.reshape(-1, 3)
+    parts = []
+    for c in range(0, cell_coords.shape[0], KEY_CHUNK):
+        prod = phi[None, :, :, None] * cell_coords[c : c + KEY_CHUNK, None]
+        prod = torch.sort(prod, dim=2).values  # [n, nd, 8, 3]
+        x = prod[:, :, 0]
+        for v in range(1, 8):
+            x = x + prod[:, :, v]
+        parts.append(x.reshape(-1, 3))
+    coords = torch.cat(parts)
     return torch.round(coords * inv).to(torch.int64), coords
 
 
@@ -196,7 +207,12 @@ def node_keys(cell_coords: torch.Tensor, phi: torch.Tensor, scale: float,
     ``phi`` [nd, 8] (trilinear basis values, basix vertex order) of the
     cells ``cell_coords`` [nc, 8, 3], flat cell-major: x = sum_v phi[n, v]
     X[c, v] and key = rint(x / (scale tol)) (``build_dofmap``'s
-    quantization, the product by 1 / (scale tol))."""
+    quantization, the product by 1 / (scale tol)). The eight products of a
+    component are summed in ascending order of value, an order that does not
+    depend on how the cell lists its vertices: with ``phi`` tabulated at
+    nodes whose mirror images are nodes bit for bit
+    (``core.dofmap.node_phi``), the copies of a node shared by several cells
+    get one coordinate, and so one key, however each cell is oriented."""
     return _dispatch("node_keys", cell_coords, node_keys_plain, node_keys_cuda,
                      cell_coords, phi, scale, tol)
 

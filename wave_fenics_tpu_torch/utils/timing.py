@@ -45,6 +45,14 @@ class Timer:
     def seconds(self, name: str) -> float:
         return self._acc[name]
 
+    def table(self) -> str:
+        """The timers as a table: name, calls, total seconds, mean ms."""
+        lines = [f"{'timer':<40} {'calls':>6} {'total s':>10} {'mean ms':>10}"]
+        for k in sorted(self._acc):
+            n, tot = self._n[k], self._acc[k]
+            lines.append(f"{k:<40} {n:>6} {tot:>10.4f} {tot / n * 1e3:>10.3f}")
+        return "\n".join(lines)
+
 
 def timeit(fn, *args, reps: int = 20, warmup: int = 3) -> float:
     """Seconds per call of ``fn(*args)`` on the current CUDA device: CUDA
