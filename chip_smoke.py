@@ -249,7 +249,25 @@ the script exits non-zero and never prints its last line:
     what its JAX counterpart asserts: the convergence study (F), the f64
     plane wave to < 1e-6 (F, 4 a step), ``multichip_solve 8`` (B, 8 blocks
     x 4 x 10 steps) and ``unstructured_distributed_solve 8`` (K, (8 parts +
-    one device) x 4 x 10, within 1e-12 of one device).
+    one device) x 4 x 10, within 1e-12 of one device);
+24. bf16 state (``bf16_phase``): (a) kernels A (on (4,2,2) cells at p in
+    {2, 4} and on (9,4,8) at p=4), C (p in {2, 4}), D (p in {4, 8}), B
+    and F (p in {2, 4}) against their plain bf16 twins on the CPU, from
+    NaN-filled outputs and scratch: one step, stage or apply within 1e-2
+    of max|ref| with the padding exactly 0, and a 25-step solve (A, C, B,
+    D through their model solvers, F through ``LinearWave.solve``) within
+    1.5x the plain bf16 run's own error against the plain f64 run from the
+    same state; (b) the app's ``--dtype bf16`` at the P1 configuration,
+    RK4 on kernel A for the whole solve (4 x (1,489 + 1) launches and no
+    other kernel), finite, max|u| at least half the f32 run's (the source
+    switched on; with bf16 tables the scheme grows at this width, so no
+    upper bound), its relative L2 against f32 printed, and kernel A's path
+    against the plain twin's over 200 steps at that width within 1e-2;
+    then max|A 1| (kernel B on a constant field) in bf16 and f32 and max|u|
+    of both along the solve, which show where that growth comes from;
+    (c) A and C (each stage and the step, beside the 4-launch floor), B
+    (the P1 layout), D (the P4 layout) and F (64^3 cells, p=4) in bf16
+    beside f32 in this call, against the bound at 2 bytes a value.
 
 It prints one JSON line of per-kernel results ("kernels": all eleven
 kernels, each with the launches of its path's run, J's step boundary
@@ -258,9 +276,10 @@ is the f1-path RK4 check; K's and F's include phase 15's; A, B, E, F, H,
 I and J add phase 17's sharded runs (J: P22) and K phase 18's, listed
 under ``sharded_launches``; A, B, F, H, I, J and K add phase 22's dry run
 (``dryrun_launches``) and B, F and K phase 23's examples
-(``example_launches``); F adds P23's Newmark launches; K's entry also
+(``example_launches``); A, B, C, D and F list phase 24's launches
+(``bf16_launches``) and bf16 times (``bf16``); F adds P23's Newmark launches; K's entry also
 lists P21's parts, J's the boundary's time on a grown box), the lines
-``tsmm {...}`` and ``dryrun {...}``, and, last, one JSON line ``{"ok": true, "device":
+``tsmm {...}``, ``dryrun {...}`` and ``bf16 {...}`` (phase 24's checks), and, last, one JSON line ``{"ok": true, "device":
 {...}}``. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
@@ -635,6 +654,361 @@ def slice_phases(dev, smi, counters: dict, setup_counters: dict) -> dict:
     for name, e in examples.items():
         print(f"example {name}: " + json.dumps(e) + f" [{smi}]")
     out["examples"] = examples
+    return out
+
+
+def bf16_phase(dev, smi, counters: dict, setup_counters: dict) -> dict:
+    """Phase 24, bf16 state (kernels A, C, B, D and F): (a) each kernel
+    against its plain bf16 twin at small sizes from NaN-filled outputs and
+    scratch, one step, stage or apply within 1e-2 of max|ref| (about two
+    bf16 ulps) with exactly zero padding, and a 25-step solve within 1.5x
+    the plain bf16 run's own error against the plain f64 run from the same
+    state; (b) the app's ``--dtype bf16`` at full width (P1: RK4 on A for
+    the whole solve), counted alone, finite, max|u| at least half the f32
+    run's (the source switched on), its relative L2 against f32 printed,
+    and kernel A's path against the plain twin's at that width over 200
+    steps within 1e-2; (c) each kernel's time at its PERF.md width beside
+    the f32 kernel's in this call and the bound at 2 bytes a value, and at
+    that width each bf16 kernel's output, from NaN, against its plain
+    twin's on the same inputs (within 1e-2 of max|ref|, the padding
+    exactly 0). Returns the launches, the checks' errors, the times and
+    each part's seconds."""
+    import numpy as np
+    import torch
+
+    from wave_fenics_tpu_torch.apps import planar3d_app
+    from wave_fenics_tpu_torch.core.mesh import FacetTags, box_mesh
+    from wave_fenics_tpu_torch.models.linear_wave import LinearWave
+    from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
+    from wave_fenics_tpu_torch.ops import _cuda, rk4step, stiffness, wave
+    from wave_fenics_tpu_torch.ops.operators import StructuredOperators
+    from wave_fenics_tpu_torch.utils.timing import timeit
+
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    out = {"checks": {}, "times": {}, "seconds": {}}
+    t_part = time.perf_counter()
+
+    def part_done(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["seconds"][name] = now - t_part
+        t_part = now
+
+    def zero():
+        for fn in (*counters.values(), *setup_counters.values()):
+            fn.launches = 0
+
+    def launched():
+        return {k: fn.launches for k, fn in counters.items() if fn.launches}
+
+    def model(p, dtype, device, cells=(4, 2, 2), tile_x=16, lean=True):
+        mesh = box_mesh(cells, (0.01, 0.005, 0.005),
+                        facet_tags=FacetTags({1: (0,), 2: (1,)}))
+        return PaddedLinearWave(LinearWave(mesh, p=p, dtype=dtype, device=device),
+                                tile_x=tile_x, lean=lean)
+
+    def random_padded(layout, seed, scale=1.0):
+        """float64 on the card, zero padding, its values bf16 numbers (so
+        the bf16 and f64 runs start from one state)."""
+        x = np.zeros(layout.padded_shape)
+        x[layout.interior] = scale * np.random.default_rng(seed).standard_normal(
+            layout.shape)
+        return torch.as_tensor(x, device=dev).to(bf16).to(f64)
+
+    def rel(got, want):
+        """max over fields of max|got - want| / max|want|."""
+        return max(float((g.double() - w.double()).abs().max() / w.double().abs().max())
+                   for g, w in zip(got, want))
+
+    def nan_fill(pm):
+        pairs, scratch = pm._workspace()
+        for x in (*pairs[0], *pairs[1], *scratch):
+            x.fill_(float("nan"))
+
+    def padding_zero(layout, *xs):
+        for x in xs:
+            outside = x.clone()
+            outside[layout.interior] = 0
+            check(float(outside.abs().max()) == 0.0 and bool(torch.isfinite(x).all()),
+                  "bf16: zero padding, no NaN")
+
+    # -- (a) each kernel against its plain bf16 twin ---------------------------
+    phase("phase 24, bf16 state: kernels A, C, B, D and F against their plain bf16 twins")
+    zero()
+    solvers = {"A": "solve_step_n", "C": "solve_step_n", "D": "solve_fused_n",
+               "B": "solve_n"}
+    cases = [("A", 2, (4, 2, 2)), ("A", 4, (4, 2, 2)), ("A", 4, (9, 4, 8)),
+             ("C", 2, (4, 2, 2)), ("C", 4, (4, 2, 2)), ("D", 4, (4, 2, 2)),
+             ("D", 8, (4, 2, 2)), ("B", 2, (4, 2, 2)), ("B", 4, (4, 2, 2))]
+    for k, p, cells in cases:
+        kw = dict(cells=cells, tile_x=max(16, rk4step._off0(p)), lean=k != "C")
+        pm = model(p, bf16, dev, **kw)
+        cpu16, cpu64 = model(p, bf16, "cpu", **kw), model(p, f64, "cpu", **kw)
+        u0 = random_padded(pm.layout, 10 * p)
+        v0 = random_padded(pm.layout, 10 * p + 1, scale=1e3)
+        dt = 1e-9
+        # one step (A, C, B: an apply of B in f1) or one stage (D)
+        if k == "B":
+            x = u0.to(bf16)
+            got = (wave.apply_flat_cuda(x, pm.layout, pm.stencil,
+                                        out=torch.full_like(x, float("nan"))),)
+            want = (wave.apply_flat_plain(x.cpu(), cpu16.layout, cpu16.flat_tables),)
+            what = "one apply"
+        elif k == "D":
+            ins = [random_padded(pm.layout, 100 * p + i, 1e3 if i % 2 else 1.0).to(bf16)
+                   for i in range(6)]
+            args = (0.5 * dt, dt / 3.0, 1.0, pm.layout, pm.base.c0)
+            face = (pm.src_x, pm.abc_x)
+            nan = tuple(torch.full_like(ins[0], float("nan")) for _ in range(4))
+            got = wave.rk_stage_cuda(*ins, *args, pm.stencil, pm.face_w1, pm.face_w2,
+                                     *face, out=nan)
+            want = wave.rk_stage_plain(*(x.cpu() for x in ins), *args,
+                                       cpu16.flat_tables, cpu16.face_w1,
+                                       cpu16.face_w2, *face)
+            what = "one stage"
+        else:
+            nan_fill(pm)
+            got = getattr(pm, solvers[k])(0.0, dt, 1, u0.to(bf16), v0.to(bf16))[:2]
+            want = getattr(cpu16, solvers[k])(0.0, dt, 1, u0.to(bf16).cpu(),
+                                              v0.to(bf16).cpu())[:2]
+            what = "one step"
+        torch.cuda.synchronize()
+        one = rel([g.cpu() for g in got], want)
+        padding_zero(pm.layout, *got)
+        # 25 steps: kernel bf16 and plain bf16 against plain f64
+        ref = getattr(cpu64, solvers[k])(0.0, dt, 25, u0.cpu(), v0.cpu())[:2]
+        if k != "B":
+            nan_fill(pm)
+        kern = getattr(pm, solvers[k])(0.0, dt, 25, u0.to(bf16), v0.to(bf16))[:2]
+        plain = getattr(cpu16, solvers[k])(0.0, dt, 25, u0.to(bf16).cpu(),
+                                           v0.to(bf16).cpu())[:2]
+        torch.cuda.synchronize()
+        padding_zero(pm.layout, *kern)
+        e_k, e_p = rel([x.cpu() for x in kern], ref), rel(plain, ref)
+        print(f"kernel {k} bf16 {cells} p={p}: {what} from NaN against the plain twin "
+              f"{one:.3e} of max|ref| (limit 1e-2); 25 steps against plain f64: kernel "
+              f"{e_k:.3e}, plain bf16 {e_p:.3e} (limit 1.5x)")
+        check(one <= 1e-2, f"kernel {k} bf16 p={p} {cells}: {what}")
+        check(e_k <= 1.5 * e_p, f"kernel {k} bf16 p={p} {cells}: 25 steps")
+        out["checks"][f"{k} p={p} {cells}"] = {"one": one, "steps25_kernel": e_k,
+                                               "steps25_plain": e_p}
+    for p in (2, 4):  # kernel F: one apply, then LinearWave.solve, 25 steps
+        mesh = box_mesh((4, 2, 2), (0.01, 0.005, 0.005),
+                        facet_tags=FacetTags({1: (0,), 2: (1,)}))
+        lw, lw16, lw64 = (LinearWave(mesh, p=p, dtype=dt_, device=d)
+                          for dt_, d in ((bf16, dev), (bf16, "cpu"), (f64, "cpu")))
+        ops = lw.ops
+        tabs = stiffness.GridStiffnessTables(*ops._tensors(
+            ("stiffness", -1500.0**2), dev, lambda: stiffness.stiffness_grid_tables(
+                ops._sepA, ops._seplines, ops.grid_shape, p, -1500.0**2, bf16)))
+        x = torch.as_tensor(np.random.default_rng(20 + p).standard_normal(
+            ops.grid_shape), device=dev).to(bf16)
+        yk = stiffness.stiffness_grid_cuda(x, tabs, p, out=torch.full_like(x, float("nan")))
+        yp = stiffness.stiffness_grid_plain(x, tabs, p)
+        torch.cuda.synchronize()
+        one = rel([yk], [yp])
+        check(bool(torch.isfinite(yk).all()), "kernel F bf16: every point written")
+        u0 = torch.as_tensor(np.random.default_rng(30 + p).standard_normal(
+            ops.grid_shape)).to(bf16)
+        v0 = (1e3 * u0.double()).to(bf16)
+        ref = lw64.solve(0.0, 25e-9, 1e-9, u0.double(), v0.double())[:2]
+        kern = lw.solve(0.0, 25e-9, 1e-9, u0.to(dev), v0.to(dev))[:2]
+        plain = lw16.solve(0.0, 25e-9, 1e-9, u0, v0)[:2]
+        e_k, e_p = rel([x.cpu() for x in kern], ref), rel(plain, ref)
+        print(f"kernel F bf16 (4,2,2) p={p}: one apply from NaN against the plain twin "
+              f"{one:.3e} of max|ref| (limit 1e-2); LinearWave.solve 25 steps against "
+              f"f64: kernel {e_k:.3e}, plain bf16 {e_p:.3e} (limit 1.5x)")
+        check(one <= 1e-2 and e_k <= 1.5 * e_p, f"kernel F bf16 p={p}")
+        out["checks"][f"F p={p} (4, 2, 2)"] = {"one": one, "steps25_kernel": e_k,
+                                               "steps25_plain": e_p}
+    out["launches"] = launched()
+    part_done("a")
+    print(f"phase 24 (a) launches: {out['launches']}; {out['seconds']['a']:.1f} s")
+
+    # -- (b) the app at full width -----------------------------------------------
+    phase("phase 24, bf16 state: the app's --dtype bf16 at the P1 configuration, kernel A")
+    runs = {}
+    for name in ("f32", "bf16"):
+        zero()
+        rec, u, _ = planar3d_app.run(cells=(64, 32, 32), degree=4, dtype=name,
+                                     device="cuda", return_state=True)
+        torch.cuda.synchronize()
+        runs[name] = (rec, u.float(), launched())
+    rec, u16, counts = runs["bf16"]
+    rec32, u32, _ = runs["f32"]
+    n = rec["nsteps"]
+    want = {"A": 4 * (n + 1)}
+    l2 = float((u16 - u32).norm() / u32.norm())
+    m16, m32 = float(u16.abs().max()), float(u32.abs().max())
+    print(f"bf16 app: {rec['ndofs']:,} dofs, {n} steps, {rec['solver_path']}; "
+          f"launches {counts} (want {want}); max|u| {m16:.6e} against f32 {m32:.6e}; "
+          f"relative L2 against f32 {l2:.6e}; solve {rec['solve_seconds']:.3f} s "
+          f"(f32 {rec32['solve_seconds']:.3f} s) [{smi}]")
+    check(rec["ndofs"] == 4_276_737 and counts == want, "bf16 app: kernel A only")
+    # the source switched on (the JAX package's bf16 fused paths stay at 0).
+    # No upper bound: a bf16 run of this scheme grows from some hundreds of
+    # steps on, as the JAX package's bf16 solve_n does
+    # (tests/test_torch_bf16.py::test_bf16_solve_n_grows_as_the_jax_package_does;
+    # at this width apps/bf16_growth.py)
+    check(bool(torch.isfinite(u16).all()) and m16 >= 0.5 * m32,
+          "bf16 app: finite, the source switched on")
+    # the kernel's path against the plain twin's at full width over the
+    # steps before that growth amplifies their round-off
+    _, pm = planar3d_app.build(cells=(64, 32, 32), degree=4, dtype="bf16",
+                               device="cuda")
+    dt, nk = rec["dt"], 200
+    uk, vk, _ = pm.solve_step_n(0.0, dt, nk)
+    up, vp = pm.zero_state()
+    for i in range(nk):
+        gs = [pm.base.g_amplitude((i + c) * dt) for c in (0.0, 0.5, 0.5, 1.0)]
+        up, vp = rk4step.rk4_step_lean_plain(up, vp, dt, gs, pm.layout, pm.base.c0,
+                                             pm.step_tables)
+    torch.cuda.synchronize()
+    twin = max(float((a.float() - b.float()).norm() / b.float().norm())
+               for a, b in ((uk, up), (vk, vp)))
+    del pm, uk, vk, up, vp
+    part_done("b")
+    print(f"bf16 P1, {nk} steps from 0: kernel A against the plain twin, relative "
+          f"L2 {twin:.3e} (limit 1e-2); {out['seconds']['b']:.1f} s")
+    check(twin <= 1e-2, "bf16 P1: kernel A against its plain twin")
+    out["app"] = {"launches": counts, "nsteps": n, "rel_l2_vs_f32": l2,
+                  "max_u": m16, "max_u_f32": m32, "solve_seconds": rec["solve_seconds"],
+                  "solve_seconds_f32": rec32["solve_seconds"],
+                  "solver_path": rec["solver_path"], "twin_200_steps_rel_l2": twin}
+
+    # -- (c) times ---------------------------------------------------------------
+    phase("phase 24, bf16 state: kernel times at their PERF.md widths, beside f32")
+
+    def bound(nbytes, points, flops_per_point):
+        """(bound_ms, bound_by): the bytes over the HBM rate against the
+        flops over the f32 rate outside the tensor cores (the arithmetic is
+        float32 in bf16 too)."""
+        t_b = nbytes / HBM_BYTES_PER_S
+        t_o = points * flops_per_point / F32_FLOPS_PER_S
+        return {"bound_ms": 1e3 * max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+    def launch_ms(name, dtype, args, reps=200):
+        return 1e3 * timeit(_cuda.launcher(_cuda.library(), name, dtype, dev, *args),
+                            reps=reps)
+
+    def field_bytes(layout, dtype, interior=False):
+        n = np.prod(layout.shape if interior else layout.padded_shape)
+        return int(n) * torch.finfo(dtype).bits // 8
+
+    def nan_like(x, n):
+        return [torch.full_like(x, float("nan")) for _ in range(n)]
+
+    def against_plain(k, got, want, layout=None):
+        """A bf16 kernel's outputs (from NaN) at full width against its
+        plain twin's on the same inputs; the padding exactly 0."""
+        torch.cuda.synchronize()
+        err = rel(got, want)
+        if layout is not None:
+            padding_zero(layout, *got)
+        check(all(bool(torch.isfinite(g).all()) for g in got) and err <= 1e-2,
+              f"kernel {k} bf16 at full width against its plain twin")
+        out["checks"][f"{k} full width"] = {"one": err}
+        return err
+
+    for cells, p, kernels in (((64, 32, 32), 4, "AB"), ((32, 16, 16), 8, "D")):
+        for dtype in (f32, bf16):
+            pm = model(p, dtype, dev, cells=cells, tile_x=48 if p == 4 else 16)
+            tab = sum(t.numel() * t.element_size()
+                      for t in (*pm.stencil, pm.face_w1, pm.face_w2))
+            fin, fout = (field_bytes(pm.layout, dtype, True), field_bytes(pm.layout, dtype))
+            pts, apply = int(np.prod(pm.layout.shape)), 6 * (2 * p + 1) + 2
+            u = random_padded(pm.layout, 3).to(dtype)
+            v = random_padded(pm.layout, 4, 1e3).to(dtype)
+            key = "bf16" if dtype == bf16 else "f32"
+            if "A" in kernels:
+                gs = [0.0] * 4
+                for k, launcher, pointwise in (("A", "wave_rk4_stage", 20),
+                                               ("C", "wave_rk4_full_stage", 30)):
+                    plain = (rk4step.rk4_step_lean_plain if k == "A"
+                             else rk4step.rk4_step_full_plain)
+                    run_plain = lambda: plain(  # noqa: E731
+                        u, v, 1e-9, gs, pm.layout, pm.base.c0, pm.step_tables)
+                    plain_ms = 1e3 * timeit(run_plain, reps=3, warmup=1)
+                    bufs = nan_like(u, 5)
+                    us = []
+                    for j in range(4):
+                        args = rk4step.stage_launch_args(
+                            j, u, v, *bufs[2:], bufs[2 + j] if j < 3 else bufs[4],
+                            *bufs[:2], pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x, 1e-9,
+                            gs[j], pm.base.c0, pm.layout, pm.stencil)
+                        us.append(1e3 * launch_ms(launcher, dtype, args))
+                    out["times"].setdefault(k, {})[key] = {
+                        "ms_per_step": sum(us) / 1e3, "stage_us": us, "plain_ms": plain_ms,
+                        **bound(2 * fin + 2 * fout + tab, pts, 4 * apply + pointwise),
+                        "floor_ms": 1e3 * (11 * fin + 5 * fout) / HBM_BYTES_PER_S}
+                    if dtype == bf16:  # the step the timed launches wrote
+                        against_plain(k, bufs[:2], run_plain(), pm.layout)
+                    del bufs
+                y = torch.full_like(u, float("nan"))
+                args = wave.flat_launch_args(u, y, pm.layout, pm.stencil)
+                run_plain = lambda: wave.apply_flat_plain(  # noqa: E731
+                    u, pm.layout, pm.flat_tables)
+                out["times"].setdefault("B", {})[key] = {
+                    "ms": launch_ms("wave_apply_flat_tiled", dtype, args),
+                    "plain_ms": 1e3 * timeit(run_plain, reps=3, warmup=1),
+                    **bound(fin + fout + tab, pts, apply)}
+                if dtype == bf16:
+                    against_plain("B", [y], [run_plain()], pm.layout)
+                del y
+            if "D" in kernels:
+                ins = tuple(x.clone() for x in (u, u, v, v, u, v))
+                bufs = tuple(nan_like(u, 4))
+                args = wave.rk_stage_launch_args(
+                    *ins, *bufs, 0.5e-9, 1e-9 / 3, 1.0, pm.layout, pm.base.c0,
+                    pm.stencil, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+                run_plain = lambda: wave.rk_stage_plain(  # noqa: E731
+                    *ins, 0.5e-9, 1e-9 / 3, 1.0, pm.layout, pm.base.c0,
+                    pm.flat_tables, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+                out["times"].setdefault("D", {})[key] = {
+                    "ms": launch_ms("wave_rk_stage_tiled", dtype, args),
+                    "plain_ms": 1e3 * timeit(run_plain, reps=3, warmup=1),
+                    **bound(6 * fin + 4 * fout + tab, pts, apply + 8)}
+                if dtype == bf16:
+                    against_plain("D", bufs, run_plain(), pm.layout)
+                del ins, bufs
+            del pm, u, v
+    for dtype in (f32, bf16):
+        ops = StructuredOperators(box_mesh((64, 64, 64), (1.0, 1.0, 1.0)), 4, dtype=dtype)
+        tabs = stiffness.GridStiffnessTables(*ops._tensors(
+            ("stiffness", -1500.0**2), dev, lambda: stiffness.stiffness_grid_tables(
+                ops._sepA, ops._seplines, ops.grid_shape, 4, -1500.0**2, dtype)))
+        x = torch.as_tensor(np.random.default_rng(21).standard_normal(ops.grid_shape),
+                            device=dev).to(dtype)
+        y = torch.full_like(x, float("nan"))
+        args = stiffness.stiffness_launch_args(x, y, tabs, 4)
+        key = "bf16" if dtype == bf16 else "f32"
+        nb = 2 * x.numel() * x.element_size() + sum(t.numel() * t.element_size()
+                                                     for t in tabs)
+        run_plain = lambda: stiffness.stiffness_grid_plain(x, tabs, 4)  # noqa: E731
+        out["times"].setdefault("F", {})[key] = {
+            "ms": launch_ms("wave_stiffness_tiled", dtype, args),
+            "plain_ms": 1e3 * timeit(run_plain, reps=3, warmup=1),
+            **bound(nb, x.numel(), 6 * 9 + 8)}
+        if dtype == bf16:  # the unpadded grid: every point written
+            against_plain("F", [y], [run_plain()])
+        del x, y
+    part_done("c")
+    for k, t in out["times"].items():
+        a, b = t["bf16"], t["f32"]
+        ms = "ms_per_step" if k in "AC" else "ms"
+        extra = (f", stages {', '.join(f'{s:.2f}' for s in a['stage_us'])} us, "
+                 f"4-launch floor {a['floor_ms']:.4f} ms (f32 {b['floor_ms']:.4f})"
+                 if k in "AC" else "")
+        print(f"kernel {k} bf16 {a[ms]:.4f} ms (bound {a['bound_ms']:.4f} ms, "
+              f"{a['bound_by']}{extra}; plain twin {a['plain_ms']:.4f} ms) against f32 "
+              f"{b[ms]:.4f} ms (bound {b['bound_ms']:.4f} ms, {b['bound_by']}; plain "
+              f"{b['plain_ms']:.4f} ms) [{smi}]")
+    print("bf16 at full width, kernel against its plain twin from NaN (limit 1e-2): "
+          + ", ".join(f"{k} {out['checks'][f'{k} full width']['one']:.3e}"
+                      for k in "ACBDF")
+          + f"; phase 24 {sum(out['seconds'].values()):.1f} s (a {out['seconds']['a']:.1f}, "
+          f"b {out['seconds']['b']:.1f}, c {out['seconds']['c']:.1f})")
     return out
 
 
@@ -2900,6 +3274,7 @@ def main() -> None:
 
     # phases 21-23: tsmm, the dry run and the four examples, each counted alone
     slice21 = slice_phases(dev, smi, counters, setup_counters)
+    p24 = bf16_phase(dev, smi, counters, setup_counters)
 
     # "kernels": all eleven, each with the launches of its path's run (G:
     # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
@@ -3077,7 +3452,16 @@ def main() -> None:
         "plain_ms": plain16, "bound_ms": bound16[0], "bound_by": bound16[1],
         "library_ms": csr_ms,
     })
+    # phase 24: each bf16 kernel's launches (its checks and, for A, the
+    # app's main path), its time beside the f32 kernel's in this call
+    for k in ("A", "B", "C", "D", "F"):
+        by_name[k]["bf16_launches"] = p24["launches"].get(k, 0) + p24["app"][
+            "launches"].get(k, 0)
+        if k in p24["times"]:
+            by_name[k]["bf16"] = p24["times"][k]
+    by_name["A"]["bf16_app"] = p24["app"]
     print("tsmm " + json.dumps(slice21["tsmm"]))
+    print("bf16 " + json.dumps(p24["checks"]))
     print("dryrun " + json.dumps(slice21["dryrun"]))
     print(f"total {time.perf_counter() - t_start:.1f} s after the device check")
     print(smi)

@@ -5,13 +5,16 @@ tests of ``build_dofmap`` (``test_torch_node_keys.py``, and on a card
 A perturbed (3,2,2)-cell box with every cell's vertex list rotated
 (seeded), and two vertices moved so that one shared node's copies, summed
 in vertex order, straddle a key's .5 boundary, and another's through
-``np.matmul`` do.
+``np.matmul`` do; for the facet weights (``facet_split_mesh``), a third
+vertex moved so that a node of the x = 0 face's facets, through the
+bilinear facet map, does.
 """
 
 import itertools
 
 import numpy as np
 
+from wave_fenics_tpu_torch.core.basis import gll_points_weights
 from wave_fenics_tpu_torch.core.dofmap import node_phi, node_sums
 from wave_fenics_tpu_torch.core.mesh import box_mesh
 
@@ -119,3 +122,62 @@ def one_dof_per_node(dofmap, points, cells, p) -> bool:
     geo = geometric_nodes(points, cells, p)
     pairs = np.unique(np.stack([geo, dofmap.reshape(-1)]), axis=1)
     return pairs.shape[1] == geo.max() + 1 == dofmap.max() + 1
+
+
+def x0_facets(points, cells) -> np.ndarray:
+    """[nf, 4] the cells' facets on the face x = 0 (within 1e-6: a moved
+    vertex may leave it by ulps), in basix quad vertex order ((0,0), (1,0),
+    (0,1), (1,1) of the facet's (y, z) parameters)."""
+    out = []
+    for c in cells:
+        on = [int(v) for v in c if abs(points[v, 0]) < 1e-6]
+        if len(on) == 4:
+            out.append(sorted(on, key=lambda v: (round(points[v, 2], 6),
+                                                 round(points[v, 1], 6))))
+    return np.array(out)
+
+
+def bilinear_facet_nodes(points, facets, p):
+    """[nf (p+1)^2, 3] the facets' GLL nodes through the bilinear facet map
+    (the facet weights' own map; its first parameter slowest)."""
+    nodes, _ = gll_points_weights(p + 1)
+    U, V = np.meshgrid(nodes, nodes, indexing="ij")
+    u, v = U.ravel()[None, :, None], V.ravel()[None, :, None]
+    fc = points[facets]
+    v0, v1, v2, v3 = (fc[:, i, None, :] for i in range(4))
+    x = (1 - u) * (1 - v) * v0 + u * (1 - v) * v1 + (1 - u) * v * v2 + u * v * v3
+    return x.reshape(-1, 3)
+
+
+def facet_split_mesh(p: int):
+    """(points, cells, facets): :func:`split_mesh` with the x = 0 face's
+    facets, and the face's middle vertex moved along y so that a facet node
+    lies at a key's .5 boundary, where its bilinear-map coordinate and its
+    dof's sorted sum round to two keys."""
+    pts, cells = split_mesh(p)
+    facets = x0_facets(pts, cells)
+    inv = 1.0 / (max(np.abs(pts).max(), 1.0) * TOL)
+    mid = [v for v in np.unique(facets) if 1e-9 < pts[v, 1] < EXT[1] - 1e-9
+           and 1e-9 < pts[v, 2] < EXT[2] - 1e-9][0]
+
+    def split(moved):
+        dof_keys = set(map(tuple, keys(node_sums(node_phi(p), moved[cells]), inv).tolist()))
+        return any(tuple(k) not in dof_keys
+                   for k in keys(bilinear_facet_nodes(moved, facets, p), inv).tolist())
+
+    f = int(np.flatnonzero((facets == mid).any(axis=1))[0])
+    j = list(facets[f]).index(mid)
+    nodes, _ = gll_points_weights(p + 1)
+    for n in range(1, (p + 1) ** 2):
+        u, v = nodes[n // (p + 1)], nodes[n % (p + 1)]
+        w = ((1 - u) * (1 - v), u * (1 - v), (1 - u) * v, u * v)[j]
+        if w < 0.1:
+            continue
+        y = bilinear_facet_nodes(pts, facets[f:f + 1], p)[n, 1]
+        moved = pts.copy()
+        moved[mid, 1] += ((np.floor(y * inv) + 0.5) / inv - y) / w
+        for s in range(100):
+            if split(moved):
+                return moved, cells, facets
+            moved[mid, 1] += (-1) ** s * (s + 1) * np.spacing(moved[mid, 1])
+    raise AssertionError("no facet node could be put at a key boundary")

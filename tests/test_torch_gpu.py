@@ -34,6 +34,7 @@ from wave_fenics_tpu_torch.ops import (
     rk4step,
     rk42step,
     stiffness,
+    tiling,
     wave,
 )
 from wave_fenics_tpu_torch.ops.operators import GeneralOperators, StructuredOperators
@@ -1544,3 +1545,124 @@ def test_cuda_ea_matches_kernel_k(cuda):
     want = ops.stiffness(x, 2.0**0.5)
     assert general.general_apply_cuda.launches == n0 + 1
     assert _rel(ea(x), want) <= TOL
+
+
+# -- bf16 state: kernels A, C, B, D and F against their plain bf16 twins ------
+BF16 = torch.bfloat16
+ONE_BF16 = 1e-2  # one step, stage or apply: max|err| / max|ref|, about 2 ulps
+
+
+def _bf16_model(p, device, shape=(4, 2, 2), lean=True):
+    mesh = box_mesh(shape, (0.01, 0.005, 0.005),
+                    facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    return PaddedLinearWave(LinearWave(mesh, p=p, dtype=BF16, device=device),
+                            tile_x=max(16, rk4step._off0(p)), lean=lean)
+
+
+def _bf16_state(layout, seed, device, scale=1.0):
+    x = np.zeros(layout.padded_shape)
+    x[layout.interior] = scale * np.random.default_rng(seed).standard_normal(layout.shape)
+    return torch.as_tensor(x, device=device).to(BF16)
+
+
+def _bf16_rel(got, want) -> float:
+    return float((got.double().cpu() - want.double().cpu()).abs().max()
+                 / want.double().abs().max())
+
+
+def _bf16_padding_zero(layout, x):
+    outside = x.clone()
+    outside[layout.interior] = 0
+    return float(outside.abs().max()) == 0.0 and bool(torch.isfinite(x).all())
+
+
+@pytest.mark.parametrize("kernel,p,shape", [
+    ("A", 2, (4, 2, 2)), ("A", 4, (4, 2, 2)), ("A", 4, (9, 4, 8)),
+    ("C", 2, (4, 2, 2)), ("C", 4, (4, 2, 2))])
+def test_bf16_step_kernel_matches_plain_twin(cuda, kernel, p, shape):
+    """One bf16 step of kernel A (C) from NaN in every buffer against the
+    plain twin on the CPU; then 25 steps within 1.5x the plain twin's own
+    error against the plain f64 run from the same state."""
+    lean = kernel == "A"
+    pm, pc = _bf16_model(p, cuda, shape, lean), _bf16_model(p, "cpu", shape, lean)
+    u0, v0 = _bf16_state(pm.layout, p, cuda), _bf16_state(pm.layout, p + 1, cuda, 1e3)
+    pairs, scratch = pm._workspace()
+    for x in (*pairs[0], *pairs[1], *scratch):
+        x.fill_(float("nan"))
+    u, v, _ = pm.solve_step_n(0.0, DT, 1, u0, v0)
+    up, vp, _ = pc.solve_step_n(0.0, DT, 1, u0.cpu(), v0.cpu())
+    torch.cuda.synchronize()
+    assert _bf16_rel(u, up) <= ONE_BF16 and _bf16_rel(v, vp) <= ONE_BF16
+    assert all(_bf16_padding_zero(pm.layout, x) for x in (u, v, *scratch[:3]))
+    mesh = pc.base.mesh
+    p64 = PaddedLinearWave(LinearWave(mesh, p=p, dtype=F64, device="cpu"),
+                           tile_x=pc.layout.tile_x, lean=lean)
+    ref = p64.solve_step_n(0.0, DT, 25, u0.double().cpu(), v0.double().cpu())[:2]
+    kern = pm.solve_step_n(0.0, DT, 25, u0, v0)[:2]
+    plain = pc.solve_step_n(0.0, DT, 25, u0.cpu(), v0.cpu())[:2]
+    e_k = max(_bf16_rel(k, r) for k, r in zip(kern, ref))
+    e_p = max(_bf16_rel(k, r) for k, r in zip(plain, ref))
+    assert e_k <= 1.5 * e_p
+
+
+@pytest.mark.parametrize("p", [4, 8])
+def test_bf16_stage_kernel_matches_plain_twin(cuda, p):
+    """One bf16 stage of kernel D from outputs full of NaN against the
+    plain twin: all four outputs, the padding exactly 0."""
+    pm, pc = _bf16_model(p, cuda), _bf16_model(p, "cpu")
+    ins = [_bf16_state(pm.layout, 10 * p + i, cuda, 1e3 if i % 2 else 1.0)
+           for i in range(6)]
+    args = (0.5 * DT, DT / 3.0, 1.0, pm.layout, pm.base.c0)
+    nan = tuple(torch.full_like(ins[0], float("nan")) for _ in range(4))
+    got = wave.rk_stage_cuda(*ins, *args, pm.stencil, pm.face_w1, pm.face_w2,
+                             pm.src_x, pm.abc_x, out=nan)
+    want = wave.rk_stage_plain(*(x.cpu() for x in ins), *args, pc.flat_tables,
+                               pc.face_w1, pc.face_w2, pc.src_x, pc.abc_x)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _bf16_rel(g, w) <= ONE_BF16 and _bf16_padding_zero(pm.layout, g)
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_bf16_flat_and_stiffness_kernels_match_plain_twins(cuda, p):
+    """One bf16 apply of kernel B (from NaN, the padding exactly 0) and of
+    kernel F (from NaN, every grid point written) against their plain
+    twins."""
+    pm, pc = _bf16_model(p, cuda), _bf16_model(p, "cpu")
+    x = _bf16_state(pm.layout, 40 + p, cuda)
+    y = wave.apply_flat_cuda(x, pm.layout, pm.stencil,
+                             out=torch.full_like(x, float("nan")))
+    want = wave.apply_flat_plain(x.cpu(), pc.layout, pc.flat_tables)
+    torch.cuda.synchronize()
+    assert _bf16_rel(y, want) <= ONE_BF16 and _bf16_padding_zero(pm.layout, y)
+    ops = pm.base.ops
+    tabs = stiffness.GridStiffnessTables(*ops._tensors(
+        ("stiffness", -1500.0**2), cuda, lambda: stiffness.stiffness_grid_tables(
+            ops._sepA, ops._seplines, ops.grid_shape, p, -1500.0**2, BF16)))
+    g = torch.as_tensor(np.random.default_rng(50 + p).standard_normal(ops.grid_shape),
+                        device=cuda).to(BF16)
+    yk = stiffness.stiffness_grid_cuda(g, tabs, p, out=torch.full_like(g, float("nan")))
+    yp = stiffness.stiffness_grid_plain(g, tabs, p)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(yk).all()) and _bf16_rel(yk, yp) <= ONE_BF16
+
+
+@pytest.mark.parametrize("cells,p", [((9, 8, 8), 4), ((9, 8, 8), 3), ((5, 7, 11), 3)])
+def test_bf16_stiffness_kernel_on_several_tiles(cuda, cells, p):
+    """One bf16 apply of kernel F from NaN on a grid of several y and z
+    tiles and x chunks, so that tiles start away from 0 and each plane's
+    window shifts by the parity of its global start, against the plain
+    twin: every point written, within two ulps of max|ref|."""
+    shape = tuple(n * p + 1 for n in cells)
+    grid, *_ = tiling.grid_geometry(shape, p, 2)
+    assert min(grid) >= 1 and max(grid[:2]) >= 2
+    ops = StructuredOperators(box_mesh(cells, (0.01, 0.008, 0.008)), p, dtype=BF16)
+    tabs = stiffness.GridStiffnessTables(*ops._tensors(
+        ("stiffness", -1500.0**2), cuda, lambda: stiffness.stiffness_grid_tables(
+            ops._sepA, ops._seplines, ops.grid_shape, p, -1500.0**2, BF16)))
+    g = torch.as_tensor(np.random.default_rng(60 + p).standard_normal(ops.grid_shape),
+                        device=cuda).to(BF16)
+    yk = stiffness.stiffness_grid_cuda(g, tabs, p, out=torch.full_like(g, float("nan")))
+    yp = stiffness.stiffness_grid_plain(g, tabs, p)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(yk).all()) and _bf16_rel(yk, yp) <= ONE_BF16

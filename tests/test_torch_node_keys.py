@@ -25,8 +25,11 @@ import torch
 from _torch_cases import max_rel
 from _torch_node_mesh import (
     BITS,
+    EXT,
     TOL,
+    bilinear_facet_nodes,
     expected_ndofs,
+    facet_split_mesh,
     keys,
     matmul_sums,
     one_dof_per_node,
@@ -40,6 +43,7 @@ from wave_fenics_tpu.core.mesh import HexMesh as JHexMesh
 from wave_fenics_tpu_torch import native
 from wave_fenics_tpu_torch.core.dofmap import build_dofmap, node_phi, node_sums
 from wave_fenics_tpu_torch.core.mesh import HexMesh
+from wave_fenics_tpu_torch.models.general_wave import facet_lumped_weights
 
 PS = [2, 3, 4, 5]
 
@@ -133,3 +137,26 @@ def test_cell_boundary_nodes_do_not_depend_on_the_vertex_order(p):
         ref = vertex_order_sums(node_phi(p, mirrored=False), X[None]).reshape(-1, 3)
         differs_in_vertex_order |= not np.array_equal(seq[match], ref[on_boundary])
     assert differs_in_vertex_order or p == 1
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+@pytest.mark.parametrize("p", [2, 4])
+def test_facet_nodes_at_a_key_boundary_match_their_dofs(p, device):
+    """A tagged facet node at a key's .5 boundary, where the bilinear facet
+    map's coordinate and the node's sorted sum round to two keys (the
+    premise), still matches its dof on both routes: the facet weights key
+    their nodes from the sorted sums. The weights then sit on the face's
+    dofs only and sum to its area (to 1e-8: a moved vertex leaves the plane
+    x = 0 by ulps)."""
+    pts, cells, facets = facet_split_mesh(p)
+    inv = 1.0 / (max(np.abs(pts).max(), 1.0) * TOL)
+    dof_keys = {tuple(k) for k in keys(node_sums(node_phi(p), pts[cells]), inv).tolist()}
+    assert any(tuple(k) not in dof_keys
+               for k in keys(bilinear_facet_nodes(pts, facets, p), inv).tolist())
+    mesh = HexMesh(points=pts, cells=cells)
+    dofs = build_dofmap(mesh, p, device=device)
+    W = facet_lumped_weights(mesh, dofs, facets, p, device=device)
+    W = W.numpy() if isinstance(W, torch.Tensor) else W
+    on_face = np.abs(dofs.dof_coords[:, 0]) < 1e-6
+    assert (W[~on_face] == 0).all() and (W[on_face] > 0).all()
+    assert abs(W.sum() - EXT[1] * EXT[2]) <= 1e-8

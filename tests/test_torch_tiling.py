@@ -152,36 +152,40 @@ def test_python_tiling_policy_matches_the_c_kernel():
     assert int(layers.group(1)) - 1 == int(layers.group(2)) == tiling.PADDING_LAYERS
     fields = re.search(r"return J == 0 \? (\d+) : J == 1 \? (\d+) : (\d+);", src)
     assert max(int(n) for n in fields.groups()) == tiling.PLANE_FIELDS
-    rule = re.search(r"min_blocks\(\) \{\s*return sizeof\(T\) == (\d+) && P <= (\d+) "
+    rule = re.search(r"min_blocks\(\) \{\s*return sizeof\(T\) <= (\d+) && P <= (\d+) "
                      r"\? (\d+) : (\d+);", src)
     size, pmax, many, one = (int(n) for n in rule.groups())
-    for itemsize in (4, 8):
+    for itemsize in (2, 4, 8):
         for p in range(1, 9):
-            want = many if itemsize == size and p <= pmax else one
+            want = many if itemsize <= size and p <= pmax else one
             assert tiling.blocks_per_sm(itemsize, p) == want
     # kernels D and E: launch bounds of tma_min_blocks<T>
-    rule = re.search(r"tma_min_blocks\(\) \{\s*return sizeof\(T\) == (\d+) \? (\d+) : (\d+);",
+    rule = re.search(r"tma_min_blocks\(\) \{\s*return sizeof\(T\) <= (\d+) \? (\d+) : (\d+);",
                      hdr)
     size, many, one = (int(n) for n in rule.groups())
-    for itemsize in (4, 8):
-        assert tiling.tma_blocks_per_sm(itemsize) == (many if itemsize == size else one)
+    for itemsize in (2, 4, 8):
+        assert tiling.tma_blocks_per_sm(itemsize) == (many if itemsize <= size else one)
     for name in ("slab_tiled.cu", "rk_stage_tiled.cu", "lf_tiled.cu", "mass_tiled.cu",
                  "rk42_tiled.cu", "flat_tiled.cu"):
         assert "__launch_bounds__(kTileThreads, (tma_min_blocks<T>()))" in _c_source(name)
     # kernel F: the TMA kernels' launch bounds, grid_rows<T, P>, one field a
     # plane of the cp.async ring
     src = _c_source("stiffness_tiled.cu")
-    rule = re.search(r"grid_rows\(\) \{\s*return sizeof\(T\) == (\d+) && P <= (\d+) "
+    rule = re.search(r"grid_rows\(\) \{\s*return sizeof\(T\) <= (\d+) && P <= (\d+) "
                      r"\? (\d+) : (\d+);", src)
     size, pmax, two, one = (int(n) for n in rule.groups())
-    for itemsize in (4, 8):
+    for itemsize in (2, 4, 8):
         for p in range(1, 11):
-            want = two if itemsize == size and p <= pmax else one
+            want = two if itemsize <= size and p <= pmax else one
             assert tiling.grid_rows(itemsize, p) == want
     assert "__launch_bounds__(kTileThreads, (tma_min_blocks<T>()))" in src
-    assert "smem < grid_smem_bytes<T, P>(t, R)" in src
-    assert "return kPipe * rows * grid_pitch(t.tz, P, R) * (int)sizeof(T) +" in src
-    assert "rows * (t.tz + 2 * P) * (int)sizeof(int2);" in src
+    assert "smem < grid_smem_bytes<T, P>(t, R, s.nz)" in src
+    assert "return kPipe * window_slot<T>(rows, W) * (int)sizeof(T) +" in src
+    assert "rows * (t.tz + 2 * P) * (int)sizeof(int2));" in src
+    # bf16: pairs of the window's pitch, one int32 of the table a point
+    assert "(copy_width<T>() == 2 ? rows * W * (int)sizeof(int)" in src
+    assert "return copy_width<T>() == 2 ? (rows * W + 2) & ~1 : rows * W;" in src
+    assert "return copy_width<T>() == 2 ? W + ((W - Nz) & 1) : W;" in src
     assert "case %d: return launch_grid<T, %d>" % ((stiffness.MAX_DEGREE,) * 2) in src
     # kernel B: one TMA field a plane, no extra planes
     src = _c_source("flat_tiled.cu")

@@ -1,0 +1,148 @@
+"""How a bf16 run of the box's RK4 step grows, and what makes it grow.
+
+Four runs of the planar3d case at p = 4 (``planar3d_app.build``) from
+zero over its whole solve, max|u| every ``--every`` steps:
+
+- ``bf16``: kernel A on a bf16 state and bf16 tables (the app's
+  ``--dtype bf16``; the plain twin on ``--device cpu``);
+- ``f32``: the same in f32;
+- ``bf16 state, f32 tables``: the plain lean step on a bf16 state with the
+  f32 model's tables (each stored field still rounded to bf16);
+- ``f32 state, bf16 tables``: the plain lean step on an f32 state with the
+  bf16 model's tables.
+
+Beside them, ``lam0`` of each model's tables: the shift of the stencil's
+zero eigenvalue (the constant mode) by the tables' rounding, to first
+order the mass-weighted mean of A 1. It is read from one plain step from
+(u, v) = (1, 0) with no source and dt = 1e-12, as v1 / dt. Where it is
+positive the constant mode grows as exp(sqrt(lam0) t) (u'' = lam0 u), so
+``sqrt(lam0)`` predicts the rate; ``fitted_rate`` is each run's rate from
+the last recorded step at least ``--fit`` steps before its end, ln(max|u|
+ratio) / time.
+
+    python -m wave_fenics_tpu_torch.apps.bf16_growth [--cells 64 32 32]
+        [--steps N] [--every 100] [--fit 400] [--device cuda]
+
+It prints the card's name and power limit (nvidia-smi; "cpu" on a CPU
+device) and, last, one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..ops.rk4step import rk4_step_lean_plain
+from .planar3d_app import build
+
+RUNS = ("bf16", "f32", "bf16 state, f32 tables", "f32 state, bf16 tables")
+
+
+def _lam0(pm, tables) -> float:
+    """The mass-weighted mean of A 1 on ``pm``'s layout with ``tables``."""
+    lay = pm.layout
+    one = lay.pad(torch.ones(lay.shape, dtype=torch.float32, device=pm.base.device))
+    dt = 1e-12
+    _, v1 = rk4_step_lean_plain(one, torch.zeros_like(one), dt, [0.0] * 4, lay,
+                                pm.base.c0, tables)
+    a1 = lay.unpad(v1).double() / dt
+    mx, my, mz = (torch.as_tensor(np.asarray(m), dtype=torch.float64, device=a1.device)
+                  for m in pm._m_lines)
+    m = mx[:, None, None] * my[None, :, None] * mz[None, None, :]
+    return float((m * a1).sum() / m.sum())
+
+
+def run(cells=(64, 32, 32), steps: int | None = None, every: int = 100,
+        fit: int = 400, device: str = "cuda") -> dict:
+    """The four runs, ``lam0`` and the rates (the JSON dict). The plain
+    steps are references: TF32 goes off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    case, p16 = build(cells=cells, dtype="bf16", device=device)
+    _, p32 = build(cells=cells, dtype="f32", device=device)
+    if p16.layout.padded_shape != p32.layout.padded_shape:
+        raise ValueError("the bf16 and f32 models' layouts differ")
+    dt, n = case.dt, case.nsteps if steps is None else min(steps, case.nsteps)
+    lay, c0, b = p16.layout, p16.base.c0, p16.base
+    sync = torch.cuda.synchronize if p16.base.device.type == "cuda" else (lambda: None)
+
+    def plain(state_model, tables):
+        def solve(t0, k, u, v):
+            for i in range(k):
+                t = t0 + i * dt
+                gs = [b.g_amplitude(t + c * dt) for c in (0.0, 0.5, 0.5, 1.0)]
+                u, v = rk4_step_lean_plain(u, v, dt, gs, lay, c0, tables)
+            return u, v
+        return state_model, solve
+
+    def kernel(pm):
+        return pm, lambda t0, k, u, v: pm.solve_step_n(t0, dt, k, u, v)[:2]
+
+    solvers = {"bf16": kernel(p16), "f32": kernel(p32),
+               "bf16 state, f32 tables": plain(p16, p32.step_tables),
+               "f32 state, bf16 tables": plain(p32, p16.step_tables)}
+    rec = {"cells": list(cells), "degree": b.p, "ndofs": b.ops.ndofs, "dt": dt,
+           "steps": n, "every": every, "device": str(p16.base.device), "runs": {},
+           "seconds": {}}
+    for name in RUNS:
+        pm, solve = solvers[name]
+        u, v = pm.zero_state()
+        done, series = 0, []
+        sync()
+        t0 = time.perf_counter()
+        while done < n:
+            k = min(every, n - done)
+            u, v = solve(done * dt, k, u, v)
+            done += k
+            series.append((done, float(u.float().abs().max())))
+        sync()
+        rec["seconds"][name] = time.perf_counter() - t0
+        if not all(math.isfinite(m) for _, m in series):
+            raise RuntimeError(f"{name}: max|u| is not finite")
+        rec["runs"][name] = series
+    rec["lam0"] = {"f32 tables": _lam0(p32, p32.step_tables),
+                   "bf16 tables": _lam0(p32, p16.step_tables)}
+    rec["sqrt_lam0"] = {k: math.sqrt(x) if x > 0 else None for k, x in rec["lam0"].items()}
+    rec["fitted_rate"] = {}
+    for name, series in rec["runs"].items():  # from the last point >= fit steps back
+        back = [(s, m) for s, m in series if s <= n - fit]
+        rec["fitted_rate"][name] = (math.log(series[-1][1] / back[-1][1])
+                                    / ((n - back[-1][0]) * dt) if back else None)
+    return rec
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cells", type=int, nargs=3, default=(64, 32, 32))
+    ap.add_argument("--steps", type=int, default=None, help="cap on the case's steps")
+    ap.add_argument("--every", type=int, default=100)
+    ap.add_argument("--fit", type=int, default=400)
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args(argv)
+    rec = run(tuple(a.cells), a.steps, a.every, a.fit, a.device)
+    smi = "cpu"
+    if rec["device"].startswith("cuda"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[0].strip()
+    rec["card"] = smi
+    f32 = rec["runs"]["f32"]
+    for name, series in rec["runs"].items():
+        print(f"{name:24s} max|u| / f32's at steps "
+              + ", ".join(f"{s}: {m / m32:.3g}" for (s, m), (_, m32) in zip(series, f32))
+              + f"; rate over the last {a.fit} steps {rec['fitted_rate'][name]} /s; "
+              f"{rec['seconds'][name]:.1f} s")
+    print(f"lam0 {rec['lam0']}, sqrt(lam0) {rec['sqrt_lam0']} /s [{smi}]")
+    print(json.dumps(rec))
+    return rec
+
+
+if __name__ == "__main__":
+    main()

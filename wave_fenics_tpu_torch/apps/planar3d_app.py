@@ -59,7 +59,7 @@ general (rk4, RCB, ndev=N)", or leapfrog), one warm-up step. Snapshots and
 Run:
   python -m wave_fenics_tpu_torch.apps.planar3d_app [--config cfg.json]
          [--checkpoint-dir ckpt] [--cells 64 32 32] [--degree 4]
-         [--dtype f32|f64] [--tile-x 48] [--device cuda] [--steps N]
+         [--dtype f32|f64|bf16] [--tile-x 48] [--device cuda] [--steps N]
          [--integrator rk4|leapfrog] [--full-tableau] [--two-step]
          [--output out.xdmf] [--ndev N]
   python -m wave_fenics_tpu_torch.apps.planar3d_app --mesh mesh.xdmf
@@ -99,6 +99,14 @@ from ..utils.logging import device_info, get_logger, progress
 from ..utils.timing import Timer, sync
 
 log = get_logger("planar3d")
+
+#: logged by every bf16 run: bf16 tables give the stencil's rows a nonzero
+#: sum, so a constant mode grows from some hundreds of steps on; the JAX
+#: package's bf16 solve_n grows the same way
+BF16_WARNING = ("bf16 state: the stiffness tables rounded to bf16 no longer sum to "
+                "zero along a row, and the solution grows over long runs (as the "
+                "JAX package's bf16 solve_n does); check the answer against an f32 "
+                "run")
 
 
 def _device(device: str) -> torch.device:
@@ -149,8 +157,9 @@ def solver_path(pm: PaddedLinearWave, integrator: str = "rk4",
                else "csrc/rk_stage_tiled.cu" if "kernel D" in kernel
                else "csrc/lf_tiled.cu" if "kernel H" in kernel or "kernel I" in kernel
                else "csrc/flat_tiled.cu")
-        return (f"CUDA {kernel} ({src})" if cuda
-                else f"plain torch {plain} (CPU)")
+        bf16 = ", bf16 state" if pm.base.dtype == torch.bfloat16 else ""
+        return (f"CUDA {kernel} ({src}){bf16}" if cuda
+                else f"plain torch {plain} (CPU){bf16}")
 
     def kernel_solve(solve):
         return lambda t0, dt, n, u0=None, v0=None: solve(t0, dt, n, u0, v0)[:2]
@@ -169,6 +178,7 @@ def solver_path(pm: PaddedLinearWave, integrator: str = "rk4",
                       f"{tail} for an odd last step", "2-step RK4"),
                 kernel_solve(pm.solve_step2_n), 2)
     if integrator == "leapfrog":
+        _cuda.require_bf16(pm.base.dtype, "--integrator leapfrog", "H", "I")
         if pm.lf2_unavailable is None:
             return (named("2-step leapfrog kernel I, 3 launches per 2 steps; "
                           "kernel H for an odd last step",
@@ -267,8 +277,11 @@ def write_output(path: str, model, pm: PaddedLinearWave | None, u, v, t: float) 
     (the padded state ``pm.to_grid`` first; ``pm`` None on a box: the
     global grid of a sharded run). Fields are tensors or NumPy arrays (the
     global state of a sharded run)."""
-    def host(x):
-        return x if isinstance(x, np.ndarray) else x.detach().cpu().numpy()
+    def host(x):  # a bf16 state widened exactly (the writers store float64)
+        if isinstance(x, np.ndarray):
+            return x
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
     if isinstance(model, GeneralLinearWave):
         write_xdmf_unstructured(path, model.dofs, {"u": host(u), "v": host(v)}, time=t)
@@ -391,6 +404,8 @@ def run(
     else:
         path, solve, warm_steps = solver_path(pm, integrator, two_step)
     log.info("solver path: %s", path)
+    if m.dtype == torch.bfloat16:
+        log.warning(BF16_WARNING)
 
     cm = (CheckpointManager(cfg.run.checkpoint_dir, cfg.run.checkpoint_every_steps)
           if cfg.run.checkpoint_dir else None)
@@ -401,6 +416,11 @@ def run(
         snap = cm.restore()
         if snap is not None:
             step0, u_np, v_np, t, _ = snap
+            if isinstance(u_np, torch.Tensor) != (m.dtype == torch.bfloat16):
+                raise ValueError(f"a snapshot of {getattr(u_np, 'dtype', None)} in "
+                                 f"{cfg.run.checkpoint_dir}: a bf16 run resumes "
+                                 "only from a bf16 snapshot, and a bf16 snapshot "
+                                 "only into a bf16 run")
             u = torch.as_tensor(u_np, dtype=m.dtype, device=dev)
             v = torch.as_tensor(v_np, dtype=m.dtype, device=dev)
             if imported and tuple(u.shape) != (m.ndofs,):
@@ -484,6 +504,7 @@ def run(
         "read_seconds": case.read_seconds,
         "output_seconds": output_s,
         "ndev": cfg.run.ndev,
+        "dtype": cfg.run.dtype,
     }
     if sg is not None:
         out["exchange"] = sg.exchange_mode

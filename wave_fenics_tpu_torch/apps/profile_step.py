@@ -274,10 +274,10 @@ TILINGS = [(32, 256, (16, 64)), (32, 256, (16, 16)), (32, 256, (32, 32)),
 #: kv1, kv2: a value from the index instead), or the stage inputs D and J
 #: form (u0's window read in their place); "padding layer last" moves
 #: B's padding layer to the grid's last layer.
-_D_POINT_LOADS = """      pn[0] = a.v0[nidx];
-      pn[1] = a.kv[nidx];
-      pn[2] = a.ua[nidx];
-      pn[3] = a.va[nidx];"""
+_D_POINT_LOADS = """      pn[0] = widen(a.v0[nidx]);
+      pn[1] = widen(a.kv[nidx]);
+      pn[2] = widen(a.ua[nidx]);
+      pn[3] = widen(a.va[nidx]);"""
 _J_POINT_LOADS = """      pn[0] = a.v0[nidx];
       pn[1] = a.kv0[nidx];
       pn[2] = a.kv1[nidx];
@@ -310,16 +310,17 @@ _G_ZY = """    for (int r = c.ly; r < nrow; r += t.ty) zb[r * tz + c.lz] = band<
     }
     if (!c.active) continue;
     const T v = band<T, P>(cy, zb + c.ly * tz + c.lz, tz);  // y at the column"""
-_F_YZ = """        T acc = T(0);
+_F_YZ = """        A acc = A(0);
 #pragma unroll
         for (int k = 0; k < K; ++k) acc += cy[r][k] * v[k + r];
         ty[r] = acc * (lx * lz);
-        tz[r] = axis_taps<T, P>(cz, ctr + r * W, 1) * (lx * ly[r]);"""
+        tz[r] = axis_taps<A, T, P>(cz, ctr + r * W, 1) * (lx * ly[r]);"""
 ABLATIONS = {
     "point value": {
-        "rk4_tiled.cu": ("T kv = x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);",
-                         "T kv = q[P];"),
-        "rk_stage_tiled.cu": ("T kv = tx * tab.fx + yz * __ldg(&s.sx[g]);", "T kv = q[P];"),
+        "rk4_tiled.cu": ("A kv = x_taps<A, P>(s, q, g) * tab.fx + yz * widen(__ldg(&s.sx[g]));",
+                         "A kv = q[P];"),
+        "rk_stage_tiled.cu": ("A kv = tx * tab.fx + yz * widen(__ldg(&s.sx[g]));",
+                              "A kv = q[P];"),
         "slab_tiled.cu": ("y[(long long)g * F + c.f] = (tx * lyz + ay) + az;",
                           "y[(long long)g * F + c.f] = q[P];"),
         "lf_tiled.cu": ("T force = tx * tab.fx + yz * __ldg(&s.sx[g]);", "T force = q[P];"),
@@ -328,7 +329,7 @@ ABLATIONS = {
             "x_taps<T, P>(s, q1, g) * tab.fx + yz1 * sxg", "q1[P]")),
         "mass_tiled.cu": (_G_ZY, "\n".join(_G_ZY.splitlines()[1:-1])
                           + "\n    const T v = xb[(c.ly + P) * W + P];"),
-        "flat_tiled.cu": ("x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);",
+        "flat_tiled.cu": ("x_taps<A, P>(s, q, g) * tab.fx + yz * widen(__ldg(&s.sx[g]));",
                           "q[P];"),
         "stiffness_tiled.cu": (_F_YZ, "        ty[r] = v[P + r] * (lx * lz);\n"
                                "        tz[r] = v[P + r] * (lx * ly[r]);"),
@@ -351,8 +352,8 @@ ABLATIONS = {
     # without the copies of the planes after the first kPipe - 1 (the taps
     # read stale planes)
     "F no x taps": {
-        "stiffness_tiled.cu": ("(tx[r] * (ly[r] * lz) + ay[r]) + az[r];",
-                               "(q[r][P] * (ly[r] * lz) + ay[r]) + az[r];"),
+        "stiffness_tiled.cu": ("(tx[r] * (ly[r] * lz) + ay[r]) + az[r])",
+                               "(q[r][P] * (ly[r] * lz) + ay[r]) + az[r])"),
     },
     "F no plane copies": {
         "stiffness_tiled.cu": ("if (ip < iters) w.fetch(", "if (false) w.fetch("),
@@ -363,13 +364,14 @@ ABLATIONS = {
     },
     "no point-wise loads": {
         "rk_stage_tiled.cu": (_D_POINT_LOADS,
-                              "      pn[0] = pn[1] = pn[2] = pn[3] = T(nidx & 1);"),
+                              "      pn[0] = pn[1] = pn[2] = pn[3] = A(nidx & 1);"),
         "rk42_tiled.cu": (_J_POINT_LOADS,
                           "      pn[0] = pn[1] = pn[2] = pn[3] = T(nidx & 1);"),
     },
     "u0 as the stage input": {
-        "rk_stage_tiled.cu": ("for (int e = (int)threadIdx.x; e < npt; e += nt) "
-                              "un[e] = ub[e] + ca * kb[e];", "un = const_cast<T*>(ub);"),
+        "rk_stage_tiled.cu": ("for (int e = (int)threadIdx.x; e < npt; e += nt) {\n"
+                              "      un[e] = narrow<T>(widen(ub[e]) + ca * widen(kb[e]));",
+                              "un = const_cast<T*>(ub);\n    {"),
         "rk42_tiled.cu": (_J_FORM, "    f3 = const_cast<T*>(sl);\n    f1 = f3;"),
     },
     # the TMA kernels' window pitch (stencil_tiled.cuh::tma_window) cut to

@@ -65,7 +65,7 @@ from ..parallel.sharded_general import ShardedGeneralWave
 from ..parallel.sharded_wave import ShardedLinearWave
 from ..solvers.cg import cg
 from ..utils.timing import sync
-from .common import (DTYPES, cells_from_args, device_name, make_parser,
+from .common import (bench_dtype, cells_from_args, device_name, make_parser,
                      report, resolve_device, two_point_time)
 
 def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
@@ -81,7 +81,7 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
     if ndev < 1:
         raise ValueError(f"--ndev {ndev}: at least 1")
     dev = resolve_device(device)
-    dt = DTYPES[dtype]
+    dt = bench_dtype(dtype)
     t0 = time.perf_counter()
     mesh = box_mesh(cells_from_args(size, s), (1.0, 1.0, 1.0))
     p = degree

@@ -22,8 +22,11 @@ import time
 import numpy as np
 import torch
 
+from ..ops._cuda import bf16_refusal
+
 __all__ = [
     "DTYPES",
+    "bench_dtype",
     "make_parser",
     "resolve_device",
     "device_name",
@@ -37,6 +40,16 @@ __all__ = [
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
 
+def bench_dtype(name: str) -> torch.dtype:
+    """The torch dtype of ``--dtype name``. bf16 (which the JAX package's
+    benchmarks take) raises a ValueError: the benchmarks' kernels (F, G, K,
+    the gather/scatter and tsmm contractions) take f32 and f64."""
+    if name == "bf16":
+        raise ValueError("--dtype bf16: " + bf16_refusal(
+            "the benchmarks take f32 and f64"))
+    return DTYPES[name]
+
+
 def make_parser(**defaults) -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=defaults.get("size", 32),
@@ -48,7 +61,8 @@ def make_parser(**defaults) -> argparse.ArgumentParser:
     ap.add_argument("--reps", type=int, default=defaults.get("reps", 100))
     ap.add_argument("--check", action="store_true",
                     help="verify against an f64 oracle")
-    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument("--dtype", choices=[*sorted(DTYPES), "bf16"], default="f32",
+                    help="f32 or f64 (bf16 raises: bench_dtype)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels; raises without a card) or cpu "
                          "(the plain versions, small sizes)")

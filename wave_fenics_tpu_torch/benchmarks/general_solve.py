@@ -27,7 +27,7 @@ import numpy as np
 from ..core.mesh import HEX_FACES, HexMesh, box_mesh
 from ..models.general_wave import GeneralLinearWave
 from ..utils.timing import sync
-from .common import (DTYPES, cells_from_args, device_name, make_parser, report,
+from .common import (bench_dtype, cells_from_args, device_name, make_parser, report,
                      resolve_device, two_point_time)
 
 #: leapfrog's stable step against RK4's (imaginary-axis stability 2 vs 2.83)
@@ -74,7 +74,7 @@ def build(cells, degree: int = 4, dtype: str = "f32",
     t0 = time.perf_counter()
     hm, tags = perturbed_box(tuple(cells), h=0.002)
     dev = resolve_device(device)
-    model = GeneralLinearWave(hm, degree, tags, dtype=DTYPES[dtype], device=dev)
+    model = GeneralLinearWave(hm, degree, tags, dtype=bench_dtype(dtype), device=dev)
     sync(dev)
     return model, time.perf_counter() - t0
 

@@ -44,7 +44,7 @@ from ..ops.mass import bp1_setup, mass_apply
 from ..ops.operators import GeneralOperators, StructuredOperators
 from ..ops.separable import mass_separable, separable_mass_tables
 from ..utils.timing import sync
-from .common import (DTYPES, cells_from_args, device_name, make_parser,
+from .common import (bench_dtype, cells_from_args, device_name, make_parser,
                      report, resolve_device, streaming_fields, two_point_time)
 
 STRUCTURED_OPS = ("stiffness", "bp1-mass", "mass-fused", "spectral",
@@ -114,7 +114,7 @@ def run(op: str = "stiffness", size: int = 32, degree: int = 4,
     if op not in STRUCTURED_OPS + GENERAL_OPS:
         raise ValueError(f"--op {op!r}: one of {STRUCTURED_OPS + GENERAL_OPS}")
     dev = resolve_device(device)
-    dt = DTYPES[dtype]
+    dt = bench_dtype(dtype)
     t0 = time.perf_counter()
     mesh = box_mesh(cells_from_args(size, s), (1.0, 1.0, 1.0))
     p = degree

@@ -42,7 +42,7 @@ from ..parallel.halo import halo_add, halo_sync
 from ..parallel.partition import decompose3d
 from ..parallel.sharded_general import EXCHANGES, ShardedGeneralWave
 from ..parallel.sharded_wave import ShardedLinearWave
-from .common import (DTYPES, device_name, make_parser, report, resolve_device,
+from .common import (bench_dtype, device_name, make_parser, report, resolve_device,
                      streaming_fields, two_point_time)
 
 MODES = ("local", "halo", "general-halo")
@@ -57,7 +57,7 @@ def run(mode: str = "local", size: int = 32, degree: int = 4, reps: int = 50,
     if mode not in MODES:
         raise ValueError(f"--mode {mode!r}: one of {MODES}")
     dev = resolve_device(device)
-    dt = DTYPES[dtype]
+    dt = bench_dtype(dtype)
     p = degree
     mesh = box_mesh((size,) * 3, (1.0, 1.0, 1.0))
     if mode == "local":

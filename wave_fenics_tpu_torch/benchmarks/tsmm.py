@@ -28,7 +28,7 @@ import torch
 from ..core.basis import tabulate_1d
 from ..ops.element_kernels import interp3, interp3_t
 from ..utils.timing import sync
-from .common import DTYPES, device_name, make_parser, report, resolve_device, two_point_time
+from .common import bench_dtype, device_name, make_parser, report, resolve_device, two_point_time
 
 __all__ = ["run", "main", "contract", "flops"]
 
@@ -74,7 +74,7 @@ def run(ncells: int = 100000, degree: int = 4, reps: int = 100, dtype: str = "f3
     largest error on the first ``CHECK_CELLS`` cells against the same
     contraction in float64, over the largest |value| of the latter."""
     dev = resolve_device(device)
-    dt = DTYPES[dtype]
+    dt = bench_dtype(dtype)
     flags = _tf32_off() if dev.type == "cuda" else None
     p = degree
     tab = tabulate_1d(p, q=2 * p + 2, rule="gauss")  # not collocated: real contractions

@@ -34,6 +34,9 @@
 // parameter (p = 1..8); the launch bounds ask for two 256-thread blocks an
 // SM in f32.
 //
+// bf16 state: a bf16 x and tables (a BFLOAT16 tensor map, 8 points a
+// 16-byte unit), the sums in float32, y rounded once.
+//
 // The extern "C" launcher returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a tiling that does not fit the layout, y
 // aliasing x, or a tensor map the driver refuses.
@@ -59,9 +62,10 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
   long long pb, npb;
   if (padding_block<kPaddingFirst>(s, t, pb, npb)) {  // y's padding
     for_each_padding<1>(s, t, pb, npb,
-                        [y](const int (&i)[1], int) { y[i[0]] = T(0); });
+                        [y](const int (&i)[1], int) { y[i[0]] = zero<T>(); });
     return;
   }
+  using A = Acc<T>;
 
   const TileCoords c(s, t, kPaddingFirst ? padding_layers(s, t) : 0);
   const TmaWindow w = tma_window<T>(s, t, P);
@@ -76,12 +80,12 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
   }
   ColumnTables<T, P> tab;
   tab.load(s, c.f, c.active);
-  T q[K];  // q[k] = x at row gi - 2P + k after plane gi
+  A q[K];  // q[k] = x at row gi - 2P + k after plane gi
 #pragma unroll
-  for (int k = 0; k < K; ++k) q[k] = T(0);
-  T yzq[P];  // yzq[j] = the y/z sum at row gi - P + 1 + j after plane gi
+  for (int k = 0; k < K; ++k) q[k] = A(0);
+  A yzq[P];  // yzq[j] = the y/z sum at row gi - P + 1 + j after plane gi
 #pragma unroll
-  for (int j = 0; j < P; ++j) yzq[j] = T(0);
+  for (int j = 0; j < P; ++j) yzq[j] = A(0);
 
   const int F = s.F();
   const int W = w.W;
@@ -96,18 +100,18 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     const T* ctr = ring.slot(i) + co;
 #pragma unroll
     for (int k = 0; k < K - 1; ++k) q[k] = q[k + 1];
-    q[K - 1] = ctr[0];
-    const T yz_new =
-        c.active && gi >= c.xs && gi < c.xe ? tab.yz(ctr, W) : T(0);
-    const T yz = yzq[0];
+    q[K - 1] = widen(ctr[0]);
+    const A yz_new =
+        c.active && gi >= c.xs && gi < c.xe ? tab.yz(ctr, W) : A(0);
+    const A yz = yzq[0];
 #pragma unroll
     for (int j = 0; j < P - 1; ++j) yzq[j] = yzq[j + 1];
     yzq[P - 1] = yz_new;
 
     if (i < 2 * P || !c.active) continue;
     const int g = gi - P;  // the output row
-    y[(long long)g * F + c.f] =
-        x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);
+    const A yg = x_taps<A, P>(s, q, g) * tab.fx + yz * widen(__ldg(&s.sx[g]));
+    y[(long long)g * F + c.f] = narrow<T>(yg);
   }
 }
 
@@ -170,6 +174,7 @@ int launch_apply_flat_tiled(const T* x, T* y, Stencil<T> s, Tiling t,
 
 WAVE_DEFINE_APPLY_FLAT_TILED(float, f32)
 WAVE_DEFINE_APPLY_FLAT_TILED(double, f64)
+WAVE_DEFINE_APPLY_FLAT_TILED(__nv_bfloat16, bf16)
 
 // The CUDA error's name for a launcher's return code (ops/_cuda.py).
 extern "C" const char* wave_error_string(int code) {

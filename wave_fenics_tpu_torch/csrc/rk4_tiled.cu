@@ -60,6 +60,14 @@
 // depends on (u0, v0) within 2p of it. The kernel is the same: it writes
 // its box and zeros outside it, and reads the load ring as it is in memory.
 //
+// bf16 state (T = __nv_bfloat16; f32 and f64 take the same code with
+// Acc<T> = T): the fields and tables are bf16, the arithmetic float32
+// (stencil_tiled.cuh::Acc), dt, g and the c0 terms float32 (the TPU
+// kernel rounds them to the state dtype, pallas_rk4step.py:554). A stage
+// input is rounded once where it is stored in the ring, kv0..kv2 and (u1,
+// v1) where they are written; the planes are copied in pairs (cp.async
+// takes 4 bytes at least), so tz and h - p must be even.
+//
 // Each extern "C" launcher returns cudaGetLastError() after its launch (or
 // cudaErrorInvalidValue for a tiling that does not fit the layout).
 
@@ -84,7 +92,7 @@ struct StageArgs {
   int src_x, abc_x;
   int lean;  // 1: kernel A's stage algebra; 0: kernel C's
   int load;  // the load ring around the output box (Window)
-  T dt, g, c0sq, mc0;
+  Acc<T> dt, g, c0sq, mc0;  // in the arithmetic type: f32 for bf16 state
 };
 
 // Fields whose plane values form the stage input: u0, v0 and kv0 (J = 2)
@@ -94,13 +102,13 @@ __host__ __device__ constexpr int stage_fields() {
   return J == 0 ? 1 : J == 1 ? 2 : 3;
 }
 
-template <typename T, int J>
-__device__ __forceinline__ T stage_input(T u0, T v0, T k, bool lean, T dt) {
-  const T half = T(0.5);
+template <typename A, int J>
+__device__ __forceinline__ A stage_input(A u0, A v0, A k, bool lean, A dt) {
+  const A half = A(0.5);
   if constexpr (J == 1) {
     return u0 + (half * dt) * v0;
   } else if constexpr (J == 2) {
-    return lean ? (u0 + (half * dt) * v0) + (T(0.25) * (dt * dt)) * k
+    return lean ? (u0 + (half * dt) * v0) + (A(0.25) * (dt * dt)) * k
                 : u0 + (half * dt) * (v0 + (half * dt) * k);
   } else {
     return lean ? (u0 + dt * v0) + (half * (dt * dt)) * k
@@ -108,40 +116,45 @@ __device__ __forceinline__ T stage_input(T u0, T v0, T k, bool lean, T dt) {
   }
 }
 
-// Blocks per SM the register budget must allow: four at p <= 4 in f32
-// (64 registers a thread), else what the compiler needs.
+// Blocks per SM the register budget must allow: four at p <= 4 in f32 and
+// bf16 (64 registers a thread), else what the compiler needs. (bf16 on
+// f64's one block took 0.72 ms/step at the P1 layout, on f32's rule 0.54,
+// no spills; PERF.md section 6.)
 template <typename T, int P>
 __host__ __device__ constexpr int min_blocks() {
-  return sizeof(T) == 4 && P <= 4 ? 4 : 1;
+  return sizeof(T) <= 4 && P <= 4 ? 4 : 1;
 }
 
 template <typename T, int P, int J>
 __global__ void __launch_bounds__(kTileThreads, (min_blocks<T, P>()))
     rk4_tiled_kernel(Stencil<T> s, StageArgs<T> a, Tiling t) {
+  using A = Acc<T>;
   constexpr int K = 2 * P + 1;
   constexpr int NF = stage_fields<J>();
+  constexpr int V = copy_width<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
   const TileCoords c(s, t);
   const int plane = (t.ty + 2 * P) * (t.tz + 2 * P);
-  const Window<P> w(s, c, t, reinterpret_cast<int*>(smem + kPipe * NF * plane),
-                    a.load);
+  const Window<P, V> w(s, c, t,
+                       reinterpret_cast<int*>(smem + kPipe * NF * plane),
+                       a.load);
   const int W = w.W;
   const int F = s.F();
-  const T dt = a.dt;
-  const T half = T(0.5);
+  const A dt = a.dt;
+  const A half = A(0.5);
   const bool lean = a.lean != 0;
   const T* kin = J == 2 ? a.kv0 : a.kv1;
 
   ColumnTables<T, P> tab;
   tab.load(s, c.f, c.active);
-  T q[K];  // q[k] = un_J at row gi - 2P + k after plane gi
+  A q[K];  // q[k] = un_J at row gi - 2P + k after plane gi
 #pragma unroll
-  for (int k = 0; k < K; ++k) q[k] = T(0);
-  T yzq[P];  // yzq[j] = the y/z sum at row gi - P + 1 + j after plane gi
+  for (int k = 0; k < K; ++k) q[k] = A(0);
+  A yzq[P];  // yzq[j] = the y/z sum at row gi - P + 1 + j after plane gi
 #pragma unroll
-  for (int j = 0; j < P; ++j) yzq[j] = T(0);
+  for (int j = 0; j < P; ++j) yzq[j] = A(0);
 
   const int iters = c.xe - c.xs + 2 * P;  // planes xs - P .. xe + P - 1
 #pragma unroll
@@ -163,10 +176,15 @@ __global__ void __launch_bounds__(kTileThreads, (min_blocks<T, P>()))
     T* buf = smem + (i % kPipe) * NF * plane;
     cp_async_wait<kPipe - 2>();  // this thread's copies of plane gi landed
     if constexpr (J > 0) {  // un_J once per point, in place of u0, by the
-                            // thread that copied the point
-      for (int e = (int)threadIdx.x; e < plane; e += w.nt) {
-        buf[e] = stage_input<T, J>(buf[e], buf[plane + e],
-                                   NF > 2 ? buf[2 * plane + e] : T(0), lean, dt);
+                            // thread that copied the point (V points a copy),
+                            // stored in T: bf16 rounds it here
+      for (int e0 = V * (int)threadIdx.x; e0 < plane; e0 += V * w.nt) {
+#pragma unroll
+        for (int e = e0; e < e0 + V; ++e) {
+          buf[e] = narrow<T>(stage_input<A, J>(
+              widen(buf[e]), widen(buf[plane + e]),
+              NF > 2 ? widen(buf[2 * plane + e]) : A(0), lean, dt));
+        }
       }
     }
     __syncthreads();  // plane gi is complete; slot (i - 1) % kPipe is free
@@ -180,9 +198,9 @@ __global__ void __launch_bounds__(kTileThreads, (min_blocks<T, P>()))
     const T* ctr = buf + (c.ly + P) * W + (c.lz + P);
 #pragma unroll
     for (int k = 0; k < K - 1; ++k) q[k] = q[k + 1];
-    q[K - 1] = ctr[0];
-    const T yz_new = gi >= c.xs && gi < c.xe ? tab.yz(ctr, W) : T(0);
-    const T yz = yzq[0];
+    q[K - 1] = widen(ctr[0]);
+    const A yz_new = gi >= c.xs && gi < c.xe ? tab.yz(ctr, W) : A(0);
+    const A yz = yzq[0];
 #pragma unroll
     for (int j = 0; j < P - 1; ++j) yzq[j] = yzq[j + 1];
     yzq[P - 1] = yz_new;
@@ -190,44 +208,45 @@ __global__ void __launch_bounds__(kTileThreads, (min_blocks<T, P>()))
     if (i < 2 * P || !c.active) continue;
     const int g = gi - P;  // the output row
     const long long idx = (long long)g * F + c.f;
-    T kv = x_taps<T, P>(s, q, g) * tab.fx + yz * __ldg(&s.sx[g]);
-    if (g == a.src_x) kv += (a.c0sq * a.g) * a.w1[c.f];
+    A kv = x_taps<A, P>(s, q, g) * tab.fx + yz * widen(__ldg(&s.sx[g]));
+    if (g == a.src_x) kv += (a.c0sq * a.g) * widen(a.w1[c.f]);
     if (g == a.abc_x) {
-      T vn;
+      A vn;
       if constexpr (J == 0) {
-        vn = a.v0[idx];
+        vn = widen(a.v0[idx]);
       } else if constexpr (J == 1) {
-        vn = a.v0[idx] + (half * dt) * a.kv0[idx];
+        vn = widen(a.v0[idx]) + (half * dt) * widen(a.kv0[idx]);
       } else if constexpr (J == 2) {
-        vn = a.v0[idx] + (half * dt) * a.kv1[idx];
+        vn = widen(a.v0[idx]) + (half * dt) * widen(a.kv1[idx]);
       } else {
-        vn = a.v0[idx] + dt * a.kv2[idx];
+        vn = widen(a.v0[idx]) + dt * widen(a.kv2[idx]);
       }
-      kv += (a.mc0 * a.w2[c.f]) * vn;
+      kv += (a.mc0 * widen(a.w2[c.f])) * vn;
     }
     if constexpr (J < 3) {
-      a.kv_out[idx] = kv;
+      a.kv_out[idx] = narrow<T>(kv);
     } else if (lean) {
-      const T dt2 = dt * dt;
-      const T k1 = a.kv1[idx];
-      const T k2 = a.kv2[idx];
-      const T s2 = (a.kv0[idx] + k1) + k2;
-      a.u1[idx] = (a.u0[idx] + dt * a.v0[idx]) + (dt2 / T(6)) * s2;
-      a.v1[idx] = a.v0[idx] + (dt / T(6)) * (((s2 + k1) + k2) + kv);
+      const A dt2 = dt * dt;
+      const A v0 = widen(a.v0[idx]);
+      const A k1 = widen(a.kv1[idx]);
+      const A k2 = widen(a.kv2[idx]);
+      const A s2 = (widen(a.kv0[idx]) + k1) + k2;
+      a.u1[idx] = narrow<T>((widen(a.u0[idx]) + dt * v0) + (dt2 / A(6)) * s2);
+      a.v1[idx] = narrow<T>(v0 + (dt / A(6)) * (((s2 + k1) + k2) + kv));
     } else {
-      const T b0 = T(1.0 / 6.0);
-      const T b1 = T(1.0 / 3.0);
-      const T v0 = a.v0[idx];
-      const T k0 = a.kv0[idx];
-      const T k1 = a.kv1[idx];
-      const T k2 = a.kv2[idx];
-      const T vn1 = v0 + (half * dt) * k0;
-      const T vn2 = v0 + (half * dt) * k1;
-      const T vn3 = v0 + dt * k2;
-      const T accu = ((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3;
-      const T accv = ((b0 * k0 + b1 * k1) + b1 * k2) + b0 * kv;
-      a.u1[idx] = a.u0[idx] + dt * accu;
-      a.v1[idx] = v0 + dt * accv;
+      const A b0 = A(1.0 / 6.0);
+      const A b1 = A(1.0 / 3.0);
+      const A v0 = widen(a.v0[idx]);
+      const A k0 = widen(a.kv0[idx]);
+      const A k1 = widen(a.kv1[idx]);
+      const A k2 = widen(a.kv2[idx]);
+      const A vn1 = v0 + (half * dt) * k0;
+      const A vn2 = v0 + (half * dt) * k1;
+      const A vn3 = v0 + dt * k2;
+      const A accu = ((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3;
+      const A accv = ((b0 * k0 + b1 * k1) + b1 * k2) + b0 * kv;
+      a.u1[idx] = narrow<T>(widen(a.u0[idx]) + dt * accu);
+      a.v1[idx] = narrow<T>(v0 + dt * accv);
     }
   }
   cp_async_wait<0>();
@@ -264,6 +283,11 @@ int launch_stage_p(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
 template <typename T>
 int launch_rk4_tiled(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
                      dim3 grid, int smem, cudaStream_t stream) {
+  // bf16 pairs (fetch_plane): tz and h - p even, so every pair lies in one
+  // row and starts 4-byte aligned
+  if (copy_width<T>() == 2 && (t.tz % 2 != 0 || (s.h - s.p) % 2 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (!tiling_fits(t, grid, s.nx, s.ny, s.nz) || !box_fits_int(s) ||
       a.load < 0 || s.x0 - a.load < 0 || s.x0 + s.nx + a.load > s.Lx ||
       s.h - a.load < 0 || s.h + s.ny + a.load > s.Ly ||
@@ -303,9 +327,10 @@ int launch_rk4_tiled(int stage, Stencil<T> s, StageArgs<T> a, Tiling t,
       int Ly, int Lz, int x0, int nx, int h, int ny, int nz, int load,        \
       int ty, int tz, int cx, int gx, int gy, int gz, int smem,               \
       cudaStream_t stream) {                                                  \
+    using A = wave::Acc<T>;                                                   \
     wave::StageArgs<T> a{u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,       \
-                         src_x, abc_x, LEAN, load, (T)dt, (T)g,               \
-                         (T)(c0 * c0), (T)(-c0)};                             \
+                         src_x, abc_x, LEAN, load, (A)dt, (A)g,               \
+                         (A)(c0 * c0), (A)(-c0)};                             \
     wave::Stencil<T> s{cvx, sx, fx, cvy, cvz, p, Lx, Ly, Lz,                  \
                        x0, nx, h, ny, nz};                                    \
     return wave::launch_rk4_tiled<T>(stage, s, a, wave::Tiling{ty, tz, cx},   \
@@ -316,3 +341,5 @@ WAVE_DEFINE_RK4_STAGE(float, f32, wave_rk4_stage, 1)
 WAVE_DEFINE_RK4_STAGE(double, f64, wave_rk4_stage, 1)
 WAVE_DEFINE_RK4_STAGE(float, f32, wave_rk4_full_stage, 0)
 WAVE_DEFINE_RK4_STAGE(double, f64, wave_rk4_full_stage, 0)
+WAVE_DEFINE_RK4_STAGE(__nv_bfloat16, bf16, wave_rk4_stage, 1)
+WAVE_DEFINE_RK4_STAGE(__nv_bfloat16, bf16, wave_rk4_full_stage, 0)

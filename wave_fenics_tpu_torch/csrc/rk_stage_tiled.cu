@@ -41,6 +41,13 @@
 // template parameter (p = 1..8); the launch bounds ask for two 256-thread
 // blocks an SM in f32.
 //
+// bf16 state: the six fields, the four outputs, the two un planes and the
+// tables are bf16, the arithmetic and ca, cb, g and the c0 terms float32;
+// each output is rounded once, and ua' and va' add vn and kv' as stored
+// (the values the next stage reads: accumulating the float32 values
+// instead doubled the fused solve's error in v, 1.03e-2 against the
+// f64 answer where this gives 5.7e-3, tests/test_torch_bf16.py).
+//
 // The extern "C" launcher returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a tiling that does not fit the layout or a
 // tensor map the driver refuses.
@@ -67,7 +74,7 @@ struct RkStageArgs {
   const T* w1;
   const T* w2;
   int src_x, abc_x;
-  T ca, cb, g, c0sq, mc0;
+  Acc<T> ca, cb, g, c0sq, mc0;  // in the arithmetic type: f32 for bf16 state
 };
 
 template <typename T, int P>
@@ -75,10 +82,11 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     rk_stage_tiled_kernel(const __grid_constant__ CUtensorMap umap,
                           const __grid_constant__ CUtensorMap kumap,
                           Stencil<T> s, RkStageArgs<T> a, Tiling t) {
+  using A = Acc<T>;
   constexpr int K = 2 * P + 1;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const T ca = a.ca;
-  const T cb = a.cb;
+  const A ca = a.ca;
+  const A cb = a.cb;
   long long pb, npb;
   if (padding_block(s, t, pb, npb)) {
     // the grid's last layer: the padding, eight points a thread at a time,
@@ -97,10 +105,10 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if (j < n) {
-          const T vn = v[j] + ca * k[j];
+          const T vn = narrow<T>(widen(v[j]) + ca * widen(k[j]));
           a.vn_out[i[j]] = vn;
-          a.kv_out[i[j]] = T(0);
-          a.ua_out[i[j]] = u[j] + cb * vn;
+          a.kv_out[i[j]] = zero<T>();
+          a.ua_out[i[j]] = narrow<T>(widen(u[j]) + cb * widen(vn));
           a.va_out[i[j]] = w[j];
         }
       }
@@ -121,12 +129,12 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
   }
   ColumnTables<T, P> tab;
   tab.load(s, c.f, c.active);
-  T q[K];  // q[k] = un at row gi - 2P + k after plane gi
+  A q[K];  // q[k] = un at row gi - 2P + k after plane gi
 #pragma unroll
-  for (int k = 0; k < K; ++k) q[k] = T(0);
-  T yzq[P];  // yzq[j] = the y/z sum at row gi - P + 1 + j after plane gi
+  for (int k = 0; k < K; ++k) q[k] = A(0);
+  A yzq[P];  // yzq[j] = the y/z sum at row gi - P + 1 + j after plane gi
 #pragma unroll
-  for (int j = 0; j < P; ++j) yzq[j] = T(0);
+  for (int j = 0; j < P; ++j) yzq[j] = A(0);
 
   const int F = s.F();
   const int W = w.W;
@@ -135,23 +143,25 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
   const int co = (c.ly + P) * W + (c.lz + P + w.oz);  // the column in a box
   // v0, kv, ua, va at the output row of this plane (pt) and of the next
   // (pn): loaded a plane ahead, so their latency hides behind a plane
-  T pt[4], pn[4] = {T(0), T(0), T(0), T(0)};
+  A pt[4], pn[4] = {A(0), A(0), A(0), A(0)};
   for (int i = 0; i < iters; ++i) {
     const int gi = c.xs - P + i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) pt[j] = pn[j];
     if (c.active && i + 1 >= 2 * P && i + 1 < iters) {
       const long long nidx = (long long)(gi + 1 - P) * F + c.f;
-      pn[0] = a.v0[nidx];
-      pn[1] = a.kv[nidx];
-      pn[2] = a.ua[nidx];
-      pn[3] = a.va[nidx];
+      pn[0] = widen(a.v0[nidx]);
+      pn[1] = widen(a.kv[nidx]);
+      pn[2] = widen(a.ua[nidx]);
+      pn[3] = widen(a.va[nidx]);
     }
     ring.wait(i);
     const T* ub = ring.slot(i);
     const T* kb = ub + w.box;
     T* un = ring.extra(i & 1);
-    for (int e = (int)threadIdx.x; e < npt; e += nt) un[e] = ub[e] + ca * kb[e];
+    for (int e = (int)threadIdx.x; e < npt; e += nt) {
+      un[e] = narrow<T>(widen(ub[e]) + ca * widen(kb[e]));  // bf16 rounds un
+    }
     __syncthreads();  // un of plane gi is complete, and every thread is past
                       // plane gi - 1: refill its slot
     if (threadIdx.x == 0 && i + kRing - 1 < iters) {
@@ -160,10 +170,10 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     const T* ctr = un + co;
 #pragma unroll
     for (int k = 0; k < K - 1; ++k) q[k] = q[k + 1];
-    q[K - 1] = ctr[0];
-    const T yz_new =
-        c.active && gi >= c.xs && gi < c.xe ? tab.yz(ctr, W) : T(0);
-    const T yz = yzq[0];
+    q[K - 1] = widen(ctr[0]);
+    const A yz_new =
+        c.active && gi >= c.xs && gi < c.xe ? tab.yz(ctr, W) : A(0);
+    const A yz = yzq[0];
 #pragma unroll
     for (int j = 0; j < P - 1; ++j) yzq[j] = yzq[j + 1];
     yzq[P - 1] = yz_new;
@@ -171,15 +181,19 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     if (i < 2 * P || !c.active) continue;
     const int g = gi - P;  // the output row
     const long long idx = (long long)g * F + c.f;
-    const T tx = x_taps<T, P>(s, q, g);
-    T kv = tx * tab.fx + yz * __ldg(&s.sx[g]);
-    if (g == a.src_x) kv += (a.c0sq * a.g) * a.w1[c.f];
-    const T vn = pt[0] + ca * pt[1];
-    if (g == a.abc_x) kv += (a.mc0 * a.w2[c.f]) * vn;
-    a.vn_out[idx] = vn;
-    a.kv_out[idx] = kv;
-    a.ua_out[idx] = pt[2] + cb * vn;
-    a.va_out[idx] = pt[3] + cb * kv;
+    const A tx = x_taps<A, P>(s, q, g);
+    A kv = tx * tab.fx + yz * widen(__ldg(&s.sx[g]));
+    if (g == a.src_x) kv += (a.c0sq * a.g) * widen(a.w1[c.f]);
+    const A vn = pt[0] + ca * pt[1];
+    if (g == a.abc_x) kv += (a.mc0 * widen(a.w2[c.f])) * vn;
+    // ua' and va' add vn and kv' as stored (bf16 rounds them first), the
+    // values the next stage reads
+    const T vn_s = narrow<T>(vn);
+    const T kv_s = narrow<T>(kv);
+    a.vn_out[idx] = vn_s;
+    a.kv_out[idx] = kv_s;
+    a.ua_out[idx] = narrow<T>(pt[2] + cb * widen(vn_s));
+    a.va_out[idx] = narrow<T>(pt[3] + cb * widen(kv_s));
   }
 }
 
@@ -242,9 +256,10 @@ int launch_rk_stage_tiled(Stencil<T> s, RkStageArgs<T> a, Tiling t, dim3 grid,
       const T* cvz, int p, int Lx, int Ly, int Lz, int x0, int nx, int h,     \
       int ny, int nz, int ty, int tz, int cx, int gx, int gy, int gz,         \
       int smem, cudaStream_t stream) {                                        \
+    using A = wave::Acc<T>;                                                   \
     wave::RkStageArgs<T> a{u0, ku, v0, kv, ua, va, vn_out, kv_out, ua_out,    \
-                           va_out, w1, w2, src_x, abc_x, (T)ca, (T)cb, (T)g,  \
-                           (T)(c0 * c0), (T)(-c0)};                           \
+                           va_out, w1, w2, src_x, abc_x, (A)ca, (A)cb, (A)g,  \
+                           (A)(c0 * c0), (A)(-c0)};                           \
     wave::Stencil<T> s{cvx, sx, fx, cvy, cvz, p, Lx, Ly, Lz,                  \
                        x0, nx, h, ny, nz};                                    \
     return wave::launch_rk_stage_tiled<T>(s, a, wave::Tiling{ty, tz, cx},     \
@@ -253,3 +268,4 @@ int launch_rk_stage_tiled(Stencil<T> s, RkStageArgs<T> a, Tiling t, dim3 grid,
 
 WAVE_DEFINE_RK_STAGE_TILED(float, f32)
 WAVE_DEFINE_RK_STAGE_TILED(double, f64)
+WAVE_DEFINE_RK_STAGE_TILED(__nv_bfloat16, bf16)

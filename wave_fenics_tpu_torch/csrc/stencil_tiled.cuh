@@ -32,6 +32,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -39,6 +40,53 @@
 #include "stencil.cuh"
 
 namespace wave {
+
+// ---------------------------------------------------------------------------
+// Storage and arithmetic types. The state, the stage fields and the tables
+// are stored as T; the arithmetic runs in Acc<T>: T itself for float and
+// double, float for __nv_bfloat16 (bf16 state: kernels A, C, B, D and F).
+// Every load of a T widens to Acc<T> (widen) and every store rounds once
+// (narrow<T>, round to nearest even), so no bf16 arithmetic rounds a
+// partial sum.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct AccOf {
+  using type = T;
+};
+template <>
+struct AccOf<__nv_bfloat16> {
+  using type = float;
+};
+template <typename T>
+using Acc = typename AccOf<T>::type;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T narrow(Acc<T> x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return narrow<T>(Acc<T>(0));
+}
+
+// Elements a thread copies into a plane window at a time: cp.async moves
+// 4, 8 or 16 bytes, so a bf16 window is copied in pairs (copy_pair).
+template <typename T>
+__host__ __device__ constexpr int copy_width() {
+  return sizeof(T) == 2 ? 2 : 1;
+}
 
 constexpr int kTileThreads = 256;  // at most ty * tz threads per block
 constexpr int kPipe = 4;           // x planes in the cp.async ring
@@ -67,6 +115,28 @@ __device__ __forceinline__ void cp_async_or_zero(T* dst, const T* src,
                "r"(load ? (int)sizeof(T) : 0));
 }
 
+// Copy the bf16 pair of points src0, src1 (in0, in1: whether each is in
+// the load box) to dst (4-byte aligned): one 4-byte cp.async where both are
+// in and src1 = src0 + 1 (src0 then 4-byte aligned), zeros without a load
+// where neither is. A pair that straddles the edge of the load box (or two
+// points that are not neighbours in memory) takes plain loads of its inner
+// points and writes 0 beside them, so the zeros outside stay exact.
+// src0/src1 must be valid global addresses even where they are not read.
+__device__ __forceinline__ void copy_pair(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src0,
+                                          const __nv_bfloat16* src1, bool in0,
+                                          bool in1) {
+  if (in0 ? in1 && src1 == src0 + 1 : !in1) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src0), "r"(in0 ? 4 : 0));
+  } else {
+    const __nv_bfloat16 z = __float2bfloat16_rn(0.0f);
+    *reinterpret_cast<__nv_bfloat162*>(dst) =
+        __halves2bfloat162(in0 ? src0[0] : z, in1 ? src1[0] : z);
+  }
+}
+
 // Where a tile block sits: its first interior y and z, its x rows
 // [xs, xe), its thread's column (y, z) and flat column index f.
 struct TileCoords {
@@ -89,13 +159,16 @@ struct TileCoords {
 };
 
 // The tile's (ty + 2P) x (tz + 2P) plane window (pitch W = tz + 2P) and a
-// thread's share of it, the elements e = threadIdx.x + k * nt. off[e] (in
+// thread's share of it, the elements e = V threadIdx.x + v + k V nt (V =
+// copy_width<T>(): bf16 windows are copied in pairs, which needs tz even
+// and h - P even, so a pair (e, e + 1) with e even lies in one row and
+// starts 4-byte aligned in shared and in global memory). off[e] (in
 // shared memory) is the element's (y, z) offset in a plane, y * Lz + z, or
 // -1 outside the load box: the box s grown by `load` points on every side
 // (0 on one device: the interior; the value-halo layouts load the p-deep
 // ring of halo values around a box grown into the halo). Each thread
 // writes and reads only its own entries, so the table needs no barrier.
-template <int P>
+template <int P, int V = 1>
 struct Window {
   int W, n, nt, load;  // pitch, window points, threads, load ring
   int* off;
@@ -104,77 +177,99 @@ struct Window {
                     int* table, int load_ = 0)
       : W(t.tz + 2 * P), n((t.ty + 2 * P) * (t.tz + 2 * P)), nt(t.ty * t.tz),
         load(load_), off(table) {
-    for (int e = (int)threadIdx.x; e < n; e += nt) {
-      const int r = e / W;
-      const int yy = c.y0 - P + r;
-      const int zz = c.z0 - P + (e - r * W);
-      off[e] = yy >= s.h - load && yy < s.h + s.ny + load && zz >= s.h - load &&
-                       zz < s.h + s.nz + load
-                   ? yy * s.Lz + zz
-                   : -1;
+    for (int e0 = V * (int)threadIdx.x; e0 < n; e0 += V * nt) {
+      for (int e = e0; e < e0 + V; ++e) {
+        const int r = e / W;
+        const int yy = c.y0 - P + r;
+        const int zz = c.z0 - P + (e - r * W);
+        off[e] = yy >= s.h - load && yy < s.h + s.ny + load &&
+                         zz >= s.h - load && zz < s.h + s.nz + load
+                     ? yy * s.Lz + zz
+                     : -1;
+      }
     }
   }
 };
 
 // Start the copies of plane g of the fields f0..f(NF-1) over the window
 // into dst (field-major); points outside the load box become 0 without a
-// load. Each thread copies its own elements of the window.
+// load. Each thread copies its own elements of the window (in pairs for
+// bf16, copy_pair).
 template <typename T, int P, int NF>
 __device__ __forceinline__ void fetch_plane(T* dst, const T* f0, const T* f1,
                                             const T* f2, const PaddedBox& s,
-                                            const Window<P>& w, int g) {
+                                            const Window<P, copy_width<T>()>& w,
+                                            int g) {
   const bool gx = g >= s.x0 - w.load && g < s.x0 + s.nx + w.load;
   const long long row = (long long)g * s.F();
-  for (int e = (int)threadIdx.x; e < w.n; e += w.nt) {
-    const int o = w.off[e];
-    const bool in = gx && o >= 0;
-    const long long j = in ? row + o : 0;
-    cp_async_or_zero(dst + e, f0 + j, in);
-    if constexpr (NF > 1) cp_async_or_zero(dst + w.n + e, f1 + j, in);
-    if constexpr (NF > 2) cp_async_or_zero(dst + 2 * w.n + e, f2 + j, in);
+  if constexpr (copy_width<T>() == 1) {
+    for (int e = (int)threadIdx.x; e < w.n; e += w.nt) {
+      const int o = w.off[e];
+      const bool in = gx && o >= 0;
+      const long long j = in ? row + o : 0;
+      cp_async_or_zero(dst + e, f0 + j, in);
+      if constexpr (NF > 1) cp_async_or_zero(dst + w.n + e, f1 + j, in);
+      if constexpr (NF > 2) cp_async_or_zero(dst + 2 * w.n + e, f2 + j, in);
+    }
+  } else {
+    for (int e = 2 * (int)threadIdx.x; e < w.n; e += 2 * w.nt) {
+      const int o0 = w.off[e], o1 = w.off[e + 1];
+      const bool in0 = gx && o0 >= 0, in1 = gx && o1 >= 0;
+      // a pair wholly in is (o0, o0 + 1); else src0 is the inner point
+      const long long j0 = in0 ? row + o0 : in1 ? row + o1 : 0;
+      const long long j1 = in1 ? row + o1 : j0;
+      copy_pair(dst + e, f0 + j0, f0 + j1, in0, in1);
+      if constexpr (NF > 1) copy_pair(dst + w.n + e, f1 + j0, f1 + j1, in0, in1);
+      if constexpr (NF > 2) copy_pair(dst + 2 * w.n + e, f2 + j0, f2 + j1, in0, in1);
+    }
   }
 }
 
-// The y/z tables of one column, held in registers for a whole chunk.
+// The y/z tables of one column, held in registers (widened to Acc<T>) for
+// a whole chunk.
 template <typename T, int P>
 struct ColumnTables {
   static constexpr int K = 2 * P + 1;
-  T cy[K], cz[K];
-  T fx;
+  using A = Acc<T>;
+  A cy[K], cz[K];
+  A fx;
 
   __device__ __forceinline__ void load(const Stencil<T>& s, int f,
                                        bool active) {
     const int F = s.F();
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      cy[k] = active ? s.cvy[k * F + f] : T(0);
-      cz[k] = active ? s.cvz[k * F + f] : T(0);
+      cy[k] = active ? widen(s.cvy[k * F + f]) : A(0);
+      cz[k] = active ? widen(s.cvz[k * F + f]) : A(0);
     }
-    fx = active ? s.fx[f] : T(0);
+    fx = active ? widen(s.fx[f]) : A(0);
   }
 
   // The y/z sum at the point `c` of a shared plane of pitch W.
-  __device__ __forceinline__ T yz(const T* c, int W) const {
-    T acc = (cy[P] + cz[P]) * c[0];
+  __device__ __forceinline__ A yz(const T* c, int W) const {
+    A acc = (cy[P] + cz[P]) * widen(c[0]);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (k != P) acc += cy[k] * c[(k - P) * W];
+      if (k != P) acc += cy[k] * widen(c[(k - P) * W]);
     }
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (k != P) acc += cz[k] * c[k - P];
+      if (k != P) acc += cz[k] * widen(c[k - P]);
     }
     return acc;
   }
 };
 
-// The x sum of row g from the column's queue q[k] = x[g + k - P]; cvx is
-// [K, Lx] in both layouts' tables (Stencil, SlabStencil).
-template <typename T, int P, typename S>
-__device__ __forceinline__ T x_taps(const S& s, const T (&q)[2 * P + 1], int g) {
-  T tx = T(0);
+// The x sum of row g from the column's queue q[k] = x[g + k - P] (in the
+// arithmetic type A); cvx is [K, Lx] in both layouts' tables (Stencil,
+// SlabStencil).
+template <typename A, int P, typename S>
+__device__ __forceinline__ A x_taps(const S& s, const A (&q)[2 * P + 1], int g) {
+  A tx = A(0);
 #pragma unroll
-  for (int k = 0; k < 2 * P + 1; ++k) tx += __ldg(&s.cvx[k * s.Lx + g]) * q[k];
+  for (int k = 0; k < 2 * P + 1; ++k) {
+    tx += widen(__ldg(&s.cvx[k * s.Lx + g])) * q[k];
+  }
   return tx;
 }
 
@@ -232,8 +327,8 @@ __device__ void zero_padding(const PaddedBox& s, const Tiling& t, T* o0,
       ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   for_each_padding<1>(s, t, block, (long long)gridDim.x * gridDim.y * gridDim.z,
                       [o0, o1](const int (&i)[1], int) {
-                        o0[i[0]] = T(0);
-                        if (o1) o1[i[0]] = T(0);
+                        o0[i[0]] = zero<T>();
+                        if (o1) o1[i[0]] = zero<T>();
                       });
 }
 
@@ -286,10 +381,10 @@ constexpr int kRing = 6;      // plane windows in the TMA ring
 constexpr int kBoxMax = 256;  // a TMA box's extent along any axis at most
 
 // Tile blocks per SM the register budget must allow for the TMA kernels
-// and kernel F: two in f32 (128 registers a thread), one in f64.
+// and kernel F: two in f32 and bf16 (128 registers a thread), one in f64.
 template <typename T>
 __host__ __device__ constexpr int tma_min_blocks() {
-  return sizeof(T) == 4 ? 2 : 1;
+  return sizeof(T) <= 4 ? 2 : 1;
 }
 
 // z points of one 16-byte unit of T
@@ -381,8 +476,9 @@ inline int encode_plane_map(CUtensorMap* map, const T* base, const PaddedBox& s,
   const cuuint32_t box[3] = {(cuuint32_t)w.W, (cuuint32_t)w.BY, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = cuTensorMapEncodeTiled(
-      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
+      map, sizeof(T) == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+           : sizeof(T) == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       3, const_cast<T*>(base), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -44,9 +44,14 @@
 // (p = 1..10, every degree StructuredOperators takes); the launch bounds
 // ask for two 256-thread blocks an SM in f32, one in f64.
 //
+// bf16 state: x, y and the tables bf16, the sums in float32, y rounded
+// once; the window is copied in 4-byte pairs (GridWindow); f32's rows a
+// thread and launch bounds.
+//
 // The extern "C" launcher returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a tiling that does not fit the grid, too
-// little shared memory, y aliasing x, or a degree outside 1..10.
+// little shared memory, y aliasing x, a bf16 x that is not 4-byte aligned,
+// or a degree outside 1..10.
 
 #include <cuda_runtime.h>
 
@@ -73,13 +78,15 @@ struct GridStencil : PaddedBox {
         cvx(cvx_), cvy(cvy_), cvz(cvz_), lx(lx_), ly(ly_), lz(lz_) {}
 };
 
-// Rows of its tile column one thread owns: two in f32 at p <= 4 (the two
-// rows' y taps share their loads from the plane, and the x coefficients,
-// the line of the plane and its barrier serve both), else one, so that
-// the queues fit the registers. The tile's ty and tz are multiples of it.
+// Rows of its tile column one thread owns: two in f32 and bf16 at p <= 4
+// (the two rows' y taps share their loads from the plane, and the x
+// coefficients, the line of the plane and its barrier serve both), else
+// one, so that the queues fit the registers. The tile's ty and tz are
+// multiples of it. (bf16 on f64's one row and one block an SM took 0.38
+// ms/apply at 64^3 cells, p = 4; on f32's rules 0.35; PERF.md section 6.)
 template <typename T, int P>
 __host__ __device__ constexpr int grid_rows() {
-  return sizeof(T) == 4 && P <= 4 ? 2 : 1;
+  return sizeof(T) <= 4 && P <= 4 ? 2 : 1;
 }
 
 // The pitch W of a plane window in shared memory: at least tz + 2P, with
@@ -93,63 +100,123 @@ __host__ __device__ inline int grid_pitch(int tz, int P, int R) {
   return base + (tz + 2 * P - base + step - 1) / step * step;
 }
 
+// The window's pitch for T: grid_pitch, and for bf16 (copied in pairs) one
+// more where its parity is not Nz's (GridWindow).
+template <typename T>
+__host__ __device__ inline int window_pitch(int tz, int P, int R, int Nz) {
+  const int W = grid_pitch(tz, P, R);
+  return copy_width<T>() == 2 ? W + ((W - Nz) & 1) : W;
+}
+
+// Elements of one plane's slot in the ring: the window, and for bf16 room
+// for the slot's shift (GridWindow::shift), kept even.
+template <typename T>
+__host__ __device__ inline int window_slot(int rows, int W) {
+  return copy_width<T>() == 2 ? (rows * W + 2) & ~1 : rows * W;
+}
+
 // Kernel F's plane window: the (ty + 2P) x (tz + 2P) points around a tile,
-// at pitch W in shared memory, and a thread's share of their copies, the
-// points e = threadIdx.x + k nt (nt = ty / R * tz threads); tab[e] = {the
-// point's offset y Nz + z in a plane, or -1 outside the grid; its index
-// in the window}. Each thread writes and reads only its own entries, so
-// the table needs no barrier.
-template <int P>
+// at pitch W in shared memory, and a thread's share of their copies.
+//
+// f32 and f64: the points e = threadIdx.x + k nt (nt = ty / R * tz
+// threads); tab[e] = {the point's offset y Nz + z in a plane, or -1 outside
+// the grid; its index in the window}. Each thread writes and reads only its
+// own entries, so the table needs no barrier.
+//
+// bf16 (copy_width 2): cp.async copies 4 bytes at least, and on the
+// unpadded grid (Nz = 257 at 64 cells, p = 4) a row's global alignment
+// changes from row to row and plane to plane. So the pitch W has Nz's
+// parity, and plane g's window starts shift(g) elements into its slot,
+// the parity of the window's first global index: a window point then has
+// the parity of its global index, and the pairs of the slot, 4-byte
+// aligned on both sides, are one cp.async each (copy_pair). off[l] (l = r
+// W + col over the whole pitch) is the point's offset in a plane, or -1
+// outside the grid or in the pitch's gap; the threads read each other's
+// entries (a barrier follows the constructor).
+template <typename T, int P>
 struct GridWindow {
-  int W, n, nt;
-  int2* tab;
+  static constexpr int V = copy_width<T>();
+  int W, n, nt, wc;
+  int2* tab;  // f32, f64
+  int* off;   // bf16
 
   __device__ GridWindow(const PaddedBox& s, const TileCoords& c,
-                        const Tiling& t, int R, int2* table)
-      : W(grid_pitch(t.tz, P, R)), n((t.ty + 2 * P) * (t.tz + 2 * P)),
-        nt(t.ty / R * t.tz), tab(table) {
-    const int wc = t.tz + 2 * P;
+                        const Tiling& t, int R, void* table)
+      : W(window_pitch<T>(t.tz, P, R, s.nz)), nt(t.ty / R * t.tz),
+        wc(t.tz + 2 * P), tab(reinterpret_cast<int2*>(table)),
+        off(reinterpret_cast<int*>(table)) {
+    const int rows = t.ty + 2 * P;
+    n = V == 2 ? rows * W : rows * wc;
+    const int pitch = V == 2 ? W : wc;
     for (int e = (int)threadIdx.x; e < n; e += nt) {
-      const int r = e / wc;
-      const int col = e - r * wc;
+      const int r = e / pitch;
+      const int col = e - r * pitch;
       const int yy = c.y0 - P + r;
       const int zz = c.z0 - P + col;
-      const bool in = yy >= 0 && yy < s.ny && zz >= 0 && zz < s.nz;
-      tab[e] = make_int2(in ? yy * s.Lz + zz : -1, r * W + col);
+      const bool in = col < wc && yy >= 0 && yy < s.ny && zz >= 0 && zz < s.nz;
+      if constexpr (V == 2) {
+        off[e] = in ? yy * s.Lz + zz : -1;
+      } else {
+        tab[e] = make_int2(in ? yy * s.Lz + zz : -1, r * W + col);
+      }
     }
   }
 
-  // Start the copies of plane g of x into the window dst; points outside
-  // the grid become 0 without a load.
-  template <typename T>
+  // The shift of plane g's window in its slot (0 but for bf16).
+  __device__ __forceinline__ int shift(const PaddedBox& s, const TileCoords& c,
+                                       int g) const {
+    if constexpr (V == 2) {
+      return (int)(((long long)g * s.F() + (long long)(c.y0 - P) * s.Lz + c.z0 -
+                    P) & 1);
+    } else {
+      return 0;
+    }
+  }
+
+  // Start the copies of plane g of x into the slot dst; points outside the
+  // grid become 0 without a load.
   __device__ __forceinline__ void fetch(T* dst, const T* x, const PaddedBox& s,
-                                        int g) const {
+                                        const TileCoords& c, int g) const {
     const bool gx = g >= 0 && g < s.nx;
     const long long row = (long long)g * s.F();
-    for (int e = (int)threadIdx.x; e < n; e += nt) {
-      const int2 d = tab[e];
-      const bool in = gx && d.x >= 0;
-      cp_async_or_zero(dst + d.y, x + (in ? row + d.x : 0), in);
+    if constexpr (V == 2) {
+      const int b = shift(s, c, g);
+      for (int u = (int)threadIdx.x; 2 * u < n + b; u += nt) {
+        const int l0 = 2 * u - b, l1 = l0 + 1;
+        const int o0 = l0 >= 0 ? off[l0] : -1, o1 = l1 < n ? off[l1] : -1;
+        const bool in0 = gx && o0 >= 0, in1 = gx && o1 >= 0;
+        const long long j0 = in0 ? row + o0 : in1 ? row + o1 : 0;
+        const long long j1 = in1 ? row + o1 : j0;
+        copy_pair(dst + 2 * u, x + j0, x + j1, in0, in1);
+      }
+    } else {
+      for (int e = (int)threadIdx.x; e < n; e += nt) {
+        const int2 d = tab[e];
+        const bool in = gx && d.x >= 0;
+        cp_async_or_zero(dst + d.y, x + (in ? row + d.x : 0), in);
+      }
     }
   }
 };
 
-// Dynamic shared memory of a block: the ring of kPipe windows, then the
+// Dynamic shared memory of a block: the ring of kPipe slots, then the
 // window's copy table.
 template <typename T, int P>
-inline int grid_smem_bytes(const Tiling& t, int R) {
+inline int grid_smem_bytes(const Tiling& t, int R, int Nz) {
   const int rows = t.ty + 2 * P;
-  return kPipe * rows * grid_pitch(t.tz, P, R) * (int)sizeof(T) +
-         rows * (t.tz + 2 * P) * (int)sizeof(int2);
+  const int W = window_pitch<T>(t.tz, P, R, Nz);
+  return kPipe * window_slot<T>(rows, W) * (int)sizeof(T) +
+         (copy_width<T>() == 2 ? rows * W * (int)sizeof(int)
+                               : rows * (t.tz + 2 * P) * (int)sizeof(int2));
 }
 
-// sum_k c[k] v[(k - P) stride], the taps in k order
-template <typename T, int P>
-__device__ __forceinline__ T axis_taps(const T (&c)[2 * P + 1], const T* v,
+// sum_k c[k] v[(k - P) stride], the taps in k order, in c's type
+template <typename A, typename T, int P>
+__device__ __forceinline__ A axis_taps(const A (&c)[2 * P + 1], const T* v,
                                        int stride) {
-  T acc = T(0);
+  A acc = A(0);
 #pragma unroll
-  for (int k = 0; k < 2 * P + 1; ++k) acc += c[k] * v[(k - P) * stride];
+  for (int k = 0; k < 2 * P + 1; ++k) acc += c[k] * widen(v[(k - P) * stride]);
   return acc;
 }
 
@@ -157,21 +224,22 @@ template <typename T, int P>
 __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     stiffness_tiled_kernel(const T* __restrict__ x, T* __restrict__ y,
                            GridStencil<T> s, Tiling t) {
+  using A = Acc<T>;
   constexpr int K = 2 * P + 1;
   constexpr int R = grid_rows<T, P>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
   const TileCoords c(s, t);  // c.ly: the thread's group of R rows
-  const int W = grid_pitch(t.tz, P, R);
-  const int plane = (t.ty + 2 * P) * W;
-  const GridWindow<P> w(s, c, t, R,
-                        reinterpret_cast<int2*>(smem + kPipe * plane));
+  const int W = window_pitch<T>(t.tz, P, R, s.nz);
+  const int plane = window_slot<T>(t.ty + 2 * P, W);
+  const GridWindow<T, P> w(s, c, t, R, smem + kPipe * plane);
+  if (copy_width<T>() == 2) __syncthreads();  // the table is shared
   const int F = s.F();
   const int iters = c.xe - c.xs + 2 * P;  // planes xs - P .. xe + P - 1
 #pragma unroll
   for (int i = 0; i < kPipe - 1; ++i) {
-    if (i < iters) w.fetch(smem + i * plane, x, s, c.xs - P + i);
+    if (i < iters) w.fetch(smem + i * plane, x, s, c, c.xs - P + i);
     cp_async_commit();
   }
 
@@ -179,13 +247,13 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
   // whether they lie in the grid, their y tables and lines
   int f[R];
   bool act[R];
-  T cy[R][K], ly[R];
+  A cy[R][K], ly[R];
   const bool zin = c.z < s.nz;
-  const T lz = zin ? __ldg(&s.lz[c.z]) : T(0);
-  T cz[K];
+  const A lz = zin ? widen(__ldg(&s.lz[c.z])) : A(0);
+  A cz[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    cz[k] = zin ? __ldg(&s.cvz[k * s.Lz + c.z]) : T(0);
+    cz[k] = zin ? widen(__ldg(&s.cvz[k * s.Lz + c.z])) : A(0);
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -194,53 +262,53 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     act[r] = zin && yr < s.ny;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      cy[r][k] = act[r] ? __ldg(&s.cvy[k * s.Ly + yr]) : T(0);
+      cy[r][k] = act[r] ? widen(__ldg(&s.cvy[k * s.Ly + yr])) : A(0);
     }
-    ly[r] = act[r] ? __ldg(&s.ly[yr]) : T(0);
+    ly[r] = act[r] ? widen(__ldg(&s.ly[yr])) : A(0);
   }
-  T q[R][K];  // q[r][k] = x of row r at plane gi - 2P + k after plane gi
-  T yq[R][P], zq[R][P];  // ty lx lz, tz lx ly at plane gi - P + 1 + j
+  A q[R][K];  // q[r][k] = x of row r at plane gi - 2P + k after plane gi
+  A yq[R][P], zq[R][P];  // ty lx lz, tz lx ly at plane gi - P + 1 + j
 #pragma unroll
   for (int r = 0; r < R; ++r) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) q[r][k] = T(0);
+    for (int k = 0; k < K; ++k) q[r][k] = A(0);
 #pragma unroll
-    for (int j = 0; j < P; ++j) yq[r][j] = zq[r][j] = T(0);
+    for (int j = 0; j < P; ++j) yq[r][j] = zq[r][j] = A(0);
   }
 
   for (int i = 0; i < iters; ++i) {
     const int gi = c.xs - P + i;
-    const T* buf = smem + (i % kPipe) * plane;
+    const T* buf = smem + (i % kPipe) * plane + w.shift(s, c, gi);
     cp_async_wait<kPipe - 2>();  // this thread's copies of plane gi landed
     __syncthreads();  // plane gi is complete; slot (i - 1) % kPipe is free
     const int ip = i + kPipe - 1;
-    if (ip < iters) w.fetch(smem + (ip % kPipe) * plane, x, s, c.xs - P + ip);
+    if (ip < iters) w.fetch(smem + (ip % kPipe) * plane, x, s, c, c.xs - P + ip);
     cp_async_commit();
 
     const T* ctr = buf + (R * c.ly + P) * W + (c.lz + P);  // row 0's point
-    T ty[R], tz[R];
+    A ty[R], tz[R];
     const bool run = gi >= c.xs && gi < c.xe;
-    const T lx = run ? __ldg(&s.lx[gi]) : T(0);
-    T v[K + R - 1];  // the y taps of the R rows: rows -P .. P + R - 1
+    const A lx = run ? widen(__ldg(&s.lx[gi])) : A(0);
+    A v[K + R - 1];  // the y taps of the R rows: rows -P .. P + R - 1
 #pragma unroll
     for (int j = 0; j < K + R - 1; ++j) {
-      v[j] = run || (j >= P && j < P + R) ? ctr[(j - P) * W] : T(0);
+      v[j] = run || (j >= P && j < P + R) ? widen(ctr[(j - P) * W]) : A(0);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int k = 0; k < K - 1; ++k) q[r][k] = q[r][k + 1];
       q[r][K - 1] = v[P + r];
-      ty[r] = tz[r] = T(0);
+      ty[r] = tz[r] = A(0);
       if (run) {
-        T acc = T(0);
+        A acc = A(0);
 #pragma unroll
         for (int k = 0; k < K; ++k) acc += cy[r][k] * v[k + r];
         ty[r] = acc * (lx * lz);
-        tz[r] = axis_taps<T, P>(cz, ctr + r * W, 1) * (lx * ly[r]);
+        tz[r] = axis_taps<A, T, P>(cz, ctr + r * W, 1) * (lx * ly[r]);
       }
     }
-    T ay[R], az[R];
+    A ay[R], az[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       ay[r] = yq[r][0];
@@ -256,19 +324,20 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
 
     if (i < 2 * P) continue;
     const int g = gi - P;  // the output row
-    T tx[R];
+    A tx[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) tx[r] = T(0);
+    for (int r = 0; r < R; ++r) tx[r] = A(0);
 #pragma unroll
     for (int k = 0; k < K; ++k) {  // x_taps, one coefficient load for R rows
-      const T cxk = __ldg(&s.cvx[k * s.Lx + g]);
+      const A cxk = widen(__ldg(&s.cvx[k * s.Lx + g]));
 #pragma unroll
       for (int r = 0; r < R; ++r) tx[r] += cxk * q[r][k];
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (act[r]) {
-        y[(long long)g * F + f[r]] = (tx[r] * (ly[r] * lz) + ay[r]) + az[r];
+        y[(long long)g * F + f[r]] =
+            narrow<T>((tx[r] * (ly[r] * lz) + ay[r]) + az[r]);
       }
     }
   }
@@ -284,7 +353,9 @@ int launch_grid(const T* x, T* y, GridStencil<T> s, Tiling t, dim3 grid,
   if (t.ty <= 0 || t.tz <= 0 || t.cx <= 0 || t.ty % R != 0 ||
       t.tz % R != 0 || t.ty / R * t.tz > kTileThreads ||
       (int)grid.x != cdiv(s.nz, t.tz) || (int)grid.y != cdiv(s.ny, t.ty) ||
-      (int)grid.z != cdiv(s.nx, t.cx) || smem < grid_smem_bytes<T, P>(t, R)) {
+      (int)grid.z != cdiv(s.nx, t.cx) ||
+      smem < grid_smem_bytes<T, P>(t, R, s.nz) ||
+      (copy_width<T>() == 2 && (uintptr_t)x % 4 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   auto kernel = stiffness_tiled_kernel<T, P>;
@@ -334,3 +405,4 @@ int launch_stiffness_tiled(const T* x, T* y, GridStencil<T> s, Tiling t,
 
 WAVE_DEFINE_STIFFNESS_TILED(float, f32)
 WAVE_DEFINE_STIFFNESS_TILED(double, f64)
+WAVE_DEFINE_STIFFNESS_TILED(__nv_bfloat16, bf16)

@@ -33,9 +33,10 @@ import torch
 
 from .. import native
 from ..core.basis import gll_points_weights, tabulate_1d
-from ..core.dofmap import GeneralDofMap, build_dofmap
+from ..core.dofmap import GeneralDofMap, build_dofmap, node_phi, node_sums
 from ..core.io import QUAD_VTK_TO_BASIX, read_xdmf, read_xdmf_meshtags
 from ..core.mesh import HEX_FACES, HexMesh
+from ..ops import _cuda
 from ..ops import gather_scatter as gs
 from ..ops.operators import GeneralOperators
 from ..solvers.leapfrog import leapfrog_solve_n, leapfrog_solve_n_recording
@@ -70,7 +71,10 @@ def facet_lumped_weights(
     B[a, i] B[b, j] |J_s(u_a, v_b)| (the companion of the Gauss-rule volume
     operators).
 
-    ``device=None``: NumPy, the facet keys matched by a sort and a search.
+    Every facet node is keyed as the dofmap keys its nodes
+    (``_facet_node_sums``, quantized as ``build_dofmap`` quantizes).
+    ``device=None``: NumPy, the facet keys matched by a sort and a search
+    against the keys of the dofs' sorted sums.
     A device: a float64 tensor there, the JAX package's native route: one
     ``native.dedup_dofs`` over [the dof keys; the facet keys], where an id
     >= ndofs is a facet node that matches no dof; ``dofs`` must have been
@@ -84,34 +88,35 @@ def facet_lumped_weights(
     v = V.ravel()
 
     scale = max(np.abs(mesh.points).max(), 1.0)
-    q = scale * tol
-    keys = np.round(dofs.dof_coords / q).astype(np.int64)
+    inv = 1.0 / (scale * tol)
+    cells = mesh.cells if dofs.cell_order is None else mesh.cells[dofs.cell_order]
+    keys = np.empty((dofs.ndofs, 3), dtype=np.int64)
+    keys[dofs.dofmap.reshape(-1)] = np.rint(
+        node_sums(node_phi(p), mesh.points[cells]).reshape(-1, 3) * inv)
 
     fa = np.asarray(facets)
     fc = mesh.points[fa]  # [nf, 4, 3]
     v0, v1, v2, v3 = (fc[:, i, None, :] for i in range(4))
 
     def surf(uu, vv):
-        """Bilinear facet map and surface element at parameter points."""
-        x = ((1 - uu) * (1 - vv) * v0 + uu * (1 - vv) * v1
-             + (1 - uu) * vv * v2 + uu * vv * v3)  # [nf, npt, 3]
+        """The bilinear facet map's surface element at parameter points."""
         xu = (1 - vv) * (v1 - v0) + vv * (v3 - v2)
         xv = (1 - uu) * (v2 - v0) + uu * (v3 - v1)
-        return x, np.linalg.norm(np.cross(xu, xv), axis=-1)
+        return np.linalg.norm(np.cross(xu, xv), axis=-1)  # [nf, npt]
 
-    x, Js = surf(u[None, :, None], v[None, :, None])
+    Js = surf(u[None, :, None], v[None, :, None])
     if rule == "gll":
         Wf = np.outer(w1d, w1d).ravel()[None, :] * Js  # [nf, nd2]
     elif rule == "gauss":
         tab = tabulate_1d(p, qdeg, "gauss")
         Uq, Vq = np.meshgrid(tab.qpts, tab.qpts, indexing="ij")
-        _, Jg = surf(Uq.ravel()[None, :, None], Vq.ravel()[None, :, None])
+        Jg = surf(Uq.ravel()[None, :, None], Vq.ravel()[None, :, None])
         Jg = Jg.reshape(len(fa), tab.nq, tab.nq)
         Wf = np.einsum("ai,bj,a,b,fab->fij", tab.B, tab.B, tab.qwts, tab.qwts,
                        Jg).reshape(len(fa), -1)
     else:
         raise ValueError(f"unknown quadrature rule {rule!r}")
-    fkeys = np.round(x.reshape(-1, 3) / q).astype(np.int64)
+    fkeys = np.rint(_facet_node_sums(mesh, fa, p) * inv).astype(np.int64)
     # match facet keys to dof keys: sort the dof keys as records, search
     kv = np.ascontiguousarray(keys).view([("", np.int64)] * 3).reshape(-1)
     order = np.argsort(kv)
@@ -125,6 +130,20 @@ def facet_lumped_weights(
     W = np.zeros(dofs.ndofs)
     np.add.at(W, ids, Wf.ravel())
     return W
+
+
+def _facet_node_sums(mesh: HexMesh, facets, p: int) -> np.ndarray:
+    """[nf (p+1)^2, 3] the facets' GLL nodes as the dofmap computes them
+    (``node_sums`` on ``node_phi``'s mirrored nodes): each facet [4] in
+    basix quad order is the z = 0 face of a flat cell whose z = 1 face is the
+    same four vertices, so a node's four nonzero products are those of the
+    volume cells that share the facet and its four others are 0, and the
+    node gets its dof's coordinate, and key, bit for bit. (The bilinear
+    facet map computes the coordinate a third way, which can round to
+    another key where the node lies at a key's .5 boundary.)"""
+    fc = mesh.points[np.asarray(facets)]
+    phi = node_phi(p)[:: p + 1]  # the nodes at z = 0, x slowest
+    return node_sums(phi, np.concatenate([fc, fc], axis=1)).reshape(-1, 3)
 
 
 def _facet_weights_tensors(mesh: HexMesh, dofs: GeneralDofMap, facets, p: int,
@@ -146,36 +165,35 @@ def _facet_weights_tensors(mesh: HexMesh, dofs: GeneralDofMap, facets, p: int,
     nodes, w1d = gll_points_weights(p + 1)
     U, V = np.meshgrid(nodes, nodes, indexing="ij")
     u, v = t(U.ravel())[None, :, None], t(V.ravel())[None, :, None]
-    q = max(np.abs(mesh.points).max(), 1.0) * tol
+    inv = 1.0 / (max(np.abs(mesh.points).max(), 1.0) * tol)
     fa = torch.as_tensor(np.asarray(facets, dtype=np.int64), device=dev)
     fc = t(mesh.points)[fa]  # [nf, 4, 3]
     v0, v1, v2, v3 = (fc[:, i, None, :] for i in range(4))
 
     def surf(uu, vv):
-        """Bilinear facet map and surface element at parameter points."""
-        x = ((1 - uu) * (1 - vv) * v0 + uu * (1 - vv) * v1
-             + (1 - uu) * vv * v2 + uu * vv * v3)  # [nf, npt, 3]
+        """The bilinear facet map's surface element at parameter points."""
         xu = (1 - vv) * (v1 - v0) + vv * (v3 - v2)
         xv = (1 - uu) * (v2 - v0) + uu * (v3 - v1)
         cr = torch.stack([xu[..., 1] * xv[..., 2] - xu[..., 2] * xv[..., 1],
                           xu[..., 2] * xv[..., 0] - xu[..., 0] * xv[..., 2],
                           xu[..., 0] * xv[..., 1] - xu[..., 1] * xv[..., 0]], dim=-1)
-        return x, torch.sqrt((cr * cr).sum(-1))
+        return torch.sqrt((cr * cr).sum(-1))
 
-    x, Js = surf(u, v)
+    Js = surf(u, v)
     nf = fa.shape[0]
     if rule == "gll":
         Wf = t(np.outer(w1d, w1d).ravel())[None, :] * Js  # [nf, nd2]
     elif rule == "gauss":
         tab = tabulate_1d(p, qdeg, "gauss")
         Uq, Vq = np.meshgrid(tab.qpts, tab.qpts, indexing="ij")
-        _, Jg = surf(t(Uq.ravel())[None, :, None], t(Vq.ravel())[None, :, None])
+        Jg = surf(t(Uq.ravel())[None, :, None], t(Vq.ravel())[None, :, None])
         B, qw = t(tab.B), t(tab.qwts)
         Wf = torch.einsum("ai,bj,a,b,fab->fij", B, B, qw, qw,
                           Jg.reshape(nf, tab.nq, tab.nq)).reshape(nf, -1)
     else:
         raise ValueError(f"unknown quadrature rule {rule!r}")
-    fkeys = torch.round(x.reshape(-1, 3) / q).to(torch.int64)
+    fkeys = torch.as_tensor(np.rint(_facet_node_sums(mesh, facets, p) * inv),
+                            dtype=torch.int64, device=dev)
     ids, _ = native.dedup_dofs(torch.cat([keys, fkeys]))
     ids = ids[keys.shape[0]:]
     if bool((ids >= dofs.ndofs).any()):
@@ -215,6 +233,7 @@ class GeneralLinearWave(WavePhysics):
         quadrature_degree: int | None = None,
     ):
         super().__init__()
+        _cuda.require_bf16(dtype, "GeneralLinearWave (an imported mesh)", "K")
         self.mesh = mesh
         self.p = p
         self.facet_tags = facet_tags

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..convert import numpy_dtype
+from ..convert import as_table, tables_from_numpy
 from ..core.basis import lumped_weight_line
 from ..core.dofmap import StructuredDofGrid
 from ..core.mesh import BOX_FACETS, StructuredBoxMesh
@@ -132,6 +132,10 @@ class LinearWave(WavePhysics):
     the per-cell path with the coefficient (c0_cells / c0)^2, and c0 stays
     the reference speed of the source and absorbing terms. The padded and
     sharded models raise on such a model (their tables hold c0 alone).
+    ``dtype`` is float32, float64 or bfloat16 (bf16 state: the tables
+    rounded once from float64, the stiffness in float32 on the bf16 grid,
+    kernel F on a card, and the rest of ``f1`` eager bf16 arithmetic, as
+    the JAX package's).
     """
 
     def __init__(
@@ -161,20 +165,19 @@ class LinearWave(WavePhysics):
         self.c0_cells = c0_cells
         coeff = None if c0_cells is None else (np.asarray(c0_cells) / c0) ** 2
         self.ops = StructuredOperators(mesh, p, dtype=dtype, coeff_cells=coeff)
-        npdt = numpy_dtype(dtype)
         tags = mesh.facet_tags
 
-        def buf(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=device)
+        def buf(a):  # a NumPy table of the model's dtype (as_table) on device
+            return tables_from_numpy((a,), device, dtype)[0]
 
         # m = M @ 1 (LinearGLL.hpp:105-110) and 1/m precomputed: the
         # optimization the reference left as a TODO (LinearGLL.hpp:179-181)
         self.register_buffer("m", buf(self.ops.lumped_mass))
-        self.register_buffer("inv_m", buf((1.0 / self.ops.lumped_mass).astype(npdt)))
-        self.register_buffer("W1", buf(lumped_boundary_weights(
-            mesh, p, tags.facets_of(source_tag)).astype(npdt)))
-        self.register_buffer("W2", buf(lumped_boundary_weights(
-            mesh, p, tags.facets_of(abc_tag)).astype(npdt)))
+        self.register_buffer("inv_m", buf(as_table(1.0 / self.ops.lumped_mass, dtype)))
+        self.register_buffer("W1", buf(as_table(lumped_boundary_weights(
+            mesh, p, tags.facets_of(source_tag)), dtype)))
+        self.register_buffer("W2", buf(as_table(lumped_boundary_weights(
+            mesh, p, tags.facets_of(abc_tag)), dtype)))
 
     def zero_state(self) -> tuple[torch.Tensor, torch.Tensor]:
         """u_0 = v_0 = 0 (LinearGLL.hpp:131-134)."""

@@ -37,7 +37,15 @@ ValueError that names the unmet condition (``step_unavailable``,
 Time is a Python float accumulated ``t += dt`` as the JAX package does it,
 and g(t) is evaluated on the host in float64. The JAX package carries t in
 the state dtype, so in float32 its source phase drifts from this one; in
-float64 the two agree.
+float64 the two agree; in bf16 its fused solvers' source never switches on
+(a bf16 t rounds the window to 0), where this one's does.
+
+bf16 state (``base.dtype == torch.bfloat16``): the tables rounded once
+from float64 (the JAX package's bf16 tables bit for bit), ``solve_step_n``
+on kernel A (C with ``lean=False``), ``solve_fused_n`` on D and
+``solve_n`` on B; the leapfrog and 2-step paths (kernels H, I, J) are
+unavailable, naming bf16 (``ops._cuda.KERNELS``), and the 3D-slab
+layout (kernel E) raises.
 
 Not ported (ROADMAP.md): the ``*_dyn`` solvers (a traced step count has no
 use in eager PyTorch: the ``*_n`` solvers take any count).
@@ -49,10 +57,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..convert import numpy_dtype
+from ..convert import table_dtype, tables_from_numpy
 from ..core.basis import lumped_weight_line
 from ..core.mesh import BOX_FACETS
-from ..ops import lf2step, lfstep, rk42step
+from ..ops import _cuda, lf2step, lfstep, rk42step
 from ..ops.lf2step import LF2Tables, build_lf2_tables, lf2_step
 from ..ops.lfstep import LFTables, build_lf_tables, lf_step
 from ..ops.rk42step import rk42_step
@@ -116,6 +124,9 @@ class PaddedLinearWave(nn.Module):
             raise ValueError(f"kernel = {kernel!r}: 'flat' or '3d'")
         self.base = b
         self.kernel = "3d" if kernel == "3d" or b.p > 8 else "flat"
+        if self.kernel == "3d":
+            _cuda.require_bf16(b.dtype, f"the 3D-slab layout (kernel={kernel!r}, "
+                               f"p = {b.p})", "E")
         shape = tuple(n * b.p + 1 for n in b.mesh.shape)
         if self.kernel == "flat":
             self.layout = PaddedLayout(
@@ -162,6 +173,11 @@ class PaddedLinearWave(nn.Module):
         self.lf_unavailable = self._unavailable(planes, lfstep._off0(b.p), "2p")
         self.lf2_unavailable = self._unavailable(planes, lf2step._off0(b.p), "3p")
         self.rk42_unavailable = self._unavailable(planes, rk42step._off0(b.p), "6p")
+        if b.dtype == torch.bfloat16:  # a kernel with no bf16 instantiation
+            for attr, kernel in (("step_unavailable", "A" if lean else "C"),
+                                 ("stage_unavailable", "D"), ("lf_unavailable", "H"),
+                                 ("lf2_unavailable", "I"), ("rk42_unavailable", "J")):
+                setattr(self, attr, _cuda.bf16_unported(kernel) or getattr(self, attr))
         if planes is not None:
             w1, w2, self.src_x, self.abc_x = planes
             F = w1.size
@@ -186,7 +202,9 @@ class PaddedLinearWave(nn.Module):
         return None
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), device=self.base.device)
+        """A NumPy table of the model's dtype (``convert.as_table``) as a
+        tensor on the model's device."""
+        return tables_from_numpy((a,), self.base.device, self.base.dtype)[0]
 
     def _register(self, prefix, kind, arrays):
         for name, a in zip(kind._fields, arrays):
@@ -233,7 +251,7 @@ class PaddedLinearWave(nn.Module):
         m3 = np.einsum("i,j,k->ijk", *self._m_lines)
         tags = b.mesh.facet_tags
         out = []
-        npdt = numpy_dtype(b.dtype)
+        npdt = table_dtype(b.dtype)
         for tag, attr in ((b.source_tag, "w1"), (b.abc_tag, "w2")):
             for fid in tags.facets_of(tag):
                 axis, side = BOX_FACETS[fid]
@@ -514,14 +532,17 @@ def _x_face_planes(pm: PaddedLinearWave):
         if axis != 0:
             return None
         row = pidx[0]
+        host = plane.cpu()
+        if host.dtype == torch.bfloat16:  # NumPy has no bf16: exact in f64
+            host = host.double()
         if attr == "w1":
             if w1 is not None:
                 return None
-            w1, src_x = plane.cpu().numpy().ravel(), row
+            w1, src_x = host.numpy().ravel(), row
         else:
             if w2 is not None:
                 return None
-            w2, abc_x = plane.cpu().numpy().ravel(), row
+            w2, abc_x = host.numpy().ravel(), row
     if w1 is None or w2 is None:
         return None
     return w1, w2, src_x, abc_x

@@ -27,6 +27,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["KernelLibrary", "library", "load", "launch", "launcher", "check_operands",
+           "KERNELS", "BF16_KERNELS", "BF16_LAUNCHERS", "bf16_refusal", "bf16_unported",
+           "require_bf16", "refuse_bf16", "BF16_SHARDED",
            "check_index_operands", "check_typed_operands", "check_no_alias", "nvcc"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -90,7 +92,62 @@ _SETUP_SIGNATURES = {
     # keys, n, table, mask, rep, overflow, stream
     "wave_dedup_hash": [_P, _L, _P, ctypes.c_uint64, _P, _P, _P],
 }
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+#: every kernel of the port: (its launcher, its source, whether it has a
+#: bf16 instantiation: bf16 state and tables, f32 arithmetic). The one
+#: record of which kernels take bf16: every bf16 guard and message reads it
+#: (:func:`bf16_unported`, :func:`require_bf16`).
+KERNELS = {
+    "A": ("wave_rk4_stage", "csrc/rk4_tiled.cu", True),
+    "C": ("wave_rk4_full_stage", "csrc/rk4_tiled.cu", True),
+    "B": ("wave_apply_flat_tiled", "csrc/flat_tiled.cu", True),
+    "D": ("wave_rk_stage_tiled", "csrc/rk_stage_tiled.cu", True),
+    "F": ("wave_stiffness_tiled", "csrc/stiffness_tiled.cu", True),
+    "E": ("wave_apply_slab_tiled", "csrc/slab_tiled.cu", False),
+    "G": ("wave_mass_tiled", "csrc/mass_tiled.cu", False),
+    "H": ("wave_lf_phase_tiled", "csrc/lf_tiled.cu", False),
+    "I": ("wave_lf_phase_tiled", "csrc/lf_tiled.cu", False),
+    "J": ("wave_rk42_boundary_tiled", "csrc/rk42_tiled.cu", False),
+    "K": ("wave_general_apply", "csrc/general_kernels.cu", False),
+}
+BF16_KERNELS = tuple(k for k, (_, _, bf16) in KERNELS.items() if bf16)
+BF16_LAUNCHERS = frozenset(KERNELS[k][0] for k in BF16_KERNELS)
+#: the refusal of every sharded path (blocks on one card or on several)
+BF16_SHARDED = "the sharded paths (kernels on blocks and value-halo layouts) have no bf16 port"
+
+
+def bf16_refusal(what: str) -> str:
+    """Why ``what`` refuses a bf16 state, with the kernels that take one."""
+    ks = ", ".join(BF16_KERNELS[:-1]) + " and " + BF16_KERNELS[-1]
+    return (f"bf16 state: {what} (bf16 state runs the box's RK4 path on one "
+            f"device, kernels {ks})")
+
+
+def bf16_unported(*kernels: str) -> str | None:
+    """None where each of ``kernels`` (letters of :data:`KERNELS`) has a
+    bf16 instantiation, else why a bf16 path through them is unavailable,
+    naming bf16 and the kernels it lacks."""
+    missing = [k for k in kernels if not KERNELS[k][2]]
+    if not missing:
+        return None
+    names = " and ".join(f"kernel {k} ({KERNELS[k][1]})" for k in missing)
+    return bf16_refusal(f"{names} {'has' if len(missing) == 1 else 'have'} no bf16 "
+                        "instantiation")
+
+
+def require_bf16(dtype: torch.dtype, who: str, *kernels: str) -> None:
+    """Raise a ValueError naming bf16 and the kernels that lack it where
+    ``who`` would run a bf16 state on ``kernels``."""
+    why = bf16_unported(*kernels) if dtype == torch.bfloat16 else None
+    if why is not None:
+        raise ValueError(f"{who}: {why}")
+
+
+def refuse_bf16(dtype: torch.dtype, who: str, what: str) -> None:
+    """Raise a ValueError naming bf16 where ``who``, a path with no bf16
+    port whatever its kernels take, would run a bf16 state."""
+    if dtype == torch.bfloat16:
+        raise ValueError(f"{who}: {bf16_refusal(what)}")
 
 
 @dataclass(frozen=True)
@@ -179,7 +236,9 @@ def load(csrc: Path) -> KernelLibrary:
     so, text, seconds = _build(sources, BUILD_DIR / h.hexdigest()[:16])
     lib = ctypes.CDLL(str(so))
     for base, argtypes in _SIGNATURES.items():
-        for suffix in _SUFFIX.values():
+        for dtype, suffix in _SUFFIX.items():
+            if dtype == torch.bfloat16 and base not in BF16_LAUNCHERS:
+                continue
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -207,7 +266,7 @@ def check_operands(device: torch.device, dtype: torch.dtype, **operands) -> None
     if device.type != "cuda":
         raise ValueError(f"CUDA kernel called with a tensor on {device}")
     if dtype not in _SUFFIX:
-        raise TypeError(f"CUDA kernels take float32 or float64, not {dtype}")
+        raise TypeError(f"CUDA kernels take float32, float64 or bfloat16, not {dtype}")
     _check_tensors(device, dtype, operands)
 
 
@@ -241,7 +300,7 @@ def _check_tensors(device, dtype, operands) -> None:
 
 
 def launch(name: str, dtype: torch.dtype | None, device: torch.device, *args) -> None:
-    """Call launcher ``name`` (f32/f64 by ``dtype``; ``None`` for a launcher
+    """Call launcher ``name`` (f32/f64/bf16 by ``dtype``; ``None`` for a launcher
     of one type only, ``_SETUP_SIGNATURES``) on ``device``'s current
     stream; tensors among ``args`` pass as their data pointers."""
     launcher(library(), name, dtype, device, *args)()
@@ -253,6 +312,8 @@ def launcher(kl: KernelLibrary, name: str, dtype: torch.dtype | None,
     :func:`launch` does, with the arguments and the stream converted once:
     it costs the host little more than the ctypes call, so back-to-back
     calls time the kernel itself."""
+    if dtype == torch.bfloat16 and name not in BF16_LAUNCHERS:
+        raise TypeError(bf16_refusal(f"{name} has no bf16 instantiation"))
     fn = getattr(kl.lib, name if dtype is None else f"{name}_{_SUFFIX[dtype]}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream

@@ -34,12 +34,20 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from ..convert import numpy_dtype, tables_from_numpy, torch_dtype
+from ..convert import (
+    acc_dtype,
+    as_table,
+    numpy_dtype,
+    table_dtype,
+    tables_from_numpy,
+    torch_dtype,
+)
 from ..core import geometry
 from ..core.basis import lumped_weight_line, tabulate_1d
 from ..core.dofmap import GeneralDofMap
 from ..core.mesh import HexMesh, StructuredBoxMesh
 from . import element_kernels as ek
+from ._cuda import require_bf16
 from . import gather_scatter as gs
 from .general import SYM, GeneralTables, general_apply
 from .mass import mass_fused
@@ -75,7 +83,7 @@ class StructuredOperators:
         if not tab.collocated:
             raise ValueError("structured operators assume GLL collocation")
         m = self.p + 1
-        npdt = numpy_dtype(self.dtype)
+        npdt = table_dtype(self.dtype)
         Gdiag, detJw = geometry.structured_geometric_factors(self.mesh, self.p)
         Gd = Gdiag.reshape(1, m, m, m, 3).astype(npdt)
         if self.coeff_cells is not None:
@@ -124,7 +132,7 @@ class StructuredOperators:
             lumped_weight_line(self.mesh.shape[d], self.p, self.mesh.h[d])
             for d in range(3)
         ]
-        return np.einsum("i,j,k->ijk", *lines).astype(numpy_dtype(self.dtype))
+        return as_table(np.einsum("i,j,k->ijk", *lines), self.dtype)
 
     def mass(self, x: torch.Tensor) -> torch.Tensor:
         """Collocated mass matvec: the lumped diagonal times x."""
@@ -152,6 +160,7 @@ class StructuredOperators:
         ``ops.separable.mass_separable``. CUDA: ``ops.mass.mass_fused``, one
         launch of kernel G on the padded layout (raises for p > 8, as the
         JAX package's fused kernel does)."""
+        require_bf16(self.dtype, "mass_gauss", "G")
         M1 = separable_mass_tables(self.p, self.mesh.h, self.dtype, q=q)
         if x.device.type == "cpu":
             return mass_separable(x, [torch.as_tensor(m) for m in M1], self.p)
@@ -166,14 +175,17 @@ class StructuredOperators:
         With ``coeff_cells`` set, the per-cell path. Otherwise CPU: the
         separable formulation (``ops.separable``); CUDA: kernel F
         (``ops.stiffness``), with -c0^2 folded into its tables (c0 a number
-        or a 0-d tensor)."""
+        or a 0-d tensor). A bf16 x: the separable formulation in float32 on
+        the bf16 tables, rounded once, as kernel F computes it."""
         if self.coeff_cells is not None:
             return self.stiffness_percell(x, c0)
         if x.device.type == "cpu":
-            A = [torch.as_tensor(a) for a in self._sepA]
-            lines = [torch.as_tensor(ln) for ln in self._seplines]
-            coeff = -torch.as_tensor(c0, dtype=torch_dtype(self.dtype)) ** 2
-            return stiffness_separable(x, A, lines, self.p, coeff)
+            acc = acc_dtype(self.dtype)
+            A = [torch.as_tensor(a, dtype=acc) for a in self._sepA]
+            lines = [torch.as_tensor(ln, dtype=acc) for ln in self._seplines]
+            coeff = -torch.as_tensor(c0, dtype=acc) ** 2
+            y = stiffness_separable(x.to(acc), A, lines, self.p, coeff)
+            return y.to(x.dtype)
         if x.device.type == "cuda":
             coeff = -float(c0) ** 2
             tables = self._tensors(

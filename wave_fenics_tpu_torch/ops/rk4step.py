@@ -32,6 +32,10 @@ kernels write each stage over the interior grown by its ring
 which is all a step's result is: the halo is refreshed from the
 neighbours before the next step.
 
+A bf16 state (bf16 tables, float32 arithmetic) runs in every form: the
+plain versions widen to float32 and round where the kernels store (each
+stage input, kv0..kv2, u1 and v1).
+
 :func:`rk4_step_lean` and :func:`rk4_step_full` dispatch on the tensor's
 device: CPU -> plain, CUDA -> kernel (or raise).
 """
@@ -43,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..convert import numpy_dtype
+from ..convert import as_table, stored, widen
 from . import _cuda
 from .tiling import H100_SMS, sm_count, tiled_geometry
 from .wave import (
@@ -126,7 +130,6 @@ def build_step_tables_from_cv(
     off0 = _off0(p)
     S0 = Tx + 2 * off0
     F = Ly * Lz
-    npdt = numpy_dtype(dtype)
 
     ntiles = Lx // Tx
     o2, o1, o0 = off0 - 2 * p, off0 - p, off0
@@ -141,14 +144,14 @@ def build_step_tables_from_cv(
                 if 0 <= g < Lx:
                     for k in range(K):
                         W[t, r, r + k] = cvx[k, g]
-        bands.append(W.astype(npdt))
+        bands.append(as_table(W, dtype))
     WXA, WXB, WXC = bands
 
     gz = np.tile(pLz, Ly).reshape(1, F)
     gy = np.repeat(pLy, Lz).reshape(1, F)
-    CVY = (np.repeat(cvy, Lz, axis=1) * gz).astype(npdt)  # [K, F], gz folded
-    CVZ = (np.tile(cvz, (1, Ly)) * gy).astype(npdt)       # [K, F], gy folded
-    FX = np.outer(pLy, pLz).reshape(1, F).astype(npdt)
+    CVY = as_table(np.repeat(cvy, Lz, axis=1) * gz, dtype)  # [K, F], gz folded
+    CVZ = as_table(np.tile(cvz, (1, Ly)) * gy, dtype)       # [K, F], gy folded
+    FX = as_table(np.outer(pLy, pLz).reshape(1, F), dtype)
 
     # slab-aligned row tables: SXS[t, r] = SX[t*Tx - off0 + r]
     SXS = np.zeros((ntiles, S0, 1))
@@ -163,10 +166,10 @@ def build_step_tables_from_cv(
                 SRC[t, r, 0] = 1.0 if g == src_x else 0.0
                 ABC[t, r, 0] = 1.0 if g == abc_x else 0.0
 
-    W1 = np.asarray(w1_flat).reshape(1, F).astype(npdt)
-    W2 = np.asarray(w2_flat).reshape(1, F).astype(npdt)
-    return (WXA, WXB, WXC, CVY, CVZ, FX,
-            SXS.astype(npdt), SRC.astype(npdt), ABC.astype(npdt), W1, W2)
+    W1 = as_table(np.asarray(w1_flat).reshape(1, F), dtype)
+    W2 = as_table(np.asarray(w2_flat).reshape(1, F), dtype)
+    return (WXA, WXB, WXC, CVY, CVZ, FX, *(as_table(t, dtype) for t in (SXS, SRC, ABC)),
+            W1, W2)
 
 
 class StepTables(NamedTuple):
@@ -197,10 +200,15 @@ def _check_step_layout(layout: PaddedLayout) -> None:
 class _TileStep:
     """Per-tile machinery of the plain versions of the step kernels (RK4
     here, leapfrog in ``lfstep``/``lf2step``): the x-tiles' slab windows of
-    depth ``off0``, the tables ``tb`` and the stencil apply."""
+    depth ``off0``, the tables ``tb`` and the stencil apply. A bf16 state
+    and its tables are widened to float32 (``dtype`` keeps the state's own
+    type, for :meth:`stored` and :meth:`finish`)."""
 
     def __init__(self, u0, v0, dt, gs, layout, c0, tb, off0):
         _check_no_tf32(u0)
+        self.dtype = u0.dtype
+        u0, v0 = widen(u0, v0)
+        tb = type(tb)(*widen(*tb))
         self.tb = tb
         self.off0 = off0
         self.layout = layout
@@ -210,7 +218,8 @@ class _TileStep:
         dev, dtype = u0.device, u0.dtype
         sc = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
         self.sc = sc
-        # scalars in the state dtype, formed as the TPU kernel forms them
+        # scalars in the arithmetic type (the state dtype, float32 for bf16:
+        # the kernels' StageArgs), formed as the TPU kernel forms them
         self.dt = sc(dt)
         self.g = [sc(g) for g in gs]
         self.c0sq = sc(c0 * c0)
@@ -268,9 +277,13 @@ class _TileStep:
         Tx = self.layout.tile_x
         return slice(t * Tx, (t + 1) * Tx)
 
+    def stored(self, x):
+        """``x`` as the kernel stores it (rounded to a bf16 state's type)."""
+        return stored(x, self.dtype)
+
     def finish(self, u1, v1):
         shape = self.layout.padded_shape
-        return u1.reshape(shape), v1.reshape(shape)
+        return u1.reshape(shape).to(self.dtype), v1.reshape(shape).to(self.dtype)
 
 
 def rk4_step_lean_plain(
@@ -283,7 +296,9 @@ def rk4_step_lean_plain(
     tables: StepTables,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One lean RK4 step on padded [Lx, Ly, Lz] states, mirroring
-    ``_kernel_rk4_step_lean`` tile by tile; the all-pad tiles are zeros."""
+    ``_kernel_rk4_step_lean`` tile by tile; the all-pad tiles are zeros. A
+    bf16 step runs in float32 and rounds where kernel A stores: each stage
+    input (its shared plane), kv0..kv2 and (u1, v1)."""
     _check_step_layout(layout)
     ts = _TileStep(u0, v0, dt, gs, layout, c0, StepTables(*tables), _off0(layout.p))
     tb, p, Tx = ts.tb, ts.p, layout.tile_x
@@ -306,25 +321,25 @@ def rk4_step_lean_plain(
             return kv
 
         kv0 = ts.apply_A(t, U0[o3 : o3 + n2 + 2 * p], tb.WXA, o2, n2, True)
-        kv0 = face_terms(kv0, ts.g[0], lambda: V0[o2 : o2 + n2], o2, n2)
+        kv0 = ts.stored(face_terms(kv0, ts.g[0], lambda: V0[o2 : o2 + n2], o2, n2))
 
         un1 = U0[o2 : o2 + n2] + (half * dt_) * V0[o2 : o2 + n2]
-        kv1 = ts.apply_A(t, un1, tb.WXB, o1, n1, True)
-        kv1 = face_terms(
+        kv1 = ts.apply_A(t, ts.stored(un1), tb.WXB, o1, n1, True)
+        kv1 = ts.stored(face_terms(
             kv1, ts.g[1],
             lambda: V0[o1 : o1 + n1] + (half * dt_) * kv0[o1 - o2 : o1 - o2 + n1],
             o1, n1,
-        )
+        ))
 
         un2 = un1 + (0.25 * dt2) * kv0
-        kv2 = ts.apply_A(t, un2, tb.WXB, o1, n1, True)
-        kv2 = face_terms(
+        kv2 = ts.apply_A(t, ts.stored(un2), tb.WXB, o1, n1, True)
+        kv2 = ts.stored(face_terms(
             kv2, ts.g[2], lambda: V0[o1 : o1 + n1] + (half * dt_) * kv1, o1, n1
-        )
+        ))
 
         w = U0[o1 : o1 + n1] + dt_ * V0[o1 : o1 + n1]
         un3 = w + (half * dt2) * kv1
-        kv3 = ts.apply_A(t, un3, tb.WXC, o0, n0, True)
+        kv3 = ts.apply_A(t, ts.stored(un3), tb.WXC, o0, n0, True)
         kv3 = face_terms(
             kv3, ts.g[3],
             lambda: V0[o0 : o0 + n0] + dt_ * kv2[o0 - o1 : o0 - o1 + n0],
@@ -352,7 +367,8 @@ def rk4_step_full_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One RK4 step with the full Butcher tableau and running b_j-weighted
     accumulators, mirroring ``_kernel_rk4_step`` (kernel C) tile by tile;
-    also the oracle the lean algebra is tested against."""
+    also the oracle the lean algebra is tested against. A bf16 step rounds
+    where kernel C stores, as :func:`rk4_step_lean_plain` does."""
     _check_step_layout(layout)
     ts = _TileStep(u0, v0, dt, gs, layout, c0, StepTables(*tables), _off0(layout.p))
     tb, p, Tx = ts.tb, ts.p, layout.tile_x
@@ -368,30 +384,31 @@ def rk4_step_full_plain(
             abc = tb.ABC[t, o : o + nrows]
             return kv + (ts.c0sq * gj) * (src * tb.W1) + ts.mc0 * (abc * tb.W2) * vn
 
-        kv0 = bc(ts.apply_A(t, U0[o3 : o3 + n2 + 2 * p], tb.WXA, o2, n2, False),
-                 V0[o2 : o2 + n2], ts.g[0], o2, n2)
+        kv0 = ts.stored(bc(ts.apply_A(t, U0[o3 : o3 + n2 + 2 * p], tb.WXA, o2, n2,
+                                      False), V0[o2 : o2 + n2], ts.g[0], o2, n2))
         accu = _RK_B[0] * V0[o0 : o0 + n0]
         accv = _RK_B[0] * kv0[o0 - o2 : o0 - o2 + n0]
 
         ca = _RK_A[1] * dt_
         un1 = U0[o2 : o2 + n2] + ca * V0[o2 : o2 + n2]
         vn1 = V0[o2 : o2 + n2] + ca * kv0
-        kv1 = bc(ts.apply_A(t, un1, tb.WXB, o1, n1, False),
-                 vn1[o1 - o2 : o1 - o2 + n1], ts.g[1], o1, n1)
+        kv1 = ts.stored(bc(ts.apply_A(t, ts.stored(un1), tb.WXB, o1, n1, False),
+                           vn1[o1 - o2 : o1 - o2 + n1], ts.g[1], o1, n1))
         accu = accu + _RK_B[1] * vn1[o0 - o2 : o0 - o2 + n0]
         accv = accv + _RK_B[1] * kv1[o0 - o1 : o0 - o1 + n0]
 
         ca = _RK_A[2] * dt_
         un2 = U0[o2 : o2 + n2] + ca * vn1
         vn2 = V0[o1 : o1 + n1] + ca * kv1
-        kv2 = bc(ts.apply_A(t, un2, tb.WXB, o1, n1, False), vn2, ts.g[2], o1, n1)
+        kv2 = ts.stored(bc(ts.apply_A(t, ts.stored(un2), tb.WXB, o1, n1, False), vn2,
+                           ts.g[2], o1, n1))
         accu = accu + _RK_B[2] * vn2[o0 - o1 : o0 - o1 + n0]
         accv = accv + _RK_B[2] * kv2[o0 - o1 : o0 - o1 + n0]
 
         ca = _RK_A[3] * dt_
         un3 = U0[o1 : o1 + n1] + ca * vn2
         vn3 = V0[o1 : o1 + n1] + ca * kv2
-        kv3 = bc(ts.apply_A(t, un3, tb.WXC, o0, n0, False),
+        kv3 = bc(ts.apply_A(t, ts.stored(un3), tb.WXC, o0, n0, False),
                  vn3[o0 - o1 : o0 - o1 + n0], ts.g[3], o0, n0)
         accu = accu + _RK_B[3] * vn3[o0 - o1 : o0 - o1 + n0]
         accv = accv + _RK_B[3] * kv3
@@ -434,6 +451,9 @@ def stage_launch_args(stage, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,
         sms = sm_count(u0.device.index) if u0.is_cuda else H100_SMS
         geometry = tiled_geometry(layout, u0.element_size(), sms, ring=ring)
     grid, ty, tz, cx, smem = geometry
+    if u0.dtype == torch.bfloat16 and (tz % 2 or (layout.box(ring)[2] - layout.p) % 2):
+        raise ValueError(f"bf16 planes are copied in pairs: TZ = {tz} and the box's "
+                         f"padding {layout.box(ring)[2]} - p = {layout.p} must be even")
     return (int(stage), u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,
             int(src_x), int(abc_x), float(dt), float(g), float(c0),
             *stencil_args(layout, st, ring), int(load), ty, tz, cx, *grid, smem)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import numpy_dtype
+from ..convert import as_table, numpy_dtype
 from ..core.basis import gll_points_weights, lumped_weight_line, tabulate_1d
 from .gather_scatter import gather_1d, scatter_1d
 
@@ -41,17 +41,17 @@ __all__ = [
 def separable_stiffness_tables(
     p: int, h: tuple[float, float, float], dtype
 ) -> tuple[list[np.ndarray], list[np.ndarray]]:
-    """(A, L): per-axis m x m cell blocks and lumped weight lines (NumPy)."""
+    """(A, L): per-axis m x m cell blocks and lumped weight lines (NumPy;
+    bf16 as float64 values rounded to bf16, ``convert.as_table``)."""
     tab = tabulate_1d(p)
     _, w = gll_points_weights(p + 1)
     DtWD = tab.D.T @ (w[:, None] * tab.D)
-    npdt = numpy_dtype(dtype)
     A = []
     for d in range(3):
         others = [h[e] for e in range(3) if e != d]
-        A.append((others[0] * others[1] / h[d] * DtWD).astype(npdt))
+        A.append(as_table(others[0] * others[1] / h[d] * DtWD, dtype))
     # dimensionless lines (h folded into A); length set per axis by caller
-    return A, [w.astype(npdt) for _ in range(3)]
+    return A, [as_table(w, dtype) for _ in range(3)]
 
 
 # Contraction specs per gathered axis: contract the node dim (axis+1) with
@@ -117,6 +117,4 @@ def grid_lines(
     shape: tuple[int, int, int], p: int, dtype
 ) -> list[np.ndarray]:
     """Dimensionless overlap-added GLL weight lines per axis."""
-    return [
-        lumped_weight_line(n, p, 1.0).astype(numpy_dtype(dtype)) for n in shape
-    ]
+    return [as_table(lumped_weight_line(n, p, 1.0), dtype) for n in shape]

@@ -31,7 +31,8 @@ copy) and :func:`stiffness_grid_cuda` (``csrc/stiffness_tiled.cu::
 stiffness_tiled_kernel``, one launch on the tiling of
 ``tiling.grid_geometry``; the same sums in the same order).
 :func:`stiffness_grid` dispatches on the tensor's device: CPU -> plain,
-CUDA -> kernel.
+CUDA -> kernel. Both take a bf16 grid and tables (float32 sums, y rounded
+once).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-from ..convert import numpy_dtype
+from ..convert import as_table, widen
 from . import _cuda, tiling
 
 __all__ = [
@@ -120,17 +121,18 @@ def stiffness_grid_tables(
     coefficient vectors of ``_fused_call``'s ``expand`` (the TPU stencil
     tables in ``dtype``, face corrections at index 0 and at the real N - 1)
     on the unpadded axes, and the lines. ``A``/``lines`` as
-    separable_stiffness_tables/grid_lines make them; ``coeff`` = -c0^2."""
-    npdt = numpy_dtype(dtype)
+    separable_stiffness_tables/grid_lines make them; ``coeff`` = -c0^2. For
+    bf16, float64 values (``convert.as_table``) that the tensor conversion
+    rounds once."""
     K = 2 * p + 1
     cvs = []
     for Ad, n in zip(A, shape):
-        C = build_stencil_coeffs(np.asarray(coeff) * Ad, p).astype(npdt)
+        C = as_table(build_stencil_coeffs(np.asarray(coeff) * Ad, p), dtype)
         cv = np.stack([_cvec(C, k, n, p) for k in range(K)])
         cv[p, 0] -= float(coeff) * Ad[p, p]      # left face: phantom left cell
         cv[p, n - 1] -= float(coeff) * Ad[0, 0]  # right face: phantom right cell
         cvs.append(cv)
-    return (*cvs, *(np.asarray(ln).astype(npdt) for ln in lines))
+    return (*cvs, *(as_table(ln, dtype) for ln in lines))
 
 
 def stiffness_grid_plain(
@@ -138,8 +140,11 @@ def stiffness_grid_plain(
 ) -> torch.Tensor:
     """y = coeff K x on the grid [Nx, Ny, Nz], as the TPU kernel computes it:
     per axis, sum_k cv[k] * (x shifted by k - p, zero outside the grid),
-    then the line scalings, in the order x, y, z."""
-    cvx, cvy, cvz, lx, ly, lz = tables
+    then the line scalings, in the order x, y, z. A bf16 grid and its
+    tables are widened to float32 and the result rounded once, as kernel F
+    stores it."""
+    dtype = x.dtype
+    x, cvx, cvy, cvz, lx, ly, lz = widen(x, *tables)
     Nx, Ny, Nz = x.shape
     K = 2 * p + 1
     xp = nnf.pad(x, (p, p, p, p, p, p))
@@ -158,7 +163,7 @@ def stiffness_grid_plain(
     out = out + ty * (lx[:, None] * lz[None, :])[:, None, :]
     tz = axis_sum(cvz[:, None, None, :],
                   lambda k: xp[p:p + Nx, p:p + Ny, k:k + Nz])
-    return out + tz * (lx[:, None] * ly[None, :])[:, :, None]
+    return (out + tz * (lx[:, None] * ly[None, :])[:, :, None]).to(dtype)
 
 
 def stiffness_launch_args(x: torch.Tensor, out: torch.Tensor,

@@ -36,7 +36,7 @@ if TYPE_CHECKING:
 __all__ = [
     "TILE_THREADS", "TILE_Z", "CHUNK_X", "PIPE", "PLANE_FIELDS", "BLOCKS_PER_SM",
     "H100_SMS", "RING", "BOX_MAX", "CHUNK_X_TMA", "PADDING_LAYERS", "blocks_per_sm",
-    "tma_blocks_per_sm", "grid_rows", "grid_pitch",
+    "tma_blocks_per_sm", "grid_rows", "grid_pitch", "window_pitch",
     "tiled_geometry", "grid_geometry",
     "tma_window", "tma_smem_bytes",
     "tma_geometry", "tma_padding_first", "check_tma_launch", "SMEM_LIMIT", "sm_count",
@@ -72,20 +72,21 @@ SMEM_LIMIT = 232_448
 
 def blocks_per_sm(itemsize: int, p: int) -> int:
     """Tile blocks an SM holds at once: the launch bounds of
-    ``csrc/rk4_tiled.cu::min_blocks<T, P>``."""
-    return BLOCKS_PER_SM if itemsize == 4 and p <= 4 else 1
+    ``csrc/rk4_tiled.cu::min_blocks<T, P>`` (bf16, 2 bytes, takes f32's
+    rule: measured faster than f64's, PERF.md §6)."""
+    return BLOCKS_PER_SM if itemsize <= 4 and p <= 4 else 1
 
 
 def tma_blocks_per_sm(itemsize: int) -> int:
     """Tile blocks an SM holds at once for the TMA kernels and kernel F: the
     launch bounds of ``csrc/stencil_tiled.cuh::tma_min_blocks<T>``."""
-    return 2 if itemsize == 4 else 1
+    return 2 if itemsize <= 4 else 1
 
 
 def grid_rows(itemsize: int, p: int) -> int:
     """Rows of its tile column a thread of kernel F owns
     (``csrc/stiffness_tiled.cu::grid_rows<T, P>``)."""
-    return 2 if itemsize == 4 and p <= 4 else 1
+    return 2 if itemsize <= 4 and p <= 4 else 1
 
 
 def _cdiv(n: int, d: int) -> int:
@@ -143,7 +144,9 @@ def tiled_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
 @functools.cache
 def _tiled_geometry(shape, p, itemsize, sms, tile_z, tile_threads, chunk_x):
     Nx, Ny, Nz = shape
-    nz_tiles, tz, ny_tiles, ty = _tiles(Ny, Nz, tile_z, tile_threads)
+    # bf16 windows are copied in pairs (stencil_tiled.cuh::fetch_plane): TZ even
+    nz_tiles, tz, ny_tiles, ty = _tiles(Ny, Nz, tile_z, tile_threads,
+                                        tz_unit=2 if itemsize == 2 else 1)
     chunks = _chunks(Nx, p, nz_tiles * ny_tiles, sms * blocks_per_sm(itemsize, p),
                      chunk_x)
     cx = _cdiv(Nx, chunks)
@@ -161,6 +164,15 @@ def grid_pitch(tz: int, p: int, rows: int) -> int:
     return base + _cdiv(tz + 2 * p - base, 32 // rows) * (32 // rows)
 
 
+def window_pitch(tz: int, p: int, rows: int, Nz: int, itemsize: int) -> int:
+    """Kernel F's window pitch (``csrc/stiffness_tiled.cu::window_pitch``):
+    :func:`grid_pitch`, and in bf16 one more where its parity is not
+    ``Nz``'s, so that a window point has its global index's parity and the
+    pairs are copied 4 bytes at a time."""
+    W = grid_pitch(tz, p, rows)
+    return W + ((W - Nz) & 1) if itemsize == 2 else W
+
+
 def grid_geometry(shape, p: int, itemsize: int = 4, sms: int = H100_SMS):
     """(grid, TY, TZ, CX, smem_bytes) of kernel F on the unpadded dof grid
     ``shape`` [Nx, Ny, Nz]: :func:`tiled_geometry`'s policy on the grid
@@ -169,7 +181,9 @@ def grid_geometry(shape, p: int, itemsize: int = 4, sms: int = H100_SMS):
     threads), the chunks filling tma_blocks_per_sm blocks an SM, CX within
     CHUNK_X_TMA (2p warm-up planes a chunk up to p = 10); ``smem_bytes``
     holds a ring of PIPE planes of TY + 2p rows at the pitch of
-    :func:`grid_pitch` and the window's copy table (two int32 a point)."""
+    :func:`grid_pitch` and the window's copy table (two int32 a point); in
+    bf16 a ring of slots of the rows at :func:`window_pitch` plus room for
+    the window's shift (even), and one int32 of the table a pitch point."""
     return _grid_geometry(tuple(shape), p, itemsize, sms)
 
 
@@ -182,8 +196,12 @@ def _grid_geometry(shape, p, itemsize, sms):
     chunks = _chunks(Nx, p, nz_tiles * ny_tiles, sms * tma_blocks_per_sm(itemsize),
                      CHUNK_X_TMA)
     cx = _cdiv(Nx, chunks)
-    smem = (PIPE * (ty + 2 * p) * grid_pitch(tz, p, rows) * itemsize
-            + 8 * (ty + 2 * p) * (tz + 2 * p))
+    if itemsize == 2:
+        n = (ty + 2 * p) * window_pitch(tz, p, rows, Nz, itemsize)
+        smem = PIPE * ((n + 2) & ~1) * itemsize + 4 * n
+    else:
+        smem = (PIPE * (ty + 2 * p) * grid_pitch(tz, p, rows) * itemsize
+                + 8 * (ty + 2 * p) * (tz + 2 * p))
     return (nz_tiles, ny_tiles, _cdiv(Nx, cx)), ty, tz, cx, smem
 
 

@@ -34,6 +34,11 @@ on the TMA tiling of ``tiling.tma_geometry``).
 flat-layout CUDA kernels share (``csrc/stencil.cuh``'s tables, in the sum
 order of ``csrc/stencil_tiled.cuh``), on the whole padded state.
 
+Kernels B and D and their plain versions also take a bf16 state (bf16
+tables, float32 arithmetic, one rounding where the kernel stores); the
+builders compute bf16 tables in float64 (``convert.as_table``). Kernel E
+takes f32 and f64.
+
 :func:`apply_flat`, :func:`apply_slab` and :func:`rk_stage` dispatch on the
 tensor's device: CPU -> plain, CUDA -> kernel (or raise). There is no
 fallback between them.
@@ -47,7 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..convert import numpy_dtype
+from ..convert import as_table, numpy_dtype, stored, widen
 from . import _cuda, tiling
 from .stiffness import banded_1d_coeffs
 
@@ -267,7 +272,6 @@ def build_tables_flat(
     K = 2 * p + 1
     span = Tx + 16
     F = Ly * Lz
-    npdt = numpy_dtype(dtype)
 
     cvx, cvy, cvz, pLx, pLy, pLz = axis_cv_tables(
         layout, A, lines, coeff, inv_m_lines
@@ -288,10 +292,7 @@ def build_tables_flat(
     GZ = np.tile(pLz, Ly).reshape(1, F)
     GY = np.repeat(pLy, Lz).reshape(1, F)
     SX = pLx.reshape(Lx, 1)
-    return (
-        WXT.astype(npdt), CVY.astype(npdt), CVZ.astype(npdt),
-        FX.astype(npdt), GZ.astype(npdt), GY.astype(npdt), SX.astype(npdt),
-    )
+    return tuple(as_table(t, dtype) for t in (WXT, CVY, CVZ, FX, GZ, GY, SX))
 
 
 def stencil_tables(
@@ -321,16 +322,11 @@ def stencil_tables_from_cv(
     ones with their halo, ``parallel/sharded_padded.py``)."""
     Lx, Ly, Lz = layout.padded_shape
     F = Ly * Lz
-    npdt = numpy_dtype(dtype)
     gz = np.tile(pLz, Ly).reshape(1, F)
     gy = np.repeat(pLy, Lz).reshape(1, F)
-    return (
-        cvx.astype(npdt),
-        pLx.astype(npdt),
-        np.outer(pLy, pLz).reshape(F).astype(npdt),
-        (np.repeat(cvy, Lz, axis=1) * gz).astype(npdt),
-        (np.tile(cvz, (1, Ly)) * gy).astype(npdt),
-    )
+    return tuple(as_table(t, dtype) for t in (
+        cvx, pLx, np.outer(pLy, pLz).reshape(F),
+        np.repeat(cvy, Lz, axis=1) * gz, np.tile(cvz, (1, Ly)) * gy))
 
 
 class FlatTables(NamedTuple):
@@ -382,10 +378,13 @@ def apply_flat_plain(
 ) -> torch.Tensor:
     """y = A x on a padded [Lx, Ly, Lz] state, mirroring ``_kernel_flat``:
     per interior x-tile, the band-matrix x term on the 8-deep halo window,
-    then the y and z roll terms; the two all-pad tiles are zeros."""
+    then the y and z roll terms; the two all-pad tiles are zeros. A bf16
+    state and its tables are widened to float32 and the result rounded
+    once, as kernel B stores it."""
     _check_no_tf32(xp)
     layout.check_flat()
-    WXT, CVY, CVZ, FX, GZ, GY, SX = tables
+    dtype = xp.dtype
+    xp, WXT, CVY, CVZ, FX, GZ, GY, SX = widen(xp, *tables)
     p = layout.p
     Tx = layout.tile_x
     Lx, Ly, Lz = layout.padded_shape
@@ -410,7 +409,7 @@ def apply_flat_plain(
                 acc = acc + CVZ[k][None, :] * torch.roll(Uc, (p - k) % F, 1)
         o = o + acc * (sx * GY)
         out[t * Tx : (t + 1) * Tx] = o
-    return out.reshape(Lx, Ly, Lz)
+    return out.reshape(Lx, Ly, Lz).to(dtype)
 
 
 def stencil_args(layout: PaddedLayout, st: StencilTables, ring: int = 0) -> tuple:
@@ -494,7 +493,11 @@ def apply_stencil_plain(
     flat-layout kernels compute it at each point (``csrc/stencil_tiled.cuh``:
     the x band, then the merged shift-0 y/z tap, the other y taps and the
     other z taps, in that order); exactly 0 outside the interior grown by
-    ``ring`` (:meth:`PaddedLayout.box`; a value-halo layout's launch box)."""
+    ``ring`` (:meth:`PaddedLayout.box`; a value-halo layout's launch box).
+    A bf16 state is computed in float32 and rounded once."""
+    dtype = xp.dtype
+    xp, *tabs = widen(xp, *st)
+    st = StencilTables(*tabs)
     p = layout.p
     Lx, Ly, Lz = layout.padded_shape
     F = Ly * Lz
@@ -515,7 +518,7 @@ def apply_stencil_plain(
     inside = torch.zeros(layout.padded_shape, dtype=torch.bool, device=xp.device)
     inside[x0 : x0 + nx, h : h + ny, h : h + nz] = True
     return torch.where(inside.reshape(Lx, F), y, torch.zeros_like(y)).reshape(
-        Lx, Ly, Lz)
+        Lx, Ly, Lz).to(dtype)
 
 
 def check_slab(layout: PaddedLayout) -> None:
@@ -654,16 +657,22 @@ def rk_stage_plain(
     ``_kernel_flat``, which the stage kernel repeats on un) plus the source
     row c0^2 g W1 and the absorbing row -c0 W2 vn, ua' = ua + cb vn,
     va' = va + cb kv'. ``w1``/``w2`` are the [1, F] facet planes. Returns
-    (vn, kv', ua', va')."""
+    (vn, kv', ua', va'). A bf16 stage runs in float32 and rounds where
+    kernel D stores: un (its stage-input plane) and the four outputs; ua'
+    and va' add vn and kv' as stored, the values the next stage reads (the
+    absorbing row takes vn before its rounding)."""
     Lx = layout.padded_shape[0]
+    dtype = u0.dtype
+    u0, ku, v0, kv, ua, va, w1, w2 = widen(u0, ku, v0, kv, ua, va, w1, w2)
     sc = lambda x: torch.tensor(x, dtype=u0.dtype, device=u0.device)  # noqa: E731
     ca_, cb_ = sc(ca), sc(cb)
     vn = v0 + ca_ * kv
-    kvp = apply_flat_plain(u0 + ca_ * ku, layout, flat)
+    kvp = apply_flat_plain(stored(u0 + ca_ * ku, dtype), layout, flat)
     k2, vn2 = kvp.view(Lx, -1), vn.view(Lx, -1)
     k2[src_x] += (sc(c0 * c0) * sc(g)) * w1[0]
     k2[abc_x] += sc(-c0) * w2[0] * vn2[abc_x]
-    return vn, kvp, ua + cb_ * vn, va + cb_ * kvp
+    vn, kvp = stored(vn, dtype), stored(kvp, dtype)
+    return tuple(x.to(dtype) for x in (vn, kvp, ua + cb_ * vn, va + cb_ * kvp))
 
 
 def rk_stage_launch_args(u0, ku, v0, kv, ua, va, vn, kvp, uap, vap, ca, cb, g,

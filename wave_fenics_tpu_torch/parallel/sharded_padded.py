@@ -46,7 +46,7 @@ from ..core.basis import lumped_weight_line
 from ..core.mesh import BOX_FACETS
 from ..models.linear_wave import LinearWave, require_homogeneous
 from ..models.linear_wave_padded import _RK_C, _flat_tile_x
-from ..ops import lf2step, lfstep, rk42step, rk4step
+from ..ops import _cuda, lf2step, lfstep, rk42step, rk4step
 from ..ops.separable import separable_stiffness_tables
 from ..ops.stiffness import banded_1d_coeffs
 from ..ops.wave import (
@@ -95,6 +95,7 @@ class ShardedPaddedWave:
         if kernel not in ("flat", "3d"):
             raise ValueError(f"kernel = {kernel!r}: 'flat' or '3d'")
         require_homogeneous(model, "ShardedPaddedWave")
+        _cuda.refuse_bf16(model.dtype, "ShardedPaddedWave", _cuda.BF16_SHARDED)
         self.model = model
         self.parts = tuple(int(m) for m in parts)
         for n, m in zip(model.mesh.shape, self.parts):

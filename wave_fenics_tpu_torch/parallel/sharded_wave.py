@@ -28,7 +28,12 @@ import torch
 from ..convert import numpy_dtype
 from ..core.basis import lumped_weight_line
 from ..core.mesh import StructuredBoxMesh
-from ..models.linear_wave import LinearWave, lumped_boundary_weights, require_homogeneous
+from ..models.linear_wave import (
+    LinearWave,
+    lumped_boundary_weights,
+    require_homogeneous,
+)
+from ..ops import _cuda
 from ..ops.operators import StructuredOperators
 from ..solvers.cg import cg
 from ..solvers.rk4 import rk4_solve_n
@@ -91,6 +96,7 @@ class ShardedLinearWave:
     def __init__(self, model: LinearWave, parts, devices=None, device=None,
                  exchange: Exchange | None = None):
         require_homogeneous(model, "ShardedLinearWave")
+        _cuda.refuse_bf16(model.dtype, "ShardedLinearWave", _cuda.BF16_SHARDED)
         self.model = model
         self.parts = tuple(int(m) for m in parts)
         for n, m in zip(model.mesh.shape, self.parts):

@@ -9,6 +9,10 @@ its snapshots are ``step_{:09d}.npz`` files. The JAX package's manager
 writes orbax directories where orbax is installed; the port carries no
 orbax, so its manager raises on a directory that holds them instead of
 starting again from step 0.
+
+A bf16 state (NumPy has no bf16) is stored as its bit pattern, ``uint16``
+arrays with ``"state_dtype": "bfloat16"`` in ``meta``, and comes back as
+CPU bf16 tensors bit for bit; every other state as it is.
 """
 
 from __future__ import annotations
@@ -20,11 +24,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..convert import to_numpy_bits
+
 __all__ = ["save_state", "load_state", "CheckpointManager"]
 
 
+_BF16 = "bfloat16"
+
+
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    """A state as a host array: a bf16 tensor as its bits (uint16)."""
+    return to_numpy_bits(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _from_host(a: np.ndarray, dtype: str | None):
+    if dtype == _BF16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return a
 
 
 def _npz(path: str) -> str:
@@ -34,14 +50,22 @@ def _npz(path: str) -> str:
 def save_state(path: str, u, v, t: float, meta: dict | None = None) -> None:
     """Write one snapshot to ``path`` (``.npz`` appended if missing)."""
     meta = dict(meta or {}, t=float(t))
+    bf16 = [isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16 for x in (u, v)]
+    if any(bf16):
+        if not all(bf16):
+            raise ValueError("a snapshot holds u and v of one dtype")
+        meta["state_dtype"] = _BF16
     np.savez(_npz(path), u=_host(u), v=_host(v), meta=json.dumps(meta))
 
 
 def load_state(path: str):
-    """(u, v, t, meta) of a snapshot, u and v as host NumPy arrays."""
+    """(u, v, t, meta) of a snapshot, u and v as host NumPy arrays (a bf16
+    snapshot's as CPU bf16 tensors, bit for bit)."""
     data = np.load(_npz(path), allow_pickle=False)
     meta = json.loads(str(data["meta"]))
-    return data["u"], data["v"], meta.pop("t"), meta
+    dtype = meta.pop("state_dtype", None)
+    return (_from_host(data["u"], dtype), _from_host(data["v"], dtype), meta.pop("t"),
+            meta)
 
 
 @dataclass
