@@ -267,7 +267,24 @@ the script exits non-zero and never prints its last line:
     of both along the solve, which show where that growth comes from;
     (c) A and C (each stage and the step, beside the 4-launch floor), B
     (the P1 layout), D (the P4 layout) and F (64^3 cells, p=4) in bf16
-    beside f32 in this call, against the bound at 2 bytes a value.
+    beside f32 in this call, against the bound at 2 bytes a value;
+25. bf16 state on the leapfrog, two-step and p > 8 paths
+    (``bf16_paths_phase``): (a) kernels H and I (p in {1, 3, 4, 8}), J and
+    its step boundary (p in {1, 3, 4}) and E (p in {9, 10}, and
+    kernel='3d' at p=4) against their plain bf16 twins on the CPU, on
+    small grids of several y and z tiles, from NaN-filled outputs and
+    scratch: one call within 1e-2 of max|ref|, the padding exactly 0; (b)
+    the app's ``--dtype bf16`` at full width for the whole solve: P2
+    leapfrog (I, 3 x (2,098/2 + 1)), P3 p=8 leapfrog (H, 2 x (4,134 + 1)),
+    P14 ``--two-step`` (J 7 x (1,489 // 2 + 1), A 4 for the odd step), P12
+    p=10 RK4 (E 4 x (3,762 + 1)) and P13 p=10 leapfrog (E (5,299 + 1) + 2),
+    each counted alone, only its kernels, finite, max|u| at least half the
+    f32 run's (phases 8 and 14 keep their final states), the relative L2
+    against f32 and max|u| over f32's printed; then each path against its
+    plain twin's over 25 steps at that width within 1e-2; (c) E (P12), H
+    (P3) and I (P2) phase by phase and J's step boundary (P1 width) in
+    bf16 beside f32 in this call, against the bound at 2 bytes a value,
+    each bf16 kernel's output from NaN against its plain twin's.
 
 It prints one JSON line of per-kernel results ("kernels": all eleven
 kernels, each with the launches of its path's run, J's step boundary
@@ -276,10 +293,12 @@ is the f1-path RK4 check; K's and F's include phase 15's; A, B, E, F, H,
 I and J add phase 17's sharded runs (J: P22) and K phase 18's, listed
 under ``sharded_launches``; A, B, F, H, I, J and K add phase 22's dry run
 (``dryrun_launches``) and B, F and K phase 23's examples
-(``example_launches``); A, B, C, D and F list phase 24's launches
-(``bf16_launches``) and bf16 times (``bf16``); F adds P23's Newmark launches; K's entry also
-lists P21's parts, J's the boundary's time on a grown box), the lines
-``tsmm {...}``, ``dryrun {...}`` and ``bf16 {...}`` (phase 24's checks), and, last, one JSON line ``{"ok": true, "device":
+(``example_launches``); A to F and H to J list phases 24 and 25's
+launches (``bf16_launches``), bf16 times (``bf16``; J's: its step
+boundary) and their bf16 app runs (``bf16_app``); F adds P23's Newmark
+launches; K's entry also lists P21's parts, J's the boundary's time on a
+grown box), the lines ``tsmm {...}``, ``dryrun {...}`` and ``bf16 {...}``
+(phases 24 and 25's checks), and, last, one JSON line ``{"ok": true, "device":
 {...}}``. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
@@ -1008,6 +1027,378 @@ def bf16_phase(dev, smi, counters: dict, setup_counters: dict) -> dict:
           + ", ".join(f"{k} {out['checks'][f'{k} full width']['one']:.3e}"
                       for k in "ACBDF")
           + f"; phase 24 {sum(out['seconds'].values()):.1f} s (a {out['seconds']['a']:.1f}, "
+          f"b {out['seconds']['b']:.1f}, c {out['seconds']['c']:.1f})")
+    return out
+
+
+def bf16_paths_phase(dev, smi, counters: dict, setup_counters: dict,
+                     f32_states: dict) -> dict:
+    """Phase 25, bf16 state on the leapfrog, two-step and p > 8 paths
+    (kernels H, I, J and E): (a) each kernel against its plain bf16 twin
+    on the CPU, on small grids of several y and z tiles, from NaN-filled
+    outputs and scratch, one call within 1e-2 of max|ref| with exactly
+    zero padding (H and I at p in {1, 3, 4, 8}, J and its step boundary at
+    p in {1, 3, 4}, E at p in {9, 10} and kernel='3d' at p = 4); (b) the
+    app's ``--dtype bf16`` at full width for the whole solve (P2 leapfrog
+    on I, P3 p=8 leapfrog on H, P14 ``--two-step`` on J with A for the odd
+    last step, P12 p=10 RK4 and P13 p=10 leapfrog on E), each counted
+    alone: only its kernels, with PERF.md section 4's counts, finite,
+    max|u| at least half the f32 run's (``f32_states``: phases 8 and 14's
+    final states), its relative L2 against f32 and max|u| over f32's
+    printed; then the kernel path against its plain twin's over 25 steps
+    at that width within 1e-2 (relative L2); (c) E (P12), H (P3) and I
+    (P2) phase by phase and J's step boundary (P1 width) in bf16 beside
+    f32 in this call, against the bound at 2 bytes a value, and each bf16
+    kernel's output from NaN at that width against its plain twin's on the
+    same inputs (1e-2 of max|ref|, the padding exactly 0). Returns the
+    launches, the checks' errors, the app runs, the times and each part's
+    seconds."""
+    import numpy as np
+    import torch
+
+    from wave_fenics_tpu_torch.apps import planar3d_app
+    from wave_fenics_tpu_torch.core.mesh import FacetTags, box_mesh
+    from wave_fenics_tpu_torch.models.linear_wave import LinearWave
+    from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
+    from wave_fenics_tpu_torch.ops import _cuda, lf2step, lfstep, rk4step, rk42step, wave
+    from wave_fenics_tpu_torch.solvers.leapfrog import leapfrog_solve_n
+    from wave_fenics_tpu_torch.utils.timing import timeit
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"checks": {}, "app": {}, "times": {}, "seconds": {}}
+    t_part = time.perf_counter()
+
+    def part_done(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["seconds"][name] = now - t_part
+        t_part = now
+
+    def zero():
+        for fn in (*counters.values(), *setup_counters.values()):
+            fn.launches = 0
+
+    def launched():
+        return {k: fn.launches for k, fn in counters.items() if fn.launches}
+
+    def rel(got, want):
+        """max over fields of max|got - want| / max|want|."""
+        return max(float((g.double().cpu() - w.double().cpu()).abs().max()
+                         / w.double().abs().max()) for g, w in zip(got, want))
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def padding_zero(layout, *xs):
+        for x in xs:
+            outside = x.clone()
+            outside[layout.interior] = 0
+            check(float(outside.abs().max()) == 0.0 and bool(torch.isfinite(x).all()),
+                  "bf16: zero padding, no NaN")
+
+    def state(layout, seed, scale=1.0, dtype=bf16):
+        x = np.zeros(layout.padded_shape)
+        x[layout.interior] = scale * np.random.default_rng(seed).standard_normal(
+            layout.shape)
+        return torch.as_tensor(x, device=dev).to(dtype)
+
+    def nan_like(x, n):
+        return [torch.full_like(x, float("nan")) for _ in range(n)]
+
+    # -- (a) each kernel against its plain bf16 twin at small sizes ------------
+    phase("phase 25, bf16 state: kernels H, I, J and E against their plain bf16 twins")
+    # several y and z tiles and x chunks at 2 bytes a value
+    tiled = {1: (8, 10, 40), 3: (4, 4, 12), 4: (4, 3, 9), 8: (3, 2, 5)}
+
+    def model(p, device, tile_x, cells, kernel="flat"):
+        mesh = box_mesh(cells, (0.01, 0.005, 0.005),
+                        facet_tags=FacetTags({1: (0,), 2: (1,)}))
+        return PaddedLinearWave(LinearWave(mesh, p=p, dtype=bf16, device=device),
+                                tile_x=tile_x, kernel=kernel)
+
+    zero()
+    dt, gs = 0.7e-9, (1.0e5, 0.7e5, 0.4e5, 0.1e5, -0.2e5)
+    cases = [("H", p) for p in (1, 3, 4, 8)] + [("I", p) for p in (1, 3, 4, 8)] + [
+        ("J", p) for p in (1, 3, 4)] + [("E", 9), ("E", 10), ("E 3d", 4)]
+    for k, p in cases:
+        if k == "J":
+            tile, cells, kernel = max(24, rk42step._off0(p)), tiled[p], "flat"
+        elif k.startswith("E"):
+            tile, cells, kernel = 16, (4, 3, 9) if p == 4 else (2, 2, 4), k[2:] or "flat"
+        else:
+            tile, cells, kernel = max(16, lf2step._off0(p)), tiled[p], "flat"
+        pm, pc = model(p, dev, tile, cells, kernel), model(p, "cpu", tile, cells, kernel)
+        u0, v0 = state(pm.layout, 10 * p), state(pm.layout, 10 * p + 1, 1e3)
+        nan = nan_like(u0, 8)
+        if k.startswith("E"):
+            check(pm.kernel == "3d", "kernel E: the 3D-slab layout")
+            got = [wave.apply_slab_cuda(u0, pm.layout, pm.slab_tables, out=nan[0])]
+            want = [wave.apply_slab_plain(u0.cpu(), pc.layout, pc.slab_tables)]
+            scratch = []
+        else:
+            face = (pm.stencil, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+            cface = (pc.stencil, pc.face_w1, pc.face_w2, pc.src_x, pc.abc_x)
+            if k == "H":
+                got = lfstep.lf_step_cuda(u0, v0, dt, *gs[:2], pm.layout, pm.base.c0,
+                                          *face, out=tuple(nan[:2]), scratch=nan[2])
+                want = lfstep.lf_step_plain(u0.cpu(), v0.cpu(), dt, *gs[:2], pc.layout,
+                                            pc.base.c0, pc.lf_tables)
+                scratch = nan[2:3]
+            elif k == "I":
+                got = lf2step.lf2_step_cuda(u0, v0, dt, *gs[:3], pm.layout, pm.base.c0,
+                                            *face, out=tuple(nan[:2]),
+                                            scratch=tuple(nan[2:5]))
+                want = lf2step.lf2_step_plain(u0.cpu(), v0.cpu(), dt, *gs[:3], pc.layout,
+                                              pc.base.c0, pc.lf2_tables)
+                scratch = nan[2:5]
+            else:
+                got = rk42step.rk42_step_cuda(u0, v0, 1e-9, gs, pm.layout, pm.base.c0,
+                                              *face, out=tuple(nan[:2]),
+                                              scratch=tuple(nan[2:]))
+                want = rk42step.rk42_step_plain(u0.cpu(), v0.cpu(), 1e-9, gs, pc.layout,
+                                                pc.base.c0, *cface)
+                scratch = nan[2:]
+                # the step boundary alone, from five random fields
+                ins = [state(pm.layout, 20 * p + j, sc)
+                       for j, sc in enumerate((1.0, 1e3, 1e9, 1e9, 1e9))]
+                bgot = rk42step._rk42_boundary_cuda(
+                    *ins, 1e-9, 0.5, pm.layout, pm.base.c0, *face,
+                    out=tuple(nan_like(u0, 3)))
+                bwant = rk42step.rk42_boundary_plain(*(x.cpu() for x in ins), 1e-9, 0.5,
+                                                     pc.layout, pc.base.c0, *cface)
+                torch.cuda.synchronize()
+                berr = rel(bgot, bwant)
+                padding_zero(pm.layout, *bgot)
+                check(berr <= 1e-2, f"J's step boundary bf16 p={p}")
+                out["checks"][f"J boundary p={p}"] = {"one": berr}
+        torch.cuda.synchronize()
+        one = rel(got, want)
+        padding_zero(pm.layout, *got, *scratch)
+        print(f"kernel {k} bf16 p={p} {cells}: one call from NaN against the plain twin "
+              f"{one:.3e} of max|ref| (limit 1e-2)")
+        check(one <= 1e-2, f"kernel {k} bf16 p={p}")
+        out["checks"][f"{k} p={p}"] = {"one": one}
+    out["launches"] = launched()
+    part_done("a")
+    print(f"phase 25 (a) launches: {out['launches']}; {out['seconds']['a']:.1f} s")
+
+    # -- (b) the app at full width ---------------------------------------------
+    runs = [
+        ("P2 leapfrog, kernel I", dict(**HEADLINE, integrator="leapfrog"),
+         lambda n: {"I": 3 * (n // 2 + 1), "H": 2 * (n % 2)}),
+        ("P3 leapfrog p=8, kernel H", dict(**HEADLINE_P8, integrator="leapfrog"),
+         lambda n: {"H": 2 * (n + 1)}),
+        ("P14 RK4 two-step, kernel J", dict(**HEADLINE, two_step=True),
+         lambda n: {"J": 7 * (n // 2 + 1), "A": 4 * (n % 2)}),
+        ("P12 RK4 p=10, kernel E", dict(**P12), lambda n: {"E": 4 * (n + 1)}),
+        ("P13 leapfrog p=10, kernel E", dict(**P12, integrator="leapfrog"),
+         lambda n: {"E": (n + 1) + 2}),
+    ]
+    nk = 25
+    for label, kw, want_of in runs:
+        phase(f"phase 25, bf16 state: app path {label} with --dtype bf16")
+        zero()
+        rec, u, _ = planar3d_app.run(**kw, dtype="bf16", device="cuda", return_state=True)
+        torch.cuda.synchronize()
+        counts = launched()
+        n = rec["nsteps"]
+        want = {k: c for k, c in want_of(n).items() if c}
+        u16, u32 = u.float(), f32_states[label].float()
+        del u
+        l2, m16, m32 = rel_l2(u16, u32), float(u16.abs().max()), float(u32.abs().max())
+        print(f"bf16 {label}: {rec['ndofs']:,} dofs, {n} steps, {rec['solver_path']}; "
+              f"launches {counts} (want {want}); max|u| {m16:.6e} against f32 {m32:.6e} "
+              f"({m16 / m32:.4g}x); relative L2 against f32 {l2:.6e}; solve "
+              f"{rec['solve_seconds']:.3f} s [{smi}]")
+        check(counts == want, f"bf16 {label}: its kernels only, {want}")
+        check("bf16 state" in rec["solver_path"], f"bf16 {label}: the bf16 path")
+        # the source switched on (JAX's bf16 fused paths stay at 0); no
+        # upper bound: a bf16 scheme grows where its tables' rows sum
+        # above 0 (apps/bf16_growth.py)
+        check(bool(torch.isfinite(u16).all()) and m16 >= 0.5 * m32,
+              f"bf16 {label}: finite, the source switched on")
+        del u16
+        # the kernel path against its plain twin's at this width, nk steps
+        _, pm = planar3d_app.build(**{k: v for k, v in kw.items()
+                                      if k in ("cells", "degree")}, dtype="bf16",
+                                   device="cuda")
+        b, step_dt = pm.base, rec["dt"]
+        g = b.g_amplitude
+        up, vp = pm.zero_state()
+        if label.startswith("P2"):
+            uk, vk, _ = pm.solve_lf2_n(0.0, step_dt, nk)
+            for i in range(0, nk - 1, 2):
+                t = i * step_dt
+                up, vp = lf2step.lf2_step_plain(up, vp, step_dt, g(t), g(t + step_dt),
+                                                g(t + 2 * step_dt), pm.layout, b.c0,
+                                                pm.lf2_tables)
+            t = (nk - 1) * step_dt
+            up, vp = lfstep.lf_step_plain(up, vp, step_dt, g(t), g(t + step_dt),
+                                          pm.layout, b.c0, pm.lf_tables)
+        elif label.startswith("P3"):
+            uk, vk, _ = pm.solve_lf_n(0.0, step_dt, nk)
+            for i in range(nk):
+                t = i * step_dt
+                up, vp = lfstep.lf_step_plain(up, vp, step_dt, g(t), g(t + step_dt),
+                                              pm.layout, b.c0, pm.lf_tables)
+        elif label.startswith("P14"):
+            uk, vk, _ = pm.solve_step2_n(0.0, step_dt, nk)
+            face = (pm.layout, b.c0, pm.stencil, pm.face_w1, pm.face_w2, pm.src_x,
+                    pm.abc_x)
+            for i in range(0, nk - 1, 2):
+                t = i * step_dt
+                up, vp = rk42step.rk42_step_plain(
+                    up, vp, step_dt, [g(t + j * 0.5 * step_dt) for j in range(5)], *face)
+            t = (nk - 1) * step_dt
+            up, vp = rk4step.rk4_step_lean_plain(
+                up, vp, step_dt, [g(t + c * step_dt) for c in RK_C], pm.layout, b.c0,
+                pm.step_tables)
+        else:
+            def solve(pm):
+                if label.startswith("P12"):
+                    return pm.solve_n(0.0, step_dt, nk)
+                return leapfrog_solve_n(pm.force, pm.damping, *pm.zero_state(), 0.0,
+                                        step_dt, nk)
+            uk, vk = solve(pm)
+            # the same model with kernel E's plain twin as its stiffness
+            pm._apply = lambda x: wave.apply_slab_plain(x, pm.layout, pm.slab_tables)
+            up, vp = solve(pm)
+        torch.cuda.synchronize()
+        check(float(vp.float().abs().max()) > 0, f"bf16 {label}: the twin's source on")
+        twin = max(rel_l2(a, c) for a, c in ((uk, up), (vk, vp)))
+        print(f"bf16 {label}, {nk} steps from 0: the kernel path against its plain twin, "
+              f"relative L2 {twin:.3e} (limit 1e-2)")
+        check(twin <= 1e-2, f"bf16 {label}: the kernel path against its plain twin")
+        for k, c in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + c
+        out["app"][label] = {"launches": counts, "nsteps": n, "rel_l2_vs_f32": l2,
+                             "max_u": m16, "max_u_f32": m32,
+                             "solve_seconds": rec["solve_seconds"],
+                             "solver_path": rec["solver_path"],
+                             f"twin_{nk}_steps_rel_l2": twin}
+        del pm, uk, vk, up, vp
+    part_done("b")
+    print(f"phase 25 (b) {out['seconds']['b']:.1f} s")
+
+    # -- (c) times at their PERF.md widths, beside f32 ----------------------------
+    phase("phase 25, bf16 state: E, H, I and J's boundary at their PERF.md widths, "
+          "beside f32")
+
+    def launch_us(name, dtype, args, reps=200):
+        return 1e6 * timeit(_cuda.launcher(_cuda.library(), name, dtype, dev, *args),
+                            reps=reps)
+
+    def bound(pm, ins, outs, applies, pointwise, tables=None):
+        """(bound_ms, bound_by) by the rule of every bound of this script:
+        the inputs' interiors in, the outputs' padded boxes out, the tables,
+        at the state's bytes a value, against the flops at the f32 rate
+        outside the tensor cores (the arithmetic is float32 in bf16)."""
+        size = pm.base.dtype.itemsize
+        if tables is None:
+            tables = (*pm.stencil, pm.face_w1, pm.face_w2)
+        nb = (ins * math.prod(pm.layout.shape) + outs * math.prod(pm.layout.padded_shape)
+              ) * size + sum(t.numel() * t.element_size() for t in tables)
+        K = 2 * pm.layout.p + 1
+        flops = math.prod(pm.layout.shape) * (applies * (6 * K + 2) + pointwise)
+        t_b, t_o = nb / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        return {"bound_ms": 1e3 * max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o
+                else "operations"}
+
+    def against_plain(k, got, want, layout):
+        torch.cuda.synchronize()
+        err = rel(got, want)
+        padding_zero(layout, *got)
+        check(err <= 1e-2, f"kernel {k} bf16 at full width against its plain twin")
+        out["checks"][f"{k} full width"] = {"one": err}
+
+    for dtype in (f32, bf16):
+        key = "bf16" if dtype == bf16 else "f32"
+        name = "bf16" if dtype == bf16 else "f32"
+        # E at P12
+        _, pm = planar3d_app.build(**P12, dtype=name, device="cuda")
+        x = state(pm.layout, 93, dtype=dtype)
+        y = torch.full_like(x, float("nan"))
+        args = wave.slab_launch_args(x, y, pm.layout, pm.slab_tables)
+        run_plain = lambda: wave.apply_slab_plain(x, pm.layout, pm.slab_tables)  # noqa: E731
+        out["times"].setdefault("E", {})[key] = {
+            "ms": launch_us("wave_apply_slab_tiled", dtype, args) / 1e3,
+            "plain_ms": 1e3 * timeit(run_plain, reps=3, warmup=1),
+            **bound(pm, 1, 1, 1, 3, tables=pm.slab_tables)}
+        if dtype == bf16:
+            against_plain("E", [y], [run_plain()], pm.layout)
+        del x, y, pm
+        # H at P3 and I at P2, phase by phase
+        for k, kw, phases, gs3 in (
+                ("H", HEADLINE_P8, (("OPEN", lfstep.LF_OPEN), ("CLOSE", lfstep.LF_CLOSE)),
+                 (1.0, 0.5)),
+                ("I", HEADLINE, (("OPEN", lfstep.LF_OPEN), ("MID", lfstep.LF_MID),
+                                 ("CLOSE", lfstep.LF_CLOSE)), (1.0, 0.5, 0.2))):
+            case, pm = planar3d_app.build(**kw, dtype=name, device="cuda")
+            ldt = case.dt * 0.71
+            u, v = state(pm.layout, 3, dtype=dtype), state(pm.layout, 4, 1e3, dtype)
+            bufs = nan_like(u, 5)
+            face = (pm.layout, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2, pm.src_x,
+                    pm.abc_x)
+            us = {}
+            for (pname, ph), g in zip(phases, gs3):
+                args = lfstep.lf_launch_args(
+                    ph, u, v, None if ph == lfstep.LF_CLOSE else bufs[0], bufs[1], ldt,
+                    g, *face)
+                us[pname] = launch_us("wave_lf_phase_tiled", dtype, args)
+            if k == "H":
+                run_plain = lambda: lfstep.lf_step_plain(  # noqa: E731
+                    u, v, ldt, *gs3, pm.layout, pm.base.c0, pm.lf_tables)
+                run_kernel = lambda: lfstep.lf_step_cuda(  # noqa: E731
+                    u, v, ldt, *gs3, *face, out=tuple(bufs[:2]), scratch=bufs[2])
+                b = bound(pm, 2, 2, 2, 12)
+            else:
+                run_plain = lambda: lf2step.lf2_step_plain(  # noqa: E731
+                    u, v, ldt, *gs3, pm.layout, pm.base.c0, pm.lf2_tables)
+                run_kernel = lambda: lf2step.lf2_step_cuda(  # noqa: E731
+                    u, v, ldt, *gs3, *face, out=tuple(bufs[:2]), scratch=tuple(bufs[2:]))
+                b = bound(pm, 2, 2, 3, 24)
+            out["times"].setdefault(k, {})[key] = {
+                "ms": sum(us.values()) / 1e3, "phase_us": us,
+                "plain_ms": 1e3 * timeit(run_plain, reps=3, warmup=1), **b}
+            if dtype == bf16:  # from NaN in the outputs and the scratch
+                for x in bufs:
+                    x.fill_(float("nan"))
+                against_plain(k, run_kernel(), run_plain(), pm.layout)
+            del u, v, bufs, pm
+        # J's step boundary at the P1 width
+        _, pm = planar3d_app.build(**HEADLINE, dtype=name, device="cuda")
+        ins = [state(pm.layout, 70 + j, sc, dtype)
+               for j, sc in enumerate((1.0, 1e3, 1e9, 1e9, 1e9))]
+        outs = nan_like(ins[0], 3)
+        bface = (pm.layout, pm.base.c0, pm.stencil, pm.face_w1, pm.face_w2, pm.src_x,
+                 pm.abc_x)
+        args = rk42step.boundary_launch_args(
+            *ins, *outs, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x, 1e-9, 0.5,
+            pm.base.c0, pm.layout, pm.stencil)
+        run_plain = lambda: rk42step.rk42_boundary_plain(  # noqa: E731
+            *ins, 1e-9, 0.5, *bface)
+        out["times"].setdefault("J", {})[key] = {
+            "ms": launch_us("wave_rk42_boundary_tiled", dtype, args) / 1e3,
+            "plain_ms": 1e3 * timeit(run_plain, reps=3, warmup=1),
+            **bound(pm, 5, 3, 2, 30)}
+        if dtype == bf16:  # the timed launches wrote outs from the same inputs
+            against_plain("J boundary", outs, run_plain(), pm.layout)
+        del ins, outs, pm
+    part_done("c")
+    for k, t in out["times"].items():
+        a, c = t["bf16"], t["f32"]
+        what = "J's step boundary" if k == "J" else f"kernel {k}"
+        phases = (f", phases {', '.join(f'{n} {x:.2f}' for n, x in a['phase_us'].items())}"
+                  f" us (f32 {', '.join(f'{n} {x:.2f}' for n, x in c['phase_us'].items())})"
+                  if "phase_us" in a else "")
+        print(f"{what} bf16 {a['ms']:.4f} ms (bound {a['bound_ms']:.4f} ms, "
+              f"{a['bound_by']}{phases}; plain twin {a['plain_ms']:.4f} ms) against f32 "
+              f"{c['ms']:.4f} ms (bound {c['bound_ms']:.4f} ms, {c['bound_by']}; plain "
+              f"{c['plain_ms']:.4f} ms) [{smi}]")
+    print("bf16 at full width, kernel against its plain twin from NaN (limit 1e-2): "
+          + ", ".join(f"{k} {out['checks'][f'{k} full width']['one']:.3e}"
+                      for k in ("E", "H", "I", "J boundary"))
+          + f"; phase 25 {sum(out['seconds'].values()):.1f} s (a {out['seconds']['a']:.1f}, "
           f"b {out['seconds']['b']:.1f}, c {out['seconds']['c']:.1f})")
     return out
 
@@ -1933,11 +2324,15 @@ def main() -> None:
     launches = {}
     b_on_paths = 0  # kernel B's launches over the five app runs
     apps = {}
+    f32_states = {}  # the final u of P2, P3, P12, P13, P14: phase 25's reference
     for label, kw, kernel, per_call, steps_per_call, name in paths:
         phase(f"app path {label}: planar3d_app.run() at {NDOFS:,} dofs")
         zero_counts()
-        out = planar3d_app.run(**kw, dtype="f32", device="cuda")
+        out, u, _ = planar3d_app.run(**kw, dtype="f32", device="cuda", return_state=True)
         counts = read_counts()
+        if label.startswith(("P2 ", "P3 ")):
+            f32_states[label] = u
+        del u
         print(json.dumps(out))
         launches[kernel] = counts[kernel]
         b_on_paths += counts["B"]
@@ -2011,7 +2406,8 @@ def main() -> None:
     for label, kw, want_of, name in new_paths:
         phase(f"app path {label}: planar3d_app.run()")
         zero_counts()
-        out = planar3d_app.run(**kw, dtype="f32", device="cuda")
+        out, f32_states[label], _ = planar3d_app.run(**kw, dtype="f32", device="cuda",
+                                                     return_state=True)
         counts = read_counts()
         print(json.dumps(out))
         apps[label] = out
@@ -3275,6 +3671,8 @@ def main() -> None:
     # phases 21-23: tsmm, the dry run and the four examples, each counted alone
     slice21 = slice_phases(dev, smi, counters, setup_counters)
     p24 = bf16_phase(dev, smi, counters, setup_counters)
+    p25 = bf16_paths_phase(dev, smi, counters, setup_counters, f32_states)
+    del f32_states
 
     # "kernels": all eleven, each with the launches of its path's run (G:
     # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
@@ -3460,8 +3858,18 @@ def main() -> None:
         if k in p24["times"]:
             by_name[k]["bf16"] = p24["times"][k]
     by_name["A"]["bf16_app"] = p24["app"]
+    # phase 25: E, H, I and J likewise (J: its step boundary's times; A adds
+    # the odd last step of P14's bf16 run)
+    for k in ("A", "E", "H", "I", "J"):
+        by_name[k]["bf16_launches"] = (by_name[k].get("bf16_launches", 0)
+                                       + p25["launches"].get(k, 0))
+        if k in p25["times"]:
+            by_name[k]["bf16"] = p25["times"][k]
+    for label, run in p25["app"].items():
+        kernel = label.split("kernel ")[-1]
+        by_name[kernel].setdefault("bf16_app", {})[label] = run
     print("tsmm " + json.dumps(slice21["tsmm"]))
-    print("bf16 " + json.dumps(p24["checks"]))
+    print("bf16 " + json.dumps({**p24["checks"], **p25["checks"]}))
     print("dryrun " + json.dumps(slice21["dryrun"]))
     print(f"total {time.perf_counter() - t_start:.1f} s after the device check")
     print(smi)

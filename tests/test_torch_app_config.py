@@ -55,8 +55,9 @@ def test_jax_config_file_loads_and_builds_the_same_case():
     # run.ndev > 1 runs blocks of a box or RCB parts of an imported mesh;
     # fewer than one device raises on either
     ((("run", "ndev", 0), ("domain", "mesh_path", "mesh.xdmf")), "at least 1"),
-    # bf16 runs the box's RK4 path; leapfrog (kernels H and I) raises
-    ((("run", "dtype", "bf16"), ("time", "integrator", "leapfrog")), "bf16 state"),
+    # bf16 runs every path of the box on one device; blocks (run.ndev > 1)
+    # raise
+    ((("run", "dtype", "bf16"), ("run", "ndev", 2)), "bf16 state"),
 ])
 def test_unsupported_fields_raise(fields, subject):
     cfg = SimulationConfig()

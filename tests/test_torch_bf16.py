@@ -68,9 +68,9 @@ def _bits(a) -> np.ndarray:
     return np.asarray(a).view(np.uint16)
 
 
-def _jax_padded(dtype, p=4):
+def _jax_padded(dtype, p=4, tile_x=16):
     mesh = jbox_mesh((4, 2, 2), EXTENT, facet_tags=JFacetTags(X_FACES))
-    return JPadded(JLinearWave(mesh, p=p, dtype=dtype), tile_x=16)
+    return JPadded(JLinearWave(mesh, p=p, dtype=dtype), tile_x=tile_x)
 
 
 def _port_padded(dtype, p=4, lean=True):
@@ -298,13 +298,25 @@ def test_linear_wave_solve_within_the_jax_yardstick():
 
 @pytest.mark.xfail(strict=True, reason=(
     "a fault of the reference: JAX's bf16 fused solvers carry t in the state "
-    "dtype (models/linear_wave_padded.py:379, jnp.asarray(t0, dtype=u0.dtype)), so "
-    "the window 0.5 (1 - cos(...)) of a bf16 t rounds to 0, the source never "
-    "switches on and v stays 0; pallas_rk4step.py:554 also rounds dt and g to bf16"))
-@pytest.mark.parametrize("path", ["solve_step_n", "solve_fused_n"])
+    "dtype (models/linear_wave_padded.py:379, and :462, :548, :649 for solve_lf_n, "
+    "solve_lf2_n, solve_step2_n: jnp.asarray(t0, dtype=u0.dtype)), so the window "
+    "0.5 (1 - cos(...)) of a bf16 t rounds to 0, the source never switches on and "
+    "v stays 0; pallas_rk4step.py:554 also rounds dt and g to bf16"))
+@pytest.mark.parametrize("path", ["solve_step_n", "solve_fused_n", "solve_lf_n",
+                                  "solve_lf2_n", "solve_step2_n"])
 def test_jax_bf16_fused_paths_match_its_solve_n(path):
-    jpm = _jax_padded(jnp.bfloat16)
-    ru, rv = jpm.solve_n(0.0, DT, NSTEPS)
+    """Each fused bf16 solver of the JAX package against its own bf16
+    reference of the same scheme: solve_n for the RK4 paths (on a tile of
+    the 6p halo for solve_step2_n), leapfrog_solve_n on its force for the
+    leapfrog paths."""
+    from wave_fenics_tpu.solvers.leapfrog import leapfrog_solve_n as j_leapfrog_solve_n
+
+    jpm = _jax_padded(jnp.bfloat16, tile_x=24 if path == "solve_step2_n" else 16)
+    if path.startswith("solve_lf"):
+        ru, rv = jax.jit(lambda u, v: j_leapfrog_solve_n(
+            jpm.force, jpm.damping, u, v, 0.0, DT, NSTEPS))(*jpm.zero_state())
+    else:
+        ru, rv = jpm.solve_n(0.0, DT, NSTEPS)
     u, v, _ = getattr(jpm, path)(0.0, DT, NSTEPS)
     assert _l2(u, ru) <= 0.1 and _l2(v, rv) <= 0.1
 
@@ -390,35 +402,40 @@ def _bf16_case_raises(**fields):
 
 
 @pytest.mark.parametrize("fields", [
-    {"time__integrator": "leapfrog"},
-    {"domain__degree": 10},
     {"domain__mesh_path": "mesh.xdmf"},
     {"run__ndev": 2},
-], ids=["leapfrog", "p10", "mesh", "ndev2"])
+], ids=["mesh", "ndev2"])
 def test_unported_bf16_configs_raise(fields):
     _bf16_case_raises(**fields)
 
 
+@pytest.mark.parametrize("fields", [
+    {"time__integrator": "leapfrog"},
+    {"domain__degree": 10, "domain__ncells": (3, 2, 2)},
+], ids=["leapfrog", "p10"])
+def test_bf16_configs_of_h_i_and_e_build_the_jax_case(fields):
+    """A bf16 SimulationConfig with leapfrog (kernels H, I) or p = 10
+    (kernel E) builds JAX's dt, nsteps and dofs, as the RK4 box's does."""
+    jc, c = JConfig(), SimulationConfig()
+    for cfg in (jc, c):
+        cfg.domain.ncells = (4, 2, 2)
+        cfg.run.dtype = "bf16"
+        for key, value in fields.items():
+            section, name = key.split("__")
+            setattr(getattr(cfg, section), name, value)
+    jcase, case = jc.build_case(), c.build_case(device="cpu")
+    assert (case.dt, case.nsteps, case.steps_per_period) == (
+        jcase.dt, jcase.nsteps, jcase.steps_per_period)
+    assert case.model.ops.ndofs == jcase.model.ops.ndofs
+    assert case.model.dtype == BF16 and case.model.p == c.domain.degree
+
+
 def test_unported_bf16_paths_raise():
     """Every bf16 path without a bf16 kernel raises naming bf16 and the
-    kernel: leapfrog (H, I), the 2-step RK4 (J), the 3D-slab layout (E),
-    blocks, an imported mesh (K), BP1's mass (G) and the benchmarks."""
+    kernel: blocks, an imported mesh (K), BP1's mass (G) and the
+    benchmarks."""
     pm = _port_padded(BF16)
-    for solve, kernel in ((pm.solve_lf_n, "kernel H"), (pm.solve_lf2_n, "kernel I"),
-                          (pm.solve_step2_n, "kernel J")):
-        with pytest.raises(ValueError, match=f"bf16.*{kernel}"):
-            solve(0.0, DT, 2)
-    with pytest.raises(ValueError, match="bf16.*kernel H .*kernel I"):
-        planar3d_app.run(cells=(4, 2, 2), dtype="bf16", device="cpu", steps=2,
-                         integrator="leapfrog")
-    with pytest.raises(ValueError, match="bf16.*kernel J"):
-        planar3d_app.run(cells=(4, 2, 2), dtype="bf16", device="cpu", steps=2,
-                         two_step=True)
     mesh = box_mesh((3, 2, 2), EXTENT, facet_tags=FacetTags(X_FACES))
-    with pytest.raises(ValueError, match="bf16.*kernel E"):
-        PaddedLinearWave(LinearWave(mesh, p=10, dtype=BF16, device="cpu"))
-    with pytest.raises(ValueError, match="bf16.*kernel E"):
-        PaddedLinearWave(pm.base, kernel="3d")
     with pytest.raises(ValueError, match="bf16"):
         ShardedPaddedWave(pm.base, decompose3d(2))
     hm = mesh.to_hex_mesh()

@@ -1666,3 +1666,119 @@ def test_bf16_stiffness_kernel_on_several_tiles(cuda, cells, p):
     yp = stiffness.stiffness_grid_plain(g, tabs, p)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(yk).all()) and _bf16_rel(yk, yp) <= ONE_BF16
+
+
+# -- bf16 state: kernels H, I, J and E against their plain bf16 twins ---------
+# grids of several y and z tiles and x chunks (tiling.tma_geometry at 2
+# bytes a value: two or three z tiles of 24, two or three y tiles)
+BF16_TILED_CELLS = {1: (8, 10, 40), 3: (4, 4, 12), 4: (4, 3, 9), 8: (3, 2, 5)}
+
+
+def _bf16_tiled_model(p, device, tile_x, shape=None, kernel="flat"):
+    mesh = box_mesh(shape or BF16_TILED_CELLS[p], (0.01, 0.005, 0.005),
+                    facet_tags=FacetTags({1: (0,), 2: (1,)}))
+    return PaddedLinearWave(LinearWave(mesh, p=p, dtype=BF16, device=device),
+                            tile_x=tile_x, kernel=kernel)
+
+
+def _several_tiles(pm, fields=1, extra=0):
+    grid, *_ = tiling.tma_geometry(pm.layout, 2, tiling.H100_SMS, fields, extra)
+    return min(grid[:2]) >= 2
+
+
+@pytest.mark.parametrize("kernel", ["H", "I"])
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+def test_bf16_lf_kernels_match_plain_twins(cuda, kernel, p):
+    """One bf16 call of kernel H (one leapfrog step) or I (two) from
+    outputs and scratch full of NaN, on a grid of several y and z tiles,
+    against the plain twin on the CPU: u and v within two ulps of max|ref|,
+    the padding of the outputs and the scratch exactly 0; one model step
+    launches the kernel's phases."""
+    pm = _bf16_tiled_model(p, cuda, max(16, lf2step._off0(p)))
+    pc = _bf16_tiled_model(p, "cpu", pm.layout.tile_x)
+    assert pm.lf_unavailable is None and pm.lf2_unavailable is None
+    assert _several_tiles(pm)
+    u0, v0 = _bf16_state(pm.layout, 70 + p, cuda), _bf16_state(pm.layout, 71 + p, cuda, 1e3)
+    dt, gs = 0.7e-9, (1.0e5, 0.6e5, 0.2e5)
+    nan = [torch.full_like(u0, float("nan")) for _ in range(5)]
+    face = (pm.stencil, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+    if kernel == "H":
+        fn, n0 = lfstep.lf_step_cuda, lfstep.lf_step_cuda.launches
+        got = fn(u0, v0, dt, *gs[:2], pm.layout, pm.base.c0, *face, out=tuple(nan[:2]),
+                 scratch=nan[2])
+        want = lfstep.lf_step_plain(u0.cpu(), v0.cpu(), dt, *gs[:2], pc.layout,
+                                    pc.base.c0, pc.lf_tables)
+        scratch, calls = nan[2:3], 2
+    else:
+        fn, n0 = lf2step.lf2_step_cuda, lf2step.lf2_step_cuda.launches
+        got = fn(u0, v0, dt, *gs, pm.layout, pm.base.c0, *face, out=tuple(nan[:2]),
+                 scratch=tuple(nan[2:]))
+        want = lf2step.lf2_step_plain(u0.cpu(), v0.cpu(), dt, *gs, pc.layout,
+                                      pc.base.c0, pc.lf2_tables)
+        scratch, calls = nan[2:], 3
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + calls
+    for g, w in zip(got, want):
+        assert g.dtype == BF16 and _bf16_rel(g, w) <= ONE_BF16
+    assert all(_bf16_padding_zero(pm.layout, x) for x in (*got, *scratch))
+
+
+@pytest.mark.parametrize("p", [1, 3, 4])
+def test_bf16_rk42_kernel_matches_plain_twin(cuda, p):
+    """One bf16 call of kernel J (two full-tableau RK4 steps, seven
+    launches) and its step boundary alone, from outputs and scratch full
+    of NaN on a grid of several y and z tiles, against the plain twins on
+    the CPU: within two ulps of max|ref|, the padding exactly 0 (odd p
+    included: C's stages copy bf16 planes in pairs)."""
+    pm = _bf16_tiled_model(p, cuda, max(24, rk42step._off0(p)))
+    pc = _bf16_tiled_model(p, "cpu", pm.layout.tile_x)
+    assert pm.rk42_unavailable is None
+    assert _several_tiles(pm, rk42step.BOUNDARY_FIELDS, rk42step.BOUNDARY_EXTRA)
+    u0, v0 = _bf16_state(pm.layout, 80 + p, cuda), _bf16_state(pm.layout, 81 + p, cuda, 1e3)
+    face = (pm.stencil, pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x)
+    cface = (pc.stencil, pc.face_w1, pc.face_w2, pc.src_x, pc.abc_x)
+    nan = [torch.full_like(u0, float("nan")) for _ in range(8)]
+    n0 = rk42step.rk42_step_cuda.launches
+    got = rk42step.rk42_step_cuda(u0, v0, DT, RK42_GS, pm.layout, pm.base.c0, *face,
+                                  out=tuple(nan[:2]), scratch=tuple(nan[2:]))
+    want = rk42step.rk42_step_plain(u0.cpu(), v0.cpu(), DT, RK42_GS, pc.layout,
+                                    pc.base.c0, *cface)
+    torch.cuda.synchronize()
+    assert rk42step.rk42_step_cuda.launches == n0 + rk42step.LAUNCHES_PER_CALL
+    for g, w in zip(got, want):
+        assert g.dtype == BF16 and _bf16_rel(g, w) <= ONE_BF16
+    assert all(_bf16_padding_zero(pm.layout, x) for x in (*got, *nan[2:]))
+    ins = [_bf16_state(pm.layout, 90 + p + j, cuda, sc)
+           for j, sc in enumerate((1.0, 1e3, 1e9, 1e9, 1e9))]
+    got = rk42step._rk42_boundary_cuda(
+        *ins, DT, 0.5, pm.layout, pm.base.c0, *face,
+        out=tuple(torch.full_like(ins[0], float("nan")) for _ in range(3)))
+    want = rk42step.rk42_boundary_plain(*(x.cpu() for x in ins), DT, 0.5, pc.layout,
+                                        pc.base.c0, *cface)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _bf16_rel(g, w) <= ONE_BF16 and _bf16_padding_zero(pm.layout, g)
+
+
+@pytest.mark.parametrize("p,shape,kernel", [(9, (2, 2, 4), "flat"), (10, (2, 2, 4), "flat"),
+                                            (4, (4, 3, 9), "3d")])
+def test_bf16_slab_kernel_matches_plain_twin(cuda, p, shape, kernel):
+    """One bf16 apply of kernel E (p > 8, or kernel='3d') from an output
+    full of NaN on a grid of several y and z tiles, against the plain twin
+    on the CPU: within two ulps of max|ref|, the padding exactly 0; a model
+    step on f1 launches it four times."""
+    pm = _bf16_tiled_model(p, cuda, 16, shape, kernel)
+    pc = _bf16_tiled_model(p, "cpu", 16, shape, kernel)
+    assert pm.kernel == "3d" and _several_tiles(pm)
+    x = _bf16_state(pm.layout, 100 + p, cuda)
+    y = wave.apply_slab_cuda(x, pm.layout, pm.slab_tables,
+                             out=torch.full_like(x, float("nan")))
+    want = wave.apply_slab_plain(x.cpu(), pc.layout, pc.slab_tables)
+    torch.cuda.synchronize()
+    assert y.dtype == BF16 and _bf16_rel(y, want) <= ONE_BF16
+    assert _bf16_padding_zero(pm.layout, y)
+    n0 = wave.apply_slab_cuda.launches
+    u, v = pm.solve_n(0.0, DT, 1, x, 1e3 * x)
+    torch.cuda.synchronize()
+    assert wave.apply_slab_cuda.launches == n0 + 4 and u.dtype == BF16
+    assert bool(torch.isfinite(v.float()).all())

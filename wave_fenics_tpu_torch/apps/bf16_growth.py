@@ -1,4 +1,5 @@
-"""How a bf16 run of the box's RK4 step grows, and what makes it grow.
+"""How a bf16 run of the box's RK4 step, or of its leapfrog, grows, and
+what makes it grow.
 
 Four runs of the planar3d case at p = 4 (``planar3d_app.build``) from
 zero over its whole solve, max|u| every ``--every`` steps:
@@ -11,10 +12,16 @@ zero over its whole solve, max|u| every ``--every`` steps:
 - ``f32 state, bf16 tables``: the plain lean step on an f32 state with the
   bf16 model's tables.
 
+With ``--integrator leapfrog`` the four runs take the app's leapfrog (dt
+x 0.71, the step count over 0.71): kernel I (the plain 2-step leapfrog
+for the two controls, with the other model's lf2 tables; an odd count
+ends on kernel H's plain step).
+
 Beside them, ``lam0`` of each model's tables: the shift of the stencil's
 zero eigenvalue (the constant mode) by the tables' rounding, to first
-order the mass-weighted mean of A 1. It is read from one plain step from
-(u, v) = (1, 0) with no source and dt = 1e-12, as v1 / dt. Where it is
+order the mass-weighted mean of A 1 (:func:`lam0`, A applied in float32
+by the plain stencil on the model's tables, which the step, lf and lf2
+tables fold bit for bit). Where it is
 positive the constant mode grows as exp(sqrt(lam0) t) (u'' = lam0 u), so
 ``sqrt(lam0)`` predicts the rate; ``fitted_rate`` is each run's rate from
 the last recorded step at least ``--fit`` steps before its end, ln(max|u|
@@ -22,6 +29,7 @@ ratio) / time.
 
     python -m wave_fenics_tpu_torch.apps.bf16_growth [--cells 64 32 32]
         [--steps N] [--every 100] [--fit 400] [--device cuda]
+        [--integrator rk4|leapfrog]
 
 It prints the card's name and power limit (nvidia-smi; "cpu" on a CPU
 device) and, last, one JSON line.
@@ -38,20 +46,28 @@ import time
 import numpy as np
 import torch
 
+from ..ops.lf2step import lf2_step_plain
+from ..ops.lfstep import lf_step_plain
 from ..ops.rk4step import rk4_step_lean_plain
+from ..ops.wave import apply_slab_plain, apply_stencil_plain
 from .planar3d_app import build
 
 RUNS = ("bf16", "f32", "bf16 state, f32 tables", "f32 state, bf16 tables")
 
 
-def _lam0(pm, tables) -> float:
-    """The mass-weighted mean of A 1 on ``pm``'s layout with ``tables``."""
+def lam0(pm, model) -> float:
+    """The mass-weighted mean of A 1 on ``pm``'s layout with ``model``'s
+    tables (its stencil, or its slab tables in the 3D-slab layout), A
+    applied in float32 by the plain version. In s^-2; lam0 h^2 is the
+    same at every cell count that is a power-of-two multiple of another
+    (the tables then scale exactly)."""
     lay = pm.layout
     one = lay.pad(torch.ones(lay.shape, dtype=torch.float32, device=pm.base.device))
-    dt = 1e-12
-    _, v1 = rk4_step_lean_plain(one, torch.zeros_like(one), dt, [0.0] * 4, lay,
-                                pm.base.c0, tables)
-    a1 = lay.unpad(v1).double() / dt
+    if model.kernel == "3d":
+        a1 = apply_slab_plain(one, lay, model.slab_tables)
+    else:
+        a1 = apply_stencil_plain(one, lay, model.stencil)
+    a1 = lay.unpad(a1).double()
     mx, my, mz = (torch.as_tensor(np.asarray(m), dtype=torch.float64, device=a1.device)
                   for m in pm._m_lines)
     m = mx[:, None, None] * my[None, :, None] * mz[None, None, :]
@@ -59,37 +75,54 @@ def _lam0(pm, tables) -> float:
 
 
 def run(cells=(64, 32, 32), steps: int | None = None, every: int = 100,
-        fit: int = 400, device: str = "cuda") -> dict:
+        fit: int = 400, device: str = "cuda", integrator: str = "rk4") -> dict:
     """The four runs, ``lam0`` and the rates (the JSON dict). The plain
     steps are references: TF32 goes off."""
+    if integrator not in ("rk4", "leapfrog"):
+        raise ValueError(f"integrator {integrator!r}: rk4 or leapfrog")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     case, p16 = build(cells=cells, dtype="bf16", device=device)
     _, p32 = build(cells=cells, dtype="f32", device=device)
     if p16.layout.padded_shape != p32.layout.padded_shape:
         raise ValueError("the bf16 and f32 models' layouts differ")
-    dt, n = case.dt, case.nsteps if steps is None else min(steps, case.nsteps)
+    dt, total = case.dt, case.nsteps
+    if integrator == "leapfrog":  # the app's leapfrog step and count
+        dt, total = dt * 0.71, math.ceil(total / 0.71)
+    n = total if steps is None else min(steps, total)
     lay, c0, b = p16.layout, p16.base.c0, p16.base
+    g = b.g_amplitude
     sync = torch.cuda.synchronize if p16.base.device.type == "cuda" else (lambda: None)
 
-    def plain(state_model, tables):
+    def plain(state_model, model):
         def solve(t0, k, u, v):
             for i in range(k):
                 t = t0 + i * dt
-                gs = [b.g_amplitude(t + c * dt) for c in (0.0, 0.5, 0.5, 1.0)]
-                u, v = rk4_step_lean_plain(u, v, dt, gs, lay, c0, tables)
+                gs = [g(t + c * dt) for c in (0.0, 0.5, 0.5, 1.0)]
+                u, v = rk4_step_lean_plain(u, v, dt, gs, lay, c0, model.step_tables)
             return u, v
-        return state_model, solve
+
+        def solve_lf(t0, k, u, v):
+            for i in range(0, k - 1, 2):
+                t = t0 + i * dt
+                u, v = lf2_step_plain(u, v, dt, g(t), g(t + dt), g(t + 2 * dt), lay, c0,
+                                      model.lf2_tables)
+            if k % 2:
+                t = t0 + (k - 1) * dt
+                u, v = lf_step_plain(u, v, dt, g(t), g(t + dt), lay, c0, model.lf_tables)
+            return u, v
+        return state_model, solve_lf if integrator == "leapfrog" else solve
 
     def kernel(pm):
-        return pm, lambda t0, k, u, v: pm.solve_step_n(t0, dt, k, u, v)[:2]
+        solve = pm.solve_lf2_n if integrator == "leapfrog" else pm.solve_step_n
+        return pm, lambda t0, k, u, v: solve(t0, dt, k, u, v)[:2]
 
     solvers = {"bf16": kernel(p16), "f32": kernel(p32),
-               "bf16 state, f32 tables": plain(p16, p32.step_tables),
-               "f32 state, bf16 tables": plain(p32, p16.step_tables)}
-    rec = {"cells": list(cells), "degree": b.p, "ndofs": b.ops.ndofs, "dt": dt,
-           "steps": n, "every": every, "device": str(p16.base.device), "runs": {},
-           "seconds": {}}
+               "bf16 state, f32 tables": plain(p16, p32),
+               "f32 state, bf16 tables": plain(p32, p16)}
+    rec = {"cells": list(cells), "degree": b.p, "ndofs": b.ops.ndofs,
+           "integrator": integrator, "dt": dt, "steps": n, "every": every,
+           "device": str(p16.base.device), "runs": {}, "seconds": {}}
     for name in RUNS:
         pm, solve = solvers[name]
         u, v = pm.zero_state()
@@ -106,8 +139,7 @@ def run(cells=(64, 32, 32), steps: int | None = None, every: int = 100,
         if not all(math.isfinite(m) for _, m in series):
             raise RuntimeError(f"{name}: max|u| is not finite")
         rec["runs"][name] = series
-    rec["lam0"] = {"f32 tables": _lam0(p32, p32.step_tables),
-                   "bf16 tables": _lam0(p32, p16.step_tables)}
+    rec["lam0"] = {"f32 tables": lam0(p32, p32), "bf16 tables": lam0(p32, p16)}
     rec["sqrt_lam0"] = {k: math.sqrt(x) if x > 0 else None for k, x in rec["lam0"].items()}
     rec["fitted_rate"] = {}
     for name, series in rec["runs"].items():  # from the last point >= fit steps back
@@ -124,8 +156,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--every", type=int, default=100)
     ap.add_argument("--fit", type=int, default=400)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--integrator", choices=("rk4", "leapfrog"), default="rk4")
     a = ap.parse_args(argv)
-    rec = run(tuple(a.cells), a.steps, a.every, a.fit, a.device)
+    rec = run(tuple(a.cells), a.steps, a.every, a.fit, a.device, a.integrator)
     smi = "cpu"
     if rec["device"].startswith("cuda"):
         smi = subprocess.run(

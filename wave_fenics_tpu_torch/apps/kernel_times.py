@@ -4,14 +4,17 @@ in turns within one call (parent, new, new, parent).
 
 Run it by path, not as a module, so that the package comes from ``--root``:
 
-    python wave_fenics_tpu_torch/apps/kernel_times.py [--root DIR] [--reps 200]
+    python wave_fenics_tpu_torch/apps/kernel_times.py [--root DIR] [--reps 200] \
+           [--dtype f32|bf16]
 
 - kernel F: ``stiffness_grid_cuda(x, tables, p, out=)`` on the P7 grid
-  (64^3 cells of a unit box, p = 4, 257^3 dofs, f32; the tables of
+  (64^3 cells of a unit box, p = 4, 257^3 dofs; the tables of
   ``StructuredOperators.stiffness`` with c0 = 1500);
 - kernel B: ``apply_flat_cuda(x, layout, stencil, out=)`` on the P1 layout
-  (the planar3d case at 64x32x32 cells, p = 4, tile 48: (384, 144, 144),
-  f32; x random in the interior, 0 in the padding).
+  (the planar3d case at 64x32x32 cells, p = 4, tile 48: (384, 144, 144);
+  x random in the interior, 0 in the padding);
+
+both in ``--dtype`` (f32, the default, or bf16: bf16 fields and tables).
 
 Each is timed two ways: CUDA events over ``--reps`` back-to-back wrapper
 calls (``utils.timing.timeit``; the host's per-call checks may pace them),
@@ -51,6 +54,7 @@ def main(argv=None) -> None:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="the tree whose wave_fenics_tpu_torch package is timed")
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -76,33 +80,34 @@ def main(argv=None) -> None:
     ).stdout.strip().splitlines()[0].strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev, f32 = torch.device("cuda"), torch.float32
+    dev = torch.device("cuda")
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = {"card": card, "root": str(root)}
+    out = {"card": card, "root": str(root), "dtype": args.dtype}
 
-    ops = StructuredOperators(box_mesh((64, 64, 64), (1.0, 1.0, 1.0)), 4, dtype=f32)
+    ops = StructuredOperators(box_mesh((64, 64, 64), (1.0, 1.0, 1.0)), 4, dtype=dtype)
     tabs = stiffness.GridStiffnessTables(*tables_from_numpy(
         stiffness.stiffness_grid_tables(ops._sepA, ops._seplines, ops.grid_shape, 4,
-                                        -1500.0**2, f32), dev, f32))
-    x = torch.randn(ops.grid_shape, dtype=f32, device=dev, generator=gen)
+                                        -1500.0**2, dtype), dev, dtype))
+    x = torch.randn(ops.grid_shape, dtype=dtype, device=dev, generator=gen)
     y = torch.empty_like(x)
     call = lambda: stiffness.stiffness_grid_cuda(x, tabs, 4, out=y)  # noqa: E731
     call()
     ref = stiffness.stiffness_grid_plain(x, tabs, 4)
     out["F"] = {"shape": list(x.shape),
-                "rel_err": float((y - ref).abs().max() / ref.abs().max()),
+                "rel_err": float((y - ref).float().abs().max() / ref.float().abs().max()),
                 "wrapper_ms": 1e3 * timeit(call, reps=args.reps),
                 "device_ms": _device_us(torch, call, args.reps) / 1e3}
     del x, y, ref, tabs, ops
 
-    _, pm = planar3d_app.build((64, 32, 32), 4, "f32", None, "cuda")
-    x = pm.layout.pad(torch.randn(pm.layout.shape, dtype=f32, device=dev, generator=gen))
+    _, pm = planar3d_app.build((64, 32, 32), 4, args.dtype, None, "cuda")
+    x = pm.layout.pad(torch.randn(pm.layout.shape, dtype=dtype, device=dev, generator=gen))
     y = torch.empty_like(x)
     call = lambda: wave.apply_flat_cuda(x, pm.layout, pm.stencil, out=y)  # noqa: E731
     call()
     ref = wave.apply_flat_plain(x, pm.layout, pm.flat_tables)
     out["B"] = {"shape": list(x.shape),
-                "rel_err": float((y - ref).abs().max() / ref.abs().max()),
+                "rel_err": float((y - ref).float().abs().max() / ref.float().abs().max()),
                 "wrapper_ms": 1e3 * timeit(call, reps=args.reps),
                 "device_ms": _device_us(torch, call, args.reps) / 1e3}
     print(card)

@@ -178,7 +178,6 @@ def solver_path(pm: PaddedLinearWave, integrator: str = "rk4",
                       f"{tail} for an odd last step", "2-step RK4"),
                 kernel_solve(pm.solve_step2_n), 2)
     if integrator == "leapfrog":
-        _cuda.require_bf16(pm.base.dtype, "--integrator leapfrog", "H", "I")
         if pm.lf2_unavailable is None:
             return (named("2-step leapfrog kernel I, 3 launches per 2 steps; "
                           "kernel H for an odd last step",

@@ -37,7 +37,7 @@ overlap twice; ``--general --ablate`` times an apply on CUDA events.
 Run from the repository root on a machine with a CUDA card:
 
     python -m wave_fenics_tpu_torch.apps.profile_step [--cells 64 32 32]
-           [--degree 4] [--dtype f32|f64] [--tile-x 48] [--steps 100]
+           [--degree 4] [--dtype f32|f64|bf16] [--tile-x 48] [--steps 100]
            [--integrator rk4|leapfrog] [--full-tableau] [--two-step]
     python -m wave_fenics_tpu_torch.apps.profile_step --degree 10 \
            --cells 26 13 13 [--integrator leapfrog]    # kernel E
@@ -278,29 +278,29 @@ _D_POINT_LOADS = """      pn[0] = widen(a.v0[nidx]);
       pn[1] = widen(a.kv[nidx]);
       pn[2] = widen(a.ua[nidx]);
       pn[3] = widen(a.va[nidx]);"""
-_J_POINT_LOADS = """      pn[0] = a.v0[nidx];
-      pn[1] = a.kv0[nidx];
-      pn[2] = a.kv1[nidx];
-      pn[3] = a.kv2[nidx];"""
-_J_STENCILS = """    T kv3 = x_taps<T, P>(s, q3, g) * tab.fx + yz3 * sxg;
+_J_POINT_LOADS = """      pn[0] = widen(a.v0[nidx]);
+      pn[1] = widen(a.kv0[nidx]);
+      pn[2] = widen(a.kv1[nidx]);
+      pn[3] = widen(a.kv2[nidx]);"""
+_J_STENCILS = """    A kv3 = x_taps<A, P>(s, q3, g) * tab.fx + yz3 * sxg;
     if (g == a.src_x) kv3 += (a.c0sq * a.g) * w1;
     if (g == a.abc_x) kv3 += (a.mc0 * w2) * (pt[0] + dt * pt[3]);
-    const T accv = ((b0 * pt[1] + b1 * pt[2]) + b1 * pt[3]) + b0 * kv3;
-    const T v1 = pt[0] + dt * accv;
-    T kv = x_taps<T, P>(s, q1, g) * tab.fx + yz1 * sxg;"""
+    const A accv = ((b0 * pt[1] + b1 * pt[2]) + b1 * pt[3]) + b0 * kv3;
+    const T v1 = narrow<T>(pt[0] + dt * accv);
+    A kv = x_taps<A, P>(s, q1, g) * tab.fx + yz1 * sxg;"""
 _J_FORM = """    for (int e = (int)threadIdx.x; e < npt; e += nt) {
       const int r = e / WF;
       const int j = r * W + w.oz + (e - r * WF);
-      const T u0 = sl[j];
-      const T v0 = sl[box + j];
-      const T k0 = sl[2 * box + j];
-      const T k1 = sl[3 * box + j];
-      const T k2 = sl[4 * box + j];
-      f3[j] = u0 + dt * (v0 + hdt * k1);
-      const T vn1 = v0 + hdt * k0;
-      const T vn2 = v0 + hdt * k1;
-      const T vn3 = v0 + dt * k2;
-      f1[j] = u0 + dt * (((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3);
+      const A u0 = widen(sl[j]);
+      const A v0 = widen(sl[box + j]);
+      const A k0 = widen(sl[2 * box + j]);
+      const A k1 = widen(sl[3 * box + j]);
+      const A k2 = widen(sl[4 * box + j]);
+      f3[j] = narrow<T>(u0 + dt * (v0 + hdt * k1));  // bf16 rounds un3, u1
+      const A vn1 = v0 + hdt * k0;
+      const A vn2 = v0 + hdt * k1;
+      const A vn3 = v0 + dt * k2;
+      f1[j] = narrow<T>(u0 + dt * (((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3));
     }"""
 _G_ZY = """    for (int r = c.ly; r < nrow; r += t.ty) zb[r * tz + c.lz] = band<T, P>(cz, xb + r * W, 1);
     __syncthreads();  // the z-contracted plane gi is complete, and every
@@ -321,12 +321,13 @@ ABLATIONS = {
                          "A kv = q[P];"),
         "rk_stage_tiled.cu": ("A kv = tx * tab.fx + yz * widen(__ldg(&s.sx[g]));",
                               "A kv = q[P];"),
-        "slab_tiled.cu": ("y[(long long)g * F + c.f] = (tx * lyz + ay) + az;",
-                          "y[(long long)g * F + c.f] = q[P];"),
-        "lf_tiled.cu": ("T force = tx * tab.fx + yz * __ldg(&s.sx[g]);", "T force = q[P];"),
+        "slab_tiled.cu": ("y[(long long)g * F + c.f] = narrow<T>((tx * lyz + ay) + az);",
+                          "y[(long long)g * F + c.f] = narrow<T>(q[P]);"),
+        "lf_tiled.cu": ("A force = tx * tab.fx + yz * widen(__ldg(&s.sx[g]));",
+                        "A force = q[P];"),
         "rk42_tiled.cu": (_J_STENCILS, _J_STENCILS.replace(
-            "x_taps<T, P>(s, q3, g) * tab.fx + yz3 * sxg", "q3[P]").replace(
-            "x_taps<T, P>(s, q1, g) * tab.fx + yz1 * sxg", "q1[P]")),
+            "x_taps<A, P>(s, q3, g) * tab.fx + yz3 * sxg", "q3[P]").replace(
+            "x_taps<A, P>(s, q1, g) * tab.fx + yz1 * sxg", "q1[P]")),
         "mass_tiled.cu": (_G_ZY, "\n".join(_G_ZY.splitlines()[1:-1])
                           + "\n    const T v = xb[(c.ly + P) * W + P];"),
         "flat_tiled.cu": ("x_taps<A, P>(s, q, g) * tab.fx + yz * widen(__ldg(&s.sx[g]));",
@@ -366,7 +367,7 @@ ABLATIONS = {
         "rk_stage_tiled.cu": (_D_POINT_LOADS,
                               "      pn[0] = pn[1] = pn[2] = pn[3] = A(nidx & 1);"),
         "rk42_tiled.cu": (_J_POINT_LOADS,
-                          "      pn[0] = pn[1] = pn[2] = pn[3] = T(nidx & 1);"),
+                          "      pn[0] = pn[1] = pn[2] = pn[3] = A(nidx & 1);"),
     },
     "u0 as the stage input": {
         "rk_stage_tiled.cu": ("for (int e = (int)threadIdx.x; e < npt; e += nt) {\n"
@@ -855,7 +856,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cells", type=int, nargs=3, default=(64, 32, 32))
     ap.add_argument("--degree", type=int, default=4)
-    ap.add_argument("--dtype", choices=("f32", "f64"), default="f32")
+    ap.add_argument("--dtype", choices=("f32", "f64", "bf16"), default="f32",
+                    help="the state's dtype (bf16: the box's paths, kernels A to F, "
+                         "H, I and J; G and K raise)")
     ap.add_argument("--tile-x", type=int, default=None)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--integrator", choices=("rk4", "leapfrog"), default="rk4")

@@ -50,7 +50,15 @@
 // blocks instead of after the last (the caller decides,
 // ops/tiling.py::tma_padding_first). P is a template parameter
 // (p = 1..8; the leapfrog at p = 9-10 runs on `force` with kernel E); the
-// launch bounds ask for two 256-thread blocks an SM in f32.
+// launch bounds ask for two 256-thread blocks an SM in f32 and bf16.
+//
+// bf16 state (T = __nv_bfloat16; f32 and f64 take the same code with
+// Acc<T> = T): u, v, the outputs and the tables are bf16 (a BFLOAT16
+// tensor map, 8 points a 16-byte unit), the arithmetic and dt, g and the
+// c0 terms float32 (stencil_tiled.cuh::Acc; the TPU kernels round them to
+// the state dtype). Each stored field is rounded once: OPEN and MID round
+// v+ and form u_out from v+ as stored, the value CLOSE reads; MID's v1
+// stays float32 (it is never stored); CLOSE rounds v1.
 //
 // The extern "C" launcher returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a tiling that does not fit the layout, an
@@ -74,7 +82,7 @@ struct LfArgs {
   const T* w1;
   const T* w2;
   int src_x, abc_x;
-  T dt, g, c0sq, c0;
+  Acc<T> dt, g, c0sq, c0;  // in the arithmetic type: f32 for bf16 state
   bool padding_first;  // the padding layer is the grid's first, else its last
 };
 
@@ -82,14 +90,15 @@ template <typename T, int P, int Phase>
 __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     lf_phase_tiled_kernel(const __grid_constant__ CUtensorMap umap,
                           Stencil<T> s, LfArgs<T> a, Tiling t) {
+  using A = Acc<T>;
   constexpr int K = 2 * P + 1;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   long long pb, npb;
   if (a.padding_first ? padding_block<true>(s, t, pb, npb)
                       : padding_block<false>(s, t, pb, npb)) {  // the outputs' padding
     for_each_padding<1>(s, t, pb, npb, [a](const int (&i)[1], int) {
-      if (Phase != kLfClose) a.u_out[i[0]] = T(0);
-      a.v_out[i[0]] = T(0);
+      if (Phase != kLfClose) a.u_out[i[0]] = zero<T>();
+      a.v_out[i[0]] = zero<T>();
     });
     return;
   }
@@ -107,29 +116,29 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
   }
   ColumnTables<T, P> tab;
   tab.load(s, c.f, c.active);
-  const T w1 = c.active ? a.w1[c.f] : T(0);
-  const T w2 = c.active ? a.w2[c.f] : T(0);
-  T q[K];  // q[k] = u at row gi - 2P + k after plane gi
+  const A w1 = c.active ? widen(a.w1[c.f]) : A(0);
+  const A w2 = c.active ? widen(a.w2[c.f]) : A(0);
+  A q[K];  // q[k] = u at row gi - 2P + k after plane gi
 #pragma unroll
-  for (int k = 0; k < K; ++k) q[k] = T(0);
-  T yzq[P];  // yzq[j] = the y/z sum at row gi - P + 1 + j after plane gi
+  for (int k = 0; k < K; ++k) q[k] = A(0);
+  A yzq[P];  // yzq[j] = the y/z sum at row gi - P + 1 + j after plane gi
 #pragma unroll
-  for (int j = 0; j < P; ++j) yzq[j] = T(0);
+  for (int j = 0; j < P; ++j) yzq[j] = A(0);
 
   const int F = s.F();
   const int W = w.W;
   const int co = (c.ly + P) * W + (c.lz + P + w.oz);  // the column in a box
-  const T dt = a.dt;
-  const T h = dt * T(0.5);
-  const T one = T(1);
+  const A dt = a.dt;
+  const A h = dt * A(0.5);
+  const A one = A(1);
   // v at the output row of this plane (vt) and of the next (vn): loaded a
   // plane ahead, so its latency hides behind a plane
-  T vt, vn = T(0);
+  A vt, vn = A(0);
   for (int i = 0; i < iters; ++i) {
     const int gi = c.xs - P + i;
     vt = vn;
     if (c.active && i + 1 >= 2 * P && i + 1 < iters) {
-      vn = a.v[(long long)(gi + 1 - P) * F + c.f];
+      vn = widen(a.v[(long long)(gi + 1 - P) * F + c.f]);
     }
     ring.wait(i);
     __syncthreads();  // every thread is past plane gi - 1: refill its slot
@@ -139,10 +148,10 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     const T* ctr = ring.slot(i) + co;
 #pragma unroll
     for (int k = 0; k < K - 1; ++k) q[k] = q[k + 1];
-    q[K - 1] = ctr[0];
-    const T yz_new =
-        c.active && gi >= c.xs && gi < c.xe ? tab.yz(ctr, W) : T(0);
-    const T yz = yzq[0];
+    q[K - 1] = widen(ctr[0]);
+    const A yz_new =
+        c.active && gi >= c.xs && gi < c.xe ? tab.yz(ctr, W) : A(0);
+    const A yz = yzq[0];
 #pragma unroll
     for (int j = 0; j < P - 1; ++j) yzq[j] = yzq[j + 1];
     yzq[P - 1] = yz_new;
@@ -150,22 +159,23 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     if (i < 2 * P || !c.active) continue;
     const int g = gi - P;  // the output row
     const long long idx = (long long)g * F + c.f;
-    const T tx = x_taps<T, P>(s, q, g);
-    T force = tx * tab.fx + yz * __ldg(&s.sx[g]);
+    const A tx = x_taps<A, P>(s, q, g);
+    A force = tx * tab.fx + yz * widen(__ldg(&s.sx[g]));
     if (g == a.src_x) force += (a.c0sq * a.g) * w1;
-    const T d = g == a.abc_x ? a.c0 * w2 : T(0);
+    const A d = g == a.abc_x ? a.c0 * w2 : A(0);
     if (Phase == kLfOpen) {
-      const T vplus = (vt + h * force) / (one + h * d);
+      // u1 drifts with v+ as stored (bf16 rounds it), the v+ CLOSE reads
+      const T vplus = narrow<T>((vt + h * force) / (one + h * d));
       a.v_out[idx] = vplus;
-      a.u_out[idx] = q[P] + dt * vplus;
+      a.u_out[idx] = narrow<T>(q[P] + dt * widen(vplus));
     } else {
-      const T v1 = (one - h * d) * vt + h * force;
+      const A v1 = (one - h * d) * vt + h * force;
       if (Phase == kLfClose) {
-        a.v_out[idx] = v1;
+        a.v_out[idx] = narrow<T>(v1);
       } else {
-        const T vplus = (v1 + h * force) / (one + h * d);
+        const T vplus = narrow<T>((v1 + h * force) / (one + h * d));
         a.v_out[idx] = vplus;
-        a.u_out[idx] = q[P] + dt * vplus;
+        a.u_out[idx] = narrow<T>(q[P] + dt * widen(vplus));
       }
     }
   }
@@ -240,8 +250,9 @@ int launch_lf_phase_tiled(int phase, Stencil<T> s, LfArgs<T> a, Tiling t,
       int p, int Lx, int Ly, int Lz, int x0, int nx, int h, int ny, int nz,   \
       int ty, int tz, int cx, int gx, int gy, int gz, int smem,               \
       int padding_first, cudaStream_t stream) {                               \
-    wave::LfArgs<T> a{u, v, u_out, v_out, w1, w2, src_x, abc_x, (T)dt, (T)g,  \
-                      (T)(c0 * c0), (T)c0, padding_first != 0};               \
+    using A = wave::Acc<T>;                                                   \
+    wave::LfArgs<T> a{u, v, u_out, v_out, w1, w2, src_x, abc_x, (A)dt, (A)g,  \
+                      (A)(c0 * c0), (A)c0, padding_first != 0};               \
     wave::Stencil<T> s{cvx, sx, fx, cvy, cvz, p, Lx, Ly, Lz,                  \
                        x0, nx, h, ny, nz};                                    \
     return wave::launch_lf_phase_tiled<T>(phase, s, a,                        \
@@ -251,3 +262,4 @@ int launch_lf_phase_tiled(int phase, Stencil<T> s, LfArgs<T> a, Tiling t,
 
 WAVE_DEFINE_LF_PHASE_TILED(float, f32)
 WAVE_DEFINE_LF_PHASE_TILED(double, f64)
+WAVE_DEFINE_LF_PHASE_TILED(__nv_bfloat16, bf16)

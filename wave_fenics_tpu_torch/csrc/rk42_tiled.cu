@@ -60,6 +60,16 @@
 // 5 % faster than first at the P1 size, where the tile blocks take two
 // waves). P is a template parameter (p = 1..8).
 //
+// bf16 state (T = __nv_bfloat16; f32 and f64 take the same code with
+// Acc<T> = T): the five fields in, the three out and the tables are bf16
+// (BFLOAT16 tensor maps), the arithmetic and dt, g and the c0 terms
+// float32, as in kernel C's stages (rk4_tiled.cu). The formed planes hold
+// un3 and u1 rounded once, as kernel C stores a stage input and u1; kv3
+// stays float32 (it is never stored); v1 is rounded once and kv0' takes
+// its face term from v1 as stored, the v1 step 2's stages read; kv0' is
+// rounded once. u1, v1 and kv0' are then the ones two kernel-C steps
+// store. A plane's five boxes take f32's ring of three.
+//
 // The extern "C" launcher returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a tiling that does not fit the layout, too
 // little shared memory, an output that aliases an input, or a tensor map that
@@ -75,7 +85,7 @@ namespace wave {
 // planes in the boundary kernel's TMA ring: five boxes a plane
 template <typename T>
 __host__ __device__ constexpr int boundary_ring() {
-  return sizeof(T) == 4 ? 3 : 2;
+  return sizeof(T) == 8 ? 2 : 3;
 }
 
 template <typename T>
@@ -91,7 +101,7 @@ struct BoundaryArgs {
   const T* w1;
   const T* w2;
   int src_x, abc_x;
-  T dt, g, c0sq, mc0;
+  Acc<T> dt, g, c0sq, mc0;  // in the arithmetic type: f32 for bf16 state
 };
 
 template <typename T, int P>
@@ -102,15 +112,16 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
                                const __grid_constant__ CUtensorMap m_kv1,
                                const __grid_constant__ CUtensorMap m_kv2,
                                Stencil<T> s, BoundaryArgs<T> a, Tiling t) {
+  using A = Acc<T>;
   constexpr int K = 2 * P + 1;
   constexpr int R = boundary_ring<T>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   long long pb, npb;
   if (padding_block(s, t, pb, npb)) {  // the grid's last layer: the outputs' padding
     for_each_padding<1>(s, t, pb, npb, [a](const int (&i)[1], int) {
-      a.u1[i[0]] = T(0);
-      a.v1[i[0]] = T(0);
-      a.kv0_out[i[0]] = T(0);
+      a.u1[i[0]] = zero<T>();
+      a.v1[i[0]] = zero<T>();
+      a.kv0_out[i[0]] = zero<T>();
     });
     return;
   }
@@ -130,19 +141,19 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
   }
   ColumnTables<T, P> tab;
   tab.load(s, c.f, c.active);
-  const T w1 = c.active ? a.w1[c.f] : T(0);
-  const T w2 = c.active ? a.w2[c.f] : T(0);
-  T q3[K], q1[K];  // un3 and u1 at row gi - 2P + k after plane gi
+  const A w1 = c.active ? widen(a.w1[c.f]) : A(0);
+  const A w2 = c.active ? widen(a.w2[c.f]) : A(0);
+  A q3[K], q1[K];  // un3 and u1 at row gi - 2P + k after plane gi
 #pragma unroll
-  for (int k = 0; k < K; ++k) q3[k] = q1[k] = T(0);
-  T yz3q[P], yz1q[P];  // their y/z sums at row gi - P + 1 + j after plane gi
+  for (int k = 0; k < K; ++k) q3[k] = q1[k] = A(0);
+  A yz3q[P], yz1q[P];  // their y/z sums at row gi - P + 1 + j after plane gi
 #pragma unroll
-  for (int j = 0; j < P; ++j) yz3q[j] = yz1q[j] = T(0);
+  for (int j = 0; j < P; ++j) yz3q[j] = yz1q[j] = A(0);
 
-  const T dt = a.dt;
-  const T hdt = T(0.5) * dt;
-  const T b0 = T(1.0 / 6.0);
-  const T b1 = T(1.0 / 3.0);
+  const A dt = a.dt;
+  const A hdt = A(0.5) * dt;
+  const A b0 = A(1.0 / 6.0);
+  const A b1 = A(1.0 / 3.0);
   const int F = s.F();
   const int W = w.W;
   const int box = w.box;
@@ -152,17 +163,17 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
   const int co = (c.ly + P) * W + (c.lz + P + w.oz);  // the column in a box
   // v0, kv0, kv1, kv2 at the output row of this plane (pt) and of the next
   // (pn): loaded a plane ahead, so their latency hides behind a plane
-  T pt[4], pn[4] = {T(0), T(0), T(0), T(0)};
+  A pt[4], pn[4] = {A(0), A(0), A(0), A(0)};
   for (int i = 0; i < iters; ++i) {
     const int gi = c.xs - P + i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) pt[j] = pn[j];
     if (c.active && i + 1 >= 2 * P && i + 1 < iters) {
       const long long nidx = (long long)(gi + 1 - P) * F + c.f;
-      pn[0] = a.v0[nidx];
-      pn[1] = a.kv0[nidx];
-      pn[2] = a.kv1[nidx];
-      pn[3] = a.kv2[nidx];
+      pn[0] = widen(a.v0[nidx]);
+      pn[1] = widen(a.kv0[nidx]);
+      pn[2] = widen(a.kv1[nidx]);
+      pn[3] = widen(a.kv2[nidx]);
     }
     ring.wait(i);
     const T* sl = ring.slot(i);
@@ -171,16 +182,16 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     for (int e = (int)threadIdx.x; e < npt; e += nt) {
       const int r = e / WF;
       const int j = r * W + w.oz + (e - r * WF);
-      const T u0 = sl[j];
-      const T v0 = sl[box + j];
-      const T k0 = sl[2 * box + j];
-      const T k1 = sl[3 * box + j];
-      const T k2 = sl[4 * box + j];
-      f3[j] = u0 + dt * (v0 + hdt * k1);
-      const T vn1 = v0 + hdt * k0;
-      const T vn2 = v0 + hdt * k1;
-      const T vn3 = v0 + dt * k2;
-      f1[j] = u0 + dt * (((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3);
+      const A u0 = widen(sl[j]);
+      const A v0 = widen(sl[box + j]);
+      const A k0 = widen(sl[2 * box + j]);
+      const A k1 = widen(sl[3 * box + j]);
+      const A k2 = widen(sl[4 * box + j]);
+      f3[j] = narrow<T>(u0 + dt * (v0 + hdt * k1));  // bf16 rounds un3, u1
+      const A vn1 = v0 + hdt * k0;
+      const A vn2 = v0 + hdt * k1;
+      const A vn3 = v0 + dt * k2;
+      f1[j] = narrow<T>(u0 + dt * (((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3));
     }
     __syncthreads();  // un3 and u1 of plane gi are complete, and every
                       // thread is past plane gi - 1: refill its slot
@@ -194,13 +205,13 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
       q3[k] = q3[k + 1];
       q1[k] = q1[k + 1];
     }
-    q3[K - 1] = c3[0];
-    q1[K - 1] = c1[0];
+    q3[K - 1] = widen(c3[0]);
+    q1[K - 1] = widen(c1[0]);
     const bool in = c.active && gi >= c.xs && gi < c.xe;
-    const T yz3_new = in ? tab.yz(c3, W) : T(0);
-    const T yz1_new = in ? tab.yz(c1, W) : T(0);
-    const T yz3 = yz3q[0];
-    const T yz1 = yz1q[0];
+    const A yz3_new = in ? tab.yz(c3, W) : A(0);
+    const A yz1_new = in ? tab.yz(c1, W) : A(0);
+    const A yz3 = yz3q[0];
+    const A yz1 = yz1q[0];
 #pragma unroll
     for (int j = 0; j < P - 1; ++j) {
       yz3q[j] = yz3q[j + 1];
@@ -212,18 +223,18 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     if (i < 2 * P || !c.active) continue;
     const int g = gi - P;  // the output row
     const long long idx = (long long)g * F + c.f;
-    const T sxg = __ldg(&s.sx[g]);
-    T kv3 = x_taps<T, P>(s, q3, g) * tab.fx + yz3 * sxg;
+    const A sxg = widen(__ldg(&s.sx[g]));
+    A kv3 = x_taps<A, P>(s, q3, g) * tab.fx + yz3 * sxg;
     if (g == a.src_x) kv3 += (a.c0sq * a.g) * w1;
     if (g == a.abc_x) kv3 += (a.mc0 * w2) * (pt[0] + dt * pt[3]);
-    const T accv = ((b0 * pt[1] + b1 * pt[2]) + b1 * pt[3]) + b0 * kv3;
-    const T v1 = pt[0] + dt * accv;
-    T kv = x_taps<T, P>(s, q1, g) * tab.fx + yz1 * sxg;
+    const A accv = ((b0 * pt[1] + b1 * pt[2]) + b1 * pt[3]) + b0 * kv3;
+    const T v1 = narrow<T>(pt[0] + dt * accv);
+    A kv = x_taps<A, P>(s, q1, g) * tab.fx + yz1 * sxg;
     if (g == a.src_x) kv += (a.c0sq * a.g) * w1;
-    if (g == a.abc_x) kv += (a.mc0 * w2) * v1;
-    a.u1[idx] = q1[P];
+    if (g == a.abc_x) kv += (a.mc0 * w2) * widen(v1);  // v1 as stored
+    a.u1[idx] = narrow<T>(q1[P]);
     a.v1[idx] = v1;
-    a.kv0_out[idx] = kv;
+    a.kv0_out[idx] = narrow<T>(kv);
   }
 }
 
@@ -295,9 +306,10 @@ int launch_rk42_boundary_tiled(Stencil<T> s, BoundaryArgs<T> a, Tiling t,
       const T* fx, const T* cvy, const T* cvz, int p, int Lx, int Ly, int Lz, \
       int x0, int nx, int h, int ny, int nz, int ty, int tz, int cx, int gx,  \
       int gy, int gz, int smem, cudaStream_t stream) {                        \
+    using A = wave::Acc<T>;                                                   \
     wave::BoundaryArgs<T> a{u0, v0, kv0, kv1, kv2, u1, v1, kv0_out, w1, w2,  \
-                            src_x, abc_x, (T)dt, (T)g, (T)(c0 * c0),          \
-                            (T)(-c0)};                                        \
+                            src_x, abc_x, (A)dt, (A)g, (A)(c0 * c0),          \
+                            (A)(-c0)};                                        \
     wave::Stencil<T> s{cvx, sx, fx, cvy, cvz, p, Lx, Ly, Lz,                  \
                        x0, nx, h, ny, nz};                                    \
     return wave::launch_rk42_boundary_tiled<T>(                               \
@@ -306,3 +318,4 @@ int launch_rk42_boundary_tiled(Stencil<T> s, BoundaryArgs<T> a, Tiling t,
 
 WAVE_DEFINE_RK42_BOUNDARY_TILED(float, f32)
 WAVE_DEFINE_RK42_BOUNDARY_TILED(double, f64)
+WAVE_DEFINE_RK42_BOUNDARY_TILED(__nv_bfloat16, bf16)

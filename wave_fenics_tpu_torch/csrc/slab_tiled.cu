@@ -36,7 +36,11 @@
 // (padding_block) while the tile blocks stream. P is a template parameter
 // (p = 1..10)
 // so the queues and tables are registers; the launch bounds ask for two
-// 256-thread blocks an SM in f32.
+// 256-thread blocks an SM in f32 and bf16.
+//
+// bf16 state (T = __nv_bfloat16; f32 and f64 take the same code with
+// Acc<T> = T): x, y and the six tables are bf16 (a BFLOAT16 tensor map),
+// the taps and sums float32 (stencil_tiled.cuh::Acc), y rounded once.
 //
 // The extern "C" launcher returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a tiling that does not fit the layout or a
@@ -53,12 +57,13 @@ template <typename T, int P>
 __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     apply_slab_tiled_kernel(const __grid_constant__ CUtensorMap xmap,
                             T* __restrict__ y, SlabStencil<T> s, Tiling t) {
+  using A = Acc<T>;
   constexpr int K = 2 * P + 1;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   long long pb, npb;
   if (padding_block(s, t, pb, npb)) {  // the grid's last layer: y's padding
     for_each_padding<1>(s, t, pb, npb,
-                        [y](const int (&i)[1], int) { y[i[0]] = T(0); });
+                        [y](const int (&i)[1], int) { y[i[0]] = zero<T>(); });
     return;
   }
 
@@ -74,19 +79,19 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     }
   }
 
-  T cy[K], cz[K];
+  A cy[K], cz[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    cy[k] = c.active ? __ldg(&s.cvy[k * s.Ly + c.y]) : T(0);
-    cz[k] = c.active ? __ldg(&s.cvz[k * s.Lz + c.z]) : T(0);
+    cy[k] = c.active ? widen(__ldg(&s.cvy[k * s.Ly + c.y])) : A(0);
+    cz[k] = c.active ? widen(__ldg(&s.cvz[k * s.Lz + c.z])) : A(0);
   }
-  const T lyz = c.active ? __ldg(&s.lyz[c.y * s.Lz + c.z]) : T(0);
-  T q[K];  // q[k] = x at row gi - 2P + k after plane gi
+  const A lyz = c.active ? widen(__ldg(&s.lyz[c.y * s.Lz + c.z])) : A(0);
+  A q[K];  // q[k] = x at row gi - 2P + k after plane gi
 #pragma unroll
-  for (int k = 0; k < K; ++k) q[k] = T(0);
-  T yq[P], zq[P];  // ty lxz and tz lxy at row gi - P + 1 + j after plane gi
+  for (int k = 0; k < K; ++k) q[k] = A(0);
+  A yq[P], zq[P];  // ty lxz and tz lxy at row gi - P + 1 + j after plane gi
 #pragma unroll
-  for (int j = 0; j < P; ++j) yq[j] = zq[j] = T(0);
+  for (int j = 0; j < P; ++j) yq[j] = zq[j] = A(0);
 
   const int F = s.F();
   const int W = w.W;
@@ -101,24 +106,24 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     const T* ctr = ring.slot(i) + co;
 #pragma unroll
     for (int k = 0; k < K - 1; ++k) q[k] = q[k + 1];
-    q[K - 1] = ctr[0];
-    T ty = T(0), tz = T(0);
+    q[K - 1] = widen(ctr[0]);
+    A ty = A(0), tz = A(0);
     if (c.active && gi >= c.xs && gi < c.xe) {
-      ty = cy[P] * ctr[0];
+      ty = cy[P] * q[K - 1];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        if (k != P) ty += cy[k] * ctr[(k - P) * W];
+        if (k != P) ty += cy[k] * widen(ctr[(k - P) * W]);
       }
-      tz = cz[P] * ctr[0];
+      tz = cz[P] * q[K - 1];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        if (k != P) tz += cz[k] * ctr[k - P];
+        if (k != P) tz += cz[k] * widen(ctr[k - P]);
       }
-      ty *= __ldg(&s.lxz[(long long)gi * s.Lz + c.z]);
-      tz *= __ldg(&s.lxy[(long long)gi * s.Ly + c.y]);
+      ty *= widen(__ldg(&s.lxz[(long long)gi * s.Lz + c.z]));
+      tz *= widen(__ldg(&s.lxy[(long long)gi * s.Ly + c.y]));
     }
-    const T ay = yq[0];
-    const T az = zq[0];
+    const A ay = yq[0];
+    const A az = zq[0];
 #pragma unroll
     for (int j = 0; j < P - 1; ++j) {
       yq[j] = yq[j + 1];
@@ -129,8 +134,8 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
 
     if (i < 2 * P || !c.active) continue;
     const int g = gi - P;  // the output row
-    const T tx = x_taps<T, P>(s, q, g);
-    y[(long long)g * F + c.f] = (tx * lyz + ay) + az;
+    const A tx = x_taps<A, P>(s, q, g);
+    y[(long long)g * F + c.f] = narrow<T>((tx * lyz + ay) + az);
   }
 }
 
@@ -195,3 +200,4 @@ int launch_apply_slab_tiled(const T* x, T* y, SlabStencil<T> s, Tiling t,
 
 WAVE_DEFINE_SLAB_TILED(float, f32)
 WAVE_DEFINE_SLAB_TILED(double, f64)
+WAVE_DEFINE_SLAB_TILED(__nv_bfloat16, bf16)

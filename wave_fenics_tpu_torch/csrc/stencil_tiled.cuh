@@ -44,7 +44,8 @@ namespace wave {
 // ---------------------------------------------------------------------------
 // Storage and arithmetic types. The state, the stage fields and the tables
 // are stored as T; the arithmetic runs in Acc<T>: T itself for float and
-// double, float for __nv_bfloat16 (bf16 state: kernels A, C, B, D and F).
+// double, float for __nv_bfloat16 (bf16 state: kernels A to F, H, I and
+// J).
 // Every load of a T widens to Acc<T> (widen) and every store rounds once
 // (narrow<T>, round to nearest even), so no bf16 arithmetic rounds a
 // partial sum.

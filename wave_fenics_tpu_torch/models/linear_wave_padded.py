@@ -41,11 +41,12 @@ float64 the two agree; in bf16 its fused solvers' source never switches on
 (a bf16 t rounds the window to 0), where this one's does.
 
 bf16 state (``base.dtype == torch.bfloat16``): the tables rounded once
-from float64 (the JAX package's bf16 tables bit for bit), ``solve_step_n``
-on kernel A (C with ``lean=False``), ``solve_fused_n`` on D and
-``solve_n`` on B; the leapfrog and 2-step paths (kernels H, I, J) are
-unavailable, naming bf16 (``ops._cuda.KERNELS``), and the 3D-slab
-layout (kernel E) raises.
+from float64 (the JAX package's bf16 tables bit for bit) and every path
+above on its kernel's bf16 form (``ops._cuda.KERNELS``): ``solve_step_n``
+on kernel A (C with ``lean=False``), ``solve_fused_n`` on D,
+``solve_lf_n`` on H, ``solve_lf2_n`` on I, ``solve_step2_n`` on J, and
+``solve_n``/``force`` on B, or on E in the 3D-slab layout, with eager bf16
+vector algebra around them as the JAX package's bf16 ``solve_n`` has.
 
 Not ported (ROADMAP.md): the ``*_dyn`` solvers (a traced step count has no
 use in eager PyTorch: the ``*_n`` solvers take any count).
@@ -124,9 +125,6 @@ class PaddedLinearWave(nn.Module):
             raise ValueError(f"kernel = {kernel!r}: 'flat' or '3d'")
         self.base = b
         self.kernel = "3d" if kernel == "3d" or b.p > 8 else "flat"
-        if self.kernel == "3d":
-            _cuda.require_bf16(b.dtype, f"the 3D-slab layout (kernel={kernel!r}, "
-                               f"p = {b.p})", "E")
         shape = tuple(n * b.p + 1 for n in b.mesh.shape)
         if self.kernel == "flat":
             self.layout = PaddedLayout(
@@ -175,8 +173,7 @@ class PaddedLinearWave(nn.Module):
         self.rk42_unavailable = self._unavailable(planes, rk42step._off0(b.p), "6p")
         if b.dtype == torch.bfloat16:  # a kernel with no bf16 instantiation
             for attr, kernel in (("step_unavailable", "A" if lean else "C"),
-                                 ("stage_unavailable", "D"), ("lf_unavailable", "H"),
-                                 ("lf2_unavailable", "I"), ("rk42_unavailable", "J")):
+                                 ("stage_unavailable", "D")):
                 setattr(self, attr, _cuda.bf16_unported(kernel) or getattr(self, attr))
         if planes is not None:
             w1, w2, self.src_x, self.abc_x = planes

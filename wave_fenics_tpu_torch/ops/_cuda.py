@@ -103,14 +103,14 @@ KERNELS = {
     "B": ("wave_apply_flat_tiled", "csrc/flat_tiled.cu", True),
     "D": ("wave_rk_stage_tiled", "csrc/rk_stage_tiled.cu", True),
     "F": ("wave_stiffness_tiled", "csrc/stiffness_tiled.cu", True),
-    "E": ("wave_apply_slab_tiled", "csrc/slab_tiled.cu", False),
+    "E": ("wave_apply_slab_tiled", "csrc/slab_tiled.cu", True),
     "G": ("wave_mass_tiled", "csrc/mass_tiled.cu", False),
-    "H": ("wave_lf_phase_tiled", "csrc/lf_tiled.cu", False),
-    "I": ("wave_lf_phase_tiled", "csrc/lf_tiled.cu", False),
-    "J": ("wave_rk42_boundary_tiled", "csrc/rk42_tiled.cu", False),
+    "H": ("wave_lf_phase_tiled", "csrc/lf_tiled.cu", True),
+    "I": ("wave_lf_phase_tiled", "csrc/lf_tiled.cu", True),
+    "J": ("wave_rk42_boundary_tiled", "csrc/rk42_tiled.cu", True),
     "K": ("wave_general_apply", "csrc/general_kernels.cu", False),
 }
-BF16_KERNELS = tuple(k for k, (_, _, bf16) in KERNELS.items() if bf16)
+BF16_KERNELS = tuple(sorted(k for k, (_, _, bf16) in KERNELS.items() if bf16))
 BF16_LAUNCHERS = frozenset(KERNELS[k][0] for k in BF16_KERNELS)
 #: the refusal of every sharded path (blocks on one card or on several)
 BF16_SHARDED = "the sharded paths (kernels on blocks and value-halo layouts) have no bf16 port"
@@ -119,8 +119,8 @@ BF16_SHARDED = "the sharded paths (kernels on blocks and value-halo layouts) hav
 def bf16_refusal(what: str) -> str:
     """Why ``what`` refuses a bf16 state, with the kernels that take one."""
     ks = ", ".join(BF16_KERNELS[:-1]) + " and " + BF16_KERNELS[-1]
-    return (f"bf16 state: {what} (bf16 state runs the box's RK4 path on one "
-            f"device, kernels {ks})")
+    return (f"bf16 state: {what} (bf16 state runs the box's paths on one "
+            f"device, on kernels {ks})")
 
 
 def bf16_unported(*kernels: str) -> str | None:

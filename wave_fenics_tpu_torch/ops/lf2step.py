@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..convert import numpy_dtype
+from ..convert import as_table
 from . import _cuda
 from .lfstep import (
     LF_CLOSE,
@@ -107,7 +107,6 @@ def build_lf2_tables_from_cv(
     off0 = _off0(p)
     S0 = Tx + 2 * off0
     F = Ly * Lz
-    npdt = numpy_dtype(dtype)
 
     ntiles = Lx // Tx
     oA, oB, oC = off0 - 2 * p, off0 - p, off0
@@ -122,14 +121,14 @@ def build_lf2_tables_from_cv(
                 if 0 <= g < Lx:
                     for k in range(K):
                         W[t, r, r + k] = cvx[k, g]
-        bands.append(W.astype(npdt))
+        bands.append(as_table(W, dtype))
     WXA, WXB, WXC = bands
 
     gz = np.tile(pLz, Ly).reshape(1, F)
     gy = np.repeat(pLy, Lz).reshape(1, F)
-    CVY = (np.repeat(cvy, Lz, axis=1) * gz).astype(npdt)
-    CVZ = (np.tile(cvz, (1, Ly)) * gy).astype(npdt)
-    FX = np.outer(pLy, pLz).reshape(1, F).astype(npdt)
+    CVY = as_table(np.repeat(cvy, Lz, axis=1) * gz, dtype)
+    CVZ = as_table(np.tile(cvz, (1, Ly)) * gy, dtype)
+    FX = as_table(np.outer(pLy, pLz).reshape(1, F), dtype)
 
     SXS = np.zeros((ntiles, S0, 1))
     SRC = np.zeros((ntiles, S0, 1))
@@ -143,10 +142,10 @@ def build_lf2_tables_from_cv(
                 SRC[t, r, 0] = 1.0 if g == src_x else 0.0
                 ABC[t, r, 0] = 1.0 if g == abc_x else 0.0
 
-    W1 = np.asarray(w1_flat).reshape(1, F).astype(npdt)
-    W2 = np.asarray(w2_flat).reshape(1, F).astype(npdt)
+    W1 = as_table(np.asarray(w1_flat).reshape(1, F), dtype)
+    W2 = as_table(np.asarray(w2_flat).reshape(1, F), dtype)
     return (WXA, WXB, WXC, CVY, CVZ, FX,
-            SXS.astype(npdt), SRC.astype(npdt), ABC.astype(npdt), W1, W2)
+            *(as_table(t, dtype) for t in (SXS, SRC, ABC)), W1, W2)
 
 
 class LF2Tables(NamedTuple):
@@ -178,7 +177,9 @@ def lf2_step_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two leapfrog steps on padded [Lx, Ly, Lz] states, mirroring
     ``_kernel_lf2_step`` tile by tile (gj = g(t + j dt)); the all-pad tiles
-    are zeros."""
+    are zeros. A bf16 call runs in float32 and rounds where kernel I's
+    phases store: v+1 and u1 in OPEN, v+2 and u2 in MID (each u from its v+
+    as stored; MID's v1 is never stored), v2 at the end."""
     p = layout.p
     check_lf_layout(layout, _off0(p), "3p")
     ts = _TileStep(u0, v0, dt, (g0, g1, g2), layout, c0, LF2Tables(*tables),
@@ -194,8 +195,9 @@ def lf2_step_plain(
         # step 1 on the A-window
         F0 = lt.force(t, lt.apply_A(t, U0[oA - p : oA - p + nA + 2 * p], tb.WXA,
                                     oA, nA), ts.g[0], oA, nA)
-        vplus1 = (V0[oA : oA + nA] + dt2 * F0) / (one + dt2 * lt.damp(t, oA, nA))
-        u1 = U0[oA : oA + nA] + dt_ * vplus1
+        vplus1 = ts.stored((V0[oA : oA + nA] + dt2 * F0)
+                           / (one + dt2 * lt.damp(t, oA, nA)))
+        u1 = ts.stored(U0[oA : oA + nA] + dt_ * vplus1)
 
         # step boundary: F1 once on the B-window
         sAB = oB - oA
@@ -204,8 +206,8 @@ def lf2_step_plain(
         v1 = (one - dt2 * DB) * vplus1[sAB : sAB + nB] + dt2 * F1
 
         # step 2 on the B-window
-        vplus2 = (v1 + dt2 * F1) / (one + dt2 * DB)
-        u2w = u1[sAB : sAB + nB] + dt_ * vplus2
+        vplus2 = ts.stored((v1 + dt2 * F1) / (one + dt2 * DB))
+        u2w = ts.stored(u1[sAB : sAB + nB] + dt_ * vplus2)
 
         # close step 2 on the output rows
         sBC = oC - oB

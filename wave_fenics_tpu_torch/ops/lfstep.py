@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..convert import numpy_dtype
+from ..convert import as_table
 from . import _cuda, tiling
 from .rk4step import _TileStep
 from .wave import (
@@ -117,7 +117,6 @@ def build_lf_tables_from_cv(
     off0 = _off0(p)
     S0 = Tx + 2 * off0
     F = Ly * Lz
-    npdt = numpy_dtype(dtype)
 
     ntiles = Lx // Tx
     o1, o0 = off0 - p, off0
@@ -132,14 +131,14 @@ def build_lf_tables_from_cv(
                 if 0 <= g < Lx:
                     for k in range(K):
                         W[t, r, r + k] = cvx[k, g]
-        bands.append(W.astype(npdt))
+        bands.append(as_table(W, dtype))
     WXB, WXC = bands
 
     gz = np.tile(pLz, Ly).reshape(1, F)
     gy = np.repeat(pLy, Lz).reshape(1, F)
-    CVY = (np.repeat(cvy, Lz, axis=1) * gz).astype(npdt)
-    CVZ = (np.tile(cvz, (1, Ly)) * gy).astype(npdt)
-    FX = np.outer(pLy, pLz).reshape(1, F).astype(npdt)
+    CVY = as_table(np.repeat(cvy, Lz, axis=1) * gz, dtype)
+    CVZ = as_table(np.tile(cvz, (1, Ly)) * gy, dtype)
+    FX = as_table(np.outer(pLy, pLz).reshape(1, F), dtype)
 
     SXS = np.zeros((ntiles, S0, 1))
     SRC = np.zeros((ntiles, S0, 1))
@@ -153,10 +152,10 @@ def build_lf_tables_from_cv(
                 SRC[t, r, 0] = 1.0 if g == src_x else 0.0
                 ABC[t, r, 0] = 1.0 if g == abc_x else 0.0
 
-    W1 = np.asarray(w1_flat).reshape(1, F).astype(npdt)
-    W2 = np.asarray(w2_flat).reshape(1, F).astype(npdt)
+    W1 = as_table(np.asarray(w1_flat).reshape(1, F), dtype)
+    W2 = as_table(np.asarray(w2_flat).reshape(1, F), dtype)
     return (WXB, WXC, CVY, CVZ, FX,
-            SXS.astype(npdt), SRC.astype(npdt), ABC.astype(npdt), W1, W2)
+            *(as_table(t, dtype) for t in (SXS, SRC, ABC)), W1, W2)
 
 
 class LFTables(NamedTuple):
@@ -219,7 +218,9 @@ def lf_step_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One leapfrog step on padded [Lx, Ly, Lz] states, mirroring
     ``_kernel_lf_step`` tile by tile (g0 = g(t), g1 = g(t + dt)); the
-    all-pad tiles are zeros."""
+    all-pad tiles are zeros. A bf16 step runs in float32 and rounds where
+    kernel H's phases store: v+ and u1 (formed from v+ as stored) in OPEN,
+    v1 and u1 at the end."""
     p = layout.p
     check_lf_layout(layout, _off0(p), "2p")
     ts = _TileStep(u0, v0, dt, (g0, g1), layout, c0, LFTables(*tables), _off0(p))
@@ -233,8 +234,9 @@ def lf_step_plain(
         # half-kick (implicit) + drift on the p-deep window
         F0 = lt.force(t, lt.apply_A(t, U0[o1 - p : o1 - p + n1 + 2 * p], tb.WXB,
                                     o1, n1), ts.g[0], o1, n1)
-        vplus = (V0[o1 : o1 + n1] + dt2 * F0) / (one + dt2 * lt.damp(t, o1, n1))
-        u1w = U0[o1 : o1 + n1] + dt_ * vplus
+        vplus = ts.stored((V0[o1 : o1 + n1] + dt2 * F0)
+                          / (one + dt2 * lt.damp(t, o1, n1)))
+        u1w = ts.stored(U0[o1 : o1 + n1] + dt_ * vplus)
         # second (explicit) half-kick on the output rows
         F1 = lt.force(t, lt.apply_A(t, u1w, tb.WXC, o0, n0), ts.g[1], o0, n0)
         s = o0 - o1

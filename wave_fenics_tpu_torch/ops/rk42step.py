@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from ..convert import acc_dtype, stored, widen
 from . import _cuda, tiling
 from .rk4step import stage_launch_args
 from .wave import (
@@ -61,9 +62,10 @@ BOUNDARY_FIELDS, BOUNDARY_EXTRA = 5, 4
 
 def boundary_ring(itemsize: int) -> int:
     """Planes in the step-boundary kernel's TMA ring
-    (``csrc/rk42_tiled.cu::boundary_ring<T>``): three in f32, two in f64,
-    so that five boxes a plane leave room for the blocks an SM holds."""
-    return 3 if itemsize == 4 else 2
+    (``csrc/rk42_tiled.cu::boundary_ring<T>``): two in f64, three in f32
+    and bf16, so that five boxes a plane leave room for the blocks an SM
+    holds."""
+    return 2 if itemsize == 8 else 3
 
 
 def _off0(p: int) -> int:
@@ -113,32 +115,41 @@ def _masked(x: torch.Tensor, layout: PaddedLayout, ring: int) -> torch.Tensor:
 def _phases(like: torch.Tensor, dt: float, layout: PaddedLayout, c0: float,
             st: StencilTables, w1: torch.Tensor, w2: torch.Tensor, src_x: int,
             abc_x: int):
-    """(kv_of, stage, combine) of the plain version, on ``like``'s dtype and
-    device: kv_of(un, vn, g, ring=0) = A un + c0^2 g W1 - c0 W2 vn (the
-    face terms on their rows) on the interior grown by ``ring``, 0 beyond;
-    stage(j, u, v, k0, k1, k2, g, ring=0), kernel C's stage j from (u, v)
-    and the earlier stages' kv; combine(u, v, k0, k1, k2, k3), the
-    full-tableau (u1, v1) at every point."""
+    """(kv_of, stage, combine) of the plain version on ``like``'s device, in
+    its arithmetic type (``convert.acc_dtype``: float32 for a bf16 state,
+    as kernel C's stages and the boundary kernel compute), on fields in that
+    type: kv_of(un, vn, g, ring=0, store=True) = A un + c0^2 g W1 - c0 W2 vn
+    (the face terms on their rows) on the interior grown by ``ring``, 0
+    beyond; stage(j, u, v, k0, k1, k2, g, ring=0, store=True), kernel C's
+    stage j from (u, v) and the earlier stages' kv, its input un rounded as
+    the kernel stores it in its plane ring; combine(u, v, k0, k1, k2, k3),
+    the full-tableau (u1, v1) at every point. ``store``: the kv rounded as
+    the kernel stores it (a bf16 state's only; kv3 is never stored)."""
     Lx = layout.padded_shape[0]
-    sc = lambda x: torch.tensor(x, dtype=like.dtype, device=like.device)  # noqa: E731
+    dtype = like.dtype
+    st = StencilTables(*widen(*st))
+    w1, w2 = widen(w1, w2)
+    sc = lambda x: torch.tensor(x, dtype=acc_dtype(dtype), device=like.device)  # noqa: E731
+    rnd = lambda x: stored(x, dtype)  # noqa: E731
     dt_ = sc(dt)
     a = sc(0.5) * dt_
     c0sq, mc0 = sc(c0 * c0), sc(-c0)
     b0, b1 = sc(_B[0]), sc(_B[1])
 
-    def kv_of(un, vn, g, ring=0):
+    def kv_of(un, vn, g, ring=0, store=True):
         kv = apply_stencil_plain(un, layout, st, ring)
         k2, vn2 = kv.view(Lx, -1), vn.reshape(Lx, -1)
         k2[src_x] += (c0sq * sc(g)) * w1[0]
         k2[abc_x] += (mc0 * w2[0]) * vn2[abc_x]
-        return _masked(kv, layout, ring)
+        kv = _masked(kv, layout, ring)
+        return rnd(kv) if store else kv
 
-    def stage(j, u, v, k0, k1, k2, g, ring=0):
+    def stage(j, u, v, k0, k1, k2, g, ring=0, store=True):
         if j == 1:
-            return kv_of(u + a * v, v + a * k0, g, ring)
+            return kv_of(rnd(u + a * v), v + a * k0, g, ring, store)
         if j == 2:
-            return kv_of(u + a * (v + a * k0), v + a * k1, g, ring)
-        return kv_of(u + dt_ * (v + a * k1), v + dt_ * k2, g, ring)
+            return kv_of(rnd(u + a * (v + a * k0)), v + a * k1, g, ring, store)
+        return kv_of(rnd(u + dt_ * (v + a * k1)), v + dt_ * k2, g, ring, store)
 
     def combine(u, v, k0, k1, k2, k3):
         vn1, vn2, vn3 = v + a * k0, v + a * k1, v + dt_ * k2
@@ -147,6 +158,15 @@ def _phases(like: torch.Tensor, dt: float, layout: PaddedLayout, c0: float,
         return u + dt_ * accu, v + dt_ * accv
 
     return kv_of, stage, combine
+
+
+def _boundary(phases, dtype, u0, v0, kv0, kv1, kv2, g, ring):
+    """The step boundary on fields in the arithmetic type: kv3 (never
+    stored), (u1, v1) rounded as stored, and kv0' from them."""
+    kv_of, stage, combine = phases
+    kv3 = stage(3, u0, v0, kv0, kv1, kv2, g, ring, store=False)
+    u1, v1 = (stored(x, dtype) for x in combine(u0, v0, kv0, kv1, kv2, kv3))
+    return u1, v1, kv_of(u1, v1, g, ring)
 
 
 def rk42_boundary_plain(
@@ -172,13 +192,15 @@ def rk42_boundary_plain(
     full-tableau (u1, v1) and step 2's stage 0, kv0' = A u1 + faces, on
     the interior grown by ``ring`` and 0 beyond. kv0' reads at its taps the
     u1 formed from the inputs as they are in memory, as the kernel forms
-    it in its plane windows. Returns (u1, v1, kv0')."""
+    it in its plane windows. A bf16 state runs in float32 and rounds where
+    the kernel stores: un3, u1 and v1 (kv0' from them as stored), kv0'.
+    Returns (u1, v1, kv0')."""
     _check_layout(layout)
-    kv_of, stage, combine = _phases(u0, dt, layout, c0, st, w1, w2, src_x, abc_x)
-    kv3 = stage(3, u0, v0, kv0, kv1, kv2, g, ring)
-    u1, v1 = combine(u0, v0, kv0, kv1, kv2, kv3)
-    kv0n = kv_of(u1, v1, g, ring)
-    return _masked(u1, layout, ring), _masked(v1, layout, ring), kv0n
+    dtype = u0.dtype
+    phases = _phases(u0, dt, layout, c0, st, w1, w2, src_x, abc_x)
+    u1, v1, kv0n = _boundary(phases, dtype, *widen(u0, v0, kv0, kv1, kv2), g, ring)
+    return (_masked(u1, layout, ring).to(dtype), _masked(v1, layout, ring).to(dtype),
+            kv0n.to(dtype))
 
 
 def rk42_step_plain(
@@ -198,23 +220,28 @@ def rk42_step_plain(
     seven phases of :func:`rk42_step_cuda`, each on the box of
     :func:`call_rings`; ``w1``/``w2`` are the [1, F] facet planes,
     ``src_x``/``abc_x`` their padded x rows (-1 where the layout holds no
-    such face)."""
+    such face). A bf16 state runs in float32 and rounds where the seven
+    launches store (kernel C's stage inputs and kv, the boundary's)."""
     _check_layout(layout)
     rings, _ = call_rings(layout)
     face = (layout, c0, st, w1, w2, src_x, abc_x)
-    kv_of, stage, combine = _phases(u0, dt, *face)
+    dtype = u0.dtype
+    phases = _phases(u0, dt, *face)
+    kv_of, stage, combine = phases
+    u0, v0 = widen(u0, v0)
     # step 1: stages 0..2, then the boundary: kv3, (u1, v1) and step 2's kv0
     kv0 = kv_of(u0, v0, gs[0], rings[0])
     kv1 = stage(1, u0, v0, kv0, None, None, gs[1], rings[1])
     kv2 = stage(2, u0, v0, kv0, kv1, None, gs[1], rings[2])
-    u1, v1, kv0 = rk42_boundary_plain(u0, v0, kv0, kv1, kv2, dt, gs[2], *face,
-                                      ring=rings[3])
+    u1, v1, kv0 = _boundary(phases, dtype, u0, v0, kv0, kv1, kv2, gs[2], rings[3])
+    u1, v1 = _masked(u1, layout, rings[3]), _masked(v1, layout, rings[3])
     # step 2: stages 1..3
     kv1 = stage(1, u1, v1, kv0, None, None, gs[3], rings[4])
     kv2 = stage(2, u1, v1, kv0, kv1, None, gs[3], rings[5])
-    kv3 = stage(3, u1, v1, kv0, kv1, kv2, gs[4], rings[6])
+    kv3 = stage(3, u1, v1, kv0, kv1, kv2, gs[4], rings[6], store=False)
     u2, v2 = combine(u1, v1, kv0, kv1, kv2, kv3)
-    return _masked(u2, layout, rings[6]), _masked(v2, layout, rings[6])
+    return (_masked(u2, layout, rings[6]).to(dtype),
+            _masked(v2, layout, rings[6]).to(dtype))
 
 
 def boundary_launch_args(

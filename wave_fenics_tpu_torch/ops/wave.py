@@ -34,10 +34,9 @@ on the TMA tiling of ``tiling.tma_geometry``).
 flat-layout CUDA kernels share (``csrc/stencil.cuh``'s tables, in the sum
 order of ``csrc/stencil_tiled.cuh``), on the whole padded state.
 
-Kernels B and D and their plain versions also take a bf16 state (bf16
+Kernels B, D and E and their plain versions also take a bf16 state (bf16
 tables, float32 arithmetic, one rounding where the kernel stores); the
-builders compute bf16 tables in float64 (``convert.as_table``). Kernel E
-takes f32 and f64.
+builders compute bf16 tables in float64 (``convert.as_table``).
 
 :func:`apply_flat`, :func:`apply_slab` and :func:`rk_stage` dispatch on the
 tensor's device: CPU -> plain, CUDA -> kernel (or raise). There is no
@@ -52,7 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..convert import as_table, numpy_dtype, stored, widen
+from ..convert import as_table, stored, widen
 from . import _cuda, tiling
 from .stiffness import banded_1d_coeffs
 
@@ -239,21 +238,20 @@ def build_tables(
     p = layout.p
     Lx, Ly, Lz = layout.padded_shape
     K = 2 * p + 1
-    npdt = numpy_dtype(dtype)
     cvx, cvy, cvz, pLx, pLy, pLz = axis_cv_tables(
         layout, A, lines, coeff, inv_m_lines
     )
     lyz = np.outer(pLy, pLz)
     lxz = np.einsum("x,z->xz", pLx, pLz)
     lxy = np.einsum("x,y->xy", pLx, pLy)
-    return (
-        lyz[None].astype(npdt),
-        lxz[:, None, :].astype(npdt),
-        lxy[:, :, None].astype(npdt),
-        cvx.reshape(K, Lx, 1, 1).astype(npdt),
-        cvy.reshape(K, 1, Ly, 1).astype(npdt),
-        cvz.reshape(K, 1, 1, Lz).astype(npdt),
-    )
+    return tuple(as_table(t, dtype) for t in (
+        lyz[None],
+        lxz[:, None, :],
+        lxy[:, :, None],
+        cvx.reshape(K, Lx, 1, 1),
+        cvy.reshape(K, 1, Ly, 1),
+        cvz.reshape(K, 1, 1, Lz),
+    ))
 
 
 def build_tables_flat(
@@ -537,9 +535,12 @@ def apply_slab_plain(
     mirroring ``_kernel`` (tap form) tile by tile: the all-pad x-tiles are
     zeros; on each interior tile the x term sum_k CVX[k] U[x + k - p] times
     LYZ, then the y and z tap sums (cyclic rolls, which wrap only onto
-    zero-coefficient padding outputs) times LXZ and LXY."""
+    zero-coefficient padding outputs) times LXZ and LXY. A bf16 state and
+    its tables are widened to float32 and the result rounded once, as
+    kernel E stores it."""
     check_slab(layout)
-    LYZ, LXZ, LXY, CVX, CVY, CVZ = tables
+    dtype = xp.dtype
+    xp, LYZ, LXZ, LXY, CVX, CVY, CVZ = widen(xp, *tables)
     p = layout.p
     Tx = layout.tile_x
     Lx, Ly, Lz = layout.padded_shape
@@ -563,7 +564,7 @@ def apply_slab_plain(
             if k != p:
                 acc = acc + CVZ[k] * torch.roll(Uc, (p - k) % Lz, 2)
         out[rows] = o + acc * LXY[rows]
-    return out
+    return out.to(dtype)
 
 
 def tma_launch_geometry(x: torch.Tensor, layout: PaddedLayout, fields: int,

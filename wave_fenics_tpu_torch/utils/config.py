@@ -18,9 +18,9 @@ on that many RCB parts of its cells (the app's sharded branch,
 
 Fields the port cannot honour yet raise a ValueError naming what is
 missing, and are never silently ignored. ``run.dtype == 'bf16'`` (bf16
-state) runs the box's RK4 path on one device, p <= 8 (kernels A, C, B, D
-and F); with an imported mesh, leapfrog, p > 8 or ``run.ndev > 1`` it
-raises, naming bf16 and the kernel it lacks.
+state) runs every path of the box on one device (kernels A to F, H, I and
+J); with an imported mesh or ``run.ndev > 1`` it raises, naming bf16 and
+the kernel or path it lacks.
 
 The JAX package's box case ignores ``physics.window_periods``,
 ``time.t0``, ``domain.source_tag``, ``domain.abc_tag`` and
@@ -41,8 +41,8 @@ import torch
 __all__ = ["PhysicsConfig", "DomainConfig", "TimeConfig", "RunConfig",
            "SimulationConfig", "DTYPES"]
 
-#: the state dtypes the port runs (``run.dtype``; bf16 on the box's RK4
-#: path only, ``SimulationConfig.check_supported``)
+#: the state dtypes the port runs (``run.dtype``; bf16 on the box on one
+#: device only, ``SimulationConfig.check_supported``)
 DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
 
 
@@ -82,7 +82,7 @@ class TimeConfig:
 
 @dataclass
 class RunConfig:
-    dtype: str = "f32"                   # f32 | f64 | bf16 (box RK4, one device)
+    dtype: str = "f32"                   # f32 | f64 | bf16 (the box, one device)
     ndev: int = 1                        # > 1: blocks, or RCB parts of a mesh
     checkpoint_dir: str | None = None
     checkpoint_every_steps: int = 1000
@@ -146,15 +146,9 @@ class SimulationConfig:
         if r.dtype == "bf16":
             from ..ops._cuda import BF16_SHARDED, refuse_bf16, require_bf16
 
-            for cond, what, kernels in (
-                    (imported, "an imported mesh (domain.mesh_path)", "K"),
-                    (self.time.integrator == "leapfrog", "time.integrator = "
-                     "'leapfrog'", "HI"),
-                    (d.degree > 8, f"domain.degree = {d.degree} (the 3D-slab "
-                     "layout)", "E")):
-                if cond:
-                    require_bf16(torch.bfloat16, f"run.dtype = 'bf16' with {what}",
-                                 *kernels)
+            if imported:
+                require_bf16(torch.bfloat16, "run.dtype = 'bf16' with an imported "
+                             "mesh (domain.mesh_path)", "K")
             if r.ndev > 1:
                 refuse_bf16(torch.bfloat16, f"run.dtype = 'bf16' with run.ndev = "
                             f"{r.ndev}", BF16_SHARDED)
