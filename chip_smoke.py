@@ -286,6 +286,26 @@ the script exits non-zero and never prints its last line:
     bf16 beside f32 in this call, against the bound at 2 bytes a value,
     each bf16 kernel's output from NaN against its plain twin's.
 
+26. bf16 state on kernels G and K, the imported mesh, the sharded paths
+    and the benchmarks (``bf16_rest_phase``): (a) G (p in {1, 2, 4, 8} on
+    two small grids, and at P7's grid) and K (collocated p in {2, 4, 6},
+    Gauss p in {2, 4}, affine cells; at P8 in its four modes) against
+    their plain bf16 twins from NaN-filled outputs: one apply within 1e-2
+    of max|ref|, G's padding exactly 0, two K applies bitwise equal; (b) G
+    at P7 and K's four modes at P8 in bf16 beside f32 in this call, against
+    the bound at 2 bytes a value, with G's bf16 ``torch.einsum`` of the
+    assembled 1D masses and K's bf16 CSR ``torch.sparse.mm`` at 16^3 cells
+    (or "not in torch"); (c) the app's ``--dtype bf16`` to tf on its
+    kernels only, each counted alone: P16 (``--mesh``), P20's ``--ndev 4``
+    RK4 and leapfrog and P21's ``--mesh --ndev 4``, max|u| over f32's
+    printed; each path against its twin over 25 steps (P16 against the
+    plain K twin, 1e-2; the value-halo blocks against one device bit for
+    bit; the parts against one device, 2e-2); (d)
+    ``cg_bench`` BP1 at P6 and ``--op general``, ``operators_bench``
+    bp1-mass and K's four ops with ``--check``, ``general_solve`` at P8,
+    ``scatter_bench``'s three modes and ``tsmm``, each with ``--dtype
+    bf16``, their JSON lines printed (``bench26 ...``).
+
 It prints one JSON line of per-kernel results ("kernels": all eleven
 kernels, each with the launches of its path's run, J's step boundary
 alone, and the three set-up kernels with P16's launches; kernel B's path
@@ -295,10 +315,11 @@ under ``sharded_launches``; A, B, F, H, I, J and K add phase 22's dry run
 (``dryrun_launches``) and B, F and K phase 23's examples
 (``example_launches``); A to F and H to J list phases 24 and 25's
 launches (``bf16_launches``), bf16 times (``bf16``; J's: its step
-boundary) and their bf16 app runs (``bf16_app``); F adds P23's Newmark
+boundary) and their bf16 app runs (``bf16_app``), and G and K phase 26's
+(with ``bf16_bench``, the benchmarks' bf16 records); F adds P23's Newmark
 launches; K's entry also lists P21's parts, J's the boundary's time on a
 grown box), the lines ``tsmm {...}``, ``dryrun {...}`` and ``bf16 {...}``
-(phases 24 and 25's checks), and, last, one JSON line ``{"ok": true, "device":
+(phases 24 to 26's checks), the ``bench26 ...`` lines, and, last, one JSON line ``{"ok": true, "device":
 {...}}``. Without a CUDA card, or outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
@@ -1400,6 +1421,415 @@ def bf16_paths_phase(dev, smi, counters: dict, setup_counters: dict,
                       for k in ("E", "H", "I", "J boundary"))
           + f"; phase 25 {sum(out['seconds'].values()):.1f} s (a {out['seconds']['a']:.1f}, "
           f"b {out['seconds']['b']:.1f}, c {out['seconds']['c']:.1f})")
+    return out
+
+
+def bf16_rest_phase(dev, smi, counters: dict, setup_counters: dict, f32_apps: dict,
+                    csr16) -> dict:
+    """Phase 26, bf16 state on kernels G and K, the imported mesh, the
+    sharded paths and the benchmarks: (a) G (p in {1, 2, 4, 8} on two
+    small grids, and at P7's grid) and K (collocated p in {2, 4, 6}, Gauss
+    p in {2, 4}, affine cells at p=4; and at P8 in its four modes) against
+    their plain bf16 twins on the card, from NaN-filled outputs: one apply
+    within 1e-2 of max|ref|, G's padding exactly 0, two K applies bitwise
+    equal; (b) G at P7 and K's four modes at P8 in bf16 beside f32 in this
+    call (CUDA events), against the bound at 2 bytes a value, with G's
+    bf16 ``torch.einsum`` of the three assembled 1D masses and K's bf16
+    CSR ``torch.sparse.mm`` at 16^3 cells (``csr16``: the f32 matrix, its
+    mesh and dofmap) beside K there; (c) the app's ``--dtype bf16`` to tf on
+    its kernels only: P16 (``--mesh``, K 4 x (n + 1)), P20's ``--ndev 4``
+    RK4 (A 4 x 4 x (n + 1)) and leapfrog (H 2 x 4 x (n + 1)) and P21's
+    ``--mesh --ndev 4`` (K 4 x 4 x (n + 1)), each counted alone, finite,
+    max|u| over the f32 run's (``f32_apps``: phases 15, 17 and 18's
+    records) printed; then each path against its twin over 25 steps: P16's
+    kernel path against the plain K twin (1e-2), the sharded paths against
+    one device's bf16 kernel path (bit for bit for the value halos, whose
+    blocks hold one device's tables; 2e-2 for the parts' additive
+    assembly); (d)
+    ``cg_bench`` BP1 at P6 and ``--op general``, ``operators_bench``
+    bp1-mass and K's four ops with ``--check``, ``general_solve`` at P8,
+    ``scatter_bench``'s three modes and ``tsmm``, each with ``--dtype bf16``
+    and its JSON line printed. Returns the launches, checks, times, app
+    runs, benchmark records and each part's seconds."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from wave_fenics_tpu_torch.apps import planar3d_app
+    from wave_fenics_tpu_torch.benchmarks import (cg_bench, general_solve,
+                                                  operators_bench, scatter_bench, tsmm)
+    from wave_fenics_tpu_torch.core.dofmap import build_dofmap
+    from wave_fenics_tpu_torch.core.io import write_xdmf_mesh, write_xdmf_meshtags
+    from wave_fenics_tpu_torch.core.mesh import box_mesh
+    from wave_fenics_tpu_torch.ops import _cuda, general, mass
+    from wave_fenics_tpu_torch.ops.operators import GeneralOperators
+    from wave_fenics_tpu_torch.ops.separable import separable_mass_tables
+    from wave_fenics_tpu_torch.parallel.sharded_general import ShardedGeneralWave
+    from wave_fenics_tpu_torch.parallel.sharded_padded import ShardedPaddedWave
+    from wave_fenics_tpu_torch.utils.config import SimulationConfig
+    from wave_fenics_tpu_torch.utils.timing import timeit
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    C0SQ = 1500.0**2
+    out = {"checks": {}, "app": {}, "times": {}, "bench": {}, "seconds": {},
+           "launches": {}}
+    t_part = time.perf_counter()
+
+    def part_done(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["seconds"][name] = now - t_part
+        t_part = now
+
+    def zero():
+        for fn in (*counters.values(), *setup_counters.values()):
+            fn.launches = 0
+
+    def launched():
+        return {k: fn.launches for k, fn in counters.items() if fn.launches}
+
+    def add_launches(counts):
+        for k, c in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + c
+
+    def rel(got, want):
+        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def padding_zero(layout, x):
+        outside = x.clone()
+        outside[layout.interior] = 0
+        check(float(outside.abs().max()) == 0.0 and bool(torch.isfinite(x).all()),
+              "bf16: zero padding, no NaN")
+
+    def padded_state(layout, seed, dtype=bf16):
+        x = np.zeros(layout.padded_shape)
+        x[layout.interior] = np.random.default_rng(seed).standard_normal(layout.shape)
+        return torch.as_tensor(x, device=dev).to(dtype)
+
+    def dofs_state(n, seed, dtype=bf16):
+        return torch.as_tensor(np.random.default_rng(seed).standard_normal(n),
+                               device=dev).to(dtype)
+
+    def bound(nbytes, flops):
+        """(bound_ms, bound_by): the bytes over the HBM rate against the
+        flops at the f32 rate outside the tensor cores (the arithmetic is
+        float32 in bf16)."""
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        return {"bound_ms": 1e3 * max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    def k_bound(t, itemsize):
+        """x and y once at ``itemsize``, the dofmap and the geometry (as
+        stored), against the contractions' flops (chip_smoke's rule for K;
+        the zero pass, the colours' reads of y and bf16's float32 workspace
+        are the design's own traffic, not counted)."""
+        m, nq, nc, nd = t.m, t.nq, t.ncells, t.m**3
+        nb = 2 * t.ndofs * itemsize + nbytes(t.dofmap, t.geo, t.w)
+        fwd = 2 * m * (nq * m * m + nq * nq * m + nq**3)
+        bwd = 2 * nq * (m * nq * nq + m * m * nq + m**3)
+        per_cell = {"mass": 2 * nd, "stiffness": nd * (12 * m + 16),
+                    "mass_gauss": fwd + nq**3 + bwd + nd,
+                    "stiffness_gauss": 3 * fwd + 15 * nq**3 + 3 * bwd + nd}[t.mode]
+        return bound(nb, nc * (per_cell + nd))
+
+    # -- (a) G and K against their plain bf16 twins ------------------------------
+    phase("phase 26, bf16 state: kernels G and K against their plain bf16 twins")
+    zero()
+    worst = 0.0
+    for p in (1, 2, 4, 8):
+        for cells in ((3, 2, 2), (5, 3, 4)):
+            lay, tabs, _ = mass.bp1_setup(box_mesh(cells, (1.0, 0.8, 1.2)), p, bf16, dev)
+            x = padded_state(lay, 30 + p)
+            y = mass.mass_apply_cuda(x, lay, tabs, out=torch.full_like(x, float("nan")))
+            e = rel(y, mass.mass_apply_zyx_plain(x, lay, tabs))
+            padding_zero(lay, y)
+            check(e <= 1e-2, f"kernel G bf16 p={p} {cells} against its plain twin")
+            worst = max(worst, e)
+    out["checks"]["G small"] = worst
+    mesh64 = box_mesh((BP1["size"],) * 3, (1.0, 1.0, 1.0))
+    glay, gtabs, _ = mass.bp1_setup(mesh64, BP1["degree"], bf16, dev)
+    gx = padded_state(glay, 31)
+    gy = mass.mass_apply_cuda(gx, glay, gtabs, out=torch.full_like(gx, float("nan")))
+    e = rel(gy, mass.mass_apply_zyx_plain(gx, glay, gtabs))
+    padding_zero(glay, gy)
+    check(e <= 1e-2, "kernel G bf16 at P7 against its plain twin")
+    out["checks"]["G P7"] = e
+    worst = 0.0
+    cases = [("gll", 2, False), ("gll", 4, False), ("gll", 6, False), ("gauss", 2, False),
+             ("gauss", 4, False), ("gll", 4, True)]
+    for rule, p, affine in cases:
+        if affine:
+            hm = box_mesh((5, 4, 3), (1.0, 0.8, 0.9)).to_hex_mesh()
+        else:
+            hm, _ = general_solve.perturbed_box((5, 4, 3) if p < 6 else (3, 2, 2), h=0.25)
+        ops = GeneralOperators(hm, build_dofmap(hm, p), dtype=bf16, rule=rule)
+        check(ops.affine == affine, f"K bf16 {rule} p={p}: affine {affine}")
+        x = dofs_state(ops.ndofs, 40 + p)
+        for op, coeff in (("mass", 1.0), ("stiffness", -C0SQ)):
+            t = ops.tables(ops.mode(op), dev)
+            y = general.general_apply_cuda(x, t, coeff, out=torch.full_like(x, float("nan")))
+            y2 = general.general_apply_cuda(x, t, coeff)
+            e = rel(y, general.general_apply_plain(x, t, coeff))
+            check(e <= 1e-2 and torch.equal(y, y2),
+                  f"kernel K bf16 {t.mode} p={p} affine={affine}: against its twin, "
+                  "bitwise repeatable")
+            worst = max(worst, e)
+    out["checks"]["K small"] = worst
+    # K at P8 in its four modes
+    gm16, gm_setup = general_solve.build(HEADLINE["cells"], 4, "bf16")
+    k_ops = {"gll": gm16.ops, "gauss": GeneralOperators(
+        gm16.mesh, gm16.dofs, dtype=bf16, rule="gauss", device=dev)}
+    k_modes = (("stiffness", "gll", -C0SQ), ("mass", "gll", 1.0),
+               ("mass_gauss", "gauss", 1.0), ("stiffness_gauss", "gauss", -C0SQ))
+    kx = dofs_state(gm16.ndofs, 70)
+    for mode, rule, coeff in k_modes:
+        t = k_ops[rule].tables(mode, dev)
+        y = general.general_apply_cuda(kx, t, coeff, out=torch.full_like(kx, float("nan")))
+        y2 = general.general_apply_cuda(kx, t, coeff)
+        e = rel(y, general.general_apply_plain(kx, t, coeff))
+        check(e <= 1e-2 and torch.equal(y, y2) and bool(torch.isfinite(y).all()),
+              f"kernel K bf16 {mode} at P8 against its twin, bitwise repeatable")
+        out["checks"][f"K P8 {mode}"] = e
+        del y, y2
+    add_launches(launched())
+    part_done("a")
+    print(f"phase 26 (a): G small {out['checks']['G small']:.3e}, P7 "
+          f"{out['checks']['G P7']:.3e}; K small {out['checks']['K small']:.3e}, P8 "
+          + ", ".join(f"{m} {out['checks'][f'K P8 {m}']:.3e}" for m, _, _ in k_modes)
+          + f" (limit 1e-2); P8 bf16 model set-up {gm_setup:.2f} s; launches "
+          f"{out['launches']}; {out['seconds']['a']:.1f} s")
+
+    # -- (b) times beside f32 ---------------------------------------------------
+    phase("phase 26, bf16 state: G at P7 and K's four modes at P8 beside f32")
+
+    def launch_ms(name, x, args, reps=200):
+        return 1e3 * timeit(_cuda.launcher(_cuda.library(), name, x.dtype, dev, *args),
+                            reps=reps)
+
+    glay32, gtabs32, _ = mass.bp1_setup(mesh64, BP1["degree"], f32, dev)
+    gops32 = {"gll": general_solve.build(HEADLINE["cells"], 4, "f32")[0].ops}
+    gops32["gauss"] = GeneralOperators(gops32["gll"].mesh, gops32["gll"].dofs, dtype=f32,
+                                       rule="gauss", device=dev)
+    for dtype in (f32, bf16):
+        key = "bf16" if dtype == bf16 else "f32"
+        lay, tabs = (glay, gtabs) if dtype == bf16 else (glay32, gtabs32)
+        x = gx if dtype == bf16 else padded_state(glay32, 31, f32)
+        y = torch.empty_like(x)
+        n_int = math.prod(lay.shape)
+        out["times"].setdefault("G", {})[key] = {
+            "ms": launch_ms("wave_mass_tiled", x, mass.mass_launch_args(x, y, lay, tabs)),
+            "plain_ms": 1e3 * timeit(lambda: mass.mass_apply_zyx_plain(x, lay, tabs),
+                                     reps=3, warmup=1),
+            **bound(n_int * x.element_size() + nbytes(y, *tabs), n_int * 6 * 9)}
+        ops = k_ops if dtype == bf16 else gops32
+        xk = kx if dtype == bf16 else dofs_state(gm16.ndofs, 70, f32)
+        yk = torch.empty_like(xk)
+        for mode, rule, coeff in k_modes:
+            t = ops[rule].tables(mode, dev)
+            out["times"].setdefault(f"K {mode}", {})[key] = {
+                "ms": launch_ms("wave_general_apply", xk,
+                                general.launch_args(xk, yk, t, coeff), reps=100),
+                "plain_ms": 1e3 * timeit(lambda: general.general_apply_plain(xk, t, coeff),
+                                         reps=2, warmup=1),
+                **k_bound(t, xk.element_size())}
+        del x, y, xk, yk
+    del gops32, glay32, gtabs32
+    # G's one-call equivalent in bf16: the three assembled 1D masses (bf16)
+    M1 = separable_mass_tables(BP1["degree"], mesh64.h, np.float64)
+    mats = []
+    for d, n in enumerate(mesh64.shape):
+        pg = BP1["degree"]
+        A1 = np.zeros((n * pg + 1, n * pg + 1))
+        for c in range(n):
+            A1[c * pg:c * pg + pg + 1, c * pg:c * pg + pg + 1] += M1[d]
+        mats.append(torch.as_tensor(A1, device=dev).to(bf16))
+    xg = gx[glay.interior].contiguous()
+    y_lib = torch.einsum("ijk,ai,bj,ck->abc", xg, *mats)
+    e_lib = rel(gy[glay.interior], y_lib)
+    lib_ms = 1e3 * timeit(lambda: torch.einsum("ijk,ai,bj,ck->abc", xg, *mats))
+    check(e_lib <= 3e-2, "kernel G bf16 against the bf16 einsum of the 1D masses")
+    out["times"]["G"]["bf16"]["library_ms"] = lib_ms
+    out["checks"]["G against the bf16 einsum"] = e_lib
+    del mats, xg, y_lib, gy
+    # K's one-call equivalent in bf16: the assembled CSR at 16^3 cells
+    A16, hm16, dofs16 = csr16
+    ops16 = GeneralOperators(hm16, dofs16, dtype=bf16)
+    t16 = ops16.tables("stiffness", dev)
+    x16 = dofs_state(ops16.ndofs, 80)
+    y16 = torch.empty_like(x16)
+    k16_ms = launch_ms("wave_general_apply", x16, general.launch_args(x16, y16, t16, -C0SQ))
+    try:
+        A16b = torch.sparse_csr_tensor(A16.crow_indices(), A16.col_indices(),
+                                       A16.values().to(bf16), A16.shape)
+        y_csr = torch.sparse.mm(A16b, x16[:, None])[:, 0]
+        e_csr = rel(general.general_apply_cuda(x16, t16, -C0SQ), y_csr.float())
+        csr_ms = 1e3 * timeit(lambda: torch.sparse.mm(A16b, x16[:, None]))
+        csr_note = "torch.sparse.mm of the bf16 CSR"
+        check(e_csr <= 3e-2, "kernel K bf16 against the bf16 CSR SpMV")
+    except (RuntimeError, NotImplementedError) as exc:
+        e_csr, csr_ms = None, None
+        csr_note = f"not in torch: {type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    out["times"]["K 16^3"] = {"bf16": {"ms": k16_ms, "library_ms": csr_ms,
+                                       "library": csr_note, "rel_err_vs_library": e_csr,
+                                       **k_bound(t16, 2)}}
+    del A16, x16, y16
+    part_done("b")
+    for k, t in out["times"].items():
+        if "f32" not in t:
+            continue
+        a, c = t["bf16"], t["f32"]
+        lib = f"; bf16 einsum {a['library_ms']:.4f} ms" if "library_ms" in a else ""
+        print(f"{k} bf16 {a['ms']:.4f} ms (bound {a['bound_ms']:.4f} ms, {a['bound_by']}; "
+              f"plain twin {a['plain_ms']:.4f} ms{lib}) against f32 {c['ms']:.4f} ms "
+              f"(bound {c['bound_ms']:.4f} ms; plain {c['plain_ms']:.4f} ms) [{smi}]")
+    k16 = out["times"]["K 16^3"]["bf16"]
+    print(f"K stiffness bf16 at 16^3 cells {k16['ms']:.4f} ms (bound {k16['bound_ms']:.4f} "
+          f"ms); {k16['library']}: {k16['library_ms']} ms, K against it "
+          f"{k16['rel_err_vs_library']} [{smi}]; phase 26 (b) {out['seconds']['b']:.1f} s")
+
+    # -- (c) the app to tf on its kernels, and each path against its twin ---------
+    nk = 25
+    with tempfile.TemporaryDirectory(prefix="_p26_", dir=ROOT) as tmp:
+        mesh_path, tags_path = os.path.join(tmp, "mesh.xdmf"), os.path.join(tmp, "tags.xdmf")
+        ft = gm16.facet_tags
+        write_xdmf_mesh(mesh_path, gm16.mesh)
+        write_xdmf_meshtags(tags_path, gm16.mesh, np.concatenate([ft[1], ft[2]]),
+                            [1] * len(ft[1]) + [2] * len(ft[2]))
+        cfg16 = SimulationConfig()
+        cfg16.domain.mesh_path, cfg16.domain.meshtags_path = mesh_path, tags_path
+        cfg21 = SimulationConfig.from_json(cfg16.to_json())
+        cfg21.run.ndev = 4
+        runs = [("P16 --mesh", dict(config=cfg16), "K", lambda n: 4 * (n + 1)),
+                ("P20 --ndev 4 rk4", dict(**HEADLINE, ndev=4), "A",
+                 lambda n: 4 * 4 * (n + 1)),
+                ("P20 --ndev 4 leapfrog", dict(**HEADLINE, ndev=4, integrator="leapfrog"),
+                 "H", lambda n: 2 * 4 * (n + 1)),
+                ("P21 --mesh --ndev 4", dict(config=cfg21), "K",
+                 lambda n: 4 * 4 * (n + 1))]
+        for label, kw, kernel, want_of in runs:
+            phase(f"phase 26, bf16 state: the app's {label} --dtype bf16")
+            zero()
+            cfg = kw.pop("config", None)
+            rec = (planar3d_app.run(cfg, dtype="bf16", device="cuda", **kw) if cfg is not None
+                   else planar3d_app.run(**kw, dtype="bf16", device="cuda"))
+            torch.cuda.synchronize()
+            counts = launched()
+            n = rec["nsteps"]
+            want = {kernel: want_of(n)}
+            m32 = f32_apps[label]["u_max"]
+            ratio = rec["u_max"] / m32
+            print(f"bf16 {label}: {rec['ndofs']:,} dofs, {n} steps, {rec['solver_path']}; "
+                  f"launches {counts} (want {want}); max|u| {rec['u_max']:.6e} against f32 "
+                  f"{m32:.6e} ({ratio:.4g}x); solve {rec['solve_seconds']:.3f} s [{smi}]")
+            check(counts == want, f"bf16 {label}: its kernel only, {want}")
+            check(rec["dtype"] == "bf16" and math.isfinite(rec["u_max"])
+                  and rec["u_max"] > 0, f"bf16 {label}: finite, the source on")
+            add_launches(counts)
+            out["app"][label] = {"launches": counts, "nsteps": n, "max_u": rec["u_max"],
+                                 "max_u_f32": m32, "max_u_over_f32": ratio,
+                                 "solve_seconds": rec["solve_seconds"],
+                                 "setup_seconds": rec["setup_seconds"],
+                                 "solver_path": rec["solver_path"]}
+        part_done("c app")
+    # the twins over nk steps from rest
+    case16 = planar3d_app.build(cells=HEADLINE["cells"], degree=4, dtype="bf16",
+                                device="cuda")[0]
+    dt_box = case16.dt
+    from wave_fenics_tpu_torch.models.planar3d import general_case
+
+    dt_gen = general_case(gm16).dt
+    uk, vk = gm16.solve_n(0.0, dt_gen, nk)
+    twin = copy.copy(gm16)
+    twin.ops = general.PlainK(gm16.ops)
+    up, vp = twin.solve_n(0.0, dt_gen, nk)
+    e = max(rel_l2(uk, up), rel_l2(vk, vp))
+    check(e <= 1e-2 and float(vp.float().abs().max()) > 0,
+          "P16 bf16: the kernel path against the plain K twin")
+    out["app"]["P16 --mesh"]["twin_rel_l2"] = e
+    del uk, vk, up, vp, twin
+    # a value-halo refresh copies values and each block's tables hold one
+    # device's values, so the blocks give one device's bf16 state bit for bit
+    _, pm = planar3d_app.build(**HEADLINE, dtype="bf16", device="cuda", tile_x=16)
+    sw = ShardedPaddedWave(pm.base, (2, 2, 1), tile_x=16)
+    for label, solver, to_global, dt_run in (
+            ("P20 --ndev 4 rk4", "solve_step_n", "to_global_step", dt_box),
+            ("P20 --ndev 4 leapfrog", "solve_lf_n", "to_global_lf", dt_box * 0.71)):
+        u, v, _ = getattr(sw, solver)(0.0, dt_run, nk)
+        ur, vr = getattr(pm, solver)(0.0, dt_run, nk)[:2]
+        pairs = [(torch.as_tensor(getattr(sw, to_global)(a)), pm.to_grid(b).float().cpu())
+                 for a, b in ((u, ur), (v, vr))]
+        e = max(rel_l2(a, b) for a, b in pairs)
+        ndiff = sum(int((a != b).sum()) for a, b in pairs)
+        print(f"{label} bf16, {nk} steps: the blocks against one device's kernel path, "
+              f"relative L2 {e:.3e}, {ndiff} points differ (limit 0)")
+        check(ndiff == 0 and float(pairs[1][1].abs().max()) > 0,
+              f"{label} bf16: the blocks bit for bit one device's")
+        out["app"][label]["twin_rel_l2"] = e
+        del u, v, ur, vr, pairs
+    del sw, pm
+    sg = ShardedGeneralWave(gm16, 4).prepare()
+    u, v, _ = sg.solve_n(0.0, dt_gen, nk)
+    ur, vr = gm16.solve_n(0.0, dt_gen, nk)
+    e = max(rel_l2(torch.as_tensor(sg.to_global(a)), b.cpu()) for a, b in ((u, ur), (v, vr)))
+    print(f"P21 bf16, {nk} steps: the parts against one device's kernel path, relative L2 "
+          f"{e:.3e} (limit 2e-2)")
+    check(e <= 2e-2, "P21 bf16: the parts against one device's kernel path")
+    out["app"]["P21 --mesh --ndev 4"]["twin_rel_l2"] = e
+    del sg, u, v, ur, vr
+    part_done("c twins")
+    print("phase 26 (c) against the twins over 25 steps (relative L2): "
+          + ", ".join(f"{k} {a['twin_rel_l2']:.3e}" for k, a in out["app"].items())
+          + f"; app {out['seconds']['c app']:.1f} s, twins {out['seconds']['c twins']:.1f} s")
+
+    # -- (d) every benchmark's --dtype bf16 ---------------------------------------
+    benches = [
+        ("cg_bench bp1 P6", lambda: cg_bench.run(op="bp1", size=BP1["size"],
+                                                 degree=BP1["degree"], dtype="bf16")),
+        ("cg_bench general", lambda: cg_bench.run(op="general", s=12, degree=4,
+                                                  dtype="bf16")),
+        ("operators_bench bp1-mass", lambda: operators_bench.run(
+            op="bp1-mass", size=BP1["size"], degree=BP1["degree"], reps=20, check=True,
+            dtype="bf16")),
+        *[(f"operators_bench {op}", lambda op=op: operators_bench.run(
+            op=op, s=14, degree=4, reps=20, check=True, dtype="bf16"))
+          for op in ("stiffness-general", "mass-general", "mass", "stiffness-gauss")],
+        ("general_solve P8", lambda: general_solve.run(s=16, degree=4, steps=200,
+                                                       dtype="bf16")),
+        *[(f"scatter_bench {mode}", lambda mode=mode: scatter_bench.run(
+            mode=mode, size=32, degree=4, reps=20, dtype="bf16", check=True, ndev=4))
+          for mode in scatter_bench.MODES],
+        ("tsmm", lambda: tsmm.run(reps=20, dtype="bf16", check=True)),
+    ]
+    for label, fn in benches:
+        zero()
+        rec = fn()
+        torch.cuda.synchronize()
+        counts = launched()
+        rec["launches"] = counts
+        print(f"bench26 {label} " + json.dumps(rec))
+        check(rec["dtype"] == "bf16", f"{label}: a bf16 record")
+        if label.startswith("cg_bench bp1"):
+            want = rec["solves"] * (1 + rec["iters"]) + 1 + rec["iters_f64"]
+            check(counts == {"G": want}, f"{label}: G {want} (the bf16 solves and the "
+                  "f64 reference)")
+        out["bench"][label] = {k: rec.get(k) for k in (
+            "iters", "iters_f64", "sol_rel_vs_f64", "ms_total", "ms_per_apply",
+            "max_rel_err_vs_f64_oracle", "max_rel_err_vs_f64", "ms_per_step",
+            "us_per_exchange", "ms", "vmax", "launches")}
+        # the bf16 launches: the cg_bench records' f64 reference solve takes
+        # 1 + iters_f64 of them in f64
+        f64_ref = 1 + rec["iters_f64"] if label.startswith("cg_bench") else 0
+        add_launches({k: c - f64_ref for k, c in counts.items() if k in ("G", "K")})
+    part_done("d")
+    print(f"phase 26 {sum(out['seconds'].values()):.1f} s ("
+          + ", ".join(f"{k} {s:.1f}" for k, s in out["seconds"].items()) + ")")
     return out
 
 
@@ -3666,13 +4096,18 @@ def main() -> None:
           f"(limit 1e-5) [{smi}]")
     print("EA " + json.dumps(ea))
     check(rel_ea <= 1e-5, "EAOperator against kernel K")
-    del A16, x, out_k, y_csr, ea16
+    del x, out_k, y_csr, ea16
 
     # phases 21-23: tsmm, the dry run and the four examples, each counted alone
     slice21 = slice_phases(dev, smi, counters, setup_counters)
     p24 = bf16_phase(dev, smi, counters, setup_counters)
     p25 = bf16_paths_phase(dev, smi, counters, setup_counters, f32_states)
     del f32_states
+    f32_apps = {"P16 --mesh": p16, "P21 --mesh --ndev 4": p21a,
+                **{f"P20 --ndev 4 {i}": r[2] for i, r in p20_apps.items()}}
+    p26 = bf16_rest_phase(dev, smi, counters, setup_counters, f32_apps,
+                          (A16, hm16, ops16.dofs))
+    del A16
 
     # "kernels": all eleven, each with the launches of its path's run (G:
     # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
@@ -3868,8 +4303,22 @@ def main() -> None:
     for label, run in p25["app"].items():
         kernel = label.split("kernel ")[-1]
         by_name[kernel].setdefault("bf16_app", {})[label] = run
+    # phase 26: G and K likewise (K: its four modes at P8 and, with the bf16
+    # CSR, at 16^3 cells); the bf16 app runs of K, A (P20 RK4) and H (P20
+    # leapfrog), and the benchmarks' bf16 records
+    for k in ("G", "K"):
+        by_name[k]["bf16_launches"] = p26["launches"].get(k, 0)
+    by_name["G"]["bf16"] = p26["times"]["G"]
+    by_name["K"]["bf16"] = {k[2:]: t for k, t in p26["times"].items() if k.startswith("K ")}
+    for label, run in p26["app"].items():
+        kernel = next(iter(run["launches"]))
+        by_name[kernel].setdefault("bf16_app", {})[label] = run
+        by_name[kernel]["bf16_launches"] = (by_name[kernel].get("bf16_launches", 0)
+                                            + (0 if kernel == "K" else run["launches"][kernel]))
+    by_name["G"]["bf16_bench"] = {k: b for k, b in p26["bench"].items() if "G" in b["launches"]}
+    by_name["K"]["bf16_bench"] = {k: b for k, b in p26["bench"].items() if "K" in b["launches"]}
     print("tsmm " + json.dumps(slice21["tsmm"]))
-    print("bf16 " + json.dumps({**p24["checks"], **p25["checks"]}))
+    print("bf16 " + json.dumps({**p24["checks"], **p25["checks"], **p26["checks"]}))
     print("dryrun " + json.dumps(slice21["dryrun"]))
     print(f"total {time.perf_counter() - t_start:.1f} s after the device check")
     print(smi)

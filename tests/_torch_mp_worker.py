@@ -3,14 +3,15 @@ processes of a gloo process group that together run a ShardedPaddedWave
 or ShardedGeneralWave solve of the port, each driving the blocks or parts
 it owns.
 
-Usage: python _torch_mp_worker.py PORT RANK WORLD OUTDIR PARTS MODE
+Usage: python _torch_mp_worker.py PORT RANK WORLD OUTDIR PARTS MODE [DTYPE]
 
 PARTS: a comma list like "4,1,1" (for the general modes, the number of
 parts, N,1,1); MODE: "stage" (the per-stage halo-add ``solve_n``), "step"
 (the value-halo ``solve_step_n``), "general-allgather" or
 "general-ppermute" (``ShardedGeneralWave.solve_n`` on the box as a
-``HexMesh``, with that assembly). Rank 0 writes the gathered global u and
-v to OUTDIR/u.npy and OUTDIR/v.npy.
+``HexMesh``, with that assembly); DTYPE: "f64" (default) or "bf16". Rank 0
+writes the gathered global u and v (bf16 widened to float32) to
+OUTDIR/u.npy and OUTDIR/v.npy.
 """
 
 import os
@@ -22,22 +23,24 @@ import torch
 SHAPE, P, DT, NSTEPS = (4, 4, 2), 3, 1.0e-8, 5
 
 
-def model():
+DTYPES = {"f64": torch.float64, "bf16": torch.bfloat16}
+
+
+def model(dtype=torch.float64):
     from wave_fenics_tpu_torch.core.mesh import FacetTags, box_mesh
     from wave_fenics_tpu_torch.models.linear_wave import LinearWave
 
     mesh = box_mesh(SHAPE, (1.0e-2, 1.0e-2, 0.5e-2),
                     facet_tags=FacetTags({1: (0,), 2: (1,)}))
-    return LinearWave(mesh, p=P, c0=1500.0, freq0=0.5e6, dtype=torch.float64,
-                      device="cpu")
+    return LinearWave(mesh, p=P, c0=1500.0, freq0=0.5e6, dtype=dtype, device="cpu")
 
 
-def general_model():
+def general_model(dtype=torch.float64):
     """The box as a ``HexMesh``, p = 3, tag 1 on the x-low faces and 2 on
     the x-high ones (the JAX worker's ``general_facet_tags``)."""
     from wave_fenics_tpu_torch.models.general_wave import GeneralLinearWave
 
-    hm = model().mesh.to_hex_mesh()
+    hm = model(dtype).mesh.to_hex_mesh()
     length = float(hm.points[:, 0].max())
 
     def xquads(x0, vids):
@@ -46,7 +49,7 @@ def general_model():
         return quads[on[quads].all(axis=1)]
 
     tags = {1: xquads(0.0, (0, 2, 4, 6)), 2: xquads(length, (1, 3, 5, 7))}
-    return GeneralLinearWave(hm, P, tags, c0=1500.0, freq0=0.5e6, dtype=torch.float64,
+    return GeneralLinearWave(hm, P, tags, c0=1500.0, freq0=0.5e6, dtype=dtype,
                              device="cpu")
 
 
@@ -66,6 +69,7 @@ def main():
                                  int(sys.argv[3]), sys.argv[4])
     parts = tuple(int(s) for s in sys.argv[5].split(","))
     mode = sys.argv[6]
+    dtype = DTYPES[sys.argv[7] if len(sys.argv) > 7 else "f64"]
     torch.set_num_threads(1)
 
     import torch.distributed as dist
@@ -80,11 +84,11 @@ def main():
     ex = distributed.ProcessGroupExchange(distributed.global_device_mesh(parts))
     assert len(ex.local_blocks) == int(np.prod(parts)) // world
     if mode.startswith("general"):
-        sw = ShardedGeneralWave(general_model(), parts[0], exchange=mode.split("-")[1],
-                                comm=ex)
+        sw = ShardedGeneralWave(general_model(dtype), parts[0],
+                                exchange=mode.split("-")[1], comm=ex)
         assert sw.exchange_mode == mode.split("-")[1]
     else:
-        sw = ShardedPaddedWave(model(), parts, exchange=ex)
+        sw = ShardedPaddedWave(model(dtype), parts, exchange=ex)
     ug, vg = solve(sw, mode)
     if rank == 0:
         np.save(os.path.join(outdir, "u.npy"), ug)

@@ -55,9 +55,9 @@ def test_jax_config_file_loads_and_builds_the_same_case():
     # run.ndev > 1 runs blocks of a box or RCB parts of an imported mesh;
     # fewer than one device raises on either
     ((("run", "ndev", 0), ("domain", "mesh_path", "mesh.xdmf")), "at least 1"),
-    # bf16 runs every path of the box on one device; blocks (run.ndev > 1)
-    # raise
-    ((("run", "dtype", "bf16"), ("run", "ndev", 2)), "bf16 state"),
+    # run.dtype names one of the three types (bf16 runs every path: the
+    # box and the imported mesh, on one device or several)
+    ((("run", "dtype", "f16"), ("run", "ndev", 2)), "f32, f64 or bf16"),
 ])
 def test_unsupported_fields_raise(fields, subject):
     cfg = SimulationConfig()

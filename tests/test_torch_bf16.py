@@ -390,23 +390,47 @@ def test_bf16_config_builds_the_jax_case():
     assert case.model.dtype == BF16
 
 
-def _bf16_case_raises(**fields):
-    cfg = SimulationConfig()
-    cfg.domain.ncells = (4, 2, 2)
-    cfg.run.dtype = "bf16"
-    for key, value in fields.items():
-        section, name = key.split("__")
-        setattr(getattr(cfg, section), name, value)
-    with pytest.raises(ValueError, match="bf16"):
-        cfg.build_case(device="cpu")
+def _write_mesh(tmp_path) -> str:
+    """A perturbed (4, 2, 2)-cell box and its x-face tags as XDMF files
+    with HDF5 heavy data (the form both packages read) under ``tmp_path``;
+    returns the mesh's path (tags.xdmf beside it)."""
+    from wave_fenics_tpu_torch.benchmarks.general_solve import perturbed_box
+    from wave_fenics_tpu_torch.core.io import write_xdmf_mesh, write_xdmf_meshtags
+
+    hm, tags = perturbed_box((4, 2, 2), h=0.002)
+    write_xdmf_mesh(str(tmp_path / "mesh.xdmf"), hm, data_format="hdf")
+    write_xdmf_meshtags(str(tmp_path / "tags.xdmf"), hm,
+                        np.concatenate([tags[1], tags[2]]),
+                        [1] * len(tags[1]) + [2] * len(tags[2]), data_format="hdf")
+    return str(tmp_path / "mesh.xdmf")
 
 
 @pytest.mark.parametrize("fields", [
-    {"domain__mesh_path": "mesh.xdmf"},
+    {"domain__mesh_path": "mesh"},
     {"run__ndev": 2},
-], ids=["mesh", "ndev2"])
-def test_unported_bf16_configs_raise(fields):
-    _bf16_case_raises(**fields)
+    {"domain__mesh_path": "mesh", "run__ndev": 2},
+], ids=["mesh", "ndev2", "mesh ndev2"])
+def test_bf16_configs_of_mesh_and_ndev_build_the_jax_case(fields, tmp_path):
+    """A bf16 SimulationConfig with an imported mesh (kernel K) or with
+    run.ndev = 2 (the sharded paths) builds JAX's dt, nsteps and dofs, as
+    the one-device box's does (these raised before K and the sharded paths
+    took bf16)."""
+    mesh = _write_mesh(tmp_path)
+    jc, c = JConfig(), SimulationConfig()
+    for cfg in (jc, c):
+        cfg.domain.ncells = (4, 2, 2)
+        cfg.run.dtype = "bf16"
+        for key, value in fields.items():
+            section, name = key.split("__")
+            setattr(getattr(cfg, section), name, mesh if value == "mesh" else value)
+        if cfg.domain.mesh_path is not None:
+            cfg.domain.meshtags_path = str(tmp_path / "tags.xdmf")
+            cfg.domain.degree = 2
+    jcase, case = jc.build_case(), c.build_case(device="cpu")
+    assert (case.dt, case.nsteps, case.steps_per_period) == (
+        jcase.dt, jcase.nsteps, jcase.steps_per_period)
+    assert case.model.ops.ndofs == jcase.model.ops.ndofs
+    assert case.model.dtype == BF16
 
 
 @pytest.mark.parametrize("fields", [
@@ -430,23 +454,33 @@ def test_bf16_configs_of_h_i_and_e_build_the_jax_case(fields):
     assert case.model.dtype == BF16 and case.model.p == c.domain.degree
 
 
-def test_unported_bf16_paths_raise():
-    """Every bf16 path without a bf16 kernel raises naming bf16 and the
-    kernel: blocks, an imported mesh (K), BP1's mass (G) and the
-    benchmarks."""
+@pytest.mark.parametrize("path", ["blocks", "imported mesh", "bp1 mass", "bench dtype",
+                                  "operators_bench"])
+def test_bf16_paths_that_raised_run(path):
+    """Every bf16 path that raised before this port's G, K and sharded
+    paths took bf16 builds and runs: blocks, an imported mesh (K), BP1's
+    mass (G) and the benchmarks."""
     pm = _port_padded(BF16)
-    mesh = box_mesh((3, 2, 2), EXTENT, facet_tags=FacetTags(X_FACES))
-    with pytest.raises(ValueError, match="bf16"):
-        ShardedPaddedWave(pm.base, decompose3d(2))
-    hm = mesh.to_hex_mesh()
-    with pytest.raises(ValueError, match="bf16.*kernel K"):
-        GeneralLinearWave(hm, 2, {}, dtype=BF16, device="cpu")
-    with pytest.raises(ValueError, match="bf16.*kernel G"):
-        pm.base.ops.mass_gauss(torch.zeros(pm.base.ops.grid_shape, dtype=BF16))
-    with pytest.raises(ValueError, match="bf16"):
-        common.bench_dtype("bf16")
-    with pytest.raises(ValueError, match="bf16"):
-        operators_bench.run(op="stiffness", size=4, degree=2, dtype="bf16", device="cpu")
+    if path == "blocks":
+        u, v, _ = ShardedPaddedWave(pm.base, decompose3d(2)).solve_n(0.0, DT, 2)
+        out = v[0]
+    elif path == "imported mesh":
+        hm = box_mesh((3, 2, 2), EXTENT, facet_tags=FacetTags(X_FACES)).to_hex_mesh()
+        m = GeneralLinearWave(hm, 2, {}, dtype=BF16, device="cpu")
+        out = m.f1(1e-7, *m.zero_state()) + m.ops.stiffness(m.zero_state()[0] + 1, m.c0)
+    elif path == "bp1 mass":
+        x = torch.ones(pm.base.ops.grid_shape, dtype=BF16)
+        out = pm.base.ops.mass_gauss(x)
+        assert float(out.float().sum()) > 0
+    elif path == "bench dtype":
+        assert common.bench_dtype("bf16") == BF16
+        out = torch.zeros(1, dtype=common.bench_dtype("bf16"))
+    else:
+        rec = operators_bench.run(op="stiffness", size=4, degree=2, dtype="bf16",
+                                  device="cpu", check=True)
+        assert rec["dtype"] == "bf16"
+        out = torch.tensor([rec["max_rel_err_vs_f64_oracle"]]).to(BF16)
+    assert out.dtype == BF16 and bool(torch.isfinite(out.float()).all())
 
 
 def test_bf16_snapshot_resumes_bit_for_bit(tmp_path):

@@ -19,6 +19,7 @@ the largest over readings every 10 steps (below, at CHUNK).
 """
 
 import logging
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -364,8 +365,10 @@ def test_p10_solve_n_within_the_jax_yardstick():
                                   "3d"])
 def test_bf16_paths_of_h_i_j_and_e_run(path):
     """The bf16 paths through H, I, J and E build and step (they raised
-    before their kernels took bf16); ``KERNELS`` marks the four."""
-    assert all(_cuda.KERNELS[k][2] for k in "EHIJ")
+    before their kernels took bf16); the four kernels' sources instantiate
+    their launchers in bf16."""
+    for src in ("slab_tiled.cu", "lf_tiled.cu", "rk42_tiled.cu"):
+        assert "(__nv_bfloat16, bf16)" in (Path(_cuda.CSRC) / src).read_text()
     if path.startswith("solve"):
         pm = _port_padded(BF16, tile_x=rk42step._off0(4))
         u, v, n = getattr(pm, path)(0.0, DT, 3)

@@ -386,14 +386,16 @@ def test_kernel_k_launch_args_match_the_c_signature():
     _, to = _ops_pair("perturbed", 2, "gll")
     t = to.tables("stiffness", "cpu")
     x = torch.zeros(to.ndofs, dtype=F64)
-    args = general.launch_args(x, torch.empty_like(x), t, -2.0)
+    out = torch.empty_like(x)
+    args = general.launch_args(x, out, t, -2.0)
     sig = general._cuda._SIGNATURES["wave_general_apply"]
     kinds = {ctypes.c_void_p: (torch.Tensor, type(None)), ctypes.c_int: int,
              ctypes.c_double: float}
     assert len(args) + 1 == len(sig) and sig[-1] is ctypes.c_void_p  # + stream
     for a, k in zip(args, sig):
         assert isinstance(a, kinds[k])
-    assert args[4] is t.colour_starts and args[5] == t.ncolours
+    assert args[2] is out  # f64 accumulates in y itself (bf16: a float32 workspace)
+    assert args[5] is t.colour_starts and args[6] == t.ncolours
     assert args[-4:-1] == general.launch_shape("stiffness", 3, 3, 8)
     src = (Path(general._cuda.CSRC) / "general_kernels.cu").read_text()
     proto = re.search(r'extern "C" int wave_general_apply_##SUFFIX\((.*?)\)\s*\{', src, re.S)

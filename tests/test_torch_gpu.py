@@ -1782,3 +1782,155 @@ def test_bf16_slab_kernel_matches_plain_twin(cuda, p, shape, kernel):
     torch.cuda.synchronize()
     assert wave.apply_slab_cuda.launches == n0 + 4 and u.dtype == BF16
     assert bool(torch.isfinite(v.float()).all())
+
+
+# -- bf16 state: kernels G and K, and the sharded paths ----------------------------
+@pytest.mark.parametrize("p,cells", [(1, (9, 40, 40)), (2, (5, 20, 20)), (4, (3, 9, 9)),
+                                     (8, (2, 5, 5))])
+def test_bf16_mass_kernel_matches_plain_twin(cuda, p, cells):
+    """One bf16 apply of kernel G from an output full of NaN on a grid of
+    several y and z tiles, against its plain twin (z, y, x, float32 sums,
+    one rounding) on the CPU: within two ulps of max|ref|, the padding
+    exactly 0; BP1 CG in bf16 launches it 1 + iters times."""
+    mesh = box_mesh(cells, (1.0, 0.8, 1.2))
+    lay, tabs, _ = mass.bp1_setup(mesh, p, BF16, cuda)
+    layc, tabc, _ = mass.bp1_setup(mesh, p, BF16, "cpu")
+    args = mass.mass_launch_args(_bf16_state(lay, 1, cuda), torch.empty(0), lay, tabs)
+    assert args[-7] < lay.shape[1] or args[-6] < lay.shape[2]  # several tiles
+    x = _bf16_state(lay, 200 + p, cuda)
+    y = mass.mass_apply_cuda(x, lay, tabs, out=torch.full_like(x, float("nan")))
+    want = mass.mass_apply_zyx_plain(x.cpu(), layc, tabc)
+    torch.cuda.synchronize()
+    assert y.dtype == BF16 and _bf16_rel(y, want) <= ONE_BF16
+    assert _bf16_padding_zero(lay, y)
+    n0 = mass.mass_apply_cuda.launches
+    _, k, _ = cg(lambda v: mass.mass_apply(v, lay, tabs), x, kmax=5, rtol=1e-30)
+    torch.cuda.synchronize()
+    assert mass.mass_apply_cuda.launches == n0 + 1 + k
+
+
+@pytest.mark.parametrize("kind", ["perturbed", "affine"])
+@pytest.mark.parametrize("rule,p", [("gll", 2), ("gll", 4), ("gll", 6), ("gauss", 2),
+                                    ("gauss", 4)])
+def test_bf16_general_kernel_matches_plain_twin(cuda, rule, p, kind):
+    """Kernel K in bf16 in every mode (collocated: mass, stiffness; Gauss:
+    mass_gauss, stiffness_gauss; affine cells on a box) on a mesh of
+    several colours, from an output full of NaN, against its plain twin on
+    the CPU (float32 colours, one rounding): within two ulps of max|ref|;
+    two applies bitwise equal."""
+    if kind == "affine":
+        if rule == "gauss":
+            pytest.skip("affine geometry serves the collocated modes only")
+        mesh = box_mesh((5, 4, 3), (1.0, 0.8, 0.9)).to_hex_mesh()
+    else:
+        mesh, _ = perturbed_box((5, 4, 3) if p < 6 else (3, 2, 2), h=0.25)
+    ops = GeneralOperators(mesh, build_dofmap(mesh, p), dtype=BF16, rule=rule)
+    assert ops.affine == (kind == "affine")
+    x = torch.as_tensor(np.random.default_rng(300 + p).standard_normal(ops.ndofs),
+                        device=cuda).to(BF16)
+    for op, coeff in (("mass", 1.0), ("stiffness", -1500.0**2)):
+        t = ops.tables(ops.mode(op), cuda)
+        tc = ops.tables(ops.mode(op), "cpu")
+        assert t.ncolours >= 2 and t.geo.dtype == BF16
+        y = general.general_apply_cuda(x, t, coeff, out=torch.full_like(x, float("nan")))
+        y2 = general.general_apply_cuda(x, t, coeff)
+        want = general.general_apply_plain(x.cpu(), tc, coeff)
+        torch.cuda.synchronize()
+        assert y.dtype == BF16 and torch.equal(y, y2)
+        assert _bf16_rel(y, want) <= ONE_BF16
+
+
+def test_bf16_general_model_and_cg_on_kernel_k(cuda):
+    """The imported-mesh model in bf16 on the card (kernel K, set-up on the
+    card) against the same model on the CPU (the plain twin) over 10 RK4
+    steps within 1e-2 (relative L2); CG on K's mass_gauss in bf16 runs to
+    kmax with float32 dots."""
+    mesh, tags = perturbed_box((4, 3, 2), h=0.002)
+    mk = GeneralLinearWave(mesh, 2, tags, dtype=BF16, device=cuda)
+    mc = GeneralLinearWave(mesh, 2, tags, dtype=BF16, device="cpu")
+    for name in ("m", "inv_m", "W1", "W2"):
+        assert torch.equal(getattr(mk, name).cpu(), getattr(mc, name))
+    dt = 0.5 * min_edge(mesh) / (1500.0 * 4)
+    uk, vk = mk.solve_n(0.0, dt, 10)
+    uc, vc = mc.solve_n(0.0, dt, 10)
+    torch.cuda.synchronize()
+    for a, b in ((uk, uc), (vk, vc)):
+        assert float((a.cpu().float() - b.float()).norm() / b.float().norm()) <= 1e-2
+    ops = GeneralOperators(mesh, build_dofmap(mesh, 2, device=cuda), dtype=BF16,
+                           rule="gauss", device=cuda)
+    b = torch.ones(ops.ndofs, dtype=BF16, device=cuda)
+    n0 = general.general_apply_cuda.launches
+    x, k, rnorm = cg(ops.mass, b, kmax=8, rtol=1e-30)
+    torch.cuda.synchronize()
+    assert x.dtype == BF16 and rnorm.dtype == torch.float32
+    assert general.general_apply_cuda.launches == n0 + 1 + k
+
+
+@pytest.mark.parametrize("path", ["step", "lf2", "n"])
+def test_bf16_sharded_solve_matches_single_device(cuda, path):
+    """One sharded bf16 solve on (2,2,1) blocks on the card (A, I, or B per
+    block), 40 steps at the app's dt, against one device's bf16 solve on
+    the card: the value-halo paths (A, I) bit for bit; the per-stage
+    halo-add (B) within 1.5x one device's bf16 error against its float64
+    solve (tests/test_torch_bf16_sharded.py says why)."""
+    from wave_fenics_tpu_torch.models.planar3d import planar3d_case
+    from wave_fenics_tpu_torch.parallel.sharded_padded import ShardedPaddedWave
+
+    cases = [planar3d_case((4, 2, 2), domain_length=0.01, degree=4, dtype=d, device=cuda)
+             for d in (BF16, torch.float64)]
+    dt, nsteps = cases[0].dt, 40
+    sw = ShardedPaddedWave(cases[0].model, (2, 2, 1), tile_x=16)
+    pm, p64 = (PaddedLinearWave(c.model, tile_x=16) for c in cases)
+    solver, to_global = {"step": ("solve_step_n", "to_global_step"),
+                         "lf2": ("solve_lf2_n", "to_global_lf2"),
+                         "n": ("solve_n", "to_global")}[path]
+    u, v, _ = getattr(sw, solver)(0.0, dt, nsteps)
+    ur, vr = getattr(pm, solver)(0.0, dt, nsteps)[:2]
+    r64 = getattr(p64, solver)(0.0, dt, nsteps)[:2]
+    torch.cuda.synchronize()
+    for g, r, ref in zip((getattr(sw, to_global)(u), getattr(sw, to_global)(v)), (ur, vr), r64):
+        r = pm.to_grid(r).float().cpu().numpy()
+        assert np.abs(r).max() > 0
+        if path == "n":
+            ref = p64.to_grid(ref).cpu().numpy()
+            assert np.linalg.norm(g - ref) <= 1.5 * np.linalg.norm(r - ref)
+        else:
+            np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("path,p,rings", HALO_CASES)
+@pytest.mark.parametrize("shape", [(4, 2, 2), (16, 16, 16)])
+def test_bf16_halo_layout_kernels_match_plain_over_nan(cuda, path, p, rings, shape):
+    """Kernels A, H and I in bf16 on the value-halo layouts, one call on
+    each block of a (2,2,1) split (at (16,16,16) cells, several y and z
+    tiles a block) from output and scratch buffers full of NaN: the
+    interior against the plain bf16 twin within two ulps of max|ref|, the
+    outputs exactly 0 outside their ring, nothing left NaN."""
+    sw = _sharded(p, cuda, (2, 2, 1), shape=shape, dtype=BF16)
+    lay = sw.halo_layout(path)
+    u0, v0 = _halo_state(sw, lay, 51, scale=1e3)
+    inter = lay.interior
+    for b, (tables, st, src_x, abc_x) in enumerate(sw._halo_tables(path)):
+        nan = [torch.full_like(u0[b], float("nan")) for _ in range(5)]
+        c0 = sw.model.c0
+        if path == "step":
+            uk, vk = rk4step.rk4_step_lean(u0[b], v0[b], DT, GS, lay, c0, tables, st, src_x,
+                                           abc_x, out=tuple(nan[:2]), scratch=tuple(nan[2:]))
+            up, vp = rk4step.rk4_step_lean_plain(u0[b], v0[b], DT, GS, lay, c0, tables)
+        elif path == "lf":
+            uk, vk = lfstep.lf_step(u0[b], v0[b], DT, 1.0, 0.6, lay, c0, tables, st, src_x,
+                                    abc_x, out=tuple(nan[:2]), scratch=nan[2])
+            up, vp = lfstep.lf_step_plain(u0[b], v0[b], DT, 1.0, 0.6, lay, c0, tables)
+            nan = nan[:3]
+        else:
+            uk, vk = lf2step.lf2_step(u0[b], v0[b], DT, 1.0, 0.6, 0.2, lay, c0, tables, st,
+                                      src_x, abc_x, out=tuple(nan[:2]),
+                                      scratch=tuple(nan[2:]))
+            up, vp = lf2step.lf2_step_plain(u0[b], v0[b], DT, 1.0, 0.6, 0.2, lay, c0,
+                                            tables)
+        torch.cuda.synchronize()
+        assert not any(bool(torch.isnan(x).any()) for x in nan)
+        assert _bf16_rel(uk[inter], up[inter]) <= ONE_BF16
+        assert _bf16_rel(vk[inter], vp[inter]) <= ONE_BF16
+        _outside_box_zero(lay, rings[0], uk)
+        _outside_box_zero(lay, rings[1], vk)

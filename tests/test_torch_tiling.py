@@ -135,6 +135,10 @@ def _c_source(name):
     return (Path(_cuda.CSRC) / name).read_text()
 
 
+def _py_source(name):
+    return (Path(_cuda.CSRC).parent / name).read_text()
+
+
 def test_python_tiling_policy_matches_the_c_kernel():
     """The constants tiled_geometry and tma_geometry size the launches with
     are the kernels' own: the block's thread limit, the cp.async ring, the
@@ -201,10 +205,15 @@ def test_python_tiling_policy_matches_the_c_kernel():
             % (rk42step.BOUNDARY_FIELDS, rk42step.BOUNDARY_EXTRA)) in _c_source("rk42_tiled.cu")
     assert ("tma_smem_bytes<T>(w, %d, %d, boundary_ring<T>())"
             % (rk42step.BOUNDARY_FIELDS, rk42step.BOUNDARY_EXTRA)) in _c_source("rk42_tiled.cu")
-    # kernel G: one field, two z-contracted planes, then cvx of a chunk's rows
+    # kernel G: one field, two z-contracted planes of Acc<T> (two boxes of T
+    # each in bf16, as mass_launch_args asks for), then cvx of a chunk's rows
     src = _c_source("mass_tiled.cu")
-    assert "PlaneRing<T> ring(smem_raw, w, 1, 2)" in src
-    assert "return tma_smem_bytes<T>(w, 1, 2) + (2 * P + 1) * t.cx * (int)sizeof(T);" in src
+    assert "PlaneRing<T> ring(smem_raw, w, 1, 2 * ZB)" in src
+    assert ("return tma_smem_bytes<T>(w, 1, 2 * z_boxes<T>()) + (2 * P + 1) * t.cx * "
+            "(int)sizeof(T);") in src
+    assert "return (int)(sizeof(Acc<T>) / sizeof(T));" in src
+    assert "tma_launch_geometry(xp, layout, 1, 2 * max(1, 4 // itemsize))" in _py_source(
+        "ops/mass.py")
 
 
 def test_point_only_ablation_patches_one_line():

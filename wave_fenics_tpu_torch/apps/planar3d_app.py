@@ -83,6 +83,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..convert import to_numpy
 from ..core.dofmap import StructuredDofGrid
 from ..core.io import write_xdmf_rectilinear, write_xdmf_unstructured
 from ..models.general_wave import GeneralLinearWave
@@ -100,13 +101,18 @@ from ..utils.timing import Timer, sync
 
 log = get_logger("planar3d")
 
-#: logged by every bf16 run: bf16 tables give the stencil's rows a nonzero
+#: logged by every bf16 run of the box, on one device or on blocks (which
+#: hold one device's tables): bf16 tables give the stencil's rows a nonzero
 #: sum, so a constant mode grows from some hundreds of steps on; the JAX
-#: package's bf16 solve_n grows the same way
+#: package's bf16 solve_n grows the same way. K's bf16 stiffness (an
+#: imported mesh) keeps -c0^2 <1, K 1> / sum(m) below zero (apps/bf16_growth.py
+#: --general), so no mode grows and that branch logs BF16_NOTE instead
 BF16_WARNING = ("bf16 state: the stiffness tables rounded to bf16 no longer sum to "
                 "zero along a row, and the solution grows over long runs (as the "
                 "JAX package's bf16 solve_n does); check the answer against an f32 "
                 "run")
+BF16_NOTE = ("bf16 state: tables and fields rounded to bf16 (f32 arithmetic); check "
+             "the answer against an f32 run")
 
 
 def _device(device: str) -> torch.device:
@@ -277,10 +283,7 @@ def write_output(path: str, model, pm: PaddedLinearWave | None, u, v, t: float) 
     global grid of a sharded run). Fields are tensors or NumPy arrays (the
     global state of a sharded run)."""
     def host(x):  # a bf16 state widened exactly (the writers store float64)
-        if isinstance(x, np.ndarray):
-            return x
-        x = x.detach().cpu()
-        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        return x if isinstance(x, np.ndarray) else to_numpy(x)
 
     if isinstance(model, GeneralLinearWave):
         write_xdmf_unstructured(path, model.dofs, {"u": host(u), "v": host(v)}, time=t)
@@ -404,7 +407,7 @@ def run(
         path, solve, warm_steps = solver_path(pm, integrator, two_step)
     log.info("solver path: %s", path)
     if m.dtype == torch.bfloat16:
-        log.warning(BF16_WARNING)
+        log.warning(BF16_NOTE if imported else BF16_WARNING)
 
     cm = (CheckpointManager(cfg.run.checkpoint_dir, cfg.run.checkpoint_every_steps)
           if cfg.run.checkpoint_dir else None)
@@ -433,7 +436,7 @@ def run(
                     raise ValueError(f"snapshot of shape {tuple(u.shape)} in "
                                      f"{cfg.run.checkpoint_dir}: a sharded run resumes "
                                      f"from the global grid {m.ops.grid_shape}")
-                u, v = sw.from_global(u_np, lay), sw.from_global(v_np, lay)
+                u, v = sw.from_global(to_numpy(u), lay), sw.from_global(to_numpy(v), lay)
             elif not imported and tuple(u.shape) != pm.layout.padded_shape:
                 # a snapshot on the unpadded grid
                 u, v = pm.from_grid(u), pm.from_grid(v)
@@ -443,6 +446,12 @@ def run(
     def to_global(x):
         """A sharded state on the host: the global vector or dof grid."""
         return sg.to_global(x) if sg is not None else sw.to_global(x, lay)
+
+    def snapshot(x):
+        """A sharded state as a snapshot holds it: the global vector or dof
+        grid (a bf16 state as a bf16 tensor, exact from its float32 gather)."""
+        g = to_global(x)
+        return torch.as_tensor(g).to(m.dtype) if m.dtype == torch.bfloat16 else g
 
     # one kernel call (one step; two for kernel J) from the initial state,
     # discarded: allocates the kernel's buffers and pays first-launch costs
@@ -464,7 +473,7 @@ def run(
             progress(step, nstep, t, every=1)
             if cm is not None and step < nstep:
                 if sharded:  # snapshots hold the global grid or vector
-                    cm.save(step, to_global(u), to_global(v), t)
+                    cm.save(step, snapshot(u), snapshot(v), t)
                 else:
                     cm.save(step, u, v, t)
     solve_s = tm.seconds("solve")
@@ -492,6 +501,8 @@ def run(
                              if solve_s > 0 else 0.0),
         "u_norm": (float(np.linalg.norm(u_glob.astype(np.float32))) if sharded
                    else float(torch.linalg.norm(u.float()))),
+        "u_max": (float(np.abs(u_glob).max()) if sharded
+                  else float(u.float().abs().max())),
         "solver_path": path,
         "compile_seconds": build_s,
         "warmup_seconds": warmup_s,

@@ -302,14 +302,14 @@ _J_FORM = """    for (int e = (int)threadIdx.x; e < npt; e += nt) {
       const A vn3 = v0 + dt * k2;
       f1[j] = narrow<T>(u0 + dt * (((b0 * v0 + b1 * vn1) + b1 * vn2) + b0 * vn3));
     }"""
-_G_ZY = """    for (int r = c.ly; r < nrow; r += t.ty) zb[r * tz + c.lz] = band<T, P>(cz, xb + r * W, 1);
+_G_ZY = """    for (int r = c.ly; r < nrow; r += t.ty) zb[r * tz + c.lz] = band<A, P>(cz, xb + r * W, 1);
     __syncthreads();  // the z-contracted plane gi is complete, and every
                       // thread is past plane gi - 1: refill its slot
     if (threadIdx.x == 0 && i + kRing - 1 < iters) {
       ring.fetch(i + kRing - 1, &xmap, nullptr, zs, ys, gi + kRing - 1);
     }
     if (!c.active) continue;
-    const T v = band<T, P>(cy, zb + c.ly * tz + c.lz, tz);  // y at the column"""
+    const A v = band<A, P>(cy, zb + c.ly * tz + c.lz, tz);  // y at the column"""
 _F_YZ = """        A acc = A(0);
 #pragma unroll
         for (int k = 0; k < K; ++k) acc += cy[r][k] * v[k + r];
@@ -329,7 +329,7 @@ ABLATIONS = {
             "x_taps<A, P>(s, q3, g) * tab.fx + yz3 * sxg", "q3[P]").replace(
             "x_taps<A, P>(s, q1, g) * tab.fx + yz1 * sxg", "q1[P]")),
         "mass_tiled.cu": (_G_ZY, "\n".join(_G_ZY.splitlines()[1:-1])
-                          + "\n    const T v = xb[(c.ly + P) * W + P];"),
+                          + "\n    const A v = widen(xb[(c.ly + P) * W + P]);"),
         "flat_tiled.cu": ("x_taps<A, P>(s, q, g) * tab.fx + yz * widen(__ldg(&s.sx[g]));",
                           "q[P];"),
         "stiffness_tiled.cu": (_F_YZ, "        ty[r] = v[P + r] * (lx * lz);\n"
@@ -393,11 +393,11 @@ ABLATIONS = {
     },
     "K no geometry": {
         "general_kernels.cu": ("    load_geometry<T, M, Affine>(a, cell, col, g);",
-                               "    for (int e = 0; e < 6 * M; ++e) g[e / M][e % M] = T(1 + e % 3);"),
+                               "    for (int e = 0; e < 6 * M; ++e) g[e / M][e % M] = A(1 + e % 3);"),
     },
     "K no y read": {
         "general_kernels.cu": ("  for (int i = 0; i < M; ++i) yo[i] = a.y[dof[i]];",
-                               "  for (int i = 0; i < M; ++i) yo[i] = T(0);"),
+                               "  for (int i = 0; i < M; ++i) yo[i] = A(0);"),
     },
     # K's colour launches without the programmatic dependent launch (each
     # waits for the previous one to end)

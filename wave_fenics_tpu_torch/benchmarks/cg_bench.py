@@ -38,6 +38,13 @@ always, tau = (h / (4 c0 p^2))^2, the JAX bench's), checked against the
 same CG on one device: iterations within 1 and solutions within 1e-6 (f64)
 or 1e-2 (f32) relative (the record also has ``exchange``).
 
+``--dtype bf16``: the vectors and the operator's tables bf16 (kernels G
+and K in their bf16 forms), the dots, alpha and beta float32. CG cannot
+reach rtol 1e-4 in bf16 (in either package) and runs to kmax; on one
+device the record adds ``sol_rel_vs_f64``, the largest difference from
+the same CG in float64 on the same b (its bf16 values) after the same
+kmax, over the largest |value| of the latter, and ``iters_f64``.
+
 Timing: ``reps`` and ``reps // 4`` back-to-back solves of the same b,
 differenced (``common.two_point_time``; CUDA events on a card). The JAX
 package chains the solves through b + eps x with eps = 0 so that XLA
@@ -53,7 +60,7 @@ import time
 import numpy as np
 import torch
 
-from ..convert import tables_from_numpy
+from ..convert import tables_from_numpy, to_numpy
 from ..core.dofmap import build_dofmap
 from ..core.mesh import box_mesh
 from ..ops.mass import bp1_setup, mass_apply
@@ -85,43 +92,26 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
     t0 = time.perf_counter()
     mesh = box_mesh(cells_from_args(size, s), (1.0, 1.0, 1.0))
     p = degree
-    rng = np.random.default_rng(0)
     grid = tuple(n * p + 1 for n in mesh.shape)
     ndofs = int(np.prod(grid))
-    pre = dot = sw = sg = None
+    sw = sg = None
     if ndev > 1 and op == "general":
+        rng = np.random.default_rng(0)
         gm = GeneralLinearWave(mesh.to_hex_mesh(), p, facet_tags={}, dtype=dt, device=dev)
         tau = (0.25 / mesh.shape[0] / (gm.c0 * p * p)) ** 2
         sg = ShardedGeneralWave(gm, ndev).prepare()
         b = sg.from_global(rng.standard_normal(gm.ndofs))
+        pre = dot = None
     elif ndev > 1:
         sw = ShardedLinearWave(LinearWave(mesh, p, dtype=dt, device=dev),
                                decompose3d(ndev))
-        b = sw.from_global(rng.standard_normal(grid))
-        matvec, dot = sw.spectral_mass, sw.dot
+        b = sw.from_global(np.random.default_rng(0).standard_normal(grid))
+        matvec, dot, pre = sw.spectral_mass, sw.dot, None
         if precond:
             pre = lambda r: Blocks(i * x for i, x in zip(sw.inv_m, r))  # noqa: E731
-    elif op == "general":
-        hm = mesh.to_hex_mesh()
-        gops = GeneralOperators(hm, build_dofmap(hm, p, device=dev), dtype=dt,
-                                rule="gauss", q=q, device=dev)
-        b = torch.as_tensor(rng.standard_normal(gops.ndofs), dtype=dt, device=dev)
-        matvec = gops.mass
-        if precond:
-            inv_m = 1.0 / gops.lumped_mass_on(dev)
-            pre = lambda r: inv_m * r  # noqa: E731
-    elif op == "bp1":
-        b0 = torch.as_tensor(rng.standard_normal(grid), dtype=dt, device=dev)
-        layout, tables, pre = bp1_setup(mesh, p, dt, dev, precond, q)
-        b = layout.pad(b0)
-        matvec = lambda v: mass_apply(v, layout, tables)  # noqa: E731
     else:
-        ops = StructuredOperators(mesh, p, dtype=dt)
-        b = torch.as_tensor(rng.standard_normal(grid), dtype=dt, device=dev)
-        matvec = ops.spectral_mass
-        if precond:
-            (inv_diag,) = tables_from_numpy((1.0 / ops.lumped_mass,), dev, dt)
-            pre = lambda r: inv_diag * r  # noqa: E731
+        b, matvec, pre = _single_device(op, mesh, p, dt, dev, precond, q)
+        dot = None
 
     sync(dev)
     setup_s = time.perf_counter() - t0
@@ -154,7 +144,43 @@ def run(op: str = "bp1", size: int = 32, degree: int = 2, s: int | None = None,
                                          precond))
     if sg is not None:
         out.update(_general_parity(sg, x, iters, tau, dtype, dev, kmax, rtol))
+    if dtype == "bf16" and ndev == 1:
+        b64, matvec64, pre64 = _single_device(op, mesh, p, torch.float64, dev, precond, q,
+                                              b.double())
+        x64, k64, _ = cg(matvec64, b64, kmax=kmax, rtol=rtol, precond=pre64)
+        out.update(iters_f64=k64, sol_rel_vs_f64=float(
+            (x.double() - x64).abs().max() / x64.abs().max()))
     return out
+
+
+def _single_device(op, mesh, p, dt, dev, precond, q, b=None):
+    """(b, matvec, precond) of ``op`` on one device in ``dt``; b the seeded
+    right-hand side (unpadded), or ``b`` (padded for bp1) converted."""
+    rng = np.random.default_rng(0)
+    grid = tuple(n * p + 1 for n in mesh.shape)
+    pre = None
+    if op == "general":
+        hm = mesh.to_hex_mesh()
+        gops = GeneralOperators(hm, build_dofmap(hm, p, device=dev), dtype=dt,
+                                rule="gauss", q=q, device=dev)
+        b = torch.as_tensor(rng.standard_normal(gops.ndofs) if b is None else b,
+                            dtype=dt, device=dev)
+        if precond:
+            inv_m = 1.0 / gops.lumped_mass_on(dev)
+            pre = lambda r: inv_m * r  # noqa: E731
+        return b, gops.mass, pre
+    if op == "bp1":
+        layout, tables, pre = bp1_setup(mesh, p, dt, dev, precond, q)
+        b = (layout.pad(torch.as_tensor(rng.standard_normal(grid), dtype=dt, device=dev))
+             if b is None else b.to(dt))
+        return b, lambda v: mass_apply(v, layout, tables), pre
+    ops = StructuredOperators(mesh, p, dtype=dt)
+    b = torch.as_tensor(rng.standard_normal(grid) if b is None else b, dtype=dt,
+                        device=dev)
+    if precond:
+        (inv_diag,) = tables_from_numpy((1.0 / ops.lumped_mass,), dev, dt)
+        pre = lambda r: inv_diag * r  # noqa: E731
+    return b, ops.spectral_mass, pre
 
 
 def _general_parity(sg, x, iters, tau, dtype, dev, kmax, rtol) -> dict:
@@ -169,7 +195,7 @@ def _general_parity(sg, x, iters, tau, dtype, dev, kmax, rtol) -> dict:
         return gm.m * z - tau * gm.ops.stiffness(z, gm.c0)
 
     x1, k1, _ = cg(matvec, b1, kmax=kmax, rtol=rtol, precond=lambda r: r / gm.m)
-    x1n = x1.cpu().numpy()
+    x1n = to_numpy(x1)
     rel = float(np.abs(sg.to_global(x) - x1n).max() / np.abs(x1n).max())
     if abs(k1 - iters) > 1 or rel >= (1e-6 if dtype == "f64" else 1e-2):
         raise RuntimeError(f"sharded general CG: {iters} iterations and a solution "
@@ -191,7 +217,7 @@ def _single_device_parity(sw, x, iters, grid, dt, dev, kmax, rtol, precond) -> d
         (inv,) = tables_from_numpy((1.0 / ops.lumped_mass,), dev, dt)
         pre = lambda r: inv * r  # noqa: E731
     x1, k1, _ = cg(ops.spectral_mass, b1, kmax=kmax, rtol=rtol, precond=pre)
-    x1n = x1.cpu().numpy()
+    x1n = to_numpy(x1)
     rel = float(np.abs(sw.to_global(x) - x1n).max() / np.abs(x1n).max())
     if abs(k1 - iters) > 1 or rel >= 10 * rtol:
         raise RuntimeError(f"sharded CG: {iters} iterations and a solution {rel:.3e} "

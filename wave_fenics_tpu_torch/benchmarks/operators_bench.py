@@ -23,7 +23,10 @@ Port of ``wave_fenics_tpu.benchmarks.operators_bench`` on one device:
   against the f64 indexed path of a second operator set on the same mesh
   and dofmap.
 
-The f64 oracle runs on the same device as the op.
+The f64 oracle runs on the same device as the op. ``--dtype bf16`` runs
+each op on its kernel's bf16 form (F, G, B, K; the diagonal masses and the
+roundtrip in bf16 torch), and its ``--check`` raises above
+``common.BF16_CHECK_TOL`` of the oracle's largest |value|.
 
 Run: python -m wave_fenics_tpu_torch.benchmarks.operators_bench --op stiffness --size 32
 Metric: DOF/s (size_local / t of the reference).
@@ -44,7 +47,7 @@ from ..ops.mass import bp1_setup, mass_apply
 from ..ops.operators import GeneralOperators, StructuredOperators
 from ..ops.separable import mass_separable, separable_mass_tables
 from ..utils.timing import sync
-from .common import (bench_dtype, cells_from_args, device_name, make_parser,
+from .common import (bench_dtype, cells_from_args, check_bf16, device_name, make_parser,
                      report, resolve_device, streaming_fields, two_point_time)
 
 STRUCTURED_OPS = ("stiffness", "bp1-mass", "mass-fused", "spectral",
@@ -160,6 +163,7 @@ def run(op: str = "stiffness", size: int = 32, degree: int = 4,
                else _oracle(op, mesh, p, x, layout))
         out["max_rel_err_vs_f64_oracle"] = float(
             (y - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+        check_bf16(dtype, out["max_rel_err_vs_f64_oracle"], f"{op} --check")
     return out
 
 

@@ -32,7 +32,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import numpy_dtype
 from ..core.dofmap import StructuredDofGrid
 from ..core.mesh import box_mesh
 from ..models.general_wave import GeneralLinearWave
@@ -83,7 +82,7 @@ def run(mode: str = "local", size: int = 32, degree: int = 4, reps: int = 50,
         u, _ = sw.zero_state()
         t, timing, calls = two_point_time(lambda: halo_add(u, sw.exchange), reps, dev)
         t_fwd, _, _ = two_point_time(lambda: halo_sync(u, sw.exchange), reps, dev)
-        face = sw.block_shape[1] * sw.block_shape[2] * np.dtype(numpy_dtype(dt)).itemsize
+        face = sw.block_shape[1] * sw.block_shape[2] * torch.finfo(dt).bits // 8
         return dict(metric="halo exchange (3-axis slab swaps)", ndev=ndev,
                     parts=list(sw.parts), degree=p, dtype=dtype, device=device_name(dev),
                     us_per_exchange=t * 1e6, us_per_fwd_sync=t_fwd * 1e6, timing=timing,

@@ -16,8 +16,13 @@ turns TF32 off (``torch.backends.cuda.matmul.allow_tf32``,
 ``torch.backends.cudnn.allow_tf32``, the float32 matmul precision
 "highest"), checks that it is off, and records the flags.
 
+``--dtype bf16``: u and B in bf16, the six einsums bf16 (float32
+accumulation in cuBLAS, each output rounded to bf16); ``--check`` raises
+above ``common.BF16_CHECK_TOL``. The JAX package keeps B in float32 there,
+so its bf16 contractions promote to float32.
+
 Run: python -m wave_fenics_tpu_torch.benchmarks.tsmm [--ncells N] [--degree P]
-         [--dtype f32|f64] [--device cuda|cpu] [--check]
+         [--dtype f32|f64|bf16] [--device cuda|cpu] [--check]
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 from ..core.basis import tabulate_1d
 from ..ops.element_kernels import interp3, interp3_t
 from ..utils.timing import sync
-from .common import bench_dtype, device_name, make_parser, report, resolve_device, two_point_time
+from .common import (bench_dtype, check_bf16, device_name, make_parser, report,
+                     resolve_device, two_point_time)
 
 __all__ = ["run", "main", "contract", "flops"]
 
@@ -98,6 +104,7 @@ def run(ncells: int = 100000, degree: int = 4, reps: int = 100, dtype: str = "f3
         ref = contract(torch.as_tensor(u_host[:n], device=dev),
                        torch.as_tensor(tab.B, device=dev))
         out["max_rel_err_vs_f64"] = float((y - ref).abs().max() / ref.abs().max())
+        check_bf16(dtype, out["max_rel_err_vs_f64"], "tsmm --check")
     return out
 
 

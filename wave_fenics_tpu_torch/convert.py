@@ -38,6 +38,7 @@ __all__ = [
     "stored",
     "is_bf16_array",
     "to_numpy_bits",
+    "to_numpy",
     "tables_from_numpy",
     "state_from_numpy",
     "general_mesh_from_numpy",
@@ -111,6 +112,13 @@ def to_numpy_bits(x: torch.Tensor) -> np.ndarray:
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(np.uint16)
     return x.numpy()
+
+
+def to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as NumPy: bf16 widened to float32 (exact), the
+    other types as they are."""
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def torch_dtype(dtype) -> torch.dtype:

@@ -26,9 +26,10 @@
 // into colours so that no two cells of one colour share a dof
 // (ops/gather_scatter.py::colour_cells, built once on the host), y is set
 // to 0, and one launch per colour, in a fixed order, adds its cells'
-// coeff E(x_e) straight into y. No atomics and no workspace: each dof's
-// sum is (((0 + first colour's term) + next) + ...), the same bit for bit
-// on every run (the JAX package's determinism, tests/test_determinism.py).
+// coeff E(x_e) straight into y (bf16: into a float32 workspace, below). No
+// atomics: each dof's sum is (((0 + first colour's term) + next) + ...),
+// the same bit for bit on every run (the JAX package's determinism,
+// tests/test_determinism.py).
 //
 // general_stiffness_kernel<T, M, Affine> (the collocated stiffness, the
 // mode of the general solvers, m = M = p + 1 <= 7): one thread per (j, k)
@@ -54,9 +55,24 @@
 // point, far below the flop rate; the compulsory traffic is x and y once,
 // the dofmap and the geometry (6 values per node for the per-node
 // stiffness: at 64x32x32 cells, p = 4, f32, 17.1 + 17.1 + 32.8 + 196.6 MB,
-// 0.079 ms at 3.35 TB/s). The design adds the pass that sets y to 0
-// (general_zero_kernel) and the read of the y entries that each colour
-// updates, L2 hits while y stays resident.
+// 0.079 ms at 3.35 TB/s; bf16 8.55 + 8.55 + 32.8 + 98.3 MB, 0.0442 ms).
+// The design adds the pass that sets y to 0 (general_zero_kernel) and the
+// read of the y entries that each colour updates, L2 hits while y stays
+// resident.
+//
+// bf16 state (T = __nv_bfloat16): x, B, D, the geometry (and w) are bf16,
+// the dofmap int32; every load widens to float32 (Acc<T>,
+// stencil_tiled.cuh), the cell buffers in shared memory and all the
+// arithmetic are float32. The colours do not add into the bf16 y: a
+// rounding per colour of a partial sum would cost the stiffness, whose
+// element terms cancel almost wholly, most of its relative accuracy. They
+// add into a float32 workspace of ndofs instead (the caller's `work`; the
+// zero pass clears it), and a last pass (general_round_kernel) rounds it
+// once into y. The sum order stays fixed, so a bf16 apply is bitwise
+// repeatable too. The workspace costs 4 bytes a dof (17.1 MB at the size
+// above), written by the zero pass, updated in L2 by the colours and read
+// once by the last pass: about 43 MB of traffic more than the bf16 bound.
+// f32 and f64 accumulate in y itself (work is y).
 //
 // The extern "C" launcher returns cudaGetLastError() after its launches (or
 // the error of a call before them), so the caller sees a launch that the
@@ -65,8 +81,15 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "stencil_tiled.cuh"
 
 namespace wave_general {
+
+using wave::Acc;
+using wave::narrow;
+using wave::widen;
 
 constexpr int kThreads = 128;        // general_element_kernel
 constexpr int kColumnThreads = 256;  // general_stiffness_kernel, at most
@@ -79,17 +102,18 @@ __host__ __device__ constexpr int column_cells() {
   return kColumnThreads / (M * M) > 0 ? kColumnThreads / (M * M) : 1;
 }
 
-// Column-kernel blocks an SM must hold: two in f32 (128 registers a
-// thread), one in f64.
+// Column-kernel blocks an SM must hold: two in f32 and bf16 (128
+// registers a thread), one in f64.
 template <typename T>
 __host__ __device__ constexpr int column_min_blocks() {
-  return sizeof(T) == 4 ? 2 : 1;
+  return sizeof(Acc<T>) == 4 ? 2 : 1;
 }
 
 template <typename T>
 struct ElementArgs {
+  using A = Acc<T>;
   const T* x;           // [ndofs]
-  T* y;                 // [ndofs], accumulated in place
+  A* y;                 // [ndofs], accumulated in place (bf16: the workspace)
   const int* dofmap;    // [nc, m^3]
   const int* cells;     // this launch's cells: one colour's
   int ncells;           // cells in this launch
@@ -100,7 +124,7 @@ struct ElementArgs {
   int m, nq, nc;
   int cpb;              // cells per block (general_element_kernel)
   int stride;           // shared-memory elements per cell (the same)
-  T coeff;
+  A coeff;
 };
 
 // Programmatic dependent launch: the next launch on the stream may start
@@ -117,10 +141,10 @@ __device__ __forceinline__ void wait_previous_launch() {
 
 // The geometric factor `g` of `cell` at point `q` (npts points per cell).
 template <typename T, bool Affine>
-__device__ __forceinline__ T geo_at(const ElementArgs<T>& a, int g, int cell,
-                                    int q, int npts) {
-  if (Affine) return a.geo[(long long)g * a.nc + cell] * a.w[q];
-  return a.geo[((long long)g * a.nc + cell) * npts + q];
+__device__ __forceinline__ Acc<T> geo_at(const ElementArgs<T>& a, int g, int cell,
+                                         int q, int npts) {
+  if (Affine) return widen(a.geo[(long long)g * a.nc + cell]) * widen(a.w[q]);
+  return widen(a.geo[((long long)g * a.nc + cell) * npts + q]);
 }
 
 // ---------------------------------------------------------------------------
@@ -131,21 +155,23 @@ __device__ __forceinline__ T geo_at(const ElementArgs<T>& a, int g, int cell,
 // the cell), in registers.
 template <typename T, int M, bool Affine>
 __device__ __forceinline__ void load_geometry(const ElementArgs<T>& a, int cell,
-                                              int col, T (&g)[6][M]) {
+                                              int col, Acc<T> (&g)[6][M]) {
   constexpr int M2 = M * M, M3 = M2 * M;
   if (Affine) {
 #pragma unroll
     for (int e = 0; e < 6; ++e) {
-      const T ge = __ldg(&a.geo[(long long)e * a.nc + cell]);
+      const Acc<T> ge = widen(__ldg(&a.geo[(long long)e * a.nc + cell]));
 #pragma unroll
-      for (int i = 0; i < M; ++i) g[e][i] = ge * __ldg(&a.w[i * M2 + col]);
+      for (int i = 0; i < M; ++i) g[e][i] = ge * widen(__ldg(&a.w[i * M2 + col]));
     }
   } else {
 #pragma unroll
     for (int e = 0; e < 6; ++e) {
       const T* ge = a.geo + ((long long)e * a.nc + cell) * M3 + col;
 #pragma unroll
-      for (int i = 0; i < M; ++i) g[e][i] = __ldcs(ge + i * M2);  // streamed: evict first
+      for (int i = 0; i < M; ++i) {
+        g[e][i] = widen(__ldcs(ge + i * M2));  // streamed: evict first
+      }
     }
   }
 }
@@ -153,11 +179,12 @@ __device__ __forceinline__ void load_geometry(const ElementArgs<T>& a, int cell,
 template <typename T, int M, bool Affine>
 __global__ void __launch_bounds__(kColumnThreads, (column_min_blocks<T>()))
     general_stiffness_kernel(ElementArgs<T> a) {
+  using A = Acc<T>;
   constexpr int M2 = M * M, M3 = M2 * M, CPB = column_cells<M>();
-  __shared__ T sD[M2];
-  __shared__ T xs[CPB][M3];   // the cells' x_e
-  __shared__ T w1s[CPB][M3];  // w_1 = G_1. grad x_e
-  __shared__ T w2s[CPB][M3];  // w_2 = G_2. grad x_e
+  __shared__ A sD[M2];
+  __shared__ A xs[CPB][M3];   // the cells' x_e
+  __shared__ A w1s[CPB][M3];  // w_1 = G_1. grad x_e
+  __shared__ A w2s[CPB][M3];  // w_2 = G_2. grad x_e
   const int tid = (int)threadIdx.x;
   const int lc = tid / M2;  // the block's cell of this thread
   const int col = tid - lc * M2;
@@ -165,10 +192,10 @@ __global__ void __launch_bounds__(kColumnThreads, (column_min_blocks<T>()))
   const int k = col - j * M;
   const int slot = (int)blockIdx.x * CPB + lc;
   const bool live = slot < a.ncells;
-  if (tid < M2) sD[tid] = a.D[tid];
+  if (tid < M2) sD[tid] = widen(a.D[tid]);
 
   int dof[M];
-  T g[6][M], xc[M];
+  A g[6][M], xc[M];
   if (live) {
     const int cell = __ldg(&a.cells[slot]);
     const int* dm = a.dofmap + (long long)cell * M3 + col;
@@ -176,14 +203,14 @@ __global__ void __launch_bounds__(kColumnThreads, (column_min_blocks<T>()))
     for (int i = 0; i < M; ++i) dof[i] = __ldcs(dm + i * M2);  // streamed: evict first
     load_geometry<T, M, Affine>(a, cell, col, g);
 #pragma unroll
-    for (int i = 0; i < M; ++i) xc[i] = __ldg(&a.x[dof[i]]);
+    for (int i = 0; i < M; ++i) xc[i] = widen(__ldg(&a.x[dof[i]]));
   } else {
 #pragma unroll
     for (int i = 0; i < M; ++i) {
       dof[i] = 0;
-      xc[i] = T(0);
+      xc[i] = A(0);
 #pragma unroll
-      for (int e = 0; e < 6; ++e) g[e][i] = T(0);
+      for (int e = 0; e < 6; ++e) g[e][i] = A(0);
     }
   }
   // the next colour's blocks load and contract their cells while this
@@ -194,11 +221,11 @@ __global__ void __launch_bounds__(kColumnThreads, (column_min_blocks<T>()))
   __syncthreads();
 
   // per node (i, j, k): the reference gradient u, then w_d = sum_d' G_dd' u_d'
-  const T* xe = xs[lc];
-  T w0[M];
+  const A* xe = xs[lc];
+  A w0[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    T u0 = T(0), u1 = T(0), u2 = T(0);
+    A u0 = A(0), u1 = A(0), u2 = A(0);
 #pragma unroll
     for (int s = 0; s < M; ++s) {
       u0 += sD[i * M + s] * xc[s];
@@ -212,12 +239,12 @@ __global__ void __launch_bounds__(kColumnThreads, (column_min_blocks<T>()))
   __syncthreads();
 
   // y_e = sum_d D_d^T w_d
-  const T* w1 = w1s[lc];
-  const T* w2 = w2s[lc];
-  T acc[M];
+  const A* w1 = w1s[lc];
+  const A* w2 = w2s[lc];
+  A acc[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    acc[i] = T(0);
+    acc[i] = A(0);
 #pragma unroll
     for (int s = 0; s < M; ++s) acc[i] += sD[s * M + i] * w0[s];
 #pragma unroll
@@ -229,7 +256,7 @@ __global__ void __launch_bounds__(kColumnThreads, (column_min_blocks<T>()))
   // pass that set y to 0) has ended
   wait_previous_launch();
   if (!live) return;
-  T yo[M];
+  A yo[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) yo[i] = a.y[dof[i]];
 #pragma unroll
@@ -240,7 +267,8 @@ __global__ void __launch_bounds__(kColumnThreads, (column_min_blocks<T>()))
 // The other modes: one block of `cpb` cells, sum-factorized in shared memory.
 // ---------------------------------------------------------------------------
 
-// One 1D contraction of every cell tensor of the block along Axis:
+// One 1D contraction of every cell tensor of the block along Axis (T: the
+// arithmetic type):
 // out[.., o, ..] = sum_k M(o, k) in[.., k, ..], with the table M [rows, cols]
 // row-major in shared memory, M(o, k) = M[o][k], or M[k][o] when Trans.
 // `in` has dims (n0, n1, n2); `out` the same with dims[Axis] -> nout.
@@ -281,8 +309,9 @@ __device__ void contract(const T* in, T* out, int stride, int ncell, int n0,
 template <typename T, int Mode, bool Affine>
 __global__ void __launch_bounds__(kThreads)
     general_element_kernel(ElementArgs<T> a) {
+  using A = Acc<T>;
   extern __shared__ unsigned char smem_raw[];
-  T* buf = reinterpret_cast<T*>(smem_raw);
+  A* buf = reinterpret_cast<A*>(smem_raw);
   const int m = a.m, nq = a.nq;
   const int nd = m * m * m;
   const int slot0 = blockIdx.x * a.cpb;  // the block's first cell of the launch
@@ -294,12 +323,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int e0 = 0; e0 < ncell * nd; e0 += blockDim.x) {
       const int e = e0 + tid;
       int d = 0;
-      T ye = T(0);
+      A ye = A(0);
       if (e < ncell * nd) {
         const int cell = a.cells[slot0 + e / nd];
         const int n = e % nd;
         d = a.dofmap[(long long)cell * nd + n];
-        ye = a.coeff * (a.x[d] * geo_at<T, Affine>(a, 0, cell, n, nd));
+        ye = a.coeff * (widen(a.x[d]) * geo_at<T, Affine>(a, 0, cell, n, nd));
       }
       wait_previous_launch();
       if (e < ncell * nd) a.y[d] += ye;
@@ -308,18 +337,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // tables B and D after the cells' buffers
-  T* sB = buf + a.cpb * a.stride;
-  T* sD = sB + nq * m;
+  A* sB = buf + a.cpb * a.stride;
+  A* sD = sB + nq * m;
   for (int e = tid; e < nq * m; e += blockDim.x) {
-    sB[e] = a.B[e];
-    sD[e] = a.D[e];
+    sB[e] = widen(a.B[e]);
+    sD[e] = widen(a.D[e]);
   }
   // gather x_e into each cell's first nd elements
   for (int e = tid; e < a.cpb * nd; e += blockDim.x) {
     const int c = e / nd;
     const int n = e - c * nd;
     buf[c * a.stride + n] =
-        c < ncell ? a.x[a.dofmap[(long long)a.cells[slot0 + c] * nd + n]] : T(0);
+        c < ncell ? widen(a.x[a.dofmap[(long long)a.cells[slot0 + c] * nd + n]]) : A(0);
   }
   __syncthreads();
 
@@ -329,17 +358,17 @@ __global__ void __launch_bounds__(kThreads)
   const int Q3 = Q * Q * Q;
   const int nq3 = nq * nq * nq;
   const int S = a.stride;
-  T* xe = buf;
-  T* g = buf + nd;  // g_d at g + d * Q3
-  T* t1 = g + 3 * Q3;
-  T* t2 = t1 + Q3;
+  A* xe = buf;
+  A* g = buf + nd;  // g_d at g + d * Q3
+  A* t1 = g + 3 * Q3;
+  A* t2 = t1 + Q3;
 
   if (Mode == kMassGauss) {
-    contract<T, 0, false, false>(xe, t1, S, ncell, m, m, m, sB, m, nq);
+    contract<A, 0, false, false>(xe, t1, S, ncell, m, m, m, sB, m, nq);
     __syncthreads();
-    contract<T, 1, false, false>(t1, t2, S, ncell, nq, m, m, sB, m, nq);
+    contract<A, 1, false, false>(t1, t2, S, ncell, nq, m, m, sB, m, nq);
     __syncthreads();
-    contract<T, 2, false, false>(t2, g, S, ncell, nq, nq, m, sB, m, nq);
+    contract<A, 2, false, false>(t2, g, S, ncell, nq, nq, m, sB, m, nq);
     __syncthreads();
     for (int e = tid; e < ncell * nq3; e += blockDim.x) {
       const int c = e / nq3;
@@ -347,21 +376,21 @@ __global__ void __launch_bounds__(kThreads)
       g[c * S + q] *= geo_at<T, false>(a, 0, a.cells[slot0 + c], q, nq3);
     }
     __syncthreads();
-    contract<T, 0, true, false>(g, t1, S, ncell, nq, nq, nq, sB, m, m);
+    contract<A, 0, true, false>(g, t1, S, ncell, nq, nq, nq, sB, m, m);
     __syncthreads();
-    contract<T, 1, true, false>(t1, t2, S, ncell, m, nq, nq, sB, m, m);
+    contract<A, 1, true, false>(t1, t2, S, ncell, m, nq, nq, sB, m, m);
     __syncthreads();
-    contract<T, 2, true, false>(t2, xe, S, ncell, m, m, nq, sB, m, m);
+    contract<A, 2, true, false>(t2, xe, S, ncell, m, m, nq, sB, m, m);
     __syncthreads();
   } else {  // kStiffnessGauss
     // g_d = grad_d x_e: D on axis d, B on the others
     for (int d = 0; d < 3; ++d) {
-      T* gd = g + d * Q3;
-      contract<T, 0, false, false>(xe, t1, S, ncell, m, m, m, d == 0 ? sD : sB, m, nq);
+      A* gd = g + d * Q3;
+      contract<A, 0, false, false>(xe, t1, S, ncell, m, m, m, d == 0 ? sD : sB, m, nq);
       __syncthreads();
-      contract<T, 1, false, false>(t1, t2, S, ncell, nq, m, m, d == 1 ? sD : sB, m, nq);
+      contract<A, 1, false, false>(t1, t2, S, ncell, nq, m, m, d == 1 ? sD : sB, m, nq);
       __syncthreads();
-      contract<T, 2, false, false>(t2, gd, S, ncell, nq, nq, m, d == 2 ? sD : sB, m, nq);
+      contract<A, 2, false, false>(t2, gd, S, ncell, nq, nq, m, d == 2 ? sD : sB, m, nq);
       __syncthreads();
     }
     // w = G g at every point, in place
@@ -369,14 +398,14 @@ __global__ void __launch_bounds__(kThreads)
       const int c = e / nq3;
       const int q = e - c * nq3;
       const int cell = a.cells[slot0 + c];
-      T* p0 = g + c * S + q;
-      const T u0 = p0[0], u1 = p0[Q3], u2 = p0[2 * Q3];
-      const T g00 = geo_at<T, false>(a, 0, cell, q, nq3);
-      const T g01 = geo_at<T, false>(a, 1, cell, q, nq3);
-      const T g02 = geo_at<T, false>(a, 2, cell, q, nq3);
-      const T g11 = geo_at<T, false>(a, 3, cell, q, nq3);
-      const T g12 = geo_at<T, false>(a, 4, cell, q, nq3);
-      const T g22 = geo_at<T, false>(a, 5, cell, q, nq3);
+      A* p0 = g + c * S + q;
+      const A u0 = p0[0], u1 = p0[Q3], u2 = p0[2 * Q3];
+      const A g00 = geo_at<T, false>(a, 0, cell, q, nq3);
+      const A g01 = geo_at<T, false>(a, 1, cell, q, nq3);
+      const A g02 = geo_at<T, false>(a, 2, cell, q, nq3);
+      const A g11 = geo_at<T, false>(a, 3, cell, q, nq3);
+      const A g12 = geo_at<T, false>(a, 4, cell, q, nq3);
+      const A g22 = geo_at<T, false>(a, 5, cell, q, nq3);
       p0[0] = g00 * u0 + g01 * u1 + g02 * u2;
       p0[Q3] = g01 * u0 + g11 * u1 + g12 * u2;
       p0[2 * Q3] = g02 * u0 + g12 * u1 + g22 * u2;
@@ -384,15 +413,15 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     // y = sum_d grad_d^T w_d, accumulated in x_e's buffer
     for (int d = 0; d < 3; ++d) {
-      const T* gd = g + d * Q3;
-      contract<T, 0, true, false>(gd, t1, S, ncell, nq, nq, nq, d == 0 ? sD : sB, m, m);
+      const A* gd = g + d * Q3;
+      contract<A, 0, true, false>(gd, t1, S, ncell, nq, nq, nq, d == 0 ? sD : sB, m, m);
       __syncthreads();
-      contract<T, 1, true, false>(t1, t2, S, ncell, m, nq, nq, d == 1 ? sD : sB, m, m);
+      contract<A, 1, true, false>(t1, t2, S, ncell, m, nq, nq, d == 1 ? sD : sB, m, m);
       __syncthreads();
       if (d == 0) {
-        contract<T, 2, true, false>(t2, xe, S, ncell, m, m, nq, sB, m, m);
+        contract<A, 2, true, false>(t2, xe, S, ncell, m, m, nq, sB, m, m);
       } else {
-        contract<T, 2, true, true>(t2, xe, S, ncell, m, m, nq, d == 2 ? sD : sB, m, m);
+        contract<A, 2, true, true>(t2, xe, S, ncell, m, m, nq, d == 2 ? sD : sB, m, m);
       }
       __syncthreads();
     }
@@ -410,10 +439,11 @@ __global__ void __launch_bounds__(kThreads)
 // Launchers: y = 0, then one launch per colour.
 // ---------------------------------------------------------------------------
 
-// y = 0, 16 bytes a store where y's base allows; colour 0's blocks may
-// start their loads meanwhile (they wait for this launch before they touch
-// y). Launched as an ordinary kernel: it starts only when the work before
-// it on the stream, which may read y, has ended.
+// y = 0 (the accumulator: y, or bf16's workspace), 16 bytes a store where
+// y's base allows; colour 0's blocks may start their loads meanwhile (they
+// wait for this launch before they touch y). Launched as an ordinary
+// kernel: it starts only when the work before it on the stream, which may
+// read y, has ended.
 template <typename T>
 __global__ void __launch_bounds__(256) general_zero_kernel(T* __restrict__ y, int n) {
   allow_next_launch();
@@ -424,6 +454,17 @@ __global__ void __launch_bounds__(256) general_zero_kernel(T* __restrict__ y, in
   int4* yv = reinterpret_cast<int4*>(y);
   for (int i = start; i < nv; i += step) yv[i] = make_int4(0, 0, 0, 0);
   for (int i = nv * kPer + start; i < n; i += step) y[i] = T(0);
+}
+
+// bf16: y = the float32 workspace rounded once (an ordinary launch: it
+// starts when the last colour has ended).
+template <typename T>
+__global__ void __launch_bounds__(256)
+    general_round_kernel(const Acc<T>* __restrict__ work, T* __restrict__ y, int n) {
+  const int step = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
+    y[i] = narrow<T>(work[i]);
+  }
 }
 
 // A colour's launch may begin while the previous launch on the stream
@@ -501,25 +542,38 @@ int launch_colour(const ElementArgs<T>& a, int mode, int affine, int smem,
 }
 
 // colour_starts is a host array [ncolours + 1]: colour c's cells are
-// cells[colour_starts[c] .. colour_starts[c + 1]).
+// cells[colour_starts[c] .. colour_starts[c + 1]). `work` is the
+// accumulator: y itself in f32 and f64, a float32 buffer of ndofs for bf16.
 template <typename T>
-int launch_general_apply(const T* x, T* y, const int* dofmap, const int* cells,
-                         const int* colour_starts, int ncolours, const T* B,
-                         const T* D, const T* geo, const T* w, int mode,
-                         int affine, int m, int nq, int nc, int ndofs, int cpb,
-                         int stride, int smem, double coeff,
+int launch_general_apply(const T* x, T* y, void* work, const int* dofmap,
+                         const int* cells, const int* colour_starts, int ncolours,
+                         const T* B, const T* D, const T* geo, const T* w,
+                         int mode, int affine, int m, int nq, int nc, int ndofs,
+                         int cpb, int stride, int smem, double coeff,
                          cudaStream_t stream) {
-  if (mode == kStiffness && (m < 2 || m > 7)) return (int)cudaErrorInvalidValue;
-  const long long nb = (ndofs / (16 / (long long)sizeof(T)) + 255LL) / 256 + 1;
-  general_zero_kernel<T><<<(unsigned)(nb < 65535LL * 64 ? nb : 65535LL * 64), 256, 0,
-                           stream>>>(y, ndofs);
+  using A = Acc<T>;
+  constexpr bool kWorkspace = !std::is_same<T, A>::value;
+  A* acc = static_cast<A*>(work);
+  if ((mode == kStiffness && (m < 2 || m > 7)) || acc == nullptr ||
+      (kWorkspace ? work == (void*)y || work == (const void*)x : work != (void*)y)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto blocks = [](long long n) {
+    return (unsigned)(n < 65535LL * 64 ? n : 65535LL * 64);
+  };
+  general_zero_kernel<A><<<blocks((ndofs / (16 / (long long)sizeof(A)) + 255LL) / 256 + 1),
+                           256, 0, stream>>>(acc, ndofs);
   for (int c = 0; c < ncolours; ++c) {
     const int n = colour_starts[c + 1] - colour_starts[c];
     if (n <= 0) continue;
-    const ElementArgs<T> a{x, y, dofmap, cells + colour_starts[c], n, B, D, geo,
-                           w, m, nq, nc, cpb, stride, T(coeff)};
+    const ElementArgs<T> a{x, acc, dofmap, cells + colour_starts[c], n, B, D, geo,
+                           w, m, nq, nc, cpb, stride, A(coeff)};
     const int rc = launch_colour<T>(a, mode, affine, smem, stream);
     if (rc != 0) return rc;
+  }
+  if constexpr (kWorkspace) {
+    general_round_kernel<T><<<blocks((ndofs + 255LL) / 256), 256, 0, stream>>>(acc, y,
+                                                                              ndofs);
   }
   return (int)cudaGetLastError();
 }
@@ -532,15 +586,16 @@ int launch_general_apply(const T* x, T* y, const int* dofmap, const int* cells,
 
 #define WAVE_GENERAL_DEFINE_LAUNCHER(T, SUFFIX)                                 \
   extern "C" int wave_general_apply_##SUFFIX(                                   \
-      const T* x, T* y, const int* dofmap, const int* cells,                    \
+      const T* x, T* y, void* work, const int* dofmap, const int* cells,        \
       const int* colour_starts, int ncolours, const T* B, const T* D,           \
       const T* geo, const T* w, int mode, int affine, int m, int nq, int nc,    \
       int ndofs, int cpb, int stride, int smem, double coeff,                   \
       cudaStream_t stream) {                                                    \
     return wave_general::launch_general_apply<T>(                               \
-        x, y, dofmap, cells, colour_starts, ncolours, B, D, geo, w, mode,       \
+        x, y, work, dofmap, cells, colour_starts, ncolours, B, D, geo, w, mode, \
         affine, m, nq, nc, ndofs, cpb, stride, smem, coeff, stream);            \
   }
 
 WAVE_GENERAL_DEFINE_LAUNCHER(float, f32)
 WAVE_GENERAL_DEFINE_LAUNCHER(double, f64)
+WAVE_GENERAL_DEFINE_LAUNCHER(__nv_bfloat16, bf16)

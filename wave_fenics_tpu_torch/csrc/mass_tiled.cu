@@ -20,8 +20,9 @@
 //
 // What bounds it on this card: x read once and y written once, two state
 // passes (0.0471 ms in f32 at 64^3 cells, p = 4: 67.9 MB of x's interior,
-// 90.0 MB of padded y, at 3.35 TB/s); 3(2p + 1) multiply-adds a point are
-// far below the flop rate. The earlier brick form read each brick's
+// 90.0 MB of padded y, at 3.35 TB/s; half that in bf16, 0.0236 ms);
+// 3(2p + 1) multiply-adds a point are far below the flop rate. The
+// earlier brick form read each brick's
 // (8 + 2p)^2 (32 + 2p) input box from L2 for 2,048 outputs, 5x the input,
 // in three barrier phases with nothing in flight across them: 10.9x the
 // bound.
@@ -42,7 +43,18 @@
 // grid's last layer of blocks (padding_block; last measured 3 % faster
 // than first at the P7 size, where the tile blocks take several waves).
 // P is a template parameter (p = 1..8); the launch bounds ask for two
-// 256-thread blocks an SM in f32.
+// 256-thread blocks an SM in f32 and bf16.
+//
+// bf16 state (T = __nv_bfloat16; f32 and f64 take the same code with
+// Acc<T> = T): x, y and the three tables are bf16 (a BFLOAT16 tensor map;
+// a bf16 box starts on an 8-point unit, so the tiling's tz is a multiple
+// of 8 and oz = (h - P) mod 8), every tap widens to float32
+// (stencil_tiled.cuh::Acc) and all three contractions run in float32: the
+// two z-contracted planes hold float32 (kZ = 2 boxes of T each), and y is
+// rounded once where it is stored. The TPU kernel rounds its x-contracted
+// t1 to the state dtype and accumulates y and z in bf16 scratch
+// (pallas_mass.py:84-106); ops/mass.py::mass_apply_zyx_plain is this
+// kernel's twin, rounding as it does.
 //
 // The extern "C" launcher returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a tiling that does not fit the layout, too
@@ -65,22 +77,28 @@ struct MassArgs {
   const T* cvz;  // [K, Lz]
 };
 
-// Dynamic shared memory of a block: the ring of x's windows, two
-// z-contracted planes, then cvx of a chunk's rows, [K][cx].
-template <typename T, int P>
-inline int mass_smem_bytes(const TmaWindow& w, const Tiling& t) {
-  return tma_smem_bytes<T>(w, 1, 2) + (2 * P + 1) * t.cx * (int)sizeof(T);
+// Boxes of T that one z-contracted plane of Acc<T> takes: 1, or 2 for bf16.
+template <typename T>
+__host__ __device__ constexpr int z_boxes() {
+  return (int)(sizeof(Acc<T>) / sizeof(T));
 }
 
-// sum_k c[k] v[k * stride], the shift-0 tap first, then the others in k
-// order
+// Dynamic shared memory of a block: the ring of x's windows, two
+// z-contracted planes of Acc<T>, then cvx of a chunk's rows, [K][cx].
 template <typename T, int P>
-__device__ __forceinline__ T band(const T (&c)[2 * P + 1], const T* v,
+inline int mass_smem_bytes(const TmaWindow& w, const Tiling& t) {
+  return tma_smem_bytes<T>(w, 1, 2 * z_boxes<T>()) + (2 * P + 1) * t.cx * (int)sizeof(T);
+}
+
+// sum_k c[k] v[k * stride] in A, the shift-0 tap first, then the others in
+// k order (v widened at the tap)
+template <typename A, int P, typename V>
+__device__ __forceinline__ A band(const A (&c)[2 * P + 1], const V* v,
                                   int stride) {
-  T acc = c[P] * v[P * stride];
+  A acc = c[P] * widen(v[P * stride]);
 #pragma unroll
   for (int k = 0; k < 2 * P + 1; ++k) {
-    if (k != P) acc += c[k] * v[k * stride];
+    if (k != P) acc += c[k] * widen(v[k * stride]);
   }
   return acc;
 }
@@ -89,19 +107,21 @@ template <typename T, int P>
 __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     mass_tiled_kernel(const __grid_constant__ CUtensorMap xmap, PaddedBox s,
                       MassArgs<T> a, Tiling t) {
+  using A = Acc<T>;
   constexpr int K = 2 * P + 1;
+  constexpr int ZB = z_boxes<T>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   long long pb, npb;
   if (padding_block(s, t, pb, npb)) {  // the grid's last layer: y's padding
     T* y = a.y;
     for_each_padding<1>(s, t, pb, npb,
-                        [y](const int (&i)[1], int) { y[i[0]] = T(0); });
+                        [y](const int (&i)[1], int) { y[i[0]] = zero<T>(); });
     return;
   }
 
   const TileCoords c(s, t);
   const TmaWindow w = tma_window<T>(s, t, P);
-  const PlaneRing<T> ring(smem_raw, w, 1, 2);  // x; two z-contracted planes
+  const PlaneRing<T> ring(smem_raw, w, 1, 2 * ZB);  // x; two z-contracted planes
   const int zs = c.z0 - P - w.oz;  // the box's origin in every plane
   const int ys = c.y0 - P;
   const int iters = c.xe - c.xs + 2 * P;  // planes xs - P .. xe + P - 1
@@ -121,15 +141,15 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
   // the column's taps: cvz wherever its z-contracted values are needed (a
   // column inside the interior along z), cvy at an interior column
   const bool zin = c.z < s.h + s.nz;
-  T cz[K], cy[K];
+  A cz[K], cy[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    cz[k] = zin ? a.cvz[k * s.Lz + c.z] : T(0);
-    cy[k] = c.active ? a.cvy[k * s.Ly + c.y] : T(0);
+    cz[k] = zin ? widen(a.cvz[k * s.Lz + c.z]) : A(0);
+    cy[k] = c.active ? widen(a.cvy[k * s.Ly + c.y]) : A(0);
   }
-  T q[K];  // q[k] = the y/z-contracted value at row gi - 2P + k after plane gi
+  A q[K];  // q[k] = the y/z-contracted value at row gi - 2P + k after plane gi
 #pragma unroll
-  for (int k = 0; k < K; ++k) q[k] = T(0);
+  for (int k = 0; k < K; ++k) q[k] = A(0);
 
   const int F = s.F();
   const int W = w.W;
@@ -141,15 +161,15 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     // z: the rows ly, ly + ty, ... of the thread's column (the elements
     // threadIdx.x + j * nt of the (ty + 2P) x tz plane)
     const T* xb = ring.slot(i) + w.oz + c.lz;
-    T* zb = ring.extra(i & 1);
-    for (int r = c.ly; r < nrow; r += t.ty) zb[r * tz + c.lz] = band<T, P>(cz, xb + r * W, 1);
+    A* zb = reinterpret_cast<A*>(ring.extra((i & 1) * ZB));
+    for (int r = c.ly; r < nrow; r += t.ty) zb[r * tz + c.lz] = band<A, P>(cz, xb + r * W, 1);
     __syncthreads();  // the z-contracted plane gi is complete, and every
                       // thread is past plane gi - 1: refill its slot
     if (threadIdx.x == 0 && i + kRing - 1 < iters) {
       ring.fetch(i + kRing - 1, &xmap, nullptr, zs, ys, gi + kRing - 1);
     }
     if (!c.active) continue;
-    const T v = band<T, P>(cy, zb + c.ly * tz + c.lz, tz);  // y at the column
+    const A v = band<A, P>(cy, zb + c.ly * tz + c.lz, tz);  // y at the column
 #pragma unroll
     for (int k = 0; k < K - 1; ++k) q[k] = q[k + 1];
     q[K - 1] = v;
@@ -157,12 +177,12 @@ __global__ void __launch_bounds__(kTileThreads, (tma_min_blocks<T>()))
     if (i < 2 * P) continue;
     const int g = gi - P;  // the output row
     const T* cg = cx + (g - c.xs);  // cvx[k, g] at cg[k * cx]
-    T acc = cg[P * t.cx] * q[P];
+    A acc = widen(cg[P * t.cx]) * q[P];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (k != P) acc += cg[k * t.cx] * q[k];
+      if (k != P) acc += widen(cg[k * t.cx]) * q[k];
     }
-    a.y[(long long)g * F + c.f] = acc;
+    a.y[(long long)g * F + c.f] = narrow<T>(acc);
   }
 }
 
@@ -211,7 +231,8 @@ int launch_mass_tiled(PaddedBox s, MassArgs<T> a, Tiling t, dim3 grid,
 // ---------------------------------------------------------------------------
 // Plain C interface (bound with ctypes by ops/_cuda.py). The last seven
 // ints are ops/mass.py::mass_launch_args's tiling: ty, tz, cx, the grid
-// (gx, gy, gz) of ops/tiling.py::tma_geometry (fields=1, extra=2) and the
+// (gx, gy, gz) of ops/tiling.py::tma_geometry (fields=1, extra=2, or 4 for
+// bf16: the float32 z-contracted planes) and the
 // dynamic shared memory in bytes (with cvx of a chunk's rows).
 // ---------------------------------------------------------------------------
 
@@ -228,3 +249,4 @@ int launch_mass_tiled(PaddedBox s, MassArgs<T> a, Tiling t, dim3 grid,
 
 WAVE_DEFINE_MASS_TILED(float, f32)
 WAVE_DEFINE_MASS_TILED(double, f64)
+WAVE_DEFINE_MASS_TILED(__nv_bfloat16, bf16)

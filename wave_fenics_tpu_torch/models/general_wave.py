@@ -36,7 +36,6 @@ from ..core.basis import gll_points_weights, tabulate_1d
 from ..core.dofmap import GeneralDofMap, build_dofmap, node_phi, node_sums
 from ..core.io import QUAD_VTK_TO_BASIX, read_xdmf, read_xdmf_meshtags
 from ..core.mesh import HEX_FACES, HexMesh
-from ..ops import _cuda
 from ..ops import gather_scatter as gs
 from ..ops.operators import GeneralOperators
 from ..solvers.leapfrog import leapfrog_solve_n, leapfrog_solve_n_recording
@@ -212,7 +211,12 @@ class GeneralLinearWave(WavePhysics):
     'gauss' (Gauss-rule stiffness, row-sum-lumped Gauss mass and Gauss facet
     weights), with ``quadrature_degree`` (None -> 2p: p+1 points). ``m``,
     ``inv_m``, ``W1`` and ``W2`` are buffers on ``device`` (the card unless
-    the caller asks for the CPU).
+    the caller asks for the CPU). ``dtype`` is float32, float64 or bfloat16
+    (bf16 state: kernel K's bf16 form, ``m`` rounded once from its float64
+    sum, ``inv_m`` = 1/m, ``W1`` and ``W2`` rounded once from float64 and
+    the damping c0 W2 inv_m formed in bf16, and c0^2 g(t) rounded to bf16,
+    where the JAX package rounds them; -c0^2 stays float32, where the JAX
+    package rounds c0 to bf16 first).
     """
 
     def __init__(
@@ -233,7 +237,6 @@ class GeneralLinearWave(WavePhysics):
         quadrature_degree: int | None = None,
     ):
         super().__init__()
-        _cuda.require_bf16(dtype, "GeneralLinearWave (an imported mesh)", "K")
         self.mesh = mesh
         self.p = p
         self.facet_tags = facet_tags

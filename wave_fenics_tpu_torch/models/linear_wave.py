@@ -13,8 +13,12 @@ GLL facet quadrature is collocated, so the two boundary integrals are
 diagonal: precomputed lumped facet-weight grids W1/W2, two pointwise AXPYs.
 
 The source amplitude g(t) is evaluated on the host in float64 from a
-Python-float time; the JAX package evaluates it on the device in the time
-dtype. The two agree in float64.
+Python-float time and enters ``f1`` and ``force`` as a 0-d tensor of the
+state dtype (:meth:`WavePhysics._g`; a bf16 state's g rounded to bf16, as
+the JAX package rounds it, and the same on the CPU and on a card: a 0-d
+float32 tensor would stay float32 in a card's product and be rounded to
+bf16 first on the CPU); the JAX package evaluates it on the device in the
+time dtype. The two agree in float64.
 """
 
 from __future__ import annotations
@@ -94,17 +98,19 @@ class WavePhysics(nn.Module):
     def f1(self, t, u, v):
         """dv/dt = (stiffness + boundary) / m (LinearGLL.hpp:151-192)."""
         b = self.ops.stiffness(u, self.c0)
-        g = torch.tensor(self.c0**2 * self.g_amplitude(t), dtype=self.dtype)
-        b = b + g * self.W1 - self.c0 * (self.W2 * v)
+        b = b + self._g(t) * self.W1 - self.c0 * (self.W2 * v)
         return b * self.inv_m
+
+    def _g(self, t: float) -> torch.Tensor:
+        """c0^2 g(t), a 0-d tensor of the state dtype."""
+        return torch.tensor(self.c0**2 * self.g_amplitude(t), dtype=self.dtype)
 
     # -- leapfrog decomposition: f1 = force(t, u) - damping * v ----------
     def force(self, t, u):
         """Mass-normalised v-independent acceleration (stiffness + source)
         of the leapfrog integrator (solvers/leapfrog.py)."""
         b = self.ops.stiffness(u, self.c0)
-        g = torch.tensor(self.c0**2 * self.g_amplitude(t), dtype=self.dtype)
-        return (b + g * self.W1) * self.inv_m
+        return (b + self._g(t) * self.W1) * self.inv_m
 
     @property
     def damping(self) -> torch.Tensor:

@@ -42,7 +42,7 @@ float64 the two agree; in bf16 its fused solvers' source never switches on
 
 bf16 state (``base.dtype == torch.bfloat16``): the tables rounded once
 from float64 (the JAX package's bf16 tables bit for bit) and every path
-above on its kernel's bf16 form (``ops._cuda.KERNELS``): ``solve_step_n``
+above on its kernel's bf16 form: ``solve_step_n``
 on kernel A (C with ``lean=False``), ``solve_fused_n`` on D,
 ``solve_lf_n`` on H, ``solve_lf2_n`` on I, ``solve_step2_n`` on J, and
 ``solve_n``/``force`` on B, or on E in the 3D-slab layout, with eager bf16
@@ -61,7 +61,7 @@ from torch import nn
 from ..convert import table_dtype, tables_from_numpy
 from ..core.basis import lumped_weight_line
 from ..core.mesh import BOX_FACETS
-from ..ops import _cuda, lf2step, lfstep, rk42step
+from ..ops import lf2step, lfstep, rk42step
 from ..ops.lf2step import LF2Tables, build_lf2_tables, lf2_step
 from ..ops.lfstep import LFTables, build_lf_tables, lf_step
 from ..ops.rk42step import rk42_step
@@ -171,10 +171,6 @@ class PaddedLinearWave(nn.Module):
         self.lf_unavailable = self._unavailable(planes, lfstep._off0(b.p), "2p")
         self.lf2_unavailable = self._unavailable(planes, lf2step._off0(b.p), "3p")
         self.rk42_unavailable = self._unavailable(planes, rk42step._off0(b.p), "6p")
-        if b.dtype == torch.bfloat16:  # a kernel with no bf16 instantiation
-            for attr, kernel in (("step_unavailable", "A" if lean else "C"),
-                                 ("stage_unavailable", "D")):
-                setattr(self, attr, _cuda.bf16_unported(kernel) or getattr(self, attr))
         if planes is not None:
             w1, w2, self.src_x, self.abc_x = planes
             F = w1.size
@@ -289,8 +285,7 @@ class PaddedLinearWave(nn.Module):
         kv = self._apply(u)
         for axis, pidx, attr, plane in self._boundary_planes:
             if attr == "w1":
-                g = torch.tensor(b.c0**2 * b.g_amplitude(t), dtype=b.dtype)
-                kv[pidx] += g * plane
+                kv[pidx] += b._g(t) * plane
             else:
                 kv[pidx] += -b.c0 * plane * v[pidx]
         return kv
@@ -305,8 +300,7 @@ class PaddedLinearWave(nn.Module):
         kv = self._apply(u)
         for axis, pidx, attr, plane in self._boundary_planes:
             if attr == "w1":
-                g = torch.tensor(b.c0**2 * b.g_amplitude(t), dtype=b.dtype)
-                kv[pidx] += g * plane
+                kv[pidx] += b._g(t) * plane
         return kv
 
     @property

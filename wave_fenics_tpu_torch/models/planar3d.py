@@ -27,7 +27,8 @@ from ..core.mesh import FacetTags, box_mesh
 from .general_wave import GeneralLinearWave, read_mesh_and_tags
 from .linear_wave import LinearWave
 
-__all__ = ["Planar3DCase", "planar3d_case", "planar3d_case_xdmf", "analytic_plane_wave"]
+__all__ = ["Planar3DCase", "planar3d_case", "planar3d_case_xdmf", "general_case",
+           "analytic_plane_wave"]
 
 
 @dataclass(frozen=True)
@@ -116,7 +117,7 @@ def planar3d_case_xdmf(
     tr = time.perf_counter()
     mesh, facet_tags = read_mesh_and_tags(mesh_path, meshtags_path)
     read_s = time.perf_counter() - tr
-    model = GeneralLinearWave(
+    return general_case(GeneralLinearWave(
         mesh=mesh,
         p=degree,
         facet_tags=facet_tags,
@@ -128,20 +129,28 @@ def planar3d_case_xdmf(
         dtype=dtype,
         device=device,
         quadrature=quadrature,
-    )
+    ), cfl, n_tail_periods, read_s)
+
+
+def general_case(model: GeneralLinearWave, cfl: float = 0.5, n_tail_periods: float = 8.0,
+                 read_seconds: float = 0.0) -> Planar3DCase:
+    """The planar3d case of a general model: the box case's CFL snap
+    (main.cpp:61-66) with hmin measured on its mesh, and tf = Lx/c0 + tail
+    with Lx the mesh's x-extent (main.cpp:64)."""
+    mesh = model.mesh
     h = mesh.hmin()
-    dt = cfl * h / (speed_of_sound * degree**2)
-    period = 1.0 / source_frequency
+    dt = cfl * h / (model.c0 * model.p**2)
+    period = 1.0 / model.freq0
     steps_per_period = int(period / dt) + 1
     dt = period / steps_per_period
 
     xs = np.asarray(mesh.points)[:, 0]
     L = float(xs.max() - xs.min())
     t0 = 0.0
-    tf = L / speed_of_sound + n_tail_periods / source_frequency
+    tf = L / model.c0 + n_tail_periods / model.freq0
     return Planar3DCase(
         model=model, t0=t0, tf=tf, dt=dt, steps_per_period=steps_per_period,
-        read_seconds=read_s,
+        read_seconds=read_seconds,
     )
 
 

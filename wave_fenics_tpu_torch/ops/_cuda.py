@@ -7,6 +7,8 @@ covers the sources and the flags, so an edited source builds anew); ctypes
 loads it. Nothing here runs when the module is imported, so the package
 imports and its CPU tests run on a machine without ``nvcc`` or a card.
 
+Every launcher of a kernel of the solvers has an f32, an f64 and a bf16
+instantiation; the set-up kernels of ``native.py`` have one type each.
 Each launcher returns ``cudaGetLastError()`` after its launch; :func:`launch`
 raises on anything but success. Launches go to PyTorch's current stream on
 the tensors' device and do not synchronise.
@@ -27,8 +29,6 @@ from pathlib import Path
 import torch
 
 __all__ = ["KernelLibrary", "library", "load", "launch", "launcher", "check_operands",
-           "KERNELS", "BF16_KERNELS", "BF16_LAUNCHERS", "bf16_refusal", "bf16_unported",
-           "require_bf16", "refuse_bf16", "BF16_SHARDED",
            "check_index_operands", "check_typed_operands", "check_no_alias", "nvcc"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -77,10 +77,10 @@ _SIGNATURES = {
     # x, y, cvx, cvy, cvz, p, Lx, Ly, Lz, x0, nx, h, ny, nz, ty, tz, cx, gx,
     # gy, gz, smem, stream (kernel G; ops/mass.py::mass_launch_args)
     "wave_mass_tiled": [_P] * 5 + [_I] * 9 + [_I] * 7 + [_P],
-    # x, y, dofmap, cells, colour_starts (host), ncolours, B, D, geo, w,
-    # mode, affine, m, nq, nc, ndofs, cpb, stride, smem, coeff, stream
-    # (kernel K)
-    "wave_general_apply": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 9 + [_D, _P],
+    # x, y, work (y, or bf16's float32 accumulator), dofmap, cells,
+    # colour_starts (host), ncolours, B, D, geo, w, mode, affine, m, nq, nc,
+    # ndofs, cpb, stride, smem, coeff, stream (kernel K)
+    "wave_general_apply": [_P] * 6 + [_I] + [_P] * 4 + [_I] * 9 + [_D, _P],
 }
 #: launchers with one type only (no _f32/_f64 pair): the set-up kernels of
 #: csrc/setup_kernels.cu (native.py), float64 coordinates and int64 keys
@@ -92,62 +92,9 @@ _SETUP_SIGNATURES = {
     # keys, n, table, mask, rep, overflow, stream
     "wave_dedup_hash": [_P, _L, _P, ctypes.c_uint64, _P, _P, _P],
 }
+#: every launcher of _SIGNATURES has these three instantiations (bf16: bf16
+#: state and tables, float32 arithmetic)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
-#: every kernel of the port: (its launcher, its source, whether it has a
-#: bf16 instantiation: bf16 state and tables, f32 arithmetic). The one
-#: record of which kernels take bf16: every bf16 guard and message reads it
-#: (:func:`bf16_unported`, :func:`require_bf16`).
-KERNELS = {
-    "A": ("wave_rk4_stage", "csrc/rk4_tiled.cu", True),
-    "C": ("wave_rk4_full_stage", "csrc/rk4_tiled.cu", True),
-    "B": ("wave_apply_flat_tiled", "csrc/flat_tiled.cu", True),
-    "D": ("wave_rk_stage_tiled", "csrc/rk_stage_tiled.cu", True),
-    "F": ("wave_stiffness_tiled", "csrc/stiffness_tiled.cu", True),
-    "E": ("wave_apply_slab_tiled", "csrc/slab_tiled.cu", True),
-    "G": ("wave_mass_tiled", "csrc/mass_tiled.cu", False),
-    "H": ("wave_lf_phase_tiled", "csrc/lf_tiled.cu", True),
-    "I": ("wave_lf_phase_tiled", "csrc/lf_tiled.cu", True),
-    "J": ("wave_rk42_boundary_tiled", "csrc/rk42_tiled.cu", True),
-    "K": ("wave_general_apply", "csrc/general_kernels.cu", False),
-}
-BF16_KERNELS = tuple(sorted(k for k, (_, _, bf16) in KERNELS.items() if bf16))
-BF16_LAUNCHERS = frozenset(KERNELS[k][0] for k in BF16_KERNELS)
-#: the refusal of every sharded path (blocks on one card or on several)
-BF16_SHARDED = "the sharded paths (kernels on blocks and value-halo layouts) have no bf16 port"
-
-
-def bf16_refusal(what: str) -> str:
-    """Why ``what`` refuses a bf16 state, with the kernels that take one."""
-    ks = ", ".join(BF16_KERNELS[:-1]) + " and " + BF16_KERNELS[-1]
-    return (f"bf16 state: {what} (bf16 state runs the box's paths on one "
-            f"device, on kernels {ks})")
-
-
-def bf16_unported(*kernels: str) -> str | None:
-    """None where each of ``kernels`` (letters of :data:`KERNELS`) has a
-    bf16 instantiation, else why a bf16 path through them is unavailable,
-    naming bf16 and the kernels it lacks."""
-    missing = [k for k in kernels if not KERNELS[k][2]]
-    if not missing:
-        return None
-    names = " and ".join(f"kernel {k} ({KERNELS[k][1]})" for k in missing)
-    return bf16_refusal(f"{names} {'has' if len(missing) == 1 else 'have'} no bf16 "
-                        "instantiation")
-
-
-def require_bf16(dtype: torch.dtype, who: str, *kernels: str) -> None:
-    """Raise a ValueError naming bf16 and the kernels that lack it where
-    ``who`` would run a bf16 state on ``kernels``."""
-    why = bf16_unported(*kernels) if dtype == torch.bfloat16 else None
-    if why is not None:
-        raise ValueError(f"{who}: {why}")
-
-
-def refuse_bf16(dtype: torch.dtype, who: str, what: str) -> None:
-    """Raise a ValueError naming bf16 where ``who``, a path with no bf16
-    port whatever its kernels take, would run a bf16 state."""
-    if dtype == torch.bfloat16:
-        raise ValueError(f"{who}: {bf16_refusal(what)}")
 
 
 @dataclass(frozen=True)
@@ -236,9 +183,7 @@ def load(csrc: Path) -> KernelLibrary:
     so, text, seconds = _build(sources, BUILD_DIR / h.hexdigest()[:16])
     lib = ctypes.CDLL(str(so))
     for base, argtypes in _SIGNATURES.items():
-        for dtype, suffix in _SUFFIX.items():
-            if dtype == torch.bfloat16 and base not in BF16_LAUNCHERS:
-                continue
+        for suffix in _SUFFIX.values():
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -312,8 +257,10 @@ def launcher(kl: KernelLibrary, name: str, dtype: torch.dtype | None,
     :func:`launch` does, with the arguments and the stream converted once:
     it costs the host little more than the ctypes call, so back-to-back
     calls time the kernel itself."""
-    if dtype == torch.bfloat16 and name not in BF16_LAUNCHERS:
-        raise TypeError(bf16_refusal(f"{name} has no bf16 instantiation"))
+    if (dtype is None) != (name in _SETUP_SIGNATURES):
+        raise TypeError(f"{name}: {'one type only' if dtype is not None else 'a type'} "
+                        "(the set-up kernels take dtype None, every other "
+                        "launcher float32, float64 or bfloat16)")
     fn = getattr(kl.lib, name if dtype is None else f"{name}_{_SUFFIX[dtype]}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream

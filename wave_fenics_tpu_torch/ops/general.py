@@ -26,6 +26,10 @@ straight into y; no atomics, so two applies agree bit for bit; the
 collocated stiffness on a column-per-thread kernel). :func:`general_apply`
 dispatches on the tensor's device: CPU -> plain, CUDA -> kernel K.
 
+A bf16 x (bf16 B, D and geometry; the dofmap int32) is computed in float32
+in both: the colours add into a float32 accumulator of ndofs (the kernel's
+workspace), rounded once into the bf16 y at the end.
+
 The TPU kernel's window and chain tables (``ops/general_tables.py``), gather
 overflow, scatter merge, spill path, coarsening and resident mode exist
 because Mosaic has no scattered loads; Hopper gathers natively, so none of
@@ -38,6 +42,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..convert import acc_dtype, widen
 from . import _cuda
 from . import element_kernels as ek
 from . import gather_scatter as gs
@@ -49,8 +54,10 @@ __all__ = [
     "launch_shape",
     "general_apply",
     "general_apply_plain",
+    "PlainK",
     "general_apply_cuda",
     "launch_args",
+    "workspace",
 ]
 
 MODES = ("mass", "stiffness", "mass_gauss", "stiffness_gauss")
@@ -120,10 +127,11 @@ class GeneralTables:
         return self.nq**3
 
     def geometry(self) -> torch.Tensor:
-        """The geometry per point, [ngeo, nc, npts] (affine: g6[c] w_q)."""
-        if self.affine:
-            return self.geo[..., None] * self.w
-        return self.geo
+        """The geometry per point, [ngeo, nc, npts] (affine: g6[c] w_q), in
+        the arithmetic type (``convert.acc_dtype``: bf16 tables widened to
+        float32 before the product, as kernel K forms it)."""
+        (geo,) = widen(self.geo)
+        return geo[..., None] * widen(self.w)[0] if self.affine else geo
 
 
 def launch_shape(mode: str, m: int, nq: int, itemsize: int) -> tuple[int, int, int]:
@@ -135,7 +143,8 @@ def launch_shape(mode: str, m: int, nq: int, itemsize: int) -> tuple[int, int, i
     thread per (j, k) column, COLUMN_THREADS // m^2 cells a block, x_e, w_1
     and w_2 of each cell and the table D in static shared memory. The other
     modes (``general_element_kernel``): THREADS // points cells a block,
-    dynamic shared memory."""
+    dynamic shared memory. ``itemsize`` is the arithmetic type's (the cell
+    buffers': 4 for a bf16 state)."""
     if m - 1 > MAX_DEGREE:
         raise ValueError(f"kernel K takes p <= {MAX_DEGREE}, not p = {m - 1}")
     Q = max(m, nq)
@@ -157,32 +166,63 @@ def launch_shape(mode: str, m: int, nq: int, itemsize: int) -> tuple[int, int, i
 
 def general_apply_plain(x: torch.Tensor, t: GeneralTables, coeff=1.0) -> torch.Tensor:
     """y = coeff S(E(x_e)) in plain torch: gather, the element kernel of
-    ``t.mode``, the coloured scatter of kernel K in its order."""
+    ``t.mode``, the coloured scatter of kernel K in its order. A bf16 x and
+    its tables are widened to float32, the colours added in float32 and y
+    rounded once, as kernel K computes it."""
     m, nq, nc = t.m, t.nq, t.ncells
+    dtype = x.dtype
+    x, B, D = widen(x, t.B, t.D)
+    if isinstance(coeff, torch.Tensor):
+        coeff = coeff.to(x.dtype)
     xe = gs.gather_indexed(x, t.dofmap).reshape(nc, m, m, m)
     geo = t.geometry().reshape(-1, nc, nq, nq, nq)
     if t.mode == "mass":
         ye = coeff * ek.spectral_mass_element(xe, geo[0])
     elif t.mode == "mass_gauss":
-        ye = coeff * ek.mass_element(xe, t.B, geo[0])
+        ye = coeff * ek.mass_element(xe, B, geo[0])
     else:
         G = torch.stack([torch.stack([geo[SYM.index(tuple(sorted((a, b))))]
                                       for b in range(3)], dim=-1)
                          for a in range(3)], dim=-2)  # [nc, q, q, q, 3, 3]
-        ye = ek.stiffness_element_full(xe, t.B, t.D, G, coeff)
-    return gs.scatter_coloured(ye, t.dofmap, t.cells, t.colour_starts, t.ndofs)
+        ye = ek.stiffness_element_full(xe, B, D, G, coeff)
+    y = gs.scatter_coloured(ye, t.dofmap, t.cells, t.colour_starts, t.ndofs)
+    return y.to(dtype)
+
+
+class PlainK:
+    """A general model's operators with kernel K's plain twin on ``ops``'s
+    tables: ``stiffness`` only (what a model's ``f1`` and ``force`` call).
+    Set as a model's ``ops``, it runs that model's solve on the plain
+    twin."""
+
+    def __init__(self, ops):
+        self.ops = ops
+
+    def stiffness(self, u, c0):
+        return general_apply_plain(u, self.ops.tables(self.ops.mode("stiffness"), u.device),
+                                   -float(c0) ** 2)
+
+
+def workspace(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Kernel K's accumulator for ``x``: ``out`` itself in float32 and
+    float64, a float32 buffer of ``x``'s size for a bf16 ``x``."""
+    if x.dtype == torch.bfloat16:
+        return torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    return out
 
 
 def launch_args(x: torch.Tensor, out: torch.Tensor, t: GeneralTables, coeff=1.0,
                 colour_starts: torch.Tensor | None = None) -> tuple:
     """The arguments of the C launcher ``wave_general_apply`` (kernel K) up
-    to the stream: the vectors, the dofmap, the colouring (``colour_starts``
-    in place of ``t``'s, where given), the tables, the mode and the launch
-    shape of :func:`launch_shape`."""
+    to the stream: the vectors, the accumulator (:func:`workspace`), the
+    dofmap, the colouring (``colour_starts`` in place of ``t``'s, where
+    given), the tables, the mode and the launch shape of
+    :func:`launch_shape`."""
     m, nq = t.m, t.nq
-    cpb, stride, smem = launch_shape(t.mode, m, nq, x.element_size())
+    cpb, stride, smem = launch_shape(t.mode, m, nq,
+                                     torch.finfo(acc_dtype(x.dtype)).bits // 8)
     cs = t.colour_starts if colour_starts is None else colour_starts
-    return (x, out, t.dofmap, t.cells, cs, cs.numel() - 1, t.B, t.D, t.geo, t.w,
+    return (x, out, workspace(x, out), t.dofmap, t.cells, cs, cs.numel() - 1, t.B, t.D, t.geo, t.w,
             MODES.index(t.mode), int(t.affine), m, nq, t.ncells, t.ndofs, cpb,
             stride, smem, float(coeff))
 
@@ -191,8 +231,9 @@ def general_apply_cuda(
     x: torch.Tensor, t: GeneralTables, coeff=1.0, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """y = coeff S(E(x_e)) with kernel K (y set to 0, then one launch per
-    colour; one count). ``coeff`` is a number or a 0-d tensor; ``out``
-    (optional) must not alias ``x``."""
+    colour, and for a bf16 x the rounding pass of its float32 workspace;
+    one count). ``coeff`` is a number or a 0-d tensor; ``out`` (optional)
+    must not alias ``x``."""
     m, nq, nc, nd = t.m, t.nq, t.ncells, t.m**3
     if out is None:
         out = torch.empty_like(x)

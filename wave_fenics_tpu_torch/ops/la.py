@@ -10,9 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from ..convert import widen
+
 __all__ = ["inner_product"]
 
 
 def inner_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """<a, b> over all entries, a 0-d tensor on the inputs' device."""
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+    """<a, b> over all entries, a 0-d tensor on the inputs' device, in the
+    arithmetic type (``convert.acc_dtype``: float32 for bf16 vectors)."""
+    return torch.dot(*widen(a.reshape(-1), b.reshape(-1)))

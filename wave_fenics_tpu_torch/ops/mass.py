@@ -24,6 +24,10 @@ stencil with TMA plane loads, contracting z, then y, then x;
 :func:`mass_apply_zyx_plain` is its plain twin in that order).
 :func:`mass_apply` dispatches on the tensor's device: CPU -> plain, CUDA
 -> kernel.
+
+A bf16 state (bf16 tables, :func:`mass_tables` rounding them from float64
+as the JAX package's bf16 tables hold them) runs all three contractions in
+float32 and rounds y once, in the kernel and in both plain versions.
 :func:`mass_operator` builds a layout and its tables on a device;
 :func:`bp1_setup` adds the BP1 problem's Jacobi map for CG.
 """
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-from ..convert import numpy_dtype, tables_from_numpy
+from ..convert import as_table, tables_from_numpy, widen
 from . import _cuda, tiling
 from .separable import separable_mass_tables
 from .stiffness import banded_1d_coeffs
@@ -83,17 +87,18 @@ def mass_layout(shape: tuple[int, int, int], p: int, tile_x: int) -> PaddedLayou
 def mass_tables(
     layout: PaddedLayout, M1: list[np.ndarray], dtype=np.float64
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(cvx, cvy, cvz) as NumPy arrays of ``dtype``: per axis, the banded
-    coefficient vectors of the assembled 1D mass from the f64 cell block
-    ``M1[d]`` (``separable_mass_tables``), embedded in the padded extent."""
+    """(cvx, cvy, cvz) as NumPy arrays of ``dtype`` (``convert.as_table``:
+    bf16 as float64 values rounded to bf16): per axis, the banded
+    coefficient vectors of the assembled 1D mass from the cell block
+    ``M1[d]`` (``separable_mass_tables``) in float64, embedded in the padded
+    extent."""
     p = layout.p
     K = 2 * p + 1
-    npdt = numpy_dtype(dtype)
     out = []
     for d in range(3):
         body = banded_1d_coeffs(np.asarray(M1[d], np.float64), layout.shape[d], p)
-        out.append(np.stack([layout.padded_line(body[k], d)
-                             for k in range(K)]).astype(npdt))
+        out.append(as_table(np.stack([layout.padded_line(body[k], d)
+                                      for k in range(K)]), dtype))
     return tuple(out)
 
 
@@ -156,22 +161,27 @@ def mass_apply_plain(
     xp: torch.Tensor, layout: PaddedLayout, tables: MassTables
 ) -> torch.Tensor:
     """y = (Mx (x) My (x) Mz) x on a padded [Lx, Ly, Lz] state: three 1D
-    banded passes, x, y, z."""
+    banded passes, x, y, z (a bf16 state in float32, y rounded once)."""
     p = layout.p
-    t = _band(xp, tables.cvx, p, 0)
-    t = _band(t, tables.cvy, p, 1)
-    return _band(t, tables.cvz, p, 2)
+    dtype = xp.dtype
+    xp, cvx, cvy, cvz = widen(xp, *tables)
+    t = _band(xp, cvx, p, 0)
+    t = _band(t, cvy, p, 1)
+    return _band(t, cvz, p, 2).to(dtype)
 
 
 def mass_apply_zyx_plain(
     xp: torch.Tensor, layout: PaddedLayout, tables: MassTables
 ) -> torch.Tensor:
     """The same y as :func:`mass_apply_plain` with the contractions in
-    kernel G's order, z, then y, then x (``csrc/mass_tiled.cu``)."""
+    kernel G's order, z, then y, then x (``csrc/mass_tiled.cu``), rounding
+    where it rounds: a bf16 state in float32, y rounded once."""
     p = layout.p
-    t = _band(xp, tables.cvz, p, 2)
-    t = _band(t, tables.cvy, p, 1)
-    return _band(t, tables.cvx, p, 0)
+    dtype = xp.dtype
+    xp, cvx, cvy, cvz = widen(xp, *tables)
+    t = _band(xp, cvz, p, 2)
+    t = _band(t, cvy, p, 1)
+    return _band(t, cvx, p, 0).to(dtype)
 
 
 def mass_launch_args(xp: torch.Tensor, out: torch.Tensor, layout: PaddedLayout,
@@ -179,14 +189,15 @@ def mass_launch_args(xp: torch.Tensor, out: torch.Tensor, layout: PaddedLayout,
     """The arguments of the C launcher ``wave_mass_tiled`` (kernel G) up to
     the stream: x, y, the tables, the layout, then the tiling of
     ``tiling.tma_geometry`` (``fields=1, extra=2``: one TMA box of x a
-    plane, two z-contracted planes) on this card and its shared memory
-    with cvx of a chunk's rows added. Raises a ValueError naming the
+    plane, two z-contracted planes; in bf16 ``extra=4``, the planes held in
+    float32) on this card and its shared memory with cvx of a chunk's rows
+    added. Raises a ValueError naming the
     condition a layout the kernel cannot tile breaks."""
     p = layout.p
     if p > MAX_DEGREE:
         raise ValueError(f"kernel G takes p <= {MAX_DEGREE}, not p = {p}")
     itemsize = xp.element_size()
-    grid, ty, tz, cx, smem = tma_launch_geometry(xp, layout, 1, 2)
+    grid, ty, tz, cx, smem = tma_launch_geometry(xp, layout, 1, 2 * max(1, 4 // itemsize))
     smem += (2 * p + 1) * cx * itemsize
     tiling.check_tma_launch(layout, itemsize, ty, tz, smem)
     Lx, Ly, Lz = layout.padded_shape

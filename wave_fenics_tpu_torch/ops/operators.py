@@ -37,17 +37,16 @@ import torch
 from ..convert import (
     acc_dtype,
     as_table,
-    numpy_dtype,
     table_dtype,
     tables_from_numpy,
     torch_dtype,
+    widen,
 )
 from ..core import geometry
 from ..core.basis import lumped_weight_line, tabulate_1d
 from ..core.dofmap import GeneralDofMap
 from ..core.mesh import HexMesh, StructuredBoxMesh
 from . import element_kernels as ek
-from ._cuda import require_bf16
 from . import gather_scatter as gs
 from .general import SYM, GeneralTables, general_apply
 from .mass import mass_fused
@@ -159,11 +158,13 @@ class StructuredOperators:
         CPU: the three sequential banded contractions of
         ``ops.separable.mass_separable``. CUDA: ``ops.mass.mass_fused``, one
         launch of kernel G on the padded layout (raises for p > 8, as the
-        JAX package's fused kernel does)."""
-        require_bf16(self.dtype, "mass_gauss", "G")
+        JAX package's fused kernel does). A bf16 x: float32 contractions on
+        the bf16 tables, y rounded once, as kernel G computes it."""
         M1 = separable_mass_tables(self.p, self.mesh.h, self.dtype, q=q)
         if x.device.type == "cpu":
-            return mass_separable(x, [torch.as_tensor(m) for m in M1], self.p)
+            acc = acc_dtype(x.dtype)
+            return mass_separable(x.to(acc), [torch.as_tensor(m, dtype=acc) for m in M1],
+                                  self.p).to(x.dtype)
         if x.device.type == "cuda":
             return mass_fused(x, M1, self.p)
         raise ValueError(f"no implementation of mass_gauss for device {x.device}")
@@ -244,6 +245,13 @@ class GeneralOperators:
     kernel on a card), K's tables are made there from them, and the NumPy
     forms that host code reads (``lumped_mass``) are made on demand only. A
     dofmap built on the same device lends its device copy.
+
+    bf16 (``dtype=torch.bfloat16``): B, D, G and |det J| w computed in
+    float64 and rounded once (the JAX package's bf16 tables bit for bit);
+    the lumped mass is M @ 1 of those rounded tables summed in float64 and
+    rounded once; -c0^2 stays float32 (the JAX package rounds c0 to bf16
+    first, 1500 -> 1504); the operators and oracles compute in float32 and
+    round y once.
     """
 
     mesh: HexMesh
@@ -265,11 +273,10 @@ class GeneralOperators:
                 coeff = torch.as_tensor(coeff, device=G.device)
             G = G * coeff[:, None, None, None]
         nq, nc = tab.nq, self.mesh.ncells
-        npdt = numpy_dtype(self.dtype)
         setattr_ = object.__setattr__
         setattr_(self, "_tab", tab)
-        setattr_(self, "_B", tab.B.astype(npdt))
-        setattr_(self, "_D", tab.D.astype(npdt))
+        setattr_(self, "_B", as_table(tab.B, self.dtype))
+        setattr_(self, "_D", as_table(tab.D, self.dtype))
         # affine (parallelepiped) cells, detected on the float64 factors
         affine = (_affine_factors(G, detJw, geometry.quadrature_weights_3d(tab))
                   if tab.collocated else None)
@@ -277,7 +284,7 @@ class GeneralOperators:
         if isinstance(G, torch.Tensor):
             G, detJw = G.to(self.dtype), detJw.to(self.dtype)
         else:
-            G, detJw = G.astype(npdt), detJw.astype(npdt)
+            G, detJw = as_table(G, self.dtype), as_table(detJw, self.dtype)
         setattr_(self, "_detJw", detJw.reshape(nc, nq, nq, nq))
         setattr_(self, "_G", G.reshape(nc, nq, nq, nq, 3, 3))
         setattr_(self, "_dofmap", self.dofs.dofmap)
@@ -382,8 +389,9 @@ class GeneralOperators:
     def mass_indexed(self, x: torch.Tensor) -> torch.Tensor:
         """The oracle of :meth:`mass`: gather -> per-element B^T diag(detJw)
         B -> indexed scatter, plain torch, any rule."""
-        B, detJw = self._tensors("mass_indexed", x.device, lambda: (self._B, self._detJw))
-        return self.scatter(ek.mass_element(self.gather(x), B, detJw))
+        B, detJw = widen(*self._tensors("mass_indexed", x.device,
+                                        lambda: (self._B, self._detJw)))
+        return self.scatter(ek.mass_element(self.gather(widen(x)[0]), B, detJw)).to(x.dtype)
 
     def spectral_mass(self, x: torch.Tensor) -> torch.Tensor:
         """y = M x for the collocated (diagonal) mass: one multiply by the
@@ -397,27 +405,31 @@ class GeneralOperators:
         (spectral_mass.hpp:84-89); collocated quadrature only."""
         if not self._tab.collocated:
             raise ValueError("spectral_mass_roundtrip needs collocated (GLL) quadrature")
-        (detJw,) = self._tensors("detJw", x.device, lambda: (self._detJw,))
-        return self.scatter(ek.spectral_mass_element(self.gather(x), detJw))
+        (detJw,) = widen(*self._tensors("detJw", x.device, lambda: (self._detJw,)))
+        ye = ek.spectral_mass_element(self.gather(widen(x)[0]), detJw)
+        return self.scatter(ye).to(x.dtype)
 
     @cached_property
     def lumped_mass(self) -> np.ndarray:
-        """m = M @ 1 (NumPy; on the device route, copied from the device on
-        first use)."""
+        """m = M @ 1 (NumPy, of :func:`convert.table_dtype`: bf16 summed in
+        float64 and rounded once; on the device route, copied from the
+        device on first use)."""
         if self.device is not None:
-            return self.lumped_mass_on(self._G.device).cpu().numpy()
+            m = self.lumped_mass_on(self._G.device).cpu()
+            return (m.double() if m.dtype == torch.bfloat16 else m).numpy()
         m1 = self.dofs.p + 1
         nc = self.mesh.ncells
-        ones = np.ones((nc, m1, m1, m1), dtype=numpy_dtype(self.dtype))
+        npdt = table_dtype(self.dtype)
+        ones = np.ones((nc, m1, m1, m1), dtype=npdt)
         uq = np.einsum("qi,cijk->cqjk", self._B, ones)
         uq = np.einsum("qj,cijk->ciqk", self._B, uq)
         uq = np.einsum("qk,cijk->cijq", self._B, uq) * self._detJw
         ye = np.einsum("qi,cqjk->cijk", self._B, uq)
         ye = np.einsum("qj,ciqk->cijk", self._B, ye)
         ye = np.einsum("qk,cijq->cijk", self._B, ye)
-        out = np.zeros((self.ndofs,), dtype=numpy_dtype(self.dtype))
+        out = np.zeros((self.ndofs,), dtype=npdt)
         np.add.at(out, self._dofmap.ravel(), ye.reshape(nc, -1).ravel())
-        return out
+        return as_table(out, self.dtype)
 
     def lumped_mass_on(self, device) -> torch.Tensor:
         """m = M @ 1 as a tensor on ``device`` (on the device route, the
@@ -428,20 +440,23 @@ class GeneralOperators:
     def _lumped_mass_tensor(self, device: torch.device) -> torch.Tensor:
         """m = M @ 1 on ``device`` from the device route's detJw: the
         per-element B^T diag(detJw) B 1, added in the NumPy route's order
-        (``scatter_ordered``), so two builds agree bit for bit."""
+        (``scatter_ordered``), so two builds agree bit for bit (bf16: in
+        float64, rounded once)."""
         m1 = self.dofs.p + 1
         nc = self.mesh.ncells
-        (B,) = tables_from_numpy((self._B,), device, self.dtype)
-        ones = torch.ones((nc, m1, m1, m1), dtype=self.dtype, device=device)
-        ye = ek.mass_element(ones, B, self._detJw)
+        wide = torch.float64 if self.dtype == torch.bfloat16 else self.dtype
+        (B,) = tables_from_numpy((self._B,), device, wide)
+        ones = torch.ones((nc, m1, m1, m1), dtype=wide, device=device)
+        ye = ek.mass_element(ones, B, self._detJw.to(wide))
         (dofmap,) = self._tensors("dofmap", device, lambda: (self._dofmap,), torch.int32)
-        return gs.scatter_ordered(ye, dofmap, self.ndofs)
+        return gs.scatter_ordered(ye, dofmap, self.ndofs).to(self.dtype)
 
     def _coeff(self, x: torch.Tensor, c0):
-        """-c0^2: a float for kernel K, a 0-d tensor for the plain versions."""
+        """-c0^2: a float for kernel K, a 0-d tensor of the arithmetic type
+        (float32 for bf16) for the plain versions."""
         if x.device.type == "cuda":
             return -float(c0) ** 2
-        return -torch.as_tensor(c0, dtype=torch_dtype(self.dtype)) ** 2
+        return -torch.as_tensor(c0, dtype=acc_dtype(self.dtype)) ** 2
 
     def stiffness(self, x: torch.Tensor, c0=1.0) -> torch.Tensor:
         """y = -c0^2 K x with the full G (skernel semantics,
@@ -452,7 +467,8 @@ class GeneralOperators:
     def stiffness_indexed(self, x: torch.Tensor, c0=1.0) -> torch.Tensor:
         """The oracle of :meth:`stiffness`: gather -> per-element full-G
         contraction -> indexed scatter, plain torch on every device."""
-        B, D, G = self._tensors("stiffness_indexed", x.device,
-                                lambda: (self._B, self._D, self._G))
-        coeff = -torch.as_tensor(c0, dtype=torch_dtype(self.dtype), device=x.device) ** 2
-        return self.scatter(ek.stiffness_element_full(self.gather(x), B, D, G, coeff))
+        B, D, G = widen(*self._tensors("stiffness_indexed", x.device,
+                                       lambda: (self._B, self._D, self._G)))
+        coeff = -torch.as_tensor(c0, dtype=B.dtype, device=x.device) ** 2
+        ye = ek.stiffness_element_full(self.gather(widen(x)[0]), B, D, G, coeff)
+        return self.scatter(ye).to(x.dtype)

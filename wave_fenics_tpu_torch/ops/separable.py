@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import as_table, numpy_dtype
+from ..convert import as_table
 from ..core.basis import gll_points_weights, lumped_weight_line, tabulate_1d
 from .gather_scatter import gather_1d, scatter_1d
 
@@ -88,7 +88,8 @@ def separable_mass_tables(
     p: int, h: tuple[float, float, float], dtype, q: int | None = None,
     rule: str = "gauss",
 ) -> list[np.ndarray]:
-    """Per-axis 1D cell mass blocks ``M1_d = h_d B^T diag(w_q) B`` (NumPy).
+    """Per-axis 1D cell mass blocks ``M1_d = h_d B^T diag(w_q) B`` (NumPy;
+    bf16 as float64 values rounded to bf16, ``convert.as_table``).
 
     Default quadrature: the CEED BP1 definition of p+2 Gauss points per
     direction (exactness degree q = 2p+3). A literal reading of
@@ -99,8 +100,7 @@ def separable_mass_tables(
         q = 2 * p + 3
     tab = tabulate_1d(p, q, rule)
     M1 = tab.B.T @ (tab.qwts[:, None] * tab.B)
-    npdt = numpy_dtype(dtype)
-    return [(h[d] * M1).astype(npdt) for d in range(3)]
+    return [as_table(h[d] * M1, dtype) for d in range(3)]
 
 
 def mass_separable(

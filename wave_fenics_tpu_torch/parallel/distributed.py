@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..convert import to_numpy
 from .halo import copy_to
 from .partition import BlockMesh, Blocks, decompose3d
 
@@ -194,7 +195,7 @@ class ProcessGroupExchange:
         return got
 
     def gather(self, blocks):
-        mine = {b: blocks[b].detach().cpu().numpy() for b in self.local_blocks}
+        mine = {b: to_numpy(blocks[b]) for b in self.local_blocks}
         parts = [None] * self.world
         dist.all_gather_object(parts, mine, group=self.group)
         out = {}

@@ -35,6 +35,7 @@ from typing import Protocol
 import numpy as np
 import torch
 
+from ..convert import to_numpy
 from .partition import BlockMesh, Blocks
 
 __all__ = [
@@ -145,7 +146,7 @@ class LocalExchange:
         return x
 
     def gather(self, blocks):
-        return [x.detach().cpu().numpy() for x in blocks]
+        return [to_numpy(x) for x in blocks]
 
     def all_gather(self, bufs):
         """One concatenation for each device that holds blocks, shared by

@@ -37,6 +37,13 @@ have no counterpart. No add meets another in one place (the K colours,
 distinct interface indices a part and round), so two solves agree bit for
 bit.
 
+A bf16 model runs every path on kernel K's bf16 form: the parts' tables
+are the model's bf16 tables, -c0^2 stays float32 (the JAX package rounds
+c0 to bf16 in its ``_stiffness_local``, 1500 -> 1504, a wave speed 0.24 %
+fast), c0^2 g(t) is rounded to bf16 (``WavePhysics._g``), the
+assembly adds bf16 partials with one rounding per add (as the JAX
+package's), and the ownership weights and the dots are float32.
+
 The host set-up builds the JAX package's tables (``_setup``,
 ``_nbr_setup``, with its sentinels where a table keeps them) by sorting
 and searching, not by the JAX package's dictionaries, so it takes seconds
@@ -51,6 +58,7 @@ from itertools import combinations
 import numpy as np
 import torch
 
+from ..convert import acc_dtype, tables_from_numpy, widen
 from ..models.general_wave import GeneralLinearWave
 from ..ops.gather_scatter import colour_cells
 from ..ops.general import GeneralTables, general_apply
@@ -260,10 +268,10 @@ class ShardedGeneralWave:
     def _own(self) -> list[int]:
         return self.comm.local_blocks
 
-    def _local(self, x) -> Blocks:
+    def _local(self, x, dtype=None) -> Blocks:
         """The per-part slices of a global vector (NumPy or a tensor), in
-        the model's dtype on each held part's device."""
-        ids, dtype = self._setup["loc_ids"], self.model.dtype
+        ``dtype`` (default the model's) on each held part's device."""
+        ids, dtype = self._setup["loc_ids"], dtype or self.model.dtype
         if isinstance(x, torch.Tensor):
             def take(i, c, dev):
                 return x[torch.as_tensor(ids[i], device=x.device)].to(device=dev,
@@ -286,10 +294,10 @@ class ShardedGeneralWave:
         md, s = self.model, self._setup
         mode = md.ops.mode("stiffness")
         geo = md.ops.geometry_tables(mode, md.device)
-        B, D = (torch.as_tensor(a) for a in (md.ops._B, md.ops._D))
+        B, D = tables_from_numpy((md.ops._B, md.ops._D), "cpu", md.dtype)
         out = {name: self._local(getattr(md, name))
                for name in ("m", "inv_m", "W1", "W2")}
-        out["own"] = self._local(1.0 / s["counts"].astype(np.float64))
+        out["own"] = self._local(1.0 / s["counts"].astype(np.float64), acc_dtype(md.dtype))
         out["K"] = {}
         out["bidx"], out["recv"], out["send"], out["sidx"] = {}, {}, {}, {}
         S1 = s["S"] + 1
@@ -363,8 +371,7 @@ class ShardedGeneralWave:
         return self._assemble(b)
 
     def _source(self, t: float) -> torch.Tensor:
-        md = self.model
-        return torch.tensor(md.c0**2 * md.g_amplitude(t), dtype=md.dtype)
+        return self.model._g(t)
 
     def _f1(self, t, u: Blocks, v: Blocks) -> Blocks:
         """dv/dt, in ``GeneralLinearWave.f1``'s order."""
@@ -448,12 +455,13 @@ class ShardedGeneralWave:
     def dot(self, a: Blocks, b: Blocks) -> torch.Tensor:
         """Ownership-weighted global inner product (each shared dof counted
         once; the MPI_Allreduce of cg.hpp:88-91): a 0-d tensor on the first
-        held part's device."""
+        held part's device, in the arithmetic type (float32 for bf16)."""
         own = self._own
         w = self._tables["own"]
         dev = self.mesh.devices[own[0]]
         s = None
         for i in own:
-            x = (a[i] * b[i] * w[i]).sum().to(dev)
+            ai, bi = widen(a[i], b[i])
+            x = (ai * bi * w[i]).sum().to(dev)
             s = x if s is None else s + x
         return self.comm.allreduce(s)

@@ -28,6 +28,16 @@ Port of ``wave_fenics_tpu.parallel.sharded_padded``. Two schemes:
   phase_rings``, ``ops.rk42step.call_rings``); J's plain version computes
   the same boxes, A's, H's and I's what the TPU kernels compute.
 
+Each block's tables are built from the lumped weight lines rounded to
+the model's dtype, as one device's are (``grid_lines``), and rounded once
+more where they are stored; the JAX package's blocks take the lines
+unrounded, so in bf16 and float32 its blocks differ from its one device
+in every row (a fault of the reference, ROADMAP Queue 3). A value-halo
+refresh copies values, so those paths give one device's state bit for
+bit, bf16 included; the per-stage halo-add sums two partial planes with
+one rounding each (as the JAX package does), so that path differs from
+one device by that rounding.
+
 Where a path does not apply, its solver raises a ValueError that names
 the condition (``step_unavailable``, ``lf_unavailable``,
 ``lf2_unavailable``, ``step2_unavailable``); the JAX ``solve_step_n``
@@ -41,13 +51,13 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from ..convert import numpy_dtype
+from ..convert import tables_from_numpy
 from ..core.basis import lumped_weight_line
 from ..core.mesh import BOX_FACETS
 from ..models.linear_wave import LinearWave, require_homogeneous
 from ..models.linear_wave_padded import _RK_C, _flat_tile_x
-from ..ops import _cuda, lf2step, lfstep, rk42step, rk4step
-from ..ops.separable import separable_stiffness_tables
+from ..ops import lf2step, lfstep, rk42step, rk4step
+from ..ops.separable import grid_lines, separable_stiffness_tables
 from ..ops.stiffness import banded_1d_coeffs
 from ..ops.wave import (
     FlatTables,
@@ -95,7 +105,6 @@ class ShardedPaddedWave:
         if kernel not in ("flat", "3d"):
             raise ValueError(f"kernel = {kernel!r}: 'flat' or '3d'")
         require_homogeneous(model, "ShardedPaddedWave")
-        _cuda.refuse_bf16(model.dtype, "ShardedPaddedWave", _cuda.BF16_SHARDED)
         self.model = model
         self.parts = tuple(int(m) for m in parts)
         for n, m in zip(model.mesh.shape, self.parts):
@@ -134,8 +143,9 @@ class ShardedPaddedWave:
         return per_block(self.mesh, self._own, fn)
 
     def _tensor(self, a, dev) -> torch.Tensor:
-        return torch.as_tensor(
-            np.ascontiguousarray(a, dtype=numpy_dtype(self.model.dtype)), device=dev)
+        """A float64 table as a tensor of the model's dtype on ``dev``
+        (bf16: rounded once)."""
+        return tables_from_numpy((a,), dev, self.model.dtype)[0]
 
     @cached_property
     def _global_m_lines(self) -> list[np.ndarray]:
@@ -158,7 +168,7 @@ class ShardedPaddedWave:
         p = md.p
         lay = self.layout
         A, _ = separable_stiffness_tables(p, md.mesh.h, md.dtype)
-        local_lines = [lumped_weight_line(n, p, 1.0) for n in self.local_cells]
+        local_lines = grid_lines(self.local_cells, p, md.dtype)
         coeff = -float(md.c0) ** 2
 
         def build(b, c, dev):
@@ -231,7 +241,7 @@ class ShardedPaddedWave:
     def _f1(self, t: float, u: Blocks, v: Blocks) -> Blocks:
         md = self.model
         kv = Blocks([None] * len(u))
-        g = torch.tensor(md.c0**2 * md.g_amplitude(t), dtype=md.dtype)
+        g = md._g(t)
         for b in self._own:
             kv[b] = self._apply(b, u[b])
             for pidx, attr, plane in self._boundary_planes[b]:
@@ -331,10 +341,28 @@ class ShardedPaddedWave:
         out[..., off - (g0 - lo) : off + (hi - g0)] = gvec[..., lo:hi]
         return out
 
+    @cached_property
+    def _global_cv(self) -> tuple[list[np.ndarray], list[np.ndarray]]:
+        """The global assembled coefficients of the value-halo paths: per
+        axis the banded stiffness coefficients over m, and the lumped lines
+        over m, from the lines rounded to the model's dtype as one device
+        rounds them (``grid_lines``), so each block's tables hold one
+        device's values."""
+        md = self.model
+        p = md.p
+        coeff = -float(md.c0) ** 2
+        A, _ = separable_stiffness_tables(p, md.mesh.h, md.dtype)
+        glines = grid_lines(md.mesh.shape, p, md.dtype)
+        ginv = [1.0 / m for m in self._global_m_lines]
+        gcvs = [banded_1d_coeffs(A[d], n * p + 1, p, scale=coeff) * ginv[d][None, :]
+                for d, n in enumerate(md.mesh.shape)]
+        return gcvs, [glines[d] * ginv[d] for d in range(3)]
+
     def _halo_tables(self, path: str) -> Blocks:
         """Per block (tables, stencil or None, src_x, abc_x) of a value-halo
         path: the JAX package's tables from the global assembled
-        coefficients (``build_*_tables_from_cv``), and on a card the
+        coefficients (``build_*_tables_from_cv`` on :attr:`_global_cv`),
+        and on a card the
         kernels' stencil tables from the same vectors; for 'step2', the
         [1, F] face planes (w1, w2) and the stencil on every device;
         ``src_x``/``abc_x`` the padded rows of the global x faces, -1 on a
@@ -349,14 +377,9 @@ class ShardedPaddedWave:
         p = md.p
         lay = self.halo_layout(path)
         _, kind, build_tables_from_cv, _ = _PATHS[path]
-        coeff = -float(md.c0) ** 2
-        A, _ = separable_stiffness_tables(p, md.mesh.h, md.dtype)
         gshape = tuple(n * p + 1 for n in md.mesh.shape)
-        glines = [lumped_weight_line(n, p, 1.0) for n in md.mesh.shape]
+        gcvs, gsl = self._global_cv
         ginv = [1.0 / m for m in self._global_m_lines]
-        gcvs = [banded_1d_coeffs(A[d], gshape[d], p, scale=coeff) * ginv[d][None, :]
-                for d in range(3)]
-        gsl = [glines[d] * ginv[d] for d in range(3)]
         w_y = lumped_weight_line(md.mesh.shape[1], p, md.mesh.h[1]) * ginv[1]
         w_z = lumped_weight_line(md.mesh.shape[2], p, md.mesh.h[2]) * ginv[2]
         mx_line = self._global_m_lines[0]

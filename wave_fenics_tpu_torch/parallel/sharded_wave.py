@@ -25,7 +25,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from ..convert import numpy_dtype
+from ..convert import tables_from_numpy, widen
 from ..core.basis import lumped_weight_line
 from ..core.mesh import StructuredBoxMesh
 from ..models.linear_wave import (
@@ -33,7 +33,6 @@ from ..models.linear_wave import (
     lumped_boundary_weights,
     require_homogeneous,
 )
-from ..ops import _cuda
 from ..ops.operators import StructuredOperators
 from ..solvers.cg import cg
 from ..solvers.rk4 import rk4_solve_n
@@ -96,7 +95,6 @@ class ShardedLinearWave:
     def __init__(self, model: LinearWave, parts, devices=None, device=None,
                  exchange: Exchange | None = None):
         require_homogeneous(model, "ShardedLinearWave")
-        _cuda.refuse_bf16(model.dtype, "ShardedLinearWave", _cuda.BF16_SHARDED)
         self.model = model
         self.parts = tuple(int(m) for m in parts)
         for n, m in zip(model.mesh.shape, self.parts):
@@ -128,10 +126,8 @@ class ShardedLinearWave:
     def _blocked(self, blocked_np: np.ndarray) -> Blocks:
         """A blocked NumPy array [mx, my, mz, ...] as Blocks of the model's
         dtype on the held blocks' devices."""
-        npdt = numpy_dtype(self.model.dtype)
         return per_block(self.mesh, self.exchange.local_blocks, lambda i, c, dev:
-                         torch.as_tensor(np.ascontiguousarray(blocked_np[c], dtype=npdt),
-                                         device=dev))
+                         tables_from_numpy((blocked_np[c],), dev, self.model.dtype)[0])
 
     def _from_grid(self, grid_np: np.ndarray) -> Blocks:
         return self._blocked(block_grid(np.asarray(grid_np), self.parts, self.model.p))
@@ -186,7 +182,7 @@ class ShardedLinearWave:
         for i in own:
             b[i] = self.local_ops.stiffness(u[i], md.c0)
         halo_add(b, self.exchange)
-        g = torch.tensor(md.c0**2 * md.g_amplitude(t), dtype=md.dtype)
+        g = md._g(t)
         for i in own:
             b[i] = (b[i] + g * self.W1[i] - md.c0 * (self.W2[i] * v[i])) * self.inv_m[i]
         return b
@@ -206,11 +202,11 @@ class ShardedLinearWave:
     def dot(self, a: Blocks, b: Blocks) -> torch.Tensor:
         """Ownership-weighted global inner product (the MPI_Allreduce of
         cublasDdot, cg.hpp:88-91): a 0-d tensor on the first held block's
-        device."""
+        device, in the arithmetic type (float32 for bf16 blocks)."""
         own = self.exchange.local_blocks
         dev = self.mesh.devices[own[0]]
-        s = sum(torch.dot((self.own_w[i] * a[i]).reshape(-1), b[i].reshape(-1)).to(dev)
-                for i in own)
+        s = sum(torch.dot(*widen((self.own_w[i] * a[i]).reshape(-1), b[i].reshape(-1)))
+                .to(dev) for i in own)
         return self.exchange.allreduce(s)
 
     def _local_then_add(self, x: Blocks, fn) -> Blocks:

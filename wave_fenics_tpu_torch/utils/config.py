@@ -143,15 +143,6 @@ class SimulationConfig:
         if self.time.integrator not in ("rk4", "leapfrog"):
             raise ValueError(f"time.integrator = {self.time.integrator!r}: "
                              "rk4 or leapfrog")
-        if r.dtype == "bf16":
-            from ..ops._cuda import BF16_SHARDED, refuse_bf16, require_bf16
-
-            if imported:
-                require_bf16(torch.bfloat16, "run.dtype = 'bf16' with an imported "
-                             "mesh (domain.mesh_path)", "K")
-            if r.ndev > 1:
-                refuse_bf16(torch.bfloat16, f"run.dtype = 'bf16' with run.ndev = "
-                            f"{r.ndev}", BF16_SHARDED)
 
     def build_case(self, device: torch.device | str = "cuda"):
         """The Planar3DCase of this config, its model on ``device``."""
