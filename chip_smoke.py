@@ -305,6 +305,21 @@ the script exits non-zero and never prints its last line:
     bp1-mass and K's four ops with ``--check``, ``general_solve`` at P8,
     ``scatter_bench``'s three modes and ``tsmm``, each with ``--dtype
     bf16``, their JSON lines printed (``bench26 ...``).
+27. ``benchmarks/suite.py --quick`` (``suite_phase``) through its ``main``
+    on the card, its document under a temporary directory, counted alone:
+    0 errors, one record an entry, every record's ``device`` the card, the
+    three headline records (``padded`` on B, ``fused`` on D, ``step`` on A
+    at 32x16x16 cells, p=4, 50 steps), 0 < the summary's
+    ``headline_pct_of_measured_ceiling`` <= 100 (the step record's), the
+    streaming ceiling (``common.stream_ceiling_gbps``) within 1,500-3,350
+    GB/s, and kernels A, B, D, F, G and K launched and no other (A, B and
+    D 4 x 236 times each: the warm-up call, three windows of 50 steps and
+    three of 12); the suite's seconds, each headline record and the
+    ceiling printed (``suite {...}``: the summary). Then kernels B (the P1
+    layout), E (P12) and F (257^3 grid) beside ``torch.sparse.mm`` of their
+    operator assembled as a CSR matrix with int32 indices
+    (``apps/kernel_times.py::library_times``; within 1e-5 of max|kernel|):
+    their ``library_ms``.
 
 It prints one JSON line of per-kernel results ("kernels": all eleven
 kernels, each with the launches of its path's run, J's step boundary
@@ -316,7 +331,8 @@ under ``sharded_launches``; A, B, F, H, I, J and K add phase 22's dry run
 (``example_launches``); A to F and H to J list phases 24 and 25's
 launches (``bf16_launches``), bf16 times (``bf16``; J's: its step
 boundary) and their bf16 app runs (``bf16_app``), and G and K phase 26's
-(with ``bf16_bench``, the benchmarks' bf16 records); F adds P23's Newmark
+(with ``bf16_bench``, the benchmarks' bf16 records); A, B, D, F, G and K
+add phase 27's quick suite (``suite_launches``); F adds P23's Newmark
 launches; K's entry also lists P21's parts, J's the boundary's time on a
 grown box), the lines ``tsmm {...}``, ``dryrun {...}`` and ``bf16 {...}``
 (phases 24 to 26's checks), the ``bench26 ...`` lines, and, last, one JSON line ``{"ok": true, "device":
@@ -695,6 +711,71 @@ def slice_phases(dev, smi, counters: dict, setup_counters: dict) -> dict:
         print(f"example {name}: " + json.dumps(e) + f" [{smi}]")
     out["examples"] = examples
     return out
+
+
+def suite_phase(dev, smi, counters: dict, setup_counters: dict) -> dict:
+    """Phase 27: ``benchmarks/suite.py --quick`` on the card, through its
+    ``main`` (every benchmark in this process, the document under a
+    temporary directory), counted alone: every count set to 0 just before
+    it and read just after. The suite's entries run kernels A, B and D
+    (the three headline records: 4 launches a step over the warm-up call,
+    three windows of 50 steps and three of 12), F, G and K, and no other.
+    Returns the summary, the headline records and the launches."""
+    import torch
+
+    from wave_fenics_tpu_torch.benchmarks import common, suite
+
+    phase("phase 27: benchmarks/suite.py --quick on the card (every benchmark in one "
+          "process; headline at 32x16x16 cells, p=4, 50 steps)")
+    for fn in (*counters.values(), *setup_counters.values()):
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "BENCH_SUITE_torch.json")
+        try:
+            summary = suite.main(["--quick", "--out", out_path, "--device", "cuda"])
+        except SystemExit as e:
+            with open(out_path) as f:
+                errors = [r for r in json.load(f)["results"] if "error" in r]
+            raise RuntimeError(f"check failed: the quick suite exited {e.code}: "
+                               f"{json.dumps(errors)[:2000]}") from None
+        with open(out_path) as f:
+            results = json.load(f)["results"]
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    name = torch.cuda.get_device_name(dev)
+    heads = {r["metric"].rsplit(", ", 1)[-1].rstrip(")"): r for r in results
+             if r.get("metric", "").startswith("planar3d RK4")}
+    ceiling = common.stream_ceiling_gbps(dev)
+    print(f"suite --quick: {summary['n']} records, {summary['errors']} errors, "
+          f"{summary['seconds']:.1f} s; launches {launches} [{smi}]")
+    for solver, r in heads.items():
+        print(f"suite headline {solver}: " + json.dumps(r) + f" [{smi}]")
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    buf = max(common.CEILING_BUFFER_BYTES, 4 * l2)
+    print(f"streaming ceiling (a {buf >> 20} MiB device-to-device copy, L2 {l2 >> 20} MiB, "
+          f"two-point): {ceiling:.1f} GB/s [{smi}]")
+    print("suite " + json.dumps(summary))
+    check(summary["errors"] == 0, "the quick suite ran with 0 errors")
+    check(len(results) == summary["n"] == len(suite.entries(True)),
+          "the quick suite wrote one record an entry")
+    check(all(r.get("device") == name for r in results),
+          f"every suite record ran on {name}")
+    check(sorted(heads) == ["fused", "padded", "step"], f"the three headline records: "
+          f"{sorted(heads)}")
+    pct = summary.get("headline_pct_of_measured_ceiling")
+    check(pct is not None and 0 < pct <= 100,
+          f"0 < headline_pct_of_measured_ceiling = {pct} <= 100")
+    check(summary["headline_gdof_steps_per_s"] == heads["step"]["value"],
+          "the summary's headline is the step record")
+    check(1500.0 <= ceiling <= 3350.0, f"the streaming ceiling {ceiling:.1f} GB/s within "
+          "1,500-3,350 (above the card's 3.35 TB/s the timing or the bytes are wrong)")
+    check(summary["stream_ceiling_gbps"] == ceiling, "the summary's ceiling")
+    steps = 50 + 3 * 50 + 3 * 12  # warm-up call, three windows of 50 and of 12
+    check(set(launches) == set("ABDFGK"),
+          f"the suite launched A, B, D, F, G and K and no other kernel: {launches}")
+    check(all(launches[k] == 4 * steps for k in "ABD"),
+          f"each headline solver's kernel launched 4 x {steps} times: {launches}")
+    return {"summary": summary, "headline": heads, "launches": launches,
+            "ceiling_gbps": ceiling}
 
 
 def bf16_phase(dev, smi, counters: dict, setup_counters: dict) -> dict:
@@ -4108,6 +4189,23 @@ def main() -> None:
     p26 = bf16_rest_phase(dev, smi, counters, setup_counters, f32_apps,
                           (A16, hm16, ops16.dofs))
     del A16
+    p27 = suite_phase(dev, smi, counters, setup_counters)
+    # B, E and F beside the one PyTorch call that computes their function at
+    # their widths here: torch.sparse.mm of the assembled operator as a CSR
+    # matrix with int32 indices (apps/kernel_times.py; checked within 1e-5)
+    phase("kernels B (P1), E (P12) and F (257^3) beside torch.sparse.mm of the assembled "
+          "int32 CSR")
+    from wave_fenics_tpu_torch.apps import kernel_times
+
+    csr = kernel_times.library_times(torch, 100)
+    for k, r in csr.items():
+        library[k] = r["library_ms"]
+        print(f"kernel {k} {r['cells']} p={r['p']}: {r['kernel_ms']:.4f} ms by events "
+              f"({r['kernel_device_ms']:.4f} on the device); torch.sparse.mm of the CSR "
+              f"({r['nnz']:,} nnz, {r['index_dtype']}) {r['library_ms']:.4f} ms "
+              f"({r['library_device_ms']:.4f} on the device), its bound "
+              f"{r['library_bound_ms']:.4f}; against the kernel {r['rel_err']:.3e} "
+              f"(limit 1e-5) [{smi}]")
 
     # "kernels": all eleven, each with the launches of its path's run (G:
     # P6, F: P7 stiffness, K: P8, E: P12, J: P14; B: the f1-path check,
@@ -4146,6 +4244,9 @@ def main() -> None:
         launches[kernel] += n
     for kernel, per_example in example_launches.items():
         launches[kernel] += sum(per_example.values())
+    # phase 27: the quick suite's run, counted alone
+    for kernel, n in p27["launches"].items():
+        launches[kernel] += n
     meta = {
         "A": ("rk4_tiled_kernel<T, P, J>, lean (kernel A: lean RK4 step, 4 stage "
               "launches on the 2.5D tiled stencil; ms per step)",
@@ -4271,6 +4372,12 @@ def main() -> None:
         by_name[kernel]["dryrun_launches"] = n
     for kernel, per_example in example_launches.items():
         by_name[kernel]["example_launches"] = per_example
+    for kernel, n in p27["launches"].items():
+        by_name[kernel]["suite_launches"] = n
+    for k, r in csr.items():
+        by_name[k]["library"] = {key: r[key] for key in (
+            "nnz", "index_dtype", "rel_err", "library_device_ms", "library_bound_ms",
+            "kernel_ms", "kernel_device_ms")}
     # the same kernel at 16^3 cells, beside the one PyTorch call that computes
     # its function there (the assembled matrix at the P8 size would not fit
     # a host assembly)

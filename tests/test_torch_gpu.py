@@ -1934,3 +1934,46 @@ def test_bf16_halo_layout_kernels_match_plain_over_nan(cuda, path, p, rings, sha
         assert _bf16_rel(vk[inter], vp[inter]) <= ONE_BF16
         _outside_box_zero(lay, rings[0], uk)
         _outside_box_zero(lay, rings[1], vk)
+
+
+# -- the benchmark suite (benchmarks/suite.py, benchmarks/common.py) ----------
+def test_stream_ceiling_on_the_card(cuda):
+    """The measured streaming ceiling (a copy four times the L2 or more,
+    two-point) lies within 1,500-3,350 GB/s (above the H100's 3.35 TB/s the
+    timing or the byte count is wrong), cached per card; a record's
+    percentage of it follows the JAX formula."""
+    from wave_fenics_tpu_torch.benchmarks import common
+
+    c = common.stream_ceiling_gbps(cuda)
+    assert 1500.0 <= c <= 3350.0
+    assert common.stream_ceiling_gbps("cuda") == c
+    f = common.streaming_fields(1e9, 1e-3, cuda)
+    assert f["pct_of_measured_ceiling"] == round(100.0 * 1000.0 / c, 1)
+
+
+@pytest.mark.parametrize("solver,kernel", [("padded", "B"), ("fused", "D"), ("step", "A")])
+def test_suite_headline_on_the_card(cuda, solver, kernel):
+    """Each headline record at the quick suite's 32x16x16 cells, p=4, 50
+    steps: a two-point rate, its kernel launched 4 times a step over the
+    warm-up call and the six windows and no other kernel, and the step
+    record's percentage of the ceiling within (0, 100]."""
+    from wave_fenics_tpu_torch.benchmarks import suite
+
+    counters = {"A": rk4step.rk4_step_lean_cuda, "B": wave.apply_flat_cuda,
+                "D": wave.rk_stage_cuda, "C": rk4step.rk4_step_full_cuda,
+                "E": wave.apply_slab_cuda, "F": stiffness.stiffness_grid_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    r = suite.headline(cells=(32, 16, 16), degree=4, steps=50, solver=solver)
+    launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    assert launched == {kernel: 4 * (50 + 3 * 50 + 3 * 12)}
+    assert r["timing"] == "two-point (50-12 steps)"
+    assert r["device"] == torch.cuda.get_device_name(cuda)
+    assert r["value"] > 0 and r["ms_per_step"] > 0 and "vs_baseline" not in r
+    if solver == "step":
+        assert 0 < r["pct_of_measured_ceiling"] <= 100
+    else:
+        assert "pct_of_measured_ceiling" not in r
+    _, _, solve = suite.headline_solver((32, 16, 16), 4, solver, "cuda")
+    u, v = solve(50)
+    assert torch.isfinite(u).all() and torch.isfinite(v).all() and v.abs().max() > 0

@@ -14,5 +14,12 @@ has ``run(**kw) -> dict`` and prints one JSON result line:
   (gpu_scatter_local, gpu_scatter_mpi);
 - ``tsmm``: the batched interpolate-and-project contraction pair
   (gpu_tsmm), GFLOP/s on the reference's dense model and on the
-  sum-factorized work.
+  sum-factorized work;
+- ``suite``: every module above in one process (the JAX suite's entries),
+  with, on a card, the headline planar3d RK4 records (``suite.headline``),
+  written as one JSON document and a summary line.
+
+``common.stream_ceiling_gbps`` measures the card's streaming ceiling (a
+device-to-device copy of a buffer four times its L2 or more); the
+streaming records carry their percentage of it on a card.
 """

@@ -155,7 +155,7 @@ def run(op: str = "stiffness", size: int = 32, degree: int = 4,
            "gdofs_per_s": ndofs / t / 1e9, "timing": timing,
            "applies": calls + int(check), "setup_s": setup_s}
     out.update(streaming_fields(
-        _TRAFFIC_PASSES.get(op, 2) * ndofs * torch.finfo(dt).bits // 8, t))
+        _TRAFFIC_PASSES.get(op, 2) * ndofs * torch.finfo(dt).bits // 8, t, dev))
     if check:
         y = f()
         y = (layout.unpad(y) if layout is not None else y).to(torch.float64)

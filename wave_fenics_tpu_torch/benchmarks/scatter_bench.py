@@ -75,7 +75,7 @@ def run(mode: str = "local", size: int = 32, degree: int = 4, reps: int = 50,
         return dict(metric="structured gather+scatter roundtrip", ndofs=dg.ndofs,
                     degree=p, dtype=dtype, device=device_name(dev), ms=t * 1e3,
                     timing=timing, calls=calls, gdofs_per_s=dg.ndofs / t / 1e9,
-                    **streaming_fields(nbytes, t))
+                    **streaming_fields(nbytes, t, dev))
     if mode == "halo":
         sw = ShardedLinearWave(LinearWave(mesh, p, dtype=dt, device=dev),
                                decompose3d(ndev))
