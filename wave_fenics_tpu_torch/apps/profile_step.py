@@ -11,10 +11,13 @@ E at p > 8), warms up, and runs it twice:
   each phase of kernels H and I, kernel E) the launches and the
   device microseconds per launch, the bandwidth those times imply for the
   state fields each launch has to move (a model of the traffic, not a
-  count), and the device's busy share (device time of all kernels / wall
-  time);
+  count), the device's busy share (the union of the device's intervals /
+  wall time) and, on the paths with step spans (A, C, H, I), the host's
+  issue time a step: its ``wave.rk4.step``, ``wave.lf2.call`` and
+  ``wave.lf.step`` spans less the time it waited on a full launch queue;
 - without it: the host's enqueue time per step (until the solve returns,
-  before the card has finished) and the synced time per step.
+  before the card has finished; once the launch queue fills, the device's
+  pace) and the synced time per step.
 
 With ``--bp1`` it profiles one BP1 CG solve instead (``cg_bench``'s
 problem on a unit box of ``--cells``, kmax 50, rtol 1e-4, the reference's
@@ -22,7 +25,9 @@ settings): the device time of kernel G (the matvec, one launch per
 iteration and one for r0), the device time of every other kernel (the
 vector operations: axpys, dots, the scalar updates), and the rest of the
 wall time, which is the host: enqueueing, and the one scalar read per
-iteration that CG's stopping test waits for.
+iteration that CG's stopping test waits for. CG's spans split the host's
+time an iteration into its wait (``wave.cg.stop_test``) and its issue
+(the rest of ``wave.cg.iter``).
 
 With ``--general`` it profiles RK4 steps of the explicit-dofmap model
 (``general_solve``'s perturbed box of ``--cells``, 4,276,737 dofs at the
@@ -105,6 +110,7 @@ from ..ops.mass import bp1_setup, mass_apply, mass_launch_args
 from ..ops.operators import StructuredOperators
 from ..ops.stiffness import GridStiffnessTables, stiffness_grid_tables, stiffness_launch_args
 from ..solvers.cg import cg
+from ..utils.profiling import BLOCKED, device_busy_us, host_span_us
 from ..utils.timing import sync, timeit
 from . import planar3d_app
 
@@ -130,6 +136,8 @@ KERNELS = [
     (r"apply_slab_tiled_kernel<", "apply_slab (E)", 2),
 ]
 _KERNEL_RES = [(re.compile(pat), label, fields) for pat, label, fields in KERNELS]
+#: the step paths' spans (utils/profiling.py) and the steps each covers
+STEP_SPANS = {"wave.rk4.step": 1, "wave.lf2.call": 2, "wave.lf.step": 1}
 
 
 def expected_launches(pm, integrator: str, steps: int,
@@ -199,13 +207,15 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
         sync(dev)
         wall_us = (time.perf_counter() - w0) * 1e6
 
-    busy_us = 0.0
+    events = prof.events()
+    busy_us = device_busy_us(events)
+    device_us = 0.0
     us = {label: 0.0 for _, label, _ in _KERNEL_RES}
     n = {label: 0 for _, label, _ in _KERNEL_RES}
-    for e in prof.events():
+    for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        busy_us += e.time_range.elapsed_us()
+        device_us += e.time_range.elapsed_us()
         for rx, label, _ in _KERNEL_RES:
             if rx.search(e.name):
                 us[label] += e.time_range.elapsed_us()
@@ -233,6 +243,8 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
                         "model_gbps": nf * field_bytes / (per * 1e-6) / 1e9})
     kernel_us = sum(k["us_per_launch"] * k["launches"] for k in kernels)
     moved = sum(k["fields"] * k["launches"] for k in kernels) * field_bytes
+    spans = {name: host_span_us(events, (name,), (BLOCKED,)) for name in STEP_SPANS}
+    spanned = sum(STEP_SPANS[name] * k for name, (k, _) in spans.items())
     return {
         "card": card_line(),
         "cells": list(cells), "degree": degree, "dtype": dtype,
@@ -245,10 +257,14 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
         "kernels": kernels,
         "kernel_us_per_step": kernel_us / steps,
         # the plain-torch vector kernels of the f1/force paths (E, B)
-        "other_device_us_per_step": (busy_us - kernel_us) / steps,
+        "other_device_us_per_step": (device_us - kernel_us) / steps,
         "model_gbps": moved / (kernel_us * 1e-6) / 1e9,
         "profiled_wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_share": busy_us / wall_us,
+        "step_spans": {name: k for name, (k, _) in spans.items()},
+        # None on the paths whose steps the spans do not cover (D, E, J)
+        "host_issue_ms_per_step": (sum(t for _, t in spans.values()) / 1e3 / steps
+                                   if spanned == steps else None),
         "enqueue_ms_per_step": (t1 - t0) / steps * 1e3,
         "synced_ms_per_step": (t2 - t0) / steps * 1e3,
     }
@@ -737,7 +753,10 @@ def profile_bp1(cells=(64, 64, 64), degree=4, dtype="f32", kmax=50,
         raise RuntimeError(f"the profiler saw {len(g_us)} kernel G launches, "
                            f"the solve makes {1 + iters}: it does not trace "
                            "this card; time with CUDA events instead")
-    busy_us = sum(g_us) + other_us
+    traced = prof.events()
+    busy_us = device_busy_us(traced)
+    tests, wait_us = host_span_us(traced, ("wave.cg.stop_test",))
+    _, issue_us = host_span_us(traced, ("wave.cg.iter",), ("wave.cg.stop_test",))
     return {
         "card": card_line(),
         "cells": list(cells), "degree": degree, "dtype": dtype,
@@ -758,6 +777,9 @@ def profile_bp1(cells=(64, 64, 64), degree=4, dtype="f32", kmax=50,
             "vector_ops": other_us / 1e3 / iters,
             "host_and_sync": (wall_us - busy_us) / 1e3 / iters,
         },
+        "stop_tests": tests,
+        "host_issue_ms_per_iter": issue_us / 1e3 / iters,
+        "host_wait_ms_per_iter": wait_us / 1e3 / iters,
     }
 
 
@@ -801,7 +823,7 @@ def profile_general(cells=(64, 32, 32), degree=4, dtype="f32", steps=20,
             f"zero launch and {ncolours} colour launches; counted {applies} "
             f"applies, the profiler saw {len(el)} colour and {len(zero)} zero "
             "launches (no device time: time with CUDA events instead)")
-    busy_us = sum(el) + sum(zero) + other_us
+    busy_us = device_busy_us(prof.events())
     return {
         "card": card_line(),
         "cells": list(cells), "degree": degree, "dtype": dtype,
@@ -963,8 +985,10 @@ def main(argv=None):
               f"x {out['matvec_us_per_launch']:.2f} us), vector ops "
               f"{out['vector_ms_per_solve']:.3f} ms ({out['vector_kernel_launches']} "
               f"launches), host {out['host_ms_per_solve']:.3f} ms; busy share "
-              f"{out['device_busy_share']:.4f}; synced {out['synced_ms_per_solve']:.3f} "
-              "ms/solve without the profiler")
+              f"{out['device_busy_share']:.4f}; host issue "
+              f"{out['host_issue_ms_per_iter']:.4f}, wait {out['host_wait_ms_per_iter']:.4f} "
+              f"ms/iter ({out['stop_tests']} stop tests); synced "
+              f"{out['synced_ms_per_solve']:.3f} ms/solve without the profiler")
         print(json.dumps(out))
         return
     out = profile(args.cells, args.degree, args.dtype, args.tile_x, args.steps,
@@ -978,7 +1002,8 @@ def main(argv=None):
               f"{k['model_gbps']:.1f} GB/s (model)")
     print(f"kernels {out['kernel_us_per_step']:.1f} us/step, other device "
           f"kernels {out['other_device_us_per_step']:.1f} us/step; busy share "
-          f"{out['device_busy_share']:.4f} under the profiler; enqueue "
+          f"{out['device_busy_share']:.4f} and host issue "
+          f"{out['host_issue_ms_per_step']} ms/step under the profiler; enqueue "
           f"{out['enqueue_ms_per_step']:.4f} ms/step, synced "
           f"{out['synced_ms_per_step']:.4f} ms/step without it")
     print(json.dumps(out))

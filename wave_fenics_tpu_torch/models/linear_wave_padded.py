@@ -24,6 +24,12 @@ resolves it.
   (seven launches), an odd last step through the step kernel ``lean``
   selects (A, or C).
 
+Spans (``utils/profiling.py``, recorded only under a ``torch.profiler``):
+``solve_step_n`` opens ``wave.rk4.solve`` around the call and
+``wave.rk4.step`` around each step, ``solve_lf2_n`` ``wave.lf2.solve``
+and ``wave.lf2.call`` around each call of kernel I, and each kernel-H step
+``wave.lf.step``.
+
 Each kernel path needs the flat layout, one source and one absorbing plane,
 both on x-faces, and the step paths a tile that holds their TPU kernel's
 slab halo (the JAX package's conditions, kept so both packages take the
@@ -87,6 +93,7 @@ from ..ops.wave import (
     stencil_tables,
 )
 from ..solvers.rk4 import rk4_solve, rk4_solve_n
+from ..utils.profiling import annotate
 from .linear_wave import LinearWave, lumped_boundary_weights, require_homogeneous
 
 __all__ = ["PaddedLinearWave"]
@@ -373,12 +380,13 @@ class PaddedLinearWave(nn.Module):
         Raises ValueError when the step path does not apply to this
         configuration (no fallback to another solver)."""
         self._require(self.step_unavailable, "fused RK4 step kernel")
-        if u0 is None:
-            u0, v0 = self.zero_state()
-        pairs, scratch = self._kernel_buffers(u0)
-        u, v = self._rk4_steps(u0, v0, float(t0), float(dt), nsteps, pairs,
-                               scratch)
-        return (*self._handout(u, v), nsteps)
+        with annotate("wave.rk4.solve"):
+            if u0 is None:
+                u0, v0 = self.zero_state()
+            pairs, scratch = self._kernel_buffers(u0)
+            u, v = self._rk4_steps(u0, v0, float(t0), float(dt), nsteps, pairs,
+                                   scratch)
+            return (*self._handout(u, v), nsteps)
 
     def _rk4_steps(self, u, v, t, dtf, nsteps, pairs, scratch, first=0):
         """``nsteps`` step-kernel steps (A, or C with ``lean=False``) from
@@ -388,11 +396,12 @@ class PaddedLinearWave(nn.Module):
         step = rk4_step_lean if self.lean else rk4_step_full
         tables, stencil = self.step_tables, self.stencil
         for i in range(first, first + nsteps):
-            gs = [b.g_amplitude(t + c * dtf) for c in _RK_C]
-            u, v = step(
-                u, v, dtf, gs, self.layout, b.c0, tables, stencil,
-                self.src_x, self.abc_x, out=pairs[i % 2], scratch=scratch[:3],
-            )
+            with annotate("wave.rk4.step"):
+                gs = [b.g_amplitude(t + c * dtf) for c in _RK_C]
+                u, v = step(
+                    u, v, dtf, gs, self.layout, b.c0, tables, stencil,
+                    self.src_x, self.abc_x, out=pairs[i % 2], scratch=scratch[:3],
+                )
             t = t + dtf
         return u, v
 
@@ -478,11 +487,12 @@ class PaddedLinearWave(nn.Module):
         ``pairs[i % 2]`` for i from ``first`` on."""
         b, tables, stencil = self.base, self.lf_tables, self.stencil
         for i in range(first, first + nsteps):
-            u, v = lf_step(
-                u, v, dtf, b.g_amplitude(t), b.g_amplitude(t + dtf),
-                self.layout, b.c0, tables, stencil, self.src_x, self.abc_x,
-                out=pairs[i % 2], scratch=scratch[0],
-            )
+            with annotate("wave.lf.step"):
+                u, v = lf_step(
+                    u, v, dtf, b.g_amplitude(t), b.g_amplitude(t + dtf),
+                    self.layout, b.c0, tables, stencil, self.src_x, self.abc_x,
+                    out=pairs[i % 2], scratch=scratch[0],
+                )
             t = t + dtf
         return u, v
 
@@ -492,26 +502,28 @@ class PaddedLinearWave(nn.Module):
         H. Returns (u, v, nsteps); raises ValueError when the path does not
         apply."""
         self._require(self.lf2_unavailable, "fused 2-step leapfrog kernel")
-        if u0 is None:
-            u0, v0 = self.zero_state()
-        b = self.base
-        dtf = float(dt)
-        t = float(t0)
-        pairs, scratch = self._kernel_buffers(u0)
-        tables, stencil = self.lf2_tables, self.stencil
-        u, v = u0, v0
-        for i in range(nsteps // 2):
-            u, v = lf2_step(
-                u, v, dtf, b.g_amplitude(t), b.g_amplitude(t + dtf),
-                b.g_amplitude(t + 2 * dtf), self.layout, b.c0, tables,
-                stencil, self.src_x, self.abc_x, out=pairs[i % 2],
-                scratch=scratch[:3],
-            )
-            t = t + 2 * dtf
-        if nsteps % 2:
-            u, v = self._lf_steps(u, v, t, dtf, 1, pairs, scratch,
-                                  first=nsteps // 2)
-        return (*self._handout(u, v), nsteps)
+        with annotate("wave.lf2.solve"):
+            if u0 is None:
+                u0, v0 = self.zero_state()
+            b = self.base
+            dtf = float(dt)
+            t = float(t0)
+            pairs, scratch = self._kernel_buffers(u0)
+            tables, stencil = self.lf2_tables, self.stencil
+            u, v = u0, v0
+            for i in range(nsteps // 2):
+                with annotate("wave.lf2.call"):
+                    u, v = lf2_step(
+                        u, v, dtf, b.g_amplitude(t), b.g_amplitude(t + dtf),
+                        b.g_amplitude(t + 2 * dtf), self.layout, b.c0, tables,
+                        stencil, self.src_x, self.abc_x, out=pairs[i % 2],
+                        scratch=scratch[:3],
+                    )
+                t = t + 2 * dtf
+            if nsteps % 2:
+                u, v = self._lf_steps(u, v, t, dtf, 1, pairs, scratch,
+                                      first=nsteps // 2)
+            return (*self._handout(u, v), nsteps)
 
 
 def _x_face_planes(pm: PaddedLinearWave):

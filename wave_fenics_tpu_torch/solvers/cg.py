@@ -13,6 +13,12 @@ stopping rule rnorm / rnorm0 < rtol^2 on squared norms (rtol^2 formed in
 the residual's dtype), the cap kmax, the standard p <- z + beta p update
 (the reference adds p into r at cg.hpp:116-117; that slip is not copied).
 
+Spans (``utils/profiling.py``, recorded only under a ``torch.profiler``):
+``wave.cg.solve`` around the call, ``wave.cg.iter`` around each iteration
+from its stopping test on (an early-converged last test is an iteration
+span that holds only that test), ``wave.cg.stop_test`` around the host's
+read of the predicate and ``wave.cg.matvec`` around the matvec.
+
 ``dot`` replaces the inner product: the distributed CG of
 ``parallel.sharded_wave`` passes its ownership-weighted, all-reduced dot
 and runs on ``parallel.partition.Blocks`` vectors (with ``x0`` given).
@@ -25,6 +31,7 @@ from typing import Callable
 import torch
 
 from ..ops.la import inner_product
+from ..utils.profiling import annotate
 
 __all__ = ["cg"]
 
@@ -45,28 +52,35 @@ def cg(
     ``precond`` is an SPD preconditioner z = M^-1 r (e.g. Jacobi). The
     stopping rule stays on the true residual norm, as cg.hpp:110.
     """
-    x = torch.zeros_like(b) if x0 is None else x0
-    M = precond if precond is not None else (lambda r: r)
-    inner = inner_product if dot is None else dot
+    with annotate("wave.cg.solve"):
+        x = torch.zeros_like(b) if x0 is None else x0
+        M = precond if precond is not None else (lambda r: r)
+        inner = inner_product if dot is None else dot
 
-    r = b - matvec(x)
-    z = M(r)
-    p = z
-    rnorm0 = inner(r, r)
-    rz = inner(r, z)
-    rnorm = rnorm0
-    rtol2 = torch.tensor(rtol, dtype=rnorm0.dtype) ** 2
-    k = 0
-    while k < kmax and bool(rnorm / rnorm0 >= rtol2):
-        y = matvec(p)
-        alpha = rz / inner(p, y)
-        x = x + alpha * p
-        r = r - alpha * y
+        r = b - matvec(x)
         z = M(r)
-        rnorm = inner(r, r)
-        rz_new = inner(r, z)
-        beta = rz_new / rz
-        rz = rz_new
-        p = z + beta * p
-        k += 1
-    return x, k, rnorm
+        p = z
+        rnorm0 = inner(r, r)
+        rz = inner(r, z)
+        rnorm = rnorm0
+        rtol2 = torch.tensor(rtol, dtype=rnorm0.dtype) ** 2
+        k = 0
+        while k < kmax:
+            with annotate("wave.cg.iter"):
+                with annotate("wave.cg.stop_test"):
+                    go = bool(rnorm / rnorm0 >= rtol2)
+                if not go:
+                    break
+                with annotate("wave.cg.matvec"):
+                    y = matvec(p)
+                alpha = rz / inner(p, y)
+                x = x + alpha * p
+                r = r - alpha * y
+                z = M(r)
+                rnorm = inner(r, r)
+                rz_new = inner(r, z)
+                beta = rz_new / rz
+                rz = rz_new
+                p = z + beta * p
+                k += 1
+        return x, k, rnorm
