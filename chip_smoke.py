@@ -1969,7 +1969,6 @@ def main() -> None:
         rk4step,
         rk42step,
         stiffness,
-        tiling,
         wave,
     )
     from wave_fenics_tpu_torch.ops.assembled import (
@@ -2230,7 +2229,7 @@ def main() -> None:
     for p, cells in ((1, (4, 2, 2)), (2, (4, 2, 2)), (3, (4, 2, 2)), (4, (4, 2, 2)),
                      (4, (9, 4, 8))):
         spm = small_model(p, cells=cells, tile_x=max(16, rk4step._off0(p)))
-        grid, ty, tz, cx, _ = tiling.tiled_geometry(spm.layout, 8)
+        grid, ty, tz, cx, _ = rk4step.stage_geometry(spm.face_w1, spm.layout, 3)[:5]
         nan_workspace(spm)
         u0, v0 = random_state(spm, 10 * p)
         uk, vk = kernel_solve(spm, "lean", 1e-9, 25, u0, v0)
@@ -2269,9 +2268,9 @@ def main() -> None:
     # padded outputs): J0 u0 -> kv0, J1 u0, v0 -> kv1, J2 u0, v0, kv0 ->
     # kv2, J3 u0, v0, kv0, kv1, kv2 -> u1, v1: 11 fields in, 5 out
     floor_ms = 1e3 * (11 * interior_bytes(hpm) + 5 * field_bytes(hpm)) / HBM_BYTES_PER_S
-    grid, ty, tz, cx, smem = tiling.tiled_geometry(hpm.layout, 4)
+    grid, ty, tz, cx, smem = rk4step.stage_geometry(bufs[0], hpm.layout, 3)[:5]
     print(f"f32 headline (tiles {ty}x{tz}, x-chunks of {cx}, grid {grid}, "
-          f"{smem} B shared): kernel {sum(a_stage_us) / 1e3:.4f} ms/step "
+          f"{smem} B shared in stage 3): kernel {sum(a_stage_us) / 1e3:.4f} ms/step "
           f"({rk4step.LAUNCHES_PER_STEP} launches: stages "
           f"{', '.join(f'{t:.2f}' for t in a_stage_us)} us; through the wrapper "
           f"{a_ms:.4f} ms/step), plain {a_plain_ms:.4f} "

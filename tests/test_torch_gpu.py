@@ -27,6 +27,7 @@ from wave_fenics_tpu_torch.models.general_wave import GeneralLinearWave
 from wave_fenics_tpu_torch.models.linear_wave import LinearWave
 from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
 from wave_fenics_tpu_torch.ops import (
+    _cuda,
     general,
     lf2step,
     lfstep,
@@ -59,23 +60,23 @@ def cuda():
     return torch.device("cuda")
 
 
-def _model(p, device, shape=(4, 2, 2), tile_x=16):
+def _model(p, device, shape=(4, 2, 2), tile_x=16, dtype=F64):
     mesh = box_mesh(shape, (0.01, 0.005, 0.005),
                     facet_tags=FacetTags({1: (0,), 2: (1,)}))
     return PaddedLinearWave(
-        LinearWave(mesh, p=p, dtype=F64, device=device), tile_x=tile_x)
+        LinearWave(mesh, p=p, dtype=dtype, device=device), tile_x=tile_x)
 
 
 # the step kernels (A, C) at every p they take, on the smallest tile the
 # step path allows, and on grids whose interior is no multiple of the
 # tiling's CX, TY or TZ ((5,3,3) cells at p=4: 21 x 13 x 13 points in
-# x-chunks of 11; (9,4,8) cells: 37 x 17 x 33 points in chunks of 13 and
-# tiles of 9 x 17, ragged along each axis; tests/test_torch_tiling.py)
+# f64 tiles of 13 x 14; (9,4,8) cells: 37 x 17 x 33 points in chunks of 13
+# and tiles of 9 x 18, ragged along each axis; tests/test_torch_tiling.py)
 STEP_CASES = [(p, (4, 2, 2)) for p in range(1, 9)] + [(4, (5, 3, 3)), (4, (9, 4, 8))]
 
 
-def _step_model(p, shape, device):
-    return _model(p, device, shape, tile_x=max(16, rk4step._off0(p)))
+def _step_model(p, shape, device, dtype=F64):
+    return _model(p, device, shape, tile_x=max(16, rk4step._off0(p)), dtype=dtype)
 
 
 def _random_padded(layout, seed, device, scale=1.0):
@@ -224,6 +225,57 @@ def test_cuda_step_writes_zero_padding_over_nan(cuda, p, shape, lean):
     zeros = [torch.zeros_like(u0) for _ in range(5)]
     uz, vz = step(*args, out=tuple(zeros[:2]), scratch=tuple(zeros[2:]))
     assert torch.equal(uk, uz) and torch.equal(vk, vz)
+
+
+def _stage_launches(pm, u0, v0, bufs, lean, padding_first=None):
+    """Kernel A's (C's) four stage launches from (u0, v0) into ``bufs`` =
+    (u1, v1, kv0, kv1, kv2), with the padding layer where
+    ``tiling.tma_padding_first`` puts it or, forced, first or last."""
+    launcher = "wave_rk4_stage" if lean else "wave_rk4_full_stage"
+    for j in range(4):
+        args = rk4step.stage_launch_args(
+            j, u0, v0, *bufs[2:], bufs[2 + j] if j < 3 else bufs[4], *bufs[:2],
+            pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x, DT, GS[j], pm.base.c0,
+            pm.layout, pm.stencil, padding_first=padding_first)
+        _cuda.launch(launcher, u0.dtype, u0.device, *args)
+    return bufs[0], bufs[1]
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", range(1, 9))
+@pytest.mark.parametrize("lean", [True, False])
+def test_cuda_step_every_p_and_dtype_over_nan(cuda, lean, p, dtype):
+    """Kernels A and C at every p, in f64, f32 and bf16, on (5,3,3) cells
+    (ragged against the tiles and chunks), from output and scratch buffers
+    full of NaN, with the padding layer first and last: against the plain
+    version (f64 1e-12 on the card, f32 1e-5 on the card, bf16 its plain
+    twin on the CPU at 1e-2), the padding of u1, v1 and kv0..kv2 exactly
+    zero, nothing left NaN, and both orders of the grid bitwise equal."""
+    if dtype == torch.bfloat16:
+        pm, pc = (_bf16_model(p, d, (5, 3, 3), lean) for d in (cuda, "cpu"))
+        u0 = _bf16_state(pm.layout, 60 + p, cuda)
+        v0 = _bf16_state(pm.layout, 61 + p, cuda, 1e3)
+    else:
+        pm = _step_model(p, (5, 3, 3), cuda, dtype)
+        u0 = _random_padded(pm.layout, 60 + p, cuda).to(dtype)
+        v0 = _random_padded(pm.layout, 61 + p, cuda, scale=1e3).to(dtype)
+    plain = rk4step.rk4_step_lean_plain if lean else rk4step.rk4_step_full_plain
+    outs = []
+    for first in (True, False):
+        bufs = [torch.full_like(u0, float("nan")) for _ in range(5)]
+        outs.append(_stage_launches(pm, u0, v0, bufs, lean, first))
+        torch.cuda.synchronize()
+        _padding_zero(pm, *bufs)
+        assert all(bool(torch.isfinite(x).all()) for x in bufs)
+    (uk, vk), (ul, vl) = outs
+    assert torch.equal(uk, ul) and torch.equal(vk, vl)
+    args = (DT, GS, pm.layout, pm.base.c0)
+    if dtype == torch.bfloat16:
+        up, vp = plain(u0.cpu(), v0.cpu(), *args, pc.step_tables)
+        assert _bf16_rel(uk, up) <= ONE_BF16 and _bf16_rel(vk, vp) <= ONE_BF16
+    else:
+        up, vp = plain(u0, v0, *args, pm.step_tables)
+        _assert_state_close(uk, vk, up, vp, TOL if dtype == F64 else 1e-5)
 
 
 @pytest.mark.parametrize("p", [2, 4, 8])
@@ -1223,6 +1275,33 @@ def test_cuda_halo_layout_kernels_match_plain_over_nan(cuda, path, p, rings):
         _outside_box_zero(lay, rings[1], vk)
 
 
+@pytest.mark.parametrize("p", range(1, 9))
+@pytest.mark.parametrize("lean", [True, False])
+def test_cuda_halo_layout_step_kernels_every_p_over_nan(cuda, lean, p):
+    """Kernels A and C on the 3p value-halo layout of a (2,1,1) split at
+    every p: stages 0 and 1 on the interior grown p into the halo, each
+    stage's TMA windows reading the p-deep ring of halo values around its
+    box; from buffers full of NaN, the interior against the plain version
+    at 1e-12, kv0 and kv1 exactly 0 beyond their ring, kv2, u1 and v1
+    beyond the interior, nothing left NaN."""
+    sw = _sharded(p, cuda, (2, 1, 1))
+    lay = sw.halo_layout("step")
+    u0, v0 = _halo_state(sw, lay, 70 + p, scale=1e3)
+    step = rk4step.rk4_step_lean if lean else rk4step.rk4_step_full
+    plain = rk4step.rk4_step_lean_plain if lean else rk4step.rk4_step_full_plain
+    inter = lay.interior
+    for b, (tables, st, src_x, abc_x) in enumerate(sw._halo_tables("step")):
+        nan = [torch.full_like(u0[b], float("nan")) for _ in range(5)]
+        uk, vk = step(u0[b], v0[b], DT, GS, lay, sw.model.c0, tables, st, src_x, abc_x,
+                      out=tuple(nan[:2]), scratch=tuple(nan[2:]))
+        up, vp = plain(u0[b], v0[b], DT, GS, lay, sw.model.c0, tables)
+        torch.cuda.synchronize()
+        assert not any(bool(torch.isnan(x).any()) for x in nan)
+        _assert_state_close(uk[inter], vk[inter], up[inter], vp[inter])
+        _outside_box_zero(lay, p, nan[2], nan[3])
+        _outside_box_zero(lay, 0, uk, vk, nan[4])
+
+
 @pytest.mark.parametrize("parts", [(2, 1, 1), (2, 2, 1)])
 @pytest.mark.parametrize("path", ["n", "n3d", "step", "lf", "lf2"])
 def test_cuda_sharded_solves_match_single_device(cuda, path, parts):
@@ -1729,7 +1808,7 @@ def test_bf16_rk42_kernel_matches_plain_twin(cuda, p):
     launches) and its step boundary alone, from outputs and scratch full
     of NaN on a grid of several y and z tiles, against the plain twins on
     the CPU: within two ulps of max|ref|, the padding exactly 0 (odd p
-    included: C's stages copy bf16 planes in pairs)."""
+    included: C's stages take bf16 TMA windows)."""
     pm = _bf16_tiled_model(p, cuda, max(24, rk42step._off0(p)))
     pc = _bf16_tiled_model(p, "cpu", pm.layout.tile_x)
     assert pm.rk42_unavailable is None

@@ -1,7 +1,7 @@
 """The tilings of the tiled stencil kernels on the layouts the app and
 chip_smoke.py build, and the C launchers' argument lists: the RK4 stage
-kernel (kernels A and C, and kernel J's stages; csrc/rk4_tiled.cu) at every
-p it takes (1..8), kernel F on the unpadded dof grid (csrc/stiffness_tiled.cu,
+kernel (kernels A and C, and kernel J's stages; csrc/rk4_tiled.cu, TMA
+plane loads) at every p it takes (1..8), kernel F on the unpadded dof grid (csrc/stiffness_tiled.cu,
 p = 1..10), and the TMA kernels B (csrc/flat_tiled.cu, p = 1..8), D
 (csrc/rk_stage_tiled.cu, p = 1..8), E (csrc/slab_tiled.cu, p = 1..10), G
 (the BP1 mass, csrc/mass_tiled.cu, p = 1..8) and J's step boundary
@@ -28,8 +28,16 @@ from wave_fenics_tpu_torch.ops import (
     tiling,
     wave,
 )
-from wave_fenics_tpu_torch.ops.rk4step import _off0, stage_launch_args
-from wave_fenics_tpu_torch.ops.tiling import tiled_geometry
+from wave_fenics_tpu_torch.ops.rk4step import (
+    STAGE_EXTRA,
+    STAGE_FIELDS,
+    _off0,
+    stage_blocks_per_sm,
+    stage_launch_args,
+    stage_ring,
+)
+from wave_fenics_tpu_torch.ops import rk4step as rk4step_mod
+from wave_fenics_tpu_torch.ops.rk4step import stage_geometry
 from wave_fenics_tpu_torch.ops.wave import PaddedLayout
 
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on an H100
@@ -57,78 +65,124 @@ def _axis_ranges(start, n, tile, count):
             for i in range(count)]
 
 
+def _stage_geometry(lay, stage, itemsize=4, sms=tiling.H100_SMS, box_ring=0):
+    """Kernel A's (C's) tiling of stage ``stage`` (ops/rk4step.py::
+    stage_geometry) on a card of ``sms`` SMs."""
+    return rk4step_mod._stage_geometry(lay, stage, itemsize, sms, box_ring)[:5]
+
+
+def _stage_layers(grid, Nx, cx):
+    """Layers of padding blocks beyond the x-chunks of a stage's grid."""
+    return grid[2] - -(-Nx // cx)
+
+
 @pytest.mark.parametrize("cells,tile_x", CASES)
 @pytest.mark.parametrize("p", range(1, 9))
 def test_tiles_cover_the_interior_once(p, cells, tile_x):
+    """Kernel A's (C's) TMA tiling, every stage, in bf16, f32 and f64: the
+    four stages share the tiles, chunks and grid (layers of padding blocks
+    beyond the x-chunks, two padding blocks an SM at least) and differ in
+    their shared memory only; the tiles cover the interior exactly once and
+    the padding pass the rest; every tile's box starts 16-byte aligned
+    along z and holds its p-deep halo within the TMA's 256-point
+    extents."""
     lay = _layout(cells, p, tile_x)
     Nx, Ny, Nz = lay.shape
-    Lx, Ly, Lz = lay.padded_shape
-    for itemsize in (4, 8):
-        grid, ty, tz, cx, smem = tiled_geometry(lay, itemsize)
+    for itemsize in (2, 4, 8):
+        geos = [_stage_geometry(lay, j, itemsize) for j in range(4)]
+        grid, ty, tz, cx, _ = geos[0]
+        assert all(g[:4] == (grid, ty, tz, cx) for g in geos)
+        W, BY, oz, box = window = tiling.tma_window(lay.h, p, ty, tz, itemsize)
         assert ty * tz <= tiling.TILE_THREADS and tz <= tiling.TILE_Z
-        assert cx <= tiling.CHUNK_X[1] and smem <= SMEM_LIMIT
-        window = (ty + 2 * p) * (tz + 2 * p)
-        assert smem == tiling.PIPE * 3 * window * itemsize + 4 * window
-    ranges = [
-        _axis_ranges(lay.x0, Nx, cx, grid[2]),
-        _axis_ranges(lay.h, Ny, ty, grid[1]),
-        _axis_ranges(lay.h, Nz, tz, grid[0]),
-    ]
-    for (start, n, L), rs in zip(((lay.x0, Nx, Lx), (lay.h, Ny, Ly), (lay.h, Nz, Lz)),
-                                 ranges):
-        hits = np.zeros(L, dtype=int)
-        for lo, hi in rs:
-            assert lo < hi  # no empty tile
-            hits[lo:hi] += 1
-        assert (hits[start:start + n] == 1).all() and hits.sum() == n
-        # the x taps and the y/z halo of every tile stay inside the state
-        assert rs[0][0] - p >= 0 and rs[-1][1] + p <= L
-    if np.prod(lay.padded_shape) <= 2_000_000:  # the whole box, point by point
-        count = np.zeros(lay.padded_shape, dtype=int)
-        for x in ranges[0]:
-            for y in ranges[1]:
-                for z in ranges[2]:
-                    count[x[0]:x[1], y[0]:y[1], z[0]:z[1]] += 1
-        inside = np.zeros_like(count)
-        inside[lay.interior] = 1
-        np.testing.assert_array_equal(count, inside)
+        assert tz % (16 // itemsize) == 0 and cx <= tiling.CHUNK_X_TMA[1]
+        assert W <= tiling.BOX_MAX and BY == ty + 2 * p <= tiling.BOX_MAX
+        assert oz + tz + 2 * p <= W
+        for bz in range(grid[0]):
+            assert ((lay.h + bz * tz - p - oz) * itemsize) % 16 == 0
+        for j, (*_, smem) in enumerate(geos):
+            nf = STAGE_FIELDS[j]
+            assert smem == tiling.tma_smem_bytes(window, itemsize, nf, STAGE_EXTRA[j],
+                                                 stage_ring(nf)) <= SMEM_LIMIT
+        layers = _stage_layers(grid, Nx, cx)
+        assert grid[:2] == (-(-Nz // tz), -(-Ny // ty))
+        assert layers == -(-2 * tiling.H100_SMS // (grid[0] * grid[1])) >= 1
+        assert layers * grid[0] * grid[1] >= 2 * tiling.H100_SMS
+    _covers_once(lay, (grid[0], grid[1], grid[2] - layers + tiling.PADDING_LAYERS), ty, tz,
+                 cx, p)
 
 
 def test_headline_grid_fills_the_card():
+    """At P1 kernel A's 75 tiles of 9 x 28 take 7 x-chunks of 37 rows: 525
+    tile blocks, one wave of the H100's 4 x 132 block slots, nearly full,
+    so the padding blocks go last, four layers of them (two an SM); in bf16
+    (tiles of 8 x 32, 85 a layer) 7 chunks and four layers too."""
     lay = _layout((64, 32, 32), 4, 48)
     assert lay.padded_shape == (384, 144, 144)
-    grid, ty, tz, cx, _ = tiled_geometry(lay)
-    blocks = grid[0] * grid[1] * grid[2]
-    assert blocks >= MIN_BLOCKS_P1
-    # one wave of the 4 x 132 block slots, nearly full: 75 tiles x 7 chunks
-    assert 0.95 * tiling.BLOCKS_PER_SM * 132 <= blocks <= tiling.BLOCKS_PER_SM * 132
+    x = torch.zeros(1)
+    grid, ty, tz, cx, _ = _stage_geometry(lay, 3)
+    slots = stage_blocks_per_sm(4, 4) * 132
+    layers = _stage_layers(grid, 257, cx)
+    tiles = grid[0] * grid[1] * (grid[2] - layers)
+    assert (ty, tz, cx, layers) == (9, 28, 37, 4) and tiles == 525 >= MIN_BLOCKS_P1
+    assert 0.95 * slots <= tiles <= slots
+    assert not any(stage_geometry(x, lay, j)[5] for j in range(4))
     # a ragged last tile wastes under a tenth of the threads along y and z
     assert ty * grid[1] <= 1.1 * 129 and tz * grid[0] <= 1.1 * 129
+    grid, ty, tz, cx, _ = _stage_geometry(lay, 3, 2)
+    assert (ty, tz, grid[2] - -(-257 // cx)) == (8, 32, 4)
     # a card with fewer SMs gets fewer blocks per wave, not a ragged wave
-    grid, *_ = tiled_geometry(lay, sms=114)
-    assert grid[0] * grid[1] * grid[2] <= tiling.BLOCKS_PER_SM * 114
+    grid, _, _, cx, _ = _stage_geometry(lay, 3, sms=114)
+    tiles = grid[0] * grid[1] * (grid[2] - _stage_layers(grid, 257, cx))
+    assert tiles <= stage_blocks_per_sm(4, 4) * 114
 
 
 def test_ragged_card_test_grid_is_ragged():
     """The card tests' ragged grid ((9,4,8) cells at p=4) is no multiple of
-    the tiling's CX, TY or TZ, so the last chunk and tiles are partial."""
+    kernel A's CX, TY or TZ in f64, so the last chunk and tiles are
+    partial."""
     lay = _layout((9, 4, 8), 4, None)
-    _, ty, tz, cx, _ = tiled_geometry(lay, 8)
+    _, ty, tz, cx, _ = _stage_geometry(lay, 3, 8)
     Nx, Ny, Nz = lay.shape
     assert Nx % cx and Ny % ty and Nz % tz
 
 
 def test_geometry_limits_are_arguments_and_results_are_cached():
-    """Other limits give another tiling without touching the default one,
-    and a repeated call returns the cached result (every stage launch asks
-    for it)."""
+    """A stage's fields, stage-input planes and ring depth, the card's SMs
+    and the box's ring are arguments: another stage, card or box gives
+    another geometry without touching the first, and a repeated call
+    returns the cached result (every stage launch asks for it)."""
+    geo = rk4step_mod._stage_geometry
     lay = _layout((64, 32, 32), 4, 48)
-    default = tiled_geometry(lay)
-    assert tiled_geometry(PaddedLayout(lay.shape, 4, tile_x=48, z_align=16)) is default
-    other = tiled_geometry(lay, tile_z=16, tile_threads=128, chunk_x=(16, 16))
-    _, ty, tz, cx, _ = other
-    assert other != default and tz <= 16 and ty * tz <= 128 and cx == 16
-    assert tiled_geometry(lay) is default
+    default = geo(lay, 3, 4, 132, 0)
+    same = PaddedLayout(lay.shape, 4, tile_x=48, z_align=16)
+    assert geo(same, 3, 4, 132, 0) is default
+    assert geo(lay, 2, 4, 132, 0) == default  # stages 2 and 3: three fields
+    first, one = geo(lay, 0, 4, 132, 0), geo(lay, 1, 4, 132, 0)
+    assert first[:4] == one[:4] == default[:4]
+    assert first[4] < one[4] < default[4]
+    assert geo(lay, 3, 4, 114, 0) != default
+    halo = PaddedLayout(lay.shape, 4, tile_x=48, z_align=16, halo=12)
+    assert geo(halo, 0, 4, 132, 4) != geo(halo, 0, 4, 132, 0)
+    assert geo(lay, 3, 4, 132, 0) is default
+    assert stage_geometry(torch.zeros(1), lay, 3) is default
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+def test_stage_shared_memory_within_the_sm(p):
+    """Kernel A's (C's) shared memory at every p, on the headline layout
+    and the card tests' small ones: 1, 2 and 3 TMA fields a plane (stages
+    0, 1 and 2-3) in their rings and the two stage-input planes, in bf16,
+    f32 and f64, within a block's 227 KB, and the blocks an SM the launch
+    bounds ask for (four at p <= 4 in f32 and bf16) within the SM's 228
+    KB."""
+    for cells, tile_x in CASES:
+        lay = _layout(cells, p, tile_x)
+        for itemsize in (2, 4, 8):
+            for j in range(4):
+                *_, smem = _stage_geometry(lay, j, itemsize)
+                assert smem <= SMEM_LIMIT
+                blocks = stage_blocks_per_sm(itemsize, p)
+                assert blocks * (smem + SM_RESERVED) <= SM_SMEM
 
 
 def _c_source(name):
@@ -139,11 +193,64 @@ def _py_source(name):
     return (Path(_cuda.CSRC).parent / name).read_text()
 
 
+def _zero_padding_count(lay, blocks, nt, itemsize):
+    """How often csrc/rk4_tiled.cu::zero_padding writes each point of the
+    padded state when ``blocks`` blocks of ``nt`` threads run it: the
+    16-byte units of the x planes outside the box, grid-stride over every
+    thread; the box's planes' (x, y) rows, a contiguous run to each group
+    of min(32, nt) threads, a row outside the box's rows whole, the
+    others' z points outside the box."""
+    V = 16 // itemsize
+    Lx, Ly, Lz = lay.padded_shape
+    x0, nx, h, ny, nz = lay.box(0)
+    count = np.zeros(Lx * Ly * Lz, dtype=int)
+    lo, hi, end = x0 * Ly * Lz // V, (x0 + nx) * Ly * Lz // V, Lx * Ly * Lz // V
+    n = lo + (end - hi)
+    for t in range(blocks * nt):
+        for i in range(t, n, blocks * nt):
+            k = i if i < lo else i - lo + hi
+            count[k * V:(k + 1) * V] += 1
+    gs = min(32, nt)
+    groups = nt // gs
+    rows, ng = nx * Ly, blocks * groups
+    for k in range(ng):
+        r, r1 = rows * k // ng, rows * (k + 1) // ng
+        g, y = x0 + r // Ly, r % Ly
+        for _ in range(r, r1):
+            base = (g * Ly + y) * Lz
+            if y < h or y >= h + ny:
+                count[base:base + Lz] += 1
+            else:
+                count[base:base + h] += 1
+                count[base + h + nz:base + Lz] += 1
+            y += 1
+            if y == Ly:
+                y, g = 0, g + 1
+    return count.reshape(lay.padded_shape)
+
+
+@pytest.mark.parametrize("cells", [(4, 2, 2), (5, 3, 3)])
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+def test_stage_padding_pass_writes_the_padding_once(p, cells):
+    """Kernel A's (C's) padding blocks, as many as its grid's padding layers
+    hold, write every point outside the interior exactly once and no point
+    inside it, in bf16, f32 and f64."""
+    lay = _layout(cells, p, None)
+    outside = np.ones(lay.padded_shape, dtype=int)
+    outside[lay.interior] = 0
+    for itemsize in (2, 4, 8):
+        grid, ty, tz, cx, _ = _stage_geometry(lay, 3, itemsize)
+        blocks = grid[0] * grid[1] * _stage_layers(grid, lay.shape[0], cx)
+        np.testing.assert_array_equal(_zero_padding_count(lay, blocks, ty * tz, itemsize),
+                                      outside)
+
+
 def test_python_tiling_policy_matches_the_c_kernel():
-    """The constants tiled_geometry and tma_geometry size the launches with
-    are the kernels' own: the block's thread limit, the cp.async ring, the
-    fields a plane holds at most, the TMA ring and box limit, and the
-    blocks an SM must hold (the launch bounds of kernels A/C, D and E)."""
+    """The constants grid_geometry and tma_geometry size the launches with
+    are the kernels' own: the block's thread limit, kernel F's cp.async
+    ring, the TMA ring and box limit, kernel A's (C's) fields, stage-input
+    planes and ring depth a stage, and the blocks an SM must hold (the
+    launch bounds of kernels A/C, D, E and the other TMA kernels)."""
     hdr = _c_source("stencil_tiled.cuh")
     src = _c_source("rk4_tiled.cu")
     c_int = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", hdr).group(1))  # noqa: E731
@@ -154,16 +261,28 @@ def test_python_tiling_policy_matches_the_c_kernel():
     layers = re.search(r"return grid.z >= (\d+) && tiling_fits\(t, dim3\(grid.x, grid.y, "
                        r"grid.z - (\d+)\)", hdr)
     assert int(layers.group(1)) - 1 == int(layers.group(2)) == tiling.PADDING_LAYERS
+    # kernels A and C: a stage's TMA fields, stage-input planes and ring
     fields = re.search(r"return J == 0 \? (\d+) : J == 1 \? (\d+) : (\d+);", src)
-    assert max(int(n) for n in fields.groups()) == tiling.PLANE_FIELDS
-    rule = re.search(r"min_blocks\(\) \{\s*return sizeof\(T\) <= (\d+) && P <= (\d+) "
-                     r"\? (\d+) : (\d+);", src)
-    size, pmax, many, one = (int(n) for n in rule.groups())
+    f0, f1, f2 = (int(n) for n in fields.groups())
+    assert STAGE_FIELDS == (f0, f1, f2, f2)
+    extra = re.search(r"stage_extra\(\) \{\s*return J == 0 \? (\d+) : (\d+);", src)
+    e0, e1 = (int(n) for n in extra.groups())
+    assert STAGE_EXTRA == (e0, e1, e1, e1)
+    ring = re.search(r"stage_ring\(\) \{\s*return NF == 1 \? kRing : NF == 2 \? (\d+) : (\d+);",
+                     src)
+    assert (stage_ring(1), stage_ring(2), stage_ring(3)) == (
+        tiling.RING, *(int(n) for n in ring.groups()))
+    rule = re.search(r"stage_min_blocks\(\) \{\s*return sizeof\(T\) <= (\d+) && P <= (\d+) "
+                     r"\? (\d+) : tma_min_blocks<T>\(\);", src)
+    size, pmax, many = (int(n) for n in rule.groups())
     for itemsize in (2, 4, 8):
         for p in range(1, 9):
-            want = many if itemsize <= size and p <= pmax else one
-            assert tiling.blocks_per_sm(itemsize, p) == want
-    # kernels D and E: launch bounds of tma_min_blocks<T>
+            want = many if itemsize <= size and p <= pmax else tiling.tma_blocks_per_sm(itemsize)
+            assert stage_blocks_per_sm(itemsize, p) == want
+    assert "__launch_bounds__(kTileThreads, (stage_min_blocks<T, P>()))" in src
+    assert "PlaneRing<T, R> ring(smem_raw, w, NF, stage_extra<J>())" in src
+    assert "tma_smem_bytes<T>(w, NF, stage_extra<J>(), stage_ring<NF>())" in src
+    # the other TMA kernels: launch bounds of tma_min_blocks<T>
     rule = re.search(r"tma_min_blocks\(\) \{\s*return sizeof\(T\) <= (\d+) \? (\d+) : (\d+);",
                      hdr)
     size, many, one = (int(n) for n in rule.groups())
@@ -368,8 +487,12 @@ def test_launch_args_match_the_c_signature(name):
     assert len(args) + 1 == len(sig) and sig[-1] is ctypes.c_void_p  # + stream
     for a, t in zip(args, sig):
         assert type(a) is kinds[t] or isinstance(a, kinds[t])
-    grid, ty, tz, cx, smem = tiled_geometry(lay)
-    assert args[-7:] == (ty, tz, cx, *grid, smem)
+    grid, ty, tz, cx, smem = _stage_geometry(lay, 3)
+    first = int(stage_geometry(_tensor(), lay, 3)[5])
+    assert args[-8:] == (ty, tz, cx, *grid, smem, first)
+    flipped = stage_launch_args(3, *(_tensor() for _ in range(10)), 5, -1, 1e-9, 0.5,
+                                1500.0, lay, st, padding_first=not first)
+    assert flipped[:-1] == args[:-1] and flipped[-1] == 1 - first
     src = (Path(_cuda.CSRC) / "rk4_tiled.cu").read_text()
     proto = re.search(r'extern "C" int NAME##_##SUFFIX\((.*?)\)\s*\{', src, re.S)
     params = [q for q in proto.group(1).replace("\\", " ").split(",") if q.strip()]

@@ -63,14 +63,14 @@ Run from the repository root on a machine with a CUDA card:
     python -m wave_fenics_tpu_torch.apps.profile_step --ablate --flat       # B, P1 layout
 
 With ``--sweep-tiling`` it times each stage launch of kernel A (or C)
-at every tiling of ``TILINGS`` (the tile and x-chunk limits of
-``ops/tiling.py::tiled_geometry``), the default first; with ``--ablate``
+with its padding blocks where ``ops/rk4step.py::stage_geometry`` puts
+them and on the grid's other end; with ``--ablate``
 it times the kernel of the path's RK4 (each stage of A or C, or one launch
 of D or E), or with ``--integrator leapfrog`` each phase of I (or H), as
 built and with the stencil replaced by the point value (a patched copy of
-``csrc/``, built under ``_build/``; D, E, H and I also without each of the
-parts ``ABLATIONS`` takes out; H and I also with their padding layer on
-the grid's other end), beside one field copy; with ``--two-step
+``csrc/``, built under ``_build/``; A, C, D, E, H and I also without each
+of the parts ``ABLATIONS`` takes out; H and I also with their padding
+layer on the grid's other end), beside one field copy; with ``--two-step
 --ablate`` kernel J's step-boundary launch, with ``--bp1 --ablate`` kernel
 G's apply on the BP1 layout of ``--cells`` (its z and y contractions
 replaced by the window's point value), with ``--stiffness --ablate`` kernel
@@ -104,7 +104,7 @@ from ..benchmarks import general_solve
 from ..benchmarks.common import DTYPES
 from ..convert import tables_from_numpy
 from ..core.mesh import box_mesh
-from ..ops import _cuda, general, lfstep, rk4step, rk42step, tiling, wave
+from ..ops import _cuda, general, lfstep, rk4step, rk42step, wave
 from ..ops.general import general_apply_cuda
 from ..ops.mass import bp1_setup, mass_apply, mass_launch_args
 from ..ops.operators import StructuredOperators
@@ -270,11 +270,6 @@ def profile(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
     }
 
 
-#: (tile_z, tile_threads, chunk_x) limits of ops/rk4step.py::tiled_geometry
-#: that --sweep-tiling times, the default first
-TILINGS = [(32, 256, (16, 64)), (32, 256, (16, 16)), (32, 256, (32, 32)),
-           (32, 256, (64, 64)), (32, 128, (16, 64)), (16, 256, (16, 64)),
-           (16, 128, (16, 64))]
 #: the ablations of --ablate: patched copies of the sources, each a set of
 #: (file: the lines it replaces exactly once, the replacement). "point
 #: value" replaces the lines that apply the stencil of kernels A and C
@@ -284,12 +279,18 @@ TILINGS = [(32, 256, (16, 64)), (32, 256, (16, 16)), (32, 256, (32, 32)),
 #: kernel G's z and y contractions (mass_tiled.cu) by the window's point
 #: value (no z-contracted plane; the x contraction stays), and kernel F's
 #: y and z taps (stiffness_tiled.cu) by the window's point value (the x
-#: taps and the line products stay); the others take one part out of B,
-#: D, E, G, H/I or J's boundary: its padding pass (the padding blocks
-#: return at once), D's or J's point-wise loads (v0, kv, ua, va; v0, kv0,
-#: kv1, kv2: a value from the index instead), or the stage inputs D and J
+#: taps and the line products stay); the others take one part out of A/C,
+#: B, D, E, G, H/I or J's boundary: its padding pass (the padding blocks
+#: return at once), A's stage-3, D's or J's point-wise loads (u0, v0, kv0,
+#: kv1, kv2; v0, kv, ua, va; v0, kv0, kv1, kv2: a value from the index
+#: instead), or the stage inputs D and J
 #: form (u0's window read in their place); "padding layer last" moves
 #: B's padding layer to the grid's last layer.
+_A_POINT_LOADS = """        pn[0] = widen(a.u0[nidx]);
+        pn[1] = widen(a.v0[nidx]);
+        pn[2] = widen(a.kv0[nidx]);
+        pn[3] = widen(a.kv1[nidx]);
+        pn[4] = widen(a.kv2[nidx]);"""
 _D_POINT_LOADS = """      pn[0] = widen(a.v0[nidx]);
       pn[1] = widen(a.kv[nidx]);
       pn[2] = widen(a.ua[nidx]);
@@ -352,6 +353,8 @@ ABLATIONS = {
                                "        tz[r] = v[P + r] * (lx * ly[r]);"),
     },
     "no padding pass": {
+        "rk4_tiled.cu": ("    zero_padding<T>(s, t, (int)pb, (int)npb,",
+                         "    if (false) zero_padding<T>(s, t, (int)pb, (int)npb,"),
         "rk_stage_tiled.cu": ("    for_each_padding<8>(s, t, pb, npb,",
                               "    if (false) for_each_padding<8>(s, t, pb, npb,"),
         "slab_tiled.cu": ("    for_each_padding<1>(s, t, pb, npb,",
@@ -380,6 +383,8 @@ ABLATIONS = {
                           "constexpr bool kPaddingFirst = false;"),
     },
     "no point-wise loads": {
+        "rk4_tiled.cu": (_A_POINT_LOADS,
+                         "        pn[0] = pn[1] = pn[2] = pn[3] = pn[4] = A(nidx & 1);"),
         "rk_stage_tiled.cu": (_D_POINT_LOADS,
                               "      pn[0] = pn[1] = pn[2] = pn[3] = A(nidx & 1);"),
         "rk42_tiled.cu": (_J_POINT_LOADS,
@@ -457,40 +462,42 @@ class _StageTimer:
         self.bufs = [torch.zeros_like(self.u) for _ in range(5)]
         self.name = "wave_rk4_stage" if lean else "wave_rk4_full_stage"
 
-    def stage_us(self, kl, geometry=None, reps=200) -> list[float]:
-        """Each stage's µs with library ``kl`` on ``geometry`` (a result of
-        ``tiled_geometry``; its default when None)."""
+    def launch_args(self, j, flip=False) -> tuple:
+        """Stage ``j``'s launch arguments; ``flip``: its padding blocks on the
+        grid's other end from where ``rk4step.stage_geometry`` puts them."""
         pm, case, b = self.pm, self.case, self.bufs
-        out = []
-        for j in range(4):
-            g = pm.base.g_amplitude((0.0, 0.5, 0.5, 1.0)[j] * case.dt)
-            args = rk4step.stage_launch_args(
-                j, self.u, self.v, *b[2:], b[2 + j] if j < 3 else b[4], *b[:2],
-                pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x, case.dt, g, pm.base.c0,
-                pm.layout, pm.stencil, geometry=geometry)
-            out.append(1e6 * timeit(_cuda.launcher(kl, self.name, self.u.dtype,
-                                                   pm.base.device, *args), reps=reps))
-        return out
+        g = pm.base.g_amplitude((0.0, 0.5, 0.5, 1.0)[j] * case.dt)
+        args = rk4step.stage_launch_args(
+            j, self.u, self.v, *b[2:], b[2 + j] if j < 3 else b[4], *b[:2],
+            pm.face_w1, pm.face_w2, pm.src_x, pm.abc_x, case.dt, g, pm.base.c0,
+            pm.layout, pm.stencil)
+        return (*args[:-1], 1 - args[-1]) if flip else args  # the last: padding_first
+
+    def stage_us(self, kl, flip=False, reps=200) -> list[float]:
+        """Each stage's µs with library ``kl`` (``flip``: as launch_args)."""
+        return [1e6 * timeit(_cuda.launcher(kl, self.name, self.u.dtype,
+                                            self.pm.base.device,
+                                            *self.launch_args(j, flip)), reps=reps)
+                for j in range(4)]
 
 
 def sweep_tiling(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
                  lean=True) -> dict:
-    """Each stage's device time at every tiling of TILINGS."""
+    """Each stage's device time with its padding blocks where
+    ``rk4step.stage_geometry`` puts them, then on the grid's other end."""
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA card")
     st = _StageTimer(*planar3d_app.build(cells, degree, dtype, tile_x, "cuda", lean),
                      lean)
-    sms = tiling.sm_count(st.u.device.index)
     rows = []
-    for tile_z, tile_threads, chunk_x in TILINGS:
-        geometry = tiling.tiled_geometry(
-            st.pm.layout, st.u.element_size(), sms, tile_z=tile_z,
-            tile_threads=tile_threads, chunk_x=chunk_x)
-        us = st.stage_us(_cuda.library(), geometry)
-        grid, ty, tz, cx, smem = geometry
-        rows.append({"tiling": [tile_z, tile_threads, list(chunk_x)],
-                     "grid": list(grid), "tile": [ty, tz], "chunk": cx,
-                     "smem": smem, "stage_us": us, "ms_per_step": sum(us) / 1e3})
+    for flip in (False, True):
+        us = st.stage_us(_cuda.library(), flip)
+        geometry = [st.launch_args(j, flip)[-8:] for j in range(4)]
+        rows.append({"padding_first": [bool(g[-1]) for g in geometry],
+                     "grid": [list(g[3:6]) for g in geometry],
+                     "tile": list(geometry[0][:2]), "chunk": geometry[0][2],
+                     "smem": [g[6] for g in geometry], "stage_us": us,
+                     "ms_per_step": sum(us) / 1e3})
     return {"card": card_line(), "cells": list(cells), "degree": degree,
             "dtype": dtype, "lean": lean,
             "padded_shape": list(st.pm.layout.padded_shape), "sweep": rows}
@@ -699,10 +706,12 @@ def ablate(cells=(64, 32, 32), degree=4, dtype="f32", tile_x=None,
         return {**head, **_ablate_tma(pm, case)}
     st = _StageTimer(case, pm, lean)
     full = st.stage_us(_cuda.library())
-    point = st.stage_us(patched_library("point value"))
+    ablated = {a: st.stage_us(patched_library(a)) for a in _ablations_of("rk4_tiled.cu")}
+    point = ablated["point value"]
     nbytes, copy_s = _copy_rate(st.u)
     return {**head, "kernel": "C" if not lean else "A",
             "stage_us": full, "point_only_stage_us": point,
+            "ablated_stage_us": ablated,
             "ms_per_step": sum(full) / 1e3,
             "point_only_ms_per_step": sum(point) / 1e3,
             "field_bytes": nbytes, "copy_us": copy_s * 1e6,
@@ -901,7 +910,7 @@ def main(argv=None):
                     help="with --ablate, kernel B on the planar3d layout of --cells")
     ap.add_argument("--sweep-tiling", action="store_true",
                     help="time each stage of kernel A (C with --full-tableau) "
-                         "at every tiling of TILINGS")
+                         "with its padding layer first and last")
     ap.add_argument("--ablate", action="store_true",
                     help="time the path's kernel (each stage of A, or C "
                          "with --full-tableau; D or E where the path takes "
@@ -944,7 +953,9 @@ def main(argv=None):
                   f"{', '.join(f'{t:.2f}' for t in out['stage_us'])} us "
                   f"({out['ms_per_step']:.4f} ms/step); stencil replaced by the point "
                   f"value: {', '.join(f'{t:.2f}' for t in out['point_only_stage_us'])} "
-                  f"us ({out['point_only_ms_per_step']:.4f} ms/step)", end="")
+                  f"us ({out['point_only_ms_per_step']:.4f} ms/step); " + "; ".join(
+                      f"{a}: {sum(us) / 1e3:.4f} ms/step"
+                      for a, us in out["ablated_stage_us"].items()), end="")
         else:
             print(f"kernel {out['kernel']} (tiling {out['geometry']}): "
                   f"{out['us_per_launch']:.2f} us/launch; "
@@ -959,9 +970,10 @@ def main(argv=None):
                            lean=not args.full_tableau)
         print(out["card"])
         for r in out["sweep"]:
-            print(f"tiling {r['tiling']}: tile {r['tile']}, chunk {r['chunk']}, grid "
-                  f"{r['grid']}: stages {', '.join(f'{t:.2f}' for t in r['stage_us'])} "
-                  f"us, {r['ms_per_step']:.4f} ms/step")
+            print(f"padding first {r['padding_first']}: tile {r['tile']}, chunk "
+                  f"{r['chunk']}, grids {r['grid']}: stages "
+                  f"{', '.join(f'{t:.2f}' for t in r['stage_us'])} us, "
+                  f"{r['ms_per_step']:.4f} ms/step")
         print(json.dumps(out))
         return
     if args.general:

@@ -3,20 +3,18 @@
 //
 // A block owns a ty x tz tile of interior (y, z) columns, one thread per
 // column, and walks one x-chunk of cx interior rows plus p warm-up rows on
-// each side. Each x plane of the tile and its p-deep y/z halo is copied
-// into shared memory once (cp.async, zeros outside the interior without a
-// load); the y and z taps are read from there, the x taps from a register
-// queue of the column's last 2p + 1 plane values, and the column's y/z
-// tables stay in registers for the whole chunk. The sums of the flat
-// layout's kernels keep one order (that of ops/wave.py::
+// each side. Each x plane of the tile and its p-deep y/z halo arrives in
+// shared memory once; the y and z taps are read from there, the x taps
+// from a register queue of the column's last 2p + 1 plane values, and the
+// column's y/z tables stay in registers for the whole chunk. The sums of
+// the flat layout's kernels keep one order (that of ops/wave.py::
 // apply_stencil_plain): the x taps in k order (x_taps); the merged shift-0
 // y/z tap, the y taps, the z taps (ColumnTables::yz); then tx * fx + yz *
 // sx.
 //
 // The tiling (ty, tz, cx and the grid: z tiles, y tiles, x-chunks) comes
-// from the caller (ops/rk4step.py::tiled_geometry). Each block also writes
-// zeros to its share of the outputs' padding rows, while its first planes
-// are in flight.
+// from the caller (ops/tiling.py). The outputs' padding is written by
+// layers of padding blocks beside the tile blocks (padding_block).
 //
 // The geometry helpers take the table-free PaddedBox, which every
 // layout's stencil provides: kernels A and C (rk4_tiled.cu), B
@@ -24,11 +22,10 @@
 // step boundary (rk42_tiled.cu) on the flat layout, kernel E
 // (slab_tiled.cu) on the 3D slab, kernel G (mass_tiled.cu, the BP1 mass)
 // on its padded layout, and kernel F (stiffness_tiled.cu) on the unpadded
-// dof grid, a box with no padding. A, C and F copy their planes element by
-// element with cp.async (A and C with fetch_plane, F into a window of its
-// own); the others take each plane window of a field with one TMA request
-// into a ring of planes (PlaneRing, the end of this file), so no thread
-// spends instructions on the copy.
+// dof grid, a box with no padding. F copies its planes element by element
+// with cp.async into a window of its own; the others take each plane
+// window of a field with one TMA request into a ring of planes (PlaneRing,
+// the end of this file), so no thread spends instructions on the copy.
 #pragma once
 
 #include <cuda.h>
@@ -82,15 +79,16 @@ __device__ __forceinline__ T zero() {
   return narrow<T>(Acc<T>(0));
 }
 
-// Elements a thread copies into a plane window at a time: cp.async moves
-// 4, 8 or 16 bytes, so a bf16 window is copied in pairs (copy_pair).
+// Elements a thread of kernel F copies into a plane window at a time:
+// cp.async moves 4, 8 or 16 bytes, so a bf16 window is copied in pairs
+// (copy_pair).
 template <typename T>
 __host__ __device__ constexpr int copy_width() {
   return sizeof(T) == 2 ? 2 : 1;
 }
 
 constexpr int kTileThreads = 256;  // at most ty * tz threads per block
-constexpr int kPipe = 4;           // x planes in the cp.async ring
+constexpr int kPipe = 4;           // x planes in kernel F's cp.async ring
 
 struct Tiling {
   int ty, tz, cx;  // interior points of a tile along y and z; x-chunk rows
@@ -158,73 +156,6 @@ struct TileCoords {
     active = y < s.h + s.ny && z < s.h + s.nz;
   }
 };
-
-// The tile's (ty + 2P) x (tz + 2P) plane window (pitch W = tz + 2P) and a
-// thread's share of it, the elements e = V threadIdx.x + v + k V nt (V =
-// copy_width<T>(): bf16 windows are copied in pairs, which needs tz even
-// and h - P even, so a pair (e, e + 1) with e even lies in one row and
-// starts 4-byte aligned in shared and in global memory). off[e] (in
-// shared memory) is the element's (y, z) offset in a plane, y * Lz + z, or
-// -1 outside the load box: the box s grown by `load` points on every side
-// (0 on one device: the interior; the value-halo layouts load the p-deep
-// ring of halo values around a box grown into the halo). Each thread
-// writes and reads only its own entries, so the table needs no barrier.
-template <int P, int V = 1>
-struct Window {
-  int W, n, nt, load;  // pitch, window points, threads, load ring
-  int* off;
-
-  __device__ Window(const PaddedBox& s, const TileCoords& c, const Tiling& t,
-                    int* table, int load_ = 0)
-      : W(t.tz + 2 * P), n((t.ty + 2 * P) * (t.tz + 2 * P)), nt(t.ty * t.tz),
-        load(load_), off(table) {
-    for (int e0 = V * (int)threadIdx.x; e0 < n; e0 += V * nt) {
-      for (int e = e0; e < e0 + V; ++e) {
-        const int r = e / W;
-        const int yy = c.y0 - P + r;
-        const int zz = c.z0 - P + (e - r * W);
-        off[e] = yy >= s.h - load && yy < s.h + s.ny + load &&
-                         zz >= s.h - load && zz < s.h + s.nz + load
-                     ? yy * s.Lz + zz
-                     : -1;
-      }
-    }
-  }
-};
-
-// Start the copies of plane g of the fields f0..f(NF-1) over the window
-// into dst (field-major); points outside the load box become 0 without a
-// load. Each thread copies its own elements of the window (in pairs for
-// bf16, copy_pair).
-template <typename T, int P, int NF>
-__device__ __forceinline__ void fetch_plane(T* dst, const T* f0, const T* f1,
-                                            const T* f2, const PaddedBox& s,
-                                            const Window<P, copy_width<T>()>& w,
-                                            int g) {
-  const bool gx = g >= s.x0 - w.load && g < s.x0 + s.nx + w.load;
-  const long long row = (long long)g * s.F();
-  if constexpr (copy_width<T>() == 1) {
-    for (int e = (int)threadIdx.x; e < w.n; e += w.nt) {
-      const int o = w.off[e];
-      const bool in = gx && o >= 0;
-      const long long j = in ? row + o : 0;
-      cp_async_or_zero(dst + e, f0 + j, in);
-      if constexpr (NF > 1) cp_async_or_zero(dst + w.n + e, f1 + j, in);
-      if constexpr (NF > 2) cp_async_or_zero(dst + 2 * w.n + e, f2 + j, in);
-    }
-  } else {
-    for (int e = 2 * (int)threadIdx.x; e < w.n; e += 2 * w.nt) {
-      const int o0 = w.off[e], o1 = w.off[e + 1];
-      const bool in0 = gx && o0 >= 0, in1 = gx && o1 >= 0;
-      // a pair wholly in is (o0, o0 + 1); else src0 is the inner point
-      const long long j0 = in0 ? row + o0 : in1 ? row + o1 : 0;
-      const long long j1 = in1 ? row + o1 : j0;
-      copy_pair(dst + e, f0 + j0, f0 + j1, in0, in1);
-      if constexpr (NF > 1) copy_pair(dst + w.n + e, f1 + j0, f1 + j1, in0, in1);
-      if constexpr (NF > 2) copy_pair(dst + 2 * w.n + e, f2 + j0, f2 + j1, in0, in1);
-    }
-  }
-}
 
 // The y/z tables of one column, held in registers (widened to Acc<T>) for
 // a whole chunk.
@@ -319,28 +250,6 @@ __device__ void for_each_padding(const PaddedBox& s, const Tiling& t,
   if (n > 0) fn(idx, n);
 }
 
-// Write 0 to this block's share of the padding points of o0 (and of o1
-// when it is not null); all the grid's blocks share them.
-template <typename T>
-__device__ void zero_padding(const PaddedBox& s, const Tiling& t, T* o0,
-                             T* o1) {
-  const long long block =
-      ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  for_each_padding<1>(s, t, block, (long long)gridDim.x * gridDim.y * gridDim.z,
-                      [o0, o1](const int (&i)[1], int) {
-                        o0[i[0]] = zero<T>();
-                        if (o1) o1[i[0]] = zero<T>();
-                      });
-}
-
-// Bytes of dynamic shared memory a tile block of NF fields needs: the ring
-// of kPipe planes, then the window's offset table.
-template <typename T, int P>
-inline int tiled_smem_bytes(const Tiling& t, int nf) {
-  const int n = (t.ty + 2 * P) * (t.tz + 2 * P);
-  return kPipe * nf * n * (int)sizeof(T) + n * (int)sizeof(int);
-}
-
 // The padded state's flat indices must fit an int (for_each_padding).
 inline bool box_fits_int(const PaddedBox& s) {
   return (long long)s.Lx * s.Ly * s.Lz < 2147483647LL;
@@ -356,7 +265,7 @@ inline bool tiling_fits(const Tiling& t, dim3 grid, int nx, int ny, int nz) {
 }
 
 // ---------------------------------------------------------------------------
-// The TMA plane ring of kernels D, E, G, H, I and J's boundary (sm_90).
+// The TMA plane ring of kernels A to E, G, H, I and J's boundary (sm_90).
 //
 // Thread 0 asks the Tensor Memory Accelerator for the whole window of plane
 // g, the box {W, ty + 2P, 1} of a 3D tensor map over the padded state

@@ -47,9 +47,9 @@ _SIGNATURES = {
     # tiling of ops/tiling.py::tma_geometry)
     "wave_apply_flat_tiled": [_P, _P] + _STENCIL + [_I] * 7 + [_P],
     # stage, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2, src_x, abc_x,
-    # dt, g, c0, <stencil>, load, ty, tz, cx, gx, gy, gz, smem, stream
-    # (lean: kernel A; full tableau: kernel C; the tiling of
-    # ops/tiling.py::tiled_geometry)
+    # dt, g, c0, <stencil>, ty, tz, cx, gx, gy, gz, smem, padding_first,
+    # stream (lean: kernel A; full tableau: kernel C; the tiling of
+    # ops/rk4step.py::stage_geometry and tma_padding_first)
     "wave_rk4_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_I] * 8 + [_P],
     "wave_rk4_full_stage": [_I] + [_P] * 10 + [_I, _I, _D, _D, _D] + _STENCIL + [_I] * 8 + [_P],
     # u0, v0, kv0, kv1, kv2, u1, v1, kv0_out, w1, w2, src_x, abc_x, dt, g,

@@ -12,7 +12,7 @@ covers the whole grid, and two steps take seven launches instead of kernel
 C's eight:
 
 1-3. stages 0..2 of step 1 (kernel C's stage kernel,
-     ``csrc/rk4_tiled.cu``): kv0, kv1, kv2;
+     ``csrc/rk4_tiled.cu``, with TMA plane loads): kv0, kv1, kv2;
 4.   the step boundary (``csrc/rk42_tiled.cu::rk42_boundary_tiled_kernel``,
      the 2.5D tiled stencil with TMA plane loads of u0, v0, kv0, kv1, kv2):
      kv3 of step 1, the full-tableau (u1, v1), and step 2's stage 0,
@@ -361,13 +361,13 @@ def rk42_step_cuda(
     check_stencil(layout, st, dev, dtype)
     _cuda.check_no_alias((u2, v2, *scratch), (u0, v0))
     face = (w1, w2, int(src_x), int(abc_x), float(dt))
-    rings, load = call_rings(layout)
+    rings, _ = call_rings(layout)
 
     def stage(j, u, v, k0, k_out, g, ring):
         # kernel C's stage j; stages 0..2 write k_out, stage 3 writes (u2, v2)
         _cuda.launch("wave_rk4_full_stage", dtype, dev, *stage_launch_args(
             j, u, v, k0, kv1, kv2, k_out, u2, v2, *face, g, c0, layout, st,
-            ring=ring, load=load))
+            ring=ring))
         rk42_step_cuda.launches += 1
 
     stage(0, u0, v0, kv0, kv0, gs[0], rings[0])

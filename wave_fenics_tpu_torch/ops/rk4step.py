@@ -22,7 +22,7 @@ Implementations:
 - :func:`rk4_step_lean_cuda` / :func:`rk4_step_full_cuda`: the hand-written
   CUDA kernels A and C (``csrc/rk4_tiled.cu::rk4_tiled_kernel`` with its
   ``lean`` argument set or clear), four launches per step, one per stage,
-  on the tiling of :func:`tiling.tiled_geometry`.
+  each with TMA plane loads on the tiling of :func:`stage_geometry`.
 
 On a value-halo layout (``PaddedLayout.value_halo``: the distributed
 step path's halo = 3p of neighbour values) the plain versions compute what
@@ -42,14 +42,14 @@ device: CPU -> plain, CUDA -> kernel (or raise).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..convert import as_table, stored, widen
-from . import _cuda
-from .tiling import H100_SMS, sm_count, tiled_geometry
+from . import _cuda, tiling
 from .wave import (
     PaddedLayout,
     StencilTables,
@@ -69,11 +69,21 @@ __all__ = [
     "rk4_step_lean_cuda",
     "rk4_step_full_cuda",
     "rk4_step_full",
+    "stage_blocks_per_sm",
+    "stage_geometry",
     "stage_launch_args",
+    "stage_ring",
     "stage_rings",
+    "STAGE_FIELDS",
+    "STAGE_EXTRA",
 ]
 
 _RK_A = (0.0, 0.5, 0.5, 1.0)
+#: each stage's TMA fields a plane (``csrc/rk4_tiled.cu::stage_fields``:
+#: u0; u0, v0; u0, v0, kv0; u0, v0, kv1) and its stage-input planes
+#: (``stage_extra``: two, none for stage 0)
+STAGE_FIELDS = (1, 2, 3, 3)
+STAGE_EXTRA = (0, 2, 2, 2)
 _RK_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
 
 
@@ -419,44 +429,88 @@ def rk4_step_full_plain(
     return ts.finish(u1, v1)
 
 
-def stage_rings(layout: PaddedLayout) -> tuple[tuple[int, int, int, int], int]:
-    """(the rings of the four stage launches, the load ring) of kernels A
-    and C on ``layout``. One device: all 0 (the interior, zero padding
-    around it). A value-halo layout: stages 0 and 1 write kv0 and kv1 to
-    depth p, since stage 2 forms un2 from kv0 and stage 3 un3 from kv1 at
-    their taps; stages 2 and 3 the interior; each reads the p-deep ring of
-    values around its box. A step's result then depends on (u0, v0) within
-    2p of a point, so the halo must be at least 2p deep."""
+def stage_rings(layout: PaddedLayout) -> tuple[int, int, int, int]:
+    """The rings of the four stage launches of kernels A and C on
+    ``layout``. One device: all 0 (the interior, zero padding around it).
+    A value-halo layout: stages 0 and 1 write kv0 and kv1 to depth p, since
+    stage 2 forms un2 from kv0 and stage 3 un3 from kv1 at their taps;
+    stages 2 and 3 the interior; each reads the p-deep ring of values
+    around its box, as it is in memory. A step's result then depends on
+    (u0, v0) within 2p of a point, so the halo must be at least 2p deep."""
     p = layout.p
     if not layout.value_halo:
-        return (0, 0, 0, 0), 0
+        return (0, 0, 0, 0)
     if layout.h < 2 * p:
         raise ValueError(f"a value halo of {layout.h} < 2p = {2 * p}: an RK4 step "
                          "reads (u0, v0) 2p deep")
-    return (p, p, 0, 0), p
+    return (p, p, 0, 0)
+
+
+def stage_ring(fields: int) -> int:
+    """Planes in a stage's TMA ring (``csrc/rk4_tiled.cu::stage_ring``):
+    tiling.RING for one field a plane, four for two, three for three."""
+    return tiling.RING if fields == 1 else 4 if fields == 2 else 3
+
+
+def stage_blocks_per_sm(itemsize: int, p: int) -> int:
+    """Tile blocks an SM holds for kernels A and C (the launch bounds of
+    ``csrc/rk4_tiled.cu::stage_min_blocks<T, P>``): four at p <= 4 in f32
+    and bf16, else ``tiling.tma_blocks_per_sm``."""
+    return 4 if itemsize <= 4 and p <= 4 else tiling.tma_blocks_per_sm(itemsize)
+
+
+def stage_geometry(x: torch.Tensor, layout: PaddedLayout, stage: int, ring: int = 0):
+    """(grid, TY, TZ, CX, smem_bytes, padding_first) of stage ``stage`` of
+    kernels A and C on ``layout``'s box grown by ``ring``, for ``x``'s type
+    on ``x``'s card (the H100's SM count for a tensor that is not on a
+    card): ``padding_first``, whether the padding blocks are the grid's
+    first layers."""
+    sms = tiling.sm_count(x.device.index) if x.is_cuda else tiling.H100_SMS
+    return _stage_geometry(layout, stage, x.element_size(), sms, ring)
+
+
+@functools.cache
+def _stage_geometry(layout, stage, itemsize, sms, ring):
+    """``tiling.tma_geometry`` with the stage's TMA fields, its stage-input
+    planes and its ring depth, its chunks filling the card's block slots at
+    :func:`stage_blocks_per_sm` blocks an SM (tma_geometry fills
+    ``tiling.tma_blocks_per_sm``, so it is given the SMs whose slots are as
+    many), and ``tiling.tma_padding_first`` of those slots; then as many
+    layers of padding blocks as put two on every SM. At the P1 size in f32
+    (75 tiles a layer) one layer took 0.3192 ms a step, two 0.3075, four
+    0.3013, eight 0.3009 (PERF.md section 6): the padding blocks' stores
+    go as fast as the SMs that issue them."""
+    nf = STAGE_FIELDS[stage]
+    slots = sms * stage_blocks_per_sm(itemsize, layout.p) // tiling.tma_blocks_per_sm(itemsize)
+    grid, ty, tz, cx, smem = tiling.tma_geometry(layout, itemsize, slots, nf,
+                                                 STAGE_EXTRA[stage], stage_ring(nf), ring)
+    first = tiling.tma_padding_first(grid, itemsize, slots)
+    layers = -(-2 * sms // (grid[0] * grid[1]))
+    grid = (grid[0], grid[1], grid[2] - tiling.PADDING_LAYERS + layers)
+    return grid, ty, tz, cx, smem, first
 
 
 def stage_launch_args(stage, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,
-                      src_x, abc_x, dt, g, c0, layout, st, geometry=None,
-                      ring: int = 0, load: int = 0) -> tuple:
+                      src_x, abc_x, dt, g, c0, layout, st, ring: int = 0,
+                      padding_first: bool | None = None) -> tuple:
     """The arguments of the C launchers ``wave_rk4_stage``/
     ``wave_rk4_full_stage`` (kernels A and C, and kernel J's stages) for
     stage ``stage``, up to the stream: the fields, the face rows and
-    scalars, the stencil on the interior grown by ``ring`` with the
-    ``load`` ring around it (:func:`stage_rings`), then the tiling:
-    ``geometry`` (a result of :func:`tiled_geometry`, as a tiling sweep
-    passes it) or else :func:`tiled_geometry` of the box at its default
-    limits on this card."""
-    if geometry is None:
-        sms = sm_count(u0.device.index) if u0.is_cuda else H100_SMS
-        geometry = tiled_geometry(layout, u0.element_size(), sms, ring=ring)
-    grid, ty, tz, cx, smem = geometry
-    if u0.dtype == torch.bfloat16 and (tz % 2 or (layout.box(ring)[2] - layout.p) % 2):
-        raise ValueError(f"bf16 planes are copied in pairs: TZ = {tz} and the box's "
-                         f"padding {layout.box(ring)[2]} - p = {layout.p} must be even")
+    scalars, the stencil on the interior grown by ``ring``
+    (:func:`stage_rings`), then :func:`stage_geometry`'s tiling of the box
+    on this card and whether the padding layers go first (``padding_first``
+    where a check forces it, else :func:`stage_geometry`'s). The kernel's
+    TMA windows read the p-deep ring around its box as it is in memory.
+    Raises a ValueError naming the condition a layout the kernel cannot
+    tile breaks."""
+    grid, ty, tz, cx, smem, first = stage_geometry(u0, layout, stage, ring)
+    tiling.check_tma_launch(layout, u0.element_size(), ty, tz, smem, ring)
+    if padding_first is None:
+        padding_first = first
     return (int(stage), u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2,
             int(src_x), int(abc_x), float(dt), float(g), float(c0),
-            *stencil_args(layout, st, ring), int(load), ty, tz, cx, *grid, smem)
+            *stencil_args(layout, st, ring), ty, tz, cx, *grid, smem,
+            int(padding_first))
 
 
 def _rk4_step_cuda(
@@ -483,12 +537,12 @@ def _rk4_step_cuda(
     )
     check_stencil(layout, st, dev, dtype)
     _cuda.check_no_alias((u1, v1, kv0, kv1, kv2), (u0, v0))
-    rings, load = stage_rings(layout)
+    rings = stage_rings(layout)
     for j in range(4):
         kv_out = scratch[j] if j < 3 else kv2  # stage 3 writes u1, v1
         _cuda.launch(launcher, dtype, dev, *stage_launch_args(
             j, u0, v0, kv0, kv1, kv2, kv_out, u1, v1, w1, w2, src_x, abc_x,
-            dt, gs[j], c0, layout, st, ring=rings[j], load=load))
+            dt, gs[j], c0, layout, st, ring=rings[j]))
         kernel.launches += 1
     return u1, v1
 

@@ -4,19 +4,19 @@ A tile block owns TY x TZ interior (y, z) columns, one thread each, and
 streams CX interior x rows plus p warm-up planes on each side; the grid is
 (z tiles, y tiles, x-chunks). Two families share the policy:
 
-- :func:`tiled_geometry`: kernels A and C and kernel J's stages
-  (``csrc/rk4_tiled.cu``), whose planes arrive by ``cp.async`` into a ring
-  of PIPE planes of up to PLANE_FIELDS fields, and :func:`grid_geometry`:
-  kernel F (``csrc/stiffness_tiled.cu``), one field a plane on the
-  unpadded dof grid;
-- :func:`tma_geometry`: kernels B (``csrc/flat_tiled.cu``), D
-  (``csrc/rk_stage_tiled.cu``), E (``csrc/slab_tiled.cu``), G
-  (``csrc/mass_tiled.cu``), H and I
+- :func:`grid_geometry`: kernel F (``csrc/stiffness_tiled.cu``), whose
+  planes arrive by ``cp.async`` into a ring of PIPE planes, one field a
+  plane on the unpadded dof grid;
+- :func:`tma_geometry`: kernels A and C and kernel J's stages
+  (``csrc/rk4_tiled.cu``, through ``ops/rk4step.py::stage_geometry``), B
+  (``csrc/flat_tiled.cu``), D (``csrc/rk_stage_tiled.cu``), E
+  (``csrc/slab_tiled.cu``), G (``csrc/mass_tiled.cu``), H and I
   (``csrc/lf_tiled.cu``) and J's step boundary (``csrc/rk42_tiled.cu``),
   whose plane windows arrive by TMA into a ring of RING planes (fewer for
-  J's boundary): TZ a multiple of one 16-byte unit, so every box's z start
-  is 16-byte aligned, and the box within BOX_MAX along each axis; one more
-  layer of blocks writes the outputs' padding.
+  J's boundary and A's stages of two and three fields): TZ a multiple of
+  one 16-byte unit, so every box's z start is 16-byte aligned, and the box
+  within BOX_MAX along each axis; one more layer of blocks (more for A)
+  writes the outputs' padding.
 
 Each result is computed once per set of arguments (every launch asks for
 it). The constants are the kernels' own; ``tests/test_torch_tiling.py``
@@ -34,32 +34,24 @@ if TYPE_CHECKING:
     from .wave import PaddedLayout
 
 __all__ = [
-    "TILE_THREADS", "TILE_Z", "CHUNK_X", "PIPE", "PLANE_FIELDS", "BLOCKS_PER_SM",
-    "H100_SMS", "RING", "BOX_MAX", "CHUNK_X_TMA", "PADDING_LAYERS", "blocks_per_sm",
-    "tma_blocks_per_sm", "grid_rows", "grid_pitch", "window_pitch",
-    "tiled_geometry", "grid_geometry",
-    "tma_window", "tma_smem_bytes",
+    "TILE_THREADS", "TILE_Z", "PIPE", "H100_SMS", "RING", "BOX_MAX", "CHUNK_X_TMA",
+    "PADDING_LAYERS", "tma_blocks_per_sm", "grid_rows", "grid_pitch", "window_pitch",
+    "grid_geometry", "tma_window", "tma_smem_bytes",
     "tma_geometry", "tma_padding_first", "check_tma_launch", "SMEM_LIMIT", "sm_count",
 ]
 
 #: the tiling limits: threads of a tile block at most (stencil_tiled.cuh
-#: kTileThreads), tile width along z (the fast lanes) at most, the least and
-#: the most x-chunk rows of kernels A and C
+#: kTileThreads), tile width along z (the fast lanes) at most
 TILE_THREADS = 256
 TILE_Z = 32
-CHUNK_X = (16, 64)
-#: x planes in kernel A's cp.async ring (stencil_tiled.cuh kPipe) and state
-#: fields a plane holds at most (rk4_tiled.cu stage_fields)
+#: x planes in kernel F's cp.async ring (stencil_tiled.cuh kPipe)
 PIPE = 4
-PLANE_FIELDS = 3
-#: tile blocks an SM holds at once for kernel A at p <= 4 in f32 (see
-#: blocks_per_sm); the SMs of an H100 SXM
-BLOCKS_PER_SM = 4
+#: the SMs of an H100 SXM
 H100_SMS = 132
 #: plane windows in the TMA ring (stencil_tiled.cuh kRing), a TMA box's
-#: extent along any axis at most (kBoxMax), and the x-chunk rows of kernels
-#: D and E: longer chunks than A's, since at p = 8-10 each chunk streams 2p
-#: warm-up planes
+#: extent along any axis at most (kBoxMax), and the least and the most
+#: x-chunk rows of the TMA kernels and kernel F (at p = 8-10 each chunk
+#: streams 2p warm-up planes)
 RING = 6
 BOX_MAX = 256
 CHUNK_X_TMA = (16, 128)
@@ -68,13 +60,6 @@ CHUNK_X_TMA = (16, 128)
 PADDING_LAYERS = 1
 #: bytes of shared memory a block may use on an H100 (227 KB)
 SMEM_LIMIT = 232_448
-
-
-def blocks_per_sm(itemsize: int, p: int) -> int:
-    """Tile blocks an SM holds at once: the launch bounds of
-    ``csrc/rk4_tiled.cu::min_blocks<T, P>`` (bf16, 2 bytes, takes f32's
-    rule: measured faster than f64's, PERF.md §6)."""
-    return BLOCKS_PER_SM if itemsize <= 4 and p <= 4 else 1
 
 
 def tma_blocks_per_sm(itemsize: int) -> int:
@@ -122,39 +107,6 @@ def _chunks(Nx, p, tiles, slots, chunk_x):
     return max(range(_cdiv(Nx, chunk_x[1]), _cdiv(Nx, chunk_x[0]) + 1), key=score)
 
 
-def tiled_geometry(layout: PaddedLayout, itemsize: int = 4, sms: int = H100_SMS,
-                   tile_z: int = TILE_Z, tile_threads: int = TILE_THREADS,
-                   chunk_x: tuple[int, int] = CHUNK_X, ring: int = 0):
-    """(grid, TY, TZ, CX, smem_bytes) of kernel A's stage kernel on
-    ``layout``'s box grown by ``ring`` (``PaddedLayout.box``: the interior
-    for ``ring = 0``).
-
-    The tiles are as even as the interior allows (at most ``tile_z`` along
-    z, at most ``tile_threads`` points), so a ragged last tile loses little.
-    The number of x-chunks (CX between ``chunk_x``'s bounds) fills the
-    block slots of the card's ``sms`` SMs in as few waves as it can.
-    ``smem_bytes`` holds PIPE planes of PLANE_FIELDS fields over the tile
-    and its p-deep y/z halo, in ``itemsize``-byte values, and the window's
-    table of int32 offsets."""
-    _, nx, _, ny, nz = layout.box(ring)
-    return _tiled_geometry((nx, ny, nz), layout.p, itemsize, sms,
-                           tile_z, tile_threads, tuple(chunk_x))
-
-
-@functools.cache
-def _tiled_geometry(shape, p, itemsize, sms, tile_z, tile_threads, chunk_x):
-    Nx, Ny, Nz = shape
-    # bf16 windows are copied in pairs (stencil_tiled.cuh::fetch_plane): TZ even
-    nz_tiles, tz, ny_tiles, ty = _tiles(Ny, Nz, tile_z, tile_threads,
-                                        tz_unit=2 if itemsize == 2 else 1)
-    chunks = _chunks(Nx, p, nz_tiles * ny_tiles, sms * blocks_per_sm(itemsize, p),
-                     chunk_x)
-    cx = _cdiv(Nx, chunks)
-    window = (ty + 2 * p) * (tz + 2 * p)
-    smem = PIPE * PLANE_FIELDS * window * itemsize + 4 * window
-    return (nz_tiles, ny_tiles, _cdiv(Nx, cx)), ty, tz, cx, smem
-
-
 def grid_pitch(tz: int, p: int, rows: int) -> int:
     """The pitch of kernel F's plane window in shared memory
     (``csrc/stiffness_tiled.cu::grid_pitch``): at least TZ + 2p, with
@@ -175,8 +127,8 @@ def window_pitch(tz: int, p: int, rows: int, Nz: int, itemsize: int) -> int:
 
 def grid_geometry(shape, p: int, itemsize: int = 4, sms: int = H100_SMS):
     """(grid, TY, TZ, CX, smem_bytes) of kernel F on the unpadded dof grid
-    ``shape`` [Nx, Ny, Nz]: :func:`tiled_geometry`'s policy on the grid
-    itself (no padding: the tiles start at 0), a thread owning grid_rows
+    ``shape`` [Nx, Ny, Nz]: :func:`tma_geometry`'s tiles and chunks on the
+    grid itself (no padding: the tiles start at 0), a thread owning grid_rows
     rows of its column (TY and TZ multiples of it, TY / grid_rows x TZ
     threads), the chunks filling tma_blocks_per_sm blocks an SM, CX within
     CHUNK_X_TMA (2p warm-up planes a chunk up to p = 10); ``smem_bytes``
