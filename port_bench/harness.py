@@ -8,7 +8,11 @@ file of its own under this directory, found by the name that
 
 - ``configs/<config>.json`` (the file named under ``configs``): the sizes;
   its ``entry`` names the module of ``entries/`` that drives the port, its
-  ``reference`` the module of ``reference/`` that checks it;
+  ``reference`` the module of ``reference/`` that checks it, its
+  ``operator`` the file of ``operators/`` that counts an apply's
+  operations (``roofline.py``); ``tests/small/<config>.json`` is its size
+  in the CPU tests, ``tests/faults/<entry>.py`` the faults planted under
+  its entry there;
 - ``traffic/<traffic>.json``: the scheme the entry runs, the inputs
   (``inputs.py``), the solves traced, the answers sampled and the roofline
   unit (``roofline.py``);

@@ -3,22 +3,10 @@ the operations and bytes of one unit of a cell's work, counted from the
 problem alone (cells, p, Gauss points, the state's type and the scheme's
 fields; nothing of the port's padding, tiles or launches).
 
-Operations (sum-factorised applies on a box, a multiply-add counted as
-two operations; m = p + 1 nodes, nq Gauss points a direction):
-
-- GLL-collocated stiffness on a box of axis-aligned cells
-  (``stiffness_gll_box``), a cell: there the stiffness is a sum over the
-  axes of the 1D stiffness D^T W D / h along one axis times the GLL
-  weights of the other two, which are diagonal. So an axis costs one
-  precomputed 1D product (2 m^4) and the other two axes' weights as one
-  scaling (m^3); then the sum over the axes (2 m^3) and the assembly add
-  (m^3): 6 m^4 + 6 m^3. A general hex, with its three derivatives and
-  their transposes applied apart, costs about twice that: another
-  operator.
-- Gauss mass, a cell: interpolation to the Gauss points, x then y then z
-  (2 nq m^3, 2 nq^2 m^2, 2 nq^3 m), the quadrature weight (nq^3), the
-  transposed interpolation (the same three) and the assembly add (m^3):
-  4 (nq m^3 + nq^2 m^2 + nq^3 m) + nq^3 + m^3.
+Operations: the configuration names its operator (``operator``), and
+``operators/<operator>.py`` gives the operations of one sum-factorised
+apply a cell, ``cell_flops(degree, config)``, with its derivation; an
+apply on the mesh costs that times the cells.
 
 Bytes: each field that the scheme carries across a unit of work read
 once and written once, plus each extra vector the unit reads or writes
@@ -27,13 +15,14 @@ item size, on the unpadded dof grid.
 
 A traffic file's ``roofline`` object names the unit (``per``), the
 applies a unit (``applies``), the fields carried (``fields``) and the
-extra vector transfers (``extra_vectors``); the configuration names the
-operator (``operator``).
+extra vector transfers (``extra_vectors``).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import math
+from pathlib import Path
 
 __all__ = ["PEAKS", "peaks", "ndofs", "apply_flops", "unit_work", "least_time_s", "share_pct"]
 
@@ -61,24 +50,27 @@ def ndofs(cells, degree: int) -> int:
     return math.prod(n * degree + 1 for n in cells)
 
 
-def apply_flops(operator: str, cells, degree: int, gauss_points: int | None = None) -> int:
-    """Operations of one sum-factorised apply of ``operator`` on the box."""
-    m = degree + 1
-    if operator == "stiffness_gll_box":
-        per_cell = 6 * m ** 4 + 6 * m ** 3
-    elif operator == "mass_gauss":
-        q = gauss_points
-        per_cell = 4 * (q * m ** 3 + q ** 2 * m ** 2 + q ** 3 * m) + q ** 3 + m ** 3
-    else:
-        raise ValueError(f"operator {operator!r}: stiffness_gll_box or mass_gauss")
-    return math.prod(cells) * per_cell
+#: the operators' counts, a file each, found by the configuration's name
+OPERATORS = Path(__file__).resolve().parent / "operators"
+
+
+def apply_flops(config: dict) -> int:
+    """Operations of one sum-factorised apply of the configuration's
+    operator on its cells (``operators/<operator>.py``)."""
+    path = OPERATORS / f"{config['operator']}.py"
+    if not path.is_file():
+        raise ValueError(f"operator {config['operator']!r}: no file {path}; add one that "
+                         "defines cell_flops(degree, config)")
+    spec = importlib.util.spec_from_file_location(f"port_bench_operator_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return math.prod(config["cells"]) * mod.cell_flops(config["degree"], config)
 
 
 def unit_work(config: dict, traffic: dict) -> tuple[int, int]:
     """(operations, bytes) of one unit of the cell's work."""
     r = traffic["roofline"]
-    flops = r["applies"] * apply_flops(config["operator"], config["cells"],
-                                       config["degree"], config.get("gauss_points"))
+    flops = r["applies"] * apply_flops(config)
     words = 2 * r["fields"] + r.get("extra_vectors", 0)
     return flops, words * ndofs(config["cells"], config["degree"]) * ITEM_BYTES[config["dtype"]]
 

@@ -55,3 +55,15 @@ def test_traffic_files_hold_their_counts():
     for path in (harness.ROOT / "traffic").glob("*.json"):
         r = json.loads(path.read_text())["roofline"]
         assert r["per"] in ("step", "iter") and r["applies"] >= 1 and r["why"]
+
+
+def test_operators_are_found_by_name():
+    """Each operator's count is a file of ``operators/``, which the roofline
+    finds by the configuration's ``operator`` and does not name; an
+    unknown operator names the file to add."""
+    source = inspect.getsource(roofline)
+    stems = [p.stem for p in roofline.OPERATORS.glob("*.py")]
+    assert stems and not any(s in source for s in stems)
+    config = {**harness.load_cell("planar3d-p4.rk4").config, "operator": "no_such_operator"}
+    with pytest.raises(ValueError, match=r"operators/no_such_operator\.py"):
+        roofline.apply_flops(config)

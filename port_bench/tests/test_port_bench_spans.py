@@ -46,3 +46,19 @@ def test_spans_leave_the_device_readings_as_they_are():
     assert [g[0] for g in gaps] == ["solve: wave.cg.iter", "sync: cudaDeviceSynchronize",
                                     "solve: wave.cg.iter", "solve: aten::add"]
     assert [g[1] for g in gaps] == [g[1] for g in plain.breakdown()["idle_gaps"]]
+
+
+def test_program_spans_and_blocked_intervals_are_kept_apart():
+    """``Trace.program`` holds the program's spans inside the traced window,
+    in order of their start (an outer span first), and ``Trace.blocked``
+    the merged ``Command Buffer Full`` intervals, cut to the window."""
+    extra = [ev("wave.cg.iter", 1200, 1300), ev("Command Buffer Full", 92, 97),
+             ev("Command Buffer Full", 990, 1100), ev("Command Buffer Full", 200, 210)]
+    t = trace.summarize(BASE + SPANS + extra, units=2.0)
+    assert t.program == [("wave.cg.solve", 15, 595), ("wave.cg.iter", 15, 300),
+                         ("wave.cg.matvec", 85, 98), ("wave.cg.iter", 300, 590),
+                         ("wave.cg.stop_test", 430, 480)]
+    assert t.blocked == [(91, 97), (200, 210), (990, 1000)]
+    plain = trace.summarize(BASE, units=2.0)
+    assert (plain.program, plain.blocked) == ([], [])
+    assert t.busy_s == pytest.approx(plain.busy_s) and t.kernels == plain.kernels

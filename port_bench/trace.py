@@ -13,6 +13,12 @@ count once), the compute kernels launched, the CUDA runtime's
 synchronising calls made inside the solve spans, and the breakdown: the
 device operations by total time and the longest idle gaps, each labelled
 with the harness span and the innermost host event at its middle.
+
+Kept apart for readers of the program's own spans: the port's host ranges
+(``wave.*``, ``utils/profiling.py::annotate``) that lie inside the traced
+window, and the merged intervals in which the profiler's ``Command Buffer
+Full`` events held the host. Both stay among the host events as well, so
+that the readings above do not depend on them.
 """
 
 from __future__ import annotations
@@ -20,8 +26,12 @@ from __future__ import annotations
 from collections import defaultdict
 from dataclasses import dataclass, field
 
-__all__ = ["Trace", "summarize", "idle_pct", "SYNC_CALLS"]
+__all__ = ["Trace", "summarize", "idle_pct", "SYNC_CALLS", "PROGRAM_PREFIX", "BLOCKED"]
 
+#: name prefix of the program's own host spans
+PROGRAM_PREFIX = "wave."
+#: the profiler's host event while the launch queue is full
+BLOCKED = "Command Buffer Full"
 #: CUDA runtime calls that block the host until the device catches up
 SYNC_CALLS = frozenset({"cudaStreamSynchronize", "cudaDeviceSynchronize",
                         "cudaEventSynchronize"})
@@ -41,6 +51,12 @@ class Trace:
     #: whether the trace held the runtime's API calls at all
     saw_runtime: bool = False
     idle_gaps: list = field(default_factory=list)
+    #: (name, start us, end us) of each of the program's spans in the window,
+    #: by start (an outer span before the spans it holds)
+    program: list = field(default_factory=list)
+    #: (start us, end us) of the merged ``Command Buffer Full`` intervals
+    #: in the window
+    blocked: list = field(default_factory=list)
 
     def breakdown(self) -> dict:
         ops = sorted(self.by_name.items(), key=lambda kv: -kv[1])[:10]
@@ -50,6 +66,16 @@ class Trace:
 
 def _is_copy(name: str) -> bool:
     return name.startswith(("Memcpy", "Memset"))
+
+
+def _merge(intervals) -> list:
+    merged = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
 
 
 def summarize(events, units: float) -> Trace | None:
@@ -81,12 +107,7 @@ def summarize(events, units: float) -> Trace | None:
     by_name = defaultdict(float)
     for a, b, n in dev:
         by_name[n] += (b - a) * 1e-6
-    merged = []
-    for a, b, _ in sorted(dev):
-        if merged and a <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], b)
-        else:
-            merged.append([a, b])
+    merged = _merge((a, b) for a, b, _ in dev)
     busy_us = sum(b - a for a, b in merged)
     solve_spans = [(a, b) for a, b, n in spans if n == "port_bench.solve"]
     syncs = sum(1 for a, b, n in host if n in SYNC_CALLS
@@ -99,7 +120,12 @@ def summarize(events, units: float) -> Trace | None:
         kernels=[(n, a, b) for a, b, n in dev if not _is_copy(n)], by_name=dict(by_name),
         host_syncs=syncs, saw_runtime=any(n.startswith("cuda") for _, _, n in host),
         idle_gaps=[[_label(start + length / 2, spans, host), length * 1e-6]
-                   for length, start in gaps])
+                   for length, start in gaps],
+        program=sorted(((n, a, b) for a, b, n in host
+                        if n.startswith(PROGRAM_PREFIX) and w0 <= a and b <= w1),
+                       key=lambda s: (s[1], -s[2])),
+        blocked=[tuple(ab) for ab in _merge((max(a, w0), min(b, w1)) for a, b, n in host
+                                            if n == BLOCKED and b > w0 and a < w1)])
 
 
 def _label(t: float, spans, host) -> str:
