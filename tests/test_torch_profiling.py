@@ -1,7 +1,8 @@
 """The port's spans (``utils/profiling.py``): ``annotate`` is a shared no-op
 without a recording profiler and a named host range under one; CG and the
 box's step paths open one span per unit of work and compute the same
-answers with and without the profiler; the readings of a trace
+answers with and without the profiler, as does a general mesh's RK4
+solve (``wave.rk4_eager.step``); the readings of a trace
 (``host_span_us``, ``device_busy_us``) on hand-made events."""
 
 from types import SimpleNamespace
@@ -12,6 +13,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from _torch_cases import random_padded, torch_model
+from wave_fenics_tpu_torch.benchmarks.general_solve import perturbed_box
+from wave_fenics_tpu_torch.models.general_wave import GeneralLinearWave
 from wave_fenics_tpu_torch.models.linear_wave_padded import PaddedLinearWave
 from wave_fenics_tpu_torch.solvers.cg import cg
 from wave_fenics_tpu_torch.utils import profiling
@@ -126,6 +129,45 @@ def test_lf2_call_spans(box, nsteps):
     assert _count(spans, "wave.lf2.solve") == 1
     assert _count(spans, "wave.lf.step") == nsteps % 2
     assert 2 * _count(spans, "wave.lf2.call") + _count(spans, "wave.lf.step") == nsteps
+
+
+@pytest.fixture(scope="module")
+def general():
+    hm, tags = perturbed_box((3, 2, 2), h=0.025, seed=1)
+    model = GeneralLinearWave(hm, 2, tags, dtype=F64, device="cpu")
+    g = torch.Generator().manual_seed(6)
+    u0, v0 = (torch.randn(model.ndofs, dtype=F64, generator=g) for _ in range(2))
+    return model, u0, v0
+
+
+@pytest.mark.parametrize("nsteps", [2, 3])
+def test_general_rk4_spans(general, nsteps):
+    """A general mesh's RK4 solve: one ``wave.rk4_eager.step`` a step, one
+    after another, and no other span of the port; the same answer bit for
+    bit with the profiler and without."""
+    model, u0, v0 = general
+    dt = 2e-8
+    want = model.solve_n(0.0, dt, nsteps, u0, v0)
+    got, spans = _traced(lambda: model.solve_n(0.0, dt, nsteps, u0, v0))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert [n for n, _, _ in spans] == ["wave.rk4_eager.step"] * nsteps
+    steps = sorted((a, b) for _, a, b in spans)
+    assert all(b0 <= a1 for (_, b0), (a1, _) in zip(steps, steps[1:]))
+
+
+def test_general_solve_records_no_span_without_a_profiler(general, monkeypatch):
+    """Without a recording profiler the general solve makes no profiler
+    call, and its answer is the profiled one's bit for bit."""
+    model, u0, v0 = general
+    profiled, spans = _traced(lambda: model.solve_n(0.0, 2e-8, 2, u0, v0))
+    assert _count(spans, "wave.rk4_eager.step") == 2
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a profiler call with no profiler recording")
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    u, v = model.solve_n(0.0, 2e-8, 2, u0, v0)
+    assert torch.equal(u, profiled[0]) and torch.equal(v, profiled[1])
 
 
 def ev(name, a, b, dev=CPU):

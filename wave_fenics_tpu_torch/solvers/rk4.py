@@ -16,6 +16,8 @@ from typing import Callable
 
 import torch
 
+from ..utils.profiling import annotate
+
 __all__ = ["rk4_step", "rk4_solve_n", "rk4_solve_n_recording", "rk4_solve"]
 
 # Butcher tableau of the reference (LinearGLL.hpp:233-236)
@@ -36,19 +38,21 @@ def rk4_step(
 
     Matches LinearGLL.hpp:249-266 (stage structure, update order); the
     reference's a_0 = 0 makes the stale ku/kv it carries into stage 0
-    irrelevant, so carrying no k state across steps is equivalent.
+    irrelevant, so carrying no k state across steps is equivalent. The
+    step is the span ``wave.rk4_eager.step`` (``utils/profiling.py``).
     """
-    u0, v0 = u, v
-    ku, kv = u, v  # values unused at stage 0 (a_0 = 0)
-    for i in range(4):
-        un = u0 + dt * _A[i] * ku
-        vn = v0 + dt * _A[i] * kv
-        tn = t + _C[i] * dt
-        ku = f0(tn, un, vn)
-        kv = f1(tn, un, vn)
-        u = u + dt * _B[i] * ku
-        v = v + dt * _B[i] * kv
-    return u, v
+    with annotate("wave.rk4_eager.step"):
+        u0, v0 = u, v
+        ku, kv = u, v  # values unused at stage 0 (a_0 = 0)
+        for i in range(4):
+            un = u0 + dt * _A[i] * ku
+            vn = v0 + dt * _A[i] * kv
+            tn = t + _C[i] * dt
+            ku = f0(tn, un, vn)
+            kv = f1(tn, un, vn)
+            u = u + dt * _B[i] * ku
+            v = v + dt * _B[i] * kv
+        return u, v
 
 
 def rk4_solve_n(

@@ -6,7 +6,9 @@ solvers open a span, named with the prefix ``wave.``, around each unit of
 work: ``wave.rk4.solve`` and ``wave.rk4.step`` (kernel A or C),
 ``wave.lf2.solve`` and ``wave.lf2.call`` (kernel I), ``wave.lf.step``
 (kernel H), ``wave.cg.solve``, ``wave.cg.iter``, ``wave.cg.stop_test``
-and ``wave.cg.matvec``.
+and ``wave.cg.matvec``; ``wave.rk4_eager.step`` around each step of the
+eager RK4 loop (``solvers/rk4.py``: a general mesh's solve, kernel K's
+applies and the stage algebra, or whatever model it steps).
 
 A span is recorded only while a ``torch.profiler`` records; otherwise
 ``annotate`` hands back one shared no-op context, so a solve that is not
